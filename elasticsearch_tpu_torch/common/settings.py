@@ -1,0 +1,90 @@
+"""ES_TPU_* environment knob registry (the port's copy of the registry half
+of elasticsearch_tpu/common/settings.py).
+
+Only the knobs this slice reads are declared, under the reference's names
+and defaults, so an A/B run sets the same environment for both packages.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Callable
+
+from elasticsearch_tpu_torch.common.errors import IllegalArgumentError
+
+
+@dataclass(frozen=True)
+class EnvKnob:
+    """One declared ES_TPU_* environment knob."""
+
+    name: str
+    type: str          # 'int' | 'float' | 'str' | 'flag' ('1' == on)
+    default: Any       # None means "computed by the consumer"
+    doc: str
+
+
+ENV_KNOBS: dict[str, EnvKnob] = {}
+
+_KNOB_PARSERS: dict[str, Callable[[str], Any]] = {
+    "int": int,
+    "float": float,
+    "str": str,
+    "flag": lambda raw: raw == "1",
+}
+
+_UNSET = object()
+
+
+class UndeclaredKnobError(KeyError):
+    """An ES_TPU_* knob was read without being declared in the registry."""
+
+
+def declare_knob(name: str, type: str, default: Any, doc: str) -> EnvKnob:
+    if type not in _KNOB_PARSERS:
+        raise IllegalArgumentError(f"unknown knob type [{type}] for [{name}]")
+    k = EnvKnob(name, type, default, doc)
+    ENV_KNOBS[name] = k
+    return k
+
+
+def knob(name: str, default: Any = _UNSET) -> Any:
+    """Current value of a declared knob: the parsed environment value when
+    set, else `default` (usually the declared one). Reads the environment
+    per call, and falls back to the default on an unparseable value, as the
+    reference does."""
+    decl = ENV_KNOBS.get(name)
+    if decl is None:
+        raise UndeclaredKnobError(
+            f"ES_TPU knob [{name}] is not declared in "
+            f"common/settings.py — declare_knob() it")
+    fallback = decl.default if default is _UNSET else default
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return fallback
+    try:
+        return _KNOB_PARSERS[decl.type](raw)
+    except (TypeError, ValueError):
+        return fallback
+
+
+declare_knob("ES_TPU_FAULTS", "str", "",
+             "Fault-injection spec `site[#part]:mode[@nth][xcount][=arg]"
+             "[~prob];…` installed at import (common/faults.py)")
+declare_knob("ES_TPU_FAULTS_SEED", "int", 0,
+             "Seed for probabilistic (~prob) fault clauses")
+declare_knob("ES_TPU_TURBO_HBM", "int", 6 << 30,
+             "Device-memory budget in bytes for TurboBM25's int8 column cache")
+declare_knob("ES_TPU_TURBO_COLD_DF", "int", None,
+             "Doc-frequency threshold below which terms stay cold; "
+             "default: parallel/turbo.py COLD_DF")
+declare_knob("ES_TPU_FORCE_TURBO", "flag", False,
+             "'1' makes Turbo eligible on the CPU (differential tests run "
+             "the kernels' plain torch versions)")
+declare_knob("ES_TPU_SPARSE", "flag", True,
+             "Eager sparse impact slices: cold (df < COLD_DF) terms score "
+             "on device via the sparse_gather kernel (0 = host cold path)")
+declare_knob("ES_TPU_SPARSE_WIDTHS", "str", "1024,4096,16384",
+             "Comma-separated slice-width ladder for eager sparse cold-"
+             "term slices (each rung rounds up to a 1024-posting granule; "
+             "a term uses the smallest rung >= its df)")

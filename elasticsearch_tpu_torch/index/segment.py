@@ -1,0 +1,158 @@
+"""Block postings for one inverted field (the port's copy of `FieldPostings`,
+`tf_at` and `build_field_postings` from elasticsearch_tpu/index/segment.py,
+plus `postings_from_arrays`, which carries an index built by the reference
+across to the port).
+
+Layout (as in the reference): all of a field's postings concatenated as
+[n_blocks, 128] (doc-id, tf) host arrays plus per-term (block_start,
+block_count); block row 0 is reserved all-zero padding, and the unused
+lanes of a term's last row hold doc 0 with tf 0. The positions CSR is
+carried from the reference but read by no ported path yet. The serving
+engine copies what it needs onto the device itself.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Mapping, Sequence
+
+import numpy as np
+
+BLOCK = 128
+
+# FieldPostings' array fields, in the order bench.py caches them
+POSTINGS_ARRAYS = ("doc_freq", "total_term_freq", "block_start",
+                   "block_count", "block_docs", "block_tfs", "block_max_tf",
+                   "post_start", "post_doc", "pos_start", "pos_data",
+                   "doc_len")
+
+
+@dataclass
+class FieldPostings:
+    """Block postings + positions for one inverted (text/keyword) field."""
+
+    field: str
+    term_to_ord: Dict[str, int]
+    terms: List[str]                    # ord -> term (sorted)
+    doc_freq: np.ndarray                # [n_terms] i32
+    total_term_freq: np.ndarray         # [n_terms] i64
+    block_start: np.ndarray             # [n_terms] i32 (row into block arrays)
+    block_count: np.ndarray             # [n_terms] i32
+    block_docs: np.ndarray              # [n_blocks, BLOCK] i32 (row 0 = zeros)
+    block_tfs: np.ndarray               # [n_blocks, BLOCK] f32
+    block_max_tf: np.ndarray            # [n_blocks] f32
+    post_start: np.ndarray              # [n_terms + 1] i64
+    post_doc: np.ndarray                # [total_postings] i32
+    pos_start: np.ndarray               # [total_postings + 1] i64
+    pos_data: np.ndarray                # [total_positions] i32
+    doc_len: np.ndarray                 # [n_docs] f32 (0 if absent)
+    sum_doc_len: float
+
+    def ord(self, term: str) -> int:
+        return self.term_to_ord.get(term, -1)
+
+
+def postings_from_arrays(arrays: Mapping[str, np.ndarray],
+                         terms: Sequence[str], sum_doc_len: float,
+                         field: str = "body") -> FieldPostings:
+    """The port's FieldPostings over the reference's arrays (the
+    `POSTINGS_ARRAYS` of a reference FieldPostings, as bench.py caches
+    them), with `terms` in ord order. The arrays are used as given."""
+    missing = [n for n in POSTINGS_ARRAYS if n not in arrays]
+    if missing:
+        raise ValueError(f"postings arrays missing: {missing}")
+    terms = list(terms)
+    if len(terms) != len(arrays["doc_freq"]):
+        raise ValueError(f"{len(terms)} terms for "
+                         f"{len(arrays['doc_freq'])} doc_freq entries")
+    return FieldPostings(
+        field=field, term_to_ord={t: i for i, t in enumerate(terms)},
+        terms=terms, sum_doc_len=float(sum_doc_len),
+        **{n: np.asarray(arrays[n]) for n in POSTINGS_ARRAYS})
+
+
+def tf_at(fp: FieldPostings, term: str,
+          docs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(tf f32[n], present bool[n]) of `term` for sorted candidate docs."""
+    o = fp.term_to_ord.get(term)
+    if o is None:
+        return np.zeros(len(docs), np.float32), np.zeros(len(docs), bool)
+    lo, hi = int(fp.post_start[o]), int(fp.post_start[o + 1])
+    seg = fp.post_doc[lo:hi]
+    j = np.searchsorted(seg, docs)
+    present = (j < hi - lo)
+    present[present] = seg[j[present]] == docs[present]
+    within = np.where(present, j, 0).astype(np.int64)
+    row = int(fp.block_start[o]) + within // 128
+    lane = within % 128
+    tf = fp.block_tfs[row, lane].astype(np.float32)
+    return np.where(present, tf, 0.0), present
+
+
+def build_field_postings(
+    field: str,
+    doc_lens: np.ndarray,      # [n_docs] token count per doc
+    token_docs: np.ndarray,    # [n_tokens] doc ord of each token
+    token_terms: np.ndarray,   # [n_tokens] term ord of each token
+    term_names: List[str],     # term ord -> term string (sorted)
+) -> FieldPostings:
+    """Columnar bulk postings build: token arrays -> block postings (the
+    reference's builder without its positions option: no ported path reads
+    positions yet, so pos_start is all zeros and pos_data empty)."""
+    n_docs = len(doc_lens)
+    n_terms = len(term_names)
+    key = token_terms.astype(np.int64) * n_docs + token_docs.astype(np.int64)
+    uniq, tf = np.unique(key, return_counts=True)
+    term_ord = (uniq // n_docs).astype(np.int64)
+    doc_ord = (uniq % n_docs).astype(np.int64)
+    tf = tf.astype(np.float32)
+    doc_len = doc_lens.astype(np.float32)
+
+    doc_freq = np.bincount(term_ord, minlength=n_terms).astype(np.int32)
+    n_blocks_per_term = (doc_freq + BLOCK - 1) // BLOCK
+    block_start = np.zeros(n_terms, np.int32)
+    if n_terms:
+        block_start[0] = 1
+        np.cumsum(n_blocks_per_term[:-1], out=block_start[1:])
+        block_start[1:] += 1
+    total_blocks = 1 + int(n_blocks_per_term.sum())
+
+    term_offsets = np.zeros(n_terms + 1, np.int64)
+    np.cumsum(doc_freq, out=term_offsets[1:])
+    within = np.arange(len(term_ord), dtype=np.int64) - term_offsets[term_ord]
+    row = block_start[term_ord] + (within // BLOCK).astype(np.int32)
+    lane = (within % BLOCK).astype(np.int32)
+
+    block_docs = np.zeros((total_blocks, BLOCK), np.int32)
+    block_tfs = np.zeros((total_blocks, BLOCK), np.float32)
+    block_docs[row, lane] = doc_ord
+    block_tfs[row, lane] = tf
+    block_max_tf = np.zeros(total_blocks, np.float32)
+    if len(term_ord):
+        starts = np.nonzero(lane == 0)[0]
+        block_max_tf[row[starts]] = np.maximum.reduceat(tf, starts)
+
+    total_tf = np.zeros(n_terms, np.int64)
+    nz = doc_freq > 0
+    if nz.any():
+        total_tf[nz] = np.add.reduceat(tf.astype(np.int64),
+                                       term_offsets[:-1][nz])
+
+    return FieldPostings(
+        field=field,
+        term_to_ord={t: i for i, t in enumerate(term_names)},
+        terms=list(term_names),
+        doc_freq=doc_freq,
+        total_term_freq=total_tf,
+        block_start=block_start,
+        block_count=n_blocks_per_term.astype(np.int32),
+        block_docs=block_docs,
+        block_tfs=block_tfs,
+        block_max_tf=block_max_tf,
+        post_start=term_offsets,
+        post_doc=doc_ord.astype(np.int32),
+        pos_start=np.zeros(len(term_ord) + 1, np.int64),
+        pos_data=np.empty(0, np.int32),
+        doc_len=doc_len,
+        sum_doc_len=float(doc_len.sum()),
+    )

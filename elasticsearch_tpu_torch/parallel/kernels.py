@@ -1,0 +1,370 @@
+"""The serving path's device kernels: hand-written CUDA for Hopper, each with
+its plain torch version beside it.
+
+Port of the main-path Pallas kernels of elasticsearch_tpu/parallel/kernels.py:
+
+* K1 `build_columns` (reference :730) -> csrc/build_columns.cu
+* K2 `sweep_rowmax`  (reference :148) -> csrc/sweep_rowmax.cu
+* K3 `sparse_gather` (reference :876, two pallas_calls) -> csrc/sparse_gather.cu
+
+Each wrapper checks device, dtype, shape and contiguity (raising TypeError
+or ValueError), then: for tensors on the CPU it runs the plain version
+(`*_plain`, the role Pallas interpret mode plays for the reference); for
+tensors on a CUDA device it launches the kernel on the current stream,
+checks the launch, and adds one to `LAUNCHES[name]`. It never falls back
+from the kernel to the plain version. The plain versions are torch on any
+device, so `chip_smoke.py` holds each kernel against its plain version on
+the card. Both are bitwise equal to the reference (tests/test_torch_kernels.py).
+
+`build_columns` updates the column cache in place, where the reference
+donated it; the others allocate their outputs with torch.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from elasticsearch_tpu_torch.common.errors import KernelLaunchError
+
+SW = 65536            # docs per superwindow (candidate granularity)
+TILE = 16384          # docs per build tile
+SW_ROWS = SW // 128   # 512
+CHUNK_ROWS = 16       # 2048 docs per chunk-major of the column cache
+N_CHUNKS = SW_ROWS // CHUNK_ROWS   # 32 chunks per superwindow
+CHUNK = CHUNK_ROWS * 128           # 2048
+NCAND = 17            # candidates kept per (query, superwindow)
+CAND_PAD = 32         # padded candidate lane width
+K1 = 1.2
+COLSCALE = (K1 + 1.0) / 127.0       # hi-layer int8 step
+COLSCALE2 = COLSCALE / 128.0        # lo-layer step (~14-bit combined)
+MAX_GROUP_ROWS = 144  # trailing padding rows of the lane arrays
+ROWS_PER_STEP = 8     # dispatch widths are multiples of this
+SPARSE_GRAN = 1024    # packed (doc, impact) lanes per slice-pool granule
+SPARSE_IMP_MAX = 255  # uint8 impact quantization ceiling (doc << 8 | imp)
+
+# the reference multiplies f32 tiles by these Python constants, which JAX
+# rounds to f32; the same f32 values here, and passed to the CUDA kernel
+_INV_CS = float(np.float32(1.0 / COLSCALE))
+_CS = float(np.float32(COLSCALE))
+_INV_CS2 = float(np.float32(1.0 / COLSCALE2))
+
+# launches of each CUDA kernel since the last reset (plain runs not counted)
+LAUNCHES: Dict[str, int] = {"build_columns": 0, "sweep_rowmax": 0,
+                            "sparse_gather": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(t, name: str, dtype: torch.dtype, ndim: int, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _route(device: torch.device) -> bool:
+    """True for the CUDA kernel, False for the plain version (CPU)."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise TypeError(f"no kernel for device {device}")
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    from elasticsearch_tpu_torch.parallel.cuda_build import kernel
+
+    fn = kernel(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise KernelLaunchError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+
+
+# --------------------------------------------------------------------------
+# K1 column builder
+# --------------------------------------------------------------------------
+
+
+def _quantize(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 (hi, lo) layers of f32 impacts, as the reference's build kernel:
+    hi = clip(round(t / COLSCALE)), lo = clip(round(fma(-hi, COLSCALE, t) /
+    COLSCALE2)) with both divisions as multiplies by f32 constants, and
+    lo = 1 on present cells whose (hi, lo) would be (0, 0).
+
+    XLA on the CPU contracts `t - hi * COLSCALE` into a fused multiply-add
+    (measured: 24 of 98,304 cells differ without it). The fma is computed
+    exactly here: hi * COLSCALE is exact in float64, and t lies within a
+    factor of two of it whenever hi != 0, so the float64 difference is exact
+    and one rounding to f32 gives the correctly rounded fma."""
+    hi = torch.clamp(torch.round(t * _INV_CS), -127.0, 127.0)
+    r = (t.double() - hi.double() * _CS).float()
+    lo = torch.clamp(torch.round(r * _INV_CS2), -127.0, 127.0)
+    lo = torch.where((t > 0) & (hi == 0) & (lo == 0),
+                     torch.ones_like(lo), lo)
+    return hi.to(torch.int8), lo.to(torch.int8)
+
+
+def build_columns_plain(g_rows, g_nrows, g_base, g_slot, lane_docs,
+                        lane_scores, cols_hi, cols_lo) -> None:
+    """Plain torch K1, in place. Groups are taken in launch order, a chunk
+    of groups at a time; within a chunk each (slot, tile) is written once,
+    which is the kernel's precondition too."""
+    dev = cols_hi.device
+    ng = int(g_rows.shape[0])
+    if ng == 0:
+        return
+    dpc, hpt = cols_hi.shape[0], cols_hi.shape[1]
+    ch = cols_hi.view(dpc, hpt, CHUNK)
+    cl = cols_lo.view(dpc, hpt, CHUNK)
+    flat_docs = lane_docs.reshape(-1)
+    flat_sc = lane_scores.reshape(-1)
+    u8 = torch.arange(TILE // CHUNK, device=dev)
+    group_chunk = 1024            # bounds the [groups, lanes] temporaries
+    for s in range(0, ng, group_chunk):
+        e = min(ng, s + group_chunk)
+        r0 = g_rows[s:e].long()
+        n = g_nrows[s:e].long()
+        base = g_base[s:e].long()
+        slot = g_slot[s:e].long()
+        g = e - s
+        width = int(n.max()) * 128
+        tile = torch.zeros(g * TILE, dtype=torch.float32, device=dev)
+        if width:
+            j = torch.arange(width, device=dev)
+            valid = j[None, :] < n[:, None] * 128
+            lid = torch.where(valid, r0[:, None] * 128 + j[None, :], 0)
+            d = flat_docs[lid].long()
+            v = flat_sc[lid]
+            rel = d - base[:, None]
+            # one lane per (term, doc) and score-0 padding lanes: storing the
+            # nonzero lanes equals the reference's one-hot matmul sum
+            ok = valid & (rel >= 0) & (rel < TILE) & (v != 0)
+            cell = torch.arange(g, device=dev)[:, None] * TILE + rel
+            tile[cell[ok]] = v[ok]
+        hi, lo = _quantize(tile)
+        dst_chunk = (base // CHUNK)[:, None] + u8[None, :]          # [g, 8]
+        dst_slot = slot[:, None].expand(g, TILE // CHUNK)
+        ch[dst_chunk.reshape(-1), dst_slot.reshape(-1)] = hi.view(-1, CHUNK)
+        cl[dst_chunk.reshape(-1), dst_slot.reshape(-1)] = lo.view(-1, CHUNK)
+
+
+def build_columns(g_rows, g_nrows, g_base, g_slot, lane_docs, lane_scores,
+                  cols_hi, cols_lo) -> None:
+    """Fill int8 hi/lo column tiles from posting lanes, in place.
+
+    One group = one (column slot, 16384-doc tile): it writes the whole tile
+    from its lanes rows [g_rows, g_rows + g_nrows) masked to the tile
+    (nrows = 0 writes zeros: eviction and scratch groups).
+
+    g_rows/g_nrows/g_base/g_slot [NG] i32 — g_base a multiple of TILE
+    lane_docs [T, 128] i32, lane_scores [T, 128] f32
+    cols_hi/cols_lo [dp_chunks, Hpt, 16, 128] i8, updated in place
+    Groups of one call must write distinct (slot, tile) pairs, except
+    zero groups (their blocks run in no order on the card).
+    """
+    dev = cols_hi.device
+    _check(cols_hi, "cols_hi", torch.int8, 4, dev)
+    _check(cols_lo, "cols_lo", torch.int8, 4, dev)
+    if cols_lo.shape != cols_hi.shape or tuple(cols_hi.shape[2:]) != (16, 128):
+        raise ValueError(f"cols shapes {tuple(cols_hi.shape)} / "
+                         f"{tuple(cols_lo.shape)} are not [dpc, Hpt, 16, 128]")
+    if cols_hi.shape[0] % (TILE // CHUNK):
+        raise ValueError("cols dp_chunks must cover whole 16384-doc tiles")
+    for nm, t in (("g_rows", g_rows), ("g_nrows", g_nrows),
+                  ("g_base", g_base), ("g_slot", g_slot)):
+        _check(t, nm, torch.int32, 1, dev)
+        if t.shape != g_rows.shape:
+            raise ValueError(f"{nm} has {t.shape[0]} groups, "
+                             f"g_rows {g_rows.shape[0]}")
+    _check(lane_docs, "lane_docs", torch.int32, 2, dev)
+    _check(lane_scores, "lane_scores", torch.float32, 2, dev)
+    if lane_docs.shape != lane_scores.shape or lane_docs.shape[1] != 128:
+        raise ValueError("lane arrays must both be [T, 128]")
+    if not _route(dev):
+        build_columns_plain(g_rows, g_nrows, g_base, g_slot, lane_docs,
+                            lane_scores, cols_hi, cols_lo)
+        return
+    _launch("build_columns", dev,
+            g_rows.data_ptr(), g_nrows.data_ptr(), g_base.data_ptr(),
+            g_slot.data_ptr(), int(g_rows.shape[0]), lane_docs.data_ptr(),
+            lane_scores.data_ptr(), int(lane_docs.shape[0]),
+            cols_hi.data_ptr(), cols_lo.data_ptr(), int(cols_hi.shape[0]),
+            int(cols_hi.shape[1]), _INV_CS, _CS, _INV_CS2)
+
+
+# --------------------------------------------------------------------------
+# K2 query sweep
+# --------------------------------------------------------------------------
+
+
+def sweep_rowmax_plain(qscale, cols_hi, cols_lo, wq, live, *, nsw: int):
+    """Plain torch K2. The four int8 products are taken in float64 over the
+    slots any query weights (exact: every partial sum is an integer below
+    2^53), so they equal the reference's int32 products; the combine,
+    masks, row max and (rowmax desc, row asc) top-NCAND follow it step by
+    step. A stable descending sort gives the ascending-row tie order."""
+    dev = cols_hi.device
+    qc, hpt = wq.shape[1], wq.shape[2]
+    rm = torch.full((nsw, qc, CAND_PAD), float("-inf"), dtype=torch.float32,
+                    device=dev)
+    rr = torch.zeros((nsw, qc, CAND_PAD), dtype=torch.int32, device=dev)
+    slots = torch.nonzero((wq != 0).any(dim=0).any(dim=0)).flatten()
+    if slots.numel() == 0:
+        return rm, rr
+    wh = wq[0][:, slots].double()
+    wl = wq[1][:, slots].double()
+    sw_chunk = 4                  # bounds the [QC, docs] temporaries
+    for s0 in range(0, nsw, sw_chunk):
+        s1 = min(nsw, s0 + sw_chunk)
+        ns = s1 - s0
+        c = slice(s0 * N_CHUNKS, s1 * N_CHUNKS)
+        h = cols_hi[c][:, slots].permute(1, 0, 2, 3).reshape(len(slots), -1)
+        lo = cols_lo[c][:, slots].permute(1, 0, 2, 3).reshape(len(slots), -1)
+        h, lo = h.double(), lo.double()
+        m_hh = (wh @ h).to(torch.int32)
+        m_hl = (wh @ lo).to(torch.int32)
+        m_lh = (wl @ h).to(torch.int32)
+        m_ll = (wl @ lo).to(torch.int32)
+        val = (16384.0 * m_hh.float() + 128.0 * (m_hl + m_lh).float()
+               + m_ll.float())
+        val = val * qscale
+        lv = live[s0 * SW_ROWS: s1 * SW_ROWS].reshape(1, -1)
+        val = torch.where((lv > 0) & (val > 0), val,
+                          torch.full_like(val, float("-inf")))
+        rowmax = val.view(qc, ns, SW_ROWS, 128).amax(dim=3)
+        top_m, idx = torch.sort(rowmax, dim=2, descending=True, stable=True)
+        top_m = top_m[:, :, :NCAND]
+        rows = idx[:, :, :NCAND].to(torch.int32) + (
+            torch.arange(s0, s1, device=dev, dtype=torch.int32)
+            * SW_ROWS)[None, :, None]
+        keep = top_m > float("-inf")
+        rm[s0:s1, :, :NCAND] = top_m.permute(1, 0, 2)
+        rr[s0:s1, :, :NCAND] = torch.where(
+            keep, rows, torch.zeros_like(rows)).permute(1, 0, 2)
+    return rm, rr
+
+
+def sweep_rowmax(qscale, cols_hi, cols_lo, wq, live, *, nsw: int):
+    """Pass 1: sweep the column cache for QC queries.
+
+    qscale [QC, 1] f32 — per-query descale factor (qs2 * COLSCALE2)
+    cols_hi/cols_lo [dp_chunks, Hpt, 16, 128] i8 — chunk-major columns
+    wq [2, QC, Hpt] i8 — hi/lo quantized query weights over slots
+    live [dp_rows, 128] f32
+
+    Returns (rowmax [nsw, QC, CAND_PAD] f32, rows [nsw, QC, CAND_PAD] i32):
+    per superwindow the top NCAND rows by (rowmax desc, row asc), global row
+    ids, padded with (-inf, 0).
+    """
+    dev = cols_hi.device
+    _check(cols_hi, "cols_hi", torch.int8, 4, dev)
+    _check(cols_lo, "cols_lo", torch.int8, 4, dev)
+    _check(wq, "wq", torch.int8, 3, dev)
+    _check(qscale, "qscale", torch.float32, 2, dev)
+    _check(live, "live", torch.float32, 2, dev)
+    qc, hpt = int(wq.shape[1]), int(cols_hi.shape[1])
+    if cols_lo.shape != cols_hi.shape or tuple(cols_hi.shape[2:]) != (16, 128):
+        raise ValueError("cols must both be [dp_chunks, Hpt, 16, 128]")
+    if wq.shape[0] != 2 or wq.shape[2] != hpt or qc < 1:
+        raise ValueError(f"wq shape {tuple(wq.shape)} is not [2, QC, {hpt}]")
+    if tuple(qscale.shape) != (qc, 1):
+        raise ValueError(f"qscale shape {tuple(qscale.shape)} is not [{qc}, 1]")
+    if nsw < 1 or cols_hi.shape[0] < nsw * N_CHUNKS \
+            or live.shape[1] != 128 or live.shape[0] < nsw * SW_ROWS:
+        raise ValueError(f"nsw={nsw} exceeds the cols/live extent")
+    if not _route(dev):
+        return sweep_rowmax_plain(qscale, cols_hi, cols_lo, wq, live, nsw=nsw)
+    rm = torch.empty((nsw, qc, CAND_PAD), dtype=torch.float32, device=dev)
+    rr = torch.empty((nsw, qc, CAND_PAD), dtype=torch.int32, device=dev)
+    _launch("sweep_rowmax", dev, qscale.data_ptr(), cols_hi.data_ptr(),
+            cols_lo.data_ptr(), wq.data_ptr(), live.data_ptr(),
+            rm.data_ptr(), rr.data_ptr(), qc, hpt, int(nsw))
+    return rm, rr
+
+
+# --------------------------------------------------------------------------
+# K3 eager sparse gather (cold tier)
+# --------------------------------------------------------------------------
+
+
+def sparse_gather_plain(coff, cw, ct0, ct1, pool, *, n_tiles: int):
+    """Plain torch K3: chunks are added into per-doc f32 totals one at a
+    time in rc order (a chunk's docs are distinct), each addend
+    f32(imp) * cw rounded on its own, then every lane reads its doc's total
+    back. Lanes with imp = 0, or whose tile lies outside the chunk's
+    [ct0, ct1] or the grid, read 0."""
+    dev = pool.device
+    n_rc = int(coff.shape[0])
+    v = pool[coff.long()].reshape(n_rc, SPARSE_GRAN)
+    doc = (v >> 8) & 0xFFFFFF
+    imp = v & SPARSE_IMP_MAX
+    tile = doc // TILE
+    ok = ((imp > 0) & (tile >= ct0[:, None]) & (tile <= ct1[:, None])
+          & (tile < n_tiles))
+    val = imp.float() * cw[:, None]
+    acc = torch.zeros(n_tiles * TILE, dtype=torch.float32, device=dev)
+    doc = doc.long()
+    for rc in range(n_rc):
+        m = ok[rc]
+        acc.index_add_(0, doc[rc][m], val[rc][m])
+    out = torch.where(ok, acc[torch.where(ok, doc, 0)],
+                      torch.zeros((), dtype=torch.float32, device=dev))
+    return out.view(n_rc, SPARSE_GRAN // 128, 128)
+
+
+def sparse_gather(coff, cw, ct0, ct1, pool, *, n_tiles: int):
+    """Cold-term eager sparse scoring.
+
+    coff [n_rc] i32 — pool granule per 1024-lane chunk (granule 0 is the
+        reserved all-zero granule padding chunks point at); an offset
+        outside [0, G) raises ValueError
+    cw [n_rc] f32 — per-chunk dequant weight (idf * boost * slice scale)
+    ct0/ct1 [n_rc] i32 — inclusive 16384-doc tile range of the chunk's
+        sorted docs; (1, 0) skips a chunk
+    pool [G, 8, 128] i32 — packed granules, doc << 8 | impact
+
+    Returns [n_rc, 8, 128] f32: at each chunk lane, the total over all
+    dispatched chunks of its doc's contributions.
+    """
+    dev = pool.device
+    _check(pool, "pool", torch.int32, 3, dev)
+    if tuple(pool.shape[1:]) != (SPARSE_GRAN // 128, 128):
+        raise ValueError(f"pool shape {tuple(pool.shape)} is not [G, 8, 128]")
+    _check(coff, "coff", torch.int32, 1, dev)
+    _check(cw, "cw", torch.float32, 1, dev)
+    _check(ct0, "ct0", torch.int32, 1, dev)
+    _check(ct1, "ct1", torch.int32, 1, dev)
+    n_rc = int(coff.shape[0])
+    if not (cw.shape[0] == ct0.shape[0] == ct1.shape[0] == n_rc):
+        raise ValueError("coff, cw, ct0 and ct1 must have one entry per chunk")
+    if n_tiles < 1:
+        raise ValueError(f"n_tiles={n_tiles}")
+    # a granule offset outside the pool is a caller bug: both routes refuse
+    # it here, rather than the kernel reading zeros and the plain version
+    # raising an IndexError (one read-back on the card)
+    if n_rc and bool(((coff < 0) | (coff >= pool.shape[0])).any()):
+        raise ValueError(f"coff holds a granule outside the pool "
+                         f"[0, {int(pool.shape[0])})")
+    if not _route(dev):
+        return sparse_gather_plain(coff, cw, ct0, ct1, pool, n_tiles=n_tiles)
+    out = torch.zeros((n_rc, SPARSE_GRAN // 128, 128), dtype=torch.float32,
+                      device=dev)
+    _launch("sparse_gather", dev, coff.data_ptr(), cw.data_ptr(),
+            ct0.data_ptr(), ct1.data_ptr(), n_rc, pool.data_ptr(),
+            int(pool.shape[0]), out.data_ptr(), int(n_tiles))
+    return out

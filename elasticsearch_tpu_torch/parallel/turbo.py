@@ -1,0 +1,935 @@
+"""TurboBM25: the BM25 serving engine on an int8 column cache (the port of
+elasticsearch_tpu/parallel/turbo.py, S = 1 disjunction).
+
+Per query the terms split three ways, as in the reference:
+
+* **colized** (df >= cold_df): the term owns a dense int8 hi/lo impact
+  column in the device cache, built on the card by kernels.build_columns
+  (K1). One sweep (kernels.sweep_rowmax, K2) scores a batch of queries and
+  keeps per-superwindow candidate rows; `_pick_rows` keeps each query's
+  global best rows, so only ~n_rows row ids per query reach the host.
+* **cold** (df < cold_df): the term keeps an eager sparse slice, packed
+  ``doc << 8 | impact`` granules in a device pool, scored by
+  kernels.sparse_gather (K3); the host bound-prunes and rescores exactly.
+* the host rescores every doc of the collected rows in exact f32 (term
+  order identical to the reference scorer) and checks a per-query
+  certificate bounding what the quantized sweep could have hidden in rows
+  it did not collect; a failing certificate falls back to the exact merge.
+
+Final scores therefore come from the host, and top-k (scores, ords) are
+bitwise the reference's. Device state is torch tensors on `self.device`;
+the column cache and the slice pool are updated in place where the
+reference donated its buffers.
+
+Not ported yet (ROADMAP.md): phrases, bool and bitsets (reference
+turbo.py:672-819, :1428-2096), ShardedTurbo (S > 1), the HBM scrub
+regions, the relocation warm handoff and the scheduler's width hook.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from elasticsearch_tpu_torch import device as _device
+from elasticsearch_tpu_torch.common import faults, hbm_ledger
+from elasticsearch_tpu_torch.common.errors import DeviceFaultError
+from elasticsearch_tpu_torch.common.settings import knob
+from elasticsearch_tpu_torch.ops import bm25_idf
+from elasticsearch_tpu_torch.parallel import kernels
+from elasticsearch_tpu_torch.parallel.blockmax import _host_block_scores
+from elasticsearch_tpu_torch.parallel.kernels import (
+    COLSCALE2, MAX_GROUP_ROWS, NCAND, ROWS_PER_STEP, SPARSE_GRAN,
+    SPARSE_IMP_MAX, SW, TILE,
+)
+from elasticsearch_tpu_torch.parallel.spmd import StackedBM25
+
+COLD_DF = 16384        # below this, terms are cold
+K1_PLUS1 = 2.2         # BM25 idf-free impact upper bound
+_GLOBAL_ROWS = 33      # candidate posting rows collected per query
+
+_LANE128 = np.arange(128, dtype=np.int64)
+
+
+def _pick_rows(rm: torch.Tensor, rr: torch.Tensor, *, n_rows: int):
+    """Global candidate-row pick on the device (reference turbo.py:83):
+    from the sweep's per-superwindow top-NCAND (rowmax, row) pairs, keep
+    each query's global top n_rows rows.
+
+    Returns one [QC, n_rows + 1] f32 tensor: row ids as exact floats (-1
+    marks empty slots) and, in the last column, the max approximate score
+    any uncollected row could hold. `lax.top_k` returns the smallest index
+    among equal values; a stable descending sort does the same."""
+    qc = rm.shape[1]
+    m = rm[:, :, :NCAND].permute(1, 0, 2).reshape(qc, -1)
+    r = rr[:, :, :NCAND].permute(1, 0, 2).reshape(qc, -1)
+    if m.shape[1] < n_rows + 1:
+        pad = n_rows + 1 - m.shape[1]
+        m = torch.cat([m, torch.full((qc, pad), float("-inf"),
+                                     dtype=m.dtype, device=m.device)], 1)
+        r = torch.cat([r, torch.zeros((qc, pad), dtype=r.dtype,
+                                      device=r.device)], 1)
+    top_m, idx = torch.sort(m, dim=1, descending=True, stable=True)
+    top_m, idx = top_m[:, :n_rows + 1], idx[:, :n_rows + 1]
+    valid = top_m[:, :n_rows] > float("-inf")
+    rows = torch.where(valid, torch.gather(r, 1, idx[:, :n_rows]),
+                       torch.full_like(r[:, :n_rows], -1))
+    beyond = top_m[:, n_rows]
+    beyond = torch.where(torch.isfinite(beyond), beyond,
+                         torch.zeros_like(beyond))
+    sw_last = rm[:, :, NCAND - 1]                          # [nsw, QC]
+    sw_bound = torch.where(sw_last > float("-inf"), sw_last,
+                           torch.zeros_like(sw_last)).amax(dim=0)
+    return torch.cat([rows.float(),
+                      torch.maximum(beyond, sw_bound)[:, None]], dim=1)
+
+
+def _flatten_queries(batches: Sequence[List]):
+    """Flatten batches of term/(term, boost) query lists into (flat
+    [(term, boost)] lists with duplicate terms summed, spans [(offset,
+    count)] per batch)."""
+    flat: List[List[Tuple[str, float]]] = []
+    spans = []
+    for queries in batches:
+        spans.append((len(flat), len(queries)))
+        for q in queries:
+            agg: Dict[str, float] = {}
+            for t in q:
+                t, b = (t, 1.0) if isinstance(t, str) else t
+                agg[t] = agg.get(t, 0.0) + b
+            flat.append(list(agg.items()))
+    return flat, spans
+
+
+@dataclass
+class _TermInfo:
+    ord: int
+    df: int
+    idf: float
+    row_start: int          # first block row
+    n_rows: int             # block rows
+    smax: float             # max idf-free lane score
+
+
+# ---- eager sparse impact tier (ES_TPU_SPARSE) ----
+
+_SPARSE_DOC_LIMIT = 1 << 23          # packed doc-id headroom in an int32
+_SPARSE_RC_BUCKETS = (2, 4, 8, 16, 32, 64, 128, 256)   # dispatch chunk
+#   counts, as the reference buckets them; above the last, a query's cold
+#   side is scored on the host
+
+
+def _sparse_widths() -> Tuple[int, ...]:
+    """Slice-width ladder (ES_TPU_SPARSE_WIDTHS), each rung rounded up to
+    a granule multiple, ascending."""
+    raw = knob("ES_TPU_SPARSE_WIDTHS") or ""
+    ws = set()
+    for tok in str(raw).split(","):
+        tok = tok.strip()
+        if tok:
+            ws.add(max(SPARSE_GRAN,
+                       -(-int(tok) // SPARSE_GRAN) * SPARSE_GRAN))
+    return tuple(sorted(ws)) or (1024, 4096, 16384)
+
+
+class TurboBM25:
+    """Single-partition serving engine over a StackedBM25 (S == 1).
+
+    qc_sizes: dispatch widths (queries per sweep launch).
+    hbm_budget_bytes: device memory reserved for the int8 column cache.
+    device: where the engine's tensors live and its kernels run; None
+        means CUDA (device.resolve).
+    """
+
+    def __init__(self, stacked: StackedBM25, *,
+                 hbm_budget_bytes: int = 10 << 30,
+                 qc_sizes: Tuple[int, ...] = (8, 256),
+                 cold_df: int = COLD_DF,
+                 total_docs: Optional[int] = None,
+                 avgdl: Optional[float] = None,
+                 df_of: Optional[Callable[[str], int]] = None,
+                 device=None):
+        if stacked.n_shards != 1:
+            raise ValueError("TurboBM25 serves one partition")
+        self.device = _device.resolve(device)
+        if self.device.type == "cuda":
+            from elasticsearch_tpu_torch.parallel.cuda_build import build_all
+
+            build_all()          # a build failure surfaces here, not mid-query
+        dev = self.device
+        self.fp = stacked.postings[0]
+        self.cold_df = int(cold_df)
+        self._total_docs = int(total_docs) if total_docs else stacked.total_docs
+        self._avgdl = float(avgdl) if avgdl else stacked.avgdl
+        self._df_of = df_of
+        self.D = stacked.doc_counts[0]
+        self.Dp = -(-self.D // SW) * SW
+        self.nsw = self.Dp // SW
+        self.dp_rows = self.Dp // 128
+        self.qc_sizes = tuple(sorted(
+            {max(ROWS_PER_STEP,
+                 -(-int(s) // ROWS_PER_STEP) * ROWS_PER_STEP)
+             for s in qc_sizes}))
+
+        fp = self.fp
+        pad = np.zeros((MAX_GROUP_ROWS, 128), np.int32)
+        self._lane_docs_host = np.concatenate([fp.block_docs, pad], axis=0)
+        self.lane_docs = torch.from_numpy(self._lane_docs_host).to(dev)
+        bs = _host_block_scores(fp, self._avgdl)
+        self._lane_scores_host = np.concatenate(
+            [bs, pad.astype(np.float32)], axis=0)
+        self.lane_scores = torch.from_numpy(self._lane_scores_host).to(dev)
+        self._host_scores = bs       # [T, 128] idf-free lane scores
+        # per-block doc ranges for group building (pad lanes are 0 so the
+        # row max is the true last doc; row 0 is the reserved zero block)
+        self._blo = fp.block_docs[:, 0].astype(np.int64)
+        self._bhi = fp.block_docs.max(axis=1).astype(np.int64)
+
+        lh = stacked.live_host[0] if stacked.live_host is not None else None
+        lv = np.zeros(self.Dp, np.float32)
+        if lh is None:
+            lv[: self.D] = 1.0
+        else:
+            lv[: self.D] = lh[: self.D].astype(np.float32)
+        self.live = torch.from_numpy(lv.reshape(self.dp_rows, 128)).to(dev)
+        self._live_host = lv
+
+        # column cache: slots + 1 scratch slot (2 bytes per doc per slot)
+        slots = max(int(hbm_budget_bytes // (2 * self.Dp)), 32)
+        n_colizable = int((fp.doc_freq >= self.cold_df).sum())
+        slots = min(slots, max(n_colizable, 1) + 8)
+        self.Hp = ((slots + 31) // 32) * 32
+        self.cols_hi, self.cols_lo = self._zero_columns()
+        self._slot_of: Dict[str, int] = {}
+        self._lru: Dict[str, int] = {}
+        self._free = list(range(self.Hp))
+        self._pending_zero: List[tuple] = []
+        self._tick = 0
+        self._terms: Dict[str, Optional[_TermInfo]] = {}
+        self._tile_bases: Dict[str, np.ndarray] = {}
+        self.part_id = 0
+        # eager sparse slices: a lazily grown device pool of packed granules
+        # with an authoritative host mirror
+        self._sp_pool: Optional[torch.Tensor] = None    # [G, 8, 128] i32
+        self._sp_host: Optional[np.ndarray] = None
+        self._sp_of: Dict[str, Tuple[int, int, int, float]] = {}
+        #   term -> (granule start, n granules, padded width, quant scale)
+        self._sp_lru: Dict[str, int] = {}
+        self._sp_free: Dict[int, List[int]] = {}
+        self._sp_next = 1                     # granule 0 reserved all-zero
+        self._sp_cap = max(2, min(int(hbm_budget_bytes) // 4, 64 << 20)
+                           // (SPARSE_GRAN * 4))
+        self._sp_ok = self.Dp <= _SPARSE_DOC_LIMIT
+        self.stats = {"builds": 0, "build_s": 0.0, "fallbacks": 0,
+                      "cold_queries": 0, "dispatches": 0, "degraded": 0,
+                      "sparse_queries": 0, "sparse_slices": 0,
+                      "sparse_bytes": 0, "sparse_fallbacks": 0}
+        self._hbm = hbm_ledger.register_engine(self, "turbo")
+        self._register_hbm_regions()
+
+    def _zero_columns(self):
+        shape = (self.dp_rows // 16, self.Hp + 1, 16, 128)
+        return (torch.zeros(shape, dtype=torch.int8, device=self.device),
+                torch.zeros(shape, dtype=torch.int8, device=self.device))
+
+    def _register_hbm_regions(self) -> None:
+        self._hbm.set_region("cols_hi", self.cols_hi.nbytes)
+        self._hbm.set_region("cols_lo", self.cols_lo.nbytes)
+        self._hbm.set_region(
+            "sparse_pool",
+            0 if self._sp_pool is None else self._sp_pool.nbytes)
+        self._hbm.set_region("lane_docs", self.lane_docs.nbytes)
+        self._hbm.set_region("lane_scores", self.lane_scores.nbytes)
+        self._hbm.set_region("live", self.live.nbytes)
+
+    def hbm_bytes(self) -> int:
+        return (self.cols_hi.nbytes + self.cols_lo.nbytes
+                + (0 if self._sp_pool is None else self._sp_pool.nbytes)
+                + self.lane_docs.nbytes + self.lane_scores.nbytes
+                + self.live.nbytes)
+
+    # ---------------- term metadata ----------------
+
+    def _term(self, term: str) -> Optional[_TermInfo]:
+        if term in self._terms:
+            return self._terms[term]
+        fp = self.fp
+        o = fp.ord(term)
+        if o < 0:
+            self._terms[term] = None
+            return None
+        df = int(fp.doc_freq[o])
+        start, cnt = int(fp.block_start[o]), int(fp.block_count[o])
+        smax = float(self._host_scores[start: start + cnt].max()) if cnt else 0.0
+        # df for cache/cold decisions is partition-local; idf uses the
+        # global df when an override is installed
+        df_g = self._df_of(term) if self._df_of is not None else df
+        info = _TermInfo(ord=o, df=df,
+                         idf=bm25_idf(self._total_docs, df_g),
+                         row_start=start, n_rows=cnt, smax=smax)
+        self._terms[term] = info
+        return info
+
+    # ---------------- column cache ----------------
+
+    def _term_groups(self, info: _TermInfo, slot: int):
+        """(rows, nrows, bases, slots) arrays for one term's build groups —
+        one group per touched 16384-doc tile."""
+        lo = self._blo[info.row_start: info.row_start + info.n_rows]
+        hi = self._bhi[info.row_start: info.row_start + info.n_rows]
+        t0, t1 = int(lo[0]) // TILE, int(hi[-1]) // TILE
+        tiles = np.arange(t0, t1 + 1, dtype=np.int64)
+        starts = np.searchsorted(hi, tiles * TILE, side="left")
+        ends = np.searchsorted(lo, (tiles + 1) * TILE, side="left")
+        n = (ends - starts).astype(np.int32)
+        keep = n > 0
+        return (info.row_start + starts[keep].astype(np.int32),
+                n[keep],
+                (tiles[keep] * TILE).astype(np.int32),
+                np.full(int(keep.sum()), slot, np.int32))
+
+    def _evict(self, key: str) -> None:
+        slot = self._slot_of.pop(key)
+        del self._lru[key]
+        self._free.append(slot)
+        # zero the evicted key's touched tiles so the reused slot carries
+        # no phantom scores (nrows = 0 groups write zero tiles)
+        bases = self._tile_bases.pop(key, None)
+        if bases is not None and len(bases):
+            z = np.zeros(len(bases), np.int32)
+            self._pending_zero.append(
+                (z, z, bases, np.full(len(bases), slot, np.int32)))
+        self._hbm.note_eviction(freed_bytes=2 * self.Dp)
+        self._hbm.note_zeroed_tiles(0 if bases is None else len(bases))
+
+    def _reset_columns(self) -> None:
+        """Drop the whole column cache: after a failed build the slot
+        contents are unknown, so the cache restarts empty."""
+        self.cols_hi, self.cols_lo = self._zero_columns()
+        self._hbm.note_eviction(count=len(self._slot_of),
+                                freed_bytes=2 * self.Dp * len(self._slot_of))
+        self._slot_of.clear()
+        self._lru.clear()
+        self._free = list(range(self.Hp))
+        self._pending_zero = []
+        self._tile_bases.clear()
+        self._register_hbm_regions()
+
+    def _build_groups(self, parts) -> None:
+        """One K1 launch over the concatenated (rows, nrows, bases, slots)
+        group arrays."""
+        if not parts:
+            return
+        arrs = [torch.from_numpy(np.concatenate([p[i] for p in parts]))
+                .to(self.device) for i in range(4)]
+        kernels.build_columns(*arrs, self.lane_docs, self.lane_scores,
+                              self.cols_hi, self.cols_lo)
+
+    def ensure_columns(self, terms: Sequence[str],
+                       protect_extra: Sequence[str] = ()) -> None:
+        # injected faults fire before any slot-pool mutation
+        faults.fault_point("column_upload", self.part_id)
+        self._tick += 1
+        need: List[Tuple[str, _TermInfo]] = []
+        sparse_need: List[Tuple[str, _TermInfo]] = []
+        for t in dict.fromkeys(terms):
+            info = self._term(t)
+            if info is None or info.df < self.cold_df:
+                if info is not None and info.df:
+                    sparse_need.append((t, info))
+                continue
+            if t in self._slot_of:
+                self._lru[t] = self._tick
+                continue
+            need.append((t, info))
+        # eager sparse slices ride the same upload pass as the columns
+        if sparse_need and self._sp_ok and bool(knob("ES_TPU_SPARSE")):
+            try:
+                self._ensure_sparse(sparse_need)
+            except DeviceFaultError:
+                pass   # query-time gather retries, then host-falls-back
+        if not need:
+            return
+        protect = set(t for t, _ in need) | set(terms) | set(protect_extra)
+        self._hbm.note_protect_pressure(
+            sum(1 for t in self._slot_of if t in protect) + len(need),
+            self.Hp)
+        deficit = len(need) - len(self._free)
+        if deficit > 0:
+            victims = [t for t in sorted(self._lru, key=self._lru.get)
+                       if t not in protect][:deficit]
+            if len(victims) < deficit:
+                # capacity overflow: colize the highest-df terms and leave
+                # the rest cold for this batch (scored exactly on the host)
+                capacity = len(self._free) + len(victims)
+                need.sort(key=lambda ti: -ti[1].df)
+                self.stats["degraded"] += len(need) - capacity
+                need = need[:capacity]
+            for v in victims:
+                self._evict(v)
+        zero_parts, self._pending_zero = self._pending_zero, []
+        if not need and not zero_parts:
+            return
+        build_parts = []
+        for t, info in need:
+            slot = self._free.pop()
+            self._slot_of[t] = slot
+            self._lru[t] = self._tick
+            groups = self._term_groups(info, slot)
+            self._tile_bases[t] = groups[2]
+            build_parts.append(groups)
+        t0 = time.monotonic()
+        try:
+            with faults.device_errors("column_upload", self.part_id):
+                # the zeroing of evicted tiles launches first, on its own:
+                # a reused slot's new tiles may coincide with them, and on
+                # the card the blocks of one launch run in no order (the
+                # reference's sequential grid put them first in one launch)
+                self._build_groups(zero_parts)
+                self._build_groups(build_parts)
+        except DeviceFaultError:
+            self._reset_columns()
+            raise
+        self.stats["builds"] += len(need)
+        self.stats["build_s"] += time.monotonic() - t0
+        self._register_hbm_regions()
+
+    def prebuild_columns(self) -> int:
+        """Build every colizable term's column now (capacity-capped, by df
+        desc), so no timed query pays a build."""
+        fp = self.fp
+        terms = [fp.terms[o] for o in
+                 np.nonzero(np.asarray(fp.doc_freq) >= self.cold_df)[0]]
+        terms.sort(key=lambda t: -int(fp.doc_freq[fp.term_to_ord[t]]))
+        terms = terms[: self.Hp]
+        self.ensure_columns(terms)
+        return len(terms)
+
+    # ---------------- cold tier ----------------
+
+    def _cold_contrib(self, cold_terms):
+        """(docs i64 unique-sorted, contrib f64) — the cold terms' summed
+        contributions at their own postings (exact host enumeration)."""
+        fp = self.fp
+        arrs, vals = [], []
+        for _, b, info in cold_terms:
+            lo, hi = (int(fp.post_start[info.ord]),
+                      int(fp.post_start[info.ord + 1]))
+            arrs.append(np.asarray(fp.post_doc[lo:hi], np.int64))
+            lanes = self._host_scores[
+                info.row_start: info.row_start + info.n_rows
+            ].ravel()[: hi - lo]
+            vals.append(float(info.idf * b) * lanes.astype(np.float64))
+        docs = np.concatenate(arrs)
+        u, inv = np.unique(docs, return_inverse=True)
+        acc = np.zeros(len(u), np.float64)
+        np.add.at(acc, inv, np.concatenate(vals))
+        return u, acc
+
+    def _sp_grow(self, new_g: int) -> None:
+        """Grow (or first-allocate) the granule pool; the host mirror is
+        authoritative and growth re-uploads it whole. The device pool is a
+        copy on the CPU too, so the mirror never stands in for a missed
+        upload."""
+        old = self._sp_host
+        host = np.zeros((new_g, SPARSE_GRAN // 128, 128), np.int32)
+        if old is not None:
+            host[: old.shape[0]] = old
+        self._sp_host = host
+        with faults.device_errors("sparse_gather", self.part_id):
+            self._sp_pool = torch.tensor(host, device=self.device)
+        self._hbm.set_region("sparse_pool", self._sp_pool.nbytes)
+
+    def _sp_evict(self, term: str) -> None:
+        g0, n_g, w, _ = self._sp_of.pop(term)
+        self._sp_lru.pop(term, None)
+        self._sp_free.setdefault(n_g, []).append(g0)
+        self.stats["sparse_bytes"] -= w * 4
+
+    def _reset_sparse(self) -> None:
+        """Drop every slice (fault containment): zero both sides of the
+        pool so mirror and device agree, and rebuild lazily."""
+        self.stats["sparse_bytes"] = 0
+        self._sp_of.clear()
+        self._sp_lru.clear()
+        self._sp_free.clear()
+        self._sp_next = 1
+        if self._sp_host is not None:
+            self._sp_host[:] = 0
+            self._sp_pool = torch.tensor(self._sp_host, device=self.device)
+
+    def _sp_alloc(self, n_g: int, protect: set) -> int:
+        """One granule run for an `n_g`-granule slice, or -1: the width's
+        free list, then the bump pointer (growing the pool toward its cap),
+        then LRU eviction."""
+        free = self._sp_free.get(n_g)
+        if free:
+            return free.pop()
+        cur = 0 if self._sp_pool is None else self._sp_pool.shape[0]
+        if self._sp_next + n_g > cur and cur < self._sp_cap:
+            self._sp_grow(min(self._sp_cap,
+                              max(cur * 2, self._sp_next + n_g, 64)))
+            cur = self._sp_pool.shape[0]
+        if self._sp_next + n_g <= cur:
+            g0 = self._sp_next
+            self._sp_next += n_g
+            return g0
+        for t in sorted(self._sp_lru, key=self._sp_lru.get):
+            if t in protect or t not in self._sp_of:
+                continue
+            self._sp_evict(t)
+            free = self._sp_free.get(n_g)
+            if free:
+                return free.pop()
+        return -1
+
+    def _ensure_sparse(self, pairs: Sequence[Tuple[str, _TermInfo]]) -> bool:
+        """Build device slices for cold (term, info) pairs: pack granules
+        on the host mirror, then write them into the device pool in place
+        (index_copy_, where the reference donated the pool). Impacts are
+        uint8 on a per-term scale smax/255, rounded to >= 1 so a real
+        posting never vanishes. False when any term cannot be sliced."""
+        if not self._sp_ok:
+            return False
+        widths = _sparse_widths()
+        self._tick += 1
+        need: List[Tuple[str, _TermInfo, int]] = []
+        protect = set()
+        for t, info in pairs:
+            protect.add(t)
+            if t in self._sp_of:
+                self._sp_lru[t] = self._tick
+                continue
+            w = next((w for w in widths if w >= info.df), None)
+            if w is None:
+                return False
+            need.append((t, info, w))
+        if not need:
+            return True
+        fp = self.fp
+        idx_l, upd_l = [], []
+        complete = True
+        try:
+            for t, info, w in need:
+                n_g = w // SPARSE_GRAN
+                g0 = self._sp_alloc(n_g, protect)
+                if g0 < 0:
+                    # pool full: the slices packed so far are still
+                    # uploaded below — they are marked resident, and the
+                    # reference (turbo.py:945) returned here before its
+                    # upload, leaving them stale on the device
+                    complete = False
+                    break
+                lo = int(fp.post_start[info.ord])
+                hi = int(fp.post_start[info.ord + 1])
+                docs = np.asarray(fp.post_doc[lo:hi], np.int64)
+                lanes = self._host_scores[
+                    info.row_start: info.row_start + info.n_rows
+                ].ravel()[: hi - lo].astype(np.float64)
+                sscale = max(float(info.smax), 1e-9) / SPARSE_IMP_MAX
+                q = np.clip(np.rint(lanes / sscale),
+                            1, SPARSE_IMP_MAX).astype(np.int64)
+                buf = np.zeros(w, np.int64)
+                buf[: hi - lo] = (docs << 8) | q
+                gran = buf.astype(np.int32).reshape(
+                    n_g, SPARSE_GRAN // 128, 128)
+                self._sp_host[g0: g0 + n_g] = gran
+                self._sp_of[t] = (g0, n_g, w, sscale)
+                self._sp_lru[t] = self._tick
+                idx_l.append(np.arange(g0, g0 + n_g, dtype=np.int64))
+                upd_l.append(gran)
+                self.stats["sparse_slices"] += 1
+                self.stats["sparse_bytes"] += w * 4
+            if idx_l:
+                with faults.device_errors("sparse_gather", self.part_id):
+                    self._sp_pool.index_copy_(
+                        0, torch.from_numpy(np.concatenate(idx_l))
+                        .to(self.device),
+                        torch.from_numpy(np.concatenate(upd_l, axis=0))
+                        .to(self.device))
+        except DeviceFaultError:
+            # a half-written pool would break mirror == device: drop it all
+            self._reset_sparse()
+            raise
+        self._hbm.set_region("sparse_pool", self._sp_pool.nbytes)
+        return complete
+
+    def _sparse_dispatch_args(self, cold_terms):
+        """The K3 chunk dispatch for one query's cold terms, or None when
+        it exceeds the largest chunk bucket: (coff, cw, ct0, ct1) numpy
+        arrays padded to the bucket, spans [(first chunk, df, post offset)]
+        per term, and the slack bounding |contrib - exact|."""
+        fp = self.fp
+        coff: List[int] = []
+        cw: List[float] = []
+        ct0: List[int] = []
+        ct1: List[int] = []
+        spans: List[Tuple[int, int, int]] = []
+        slack = 1e-7
+        for t, b, info in cold_terms:
+            g0, n_g, _w, sscale = self._sp_of[t]
+            wt = float(info.idf * b)
+            lo = int(fp.post_start[info.ord])
+            c0 = len(coff)
+            n_used = -(-info.df // SPARSE_GRAN)
+            for j in range(n_used):
+                s = lo + j * SPARSE_GRAN
+                e = min(lo + (j + 1) * SPARSE_GRAN, lo + info.df)
+                coff.append(g0 + j)
+                cw.append(wt * sscale)
+                ct0.append(int(fp.post_doc[s]) // TILE)
+                ct1.append(int(fp.post_doc[e - 1]) // TILE)
+            spans.append((c0, info.df, lo))
+            # one posting per (term, doc): quantization error <= one full
+            # step per term, plus a generous f32-accumulation margin
+            slack += abs(wt) * (sscale
+                                + 3e-6 * max(float(info.smax), sscale))
+        if len(coff) > _SPARSE_RC_BUCKETS[-1]:
+            return None
+        rcb = next(b for b in _SPARSE_RC_BUCKETS if b >= len(coff))
+        pad = rcb - len(coff)
+        args = (np.asarray(coff + [0] * pad, np.int32),
+                np.asarray(cw + [0.0] * pad, np.float32),
+                np.asarray(ct0 + [1] * pad, np.int32),
+                np.asarray(ct1 + [0] * pad, np.int32))
+        return args, spans, float(slack)
+
+    def _sparse_gather_dispatch(self, cold_terms):
+        """Device cold-side scoring: ensure slices, dispatch K3, and map the
+        gathered totals back onto each term's posting order. None when the
+        batch cannot be sliced; raises DeviceFaultError on device faults.
+        Otherwise (docs, contrib, slack) mirroring _cold_contrib's
+        unique-doc enumeration."""
+        if not self._sp_ok:
+            return None
+        if not self._ensure_sparse([(t, i) for t, _b, i in cold_terms]):
+            return None
+        prep = self._sparse_dispatch_args(cold_terms)
+        if prep is None:
+            return None
+        args, spans, slack = prep
+        rcb = len(args[0])
+        first = hbm_ledger.note_dispatch("turbo_sparse", rcb)
+        t0 = time.monotonic()
+        with faults.device_errors("sparse_gather", self.part_id):
+            out = kernels.sparse_gather(
+                *(torch.from_numpy(a).to(self.device) for a in args),
+                self._sp_pool, n_tiles=self.Dp // TILE)
+            flat = out.cpu().numpy().reshape(rcb * SPARSE_GRAN)
+        if first:
+            hbm_ledger.note_compile_done("turbo_sparse", rcb,
+                                         time.monotonic() - t0)
+        fp = self.fp
+        docs_l, vals_l = [], []
+        for c0, df, lo in spans:
+            docs_l.append(np.asarray(fp.post_doc[lo: lo + df], np.int64))
+            base = c0 * SPARSE_GRAN
+            vals_l.append(flat[base: base + df])
+        docs = np.concatenate(docs_l)
+        vals = np.concatenate(vals_l).astype(np.float64)
+        # a doc shared by several slices reads the same accumulator cell at
+        # every occurrence — first occurrence wins
+        u, fidx = np.unique(docs, return_index=True)
+        return u, vals[fidx], slack
+
+    def _sparse_contrib(self, cold_terms):
+        """Device cold side with containment: (docs, contrib, slack). A
+        fault or an unsliceable batch falls back to the exact host
+        enumeration with slack 0."""
+        try:
+            faults.fault_point("sparse_gather", self.part_id)
+            res = self._sparse_gather_dispatch(cold_terms)
+        except DeviceFaultError:
+            res = None
+        if res is None:
+            self.stats["sparse_fallbacks"] += 1
+            u, acc = self._cold_contrib(cold_terms)
+            return u, acc, 0.0
+        return res
+
+    # ---------------- host exact scoring helpers ----------------
+
+    def _impacts_at(self, info: _TermInfo, docs: np.ndarray) -> np.ndarray:
+        """Exact idf-free impact of a term at the given doc ids (0 where
+        the term does not occur)."""
+        fp = self.fp
+        lo, hi = int(fp.post_start[info.ord]), int(fp.post_start[info.ord + 1])
+        tdocs = fp.post_doc[lo:hi]
+        out = np.zeros(len(docs), np.float32)
+        if not len(tdocs):
+            return out
+        # needles match the postings dtype, or numpy copies the postings
+        docs = docs.astype(np.int32, copy=False) \
+            if docs.dtype != tdocs.dtype else docs
+        j = np.searchsorted(tdocs, docs)
+        j_c = np.minimum(j, len(tdocs) - 1)
+        present = (j < len(tdocs))
+        present &= tdocs[j_c] == docs
+        jp = j_c[present]
+        out[present] = self._host_scores[info.row_start + (jp >> 7),
+                                         jp & 127]
+        return out
+
+    def _exact_merge(self, qterms, k: int):
+        """Full host posting merge (exact, any df) — the fallback when a
+        certificate fails. Term-at-a-time f32 accumulation in query order,
+        (score desc, doc asc) rank over live docs."""
+        all_docs = []
+        for _, _, info in qterms:
+            fp = self.fp
+            lo, hi = (int(fp.post_start[info.ord]),
+                      int(fp.post_start[info.ord + 1]))
+            all_docs.append(fp.post_doc[lo:hi])
+        if not all_docs:
+            return np.empty(0, np.float32), np.empty(0, np.int32)
+        docs = np.unique(np.concatenate(all_docs))
+        docs = docs[self._live_host[docs] > 0]
+        totals = self._exact_scores(qterms, docs)
+        pos = totals > 0
+        docs, totals = docs[pos], totals[pos]
+        sel = np.lexsort((docs, -totals))[:k]
+        return totals[sel], docs[sel].astype(np.int32)
+
+    def _exact_scores(self, qterms: List[Tuple[str, float, _TermInfo]],
+                      docs: np.ndarray) -> np.ndarray:
+        """Exact f32 totals at docs, term-at-a-time in query order."""
+        total = np.zeros(len(docs), np.float32)
+        for _, boost, info in qterms:
+            w = np.float32(info.idf * boost)
+            total = total + w * self._impacts_at(info, docs)
+        return total
+
+    # ---------------- search ----------------
+
+    def search_many(self, batches: Sequence[List], k: int = 10):
+        """Pipeline batches of queries; returns per batch (scores [Q, k]
+        f32, ords [Q, k] i32). Queries are term lists or (term, boost)
+        lists."""
+        flat, spans = _flatten_queries(batches)
+        if not flat:
+            return [(np.zeros((n, k), np.float32), np.zeros((n, k), np.int32))
+                    for _, n in spans]
+        self.ensure_columns(
+            [t for q in flat for t, _ in q
+             if self._term(t) is not None])
+
+        # pass 1: sweep -> row pick, both on the device, launched for every
+        # chunk before the host reads any of them back
+        n_rows = max(_GLOBAL_ROWS, k + 5)
+        pending = []
+        off = 0
+        while off < len(flat):
+            rem = len(flat) - off
+            take = next((s for s in self.qc_sizes if s >= rem),
+                        self.qc_sizes[-1])
+            chunk = flat[off: off + take]
+            first = hbm_ledger.note_dispatch("turbo", take)
+            tc0 = time.monotonic()
+            rm, rr = self._sweep(chunk, take)
+            with faults.device_errors("turbo_sweep", self.part_id):
+                picked = _pick_rows(rm, rr, n_rows=n_rows)
+            if first:
+                hbm_ledger.note_compile_done(
+                    "turbo", take, time.monotonic() - tc0)
+            pending.append((off, len(chunk), picked))
+            off += len(chunk)
+        self.stats["dispatches"] += len(pending)
+
+        # pass 2: read the small row sets back; exact host rescore of every
+        # doc in the collected rows, merged with the cold side
+        out_s = np.zeros((len(flat), k), np.float32)
+        out_d = np.zeros((len(flat), k), np.int32)
+        for off, n, packed_dev in pending:
+            with faults.device_errors("turbo_sweep", self.part_id):
+                packed = packed_dev.cpu().numpy()     # [QC, n_rows + 1]
+            rows_all = packed[:, :n_rows].astype(np.int64)
+            bounds = packed[:, n_rows]
+            for qi in range(n):
+                docs = self._collect_docs(rows_all[qi])
+                s, d = self._finish_query(
+                    flat[off + qi], docs, float(bounds[qi]), k)
+                out_s[off + qi, : len(s)] = s
+                out_d[off + qi, : len(d)] = d
+        return [(out_s[o: o + n], out_d[o: o + n]) for o, n in spans]
+
+    def _collect_docs(self, rw: np.ndarray) -> np.ndarray:
+        """Live doc ids in one query's picked rows ([n_rows] i64, -1 =
+        empty slot)."""
+        rw = rw[rw >= 0]
+        docs = (rw[:, None] * 128 + _LANE128[None, :]).ravel()
+        if len(docs):
+            docs = docs[self._live_host[docs] > 0]
+        return docs
+
+    def _sweep_weights(self, chunk, QC: int):
+        """Quantized disjunctive sweep inputs for one dispatch chunk:
+        (wq [2, QC, Hp+1] i8, qscale [QC, 1] f32). A None entry leaves an
+        all-zero weight row."""
+        wq = np.zeros((2, QC, self.Hp + 1), np.int8)
+        qscale = np.ones((QC, 1), np.float32)
+        for qi, terms in enumerate(chunk):
+            if terms is None:
+                continue
+            ws = []
+            for t, b in terms:
+                slot = self._slot_of.get(t)
+                if slot is not None:
+                    ws.append((slot, self._term(t).idf * b))
+            if not ws:
+                continue
+            wmax = max(abs(w) for _, w in ws)
+            qs = max(wmax / 127.0, 1e-9)         # hi step
+            qs2 = qs / 128.0                     # lo step
+            qscale[qi, 0] = qs2 * COLSCALE2
+            for slot, w in ws:
+                wh = max(-127, min(127, round(w / qs)))
+                wl = max(-127, min(127, round((w - qs * wh) / qs2)))
+                wq[0, qi, slot] = np.int8(wh)
+                wq[1, qi, slot] = np.int8(wl)
+        return wq, qscale
+
+    def _sweep(self, chunk, QC):
+        wq, qscale = self._sweep_weights(chunk, QC)
+        with faults.device_dispatch("turbo_sweep", self.part_id):
+            return kernels.sweep_rowmax(
+                torch.from_numpy(qscale).to(self.device), self.cols_hi,
+                self.cols_lo, torch.from_numpy(wq).to(self.device),
+                self.live, nsw=self.nsw)
+
+    def _finish_query(self, terms, cand_docs, bound, k):
+        """Merge device-collected candidates + the cold side into an exact
+        top-k.
+
+        cand_docs [C] live doc ids from the collected rows — every one is
+        rescored exactly here; bound — the max approximate score any
+        uncollected row could hold (the row pick's last column)."""
+        qterms = []
+        cold_terms = []
+        col_terms = []
+        for t, b in terms:
+            info = self._term(t)
+            if info is None:
+                continue
+            qterms.append((t, b, info))
+            # colized = owns a column now; the split mirrors what _sweep
+            # dispatched so the certificate stays sound
+            (col_terms if t in self._slot_of else cold_terms).append(
+                (t, b, info))
+
+        if not qterms:
+            return np.empty(0, np.float32), np.empty(0, np.int32)
+
+        # quantization error bound for the device side (mirrors
+        # _sweep_weights' quantization, including clipping)
+        e_q = 1e-7
+        ws = [(info.idf * b) for _, b, info in col_terms]
+        if ws:
+            wmax = max(abs(w) for w in ws)
+            qs = max(wmax / 127.0, 1e-9)
+            qs2 = qs / 128.0
+            for w in ws:
+                wh = max(-127, min(127, round(w / qs)))
+                wl = max(-127, min(127, round((w - qs * wh) / qs2)))
+                w_approx = qs * wh + qs2 * wl
+                # a full lo step: the build kernel forces lo >= 1 on
+                # presence-only cells
+                e_q += (abs(w - w_approx) * K1_PLUS1
+                        + abs(w_approx) * COLSCALE2)
+            # f32 rounding of the in-kernel integer combine
+            e_q += 3e-7 * sum(abs(w) for w in ws) * K1_PLUS1
+        e_q = float(e_q)
+
+        cand_s = np.empty(0, np.float32)
+        if len(cand_docs):
+            cand_docs = np.asarray(cand_docs, np.int64)
+            cand_s = self._exact_scores(qterms, cand_docs)
+            keep = cand_s > 0
+            cand_docs, cand_s = cand_docs[keep], cand_s[keep]
+
+        # cold side, bound-pruned: a doc whose cold contribution plus the
+        # colized terms' maximum addend cannot reach the candidate k-th
+        # score needs no exact lookup
+        cold_docs = np.empty(0, np.int64)
+        cold_s = np.empty(0, np.float32)
+        if cold_terms:
+            if self._sp_ok and bool(knob("ES_TPU_SPARSE")):
+                self.stats["sparse_queries"] += 1
+                docs_c, contrib, slack = self._sparse_contrib(cold_terms)
+            else:
+                self.stats["cold_queries"] += 1
+                docs_c, contrib = self._cold_contrib(cold_terms)
+                slack = 0.0
+            lv = self._live_host[docs_c] > 0
+            docs_c, contrib = docs_c[lv], contrib[lv]
+            if col_terms:
+                kth_0 = 0.0
+                if len(cand_s) >= k:
+                    kth_0 = float(np.partition(cand_s, len(cand_s) - k)[
+                        len(cand_s) - k])
+                col_const = sum(info.idf * b * info.smax
+                                for _, b, info in col_terms)
+                # slack keeps the survivor set a superset of the host
+                # path's; extras are rescored exactly and rank below k
+                survivors = docs_c[contrib + slack + col_const + 1e-5
+                                   >= kth_0]
+                if len(survivors):
+                    cold_docs = survivors
+                    cold_s = self._exact_scores(qterms, cold_docs)
+            else:
+                # cold-only query: the exact path is the full merge
+                cold_docs = docs_c
+                cold_s = self._exact_scores(qterms, cold_docs)
+
+        if not len(cand_docs) and not len(cold_docs):
+            return np.empty(0, np.float32), np.empty(0, np.int32)
+        docs = np.concatenate([cand_docs, cold_docs])
+        totals = np.concatenate([cand_s, cold_s])
+        docs, first = np.unique(docs, return_index=True)
+        totals = totals[first]
+        pos = totals > 0
+        docs, totals = docs[pos], totals[pos]
+        if not len(docs):
+            return np.empty(0, np.float32), np.empty(0, np.int32)
+        sel = np.lexsort((docs, -totals))[:k]
+        out_s, out_d = totals[sel], docs[sel].astype(np.int32)
+
+        # ---- certificate ----
+        if col_terms:
+            uncollected = float(bound)
+            limit = uncollected + e_q
+            kth = float(out_s[k - 1]) if len(out_s) >= k else 0.0
+            short = len(out_s) < k and uncollected > 0
+            if short or (len(out_s) >= k and kth < limit and uncollected > 0):
+                self.stats["fallbacks"] += 1
+                return self._exact_merge(qterms, k)
+        return out_s, out_d
+
+    # ---------------- host tier (no device dispatch) ----------------
+
+    def _exact_query(self, terms, k: int):
+        """Exact host top-k for one flat [(term, boost)] query."""
+        qterms = []
+        for t, b in terms:
+            info = self._term(t)
+            if info is not None:
+                qterms.append((t, b, info))
+        if not qterms:
+            return np.empty(0, np.float32), np.empty(0, np.int32)
+        return self._exact_merge(qterms, k)
+
+    def search_many_host(self, batches: Sequence[List], k: int = 10):
+        """search_many semantics served entirely on the host — the
+        circuit-open fallback tier (no device dispatch, no cache
+        mutation)."""
+        flat, spans = _flatten_queries(batches)
+        out_s = np.zeros((len(flat), k), np.float32)
+        out_d = np.zeros((len(flat), k), np.int32)
+        for qi, terms in enumerate(flat):
+            s, d = self._exact_query(terms, k)
+            out_s[qi, : len(s)] = s
+            out_d[qi, : len(d)] = d
+        return [(out_s[o: o + n], out_d[o: o + n]) for o, n in spans]

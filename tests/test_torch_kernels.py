@@ -1,0 +1,127 @@
+"""Port kernels vs the reference Pallas kernels, bitwise, on the CPU.
+
+The same numpy inputs, made from a seed, go through the reference
+(elasticsearch_tpu/parallel/kernels.py, Pallas in interpret mode on the CPU
+as tests/test_turbo.py runs it) and through the port's wrappers, which run
+their plain torch versions for CPU tensors. K1, K2, the row pick and K3 must
+agree bit for bit: the kernels' arithmetic is integer, one rounding per
+step, or sums in a fixed order. The CUDA kernels themselves are held
+against the same plain versions on the card by chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from elasticsearch_tpu.parallel import kernels as ref_k
+from elasticsearch_tpu.parallel import turbo as ref_turbo
+from elasticsearch_tpu_torch.common.errors import KernelLaunchError
+from elasticsearch_tpu_torch.parallel import kernels as k
+from torch_kernel_cases import lanes_and_groups, sparse_inputs, sweep_inputs
+
+torch.set_num_threads(1)
+
+TILE = k.TILE
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("seed,n_groups,rows,dense", [
+    (0, 4, 3, False),
+    (1, 8, 128, True),
+])
+def test_build_columns_bitwise(seed, n_groups, rows, dense):
+    docs, scores, gr, gn, gb, gs = lanes_and_groups(seed, n_groups, rows,
+                                                     dense)
+    hpt = n_groups // 4 + 3
+    shape = (4 * TILE // k.CHUNK, hpt, 16, 128)
+    # stale content in the cache must be overwritten by the groups' tiles
+    rng = np.random.default_rng(seed + 100)
+    stale = rng.integers(-5, 6, size=shape).astype(np.int8)
+    want_hi, want_lo = ref_k.build_columns(
+        jnp.asarray(gr), jnp.asarray(gn), jnp.asarray(gb), jnp.asarray(gs),
+        jnp.asarray(docs), jnp.asarray(scores), jnp.asarray(stale),
+        jnp.asarray(stale), n_groups=len(gr))
+    hi, lo = _t(stale.copy()), _t(stale.copy())
+    k.reset_launches()
+    k.build_columns(_t(gr), _t(gn), _t(gb), _t(gs), _t(docs), _t(scores),
+                    hi, lo)
+    assert np.array_equal(hi.numpy(), np.asarray(want_hi))
+    assert np.array_equal(lo.numpy(), np.asarray(want_lo))
+    assert k.LAUNCHES["build_columns"] == 0     # CPU runs the plain version
+
+
+@pytest.fixture(scope="module")
+def sweep_case():
+    qscale, hi, lo, wq, live = sweep_inputs(3, qc=8, hpt=33, nsw=2)
+    want = ref_k.sweep_rowmax(jnp.asarray(qscale), jnp.asarray(hi),
+                              jnp.asarray(lo), jnp.asarray(wq),
+                              jnp.asarray(live), QC=8, nsw=2)
+    got = k.sweep_rowmax(_t(qscale), _t(hi), _t(lo), _t(wq), _t(live), nsw=2)
+    return want, got
+
+
+def test_sweep_rowmax_bitwise(sweep_case):
+    (wm, wr), (gm, gr) = sweep_case
+    assert np.array_equal(gm.numpy(), np.asarray(wm))
+    assert np.array_equal(gr.numpy(), np.asarray(wr))
+    # the case has ties, empty queries and padding to check
+    assert np.isinf(gm.numpy()).any() and np.isfinite(gm.numpy()).any()
+
+
+@pytest.mark.parametrize("n_rows", [5, 33, 40])
+def test_pick_rows_bitwise(sweep_case, n_rows):
+    from elasticsearch_tpu_torch.parallel.turbo import _pick_rows
+
+    (wm, wr), _ = sweep_case
+    want = ref_turbo._pick_rows(wm, wr, n_rows=n_rows)
+    got = _pick_rows(_t(np.asarray(wm)), _t(np.asarray(wr)), n_rows=n_rows)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_sparse_gather_bitwise():
+    coff, cw, ct0, ct1, pool = sparse_inputs(5, n_terms=5, n_tiles=4)
+    want = ref_k.sparse_gather(jnp.asarray(coff), jnp.asarray(cw),
+                               jnp.asarray(ct0), jnp.asarray(ct1),
+                               jnp.asarray(pool), n_tiles=4)
+    got = k.sparse_gather(_t(coff), _t(cw), _t(ct0), _t(ct1), _t(pool),
+                          n_tiles=4)
+    assert got.shape == (16, 8, 128)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("bad", [-1, "n_gran"])
+def test_sparse_gather_rejects_granule_outside_pool(bad):
+    """An out-of-range granule offset raises ValueError in the wrapper, on
+    every route, instead of reading zeros (kernel) or an IndexError (plain
+    version)."""
+    coff, cw, ct0, ct1, pool = sparse_inputs(5, n_terms=5, n_tiles=4)
+    coff = coff.copy()
+    coff[1] = pool.shape[0] if bad == "n_gran" else bad
+    with pytest.raises(ValueError, match="outside the pool"):
+        k.sparse_gather(_t(coff), _t(cw), _t(ct0), _t(ct1), _t(pool),
+                        n_tiles=4)
+
+
+def test_wrappers_reject_bad_inputs():
+    qscale, hi, lo, wq, live = sweep_inputs(0, qc=8, hpt=9, nsw=1)
+    with pytest.raises(TypeError):
+        k.sweep_rowmax(_t(qscale).double(), _t(hi), _t(lo), _t(wq),
+                       _t(live), nsw=1)
+    with pytest.raises(ValueError):
+        k.sweep_rowmax(_t(qscale), _t(hi), _t(lo), _t(wq), _t(live), nsw=2)
+    with pytest.raises(ValueError):
+        k.sweep_rowmax(_t(qscale), _t(hi), _t(lo),
+                       _t(wq).transpose(1, 2), _t(live), nsw=1)
+    with pytest.raises(TypeError):
+        k.sparse_gather(_t(np.zeros(2, np.int64)), _t(np.zeros(2, np.float32)),
+                        _t(np.zeros(2, np.int32)), _t(np.zeros(2, np.int32)),
+                        _t(np.zeros((1, 8, 128), np.int32)), n_tiles=1)
+    # neither a wrapper check nor a launch failure is a RuntimeError, which
+    # fault containment would serve around on the host tier
+    assert not issubclass(KernelLaunchError, RuntimeError)
+    assert not issubclass(TypeError, RuntimeError)

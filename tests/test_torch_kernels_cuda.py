@@ -1,0 +1,96 @@
+"""The CUDA kernels against their plain torch versions on the card.
+
+Marked `cuda`: each test skips without an NVIDIA Hopper card (decided
+inside the test). On the H100 run it without the repo's conftest, which
+imports jax for the reference tests:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py
+
+Inputs are the adversarial cases of the CPU differential tests (ties,
+negative and all-zero weights, padding lanes, zero groups, overlapping
+cold slices) plus shapes the main path does not reach (more slots than a
+block has threads). Every comparison is bitwise.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from elasticsearch_tpu_torch.parallel import kernels as k
+from torch_kernel_cases import lanes_and_groups, sparse_inputs, sweep_inputs
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("the kernels are built for sm_90a")
+    return torch.device("cuda")
+
+
+def _c(a, dev):
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+@pytest.mark.parametrize("seed,n_groups,rows,dense", [
+    (0, 4, 3, False), (1, 8, 128, True), (2, 12, 40, False)])
+def test_build_columns_kernel(dev, seed, n_groups, rows, dense):
+    docs, scores, gr, gn, gb, gs = lanes_and_groups(seed, n_groups, rows,
+                                                    dense)
+    hpt = n_groups // 4 + 3
+    shape = (4 * k.TILE // k.CHUNK, hpt, 16, 128)
+    stale = np.random.default_rng(seed).integers(-5, 6, size=shape)
+    outs = []
+    for run in (k.build_columns, k.build_columns_plain):
+        hi = _c(stale.astype(np.int8), dev)
+        lo = _c(stale.astype(np.int8), dev)
+        run(*(_c(a, dev) for a in (gr, gn, gb, gs, docs, scores)), hi, lo)
+        outs.append((hi, lo))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("qc,hpt,nsw", [(8, 33, 2), (24, 700, 1)])
+def test_sweep_rowmax_kernel(dev, qc, hpt, nsw):
+    qscale, hi, lo, wq, live = sweep_inputs(3, qc=qc, hpt=hpt, nsw=nsw)
+    args = [_c(a, dev) for a in (qscale, hi, lo, wq, live)]
+    km, kr = k.sweep_rowmax(*args, nsw=nsw)
+    pm, pr = k.sweep_rowmax_plain(*args, nsw=nsw)
+    torch.cuda.synchronize()
+    assert torch.equal(km, pm) and torch.equal(kr, pr)
+
+
+def test_sparse_gather_kernel(dev):
+    coff, cw, ct0, ct1, pool = sparse_inputs(5, n_terms=9, n_tiles=6)
+    args = [_c(a, dev) for a in (coff, cw, ct0, ct1, pool)]
+    got = k.sparse_gather(*args, n_tiles=6)
+    want = k.sparse_gather_plain(*args, n_tiles=6)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_launches_counted_and_bad_input_raises(dev):
+    k.reset_launches()
+    qscale, hi, lo, wq, live = sweep_inputs(0, qc=8, hpt=9, nsw=1)
+    args = [_c(a, dev) for a in (qscale, hi, lo, wq, live)]
+    k.sweep_rowmax(*args, nsw=1)
+    assert k.LAUNCHES["sweep_rowmax"] == 1
+    with pytest.raises(ValueError):
+        k.sweep_rowmax(args[0].cpu(), *args[1:], nsw=1)
+    assert k.LAUNCHES["sweep_rowmax"] == 1
+
+
+@pytest.mark.parametrize("bad", [-1, "n_gran"])
+def test_sparse_gather_rejects_granule_outside_pool(dev, bad):
+    coff, cw, ct0, ct1, pool = sparse_inputs(5, n_terms=9, n_tiles=6)
+    coff = coff.copy()
+    coff[2] = pool.shape[0] if bad == "n_gran" else bad
+    args = [_c(a, dev) for a in (coff, cw, ct0, ct1, pool)]
+    k.reset_launches()
+    with pytest.raises(ValueError, match="outside the pool"):
+        k.sparse_gather(*args, n_tiles=6)
+    assert k.LAUNCHES["sparse_gather"] == 0

@@ -1,0 +1,94 @@
+"""Seeded kernel inputs shared by the CPU differential tests
+(test_torch_kernels.py) and the card tests (test_torch_kernels_cuda.py).
+Not a test module: it imports neither jax nor the reference."""
+
+import numpy as np
+
+from elasticsearch_tpu_torch.parallel import kernels as k
+
+TILE = k.TILE
+
+
+def lanes_and_groups(seed, n_groups, rows_per_group, dense):
+    """Posting-lane arrays and build groups like TurboBM25's: each group's
+    docs are distinct and lie in its tile; the last row of a group is only
+    partly filled and its padding lanes are (doc 0, score 0), as a term's
+    last block row is. `dense` fills whole tiles with uniform scores, which
+    exercises the quantizer's fused multiply-add rounding."""
+    rng = np.random.default_rng(seed)
+    n_rows = n_groups * rows_per_group
+    docs = np.zeros((n_rows + k.MAX_GROUP_ROWS, 128), np.int32)
+    scores = np.zeros_like(docs, dtype=np.float32)
+    g_rows, g_nrows, g_base, g_slot = [], [], [], []
+    for g in range(n_groups):
+        tile = g % 4
+        n_lanes = rows_per_group * 128 - (0 if dense else 37)
+        d = np.sort(rng.permutation(TILE)[:n_lanes]) + tile * TILE
+        v = rng.uniform(0.0, 2.2, size=n_lanes).astype(np.float32)
+        v[rng.random(n_lanes) < 0.05] = np.float32(1e-3)   # hi = lo = 0
+        r0 = g * rows_per_group
+        docs[r0:r0 + rows_per_group].reshape(-1)[:n_lanes] = d
+        scores[r0:r0 + rows_per_group].reshape(-1)[:n_lanes] = v
+        g_rows.append(r0)
+        g_nrows.append(rows_per_group)
+        g_base.append(tile * TILE)
+        g_slot.append(g // 4)
+    # one zero group (an evicted term's tile) and one scratch-slot group
+    g_rows += [0, 0]
+    g_nrows += [0, 0]
+    g_base += [TILE, 0]
+    g_slot += [n_groups // 4 + 1, n_groups // 4 + 2]
+    arr = lambda x: np.asarray(x, np.int32)   # noqa: E731
+    return docs, scores, arr(g_rows), arr(g_nrows), arr(g_base), arr(g_slot)
+
+
+def sweep_inputs(seed, qc, hpt, nsw):
+    """Columns with few distinct values (so row maxima tie often), sparse
+    query weights, one all-zero query and a live mask with holes."""
+    rng = np.random.default_rng(seed)
+    dpc = nsw * k.N_CHUNKS
+    hi = rng.integers(0, 3, size=(dpc, hpt, 16, 128)).astype(np.int8)
+    lo = rng.integers(-2, 4, size=(dpc, hpt, 16, 128)).astype(np.int8)
+    hi[rng.random(hi.shape) < 0.7] = 0
+    wq = np.zeros((2, qc, hpt), np.int8)
+    for q in range(qc - 1):
+        slots = rng.choice(hpt, size=1 + q % 3, replace=False)
+        wq[0, q, slots] = rng.integers(1, 128, size=len(slots))
+        wq[1, q, slots] = rng.integers(-127, 128, size=len(slots))
+    qscale = rng.uniform(1e-5, 1e-3, size=(qc, 1)).astype(np.float32)
+    live = (rng.random((nsw * k.SW_ROWS, 128)) > 0.1).astype(np.float32)
+    return qscale, hi, lo, wq, live
+
+
+def sparse_inputs(seed, n_terms, n_tiles):
+    """A granule pool of cold-term slices (distinct sorted docs per term,
+    uint8 impacts, zero padding lanes) and a dispatch over them in the
+    reference's layout, with overlapping docs across terms and padding
+    chunks."""
+    rng = np.random.default_rng(seed)
+    grans = [np.zeros((8, 128), np.int32)]            # granule 0: zeros
+    coff, cw, ct0, ct1 = [], [], [], []
+    for t in range(n_terms):
+        df = int(rng.integers(50, 2500))
+        docs = np.sort(rng.choice(n_tiles * TILE, size=df, replace=False))
+        imp = rng.integers(1, 256, size=df)
+        w = np.float32(rng.uniform(0.01, 0.2))
+        n_g = -(-df // k.SPARSE_GRAN)
+        buf = np.zeros(n_g * k.SPARSE_GRAN, np.int64)
+        buf[:df] = (docs.astype(np.int64) << 8) | imp
+        for j in range(n_g):
+            coff.append(len(grans))
+            grans.append(buf[j * 1024:(j + 1) * 1024].astype(np.int32)
+                         .reshape(8, 128))
+            cw.append(w)
+            e = min((j + 1) * 1024, df)
+            ct0.append(int(docs[j * 1024]) // TILE)
+            ct1.append(int(docs[e - 1]) // TILE)
+    pad = 16 - len(coff)
+    coff += [0] * pad
+    cw += [0.0] * pad
+    ct0 += [1] * pad
+    ct1 += [0] * pad
+    return (np.asarray(coff, np.int32), np.asarray(cw, np.float32),
+            np.asarray(ct0, np.int32), np.asarray(ct1, np.int32),
+            np.stack(grans))
