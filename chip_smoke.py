@@ -9,10 +9,11 @@ nothing of JAX or of elasticsearch_tpu) the way bench.py drives config 1 of
 BASELINE.md, at the size of one primary shard of the 33M-doc Wikipedia-EN
 target:
 
-1. builds the three CUDA kernels (K1 build_columns, K2 sweep_rowmax,
-   K3 sparse_gather) from parallel/csrc with nvcc;
-2. builds one 8,000,000-doc shard on the host: docs of 8-40 terms over a
-   500k-term Zipf(1.07) vocabulary, seeded as bench.py does;
+1. builds the CUDA kernels (K1 build_columns, K2 sweep_rowmax,
+   K3 sparse_gather, K5 intersect_bitset, K6 sweep_rowmax_bitset,
+   K7 sweep_rowmax_conj) from parallel/csrc with nvcc;
+2. builds one 8,000,000-doc shard with positions on the host: docs of 8-40
+   terms over a 500k-term Zipf(1.07) vocabulary, seeded as bench.py does;
 3. selects the engine with `select_bm25_engine(device="cuda")` (cold_df
    65536, 7 GiB column budget, bench.py's settings) at the widened slice
    ladder below, prebuilds every column (K1 at full width) and serves two
@@ -29,9 +30,23 @@ target:
    path's shapes, requires bitwise agreement, and times both (CUDA events,
    median), with one PyTorch library call beside K2 and K3 as a yardstick;
    K3 is also timed at every dispatch of the first batch;
-6. serves the first batch again on a fresh engine at the default slice
+6. on the same engine, serves config 2 (256 bool queries drawn as
+   bench.py's draw_bool, plus bool DSL bodies through extract_plan and
+   _turbo_bool_spec) on both sweeps: ES_TPU_BITSET=1 (K5 + K6) and
+   ES_TPU_BITSET=0 (K7), counts set to 0 before each; then config 3 (256
+   slop-0 phrases drawn as bench.py's draw_phrases, in batches of 64 so
+   none degrades, K1 building their adjacency columns; two head-term
+   phrases that take the device sweep) and one slop-2 match_phrase body
+   (the exact host route). Every answer is held bitwise against
+   search_bool_host and some against a numpy scorer; certificate
+   fallbacks that a numpy check of exact scores does not explain are
+   held to MAX_CERT_FALLBACK_SHARE; K5-K7, and K3 on every
+   cold-SHOULD dispatch, are held against their plain versions on the
+   bitset route's device chunk and timed, and so are the bitset repack
+   and mask_chunk_counts;
+7. serves the first batch again on a fresh engine at the default slice
    ladder and reports its sparse fallbacks, holding its answers too;
-7. prints the card's name and power limit and a `kernels` JSON line, and
+8. prints the card's name and power limit and a `kernels` JSON line, and
    last `{"ok": true, "device": {...}}`.
 
 Any failed check raises: the script then exits nonzero and prints no
@@ -48,6 +63,7 @@ main path refuses. Phase 6 measures how often that happens at the default.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -63,8 +79,12 @@ COLD_DF = 65536
 TURBO_HBM = 7 << 30
 K = 10
 WIDE_LADDER = f"1024,4096,16384,{COLD_DF}"
-# certificate fallbacks allowed on the main path, as a share of its queries
-# (5 of 520 on the full-size index: hot Zipf terms tie on thousands of docs)
+# certificate fallbacks allowed, as a share of a path's queries. A fallback
+# is the algorithm's own exact route on a tied query, not a fault: hot Zipf
+# terms tie on thousands of docs, more than the collected rows hold. The
+# disjunctive path: 5 of 520 at full size. The bool and phrase paths,
+# counted separately per route, count only the fallbacks that
+# fallback_explained() does not explain from exact scores.
 MAX_CERT_FALLBACK_SHARE = 0.02
 # H100 SXM published peaks (NVIDIA datasheet): bytes/s, int8 op/s,
 # f32 op/s outside the tensor cores
@@ -94,15 +114,21 @@ def zipf_probs(vocab: int) -> np.ndarray:
 
 
 def build_index(n_docs: int, vocab: int):
+    """The corpus and its positional postings, as bench.py builds them;
+    also returns the token stream and doc bounds (phrases are drawn from
+    real adjacencies)."""
     from elasticsearch_tpu_torch.index.segment import build_field_postings
 
     rng = np.random.default_rng(42)
     lens = rng.integers(8, 40, size=n_docs).astype(np.int64)
     tokens = rng.choice(vocab, size=int(lens.sum()), p=zipf_probs(vocab))
+    bounds = np.concatenate([[0], np.cumsum(lens)])
     tok_docs = np.repeat(np.arange(n_docs, dtype=np.int64), lens)
+    tok_pos = np.arange(len(tokens), dtype=np.int64) - bounds[tok_docs]
     fp = build_field_postings("body", lens, tok_docs, tokens,
-                              [f"t{i}" for i in range(vocab)])
-    return fp, int(lens.sum())
+                              [f"t{i}" for i in range(vocab)],
+                              token_pos=tok_pos)
+    return fp, tokens, bounds
 
 
 def draw_batches(n_batches: int, n: int, vocab: int):
@@ -268,18 +294,8 @@ def check_k2(turbo, batch, launches):
     nbytes = (n_union * 2 * dp + dp * 4 + wq_np.nbytes + qs_np.nbytes
               + 2 * turbo.nsw * qc * k.CAND_PAD * 4)
     b_ms, b_by = bound(nbytes, nnz * 4 * 2 * dp, PEAK_INT8)
-    # yardstick: the four int8 products as one cuBLASLt int8 GEMM over the
-    # dense slots, [wh; wl] @ [cols_hi | cols_lo] (the port never calls it)
+    lib_ms = int_mm_ms(turbo, wq)
     hpt = turbo.cols_hi.shape[1]
-    k8 = -(-hpt // 8) * 8
-    a = torch.zeros((2 * qc, k8), dtype=torch.int8, device=dev)
-    a[:, :hpt] = wq.reshape(2 * qc, hpt)
-    b = torch.zeros((k8, 2 * dp), dtype=torch.int8, device=dev)
-    b[:hpt, :dp] = turbo.cols_hi.permute(1, 0, 2, 3).reshape(hpt, dp)
-    b[:hpt, dp:] = turbo.cols_lo.permute(1, 0, 2, 3).reshape(hpt, dp)
-    lib_ms = cuda_ms(lambda: torch._int_mm(a, b), 3)
-    del a, b
-    torch.cuda.empty_cache()
     return {"name": "sweep_rowmax", "route": "cuda",
             "source": "elasticsearch_tpu_torch/parallel/csrc/sweep_rowmax.cu",
             "replaces": "elasticsearch_tpu/parallel/kernels.py:190",
@@ -290,6 +306,73 @@ def check_k2(turbo, batch, launches):
                       "union_slots": n_union, "nonzero_weights": nnz}}
 
 
+def int_mm_ms(turbo, wq) -> float:
+    """Yardstick of the sweeps: the four int8 score products as one
+    cuBLASLt int8 GEMM over the dense slots, [wh; wl] @ [cols_hi | cols_lo]
+    (the port never calls it)."""
+    import torch
+
+    qc, hpt, dp = wq.shape[1], turbo.cols_hi.shape[1], turbo.Dp
+    k8 = -(-hpt // 8) * 8
+    a = torch.zeros((2 * qc, k8), dtype=torch.int8, device=wq.device)
+    a[:, :hpt] = wq.reshape(2 * qc, hpt)
+    b = torch.zeros((k8, 2 * dp), dtype=torch.int8, device=wq.device)
+    b[:hpt, :dp] = turbo.cols_hi.permute(1, 0, 2, 3).reshape(hpt, dp)
+    b[:hpt, dp:] = turbo.cols_lo.permute(1, 0, 2, 3).reshape(hpt, dp)
+    ms = cuda_ms(lambda: torch._int_mm(a, b), 3)
+    del a, b
+    torch.cuda.empty_cache()
+    return ms
+
+
+def k3_dispatches(turbo, sides):
+    """K3's input arrays (coff, cw, ct0, ct1) for each query's nonempty
+    cold side [(term, boost, info)], as the path dispatches them."""
+    preps = []
+    for cold in sides:
+        # re-slice what a later batch evicted (a cut index has a small pool)
+        if not cold or not turbo._ensure_sparse([(t, i) for t, _, i in cold]):
+            continue
+        prep = turbo._sparse_dispatch_args(cold)
+        require(prep is not None, "K3: a cold side exceeded the chunk buckets")
+        preps.append(prep[0])
+    require(preps, "K3: no query had a cold term")
+    return preps
+
+
+def check_k3_bool(turbo, chunk, launches):
+    """K3 against its plain version on every cold-SHOULD dispatch of the
+    bool path's device chunk (the sides _finish_bool sends), each timed on
+    its own."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    preps = k3_dispatches(turbo, [
+        [(t, b, i) for t, b, i in r.should if t not in turbo._slot_of]
+        for r in chunk])
+    pool, n_tiles = turbo._sp_pool, turbo.Dp // k.TILE
+    per, err = [], 0.0
+    for arrays in preps:
+        a = [torch.from_numpy(x).to(turbo.device) for x in arrays]
+        out = {}
+        per.append(cuda_ms(lambda: out.__setitem__("k", k.sparse_gather(
+            *a, pool, n_tiles=n_tiles)), 3))
+        plain = k.sparse_gather_plain(*a, pool, n_tiles=n_tiles)
+        e = max_abs_err(out["k"], plain)
+        require(e == 0.0 and torch.equal(out["k"], plain),
+                f"K3 kernel vs plain on the bool path: max_abs_err {e}")
+        err = max(err, e)
+    live = [int((arrays[0] > 0).sum()) for arrays in preps]
+    q = np.percentile(per, [0, 50, 90, 100])
+    return {"launches": launches, "dispatches_held": len(per),
+            "max_abs_err": err, "sum_ms": float(np.sum(per)),
+            "min_ms": q[0], "p50_ms": q[1], "p90_ms": q[2], "max_ms": q[3],
+            "live_chunks_min": min(live),
+            "live_chunks_p50": float(np.median(live)),
+            "live_chunks_max": max(live)}
+
+
 def check_k3(turbo, batch, launches):
     import torch
 
@@ -298,16 +381,10 @@ def check_k3(turbo, batch, launches):
 
     dev = turbo.device
     flat, _ = _flatten_queries([batch])
-    preps = []
-    for terms in flat:
-        cold = [(t, b, turbo._term(t)) for t, b in terms
-                if turbo._term(t) is not None and t not in turbo._slot_of]
-        if not cold:
-            continue
-        prep = turbo._sparse_dispatch_args(cold)
-        require(prep is not None, "K3: a cold side exceeded the chunk buckets")
-        preps.append(prep[0])
-    require(preps, "K3: no query had a cold term")
+    preps = k3_dispatches(turbo, [
+        [(t, b, turbo._term(t)) for t, b in terms
+         if turbo._term(t) is not None and t not in turbo._slot_of]
+        for terms in flat])
     n_tiles = turbo.Dp // k.TILE
     pool = turbo._sp_pool
     # every dispatch of the batch, timed on its own
@@ -391,6 +468,637 @@ def default_ladder(fp, n_docs, batch, held):
     return out
 
 
+# ---------------------------------------------------------------------------
+# bool and slop-0 phrase serving (BASELINE configs 2 and 3)
+# ---------------------------------------------------------------------------
+
+BOOL_BATCH = 256
+PHRASES = 256
+PHRASE_BATCH = 64      # distinct phrases per call: well under the 224 slots
+#                        of the full-size shard, so none degrades to the host
+#                        (a cut index has fewer slots: at most Hp / 2 then)
+# head-term phrases: they match more docs than ES_TPU_BITSET_HOST_DF, so
+# they take the device sweep (K5 + K6) where the drawn phrases gallop
+HEAD_PHRASES = [["t0", "t1"], ["t2", "t0"]]
+
+BOOL_DSL = [
+    # must_not on a head term: its column is resident, K5's AND-NOT runs
+    {"query": {"bool": {
+        "must": [{"term": {"body": "t3"}}, {"term": {"body": "t10"}}],
+        "must_not": [{"term": {"body": "t7"}}],
+        "should": [{"match": {"body": "t500"}}]}}},
+    # filter on a head term
+    {"query": {"bool": {
+        "must": [{"match": {"body": "t5"}}],
+        "filter": [{"term": {"body": "t1"}}],
+        "should": [{"term": {"body": "t2000"}}]}}},
+    # more than 8 musts and more than 4 must_nots: the device mask is a
+    # superset there, the exact rescore drops the spurious survivors
+    {"query": {"bool": {
+        "must": [{"match": {"body": {"query": "t0 t1 t2 t3 t4 t5 t6 t7 t8",
+                                     "operator": "and"}}}],
+        "must_not": [{"terms": {"body": ["t20", "t21", "t22", "t23", "t24",
+                                         "t25"]}}]}}},
+    {"query": {"match": {"body": {"query": "t2 t40", "operator": "and"}}}},
+    {"query": {"bool": {
+        "must": [{"term": {"body": {"value": "t12", "boost": 2.0}}},
+                 {"term": {"body": "t60"}}],
+        "must_not": [{"term": {"body": "t0"}}]}}},
+    {"query": {"bool": {
+        "must": [{"match_phrase": {"body": "t4 t9"}}],
+        "should": [{"term": {"body": "t30"}}]}}},
+]
+
+
+def draw_bool(n: int, vocab: int):
+    """bench.py's draw_bool (config 2): half selective conjunctions (a
+    mid-rank must, which the host serves at cold_df 65536), half heavy ones
+    (two head-term musts and a mid-rank should, served on the device with
+    the should through the cold tier)."""
+    rng = np.random.default_rng(44)
+    h_hi = max(2, min(100, vocab // 100))
+    m_hi = max(2 * h_hi + 2, min(20_000, vocab // 2))
+    head = rng.integers(0, h_hi, size=(n, 2))
+    mid = rng.integers(2 * h_hi, m_hi, size=(n, 2))
+    tail = rng.integers(m_hi, vocab, size=(n, 1))
+    out = []
+    for i in range(n):
+        if i % 2 == 0:
+            out.append({
+                "must": [(f"t{mid[i, 0]}", 1.0)],
+                "should": [(f"t{head[i, 0]}", 1.0), (f"t{tail[i, 0]}", 1.0)],
+                "filter": [f"t{mid[i, 1]}"] if i % 4 == 0 else [],
+            })
+        else:
+            out.append({
+                "must": [(f"t{head[i, 0]}", 1.0), (f"t{head[i, 1]}", 1.0)],
+                "should": [(f"t{mid[i, 0]}", 1.0)],
+            })
+    return out
+
+
+def draw_phrases(n: int, fp, tokens, bounds, max_df: int = 200_000):
+    """bench.py's draw_phrases (config 3): two adjacent tokens of a random
+    doc, both of df <= max_df."""
+    rng = np.random.default_rng(45)
+    n_docs = len(bounds) - 1
+    out = []
+    while len(out) < n:
+        d = int(rng.integers(0, n_docs))
+        lo, hi = int(bounds[d]), int(bounds[d + 1])
+        if hi - lo < 2:
+            continue
+        j = int(rng.integers(lo, hi - 1))
+        a, b = int(tokens[j]), int(tokens[j + 1])
+        if a == b:
+            continue
+        oa, ob = fp.term_to_ord[f"t{a}"], fp.term_to_ord[f"t{b}"]
+        if max(fp.doc_freq[oa], fp.doc_freq[ob]) > max_df:
+            continue
+        out.append([f"t{a}", f"t{b}"])
+    return out
+
+
+def _dense_tf(fp, term):
+    """(tf f32[n_docs], present bool[n_docs]) read straight off the
+    postings."""
+    n = len(fp.doc_len)
+    tf = np.zeros(n, np.float32)
+    present = np.zeros(n, bool)
+    o = fp.term_to_ord.get(term, -1)
+    if o >= 0:
+        lo, hi = int(fp.post_start[o]), int(fp.post_start[o + 1])
+        rows = slice(int(fp.block_start[o]),
+                     int(fp.block_start[o]) + int(fp.block_count[o]))
+        docs = fp.post_doc[lo:hi]
+        tf[docs] = fp.block_tfs[rows].ravel()[: hi - lo]
+        present[docs] = True
+    return tf, present
+
+
+def _dense_pf(fp, a: str, b: str):
+    """Slop-0 frequency of the two-term phrase "a b" per doc: occurrences
+    of a whose next position holds b, by set membership of (doc, position)
+    keys (not the engine's searchsorted probe)."""
+    def keys(t):
+        o = fp.term_to_ord[t]
+        lo, hi = int(fp.post_start[o]), int(fp.post_start[o + 1])
+        cnt = fp.pos_start[lo + 1: hi + 1] - fp.pos_start[lo:hi]
+        docs = np.repeat(fp.post_doc[lo:hi].astype(np.int64), cnt)
+        pos = fp.pos_data[int(fp.pos_start[lo]): int(fp.pos_start[hi])]
+        return docs, docs * 1024 + pos
+
+    da, ka = keys(a)
+    _, kb = keys(b)
+    hit = np.isin(ka + 1, kb)
+    return np.bincount(da[hit], minlength=len(fp.doc_len)).astype(np.float32)
+
+
+def _bool_dense(fp, total_docs, spec):
+    """(f32 score, match) of every doc for a bool spec: the reference's
+    formula and f64 accumulation order (must, should, then phrases; one
+    f32 rounding), tf and phrase freqs read off the postings by other
+    means than the engine's."""
+    import math
+
+    def idf(t):
+        df = int(fp.doc_freq[fp.term_to_ord[t]])
+        return math.log(1.0 + (total_docs - df + 0.5) / (df + 0.5))
+
+    n = len(fp.doc_len)
+    avgdl = fp.sum_doc_len / int(np.count_nonzero(fp.doc_len))
+    norm = 1.2 * (1.0 - 0.75 + 0.75 * fp.doc_len / max(avgdl, 1e-9))
+    scores = np.zeros(n, np.float64)
+    match = np.ones(n, bool)
+    for t, w in spec.get("must", ()):
+        tf, present = _dense_tf(fp, t)
+        match &= present
+        scores += w * idf(t) * tf * (1.2 + 1.0) / (tf + norm)
+    for t in spec.get("filter", ()):
+        match &= _dense_tf(fp, t)[1]
+    for t, w in spec.get("should", ()):
+        tf, present = _dense_tf(fp, t)
+        contrib = w * idf(t) * tf * (1.2 + 1.0) / np.maximum(tf + norm, 1e-9)
+        scores += np.where(present, contrib, 0.0)
+    for terms, slop, boost in spec.get("phrases", ()):
+        require(slop == 0 and len(terms) == 2, "numpy scorer: 2-term slop 0")
+        pf = _dense_pf(fp, *terms)
+        match &= pf > 0
+        idf_sum = float(sum(idf(t) for t in terms))
+        scores += boost * idf_sum * pf * (1.2 + 1.0) / (pf + norm)
+    for t in spec.get("must_not", ()):
+        match &= ~_dense_tf(fp, t)[1]
+    return scores.astype(np.float32), match
+
+
+def brute_bool(fp, total_docs, spec, k=K):
+    """Independent numpy scorer for a bool spec over every doc."""
+    s32, match = _bool_dense(fp, total_docs, spec)
+    docs = np.nonzero(match & (s32 > 0))[0]
+    sel = np.lexsort((docs, -s32[docs]))[:k]
+    return s32[docs[sel]], docs[sel].astype(np.int32)
+
+
+def exact_bound(s32, gate, nsw: int) -> float:
+    """The certificate's bound on an uncollected row, computed as the sweep
+    and the row pick compute it, but from exact scores: each 128-doc row's
+    best gated score, each superwindow's top NCAND rows, and the larger of
+    the first row past the collected ones and every superwindow's last
+    listed row (-inf counting as 0)."""
+    from elasticsearch_tpu_torch.parallel.kernels import NCAND, SW
+    from elasticsearch_tpu_torch.parallel.turbo import _GLOBAL_ROWS
+
+    score = np.full(nsw * SW, -np.inf)
+    score[:len(s32)] = np.where(gate, s32, -np.inf)
+    rowmax = score.reshape(nsw, SW // 128, 128).max(axis=2)
+    top = -np.sort(-rowmax, axis=1)[:, :NCAND]
+    listed = -np.sort(-top.ravel())
+    n_rows = max(_GLOBAL_ROWS, K + 5)
+    cands = list(top[:, NCAND - 1])
+    if len(listed) > n_rows:
+        cands.append(listed[n_rows])
+    return float(max(x if np.isfinite(x) else 0.0 for x in cands))
+
+
+def fallback_explained(fp, total_docs, rec, nsw: int, k=K) -> bool:
+    """Whether exact scores alone explain one certificate fallback: the
+    device's bound lies within the margin e_q of exact_bound() (the most the
+    quantized sweep can misstate a score, so a bound off by more would be a
+    fault), and the k-th exact score lies below bound + e_q, where the
+    certificate must fail (a near-tie inside its margin). Only a query
+    whose device gate is exact is explained: every required clause and
+    must_not inside the bitset fan-in, or the coverage sweep."""
+    if not rec["exact_gate"]:
+        return False
+    spec, res = rec["spec"], rec["resident"]
+    # what the sweep scores and gates: resident SHOULD terms and must_nots
+    dev = dict(spec, should=[(t, b) for t, b in spec["should"] if t in res],
+               must_not=[t for t in spec["must_not"] if t in res])
+    s_dev, gate = _bool_dense(fp, total_docs, dev)
+    b, e_q = rec["bound"], rec["e_q"]
+    if abs(b - exact_bound(s_dev, gate, nsw)) > e_q:
+        return False
+    s_all, match = ((s_dev, gate) if dev == spec
+                    else _bool_dense(fp, total_docs, spec))
+    hit = match & (s_all > 0)
+    if int(hit.sum()) < k:
+        return b > 0
+    return float(np.partition(s_all[hit], -k)[-k]) < b + e_q
+
+
+def _spec_of(r) -> dict:
+    """A resolved bool query back as a spec (_resolve_bool's input)."""
+    return {"must": [(t, b) for t, b, _ in r.conj],
+            "filter": [t for t, _ in r.filters],
+            "should": [(t, b) for t, b, _ in r.should],
+            "must_not": [t for t, _ in r.must_not],
+            "phrases": [(tuple(p[0]), p[1], p[2]) for p in r.phrases]}
+
+
+@contextlib.contextmanager
+def record_fallbacks(turbo, bits: bool):
+    """Yields a list that collects, for every query whose device
+    certificate fails while the block runs, its spec, the device's bound,
+    e_q, its resident terms and whether the sweep's gate is exact (wraps
+    the engine's _finish_bool on this instance only)."""
+    from elasticsearch_tpu_torch.parallel.kernels import (
+        BITSET_CLAUSES, BITSET_NEGS,
+    )
+    from elasticsearch_tpu_torch.parallel.turbo import _quant_error
+
+    fell = []
+    finish = turbo._finish_bool
+
+    def spy(r, cand_docs, bound, k):
+        n = turbo.stats["fallbacks"]
+        scoring, req, neg = turbo._bool_slots(r)
+        out = finish(r, cand_docs, bound, k)
+        if turbo.stats["fallbacks"] > n:
+            spec = _spec_of(r)
+            terms = ([t for t, _ in spec["must"] + spec["should"]]
+                     + spec["filter"] + spec["must_not"])
+            fell.append({
+                "spec": spec, "bound": float(bound),
+                "e_q": _quant_error([w for _, w, _ in scoring]),
+                "resident": {t for t in terms if t in turbo._slot_of},
+                "exact_gate": not bits or (len(req) <= BITSET_CLAUSES
+                                           and len(neg) <= BITSET_NEGS)})
+        return out
+
+    turbo._finish_bool = spy
+    try:
+        yield fell
+    finally:
+        del turbo._finish_bool
+
+
+def hold_fallbacks(fp, total_docs, nsw, fell, n_fallbacks, n_q, label):
+    """The path's certificate fallbacks: each one recorded, and those that
+    fallback_explained() does not explain at most MAX_CERT_FALLBACK_SHARE
+    of the path's queries. Returns the explained count."""
+    require(len(fell) == n_fallbacks,
+            f"{label}: {len(fell)} fallbacks recorded, {n_fallbacks} counted")
+    explained = sum(fallback_explained(fp, total_docs, rec, nsw)
+                    for rec in fell)
+    require(n_fallbacks - explained <= MAX_CERT_FALLBACK_SHARE * n_q,
+            f"{label}: {n_fallbacks - explained} certificate fallbacks not "
+            f"explained by exact scores exceed {MAX_CERT_FALLBACK_SHARE} "
+            f"of {n_q} queries")
+    return explained
+
+
+def hold_bool(turbo, specs, answers, label):
+    """Every answer bitwise against the host-exact tier (computed once,
+    in parallel) and each route's answers against it."""
+    t = time.time()
+    parts = [specs[i:i + 8] for i in range(0, len(specs), 8)]
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
+        host = list(ex.map(lambda q: turbo.search_bool_host(q, k=K), parts))
+    hs = np.concatenate([h[0] for h in host])
+    ho = np.concatenate([h[1] for h in host])
+    ho[hs <= 0] = 0
+    for route, (s, p, o) in answers.items():
+        require(s.shape == (len(specs), K) and np.isfinite(s).all(),
+                f"{label}/{route}: result shape or finiteness")
+        require(not p.any(), "partition ids on a one-partition engine")
+        require(np.array_equal(s, hs) and np.array_equal(o, ho),
+                f"{label}/{route}: device route differs from the host tier")
+    log(f"{label}: {len(specs)} answers x {len(answers)} routes bitwise "
+        f"equal to the host-exact tier ({time.time() - t:.1f}s)")
+    return hs, ho
+
+
+def check_k5(turbo, chunk, launches):
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    dev, qc, nsw = turbo.device, 256, turbo.nsw
+    qs_np, qn_np = turbo._bitset_prefetch(chunk, qc)
+    q_slots = torch.from_numpy(qs_np).to(dev)
+    q_neg = torch.from_numpy(qn_np).to(dev)
+    out = {}
+    ms = cuda_ms(lambda: out.__setitem__("k", k.intersect_bitset(
+        q_slots, q_neg, turbo.bits, nsw=nsw)), 20)
+    plain_ms = cuda_ms(lambda: out.__setitem__("p", k.intersect_bitset_plain(
+        q_slots, q_neg, turbo.bits, nsw=nsw)), 3)
+    err = max_abs_err(out["k"], out["p"])
+    require(err == 0.0 and torch.equal(out["k"], out["p"]),
+            f"K5 kernel vs plain: max_abs_err {err}")
+    # each distinct clause block read once (sentinels need no read), the
+    # mask written once
+    distinct = set(qs_np.ravel().tolist()) | set(qn_np.ravel().tolist())
+    distinct -= {turbo.Hp, turbo.Hp + 1}
+    block = k.SW_WORD_ROWS * 128 * 4
+    nbytes = (len(distinct) * nsw * block + qc * nsw * block
+              + qs_np.nbytes + qn_np.nbytes)
+    b_ms, b_by = bound(nbytes, qc * nsw * block // 4 * 12, PEAK_F32)
+    return {"name": "intersect_bitset", "route": "cuda",
+            "source": "elasticsearch_tpu_torch/parallel/csrc/intersect_bitset.cu",
+            "replaces": "elasticsearch_tpu/parallel/kernels.py:432",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call gathers and ANDs the "
+                            "clause blocks",
+            "shape": {"QC": qc, "nsw": nsw, "active": len(chunk),
+                      "distinct_slots": len(distinct)}}, out["k"]
+
+
+def check_k6(turbo, chunk, mask, launches):
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    dev, qc, nsw = turbo.device, 256, turbo.nsw
+    wq_np, _, _, qs_np = turbo._bool_weights(chunk, qc)
+    wq = torch.from_numpy(wq_np).to(dev)
+    qs = torch.from_numpy(qs_np).to(dev)
+    args = (qs, turbo.cols_hi, turbo.cols_lo, wq, mask, turbo.live)
+    out = {}
+    ms = cuda_ms(lambda: out.__setitem__(
+        "k", k.sweep_rowmax_bitset(*args, nsw=nsw)), 10)
+    plain_ms = cuda_ms(lambda: out.__setitem__(
+        "p", k.sweep_rowmax_bitset_plain(*args, nsw=nsw)), 1)
+    (km, kr), (pm, pr) = out["k"], out["p"]
+    err = max(max_abs_err(km, pm), max_abs_err(kr, pr))
+    require(err == 0.0 and torch.equal(km, pm) and torch.equal(kr, pr),
+            f"K6 kernel vs plain: max_abs_err {err}")
+    # live chunks per query: a 16-bit half-word with a surviving bit
+    lo = ((mask & 0xFFFF) != 0).any(dim=-1)
+    hi = (((mask >> 16) & 0xFFFF) != 0).any(dim=-1)
+    live_c = torch.stack([lo, hi], dim=-1).reshape(qc, -1).cpu().numpy()
+    nz = (wq_np != 0).any(axis=0)                           # [QC, Hpt]
+    col_bytes = 0
+    for slot in np.nonzero(nz.any(axis=0))[0]:
+        col_bytes += int(live_c[nz[:, slot]].any(axis=0).sum()) * k.CHUNK * 2
+    any_live = int(live_c.any(axis=0).sum())
+    # the kernel reads the mask only of queries with a score weight
+    scored = int(nz.any(axis=1).sum())
+    nbytes = (col_bytes + any_live * k.CHUNK * 4 + scored * mask[0].numel() * 4
+              + wq_np.nbytes + qs_np.nbytes + 2 * nsw * qc * k.CAND_PAD * 4)
+    ops = int((nz.sum(axis=1) * live_c.sum(axis=1)).sum()) * k.CHUNK * 8
+    b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
+    return {"name": "sweep_rowmax_bitset", "route": "cuda",
+            "source": "elasticsearch_tpu_torch/parallel/csrc/sweep_rowmax.cu",
+            "replaces": "elasticsearch_tpu/parallel/kernels.py:581",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": int_mm_ms(turbo, wq),
+            "library_note": "torch._int_mm of the four score products over "
+                            "all slots; the mask gate has no library call",
+            "shape": {"QC": qc, "Hpt": int(turbo.cols_hi.shape[1]),
+                      "nsw": nsw, "scored_queries": scored,
+                      "live_chunks": int(live_c.sum()),
+                      "chunks": int(live_c.size),
+                      "nonzero_weights": int(nz.sum())}}
+
+
+def check_k7(turbo, chunk, launches):
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    dev, qc, nsw = turbo.device, 256, turbo.nsw
+    wq_np, wp_np, nr_np, qs_np = turbo._bool_weights(chunk, qc)
+    wq, wp = (torch.from_numpy(x).to(dev) for x in (wq_np, wp_np))
+    nreq, qs = (torch.from_numpy(x).to(dev) for x in (nr_np, qs_np))
+    args = (qs, nreq, turbo.cols_hi, turbo.cols_lo, wq, wp, turbo.live)
+    out = {}
+    ms = cuda_ms(lambda: out.__setitem__(
+        "k", k.sweep_rowmax_conj(*args, nsw=nsw)), 10)
+    plain_ms = cuda_ms(lambda: out.__setitem__(
+        "p", k.sweep_rowmax_conj_plain(*args, nsw=nsw)), 1)
+    (km, kr), (pm, pr) = out["k"], out["p"]
+    err = max(max_abs_err(km, pm), max_abs_err(kr, pr))
+    require(err == 0.0 and torch.equal(km, pm) and torch.equal(kr, pr),
+            f"K7 kernel vs plain: max_abs_err {err}")
+    nz = (wq_np != 0).any(axis=0) | (wp_np != 0)             # [QC, Hpt]
+    dp = turbo.Dp
+    nbytes = (int(nz.any(axis=0).sum()) * 2 * dp + dp * 4 + wq_np.nbytes
+              + wp_np.nbytes + nr_np.nbytes + qs_np.nbytes
+              + 2 * nsw * qc * k.CAND_PAD * 4)
+    b_ms, b_by = bound(nbytes, int(nz.sum()) * dp * 10, PEAK_INT8)
+    return {"name": "sweep_rowmax_conj", "route": "cuda",
+            "source": "elasticsearch_tpu_torch/parallel/csrc/sweep_rowmax.cu",
+            "replaces": "elasticsearch_tpu/parallel/kernels.py:318",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": int_mm_ms(turbo, wq),
+            "library_note": "torch._int_mm of the four score products over "
+                            "all slots; the coverage product has no library "
+                            "call",
+            "shape": {"QC": qc, "Hpt": int(turbo.cols_hi.shape[1]),
+                      "nsw": nsw, "union_slots": int(nz.any(axis=0).sum()),
+                      "nonzero_weights": int(nz.sum())}}
+
+
+def _delta(after: dict, before: dict, keys) -> dict:
+    return {key: after[key] - before[key] for key in keys}
+
+
+BOOL_STATS = ("bool_device", "bool_host", "fallbacks", "bitset_gallop",
+              "bitset_blocks_skipped", "bitset_packs", "phrase_builds",
+              "builds", "degraded", "sparse_queries", "sparse_fallbacks",
+              "cold_queries", "health_device_faults",
+              "health_fallback_queries")
+
+
+@contextlib.contextmanager
+def bitset_route(flag: str):
+    """ES_TPU_BITSET set to flag while the block runs, then restored."""
+    saved = os.environ.get("ES_TPU_BITSET")
+    os.environ["ES_TPU_BITSET"] = flag
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("ES_TPU_BITSET", None)
+        else:
+            os.environ["ES_TPU_BITSET"] = saved
+
+
+def serve_bool_routes(eng, turbo, fp, n_docs, batches):
+    """The bool batches on both sweeps: ES_TPU_BITSET=1 (K5 + K6) and
+    ES_TPU_BITSET=0 (K7), each with every launch count set to 0 just before
+    and read just after. Returns {route: (answers per batch, report)}."""
+    from elasticsearch_tpu_torch.parallel import kernels
+
+    out = {}
+    for route, flag in (("bitset", "1"), ("coverage", "0")):
+        st0 = dict(eng.stats)
+        fault_log = []
+        answers, lat = [], []
+        with bitset_route(flag), \
+                record_fallbacks(turbo, flag == "1") as fell:
+            kernels.reset_launches()
+            for specs in batches:
+                t = time.time()
+                answers.append(eng.search_bool(specs, k=K,
+                                               fault_log=fault_log))
+                lat.append(time.time() - t)
+            launches = dict(kernels.LAUNCHES)
+        d = _delta(eng.stats, st0, BOOL_STATS)
+        n_q = sum(len(b) for b in batches)
+        rep = {"batch_latency_s": lat, "queries": n_q,
+               "launches": launches, **d}
+        log(f"bool route {route}: {rep}")
+        require(not fault_log, f"bool {route}: fault records {fault_log}")
+        for key in ("degraded", "sparse_fallbacks", "cold_queries",
+                    "health_device_faults", "health_fallback_queries"):
+            require(d[key] == 0, f"bool {route}: {key} = {d[key]}")
+        require(d["bool_device"] > 0, f"bool {route}: no device query")
+        rep["fallbacks_explained"] = hold_fallbacks(
+            fp, n_docs, turbo.nsw, fell, d["fallbacks"], n_q,
+            f"bool {route}")
+        log(f"bool {route}: {rep['fallbacks_explained']} of "
+            f"{d['fallbacks']} certificate fallbacks explained by exact "
+            f"scores")
+        need = (("intersect_bitset", "sweep_rowmax_bitset")
+                if route == "bitset" else ("sweep_rowmax_conj",))
+        for name in need + ("sparse_gather",):
+            require(launches[name] > 0,
+                    f"bool {route}: {name} never launched: {launches}")
+        out[route] = (answers, rep)
+    return out
+
+
+def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper):
+    """Configs 2 and 3 on the main path's engine: the bool batches on both
+    sweeps, K5-K7 held against their plain versions on the bitset route's
+    dispatch, then slop-0 phrase batches and one slop-2 match_phrase body.
+    Returns (kernel rows, serving report)."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels
+    from elasticsearch_tpu_torch.search.serving import (
+        _turbo_bool_spec, extract_plan,
+    )
+
+    bool_qs = draw_bool(BOOL_BATCH, VOCAB)
+    dsl = []
+    for body in BOOL_DSL:
+        plan = extract_plan(body, mapper)
+        require(plan is not None and plan.is_conjunctive,
+                f"bool body did not flatten: {body}")
+        spec = _turbo_bool_spec(plan)
+        require(spec is not None, f"no search_bool spec for {body}")
+        dsl.append(spec)
+    routes = serve_bool_routes(eng, turbo, fp, n_docs, [bool_qs, dsl])
+    specs = bool_qs + dsl
+    answers = {r: tuple(np.concatenate([a[i] for a in ans[0]])
+                        for i in range(3)) for r, ans in routes.items()}
+    hs, ho = hold_bool(turbo, specs, answers, "bool hold")
+    # selective (host) and heavy (device) draws, and every DSL body
+    checked = [0, 1, 2, 3, 5, 7] + list(range(BOOL_BATCH, len(specs)))
+    for qi in checked:
+        bs, bd = brute_bool(fp, n_docs, specs[qi])
+        require(np.array_equal(ho[qi][:len(bd)], bd)
+                and np.array_equal(hs[qi][:len(bs)], bs),
+                f"bool {specs[qi]} differs from the numpy scorer")
+    log(f"numpy scorer agrees on {len(checked)} bool queries")
+
+    # ---- K5-K7, and K3 on the cold SHOULD sides, on the bitset route's
+    # device chunk ----
+    bit_l = routes["bitset"][1]["launches"]
+    cov_l = routes["coverage"][1]["launches"]
+    with bitset_route("1"):
+        resolved = [turbo._resolve_bool(q) for q in bool_qs]
+        dev_idx, host_idx = turbo._bool_routes(resolved)
+        dev_idx, _ = turbo._gallop_routes(resolved, dev_idx, host_idx)
+        chunk = [resolved[i] for i in dev_idx[:256]]
+        torch.cuda.synchronize()
+        t = time.time()
+        turbo._repack_bits()
+        torch.cuda.synchronize()
+        repack_s = time.time() - t
+        pack_ms = cuda_ms(lambda: kernels.pack_presence_bits(
+            turbo.cols_hi, turbo.cols_lo), 3)
+        torch.cuda.empty_cache()
+        k5, mask = check_k5(turbo, chunk, bit_l["intersect_bitset"])
+        counts_ms = cuda_ms(lambda: kernels.mask_chunk_counts(mask), 20)
+        rows = [k5, check_k6(turbo, chunk, mask,
+                             bit_l["sweep_rowmax_bitset"])]
+        del mask
+        rows.append(check_k7(turbo, chunk, cov_l["sweep_rowmax_conj"]))
+        k3_bool = check_k3_bool(turbo, chunk, {
+            "bitset": bit_l["sparse_gather"],
+            "coverage": cov_l["sparse_gather"]})
+    for r in rows:
+        log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
+            f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+            f"{r['library_ms']}, launches {r['launches']}")
+    log(f"sparse_gather on the bool chunk: {k3_bool}")
+    log(f"repack {repack_s * 1e3:.2f} ms wall, pack_presence_bits "
+        f"{pack_ms:.4f} ms, mask_chunk_counts {counts_ms:.4f} ms")
+
+    # ---- slop-0 phrases (config 3), head-term phrases and one slop-2
+    # match_phrase body ----
+    phrases = draw_phrases(PHRASES, fp, tokens, bounds)
+    slop2 = extract_plan({"query": {"match_phrase": {"body": {
+        "query": " ".join(phrases[0]), "slop": 2}}}}, mapper)
+    slop2 = _turbo_bool_spec(slop2)
+    require(slop2 is not None and slop2["phrases"][0][1] == 2,
+            "slop-2 body did not flatten")
+    st0 = dict(eng.stats)
+    fault_log = []
+    p_ans, p_lat = [], []
+    step = min(PHRASE_BATCH, turbo.Hp // 2)
+    with record_fallbacks(turbo, True) as fell:
+        kernels.reset_launches()
+        for batch in ([phrases[i:i + step] for i in range(0, PHRASES, step)]
+                      + [HEAD_PHRASES]):
+            t = time.time()
+            p_ans.append(eng.search_phrase(batch, k=K, slop=0,
+                                           fault_log=fault_log))
+            p_lat.append(time.time() - t)
+        t = time.time()
+        p_ans.append(eng.search_bool([slop2], k=K, fault_log=fault_log))
+        p_lat.append(time.time() - t)
+        p_launch = dict(kernels.LAUNCHES)
+    pd = _delta(eng.stats, st0, BOOL_STATS)
+    n_p = PHRASES + len(HEAD_PHRASES) + 1
+    prep = {"batch_latency_s": p_lat, "phrases": PHRASES,
+            "head_phrases": len(HEAD_PHRASES),
+            "phrase_batch": step, "launches": p_launch, **pd}
+    log(f"phrases: {prep}")
+    require(not fault_log, f"phrases: fault records {fault_log}")
+    for key in ("degraded", "health_device_faults",
+                "health_fallback_queries"):
+        require(pd[key] == 0, f"phrases: {key} = {pd[key]}")
+    # at the default ES_TPU_BITSET_HOST_DF most drawn phrases match fewer
+    # docs than the threshold and gallop to the host after K1 has built
+    # their adjacency columns (the reference's order); the head-term
+    # phrases take the device sweep
+    require(pd["phrase_builds"] > 0 and p_launch["build_columns"] > 0,
+            "phrases: no adjacency column built")
+    require(pd["bool_device"] > 0, "phrases: no device query")
+    for name in ("intersect_bitset", "sweep_rowmax_bitset"):
+        require(p_launch[name] > 0, f"phrases: {name} never launched")
+    prep["fallbacks_explained"] = hold_fallbacks(
+        fp, n_docs, turbo.nsw, fell, pd["fallbacks"], n_p, "phrases")
+    p_specs = [{"phrases": [(p, 0, 1.0)]}
+               for p in phrases + HEAD_PHRASES] + [slop2]
+    got = tuple(np.concatenate([a[i] for a in p_ans]) for i in range(3))
+    phs, pho = hold_bool(turbo, p_specs, {"bitset": got}, "phrase hold")
+    for qi in range(3):
+        bs, bd = brute_bool(fp, n_docs, p_specs[qi])
+        require(np.array_equal(pho[qi][:len(bd)], bd)
+                and np.array_equal(phs[qi][:len(bs)], bs),
+                f"phrase {phrases[qi]} differs from the numpy scorer")
+    require((phs[:PHRASES + len(HEAD_PHRASES), 0] > 0).all(),
+            "a drawn or head-term phrase matched nothing")
+    log("numpy scorer agrees on 3 phrases")
+
+    report = {"bool": {r: rep for r, (_, rep) in routes.items()},
+              "phrase": prep, "repack_s": repack_s,
+              "pack_presence_bits_ms": pack_ms,
+              "mask_chunk_counts_ms": counts_ms,
+              "bitset_bytes": int(turbo.bits.nbytes),
+              "unexplained_fallback_limit": MAX_CERT_FALLBACK_SHARE}
+    return rows, report, k3_bool
+
+
 def run(n_docs: int, n_batches: int, batch: int) -> dict:
     import torch
 
@@ -414,9 +1122,10 @@ def run(n_docs: int, n_batches: int, batch: int) -> dict:
     if n_docs < FULL_DOCS:
         log(f"CUT: index cut from {FULL_DOCS} to {n_docs} docs")
     t = time.time()
-    fp, n_tokens = build_index(n_docs, VOCAB)
-    log(f"index: {n_docs} docs, {n_tokens} tokens, "
-        f"{len(fp.post_doc)} postings in {time.time() - t:.1f}s")
+    fp, tokens, bounds = build_index(n_docs, VOCAB)
+    index_s = time.time() - t
+    log(f"index with positions: {n_docs} docs, {len(tokens)} tokens, "
+        f"{len(fp.post_doc)} postings in {index_s:.1f}s")
 
     t = time.time()
     eng = select_bm25_engine([_Seg(n_docs, fp)], "body", device="cuda",
@@ -452,7 +1161,8 @@ def run(n_docs: int, n_batches: int, batch: int) -> dict:
     launches = dict(kernels.LAUNCHES)
     log(f"main path: {n_cols} columns prebuilt in {prebuild_s:.2f}s; "
         f"batch latencies {[round(x, 4) for x in lat]}s; launches {launches}")
-    require(all(v > 0 for v in launches.values()),
+    require(all(launches[n] > 0 for n in
+                ("build_columns", "sweep_rowmax", "sparse_gather")),
             f"a kernel of the path never launched: {launches}")
     st = eng.stats
     require(not fault_log, f"fault records: {fault_log}")
@@ -513,14 +1223,25 @@ def run(n_docs: int, n_batches: int, batch: int) -> dict:
         log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
             f"{r['library_ms']}, launches {r['launches']}")
+    torch.cuda.empty_cache()
+
+    # ---- bool and phrase paths on the same engine and shard ----
+    t = time.time()
+    bool_rows, bool_report, k3_bool = bool_phases(eng, turbo, fp, n_docs,
+                                                  tokens, bounds, mapper)
+    rows[2]["bool_path"] = k3_bool
+    rows += bool_rows
+    bool_report["phases_s"] = time.time() - t
 
     peak = torch.cuda.max_memory_allocated()
     ledger = hbm_ledger.hbm_stats()
     del eng, turbo
     torch.cuda.empty_cache()
+    del tokens, bounds
     default = default_ladder(fp, n_docs, batches[0], held[0])
 
     serving = {"docs": n_docs, "cut": n_docs < FULL_DOCS,
+               "index_build_s": index_s,
                "sparse_widths": WIDE_LADDER,
                "queries": n_q, "batch_latency_s": lat,
                "qps_per_batch": [len(b) / x for b, x in
@@ -530,6 +1251,7 @@ def run(n_docs: int, n_batches: int, batch: int) -> dict:
                "certificate_fallback_limit": MAX_CERT_FALLBACK_SHARE,
                "k3_launches_per_batch": k3_per,
                "default_ladder": default,
+               "bool_and_phrase": bool_report,
                "hbm_ledger": ledger,
                "kernel_build_s": build_s,
                "peak_device_bytes": peak}

@@ -81,6 +81,14 @@ declare_knob("ES_TPU_TURBO_COLD_DF", "int", None,
 declare_knob("ES_TPU_FORCE_TURBO", "flag", False,
              "'1' makes Turbo eligible on the CPU (differential tests run "
              "the kernels' plain torch versions)")
+declare_knob("ES_TPU_BITSET", "flag", True,
+             "Packed-uint32 bitset intersection for bool queries: clause "
+             "match sets AND/AND-NOT blockwise on device and the sweep "
+             "skips all-zero blocks (0 = dense coverage-matmul sweep)")
+declare_knob("ES_TPU_BITSET_HOST_DF", "int", 512,
+             "Bool queries whose rarest required clause has df below this "
+             "route to the galloping host intersection instead of the "
+             "device bitset sweep (0 disables the fallback)")
 declare_knob("ES_TPU_SPARSE", "flag", True,
              "Eager sparse impact slices: cold (df < COLD_DF) terms score "
              "on device via the sparse_gather kernel (0 = host cold path)")

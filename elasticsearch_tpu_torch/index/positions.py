@@ -1,0 +1,156 @@
+"""Vectorized positional phrase matching over columnar postings (the port's
+copy of elasticsearch_tpu/index/positions.py; numpy only).
+
+A (doc, position) pair becomes one integer key
+
+    key = doc * stride + position          (stride > max_position + phrase_len)
+
+Postings are doc-ascending and positions ascend within a doc, so each
+term's key array is globally sorted, and "does term i occur at position
+p + i in doc d" is one `searchsorted` probe, vectorized over every
+candidate occurrence of the phrase's first term at once. An exact phrase of
+T terms costs T - 1 searchsorted passes over arrays sized by the rarest
+term's candidate occurrences; a sloppy phrase enumerates the (small) set of
+displacement tuples and ORs their matches.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+
+from elasticsearch_tpu_torch.index.segment import FieldPostings
+
+
+def _csr_rows(fp: FieldPostings, ord_: int, docs: np.ndarray) -> np.ndarray:
+    """Row indices into fp.post_doc/pos_start for `docs` under term `ord_`.
+
+    `docs` must all be present in the term's postings (candidates come from
+    an intersection, so they are)."""
+    lo, hi = int(fp.post_start[ord_]), int(fp.post_start[ord_ + 1])
+    return lo + np.searchsorted(fp.post_doc[lo:hi], docs)
+
+
+def _ragged_take(starts: np.ndarray, ends: np.ndarray,
+                 data: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Gather data[starts[i]:ends[i]] for all i, concatenated.
+
+    Returns (values, row_of_value)."""
+    lens = (ends - starts).astype(np.int64)
+    total = int(lens.sum())
+    if total == 0:
+        return np.empty(0, data.dtype), np.empty(0, np.int64)
+    row = np.repeat(np.arange(len(lens), dtype=np.int64), lens)
+    # flat[j] = starts[row[j]] + (j - first_j_of_row)
+    first = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    flat = starts[row] + (np.arange(total, dtype=np.int64) - first[row])
+    return data[flat], row
+
+
+def candidate_docs(fp: FieldPostings, ords: List[int]) -> np.ndarray:
+    """Docs containing ALL terms: sorted-list intersection, rarest first."""
+    ords = sorted(ords, key=lambda o: int(fp.doc_freq[o]))
+    cand: np.ndarray | None = None
+    for o in ords:
+        docs = fp.post_doc[int(fp.post_start[o]): int(fp.post_start[o + 1])]
+        cand = docs if cand is None else cand[np.isin(cand, docs,
+                                                      assume_unique=True)]
+        if len(cand) == 0:
+            return np.empty(0, np.int32)
+    return np.asarray(cand, np.int32)
+
+
+def _offset_tuples(n_terms: int, slop: int):
+    """Per-term displacement tuples with total |displacement| <= slop
+    (term 0 anchored): the reference's simplified sloppy semantics."""
+    def rec(i, remaining):
+        if i == n_terms:
+            yield ()
+            return
+        for d in range(-remaining, remaining + 1):
+            for rest in rec(i + 1, remaining - abs(d)):
+                yield (d,) + rest
+    for offs in rec(1, slop):
+        yield (0,) + offs
+
+
+def phrase_freqs(fp: FieldPostings, terms: List[str], slop: int = 0,
+                 docs_filter: np.ndarray | None = None,
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Phrase frequency per matching doc, fully vectorized.
+
+    Returns (docs i32[n], freqs f32[n]) for docs with freq > 0, ascending.
+    Requires the field to have been indexed with positions (pos_data
+    non-empty whenever postings exist); postings built without positions
+    raise ValueError rather than silently matching nothing.
+    """
+    ords = []
+    for t in terms:
+        o = fp.ord(t)
+        if o < 0:
+            return np.empty(0, np.int32), np.empty(0, np.float32)
+        ords.append(o)
+    if len(fp.pos_data) == 0 and int(fp.total_term_freq.sum()) > 0:
+        raise ValueError(
+            f"field [{fp.field}] was indexed without positions; "
+            "phrase queries need the positional builder")
+    if len(ords) == 1:
+        lo, hi = int(fp.post_start[ords[0]]), int(fp.post_start[ords[0] + 1])
+        docs = fp.post_doc[lo:hi].astype(np.int32)
+        tf = (fp.pos_start[lo + 1: hi + 1]
+              - fp.pos_start[lo:hi]).astype(np.float32)
+        return docs, tf
+
+    cand = candidate_docs(fp, ords)
+    if docs_filter is not None and len(cand):
+        cand = cand[np.isin(cand, docs_filter, assume_unique=True)]
+    if len(cand) == 0:
+        return np.empty(0, np.int32), np.empty(0, np.float32)
+
+    max_pos = getattr(fp, "_max_pos_cache", None)
+    if max_pos is None:
+        max_pos = int(fp.pos_data.max()) if len(fp.pos_data) else 0
+        fp._max_pos_cache = max_pos   # immutable postings: compute once
+    stride = max_pos + len(terms) + slop + 2
+
+    # occurrences of term 0 restricted to candidate docs
+    rows0 = _csr_rows(fp, ords[0], cand)
+    base_pos, occ_row = _ragged_take(
+        fp.pos_start[rows0], fp.pos_start[rows0 + 1], fp.pos_data)
+    base_key = (cand[occ_row].astype(np.int64) * stride
+                + base_pos.astype(np.int64))
+
+    # sorted key arrays for the other terms (restricted to candidates keeps
+    # the searchsorted arrays small)
+    keys = []
+    for i in range(1, len(ords)):
+        rows = _csr_rows(fp, ords[i], cand)
+        pos_i, row_i = _ragged_take(
+            fp.pos_start[rows], fp.pos_start[rows + 1], fp.pos_data)
+        keys.append(cand[row_i].astype(np.int64) * stride
+                    + pos_i.astype(np.int64))
+
+    def probe(offsets) -> np.ndarray:
+        ok = np.ones(len(base_key), bool)
+        for i, k in enumerate(keys, start=1):
+            want = base_key + i + offsets[i]
+            j = np.searchsorted(k, want)
+            hit = (j < len(k))
+            hit[hit] = k[j[hit]] == want[hit]
+            ok &= hit
+            if not ok.any():
+                break
+        return ok
+
+    if slop == 0:
+        matched = probe((0,) * len(ords))
+    else:
+        matched = np.zeros(len(base_key), bool)
+        for offs in _offset_tuples(len(ords), slop):
+            matched |= probe(offs)
+
+    freq = np.bincount(occ_row[matched],
+                       minlength=len(cand)).astype(np.float32)
+    nz = freq > 0
+    return cand[nz], freq[nz]

@@ -6,9 +6,10 @@ across to the port).
 Layout (as in the reference): all of a field's postings concatenated as
 [n_blocks, 128] (doc-id, tf) host arrays plus per-term (block_start,
 block_count); block row 0 is reserved all-zero padding, and the unused
-lanes of a term's last row hold doc 0 with tf 0. The positions CSR is
-carried from the reference but read by no ported path yet. The serving
-engine copies what it needs onto the device itself.
+lanes of a term's last row hold doc 0 with tf 0. The positions CSR
+(pos_start per posting into pos_data) backs phrase queries
+(index/positions.py). The serving engine copies what it needs onto the
+device itself.
 """
 
 from __future__ import annotations
@@ -89,20 +90,49 @@ def tf_at(fp: FieldPostings, term: str,
     return np.where(present, tf, 0.0), present
 
 
+def _sorted_keys_and_positions(key: np.ndarray, token_pos: np.ndarray):
+    """(uniq, tf, pos_sorted) for (term, doc) keys with positions: the
+    unique keys and their counts as np.unique gives them, and the positions
+    grouped in key order, ascending inside a group (the reference's
+    lexsort((token_pos, token_docs, token_terms)) order), from one argsort
+    of the combined integer key * span + position, which is several times
+    faster than the lexsort. Raises ValueError where that integer would
+    not fit in 63 bits or a position is negative."""
+    pos = token_pos.astype(np.int64)
+    span = int(pos.max()) + 1 if len(pos) else 1
+    if int(pos.min(initial=0)) < 0 \
+            or (int(key.max(initial=0)) + 1) * span >= 1 << 63:
+        raise ValueError(f"(term, doc) keys up to {int(key.max())} with "
+                         f"positions in [{int(pos.min())}, {span - 1}] do "
+                         f"not combine into a 63-bit sort key")
+    order = np.argsort(key * span + pos)
+    sk = key[order]
+    starts = np.flatnonzero(np.concatenate([[True], sk[1:] != sk[:-1]])) \
+        if len(sk) else np.empty(0, np.int64)
+    tf = np.diff(np.append(starts, len(sk)))
+    return sk[starts], tf, np.ascontiguousarray(pos[order]).astype(np.int32)
+
+
 def build_field_postings(
     field: str,
     doc_lens: np.ndarray,      # [n_docs] token count per doc
     token_docs: np.ndarray,    # [n_tokens] doc ord of each token
     token_terms: np.ndarray,   # [n_tokens] term ord of each token
     term_names: List[str],     # term ord -> term string (sorted)
+    token_pos: np.ndarray | None = None,  # [n_tokens] position within its doc
 ) -> FieldPostings:
-    """Columnar bulk postings build: token arrays -> block postings (the
-    reference's builder without its positions option: no ported path reads
-    positions yet, so pos_start is all zeros and pos_data empty)."""
+    """Columnar bulk postings build: token arrays -> block postings. When
+    `token_pos` is given the positions CSR is recorded too (phrase
+    queries read it): each (term, doc) posting's positions, ascending, as
+    the reference's builder lays them out. Without it pos_start is all
+    zeros and pos_data empty."""
     n_docs = len(doc_lens)
     n_terms = len(term_names)
     key = token_terms.astype(np.int64) * n_docs + token_docs.astype(np.int64)
-    uniq, tf = np.unique(key, return_counts=True)
+    if token_pos is not None:
+        uniq, tf, pos_data = _sorted_keys_and_positions(key, token_pos)
+    else:
+        uniq, tf = np.unique(key, return_counts=True)
     term_ord = (uniq // n_docs).astype(np.int64)
     doc_ord = (uniq % n_docs).astype(np.int64)
     tf = tf.astype(np.float32)
@@ -138,6 +168,12 @@ def build_field_postings(
         total_tf[nz] = np.add.reduceat(tf.astype(np.int64),
                                        term_offsets[:-1][nz])
 
+    pos_start = np.zeros(len(term_ord) + 1, np.int64)
+    if token_pos is not None and len(term_ord):
+        np.cumsum(tf.astype(np.int64), out=pos_start[1:])
+    else:
+        pos_data = np.empty(0, np.int32)
+
     return FieldPostings(
         field=field,
         term_to_ord={t: i for i, t in enumerate(term_names)},
@@ -151,8 +187,8 @@ def build_field_postings(
         block_max_tf=block_max_tf,
         post_start=term_offsets,
         post_doc=doc_ord.astype(np.int32),
-        pos_start=np.zeros(len(term_ord) + 1, np.int64),
-        pos_data=np.empty(0, np.int32),
+        pos_start=pos_start,
+        pos_data=pos_data,
         doc_len=doc_len,
         sum_doc_len=float(doc_len.sum()),
     )

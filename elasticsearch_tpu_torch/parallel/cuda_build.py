@@ -24,23 +24,31 @@ from elasticsearch_tpu_torch.common.errors import KernelBuildError
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("build_columns", "sweep_rowmax", "sparse_gather")
+SOURCES = ("build_columns", "sweep_rowmax", "sparse_gather",
+           "intersect_bitset")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# argtypes of each library's one entry point
+# kernel -> (source, C entry point, argtypes); one source may hold several
 _SIGNATURES = {
-    "build_columns": ("es_build_columns",
+    "build_columns": ("build_columns", "es_build_columns",
                       [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
                        _F, _F, _F, _P]),
-    "sweep_rowmax": ("es_sweep_rowmax",
+    "sweep_rowmax": ("sweep_rowmax", "es_sweep_rowmax",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "sparse_gather": ("es_sparse_gather",
+    "sweep_rowmax_conj": ("sweep_rowmax", "es_sweep_rowmax_conj",
+                          [_P] * 9 + [_I, _I, _I, _P]),
+    "sweep_rowmax_bitset": ("sweep_rowmax", "es_sweep_rowmax_bitset",
+                            [_P] * 8 + [_I, _I, _I, _P]),
+    "sparse_gather": ("sparse_gather", "es_sparse_gather",
                       [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P]),
+    "intersect_bitset": ("intersect_bitset", "es_intersect_bitset",
+                         [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}   # guarded by: _LOCK
 _FUNCS: Dict[str, object] = {}   # guarded by: _LOCK
 BUILD_LOG: Dict[str, str] = {}             # guarded by: _LOCK (ptxas -v)
 
@@ -63,7 +71,7 @@ def _lib_path(name: str) -> Path:
 
 def _build_missing() -> None:  # caller holds _LOCK
     todo = [n for n in SOURCES
-            if n not in _FUNCS and not _lib_path(n).exists()]
+            if n not in _LIBS and not _lib_path(n).exists()]
     if todo:
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -86,17 +94,19 @@ def _build_missing() -> None:  # caller holds _LOCK
         if failed:
             raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
     for n in SOURCES:
-        if n in _FUNCS:
+        if n in _LIBS:
             continue
         try:
-            lib = ctypes.CDLL(str(_lib_path(n)))
+            _LIBS[n] = ctypes.CDLL(str(_lib_path(n)))
         except OSError as e:
             raise KernelBuildError(f"cannot load {_lib_path(n)}: {e}") from e
-        sym, argtypes = _SIGNATURES[n]
-        fn = getattr(lib, sym)
+    for name, (src, sym, argtypes) in _SIGNATURES.items():
+        if name in _FUNCS:
+            continue
+        fn = getattr(_LIBS[src], sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _FUNCS[n] = fn
+        _FUNCS[name] = fn
 
 
 def kernel(name: str):

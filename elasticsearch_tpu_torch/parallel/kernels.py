@@ -1,11 +1,15 @@
 """The serving path's device kernels: hand-written CUDA for Hopper, each with
 its plain torch version beside it.
 
-Port of the main-path Pallas kernels of elasticsearch_tpu/parallel/kernels.py:
+Port of the Pallas kernels of elasticsearch_tpu/parallel/kernels.py that the
+ported paths run:
 
 * K1 `build_columns` (reference :730) -> csrc/build_columns.cu
 * K2 `sweep_rowmax`  (reference :148) -> csrc/sweep_rowmax.cu
 * K3 `sparse_gather` (reference :876, two pallas_calls) -> csrc/sparse_gather.cu
+* K5 `intersect_bitset` (reference :398) -> csrc/intersect_bitset.cu
+* K6 `sweep_rowmax_bitset` (reference :534) -> csrc/sweep_rowmax.cu
+* K7 `sweep_rowmax_conj` (reference :270) -> csrc/sweep_rowmax.cu
 
 Each wrapper checks device, dtype, shape and contiguity (raising TypeError
 or ValueError), then: for tensors on the CPU it runs the plain version
@@ -18,6 +22,11 @@ the card. Both are bitwise equal to the reference (tests/test_torch_kernels.py).
 
 `build_columns` updates the column cache in place, where the reference
 donated it; the others allocate their outputs with torch.
+
+The reference's packed bitsets are uint32; here they are int32 tensors
+holding the same bit patterns (torch's uint32 lacks shifts and bitwise ops
+on some devices). `pack_presence_bits` and `mask_chunk_counts` are XLA
+programs in the reference, not Pallas kernels, and are torch code here.
 """
 
 from __future__ import annotations
@@ -44,6 +53,9 @@ MAX_GROUP_ROWS = 144  # trailing padding rows of the lane arrays
 ROWS_PER_STEP = 8     # dispatch widths are multiples of this
 SPARSE_GRAN = 1024    # packed (doc, impact) lanes per slice-pool granule
 SPARSE_IMP_MAX = 255  # uint8 impact quantization ceiling (doc << 8 | imp)
+SW_WORD_ROWS = SW_ROWS // 32   # 16 packed word rows per superwindow
+BITSET_CLAUSES = 8    # AND fan-in of the intersect kernel (rarest clauses)
+BITSET_NEGS = 4       # AND-NOT fan-in (largest-df prohibitions)
 
 # the reference multiplies f32 tiles by these Python constants, which JAX
 # rounds to f32; the same f32 values here, and passed to the CUDA kernel
@@ -53,7 +65,8 @@ _INV_CS2 = float(np.float32(1.0 / COLSCALE2))
 
 # launches of each CUDA kernel since the last reset (plain runs not counted)
 LAUNCHES: Dict[str, int] = {"build_columns": 0, "sweep_rowmax": 0,
-                            "sparse_gather": 0}
+                            "sparse_gather": 0, "intersect_bitset": 0,
+                            "sweep_rowmax_bitset": 0, "sweep_rowmax_conj": 0}
 
 
 def reset_launches() -> None:
@@ -212,22 +225,28 @@ def build_columns(g_rows, g_nrows, g_base, g_slot, lane_docs, lane_scores,
 # --------------------------------------------------------------------------
 
 
-def sweep_rowmax_plain(qscale, cols_hi, cols_lo, wq, live, *, nsw: int):
-    """Plain torch K2. The four int8 products are taken in float64 over the
-    slots any query weights (exact: every partial sum is an integer below
-    2^53), so they equal the reference's int32 products; the combine,
-    masks, row max and (rowmax desc, row asc) top-NCAND follow it step by
-    step. A stable descending sort gives the ascending-row tie order."""
+def _sweep_plain(qscale, cols_hi, cols_lo, wq, live, nsw: int, *,
+                 wp=None, nreq=None, mask=None):
+    """The plain sweep behind K2, K6 (`mask`) and K7 (`wp`, `nreq`). The
+    int8 products are taken in float64 over the slots any query weights
+    (exact: every partial sum is an integer below 2^53), so they equal the
+    reference's int32 products; the combine, masks, row max and (rowmax
+    desc, row asc) top-NCAND follow it step by step. A stable descending
+    sort gives the ascending-row tie order."""
     dev = cols_hi.device
-    qc, hpt = wq.shape[1], wq.shape[2]
+    qc = wq.shape[1]
     rm = torch.full((nsw, qc, CAND_PAD), float("-inf"), dtype=torch.float32,
                     device=dev)
     rr = torch.zeros((nsw, qc, CAND_PAD), dtype=torch.int32, device=dev)
-    slots = torch.nonzero((wq != 0).any(dim=0).any(dim=0)).flatten()
+    used = (wq != 0).any(dim=0).any(dim=0)
+    if wp is not None:
+        used = used | (wp != 0).any(dim=0)
+    slots = torch.nonzero(used).flatten()
     if slots.numel() == 0:
         return rm, rr
     wh = wq[0][:, slots].double()
     wl = wq[1][:, slots].double()
+    bit = torch.arange(32, dtype=torch.int32, device=dev)
     sw_chunk = 4                  # bounds the [QC, docs] temporaries
     for s0 in range(0, nsw, sw_chunk):
         s1 = min(nsw, s0 + sw_chunk)
@@ -235,6 +254,8 @@ def sweep_rowmax_plain(qscale, cols_hi, cols_lo, wq, live, *, nsw: int):
         c = slice(s0 * N_CHUNKS, s1 * N_CHUNKS)
         h = cols_hi[c][:, slots].permute(1, 0, 2, 3).reshape(len(slots), -1)
         lo = cols_lo[c][:, slots].permute(1, 0, 2, 3).reshape(len(slots), -1)
+        if wp is not None:
+            present = ((h != 0) | (lo != 0)).double()
         h, lo = h.double(), lo.double()
         m_hh = (wh @ h).to(torch.int32)
         m_hl = (wh @ lo).to(torch.int32)
@@ -244,8 +265,19 @@ def sweep_rowmax_plain(qscale, cols_hi, cols_lo, wq, live, *, nsw: int):
                + m_ll.float())
         val = val * qscale
         lv = live[s0 * SW_ROWS: s1 * SW_ROWS].reshape(1, -1)
-        val = torch.where((lv > 0) & (val > 0), val,
-                          torch.full_like(val, float("-inf")))
+        ok = (lv > 0) & (val > 0)
+        if wp is not None:
+            # coverage == n_req iff every required slot is present and no
+            # must_not slot is (its weight -(n_req + 1) is unreachable)
+            cov = (wp[:, slots].double() @ present).to(torch.int32)
+            ok = ok & (cov == nreq)
+        if mask is not None:
+            # bit j of word [q, g, l] is posting row 32g + j, lane l
+            words = mask[:, s0 * SW_WORD_ROWS: s1 * SW_WORD_ROWS]
+            alive = ((words[:, :, None, :] >> bit[None, None, :, None])
+                     & 1) != 0
+            ok = ok & alive.reshape(qc, -1)
+        val = torch.where(ok, val, torch.full_like(val, float("-inf")))
         rowmax = val.view(qc, ns, SW_ROWS, 128).amax(dim=3)
         top_m, idx = torch.sort(rowmax, dim=2, descending=True, stable=True)
         top_m = top_m[:, :, :NCAND]
@@ -259,18 +291,13 @@ def sweep_rowmax_plain(qscale, cols_hi, cols_lo, wq, live, *, nsw: int):
     return rm, rr
 
 
-def sweep_rowmax(qscale, cols_hi, cols_lo, wq, live, *, nsw: int):
-    """Pass 1: sweep the column cache for QC queries.
+def sweep_rowmax_plain(qscale, cols_hi, cols_lo, wq, live, *, nsw: int):
+    """Plain torch K2."""
+    return _sweep_plain(qscale, cols_hi, cols_lo, wq, live, nsw)
 
-    qscale [QC, 1] f32 — per-query descale factor (qs2 * COLSCALE2)
-    cols_hi/cols_lo [dp_chunks, Hpt, 16, 128] i8 — chunk-major columns
-    wq [2, QC, Hpt] i8 — hi/lo quantized query weights over slots
-    live [dp_rows, 128] f32
 
-    Returns (rowmax [nsw, QC, CAND_PAD] f32, rows [nsw, QC, CAND_PAD] i32):
-    per superwindow the top NCAND rows by (rowmax desc, row asc), global row
-    ids, padded with (-inf, 0).
-    """
+def _check_sweep(qscale, cols_hi, cols_lo, wq, live, nsw: int) -> int:
+    """Checks shared by the three sweeps; returns QC."""
     dev = cols_hi.device
     _check(cols_hi, "cols_hi", torch.int8, 4, dev)
     _check(cols_lo, "cols_lo", torch.int8, 4, dev)
@@ -287,13 +314,225 @@ def sweep_rowmax(qscale, cols_hi, cols_lo, wq, live, *, nsw: int):
     if nsw < 1 or cols_hi.shape[0] < nsw * N_CHUNKS \
             or live.shape[1] != 128 or live.shape[0] < nsw * SW_ROWS:
         raise ValueError(f"nsw={nsw} exceeds the cols/live extent")
+    return qc
+
+
+def _sweep_out(nsw: int, qc: int, dev):
+    return (torch.empty((nsw, qc, CAND_PAD), dtype=torch.float32, device=dev),
+            torch.empty((nsw, qc, CAND_PAD), dtype=torch.int32, device=dev))
+
+
+def sweep_rowmax(qscale, cols_hi, cols_lo, wq, live, *, nsw: int):
+    """Pass 1: sweep the column cache for QC queries.
+
+    qscale [QC, 1] f32 — per-query descale factor (qs2 * COLSCALE2)
+    cols_hi/cols_lo [dp_chunks, Hpt, 16, 128] i8 — chunk-major columns
+    wq [2, QC, Hpt] i8 — hi/lo quantized query weights over slots
+    live [dp_rows, 128] f32
+
+    Returns (rowmax [nsw, QC, CAND_PAD] f32, rows [nsw, QC, CAND_PAD] i32):
+    per superwindow the top NCAND rows by (rowmax desc, row asc), global row
+    ids, padded with (-inf, 0).
+    """
+    dev = cols_hi.device
+    qc = _check_sweep(qscale, cols_hi, cols_lo, wq, live, nsw)
     if not _route(dev):
         return sweep_rowmax_plain(qscale, cols_hi, cols_lo, wq, live, nsw=nsw)
-    rm = torch.empty((nsw, qc, CAND_PAD), dtype=torch.float32, device=dev)
-    rr = torch.empty((nsw, qc, CAND_PAD), dtype=torch.int32, device=dev)
+    rm, rr = _sweep_out(nsw, qc, dev)
     _launch("sweep_rowmax", dev, qscale.data_ptr(), cols_hi.data_ptr(),
             cols_lo.data_ptr(), wq.data_ptr(), live.data_ptr(),
-            rm.data_ptr(), rr.data_ptr(), qc, hpt, int(nsw))
+            rm.data_ptr(), rr.data_ptr(), qc, int(cols_hi.shape[1]), int(nsw))
+    return rm, rr
+
+
+# --------------------------------------------------------------------------
+# K7 conjunctive sweep (coverage product; ES_TPU_BITSET=0)
+# --------------------------------------------------------------------------
+
+
+def sweep_rowmax_conj_plain(qscale, nreq, cols_hi, cols_lo, wq, wp, live, *,
+                            nsw: int):
+    """Plain torch K7: K2 plus the coverage product in float64 (exact)."""
+    return _sweep_plain(qscale, cols_hi, cols_lo, wq, live, nsw, wp=wp,
+                        nreq=nreq)
+
+
+def sweep_rowmax_conj(qscale, nreq, cols_hi, cols_lo, wq, wp, live, *,
+                      nsw: int):
+    """Conjunctive sweep: K2, keeping only docs that satisfy each query's
+    required clauses.
+
+    nreq [QC, 1] i32 — required-clause count per query
+    wp [QC, Hpt] i8 — +1 on each required slot, -(n_req + 1) on each
+        must_not slot, 0 elsewhere
+
+    A doc survives iff sum(wp[slot] * present[slot, doc]) == n_req, with
+    present = (hi != 0) | (lo != 0). Returns the same (rowmax, rows) pair
+    as sweep_rowmax.
+    """
+    dev = cols_hi.device
+    qc = _check_sweep(qscale, cols_hi, cols_lo, wq, live, nsw)
+    _check(nreq, "nreq", torch.int32, 2, dev)
+    _check(wp, "wp", torch.int8, 2, dev)
+    if tuple(nreq.shape) != (qc, 1):
+        raise ValueError(f"nreq shape {tuple(nreq.shape)} is not [{qc}, 1]")
+    if tuple(wp.shape) != (qc, int(cols_hi.shape[1])):
+        raise ValueError(f"wp shape {tuple(wp.shape)} is not "
+                         f"[{qc}, {int(cols_hi.shape[1])}]")
+    if not _route(dev):
+        return sweep_rowmax_conj_plain(qscale, nreq, cols_hi, cols_lo, wq,
+                                       wp, live, nsw=nsw)
+    rm, rr = _sweep_out(nsw, qc, dev)
+    _launch("sweep_rowmax_conj", dev, qscale.data_ptr(), nreq.data_ptr(),
+            cols_hi.data_ptr(), cols_lo.data_ptr(), wq.data_ptr(),
+            wp.data_ptr(), live.data_ptr(), rm.data_ptr(), rr.data_ptr(),
+            qc, int(cols_hi.shape[1]), int(nsw))
+    return rm, rr
+
+
+# --------------------------------------------------------------------------
+# packed bitsets: pack, K5 intersect, chunk counts, K6 gated sweep
+# --------------------------------------------------------------------------
+
+_PACK_SLOTS = 4       # slots packed per step: bounds the int64 temporaries
+
+
+def pack_presence_bits(cols_hi, cols_lo):
+    """Pack the column cache's presence into per-slot doc bitsets (torch
+    code; an XLA program in the reference, kernels.py:358).
+
+    cols_hi/cols_lo [dp_chunks, Hp+1, 16, 128] i8. Presence is exact
+    ((hi | lo) != 0: the build forces lo >= 1 on present cells).
+
+    Returns bits [Hp+2, dp_chunks // 2, 128] i32 (uint32 bit patterns):
+    bit j of word [s, g, l] is slot s's presence at posting row 32g + j,
+    lane l, so a word row holds two sweep chunks. Slot Hp (the scratch
+    slot, always zero) is the AND-NOT identity and the empty mask; the
+    appended slot Hp+1 is all ones, the AND identity. A few slots are
+    packed at a time into the preallocated result, so the temporaries stay
+    a few hundred MB at 8M docs."""
+    dev = cols_hi.device
+    _check(cols_hi, "cols_hi", torch.int8, 4, dev)
+    _check(cols_lo, "cols_lo", torch.int8, 4, dev)
+    if (cols_lo.shape != cols_hi.shape or cols_hi.shape[0] % 2
+            or tuple(cols_hi.shape[2:]) != (16, 128)):
+        raise ValueError("cols must both be [dp_chunks, Hp+1, 16, 128] with "
+                         "an even dp_chunks")
+    dpc, hp1 = int(cols_hi.shape[0]), int(cols_hi.shape[1])
+    wgr = dpc // 2
+    bits = torch.empty((hp1 + 1, wgr, 128), dtype=torch.int32, device=dev)
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)[None, None, :,
+                                                             None]
+    for s0 in range(0, hp1, _PACK_SLOTS):
+        s1 = min(hp1, s0 + _PACK_SLOTS)
+        p = (cols_hi[:, s0:s1] != 0) | (cols_lo[:, s0:s1] != 0)
+        p = p.view(wgr, 2, s1 - s0, 16, 128).permute(2, 0, 1, 3, 4)
+        w = (p.reshape(s1 - s0, wgr, 32, 128).to(torch.int64)
+             << shifts).sum(dim=2)
+        bits[s0:s1] = torch.where(w >= 1 << 31, w - (1 << 32), w).to(
+            torch.int32)
+    bits[hp1] = -1
+    return bits
+
+
+def mask_chunk_counts(mask):
+    """Per-query count of 2048-doc chunks with any surviving bit (torch
+    code; an XLA program in the reference, kernels.py:445).
+
+    mask [QC, wgr, 128] i32; word row g holds chunks 2g (low 16 bits) and
+    2g + 1 (high 16; the shift is arithmetic, hence the mask after it).
+    Returns [QC] i32."""
+    lo = ((mask & 0xFFFF) != 0).any(dim=-1)
+    hi = (((mask >> 16) & 0xFFFF) != 0).any(dim=-1)
+    return (lo.sum(dim=-1) + hi.sum(dim=-1)).to(torch.int32)
+
+
+def intersect_bitset_plain(q_slots, q_neg, bits, *, nsw: int):
+    """Plain torch K5: gather and AND the clause blocks, AND-NOT the
+    prohibited ones."""
+    b = bits[:, : nsw * SW_WORD_ROWS]
+    acc = b[q_slots[:, 0].long()]
+    for c in range(1, BITSET_CLAUSES):
+        acc = acc & b[q_slots[:, c].long()]
+    for n in range(BITSET_NEGS):
+        acc = acc & ~b[q_neg[:, n].long()]
+    return acc
+
+
+def intersect_bitset(q_slots, q_neg, bits, *, nsw: int):
+    """Blockwise clause intersection over the packed bitsets.
+
+    q_slots [QC, BITSET_CLAUSES] i32 — bits slot per required clause (pad
+        with a repeated clause or the all-ones sentinel; an inactive row
+        points every clause at the all-zero sentinel)
+    q_neg [QC, BITSET_NEGS] i32 — slot per must_not clause (pad with the
+        all-zero sentinel)
+    bits [Hp+2, rows, 128] i32 — pack_presence_bits output, rows >=
+        nsw * SW_WORD_ROWS. The kernel relies on what pack_presence_bits
+        guarantees: slot Hp is all zeros and slot Hp+1 all ones.
+
+    Returns mask [QC, nsw * SW_WORD_ROWS, 128] i32. A slot outside
+    [0, Hp+2) raises ValueError on every route (one read-back on the card).
+    """
+    dev = bits.device
+    _check(bits, "bits", torch.int32, 3, dev)
+    _check(q_slots, "q_slots", torch.int32, 2, dev)
+    _check(q_neg, "q_neg", torch.int32, 2, dev)
+    qc = int(q_slots.shape[0])
+    n_slots = int(bits.shape[0])
+    if qc < 1 or q_slots.shape[1] != BITSET_CLAUSES \
+            or tuple(q_neg.shape) != (qc, BITSET_NEGS):
+        raise ValueError(f"q_slots {tuple(q_slots.shape)} / q_neg "
+                         f"{tuple(q_neg.shape)} are not [QC, "
+                         f"{BITSET_CLAUSES}] / [QC, {BITSET_NEGS}]")
+    if n_slots < 2 or bits.shape[2] != 128 or nsw < 1 \
+            or bits.shape[1] < nsw * SW_WORD_ROWS:
+        raise ValueError(f"bits shape {tuple(bits.shape)} does not cover "
+                         f"nsw={nsw}")
+    if bool(((q_slots < 0) | (q_slots >= n_slots)).any()
+            | ((q_neg < 0) | (q_neg >= n_slots)).any()):
+        raise ValueError(f"a clause slot lies outside the bitsets "
+                         f"[0, {n_slots})")
+    if not _route(dev):
+        return intersect_bitset_plain(q_slots, q_neg, bits, nsw=nsw)
+    out = torch.empty((qc, nsw * SW_WORD_ROWS, 128), dtype=torch.int32,
+                      device=dev)
+    _launch("intersect_bitset", dev, q_slots.data_ptr(), q_neg.data_ptr(),
+            bits.data_ptr(), out.data_ptr(), qc, int(nsw),
+            int(bits.shape[1]), n_slots)
+    return out
+
+
+def sweep_rowmax_bitset_plain(qscale, cols_hi, cols_lo, wq, mask, live, *,
+                              nsw: int):
+    """Plain torch K6: K2 with each doc gated by its mask bit."""
+    return _sweep_plain(qscale, cols_hi, cols_lo, wq, live, nsw, mask=mask)
+
+
+def sweep_rowmax_bitset(qscale, cols_hi, cols_lo, wq, mask, live, *,
+                        nsw: int):
+    """Bitset-gated sweep: K2 over the docs whose bit is set in the
+    intersected mask (intersect_bitset output).
+
+    mask [QC, nsw * SW_WORD_ROWS, 128] i32 — chunk c of superwindow sw
+    reads word row sw * SW_WORD_ROWS + c // 2, bit half c % 2. Rows with
+    no surviving bit read no columns and come out -inf. Returns the same
+    (rowmax, rows) pair as sweep_rowmax.
+    """
+    dev = cols_hi.device
+    qc = _check_sweep(qscale, cols_hi, cols_lo, wq, live, nsw)
+    _check(mask, "mask", torch.int32, 3, dev)
+    if tuple(mask.shape) != (qc, nsw * SW_WORD_ROWS, 128):
+        raise ValueError(f"mask shape {tuple(mask.shape)} is not "
+                         f"[{qc}, {nsw * SW_WORD_ROWS}, 128]")
+    if not _route(dev):
+        return sweep_rowmax_bitset_plain(qscale, cols_hi, cols_lo, wq, mask,
+                                         live, nsw=nsw)
+    rm, rr = _sweep_out(nsw, qc, dev)
+    _launch("sweep_rowmax_bitset", dev, qscale.data_ptr(),
+            cols_hi.data_ptr(), cols_lo.data_ptr(), wq.data_ptr(),
+            mask.data_ptr(), live.data_ptr(), rm.data_ptr(), rr.data_ptr(),
+            qc, int(cols_hi.shape[1]), int(nsw))
     return rm, rr
 
 

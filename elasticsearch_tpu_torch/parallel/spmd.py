@@ -6,7 +6,7 @@ TurboBM25 builds its own device copies of what it serves from, so the
 port keeps only the host metadata it reads: the per-partition postings,
 live masks and the index-global scoring stats. The reference's padded
 [S, T, 128] stacks (block docs, tfs, lane scores, doc lengths) feed its
-SPMD programs, which are not ported yet (ROADMAP.md, queue 1, item 9).
+SPMD programs, which are not ported yet (ROADMAP.md, queue 1, item 8).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """TurboBM25: the BM25 serving engine on an int8 column cache (the port of
-elasticsearch_tpu/parallel/turbo.py, S = 1 disjunction).
+elasticsearch_tpu/parallel/turbo.py at S = 1: the disjunction, bool
+queries and slop-0 phrases).
 
 Per query the terms split three ways, as in the reference:
 
@@ -16,18 +17,30 @@ Per query the terms split three ways, as in the reference:
   certificate bounding what the quantized sweep could have hidden in rows
   it did not collect; a failing certificate falls back to the exact merge.
 
+Bool queries (`search_bool`) and slop-0 phrases (`search_phrase`, whose
+adjacency columns are built by K1 like term columns) take the same shape:
+a device sweep gated to the docs that satisfy the required clauses — by
+packed presence bitsets intersected on the card (K5 intersect_bitset, K6
+sweep_rowmax_bitset; ES_TPU_BITSET=1, the default) or by a coverage
+product (K7 sweep_rowmax_conj; ES_TPU_BITSET=0) — then the exact host
+rescore of every collected doc and a certificate. Queries the device
+cannot serve, or whose rarest required clause is below
+ES_TPU_BITSET_HOST_DF, take the exact host intersection.
+
 Final scores therefore come from the host, and top-k (scores, ords) are
 bitwise the reference's. Device state is torch tensors on `self.device`;
 the column cache and the slice pool are updated in place where the
 reference donated its buffers.
 
-Not ported yet (ROADMAP.md): phrases, bool and bitsets (reference
-turbo.py:672-819, :1428-2096), ShardedTurbo (S > 1), the HBM scrub
-regions, the relocation warm handoff and the scheduler's width hook.
+Not ported yet (ROADMAP.md): ShardedTurbo (S > 1) and its fused bool
+sweeps, the HBM scrub regions (the bitsets' included), the bitset
+histograms of the metrics registry, the relocation warm handoff and the
+scheduler's width hook.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -39,18 +52,23 @@ from elasticsearch_tpu_torch import device as _device
 from elasticsearch_tpu_torch.common import faults, hbm_ledger
 from elasticsearch_tpu_torch.common.errors import DeviceFaultError
 from elasticsearch_tpu_torch.common.settings import knob
+from elasticsearch_tpu_torch.index.positions import phrase_freqs
+from elasticsearch_tpu_torch.index.segment import tf_at
 from elasticsearch_tpu_torch.ops import bm25_idf
 from elasticsearch_tpu_torch.parallel import kernels
 from elasticsearch_tpu_torch.parallel.blockmax import _host_block_scores
 from elasticsearch_tpu_torch.parallel.kernels import (
-    COLSCALE2, MAX_GROUP_ROWS, NCAND, ROWS_PER_STEP, SPARSE_GRAN,
-    SPARSE_IMP_MAX, SW, TILE,
+    BITSET_CLAUSES, BITSET_NEGS, COLSCALE2, MAX_GROUP_ROWS, N_CHUNKS, NCAND,
+    ROWS_PER_STEP, SPARSE_GRAN, SPARSE_IMP_MAX, SW, TILE,
 )
 from elasticsearch_tpu_torch.parallel.spmd import StackedBM25
 
 COLD_DF = 16384        # below this, terms are cold
 K1_PLUS1 = 2.2         # BM25 idf-free impact upper bound
+_K1 = 1.2              # BM25 k1
+_B = 0.75              # BM25 b
 _GLOBAL_ROWS = 33      # candidate posting rows collected per query
+_MAX_REQ = 126         # coverage counts fit int8 with the must_not weight
 
 _LANE128 = np.arange(128, dtype=np.int64)
 
@@ -105,6 +123,65 @@ def _flatten_queries(batches: Sequence[List]):
     return flat, spans
 
 
+_ROW_BUCKETS = (256, 2048, 16384)   # phrase lane arrays are padded to one
+#   of a few row counts, so their device buffers recur at few sizes
+
+
+def _row_bucket(n: int) -> int:
+    for b in _ROW_BUCKETS:
+        if n <= b:
+            return b
+    return -(-n // _ROW_BUCKETS[-1]) * _ROW_BUCKETS[-1]
+
+
+def _tile_groups(lo: np.ndarray, hi: np.ndarray, row0: int, slot: int):
+    """(rows, nrows, bases, slots) K1 build groups over consecutive posting
+    rows starting at row `row0`, whose first and last docs are lo and hi
+    (ascending): one group per touched 16384-doc tile."""
+    t0, t1 = int(lo[0]) // TILE, int(hi[-1]) // TILE
+    tiles = np.arange(t0, t1 + 1, dtype=np.int64)
+    starts = np.searchsorted(hi, tiles * TILE, side="left")
+    ends = np.searchsorted(lo, (tiles + 1) * TILE, side="left")
+    n = (ends - starts).astype(np.int32)
+    keep = n > 0
+    return (row0 + starts[keep].astype(np.int32),
+            n[keep],
+            (tiles[keep] * TILE).astype(np.int32),
+            np.full(int(keep.sum()), slot, np.int32))
+
+
+def _quantize_weights(ws: Sequence[float]):
+    """(qs, qs2, [(wh, wl)]): one query's scoring weights as int8 hi/lo
+    pairs on the steps qs = max|w| / 127 and qs2 = qs / 128, as the sweep
+    dispatches them."""
+    wmax = max(abs(w) for w in ws)
+    qs = max(wmax / 127.0, 1e-9)
+    qs2 = qs / 128.0
+    q = []
+    for w in ws:
+        wh = max(-127, min(127, round(w / qs)))
+        wl = max(-127, min(127, round((w - qs * wh) / qs2)))
+        q.append((wh, wl))
+    return qs, qs2, q
+
+
+def _quant_error(ws: Sequence[float]) -> float:
+    """e_q: the most the quantized sweep can misstate a doc's score with
+    these scoring weights (the certificate's margin)."""
+    e_q = 1e-7
+    if ws:
+        qs, qs2, q = _quantize_weights(ws)
+        for w, (wh, wl) in zip(ws, q):
+            w_approx = qs * wh + qs2 * wl
+            # a full lo step: the build kernel forces lo >= 1 on
+            # presence-only cells
+            e_q += (abs(w - w_approx) * K1_PLUS1
+                    + abs(w_approx) * COLSCALE2)
+        # f32 rounding of the in-kernel integer combine
+        e_q += 3e-7 * sum(abs(w) for w in ws) * K1_PLUS1
+    return float(e_q)
+
+
 @dataclass
 class _TermInfo:
     ord: int
@@ -113,6 +190,72 @@ class _TermInfo:
     row_start: int          # first block row
     n_rows: int             # block rows
     smax: float             # max idf-free lane score
+
+
+@dataclass
+class _PhraseInfo:
+    """A slop-0 phrase treated as a synthetic term: its matching docs and
+    per-doc phrase freqs (one positions scan, index/positions.phrase_freqs)
+    back both the int8 adjacency column build and the exact host rescore."""
+    key: str                # column-cache key ("\x00p:" + joined terms)
+    terms: Tuple[str, ...]
+    docs: np.ndarray        # i32 ascending, live-unfiltered
+    pf: np.ndarray          # f32 phrase freqs aligned with docs
+    idf_sum: float          # sum of member-term idfs, in term order
+    smax: float             # max idf-free phrase lane score
+
+
+def _pkey(terms: Sequence[str]) -> str:
+    return "\x00p:" + "\x00".join(terms)
+
+
+def _intersect_sorted(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Sorted-unique intersection with a galloping gear: when one side is
+    tiny relative to the other, binary-searching the small side's members
+    in the large one (s * log2(b) work) beats np.isin's linear merge."""
+    if len(a) > len(b):
+        a, b = b, a
+    if not len(a):
+        return a
+    if len(a) * max(np.log2(len(b)), 1.0) < len(b):
+        j = np.searchsorted(b, a)
+        jc = np.minimum(j, len(b) - 1)
+        return a[(j < len(b)) & (b[jc] == a)]
+    return a[np.isin(a, b, assume_unique=True)]
+
+
+@dataclass
+class _BoolQuery:
+    """One resolved bool query (TurboBM25.search_bool). Clause lists keep
+    the original spec order: the exact rescore iterates them verbatim, so
+    its f64 accumulation is the reference's bit for bit."""
+    conj: list        # [(term, boost, _TermInfo)] — required, scoring
+    should: list      # [(term, boost, _TermInfo)] — optional, scoring
+    filters: list     # [(term, _TermInfo)] — required, non-scoring
+    must_not: list    # [(term, _TermInfo)] — prohibited
+    phrases: list     # [(terms, slop, boost, _PhraseInfo | None, idf_sum)]
+    dev_candidate: bool
+
+
+# node-wide bitset counters mirrored from every engine's stats;
+# bitset_bytes is a running total of currently packed bytes (repacks add
+# the delta), the rest are cumulative
+_NODE_BITSET_STATS = {"bitset_packs": 0, "bitset_bytes": 0,
+                      "bitset_blocks_skipped": 0,
+                      "bitset_gallop": 0}  # guarded by: _NODE_BITSET_LOCK
+_NODE_BITSET_LOCK = threading.Lock()
+
+
+def _node_bitset_add(key: str, n: int) -> None:
+    if n == 0:
+        return
+    with _NODE_BITSET_LOCK:
+        _NODE_BITSET_STATS[key] += n
+
+
+def node_bitset_stats() -> dict:
+    with _NODE_BITSET_LOCK:
+        return dict(_NODE_BITSET_STATS)
 
 
 # ---- eager sparse impact tier (ES_TPU_SPARSE) ----
@@ -210,8 +353,18 @@ class TurboBM25:
         self._pending_zero: List[tuple] = []
         self._tick = 0
         self._terms: Dict[str, Optional[_TermInfo]] = {}
+        self._phrases: Dict[str, Optional[_PhraseInfo]] = {}
+        # per-cache-key tile bases touched by the key's build groups, so
+        # eviction zeroes exactly those tiles, phrases' included
         self._tile_bases: Dict[str, np.ndarray] = {}
         self.part_id = 0
+        # bumped whenever the column cache changes; the bitsets are
+        # re-packed from it when they are older
+        self.cols_epoch = 0
+        # packed per-slot presence bitsets (ES_TPU_BITSET), [Hp+2, rows,
+        # 128] i32: packed on the first bitset dispatch
+        self.bits: Optional[torch.Tensor] = None
+        self._bits_epoch = -1
         # eager sparse slices: a lazily grown device pool of packed granules
         # with an authoritative host mirror
         self._sp_pool: Optional[torch.Tensor] = None    # [G, 8, 128] i32
@@ -226,6 +379,9 @@ class TurboBM25:
         self._sp_ok = self.Dp <= _SPARSE_DOC_LIMIT
         self.stats = {"builds": 0, "build_s": 0.0, "fallbacks": 0,
                       "cold_queries": 0, "dispatches": 0, "degraded": 0,
+                      "phrase_builds": 0, "bool_host": 0, "bool_device": 0,
+                      "bitset_packs": 0, "bitset_gallop": 0,
+                      "bitset_blocks_skipped": 0, "bitset_bytes": 0,
                       "sparse_queries": 0, "sparse_slices": 0,
                       "sparse_bytes": 0, "sparse_fallbacks": 0}
         self._hbm = hbm_ledger.register_engine(self, "turbo")
@@ -239,6 +395,8 @@ class TurboBM25:
     def _register_hbm_regions(self) -> None:
         self._hbm.set_region("cols_hi", self.cols_hi.nbytes)
         self._hbm.set_region("cols_lo", self.cols_lo.nbytes)
+        self._hbm.set_region("cols_bits",
+                             0 if self.bits is None else self.bits.nbytes)
         self._hbm.set_region(
             "sparse_pool",
             0 if self._sp_pool is None else self._sp_pool.nbytes)
@@ -248,6 +406,7 @@ class TurboBM25:
 
     def hbm_bytes(self) -> int:
         return (self.cols_hi.nbytes + self.cols_lo.nbytes
+                + (0 if self.bits is None else self.bits.nbytes)
                 + (0 if self._sp_pool is None else self._sp_pool.nbytes)
                 + self.lane_docs.nbytes + self.lane_scores.nbytes
                 + self.live.nbytes)
@@ -277,20 +436,10 @@ class TurboBM25:
     # ---------------- column cache ----------------
 
     def _term_groups(self, info: _TermInfo, slot: int):
-        """(rows, nrows, bases, slots) arrays for one term's build groups —
-        one group per touched 16384-doc tile."""
-        lo = self._blo[info.row_start: info.row_start + info.n_rows]
-        hi = self._bhi[info.row_start: info.row_start + info.n_rows]
-        t0, t1 = int(lo[0]) // TILE, int(hi[-1]) // TILE
-        tiles = np.arange(t0, t1 + 1, dtype=np.int64)
-        starts = np.searchsorted(hi, tiles * TILE, side="left")
-        ends = np.searchsorted(lo, (tiles + 1) * TILE, side="left")
-        n = (ends - starts).astype(np.int32)
-        keep = n > 0
-        return (info.row_start + starts[keep].astype(np.int32),
-                n[keep],
-                (tiles[keep] * TILE).astype(np.int32),
-                np.full(int(keep.sum()), slot, np.int32))
+        """(rows, nrows, bases, slots) arrays for one term's build groups."""
+        rows = slice(info.row_start, info.row_start + info.n_rows)
+        return _tile_groups(self._blo[rows], self._bhi[rows], info.row_start,
+                            slot)
 
     def _evict(self, key: str) -> None:
         slot = self._slot_of.pop(key)
@@ -305,6 +454,9 @@ class TurboBM25:
                 (z, z, bases, np.full(len(bases), slot, np.int32)))
         self._hbm.note_eviction(freed_bytes=2 * self.Dp)
         self._hbm.note_zeroed_tiles(0 if bases is None else len(bases))
+        if key.startswith("\x00p:"):
+            # a phrase's (docs, pf) arrays go with its column
+            self._phrases.pop(key, None)
 
     def _reset_columns(self) -> None:
         """Drop the whole column cache: after a failed build the slot
@@ -317,17 +469,21 @@ class TurboBM25:
         self._free = list(range(self.Hp))
         self._pending_zero = []
         self._tile_bases.clear()
+        self.cols_epoch += 1
         self._register_hbm_regions()
 
-    def _build_groups(self, parts) -> None:
+    def _build_groups(self, parts, lane_docs=None, lane_scores=None) -> None:
         """One K1 launch over the concatenated (rows, nrows, bases, slots)
-        group arrays."""
+        group arrays, reading the engine's posting lanes unless others are
+        given."""
         if not parts:
             return
         arrs = [torch.from_numpy(np.concatenate([p[i] for p in parts]))
                 .to(self.device) for i in range(4)]
-        kernels.build_columns(*arrs, self.lane_docs, self.lane_scores,
-                              self.cols_hi, self.cols_lo)
+        kernels.build_columns(
+            *arrs, self.lane_docs if lane_docs is None else lane_docs,
+            self.lane_scores if lane_scores is None else lane_scores,
+            self.cols_hi, self.cols_lo)
 
     def ensure_columns(self, terms: Sequence[str],
                        protect_extra: Sequence[str] = ()) -> None:
@@ -394,9 +550,128 @@ class TurboBM25:
         except DeviceFaultError:
             self._reset_columns()
             raise
+        self.cols_epoch += 1
         self.stats["builds"] += len(need)
         self.stats["build_s"] += time.monotonic() - t0
         self._register_hbm_regions()
+
+    # ---------------- phrase columns ----------------
+
+    def _phrase(self, terms: Sequence[str]) -> Optional[_PhraseInfo]:
+        """Metadata for a slop-0 phrase (cached; None if a member term is
+        missing from this partition). The full-corpus positions scan runs
+        once per phrase; its (docs, pf) arrays then back both the
+        adjacency-column build and the exact host rescore."""
+        terms = tuple(terms)
+        key = _pkey(terms)
+        if key in self._phrases:
+            return self._phrases[key]
+        infos = [self._term(t) for t in terms]
+        if any(i is None for i in infos):
+            self._phrases[key] = None
+            return None
+        docs, pf = phrase_freqs(self.fp, list(terms), slop=0)
+        docs = np.asarray(docs, np.int32)
+        pf = np.asarray(pf, np.float32)
+        # idf-free phrase lane scores: a term's BM25 lane score with tf :=
+        # phrase freq, so the K1_PLUS1 bound and the quantization hold
+        smax = 0.0
+        if len(docs):
+            dl = self.fp.doc_len[docs]
+            denom = pf + _K1 * (1.0 - _B + _B * dl / max(self._avgdl, 1e-9))
+            smax = float((pf * (_K1 + 1.0) / denom).max())
+        info = _PhraseInfo(
+            key=key, terms=terms, docs=docs, pf=pf,
+            idf_sum=float(sum(i.idf for i in infos)), smax=smax)
+        self._phrases[key] = info
+        return info
+
+    def _phrase_lane(self, info: _PhraseInfo) -> np.ndarray:
+        """f32 idf-free lane scores aligned with info.docs."""
+        dl = self.fp.doc_len[info.docs]
+        denom = info.pf + _K1 * (1.0 - _B + _B * dl
+                                 / max(self._avgdl, 1e-9))
+        return (info.pf * (_K1 + 1.0) / denom).astype(np.float32)
+
+    def ensure_phrases(self, phrase_lists: Sequence[Sequence[str]],
+                       protect_extra: Sequence[str] = ()) -> None:
+        """Colize slop-0 phrases: pack each phrase's (docs, lane score)
+        pairs into synthetic 128-wide lane arrays and run them through the
+        same K1 build and LRU slot pool as term columns (eviction and
+        zeroing shared through _evict)."""
+        faults.fault_point("column_upload", self.part_id)
+        self._tick += 1
+        need: List[_PhraseInfo] = []
+        for terms in dict.fromkeys(tuple(p) for p in phrase_lists):
+            info = self._phrase(terms)
+            if info is None or not len(info.docs):
+                continue
+            if info.key in self._slot_of:
+                self._lru[info.key] = self._tick
+                continue
+            need.append(info)
+        if not need:
+            return
+        protect = {i.key for i in need} | set(protect_extra)
+        deficit = len(need) - len(self._free)
+        if deficit > 0:
+            victims = [t for t in sorted(self._lru, key=self._lru.get)
+                       if t not in protect][:deficit]
+            if len(victims) < deficit:
+                # capacity overflow: grant the phrases with the most docs
+                # and leave the rest to the exact host path this batch
+                capacity = len(self._free) + len(victims)
+                need.sort(key=lambda pi: -len(pi.docs))
+                self.stats["degraded"] += len(need) - capacity
+                need = need[:capacity]
+            for v in victims:
+                self._evict(v)
+        zero_parts, self._pending_zero = self._pending_zero, []
+        if not need and not zero_parts:
+            return
+        build_parts, drows, dvals = [], [], []
+        cursor = 0
+        for info in need:
+            slot = self._free.pop()
+            self._slot_of[info.key] = slot
+            self._lru[info.key] = self._tick
+            lane = self._phrase_lane(info)
+            nr = -(-len(info.docs) // 128)
+            d2 = np.zeros((nr, 128), np.int32)
+            v2 = np.zeros((nr, 128), np.float32)
+            d2.ravel()[: len(info.docs)] = info.docs
+            v2.ravel()[: len(info.docs)] = lane
+            # docs ascend, and the zero pad lanes keep each row's max its
+            # true last doc
+            groups = _tile_groups(d2[:, 0].astype(np.int64),
+                                  d2.max(axis=1).astype(np.int64), cursor,
+                                  slot)
+            build_parts.append(groups)
+            self._tile_bases[info.key] = groups[2]
+            drows.append(d2)
+            dvals.append(v2)
+            cursor += nr
+        pad_rows = _row_bucket(cursor) + MAX_GROUP_ROWS - cursor
+        drows.append(np.zeros((pad_rows, 128), np.int32))
+        dvals.append(np.zeros((pad_rows, 128), np.float32))
+        t0 = time.monotonic()
+        try:
+            with faults.device_errors("column_upload", self.part_id):
+                self._build_groups(zero_parts)
+                if build_parts:
+                    self._build_groups(
+                        build_parts,
+                        torch.from_numpy(np.concatenate(drows)).to(
+                            self.device),
+                        torch.from_numpy(np.concatenate(dvals)).to(
+                            self.device))
+        except DeviceFaultError:
+            self._reset_columns()
+            raise
+        self.cols_epoch += 1
+        self.stats["builds"] += len(need)
+        self.stats["phrase_builds"] += len(need)
+        self.stats["build_s"] += time.monotonic() - t0
 
     def prebuild_columns(self) -> int:
         """Build every colizable term's column now (capacity-capped, by df
@@ -781,13 +1056,9 @@ class TurboBM25:
                     ws.append((slot, self._term(t).idf * b))
             if not ws:
                 continue
-            wmax = max(abs(w) for _, w in ws)
-            qs = max(wmax / 127.0, 1e-9)         # hi step
-            qs2 = qs / 128.0                     # lo step
+            _, qs2, q = _quantize_weights([w for _, w in ws])
             qscale[qi, 0] = qs2 * COLSCALE2
-            for slot, w in ws:
-                wh = max(-127, min(127, round(w / qs)))
-                wl = max(-127, min(127, round((w - qs * wh) / qs2)))
+            for (slot, _), (wh, wl) in zip(ws, q):
                 wq[0, qi, slot] = np.int8(wh)
                 wq[1, qi, slot] = np.int8(wl)
         return wq, qscale
@@ -823,25 +1094,9 @@ class TurboBM25:
         if not qterms:
             return np.empty(0, np.float32), np.empty(0, np.int32)
 
-        # quantization error bound for the device side (mirrors
-        # _sweep_weights' quantization, including clipping)
-        e_q = 1e-7
-        ws = [(info.idf * b) for _, b, info in col_terms]
-        if ws:
-            wmax = max(abs(w) for w in ws)
-            qs = max(wmax / 127.0, 1e-9)
-            qs2 = qs / 128.0
-            for w in ws:
-                wh = max(-127, min(127, round(w / qs)))
-                wl = max(-127, min(127, round((w - qs * wh) / qs2)))
-                w_approx = qs * wh + qs2 * wl
-                # a full lo step: the build kernel forces lo >= 1 on
-                # presence-only cells
-                e_q += (abs(w - w_approx) * K1_PLUS1
-                        + abs(w_approx) * COLSCALE2)
-            # f32 rounding of the in-kernel integer combine
-            e_q += 3e-7 * sum(abs(w) for w in ws) * K1_PLUS1
-        e_q = float(e_q)
+        # quantization error bound for the device side (the weights
+        # _sweep_weights dispatched)
+        e_q = _quant_error([info.idf * b for _, b, info in col_terms])
 
         cand_s = np.empty(0, np.float32)
         if len(cand_docs):
@@ -908,6 +1163,566 @@ class TurboBM25:
                 return self._exact_merge(qterms, k)
         return out_s, out_d
 
+    # ---------------- bool queries and phrases ----------------
+
+    def _resolve_bool(self, spec: dict) -> Optional[_BoolQuery]:
+        """Resolve one bool spec; None means provably zero matches.
+
+        spec keys (all optional): "must"/"should" [(term, boost)],
+        "filter"/"must_not" [term], "phrases" [(terms, slop, boost)]."""
+        conj, should, filters, must_not, phrases = [], [], [], [], []
+        for t, b in spec.get("must", ()):
+            info = self._term(t)
+            if info is None:
+                return None
+            conj.append((t, float(b), info))
+        for t in spec.get("filter", ()):
+            info = self._term(t)
+            if info is None:
+                return None
+            filters.append((t, info))
+        for t, b in spec.get("should", ()):
+            info = self._term(t)
+            if info is not None:
+                should.append((t, float(b), info))
+        req_names = {t for t, _, _ in conj} | {t for t, _ in filters}
+        for t in spec.get("must_not", ()):
+            if t in req_names:
+                return None          # required AND prohibited
+            info = self._term(t)
+            if info is not None:
+                must_not.append((t, info))
+        phrase_specs = [(tuple(p[0]), int(p[1]), float(p[2]))
+                        for p in spec.get("phrases", ())]
+        req_infos = [i for _, _, i in conj] + [i for _, i in filters]
+        dev = (all(i.df >= self.cold_df for i in req_infos)
+               and all(s == 0 for _, s, _ in phrase_specs)
+               and len(req_infos) + len(phrase_specs) <= _MAX_REQ
+               and bool(any(b != 0.0 for _, b, _ in conj) or should
+                        or any(b != 0.0 for _, _, b in phrase_specs)))
+        for terms, slop, boost in phrase_specs:
+            infos = [self._term(t) for t in terms]
+            if any(i is None for i in infos):
+                return None          # phrase term absent: no phrase match
+            idf_sum = float(sum(i.idf for i in infos))
+            pinfo = None
+            if slop == 0 and (dev or
+                              self._phrases.get(_pkey(terms)) is not None):
+                # the full-corpus phrase scan only for queries headed to the
+                # device (host-routed ones verify positions filtered to the
+                # term intersection instead)
+                pinfo = self._phrase(terms)
+                if pinfo is None or not len(pinfo.docs):
+                    return None      # required phrase matches nothing
+            phrases.append((terms, slop, boost, pinfo, idf_sum))
+        return _BoolQuery(conj=conj, should=should, filters=filters,
+                          must_not=must_not, phrases=phrases,
+                          dev_candidate=dev)
+
+    def _bool_resident(self, r: _BoolQuery) -> bool:
+        for t, _, _ in r.conj:
+            if t not in self._slot_of:
+                return False
+        for t, _ in r.filters:
+            if t not in self._slot_of:
+                return False
+        for terms, _, _, pinfo, _ in r.phrases:
+            if pinfo is None or pinfo.key not in self._slot_of:
+                return False
+        return True
+
+    def _ensure_bool(self, resolved: Sequence[Optional[_BoolQuery]]):
+        """Warm term and adjacency columns for the device-candidate queries
+        of a resolved batch."""
+        ens_terms: List[str] = []
+        ens_phr: List[Tuple[str, ...]] = []
+        pkeys = set()
+        for r in resolved:
+            if r is None or not r.dev_candidate:
+                continue
+            ens_terms += [t for t, _, _ in r.conj]
+            ens_terms += [t for t, _ in r.filters]
+            # cold SHOULD terms ride along: ensure_columns skips them for
+            # the column cache but slices them for K3
+            ens_terms += [t for t, _, _ in r.should]
+            ens_terms += [t for t, i in r.must_not
+                          if i.df >= self.cold_df]
+            for terms, _, _, pinfo, _ in r.phrases:
+                if pinfo is not None:
+                    ens_phr.append(pinfo.terms)
+                    pkeys.add(pinfo.key)
+        if ens_terms:
+            self.ensure_columns(ens_terms, protect_extra=pkeys)
+        if ens_phr:
+            self.ensure_phrases(ens_phr,
+                                protect_extra=set(ens_terms) | pkeys)
+
+    def _bool_routes(self, resolved: Sequence[Optional[_BoolQuery]]):
+        """(device_idx, host_idx) after columns are ensured: device iff the
+        query is a device candidate and every required column is resident
+        now."""
+        device_idx: List[int] = []
+        host_idx: List[int] = []
+        for qi, r in enumerate(resolved):
+            if r is None:
+                continue
+            if r.dev_candidate and self._bool_resident(r):
+                device_idx.append(qi)
+            else:
+                host_idx.append(qi)
+        return device_idx, host_idx
+
+    def _bool_slots(self, r: _BoolQuery):
+        """(scoring [(slot, w, smax)], required slots, must_not slots) over
+        columns resident now — what the sweep quantizes, reused by
+        _finish_bool so the certificate's e_q mirrors the dispatch."""
+        ws: Dict[int, float] = {}
+        smax: Dict[int, float] = {}
+        req = set()
+        for t, b, info in r.conj:
+            slot = self._slot_of.get(t)
+            if slot is None:
+                continue
+            ws[slot] = ws.get(slot, 0.0) + info.idf * b
+            smax[slot] = info.smax
+            req.add(slot)
+        for t, info in r.filters:
+            slot = self._slot_of.get(t)
+            if slot is not None:
+                req.add(slot)
+        for t, b, info in r.should:
+            slot = self._slot_of.get(t)
+            if slot is not None:
+                ws[slot] = ws.get(slot, 0.0) + info.idf * b
+                smax[slot] = info.smax
+        for terms, _, boost, pinfo, idf_sum in r.phrases:
+            if pinfo is None:
+                continue
+            slot = self._slot_of.get(pinfo.key)
+            if slot is not None:
+                ws[slot] = ws.get(slot, 0.0) + idf_sum * boost
+                smax[slot] = pinfo.smax
+                req.add(slot)
+        mn = set()
+        for t, info in r.must_not:
+            slot = self._slot_of.get(t)
+            if slot is not None and slot not in req:
+                mn.add(slot)
+        scoring = [(s, w, smax[s]) for s, w in ws.items() if w != 0.0]
+        return scoring, req, mn
+
+    def _bool_weights(self, chunk, QC: int):
+        """Quantized conjunctive sweep inputs for one dispatch chunk:
+        (wq [2, QC, Hp+1] i8, wp [QC, Hp+1] i8, nreq [QC, 1] i32,
+        qscale [QC, 1] f32). Padding rows stay all zero: nreq 0 keeps the
+        coverage test vacuous and zero weights score 0, so they never
+        surface."""
+        wq = np.zeros((2, QC, self.Hp + 1), np.int8)
+        wp = np.zeros((QC, self.Hp + 1), np.int8)
+        nreq = np.zeros((QC, 1), np.int32)
+        qscale = np.ones((QC, 1), np.float32)
+        for qi, r in enumerate(chunk):
+            if r is None:
+                continue
+            scoring, req, mn = self._bool_slots(r)
+            nreq[qi, 0] = len(req)
+            for s in req:
+                wp[qi, s] = 1
+            for s in mn:
+                # one prohibited presence pushes coverage below 0, which
+                # no subset of +1 weights reaches (n_req <= 126 fits int8)
+                wp[qi, s] = np.int8(-(len(req) + 1))
+            if not scoring:
+                continue
+            _, qs2, q = _quantize_weights([w for _, w, _ in scoring])
+            qscale[qi, 0] = qs2 * COLSCALE2
+            for (slot, _, _), (wh, wl) in zip(scoring, q):
+                wq[0, qi, slot] = np.int8(wh)
+                wq[1, qi, slot] = np.int8(wl)
+        return wq, wp, nreq, qscale
+
+    def _sweep_bool(self, chunk: Sequence[_BoolQuery], QC: int):
+        wq, wp, nreq, qscale = self._bool_weights(chunk, QC)
+        dev = self.device
+        with faults.device_dispatch("turbo_sweep", self.part_id):
+            return kernels.sweep_rowmax_conj(
+                torch.from_numpy(qscale).to(dev),
+                torch.from_numpy(nreq).to(dev), self.cols_hi, self.cols_lo,
+                torch.from_numpy(wq).to(dev), torch.from_numpy(wp).to(dev),
+                self.live, nsw=self.nsw)
+
+    # ---- packed bitsets (ES_TPU_BITSET) ----
+
+    def _repack_bits(self) -> None:
+        """Derive the per-slot presence bitsets from the column cache
+        (presence is exact there: the build forces lo >= 1)."""
+        with faults.device_errors("bitset_intersect", self.part_id):
+            self.bits = None          # the old bitsets' memory first
+            self.bits = kernels.pack_presence_bits(self.cols_hi,
+                                                   self.cols_lo)
+        self._bits_epoch = self.cols_epoch
+        self.stats["bitset_packs"] += 1
+        _node_bitset_add("bitset_packs", 1)
+        _node_bitset_add("bitset_bytes",
+                         self.bits.nbytes - self.stats["bitset_bytes"])
+        self.stats["bitset_bytes"] = self.bits.nbytes
+        self._register_hbm_regions()
+
+    def _ensure_bits(self) -> None:
+        """Pack (or re-pack after a cols_epoch move) the bitsets before a
+        bitset dispatch."""
+        if self.bits is not None and self._bits_epoch == self.cols_epoch:
+            return
+        faults.fault_point("bitset_intersect", self.part_id)
+        self._repack_bits()
+
+    def _bitset_slots(self, r: _BoolQuery):
+        """(required slots rarest-first, must_not slots largest-first) for
+        the intersect kernel. Clauses beyond the BITSET_CLAUSES /
+        BITSET_NEGS fan-in are dropped from the mask only, which leaves it
+        a superset of the match set; the exact rescore re-tests every
+        clause, so top-k is unchanged."""
+        req: Dict[int, int] = {}
+        for t, _, info in r.conj:
+            slot = self._slot_of.get(t)
+            if slot is not None:
+                req[slot] = min(req.get(slot, 1 << 60), info.df)
+        for t, info in r.filters:
+            slot = self._slot_of.get(t)
+            if slot is not None:
+                req[slot] = min(req.get(slot, 1 << 60), info.df)
+        for terms, _, _, pinfo, _ in r.phrases:
+            if pinfo is None:
+                continue
+            slot = self._slot_of.get(pinfo.key)
+            if slot is not None:
+                req[slot] = min(req.get(slot, 1 << 60), len(pinfo.docs))
+        ordered = sorted(req, key=lambda s: (req[s], s))[:BITSET_CLAUSES]
+        mn = []
+        for t, info in r.must_not:
+            slot = self._slot_of.get(t)
+            if slot is not None and slot not in req:
+                mn.append((info.df, slot))
+        mn = [s for _, s in sorted(mn, reverse=True)[:BITSET_NEGS]]
+        return ordered, mn
+
+    def _bitset_prefetch(self, chunk, QC: int):
+        """(q_slots [QC, BITSET_CLAUSES], q_neg [QC, BITSET_NEGS]) i32 for
+        the intersect kernel. Slot Hp (the scratch slot, always zero) is
+        the AND-NOT identity and the empty mask; slot Hp + 1 is all ones.
+        A padding row points every clause at the zero sentinel, so its
+        mask is empty; an active query with no resident required clause
+        pads with the ones sentinel; extra clauses repeat the first."""
+        zero_s, ones_s = self.Hp, self.Hp + 1
+        q_slots = np.full((QC, BITSET_CLAUSES), zero_s, np.int32)
+        q_neg = np.full((QC, BITSET_NEGS), zero_s, np.int32)
+        for qi, r in enumerate(chunk):
+            if r is None:
+                continue
+            req, mn = self._bitset_slots(r)
+            if not req:
+                q_slots[qi, :] = ones_s
+            else:
+                for j in range(BITSET_CLAUSES):
+                    q_slots[qi, j] = req[j] if j < len(req) else req[0]
+            q_neg[qi, : len(mn)] = mn
+        return q_slots, q_neg
+
+    def _sweep_bool_bits(self, chunk: Sequence[_BoolQuery], QC: int):
+        """The bitset twin of _sweep_bool: K5 intersects the clauses'
+        packed match sets, K6 sweeps only the surviving docs. Returns
+        (rm, rr, counts), counts being the per-query nonzero-chunk tally."""
+        wq, _, _, qscale = self._bool_weights(chunk, QC)
+        q_slots, q_neg = self._bitset_prefetch(chunk, QC)
+        dev = self.device
+        with faults.device_dispatch("bitset_intersect", self.part_id):
+            mask = kernels.intersect_bitset(
+                torch.from_numpy(q_slots).to(dev),
+                torch.from_numpy(q_neg).to(dev), self.bits, nsw=self.nsw)
+            counts = kernels.mask_chunk_counts(mask)
+        with faults.device_dispatch("turbo_sweep", self.part_id):
+            rm, rr = kernels.sweep_rowmax_bitset(
+                torch.from_numpy(qscale).to(dev), self.cols_hi,
+                self.cols_lo, torch.from_numpy(wq).to(dev), mask, self.live,
+                nsw=self.nsw)
+        return rm, rr, counts
+
+    def _gallop_routes(self, resolved, device_idx, host_idx):
+        """Queries whose rarest required clause has df below
+        ES_TPU_BITSET_HOST_DF skip the device sweep: the galloping host
+        intersection finishes them sooner."""
+        thr = int(knob("ES_TPU_BITSET_HOST_DF") or 0)
+        if thr <= 0:
+            return device_idx, host_idx
+        keep: List[int] = []
+        moved: List[int] = []
+        for qi in device_idx:
+            r = resolved[qi]
+            dfs = ([i.df for _, _, i in r.conj]
+                   + [i.df for _, i in r.filters]
+                   + [len(p.docs) for _, _, _, p, _ in r.phrases
+                      if p is not None])
+            (moved if dfs and min(dfs) < thr else keep).append(qi)
+        if moved:
+            self.stats["bitset_gallop"] += len(moved)
+            _node_bitset_add("bitset_gallop", len(moved))
+        return keep, sorted(host_idx + moved)
+
+    def _note_bitset_counts(self, cnt) -> None:
+        """Fold one dispatch's nonzero-chunk tallies into the skip
+        counter."""
+        total = self.nsw * N_CHUNKS
+        for c in cnt:
+            skipped = max(total - int(c), 0)
+            self.stats["bitset_blocks_skipped"] += skipped
+            _node_bitset_add("bitset_blocks_skipped", skipped)
+
+    # ---- exact host side ----
+
+    def _phrase_pf(self, terms, slop, pinfo, docs: np.ndarray):
+        """(pf f32[n], present bool[n]) of a phrase at candidate docs."""
+        if pinfo is not None:
+            pdocs, ppf = pinfo.docs, pinfo.pf
+        else:
+            flt = np.unique(np.asarray(docs, np.int64)).astype(np.int32)
+            pdocs, ppf = phrase_freqs(self.fp, list(terms), slop=slop,
+                                      docs_filter=flt)
+        pf = np.zeros(len(docs), np.float32)
+        if len(pdocs):
+            d = docs.astype(pdocs.dtype, copy=False) \
+                if docs.dtype != pdocs.dtype else docs
+            j = np.searchsorted(pdocs, d)
+            jc = np.minimum(j, len(pdocs) - 1)
+            hit = (j < len(pdocs)) & (pdocs[jc] == d)
+            pf[hit] = ppf[jc[hit]]
+        return pf, pf > 0
+
+    def _exact_bool(self, r: _BoolQuery, docs: np.ndarray):
+        """(scores f32[n], match bool[n]) at docs, expression for
+        expression the reference's (f64 accumulation, clause order conj ->
+        should -> phrases, one f32 downcast at the end)."""
+        fp = self.fp
+        n = len(docs)
+        match = np.ones(n, bool)
+        dl = fp.doc_len[docs]
+        norm = _K1 * (1.0 - _B + _B * dl / max(self._avgdl, 1e-9))
+        scores = np.zeros(n, np.float64)
+        for t, w, info in r.conj:
+            tf, present = tf_at(fp, t, docs)
+            match &= present
+            scores += w * info.idf * tf * (_K1 + 1.0) / (tf + norm)
+        for t, _ in r.filters:
+            _, present = tf_at(fp, t, docs)
+            match &= present
+        for t, w, info in r.should:
+            tf, present = tf_at(fp, t, docs)
+            contrib = (w * info.idf * tf * (_K1 + 1.0)
+                       / np.maximum(tf + norm, 1e-9))
+            scores += np.where(present, contrib, 0.0)
+        for terms, slop, boost, pinfo, idf_sum in r.phrases:
+            pf, present = self._phrase_pf(terms, slop, pinfo, docs)
+            match &= present
+            if boost == 0.0:
+                continue
+            scores += boost * idf_sum * pf * (_K1 + 1.0) / (pf + norm)
+        for t, _ in r.must_not:
+            _, present = tf_at(fp, t, docs)
+            match &= ~present
+        return scores.astype(np.float32), match
+
+    def _bool_host_exact(self, r: _BoolQuery, k: int):
+        """Exact host bool top-k: sorted-array intersection of the required
+        clauses, then the shared exact rescore. Serves host-routed queries
+        and the device path's certificate fallback."""
+        self.stats["bool_host"] += 1
+        fp = self.fp
+        empty = (np.empty(0, np.float32), np.empty(0, np.int32))
+        req: List[np.ndarray] = []
+        for _, _, info in r.conj:
+            lo, hi = (int(fp.post_start[info.ord]),
+                      int(fp.post_start[info.ord + 1]))
+            req.append(fp.post_doc[lo:hi])
+        for _, info in r.filters:
+            lo, hi = (int(fp.post_start[info.ord]),
+                      int(fp.post_start[info.ord + 1]))
+            req.append(fp.post_doc[lo:hi])
+        for _, _, _, pinfo, _ in r.phrases:
+            if pinfo is not None:
+                req.append(pinfo.docs)
+        cand: Optional[np.ndarray] = None
+        if req:
+            req.sort(key=len)
+            cand = req[0]
+            for s in req[1:]:
+                cand = _intersect_sorted(cand, s)
+                if not len(cand):
+                    return empty
+        for terms, slop, _, pinfo, _ in r.phrases:
+            if pinfo is not None:
+                continue
+            cand, _ = phrase_freqs(fp, list(terms), slop=slop,
+                                   docs_filter=cand)
+            if not len(cand):
+                return empty
+        if cand is None:
+            # no required clauses: candidates are the should-term union
+            arrs = []
+            for _, _, info in r.should:
+                lo, hi = (int(fp.post_start[info.ord]),
+                          int(fp.post_start[info.ord + 1]))
+                arrs.append(fp.post_doc[lo:hi])
+            if not arrs:
+                return empty
+            cand = np.unique(np.concatenate(arrs))
+        cand = cand[self._live_host[cand] > 0]
+        if not len(cand):
+            return empty
+        s, m = self._exact_bool(r, cand)
+        keep = m & (s > 0)
+        cand, s = cand[keep], s[keep]
+        sel = np.lexsort((cand, -s))[:k]
+        return s[sel], cand[sel].astype(np.int32)
+
+    def _finish_bool(self, r: _BoolQuery, cand_docs, bound: float, k: int):
+        """Device-path merge: exact rescore of the collected docs, the cold
+        SHOULD terms through K3 (bound-pruned), and the certificate, as in
+        _finish_query."""
+        scoring, _, _ = self._bool_slots(r)
+        e_q = _quant_error([w for _, w, _ in scoring])
+
+        cand_s = np.empty(0, np.float32)
+        if len(cand_docs):
+            cand_docs = np.asarray(cand_docs, np.int64)
+            s, m = self._exact_bool(r, cand_docs)
+            keep = m & (s > 0)
+            cand_docs, cand_s = cand_docs[keep], s[keep]
+        else:
+            cand_docs = np.empty(0, np.int64)
+
+        # cold SHOULD terms: a match the sweep scored without them (or
+        # never surfaced, when every scoring clause is cold) gets its exact
+        # total here; bound-pruned like the disjunctive path
+        cold_should = [(t, b, i) for t, b, i in r.should
+                       if t not in self._slot_of]
+        cold_docs = np.empty(0, np.int64)
+        cold_s = np.empty(0, np.float32)
+        if cold_should:
+            if self._sp_ok and bool(knob("ES_TPU_SPARSE")):
+                self.stats["sparse_queries"] += 1
+                docs_c, contrib, slack = self._sparse_contrib(cold_should)
+            else:
+                self.stats["cold_queries"] += 1
+                docs_c, contrib = self._cold_contrib(cold_should)
+                slack = 0.0
+            lv = self._live_host[docs_c] > 0
+            docs_c, contrib = docs_c[lv], contrib[lv]
+            kth_0 = 0.0
+            if len(cand_s) >= k:
+                kth_0 = float(np.partition(cand_s, len(cand_s) - k)[
+                    len(cand_s) - k])
+            col_const = sum(abs(w) * sm for _, w, sm in scoring)
+            # slack widens the bound for the slices' quantization: a
+            # superset of the exact path's survivors, all rescored below
+            survivors = docs_c[contrib + slack + col_const + 1e-5 >= kth_0]
+            if len(survivors):
+                s, m = self._exact_bool(r, survivors)
+                keep = m & (s > 0)
+                cold_docs, cold_s = survivors[keep], s[keep]
+
+        docs = np.concatenate([cand_docs, cold_docs])
+        totals = np.concatenate([cand_s, cold_s])
+        if len(docs):
+            docs, first = np.unique(docs, return_index=True)
+            totals = totals[first]
+        sel = np.lexsort((docs, -totals))[:k]
+        out_s, out_d = totals[sel], docs[sel].astype(np.int32)
+
+        # certificate: collected docs are exact; a doc in an uncollected
+        # row passed the same exact clause gate, so its colized score is
+        # bounded by the row bound + e_q, and its cold-should addend was
+        # enumerated above
+        uncollected = float(bound)
+        limit = uncollected + e_q
+        kth = float(out_s[k - 1]) if len(out_s) >= k else 0.0
+        short = len(out_s) < k and uncollected > 0
+        if short or (len(out_s) >= k and kth < limit and uncollected > 0):
+            self.stats["fallbacks"] += 1
+            return self._bool_host_exact(r, k)
+        return out_s, out_d
+
+    def search_bool(self, queries: Sequence[dict], k: int = 10):
+        """(scores [Q, k] f32, ords [Q, k] i32) for bool query specs (see
+        _resolve_bool). Matches with non-positive scores are dropped. The
+        device and host routes are bitwise equal: both rescore through
+        _exact_bool."""
+        Q = len(queries)
+        out_s = np.zeros((Q, k), np.float32)
+        out_d = np.zeros((Q, k), np.int32)
+        resolved = [self._resolve_bool(spec) for spec in queries]
+        self._ensure_bool(resolved)
+        device_idx, host_idx = self._bool_routes(resolved)
+        use_bits = bool(knob("ES_TPU_BITSET"))
+        if use_bits:
+            device_idx, host_idx = self._gallop_routes(
+                resolved, device_idx, host_idx)
+            if device_idx:
+                self._ensure_bits()
+        self.stats["bool_device"] += len(device_idx)
+
+        # device pipeline, the two passes of search_many: every chunk is
+        # launched before the host reads any back
+        n_rows = max(_GLOBAL_ROWS, k + 5)
+        pending = []
+        off = 0
+        while off < len(device_idx):
+            rem = len(device_idx) - off
+            take = next((s for s in self.qc_sizes if s >= rem),
+                        self.qc_sizes[-1])
+            sel = device_idx[off: off + take]
+            chunk = [resolved[i] for i in sel]
+            counts = None
+            if use_bits:
+                first = hbm_ledger.note_dispatch("turbo_bitset", take)
+                tc0 = time.monotonic()
+                rm, rr, counts = self._sweep_bool_bits(chunk, take)
+            else:
+                rm, rr = self._sweep_bool(chunk, take)
+            with faults.device_errors("turbo_sweep", self.part_id):
+                picked = _pick_rows(rm, rr, n_rows=n_rows)
+            if use_bits and first:
+                hbm_ledger.note_compile_done("turbo_bitset", take,
+                                             time.monotonic() - tc0)
+            pending.append((sel, picked, counts))
+            off += len(sel)
+        self.stats["dispatches"] += len(pending)
+
+        for sel, packed_dev, counts in pending:
+            with faults.device_errors("turbo_sweep", self.part_id):
+                packed = packed_dev.cpu().numpy()
+            if counts is not None:
+                with faults.device_errors("bitset_intersect", self.part_id):
+                    self._note_bitset_counts(counts.cpu().numpy()[: len(sel)])
+            rows_all = packed[:, :n_rows].astype(np.int64)
+            bounds = packed[:, n_rows]
+            for j, qi in enumerate(sel):
+                docs = self._collect_docs(rows_all[j])
+                s, d = self._finish_bool(resolved[qi], docs,
+                                         float(bounds[j]), k)
+                out_s[qi, : len(s)] = s
+                out_d[qi, : len(d)] = d
+        for qi in host_idx:
+            s, d = self._bool_host_exact(resolved[qi], k)
+            out_s[qi, : len(s)] = s
+            out_d[qi, : len(d)] = d
+        return out_s, out_d
+
+    def search_phrase(self, phrases: Sequence[Sequence[str]], k: int = 10,
+                      slop: int = 0):
+        """(scores [Q, k], ords [Q, k]) for bare phrase queries: sugar over
+        search_bool; slop-0 phrases ride the adjacency columns."""
+        specs = [{"phrases": [(list(p), slop, 1.0)]} for p in phrases]
+        return self.search_bool(specs, k=k)
+
     # ---------------- host tier (no device dispatch) ----------------
 
     def _exact_query(self, terms, k: int):
@@ -933,3 +1748,19 @@ class TurboBM25:
             out_s[qi, : len(s)] = s
             out_d[qi, : len(d)] = d
         return [(out_s[o: o + n], out_d[o: o + n]) for o, n in spans]
+
+    def search_bool_host(self, queries: Sequence[dict], k: int = 10):
+        """search_bool semantics served entirely on the host (the
+        _bool_host_exact route every device bool result is bitwise equal
+        to)."""
+        Q = len(queries)
+        out_s = np.zeros((Q, k), np.float32)
+        out_d = np.zeros((Q, k), np.int32)
+        for qi, spec in enumerate(queries):
+            r = self._resolve_bool(spec)
+            if r is None:
+                continue
+            s, d = self._bool_host_exact(r, k)
+            out_s[qi, : len(s)] = s
+            out_d[qi, : len(d)] = d
+        return out_s, out_d

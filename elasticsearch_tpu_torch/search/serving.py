@@ -1,20 +1,21 @@
-"""The serving path's BM25 disjunction (the port of the `match` route of
-elasticsearch_tpu/search/serving.py).
+"""The serving path's BM25 routes (the port of the `match`, `bool` and
+`match_phrase` routes of elasticsearch_tpu/search/serving.py).
 
-A request is servable here when it reduces to a flat disjunctive BM25 plan
-over one text field: match (or), term, and bool.should of those.
-`extract_plan` flattens the body exactly as the reference does (it also
-recognises the conjunctive shapes, which the port does not serve yet);
-`select_bm25_engine` builds the TurboEngine that serves the disjunctions.
+A request is servable here when it reduces to a flat BM25 plan over one
+text field. `extract_plan` flattens the body exactly as the reference
+does: a disjunctive plan (match (or), term, bool.should of those) goes to
+`TurboEngine.search_many`; a conjunctive one (must, filter, must_not,
+match_phrase) becomes a search_bool spec through `_turbo_bool_spec` and
+goes to `TurboEngine.search_bool`. `select_bm25_engine` builds the engine.
 
 Scoring stats are index-global (every partition scores with the same
 idf/avgdl). Results are exact: the same f32 scores as the reference and
 the deterministic (score desc, partition asc, doc asc) order.
 
-Not ported yet (ROADMAP.md): the conjunctive and phrase routes, kNN,
-BlockMax (indices whose columns exceed the device budget), the fused
-S > 1 path and its device merge, ServingSnapshot/ServingContext and the
-REST node above them.
+Not ported yet (ROADMAP.md): kNN, BlockMax (indices whose columns exceed
+the device budget), the fused S > 1 path and its device merge, the host
+columnar bool executor behind the REST node, ServingSnapshot/ServingContext
+and the REST node above them.
 """
 
 from __future__ import annotations
@@ -278,6 +279,36 @@ def _flatten(node, plan: FlatPlan, mapper, ctx: str, weight: float) -> None:
     raise _Reject
 
 
+def _turbo_bool_spec(plan: FlatPlan) -> Optional[dict]:
+    """Convert a conjunctive FlatPlan into a TurboBM25.search_bool spec, or
+    None when Turbo's contract cannot represent it: every clause must be a
+    single term on the scoring field, and every match must be guaranteed a
+    positive score (the engine drops score <= 0 matches)."""
+    if plan.field is None or plan.disj:
+        return None
+    for f, terms in plan.filters:
+        if f != plan.field or len(terms) != 1:
+            return None          # cross-field / any-of filter groups
+    for f, _ in plan.must_not:
+        if f != plan.field:
+            return None
+    if (any(w < 0 for _, w in plan.conj)
+            or any(w < 0 for _, w in plan.should)
+            or any(b < 0 for _, _, b in plan.phrases)):
+        return None
+    if not (any(w > 0 for _, w in plan.conj)
+            or any(b > 0 for _, _, b in plan.phrases)):
+        return None              # no positively-scored required clause
+    return {
+        "must": list(plan.conj),
+        "should": list(plan.should),
+        "filter": [terms[0] for _, terms in plan.filters],
+        "must_not": [t for _, terms in plan.must_not for t in terms],
+        "phrases": [(list(terms), int(slop), float(boost))
+                    for terms, slop, boost in plan.phrases],
+    }
+
+
 # --------------------------------------------------------------------------
 # BM25 engine selection
 # --------------------------------------------------------------------------
@@ -286,7 +317,7 @@ def _flatten(node, plan: FlatPlan, mapper, ctx: str, weight: float) -> None:
 TURBO_HBM_BUDGET = knob("ES_TPU_TURBO_HBM")
 
 _BLOCKMAX_TODO = ("the BlockMax engine is not ported yet (ROADMAP.md, queue "
-                  "1, item 9: parallel/blockmax.py BlockMaxBM25)")
+                  "1, item 8: parallel/blockmax.py BlockMaxBM25)")
 
 
 def _env_cold_df() -> Optional[int]:
@@ -343,6 +374,48 @@ class TurboEngine:
         else:
             self.health.record_success()
         return out
+
+    def search_bool(self, queries: Sequence[dict], k: int = 10,
+                    fault_log=None):
+        """Batched bool top-k through the per-partition conjunctive sweeps:
+        (scores [Q, k], partition [Q, k], ord [Q, k]). Fault containment
+        as in search_many: an open circuit or a fault outside a partition
+        serves the batch from the host tier, a faulted partition is served
+        by its own."""
+        log = fault_log if fault_log is not None else []
+        n0 = len(log)
+        if not self.health.allow_device():
+            self.health.record_fallback(len(queries))
+            return self._merge3([t.search_bool_host(queries, k=k)
+                                 for t in self.turbos], len(queries), k)
+        try:
+            per = []
+            for t in self.turbos:
+                try:
+                    per.append(t.search_bool(queries, k=k))
+                except DeviceFaultError as e:
+                    log.append(FaultRecord.from_error(e, partition=t.part_id))
+                    per.append(t.search_bool_host(queries, k=k))
+        except DeviceFaultError as e:
+            log.append(FaultRecord.from_error(e))
+            self.health.record_fault(e)
+            self.health.record_fallback(len(queries))
+            return self._merge3([t.search_bool_host(queries, k=k)
+                                 for t in self.turbos], len(queries), k)
+        out = self._merge3(per, len(queries), k)
+        if log[n0:]:
+            self.health.record_fault(log[-1].error)
+        else:
+            self.health.record_success()
+        return out
+
+    def search_phrase(self, phrases: Sequence[List[str]], k: int = 10,
+                      slop: int = 0, fault_log=None):
+        """Batched match_phrase top-k: sugar over search_bool; slop-0
+        phrases ride the adjacency columns, other slops the exact host
+        positional path."""
+        specs = [{"phrases": [(list(p), int(slop), 1.0)]} for p in phrases]
+        return self.search_bool(specs, k=k, fault_log=fault_log)
 
     def _merge3(self, per, Q: int, k: int):
         """Merge per-partition (scores, docs) into the engine-wide

@@ -3,9 +3,11 @@
 The same numpy inputs, made from a seed, go through the reference
 (elasticsearch_tpu/parallel/kernels.py, Pallas in interpret mode on the CPU
 as tests/test_turbo.py runs it) and through the port's wrappers, which run
-their plain torch versions for CPU tensors. K1, K2, the row pick and K3 must
-agree bit for bit: the kernels' arithmetic is integer, one rounding per
-step, or sums in a fixed order. The CUDA kernels themselves are held
+their plain torch versions for CPU tensors. K1, K2, the row pick, K3, the
+bitset helpers and K5-K7 must agree bit for bit (tolerance 0): the
+kernels' arithmetic is integer or bitwise, one rounding per step, or sums
+in a fixed order. The reference's uint32 bitsets are compared with the
+port's int32 ones through a numpy view. The CUDA kernels themselves are held
 against the same plain versions on the card by chip_smoke.py.
 """
 
@@ -19,7 +21,10 @@ from elasticsearch_tpu.parallel import kernels as ref_k
 from elasticsearch_tpu.parallel import turbo as ref_turbo
 from elasticsearch_tpu_torch.common.errors import KernelLaunchError
 from elasticsearch_tpu_torch.parallel import kernels as k
-from torch_kernel_cases import lanes_and_groups, sparse_inputs, sweep_inputs
+from torch_kernel_cases import (
+    bitset_inputs, clause_slots, conj_inputs, lanes_and_groups, mask_inputs,
+    sparse_inputs, sweep_inputs,
+)
 
 torch.set_num_threads(1)
 
@@ -105,6 +110,86 @@ def test_sparse_gather_rejects_granule_outside_pool(bad):
     with pytest.raises(ValueError, match="outside the pool"):
         k.sparse_gather(_t(coff), _t(cw), _t(ct0), _t(ct1), _t(pool),
                         n_tiles=4)
+
+
+def _u32(a):
+    return np.asarray(a).view(np.uint32)
+
+
+@pytest.mark.parametrize("nsw", [2, 3])
+def test_pack_presence_bits_bitwise(nsw):
+    _, hi, lo, _, _ = sweep_inputs(nsw, qc=2, hpt=11, nsw=nsw)
+    want = ref_k.pack_presence_bits(jnp.asarray(hi), jnp.asarray(lo))
+    got = k.pack_presence_bits(_t(hi), _t(lo))
+    assert got.dtype == torch.int32
+    assert np.array_equal(_u32(got.numpy()), np.asarray(want))
+
+
+def test_mask_chunk_counts_bitwise():
+    mask = mask_inputs(4, qc=8, nsw=2)
+    want = ref_k.mask_chunk_counts(jnp.asarray(_u32(mask)))
+    got = k.mask_chunk_counts(_t(mask))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert got.min() == 0 and got.max() > 0
+
+
+@pytest.mark.parametrize("nsw", [2, 3])
+def test_intersect_bitset_bitwise(nsw):
+    """Fan-in padding, None rows (zero sentinel), rows with no required
+    clause (ones sentinel), 8 clauses, a must_not repeating a clause, over
+    random blocks in several superwindows."""
+    n_slots = 13
+    bits = bitset_inputs(nsw, n_slots, nsw)
+    q_slots, q_neg = clause_slots(nsw + 10, 8, n_slots)
+    want = ref_k.intersect_bitset(jnp.asarray(q_slots), jnp.asarray(q_neg),
+                                  jnp.asarray(_u32(bits)), QC=8, nsw=nsw)
+    got = k.intersect_bitset(_t(q_slots), _t(q_neg), _t(bits), nsw=nsw)
+    assert got.shape == (8, nsw * k.SW_WORD_ROWS, 128)
+    assert np.array_equal(_u32(got.numpy()), np.asarray(want))
+    g = got.numpy()
+    assert not g[0].any() and g[1:].any()
+
+
+def test_intersect_bitset_rejects_slot_outside_bits():
+    bits = bitset_inputs(0, 13, 1)
+    q_slots, q_neg = clause_slots(1, 8, 13)
+    q_neg[3, 0] = 15
+    with pytest.raises(ValueError, match="outside the bitsets"):
+        k.intersect_bitset(_t(q_slots), _t(q_neg), _t(bits), nsw=1)
+
+
+def test_sweep_rowmax_bitset_bitwise():
+    qscale, hi, lo, wq, live = sweep_inputs(6, qc=8, hpt=33, nsw=2)
+    mask = mask_inputs(6, qc=8, nsw=2)
+    want = ref_k.sweep_rowmax_bitset(
+        jnp.asarray(qscale), jnp.asarray(hi), jnp.asarray(lo),
+        jnp.asarray(wq), jnp.asarray(_u32(mask)), jnp.asarray(live),
+        QC=8, nsw=2)
+    got = k.sweep_rowmax_bitset(_t(qscale), _t(hi), _t(lo), _t(wq),
+                                _t(mask), _t(live), nsw=2)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    gm = got[0].numpy()
+    # the masked-out superwindow and the all-zero mask come out empty
+    assert np.isinf(gm[0, 0]).all() and np.isinf(gm[:, -1]).all()
+    assert np.isfinite(gm).any()
+
+
+def test_sweep_rowmax_conj_bitwise():
+    qscale, nreq, hi, lo, wq, wp, live = conj_inputs(7, qc=8, hpt=33, nsw=2)
+    want = ref_k.sweep_rowmax_conj(
+        jnp.asarray(qscale), jnp.asarray(nreq), jnp.asarray(hi),
+        jnp.asarray(lo), jnp.asarray(wq), jnp.asarray(wp),
+        jnp.asarray(live), QC=8, nsw=2)
+    got = k.sweep_rowmax_conj(_t(qscale), _t(nreq), _t(hi), _t(lo), _t(wq),
+                              _t(wp), _t(live), nsw=2)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    # coverage changes what the disjunctive sweep would keep
+    disj = k.sweep_rowmax(_t(qscale), _t(hi), _t(lo), _t(wq), _t(live),
+                          nsw=2)[0].numpy()
+    gm = got[0].numpy()
+    assert not np.array_equal(gm, disj) and np.isfinite(gm).any()
 
 
 def test_wrappers_reject_bad_inputs():

@@ -8,7 +8,8 @@ imports jax for the reference tests:
 
 Inputs are the adversarial cases of the CPU differential tests (ties,
 negative and all-zero weights, padding lanes, zero groups, overlapping
-cold slices) plus shapes the main path does not reach (more slots than a
+cold slices, fan-in padding and sentinel rows, coverage weights, masks with
+empty chunks) plus shapes the main path does not reach (more slots than a
 block has threads). Every comparison is bitwise.
 """
 
@@ -17,7 +18,10 @@ import pytest
 import torch
 
 from elasticsearch_tpu_torch.parallel import kernels as k
-from torch_kernel_cases import lanes_and_groups, sparse_inputs, sweep_inputs
+from torch_kernel_cases import (
+    bitset_inputs, clause_slots, conj_inputs, lanes_and_groups, mask_inputs,
+    sparse_inputs, sweep_inputs,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +98,43 @@ def test_sparse_gather_rejects_granule_outside_pool(dev, bad):
     with pytest.raises(ValueError, match="outside the pool"):
         k.sparse_gather(*args, n_tiles=6)
     assert k.LAUNCHES["sparse_gather"] == 0
+
+
+@pytest.mark.parametrize("qc,hpt,nsw", [(8, 33, 2), (24, 700, 2)])
+def test_sweep_rowmax_conj_kernel(dev, qc, hpt, nsw):
+    args = [_c(a, dev) for a in conj_inputs(7, qc=qc, hpt=hpt, nsw=nsw)]
+    km, kr = k.sweep_rowmax_conj(*args, nsw=nsw)
+    pm, pr = k.sweep_rowmax_conj_plain(*args, nsw=nsw)
+    torch.cuda.synchronize()
+    assert torch.equal(km, pm) and torch.equal(kr, pr)
+
+
+@pytest.mark.parametrize("qc,hpt,nsw", [(8, 33, 2), (24, 700, 3)])
+def test_sweep_rowmax_bitset_kernel(dev, qc, hpt, nsw):
+    qscale, hi, lo, wq, live = sweep_inputs(6, qc=qc, hpt=hpt, nsw=nsw)
+    mask = mask_inputs(6, qc=qc, nsw=nsw)
+    args = [_c(a, dev) for a in (qscale, hi, lo, wq, mask, live)]
+    km, kr = k.sweep_rowmax_bitset(*args, nsw=nsw)
+    pm, pr = k.sweep_rowmax_bitset_plain(*args, nsw=nsw)
+    torch.cuda.synchronize()
+    assert torch.equal(km, pm) and torch.equal(kr, pr)
+    assert torch.isinf(km[0, 0]).all() and torch.isinf(km[:, -1]).all()
+
+
+@pytest.mark.parametrize("qc,n_slots,nsw", [(8, 13, 2), (40, 300, 3)])
+def test_intersect_bitset_kernel(dev, qc, n_slots, nsw):
+    bits = bitset_inputs(nsw, n_slots, nsw)
+    q_slots, q_neg = clause_slots(nsw + 10, qc, n_slots)
+    args = [_c(a, dev) for a in (q_slots, q_neg, bits)]
+    got = k.intersect_bitset(*args, nsw=nsw)
+    want = k.intersect_bitset_plain(*args, nsw=nsw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_pack_presence_bits_on_card(dev):
+    """The pack is torch code: the same bits on the card as on the CPU."""
+    _, hi, lo, _, _ = sweep_inputs(2, qc=2, hpt=11, nsw=2)
+    got = k.pack_presence_bits(_c(hi, dev), _c(lo, dev)).cpu()
+    want = k.pack_presence_bits(_c(hi, "cpu"), _c(lo, "cpu"))
+    assert torch.equal(got, want)

@@ -92,3 +92,84 @@ def sparse_inputs(seed, n_terms, n_tiles):
     return (np.asarray(coff, np.int32), np.asarray(cw, np.float32),
             np.asarray(ct0, np.int32), np.asarray(ct1, np.int32),
             np.stack(grans))
+
+
+def conj_inputs(seed, qc, hpt, nsw):
+    """sweep_inputs with sparser presence and coverage weights as
+    TurboBM25._bool_weights makes them: +1 on required slots (scored or
+    not), -(n_req + 1) on must_not slots. The last two rows have n_req = 0
+    (one with score weights, one all zero)."""
+    qscale, hi, lo, wq, live = sweep_inputs(seed, qc, hpt, nsw)
+    rng = np.random.default_rng(seed + 1)
+    absent = rng.random(hi.shape) < 0.5
+    hi[absent] = 0
+    lo[absent] = 0
+    wp = np.zeros((qc, hpt), np.int8)
+    nreq = np.zeros((qc, 1), np.int32)
+    for q in range(qc - 2):
+        scored = np.nonzero(wq[:, q].any(axis=0))[0]
+        req = set(scored[: 1 + q % 2].tolist())
+        req.update(rng.choice(hpt, size=q % 3, replace=False).tolist())
+        neg = [s for s in rng.choice(hpt, size=1 + q % 2, replace=False)
+               if s not in req]
+        wp[q, sorted(req)] = 1
+        wp[q, neg] = -(len(req) + 1)
+        nreq[q, 0] = len(req)
+    return qscale, nreq, hi, lo, wq, wp, live
+
+
+def mask_inputs(seed, qc, nsw):
+    """Random intersected masks [QC, nsw * 16, 128] i32 (about a quarter of
+    the bits set) with zeroed 16-bit halves (chunks that skip), one query
+    whose first superwindow is empty and one with an all-zero mask."""
+    rng = np.random.default_rng(seed)
+    shape = (qc, nsw * k.SW_WORD_ROWS, 128)
+    a = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64)
+    b = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64)
+    mask = (a & b).astype(np.uint32).view(np.int32)
+    g = rng.random(shape[:2]) < 0.3
+    mask[g] &= np.int32(-65536)                  # chunk 2g empty
+    g = rng.random(shape[:2]) < 0.3
+    mask[g] &= np.int32(0xFFFF)                  # chunk 2g + 1 empty
+    mask[0, : k.SW_WORD_ROWS] = 0
+    mask[-1] = 0
+    return mask
+
+
+def bitset_inputs(seed, n_slots, nsw):
+    """Packed bitsets [n_slots + 2, nsw * 16, 128] i32 with the zero and
+    ones sentinels in the last two slots, as pack_presence_bits makes
+    them."""
+    rng = np.random.default_rng(seed)
+    shape = (n_slots + 2, nsw * k.SW_WORD_ROWS, 128)
+    a = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64)
+    b = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64)
+    bits = (a | b).astype(np.uint32).view(np.int32)    # 3/4 of bits set
+    bits[rng.random(shape[:2]) < 0.2] = 0                  # empty blocks
+    bits[n_slots] = 0
+    bits[n_slots + 1] = -1
+    return bits
+
+
+def clause_slots(seed, qc, n_slots):
+    """(q_slots [QC, 8], q_neg [QC, 4]) i32 as TurboBM25._bitset_prefetch
+    pads them, plus edge rows: an inactive row (zero sentinel), a row with
+    no required clause (ones sentinel), 8 distinct clauses, a must_not that
+    repeats a clause, and the ones sentinel as a must_not."""
+    rng = np.random.default_rng(seed)
+    zero_s, ones_s = n_slots, n_slots + 1
+    q_slots = np.full((qc, k.BITSET_CLAUSES), zero_s, np.int32)
+    q_neg = np.full((qc, k.BITSET_NEGS), zero_s, np.int32)
+    for q in range(1, qc):
+        n_req = [0, 8, 1][q - 1] if q <= 3 else 1 + q % 4
+        req = rng.choice(n_slots, size=n_req, replace=False)
+        if n_req:
+            q_slots[q] = [req[j] if j < n_req else req[0]
+                          for j in range(k.BITSET_CLAUSES)]
+        else:
+            q_slots[q] = ones_s
+        neg = rng.choice(n_slots, size=q % 5, replace=False)
+        q_neg[q, : len(neg)] = neg
+    q_neg[4, 0] = q_slots[4, 0]
+    q_neg[5, 1] = ones_s
+    return q_slots, q_neg
