@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py            # one card; exits 0 only if every check holds
     python3 chip_smoke.py --docs N   # cut the index to N docs (the cut is printed)
+    python3 chip_smoke.py --knn-docs N   # cut the kNN column to N vectors
 
 It drives the port's main path (elasticsearch_tpu_torch only; it imports
 nothing of JAX or of elasticsearch_tpu) the way bench.py drives config 1 of
 BASELINE.md, at the size of one primary shard of the 33M-doc Wikipedia-EN
-target:
+target, then the kNN path the way bench.py drives config 4:
 
 1. builds the CUDA kernels (K1 build_columns, K2 sweep_rowmax,
    K3 sparse_gather, K5 intersect_bitset, K6 sweep_rowmax_bitset,
-   K7 sweep_rowmax_conj) from parallel/csrc with nvcc;
+   K7 sweep_rowmax_conj, K4 merge_topk, K9 knn_int8_window_topc) from
+   parallel/csrc with nvcc, one process per source, all at once;
 2. builds one 8,000,000-doc shard with positions on the host: docs of 8-40
    terms over a 500k-term Zipf(1.07) vocabulary, seeded as bench.py does;
 3. selects the engine with `select_bm25_engine(device="cuda")` (cold_df
@@ -23,8 +25,9 @@ target:
 4. requires no fault record, host-tier fallback, sparse fallback or
    degraded column, at most MAX_CERT_FALLBACK_SHARE of the queries failing
    their certificate (the algorithm's own exact path for heavily tied
-   queries), and holds every query's top-10 (scores, ords) bitwise against
-   the port's own host-exact tier, and a few against an independent numpy
+   queries), and holds the top-10 (scores, ords) of the DSL bodies and of
+   the first HOLD_PER_BATCH queries of each batch bitwise against the
+   port's own host-exact tier, and a few against an independent numpy
    scorer;
 5. runs each kernel and its plain torch version on the same inputs at the
    path's shapes, requires bitwise agreement, and times both (CUDA events,
@@ -45,9 +48,31 @@ target:
    bitset route's device chunk and timed, and so are the bitset repack
    and mask_chunk_counts;
 7. serves the first batch again on a fresh engine at the default slice
-   ladder and reports its sparse fallbacks, holding its answers too;
-8. prints the card's name and power limit and a `kernels` JSON line, and
+   ladder and reports its sparse fallbacks, holding the answers that step
+   4 held;
+8. frees the BM25 index and serves quantized kNN (config 4: 768-d cosine
+   rows drawn as bench.py draws them, 128 of its 256 queries with 16
+   planted near-duplicate rows each) through `select_knn_engine` ->
+   `KnnEngine.search_many`, first on one partition, then, after freeing
+   it, on the same rows stacked as 4 partitions (one K9 launch for all,
+   the K4 device merge): the int8 route, the dense route
+   (ES_TPU_KNN_INT8=0), 256 filtered queries (50% and 2% masks, K9's
+   masked variant) on both, 8 `knn` DSL bodies through extract_knn_plan
+   (4 filtered on a keyword tag) on both, and a batch at
+   ES_TPU_KNN_NPROBE=24. It requires no fault record and no host
+   fallback, the int8 route's ids and order equal to the dense route's
+   (a near-tie swap inside the score bound is counted), every score within
+   the bound of two f32 summation orders (KNN_GAMMA), recall@10 >= 0.99
+   against exact f32 scores on 32 queries, the stacked engine's planted
+   answers equal to one partition's, and K9 (both variants, both engines)
+   and K4 bitwise equal to their plain versions on the path's inputs;
+9. prints the card's name and power limit and a `kernels` JSON line, and
    last `{"ok": true, "device": {...}}`.
+
+The kNN column is cut from bench.py's 10M vectors to 2,000,000: at 10M a
+single run would hold three 30 GB host copies of the column, assign 10M
+rows to 1024 k-means centroids on the host and upload a 15 GB dense
+mirror. bench.py's shapes are kept: 768 dims, cosine, k = 10, 256 queries.
 
 Any failed check raises: the script then exits nonzero and prints no
 result. Without CUDA, or without the package beside it, it exits 2.
@@ -86,6 +111,11 @@ WIDE_LADDER = f"1024,4096,16384,{COLD_DF}"
 # counted separately per route, count only the fallbacks that
 # fallback_explained() does not explain from exact scores.
 MAX_CERT_FALLBACK_SHARE = 0.02
+# queries of each config-1 batch held against the host-exact tier (the DSL
+# bodies are held in full): the hold is host work, about 0.6 s a query on
+# the chip machine's 8 cores, and the cut keeps the whole run, kNN phase
+# included, under half its time limit
+HOLD_PER_BATCH = 80
 # H100 SXM published peaks (NVIDIA datasheet): bytes/s, int8 op/s,
 # f32 op/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -458,7 +488,8 @@ def default_ladder(fp, n_docs, batch, held):
     st = eng.stats
     require(not fault_log and st["health_fallback_queries"] == 0,
             f"default ladder: fault records {fault_log}")
-    require(np.array_equal(s, held[0]) and np.array_equal(o, held[1]),
+    m = len(held[0])
+    require(np.array_equal(s[:m], held[0]) and np.array_equal(o[:m], held[1]),
             "default ladder: answers differ from the host-exact tier")
     out = {"widths": "1024,4096,16384", "queries": len(batch),
            "batch_latency_s": lat, "sparse_queries": st["sparse_queries"],
@@ -905,17 +936,18 @@ BOOL_STATS = ("bool_device", "bool_host", "fallbacks", "bitset_gallop",
 
 
 @contextlib.contextmanager
-def bitset_route(flag: str):
-    """ES_TPU_BITSET set to flag while the block runs, then restored."""
-    saved = os.environ.get("ES_TPU_BITSET")
-    os.environ["ES_TPU_BITSET"] = flag
+def env_set(name: str, value: str):
+    """Environment variable `name` set to value while the block runs, then
+    restored."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if saved is None:
-            os.environ.pop("ES_TPU_BITSET", None)
+            os.environ.pop(name, None)
         else:
-            os.environ["ES_TPU_BITSET"] = saved
+            os.environ[name] = saved
 
 
 def serve_bool_routes(eng, turbo, fp, n_docs, batches):
@@ -929,7 +961,7 @@ def serve_bool_routes(eng, turbo, fp, n_docs, batches):
         st0 = dict(eng.stats)
         fault_log = []
         answers, lat = [], []
-        with bitset_route(flag), \
+        with env_set("ES_TPU_BITSET", flag), \
                 record_fallbacks(turbo, flag == "1") as fell:
             kernels.reset_launches()
             for specs in batches:
@@ -1002,7 +1034,7 @@ def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper):
     # device chunk ----
     bit_l = routes["bitset"][1]["launches"]
     cov_l = routes["coverage"][1]["launches"]
-    with bitset_route("1"):
+    with env_set("ES_TPU_BITSET", "1"):
         resolved = [turbo._resolve_bool(q) for q in bool_qs]
         dev_idx, host_idx = turbo._bool_routes(resolved)
         dev_idx, _ = turbo._gallop_routes(resolved, dev_idx, host_idx)
@@ -1099,7 +1131,548 @@ def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper):
     return rows, report, k3_bool
 
 
-def run(n_docs: int, n_batches: int, batch: int) -> dict:
+# ---------------------------------------------------------------------------
+# quantized kNN serving (BASELINE config 4, cut to 2M vectors)
+# ---------------------------------------------------------------------------
+
+KNN_DOCS = 2_000_000
+KNN_DIMS = 768
+KNN_PARTS = 4          # the stacked engine: a 4-shard kNN index on one card
+KNN_QUERIES = 256
+KNN_PLANTED = 128      # the first 128 queries get near-duplicate rows
+KNN_DUPS = 16
+KNN_FILTER_SHARES = (0.5, 0.02)
+KNN_NPROBE = 24
+KNN_RECALL_SAMPLE = 16  # planted and Gaussian queries each, held to f32
+MIN_RECALL = 0.99
+# An f32 sum of 768 exact products (bf16 x bf16 fits f32) taken in any order
+# lies within gamma_767 * sum|q_i v_i| of the exact sum (Higham, Accuracy and
+# Stability of Numerical Algorithms, eq. 3.5). The int8 route's rescore gemm
+# and the dense route's gemm may sum in different orders, so their cosine
+# scores (1 + dot/|q|)/2 differ by at most gamma_767 * |q_bf16| |v_bf16| /
+# |q| (Cauchy-Schwarz; unit rows, |v_bf16| <= 1 + 2^-8) plus the transform's
+# roundings, 4 ulp of a score below 2.
+KNN_GAMMA = 767 * 2.0 ** -24 / (1 - 767 * 2.0 ** -24)
+KNN_COUNTERS = ("knn_queries", "knn_int8_dispatches", "knn_rescore_docs",
+                "knn_host_fallbacks", "knn_uncertified", "knn_bytes")
+KNN_MAPPINGS = {"properties": {"tag": {"type": "keyword"},
+                               "vec": {"type": "dense_vector",
+                                       "dims": KNN_DIMS}}}
+
+
+class _KnnSeg:
+    """The partition shape select_knn_engine and _knn_filter_mask read."""
+
+    def __init__(self, n_docs, offset, postings, vectors):
+        self.n_docs = n_docs
+        self.offset = offset           # first global row of the partition
+        self.postings = postings
+        self.vectors = vectors
+
+
+def knn_data(n: int):
+    """The config-4 column as bench.py draws it (default_rng(7), 768-d
+    standard normal f32, cosine) and its 256 queries (bench.py's next draw
+    from the same generator). Each of the first KNN_PLANTED queries gets
+    KNN_DUPS near-duplicates, q + 0.33 |q| / sqrt(768) * noise (cosine about
+    0.95), written over seeded distinct rows. A keyword tag per row (0 green,
+    1 red) for the filtered DSL bodies."""
+    krng = np.random.default_rng(7)
+    vec = krng.standard_normal((n, KNN_DIMS), dtype=np.float32)
+    qs = krng.standard_normal((KNN_QUERIES, KNN_DIMS)).astype(np.float32)
+    prng = np.random.default_rng(8)
+    at = prng.choice(n, size=(KNN_PLANTED, KNN_DUPS), replace=False)
+    for i in range(KNN_PLANTED):
+        noise = prng.standard_normal((KNN_DUPS, KNN_DIMS), dtype=np.float32)
+        scale = np.float32(0.33 * np.linalg.norm(qs[i]) / np.sqrt(KNN_DIMS))
+        vec[at[i]] = qs[i] + scale * noise
+    norms = np.concatenate([np.linalg.norm(vec[o:o + (1 << 18)], axis=1)
+                            for o in range(0, n, 1 << 18)]).astype(np.float32)
+    tags = np.random.default_rng(9).integers(0, 2, size=n)
+    return vec, norms, qs, tags
+
+
+def knn_segments(vec, norms, tags, n_parts: int):
+    """n_parts equal partitions of the column, each with its tag postings
+    (built with the port's build_field_postings) and its VectorColumn."""
+    from elasticsearch_tpu_torch.index.segment import (
+        VectorColumn, build_field_postings,
+    )
+
+    n = len(vec)
+    step = -(-n // n_parts)
+    segs = []
+    for off in range(0, n, step):
+        m = min(step, n - off)
+        fp = build_field_postings("tag", np.ones(m, np.int64),
+                                  np.arange(m, dtype=np.int64),
+                                  tags[off:off + m], ["green", "red"])
+        col = VectorColumn(vec[off:off + m], norms[off:off + m],
+                           np.ones(m, bool), KNN_DIMS, "cosine")
+        segs.append(_KnnSeg(m, off, {"tag": fp}, {"vec": col}))
+    return segs
+
+
+def knn_bodies(qs):
+    """8 `knn` DSL bodies (4 filtered on the keyword tag) with the global-row
+    predicate each filter must select, and two bodies extract_knn_plan must
+    decline (hybrid query + knn, boost != 1)."""
+    def vec(i):
+        return [float(x) for x in qs[i]]
+
+    red, green = (lambda t: t == 1), (lambda t: t == 0)
+    bodies = [
+        ({"knn": {"field": "vec", "query_vector": vec(0), "k": 10}}, None),
+        ({"knn": {"field": "vec", "query_vector": vec(128), "k": 10,
+                  "num_candidates": 100}}, None),
+        ({"knn": [{"field": "vec", "query_vector": vec(1), "k": 5}]}, None),
+        ({"knn": {"field": "vec", "query_vector": vec(129), "k": 20},
+          "size": 20}, None),
+        ({"knn": {"field": "vec", "query_vector": vec(2), "k": 10,
+                  "filter": {"term": {"tag": "red"}}}}, red),
+        ({"knn": {"field": "vec", "query_vector": vec(130), "k": 10,
+                  "filter": {"bool": {"must": [
+                      {"term": {"tag": "green"}}]}}}}, green),
+        ({"knn": {"field": "vec", "query_vector": vec(3), "k": 10,
+                  "filter": {"bool": {"filter": [
+                      {"terms": {"tag": ["red"]}}]}}}}, red),
+        ({"knn": {"field": "vec", "query_vector": vec(131), "k": 10,
+                  "filter": {"bool": {
+                      "must": [{"terms": {"tag": ["red", "green"]}}],
+                      "must_not": [{"term": {"tag": "red"}}]}}}}, green),
+    ]
+    declined = [
+        {"query": {"term": {"tag": "red"}},
+         "knn": {"field": "vec", "query_vector": vec(0), "k": 10}},
+        {"knn": {"field": "vec", "query_vector": vec(0), "k": 10,
+                 "boost": 2.0}},
+    ]
+    return bodies, declined
+
+
+@contextlib.contextmanager
+def knn_spy():
+    """Records, while the block runs, each rescore's certificate [QC] (one
+    per chunk and partition, in call order) and each device merge's
+    per-partition inputs, by wrapping the engine module's _rescore and
+    merge_partition_topk (the engine calls both through module globals)."""
+    from elasticsearch_tpu_torch.parallel import knn as knn_mod
+
+    rec = {"cert": [], "merge": []}
+    rescore, merge = knn_mod._rescore, knn_mod.merge_partition_topk
+
+    def rescore_spy(*a, **kw):
+        out = rescore(*a, **kw)
+        rec["cert"].append(out[2].cpu().numpy())
+        return out
+
+    def merge_spy(s, o, k, **kw):
+        rec["merge"].append((np.array(s), np.array(o), k))
+        return merge(s, o, k, **kw)
+
+    knn_mod._rescore, knn_mod.merge_partition_topk = rescore_spy, merge_spy
+    try:
+        yield rec
+    finally:
+        knn_mod._rescore, knn_mod.merge_partition_topk = rescore, merge
+
+
+def knn_score_bound(qs) -> np.ndarray:
+    """Per query, the most two f32 summation orders can move a cosine score
+    (KNN_GAMMA above)."""
+    import torch
+
+    qb = torch.from_numpy(qs).to(torch.bfloat16).double().numpy()
+    qn = np.linalg.norm(qs.astype(np.float64), axis=1)
+    return (KNN_GAMMA * np.linalg.norm(qb, axis=1) * (1 + 2.0 ** -8)
+            / np.maximum(qn, 1e-20) + 4 * 2.0 ** -23)
+
+
+def knn_agree(a, b, bound, label) -> dict:
+    """The int8 route's answers `a` against the dense route's `b`: the same
+    (partition, ord) in the same order, except a near-tie whose two docs'
+    scores lie within the query's bound (counted as a swap); every score
+    within the bound. Returns the counts."""
+    (sa, pa, oa), (sb, pb, ob) = a, b
+    require(sa.shape == sb.shape and np.isfinite(sa).all(),
+            f"{label}: result shapes or finiteness")
+    require(np.array_equal(sa > 0, sb > 0), f"{label}: empty slots differ")
+    swaps, cells, worst = 0, 0, 0.0
+    for qi in range(len(sa)):
+        d = np.abs(sa[qi].astype(np.float64) - sb[qi])
+        require((d <= bound[qi]).all(),
+                f"{label}: query {qi} scores differ by {d.max()} > "
+                f"{bound[qi]}")
+        if not (np.array_equal(pa[qi], pb[qi])
+                and np.array_equal(oa[qi], ob[qi])):
+            swaps += 1
+        cells += int((d > 0).sum())
+        worst = max(worst, float(d.max()))
+    return {"queries": len(sa), "swaps": swaps, "score_cells_differing": cells,
+            "score_cells": int(sa.size), "max_score_diff": worst,
+            "bound_max": float(bound.max())}
+
+
+def knn_serve(eng, segs, qs, masks, tags, mapper, label):
+    """The kNN batches on one engine, every launch count set to 0 just before
+    and read just after: the 256 queries on the int8 route (twice: the first
+    call uploads the dense mirror the uncertified queries re-run on), the
+    same on the dense route (ES_TPU_KNN_INT8=0), the 256 filtered queries on
+    both routes (K9's masked variant), the DSL bodies through
+    extract_knn_plan on both routes, and one int8 batch at
+    ES_TPU_KNN_NPROBE=24. Holds the int8 answers to the dense ones."""
+    from elasticsearch_tpu_torch.parallel import kernels
+    from elasticsearch_tpu_torch.parallel import knn as knn_mod
+    from elasticsearch_tpu_torch.search.serving import (
+        _knn_filter_mask, extract_knn_plan,
+    )
+
+    def parts_of(mask):
+        return [mask[s.offset:s.offset + s.n_docs] for s in segs]
+
+    works = [knn_mod.KnnWork(q) for q in qs]
+    fworks = [knn_mod.KnnWork(q, parts_of(m)) for q, m in zip(qs, masks)]
+    bodies, declined = knn_bodies(qs)
+    for body in declined:
+        require(extract_knn_plan(body, mapper) is None,
+                f"extract_knn_plan accepted {list(body)}")
+    dsl = []
+    for body, pred in bodies:
+        plan = extract_knn_plan(body, mapper)
+        require(plan is not None, f"knn body did not flatten: {body['knn']}")
+        flt = None
+        if pred is not None:
+            flt = [_knn_filter_mask(plan.filter_plan, s) for s in segs]
+            require(np.array_equal(np.concatenate(flt), pred(tags)),
+                    f"filter mask of {body['knn']['filter']} is wrong")
+        dsl.append((knn_mod.KnnWork(np.asarray(plan.vector, np.float32),
+                                    flt), plan.k))
+
+    n0 = knn_mod.knn_node_stats()
+    fault_log, ans, lat = [], {}, {}
+
+    def serve(name, batch):
+        t = time.time()
+        ans[name] = eng.search_many([batch], k=K, fault_log=fault_log)[0]
+        lat[name] = time.time() - t
+
+    kernels.reset_launches()
+    with knn_spy() as spy:
+        serve("int8", works)
+        certs = [c[:len(qs)] for c in spy["cert"]]
+        serve("int8_warm", works)
+        with env_set("ES_TPU_KNN_INT8", "0"):
+            serve("dense", works)
+        serve("filtered", fworks)
+        with env_set("ES_TPU_KNN_INT8", "0"):
+            serve("filtered_dense", fworks)
+        for route, flag in (("dsl", "1"), ("dsl_dense", "0")):
+            with env_set("ES_TPU_KNN_INT8", flag):
+                t = time.time()
+                ans[route] = [eng.search_many([[w]], k=kk,
+                                              fault_log=fault_log)[0]
+                              for w, kk in dsl]
+                lat[route] = time.time() - t
+        with env_set("ES_TPU_KNN_NPROBE", str(KNN_NPROBE)):
+            serve("nprobe", works)
+        merges = spy["merge"]
+    launches = dict(kernels.LAUNCHES)
+    n1 = knn_mod.knn_node_stats()
+    d = {c: n1[c] - n0[c] for c in KNN_COUNTERS}
+    log(f"knn {label}: latencies {lat}; launches {launches}; counters {d}")
+    require(not fault_log, f"knn {label}: fault records {fault_log}")
+    require(d["knn_host_fallbacks"] == 0,
+            f"knn {label}: {d['knn_host_fallbacks']} host fallbacks")
+    need = ["knn_int8_window_topc"] + (["merge_topk"] if eng.S > 1 else [])
+    for name in need:
+        require(launches[name] > 0,
+                f"knn {label}: {name} never launched: {launches}")
+    require(eng._hbm.total_bytes() == eng.hbm_bytes(),
+            f"knn {label}: ledger {eng._hbm.total_bytes()} bytes, engine "
+            f"{eng.hbm_bytes()}")
+
+    bound = knn_score_bound(qs)
+    agree = {"unfiltered": knn_agree(ans["int8"], ans["dense"], bound,
+                                     f"knn {label} unfiltered"),
+             "repeat": knn_agree(ans["int8_warm"], ans["int8"], bound,
+                                 f"knn {label} repeat"),
+             "filtered": knn_agree(ans["filtered"], ans["filtered_dense"],
+                                   bound, f"knn {label} filtered")}
+    qidx = [0, 128, 1, 129, 2, 130, 3, 131]
+    dsl_agree = [knn_agree(a, b, bound[[qi]], f"knn {label} body {j}")
+                 for j, (a, b, qi) in enumerate(zip(ans["dsl"],
+                                                    ans["dsl_dense"], qidx))]
+    agree["dsl"] = {key: sum(x[key] for x in dsl_agree)
+                    for key in ("queries", "swaps", "score_cells_differing")}
+    require((ans["int8"][0] > 0).all(), f"knn {label}: an empty top-10")
+    offs = np.array([s.offset for s in segs], np.int64)
+
+    def rows_of(s, p, o):
+        return (offs[p] + o)[s > 0]
+
+    s, p, o = ans["filtered"]
+    for qi in range(len(qs)):
+        require(masks[qi][rows_of(s[qi], p[qi], o[qi])].all(),
+                f"knn {label}: filtered query {qi} returned a filtered-out "
+                f"row")
+    for (body, pred), (s, p, o) in zip(bodies, ans["dsl"]):
+        if pred is not None:
+            rows = rows_of(s[0], p[0], o[0])
+            require(len(rows) and pred(tags[rows]).all(),
+                    f"knn {label}: body {body['knn']['filter']} returned a "
+                    f"row its filter excludes")
+
+    def recall(got, truth):
+        hit = tot = 0
+        for qi in range(len(qs)):
+            t = {(a, b) for s, a, b in zip(*(x[qi] for x in truth)) if s > 0}
+            g = {(a, b) for s, a, b in zip(*(x[qi] for x in got)) if s > 0}
+            hit += len(t & g)
+            tot += len(t)
+        return hit / max(tot, 1)
+
+    nq = len(qs)
+    unc = np.concatenate([~c[None] for c in certs])          # [calls, Q]
+    rep = {"engine": label, "stats": eng.stats(),
+           "batch_latency_s": lat,
+           "qps": {key: nq / v for key, v in lat.items()
+                   if not key.startswith("dsl")},
+           "launches": launches, "counters": d,
+           "uncertified_share_planted": float(unc[:, :KNN_PLANTED].mean()),
+           "uncertified_share_gaussian": float(unc[:, KNN_PLANTED:].mean()),
+           "agreement": agree,
+           "nprobe": KNN_NPROBE,
+           "nprobe_recall_vs_dense": recall(ans["nprobe"], ans["dense"]),
+           "ledger_bytes": eng._hbm.total_bytes(),
+           "hbm_bytes": eng.hbm_bytes()}
+    log(f"knn {label}: {rep}")
+    return ans, rep, merges, fworks
+
+
+def exact_topk_rows(vec, norms, q_rows, k=K):
+    """bench.py's cpu_knn on a set of queries: rows normalized in f32 on the
+    host, f32 BLAS dots, (1 + dot / |q|) / 2, the top k by (score desc, row
+    asc); a block of rows at a time."""
+    n = len(vec)
+    qn = np.maximum(np.linalg.norm(q_rows, axis=1).astype(np.float32),
+                    np.float32(1e-20))
+    sc = np.empty((len(q_rows), n), np.float32)
+    for o in range(0, n, 1 << 18):
+        vn = vec[o:o + (1 << 18)] / np.maximum(norms[o:o + (1 << 18)],
+                                               np.float32(1e-20))[:, None]
+        sc[:, o:o + len(vn)] = ((1.0 + (vn @ q_rows.T) / qn) / 2.0).T
+    out = []
+    for row in sc:
+        sel = np.argpartition(-row, k)[:k]
+        out.append(sel[np.lexsort((sel, -row[sel]))])
+    return out
+
+
+def check_k9(eng, qs, fworks):
+    """K9 against its plain version on the engine's own first-pass inputs at
+    QC = 256 (every window active at nprobe 0): the unmasked launch and the
+    masked one with the filtered batch's masks, each timed; on the S = 1
+    engine also torch._int_mm of the int8 product alone. Returns
+    {variant: numbers}."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    dev, qc = eng.device, len(qs)
+    qi8, qm = (torch.from_numpy(x).to(dev)
+               for x in eng._quantize_queries(qs))
+    stacked = eng.stats()["fused"] == 1
+    if stacked:
+        q8, meta = eng.d_q8, eng.d_meta
+        act = torch.ones((eng.S, qc, eng.nw), dtype=torch.float32, device=dev)
+        fm = torch.from_numpy(np.stack([eng._filter_mask(i, fworks, qc)
+                                        for i in range(eng.S)])).to(dev)
+    else:
+        q8, meta = eng.d_q8[0], eng.d_meta[0]
+        act = torch.ones((qc, eng.nw), dtype=torch.float32, device=dev)
+        fm = torch.from_numpy(eng._filter_mask(0, fworks, qc)).to(dev)
+    rows = sum(eng.n_docs)
+    out = {}
+    for variant, fmask in (("unmasked", None), ("masked", fm)):
+        res = {}
+        args = (qi8, qm, q8, meta, act, fmask)
+        ms = cuda_ms(lambda: res.__setitem__("k", k.knn_int8_window_topc(
+            *args, similarity="cosine")), 10)
+        plain_ms = cuda_ms(lambda: res.__setitem__(
+            "p", k.knn_int8_window_topc_plain(*args, similarity="cosine")), 1)
+        (ks, kr), (ps, pr) = res["k"], res["p"]
+        err = max(max_abs_err(ks, ps), max_abs_err(kr, pr))
+        require(err == 0.0 and torch.equal(ks, ps) and torch.equal(kr, pr),
+                f"K9 {variant} kernel vs plain: max_abs_err {err}")
+        nbytes = (q8.numel() + meta.numel() * 4 + qi8.numel() + qm.numel() * 4
+                  + act.numel() * 4 + ks.numel() * 8
+                  + (0 if fmask is None else fmask.numel()))
+        b_ms, b_by = bound(nbytes, 2 * qc * KNN_DIMS * rows, PEAK_INT8)
+        out[variant] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "candidates": int(torch.isfinite(ks).sum())}
+        del res
+    out["shape"] = {"QC": qc, "nw": eng.nw, "dimsP": eng.dimsP,
+                    "partitions": eng.S, "rows": rows}
+    if not stacked:
+        b = q8.reshape(-1, eng.dimsP).t()
+        out["library_ms"] = cuda_ms(lambda: torch._int_mm(qi8, b), 5)
+    del fm
+    torch.cuda.empty_cache()
+    log(f"K9 on the {'stacked' if stacked else 'S = 1'} engine: {out}")
+    return out
+
+
+def check_k4(merges, answer, dev):
+    """K4 against its plain version on the stacked engine's first int8
+    merge ([S, Q, k] per-partition top-k laid partition-major as
+    merge_partition_topk lays them), and against the answer the engine
+    returned from it."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    s_all, o_all, kk = merges[0]
+    S, Q, _ = s_all.shape
+    s = torch.from_numpy(s_all).to(dev).permute(1, 0, 2).reshape(
+        Q, S * kk).contiguous()
+    o = torch.from_numpy(o_all).to(dev).permute(1, 0, 2).reshape(
+        Q, S * kk).contiguous()
+    res = {}
+    ms = cuda_ms(lambda: res.__setitem__("k", k.merge_topk(s, o, k=kk)), 20)
+    plain_ms = cuda_ms(lambda: res.__setitem__(
+        "p", k.merge_topk_plain(s, o, k=kk)), 3)
+    err = max(max_abs_err(a, b) for a, b in zip(res["k"], res["p"]))
+    require(err == 0.0 and all(torch.equal(a, b)
+                               for a, b in zip(res["k"], res["p"])),
+            f"K4 kernel vs plain: max_abs_err {err}")
+    require(all(np.array_equal(a.cpu().numpy(), b)
+                for a, b in zip(res["k"], answer)),
+            "K4: the rerun differs from the engine's merged answer")
+    b_ms, b_by = bound(s.numel() * 8 + Q * kk * 12, Q * kk * S * kk * 3,
+                       PEAK_F32)
+    return {"name": "merge_topk", "route": "cuda",
+            "source": "elasticsearch_tpu_torch/parallel/csrc/merge_topk.cu",
+            "replaces": "elasticsearch_tpu/parallel/kernels.py:654",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library_note": "no single PyTorch call merges by (score desc, "
+                            "partition asc, ord asc)",
+            "shape": {"Q": Q, "S": S, "k": kk}}
+
+
+def knn_phase(n: int, device="cuda") -> tuple:
+    """Config 4 (quantized kNN, cosine, 768-d) on an S = 1 engine, then,
+    after freeing it, on a stacked S = 4 engine over the same rows; each
+    served as knn_serve says. Holds recall@10 of the S = 1 int8 answers
+    against exact f32 scores, the stacked engine's planted answers against
+    the S = 1 engine's, and K9 and K4 against their plain versions. Returns
+    (kernel rows, report)."""
+    import gc
+
+    import torch
+
+    from elasticsearch_tpu_torch.mapper import MapperService
+    from elasticsearch_tpu_torch.parallel import knn as knn_mod
+    from elasticsearch_tpu_torch.search.serving import select_knn_engine
+
+    if n < KNN_DOCS:
+        log(f"CUT: kNN column cut from {KNN_DOCS} to {n} vectors")
+    t = time.time()
+    vec, norms, qs, tags = knn_data(n)
+    data_s = time.time() - t
+    frng = np.random.default_rng(10)
+    masks = [frng.random(n, dtype=np.float32)
+             < KNN_FILTER_SHARES[i % len(KNN_FILTER_SHARES)]
+             for i in range(KNN_QUERIES)]
+    mapper = MapperService(KNN_MAPPINGS)
+    log(f"knn data: {n} x {KNN_DIMS} in {data_s:.1f}s")
+
+    report, k9, ans1 = {"vectors": n, "dims": KNN_DIMS, "cut": n < KNN_DOCS,
+                        "data_s": data_s}, {}, None
+    k4 = None
+    for n_parts in (1, KNN_PARTS):
+        label = f"S={n_parts}"
+        segs = knn_segments(vec, norms, tags, n_parts)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        eng = select_knn_engine(segs, "vec", device=device)
+        require(eng is not None, f"knn {label}: no engine selected")
+        eng.extend_qc_sizes([KNN_QUERIES, KNN_QUERIES // 2])
+        torch.cuda.synchronize()
+        build_s = time.time() - t
+        require(eng.stats()["fused"] == int(n_parts > 1),
+                f"knn {label}: stacked {eng.stats()['fused']}")
+        ans, rep, merges, fworks = knn_serve(eng, segs, qs, masks, tags,
+                                             mapper, label)
+        rep["build_s"] = build_s
+        rep["node_stats"] = knn_mod.knn_node_stats()
+        rep["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        k9[label] = check_k9(eng, qs, fworks)
+        if n_parts == 1:
+            ans1 = ans
+            pick = (list(range(KNN_RECALL_SAMPLE))
+                    + list(range(KNN_PLANTED, KNN_PLANTED + KNN_RECALL_SAMPLE)))
+            t = time.time()
+            truth = exact_topk_rows(vec, norms, qs[pick])
+            hits = [len(set(tr.tolist())
+                        & set(ans["int8"][2][qi][ans["int8"][0][qi] > 0]
+                              .tolist())) / K for tr, qi in zip(truth, pick)]
+            rep["recall_at_10"] = float(np.mean(hits))
+            rep["recall_at_10_planted"] = float(np.mean(hits[:len(hits) // 2]))
+            rep["recall_at_10_gaussian"] = float(np.mean(hits[len(hits) // 2:]))
+            log(f"knn recall@10 against exact f32 on {len(pick)} queries: "
+                f"{rep['recall_at_10']} ({time.time() - t:.1f}s)")
+            require(rep["recall_at_10"] >= MIN_RECALL,
+                    f"knn recall@10 {rep['recall_at_10']} < {MIN_RECALL}")
+        else:
+            k4 = check_k4(merges, ans["int8"], eng.device)
+            k4["launches"] = rep["launches"]["merge_topk"]
+            s4, p4, o4 = ans["int8"]
+            s1, _, o1 = ans1["int8"]
+            offs = np.array([s.offset for s in segs], np.int64)
+            rows4 = np.where(s4 > 0, offs[p4] + o4, 0)
+            pl = slice(0, KNN_PLANTED)
+            require(np.array_equal(rows4[pl], o1[pl]),
+                    "knn: the stacked engine's planted answers differ from "
+                    "the S = 1 engine's")
+            d = np.abs(s4[pl].astype(np.float64) - s1[pl])
+            bnd = knn_score_bound(qs)[pl]
+            require((d <= bnd[:, None]).all(),
+                    "knn: stacked scores beyond the bound of S = 1's")
+            rep["planted_vs_s1"] = {"queries": KNN_PLANTED,
+                                    "score_cells_differing":
+                                        int((d > 0).sum())}
+        report[label] = rep
+        del eng, segs, ans, merges, fworks
+        gc.collect()
+        torch.cuda.empty_cache()
+    one, four = k9["S=1"], k9[f"S={KNN_PARTS}"]
+    launches = (report["S=1"]["launches"]["knn_int8_window_topc"]
+                + report[f"S={KNN_PARTS}"]["launches"]["knn_int8_window_topc"])
+    row = {"name": "knn_int8_window_topc", "route": "cuda",
+           "source": "elasticsearch_tpu_torch/parallel/csrc/knn_window_topc.cu",
+           "replaces": "elasticsearch_tpu/parallel/kernels.py:1210",
+           "launches": launches,
+           "max_abs_err": max(v[x]["max_abs_err"] for v in (one, four)
+                              for x in ("unmasked", "masked")),
+           "ms": one["unmasked"]["ms"], "plain_ms": one["unmasked"]["plain_ms"],
+           "bound_ms": one["unmasked"]["bound_ms"],
+           "bound_by": one["unmasked"]["bound_by"],
+           "library_ms": one["library_ms"],
+           "library_note": "torch._int_mm of the int8 product alone "
+                           "[256, 768] x [768, rows]; no call adds the "
+                           "epilogue and the window top-32",
+           "shape": one["shape"], "masked": one["masked"],
+           "stacked": {"unmasked": four["unmasked"],
+                       "masked": four["masked"], "shape": four["shape"]},
+           "launches_by_engine": {
+               lbl: report[lbl]["launches"]["knn_int8_window_topc"]
+               for lbl in ("S=1", f"S={KNN_PARTS}")}}
+    return [row, k4], report
+
+
+def run(n_docs: int, n_batches: int, batch: int, knn_docs: int) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import hbm_ledger
@@ -1181,25 +1754,27 @@ def run(n_docs: int, n_batches: int, batch: int) -> dict:
             f"{MAX_CERT_FALLBACK_SHARE} of {n_main} queries")
     require(st["sparse_queries"] > 0, "no query took the sparse tier")
 
-    # ---- hold: every top-10 against the host-exact tier ----
+    # ---- hold: top-10s against the host-exact tier (the DSL bodies in
+    # full, each batch on its first HOLD_PER_BATCH queries) ----
     t = time.time()
     n_q = 0
     held = []
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
-        for b, (s, p, o) in zip(batches + [dsl], results):
+        for bi, (b, (s, p, o)) in enumerate(zip(batches + [dsl], results)):
             require(s.shape == (len(b), K) and np.isfinite(s).all(),
                     "result shape or finiteness")
             require(not p.any(), "partition ids on a one-partition engine")
-            parts = [b[i:i + 16] for i in range(0, len(b), 16)]
+            m = len(b) if bi == len(batches) else min(len(b), HOLD_PER_BATCH)
+            parts = [b[i:i + 16] for i in range(0, m, 16)]
             host = list(ex.map(lambda q: turbo.search_many_host([q], k=K)[0],
                                parts))
             hs = np.concatenate([h[0] for h in host])
             ho = np.concatenate([h[1] for h in host])
             ho[hs <= 0] = 0
-            require(np.array_equal(s, hs) and np.array_equal(o, ho),
+            require(np.array_equal(s[:m], hs) and np.array_equal(o[:m], ho),
                     "device route differs from the host-exact tier")
             held.append((hs, ho))
-            n_q += len(b)
+            n_q += m
     log(f"host-exact hold: {n_q} queries bitwise equal in "
         f"{time.time() - t:.1f}s")
     for qi in range(4):
@@ -1239,11 +1814,20 @@ def run(n_docs: int, n_batches: int, batch: int) -> dict:
     torch.cuda.empty_cache()
     del tokens, bounds
     default = default_ladder(fp, n_docs, batches[0], held[0])
+    del fp
+    torch.cuda.empty_cache()
+
+    # ---- quantized kNN (config 4) on S = 1 and stacked S = 4 ----
+    t = time.time()
+    knn_rows, knn_report = knn_phase(knn_docs)
+    knn_report["phase_s"] = time.time() - t
+    rows += knn_rows
 
     serving = {"docs": n_docs, "cut": n_docs < FULL_DOCS,
                "index_build_s": index_s,
                "sparse_widths": WIDE_LADDER,
-               "queries": n_q, "batch_latency_s": lat,
+               "queries": n_main, "held_queries": n_q,
+               "batch_latency_s": lat,
                "qps_per_batch": [len(b) / x for b, x in
                                  zip(batches + [dsl], lat)],
                "prebuild_s": prebuild_s, "columns": n_cols,
@@ -1252,6 +1836,7 @@ def run(n_docs: int, n_batches: int, batch: int) -> dict:
                "k3_launches_per_batch": k3_per,
                "default_ladder": default,
                "bool_and_phrase": bool_report,
+               "knn": knn_report,
                "hbm_ledger": ledger,
                "kernel_build_s": build_s,
                "peak_device_bytes": peak}
@@ -1264,6 +1849,8 @@ def main(argv=None) -> int:
                     help="index size (default: one 8M-doc shard)")
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--knn-docs", type=int, default=KNN_DOCS,
+                    help="kNN column size (default: 2M 768-d vectors)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1279,7 +1866,7 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
         return 2
-    out = run(args.docs, args.batches, args.batch)
+    out = run(args.docs, args.batches, args.batch, args.knn_docs)
     print(json.dumps({"serving": out["serving"]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -23,6 +23,7 @@ _CHURN_BYTES = [0]                        # guarded by: _LOCK
 _ZEROED_TILES = [0]                       # guarded by: _LOCK
 _PROTECT_PEAK = [0.0]                     # guarded by: _LOCK
 _SEEN: set = set()                        # guarded by: _LOCK
+_PRIMED: set = set()                      # guarded by: _LOCK
 _DISPATCH_EVENTS: List[dict] = []         # guarded by: _LOCK
 _EVENT_CAP = 256
 _ROUTING_LOG: List[dict] = []             # guarded by: _LOCK
@@ -101,6 +102,14 @@ def register_engine(obj: object, kind: str) -> LedgerHandle:
     return LedgerHandle(key, label)
 
 
+def note_primed(kind: str, sizes) -> None:
+    """Record the dispatch widths an engine was primed for
+    (extend_qc_sizes)."""
+    with _LOCK:
+        for s in sizes:
+            _PRIMED.add((kind, int(s)))
+
+
 def note_dispatch(kind: str, shape) -> bool:
     """Count one dispatch at (kind, shape); True for the first one."""
     with _LOCK:
@@ -146,5 +155,6 @@ def hbm_stats() -> dict:
             "engines": {e.label: {"kind": e.kind, "regions": dict(e.regions)}
                         for e in _ENGINES.values()},
             "first_dispatches": [dict(e) for e in _DISPATCH_EVENTS],
+            "primed_shapes": len(_PRIMED),
             "routing": [dict(r) for r in _ROUTING_LOG],
         }

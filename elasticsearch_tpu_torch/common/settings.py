@@ -96,3 +96,18 @@ declare_knob("ES_TPU_SPARSE_WIDTHS", "str", "1024,4096,16384",
              "Comma-separated slice-width ladder for eager sparse cold-"
              "term slices (each rung rounds up to a 1024-posting granule; "
              "a term uses the smallest rung >= its df)")
+declare_knob("ES_TPU_KNN_INT8", "flag", True,
+             "Serve KnnEngine first passes from the int8-quantized shards "
+             "(exact f32 rescore restores bit-identity); off = the f32 "
+             "brute-force path verbatim (A/B reference)")
+declare_knob("ES_TPU_KNN_NPROBE", "int", 0,
+             "IVF coarse-pruning probe count for KnnEngine first passes: "
+             "score only docs assigned to the nprobe nearest k-means "
+             "centroids (0 = exact, no pruning)")
+declare_knob("ES_TPU_KNN_RESCORE_MULT", "int", 4,
+             "Candidate over-fetch factor for the kNN exact rescore: the "
+             "first pass keeps k*mult candidates per (query, partition) "
+             "before the f32 rescore picks the final k")
+declare_knob("ES_TPU_FORCE_KNN", "flag", False,
+             "'1' forces KnnEngine serving eligibility off-TPU "
+             "(interpret-mode differential tests)")

@@ -1,7 +1,7 @@
 """Block postings for one inverted field (the port's copy of `FieldPostings`,
 `tf_at` and `build_field_postings` from elasticsearch_tpu/index/segment.py,
 plus `postings_from_arrays`, which carries an index built by the reference
-across to the port).
+across to the port), and the `VectorColumn` of a dense_vector field.
 
 Layout (as in the reference): all of a field's postings concatenated as
 [n_blocks, 128] (doc-id, tf) host arrays plus per-term (block_start,
@@ -51,6 +51,17 @@ class FieldPostings:
 
     def ord(self, term: str) -> int:
         return self.term_to_ord.get(term, -1)
+
+
+@dataclass
+class VectorColumn:
+    """One dense_vector field of a partition (KnnEngine's input)."""
+
+    vectors: np.ndarray                 # [n_docs, dims] f32
+    norms: np.ndarray                   # [n_docs] f32
+    exists: np.ndarray                  # [n_docs] bool
+    dims: int
+    similarity: str
 
 
 def postings_from_arrays(arrays: Mapping[str, np.ndarray],

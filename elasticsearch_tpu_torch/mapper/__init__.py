@@ -1,10 +1,11 @@
-"""Field mappings (the port's copy of the text/keyword part of
-elasticsearch_tpu/mapper)."""
+"""Field mappings (the port's copy of the text, keyword and dense_vector
+part of elasticsearch_tpu/mapper)."""
 
 from elasticsearch_tpu_torch.mapper.field_types import (
-    FieldType, KeywordFieldType, TextFieldType, build_field_type,
+    DenseVectorFieldType, FieldType, KeywordFieldType, TextFieldType,
+    build_field_type,
 )
 from elasticsearch_tpu_torch.mapper.mapper_service import MapperService
 
-__all__ = ["FieldType", "KeywordFieldType", "TextFieldType",
-           "build_field_type", "MapperService"]
+__all__ = ["DenseVectorFieldType", "FieldType", "KeywordFieldType",
+           "TextFieldType", "build_field_type", "MapperService"]

@@ -1,9 +1,10 @@
-"""Field types the BM25 serving path reads (the port's copy of the text and
-keyword types of elasticsearch_tpu/mapper/field_types.py, without document
-parsing). Other field families are not ported yet: `build_field_type`
-rejects them."""
+"""Field types the serving paths read (the port's copy of the text, keyword
+and dense_vector types of elasticsearch_tpu/mapper/field_types.py). Other
+field families are not ported yet: `build_field_type` rejects them."""
 
 from __future__ import annotations
+
+import numpy as np
 
 from elasticsearch_tpu_torch.common.errors import MapperParsingError
 
@@ -11,7 +12,7 @@ from elasticsearch_tpu_torch.common.errors import MapperParsingError
 class FieldType:
     """Base field type. `family` drives segment storage layout."""
 
-    family = "none"  # inverted | keyword
+    family = "none"  # inverted | keyword | vector
 
     def __init__(self, name: str, params: dict):
         self.name = name
@@ -31,7 +32,35 @@ class KeywordFieldType(FieldType):
     family = "keyword"
 
 
-_TYPES = {"text": TextFieldType, "keyword": KeywordFieldType}
+class DenseVectorFieldType(FieldType):
+    """Dense float vectors as rows of a per-segment [n_docs, dims] matrix
+    (max 4096 dims)."""
+
+    family = "vector"
+    searchable = False
+
+    def __init__(self, name: str, params: dict):
+        super().__init__(name, params)
+        self.dims = int(params.get("dims", 0))
+        if not (0 < self.dims <= 4096):
+            raise MapperParsingError(
+                f"[dims] must be in [1, 4096] for field [{self.name}]")
+        self.similarity = params.get("similarity", "cosine")
+
+    def doc_value(self, value):
+        arr = np.asarray(value, dtype=np.float32)
+        if arr.shape != (self.dims,):
+            raise MapperParsingError(
+                f"The [dims] of field [{self.name}] is [{self.dims}], "
+                f"but the provided vector has [{arr.shape}]")
+        if not np.all(np.isfinite(arr)):
+            raise MapperParsingError(
+                f"Vector for field [{self.name}] contains non-finite values")
+        return arr
+
+
+_TYPES = {"text": TextFieldType, "keyword": KeywordFieldType,
+          "dense_vector": DenseVectorFieldType}
 
 
 def build_field_type(name: str, params: dict) -> FieldType:
@@ -40,4 +69,4 @@ def build_field_type(name: str, params: dict) -> FieldType:
         return _TYPES[t](name, params)
     raise MapperParsingError(
         f"No handler for type [{t}] declared on field [{name}] "
-        f"(the port serves text and keyword fields so far)")
+        f"(the port serves text, keyword and dense_vector fields so far)")

@@ -25,7 +25,7 @@ from elasticsearch_tpu_torch.common.errors import KernelBuildError
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("build_columns", "sweep_rowmax", "sparse_gather",
-           "intersect_bitset")
+           "intersect_bitset", "merge_topk", "knn_window_topc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +45,10 @@ _SIGNATURES = {
                       [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P]),
     "intersect_bitset": ("intersect_bitset", "es_intersect_bitset",
                          [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "merge_topk": ("merge_topk", "es_merge_topk",
+                   [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "knn_int8_window_topc": ("knn_window_topc", "es_knn_int8_window_topc",
+                             [_P] * 8 + [_I, _I, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

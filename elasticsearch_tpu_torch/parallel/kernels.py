@@ -10,6 +10,8 @@ ported paths run:
 * K5 `intersect_bitset` (reference :398) -> csrc/intersect_bitset.cu
 * K6 `sweep_rowmax_bitset` (reference :534) -> csrc/sweep_rowmax.cu
 * K7 `sweep_rowmax_conj` (reference :270) -> csrc/sweep_rowmax.cu
+* K4 `merge_topk` (reference :633) -> csrc/merge_topk.cu
+* K9 `knn_int8_window_topc` (reference :1153) -> csrc/knn_window_topc.cu
 
 Each wrapper checks device, dtype, shape and contiguity (raising TypeError
 or ValueError), then: for tensors on the CPU it runs the plain version
@@ -18,7 +20,9 @@ tensors on a CUDA device it launches the kernel on the current stream,
 checks the launch, and adds one to `LAUNCHES[name]`. It never falls back
 from the kernel to the plain version. The plain versions are torch on any
 device, so `chip_smoke.py` holds each kernel against its plain version on
-the card. Both are bitwise equal to the reference (tests/test_torch_kernels.py).
+the card. Both are bitwise equal to the reference (tests/test_torch_kernels.py);
+K9's float epilogue follows the order in which XLA on the CPU compiles the
+reference kernel, fused multiply-adds included (ROADMAP W11).
 
 `build_columns` updates the column cache in place, where the reference
 donated it; the others allocate their outputs with torch.
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.common.errors import KernelLaunchError
+from elasticsearch_tpu_torch.ops.knn import sqrt_rn
 
 SW = 65536            # docs per superwindow (candidate granularity)
 TILE = 16384          # docs per build tile
@@ -63,10 +68,22 @@ _INV_CS = float(np.float32(1.0 / COLSCALE))
 _CS = float(np.float32(COLSCALE))
 _INV_CS2 = float(np.float32(1.0 / COLSCALE2))
 
+KNN_W = 2048          # docs per kNN window (candidate granularity)
+KNN_CANDW = 32        # candidates kept per (query, window)
+KNN_SIMILARITIES = ("cosine", "dot_product", "l2_norm")
+# K9's epilogue constants: Python floats rounded to f32 as JAX and torch
+# round them (float(np.float32(x)) is exactly the f32 value). XLA folds the
+# dot_product transform's (x + 1e-6) + 1 into x + (1 + 1e-6) in f32.
+_KNN_C0079 = float(np.float32(0.0079))
+_KNN_C105 = float(np.float32(1.05))
+_KNN_C1EM6 = float(np.float32(1e-6))
+_KNN_C1P1EM6 = float(np.float32(1.0) + np.float32(1e-6))
+
 # launches of each CUDA kernel since the last reset (plain runs not counted)
 LAUNCHES: Dict[str, int] = {"build_columns": 0, "sweep_rowmax": 0,
                             "sparse_gather": 0, "intersect_bitset": 0,
-                            "sweep_rowmax_bitset": 0, "sweep_rowmax_conj": 0}
+                            "sweep_rowmax_bitset": 0, "sweep_rowmax_conj": 0,
+                            "merge_topk": 0, "knn_int8_window_topc": 0}
 
 
 def reset_launches() -> None:
@@ -607,3 +624,241 @@ def sparse_gather(coff, cw, ct0, ct1, pool, *, n_tiles: int):
             ct0.data_ptr(), ct1.data_ptr(), n_rc, pool.data_ptr(),
             int(pool.shape[0]), out.data_ptr(), int(n_tiles))
     return out
+
+
+# --------------------------------------------------------------------------
+# K4 partition merge
+# --------------------------------------------------------------------------
+
+
+def merge_topk_plain(scores, ords, *, k: int):
+    """Plain torch K4: the reference's k-step max cascade. Each step takes
+    the largest score, the lowest partition among its lanes, then the
+    lowest ord among those, and clears every lane holding that triple."""
+    dev = scores.device
+    Q, L = scores.shape
+    p = (torch.arange(L, device=dev, dtype=torch.int32) // k)[None, :]
+    s = torch.where(scores > 0, scores, torch.zeros_like(scores))
+    o = ords
+    big = torch.full((), 1 << 30, dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    out_s = torch.zeros((Q, k), dtype=torch.float32, device=dev)
+    out_p = torch.zeros((Q, k), dtype=torch.int32, device=dev)
+    out_o = torch.zeros((Q, k), dtype=torch.int32, device=dev)
+    if L == 0:
+        return out_s, out_p, out_o
+    for j in range(k):
+        m = s.amax(dim=1, keepdim=True)
+        at = (s == m) & (m > 0)
+        pmin = torch.where(at, p, big).amin(dim=1, keepdim=True)
+        at2 = at & (p == pmin)
+        omin = torch.where(at2, o, big).amin(dim=1, keepdim=True)
+        sel = at2 & (o == omin)
+        keep = (m > 0)[:, 0]
+        out_s[:, j] = torch.where(keep, m[:, 0], zero)
+        out_p[:, j] = torch.where(keep, pmin[:, 0], 0)
+        out_o[:, j] = torch.where(keep, omin[:, 0], 0)
+        s = torch.where(sel, zero, s)
+    return out_s, out_p, out_o
+
+
+def merge_topk(scores, ords, *, k: int):
+    """Deterministic merge of per-partition top-k candidate lanes.
+
+    scores [Q, S*k] f32 — lane = partition * k + slot; non-positive lanes
+        are empty and never selected
+    ords   [Q, S*k] i32 — per-partition doc ordinals aligned with scores
+
+    Returns (scores [Q, k] f32, parts [Q, k] i32, ords [Q, k] i32) in
+    (score desc, partition asc, ord asc) order; empty slots are (0, 0, 0).
+    """
+    dev = scores.device
+    _check(scores, "scores", torch.float32, 2, dev)
+    _check(ords, "ords", torch.int32, 2, dev)
+    if ords.shape != scores.shape:
+        raise ValueError(f"ords {tuple(ords.shape)} and scores "
+                         f"{tuple(scores.shape)} differ")
+    Q, L = int(scores.shape[0]), int(scores.shape[1])
+    if k < 1 or L % k:
+        raise ValueError(f"{L} lanes are not whole partitions of k={k}")
+    if not _route(dev):
+        return merge_topk_plain(scores, ords, k=k)
+    if L * 8 > _MERGE_SMEM_MAX:
+        raise ValueError(f"{L} lanes exceed the merge kernel's shared memory")
+    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_p = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    out_o = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    if Q == 0:
+        return out_s, out_p, out_o
+    _launch("merge_topk", dev, scores.data_ptr(), ords.data_ptr(),
+            out_s.data_ptr(), out_p.data_ptr(), out_o.data_ptr(), Q, L, k)
+    return out_s, out_p, out_o
+
+
+_MERGE_SMEM_MAX = 227 * 1024   # a block's shared memory: L scores + L ords
+
+
+# --------------------------------------------------------------------------
+# K9 quantized kNN first pass
+# --------------------------------------------------------------------------
+
+_KNN_WIN_CHUNK = 32   # windows per step of the plain version
+
+
+def _fma(a, b, c):
+    """fmaf(a, b, c) of f32 tensors, correctly rounded: the product is exact
+    in float64, the sum is rounded to odd there (TwoSum gives its error; an
+    inexact even result moves one ulp toward it), and rounding to odd at 53
+    bits then to nearest at 24 is the correct rounding of a*b + c."""
+    p = a.double() * b.double()
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf"))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _knn_opt(dot, qmeta, scale, row_l1, nrm, similarity: str):
+    """K9's epilogue in f32, in the order XLA on the CPU compiles the
+    reference kernel (its optimized HLO, then LLVM contracting each multiply
+    that feeds an add into a fused multiply-add; ROADMAP W11):
+
+        slack    = fma(q5, row_l1, q1*scale); slack = fma(q2*0.0079, nrm, slack)
+        e        = fma(dot, scale*sq, slack*1.05)
+        cosine   = fma(e + 1e-6, q4, 1) * 0.5
+        dot_prod = (e + (1 + 1e-6)) * 0.5
+        l2_norm  = 1 / (1 + sqrt(max(fma(nrm, nrm, q3) - 2*(e + 1e-6), 0)))
+
+    The CUDA kernel computes the same with __fmaf_rn / __fmul_rn /
+    __fadd_rn. dot [QC, ..., W] holds exact integers as f32; the meta rows
+    broadcast against it."""
+    sq, q1, q2, q3, q4, q5 = (qmeta[:, i].view(-1, 1, 1) for i in range(6))
+    slack = _fma(q5, row_l1, q1 * scale)
+    slack = _fma(q2 * _KNN_C0079, nrm, slack)
+    e = _fma(dot, scale * sq, slack * _KNN_C105)
+    if similarity == "cosine":
+        return _fma(e + _KNN_C1EM6, q4, 1.0) * 0.5
+    if similarity == "dot_product":
+        return (e + _KNN_C1P1EM6) * 0.5
+    d2 = torch.clamp(_fma(nrm, nrm, q3) - 2.0 * (e + _KNN_C1EM6), min=0.0)
+    return 1.0 / (1.0 + sqrt_rn(d2))
+
+
+def knn_int8_window_topc_plain(qi8, qmeta, q8, meta, act, fmask=None, *,
+                               similarity: str = "cosine"):
+    """Plain torch K9. The int8 products are summed in float64 (exact: every
+    partial sum is an integer below 2^53), then rounded to f32 as the
+    reference converts its int32 sums; the epilogue is `_knn_opt`, and a
+    stable descending sort per (query, window) keeps the (opt desc, row asc)
+    top KNN_CANDW. A few windows at a time bound the temporaries."""
+    stacked = q8.dim() == 4
+    if not stacked:
+        q8, meta, act = q8[None], meta[None], act[None]
+        fmask = None if fmask is None else fmask[None]
+    dev = q8.device
+    S, nw = int(q8.shape[0]), int(q8.shape[1])
+    qc = int(qi8.shape[0])
+    out_s = torch.empty((S, nw, qc, KNN_CANDW), dtype=torch.float32,
+                        device=dev)
+    out_r = torch.empty((S, nw, qc, KNN_CANDW), dtype=torch.int32,
+                        device=dev)
+    qd = qi8.double()
+    ninf = torch.full((), float("-inf"), dtype=torch.float32, device=dev)
+    for p in range(S):
+        for w0 in range(0, nw, _KNN_WIN_CHUNK):
+            w1 = min(nw, w0 + _KNN_WIN_CHUNK)
+            rows = q8[p, w0:w1].reshape(-1, q8.shape[-1]).double()
+            dot = (qd @ rows.T).float().view(qc, w1 - w0, KNN_W)
+            m = meta[p, :, w0:w1]                       # [4, nwc, W]
+            opt = _knn_opt(dot, qmeta, m[0][None], m[1][None], m[2][None],
+                           similarity)
+            ok = (m[3][None] > 0) & (act[p, :, w0:w1, None] > 0)
+            if fmask is not None:
+                ok = ok & (fmask[p, :, w0:w1] > 0)
+            opt = torch.where(ok, opt, ninf)
+            top, idx = torch.sort(opt, dim=2, descending=True, stable=True)
+            top = top[:, :, :KNN_CANDW]
+            keep = top > float("-inf")
+            wins = torch.arange(w0, w1, dtype=torch.int32, device=dev)
+            r = idx[:, :, :KNN_CANDW].to(torch.int32) + (
+                wins * KNN_W)[None, :, None]
+            out_s[p, w0:w1] = top.permute(1, 0, 2)
+            out_r[p, w0:w1] = torch.where(keep, r, 0).permute(1, 0, 2)
+    if not stacked:
+        return out_s[0], out_r[0]
+    return out_s, out_r
+
+
+def knn_int8_window_topc(qi8, qmeta, q8, meta, act, fmask=None, *,
+                         similarity: str = "cosine"):
+    """kNN first pass over int8-quantized partitions: per 2048-doc window,
+    every doc's OPTIMISTIC score (the exact int8 dot, descaled, plus the
+    tracked quantization slack, pushed through the similarity transform —
+    all three are monotone in the dot) and the window's top KNN_CANDW by
+    (score desc, row asc).
+
+    qi8   [QC, dimsP] i8 — quantized queries, dims zero-padded (dimsP a
+          multiple of 64)
+    qmeta [QC, 8] f32 — 0 sq, 1 0.5*ql1 + dims*sq/4, 2 |q|, 3 |q|^2,
+          4 1/max(|q|, 1e-20), 5 sq/2, rest zero
+    q8    [nw, KNN_W, dimsP] i8 — stored rows DOC-major (the reference
+          keeps [nw, dimsP, KNN_W]; each row's dims are contiguous here,
+          the layout of an int8 tensor-core product)
+    meta  [4, nw, KNN_W] f32 — (scale, row_l1, nrm, okf) per stored row
+    act   [QC, nw] f32 — per-query window activity (IVF probe)
+    fmask [QC, nw, KNN_W] i8 or None — per-query doc filter, stored order
+    Stacked partitions add a leading S axis to q8, meta, act and fmask and
+    to the outputs; qi8 and qmeta are shared.
+
+    Returns (scores [nw, QC, KNN_CANDW] f32, rows [nw, QC, KNN_CANDW] i32):
+    rows are stored-row ids w * KNN_W + lane; empty slots are (-inf, 0).
+    """
+    if similarity not in KNN_SIMILARITIES:
+        raise ValueError(f"unknown similarity [{similarity}]")
+    dev = q8.device
+    stacked = q8.dim() == 4
+    lead = 1 if stacked else 0
+    _check(q8, "q8", torch.int8, 3 + lead, dev)
+    _check(qi8, "qi8", torch.int8, 2, dev)
+    _check(qmeta, "qmeta", torch.float32, 2, dev)
+    _check(meta, "meta", torch.float32, 3 + lead, dev)
+    _check(act, "act", torch.float32, 2 + lead, dev)
+    S = int(q8.shape[0]) if stacked else 1
+    nw, W, dims_p = (int(x) for x in q8.shape[lead:])
+    qc = int(qi8.shape[0])
+    pre = (S,) if stacked else ()
+    if W != KNN_W or dims_p % 64 or dims_p < 64 or nw < 1:
+        raise ValueError(f"q8 shape {tuple(q8.shape)} is not "
+                         f"[..., nw, {KNN_W}, dimsP % 64 == 0]")
+    if qc < 1 or tuple(qi8.shape) != (qc, dims_p):
+        raise ValueError(f"qi8 shape {tuple(qi8.shape)} is not "
+                         f"[QC, {dims_p}]")
+    if tuple(qmeta.shape) != (qc, 8):
+        raise ValueError(f"qmeta shape {tuple(qmeta.shape)} is not [{qc}, 8]")
+    if tuple(meta.shape) != pre + (4, nw, KNN_W):
+        raise ValueError(f"meta shape {tuple(meta.shape)} is not "
+                         f"{pre + (4, nw, KNN_W)}")
+    if tuple(act.shape) != pre + (qc, nw):
+        raise ValueError(f"act shape {tuple(act.shape)} is not "
+                         f"{pre + (qc, nw)}")
+    if fmask is not None:
+        _check(fmask, "fmask", torch.int8, 3 + lead, dev)
+        if tuple(fmask.shape) != pre + (qc, nw, KNN_W):
+            raise ValueError(f"fmask shape {tuple(fmask.shape)} is not "
+                             f"{pre + (qc, nw, KNN_W)}")
+    if not _route(dev):
+        return knn_int8_window_topc_plain(qi8, qmeta, q8, meta, act, fmask,
+                                          similarity=similarity)
+    out_s = torch.empty(pre + (nw, qc, KNN_CANDW), dtype=torch.float32,
+                        device=dev)
+    out_r = torch.empty(pre + (nw, qc, KNN_CANDW), dtype=torch.int32,
+                        device=dev)
+    _launch("knn_int8_window_topc", dev, qi8.data_ptr(), qmeta.data_ptr(),
+            q8.data_ptr(), meta.data_ptr(), act.data_ptr(),
+            0 if fmask is None else fmask.data_ptr(), out_s.data_ptr(),
+            out_r.data_ptr(), qc, dims_p, nw, S,
+            KNN_SIMILARITIES.index(similarity))
+    return out_s, out_r

@@ -1,6 +1,7 @@
 """Stacked per-partition BM25 index state (the port of `StackedBM25` and
 `build_stacked_bm25(device_arrays=False)` from
-elasticsearch_tpu/parallel/spmd.py:68, :114).
+elasticsearch_tpu/parallel/spmd.py:68, :114), and the device partition merge
+(`merge_partition_topk`, spmd.py:509) for partitions stacked on one card.
 
 TurboBM25 builds its own device copies of what it serves from, so the
 port keeps only the host metadata it reads: the per-partition postings,
@@ -15,6 +16,7 @@ from dataclasses import dataclass
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
 from elasticsearch_tpu_torch.index.segment import FieldPostings
 from elasticsearch_tpu_torch.ops import BLOCK
@@ -84,3 +86,33 @@ def build_stacked_bm25(segments: Sequence, field: str,
         postings=fps,
         live_host=live_np,
     )
+
+
+def merge_partition_topk(scores, ords, k: int, *, device=None):
+    """Merge per-partition top-k results on the device with the
+    deterministic (score desc, partition asc, ord asc) tie-break, through
+    the K4 `merge_topk` kernel — the device twin of the host merge, equal to
+    it bit for bit (merging permutes exact f32 values).
+
+    scores [S, Q, k] f32, ords [S, Q, k] i32: host arrays, merged on
+    `device`; a score <= 0 marks an empty slot. Lanes are laid
+    partition-major (lane = partition * k + slot), as the reference's
+    `_partition_merge_program` lays them after its all-gather; stacked
+    partitions share one card, so there is no gather and no f32 packing of
+    ids.
+
+    Returns host (scores [Q, k] f32, parts [Q, k] i32, ords [Q, k] i32);
+    empty output slots are (0, 0, 0)."""
+    from elasticsearch_tpu_torch import device as _device
+    from elasticsearch_tpu_torch.parallel.kernels import merge_topk
+
+    dev = _device.resolve(device)
+    s = torch.as_tensor(scores, dtype=torch.float32, device=dev)
+    o = torch.as_tensor(ords, device=dev).to(torch.int32)
+    S, Q, kk = s.shape
+    if kk != k:
+        raise ValueError(f"per-partition results hold {kk} slots, not k={k}")
+    flat_s = s.permute(1, 0, 2).reshape(Q, S * k).contiguous()
+    flat_o = o.permute(1, 0, 2).reshape(Q, S * k).contiguous()
+    top_s, top_p, top_o = merge_topk(flat_s, flat_o, k=k)
+    return top_s.cpu().numpy(), top_p.cpu().numpy(), top_o.cpu().numpy()

@@ -1,5 +1,6 @@
-"""The serving path's BM25 routes (the port of the `match`, `bool` and
-`match_phrase` routes of elasticsearch_tpu/search/serving.py).
+"""The serving path's BM25 and kNN routes (the port of the `match`,
+`bool`, `match_phrase` and top-level `knn` routes of
+elasticsearch_tpu/search/serving.py).
 
 A request is servable here when it reduces to a flat BM25 plan over one
 text field. `extract_plan` flattens the body exactly as the reference
@@ -12,10 +13,15 @@ Scoring stats are index-global (every partition scores with the same
 idf/avgdl). Results are exact: the same f32 scores as the reference and
 the deterministic (score desc, partition asc, doc asc) order.
 
-Not ported yet (ROADMAP.md): kNN, BlockMax (indices whose columns exceed
-the device budget), the fused S > 1 path and its device merge, the host
-columnar bool executor behind the REST node, ServingSnapshot/ServingContext
-and the REST node above them.
+A kNN-only body (top-level `knn`, no `query`) becomes a `KnnPlan` through
+`extract_knn_plan`; its optional filter flattens in filter context and
+`_knn_filter_mask` turns it into per-partition doc masks. `select_knn_engine`
+builds the KnnEngine over the partitions, stacked when there are several.
+
+Not ported yet (ROADMAP.md): BlockMax (indices whose columns exceed the
+device budget), the fused S > 1 BM25 path, the host columnar bool executor
+behind the REST node, ServingSnapshot/ServingContext and the REST node
+above them.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ _ALLOWED_KEYS = {"query", "size", "from", "_source", "stored_fields",
                  "track_total_hits", "version", "seq_no_primary_term",
                  "timeout", "allow_partial_search_results", "profile"}
 _MAX_K = 1000
+_KNN_ALLOWED_KEYS = (_ALLOWED_KEYS | {"knn"}) - {"query"}
 
 _REJECT_LOCK = threading.Lock()
 _LOGGED_REJECT_TYPES: set = set()  # guarded by: _REJECT_LOCK
@@ -115,6 +122,101 @@ def extract_plan(request: dict, mapper) -> Optional[FlatPlan]:
     if not (plan.is_disjunctive or plan.is_conjunctive):
         return None
     return plan
+
+
+@dataclass
+class KnnPlan:
+    """An eligible top-level `knn` body flattened for KnnEngine serving:
+    the query vector plus an optional filter already reduced to postings
+    operations (the FlatPlan machinery the BM25 sweep uses)."""
+
+    field: str
+    vector: list
+    k: int
+    filter_plan: Optional[FlatPlan] = None
+
+
+def extract_knn_plan(request: dict, mapper) -> Optional[KnnPlan]:
+    """Flatten an eligible kNN-only request body (top-level `knn`, no
+    `query`) into a KnnPlan, or None for the dense executor. The filter
+    clause must reduce to postings operations (term/terms/match in filter
+    context); scored clauses, boosts != 1 and multi-kNN stay dense."""
+    if any(k not in _KNN_ALLOWED_KEYS for k in request):
+        return None
+    spec = request.get("knn")
+    if spec is None or request.get("query") is not None:
+        return None
+    if isinstance(spec, list):
+        if len(spec) != 1:
+            return None
+        spec = spec[0]
+    if not isinstance(spec, dict):
+        return None
+    size = int(request.get("size", 10))
+    from_ = int(request.get("from", 0))
+    if size <= 0 or from_ + size > _MAX_K:
+        return None
+    if float(spec.get("boost", 1.0)) != 1.0:
+        return None
+    field = spec.get("field")
+    vec = spec.get("query_vector")
+    if not field or vec is None:
+        return None
+    ft = mapper.field_type(field)
+    if ft is None or ft.family != "vector":
+        return None
+    # the knn section's k caps the hit count (size only windows into it),
+    # matching the dense executor's top-level-knn semantics
+    k = int(spec.get("k", 10))
+    if k <= 0 or k > _MAX_K:
+        return None
+    fplan = None
+    if spec.get("filter") is not None:
+        try:
+            node = parse_query(spec["filter"])
+            fplan = FlatPlan()
+            _flatten(node, fplan, mapper, ctx="filter", weight=1.0)
+        except _Reject:
+            return None
+        except Exception as e:
+            _note_reject_error(e, "extract_knn_plan")
+            return None
+        if fplan.disj or fplan.conj or fplan.should or fplan.phrases:
+            return None          # scored clauses inside filter: dense
+        if not fplan.filters and not fplan.must_not:
+            return None
+    return KnnPlan(field=field, vector=vec, k=k, filter_plan=fplan)
+
+
+def _post_docs(fp, term: str) -> np.ndarray:
+    o = fp.term_to_ord.get(term)
+    if o is None:
+        return np.empty(0, np.int32)
+    return fp.post_doc[int(fp.post_start[o]): int(fp.post_start[o + 1])]
+
+
+def _knn_filter_mask(fplan: FlatPlan, seg) -> np.ndarray:
+    """One partition's filter candidate mask (seg: an object with `n_docs`
+    and a `postings` dict): AND of per-clause postings unions, minus
+    must_not postings — the BM25 sweep's candidate set for the same
+    clauses, reused as the kNN doc filter."""
+    n = seg.n_docs
+    mask = np.ones(n, bool)
+    for f, terms in fplan.filters:
+        fpf = seg.postings.get(f)
+        if fpf is None:
+            return np.zeros(n, bool)
+        m = np.zeros(n, bool)
+        for t in terms:
+            m[_post_docs(fpf, t)] = True
+        mask &= m
+    for f, terms in fplan.must_not:
+        fpf = seg.postings.get(f)
+        if fpf is None:
+            continue
+        for t in terms:
+            mask[_post_docs(fpf, t)] = False
+    return mask
 
 
 def _text_field(plan: FlatPlan, mapper, field: str) -> None:
@@ -547,3 +649,42 @@ def select_bm25_engine(segments, field: str, live_masks=None, *,
             total_docs=total_docs, avgdl=avgdl,
             df_of=lambda t: df_map.get(t, 0), device=dev, **kwargs))
     return TurboEngine(turbos)
+
+
+# --------------------------------------------------------------------------
+# kNN engine selection
+# --------------------------------------------------------------------------
+
+
+def select_knn_engine(segments, field: str, live_masks=None, *,
+                      device=None):
+    """The KnnEngine for these partitions' vector field (objects with
+    `n_docs` and a `vectors` dict of VectorColumn), as the reference's
+    ServingSnapshot._build_knn_engine builds it: None when ineligible (the
+    device is not the card and ES_TPU_FORCE_KNN is unset, no partition holds
+    the field, or the partitions' dims or similarity differ). Partitions
+    without the field get an all-missing stub column, so engine partition
+    indices stay aligned with `segments`. Several partitions stack on the
+    card, where the reference passes its mesh."""
+    from elasticsearch_tpu_torch.index.segment import VectorColumn
+    from elasticsearch_tpu_torch.parallel.knn import KnnEngine
+
+    dev = _device.resolve(device)
+    if dev.type != "cuda" and not knob("ES_TPU_FORCE_KNN"):
+        return None
+    cols = [seg.vectors.get(field) for seg in segments]
+    present = [c for c in cols if c is not None]
+    if not present:
+        return None
+    dims = present[0].dims
+    sim = present[0].similarity
+    if any(c.dims != dims or c.similarity != sim for c in present):
+        return None
+    for i, c in enumerate(cols):
+        if c is None:
+            n = segments[i].n_docs
+            cols[i] = VectorColumn(
+                np.zeros((n, dims), np.float32), np.zeros(n, np.float32),
+                np.zeros(n, bool), dims, sim)
+    return KnnEngine(cols, lives=live_masks, stacked=len(cols) > 1,
+                     device=dev)

@@ -44,10 +44,13 @@ def test_port_imports_without_jax_or_reference():
 
 
 def test_entry_points_default_to_cuda():
+    import numpy as np
     import torch
 
     from elasticsearch_tpu_torch import device
     from elasticsearch_tpu_torch.common.errors import DeviceUnavailableError
+    from elasticsearch_tpu_torch.index.segment import VectorColumn
+    from elasticsearch_tpu_torch.parallel.knn import KnnEngine, build_knn_engine
     from elasticsearch_tpu_torch.parallel.spmd import StackedBM25
     from elasticsearch_tpu_torch.parallel.turbo import TurboBM25
 
@@ -60,3 +63,11 @@ def test_entry_points_default_to_cuda():
         TurboBM25(StackedBM25(field="body", n_shards=1, max_docs=1,
                               doc_counts=[1], avgdl=1.0, total_docs=1,
                               postings=[]))
+    cols = [VectorColumn(np.ones((3, 4), np.float32),
+                         np.full(3, 2.0, np.float32), np.ones(3, bool), 4,
+                         "cosine")] * 2
+    for make in (lambda: KnnEngine(cols[:1]),
+                 lambda: KnnEngine(cols, stacked=True),
+                 lambda: build_knn_engine(cols)):
+        with pytest.raises(DeviceUnavailableError):
+            make()

@@ -7,8 +7,12 @@ their plain torch versions for CPU tensors. K1, K2, the row pick, K3, the
 bitset helpers and K5-K7 must agree bit for bit (tolerance 0): the
 kernels' arithmetic is integer or bitwise, one rounding per step, or sums
 in a fixed order. The reference's uint32 bitsets are compared with the
-port's int32 ones through a numpy view. The CUDA kernels themselves are held
-against the same plain versions on the card by chip_smoke.py.
+port's int32 ones through a numpy view. K9's float epilogue is bitwise too:
+the port follows the order in which XLA on the CPU compiles the reference
+kernel, fused multiply-adds included (ROADMAP W11). K9's rows are stored
+doc-major in the port, so the reference gets them transposed. The CUDA
+kernels themselves are held against the same plain versions on the card by
+chip_smoke.py and tests/test_torch_kernels_cuda.py.
 """
 
 import numpy as np
@@ -17,13 +21,16 @@ import torch
 
 import jax.numpy as jnp
 
+from types import SimpleNamespace
+
 from elasticsearch_tpu.parallel import kernels as ref_k
 from elasticsearch_tpu.parallel import turbo as ref_turbo
+from elasticsearch_tpu.parallel.knn import KnnEngine as RefKnnEngine
 from elasticsearch_tpu_torch.common.errors import KernelLaunchError
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
-    bitset_inputs, clause_slots, conj_inputs, lanes_and_groups, mask_inputs,
-    sparse_inputs, sweep_inputs,
+    bitset_inputs, clause_slots, conj_inputs, knn_inputs, lanes_and_groups,
+    mask_inputs, merge_inputs, sparse_inputs, sweep_inputs,
 )
 
 torch.set_num_threads(1)
@@ -210,3 +217,113 @@ def test_wrappers_reject_bad_inputs():
     # fault containment would serve around on the host tier
     assert not issubclass(KernelLaunchError, RuntimeError)
     assert not issubclass(TypeError, RuntimeError)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("similarity", ["cosine", "dot_product", "l2_norm"])
+def test_knn_int8_window_topc_bitwise(similarity, masked):
+    """K9 over 3 windows with dead rows, an all-dead window, windows left
+    inactive by the probe, exact ties, and (masked) a per-query filter."""
+    qi8, qmeta, q8, meta, act, fmask = knn_inputs(11, qc=8, nw=3, dims=48,
+                                                  masked=masked)
+    want_s, want_r = ref_k.knn_int8_window_topc(
+        jnp.asarray(qi8), jnp.asarray(qmeta),
+        jnp.asarray(np.ascontiguousarray(q8.transpose(0, 2, 1))),
+        jnp.asarray(meta), jnp.asarray(act),
+        None if fmask is None else jnp.asarray(fmask), similarity=similarity)
+    k.reset_launches()
+    got_s, got_r = k.knn_int8_window_topc(
+        _t(qi8), _t(qmeta), _t(q8), _t(meta), _t(act),
+        None if fmask is None else _t(fmask), similarity=similarity)
+    assert k.LAUNCHES["knn_int8_window_topc"] == 0
+    assert got_s.shape == (3, 8, k.KNN_CANDW)
+    assert np.array_equal(got_s.numpy(), np.asarray(want_s))
+    assert np.array_equal(got_r.numpy(), np.asarray(want_r))
+    gs = got_s.numpy()
+    # the all-dead window is empty, others hold candidates, ties tie
+    assert np.isinf(gs[2]).all() and np.isfinite(gs[:2]).any()
+    assert any(len(set(r)) < len(r) for r in gs[:2].reshape(-1, 32))
+
+
+def test_knn_int8_window_topc_stacked_equals_per_partition():
+    """The stacked launch (a partition axis) equals one launch per
+    partition."""
+    qi8, qmeta, q8, meta, act, fmask = knn_inputs(
+        12, qc=5, nw=2, dims=48, masked=True, n_parts=3)
+    got_s, got_r = k.knn_int8_window_topc(
+        _t(qi8), _t(qmeta), _t(q8), _t(meta), _t(act), _t(fmask),
+        similarity="cosine")
+    assert got_s.shape == (3, 2, 5, k.KNN_CANDW)
+    for p in range(3):
+        ps, pr = k.knn_int8_window_topc(
+            _t(qi8), _t(qmeta), _t(q8[p]), _t(meta[p]), _t(act[p]),
+            _t(fmask[p]), similarity="cosine")
+        assert torch.equal(got_s[p], ps) and torch.equal(got_r[p], pr)
+
+
+def test_knn_fma_is_correctly_rounded():
+    """The plain K9's fused multiply-add against long double arithmetic on
+    cases built to sit next to a rounding boundary."""
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal(200_000).astype(np.float32)
+    b = rng.standard_normal(200_000).astype(np.float32)
+    c = (-(a.astype(np.float64) * b)).astype(np.float32)
+    c[::2] *= np.float32(1 + 2 ** -22)
+    c[1::4] = rng.standard_normal(c[1::4].shape).astype(np.float32) * 1e-4
+    ld = np.longdouble
+    want = (a.astype(ld) * b.astype(ld) + c.astype(ld)).astype(np.float32)
+    assert np.finfo(ld).nmant > 53, "needs an extended long double"
+    got = k._fma(_t(a), _t(b), _t(c)).numpy()
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_parts,kk", [(1, 10), (3, 10), (4, 7)])
+def test_merge_topk_bitwise(n_parts, kk):
+    """K4 against the reference kernel and the reference's host lexsort
+    merge, with empty lanes, ties within and across partitions and one ord
+    in several partitions."""
+    s, o = merge_inputs(n_parts * 10 + kk, q=16, n_parts=n_parts, kk=kk)
+    want = ref_k.merge_topk(jnp.asarray(s), jnp.asarray(o), k=kk)
+    k.reset_launches()
+    got = k.merge_topk(_t(s), _t(o), k=kk)
+    assert k.LAUNCHES["merge_topk"] == 0
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    host = SimpleNamespace(_fused=False, S=n_parts, n_docs=[40])
+    s_all = s.reshape(16, n_parts, kk).transpose(1, 0, 2)
+    o_all = o.reshape(16, n_parts, kk).transpose(1, 0, 2)
+    lex = RefKnnEngine._merge(host, s_all, o_all, kk)
+    for g, w in zip(got, lex):
+        assert np.array_equal(g.numpy(), w)
+    gs = got[0].numpy()
+    assert (gs == 0).any() and (gs > 0).any()
+
+
+def test_merge_partition_topk_matches_host_merge():
+    from elasticsearch_tpu_torch.parallel.spmd import merge_partition_topk
+
+    s, o = merge_inputs(5, q=12, n_parts=3, kk=10)
+    s_all = s.reshape(12, 3, 10).transpose(1, 0, 2).copy()
+    o_all = o.reshape(12, 3, 10).transpose(1, 0, 2).copy()
+    got = merge_partition_topk(s_all, o_all, 10, device="cpu")
+    host = SimpleNamespace(_fused=False, S=3, n_docs=[40])
+    for g, w in zip(got, RefKnnEngine._merge(host, s_all, o_all, 10)):
+        assert np.array_equal(g, w)
+
+
+def test_knn_wrappers_reject_bad_inputs():
+    qi8, qmeta, q8, meta, act, _ = knn_inputs(0, qc=4, nw=1, dims=48)
+    args = [_t(a) for a in (qi8, qmeta, q8, meta, act)]
+    with pytest.raises(ValueError, match="similarity"):
+        k.knn_int8_window_topc(*args, similarity="hamming")
+    with pytest.raises(ValueError):
+        k.knn_int8_window_topc(args[0][:, :64].contiguous(), *args[1:])
+    with pytest.raises(TypeError):
+        k.knn_int8_window_topc(args[0], args[1].double(), *args[2:])
+    with pytest.raises(ValueError):
+        k.knn_int8_window_topc(*args[:4], args[4][:, :0].contiguous())
+    s, o = merge_inputs(0, q=2, n_parts=2, kk=5)
+    with pytest.raises(ValueError, match="whole partitions"):
+        k.merge_topk(_t(s), _t(o), k=3)
+    with pytest.raises(TypeError):
+        k.merge_topk(_t(s), _t(o).long(), k=5)

@@ -9,8 +9,10 @@ imports jax for the reference tests:
 Inputs are the adversarial cases of the CPU differential tests (ties,
 negative and all-zero weights, padding lanes, zero groups, overlapping
 cold slices, fan-in padding and sentinel rows, coverage weights, masks with
-empty chunks) plus shapes the main path does not reach (more slots than a
-block has threads). Every comparison is bitwise.
+empty chunks, dead rows and windows, exact score ties, empty merge lanes)
+plus shapes the main path does not reach (more slots than a block has
+threads, a query tile that is not full, 4096-d rows). Every comparison is
+bitwise.
 """
 
 import numpy as np
@@ -19,8 +21,8 @@ import torch
 
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
-    bitset_inputs, clause_slots, conj_inputs, lanes_and_groups, mask_inputs,
-    sparse_inputs, sweep_inputs,
+    bitset_inputs, clause_slots, conj_inputs, knn_inputs, lanes_and_groups,
+    mask_inputs, merge_inputs, sparse_inputs, sweep_inputs,
 )
 
 pytestmark = pytest.mark.cuda
@@ -138,3 +140,32 @@ def test_pack_presence_bits_on_card(dev):
     got = k.pack_presence_bits(_c(hi, dev), _c(lo, dev)).cpu()
     want = k.pack_presence_bits(_c(hi, "cpu"), _c(lo, "cpu"))
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("similarity", ["cosine", "dot_product", "l2_norm"])
+@pytest.mark.parametrize("qc,nw,dims,masked,parts", [
+    (8, 3, 48, False, 1), (37, 2, 768, True, 1), (16, 2, 4096, False, 1),
+    (20, 2, 100, True, 3)])
+def test_knn_int8_window_topc_kernel(dev, similarity, qc, nw, dims, masked,
+                                     parts):
+    qi8, qmeta, q8, meta, act, fmask = knn_inputs(
+        qc + nw, qc=qc, nw=nw, dims=dims, masked=masked, n_parts=parts)
+    args = [_c(a, dev) for a in (qi8, qmeta, q8, meta, act)]
+    fm = None if fmask is None else _c(fmask, dev)
+    ks, kr = k.knn_int8_window_topc(*args, fm, similarity=similarity)
+    ps, pr = k.knn_int8_window_topc_plain(*args, fm, similarity=similarity)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, ps) and torch.equal(kr, pr)
+    assert torch.isfinite(ks).any()
+
+
+@pytest.mark.parametrize("n_parts,kk,q", [(1, 10, 16), (4, 10, 256),
+                                          (3, 300, 5)])
+def test_merge_topk_kernel(dev, n_parts, kk, q):
+    s, o = merge_inputs(n_parts + kk, q=q, n_parts=n_parts, kk=kk)
+    args = [_c(a, dev) for a in (s, o)]
+    got = k.merge_topk(*args, k=kk)
+    want = k.merge_topk_plain(*args, k=kk)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -173,3 +173,75 @@ def clause_slots(seed, qc, n_slots):
     q_neg[4, 0] = q_slots[4, 0]
     q_neg[5, 1] = ones_s
     return q_slots, q_neg
+
+
+def knn_inputs(seed, qc, nw, dims, masked=False, n_parts=1):
+    """K9 inputs as KnnEngine makes them, doc-major q8 [P, nw, KNN_W,
+    dimsP]: queries and rows quantized per row to int8 with their meta,
+    plus dead rows (okf 0), a window with no live row, windows the IVF
+    probe left inactive for some queries, exact ties (copies of one row at
+    several positions, across windows too) and, if masked, a filter with
+    about half the docs set. Leading partition axes are dropped when
+    n_parts == 1."""
+    rng = np.random.default_rng(seed)
+    W = k.KNN_W
+    dims_p = -(-dims // 128) * 128
+    n = nw * W
+    v = rng.standard_normal((n_parts, n, dims)).astype(np.float32)
+    for p in range(n_parts):
+        v[p, 1::97] = v[p, 5]                         # exact ties
+        v[p, W + 3:: W] = v[p, 5]                     # across windows
+    s_r = np.maximum(np.abs(v).max(axis=2), 1e-12) / 127.0
+    v8 = np.clip(np.round(v / s_r[..., None]), -127, 127).astype(np.int8)
+    q8 = np.zeros((n_parts, n, dims_p), np.int8)
+    q8[..., :dims] = v8
+    meta = np.zeros((n_parts, 4, n), np.float32)
+    meta[:, 0] = s_r
+    meta[:, 1] = s_r * np.abs(v8.astype(np.float32)).sum(axis=2)
+    meta[:, 2] = np.linalg.norm(v, axis=2)
+    meta[:, 3] = rng.random((n_parts, n)) > 0.1      # dead rows
+    meta[:, 3, n - W:] = 0                           # a window with none live
+    q = rng.standard_normal((qc, dims)).astype(np.float32)
+    sq = np.maximum(np.abs(q).max(axis=1), 1e-12) / 127.0
+    qi8 = np.zeros((qc, dims_p), np.int8)
+    qi8[:, :dims] = np.clip(np.round(q / sq[:, None]), -127, 127)
+    ql1 = sq * np.abs(qi8.astype(np.float32)).sum(axis=1)
+    qn = np.linalg.norm(q, axis=1)
+    qmeta = np.zeros((qc, 8), np.float32)
+    qmeta[:, 0] = sq
+    qmeta[:, 1] = 0.5 * ql1 + dims * sq / 4.0
+    qmeta[:, 2] = qn
+    qmeta[:, 3] = qn * qn
+    qmeta[:, 4] = 1.0 / np.maximum(qn, 1e-20)
+    qmeta[:, 5] = 0.5 * sq
+    act = (rng.random((n_parts, qc, nw)) > 0.2).astype(np.float32)
+    act[:, 0] = 1.0
+    fmask = None
+    if masked:
+        fmask = (rng.random((n_parts, qc, nw, W)) > 0.5).astype(np.int8)
+    out = [qi8, qmeta, q8.reshape(n_parts, nw, W, dims_p),
+           meta.reshape(n_parts, 4, nw, W), act, fmask]
+    if n_parts == 1:
+        out = out[:2] + [None if a is None else a[0] for a in out[2:]]
+    return tuple(out)
+
+
+def merge_inputs(seed, q, n_parts, kk):
+    """K4 inputs [Q, S*k] as KnnEngine lays its per-partition top-k
+    partition-major: descending scores from a few distinct values (ties
+    within and across partitions), distinct ords per partition, the same
+    ord in several partitions, empty slots (0 or negative) at the end, and a
+    last query whose lanes are all empty."""
+    rng = np.random.default_rng(seed)
+    vals = np.float32([0.9, 0.75, 0.75, 0.6, 0.5, 0.31])
+    s = np.zeros((q, n_parts, kk), np.float32)
+    o = np.zeros((q, n_parts, kk), np.int32)
+    for qi in range(q):
+        for p in range(n_parts):
+            m = int(rng.integers(0, kk + 1))
+            s[qi, p, :m] = -np.sort(-rng.choice(vals, size=m))
+            o[qi, p, :m] = rng.choice(max(40, 2 * kk), size=m, replace=False)
+            if m < kk and rng.random() < 0.3:
+                s[qi, p, m] = -0.25
+    s[-1] = 0                                        # a query with no hit
+    return s.reshape(q, n_parts * kk), o.reshape(q, n_parts * kk)
