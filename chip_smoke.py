@@ -4,16 +4,19 @@
     python3 chip_smoke.py            # one card; exits 0 only if every check holds
     python3 chip_smoke.py --docs N   # cut the index to N docs (the cut is printed)
     python3 chip_smoke.py --knn-docs N   # cut the kNN column to N vectors
+    python3 chip_smoke.py --agg-docs N   # cut the agg leaf to N docs
 
 It drives the port's main path (elasticsearch_tpu_torch only; it imports
 nothing of JAX or of elasticsearch_tpu) the way bench.py drives config 1 of
 BASELINE.md, at the size of one primary shard of the 33M-doc Wikipedia-EN
-target, then the kNN path the way bench.py drives config 4:
+target, then the kNN path the way bench.py drives config 4 and the
+aggregation path the way bench.py drives config 6:
 
 1. builds the CUDA kernels (K1 build_columns, K2 sweep_rowmax,
    K3 sparse_gather, K5 intersect_bitset, K6 sweep_rowmax_bitset,
-   K7 sweep_rowmax_conj, K4 merge_topk, K9 knn_int8_window_topc) from
-   parallel/csrc with nvcc, one process per source, all at once;
+   K7 sweep_rowmax_conj, K4 merge_topk, K9 knn_int8_window_topc,
+   K8 agg_counts) from parallel/csrc with nvcc, one process per source,
+   all at once;
 2. builds one 8,000,000-doc shard with positions on the host: docs of 8-40
    terms over a 500k-term Zipf(1.07) vocabulary, seeded as bench.py does;
 3. selects the engine with `select_bm25_engine(device="cuda")` (cold_df
@@ -66,7 +69,21 @@ target, then the kNN path the way bench.py drives config 4:
    against exact f32 scores on 32 queries, the stacked engine's planted
    answers equal to one partition's, and K9 (both variants, both engines)
    and K4 bitwise equal to their plain versions on the path's inputs;
-9. prints the card's name and power limit and a `kernels` JSON line, and
+9. serves config 6 (analytics) at bench.py's 10,000,000 docs: a leaf drawn
+   as bench.py's _synth_agg_leaf (Zipf tags, a 90-day timestamp, prices
+   with gaps), AGG_BENCH_SPEC (terms + stats, 7d date_histogram + sum)
+   over 8 masks at 5% through parse_aggs -> collect_leaf ->
+   reduce_partials -> finalize_aggs on the default AggDeviceEngine (K8),
+   one warm request building the layouts first. It requires every
+   collect on the device with no host fallback, K8 launched once per
+   dispatch, ledger bytes equal to the engine's; holds two requests and
+   the reference suite's shapes (terms, terms with four metrics,
+   histogram, three date_histograms) on 5%, 2%, 90% and empty masks
+   against the port's host path (==); hands the 8 works to one
+   search_many call and holds each against its own dispatch; and holds
+   K8 bitwise against its plain version on the path's layouts and on a
+   synthetic four-tile one;
+10. prints the card's name and power limit and a `kernels` JSON line, and
    last `{"ok": true, "device": {...}}`.
 
 The kNN column is cut from bench.py's 10M vectors to 2,000,000: at 10M a
@@ -113,8 +130,8 @@ WIDE_LADDER = f"1024,4096,16384,{COLD_DF}"
 MAX_CERT_FALLBACK_SHARE = 0.02
 # queries of each config-1 batch held against the host-exact tier (the DSL
 # bodies are held in full): the hold is host work, about 0.6 s a query on
-# the chip machine's 8 cores, and the cut keeps the whole run, kNN phase
-# included, under half its time limit
+# the chip machine's 8 cores, and the cut keeps the whole run, kNN and agg
+# phases included, well inside its time limit
 HOLD_PER_BATCH = 80
 # H100 SXM published peaks (NVIDIA datasheet): bytes/s, int8 op/s,
 # f32 op/s outside the tensor cores
@@ -1672,7 +1689,437 @@ def knn_phase(n: int, device="cuda") -> tuple:
     return [row, k4], report
 
 
-def run(n_docs: int, n_batches: int, batch: int, knn_docs: int) -> dict:
+# ---------------------------------------------------------------------------
+# config 6: device aggregations (the analytics tier, K8)
+# ---------------------------------------------------------------------------
+
+AGG_DOCS = 10_000_000   # bench.py's N_DOCS: the size config 6 runs at on a TPU
+AGG_VOCAB = 256
+AGG_REQUESTS = 8        # config-6 masks at 5% selectivity, default_rng(31)
+AGG_HOLD = 2            # of them held against the host path
+AGG_COUNTERS = ("agg_queries", "agg_device_dispatches", "agg_host_fallbacks",
+                "agg_bytes")
+# bench.py's AGG_BENCH_SPEC
+AGG_SPEC = {
+    "tags": {"terms": {"field": "tag", "size": 64},
+             "aggs": {"rev": {"stats": {"field": "price"}}}},
+    "weekly": {"date_histogram": {"field": "ts", "fixed_interval": "7d"},
+               "aggs": {"p": {"sum": {"field": "price"}}}},
+}
+# the shapes of the reference's suite (tests/test_agg_device.py), each held
+# against the host path on the masks named. Calendar bodies only on sparse
+# masks: the host's calendar _key_of is a Python loop per value.
+_ALL_MASKS = ("p05", "p02", "p90", "empty")
+AGG_SHAPES = {
+    "terms": ({"t": {"terms": {"field": "tag", "size": 50}}}, _ALL_MASKS),
+    "terms_metrics": ({"t": {
+        "terms": {"field": "tag", "size": 50},
+        "aggs": {"p": {"stats": {"field": "price"}},
+                 "a": {"avg": {"field": "price"}},
+                 "lo": {"min": {"field": "price"}},
+                 "nv": {"value_count": {"field": "price"}}}}}, _ALL_MASKS),
+    "histogram_stats": ({"h": {
+        "histogram": {"field": "price", "interval": 7.5},
+        "aggs": {"s": {"stats": {"field": "price"}}}}}, _ALL_MASKS),
+    "date_month_extended": ({"d": {
+        "date_histogram": {"field": "ts", "calendar_interval": "month"},
+        "aggs": {"s": {"extended_stats": {"field": "price"}}}}},
+        ("p02", "empty")),
+    "date_12h": ({"d": {"date_histogram": {
+        "field": "ts", "fixed_interval": "12h"}}}, _ALL_MASKS),
+    "date_7d_offset": ({"d": {"date_histogram": {
+        "field": "ts", "fixed_interval": "7d", "offset": 10_800_000}}},
+        _ALL_MASKS),
+}
+AGG_SYNTH_BUCKETS = 60_000   # the synthetic K8 check: four bucket tiles
+
+
+def agg_leaf(n: int, seed: int = 29, vocab: int = AGG_VOCAB):
+    """Config 6's analytics leaf, drawn as bench.py's _synth_agg_leaf draws
+    it (seed 29, vocab 256): 1-2 Zipf(1.1) keyword tags per doc (deduped,
+    per-doc sorted CSR), a 90-day timestamp column and a price column with
+    20% gaps, as the port's KeywordColumn / NumericColumn. Returns an
+    AggContext."""
+    from types import SimpleNamespace
+
+    from elasticsearch_tpu_torch.index.segment import (
+        KeywordColumn, NumericColumn,
+    )
+    from elasticsearch_tpu_torch.search.aggregations import AggContext
+
+    rng = np.random.default_rng(seed)
+    probs = 1.0 / np.arange(1, vocab + 1) ** 1.1
+    probs /= probs.sum()
+    n_tags = 1 + (rng.random(n) < 0.33).astype(np.int64)
+    doc_of = np.repeat(np.arange(n, dtype=np.int64), n_tags)
+    draws = rng.choice(vocab, size=len(doc_of), p=probs).astype(np.int64)
+    pair = np.unique(doc_of * vocab + draws)   # doc-major, ord asc, deduped
+    all_ords = (pair % vocab).astype(np.int32)
+    counts = np.bincount(pair // vocab, minlength=n)
+    ord_start = np.concatenate([[0], np.cumsum(counts)])
+    kc = KeywordColumn(
+        terms=[f"t{i}" for i in range(vocab)],
+        term_to_ord={f"t{i}": i for i in range(vocab)},
+        ords=all_ords[ord_start[:-1]].astype(np.int32),
+        max_ords=all_ords[ord_start[1:] - 1].astype(np.int32),
+        exists=np.ones(n, bool), ord_start=ord_start, all_ords=all_ords)
+    ts = (1_600_000_000_000
+          + rng.integers(0, 90 * 86_400_000, size=n)).astype(np.float64)
+    tcol = NumericColumn(values=ts, max_values=ts, exists=np.ones(n, bool),
+                         value_start=np.arange(n + 1, dtype=np.int64),
+                         all_values=ts)
+    p_exists = rng.random(n) < 0.8
+    price = np.round(rng.normal(40, 12, size=n), 2)
+    pcol = NumericColumn(
+        values=np.where(p_exists, price, 0.0),
+        max_values=np.where(p_exists, price, 0.0), exists=p_exists,
+        value_start=np.concatenate(
+            [[0], np.cumsum(p_exists.astype(np.int64))]),
+        all_values=price[p_exists])
+    seg = SimpleNamespace(n_docs=n, keyword={"tag": kc},
+                          numeric={"ts": tcol, "price": pcol}, _device={})
+    leaf = SimpleNamespace(segment=seg, n_docs=n)
+    return AggContext(leaf=leaf, mapper=None, executor=None,
+                      live=np.ones(n, bool))
+
+
+def run_aggs(ctx, spec, masks):
+    """The full agg pipeline per mask (parse_aggs -> collect_leaf ->
+    reduce_partials -> finalize_aggs); (responses, host-clock seconds)."""
+    from elasticsearch_tpu_torch.search.aggregations import (
+        collect_leaf, finalize_aggs, parse_aggs, reduce_partials,
+    )
+
+    out, lat = [], []
+    for m in masks:
+        t = time.time()
+        aggs, pipes = parse_aggs(spec)
+        partial = collect_leaf(aggs, ctx, m)
+        out.append(finalize_aggs(aggs, pipes,
+                                 reduce_partials(aggs, [partial])))
+        lat.append(time.time() - t)
+    return out, lat
+
+
+@contextlib.contextmanager
+def agg_route(device: bool):
+    """The device route (AGG_DEVICE_MIN_DOCS at its default, below the
+    leaf) or the host path (the floor above any leaf)."""
+    import elasticsearch_tpu_torch.search.aggregations as aggs_mod
+
+    prev = aggs_mod.AGG_DEVICE_MIN_DOCS
+    if not device:
+        aggs_mod.AGG_DEVICE_MIN_DOCS = 1 << 60
+    try:
+        yield
+    finally:
+        aggs_mod.AGG_DEVICE_MIN_DOCS = prev
+
+
+_HOST_JOBS: list = []     # (ctx, [(spec, mask)]) for the forked workers
+
+
+def _agg_host_job(i: int):
+    ctx, jobs = _HOST_JOBS[0]
+    with agg_route(False):
+        return run_aggs(ctx, jobs[i][0], [jobs[i][1]])
+
+
+def agg_host_runs(ctx, jobs):
+    """run_aggs of each (spec, mask) job on the host path, in forked worker
+    processes: the host aggregators hold the GIL (a terms agg with metric
+    sub-aggs loops over its buckets, 90 s at 10M docs), so threads do not
+    overlap them. The workers run numpy only, never the card, and exit
+    with the pool."""
+    import multiprocessing
+
+    _HOST_JOBS[:] = [(ctx, jobs)]
+    try:
+        with multiprocessing.get_context("fork").Pool(
+                min(len(jobs), os.cpu_count() or 1)) as pool:
+            return pool.map(_agg_host_job, range(len(jobs)), chunksize=1)
+    finally:
+        _HOST_JOBS.clear()
+
+
+@contextlib.contextmanager
+def agg_dispatch_timer(acc: list):
+    """Host-clock seconds of each agg_device._dispatch call (mask upload,
+    K8, read-back) appended to `acc`: the rest of a request is host work
+    around the device (masks, metric refinement, bucket folding)."""
+    from elasticsearch_tpu_torch.search import agg_device
+
+    real = agg_device._dispatch
+
+    def timed(works):
+        t = time.time()
+        try:
+            return real(works)
+        finally:
+            acc.append(time.time() - t)
+
+    agg_device._dispatch = timed
+    try:
+        yield
+    finally:
+        agg_device._dispatch = real
+
+
+def agg_counts() -> dict:
+    from elasticsearch_tpu_torch.search import agg_device
+
+    with agg_device._COUNTS_LOCK:
+        return {k: agg_device._COUNTS[k] for k in AGG_COUNTERS}
+
+
+def k8_case(mask, blob, ps, n_seg):
+    """K8 against its plain version on one (mask, blob) pair, bitwise, both
+    timed (CUDA events), with its bound and the index_add_ yardstick: the
+    scatter half alone, the mask pre-gathered at every in-range pair,
+    into [sections * Q * n_segments]."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    if len(ps) == 1:
+        def kern():
+            return [k.agg_segment_counts(mask, blob, p=ps[0],
+                                         n_segments=n_seg)]
+
+        def plain():
+            return [k.agg_segment_counts_plain(mask, blob, p=ps[0],
+                                               n_segments=n_seg)]
+    else:
+        def kern():
+            return list(k.agg_two_level_counts(mask, blob, pd=ps[0],
+                                               pm=ps[1], n_segments=n_seg))
+
+        def plain():
+            return list(k.agg_two_level_counts_plain(
+                mask, blob, pd=ps[0], pm=ps[1], n_segments=n_seg))
+    res = {}
+    ms = cuda_ms(lambda: res.__setitem__("k", kern()), 20)
+    plain_ms = cuda_ms(lambda: res.__setitem__("p", plain()), 3)
+    err = max(max_abs_err(a, b) for a, b in zip(res["k"], res["p"]))
+    require(err == 0.0 and all(torch.equal(a, b)
+                               for a, b in zip(res["k"], res["p"])),
+            f"K8 kernel vs plain: max_abs_err {err}")
+    q, n_docs = int(mask.shape[0]), int(mask.shape[1])
+    idx, vals = [], []
+    for si, (d, s) in enumerate(k.agg_counted_pairs(blob, ps, n_seg,
+                                                    n_docs)):
+        rows = torch.arange(q, device=blob.device)[:, None]
+        idx.append(((si * q + rows) * n_seg + s[None, :]).reshape(-1))
+        vals.append(mask[:, d].to(torch.int32).reshape(-1))
+    idx, vals = torch.cat(idx), torch.cat(vals)
+    acc = torch.zeros(len(ps) * q * n_seg, dtype=torch.int32,
+                      device=blob.device)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, vals), 5)
+    b_ms, b_by = bound(blob.numel() * 4 + q * n_docs + len(ps) * q * n_seg * 4,
+                       q * sum(ps), PEAK_F32)
+    counted = sum(int(x.sum()) for x in res["k"])
+    del idx, vals, acc, res
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "shape": {"Q": q, "n_docs": n_docs, "pairs": list(ps),
+                      "n_segments": n_seg,
+                      "n_tiles": -(-n_seg // k.AGG_SEG_TILE),
+                      "counted": counted}}
+
+
+def check_k8(seg, sels, launches, device):
+    """K8 against its plain version on the card at the path's shapes: the
+    terms_metric layout (config 6's tags + stats) at Q = 1 and at Q = 16
+    (the 8 config-6 masks padded to the rung with empty rows), the uniq
+    layout of ts (the 7d date_histogram's hour ranks), and a synthetic
+    layout of 10M doc-ordered pairs over AGG_SYNTH_BUCKETS buckets (four
+    tiles, every chunk spanning them all)."""
+    import torch
+
+    from elasticsearch_tpu_torch.search import agg_device
+
+    tm = seg._device["aggdev:termsm:tag:price"]
+    uq = seg._device["aggdev:uniq:ts:3600000"]
+    n = seg.n_docs
+    q16 = np.zeros((16, n), bool)
+    q16[:len(sels)] = sels
+    one = torch.from_numpy(sels[0][None].copy()).to(device)
+    cases = {}
+    cases["terms_metric_q1"] = k8_case(
+        one, tm.dev, [tm.meta["pd"], tm.meta["pm"]], tm.meta["n_segments"])
+    cases["terms_metric_q16"] = k8_case(
+        torch.from_numpy(q16).to(device), tm.dev,
+        [tm.meta["pd"], tm.meta["pm"]], tm.meta["n_segments"])
+    cases["uniq_ts_q1"] = k8_case(one, uq.dev, [uq.meta["p"]],
+                                  uq.meta["n_segments"])
+    rng = np.random.default_rng(41)
+    d, s, ct0, ct1 = agg_device._pack_pairs(
+        np.arange(n, dtype=np.int32),
+        rng.integers(0, AGG_SYNTH_BUCKETS, size=n).astype(np.int32), n)
+    blob = torch.from_numpy(np.concatenate([d, s, ct0, ct1])).to(device)
+    cases["synthetic_4_tiles_q1"] = k8_case(one, blob, [len(d)],
+                                            AGG_SYNTH_BUCKETS)
+    del blob, one
+    torch.cuda.empty_cache()
+    main = cases["terms_metric_q1"]
+    row = {"name": "agg_counts", "route": "cuda",
+           "source": "elasticsearch_tpu_torch/parallel/csrc/agg_counts.cu",
+           "replaces": "elasticsearch_tpu/parallel/kernels.py:1007",
+           "launches": launches,
+           "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+           "ms": main["ms"], "plain_ms": main["plain_ms"],
+           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+           "library_ms": main["library_ms"],
+           "library_note": "index_add_ of the mask pre-gathered at every "
+                           "in-range pair (the scatter half)",
+           "shape": main["shape"], "cases": cases}
+    for label, c in cases.items():
+        log(f"K8 {label}: kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f}"
+            f" ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}), "
+            f"index_add_ {c['library_ms']:.4f} ms, {c['shape']}")
+    return row
+
+
+def agg_phase(n: int, device="cuda") -> tuple:
+    """Config 6 (analytics) through the port's aggregation entry points
+    (parse_aggs -> collect_leaf -> reduce_partials -> finalize_aggs, the
+    device route through agg_device and K8) on a synthetic n-doc leaf:
+    AGG_REQUESTS timed requests after one warm call, held against the host
+    path; the reference suite's shapes held on sparse, dense and empty
+    masks; a coalesced batch of works; K8 against its plain version.
+    `device` other than "cuda" installs an engine there (a CPU rehearsal).
+    Returns (kernel row, report)."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels
+    from elasticsearch_tpu_torch.search import agg_device
+
+    if n < AGG_DOCS:
+        log(f"CUT: agg leaf cut from {AGG_DOCS} to {n} docs")
+    t = time.time()
+    ctx = agg_leaf(n)
+    seg = ctx.leaf.segment
+    arng = np.random.default_rng(31)
+    cmasks = [arng.random(n) < 0.05 for _ in range(AGG_REQUESTS)]
+    srng = np.random.default_rng(5)          # dryrun_agg's selectivities
+    extra = {sel: srng.random(n) < sel for sel in (0.05, 0.2, 0.5, 0.9, 0.02)}
+    masks = {"p05": cmasks[0], "p02": extra[0.02], "p90": extra[0.9],
+             "empty": np.zeros(n, bool)}
+    data_s = time.time() - t
+    kc = seg.keyword["tag"]
+    log(f"agg leaf: {n} docs, {len(kc.all_ords)} (doc, tag) pairs, "
+        f"{len(seg.numeric['price'].all_values)} prices in {data_s:.1f}s")
+
+    if device != "cuda":
+        agg_device._ENGINE = agg_device.AggDeviceEngine(device=device)
+    eng = agg_device.default_engine()
+    # ---- the main path: one warm request (the layout builds), then the
+    # timed ones, every launch count set to 0 just before ----
+    c0 = agg_counts()
+    kernels.reset_launches()
+    t = time.time()
+    run_aggs(ctx, AGG_SPEC, cmasks[:1])
+    warm_s = time.time() - t
+    disp = []
+    with agg_dispatch_timer(disp):
+        dev_out, lat = run_aggs(ctx, AGG_SPEC, cmasks)
+    launches = dict(kernels.LAUNCHES)
+    c1 = agg_counts()
+    d = {k: c1[k] - c0[k] for k in AGG_COUNTERS}
+    log(f"config 6: warm request (layout builds) {warm_s:.2f}s, requests "
+        f"{[round(x, 4) for x in lat]}s, counters {d}, launches {launches}")
+    n_collects = len(AGG_SPEC) * (AGG_REQUESTS + 1)
+    require(d["agg_host_fallbacks"] == 0,
+            f"agg host fallbacks on the main path: {d}")
+    require(d["agg_queries"] == n_collects
+            and d["agg_device_dispatches"] == n_collects,
+            f"not every collect took the device: {d}")
+    require(launches["agg_counts"] == d["agg_device_dispatches"] > 0,
+            f"K8 launches {launches['agg_counts']} != dispatches "
+            f"{d['agg_device_dispatches']}")
+    require(eng.hbm_bytes() == eng.ledger_bytes() > 0,
+            f"agg hbm_bytes {eng.hbm_bytes()} != ledger "
+            f"{eng.ledger_bytes()}")
+    for r in dev_out:
+        tags = r["tags"]["buckets"]
+        require(0 < len(tags) <= 64 and all(
+            np.isfinite(b["rev"]["sum"]) and b["rev"]["count"] > 0
+            for b in tags), "config 6: malformed tags buckets")
+        require(len(r["weekly"]["buckets"]) >= 13,
+                "config 6: too few weekly buckets")
+
+    # ---- holds against the host path: config 6 on AGG_HOLD masks, the
+    # suite's shapes on their masks (device runs first, then the host runs
+    # in parallel; the route is a module global) ----
+    t = time.time()
+    shape_dev = {(name, m): run_aggs(ctx, spec, [masks[m]])[0][0]
+                 for name, (spec, mnames) in AGG_SHAPES.items()
+                 for m in mnames}
+    c2 = agg_counts()
+    shapes_dev_s = time.time() - t
+    require(c2["agg_host_fallbacks"] == c1["agg_host_fallbacks"],
+            "agg host fallbacks on the shapes")
+    jobs = [(AGG_SPEC, cmasks[i]) for i in range(AGG_HOLD)] + [
+        (AGG_SHAPES[name][0], masks[m]) for name, m in shape_dev]
+    # (pool.map hands jobs out in order: the AGG_SHAPES order puts the
+    # costly terms shapes before the cheap histograms)
+    t = time.time()
+    host = agg_host_runs(ctx, jobs)
+    hold_s = time.time() - t
+    require(agg_counts() == c2, "the host path moved the device counters")
+    host_lat = [h[1][0] for h in host[:AGG_HOLD]]
+    for i in range(AGG_HOLD):
+        require(dev_out[i] == host[i][0][0],
+                f"config 6 request {i}: device differs from the host path")
+    for (key, got), (h, _) in zip(shape_dev.items(), host[AGG_HOLD:]):
+        require(got == h[0], f"agg shape {key}: device differs from the "
+                             f"host path")
+    log(f"agg holds: {AGG_HOLD} config-6 requests and {len(shape_dev)} "
+        f"shape runs equal to the host path (device {shapes_dev_s:.1f}s, "
+        f"host {hold_s:.1f}s in parallel)")
+
+    # ---- a coalesced batch: the 8 config-6 works on the terms_metric
+    # layout in one search_many call (Q = 8, padded to the 16 rung) ----
+    lay = seg._device["aggdev:termsm:tag:price"]
+    sels = [m & kc.exists for m in cmasks]
+    batch = [agg_device._AggWork(lay, s) for s in sels]
+    l0 = kernels.LAUNCHES["agg_counts"]
+    eng.search_many([batch], 1)
+    require(kernels.LAUNCHES["agg_counts"] - l0 == 1,
+            "the coalesced batch did not take one K8 launch")
+    for i, (w, s) in enumerate(zip(batch, sels)):
+        single = agg_device._AggWork(lay, s)
+        eng.search_many([[single]], 1)
+        require(w.error is None and single.error is None,
+                f"coalesced work {i}: {w.error or single.error}")
+        require(all(np.array_equal(a, b)
+                    for a, b in zip(w.result, single.result)),
+                f"coalesced work {i} differs from its Q = 1 result")
+    log("coalesced batch: 8 works in one dispatch equal their Q = 1 results")
+
+    row = check_k8(seg, sels, launches["agg_counts"], eng.device)
+    report = {
+        "docs": n, "cut": n < AGG_DOCS, "data_s": data_s,
+        "tag_pairs": int(len(kc.all_ords)),
+        "cross_pairs": int(lay.meta["pm"]),
+        "layouts": {name: {"bytes": lay_.nbytes, "kind": lay_.kind,
+                           "n_segments": lay_.meta["n_segments"]}
+                    for name, lay_ in seg._device.items()
+                    if isinstance(lay_, agg_device._AggLayout)},
+        "warm_request_s": warm_s, "request_latency_s": lat,
+        "qps": len(lat) / sum(lat),
+        "dispatch_s_per_request": sum(disp) / len(lat),
+        "host_request_latency_s": host_lat,
+        "hbm_bytes": eng.hbm_bytes(), "ledger_bytes": eng.ledger_bytes(),
+        "counters": d, "launches": launches,
+        "shapes_held": len(shape_dev), "hold_host_s": hold_s,
+        "coalesced": {"works": len(batch), "equal_to_q1": True}}
+    del batch, lay
+    return row, report
+
+
+def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
+        agg_docs: int) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import hbm_ledger
@@ -1823,6 +2270,13 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int) -> dict:
     knn_report["phase_s"] = time.time() - t
     rows += knn_rows
 
+    # ---- analytics (config 6): device aggregations through K8 ----
+    t = time.time()
+    agg_row, agg_report = agg_phase(agg_docs)
+    agg_report["phase_s"] = time.time() - t
+    rows.append(agg_row)
+    log(f"agg phase took {agg_report['phase_s']:.1f}s")
+
     serving = {"docs": n_docs, "cut": n_docs < FULL_DOCS,
                "index_build_s": index_s,
                "sparse_widths": WIDE_LADDER,
@@ -1837,6 +2291,7 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int) -> dict:
                "default_ladder": default,
                "bool_and_phrase": bool_report,
                "knn": knn_report,
+               "agg": agg_report,
                "hbm_ledger": ledger,
                "kernel_build_s": build_s,
                "peak_device_bytes": peak}
@@ -1851,6 +2306,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--knn-docs", type=int, default=KNN_DOCS,
                     help="kNN column size (default: 2M 768-d vectors)")
+    ap.add_argument("--agg-docs", type=int, default=AGG_DOCS,
+                    help="agg leaf size (default: config 6's 10M docs)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1866,7 +2323,8 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
         return 2
-    out = run(args.docs, args.batches, args.batch, args.knn_docs)
+    out = run(args.docs, args.batches, args.batch, args.knn_docs,
+              args.agg_docs)
     print(json.dumps({"serving": out["serving"]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

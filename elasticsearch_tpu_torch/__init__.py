@@ -14,9 +14,12 @@ TPU's Pallas kernels replaced by CUDA C++ kernels for Hopper
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``device.py``); nothing falls back to the CPU on its own.
 
-Ported so far (slice 1): the BM25 ``match`` serving path at one partition —
+Ported so far: the BM25 ``match`` serving path at one partition —
 ``search.serving.extract_plan`` -> ``select_bm25_engine`` ->
-``TurboEngine.search_many`` -> ``parallel.turbo.TurboBM25.search_many``.
+``TurboEngine.search_many`` -> ``parallel.turbo.TurboBM25.search_many`` —,
+``bool`` and slop-0 phrase serving (``TurboEngine.search_bool``), quantized
+kNN (``select_knn_engine`` -> ``parallel.knn.KnnEngine``), and device
+aggregations (``search.aggregations`` -> ``search.agg_device``).
 """
 
 __version__ = "0.1.0"

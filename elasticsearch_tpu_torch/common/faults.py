@@ -7,8 +7,8 @@ Spec grammar (';'-separated clauses), identical to the reference::
 
 `device_errors` wraps runtime errors coming out of a device dispatch into
 `DeviceFaultError`. A torch CUDA runtime error is a `RuntimeError`; it is
-contained only when its text carries one of the markers below ("CUDA out
-of memory" does). The port's own kernel errors (`KernelBuildError`,
+contained only when its text carries one of the markers below. CUDA out
+of memory (`torch.OutOfMemoryError`) is always contained. The port's own kernel errors (`KernelBuildError`,
 `KernelLaunchError`) and wrapper checks (`ValueError`, `TypeError`) are
 not RuntimeErrors, so a broken kernel is never served around by the host
 tier.
@@ -48,9 +48,10 @@ _NAMED_PART_SITES = frozenset({
 
 _MODES = frozenset({"raise", "oom", "hang"})
 
+# torch raises CUDA OOM as `torch.OutOfMemoryError`, a RuntimeError subclass
 _DEVICE_ERROR_NAMES = frozenset({
     "XlaRuntimeError", "JaxRuntimeError", "RuntimeError",
-    "InternalError", "ResourceExhaustedError",
+    "InternalError", "ResourceExhaustedError", "OutOfMemoryError",
 })
 _DEVICE_ERROR_MARKERS = ("RESOURCE_EXHAUSTED", "INTERNAL", "out of memory",
                          "DEADLINE_EXCEEDED")

@@ -1,6 +1,6 @@
 """Device-memory residency ledger and dispatch-shape books (the port's copy
-of the calls TurboBM25 and serving make into
-elasticsearch_tpu/common/hbm_ledger.py, without the metrics plumbing).
+of the calls its engines make into elasticsearch_tpu/common/hbm_ledger.py,
+without the metrics plumbing).
 
 Engines register each device-resident region with its exact byte count,
 so the ledger's per-engine total equals the engine's `hbm_bytes()`. The
@@ -61,6 +61,12 @@ class LedgerHandle:
             entry = _ENGINES.get(self._key)
             if entry is not None:
                 entry.regions[name] = int(nbytes)
+
+    def drop_region(self, name: str) -> None:
+        with _LOCK:
+            entry = _ENGINES.get(self._key)
+            if entry is not None and name in entry.regions:
+                _CHURN_BYTES[0] += entry.regions.pop(name)
 
     def note_eviction(self, count: int = 1, freed_bytes: int = 0) -> None:
         with _LOCK:

@@ -96,6 +96,15 @@ declare_knob("ES_TPU_SPARSE_WIDTHS", "str", "1024,4096,16384",
              "Comma-separated slice-width ladder for eager sparse cold-"
              "term slices (each rung rounds up to a 1024-posting granule; "
              "a term uses the smallest rung >= its df)")
+declare_knob("ES_TPU_AGG", "flag", True,
+             "Route terms/histogram/date_histogram collects (and their "
+             "metric sub-aggs) through the device aggregation engine on "
+             "leaves above the size floor; off = the exact host "
+             "aggregators serve everything (A/B reference path)")
+declare_knob("ES_TPU_AGG_HBM_FRAC", "float", 0.25,
+             "Cap on precomputed agg-column HBM as a fraction of "
+             "ES_TPU_TURBO_HBM: layouts that would exceed it are refused "
+             "and their collects stay on host")
 declare_knob("ES_TPU_KNN_INT8", "flag", True,
              "Serve KnnEngine first passes from the int8-quantized shards "
              "(exact f32 rescore restores bit-identity); off = the f32 "

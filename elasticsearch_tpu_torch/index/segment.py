@@ -1,7 +1,10 @@
 """Block postings for one inverted field (the port's copy of `FieldPostings`,
 `tf_at` and `build_field_postings` from elasticsearch_tpu/index/segment.py,
 plus `postings_from_arrays`, which carries an index built by the reference
-across to the port), and the `VectorColumn` of a dense_vector field.
+across to the port), the `VectorColumn` of a dense_vector field, and the
+doc-value columns the aggregations read (`NumericColumn`, `KeywordColumn`,
+copied as they are, with `numeric_column_from_arrays` and
+`keyword_column_from_arrays` to carry the reference's columns across).
 
 Layout (as in the reference): all of a field's postings concatenated as
 [n_blocks, 128] (doc-id, tf) host arrays plus per-term (block_start,
@@ -81,6 +84,77 @@ def postings_from_arrays(arrays: Mapping[str, np.ndarray],
         field=field, term_to_ord={t: i for i, t in enumerate(terms)},
         terms=terms, sum_doc_len=float(sum_doc_len),
         **{n: np.asarray(arrays[n]) for n in POSTINGS_ARRAYS})
+
+
+@dataclass
+class NumericColumn:
+    values: np.ndarray                  # [n_docs] f64 (min value; asc sort mode)
+    max_values: np.ndarray              # [n_docs] f64 (max value; desc sort mode)
+    exists: np.ndarray                  # [n_docs] bool
+    # full multi-value CSR for range semantics ("any value in range")
+    value_start: np.ndarray             # [n_docs + 1] i64
+    all_values: np.ndarray              # [total_values] f64 (per-doc sorted)
+
+    def min_values(self) -> np.ndarray:
+        return self.values
+
+    def range_mask(self, lo: float, hi: float, include_lo: bool, include_hi: bool) -> np.ndarray:
+        left = self.all_values >= lo if include_lo else self.all_values > lo
+        right = self.all_values <= hi if include_hi else self.all_values < hi
+        hit = (left & right).astype(np.int64)
+        cum = np.concatenate([[0], np.cumsum(hit)])
+        counts = cum[self.value_start[1:]] - cum[self.value_start[:-1]]
+        return (counts > 0) & self.exists
+
+
+@dataclass
+class KeywordColumn:
+    terms: List[str]                    # sorted dictionary
+    term_to_ord: Dict[str, int]
+    ords: np.ndarray                    # [n_docs] i32, -1 = missing (min value;
+    #                                     the reference's asc sort mode "min")
+    max_ords: np.ndarray                # [n_docs] i32 (max value; desc sort mode)
+    exists: np.ndarray                  # [n_docs] bool
+    ord_start: np.ndarray               # [n_docs + 1] i64 — multivalue CSR
+    all_ords: np.ndarray                # [total_values] i32 (per-doc sorted)
+
+    def doc_terms(self, ord_: int) -> List[str]:
+        lo, hi = int(self.ord_start[ord_]), int(self.ord_start[ord_ + 1])
+        return [self.terms[o] for o in self.all_ords[lo:hi]]
+
+
+# the array fields of the two column types
+NUMERIC_ARRAYS = ("values", "max_values", "exists", "value_start",
+                  "all_values")
+KEYWORD_ARRAYS = ("ords", "max_ords", "exists", "ord_start", "all_ords")
+
+
+def _column_arrays(arrays: Mapping[str, np.ndarray], names, kind: str):
+    missing = [n for n in names if n not in arrays]
+    if missing:
+        raise ValueError(f"{kind} column arrays missing: {missing}")
+    return {n: np.asarray(arrays[n]) for n in names}
+
+
+def numeric_column_from_arrays(
+        arrays: Mapping[str, np.ndarray]) -> NumericColumn:
+    """The port's NumericColumn over a reference column's arrays (the
+    `NUMERIC_ARRAYS` of a reference NumericColumn), used as given."""
+    return NumericColumn(**_column_arrays(arrays, NUMERIC_ARRAYS, "numeric"))
+
+
+def keyword_column_from_arrays(arrays: Mapping[str, np.ndarray],
+                               terms: Sequence[str]) -> KeywordColumn:
+    """The port's KeywordColumn over a reference column's arrays (the
+    `KEYWORD_ARRAYS` of a reference KeywordColumn), with `terms` its sorted
+    dictionary in ord order. The arrays are used as given."""
+    cols = _column_arrays(arrays, KEYWORD_ARRAYS, "keyword")
+    terms = list(terms)
+    if len(cols["all_ords"]) and int(cols["all_ords"].max()) >= len(terms):
+        raise ValueError(f"an ord reaches past the {len(terms)} terms")
+    return KeywordColumn(terms=terms,
+                         term_to_ord={t: i for i, t in enumerate(terms)},
+                         **cols)
 
 
 def tf_at(fp: FieldPostings, term: str,

@@ -1,8 +1,12 @@
 """Field types the serving paths read (the port's copy of the text, keyword
-and dense_vector types of elasticsearch_tpu/mapper/field_types.py). Other
+and dense_vector types of elasticsearch_tpu/mapper/field_types.py, and of
+its `parse_date_millis`, which the `date_range` aggregation reads). Other
 field families are not ported yet: `build_field_type` rejects them."""
 
 from __future__ import annotations
+
+import datetime as _dt
+from typing import Any
 
 import numpy as np
 
@@ -70,3 +74,24 @@ def build_field_type(name: str, params: dict) -> FieldType:
     raise MapperParsingError(
         f"No handler for type [{t}] declared on field [{name}] "
         f"(the port serves text, keyword and dense_vector fields so far)")
+
+
+def parse_date_millis(value: Any) -> int:
+    """epoch_millis int | ISO8601 | yyyy-MM-dd — the reference's
+    strict_date_optional_time||epoch_millis default format."""
+    if isinstance(value, bool):
+        raise MapperParsingError(f"failed to parse date value [{value}]")
+    if isinstance(value, (int, float)):
+        return int(value)
+    s = str(value).strip()
+    if s.isdigit() or (s.startswith("-") and s[1:].isdigit()):
+        return int(s)
+    try:
+        if s.endswith("Z"):
+            s = s[:-1] + "+00:00"
+        dt = _dt.datetime.fromisoformat(s)
+        if dt.tzinfo is None:
+            dt = dt.replace(tzinfo=_dt.timezone.utc)
+        return int(dt.timestamp() * 1000)
+    except ValueError:
+        raise MapperParsingError(f"failed to parse date value [{value}]")

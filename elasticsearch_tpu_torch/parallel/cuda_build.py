@@ -25,11 +25,13 @@ from elasticsearch_tpu_torch.common.errors import KernelBuildError
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("build_columns", "sweep_rowmax", "sparse_gather",
-           "intersect_bitset", "merge_topk", "knn_window_topc")
+           "intersect_bitset", "merge_topk", "knn_window_topc",
+           "agg_counts")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # kernel -> (source, C entry point, argtypes); one source may hold several
 _SIGNATURES = {
     "build_columns": ("build_columns", "es_build_columns",
@@ -49,6 +51,8 @@ _SIGNATURES = {
                    [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "knn_int8_window_topc": ("knn_window_topc", "es_knn_int8_window_topc",
                              [_P] * 8 + [_I, _I, _I, _I, _I, _P]),
+    "agg_counts": ("agg_counts", "es_agg_counts",
+                   [_P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

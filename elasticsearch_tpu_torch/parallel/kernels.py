@@ -12,6 +12,8 @@ ported paths run:
 * K7 `sweep_rowmax_conj` (reference :270) -> csrc/sweep_rowmax.cu
 * K4 `merge_topk` (reference :633) -> csrc/merge_topk.cu
 * K9 `knn_int8_window_topc` (reference :1153) -> csrc/knn_window_topc.cu
+* K8 `_agg_counts` (reference :996, behind `agg_segment_counts` :1037 and
+  `agg_two_level_counts` :1057) -> csrc/agg_counts.cu
 
 Each wrapper checks device, dtype, shape and contiguity (raising TypeError
 or ValueError), then: for tensors on the CPU it runs the plain version
@@ -79,11 +81,15 @@ _KNN_C105 = float(np.float32(1.05))
 _KNN_C1EM6 = float(np.float32(1e-6))
 _KNN_C1P1EM6 = float(np.float32(1.0) + np.float32(1e-6))
 
+AGG_PAIR_GRAN = 1024  # (doc, bucket) pairs per K8 chunk
+AGG_SEG_TILE = 16384  # bucket ids per K8 tile (a chunk's [ct0, ct1] unit)
+
 # launches of each CUDA kernel since the last reset (plain runs not counted)
 LAUNCHES: Dict[str, int] = {"build_columns": 0, "sweep_rowmax": 0,
                             "sparse_gather": 0, "intersect_bitset": 0,
                             "sweep_rowmax_bitset": 0, "sweep_rowmax_conj": 0,
-                            "merge_topk": 0, "knn_int8_window_topc": 0}
+                            "merge_topk": 0, "knn_int8_window_topc": 0,
+                            "agg_counts": 0}
 
 
 def reset_launches() -> None:
@@ -862,3 +868,139 @@ def knn_int8_window_topc(qi8, qmeta, q8, meta, act, fmask=None, *,
             out_r.data_ptr(), qc, dims_p, nw, S,
             KNN_SIMILARITIES.index(similarity))
     return out_s, out_r
+
+
+# --------------------------------------------------------------------------
+# K8 masked segment counts (the analytics tier, search/agg_device.py)
+# --------------------------------------------------------------------------
+
+
+def _agg_section_len(p: int) -> int:
+    """i32 length of one [doc(p) | seg(p) | ct0 | ct1] blob section."""
+    return 2 * p + 2 * (p // AGG_PAIR_GRAN)
+
+
+def agg_counted_pairs(blob, ps, n_segments: int, n_docs: int):
+    """Per blob section (pair counts `ps`, in blob order), the pairs that
+    K8 counts, as int64 (doc, seg): a pair in chunk c counts iff
+    0 <= seg < n_segments, the bucket's tile seg // AGG_SEG_TILE lies in
+    [ct0[c], ct1[c]] and 0 <= doc < n_docs (a doc outside the mask never
+    counts; layouts never hold one). Pad pairs (bucket -1) and pad chunks
+    (ct0 > ct1) never count."""
+    out, off = [], 0
+    for p in ps:
+        nc = p // AGG_PAIR_GRAN
+        doc, seg = blob[off:off + p], blob[off + p:off + 2 * p].long()
+        ct0 = blob[off + 2 * p:off + 2 * p + nc]
+        ct1 = blob[off + 2 * p + nc:off + 2 * p + 2 * nc]
+        off += _agg_section_len(p)
+        c = torch.arange(p, device=blob.device) // AGG_PAIR_GRAN
+        tile = torch.div(seg, AGG_SEG_TILE, rounding_mode="floor")
+        ok = ((seg >= 0) & (seg < n_segments) & (tile >= ct0[c])
+              & (tile <= ct1[c]) & (doc >= 0) & (doc < n_docs))
+        out.append((doc[ok].long(), seg[ok]))
+    return out
+
+
+def _agg_counts_plain(mask, blob, ps, n_segments: int):
+    """Plain torch K8 over each section: the gather of the mask at the
+    counted pairs' docs (`agg_counted_pairs`), then one bincount per
+    query."""
+    q, n_docs = int(mask.shape[0]), int(mask.shape[1])
+    outs = []
+    for d, s in agg_counted_pairs(blob, ps, n_segments, n_docs):
+        out = torch.zeros((q, n_segments), dtype=torch.int32,
+                          device=mask.device)
+        for i in range(q):
+            out[i] = torch.bincount(s[mask[i][d]], minlength=n_segments)
+        outs.append(out)
+    return outs
+
+
+def agg_segment_counts_plain(mask, blob, *, p: int, n_segments: int):
+    """Plain torch `agg_segment_counts`."""
+    return _agg_counts_plain(mask, blob, (p,), n_segments)[0]
+
+
+def agg_two_level_counts_plain(mask, blob, *, pd: int, pm: int,
+                               n_segments: int):
+    """Plain torch `agg_two_level_counts`."""
+    return tuple(_agg_counts_plain(mask, blob, (pd, pm), n_segments))
+
+
+def _check_agg(mask, blob, ps, n_segments: int):
+    """Checks shared by the two K8 wrappers; `ps` are the sections' pair
+    counts. Docs are not range-checked here (that would read the blob back
+    at every dispatch): agg_device checks them once when it builds a
+    layout, and both routes skip a pair whose doc lies outside the mask."""
+    dev = blob.device
+    _check(mask, "mask", torch.bool, 2, dev)
+    _check(blob, "blob", torch.int32, 1, dev)
+    for p in ps:
+        if p < AGG_PAIR_GRAN or p % AGG_PAIR_GRAN:
+            raise ValueError(f"a section of {p} pairs is not a positive "
+                             f"multiple of {AGG_PAIR_GRAN}")
+    want = sum(_agg_section_len(p) for p in ps)
+    if blob.shape[0] != want:
+        raise ValueError(f"blob holds {int(blob.shape[0])} i32, the "
+                         f"sections {list(ps)} need {want}")
+    if mask.shape[0] < 1 or n_segments < 0:
+        raise ValueError(f"mask shape {tuple(mask.shape)}, n_segments "
+                         f"{n_segments}")
+
+
+def _agg_launch(mask, blob, ps, n_segments: int):
+    """One K8 launch over one or two blob sections; a section axis of the
+    grid runs both sections of the two-level form together."""
+    dev = blob.device
+    q = int(mask.shape[0])
+    outs = [torch.zeros((q, n_segments), dtype=torch.int32, device=dev)
+            for _ in ps]
+    offs = [0, _agg_section_len(ps[0])]
+    if n_segments == 0 or mask.shape[1] == 0:
+        return outs                       # no bucket or no doc can count
+    p1, out1 = (ps[1], outs[1].data_ptr()) if len(ps) > 1 else (0, 0)
+    _launch("agg_counts", dev, mask.data_ptr(), int(mask.shape[1]), q,
+            blob.data_ptr(), offs[0], ps[0], outs[0].data_ptr(), offs[1], p1,
+            out1, len(ps), int(n_segments))
+    return outs
+
+
+def agg_segment_counts(mask, blob, *, p: int, n_segments: int):
+    """Batched bucket counting for one agg layout: Q queries' doc counts
+    over the layout's static (doc, bucket) pairs, in one launch.
+
+    mask [Q, n_docs] bool — one query mask per batched agg work
+    blob [2p + 2(p / 1024)] i32 — the layout's device column, sections
+        [doc(p) | bucket(p) | ct0 | ct1]: p a positive multiple of
+        AGG_PAIR_GRAN; per 1024-pair chunk the inclusive bucket-tile range
+        [ct0, ct1] (a pad chunk carries (1, 0)); pad pairs carry doc 0 /
+        bucket -1
+
+    Returns [Q, n_segments] i32: counts[q, s] = #{pairs (d, s) in range:
+    mask[q, d]} (see `agg_counted_pairs` for which pairs count).
+    """
+    _check_agg(mask, blob, (p,), n_segments)
+    if not _route(blob.device):
+        return agg_segment_counts_plain(mask, blob, p=p,
+                                        n_segments=n_segments)
+    return _agg_launch(mask, blob, (p,), n_segments)[0]
+
+
+def agg_two_level_counts(mask, blob, *, pd: int, pm: int, n_segments: int):
+    """The two-level form for metric-under-bucket sub-aggs: the bucket doc
+    counts over the (doc, bucket) pairs and the bucket value counts over
+    the bucket x metric-value cross pairs, in one launch.
+
+    blob sections: [doc(pd) | seg(pd) | dct0 | dct1 | mdoc(pm) | mseg(pm)
+    | mct0 | mct1], all i32, pair sections multiples of AGG_PAIR_GRAN.
+
+    Returns ([Q, n_segments] i32 doc counts, [Q, n_segments] i32 value
+    counts).
+    """
+    _check_agg(mask, blob, (pd, pm), n_segments)
+    if not _route(blob.device):
+        return agg_two_level_counts_plain(mask, blob, pd=pd, pm=pm,
+                                          n_segments=n_segments)
+    dc, vc = _agg_launch(mask, blob, (pd, pm), n_segments)
+    return dc, vc

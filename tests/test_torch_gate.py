@@ -39,8 +39,8 @@ def test_port_imports_without_jax_or_reference():
     r = subprocess.run([sys.executable, "-c", _GATE], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    # package, subpackages and modules: at least the slice's 20 modules
-    assert int(r.stdout.strip().splitlines()[-1]) >= 20
+    # package, subpackages and modules: the 33 of slices 1-4 at least
+    assert int(r.stdout.strip().splitlines()[-1]) >= 33
 
 
 def test_entry_points_default_to_cuda():
@@ -53,6 +53,7 @@ def test_entry_points_default_to_cuda():
     from elasticsearch_tpu_torch.parallel.knn import KnnEngine, build_knn_engine
     from elasticsearch_tpu_torch.parallel.spmd import StackedBM25
     from elasticsearch_tpu_torch.parallel.turbo import TurboBM25
+    from elasticsearch_tpu_torch.search import agg_device
 
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -68,6 +69,8 @@ def test_entry_points_default_to_cuda():
                          "cosine")] * 2
     for make in (lambda: KnnEngine(cols[:1]),
                  lambda: KnnEngine(cols, stacked=True),
-                 lambda: build_knn_engine(cols)):
+                 lambda: build_knn_engine(cols),
+                 agg_device.AggDeviceEngine,
+                 agg_device.default_engine):
         with pytest.raises(DeviceUnavailableError):
             make()

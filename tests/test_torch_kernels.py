@@ -7,7 +7,8 @@ their plain torch versions for CPU tensors. K1, K2, the row pick, K3, the
 bitset helpers and K5-K7 must agree bit for bit (tolerance 0): the
 kernels' arithmetic is integer or bitwise, one rounding per step, or sums
 in a fixed order. The reference's uint32 bitsets are compared with the
-port's int32 ones through a numpy view. K9's float epilogue is bitwise too:
+port's int32 ones through a numpy view. K8's counts are integers, bitwise on every case. K9's float epilogue is
+bitwise too:
 the port follows the order in which XLA on the CPU compiles the reference
 kernel, fused multiply-adds included (ROADMAP W11). K9's rows are stored
 doc-major in the port, so the reference gets them transposed. The CUDA
@@ -29,8 +30,9 @@ from elasticsearch_tpu.parallel.knn import KnnEngine as RefKnnEngine
 from elasticsearch_tpu_torch.common.errors import KernelLaunchError
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
-    bitset_inputs, clause_slots, conj_inputs, knn_inputs, lanes_and_groups,
-    mask_inputs, merge_inputs, sparse_inputs, sweep_inputs,
+    AGG_CASES, agg_inputs, agg_section, bitset_inputs, clause_slots,
+    conj_inputs, knn_inputs, lanes_and_groups, mask_inputs, merge_inputs,
+    sparse_inputs, sweep_inputs,
 )
 
 torch.set_num_threads(1)
@@ -327,3 +329,66 @@ def test_knn_wrappers_reject_bad_inputs():
         k.merge_topk(_t(s), _t(o), k=3)
     with pytest.raises(TypeError):
         k.merge_topk(_t(s), _t(o).long(), k=5)
+
+
+def _agg_both(mask, blob, ps, n_seg):
+    """(port, reference) K8 counts, one array per section."""
+    if len(ps) == 1:
+        got = [k.agg_segment_counts(_t(mask), _t(blob), p=ps[0],
+                                    n_segments=n_seg)]
+        want = [ref_k.agg_segment_counts(jnp.asarray(mask),
+                                         jnp.asarray(blob), p=ps[0],
+                                         n_segments=n_seg)]
+    else:
+        got = k.agg_two_level_counts(_t(mask), _t(blob), pd=ps[0],
+                                     pm=ps[1], n_segments=n_seg)
+        want = ref_k.agg_two_level_counts(jnp.asarray(mask),
+                                          jnp.asarray(blob), pd=ps[0],
+                                          pm=ps[1], n_segments=n_seg)
+    return [g.numpy() for g in got], [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("case", sorted(AGG_CASES))
+def test_agg_counts_bitwise(case):
+    """K8: pad pairs and pad chunks, buckets at or past n_segments (some
+    past the last tile), unsorted pairs over 3 tiles, tile ranges that
+    disagree with the pairs, a batch padded to its rung, and the two-level
+    blob, against the JAX kernel in interpret mode."""
+    mask, blob, ps, n_seg = agg_inputs(case)
+    k.reset_launches()
+    got, want = _agg_both(mask, blob, ps, n_seg)
+    assert k.LAUNCHES["agg_counts"] == 0
+    assert len(got) == len(ps)
+    for g, w in zip(got, want):
+        assert g.dtype == np.int32 and g.shape == (mask.shape[0], n_seg)
+        assert np.array_equal(g, w)
+    assert all(g.sum() > 0 for g in got)
+    if case == "q_padded_to_rung":
+        assert not got[0][1:].any()
+
+
+def test_agg_counts_ranges_decide():
+    """The tile ranges are honoured, not rederived: the inconsistent case
+    counts less than the same pairs with consistent ranges."""
+    mask, blob, ps, n_seg = agg_inputs("inconsistent_ranges")
+    rng = np.random.default_rng(AGG_CASES["inconsistent_ranges"][0])
+    good = np.concatenate(agg_section(rng, 8000, n_seg, 6000, grouped=False))
+    bad = k.agg_segment_counts(_t(mask), _t(blob), p=ps[0], n_segments=n_seg)
+    ok = k.agg_segment_counts(_t(mask), _t(good), p=ps[0], n_segments=n_seg)
+    assert np.array_equal(good[:2 * ps[0]], blob[:2 * ps[0]])
+    assert int(bad.sum()) < int(ok.sum())
+
+
+def test_agg_wrappers_reject_bad_inputs():
+    mask, blob, ps, n_seg = agg_inputs("pads")
+    m, b = _t(mask), _t(blob)
+    with pytest.raises(ValueError, match="need"):
+        k.agg_segment_counts(m, b[:-1].contiguous(), p=ps[0], n_segments=n_seg)
+    with pytest.raises(ValueError, match="multiple"):
+        k.agg_segment_counts(m, b, p=ps[0] - 1, n_segments=n_seg)
+    with pytest.raises(TypeError):
+        k.agg_segment_counts(m.to(torch.uint8), b, p=ps[0], n_segments=n_seg)
+    with pytest.raises(TypeError):
+        k.agg_segment_counts(m, b.long(), p=ps[0], n_segments=n_seg)
+    with pytest.raises(ValueError, match="need"):
+        k.agg_two_level_counts(m, b, pd=ps[0], pm=1024, n_segments=n_seg)

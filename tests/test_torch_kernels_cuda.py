@@ -9,8 +9,10 @@ imports jax for the reference tests:
 Inputs are the adversarial cases of the CPU differential tests (ties,
 negative and all-zero weights, padding lanes, zero groups, overlapping
 cold slices, fan-in padding and sentinel rows, coverage weights, masks with
-empty chunks, dead rows and windows, exact score ties, empty merge lanes)
-plus shapes the main path does not reach (more slots than a block has
+empty chunks, dead rows and windows, exact score ties, empty merge lanes,
+agg pad chunks, buckets past n_segments, unsorted pairs over several tiles,
+tile ranges that disagree with the pairs, padded batches, the two-level
+blob, a hot bucket) plus shapes the main path does not reach (more slots than a block has
 threads, a query tile that is not full, 4096-d rows). Every comparison is
 bitwise.
 """
@@ -21,8 +23,9 @@ import torch
 
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
-    bitset_inputs, clause_slots, conj_inputs, knn_inputs, lanes_and_groups,
-    mask_inputs, merge_inputs, sparse_inputs, sweep_inputs,
+    AGG_CASES, agg_inputs, agg_masks, agg_section, bitset_inputs,
+    clause_slots, conj_inputs, knn_inputs, lanes_and_groups, mask_inputs,
+    merge_inputs, sparse_inputs, sweep_inputs,
 )
 
 pytestmark = pytest.mark.cuda
@@ -169,3 +172,34 @@ def test_merge_topk_kernel(dev, n_parts, kk, q):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _agg_run(fn, mask, blob, ps, n_seg):
+    if len(ps) == 1:
+        return [fn[0](mask, blob, p=ps[0], n_segments=n_seg)]
+    return list(fn[1](mask, blob, pd=ps[0], pm=ps[1], n_segments=n_seg))
+
+
+@pytest.mark.parametrize("case", sorted(AGG_CASES) + ["hot_4_tiles"])
+def test_agg_counts_kernel(dev, case):
+    if case == "hot_4_tiles":
+        rng = np.random.default_rng(9)
+        n_docs, n_seg = 200_000, 60_000
+        sec = agg_section(rng, n_docs, n_seg, 1_000_000, grouped=False)
+        hot = agg_section(rng, n_docs, n_seg, 500_000, head=0.3)
+        mask = agg_masks(rng, 5, n_docs, live_rows=4, density=0.05)
+        blob, ps = np.concatenate(list(sec) + list(hot)), [len(sec[0]),
+                                                           len(hot[0])]
+    else:
+        mask, blob, ps, n_seg = agg_inputs(case)
+    m, b = _c(mask, dev), _c(blob, dev)
+    k.reset_launches()
+    got = _agg_run((k.agg_segment_counts, k.agg_two_level_counts), m, b, ps,
+                   n_seg)
+    assert k.LAUNCHES["agg_counts"] == 1
+    want = _agg_run((k.agg_segment_counts_plain,
+                     k.agg_two_level_counts_plain), m, b, ps, n_seg)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    assert all(int(g.sum()) > 0 for g in got)

@@ -245,3 +245,95 @@ def merge_inputs(seed, q, n_parts, kk):
                 s[qi, p, m] = -0.25
     s[-1] = 0                                        # a query with no hit
     return s.reshape(q, n_parts * kk), o.reshape(q, n_parts * kk)
+
+
+def agg_section(rng, n_docs, n_segments, n_pairs, *, grouped=True, oob=0,
+                pad_chunks=0, head=0.0):
+    """One K8 blob section [doc(p) | seg(p) | ct0 | ct1] as agg_device's
+    _pack_pairs packs it: pairs grouped by bucket (terms layouts) or in
+    doc order (histogram ranks), the last chunk padded with (doc 0, bucket
+    -1) and `pad_chunks` whole pad chunks carrying the range (1, 0).
+    `head` gives that share of the pairs to bucket 0 (a hot Zipf term);
+    `oob` pairs get buckets at or past n_segments, some past the last
+    tile."""
+    gran, tile = k.AGG_PAIR_GRAN, k.AGG_SEG_TILE
+    n_tiles = -(-n_segments // tile)
+    docs = rng.integers(0, n_docs, size=n_pairs)
+    segs = rng.integers(0, n_segments, size=n_pairs)
+    segs[rng.random(n_pairs) < head] = 0
+    if oob:
+        at = rng.choice(n_pairs, size=oob, replace=False)
+        segs[at] = rng.choice([n_segments, n_segments + 7,
+                               n_tiles * tile - 1, n_tiles * tile + 5,
+                               1 << 20], size=oob)
+    order = np.lexsort((docs, segs)) if grouped else np.argsort(
+        docs, kind="stable")
+    docs, segs = docs[order], segs[order]
+    p = (-(-n_pairs // gran) + pad_chunks) * gran
+    d = np.zeros(p, np.int32)
+    s = np.full(p, -1, np.int32)
+    d[:n_pairs] = docs
+    s[:n_pairs] = segs
+    nc = p // gran
+    ct0 = np.ones(nc, np.int32)
+    ct1 = np.zeros(nc, np.int32)
+    for c in range(nc):
+        live = s[c * gran:(c + 1) * gran]
+        live = live[live >= 0]
+        if len(live):
+            ct0[c] = int(live.min()) // tile
+            ct1[c] = int(live.max()) // tile
+    return d, s, ct0, ct1
+
+
+def perturb_ranges(section, n_tiles):
+    """Tile ranges that disagree with the pairs: a live chunk skipped
+    (1, 0), a range cut to its first tile, one wider than the grid, and
+    one that holds none of its chunk's tiles."""
+    d, s, ct0, ct1 = (a.copy() for a in section)
+    ct0[0], ct1[0] = 1, 0
+    ct1[1] = ct0[1]
+    ct0[2], ct1[2] = -3, n_tiles + 4
+    ct0[3] = ct1[3] = ct1[3] + 1
+    return d, s, ct0, ct1
+
+
+def agg_masks(rng, q, n_docs, live_rows=None, density=0.3):
+    """[q, n_docs] bool query masks; rows from `live_rows` on are all
+    False, as agg_device pads a batch up to its rung."""
+    m = rng.random((q, n_docs)) < density
+    if live_rows is not None:
+        m[live_rows:] = False
+    return m
+
+
+AGG_CASES = {
+    # name: (seed, Q, live rows, n_docs, n_segments, sections)
+    "pads": (0, 3, None, 5000, 40, [dict(n_pairs=2900, pad_chunks=2)]),
+    "buckets_past_n_segments": (1, 2, None, 6000, 20000,
+                                [dict(n_pairs=5000, oob=300)]),
+    "unsorted_3_tiles": (2, 2, None, 8000, 40000,
+                         [dict(n_pairs=6000, grouped=False)]),
+    "inconsistent_ranges": (3, 2, None, 8000, 40000,
+                            [dict(n_pairs=6000, grouped=False)]),
+    "q_padded_to_rung": (4, 4, 1, 3000, 300,
+                         [dict(n_pairs=4000, head=0.2)]),
+    "two_level": (5, 2, None, 4000, 64,
+                  [dict(n_pairs=3500, head=0.2),
+                   dict(n_pairs=2600, pad_chunks=1)]),
+}
+
+
+def agg_inputs(name):
+    """(mask [Q, n_docs] bool, blob i32, section pair counts, n_segments)
+    of one AGG_CASES case."""
+    seed, q, live, n_docs, n_seg, secs = AGG_CASES[name]
+    rng = np.random.default_rng(seed)
+    parts, ps = [], []
+    for kw in secs:
+        sec = agg_section(rng, n_docs, n_seg, **kw)
+        if name == "inconsistent_ranges":
+            sec = perturb_ranges(sec, -(-n_seg // k.AGG_SEG_TILE))
+        parts += list(sec)
+        ps.append(len(sec[0]))
+    return agg_masks(rng, q, n_docs, live), np.concatenate(parts), ps, n_seg
