@@ -67,8 +67,10 @@ aggregation path the way bench.py drives config 6:
    (a near-tie swap inside the score bound is counted), every score within
    the bound of two f32 summation orders (KNN_GAMMA), recall@10 >= 0.99
    against exact f32 scores on 32 queries, the stacked engine's planted
-   answers equal to one partition's, and K9 (both variants, both engines)
-   and K4 bitwise equal to their plain versions on the path's inputs;
+   answers equal to one partition's, and K9 (both variants, both engines,
+   and on 16 of the queries) and K4 bitwise equal to their plain versions
+   on the path's inputs, K9 timed with its score and selection passes
+   apart;
 9. serves config 6 (analytics) at bench.py's 10,000,000 docs: a leaf drawn
    as bench.py's _synth_agg_leaf (Zipf tags, a 90-day timestamp, prices
    with gaps), AGG_BENCH_SPEC (terms + stats, 7d date_histogram + sum)
@@ -1170,6 +1172,7 @@ MIN_RECALL = 0.99
 # |q| (Cauchy-Schwarz; unit rows, |v_bf16| <= 1 + 2^-8) plus the transform's
 # roundings, 4 ulp of a score below 2.
 KNN_GAMMA = 767 * 2.0 ** -24 / (1 - 767 * 2.0 ** -24)
+K9_SMALL_QC = 16          # check_k9's small query tile, beside QC 256
 KNN_COUNTERS = ("knn_queries", "knn_int8_dispatches", "knn_rescore_docs",
                 "knn_host_fallbacks", "knn_uncertified", "knn_bytes")
 KNN_MAPPINGS = {"properties": {"tag": {"type": "keyword"},
@@ -1488,12 +1491,15 @@ def exact_topk_rows(vec, norms, q_rows, k=K):
 def check_k9(eng, qs, fworks):
     """K9 against its plain version on the engine's own first-pass inputs at
     QC = 256 (every window active at nprobe 0): the unmasked launch and the
-    masked one with the filtered batch's masks, each timed; on the S = 1
-    engine also torch._int_mm of the int8 product alone. Returns
-    {variant: numbers}."""
+    masked one with the filtered batch's masks, and the unmasked launch on
+    the first 16 queries, each timed, with its score pass and selection
+    pass apart (torch.profiler's kernel events), its scratch bytes and its
+    chunk count; on the S = 1 engine also torch._int_mm of the int8 product
+    alone. Returns {variant: numbers}."""
     import torch
 
     from elasticsearch_tpu_torch.parallel import kernels as k
+    from elasticsearch_tpu_torch.tools.k9_ab import kernel_times
 
     dev, qc = eng.device, len(qs)
     qi8, qm = (torch.from_numpy(x).to(dev)
@@ -1510,9 +1516,14 @@ def check_k9(eng, qs, fworks):
         fm = torch.from_numpy(eng._filter_mask(0, fworks, qc)).to(dev)
     rows = sum(eng.n_docs)
     out = {}
-    for variant, fmask in (("unmasked", None), ("masked", fm)):
+    q16 = K9_SMALL_QC
+    for variant, args in (
+            ("unmasked", (qi8, qm, q8, meta, act, None)),
+            ("masked", (qi8, qm, q8, meta, act, fm)),
+            (f"unmasked_qc{q16}", (qi8[:q16], qm[:q16], q8, meta,
+                                   act[..., :q16, :].contiguous(), None))):
         res = {}
-        args = (qi8, qm, q8, meta, act, fmask)
+        fmask, nq = args[5], int(args[0].shape[0])
         ms = cuda_ms(lambda: res.__setitem__("k", k.knn_int8_window_topc(
             *args, similarity="cosine")), 10)
         plain_ms = cuda_ms(lambda: res.__setitem__(
@@ -1521,13 +1532,21 @@ def check_k9(eng, qs, fworks):
         err = max(max_abs_err(ks, ps), max_abs_err(kr, pr))
         require(err == 0.0 and torch.equal(ks, ps) and torch.equal(kr, pr),
                 f"K9 {variant} kernel vs plain: max_abs_err {err}")
-        nbytes = (q8.numel() + meta.numel() * 4 + qi8.numel() + qm.numel() * 4
-                  + act.numel() * 4 + ks.numel() * 8
-                  + (0 if fmask is None else fmask.numel()))
-        b_ms, b_by = bound(nbytes, 2 * qc * KNN_DIMS * rows, PEAK_INT8)
+        nbytes = (q8.numel() + meta.numel() * 4 + args[0].numel()
+                  + args[1].numel() * 4 + args[4].numel() * 4
+                  + ks.numel() * 8 + (0 if fmask is None else fmask.numel()))
+        b_ms, b_by = bound(nbytes, 2 * nq * KNN_DIMS * rows, PEAK_INT8)
+        cw = k.knn_chunk_windows(eng.nw, nq, eng.S)
+        passes = kernel_times(lambda: k.knn_int8_window_topc(
+            *args, similarity="cosine"))
         out[variant] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "candidates": int(torch.isfinite(ks).sum())}
+                        "bound_ms": b_ms, "bound_by": b_by, "QC": nq,
+                        "candidates": int(torch.isfinite(ks).sum()),
+                        "score_pass_ms": passes["knn_score_pass"],
+                        "select_pass_ms": passes["knn_select_pass"],
+                        "chunk_windows": cw,
+                        "chunks": len(k.knn_chunks(eng.nw, cw)),
+                        "scratch_bytes": eng.S * cw * nq * k.KNN_W * 4}
         del res
     out["shape"] = {"QC": qc, "nw": eng.nw, "dimsP": eng.dimsP,
                     "partitions": eng.S, "rows": rows}
@@ -1672,7 +1691,8 @@ def knn_phase(n: int, device="cuda") -> tuple:
            "replaces": "elasticsearch_tpu/parallel/kernels.py:1210",
            "launches": launches,
            "max_abs_err": max(v[x]["max_abs_err"] for v in (one, four)
-                              for x in ("unmasked", "masked")),
+                              for x in ("unmasked", "masked",
+                                        f"unmasked_qc{K9_SMALL_QC}")),
            "ms": one["unmasked"]["ms"], "plain_ms": one["unmasked"]["plain_ms"],
            "bound_ms": one["unmasked"]["bound_ms"],
            "bound_by": one["unmasked"]["bound_by"],
@@ -1680,9 +1700,11 @@ def knn_phase(n: int, device="cuda") -> tuple:
            "library_note": "torch._int_mm of the int8 product alone "
                            "[256, 768] x [768, rows]; no call adds the "
                            "epilogue and the window top-32",
-           "shape": one["shape"], "masked": one["masked"],
-           "stacked": {"unmasked": four["unmasked"],
-                       "masked": four["masked"], "shape": four["shape"]},
+           "shape": one["shape"], "unmasked": one["unmasked"],
+           "masked": one["masked"],
+           f"unmasked_qc{K9_SMALL_QC}": one[f"unmasked_qc{K9_SMALL_QC}"],
+           "stacked": {x: four[x] for x in (
+               "unmasked", "masked", f"unmasked_qc{K9_SMALL_QC}", "shape")},
            "launches_by_engine": {
                lbl: report[lbl]["launches"]["knn_int8_window_topc"]
                for lbl in ("S=1", f"S={KNN_PARTS}")}}

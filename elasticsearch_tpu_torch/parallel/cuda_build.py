@@ -50,7 +50,7 @@ _SIGNATURES = {
     "merge_topk": ("merge_topk", "es_merge_topk",
                    [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "knn_int8_window_topc": ("knn_window_topc", "es_knn_int8_window_topc",
-                             [_P] * 8 + [_I, _I, _I, _I, _I, _P]),
+                             [_P] * 9 + [_I] * 6 + [_P]),
     "agg_counts": ("agg_counts", "es_agg_counts",
                    [_P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _I, _I, _P]),
 }

@@ -709,6 +709,30 @@ _MERGE_SMEM_MAX = 227 * 1024   # a block's shared memory: L scores + L ords
 # --------------------------------------------------------------------------
 
 _KNN_WIN_CHUNK = 32   # windows per step of the plain version
+# K9 keeps a chunk of windows' f32 scores in a scratch tensor between its
+# score pass and its selection pass. Chunks that fit the H100's 50 MB L2
+# lost on the card to larger ones: the selection is bound by its own
+# instructions, not by reading the scores back, and each chunk pays two
+# launch tails (measured by elasticsearch_tpu_torch/tools/k9_ab.py; PERF.md).
+# The budget caps the scratch's device memory instead.
+KNN_SCRATCH_BYTES = 512 << 20
+_KNN_MAX_CHUNK = 65535 // (KNN_W // 128)   # the score pass's grid y limit
+
+
+def knn_chunk_windows(nw: int, qc: int, n_parts: int = 1,
+                      budget: int | None = None) -> int:
+    """Windows per K9 chunk: as many as keep the chunk's [n_parts, cw, qc,
+    KNN_W] f32 scratch within `budget` bytes (KNN_SCRATCH_BYTES by
+    default), at least one and at most nw."""
+    budget = KNN_SCRATCH_BYTES if budget is None else budget
+    per_window = n_parts * qc * KNN_W * 4
+    return max(1, min(nw, _KNN_MAX_CHUNK, budget // per_window))
+
+
+def knn_chunks(nw: int, cw: int):
+    """The [w0, w1) window ranges K9 takes cw at a time (the C entry's
+    loop); the last may be short."""
+    return [(w0, min(nw, w0 + cw)) for w0 in range(0, nw, cw)]
 
 
 def _fma(a, b, c):
@@ -821,6 +845,8 @@ def knn_int8_window_topc(qi8, qmeta, q8, meta, act, fmask=None, *,
 
     Returns (scores [nw, QC, KNN_CANDW] f32, rows [nw, QC, KNN_CANDW] i32):
     rows are stored-row ids w * KNN_W + lane; empty slots are (-inf, 0).
+    On the card the kernel takes the windows knn_chunk_windows at a time,
+    through one scratch tensor of a chunk's f32 scores.
     """
     if similarity not in KNN_SIMILARITIES:
         raise ValueError(f"unknown similarity [{similarity}]")
@@ -862,11 +888,14 @@ def knn_int8_window_topc(qi8, qmeta, q8, meta, act, fmask=None, *,
                         device=dev)
     out_r = torch.empty(pre + (nw, qc, KNN_CANDW), dtype=torch.int32,
                         device=dev)
+    cw = knn_chunk_windows(nw, qc, S)
+    scratch = torch.empty((S, cw, qc, KNN_W), dtype=torch.float32,
+                          device=dev)
     _launch("knn_int8_window_topc", dev, qi8.data_ptr(), qmeta.data_ptr(),
             q8.data_ptr(), meta.data_ptr(), act.data_ptr(),
             0 if fmask is None else fmask.data_ptr(), out_s.data_ptr(),
-            out_r.data_ptr(), qc, dims_p, nw, S,
-            KNN_SIMILARITIES.index(similarity))
+            out_r.data_ptr(), scratch.data_ptr(), qc, dims_p, nw, S,
+            KNN_SIMILARITIES.index(similarity), cw)
     return out_s, out_r
 
 

@@ -247,6 +247,65 @@ def test_knn_int8_window_topc_bitwise(similarity, masked):
     assert any(len(set(r)) < len(r) for r in gs[:2].reshape(-1, 32))
 
 
+@pytest.mark.parametrize("case", ["dups", "idle"])
+@pytest.mark.parametrize("similarity", ["cosine", "dot_product", "l2_norm"])
+def test_knn_int8_window_topc_ties_and_idle_bitwise(similarity, case):
+    """The plain K9 against the reference where every row is a copy of one
+    of 3 (ties far past the 32 kept, broken by row asc) and where a window
+    is idle for every query and a query for every window (slots stay
+    (-inf, 0)); dimsP 64. Rows are held bitwise; scores within 2 ulp
+    (the kNN tests' bound, ROADMAP W1), because at dimsP 64 (and on some tied data) XLA on the CPU contracts
+    K9's epilogue into other fused multiply-adds than at the shapes of
+    test_knn_int8_window_topc_bitwise (ROADMAP W11)."""
+    qi8, qmeta, q8, meta, act, _ = knn_inputs(13, qc=6, nw=2, dims=40,
+                                              pad=64, dups=case == "dups")
+    if case == "idle":
+        act[:, 1] = 0.0
+        act[3, :] = 0.0
+    want_s, want_r = ref_k.knn_int8_window_topc(
+        jnp.asarray(qi8), jnp.asarray(qmeta),
+        jnp.asarray(np.ascontiguousarray(q8.transpose(0, 2, 1))),
+        jnp.asarray(meta), jnp.asarray(act), None, similarity=similarity)
+    got_s, got_r = k.knn_int8_window_topc(
+        _t(qi8), _t(qmeta), _t(q8), _t(meta), _t(act), None,
+        similarity=similarity)
+    gs, gr = got_s.numpy(), got_r.numpy()
+    ws = np.asarray(want_s)
+    assert np.array_equal(gr, np.asarray(want_r))
+    assert np.array_equal(np.isinf(gs), np.isinf(ws))
+    fin = np.isfinite(ws)
+    assert (np.abs(gs[fin] - ws[fin])
+            <= 2 * np.spacing(np.abs(ws[fin]))).all()
+    idle = (act == 0).T
+    assert np.isinf(gs[idle]).all() and (gr[idle] == 0).all()
+    if case == "dups":
+        assert (gs[0, 0] == gs[0, 0, 0]).all()
+        assert (np.diff(gr[0, 0]) > 0).all()
+
+
+@pytest.mark.parametrize("nw,qc,n_parts,budget", [
+    (977, 256, 1, 32 << 20), (977, 16, 1, 32 << 20), (245, 256, 4, 32 << 20),
+    (17, 256, 1, 32 << 20), (5, 3000, 2, 1 << 20), (1, 1, 1, 1 << 40),
+    (70000, 1, 1, 1 << 40), (977, 256, 1, 16 << 20)])
+def test_knn_chunk_plan(nw, qc, n_parts, budget):
+    """K9's chunks of windows cover [0, nw) in order, each within the
+    scratch budget, at least one window each even when one window alone is
+    over it, and within the score pass's grid limit."""
+    cw = k.knn_chunk_windows(nw, qc, n_parts, budget)
+    chunks = k.knn_chunks(nw, cw)
+    assert chunks[0][0] == 0 and chunks[-1][1] == nw
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(w1 - w0 >= 1 for w0, w1 in chunks)
+    assert all(w1 - w0 <= cw for w0, w1 in chunks)
+    per_window = n_parts * qc * k.KNN_W * 4
+    assert cw == 1 or cw * per_window <= budget
+    assert cw * (k.KNN_W // 128) <= 65535
+    if per_window <= budget and nw * per_window > budget:
+        assert (cw + 1) * per_window > budget      # the budget is used
+    assert k.knn_chunk_windows(nw, qc, n_parts) == k.knn_chunk_windows(
+        nw, qc, n_parts, k.KNN_SCRATCH_BYTES)
+
+
 def test_knn_int8_window_topc_stacked_equals_per_partition():
     """The stacked launch (a partition axis) equals one launch per
     partition."""

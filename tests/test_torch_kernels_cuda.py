@@ -13,8 +13,9 @@ empty chunks, dead rows and windows, exact score ties, empty merge lanes,
 agg pad chunks, buckets past n_segments, unsorted pairs over several tiles,
 tile ranges that disagree with the pairs, padded batches, the two-level
 blob, a hot bucket) plus shapes the main path does not reach (more slots than a block has
-threads, a query tile that is not full, 4096-d rows). Every comparison is
-bitwise.
+threads, a query tile that is not full, 4096-d rows) and K9's tiling cases
+(query tiles, a short last chunk of windows, rows that all tie, idle
+windows). Every comparison is bitwise.
 """
 
 import numpy as np
@@ -160,6 +161,57 @@ def test_knn_int8_window_topc_kernel(dev, similarity, qc, nw, dims, masked,
     torch.cuda.synchronize()
     assert torch.equal(ks, ps) and torch.equal(kr, pr)
     assert torch.isfinite(ks).any()
+
+
+# K9's two-pass tiling: query tiles of 128 (QC 1, 129, 256), a short last
+# chunk of windows, dimsP 64 and 4096, stacked and masked, rows that are all
+# copies of 3 (ties past the 32 kept and past the candidate list: the
+# whole-row selection), and windows
+# no query of a tile probes
+K9_TILING = {
+    "qc1": dict(qc=1, nw=2, dims=768),
+    "qc129": dict(qc=129, nw=2, dims=256),
+    "qc256": dict(qc=256, nw=2, dims=768),
+    "short_chunk": dict(qc=40, nw=4, dims=64, pad=64),
+    "dims64": dict(qc=24, nw=2, dims=60, pad=64),
+    "dims4096": dict(qc=20, nw=2, dims=4096),
+    "stacked4_masked": dict(qc=37, nw=3, dims=128, masked=True, n_parts=4),
+    "dups": dict(qc=33, nw=2, dims=128, dups=True),
+    "idle": dict(qc=140, nw=3, dims=128),
+}
+
+
+@pytest.mark.parametrize("similarity", ["cosine", "dot_product", "l2_norm"])
+@pytest.mark.parametrize("case", sorted(K9_TILING))
+def test_knn_int8_window_topc_tiling(dev, monkeypatch, similarity, case):
+    kw = K9_TILING[case]
+    qi8, qmeta, q8, meta, act, fmask = knn_inputs(
+        len(case) + kw["qc"], **kw)
+    if case == "short_chunk":     # chunks of 3 windows: [0, 3), [3, 4)
+        per_window = kw["qc"] * k.KNN_W * 4
+        monkeypatch.setattr(k, "KNN_SCRATCH_BYTES", 3 * per_window)
+        assert k.knn_chunks(kw["nw"], k.knn_chunk_windows(
+            kw["nw"], kw["qc"])) == [(0, 3), (3, 4)]
+    if case == "idle":            # window 1 idle for all, query 5 for all
+        act[..., :, 1] = 0.0
+        act[..., 5, :] = 0.0
+    args = [_c(a, dev) for a in (qi8, qmeta, q8, meta, act)]
+    fm = None if fmask is None else _c(fmask, dev)
+    ks, kr = k.knn_int8_window_topc(*args, fm, similarity=similarity)
+    ps, pr = k.knn_int8_window_topc_plain(*args, fm, similarity=similarity)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, ps) and torch.equal(kr, pr)
+    assert torch.isfinite(ks).any()
+    # a (query, window) the probe skipped keeps every slot (-inf, 0)
+    idle = torch.from_numpy(act == 0).to(dev)
+    idle = idle.transpose(-1, -2)[..., None].expand_as(ks)
+    assert torch.isinf(ks[idle]).all() and (kr[idle] == 0).all()
+    if case == "dups":            # ties beyond the 32 kept, rows ascending
+        fin = torch.isfinite(ks)
+        assert int(fin.sum(dim=-1).max()) == k.KNN_CANDW
+        same = (ks[..., 1:] == ks[..., :-1]) & fin[..., 1:]
+        assert bool(same.any())
+        assert bool((kr[..., 1:] > kr[..., :-1])[same].all())
 
 
 @pytest.mark.parametrize("n_parts,kk,q", [(1, 10, 16), (4, 10, 256),

@@ -175,22 +175,26 @@ def clause_slots(seed, qc, n_slots):
     return q_slots, q_neg
 
 
-def knn_inputs(seed, qc, nw, dims, masked=False, n_parts=1):
+def knn_inputs(seed, qc, nw, dims, masked=False, n_parts=1, pad=128,
+               dups=False):
     """K9 inputs as KnnEngine makes them, doc-major q8 [P, nw, KNN_W,
     dimsP]: queries and rows quantized per row to int8 with their meta,
     plus dead rows (okf 0), a window with no live row, windows the IVF
     probe left inactive for some queries, exact ties (copies of one row at
     several positions, across windows too) and, if masked, a filter with
-    about half the docs set. Leading partition axes are dropped when
-    n_parts == 1."""
+    about half the docs set. dims is zero-padded to a multiple of `pad`;
+    `dups` makes every row a copy of one of 3 rows (ties far beyond the
+    32 kept, more than K9's candidate list holds). Leading partition axes are dropped when n_parts == 1."""
     rng = np.random.default_rng(seed)
     W = k.KNN_W
-    dims_p = -(-dims // 128) * 128
+    dims_p = -(-dims // pad) * pad
     n = nw * W
     v = rng.standard_normal((n_parts, n, dims)).astype(np.float32)
     for p in range(n_parts):
         v[p, 1::97] = v[p, 5]                         # exact ties
         v[p, W + 3:: W] = v[p, 5]                     # across windows
+        if dups:
+            v[p] = v[p, rng.integers(0, 3, size=n)]
     s_r = np.maximum(np.abs(v).max(axis=2), 1e-12) / 127.0
     v8 = np.clip(np.round(v / s_r[..., None]), -127, 127).astype(np.int8)
     q8 = np.zeros((n_parts, n, dims_p), np.int8)
