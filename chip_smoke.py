@@ -23,8 +23,9 @@ aggregation path the way bench.py drives config 6:
    65536, 7 GiB column budget, bench.py's settings) at the widened slice
    ladder below, prebuilds every column (K1 at full width) and serves two
    batches of 256 two-term Zipf queries and a batch of `match` DSL bodies
-   through `extract_plan` (K2 at QC = 256, K3 for the cold terms), with
-   every kernel's launch count set to 0 just before and read just after;
+   through `extract_plan` (K2 at QC = 256, K3 once per group of a sweep
+   chunk's cold sides), with every kernel's launch count set to 0 just
+   before and read just after;
 4. requires no fault record, host-tier fallback, sparse fallback or
    degraded column, at most MAX_CERT_FALLBACK_SHARE of the queries failing
    their certificate (the algorithm's own exact path for heavily tied
@@ -35,7 +36,10 @@ aggregation path the way bench.py drives config 6:
 5. runs each kernel and its plain torch version on the same inputs at the
    path's shapes, requires bitwise agreement, and times both (CUDA events,
    median), with one PyTorch library call beside K2 and K3 as a yardstick;
-   K3 is also timed at every dispatch of the first batch;
+   K3 is held on every group the path launched (each recorded with a copy
+   of the slice pool it read), and on the first batch also timed query by
+   query as the old one-launch-per-query pattern ran it, this tree's
+   kernel and, given --k3-parent, the parent commit's;
 6. on the same engine, serves config 2 (256 bool queries drawn as
    bench.py's draw_bool, plus bool DSL bodies through extract_plan and
    _turbo_bool_spec) on both sweeps: ES_TPU_BITSET=1 (K5 + K6) and
@@ -46,10 +50,10 @@ aggregation path the way bench.py drives config 6:
    (the exact host route). Every answer is held bitwise against
    search_bool_host and some against a numpy scorer; certificate
    fallbacks that a numpy check of exact scores does not explain are
-   held to MAX_CERT_FALLBACK_SHARE; K5-K7, and K3 on every
-   cold-SHOULD dispatch, are held against their plain versions on the
-   bitset route's device chunk and timed, and so are the bitset repack
-   and mask_chunk_counts;
+   held to MAX_CERT_FALLBACK_SHARE; K5-K7 are held against their plain
+   versions on the bitset route's device chunk and timed, K3 on every
+   group of cold SHOULD sides each route launched, and so are the bitset
+   repack and mask_chunk_counts;
 7. serves the first batch again on a fresh engine at the default slice
    ladder and reports its sparse fallbacks, holding the answers that step
    4 held;
@@ -130,6 +134,10 @@ WIDE_LADDER = f"1024,4096,16384,{COLD_DF}"
 # counted separately per route, count only the fallbacks that
 # fallback_explained() does not explain from exact scores.
 MAX_CERT_FALLBACK_SHARE = 0.02
+# where the K3 A/B looks for the parent kernel's source by default (the
+# gitignored build directory): write it there with
+#   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/sparse_gather.cu
+K3_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k3_parent.cu"
 # queries of each config-1 batch held against the host-exact tier (the DSL
 # bodies are held in full): the hold is host work, about 0.6 s a query on
 # the chip machine's 8 cores, and the cut keeps the whole run, kNN and agg
@@ -374,114 +382,328 @@ def int_mm_ms(turbo, wq) -> float:
     return ms
 
 
-def k3_dispatches(turbo, sides):
-    """K3's input arrays (coff, cw, ct0, ct1) for each query's nonempty
-    cold side [(term, boost, info)], as the path dispatches them."""
-    preps = []
-    for cold in sides:
-        # re-slice what a later batch evicted (a cut index has a small pool)
-        if not cold or not turbo._ensure_sparse([(t, i) for t, _, i in cold]):
-            continue
-        prep = turbo._sparse_dispatch_args(cold)
-        require(prep is not None, "K3: a cold side exceeded the chunk buckets")
-        preps.append(prep[0])
-    require(preps, "K3: no query had a cold term")
-    return preps
+@contextlib.contextmanager
+def record_k3_groups(turbo):
+    """Yields a list that collects every batched K3 launch of the engine
+    while the block runs: its packed inputs (TurboBM25._sparse_group_args),
+    its per-query chunk counts and a copy of the slice pool as the launch
+    read it (later batches may evict and overwrite slices). Wraps
+    _sparse_launch on this instance only; the copies launch no kernel."""
+    groups = []
+    launch = turbo._sparse_launch
+
+    def spy(preps):
+        meta, n_rc = turbo._sparse_group_args(preps)
+        groups.append({"meta": meta, "n_rc": n_rc, "n_q": len(preps),
+                       "chunks": [len(p[0][0]) for p in preps],
+                       "pool": turbo._sp_pool.clone()})
+        return launch(preps)
+
+    turbo._sparse_launch = spy
+    try:
+        yield groups
+    finally:
+        del turbo._sparse_launch
 
 
-def check_k3_bool(turbo, chunk, launches):
-    """K3 against its plain version on every cold-SHOULD dispatch of the
-    bool path's device chunk (the sides _finish_bool sends), each timed on
-    its own."""
+def k3_device_ms(fn, reps: int = 5):
+    """Device time per call of fn's K3 kernels (this tree's and the
+    parent's are both named sparse_gather_kernel), from torch.profiler's
+    kernel events: the kernel alone, without the host's time to enqueue
+    it, which CUDA events around a small launch also count. None when the
+    profiler saw no kernel."""
+    from elasticsearch_tpu_torch.tools.k9_ab import kernel_times
+
+    return kernel_times(fn, names=("sparse_gather_kernel",),
+                        reps=reps)["sparse_gather_kernel"]
+
+
+def host_enqueue_ms(fn, reps: int = 200) -> float:
+    """Host wall time per call of fn without synchronising: what the
+    wrapper costs the host to check its inputs and enqueue the launch."""
     import torch
 
-    from elasticsearch_tpu_torch.parallel import kernels as k
-
-    preps = k3_dispatches(turbo, [
-        [(t, b, i) for t, b, i in r.should if t not in turbo._slot_of]
-        for r in chunk])
-    pool, n_tiles = turbo._sp_pool, turbo.Dp // k.TILE
-    per, err = [], 0.0
-    for arrays in preps:
-        a = [torch.from_numpy(x).to(turbo.device) for x in arrays]
-        out = {}
-        per.append(cuda_ms(lambda: out.__setitem__("k", k.sparse_gather(
-            *a, pool, n_tiles=n_tiles)), 3))
-        plain = k.sparse_gather_plain(*a, pool, n_tiles=n_tiles)
-        e = max_abs_err(out["k"], plain)
-        require(e == 0.0 and torch.equal(out["k"], plain),
-                f"K3 kernel vs plain on the bool path: max_abs_err {e}")
-        err = max(err, e)
-    live = [int((arrays[0] > 0).sum()) for arrays in preps]
-    q = np.percentile(per, [0, 50, 90, 100])
-    return {"launches": launches, "dispatches_held": len(per),
-            "max_abs_err": err, "sum_ms": float(np.sum(per)),
-            "min_ms": q[0], "p50_ms": q[1], "p90_ms": q[2], "max_ms": q[3],
-            "live_chunks_min": min(live),
-            "live_chunks_p50": float(np.median(live)),
-            "live_chunks_max": max(live)}
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = (time.perf_counter() - t) / reps * 1e3
+    torch.cuda.synchronize()
+    return dt
 
 
-def check_k3(turbo, batch, launches):
+def k3_tensors(g, dev):
+    """(coff, cw, ct0, ct1, qoff) of a recorded group, on the card."""
     import torch
 
-    from elasticsearch_tpu_torch.parallel import kernels as k
-    from elasticsearch_tpu_torch.parallel.turbo import _flatten_queries
+    from elasticsearch_tpu_torch.parallel.turbo import _group_views
 
-    dev = turbo.device
-    flat, _ = _flatten_queries([batch])
-    preps = k3_dispatches(turbo, [
-        [(t, b, turbo._term(t)) for t, b in terms
-         if turbo._term(t) is not None and t not in turbo._slot_of]
-        for terms in flat])
-    n_tiles = turbo.Dp // k.TILE
-    pool = turbo._sp_pool
-    # every dispatch of the batch, timed on its own
-    per = []
-    for arrays in preps:
-        a = [torch.from_numpy(x).to(dev) for x in arrays]
-        per.append(cuda_ms(lambda: k.sparse_gather(*a, pool, n_tiles=n_tiles),
-                           3))
-    live = [int((arrays[0] > 0).sum()) for arrays in preps]
-    big = max(range(len(preps)), key=lambda i: live[i])
-    coff, cw, ct0, ct1 = (torch.from_numpy(x).to(dev) for x in preps[big])
-    out = {}
-    ms = cuda_ms(lambda: out.__setitem__("k", k.sparse_gather(
-        coff, cw, ct0, ct1, pool, n_tiles=n_tiles)), 20)
-    plain_ms = cuda_ms(lambda: out.__setitem__("p", k.sparse_gather_plain(
-        coff, cw, ct0, ct1, pool, n_tiles=n_tiles)), 3)
-    err = max_abs_err(out["k"], out["p"])
-    require(err == 0.0 and torch.equal(out["k"], out["p"]),
-            f"K3 kernel vs plain: max_abs_err {err}")
-    # the wrapper's granule-range check (a read-back before the launch) is
-    # inside `ms`; its own time alone
-    n_gran = int(pool.shape[0])
-    check_ms = cuda_ms(lambda: bool(((coff < 0) | (coff >= n_gran)).any()), 20)
+    return _group_views(torch.from_numpy(g["meta"]).to(dev), g["n_rc"],
+                        g["n_q"])
+
+
+def k3_parent(path):
+    """The parent commit's K3 (one query per launch, a block per 16384-doc
+    tile; its C entry has no qoff), built with nvcc from `path` and bound
+    with ctypes beside this tree's kernel. Returns run(coff, cw, ct0, ct1,
+    pool, n_tiles) -> out, or None when `path` is not a file."""
+    import ctypes
+
+    import torch
+
+    from elasticsearch_tpu_torch.tools.k9_ab import build
+
+    if path is None or not os.path.isfile(path):
+        return None
+    from pathlib import Path
+
+    fn = build("k3_parent", Path(path)).es_sparse_gather
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, i, p, i, p, i, p]
+    fn.restype = ctypes.c_int
+
+    def run(coff, cw, ct0, ct1, pool, n_tiles):
+        n = int(coff.shape[0])
+        out = torch.zeros((n, 8, 128), dtype=torch.float32,
+                          device=pool.device)
+        rc = fn(coff.data_ptr(), cw.data_ptr(), ct0.data_ptr(),
+                ct1.data_ptr(), n, pool.data_ptr(), int(pool.shape[0]),
+                out.data_ptr(), n_tiles,
+                torch.cuda.current_stream().cuda_stream)
+        require(rc == 0, f"parent K3 launch failed: cudaError {rc}")
+        return out
+
+    return run
+
+
+def k3_bound(coff, pool, n_q: int):
+    """The K3 bound of one launch: each chunk's granule read once and its
+    output written once, the metadata read once; one multiply and one add
+    per live lane (a posting's addend). Returns (ms, by, live lanes)."""
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
     n_rc = int(coff.shape[0])
+    lanes = int(((pool[coff.long()] & 255) > 0).sum()) if n_rc else 0
+    nbytes = n_rc * (k.SPARSE_GRAN * 4 * 2 + 16) + (n_q + 1) * 4
+    return bound(nbytes, lanes * 2, PEAK_F32) + (lanes,)
+
+
+def k3_index_add_ms(coff, cw, pool, qoff, n_tiles):
+    """Yardstick: the scatter half of K3 as one index_add_ over every query
+    of a launch, each query's docs in its own n_tiles * 16384 range (the
+    port never calls it). None when the accumulator would pass 12 GB."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    n_rc = int(coff.shape[0])
+    span = n_tiles * k.TILE
+    n_q = int(qoff.shape[0]) - 1
+    if n_q * span * 4 > 12e9:
+        return None
+    q_of = torch.repeat_interleave(
+        torch.arange(n_q, device=coff.device),
+        (qoff[1:] - qoff[:-1]).long(), output_size=n_rc)
     v = pool[coff.long()].reshape(n_rc, -1)
     imp = v & 255
     ok = imp > 0
-    docs = ((v >> 8) & 0xFFFFFF).long()[ok]
+    keys = (((v >> 8) & 0xFFFFFF).long() + (q_of * span)[:, None])[ok]
     vals = (imp.float() * cw[:, None])[ok]
-    acc = torch.zeros(n_tiles * k.TILE, dtype=torch.float32, device=dev)
-    # yardstick: the scatter half as one index_add_ (the port never calls it)
-    lib_ms = cuda_ms(lambda: acc.index_add_(0, docs, vals), 20)
-    nbytes = n_rc * (k.SPARSE_GRAN * 4 * 2 + 16)
-    b_ms, b_by = bound(nbytes, int(ok.sum()) * 2, PEAK_F32)
-    q = np.percentile(per, [0, 50, 90, 100])
+    acc = torch.zeros(n_q * span, dtype=torch.float32, device=coff.device)
+    ms = cuda_ms(lambda: acc.index_add_(0, keys, vals), 10)
+    del acc
+    torch.cuda.empty_cache()
+    return ms
+
+
+def k3_hold_group(g, n_tiles, dev, reps=10):
+    """One recorded group on the card: the batched launch timed (the
+    serving call, host_checked), held bitwise against the plain version.
+    Returns (row of numbers, launch args)."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    coff, cw, ct0, ct1, qoff = a = k3_tensors(g, dev)
+    pool = g["pool"]
+    out = {}
+
+    def kern():
+        out["k"] = k.sparse_gather(coff, cw, ct0, ct1, pool, n_tiles=n_tiles,
+                                   qoff=qoff, host_checked=True)
+
+    ms = cuda_ms(kern, reps)
+    kernel_ms = k3_device_ms(kern)
+    plain_ms = cuda_ms(lambda: out.__setitem__("p", k.sparse_gather_plain(
+        coff, cw, ct0, ct1, pool, n_tiles=n_tiles, qoff=qoff)), 1)
+    err = max_abs_err(out["k"], out["p"])
+    require(err == 0.0 and torch.equal(out["k"], out["p"]),
+            f"K3 batched kernel vs plain: max_abs_err {err}")
+    b_ms, b_by, lanes = k3_bound(coff, pool, g["n_q"])
+    return {"queries": g["n_q"], "chunks": g["n_rc"], "lanes": lanes,
+            "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+            "kernel_bound_share": b_ms / kernel_ms if kernel_ms else None,
+            "max_abs_err": err}, a
+
+
+def k3_per_dispatch(groups, n_tiles, dev, parent):
+    """The old call pattern on the same queries: each query's dispatch
+    launched on its own (qoff None), this tree's kernel and the parent's,
+    each timed alone with CUDA events (the glue and read-backs of each old
+    dispatch not included), and the device time of all of them launched
+    back to back (torch.profiler). Also the query with the most chunks.
+    Returns sums and that largest dispatch's args."""
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    cur, old, big, dispatches = [], [], None, []
+    for g in groups:
+        coff, cw, ct0, ct1, qoff = k3_tensors(g, dev)
+        qo = [int(x) for x in qoff.cpu()]
+        for a, b in zip(qo[:-1], qo[1:]):
+            args = (coff[a:b].clone(), cw[a:b].clone(), ct0[a:b].clone(),
+                    ct1[a:b].clone(), g["pool"])
+            dispatches.append(args)
+            cur.append(cuda_ms(lambda: k.sparse_gather(
+                *args, n_tiles=n_tiles, host_checked=True), 3))
+            if parent is not None:
+                old.append(cuda_ms(lambda: parent(*args, n_tiles), 3))
+            if big is None or b - a > int(big[0].shape[0]):
+                big = args
+
+    def each_new():
+        for args in dispatches:
+            k.sparse_gather(*args, n_tiles=n_tiles, host_checked=True)
+
+    def each_parent():
+        for args in dispatches:
+            parent(*args, n_tiles)
+
+    return {"dispatches": len(cur), "sum_ms": float(np.sum(cur)),
+            "p50_ms": float(np.median(cur)) if cur else None,
+            "kernel_sum_ms": k3_device_ms(each_new, 2),
+            "parent_sum_ms": float(np.sum(old)) if old else None,
+            "parent_p50_ms": float(np.median(old)) if old else None,
+            "parent_kernel_sum_ms": (k3_device_ms(each_parent, 2)
+                                     if parent is not None else None)}, big
+
+
+def check_k3(groups, batch_groups, n_tiles, launches, parent):
+    """K3 on the main path's own launches: every recorded group held
+    bitwise against the plain version and timed; per batch its groups,
+    chunks, time, bound and share, and the sum the old per-query pattern
+    makes on the same queries (this kernel and the parent's). The row's
+    numbers are the first batch's cold side (its groups summed); `q1` is
+    its largest single dispatch, beside index_add_ and the parent."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    require(groups, "K3: the main path launched no group")
+    dev = groups[0]["pool"].device
+    held = [k3_hold_group(g, n_tiles, dev) for g in groups]
+    batches = []
+    for b, idx in enumerate(batch_groups):
+        rows = [held[i][0] for i in idx]
+        ms = float(sum(r["ms"] for r in rows))
+        bms = float(sum(r["bound_ms"] for r in rows))
+        batches.append({"groups": len(rows),
+                        "queries_per_group": [r["queries"] for r in rows],
+                        "chunks": [r["chunks"] for r in rows],
+                        "ms": ms, "bound_ms": bms,
+                        "bound_share": bms / ms if ms else None})
+    first = [held[i] for i in batch_groups[0]]
+    require(first, "K3: the first batch launched no group")
+    lib = [k3_index_add_ms(a[0], a[1], groups[i]["pool"], a[4], n_tiles)
+           for i, (_, a) in zip(batch_groups[0], first)]
+    old, big = k3_per_dispatch([groups[i] for i in batch_groups[0]],
+                               n_tiles, dev, parent)
+    batches[0]["old_pattern"] = old
+    # the largest single dispatch, Q = 1
+    coff, cw, ct0, ct1, pool = big
+    out = {}
+
+    def q1_kern():
+        out["k"] = k.sparse_gather(coff, cw, ct0, ct1, pool, n_tiles=n_tiles,
+                                   host_checked=True)
+
+    def q1_old():
+        out["o"] = parent(coff, cw, ct0, ct1, pool, n_tiles)
+
+    q1_ms = cuda_ms(q1_kern, 20)
+    q1_dev = k3_device_ms(q1_kern, 10)
+    q1_host = host_enqueue_ms(q1_kern)
+    q1_plain = cuda_ms(lambda: out.__setitem__("p", k.sparse_gather_plain(
+        coff, cw, ct0, ct1, pool, n_tiles=n_tiles)), 3)
+    err = max_abs_err(out["k"], out["p"])
+    require(err == 0.0, f"K3 kernel vs plain at Q = 1: max_abs_err {err}")
+    q1_parent = q1_parent_dev = None
+    if parent is not None:
+        q1_parent = cuda_ms(q1_old, 20)
+        q1_parent_dev = k3_device_ms(q1_old, 10)
+        require(torch.equal(out["o"], out["p"]),
+                "the parent K3 differs from the plain version")
+    q1_lib = k3_index_add_ms(coff, cw, pool,
+                             torch.tensor([0, int(coff.shape[0])],
+                                          dtype=torch.int32, device=dev),
+                             n_tiles)
+    q1_b, q1_by, q1_lanes = k3_bound(coff, pool, 1)
+    rows = [r for r, _ in first]
+    ms = float(sum(r["ms"] for r in rows))
+    b_ms = float(sum(r["bound_ms"] for r in rows))
     return {"name": "sparse_gather", "route": "cuda",
             "source": "elasticsearch_tpu_torch/parallel/csrc/sparse_gather.cu",
             "replaces": "elasticsearch_tpu/parallel/kernels.py:901",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "range_check_ms": check_ms,
-            "shape": {"n_rc": n_rc, "live_chunks": live[big],
-                      "lanes": int(ok.sum()), "n_tiles": n_tiles},
-            "batch_dispatches": {
-                "n": len(per), "sum_ms": float(np.sum(per)),
-                "min_ms": q[0], "p50_ms": q[1], "p90_ms": q[2], "max_ms": q[3],
-                "live_chunks_min": min(live), "live_chunks_p50":
-                    float(np.median(live)), "live_chunks_max": max(live)}}
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r, _ in held),
+            "ms": ms, "plain_ms": float(sum(r["plain_ms"] for r in rows)),
+            "bound_ms": b_ms,
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in rows) else "operations",
+            "library_ms": (float(sum(lib)) if all(x is not None for x in lib)
+                           else None),
+            "library_note": "index_add_ of the scatter half, every query's "
+                            "docs in its own range",
+            "shape": {"what": "the first config-1 batch's cold side",
+                      "groups": len(rows),
+                      "queries": sum(r["queries"] for r in rows),
+                      "chunks": sum(r["chunks"] for r in rows),
+                      "lanes": sum(r["lanes"] for r in rows),
+                      "n_tiles": n_tiles},
+            "batches": batches,
+            "groups_held": len(held),
+            "kernel_ms": (float(sum(r["kernel_ms"] for r in rows))
+                          if all(r["kernel_ms"] for r in rows) else None),
+            "q1": {"chunks": int(coff.shape[0]), "lanes": q1_lanes,
+                   "ms": q1_ms, "kernel_ms": q1_dev,
+                   "host_enqueue_ms": q1_host, "plain_ms": q1_plain,
+                   "bound_ms": q1_b, "bound_by": q1_by,
+                   "library_ms": q1_lib, "parent_ms": q1_parent,
+                   "parent_kernel_ms": q1_parent_dev}}
+
+
+def check_k3_bool(route_groups, n_tiles, launches, parent):
+    """K3 on the bool path's own launches (the cold SHOULD sides), per
+    route: every group held bitwise against the plain version and timed,
+    beside the old per-query pattern on the same queries."""
+    out = {}
+    for route, groups in route_groups.items():
+        require(groups, f"K3: the bool {route} route launched no group")
+        dev = groups[0]["pool"].device
+        held = [k3_hold_group(g, n_tiles, dev)[0] for g in groups]
+        old, _ = k3_per_dispatch(groups, n_tiles, dev, parent)
+        ms = float(sum(r["ms"] for r in held))
+        bms = float(sum(r["bound_ms"] for r in held))
+        kms = [r["kernel_ms"] for r in held]
+        out[route] = {"launches": launches[route], "groups": held,
+                      "ms": ms, "bound_ms": bms,
+                      "kernel_ms": float(sum(kms)) if all(kms) else None,
+                      "bound_share": bms / ms if ms else None,
+                      "max_abs_err": max((r["max_abs_err"] for r in held),
+                                         default=0.0),
+                      "old_pattern": old}
+    return out
 
 
 def default_ladder(fp, n_docs, batch, held):
@@ -759,10 +981,10 @@ def record_fallbacks(turbo, bits: bool):
     fell = []
     finish = turbo._finish_bool
 
-    def spy(r, cand_docs, bound, k):
+    def spy(r, cand_docs, bound, k, cold):
         n = turbo.stats["fallbacks"]
         scoring, req, neg = turbo._bool_slots(r)
-        out = finish(r, cand_docs, bound, k)
+        out = finish(r, cand_docs, bound, k, cold)
         if turbo.stats["fallbacks"] > n:
             spec = _spec_of(r)
             terms = ([t for t, _ in spec["must"] + spec["should"]]
@@ -972,7 +1194,8 @@ def env_set(name: str, value: str):
 def serve_bool_routes(eng, turbo, fp, n_docs, batches):
     """The bool batches on both sweeps: ES_TPU_BITSET=1 (K5 + K6) and
     ES_TPU_BITSET=0 (K7), each with every launch count set to 0 just before
-    and read just after. Returns {route: (answers per batch, report)}."""
+    and read just after. Returns {route: (answers per batch, report, K3
+    groups)}."""
     from elasticsearch_tpu_torch.parallel import kernels
 
     out = {}
@@ -981,7 +1204,8 @@ def serve_bool_routes(eng, turbo, fp, n_docs, batches):
         fault_log = []
         answers, lat = [], []
         with env_set("ES_TPU_BITSET", flag), \
-                record_fallbacks(turbo, flag == "1") as fell:
+                record_fallbacks(turbo, flag == "1") as fell, \
+                record_k3_groups(turbo) as k3_groups:
             kernels.reset_launches()
             for specs in batches:
                 t = time.time()
@@ -1010,11 +1234,15 @@ def serve_bool_routes(eng, turbo, fp, n_docs, batches):
         for name in need + ("sparse_gather",):
             require(launches[name] > 0,
                     f"bool {route}: {name} never launched: {launches}")
-        out[route] = (answers, rep)
+        require(len(k3_groups) == launches["sparse_gather"],
+                f"bool {route}: {len(k3_groups)} K3 groups recorded, "
+                f"{launches['sparse_gather']} launched")
+        out[route] = (answers, rep, k3_groups)
     return out
 
 
-def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper):
+def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper,
+                k3_parent_run=None):
     """Configs 2 and 3 on the main path's engine: the bool batches on both
     sweeps, K5-K7 held against their plain versions on the bitset route's
     dispatch, then slop-0 phrase batches and one slop-2 match_phrase body.
@@ -1072,9 +1300,10 @@ def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper):
                              bit_l["sweep_rowmax_bitset"])]
         del mask
         rows.append(check_k7(turbo, chunk, cov_l["sweep_rowmax_conj"]))
-        k3_bool = check_k3_bool(turbo, chunk, {
-            "bitset": bit_l["sparse_gather"],
-            "coverage": cov_l["sparse_gather"]})
+        k3_bool = check_k3_bool(
+            {r: routes[r][2] for r in routes}, turbo.Dp // kernels.TILE,
+            {"bitset": bit_l["sparse_gather"],
+             "coverage": cov_l["sparse_gather"]}, k3_parent_run)
     for r in rows:
         log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
@@ -1141,7 +1370,7 @@ def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper):
             "a drawn or head-term phrase matched nothing")
     log("numpy scorer agrees on 3 phrases")
 
-    report = {"bool": {r: rep for r, (_, rep) in routes.items()},
+    report = {"bool": {r: rep for r, (_, rep, _) in routes.items()},
               "phrase": prep, "repack_s": repack_s,
               "pack_presence_bits_ms": pack_ms,
               "mask_chunk_counts_ms": counts_ms,
@@ -2141,7 +2370,7 @@ def agg_phase(n: int, device="cuda") -> tuple:
 
 
 def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
-        agg_docs: int) -> dict:
+        agg_docs: int, k3_parent_src=None) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import hbm_ledger
@@ -2160,6 +2389,8 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
     log(f"kernels built in {build_s:.1f}s")
+    parent = k3_parent(k3_parent_src)
+    log(f"parent K3 for the A/B: {k3_parent_src if parent else 'not given'}")
 
     if n_docs < FULL_DOCS:
         log(f"CUT: index cut from {FULL_DOCS} to {n_docs} docs")
@@ -2191,16 +2422,21 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     n_cols = eng.prebuild_columns()
     torch.cuda.synchronize()
     prebuild_s = time.time() - t
-    results, lat, cert_fb, k3_per = [], [], [], []
-    for b in batches + [dsl]:
-        fb0 = eng.stats["fallbacks"]
-        k30 = kernels.LAUNCHES["sparse_gather"]
-        t = time.time()
-        results.append(eng.search_many([b], k=K, fault_log=fault_log)[0])
-        lat.append(time.time() - t)
-        cert_fb.append(eng.stats["fallbacks"] - fb0)
-        k3_per.append(kernels.LAUNCHES["sparse_gather"] - k30)
+    results, lat, cert_fb, k3_per, k3_batch = [], [], [], [], []
+    with record_k3_groups(turbo) as k3_groups:
+        for b in batches + [dsl]:
+            fb0 = eng.stats["fallbacks"]
+            k30 = kernels.LAUNCHES["sparse_gather"]
+            g0 = len(k3_groups)
+            t = time.time()
+            results.append(eng.search_many([b], k=K, fault_log=fault_log)[0])
+            lat.append(time.time() - t)
+            cert_fb.append(eng.stats["fallbacks"] - fb0)
+            k3_per.append(kernels.LAUNCHES["sparse_gather"] - k30)
+            k3_batch.append(list(range(g0, len(k3_groups))))
     launches = dict(kernels.LAUNCHES)
+    require([len(x) for x in k3_batch] == k3_per,
+            f"K3 groups recorded {k3_batch} against launches {k3_per}")
     log(f"main path: {n_cols} columns prebuilt in {prebuild_s:.2f}s; "
         f"batch latencies {[round(x, 4) for x in lat]}s; launches {launches}")
     require(all(launches[n] > 0 for n in
@@ -2262,7 +2498,9 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     rows = [check_k1(turbo, launches["build_columns"])]
     torch.cuda.empty_cache()
     rows.append(check_k2(turbo, batches[0], launches["sweep_rowmax"]))
-    rows.append(check_k3(turbo, batches[0], launches["sparse_gather"]))
+    rows.append(check_k3(k3_groups, k3_batch, turbo.Dp // kernels.TILE,
+                         launches["sparse_gather"], parent))
+    del k3_groups
     for r in rows:
         log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
@@ -2272,7 +2510,8 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     # ---- bool and phrase paths on the same engine and shard ----
     t = time.time()
     bool_rows, bool_report, k3_bool = bool_phases(eng, turbo, fp, n_docs,
-                                                  tokens, bounds, mapper)
+                                                  tokens, bounds, mapper,
+                                                  parent)
     rows[2]["bool_path"] = k3_bool
     rows += bool_rows
     bool_report["phases_s"] = time.time() - t
@@ -2330,6 +2569,10 @@ def main(argv=None) -> int:
                     help="kNN column size (default: 2M 768-d vectors)")
     ap.add_argument("--agg-docs", type=int, default=AGG_DOCS,
                     help="agg leaf size (default: config 6's 10M docs)")
+    ap.add_argument("--k3-parent", default=K3_PARENT,
+                    help="an earlier sparse_gather.cu (one query a launch) "
+                         "to time beside this tree's K3 on the same "
+                         "dispatches; skipped when the file is missing")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2346,7 +2589,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
         return 2
     out = run(args.docs, args.batches, args.batch, args.knn_docs,
-              args.agg_docs)
+              args.agg_docs, args.k3_parent)
     print(json.dumps({"serving": out["serving"]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

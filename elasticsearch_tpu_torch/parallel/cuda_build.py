@@ -44,7 +44,7 @@ _SIGNATURES = {
     "sweep_rowmax_bitset": ("sweep_rowmax", "es_sweep_rowmax_bitset",
                             [_P] * 8 + [_I, _I, _I, _P]),
     "sparse_gather": ("sparse_gather", "es_sparse_gather",
-                      [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P]),
+                      [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P]),
     "intersect_bitset": ("intersect_bitset", "es_intersect_bitset",
                          [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "merge_topk": ("merge_topk", "es_merge_topk",

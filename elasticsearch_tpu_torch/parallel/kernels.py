@@ -564,12 +564,12 @@ def sweep_rowmax_bitset(qscale, cols_hi, cols_lo, wq, mask, live, *,
 # --------------------------------------------------------------------------
 
 
-def sparse_gather_plain(coff, cw, ct0, ct1, pool, *, n_tiles: int):
-    """Plain torch K3: chunks are added into per-doc f32 totals one at a
-    time in rc order (a chunk's docs are distinct), each addend
-    f32(imp) * cw rounded on its own, then every lane reads its doc's total
-    back. Lanes with imp = 0, or whose tile lies outside the chunk's
-    [ct0, ct1] or the grid, read 0."""
+def _sparse_gather_one(coff, cw, ct0, ct1, pool, n_tiles: int):
+    """One query's chunks: added into per-doc f32 totals one at a time in rc
+    order (a chunk's docs are distinct), each addend f32(imp) * cw rounded
+    on its own, then every lane reads its doc's total back. Lanes with
+    imp = 0, or whose tile lies outside the chunk's [ct0, ct1] or the grid,
+    read 0."""
     dev = pool.device
     n_rc = int(coff.shape[0])
     v = pool[coff.long()].reshape(n_rc, SPARSE_GRAN)
@@ -589,8 +589,25 @@ def sparse_gather_plain(coff, cw, ct0, ct1, pool, *, n_tiles: int):
     return out.view(n_rc, SPARSE_GRAN // 128, 128)
 
 
-def sparse_gather(coff, cw, ct0, ct1, pool, *, n_tiles: int):
-    """Cold-term eager sparse scoring.
+def sparse_gather_plain(coff, cw, ct0, ct1, pool, *, n_tiles: int,
+                        qoff=None):
+    """Plain torch K3: each query's chunk range [qoff[q], qoff[q + 1]) is
+    gathered on its own (qoff None: one query over every chunk)."""
+    if qoff is None:
+        return _sparse_gather_one(coff, cw, ct0, ct1, pool, n_tiles)
+    qo = [int(x) for x in qoff.cpu()]
+    outs = [_sparse_gather_one(coff[a:b], cw[a:b], ct0[a:b], ct1[a:b], pool,
+                               n_tiles)
+            for a, b in zip(qo[:-1], qo[1:])]
+    if not outs:
+        return torch.zeros((0, SPARSE_GRAN // 128, 128), dtype=torch.float32,
+                           device=pool.device)
+    return torch.cat(outs)
+
+
+def sparse_gather(coff, cw, ct0, ct1, pool, *, n_tiles: int, qoff=None,
+                  host_checked: bool = False):
+    """Cold-term eager sparse scoring, for one query or a batch of them.
 
     coff [n_rc] i32 — pool granule per 1024-lane chunk (granule 0 is the
         reserved all-zero granule padding chunks point at); an offset
@@ -598,10 +615,19 @@ def sparse_gather(coff, cw, ct0, ct1, pool, *, n_tiles: int):
     cw [n_rc] f32 — per-chunk dequant weight (idf * boost * slice scale)
     ct0/ct1 [n_rc] i32 — inclusive 16384-doc tile range of the chunk's
         sorted docs; (1, 0) skips a chunk
-    pool [G, 8, 128] i32 — packed granules, doc << 8 | impact
+    pool [G, 8, 128] i32 — packed granules, doc << 8 | impact. Each
+        chunk's live lanes (impact > 0) come first, with distinct docs in
+        ascending order, then zero lanes only: the kernel finds a doc in a
+        granule by binary search (TurboBM25._ensure_sparse packs slices so)
+    qoff [Q + 1] i32 — query q owns chunks [qoff[q], qoff[q + 1]): qoff[0]
+        is 0, qoff[Q] is n_rc, and it never descends (empty queries are
+        allowed); None means one query over every chunk
+    host_checked — the caller has already held coff against the pool and
+        qoff to the rules above on the host; the wrapper then skips its own
+        check (one read-back on the card)
 
-    Returns [n_rc, 8, 128] f32: at each chunk lane, the total over all
-    dispatched chunks of its doc's contributions.
+    Returns [n_rc, 8, 128] f32: at each chunk lane, the total over its
+    query's chunks of its doc's contributions.
     """
     dev = pool.device
     _check(pool, "pool", torch.int32, 3, dev)
@@ -616,18 +642,36 @@ def sparse_gather(coff, cw, ct0, ct1, pool, *, n_tiles: int):
         raise ValueError("coff, cw, ct0 and ct1 must have one entry per chunk")
     if n_tiles < 1:
         raise ValueError(f"n_tiles={n_tiles}")
-    # a granule offset outside the pool is a caller bug: both routes refuse
-    # it here, rather than the kernel reading zeros and the plain version
-    # raising an IndexError (one read-back on the card)
-    if n_rc and bool(((coff < 0) | (coff >= pool.shape[0])).any()):
-        raise ValueError(f"coff holds a granule outside the pool "
-                         f"[0, {int(pool.shape[0])})")
+    if qoff is not None:
+        _check(qoff, "qoff", torch.int32, 1, dev)
+        if qoff.shape[0] < 1:
+            raise ValueError("qoff needs at least one entry")
+    if not host_checked:
+        # a granule offset outside the pool or a malformed qoff is a caller
+        # bug: both routes refuse it here, rather than the kernel reading
+        # zeros and the plain version raising an IndexError (one read-back
+        # on the card)
+        bad = [((coff < 0) | (coff >= pool.shape[0])).any()]
+        if qoff is not None:
+            bad.append((qoff[0] != 0) | (qoff[-1] != n_rc)
+                       | (qoff[1:] < qoff[:-1]).any())
+        bad = torch.stack(bad).tolist()
+        if bad[0]:
+            raise ValueError(f"coff holds a granule outside the pool "
+                             f"[0, {int(pool.shape[0])})")
+        if bad[1:] and bad[1]:
+            raise ValueError(f"qoff must ascend from 0 to n_rc={n_rc}")
     if not _route(dev):
-        return sparse_gather_plain(coff, cw, ct0, ct1, pool, n_tiles=n_tiles)
-    out = torch.zeros((n_rc, SPARSE_GRAN // 128, 128), dtype=torch.float32,
+        return sparse_gather_plain(coff, cw, ct0, ct1, pool, n_tiles=n_tiles,
+                                   qoff=qoff)
+    out = torch.empty((n_rc, SPARSE_GRAN // 128, 128), dtype=torch.float32,
                       device=dev)
+    if n_rc == 0:
+        return out
+    n_q = 1 if qoff is None else int(qoff.shape[0]) - 1
     _launch("sparse_gather", dev, coff.data_ptr(), cw.data_ptr(),
-            ct0.data_ptr(), ct1.data_ptr(), n_rc, pool.data_ptr(),
+            ct0.data_ptr(), ct1.data_ptr(), n_rc,
+            0 if qoff is None else qoff.data_ptr(), n_q, pool.data_ptr(),
             int(pool.shape[0]), out.data_ptr(), int(n_tiles))
     return out
 

@@ -11,7 +11,8 @@ Per query the terms split three ways, as in the reference:
   global best rows, so only ~n_rows row ids per query reach the host.
 * **cold** (df < cold_df): the term keeps an eager sparse slice, packed
   ``doc << 8 | impact`` granules in a device pool, scored by
-  kernels.sparse_gather (K3); the host bound-prunes and rescores exactly.
+  kernels.sparse_gather (K3) in one launch for a sweep chunk's queries
+  (`_sparse_contrib_many`); the host bound-prunes and rescores exactly.
 * the host rescores every doc of the collected rows in exact f32 (term
   order identical to the reference scorer) and checks a per-query
   certificate bounding what the quantized sweep could have hidden in rows
@@ -261,9 +262,28 @@ def node_bitset_stats() -> dict:
 # ---- eager sparse impact tier (ES_TPU_SPARSE) ----
 
 _SPARSE_DOC_LIMIT = 1 << 23          # packed doc-id headroom in an int32
-_SPARSE_RC_BUCKETS = (2, 4, 8, 16, 32, 64, 128, 256)   # dispatch chunk
-#   counts, as the reference buckets them; above the last, a query's cold
-#   side is scored on the host
+_SPARSE_MAX_CHUNKS = 256   # the reference's largest dispatch bucket: a
+#   query whose cold side needs more chunks is scored on the host
+
+
+class _SparseGroup:
+    """The K3 dispatches of one sweep chunk's queries that wait for one
+    batched launch (`_sp_flush`), and the slice granules packed on the host
+    mirror since the last upload."""
+
+    def __init__(self, n_queries: int):
+        self.res: List[Optional[tuple]] = [None] * n_queries
+        self.members: List[tuple] = []   # (query index, cold terms, prep)
+        self.terms: set = set()          # every member's cold terms
+        self.dirty: List[np.ndarray] = []   # granule ids to upload
+
+
+def _group_views(m: torch.Tensor, n_rc: int, n_q: int):
+    """(coff, cw, ct0, ct1, qoff) views of a group's packed K3 inputs
+    (TurboBM25._sparse_group_args' layout)."""
+    return (m[:n_rc], m[3 * n_rc + n_q + 1:].view(torch.float32),
+            m[n_rc: 2 * n_rc], m[2 * n_rc: 3 * n_rc],
+            m[3 * n_rc: 3 * n_rc + n_q + 1])
 
 
 def _sparse_widths() -> Tuple[int, ...]:
@@ -377,6 +397,8 @@ class TurboBM25:
         self._sp_cap = max(2, min(int(hbm_budget_bytes) // 4, 64 << 20)
                            // (SPARSE_GRAN * 4))
         self._sp_ok = self.Dp <= _SPARSE_DOC_LIMIT
+        # the pending K3 group while _sparse_contrib_many runs
+        self._sp_group: Optional[_SparseGroup] = None
         self.stats = {"builds": 0, "build_s": 0.0, "fallbacks": 0,
                       "cold_queries": 0, "dispatches": 0, "degraded": 0,
                       "phrase_builds": 0, "bool_host": 0, "bool_device": 0,
@@ -727,7 +749,11 @@ class TurboBM25:
 
     def _reset_sparse(self) -> None:
         """Drop every slice (fault containment): zero both sides of the
-        pool so mirror and device agree, and rebuild lazily."""
+        pool so mirror and device agree, and rebuild lazily. A pending K3
+        group is launched first, while its granules are still there."""
+        self._sp_flush()
+        if self._sp_group is not None:
+            self._sp_group.dirty = []
         self.stats["sparse_bytes"] = 0
         self._sp_of.clear()
         self._sp_lru.clear()
@@ -756,6 +782,10 @@ class TurboBM25:
         for t in sorted(self._sp_lru, key=self._sp_lru.get):
             if t in protect or t not in self._sp_of:
                 continue
+            if self._sp_group is not None and t in self._sp_group.terms:
+                # flush-before-evict: the pending group reads t's granules,
+                # which the caller may overwrite once t is gone
+                self._sp_flush()
             self._sp_evict(t)
             free = self._sp_free.get(n_g)
             if free:
@@ -765,9 +795,12 @@ class TurboBM25:
     def _ensure_sparse(self, pairs: Sequence[Tuple[str, _TermInfo]]) -> bool:
         """Build device slices for cold (term, info) pairs: pack granules
         on the host mirror, then write them into the device pool in place
-        (index_copy_, where the reference donated the pool). Impacts are
-        uint8 on a per-term scale smax/255, rounded to >= 1 so a real
-        posting never vanishes. False when any term cannot be sliced."""
+        (index_copy_, where the reference donated the pool); while a K3
+        group is pending the upload waits for its launch, one for the
+        group. Impacts are uint8 on a per-term scale smax/255, rounded to
+        >= 1 so a real posting never vanishes: a granule holds its term's
+        docs in ascending order, then zero lanes, as K3 requires. False
+        when any term cannot be sliced."""
         if not self._sp_ok:
             return False
         widths = _sparse_widths()
@@ -786,7 +819,7 @@ class TurboBM25:
         if not need:
             return True
         fp = self.fp
-        idx_l, upd_l = [], []
+        idx_l = []
         complete = True
         try:
             for t, info, w in need:
@@ -816,16 +849,12 @@ class TurboBM25:
                 self._sp_of[t] = (g0, n_g, w, sscale)
                 self._sp_lru[t] = self._tick
                 idx_l.append(np.arange(g0, g0 + n_g, dtype=np.int64))
-                upd_l.append(gran)
                 self.stats["sparse_slices"] += 1
                 self.stats["sparse_bytes"] += w * 4
-            if idx_l:
-                with faults.device_errors("sparse_gather", self.part_id):
-                    self._sp_pool.index_copy_(
-                        0, torch.from_numpy(np.concatenate(idx_l))
-                        .to(self.device),
-                        torch.from_numpy(np.concatenate(upd_l, axis=0))
-                        .to(self.device))
+            if idx_l and self._sp_group is not None:
+                self._sp_group.dirty += idx_l
+            elif idx_l:
+                self._sp_upload(np.concatenate(idx_l))
         except DeviceFaultError:
             # a half-written pool would break mirror == device: drop it all
             self._reset_sparse()
@@ -833,11 +862,19 @@ class TurboBM25:
         self._hbm.set_region("sparse_pool", self._sp_pool.nbytes)
         return complete
 
+    def _sp_upload(self, idx: np.ndarray) -> None:
+        """Copy granules `idx` of the host mirror into the device pool."""
+        dev = self.device
+        with faults.device_errors("sparse_gather", self.part_id):
+            self._sp_pool.index_copy_(
+                0, torch.from_numpy(idx).to(dev),
+                torch.from_numpy(self._sp_host[idx]).to(dev))
+
     def _sparse_dispatch_args(self, cold_terms):
-        """The K3 chunk dispatch for one query's cold terms, or None when
-        it exceeds the largest chunk bucket: (coff, cw, ct0, ct1) numpy
-        arrays padded to the bucket, spans [(first chunk, df, post offset)]
-        per term, and the slack bounding |contrib - exact|."""
+        """The K3 chunk dispatch for one query's cold terms, or None above
+        _SPARSE_MAX_CHUNKS chunks: (coff, cw, ct0, ct1) numpy arrays,
+        spans [(first chunk, df, post offset)] per term, and the slack
+        bounding |contrib - exact|."""
         fp = self.fp
         coff: List[int] = []
         cw: List[float] = []
@@ -863,68 +900,157 @@ class TurboBM25:
             # step per term, plus a generous f32-accumulation margin
             slack += abs(wt) * (sscale
                                 + 3e-6 * max(float(info.smax), sscale))
-        if len(coff) > _SPARSE_RC_BUCKETS[-1]:
+        if len(coff) > _SPARSE_MAX_CHUNKS:
             return None
-        rcb = next(b for b in _SPARSE_RC_BUCKETS if b >= len(coff))
-        pad = rcb - len(coff)
-        args = (np.asarray(coff + [0] * pad, np.int32),
-                np.asarray(cw + [0.0] * pad, np.float32),
-                np.asarray(ct0 + [1] * pad, np.int32),
-                np.asarray(ct1 + [0] * pad, np.int32))
+        args = (np.asarray(coff, np.int32), np.asarray(cw, np.float32),
+                np.asarray(ct0, np.int32), np.asarray(ct1, np.int32))
         return args, spans, float(slack)
 
-    def _sparse_gather_dispatch(self, cold_terms):
-        """Device cold-side scoring: ensure slices, dispatch K3, and map the
-        gathered totals back onto each term's posting order. None when the
-        batch cannot be sliced; raises DeviceFaultError on device faults.
-        Otherwise (docs, contrib, slack) mirroring _cold_contrib's
-        unique-doc enumeration."""
-        if not self._sp_ok:
-            return None
-        if not self._ensure_sparse([(t, i) for t, _b, i in cold_terms]):
-            return None
-        prep = self._sparse_dispatch_args(cold_terms)
-        if prep is None:
-            return None
-        args, spans, slack = prep
-        rcb = len(args[0])
-        first = hbm_ledger.note_dispatch("turbo_sparse", rcb)
+    def _sparse_group_args(self, preps):
+        """One launch's K3 inputs for a group's dispatches, as one int32
+        array [coff | ct0 | ct1 | qoff | cw's bits], and n_rc."""
+        n = [len(p[0][0]) for p in preps]
+        qoff = np.zeros(len(preps) + 1, np.int32)
+        np.cumsum(n, out=qoff[1:])
+        coff, cw, ct0, ct1 = (np.concatenate([p[0][i] for p in preps])
+                              for i in range(4))
+        n_gran = int(self._sp_pool.shape[0])
+        # the wrapper's range check, here on the host (no read-back)
+        if ((coff < 0) | (coff >= n_gran)).any():
+            raise ValueError(f"K3 dispatch names a granule outside the "
+                             f"pool [0, {n_gran})")
+        return np.concatenate([coff, ct0, ct1, qoff, cw.view(np.int32)]), \
+            int(qoff[-1])
+
+    def _sparse_launch(self, preps):
+        """One K3 launch for a group's dispatches (prep = _sparse_dispatch_
+        args' triple): one upload, one read-back through pinned memory.
+        Per dispatch (docs, contrib, slack), mirroring _cold_contrib's
+        unique-doc enumeration; raises DeviceFaultError on device faults."""
+        meta, n_rc = self._sparse_group_args(preps)
+        n_q = len(preps)
+        dev = self.device
+        cuda = dev.type == "cuda"
+        first = hbm_ledger.note_dispatch("turbo_sparse", "batched")
         t0 = time.monotonic()
         with faults.device_errors("sparse_gather", self.part_id):
+            m = torch.from_numpy(meta)
+            m = m.pin_memory().to(dev, non_blocking=True) if cuda \
+                else m.to(dev)
+            coff, cw, ct0, ct1, qoff = _group_views(m, n_rc, n_q)
             out = kernels.sparse_gather(
-                *(torch.from_numpy(a).to(self.device) for a in args),
-                self._sp_pool, n_tiles=self.Dp // TILE)
-            flat = out.cpu().numpy().reshape(rcb * SPARSE_GRAN)
+                coff, cw, ct0, ct1, self._sp_pool, n_tiles=self.Dp // TILE,
+                qoff=qoff, host_checked=True)
+            if cuda:
+                host = torch.empty(out.shape, dtype=torch.float32,
+                                   pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                torch.cuda.current_stream(dev).synchronize()
+                out = host
+            flat = out.numpy().reshape(n_rc * SPARSE_GRAN)
         if first:
-            hbm_ledger.note_compile_done("turbo_sparse", rcb,
+            hbm_ledger.note_compile_done("turbo_sparse", "batched",
                                          time.monotonic() - t0)
         fp = self.fp
-        docs_l, vals_l = [], []
-        for c0, df, lo in spans:
-            docs_l.append(np.asarray(fp.post_doc[lo: lo + df], np.int64))
-            base = c0 * SPARSE_GRAN
-            vals_l.append(flat[base: base + df])
-        docs = np.concatenate(docs_l)
-        vals = np.concatenate(vals_l).astype(np.float64)
-        # a doc shared by several slices reads the same accumulator cell at
-        # every occurrence — first occurrence wins
-        u, fidx = np.unique(docs, return_index=True)
-        return u, vals[fidx], slack
-
-    def _sparse_contrib(self, cold_terms):
-        """Device cold side with containment: (docs, contrib, slack). A
-        fault or an unsliceable batch falls back to the exact host
-        enumeration with slack 0."""
-        try:
-            faults.fault_point("sparse_gather", self.part_id)
-            res = self._sparse_gather_dispatch(cold_terms)
-        except DeviceFaultError:
-            res = None
-        if res is None:
-            self.stats["sparse_fallbacks"] += 1
-            u, acc = self._cold_contrib(cold_terms)
-            return u, acc, 0.0
+        res = []
+        q0 = 0
+        for (args, spans, slack) in preps:
+            docs_l, vals_l = [], []
+            for c0, df, lo in spans:
+                docs_l.append(np.asarray(fp.post_doc[lo: lo + df], np.int64))
+                base = (q0 + c0) * SPARSE_GRAN
+                vals_l.append(flat[base: base + df])
+            q0 += len(args[0])
+            docs = np.concatenate(docs_l)
+            vals = np.concatenate(vals_l).astype(np.float64)
+            # a doc shared by several slices reads the same total at every
+            # occurrence — first occurrence wins
+            u, fidx = np.unique(docs, return_index=True)
+            res.append((u, vals[fidx], slack))
         return res
+
+    def _sparse_fallback(self, cold_terms):
+        """A query's cold side scored exactly on the host, with slack 0."""
+        self.stats["sparse_fallbacks"] += 1
+        u, acc = self._cold_contrib(cold_terms)
+        return u, acc, 0.0
+
+    def _sp_flush(self) -> None:
+        """Launch the pending K3 group: upload the granules packed since
+        the last upload, then one K3 launch for every member. A device
+        fault falls the members back to the host one by one (the pool is
+        kept unless its upload failed)."""
+        grp = self._sp_group
+        if grp is None:
+            return
+        members, grp.members, grp.terms = grp.members, [], set()
+        try:
+            if grp.dirty:
+                idx = np.unique(np.concatenate(grp.dirty))
+                grp.dirty = []
+                try:
+                    self._sp_upload(idx)
+                except DeviceFaultError:
+                    self._reset_sparse()
+                    raise
+            outs = self._sparse_launch([p for _, _, p in members]) \
+                if members else []
+        except DeviceFaultError:
+            outs = [None] * len(members)
+        for (qi, cold, _), o in zip(members, outs):
+            grp.res[qi] = o if o is not None else self._sparse_fallback(cold)
+
+    def _sparse_contrib_many(self, sides):
+        """Device cold sides of a sweep chunk's queries: per query
+        (docs, contrib, slack), or None where its side is empty.
+
+        Queries are taken in order, as the reference takes them one at a
+        time: the fault point, then `_ensure_sparse` with the query's own
+        terms protected (so slices and evictions match), then its dispatch
+        joins the pending group. The group launches once at the end, or
+        earlier when a slice it reads is about to be evicted. A fault, an
+        unsliceable side or one above _SPARSE_MAX_CHUNKS chunks falls back
+        to the exact host enumeration with slack 0, alone."""
+        grp = _SparseGroup(len(sides))
+        self._sp_group = grp
+        try:
+            for qi, cold in enumerate(sides):
+                if not cold:
+                    continue
+                prep = None
+                try:
+                    faults.fault_point("sparse_gather", self.part_id)
+                    if self._sp_ok and self._ensure_sparse(
+                            [(t, i) for t, _b, i in cold]):
+                        prep = self._sparse_dispatch_args(cold)
+                except DeviceFaultError:
+                    prep = None
+                if prep is None:
+                    grp.res[qi] = self._sparse_fallback(cold)
+                    continue
+                grp.members.append((qi, cold, prep))
+                grp.terms.update(t for t, _b, _i in cold)
+            self._sp_flush()
+        finally:
+            self._sp_group = None
+            if grp.dirty:     # an error left uploads out: mirror != device
+                self._reset_sparse()
+        return grp.res
+
+    def _cold_sides(self, sides):
+        """Per query (docs, contrib, slack) of its cold terms, or None
+        where it has none: through K3 (ES_TPU_SPARSE) or on the host."""
+        if self._sp_ok and bool(knob("ES_TPU_SPARSE")):
+            self.stats["sparse_queries"] += sum(1 for c in sides if c)
+            return self._sparse_contrib_many(sides)
+        out = []
+        for cold in sides:
+            if cold:
+                self.stats["cold_queries"] += 1
+                out.append(self._cold_contrib(cold) + (0.0,))
+            else:
+                out.append(None)
+        return out
 
     # ---------------- host exact scoring helpers ----------------
 
@@ -1023,10 +1149,12 @@ class TurboBM25:
                 packed = packed_dev.cpu().numpy()     # [QC, n_rows + 1]
             rows_all = packed[:, :n_rows].astype(np.int64)
             bounds = packed[:, n_rows]
+            splits = [self._split_terms(flat[off + qi]) for qi in range(n)]
+            colds = self._cold_sides([sp[2] for sp in splits])
             for qi in range(n):
                 docs = self._collect_docs(rows_all[qi])
                 s, d = self._finish_query(
-                    flat[off + qi], docs, float(bounds[qi]), k)
+                    splits[qi], docs, float(bounds[qi]), k, colds[qi])
                 out_s[off + qi, : len(s)] = s
                 out_d[off + qi, : len(d)] = d
         return [(out_s[o: o + n], out_d[o: o + n]) for o, n in spans]
@@ -1071,26 +1199,31 @@ class TurboBM25:
                 self.cols_lo, torch.from_numpy(wq).to(self.device),
                 self.live, nsw=self.nsw)
 
-    def _finish_query(self, terms, cand_docs, bound, k):
-        """Merge device-collected candidates + the cold side into an exact
-        top-k.
-
-        cand_docs [C] live doc ids from the collected rows — every one is
-        rescored exactly here; bound — the max approximate score any
-        uncollected row could hold (the row pick's last column)."""
-        qterms = []
-        cold_terms = []
-        col_terms = []
+    def _split_terms(self, terms):
+        """(qterms, col_terms, cold_terms) of one query's known terms, each
+        [(term, boost, info)]: colized = owns a column now. Neither the
+        sweep nor the cold tier changes the columns, so the split mirrors
+        what _sweep dispatched and the certificate stays sound."""
+        qterms, col_terms, cold_terms = [], [], []
         for t, b in terms:
             info = self._term(t)
             if info is None:
                 continue
             qterms.append((t, b, info))
-            # colized = owns a column now; the split mirrors what _sweep
-            # dispatched so the certificate stays sound
             (col_terms if t in self._slot_of else cold_terms).append(
                 (t, b, info))
+        return qterms, col_terms, cold_terms
 
+    def _finish_query(self, split, cand_docs, bound, k, cold):
+        """Merge device-collected candidates + the cold side into an exact
+        top-k.
+
+        split — _split_terms of the query; cand_docs [C] live doc ids from
+        the collected rows — every one is rescored exactly here; bound —
+        the max approximate score any uncollected row could hold (the row
+        pick's last column); cold — the cold side's (docs, contrib, slack)
+        from _cold_sides, None without cold terms."""
+        qterms, col_terms, cold_terms = split
         if not qterms:
             return np.empty(0, np.float32), np.empty(0, np.int32)
 
@@ -1111,13 +1244,7 @@ class TurboBM25:
         cold_docs = np.empty(0, np.int64)
         cold_s = np.empty(0, np.float32)
         if cold_terms:
-            if self._sp_ok and bool(knob("ES_TPU_SPARSE")):
-                self.stats["sparse_queries"] += 1
-                docs_c, contrib, slack = self._sparse_contrib(cold_terms)
-            else:
-                self.stats["cold_queries"] += 1
-                docs_c, contrib = self._cold_contrib(cold_terms)
-                slack = 0.0
+            docs_c, contrib, slack = cold
             lv = self._live_host[docs_c] > 0
             docs_c, contrib = docs_c[lv], contrib[lv]
             if col_terms:
@@ -1583,10 +1710,16 @@ class TurboBM25:
         sel = np.lexsort((cand, -s))[:k]
         return s[sel], cand[sel].astype(np.int32)
 
-    def _finish_bool(self, r: _BoolQuery, cand_docs, bound: float, k: int):
+    def _cold_should(self, r: _BoolQuery):
+        """The cold SHOULD terms of a bool query, [(term, boost, info)]."""
+        return [(t, b, i) for t, b, i in r.should if t not in self._slot_of]
+
+    def _finish_bool(self, r: _BoolQuery, cand_docs, bound: float, k: int,
+                     cold):
         """Device-path merge: exact rescore of the collected docs, the cold
-        SHOULD terms through K3 (bound-pruned), and the certificate, as in
-        _finish_query."""
+        SHOULD terms' side from K3 (`cold`, _cold_sides' triple, None
+        without cold SHOULD terms; bound-pruned), and the certificate, as
+        in _finish_query."""
         scoring, _, _ = self._bool_slots(r)
         e_q = _quant_error([w for _, w, _ in scoring])
 
@@ -1602,18 +1735,10 @@ class TurboBM25:
         # cold SHOULD terms: a match the sweep scored without them (or
         # never surfaced, when every scoring clause is cold) gets its exact
         # total here; bound-pruned like the disjunctive path
-        cold_should = [(t, b, i) for t, b, i in r.should
-                       if t not in self._slot_of]
         cold_docs = np.empty(0, np.int64)
         cold_s = np.empty(0, np.float32)
-        if cold_should:
-            if self._sp_ok and bool(knob("ES_TPU_SPARSE")):
-                self.stats["sparse_queries"] += 1
-                docs_c, contrib, slack = self._sparse_contrib(cold_should)
-            else:
-                self.stats["cold_queries"] += 1
-                docs_c, contrib = self._cold_contrib(cold_should)
-                slack = 0.0
+        if cold is not None:
+            docs_c, contrib, slack = cold
             lv = self._live_host[docs_c] > 0
             docs_c, contrib = docs_c[lv], contrib[lv]
             kth_0 = 0.0
@@ -1704,10 +1829,12 @@ class TurboBM25:
                     self._note_bitset_counts(counts.cpu().numpy()[: len(sel)])
             rows_all = packed[:, :n_rows].astype(np.int64)
             bounds = packed[:, n_rows]
+            colds = self._cold_sides(
+                [self._cold_should(resolved[qi]) for qi in sel])
             for j, qi in enumerate(sel):
                 docs = self._collect_docs(rows_all[j])
                 s, d = self._finish_bool(resolved[qi], docs,
-                                         float(bounds[j]), k)
+                                         float(bounds[j]), k, colds[j])
                 out_s[qi, : len(s)] = s
                 out_d[qi, : len(d)] = d
         for qi in host_idx:

@@ -418,6 +418,36 @@ def test_bitset_fault_contained_like_reference(bool_corpus, monkeypatch):
     assert port_t.stats["bool_device"] > d0
 
 
+@pytest.mark.parametrize("spec", ["sparse_gather:raise@1",
+                                  "sparse_gather:raise@3"])
+def test_cold_should_fault_like_reference(spec, bool_corpus, bitset_corpus,
+                                          tie_corpus, monkeypatch):
+    """The cold SHOULD sides of a device chunk share one K3 launch; an
+    injected sparse_gather fault hits the same query as in the reference,
+    which alone scores its cold side on the host. Answers and counters
+    equal the reference's, on the bitset route."""
+    for key, value in ROUTES["bitset"].items():
+        monkeypatch.setenv(key, value)
+    fp, n, kw, live, specs = _case("cold_should_sparse", bool_corpus,
+                                   bitset_corpus, tie_corpus)
+    ref, port = engines(fp, n, live=live, **kw)
+    sizes = []
+    launch = port._sparse_launch
+    port._sparse_launch = lambda preps: (sizes.append(len(preps)),
+                                         launch(preps))[1]
+    with ref_faults.inject(spec):
+        want = ref.search_bool(specs, k=K)
+    with faults.inject(spec):
+        got = port.search_bool(specs, k=K)
+    assert_same(got, want, spec)
+    for key in ROUTE_STATS:
+        assert port.stats[key] == ref.stats[key], key
+    assert port.stats["sparse_fallbacks"] == 1
+    assert sum(sizes) == port.stats["sparse_queries"] - 1
+    assert len(sizes) <= port.stats["dispatches"]
+    assert_same(got, port.search_bool_host(specs, k=K), "port vs own host")
+
+
 def test_intersect_sorted_matches_numpy():
     rng = np.random.default_rng(11)
     for na, nb in [(3, 4000), (200, 250), (0, 50), (70, 0), (1, 1)]:

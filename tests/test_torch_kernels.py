@@ -7,7 +7,9 @@ their plain torch versions for CPU tensors. K1, K2, the row pick, K3, the
 bitset helpers and K5-K7 must agree bit for bit (tolerance 0): the
 kernels' arithmetic is integer or bitwise, one rounding per step, or sums
 in a fixed order. The reference's uint32 bitsets are compared with the
-port's int32 ones through a numpy view. K8's counts are integers, bitwise on every case. K9's float epilogue is
+port's int32 ones through a numpy view. K3's batched form (qoff) is held
+to the reference run query by query, and a numpy emulation of the CUDA
+kernel's per-lane search order to the plain version. K8's counts are integers, bitwise on every case. K9's float epilogue is
 bitwise too:
 the port follows the order in which XLA on the CPU compiles the reference
 kernel, fused multiply-adds included (ROADMAP W11). K9's rows are stored
@@ -30,9 +32,10 @@ from elasticsearch_tpu.parallel.knn import KnnEngine as RefKnnEngine
 from elasticsearch_tpu_torch.common.errors import KernelLaunchError
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
-    AGG_CASES, agg_inputs, agg_section, bitset_inputs, clause_slots,
-    conj_inputs, knn_inputs, lanes_and_groups, mask_inputs, merge_inputs,
-    sparse_inputs, sweep_inputs,
+    AGG_CASES, SPARSE_BATCH_CASES, agg_inputs, agg_section, bitset_inputs,
+    clause_slots, conj_inputs, emulate_sparse_gather, knn_inputs,
+    lanes_and_groups, mask_inputs, merge_inputs, sparse_batch_inputs,
+    sparse_group, sparse_inputs, sweep_inputs,
 )
 
 torch.set_num_threads(1)
@@ -119,6 +122,75 @@ def test_sparse_gather_rejects_granule_outside_pool(bad):
     with pytest.raises(ValueError, match="outside the pool"):
         k.sparse_gather(_t(coff), _t(cw), _t(ct0), _t(ct1), _t(pool),
                         n_tiles=4)
+
+
+def _ref_sparse_per_query(coff, cw, ct0, ct1, qoff, pool, n_tiles):
+    """The reference's sparse_gather run query by query, each dispatch
+    padded to a power-of-two chunk count as the serving path padded it,
+    padding rows dropped and the outputs concatenated."""
+    outs = []
+    for a, b in zip(qoff[:-1], qoff[1:]):
+        n = int(b - a)
+        if not n:
+            continue
+        pad = max(2, 1 << (n - 1).bit_length()) - n
+        args = [np.concatenate([x[a:b], np.full(pad, f, x.dtype)])
+                for x, f in ((coff, 0), (cw, 0.0), (ct0, 1), (ct1, 0))]
+        out = ref_k.sparse_gather(*(jnp.asarray(x) for x in args),
+                                  jnp.asarray(pool), n_tiles=n_tiles)
+        outs.append(np.asarray(out)[:n])
+    return (np.concatenate(outs) if outs
+            else np.zeros((0, 8, 128), np.float32))
+
+
+@pytest.mark.parametrize("case", SPARSE_BATCH_CASES)
+def test_sparse_gather_batched_bitwise(case):
+    """One batched dispatch (qoff) equals the reference's per-query
+    dispatches, concatenated, bit for bit."""
+    coff, cw, ct0, ct1, qoff, pool, n_tiles = sparse_batch_inputs(case)
+    want = _ref_sparse_per_query(coff, cw, ct0, ct1, qoff, pool, n_tiles)
+    got = k.sparse_gather(_t(coff), _t(cw), _t(ct0), _t(ct1), _t(pool),
+                          n_tiles=n_tiles, qoff=_t(qoff))
+    assert got.shape == (len(coff), 8, 128)
+    assert np.array_equal(got.numpy(), want)
+    if len(coff):
+        assert (want != 0).any()
+    # the plain version called with every query's chunks as one query would
+    # add across queries: qoff must matter wherever queries share docs
+    if case in ("shared_docs", "empty_query_middle"):
+        merged = k.sparse_gather(_t(coff), _t(cw), _t(ct0), _t(ct1),
+                                 _t(pool), n_tiles=n_tiles)
+        assert not np.array_equal(merged.numpy(), want)
+
+
+@pytest.mark.parametrize("case", SPARSE_BATCH_CASES + ("single", "group"))
+def test_sparse_gather_kernel_order_emulated(case):
+    """The CUDA kernel's per-lane order (block doc range, staged candidates,
+    binary search, multiply then add), emulated in numpy, equals the plain
+    version bitwise: on every batched case, on the single-query layout of
+    test_sparse_gather_bitwise and on a 64-query group."""
+    if case == "single":
+        coff, cw, ct0, ct1, pool = sparse_inputs(5, n_terms=5, n_tiles=4)
+        qoff, n_tiles = None, 4
+    elif case == "group":
+        coff, cw, ct0, ct1, qoff, pool, n_tiles = sparse_group(3, 64)
+    else:
+        coff, cw, ct0, ct1, qoff, pool, n_tiles = sparse_batch_inputs(case)
+    got = emulate_sparse_gather(coff, cw, ct0, ct1, qoff, pool, n_tiles)
+    want = k.sparse_gather_plain(
+        _t(coff), _t(cw), _t(ct0), _t(ct1), _t(pool), n_tiles=n_tiles,
+        qoff=None if qoff is None else _t(qoff))
+    assert np.array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("qoff", [[1, 9, 15], [0, 9, 14], [0, 10, 9, 15],
+                                  []])
+def test_sparse_gather_rejects_bad_qoff(qoff):
+    coff, cw, ct0, ct1, _, pool, n_tiles = sparse_batch_inputs("shared_docs")
+    with pytest.raises(ValueError, match="qoff"):
+        k.sparse_gather(_t(coff), _t(cw), _t(ct0), _t(ct1), _t(pool),
+                        n_tiles=n_tiles,
+                        qoff=torch.tensor(qoff, dtype=torch.int32))
 
 
 def _u32(a):

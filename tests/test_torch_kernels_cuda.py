@@ -8,7 +8,10 @@ imports jax for the reference tests:
 
 Inputs are the adversarial cases of the CPU differential tests (ties,
 negative and all-zero weights, padding lanes, zero groups, overlapping
-cold slices, fan-in padding and sentinel rows, coverage weights, masks with
+cold slices, the batched K3 cases (shared docs, chunk boundaries at one
+doc, tiles that meet with no shared doc, narrowed tile ranges, docs past
+the grid, empty queries, a duplicated term, a 256-query group), fan-in
+padding and sentinel rows, coverage weights, masks with
 empty chunks, dead rows and windows, exact score ties, empty merge lanes,
 agg pad chunks, buckets past n_segments, unsorted pairs over several tiles,
 tile ranges that disagree with the pairs, padded batches, the two-level
@@ -24,9 +27,10 @@ import torch
 
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
-    AGG_CASES, agg_inputs, agg_masks, agg_section, bitset_inputs,
-    clause_slots, conj_inputs, knn_inputs, lanes_and_groups, mask_inputs,
-    merge_inputs, sparse_inputs, sweep_inputs,
+    AGG_CASES, SPARSE_BATCH_CASES, agg_inputs, agg_masks, agg_section,
+    bitset_inputs, clause_slots, conj_inputs, knn_inputs, lanes_and_groups,
+    mask_inputs, merge_inputs, sparse_batch_inputs, sparse_group,
+    sparse_inputs, sweep_inputs,
 )
 
 pytestmark = pytest.mark.cuda
@@ -81,6 +85,42 @@ def test_sparse_gather_kernel(dev):
     want = k.sparse_gather_plain(*args, n_tiles=6)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", SPARSE_BATCH_CASES + ("group",))
+def test_sparse_gather_batched_kernel(dev, case):
+    if case == "group":
+        coff, cw, ct0, ct1, qoff, pool, n_tiles = sparse_group(4, 256)
+    else:
+        coff, cw, ct0, ct1, qoff, pool, n_tiles = sparse_batch_inputs(case)
+    args = [_c(a, dev) for a in (coff, cw, ct0, ct1, pool)]
+    qo = _c(qoff, dev)
+    k.reset_launches()
+    got = k.sparse_gather(*args, n_tiles=n_tiles, qoff=qo)
+    # what the serving path calls: its own host check, no read-back
+    got2 = k.sparse_gather(*args, n_tiles=n_tiles, qoff=qo,
+                           host_checked=True)
+    want = k.sparse_gather_plain(*args, n_tiles=n_tiles, qoff=qo)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got2, want)
+    assert k.LAUNCHES["sparse_gather"] == (2 if len(coff) else 0)
+
+
+@pytest.mark.parametrize("bad", ["granule", "qoff"])
+def test_sparse_gather_batched_rejects_bad_input(dev, bad):
+    coff, cw, ct0, ct1, qoff, pool, n_tiles = sparse_batch_inputs(
+        "empty_query_middle")
+    coff, qoff = coff.copy(), qoff.copy()
+    if bad == "granule":
+        coff[5] = pool.shape[0]
+    else:
+        qoff[2] = qoff[3] + 1
+    args = [_c(a, dev) for a in (coff, cw, ct0, ct1, pool)]
+    k.reset_launches()
+    with pytest.raises(ValueError, match="outside the pool" if bad ==
+                       "granule" else "qoff"):
+        k.sparse_gather(*args, n_tiles=n_tiles, qoff=_c(qoff, dev))
+    assert k.LAUNCHES["sparse_gather"] == 0
 
 
 def test_launches_counted_and_bad_input_raises(dev):

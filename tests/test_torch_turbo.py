@@ -232,6 +232,98 @@ def test_full_slice_pool_uploads_what_it_packed(sparse_fp):
     assert torch.equal(port._sp_pool, torch.from_numpy(port._sp_host))
 
 
+def _count_group_launches(port):
+    """Record the size of every batched K3 launch of `port`."""
+    sizes = []
+    launch = port._sparse_launch
+
+    def counted(preps):
+        sizes.append(len(preps))
+        return launch(preps)
+
+    port._sparse_launch = counted
+    return sizes
+
+
+def test_pool_pressure_splits_groups_like_reference(sparse_fp, monkeypatch):
+    """A slice pool of five usable granules under a batch whose queries
+    each need two new one-granule slices: each query's _ensure_sparse
+    evicts slices the pending K3 group still reads, so the group launches
+    first (flush-before-evict) and the batch takes several launches. The
+    evictions, slices, bytes and fallbacks equal the reference's, which
+    slices query by query, and so do the answers. The first query's cold
+    term is wider than the ladder, so the batch's up-front slicing in
+    ensure_columns gives up before packing anything (the reference's
+    pool-full upload bug, ROADMAP W7, never arises)."""
+    monkeypatch.setenv("ES_TPU_SPARSE_WIDTHS", "1024")
+    ref, port = engines(sparse_fp, 3000, hbm_budget_bytes=98304,
+                        cold_df=2500)
+    assert port._sp_cap == ref._sp_cap == 6
+    qs = [[("t2", 1.0), ("t9", 1.0)]]
+    # t0 is colized, so the cold totals decide which docs survive the
+    # bound-prune: a total read from an overwritten granule changes answers
+    qs += [[("t0", 0.5), (f"t{7 + i}", 1.0), (f"t{8 + i}", 0.8)]
+           for i in range(0, 30, 2)]
+    qs += [[("t15", 1.0), ("t16", 0.5)], [("t37", 1.0), ("t7", 2.0)],
+           [("t30", 1.0)]]
+    sizes = _count_group_launches(port)
+    got = port.search_many([qs], k=K)
+    assert_same(got, port.search_many_host([qs], k=K), "port vs own host")
+    assert_same(got, ref.search_many([qs], k=K), "device route")
+    for key in ROUTE_STATS:
+        assert port.stats[key] == ref.stats[key], key
+    assert port.stats["sparse_fallbacks"] == 1
+    assert len(sizes) > 4 and sum(sizes) == len(qs) - 1
+    assert torch.equal(port._sp_pool, torch.from_numpy(port._sp_host))
+    # again (both engines), with the slices left by the first pass
+    check(ref, port, [qs])
+
+
+@pytest.mark.parametrize("spec", ["sparse_gather:raise@1",
+                                  "sparse_gather:raise@3"])
+def test_sparse_fault_falls_back_like_reference(sparse_fp, spec):
+    """An injected sparse_gather fault hits the same query in both engines
+    (one fault point per query with a cold side, in query order): that
+    query alone scores its cold side on the host, the rest of its group
+    shares one K3 launch, and answers and counters equal the
+    reference's."""
+    ref, port = engines(sparse_fp, 3000, hbm_budget_bytes=64 << 20,
+                        cold_df=800)
+    sizes = _count_group_launches(port)
+    qs = _sparse_queries()
+    with ref_faults.inject(spec):
+        want = ref.search_many([qs], k=K)
+    with faults.inject(spec):
+        got = port.search_many([qs], k=K)
+    assert_same(got, want, spec)
+    for key in ROUTE_STATS:
+        assert port.stats[key] == ref.stats[key], key
+    assert port.stats["sparse_fallbacks"] == 1
+    n_cold = port.stats["sparse_queries"]
+    assert sizes == [n_cold - 1]
+    assert_same(got, port.search_many_host([qs], k=K), "host tier")
+
+
+def test_batched_launch_fault_falls_group_back(sparse_fp, monkeypatch):
+    """A device fault in the batched K3 launch falls every query of its
+    group back to the host enumeration, each counted; the slice pool is
+    kept and the answers equal the host tier's."""
+    _, port = engines(sparse_fp, 3000, hbm_budget_bytes=64 << 20,
+                      cold_df=800)
+    qs = _sparse_queries()
+    want = port.search_many_host([qs], k=K)
+
+    def broken(*a, **kw):
+        raise RuntimeError("INTERNAL: injected launch failure")
+
+    monkeypatch.setattr(kernels, "sparse_gather", broken)
+    got = port.search_many([qs], k=K)
+    assert_same(got, want, "launch fault")
+    assert port.stats["sparse_fallbacks"] == port.stats["sparse_queries"] > 0
+    assert port._sp_of and torch.equal(port._sp_pool,
+                                       torch.from_numpy(port._sp_host))
+
+
 def test_postings_builder_and_tf_at_match_reference():
     """The port's own postings builder (chip_smoke.py builds its index with
     it) gives the reference's arrays, and tf_at reads them the same way."""

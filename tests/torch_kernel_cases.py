@@ -94,6 +94,208 @@ def sparse_inputs(seed, n_terms, n_tiles):
             np.stack(grans))
 
 
+class _SlicePool:
+    """Granules of cold-term slices packed as TurboBM25._ensure_sparse
+    packs them (sorted distinct docs, then zero lanes) and their chunks."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+        self.grans = [np.zeros((8, 128), np.int32)]    # granule 0: zeros
+        self.chunks = []                                # per term
+
+    def term(self, docs):
+        docs = np.unique(np.asarray(docs, np.int64))
+        imp = self.rng.integers(1, 256, size=len(docs))
+        buf = np.zeros(-(-len(docs) // k.SPARSE_GRAN) * k.SPARSE_GRAN,
+                       np.int64)
+        buf[:len(docs)] = (docs << 8) | imp
+        ch = []
+        for j in range(len(buf) // k.SPARSE_GRAN):
+            e = min((j + 1) * k.SPARSE_GRAN, len(docs))
+            ch.append((len(self.grans), int(docs[j * k.SPARSE_GRAN]) // TILE,
+                       int(docs[e - 1]) // TILE))
+            self.grans.append(buf[j * k.SPARSE_GRAN:(j + 1) * k.SPARSE_GRAN]
+                              .astype(np.int32).reshape(8, 128))
+        self.chunks.append(ch)
+        return len(self.chunks) - 1
+
+    def query(self, terms, pad=0):
+        """[(coff, cw, ct0, ct1)] of a query's (term, weight) list, plus
+        `pad` padding chunks (granule 0, weight 0, range (1, 0))."""
+        rows = []
+        for t, w in terms:
+            rows += [(g, np.float32(w), a, b) for g, a, b in self.chunks[t]]
+        return rows + [(0, np.float32(0.0), 1, 0)] * pad
+
+
+SPARSE_BATCH_CASES = ("shared_docs", "boundary_same_doc",
+                      "tiles_meet_no_shared_doc", "narrow_tile_range",
+                      "past_n_tiles", "empty_query_middle", "duplicate_term",
+                      "q1", "empty_batch")
+
+
+def sparse_batch_inputs(case, seed=0):
+    """A batched K3 dispatch: (coff, cw, ct0, ct1, qoff, pool, n_tiles).
+
+    shared_docs: three terms drawn from one doc set, in two queries;
+    boundary_same_doc: two terms whose first chunks both end at the same
+        doc and whose second chunks both start at the same doc;
+    tiles_meet_no_shared_doc: even docs against odd docs in the same tiles;
+    narrow_tile_range: chunks whose [ct0, ct1] is narrower than their docs;
+    past_n_tiles: docs at and past the grid's last tile;
+    empty_query_middle: an empty query between two, padding chunks too;
+    duplicate_term: one term twice in a query (its chunks dispatched twice);
+    q1: one query, padded as the serving path padded per query;
+    empty_batch: no query at all."""
+    sp = _SlicePool(seed)
+    rng = sp.rng
+    n_tiles = 4
+    w = lambda: float(np.float32(rng.uniform(0.01, 0.2)))   # noqa: E731
+    span = n_tiles * TILE
+    queries = []
+    if case in ("shared_docs", "narrow_tile_range", "empty_query_middle",
+                "duplicate_term", "q1"):
+        base = rng.choice(span, size=3000, replace=False)
+        a, b, c = (sp.term(base[rng.random(3000) < 0.7]) for _ in range(3))
+        if case == "shared_docs":
+            queries = [sp.query([(a, w()), (b, w()), (c, w())]),
+                       sp.query([(c, w()), (a, w())])]
+        elif case == "narrow_tile_range":
+            q = sp.query([(a, w()), (b, w()), (c, w())])
+            na, nb = len(sp.chunks[a]), len(sp.chunks[b])
+            for i in (0, na):         # first chunk of a and of b
+                g, cw, t0, t1 = q[i]
+                q[i] = (g, cw, t0 + 1, t1) if t0 < t1 else (g, cw, t0, t1 - 1)
+            g, cw, t0, t1 = q[na + nb]      # first chunk of c
+            q[na + nb] = (g, cw, t0, max(t0, t1 - 1))
+            queries = [q, sp.query([(b, w()), (a, w())])]
+        elif case == "empty_query_middle":
+            queries = [sp.query([(a, w()), (b, w())]), [],
+                       sp.query([(c, w())], pad=3), [],
+                       sp.query([(b, w()), (c, w())])]
+        elif case == "duplicate_term":
+            wa = w()
+            queries = [sp.query([(a, wa), (a, wa), (b, w())]),
+                       sp.query([(c, w()), (c, w())])]
+        else:
+            queries = [sp.query([(a, w()), (b, w()), (c, w())], pad=7)]
+    elif case == "boundary_same_doc":
+        x, y = 20000, 20001
+        lo = np.arange(0, x)
+        hi = np.arange(y + 1, 3 * TILE)
+        da = np.concatenate([rng.choice(lo, 1023, replace=False), [x, y],
+                             rng.choice(hi, 1100, replace=False)])
+        db = np.concatenate([rng.choice(lo, 1023, replace=False), [x, y],
+                             rng.choice(hi, 600, replace=False)])
+        a, b = sp.term(da), sp.term(db)
+        queries = [sp.query([(a, w()), (b, w())]),
+                   sp.query([(b, w()), (a, w())])]
+    elif case == "tiles_meet_no_shared_doc":
+        ev = np.arange(TILE, 3 * TILE, 2)
+        a = sp.term(rng.choice(ev, 1800, replace=False))
+        b = sp.term(rng.choice(ev + 1, 1500, replace=False))
+        queries = [sp.query([(a, w()), (b, w())])]
+    elif case == "past_n_tiles":
+        n_tiles = 3
+        a = sp.term(rng.choice(4 * TILE, 2500, replace=False))
+        b = sp.term(rng.choice(np.arange(2 * TILE, 4 * TILE), 1500,
+                               replace=False))
+        queries = [sp.query([(a, w()), (b, w())])]
+    elif case != "empty_batch":
+        raise ValueError(case)
+    rows = [r for q in queries for r in q]
+    qoff = np.cumsum([0] + [len(q) for q in queries]).astype(np.int32)
+    col = lambda i, dt: np.asarray([r[i] for r in rows], dt)   # noqa: E731
+    return (col(0, np.int32), col(1, np.float32), col(2, np.int32),
+            col(3, np.int32), qoff, np.stack(sp.grans), n_tiles)
+
+
+def emulate_sparse_gather(coff, cw, ct0, ct1, qoff, pool, n_tiles):
+    """numpy emulation of csrc/sparse_gather.cu, lane by lane: the same
+    block doc range, candidate staging in rc order, per-lane walk, ten-step
+    binary search and f32 multiply-then-add order. Returns [n_rc, 8, 128]
+    f32."""
+    gran = k.SPARSE_GRAN
+    threads = 256
+    imax = np.iinfo(np.int32).max
+    n_rc = len(coff)
+    n_gran = pool.shape[0]
+    flat = pool.reshape(n_gran, gran).view(np.uint32)
+    out = np.zeros((n_rc, gran), np.float32)
+    if qoff is None:
+        qoff = np.asarray([0, n_rc], np.int32)
+
+    def key(v):
+        return int(v >> 8) if v & 255 else imax
+
+    for c in range(n_rc):
+        q = int(np.searchsorted(qoff[1:], c, side="right"))
+        q0, q1 = int(qoff[q]), int(qoff[q + 1])
+        g = int(coff[c])
+        for part in range(gran // threads):
+            lanes = np.zeros(threads, np.uint32)
+            if 0 <= g < n_gran:
+                lanes = flat[g, part * threads:(part + 1) * threads]
+            docs = (lanes >> 8).astype(np.int64)
+            tiles = docs >> 14
+            live = ((lanes & 255) > 0) & (tiles >= ct0[c]) \
+                & (tiles <= ct1[c]) & (tiles < n_tiles)
+            if not live.any():
+                continue
+            blo, bhi = int(docs[live].min()), int(docs[live].max())
+            btlo, bthi = blo >> 14, bhi >> 14
+            cand = []
+            for i in range(q0, q1):
+                gg, a, b = int(coff[i]), int(ct0[i]), int(ct1[i])
+                if not (0 <= gg < n_gran and a <= bthi and b >= btlo
+                        and a <= b):
+                    continue
+                d0 = key(flat[gg, 0])
+                last = flat[gg, gran - 1]
+                d1 = int(last >> 8) if last & 255 else imax - 1
+                if d0 <= bhi and d1 >= blo:
+                    cand.append((gg, np.float32(cw[i]), a, b, d0, d1))
+            for t in np.nonzero(live)[0]:
+                d, tile = int(docs[t]), int(tiles[t])
+                acc = np.float32(0.0)
+                for gg, w, a, b, d0, d1 in cand:
+                    if not (a <= tile <= b and d0 <= d <= d1):
+                        continue
+                    p, hv, s = 0, flat[gg, 0], gran // 2
+                    while s >= 1:
+                        x = flat[gg, p + s]
+                        if key(x) <= d:
+                            p, hv = p + s, x
+                        s //= 2
+                    if key(hv) == d:
+                        acc = np.float32(acc + np.float32(
+                            np.float32(hv & 255) * w))
+                out[c, part * threads + t] = acc
+    return out.reshape(n_rc, 8, 128)
+
+
+def sparse_group(seed, n_queries, n_tiles=6):
+    """A serving-sized group: n_queries queries of one to three terms of
+    varied df over one shared pool, as a batch's cold sides (one empty)."""
+    sp = _SlicePool(seed)
+    rng = sp.rng
+    terms = [sp.term(rng.choice(n_tiles * TILE, int(df), replace=False))
+             for df in rng.integers(20, 5000, size=48)]
+    queries = []
+    for q in range(n_queries):
+        if q == n_queries // 2:
+            queries.append([])
+            continue
+        pick = rng.choice(len(terms), size=1 + q % 3, replace=False)
+        queries.append(sp.query([(int(t), float(np.float32(
+            rng.uniform(0.01, 2.0)))) for t in pick]))
+    rows = [r for q in queries for r in q]
+    qoff = np.cumsum([0] + [len(q) for q in queries]).astype(np.int32)
+    col = lambda i, dt: np.asarray([r[i] for r in rows], dt)   # noqa: E731
+    return (col(0, np.int32), col(1, np.float32), col(2, np.int32),
+            col(3, np.int32), qoff, np.stack(sp.grans), n_tiles)
+
+
 def conj_inputs(seed, qc, hpt, nsw):
     """sweep_inputs with sparser presence and coverage weights as
     TurboBM25._bool_weights makes them: +1 on required slots (scored or
