@@ -5,6 +5,7 @@
     python3 chip_smoke.py --docs N   # cut the index to N docs (the cut is printed)
     python3 chip_smoke.py --knn-docs N   # cut the kNN column to N vectors
     python3 chip_smoke.py --agg-docs N   # cut the agg leaf to N docs
+    python3 chip_smoke.py --k2-parent OLD.cu   # time an earlier K2 beside it
 
 It drives the port's main path (elasticsearch_tpu_torch only; it imports
 nothing of JAX or of elasticsearch_tpu) the way bench.py drives config 1 of
@@ -39,7 +40,9 @@ aggregation path the way bench.py drives config 6:
    K3 is held on every group the path launched (each recorded with a copy
    of the slice pool it read), and on the first batch also timed query by
    query as the old one-launch-per-query pattern ran it, this tree's
-   kernel and, given --k3-parent, the parent commit's;
+   kernel and, given --k3-parent, the parent commit's; K2 is also timed
+   alone (torch.profiler's kernel events) and, given --k2-parent, beside
+   the parent commit's K2 on the same inputs, in turns;
 6. on the same engine, serves config 2 (256 bool queries drawn as
    bench.py's draw_bool, plus bool DSL bodies through extract_plan and
    _turbo_bool_spec) on both sweeps: ES_TPU_BITSET=1 (K5 + K6) and
@@ -138,6 +141,9 @@ MAX_CERT_FALLBACK_SHARE = 0.02
 # gitignored build directory): write it there with
 #   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/sparse_gather.cu
 K3_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k3_parent.cu"
+# and the K2 A/B's parent (check_k2), written there with
+#   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/sweep_rowmax.cu
+K2_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k2_parent.cu"
 # queries of each config-1 batch held against the host-exact tier (the DSL
 # bodies are held in full): the hold is host work, about 0.6 s a query on
 # the chip machine's 8 cores, and the cut keeps the whole run, kNN and agg
@@ -319,11 +325,19 @@ def check_k1(turbo, launches):
             "library_ms": None, "shape": {"groups": ng, "lanes": lanes}}
 
 
-def check_k2(turbo, batch, launches):
+def check_k2(turbo, batch, launches, parent=None):
+    """K2 at QC 256 on the first batch's weights: held bitwise against the
+    plain version, timed by CUDA events and alone (torch.profiler's kernel
+    events), and, given the parent commit's source (`parent`, a runner
+    from k2_ab.parent_runner), the parent's kernel on the same inputs in
+    turns (parent, kernel, kernel, parent), held bitwise too."""
     import torch
 
+    from elasticsearch_tpu_torch.parallel import cuda_build
     from elasticsearch_tpu_torch.parallel import kernels as k
     from elasticsearch_tpu_torch.parallel.turbo import _flatten_queries
+    from elasticsearch_tpu_torch.tools.k2_ab import run_raw, sweep_work
+    from elasticsearch_tpu_torch.tools.k9_ab import kernel_times
 
     dev = turbo.device
     flat, _ = _flatten_queries([batch])
@@ -337,20 +351,41 @@ def check_k2(turbo, batch, launches):
     def kern():
         out["k"] = k.sweep_rowmax(*args, nsw=turbo.nsw)
 
-    ms = cuda_ms(kern, 10)
+    def par():
+        out["parent"] = parent(args, turbo.nsw)
+
+    turns = {"parent": [], "kernel": []}
+    for name in (["parent"] if parent else []) + ["kernel", "kernel"] + (
+            ["parent"] if parent else []):
+        turns[name].append(cuda_ms(kern if name == "kernel" else par, 10))
+    ms = float(np.median(turns["kernel"]))
+    kernel_ms = kernel_times(kern, names=("sweep",))["sweep"]
+    parent_ms = parent_kernel_ms = None
+    if parent:
+        parent_ms = turns["parent"]
+        parent_kernel_ms = kernel_times(par, names=("sweep",))["sweep"]
     plain_ms = cuda_ms(lambda: out.__setitem__(
         "p", k.sweep_rowmax_plain(*args, nsw=turbo.nsw)), 1)
     (km, kr), (pm, pr) = out["k"], out["p"]
     err = max(max_abs_err(km, pm), max_abs_err(kr, pr))
     require(err == 0.0 and torch.equal(km, pm) and torch.equal(kr, pr),
             f"K2 kernel vs plain: max_abs_err {err}")
-    nz = (wq_np != 0).any(axis=0)                     # [QC, Hpt]
-    n_union = int(nz.any(axis=0).sum())
-    nnz = int(nz.sum())
-    dp = turbo.Dp
-    nbytes = (n_union * 2 * dp + dp * 4 + wq_np.nbytes + qs_np.nbytes
-              + 2 * turbo.nsw * qc * k.CAND_PAD * 4)
-    b_ms, b_by = bound(nbytes, nnz * 4 * 2 * dp, PEAK_INT8)
+    # the same kernel once more on outputs filled with NaN / -1 first, so
+    # no result of an earlier call in reused memory can pass for its own
+    pm2, pr2 = run_raw(cuda_build.kernel("sweep_rowmax"), args, turbo.nsw,
+                       poison=True)
+    require(torch.equal(pm2, pm) and torch.equal(pr2, pr),
+            "K2 kernel on poisoned outputs vs plain differ")
+    if parent:
+        require(torch.equal(out["parent"][0], pm)
+                and torch.equal(out["parent"][1], pr),
+                "K2 parent kernel vs plain differ")
+    nbytes, ops, n_union, nnz = sweep_work(wq_np, turbo.Dp, turbo.nsw)
+    b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
+    # G as the built kernel reports it, held to the wrapper's mirror
+    group = cuda_build.kernel("sweep_group")()
+    require(group == k.SWEEP_GROUP,
+            f"K2 built with G {group}, kernels.SWEEP_GROUP {k.SWEEP_GROUP}")
     lib_ms = int_mm_ms(turbo, wq)
     hpt = turbo.cols_hi.shape[1]
     return {"name": "sweep_rowmax", "route": "cuda",
@@ -358,7 +393,9 @@ def check_k2(turbo, batch, launches):
             "replaces": "elasticsearch_tpu/parallel/kernels.py:190",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "kernel_ms": kernel_ms,
+            "events_ms": turns["kernel"], "parent_ms": parent_ms,
+            "parent_kernel_ms": parent_kernel_ms, "group": group,
             "shape": {"QC": qc, "Hpt": hpt, "nsw": turbo.nsw,
                       "union_slots": n_union, "nonzero_weights": nnz}}
 
@@ -2370,7 +2407,7 @@ def agg_phase(n: int, device="cuda") -> tuple:
 
 
 def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
-        agg_docs: int, k3_parent_src=None) -> dict:
+        agg_docs: int, k3_parent_src=None, k2_parent_src=None) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import hbm_ledger
@@ -2391,6 +2428,11 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     log(f"kernels built in {build_s:.1f}s")
     parent = k3_parent(k3_parent_src)
     log(f"parent K3 for the A/B: {k3_parent_src if parent else 'not given'}")
+    from elasticsearch_tpu_torch.tools.k2_ab import parent_runner
+
+    k2_parent = parent_runner(k2_parent_src)
+    log(f"parent K2 for the A/B: "
+        f"{k2_parent_src if k2_parent else 'not given'}")
 
     if n_docs < FULL_DOCS:
         log(f"CUT: index cut from {FULL_DOCS} to {n_docs} docs")
@@ -2497,7 +2539,8 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     # ---- each kernel against its plain version at the path's shapes ----
     rows = [check_k1(turbo, launches["build_columns"])]
     torch.cuda.empty_cache()
-    rows.append(check_k2(turbo, batches[0], launches["sweep_rowmax"]))
+    rows.append(check_k2(turbo, batches[0], launches["sweep_rowmax"],
+                         k2_parent))
     rows.append(check_k3(k3_groups, k3_batch, turbo.Dp // kernels.TILE,
                          launches["sparse_gather"], parent))
     del k3_groups
@@ -2573,6 +2616,10 @@ def main(argv=None) -> int:
                     help="an earlier sparse_gather.cu (one query a launch) "
                          "to time beside this tree's K3 on the same "
                          "dispatches; skipped when the file is missing")
+    ap.add_argument("--k2-parent", default=K2_PARENT,
+                    help="an earlier sweep_rowmax.cu (same C entry) to time "
+                         "beside this tree's K2 on the same inputs; skipped "
+                         "when the file is missing")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2589,7 +2636,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
         return 2
     out = run(args.docs, args.batches, args.batch, args.knn_docs,
-              args.agg_docs, args.k3_parent)
+              args.agg_docs, args.k3_parent, args.k2_parent)
     print(json.dumps({"serving": out["serving"]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -32,13 +32,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
-# kernel -> (source, C entry point, argtypes); one source may hold several
+# kernel -> (source, C entry point, argtypes); one source may hold several;
+# sweep_group / sweep_list_cap launch nothing: they report K2's built G and
+# list capacity
 _SIGNATURES = {
     "build_columns": ("build_columns", "es_build_columns",
                       [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
                        _F, _F, _F, _P]),
     "sweep_rowmax": ("sweep_rowmax", "es_sweep_rowmax",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "sweep_group": ("sweep_rowmax", "es_sweep_group", []),
+    "sweep_list_cap": ("sweep_rowmax", "es_sweep_list_cap", [_I]),
     "sweep_rowmax_conj": ("sweep_rowmax", "es_sweep_rowmax_conj",
                           [_P] * 9 + [_I, _I, _I, _P]),
     "sweep_rowmax_bitset": ("sweep_rowmax", "es_sweep_rowmax_bitset",

@@ -52,6 +52,13 @@ CHUNK_ROWS = 16       # 2048 docs per chunk-major of the column cache
 N_CHUNKS = SW_ROWS // CHUNK_ROWS   # 32 chunks per superwindow
 CHUNK = CHUNK_ROWS * 128           # 2048
 NCAND = 17            # candidates kept per (query, superwindow)
+# K2's block takes SWEEP_GROUP consecutive queries of one superwindow and
+# holds their nonzero (slot, wh, wl) lists, sweep_list_cap(hpt) entries,
+# in batches of queries when they do not fit (sweep_rowmax.cu's G and
+# list_cap, which the card tests hold these to; G measured by
+# tools/k2_ab.py)
+SWEEP_GROUP = 16
+SWEEP_LIST_MIN = 256
 CAND_PAD = 32         # padded candidate lane width
 K1 = 1.2
 COLSCALE = (K1 + 1.0) / 127.0       # hi-layer int8 step
@@ -340,6 +347,12 @@ def _check_sweep(qscale, cols_hi, cols_lo, wq, live, nsw: int) -> int:
     return qc
 
 
+def sweep_list_cap(hpt: int) -> int:
+    """The list entries K2's block holds at once: a whole group's slots
+    where they fit in SWEEP_LIST_MIN, else at least one query's."""
+    return min(SWEEP_GROUP * hpt, max(hpt, SWEEP_LIST_MIN))
+
+
 def _sweep_out(nsw: int, qc: int, dev):
     return (torch.empty((nsw, qc, CAND_PAD), dtype=torch.float32, device=dev),
             torch.empty((nsw, qc, CAND_PAD), dtype=torch.int32, device=dev))
@@ -361,6 +374,10 @@ def sweep_rowmax(qscale, cols_hi, cols_lo, wq, live, *, nsw: int):
     qc = _check_sweep(qscale, cols_hi, cols_lo, wq, live, nsw)
     if not _route(dev):
         return sweep_rowmax_plain(qscale, cols_hi, cols_lo, wq, live, nsw=nsw)
+    if live.data_ptr() % 16 or cols_hi.data_ptr() % 16 \
+            or cols_lo.data_ptr() % 16:
+        raise ValueError("live and cols must be 16-byte aligned (16-byte "
+                         "loads)")
     rm, rr = _sweep_out(nsw, qc, dev)
     _launch("sweep_rowmax", dev, qscale.data_ptr(), cols_hi.data_ptr(),
             cols_lo.data_ptr(), wq.data_ptr(), live.data_ptr(),

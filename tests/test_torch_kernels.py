@@ -35,7 +35,8 @@ from torch_kernel_cases import (
     AGG_CASES, SPARSE_BATCH_CASES, agg_inputs, agg_section, bitset_inputs,
     clause_slots, conj_inputs, emulate_sparse_gather, knn_inputs,
     lanes_and_groups, mask_inputs, merge_inputs, sparse_batch_inputs,
-    sparse_group, sparse_inputs, sweep_inputs,
+    sparse_group, sparse_inputs, sweep_inputs, SWEEP_EDGE_CASES,
+    emulate_sweep_group, plan_sweep_batches, sweep_edge_inputs,
 )
 
 torch.set_num_threads(1)
@@ -98,6 +99,49 @@ def test_pick_rows_bitwise(sweep_case, n_rows):
     want = ref_turbo._pick_rows(wm, wr, n_rows=n_rows)
     got = _pick_rows(_t(np.asarray(wm)), _t(np.asarray(wr)), n_rows=n_rows)
     assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", SWEEP_EDGE_CASES)
+def test_sweep_rowmax_kernel_order_emulated(case):
+    """The CUDA K2's grouping (SWEEP_GROUP queries a block, lists in
+    batches that fit), its two paths (exact f32 sums
+    with dead docs masked and the row max taken before the scale, or int32
+    sums) and its warp selection order, emulated in numpy, equal the plain
+    version and the reference bitwise on the edge cases the card tests use
+    (all_slots at Hpt 300 here: more list entries than a block holds at
+    once, on the integer path)."""
+    qscale, hi, lo, wq, live, nsw = sweep_edge_inputs(case, all_slots_hpt=300)
+    got_m, got_r = emulate_sweep_group(qscale, hi, lo, wq, live, nsw)
+    pm, pr = k.sweep_rowmax_plain(_t(qscale), _t(hi), _t(lo), _t(wq),
+                                  _t(live), nsw=nsw)
+    assert np.array_equal(got_m, pm.numpy())
+    assert np.array_equal(got_r, pr.numpy())
+    wm, wr = ref_k.sweep_rowmax(jnp.asarray(qscale), jnp.asarray(hi),
+                                jnp.asarray(lo), jnp.asarray(wq),
+                                jnp.asarray(live), QC=wq.shape[1], nsw=nsw)
+    assert np.array_equal(got_m, np.asarray(wm))
+    assert np.array_equal(got_r, np.asarray(wr))
+    assert np.isfinite(got_m).any()
+
+
+@pytest.mark.parametrize("cap", [3, 8, 256])
+def test_sweep_group_plan(cap):
+    """K2's batches of a group: every query once, in order, each batch's
+    lists within cap; and the emulation with each plan equals the plain
+    version."""
+    qscale, hi, lo, wq, live, nsw = sweep_edge_inputs("qc257")
+    g = k.SWEEP_GROUP
+    cnt = [int(((wq[0, q] != 0) | (wq[1, q] != 0)).sum()) for q in range(g)]
+    batches = plan_sweep_batches(cnt, cap)
+    assert [j for b in batches for j in b] == list(range(g))
+    assert all(sum(cnt[j] for j in b) <= cap for b in batches)
+    assert (len(batches) > 1) == (cap < sum(cnt))
+    got_m, got_r = emulate_sweep_group(qscale, hi, lo, wq, live, nsw,
+                                       cap=cap)
+    pm, pr = k.sweep_rowmax_plain(_t(qscale), _t(hi), _t(lo), _t(wq),
+                                  _t(live), nsw=nsw)
+    assert np.array_equal(got_m, pm.numpy())
+    assert np.array_equal(got_r, pr.numpy())
 
 
 def test_sparse_gather_bitwise():

@@ -11,7 +11,9 @@ negative and all-zero weights, padding lanes, zero groups, overlapping
 cold slices, the batched K3 cases (shared docs, chunk boundaries at one
 doc, tiles that meet with no shared doc, narrowed tile ranges, docs past
 the grid, empty queries, a duplicated term, a 256-query group), fan-in
-padding and sentinel rows, coverage weights, masks with
+padding and sentinel rows, K2's group edges (QC not a multiple of the
+group, a group weighting every slot, all-zero queries, a dead
+superwindow, tied rows), coverage weights, masks with
 empty chunks, dead rows and windows, exact score ties, empty merge lanes,
 agg pad chunks, buckets past n_segments, unsorted pairs over several tiles,
 tile ranges that disagree with the pairs, padded batches, the two-level
@@ -25,12 +27,13 @@ import numpy as np
 import pytest
 import torch
 
+from elasticsearch_tpu_torch.parallel import cuda_build
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
     AGG_CASES, SPARSE_BATCH_CASES, agg_inputs, agg_masks, agg_section,
     bitset_inputs, clause_slots, conj_inputs, knn_inputs, lanes_and_groups,
     mask_inputs, merge_inputs, sparse_batch_inputs, sparse_group,
-    sparse_inputs, sweep_inputs,
+    sparse_inputs, sweep_inputs, SWEEP_EDGE_CASES, sweep_edge_inputs,
 )
 
 pytestmark = pytest.mark.cuda
@@ -68,14 +71,31 @@ def test_build_columns_kernel(dev, seed, n_groups, rows, dense):
     assert torch.equal(outs[0][1], outs[1][1])
 
 
-@pytest.mark.parametrize("qc,hpt,nsw", [(8, 33, 2), (24, 700, 1)])
-def test_sweep_rowmax_kernel(dev, qc, hpt, nsw):
-    qscale, hi, lo, wq, live = sweep_inputs(3, qc=qc, hpt=hpt, nsw=nsw)
+@pytest.mark.parametrize("qc,hpt,nsw,case", [
+    (8, 33, 2, None), (24, 700, 1, None)]
+    + [(None, None, None, c) for c in SWEEP_EDGE_CASES])
+def test_sweep_rowmax_kernel(dev, qc, hpt, nsw, case):
+    """Random shapes and the edges of K2's group design (sweep_edge_inputs:
+    QC 7, 24 and 257, QC 8 on three superwindows, a group weighting all
+    700 slots, all-zero queries, a dead superwindow, tied rows)."""
+    if case is None:
+        qscale, hi, lo, wq, live = sweep_inputs(3, qc=qc, hpt=hpt, nsw=nsw)
+    else:
+        qscale, hi, lo, wq, live, nsw = sweep_edge_inputs(case)
     args = [_c(a, dev) for a in (qscale, hi, lo, wq, live)]
     km, kr = k.sweep_rowmax(*args, nsw=nsw)
     pm, pr = k.sweep_rowmax_plain(*args, nsw=nsw)
     torch.cuda.synchronize()
     assert torch.equal(km, pm) and torch.equal(kr, pr)
+
+
+def test_sweep_group_constants_match_kernel(dev):
+    """kernels.SWEEP_GROUP and sweep_list_cap, which the CPU emulation of
+    K2's grouping reads, are what the built sweep_rowmax.cu uses."""
+    assert cuda_build.kernel("sweep_group")() == k.SWEEP_GROUP
+    for hpt in (1, 15, 16, 17, 33, 225, 255, 256, 257, 700, 0xFFFF):
+        assert cuda_build.kernel("sweep_list_cap")(hpt) == \
+            k.sweep_list_cap(hpt), hpt
 
 
 def test_sparse_gather_kernel(dev):

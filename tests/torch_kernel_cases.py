@@ -60,6 +60,145 @@ def sweep_inputs(seed, qc, hpt, nsw):
     return qscale, hi, lo, wq, live
 
 
+SWEEP_EDGE_CASES = ("qc7", "qc24", "qc257", "qc8_nsw3", "all_slots",
+                    "zero_queries", "dead_sw", "ties")
+
+
+def sweep_edge_inputs(case, all_slots_hpt=700):
+    """sweep_inputs at the edges of K2's group design: QC not a multiple
+    of its group size (7, 24, 257), QC 8 on three superwindows, 16 queries that weight
+    every one of `all_slots_hpt` slots (the integer path, long lists),
+    all-zero queries (and a negative and a zero
+    qscale), an all-dead superwindow, and
+    rows tied on their max (one value per layer). Returns (qscale, hi, lo,
+    wq, live, nsw)."""
+    shapes = {"qc7": (7, 33, 2), "qc24": (24, 33, 1), "qc257": (257, 33, 1),
+              "qc8_nsw3": (8, 33, 3), "all_slots": (24, all_slots_hpt, 1),
+              "zero_queries": (20, 33, 2), "dead_sw": (12, 33, 2),
+              "ties": (18, 12, 1)}
+    qc, hpt, nsw = shapes[case]
+    seed = 20 + SWEEP_EDGE_CASES.index(case)
+    qscale, hi, lo, wq, live = sweep_inputs(seed, qc=qc, hpt=hpt, nsw=nsw)
+    rng = np.random.default_rng(seed + 100)
+    if case == "all_slots":
+        wq[0, :16] = rng.integers(1, 128, size=(16, hpt))
+        wq[1, :16] = rng.integers(-127, 128, size=(16, hpt))
+    elif case == "zero_queries":
+        wq[:, ::2] = 0
+        wq[:, -3:] = 0
+        qscale[1] = -qscale[1]          # the integer path's qscale <= 0
+        qscale[3] = 0.0
+    elif case == "dead_sw":
+        live[k.SW_ROWS:] = 0.0
+    elif case == "ties":
+        hi[hi != 0] = 2
+        lo[:] = np.where(hi != 0, 1, 0)
+        qscale[:] = np.float32(1e-4)
+    return qscale, hi, lo, wq, live, nsw
+
+
+def plan_sweep_batches(cnt, cap):
+    """sweep_rowmax.cu's batches of one group's queries (cnt[j] nonzero
+    slots): runs of consecutive queries whose lists together fit cap
+    entries (cap >= every cnt). Returns [[query, ...], ...]."""
+    batches, cur, used = [], [], 0
+    for j, n in enumerate(cnt):
+        if cur and used + n > cap:
+            batches.append(cur)
+            cur, used = [], 0
+        cur.append(j)
+        used += n
+    if cur:
+        batches.append(cur)
+    return batches
+
+
+def emulate_sweep_group(qscale, hi, lo, wq, live, nsw, cap=None):
+    """numpy emulation of csrc/sweep_rowmax.cu's K2 block by block: groups
+    of k.SWEEP_GROUP queries, batched as plan_sweep_batches says (cap: the
+    kernel's list capacity unless given), each query's rows
+    (_row_bits: the float path or the integer path, the row max as the
+    bits of val), then the warp selection: each lane holds rows lane + 32
+    t, a round takes the largest value and the lowest row holding it.
+    Returns (rowmax, rows) like sweep_rowmax."""
+    g_size, qc, hpt = k.SWEEP_GROUP, wq.shape[1], hi.shape[1]
+    if cap is None:
+        cap = k.sweep_list_cap(hpt)
+    rm = np.full((nsw, qc, k.CAND_PAD), -np.inf, np.float32)
+    rr = np.zeros((nsw, qc, k.CAND_PAD), np.int32)
+    wh, wl = wq[0].astype(np.int64), wq[1].astype(np.int64)
+    lanes = np.arange(32)
+    for sw in range(nsw):
+        alive = live[sw * k.SW_ROWS:(sw + 1) * k.SW_ROWS] > 0      # [512, 128]
+        cs = slice(sw * k.N_CHUNKS, (sw + 1) * k.N_CHUNKS)
+        h_sw = hi[cs].transpose(1, 0, 2, 3).reshape(hpt, k.SW_ROWS, 128)
+        l_sw = lo[cs].transpose(1, 0, 2, 3).reshape(hpt, k.SW_ROWS, 128)
+        for q0 in range(0, qc, g_size):
+            qs_ = list(range(q0, min(qc, q0 + g_size)))
+            nzs = [np.nonzero((wh[q] != 0) | (wl[q] != 0))[0] for q in qs_]
+            batches = plan_sweep_batches([len(x) for x in nzs], cap)
+            assert sorted(j for b in batches for j in b) == list(
+                range(len(qs_)))
+            for j in (j for b in batches for j in b if len(nzs[j])):
+                q = qs_[j]
+                rb = _row_bits(q, nzs[j], wh, wl, h_sw, l_sw, alive,
+                               qscale[q, 0])
+                v = rb.reshape(k.SW_ROWS // 32, 32).copy()       # [t, lane]
+                for p in range(k.NCAND):
+                    bt = v.argmax(axis=0)               # first t among ties
+                    best = v[bt, lanes]
+                    m = best.max()
+                    if m == 0:
+                        break
+                    c = np.where(best == m, k.SW_ROWS - (lanes + 32 * bt), 0)
+                    row = k.SW_ROWS - int(c.max())
+                    rm[sw, q, p] = np.uint32(m).view(np.float32)
+                    rr[sw, q, p] = row + sw * k.SW_ROWS
+                    v[row >> 5, row & 31] = 0
+    return rm, rr
+
+
+def _row_bits(q, slots, wh, wl, h_sw, l_sw, alive, qs):
+    """One query's 512 row maxima in one superwindow, as bits (0: none),
+    on the kernel's float path where its weights allow it (Y = 16384 hh +
+    128 (hl + lh) and ll summed exactly in f32, dead docs' bytes masked to
+    0, the max pre-scale value multiplied once) and on its integer path
+    else."""
+    f = np.float32
+    a, b = wh[q][slots] * 1.0, wl[q][slots] * 1.0
+    h = h_sw[slots].astype(np.float64)
+    lw = l_sw[slots].astype(np.float64)
+    fast = 16512 * np.abs(a).sum() + 128 * np.abs(b).sum() < 2 ** 24 \
+        and qs > 0
+    if fast:
+        # dead docs' bytes are masked to 0 (pre 0, never counted); every
+        # partial sum is exact in f32 (what the fmas rely on)
+        h, lw = h * alive, lw * alive
+        y = np.tensordot(16384 * a + 128 * b, h, 1) \
+            + np.tensordot(128 * a, lw, 1)
+        z = np.tensordot(b, lw, 1)
+        assert np.abs(y).max() < 2 ** 31 and np.abs(z).max() < 2 ** 24
+        pre = (y.astype(f) + z.astype(f)).astype(f)
+        m = np.maximum(pre.max(axis=1), f(0))
+        best = np.where(m > 0, m.view(np.uint32), np.uint32(0))
+        val = (best.view(f) * qs).astype(f)
+        return np.where((best != 0) & (val > 0), val.view(np.uint32),
+                        np.uint32(0))
+
+    # float64 sums are exact here; int32 wraps as the kernel's
+    def s32(x):
+        return x.astype(np.int64).astype(np.int32)
+
+    hh = s32(np.tensordot(a, h, 1))
+    hl = s32(np.tensordot(a, lw, 1))
+    lh = s32(np.tensordot(b, h, 1))
+    ll = s32(np.tensordot(b, lw, 1))
+    v = (f(16384.0) * hh.astype(f) + f(128.0) * (hl + lh).astype(f))
+    v = ((v + ll.astype(f)) * qs).astype(f)
+    bits = np.where(alive & (v > 0), v.view(np.uint32), np.uint32(0))
+    return bits.max(axis=1)
+
+
 def sparse_inputs(seed, n_terms, n_tiles):
     """A granule pool of cold-term slices (distinct sorted docs per term,
     uint8 impacts, zero padding lanes) and a dispatch over them in the
