@@ -5,7 +5,7 @@
     python3 chip_smoke.py --docs N   # cut the index to N docs (the cut is printed)
     python3 chip_smoke.py --knn-docs N   # cut the kNN column to N vectors
     python3 chip_smoke.py --agg-docs N   # cut the agg leaf to N docs
-    python3 chip_smoke.py --k2-parent OLD.cu   # time an earlier K2 beside it
+    python3 chip_smoke.py --k2-parent OLD.cu   # time earlier sweeps beside them
 
 It drives the port's main path (elasticsearch_tpu_torch only; it imports
 nothing of JAX or of elasticsearch_tpu) the way bench.py drives config 1 of
@@ -40,9 +40,11 @@ aggregation path the way bench.py drives config 6:
    K3 is held on every group the path launched (each recorded with a copy
    of the slice pool it read), and on the first batch also timed query by
    query as the old one-launch-per-query pattern ran it, this tree's
-   kernel and, given --k3-parent, the parent commit's; K2 is also timed
-   alone (torch.profiler's kernel events) and, given --k2-parent, beside
-   the parent commit's K2 on the same inputs, in turns;
+   kernel and, given --k3-parent, the parent commit's; the sweeps (K2,
+   and K6 and K7 in step 6) are also timed alone (torch.profiler's kernel
+   events) and, given --k2-parent (a whole earlier sweep_rowmax.cu),
+   beside the parent commit's on the same inputs, in turns, each held
+   bitwise on outputs filled with NaN first;
 6. on the same engine, serves config 2 (256 bool queries drawn as
    bench.py's draw_bool, plus bool DSL bodies through extract_plan and
    _turbo_bool_spec) on both sweeps: ES_TPU_BITSET=1 (K5 + K6) and
@@ -141,7 +143,8 @@ MAX_CERT_FALLBACK_SHARE = 0.02
 # gitignored build directory): write it there with
 #   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/sparse_gather.cu
 K3_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k3_parent.cu"
-# and the K2 A/B's parent (check_k2), written there with
+# and the sweeps' A/B parent (check_k2, check_k6, check_k7: its three
+# entries), written there with
 #   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/sweep_rowmax.cu
 K2_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k2_parent.cu"
 # queries of each config-1 batch held against the host-exact tier (the DSL
@@ -325,19 +328,68 @@ def check_k1(turbo, launches):
             "library_ms": None, "shape": {"groups": ng, "lanes": lanes}}
 
 
+def sweep_ab(label, wrapper, plain, entry, args, nsw, parent=None):
+    """One sweep held and timed on the same inputs: the wrapper (`wrapper`
+    (*args, nsw=)) by CUDA events and alone (torch.profiler's kernel
+    events) and, given the parent commit's source (`parent`, a runner from
+    k2_ab.parent_runner), the parent's kernel in turns (parent, kernel,
+    kernel, parent); the kernel held bitwise against the plain version,
+    once more through its C entry (`entry`, a cuda_build kernel name) on
+    outputs filled with NaN / -1 first, so no result of an earlier call in
+    reused memory can pass for its own, and the parent's outputs (filled
+    so too) held the same way. Returns the row's timing and error keys."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import cuda_build
+    from elasticsearch_tpu_torch.tools.k2_ab import run_raw
+    from elasticsearch_tpu_torch.tools.k9_ab import kernel_times
+
+    out = {}
+
+    def kern():
+        out["k"] = wrapper(*args, nsw=nsw)
+
+    def par():
+        parent(args, nsw)
+
+    turns = {"parent": [], "kernel": []}
+    for name in (["parent"] if parent else []) + ["kernel", "kernel"] + (
+            ["parent"] if parent else []):
+        turns[name].append(cuda_ms(kern if name == "kernel" else par, 10))
+    ms = float(np.median(turns["kernel"]))
+    kernel_ms = kernel_times(kern, names=("sweep",),
+                             per_event=True)["sweep"]
+    parent_ms = parent_kernel_ms = None
+    if parent:
+        parent_ms = turns["parent"]
+        parent_kernel_ms = kernel_times(par, names=("sweep",),
+                                        per_event=True)["sweep"]
+    plain_ms = cuda_ms(lambda: out.__setitem__("p", plain(*args, nsw=nsw)), 1)
+    (km, kr), (pm, pr) = out["k"], out["p"]
+    err = max(max_abs_err(km, pm), max_abs_err(kr, pr))
+    require(err == 0.0 and torch.equal(km, pm) and torch.equal(kr, pr),
+            f"{label} kernel vs plain: max_abs_err {err}")
+    pm2, pr2 = run_raw(cuda_build.kernel(entry), args, nsw, poison=True)
+    require(torch.equal(pm2, pm) and torch.equal(pr2, pr),
+            f"{label} kernel on poisoned outputs vs plain differ")
+    if parent:
+        pm3, pr3 = parent(args, nsw, poison=True)
+        require(torch.equal(pm3, pm) and torch.equal(pr3, pr),
+                f"{label} parent kernel on poisoned outputs vs plain differ")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "kernel_ms": kernel_ms, "events_ms": turns["kernel"],
+            "parent_ms": parent_ms, "parent_kernel_ms": parent_kernel_ms}
+
+
 def check_k2(turbo, batch, launches, parent=None):
-    """K2 at QC 256 on the first batch's weights: held bitwise against the
-    plain version, timed by CUDA events and alone (torch.profiler's kernel
-    events), and, given the parent commit's source (`parent`, a runner
-    from k2_ab.parent_runner), the parent's kernel on the same inputs in
-    turns (parent, kernel, kernel, parent), held bitwise too."""
+    """K2 at QC 256 on the first batch's weights, held and timed by
+    sweep_ab (the parent's K2 beside it when given)."""
     import torch
 
     from elasticsearch_tpu_torch.parallel import cuda_build
     from elasticsearch_tpu_torch.parallel import kernels as k
     from elasticsearch_tpu_torch.parallel.turbo import _flatten_queries
-    from elasticsearch_tpu_torch.tools.k2_ab import run_raw, sweep_work
-    from elasticsearch_tpu_torch.tools.k9_ab import kernel_times
+    from elasticsearch_tpu_torch.tools.k2_ab import sweep_work
 
     dev = turbo.device
     flat, _ = _flatten_queries([batch])
@@ -346,40 +398,8 @@ def check_k2(turbo, batch, launches, parent=None):
     wq = torch.from_numpy(wq_np).to(dev)
     qs = torch.from_numpy(qs_np).to(dev)
     args = (qs, turbo.cols_hi, turbo.cols_lo, wq, turbo.live)
-    out = {}
-
-    def kern():
-        out["k"] = k.sweep_rowmax(*args, nsw=turbo.nsw)
-
-    def par():
-        out["parent"] = parent(args, turbo.nsw)
-
-    turns = {"parent": [], "kernel": []}
-    for name in (["parent"] if parent else []) + ["kernel", "kernel"] + (
-            ["parent"] if parent else []):
-        turns[name].append(cuda_ms(kern if name == "kernel" else par, 10))
-    ms = float(np.median(turns["kernel"]))
-    kernel_ms = kernel_times(kern, names=("sweep",))["sweep"]
-    parent_ms = parent_kernel_ms = None
-    if parent:
-        parent_ms = turns["parent"]
-        parent_kernel_ms = kernel_times(par, names=("sweep",))["sweep"]
-    plain_ms = cuda_ms(lambda: out.__setitem__(
-        "p", k.sweep_rowmax_plain(*args, nsw=turbo.nsw)), 1)
-    (km, kr), (pm, pr) = out["k"], out["p"]
-    err = max(max_abs_err(km, pm), max_abs_err(kr, pr))
-    require(err == 0.0 and torch.equal(km, pm) and torch.equal(kr, pr),
-            f"K2 kernel vs plain: max_abs_err {err}")
-    # the same kernel once more on outputs filled with NaN / -1 first, so
-    # no result of an earlier call in reused memory can pass for its own
-    pm2, pr2 = run_raw(cuda_build.kernel("sweep_rowmax"), args, turbo.nsw,
-                       poison=True)
-    require(torch.equal(pm2, pm) and torch.equal(pr2, pr),
-            "K2 kernel on poisoned outputs vs plain differ")
-    if parent:
-        require(torch.equal(out["parent"][0], pm)
-                and torch.equal(out["parent"][1], pr),
-                "K2 parent kernel vs plain differ")
+    timing = sweep_ab("K2", k.sweep_rowmax, k.sweep_rowmax_plain,
+                      "sweep_rowmax", args, turbo.nsw, parent)
     nbytes, ops, n_union, nnz = sweep_work(wq_np, turbo.Dp, turbo.nsw)
     b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
     # G as the built kernel reports it, held to the wrapper's mirror
@@ -391,11 +411,8 @@ def check_k2(turbo, batch, launches, parent=None):
     return {"name": "sweep_rowmax", "route": "cuda",
             "source": "elasticsearch_tpu_torch/parallel/csrc/sweep_rowmax.cu",
             "replaces": "elasticsearch_tpu/parallel/kernels.py:190",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "kernel_ms": kernel_ms,
-            "events_ms": turns["kernel"], "parent_ms": parent_ms,
-            "parent_kernel_ms": parent_kernel_ms, "group": group,
+            "launches": launches, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, **timing, "group": group,
             "shape": {"QC": qc, "Hpt": hpt, "nsw": turbo.nsw,
                       "union_slots": n_union, "nonzero_weights": nnz}}
 
@@ -1114,92 +1131,70 @@ def check_k5(turbo, chunk, launches):
                       "distinct_slots": len(distinct)}}, out["k"]
 
 
-def check_k6(turbo, chunk, mask, launches):
+def check_k6(turbo, chunk, mask, launches, parent=None):
+    """K6 at QC 256 on the bitset route's device chunk and K5's mask of it,
+    held and timed by sweep_ab (the parent's K6 beside it when given)."""
     import torch
 
     from elasticsearch_tpu_torch.parallel import kernels as k
+    from elasticsearch_tpu_torch.tools.k2_ab import bitset_work
 
     dev, qc, nsw = turbo.device, 256, turbo.nsw
     wq_np, _, _, qs_np = turbo._bool_weights(chunk, qc)
     wq = torch.from_numpy(wq_np).to(dev)
     qs = torch.from_numpy(qs_np).to(dev)
     args = (qs, turbo.cols_hi, turbo.cols_lo, wq, mask, turbo.live)
-    out = {}
-    ms = cuda_ms(lambda: out.__setitem__(
-        "k", k.sweep_rowmax_bitset(*args, nsw=nsw)), 10)
-    plain_ms = cuda_ms(lambda: out.__setitem__(
-        "p", k.sweep_rowmax_bitset_plain(*args, nsw=nsw)), 1)
-    (km, kr), (pm, pr) = out["k"], out["p"]
-    err = max(max_abs_err(km, pm), max_abs_err(kr, pr))
-    require(err == 0.0 and torch.equal(km, pm) and torch.equal(kr, pr),
-            f"K6 kernel vs plain: max_abs_err {err}")
-    # live chunks per query: a 16-bit half-word with a surviving bit
-    lo = ((mask & 0xFFFF) != 0).any(dim=-1)
-    hi = (((mask >> 16) & 0xFFFF) != 0).any(dim=-1)
-    live_c = torch.stack([lo, hi], dim=-1).reshape(qc, -1).cpu().numpy()
-    nz = (wq_np != 0).any(axis=0)                           # [QC, Hpt]
-    col_bytes = 0
-    for slot in np.nonzero(nz.any(axis=0))[0]:
-        col_bytes += int(live_c[nz[:, slot]].any(axis=0).sum()) * k.CHUNK * 2
-    any_live = int(live_c.any(axis=0).sum())
-    # the kernel reads the mask only of queries with a score weight
-    scored = int(nz.any(axis=1).sum())
-    nbytes = (col_bytes + any_live * k.CHUNK * 4 + scored * mask[0].numel() * 4
-              + wq_np.nbytes + qs_np.nbytes + 2 * nsw * qc * k.CAND_PAD * 4)
-    ops = int((nz.sum(axis=1) * live_c.sum(axis=1)).sum()) * k.CHUNK * 8
+    timing = sweep_ab("K6", k.sweep_rowmax_bitset,
+                      k.sweep_rowmax_bitset_plain, "sweep_rowmax_bitset",
+                      args, nsw, parent)
+    nbytes, ops, work = bitset_work(wq_np, mask, nsw)
     b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
     return {"name": "sweep_rowmax_bitset", "route": "cuda",
             "source": "elasticsearch_tpu_torch/parallel/csrc/sweep_rowmax.cu",
             "replaces": "elasticsearch_tpu/parallel/kernels.py:581",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "launches": launches, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": int_mm_ms(turbo, wq),
             "library_note": "torch._int_mm of the four score products over "
                             "all slots; the mask gate has no library call",
+            **timing,
             "shape": {"QC": qc, "Hpt": int(turbo.cols_hi.shape[1]),
-                      "nsw": nsw, "scored_queries": scored,
-                      "live_chunks": int(live_c.sum()),
-                      "chunks": int(live_c.size),
-                      "nonzero_weights": int(nz.sum())}}
+                      "nsw": nsw, **work}}
 
 
-def check_k7(turbo, chunk, launches):
+def check_k7(turbo, chunk, launches, parent=None):
+    """K7 at QC 256 on the bitset route's device chunk (128 active), held
+    and timed by sweep_ab (the parent's K7 beside it when given)."""
     import torch
 
     from elasticsearch_tpu_torch.parallel import kernels as k
+    from elasticsearch_tpu_torch.tools.k2_ab import sweep_work
 
     dev, qc, nsw = turbo.device, 256, turbo.nsw
     wq_np, wp_np, nr_np, qs_np = turbo._bool_weights(chunk, qc)
     wq, wp = (torch.from_numpy(x).to(dev) for x in (wq_np, wp_np))
     nreq, qs = (torch.from_numpy(x).to(dev) for x in (nr_np, qs_np))
     args = (qs, nreq, turbo.cols_hi, turbo.cols_lo, wq, wp, turbo.live)
-    out = {}
-    ms = cuda_ms(lambda: out.__setitem__(
-        "k", k.sweep_rowmax_conj(*args, nsw=nsw)), 10)
-    plain_ms = cuda_ms(lambda: out.__setitem__(
-        "p", k.sweep_rowmax_conj_plain(*args, nsw=nsw)), 1)
-    (km, kr), (pm, pr) = out["k"], out["p"]
-    err = max(max_abs_err(km, pm), max_abs_err(kr, pr))
-    require(err == 0.0 and torch.equal(km, pm) and torch.equal(kr, pr),
-            f"K7 kernel vs plain: max_abs_err {err}")
-    nz = (wq_np != 0).any(axis=0) | (wp_np != 0)             # [QC, Hpt]
-    dp = turbo.Dp
-    nbytes = (int(nz.any(axis=0).sum()) * 2 * dp + dp * 4 + wq_np.nbytes
-              + wp_np.nbytes + nr_np.nbytes + qs_np.nbytes
-              + 2 * nsw * qc * k.CAND_PAD * 4)
-    b_ms, b_by = bound(nbytes, int(nz.sum()) * dp * 10, PEAK_INT8)
+    timing = sweep_ab("K7", k.sweep_rowmax_conj, k.sweep_rowmax_conj_plain,
+                      "sweep_rowmax_conj", args, nsw, parent)
+    nbytes, ops, n_union, nnz = sweep_work(wq_np, turbo.Dp, nsw, wp_np,
+                                           nr_np)
+    b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
+    scored = (wq_np != 0).any(axis=(0, 2))
     return {"name": "sweep_rowmax_conj", "route": "cuda",
             "source": "elasticsearch_tpu_torch/parallel/csrc/sweep_rowmax.cu",
             "replaces": "elasticsearch_tpu/parallel/kernels.py:318",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "launches": launches, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": int_mm_ms(turbo, wq),
             "library_note": "torch._int_mm of the four score products over "
                             "all slots; the coverage product has no library "
                             "call",
+            **timing,
             "shape": {"QC": qc, "Hpt": int(turbo.cols_hi.shape[1]),
-                      "nsw": nsw, "union_slots": int(nz.any(axis=0).sum()),
-                      "nonzero_weights": int(nz.sum())}}
+                      "nsw": nsw, "union_slots": n_union,
+                      "nonzero_weights": nnz,
+                      "scored_queries": int(scored.sum()),
+                      "coverage_only_queries": int(
+                          ((wp_np != 0).any(axis=1) & ~scored).sum())}}
 
 
 def _delta(after: dict, before: dict, keys) -> dict:
@@ -1279,7 +1274,7 @@ def serve_bool_routes(eng, turbo, fp, n_docs, batches):
 
 
 def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper,
-                k3_parent_run=None):
+                k3_parent_run=None, k6_parent=None, k7_parent=None):
     """Configs 2 and 3 on the main path's engine: the bool batches on both
     sweeps, K5-K7 held against their plain versions on the bitset route's
     dispatch, then slop-0 phrase batches and one slop-2 match_phrase body.
@@ -1334,9 +1329,10 @@ def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper,
         k5, mask = check_k5(turbo, chunk, bit_l["intersect_bitset"])
         counts_ms = cuda_ms(lambda: kernels.mask_chunk_counts(mask), 20)
         rows = [k5, check_k6(turbo, chunk, mask,
-                             bit_l["sweep_rowmax_bitset"])]
+                             bit_l["sweep_rowmax_bitset"], k6_parent)]
         del mask
-        rows.append(check_k7(turbo, chunk, cov_l["sweep_rowmax_conj"]))
+        rows.append(check_k7(turbo, chunk, cov_l["sweep_rowmax_conj"],
+                             k7_parent))
         k3_bool = check_k3_bool(
             {r: routes[r][2] for r in routes}, turbo.Dp // kernels.TILE,
             {"bitset": bit_l["sparse_gather"],
@@ -2430,8 +2426,11 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     log(f"parent K3 for the A/B: {k3_parent_src if parent else 'not given'}")
     from elasticsearch_tpu_torch.tools.k2_ab import parent_runner
 
+    # the parent's whole sweep_rowmax.cu: its K2, K6 and K7 entries
     k2_parent = parent_runner(k2_parent_src)
-    log(f"parent K2 for the A/B: "
+    k6_parent = parent_runner(k2_parent_src, "bitset")
+    k7_parent = parent_runner(k2_parent_src, "conj")
+    log(f"parent sweeps (K2, K6, K7) for the A/B: "
         f"{k2_parent_src if k2_parent else 'not given'}")
 
     if n_docs < FULL_DOCS:
@@ -2554,7 +2553,8 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     t = time.time()
     bool_rows, bool_report, k3_bool = bool_phases(eng, turbo, fp, n_docs,
                                                   tokens, bounds, mapper,
-                                                  parent)
+                                                  parent, k6_parent,
+                                                  k7_parent)
     rows[2]["bool_path"] = k3_bool
     rows += bool_rows
     bool_report["phases_s"] = time.time() - t
@@ -2617,9 +2617,9 @@ def main(argv=None) -> int:
                          "to time beside this tree's K3 on the same "
                          "dispatches; skipped when the file is missing")
     ap.add_argument("--k2-parent", default=K2_PARENT,
-                    help="an earlier sweep_rowmax.cu (same C entry) to time "
-                         "beside this tree's K2 on the same inputs; skipped "
-                         "when the file is missing")
+                    help="an earlier sweep_rowmax.cu (same C entries) to "
+                         "time beside this tree's K2, K6 and K7 on the "
+                         "same inputs; skipped when the file is missing")
     args = ap.parse_args(argv)
     try:
         import torch

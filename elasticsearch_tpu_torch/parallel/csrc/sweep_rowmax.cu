@@ -8,7 +8,8 @@
 // and sweep_rowmax_bitset (:534, pallas_call :581, body
 // _sweep_bitset_kernel :457). Each ran four dense int8 matmuls over every
 // slot of the cache for every query on the MXU (the conjunctive one a fifth
-// for coverage), then a 17-pass row-max cascade per superwindow.
+// for coverage, the bitset one skipping chunks no query of its block
+// keeps), then a 17-pass row-max cascade per superwindow.
 //
 // The four products hh, hl, lh, ll are exact integer sums, so any order of
 // evaluation gives the same int32s, and a query's zero-weight slots add
@@ -16,37 +17,37 @@
 // one. A query with no nonzero score weight writes its empty result
 // without touching the columns (every val is 0, never > 0).
 //
-// K2 (sweep_group_kernel). One block per (group of G consecutive queries,
-// superwindow); blockIdx.x is the group, so all groups of a superwindow
-// run together and a hot column chunk comes from device memory once. The
-// block compacts its queries' nonzero (slot, wh, wl) into shared memory
-// (in batches of queries when they do not fit). Eight threads score a
-// 128-doc row, 16 docs each, and a warp's four rows are adjacent: its load
-// of one slot and layer is 512 contiguous bytes, one 16-byte load a
-// thread. For 64 rows at a time each thread reads its docs' `live` once
-// into 16 alive bits, then for every query sums the query's slots,
-// combines, keeps the max of its 16 docs, and three shuffles give the row
-// max, stored to shared memory, [G][512]. Queries whose weights allow it
-// sum in exact f32 with no conversion instruction (docs_fast); the others
-// form the int32 products (docs_int). One warp per query then picks the
-// top NCAND of its 512 row maxima by (rowmax desc, row asc) with two warp
-// reductions a round and no block barrier. Values are kept as their bit
-// patterns (every kept val is > 0, and positive floats order as their
-// bits; 0 = no doc).
+// One kernel serves the three, sweep_group_kernel<MODE>: one block per
+// (group of G consecutive queries, superwindow); blockIdx.x is the group,
+// so all groups of a superwindow run together and a hot column chunk comes
+// from device memory once. The block compacts its queries' nonzero (slot,
+// wh, wl) into shared memory (in batches of queries when they do not
+// fit). Eight threads score a 128-doc row, 16 docs each, and a warp's four
+// rows are adjacent: its load of one slot and layer is 512 contiguous
+// bytes, one 16-byte load a thread. For 64 rows at a time each thread
+// reads its docs' `live` once into 16 alive bits, then for every query
+// sums the query's slots, combines, keeps the max of its 16 docs, and
+// three shuffles give the row max, stored to shared memory, [G][512].
+// Queries whose weights allow it sum in exact f32 with no conversion
+// instruction (docs_fast); the others form the int32 products (docs_int).
+// One warp per query then picks the top NCAND of its 512 row maxima by
+// (rowmax desc, row asc) with two warp reductions a round and no block
+// barrier. Values are kept as their bit patterns (every kept val is > 0,
+// and positive floats order as their bits; 0 = no doc).
 //
-// K6 and K7 are one older template, a block per (query, superwindow). K7
-// (CONJ) also walks the slots where its coverage weight wp is nonzero
-// (filters and must_nots carry no score weight) and sums
-// cov = sum wp * ((hi != 0) | (lo != 0)) per doc, exact like the products;
-// a doc counts only if cov == nreq. K6 (BITSET) reads each row's mask bits
-// first (bit row % 32 of word row sw * 16 + row / 32, one 16-byte load per
-// thread); a row with no surviving bit reads no columns and is -inf, which
-// is what the reference's chunk skip gives it.
+// The modes differ only in a gate ANDed into a query's alive bits before
+// its scores are summed. DISJ (K2): none. CONJ (K7): a doc counts only if
+// cov = sum wp * ((hi | lo) != 0) == nreq (cover_bits); a query's list
+// also holds the slots where only its coverage weight wp is nonzero
+// (filters, must_nots), after its score slots, and wp beside each entry.
+// BITSET (K6): bit row % 32 of the doc's word in the query's intersected
+// mask (mask_bits). A thread whose gate is empty reads no columns: a row
+// with no surviving doc is -inf, what the reference's chunk skip gives it.
 //
 // What bounds them on the H100: bytes -- the nonzero slots' columns (2
-// bytes per doc per slot; for K6 only in rows with a surviving bit), the
-// live mask and K6's mask, read once. K2 at QC 256 reaches about a third
-// of that: its warps wait in turn on each query's loads, combine and
+// bytes per doc per slot; for K6 only in chunks with a surviving bit), the
+// live mask and K6's mask, read once. The kernel reaches about a third of
+// that: its warps wait in turn on each query's loads, gate, combine and
 // shuffles (PERF.md).
 //
 // The combine is the reference's, in f32:
@@ -70,201 +71,7 @@ constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int SW_WORD_ROWS = SW_ROWS / 32;   // packed mask word rows
 
-enum Mode { CONJ = 1, BITSET = 2 };
-
-struct Cand {
-  float v;
-  int r;
-};
-
-// (v desc, row asc)
-__device__ __forceinline__ bool better(const Cand& a, const Cand& b) {
-  return a.v > b.v || (a.v == b.v && a.r < b.r);
-}
-
-__device__ __forceinline__ Cand warp_best(Cand c) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    Cand x;
-    x.v = __shfl_xor_sync(0xffffffffu, c.v, o);
-    x.r = __shfl_xor_sync(0xffffffffu, c.r, o);
-    if (better(x, c)) c = x;
-  }
-  return c;
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-sweep_kernel(const float* __restrict__ qscale,
-             const int32_t* __restrict__ nreq,      // CONJ: [qc]
-             const int8_t* __restrict__ cols_hi,
-             const int8_t* __restrict__ cols_lo,
-             const int8_t* __restrict__ wq,
-             const int8_t* __restrict__ wp,         // CONJ: [qc, hpt]
-             const int32_t* __restrict__ mask,      // BITSET: [qc, nsw*16, 128]
-             const float* __restrict__ live,
-             float* __restrict__ out_m, int32_t* __restrict__ out_r,
-             int qc, int hpt, int nsw) {
-  extern __shared__ int dyn[];
-  int* s_slot = dyn;                                          // [hpt]
-  int* s_wh = s_slot + hpt;                                   // [hpt]
-  int* s_wl = s_wh + hpt;                                     // [hpt]
-  int* s_wp = s_wl + hpt;                                     // CONJ: [hpt]
-  __shared__ float s_rm[SW_ROWS];
-  __shared__ Cand s_warp[WARPS];
-  __shared__ Cand s_win;
-  __shared__ int s_nz;
-  __shared__ int s_nw;
-
-  const int q = blockIdx.x;
-  const int sw = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int64_t obase = ((int64_t)sw * qc + q) * CAND_PAD;
-
-  // gather the query's nonzero slots; their order in the list is whatever
-  // the atomics give, which cannot change the exact integer sums
-  if (tid == 0) {
-    s_nz = 0;
-    s_nw = 0;
-  }
-  __syncthreads();
-  {
-    const int8_t* wh = wq + (int64_t)q * hpt;
-    const int8_t* wl = wq + (int64_t)(qc + q) * hpt;
-    for (int s = tid; s < hpt; s += THREADS) {
-      const int a = wh[s], b = wl[s];
-      const int c = MODE == CONJ ? (int)wp[(int64_t)q * hpt + s] : 0;
-      if (a != 0 || b != 0 || c != 0) {
-        const int n = atomicAdd(&s_nz, 1);
-        s_slot[n] = s;
-        s_wh[n] = a;
-        s_wl[n] = b;
-        if (MODE == CONJ) s_wp[n] = c;
-        if (a != 0 || b != 0) atomicAdd(&s_nw, 1);
-      }
-    }
-  }
-  __syncthreads();
-  const int nz = s_nz;
-  if (s_nw == 0) {
-    // every val is 0, never > 0: all rows are empty
-    if (tid < CAND_PAD) {
-      out_m[obase + tid] = -INFINITY;
-      out_r[obase + tid] = 0;
-    }
-    return;
-  }
-  const float qs = qscale[q];
-  const int need = MODE == CONJ ? nreq[q] : 0;
-
-  for (int row = warp; row < SW_ROWS; row += WARPS) {
-    unsigned alive = 0xFu;          // one bit per doc of this thread
-    if (MODE == BITSET) {
-      const int g = sw * SW_WORD_ROWS + (row >> 5);
-      const int4 w = *reinterpret_cast<const int4*>(
-          mask + ((int64_t)q * nsw * SW_WORD_ROWS + g) * 128 + lane * 4);
-      const int bit = row & 31;
-      alive = ((unsigned)(w.x >> bit) & 1u)
-              | (((unsigned)(w.y >> bit) & 1u) << 1)
-              | (((unsigned)(w.z >> bit) & 1u) << 2)
-              | (((unsigned)(w.w >> bit) & 1u) << 3);
-      if (!__any_sync(0xffffffffu, alive != 0u)) {
-        if (lane == 0) s_rm[row] = -INFINITY;
-        continue;
-      }
-    }
-    const int chunk = sw * (SW_ROWS / CHUNK_ROWS) + row / CHUNK_ROWS;
-    const int within = (row % CHUNK_ROWS) * 128 + lane * 4;
-    int hh[4] = {0, 0, 0, 0}, hl[4] = {0, 0, 0, 0};
-    int lh[4] = {0, 0, 0, 0}, ll[4] = {0, 0, 0, 0};
-    int cov[4] = {0, 0, 0, 0};
-    for (int i = 0; i < nz; ++i) {
-      const int64_t off = ((int64_t)chunk * hpt + s_slot[i]) * 2048 + within;
-      const char4 h = *reinterpret_cast<const char4*>(cols_hi + off);
-      const char4 l = *reinterpret_cast<const char4*>(cols_lo + off);
-      const int a = s_wh[i], b = s_wl[i];
-      hh[0] += a * h.x; hh[1] += a * h.y; hh[2] += a * h.z; hh[3] += a * h.w;
-      hl[0] += a * l.x; hl[1] += a * l.y; hl[2] += a * l.z; hl[3] += a * l.w;
-      lh[0] += b * h.x; lh[1] += b * h.y; lh[2] += b * h.z; lh[3] += b * h.w;
-      ll[0] += b * l.x; ll[1] += b * l.y; ll[2] += b * l.z; ll[3] += b * l.w;
-      if (MODE == CONJ) {
-        const int c = s_wp[i];
-        cov[0] += c * (int)((h.x != 0) | (l.x != 0));
-        cov[1] += c * (int)((h.y != 0) | (l.y != 0));
-        cov[2] += c * (int)((h.z != 0) | (l.z != 0));
-        cov[3] += c * (int)((h.w != 0) | (l.w != 0));
-      }
-    }
-    const int64_t doc0 = ((int64_t)sw * SW_ROWS + row) * 128 + lane * 4;
-    float m = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float val = __fadd_rn(__fmul_rn(16384.f, (float)hh[j]),
-                            __fmul_rn(128.f, (float)(hl[j] + lh[j])));
-      val = __fmul_rn(__fadd_rn(val, (float)ll[j]), qs);
-      bool ok = val > 0.f && live[doc0 + j] > 0.f;
-      if (MODE == CONJ) ok = ok && cov[j] == need;
-      if (MODE == BITSET) ok = ok && ((alive >> j) & 1u);
-      if (ok) m = fmaxf(m, val);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    }
-    if (lane == 0) s_rm[row] = m;
-  }
-  __syncthreads();
-
-  // top NCAND rows by (rowmax desc, row asc); one row per thread
-  for (int p = 0; p < NCAND; ++p) {
-    Cand c = {s_rm[tid], tid};
-    c = warp_best(c);
-    if (lane == 0) s_warp[warp] = c;
-    __syncthreads();
-    if (warp == 0) {
-      Cand w = lane < WARPS ? s_warp[lane] : Cand{-INFINITY, SW_ROWS};
-      w = warp_best(w);
-      if (lane == 0) s_win = w;
-    }
-    __syncthreads();
-    const Cand w = s_win;
-    if (tid == 0) {
-      const bool keep = w.v > -INFINITY;
-      out_m[obase + p] = keep ? w.v : -INFINITY;
-      out_r[obase + p] = keep ? w.r + sw * SW_ROWS : 0;
-    }
-    if (tid == w.r) s_rm[tid] = -INFINITY;
-    __syncthreads();
-  }
-  if (tid >= NCAND && tid < CAND_PAD) {
-    out_m[obase + tid] = -INFINITY;
-    out_r[obase + tid] = 0;
-  }
-}
-
-template <int MODE>
-int launch(const void* qscale, const void* nreq, const void* cols_hi,
-           const void* cols_lo, const void* wq, const void* wp,
-           const void* mask, const void* live, void* out_m, void* out_r,
-           int qc, int hpt, int nsw, void* stream) {
-  const int smem = (MODE == CONJ ? 4 : 3) * hpt * (int)sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem > 48 * 1024 ? smem : 48 * 1024);
-  if (err != cudaSuccess) return (int)err;
-  if (qc <= 0 || nsw <= 0) return 0;
-  dim3 grid(qc, nsw);
-  sweep_kernel<MODE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)qscale, (const int32_t*)nreq, (const int8_t*)cols_hi,
-      (const int8_t*)cols_lo, (const int8_t*)wq, (const int8_t*)wp,
-      (const int32_t*)mask, (const float*)live, (float*)out_m,
-      (int32_t*)out_r, qc, hpt, nsw);
-  return (int)cudaGetLastError();
-}
-
-// ---- K2: a block per (group of G queries, superwindow) ----
+enum Mode { DISJ = 0, CONJ = 1, BITSET = 2 };
 
 constexpr int G = 16;            // queries a block (measured: tools/k2_ab.py)
 constexpr int LIST_MIN = 256;    // list entries a block may always hold
@@ -384,21 +191,84 @@ __device__ __forceinline__ unsigned docs_int(const int4* ent, int n,
   return best;
 }
 
+// The coverage gate (K7) over the thread's DPT docs of a row: bit d set
+// where cov = sum wp * present equals need, present = (hi | lo) != 0 (the
+// build forces lo >= 1 where a term occurs). Each byte's presence becomes
+// 0x01 with no compare: (x & 0x7F) + 0x7F sets bit 7 iff the low seven
+// bits are not all 0, or-ing x adds its own bit 7. cov is an exact
+// integer, |cov| <= 128 n < 2^31 for any n <= 0xFFFF entries. The gate is
+// known before any score is summed, so the float path masks the bytes of
+// the docs it fails, as it does dead docs': their pre is 0, never counted.
+__device__ __forceinline__ unsigned cover_bits(const int4* ent,
+                                               const int* wps, int n,
+                                               const int8_t* hi,
+                                               const int8_t* lo, int need) {
+  int cov[DPT];
+#pragma unroll
+  for (int d = 0; d < DPT; ++d) cov[d] = 0;
+  for (int k = 0; k < n; ++k) {
+    const int64_t o = (int64_t)(ent[k].x & 0xFFFF) * 2048;
+    const Words h = ld_words(hi + o), l = ld_words(lo + o);
+    const int c = wps[k];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const unsigned x = h.w[w] | l.w[w];
+      const unsigned p =
+          ((((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x) >> 7) & 0x01010101u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        cov[4 * w + j] += c * (int)__byte_perm(p, 0u, 0x4440u | j);
+      }
+    }
+  }
+  unsigned g = 0;
+#pragma unroll
+  for (int d = 0; d < DPT; ++d) g |= (unsigned)(cov[d] == need) << d;
+  return g;
+}
+
+// The mask gate (K6) of the thread's DPT docs of a row: bit row % 32 of
+// each of its DPT words in the query's intersected mask (K5's output),
+// four 16-byte loads; a warp's four rows share one word row.
+__device__ __forceinline__ unsigned mask_bits(const int32_t* p, int bit) {
+  unsigned g = 0;
+#pragma unroll
+  for (int i = 0; i < DPT / 4; ++i) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
+    g |= (((v.x >> bit) & 1u) | (((v.y >> bit) & 1u) << 1)
+          | (((v.z >> bit) & 1u) << 2) | (((v.w >> bit) & 1u) << 3))
+         << (4 * i);
+  }
+  return g;
+}
+
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 2)
 sweep_group_kernel(const float* __restrict__ qscale,
+                   const int32_t* __restrict__ nreq,     // CONJ: [qc]
                    const int8_t* __restrict__ cols_hi,
                    const int8_t* __restrict__ cols_lo,
                    const int8_t* __restrict__ wq,
+                   const int8_t* __restrict__ wp,        // CONJ: [qc, hpt]
+                   // BITSET: [qc, nsw * 16, 128]
+                   const int32_t* __restrict__ mask,
                    const float* __restrict__ live,
                    float* __restrict__ out_m, int32_t* __restrict__ out_r,
                    int qc, int hpt, int cap) {
   extern __shared__ int4 group_smem[];
   // [cap] entries: x = slot | wh << 16 | wl << 24, then the float path's
-  // weights 16384 wh + 128 wl, 128 wh, wl as f32 bits
+  // weights 16384 wh + 128 wl, 128 wh, wl as f32 bits; CONJ: each entry's
+  // wp beside it, [cap]
   int4* s_ent = group_smem;
-  unsigned* s_rm = reinterpret_cast<unsigned*>(s_ent + cap);   // [G][512]
+  int* s_wp = reinterpret_cast<int*>(s_ent + cap);
+  unsigned* s_rm = reinterpret_cast<unsigned*>(
+      s_wp + (MODE == CONJ ? cap : 0));                          // [G][512]
   __shared__ int s_cnt[G], s_off[G], s_fast[G];
   __shared__ float s_qs[G];
+  // CONJ: a query's list is its score-only entries, then those with score
+  // and coverage weight, then the coverage-only ones: scores read
+  // [0, s_nsc), coverage [s_c0, s_cnt)
+  __shared__ int s_nsc[G], s_c0[G], s_need[G];
 
   const int q0 = blockIdx.x * G;
   const int ng = min(G, qc - q0);
@@ -410,25 +280,42 @@ sweep_group_kernel(const float* __restrict__ qscale,
   // warp's load of one slot and layer is 512 contiguous bytes
   const int sub = lane % TPR;
 
-  // each query's nonzero slots and weight sums, a warp per query
+  // each query's nonzero slots and weight sums, a warp per query. A CONJ
+  // query with no score weight keeps an empty list: every val is 0, never
+  // > 0, so it writes its empty result and takes no list room
   for (int j = warp; j < ng; j += WARPS) {
     const int8_t* wh = wq + (int64_t)(q0 + j) * hpt;
     const int8_t* wl = wq + (int64_t)(qc + q0 + j) * hpt;
-    int n = 0, sa = 0, sb = 0;
+    const int8_t* wc = MODE == CONJ ? wp + (int64_t)(q0 + j) * hpt : nullptr;
+    int n = 0, sa = 0, sb = 0, nc = 0, nb = 0;
     for (int s = lane; s < hpt; s += 32) {
       const int a = wh[s], b = wl[s];
       n += (a | b) != 0;
       sa += abs(a);
       sb += abs(b);
+      if (MODE == CONJ) {
+        const int c = wc[s];
+        nc += c != 0;
+        nb += c != 0 && (a | b) != 0;
+      }
     }
     n = __reduce_add_sync(FULL, n);
     sa = __reduce_add_sync(FULL, sa);
     sb = __reduce_add_sync(FULL, sb);
+    if (MODE == CONJ) {
+      nc = __reduce_add_sync(FULL, nc);
+      nb = __reduce_add_sync(FULL, nb);
+    }
     if (lane == 0) {
       const float qs = qscale[q0 + j];
-      s_cnt[j] = n;
+      s_cnt[j] = MODE == CONJ && n != 0 ? n + nc - nb : n;
       s_qs[j] = qs;
       s_fast[j] = fast_query(sa, sb, qs);
+      if (MODE == CONJ) {
+        s_nsc[j] = n;
+        s_c0[j] = n - nb;
+        s_need[j] = nreq[q0 + j];
+      }
     }
   }
 
@@ -438,25 +325,38 @@ sweep_group_kernel(const float* __restrict__ qscale,
     int qe = qb, used = 0;
     while (qe < ng && used + s_cnt[qe] <= cap) used += s_cnt[qe++];
     for (int j = qb + warp; j < qe; j += WARPS) {
+      if (MODE == CONJ && s_cnt[j] == 0) continue;
       int pos = 0;
       for (int i = qb; i < j; ++i) pos += s_cnt[i];
       if (lane == 0) s_off[j] = pos;
       const int8_t* wh = wq + (int64_t)(q0 + j) * hpt;
       const int8_t* wl = wq + (int64_t)(qc + q0 + j) * hpt;
-      for (int s0 = 0; s0 < hpt; s0 += 32) {
-        const int s = s0 + lane;
-        const int a = s < hpt ? wh[s] : 0;
-        const int b = s < hpt ? wl[s] : 0;
-        const bool nz = (a | b) != 0;
-        const unsigned bal = __ballot_sync(FULL, nz);
-        if (nz) {
-          s_ent[pos + __popc(bal & ((1u << lane) - 1u))] = make_int4(
-              (int)((unsigned)s | ((unsigned)(a & 0xFF) << 16)
-                    | ((unsigned)b << 24)),
-              __float_as_int((float)(16384 * a + 128 * b)),
-              __float_as_int((float)(128 * a)), __float_as_int((float)b));
+      const int8_t* wc = MODE == CONJ ? wp + (int64_t)(q0 + j) * hpt
+                                      : nullptr;
+      // CONJ: three passes, one per part of the list
+      for (int part = 0; part < (MODE == CONJ ? 3 : 1); ++part) {
+        for (int s0 = 0; s0 < hpt; s0 += 32) {
+          const int s = s0 + lane;
+          const int a = s < hpt ? wh[s] : 0;
+          const int b = s < hpt ? wl[s] : 0;
+          const int c = MODE == CONJ && s < hpt ? wc[s] : 0;
+          const bool sc = (a | b) != 0;
+          const bool nz = MODE != CONJ ? sc
+                          : part == 0  ? sc && c == 0
+                          : part == 1  ? sc && c != 0
+                                       : !sc && c != 0;
+          const unsigned bal = __ballot_sync(FULL, nz);
+          if (nz) {
+            const int e = pos + __popc(bal & ((1u << lane) - 1u));
+            s_ent[e] = make_int4(
+                (int)((unsigned)s | ((unsigned)(a & 0xFF) << 16)
+                      | ((unsigned)b << 24)),
+                __float_as_int((float)(16384 * a + 128 * b)),
+                __float_as_int((float)(128 * a)), __float_as_int((float)b));
+            if (MODE == CONJ) s_wp[e] = c;
+          }
+          pos += __popc(bal);
         }
-        pos += __popc(bal);
       }
     }
     __syncthreads();
@@ -487,8 +387,39 @@ sweep_group_kernel(const float* __restrict__ qscale,
         const int n = s_cnt[j];
         if (n == 0) continue;
         const int4* ent = s_ent + s_off[j];
-        unsigned v = s_fast[j] ? docs_fast(ent, n, hi, lo, msk)
-                               : docs_int(ent, n, hi, lo, alive, s_qs[j]);
+        unsigned v;
+        if (MODE == DISJ) {
+          v = s_fast[j] ? docs_fast(ent, n, hi, lo, msk)
+                        : docs_int(ent, n, hi, lo, alive, s_qs[j]);
+        } else {
+          // the query's gate first, then the scores of the docs it keeps;
+          // a thread whose docs all fail reads no columns (a warp whose
+          // four rows all fail skips the score loop)
+          unsigned gate = alive;
+          int ns = n;
+          if (MODE == CONJ) {
+            const int c0 = s_c0[j];
+            gate &= cover_bits(ent + c0, s_wp + s_off[j] + c0, n - c0, hi,
+                               lo, s_need[j]);
+            ns = s_nsc[j];
+          } else {
+            gate &= mask_bits(mask + ((int64_t)(q0 + j) * gridDim.y
+                                      * SW_WORD_ROWS + sw * SW_WORD_ROWS
+                                      + row / 32) * 128 + sub * DPT,
+                              row & 31);
+          }
+          v = 0u;
+          if (gate != 0u) {
+            if (s_fast[j]) {
+              Words g;
+#pragma unroll
+              for (int w = 0; w < NW; ++w) g.w[w] = byte_mask(gate >> (4 * w));
+              v = docs_fast(ent, ns, hi, lo, g);
+            } else {
+              v = docs_int(ent, ns, hi, lo, gate, s_qs[j]);
+            }
+          }
+        }
 #pragma unroll
         for (int o = TPR / 2; o > 0; o >>= 1) {
           v = max(v, __shfl_xor_sync(FULL, v, o));
@@ -563,22 +494,27 @@ int list_cap(int hpt) {
   return G * hpt < LIST_MIN ? G * hpt : (hpt > LIST_MIN ? hpt : LIST_MIN);
 }
 
-int launch_group(const void* qscale, const void* cols_hi, const void* cols_lo,
-                 const void* wq, const void* live, void* out_m, void* out_r,
-                 int qc, int hpt, int nsw, void* stream) {
+template <int MODE>
+int launch_group(const void* qscale, const void* nreq, const void* cols_hi,
+                 const void* cols_lo, const void* wq, const void* wp,
+                 const void* mask, const void* live, void* out_m,
+                 void* out_r, int qc, int hpt, int nsw, void* stream) {
   if (hpt < 1 || hpt > 0xFFFF) return (int)cudaErrorInvalidValue;
   const int cap = list_cap(hpt);
-  const int smem = cap * (int)sizeof(int4)
-                   + G * SW_ROWS * (int)sizeof(unsigned);
+  const int smem =
+      cap * (int)(sizeof(int4) + (MODE == CONJ ? sizeof(int) : 0))
+      + G * SW_ROWS * (int)sizeof(unsigned);
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      sweep_group_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   if (qc <= 0 || nsw <= 0) return 0;
   dim3 grid((qc + G - 1) / G, nsw);
-  sweep_group_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)qscale, (const int8_t*)cols_hi, (const int8_t*)cols_lo,
-      (const int8_t*)wq, (const float*)live, (float*)out_m, (int32_t*)out_r,
-      qc, hpt, cap);
+  sweep_group_kernel<MODE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)qscale, (const int32_t*)nreq, (const int8_t*)cols_hi,
+      (const int8_t*)cols_lo, (const int8_t*)wq, (const int8_t*)wp,
+      (const int32_t*)mask, (const float*)live, (float*)out_m,
+      (int32_t*)out_r, qc, hpt, cap);
   return (int)cudaGetLastError();
 }
 
@@ -588,11 +524,11 @@ extern "C" int es_sweep_rowmax(const void* qscale, const void* cols_hi,
                                const void* cols_lo, const void* wq,
                                const void* live, void* out_m, void* out_r,
                                int qc, int hpt, int nsw, void* stream) {
-  return launch_group(qscale, cols_hi, cols_lo, wq, live, out_m, out_r, qc,
-                      hpt, nsw, stream);
+  return launch_group<DISJ>(qscale, nullptr, cols_hi, cols_lo, wq, nullptr,
+                            nullptr, live, out_m, out_r, qc, hpt, nsw, stream);
 }
 
-// K2's group size and list capacity as built, for the wrapper's mirror of
+// the group size and list capacity as built, for the wrapper's mirror of
 // them (kernels.SWEEP_GROUP, kernels.sweep_list_cap) and chip_smoke.py
 extern "C" int es_sweep_group() { return G; }
 
@@ -604,8 +540,8 @@ extern "C" int es_sweep_rowmax_conj(const void* qscale, const void* nreq,
                                     const void* live, void* out_m,
                                     void* out_r, int qc, int hpt, int nsw,
                                     void* stream) {
-  return launch<CONJ>(qscale, nreq, cols_hi, cols_lo, wq, wp, nullptr, live,
-                      out_m, out_r, qc, hpt, nsw, stream);
+  return launch_group<CONJ>(qscale, nreq, cols_hi, cols_lo, wq, wp, nullptr,
+                            live, out_m, out_r, qc, hpt, nsw, stream);
 }
 
 extern "C" int es_sweep_rowmax_bitset(const void* qscale, const void* cols_hi,
@@ -613,6 +549,6 @@ extern "C" int es_sweep_rowmax_bitset(const void* qscale, const void* cols_hi,
                                       const void* mask, const void* live,
                                       void* out_m, void* out_r, int qc,
                                       int hpt, int nsw, void* stream) {
-  return launch<BITSET>(qscale, nullptr, cols_hi, cols_lo, wq, nullptr, mask,
-                        live, out_m, out_r, qc, hpt, nsw, stream);
+  return launch_group<BITSET>(qscale, nullptr, cols_hi, cols_lo, wq, nullptr,
+                              mask, live, out_m, out_r, qc, hpt, nsw, stream);
 }

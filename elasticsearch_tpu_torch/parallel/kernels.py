@@ -52,11 +52,11 @@ CHUNK_ROWS = 16       # 2048 docs per chunk-major of the column cache
 N_CHUNKS = SW_ROWS // CHUNK_ROWS   # 32 chunks per superwindow
 CHUNK = CHUNK_ROWS * 128           # 2048
 NCAND = 17            # candidates kept per (query, superwindow)
-# K2's block takes SWEEP_GROUP consecutive queries of one superwindow and
-# holds their nonzero (slot, wh, wl) lists, sweep_list_cap(hpt) entries,
-# in batches of queries when they do not fit (sweep_rowmax.cu's G and
-# list_cap, which the card tests hold these to; G measured by
-# tools/k2_ab.py)
+# The sweeps' block (K2, K6, K7) takes SWEEP_GROUP consecutive queries of
+# one superwindow and holds their nonzero (slot, wh, wl[, wp]) lists,
+# sweep_list_cap(hpt) entries, in batches of queries when they do not fit
+# (sweep_rowmax.cu's G and list_cap, which the card tests hold these to; G
+# measured by tools/k2_ab.py)
 SWEEP_GROUP = 16
 SWEEP_LIST_MIN = 256
 CAND_PAD = 32         # padded candidate lane width
@@ -348,9 +348,17 @@ def _check_sweep(qscale, cols_hi, cols_lo, wq, live, nsw: int) -> int:
 
 
 def sweep_list_cap(hpt: int) -> int:
-    """The list entries K2's block holds at once: a whole group's slots
-    where they fit in SWEEP_LIST_MIN, else at least one query's."""
+    """The list entries the sweeps' block holds at once: a whole group's
+    slots where they fit in SWEEP_LIST_MIN, else at least one query's."""
     return min(SWEEP_GROUP * hpt, max(hpt, SWEEP_LIST_MIN))
+
+
+def _check_aligned(*tensors) -> None:
+    """The group kernel's 16-byte loads of the columns, live and K6's
+    mask."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("live, cols and mask must be 16-byte aligned "
+                         "(16-byte loads)")
 
 
 def _sweep_out(nsw: int, qc: int, dev):
@@ -374,10 +382,7 @@ def sweep_rowmax(qscale, cols_hi, cols_lo, wq, live, *, nsw: int):
     qc = _check_sweep(qscale, cols_hi, cols_lo, wq, live, nsw)
     if not _route(dev):
         return sweep_rowmax_plain(qscale, cols_hi, cols_lo, wq, live, nsw=nsw)
-    if live.data_ptr() % 16 or cols_hi.data_ptr() % 16 \
-            or cols_lo.data_ptr() % 16:
-        raise ValueError("live and cols must be 16-byte aligned (16-byte "
-                         "loads)")
+    _check_aligned(cols_hi, cols_lo, live)
     rm, rr = _sweep_out(nsw, qc, dev)
     _launch("sweep_rowmax", dev, qscale.data_ptr(), cols_hi.data_ptr(),
             cols_lo.data_ptr(), wq.data_ptr(), live.data_ptr(),
@@ -422,6 +427,7 @@ def sweep_rowmax_conj(qscale, nreq, cols_hi, cols_lo, wq, wp, live, *,
     if not _route(dev):
         return sweep_rowmax_conj_plain(qscale, nreq, cols_hi, cols_lo, wq,
                                        wp, live, nsw=nsw)
+    _check_aligned(cols_hi, cols_lo, live)
     rm, rr = _sweep_out(nsw, qc, dev)
     _launch("sweep_rowmax_conj", dev, qscale.data_ptr(), nreq.data_ptr(),
             cols_hi.data_ptr(), cols_lo.data_ptr(), wq.data_ptr(),
@@ -568,6 +574,7 @@ def sweep_rowmax_bitset(qscale, cols_hi, cols_lo, wq, mask, live, *,
     if not _route(dev):
         return sweep_rowmax_bitset_plain(qscale, cols_hi, cols_lo, wq, mask,
                                          live, nsw=nsw)
+    _check_aligned(cols_hi, cols_lo, live, mask)
     rm, rr = _sweep_out(nsw, qc, dev)
     _launch("sweep_rowmax_bitset", dev, qscale.data_ptr(),
             cols_hi.data_ptr(), cols_lo.data_ptr(), wq.data_ptr(),

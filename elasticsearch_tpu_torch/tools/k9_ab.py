@@ -138,11 +138,14 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def kernel_times(fn, names=PASS_NAMES, reps: int = 3):
+def kernel_times(fn, names=PASS_NAMES, reps: int = 3,
+                 per_event: bool = False):
     """Device ms per call of each kernel whose name contains one of
     `names`, from torch.profiler's CUDA kernel events over `reps` calls
     after a warm-up; None for a name with no event (the profiler saw no
-    device activity)."""
+    device activity). `per_event` gives the mean of the events instead:
+    for a kernel launched once a call it is the same time, and it stays
+    right where the profiler drops some of the calls' events."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -160,7 +163,8 @@ def kernel_times(fn, names=PASS_NAMES, reps: int = 3):
             if n in ev.name:
                 tot[n] += ev.time_range.elapsed_us() / 1e3
                 seen[n] += 1
-    return {n: (tot[n] / reps if seen[n] else None) for n in names}
+    return {n: (tot[n] / (seen[n] if per_event else reps) if seen[n]
+                else None) for n in names}
 
 
 def inputs(n_parts: int, nw: int, qc: int, masked: bool, seed: int):

@@ -32,11 +32,13 @@ from elasticsearch_tpu.parallel.knn import KnnEngine as RefKnnEngine
 from elasticsearch_tpu_torch.common.errors import KernelLaunchError
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
-    AGG_CASES, SPARSE_BATCH_CASES, agg_inputs, agg_section, bitset_inputs,
-    clause_slots, conj_inputs, emulate_sparse_gather, knn_inputs,
-    lanes_and_groups, mask_inputs, merge_inputs, sparse_batch_inputs,
-    sparse_group, sparse_inputs, sweep_inputs, SWEEP_EDGE_CASES,
-    emulate_sweep_group, plan_sweep_batches, sweep_edge_inputs,
+    AGG_CASES, CONJ_EDGE_CASES, SPARSE_BATCH_CASES, agg_inputs, agg_section,
+    bitset_edge_inputs, bitset_inputs, clause_slots, conj_edge_inputs,
+    conj_inputs,
+    emulate_sparse_gather, knn_inputs, lanes_and_groups, mask_inputs,
+    merge_inputs, sparse_batch_inputs, sparse_group, sparse_inputs,
+    sweep_inputs, SWEEP_EDGE_CASES, emulate_sweep_group, plan_sweep_batches,
+    sweep_edge_inputs, sweep_list,
 )
 
 torch.set_num_threads(1)
@@ -142,6 +144,90 @@ def test_sweep_group_plan(cap):
                                   _t(live), nsw=nsw)
     assert np.array_equal(got_m, pm.numpy())
     assert np.array_equal(got_r, pr.numpy())
+
+
+@pytest.mark.parametrize("case", CONJ_EDGE_CASES)
+def test_sweep_rowmax_conj_kernel_order_emulated(case):
+    """K7 on K2's group block (a query's list: score entries, then
+    coverage ones; the coverage gate ANDed into live before the scores;
+    queries with no score weight out of the rows and batches), emulated in
+    numpy, equals the plain version and the reference bitwise on the edge
+    cases the card tests use (all_slots at Hpt 300 here)."""
+    qscale, nreq, hi, lo, wq, wp, live, nsw = conj_edge_inputs(
+        case, all_slots_hpt=300)
+    got_m, got_r = emulate_sweep_group(qscale, hi, lo, wq, live, nsw,
+                                       wp=wp, nreq=nreq)
+    pm, pr = k.sweep_rowmax_conj_plain(_t(qscale), _t(nreq), _t(hi), _t(lo),
+                                       _t(wq), _t(wp), _t(live), nsw=nsw)
+    assert np.array_equal(got_m, pm.numpy())
+    assert np.array_equal(got_r, pr.numpy())
+    wm, wr = ref_k.sweep_rowmax_conj(
+        jnp.asarray(qscale), jnp.asarray(nreq), jnp.asarray(hi),
+        jnp.asarray(lo), jnp.asarray(wq), jnp.asarray(wp),
+        jnp.asarray(live), QC=wq.shape[1], nsw=nsw)
+    assert np.array_equal(got_m, np.asarray(wm))
+    assert np.array_equal(got_r, np.asarray(wr))
+    assert np.isfinite(got_m).any()
+
+
+@pytest.mark.parametrize("cap", [8, 40, 256])
+def test_sweep_conj_group_plan(cap):
+    """K7's lists and batches on the filters case's first group (lists of
+    up to 8 entries): score slots first, the coverage slots the tail, an
+    empty list for a query with no score weight (filters alone), every
+    query once per plan with each batch within cap; and the emulation with
+    each cap equals the plain version."""
+    qscale, nreq, hi, lo, wq, wp, live, nsw = conj_edge_inputs("filters")
+    wh, wl = wq[0].astype(np.int64), wq[1].astype(np.int64)
+    g = k.SWEEP_GROUP
+    lists = [sweep_list(q, wh, wl, wp) for q in range(g)]
+    for q, (slots, n_score, c0) in enumerate(lists):
+        scored = (wh[q] != 0) | (wl[q] != 0)
+        if not scored.any():
+            assert len(slots) == 0
+            continue
+        assert sorted(slots[:n_score]) == list(np.nonzero(scored)[0])
+        assert sorted(slots[c0:]) == list(np.nonzero(wp[q])[0])
+        assert c0 <= n_score and len(set(slots)) == len(slots)
+    assert any(len(x[0]) == 0 for x in lists)
+    cnt = [len(x[0]) for x in lists]
+    assert max(cnt) <= 8
+    batches = plan_sweep_batches(cnt, cap)
+    assert [j for b in batches for j in b] == list(range(g))
+    assert all(sum(cnt[j] for j in b) <= cap for b in batches)
+    assert (len(batches) > 1) == (cap < sum(cnt))
+    got_m, got_r = emulate_sweep_group(qscale, hi, lo, wq, live, nsw,
+                                       cap=cap, wp=wp, nreq=nreq)
+    pm, pr = k.sweep_rowmax_conj_plain(_t(qscale), _t(nreq), _t(hi), _t(lo),
+                                       _t(wq), _t(wp), _t(live), nsw=nsw)
+    assert np.array_equal(got_m, pm.numpy())
+    assert np.array_equal(got_r, pr.numpy())
+
+
+@pytest.mark.parametrize("case", SWEEP_EDGE_CASES)
+def test_sweep_rowmax_bitset_kernel_order_emulated(case):
+    """K6 on K2's group block (each query's mask bit ANDed into live
+    before its scores; a row with no surviving doc reads nothing and is
+    -inf), emulated in numpy, equals the plain version and the reference
+    bitwise on K2's edge cases with masks that empty a query's first
+    superwindow, a whole query and 16-bit halves (all_slots at Hpt 300
+    here)."""
+    qscale, hi, lo, wq, mask, live, nsw = bitset_edge_inputs(
+        case, all_slots_hpt=300)
+    got_m, got_r = emulate_sweep_group(qscale, hi, lo, wq, live, nsw,
+                                       mask=mask)
+    pm, pr = k.sweep_rowmax_bitset_plain(_t(qscale), _t(hi), _t(lo), _t(wq),
+                                         _t(mask), _t(live), nsw=nsw)
+    assert np.array_equal(got_m, pm.numpy())
+    assert np.array_equal(got_r, pr.numpy())
+    wm, wr = ref_k.sweep_rowmax_bitset(
+        jnp.asarray(qscale), jnp.asarray(hi), jnp.asarray(lo),
+        jnp.asarray(wq), jnp.asarray(_u32(mask)), jnp.asarray(live),
+        QC=wq.shape[1], nsw=nsw)
+    assert np.array_equal(got_m, np.asarray(wm))
+    assert np.array_equal(got_r, np.asarray(wr))
+    assert np.isfinite(got_m).any()
+    assert np.isinf(got_m[0, 0]).all() and np.isinf(got_m[:, -1]).all()
 
 
 def test_sparse_gather_bitwise():

@@ -13,8 +13,11 @@ doc, tiles that meet with no shared doc, narrowed tile ranges, docs past
 the grid, empty queries, a duplicated term, a 256-query group), fan-in
 padding and sentinel rows, K2's group edges (QC not a multiple of the
 group, a group weighting every slot, all-zero queries, a dead
-superwindow, tied rows), coverage weights, masks with
-empty chunks, dead rows and windows, exact score ties, empty merge lanes,
+superwindow, tied rows), K7's on its own (filters, a must_not in the
+top row, nreq 0, the integer path, padding queries, lists past the
+capacity), K6's on K2's with masks (a masked-out superwindow, an all-zero
+mask, empty 16-bit halves), dead rows and windows, exact score ties,
+empty merge lanes,
 agg pad chunks, buckets past n_segments, unsorted pairs over several tiles,
 tile ranges that disagree with the pairs, padded batches, the two-level
 blob, a hot bucket) plus shapes the main path does not reach (more slots than a block has
@@ -30,8 +33,9 @@ import torch
 from elasticsearch_tpu_torch.parallel import cuda_build
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
-    AGG_CASES, SPARSE_BATCH_CASES, agg_inputs, agg_masks, agg_section,
-    bitset_inputs, clause_slots, conj_inputs, knn_inputs, lanes_and_groups,
+    AGG_CASES, CONJ_EDGE_CASES, SPARSE_BATCH_CASES, agg_inputs, agg_masks,
+    agg_section, bitset_edge_inputs, bitset_inputs, clause_slots,
+    conj_edge_inputs, conj_inputs, knn_inputs, lanes_and_groups,
     mask_inputs, merge_inputs, sparse_batch_inputs, sparse_group,
     sparse_inputs, sweep_inputs, SWEEP_EDGE_CASES, sweep_edge_inputs,
 )
@@ -166,24 +170,52 @@ def test_sparse_gather_rejects_granule_outside_pool(dev, bad):
     assert k.LAUNCHES["sparse_gather"] == 0
 
 
-@pytest.mark.parametrize("qc,hpt,nsw", [(8, 33, 2), (24, 700, 2)])
-def test_sweep_rowmax_conj_kernel(dev, qc, hpt, nsw):
-    args = [_c(a, dev) for a in conj_inputs(7, qc=qc, hpt=hpt, nsw=nsw)]
+@pytest.mark.parametrize("qc,hpt,nsw,case", [
+    (8, 33, 2, None), (24, 700, 2, None)]
+    + [(None, None, None, c) for c in CONJ_EDGE_CASES])
+def test_sweep_rowmax_conj_kernel(dev, qc, hpt, nsw, case):
+    """Random shapes and the edges of K7's group block (conj_edge_inputs:
+    filters, a must_not in the top row, nreq 0, the integer path, QC 7
+    and 257, 128 padding queries of 256, lists past the capacity at Hpt
+    700, tied rows); the C entry once more on outputs filled with NaN."""
+    from elasticsearch_tpu_torch.tools.k2_ab import run_raw
+
+    if case is None:
+        arrs = conj_inputs(7, qc=qc, hpt=hpt, nsw=nsw)
+    else:
+        *arrs, nsw = conj_edge_inputs(case)
+    args = [_c(a, dev) for a in arrs]
     km, kr = k.sweep_rowmax_conj(*args, nsw=nsw)
     pm, pr = k.sweep_rowmax_conj_plain(*args, nsw=nsw)
+    rm, rr = run_raw(cuda_build.kernel("sweep_rowmax_conj"), args, nsw,
+                     poison=True)
     torch.cuda.synchronize()
     assert torch.equal(km, pm) and torch.equal(kr, pr)
+    assert torch.equal(rm, pm) and torch.equal(rr, pr)
 
 
-@pytest.mark.parametrize("qc,hpt,nsw", [(8, 33, 2), (24, 700, 3)])
-def test_sweep_rowmax_bitset_kernel(dev, qc, hpt, nsw):
-    qscale, hi, lo, wq, live = sweep_inputs(6, qc=qc, hpt=hpt, nsw=nsw)
-    mask = mask_inputs(6, qc=qc, nsw=nsw)
+@pytest.mark.parametrize("qc,hpt,nsw,case", [
+    (8, 33, 2, None), (24, 700, 3, None)]
+    + [(None, None, None, c) for c in SWEEP_EDGE_CASES])
+def test_sweep_rowmax_bitset_kernel(dev, qc, hpt, nsw, case):
+    """Random shapes and K2's group edges with masks (bitset_edge_inputs:
+    a query's first superwindow masked out, an all-zero mask, empty 16-bit
+    halves); the C entry once more on outputs filled with NaN."""
+    from elasticsearch_tpu_torch.tools.k2_ab import run_raw
+
+    if case is None:
+        qscale, hi, lo, wq, live = sweep_inputs(6, qc=qc, hpt=hpt, nsw=nsw)
+        mask = mask_inputs(6, qc=qc, nsw=nsw)
+    else:
+        qscale, hi, lo, wq, mask, live, nsw = bitset_edge_inputs(case)
     args = [_c(a, dev) for a in (qscale, hi, lo, wq, mask, live)]
     km, kr = k.sweep_rowmax_bitset(*args, nsw=nsw)
     pm, pr = k.sweep_rowmax_bitset_plain(*args, nsw=nsw)
+    rm, rr = run_raw(cuda_build.kernel("sweep_rowmax_bitset"), args, nsw,
+                     poison=True)
     torch.cuda.synchronize()
     assert torch.equal(km, pm) and torch.equal(kr, pr)
+    assert torch.equal(rm, pm) and torch.equal(rr, pr)
     assert torch.isinf(km[0, 0]).all() and torch.isinf(km[:, -1]).all()
 
 

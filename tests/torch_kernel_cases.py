@@ -98,8 +98,8 @@ def sweep_edge_inputs(case, all_slots_hpt=700):
 
 
 def plan_sweep_batches(cnt, cap):
-    """sweep_rowmax.cu's batches of one group's queries (cnt[j] nonzero
-    slots): runs of consecutive queries whose lists together fit cap
+    """sweep_rowmax.cu's batches of one group's queries (cnt[j] list
+    entries): runs of consecutive queries whose lists together fit cap
     entries (cap >= every cnt). Returns [[query, ...], ...]."""
     batches, cur, used = [], [], 0
     for j, n in enumerate(cnt):
@@ -113,20 +113,45 @@ def plan_sweep_batches(cnt, cap):
     return batches
 
 
-def emulate_sweep_group(qscale, hi, lo, wq, live, nsw, cap=None):
-    """numpy emulation of csrc/sweep_rowmax.cu's K2 block by block: groups
-    of k.SWEEP_GROUP queries, batched as plan_sweep_batches says (cap: the
-    kernel's list capacity unless given), each query's rows
-    (_row_bits: the float path or the integer path, the row max as the
-    bits of val), then the warp selection: each lane holds rows lane + 32
-    t, a round takes the largest value and the lowest row holding it.
-    Returns (rowmax, rows) like sweep_rowmax."""
+def sweep_list(q, wh, wl, wc=None):
+    """One query's list in the block, as slots: K2's nonzero score slots;
+    K7's (wc: the coverage weights) score-only slots, then those with
+    score and coverage weight, then the coverage-only ones, and empty for a
+    query with no score weight. Returns (slots, n_score, c0): scores read
+    slots[:n_score], coverage slots[c0:]."""
+    sc = (wh[q] != 0) | (wl[q] != 0)
+    if wc is None:
+        slots = np.nonzero(sc)[0]
+        return slots, len(slots), len(slots)
+    if not sc.any():
+        return np.zeros(0, np.int64), 0, 0
+    cv = wc[q] != 0
+    parts = [np.nonzero(sc & ~cv)[0], np.nonzero(sc & cv)[0],
+             np.nonzero(~sc & cv)[0]]
+    return (np.concatenate(parts), len(parts[0]) + len(parts[1]),
+            len(parts[0]))
+
+
+def emulate_sweep_group(qscale, hi, lo, wq, live, nsw, cap=None, wp=None,
+                        nreq=None, mask=None):
+    """numpy emulation of csrc/sweep_rowmax.cu's group block, K2's, K7's
+    (wp, nreq given) or K6's (mask given), block by block: groups of
+    k.SWEEP_GROUP queries, each query's list (sweep_list), batched as
+    plan_sweep_batches says (cap: the kernel's list capacity unless
+    given), each query's rows (the gate ANDed into live first: K7's
+    coverage over the list's coverage part, cov = sum wp * ((hi | lo) !=
+    0) == nreq per doc; K6's bit row % 32 of the doc's mask word; then
+    _row_bits over the list's score part: the float path or the integer
+    path, the row max as the bits of val), then the warp selection: each
+    lane holds rows lane + 32 t, a round takes the largest value and the
+    lowest row holding it. Returns (rowmax, rows) like sweep_rowmax."""
     g_size, qc, hpt = k.SWEEP_GROUP, wq.shape[1], hi.shape[1]
     if cap is None:
         cap = k.sweep_list_cap(hpt)
     rm = np.full((nsw, qc, k.CAND_PAD), -np.inf, np.float32)
     rr = np.zeros((nsw, qc, k.CAND_PAD), np.int32)
     wh, wl = wq[0].astype(np.int64), wq[1].astype(np.int64)
+    wc = None if wp is None else wp.astype(np.int64)
     lanes = np.arange(32)
     for sw in range(nsw):
         alive = live[sw * k.SW_ROWS:(sw + 1) * k.SW_ROWS] > 0      # [512, 128]
@@ -135,13 +160,28 @@ def emulate_sweep_group(qscale, hi, lo, wq, live, nsw, cap=None):
         l_sw = lo[cs].transpose(1, 0, 2, 3).reshape(hpt, k.SW_ROWS, 128)
         for q0 in range(0, qc, g_size):
             qs_ = list(range(q0, min(qc, q0 + g_size)))
-            nzs = [np.nonzero((wh[q] != 0) | (wl[q] != 0))[0] for q in qs_]
-            batches = plan_sweep_batches([len(x) for x in nzs], cap)
+            lists = [sweep_list(q, wh, wl, wc) for q in qs_]
+            batches = plan_sweep_batches([len(x[0]) for x in lists], cap)
             assert sorted(j for b in batches for j in b) == list(
                 range(len(qs_)))
-            for j in (j for b in batches for j in b if len(nzs[j])):
+            for j in (j for b in batches for j in b if len(lists[j][0])):
                 q = qs_[j]
-                rb = _row_bits(q, nzs[j], wh, wl, h_sw, l_sw, alive,
+                slots, n_score, c0 = lists[j]
+                gate = alive
+                if mask is not None:
+                    words = mask[q, sw * k.SW_WORD_ROWS:
+                                 (sw + 1) * k.SW_WORD_ROWS].view(np.uint32)
+                    bit = np.arange(k.SW_ROWS) % 32
+                    gate = alive & (((words[np.arange(k.SW_ROWS) // 32]
+                                      >> bit[:, None].astype(np.uint32))
+                                     & 1) != 0)
+                if wc is not None:
+                    cov_s = slots[c0:]
+                    present = (h_sw[cov_s] != 0) | (l_sw[cov_s] != 0)
+                    cov = np.tensordot(wc[q][cov_s], present.astype(np.int64),
+                                       1)
+                    gate = alive & (cov == int(nreq[q, 0]))
+                rb = _row_bits(q, slots[:n_score], wh, wl, h_sw, l_sw, gate,
                                qscale[q, 0])
                 v = rb.reshape(k.SW_ROWS // 32, 32).copy()       # [t, lane]
                 for p in range(k.NCAND):
@@ -161,9 +201,9 @@ def emulate_sweep_group(qscale, hi, lo, wq, live, nsw, cap=None):
 def _row_bits(q, slots, wh, wl, h_sw, l_sw, alive, qs):
     """One query's 512 row maxima in one superwindow, as bits (0: none),
     on the kernel's float path where its weights allow it (Y = 16384 hh +
-    128 (hl + lh) and ll summed exactly in f32, dead docs' bytes masked to
-    0, the max pre-scale value multiplied once) and on its integer path
-    else."""
+    128 (hl + lh) and ll summed exactly in f32, the bytes of docs that
+    `alive` (live, and K7's gate) drops masked to 0, the max pre-scale
+    value multiplied once) and on its integer path else."""
     f = np.float32
     a, b = wh[q][slots] * 1.0, wl[q][slots] * 1.0
     h = h_sw[slots].astype(np.float64)
@@ -457,6 +497,120 @@ def conj_inputs(seed, qc, hpt, nsw):
         wp[q, neg] = -(len(req) + 1)
         nreq[q, 0] = len(req)
     return qscale, nreq, hi, lo, wq, wp, live
+
+
+CONJ_EDGE_CASES = ("filters", "must_not_top", "nreq0", "int_path", "qc7",
+                   "qc257", "padding", "all_slots", "ties")
+
+
+def conj_edge_inputs(case, all_slots_hpt=700):
+    """conj_inputs at the edges of K7's group block: required slots with no
+    score weight (filters: coverage-only list entries), a must_not slot
+    present in every doc of each query's disjunctive top row of the first
+    superwindow, nreq = 0 everywhere, weights outside the float path's
+    range (the integer path, and a qscale <= 0), QC 7 and 257 (not a
+    multiple of the group), 128 padding queries of 256 (the engine's
+    chunk), 16 queries where every one of `all_slots_hpt` slots carries
+    wp or wq (lists past the list capacity), and rows tied on their max.
+    Returns (qscale, nreq, hi, lo, wq, wp, live, nsw)."""
+    shapes = {"filters": (20, 33, 2), "must_not_top": (12, 33, 1),
+              "nreq0": (12, 33, 2), "int_path": (18, 60, 1),
+              "qc7": (7, 33, 2), "qc257": (257, 33, 1),
+              "padding": (256, 33, 1), "all_slots": (24, all_slots_hpt, 1),
+              "ties": (18, 12, 1)}
+    qc, hpt, nsw = shapes[case]
+    seed = 40 + CONJ_EDGE_CASES.index(case)
+    qscale, nreq, hi, lo, wq, wp, live = conj_inputs(seed, qc=qc, hpt=hpt,
+                                                     nsw=nsw)
+    rng = np.random.default_rng(seed + 100)
+    if case == "filters":
+        for q in range(qc - 2):
+            # two extra required slots that carry no score weight
+            free = np.nonzero(~wq[:, q].any(axis=0) & (wp[q] == 0))[0]
+            extra = rng.choice(free, size=2, replace=False)
+            wp[q, wp[q] < 0] -= 2
+            wp[q, extra] = 1
+            nreq[q, 0] += 2
+            # a dense filter column, so some docs pass
+            for s in extra:
+                hi[:, s] = np.where(rng.random(hi[:, s].shape) < 0.8, 1, 0)
+        wq[:, ::5] = 0                 # queries with filters only
+    elif case == "must_not_top":
+        wp[:] = 0
+        nreq[:] = 0
+        disj = _disjunctive_top_rows(qscale, hi, lo, wq, live)
+        for q in range(qc):
+            free = np.nonzero(~wq[:, q].any(axis=0))[0]
+            s = free[q % len(free)]
+            wp[q, s] = -1
+            r = disj[q]
+            c, rr_ = r // k.CHUNK_ROWS, r % k.CHUNK_ROWS
+            hi[c, s, rr_] = 1          # present in every doc of the top row
+    elif case == "nreq0":
+        wp[wp > 0] = 0
+        wp[wp < 0] = -1
+        nreq[:] = 0
+    elif case == "int_path":
+        for q in range(0, qc - 2, 2):
+            slots = rng.choice(hpt, size=30, replace=False)
+            wq[0, q, slots] = rng.integers(100, 128, size=30)
+            wq[1, q, slots] = rng.integers(-127, 128, size=30)
+            wp[q, slots[:2]] = 1
+            wp[q, wp[q] < 0] = 0
+            nreq[q, 0] = int((wp[q] > 0).sum())
+        qscale[1] = -qscale[1]
+        qscale[3] = 0.0
+    elif case == "padding":
+        wq[:, 128:] = 0
+        wp[128:] = 0
+        nreq[128:] = 0
+        qscale[128:] = 1.0
+    elif case == "all_slots":
+        wq[0, :16] = rng.integers(1, 128, size=(16, hpt))
+        wq[1, :16] = rng.integers(-127, 128, size=(16, hpt))
+        # queries 8-15 on the float path: small weights
+        wq[0, 8:16] = rng.integers(1, 3, size=(8, hpt))
+        wq[1, 8:16] = rng.integers(-1, 2, size=(8, hpt))
+        off = rng.random((16, hpt)) < 0.5      # half coverage-only
+        wq[:, :16][:, off] = 0
+        wq[0, :16, 0] = 5                      # each keeps a score weight
+        wp[:16] = 0
+        wp[:16][off] = 1
+        wp[:16, 1] = -1
+        nreq[:16, 0] = (wp[:16] > 0).sum(axis=1)
+        hi[:, :] = np.where(hi != 0, hi, 1)    # every slot present
+        hi[:, 1] = 0
+        lo[:, 1] = 0
+        hi[0, 1, 0, :64] = 1                   # the must_not in 64 docs
+    elif case == "ties":
+        hi[hi != 0] = 2
+        lo[:] = np.where(hi != 0, 1, 0)
+        qscale[:] = np.float32(1e-4)
+    return qscale, nreq, hi, lo, wq, wp, live, nsw
+
+
+def _disjunctive_top_rows(qscale, hi, lo, wq, live):
+    """Each query's top row of superwindow 0 under the disjunctive sweep
+    (the plain K2 on the CPU)."""
+    import torch
+
+    t = [torch.from_numpy(np.ascontiguousarray(a))
+         for a in (qscale, hi, lo, wq, live)]
+    _, rows = k.sweep_rowmax_plain(*t, nsw=1)
+    return rows[0, :, 0].numpy()
+
+
+def bitset_edge_inputs(case, all_slots_hpt=700):
+    """K2's edge cases (sweep_edge_inputs) with mask_inputs' masks: K6's
+    group block at QC 7, 24 and 257, QC 8 on three superwindows, a group
+    weighting every slot (the integer path, long lists), all-zero queries,
+    a dead superwindow and tied rows; in each, query 0's first
+    superwindow is masked out, the last query's mask is all zero and
+    chunks have an empty 16-bit half. Returns (qscale, hi, lo, wq, mask,
+    live, nsw)."""
+    qscale, hi, lo, wq, live, nsw = sweep_edge_inputs(case, all_slots_hpt)
+    mask = mask_inputs(60 + SWEEP_EDGE_CASES.index(case), wq.shape[1], nsw)
+    return qscale, hi, lo, wq, mask, live, nsw
 
 
 def mask_inputs(seed, qc, nsw):
