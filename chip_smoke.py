@@ -6,6 +6,7 @@
     python3 chip_smoke.py --knn-docs N   # cut the kNN column to N vectors
     python3 chip_smoke.py --agg-docs N   # cut the agg leaf to N docs
     python3 chip_smoke.py --k2-parent OLD.cu   # time earlier sweeps beside them
+    python3 chip_smoke.py --k8-parent OLD.cu --k4-parent OLD.cu   # and K8, K4
 
 It drives the port's main path (elasticsearch_tpu_torch only; it imports
 nothing of JAX or of elasticsearch_tpu) the way bench.py drives config 1 of
@@ -44,7 +45,10 @@ aggregation path the way bench.py drives config 6:
    and K6 and K7 in step 6) are also timed alone (torch.profiler's kernel
    events) and, given --k2-parent (a whole earlier sweep_rowmax.cu),
    beside the parent commit's on the same inputs, in turns, each held
-   bitwise on outputs filled with NaN first;
+   bitwise on outputs filled with NaN first; so are K1 (its tiles filled
+   with a nonzero byte pattern, a zero group for each tile of a free slot
+   added), K3, and in step 6 K5, on outputs filled so by
+   kernels.poisoned;
 6. on the same engine, serves config 2 (256 bool queries drawn as
    bench.py's draw_bool, plus bool DSL bodies through extract_plan and
    _turbo_bool_spec) on both sweeps: ES_TPU_BITSET=1 (K5 + K6) and
@@ -92,8 +96,11 @@ aggregation path the way bench.py drives config 6:
    histogram, three date_histograms) on 5%, 2%, 90% and empty masks
    against the port's host path (==); hands the 8 works to one
    search_many call and holds each against its own dispatch; and holds
-   K8 bitwise against its plain version on the path's layouts and on a
-   synthetic four-tile one;
+   K8 bitwise against its plain version on the path's layouts at Q = 1,
+   4, 16 and 64 and on a synthetic four-tile one, timed by events, alone
+   and beside the parent commit's kernel given --k8-parent (K4 likewise
+   in step 8, given --k4-parent, with its host enqueue), K9 and K4 also on
+   outputs filled with NaN / -1 first;
 10. prints the card's name and power limit and a `kernels` JSON line, and
    last `{"ok": true, "device": {...}}`.
 
@@ -147,6 +154,11 @@ K3_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k3_parent.cu"
 # entries), written there with
 #   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/sweep_rowmax.cu
 K2_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k2_parent.cu"
+# and K8's and K4's (check_k8, check_k4), written there with
+#   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/agg_counts.cu
+#   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/merge_topk.cu
+K8_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k8_parent.cu"
+K4_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k4_parent.cu"
 # queries of each config-1 batch held against the host-exact tier (the DSL
 # bodies are held in full): the hold is host work, about 0.6 s a query on
 # the chip machine's 8 cores, and the cut keeps the whole run, kNN and agg
@@ -290,7 +302,59 @@ def bound(nbytes: float, ops: float, op_rate: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def graph_ms(fn, reps: int = 20):
+    """Device time per call of fn's work with no host in the way: fn
+    captured once into a CUDA graph (its allocations from the graph's own
+    pool) and the graph replayed `reps` times between two CUDA events. It
+    counts every kernel and fill the call makes, and does not depend on
+    the profiler, which drops kernel events in a long run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        g.replay()
+    e.record()
+    e.synchronize()
+    ms = s.elapsed_time(e) / reps
+    del g
+    torch.cuda.empty_cache()
+    return float(ms)
+
+
+def kernel_alone(fn, names, reps: int = 3, per_call=None):
+    """k9_ab.kernel_alone: (ms alone per call, {"ms", "events", "short"}),
+    a count short of the launches printed as SHORT."""
+    from elasticsearch_tpu_torch.tools.k9_ab import kernel_alone as alone
+
+    return alone(fn, names, reps, per_call)
+
+
+COL_POISON = 0x5A          # K1's int8 column tiles are filled with it first
+
+
 def check_k1(turbo, launches):
+    """K1 rebuilds every prebuilt column, plus a zero group (nrows = 0) for
+    each tile of a free slot, into tiles filled with a nonzero byte pattern
+    first (W15: a group left unwritten keeps the pattern): timed through
+    the wrapper, then once more on freshly filled tiles. The groups' tiles
+    must equal the main path's columns, the zero groups' tiles must be
+    zeros, every other tile must keep the pattern, and the plain version
+    (on the same pattern) must agree bitwise."""
     import torch
 
     from elasticsearch_tpu_torch.parallel import kernels as k
@@ -298,18 +362,41 @@ def check_k1(turbo, launches):
     dev = turbo.device
     parts = [turbo._term_groups(turbo._term(t), s)
              for t, s in turbo._slot_of.items()]
+    require(turbo._free, "K1: no free slot for the zero groups")
+    n_tiles = turbo.cols_hi.shape[0] // (k.TILE // k.CHUNK)
+    zero = np.zeros(n_tiles, np.int32)
+    parts.append((zero, zero, np.arange(n_tiles, dtype=np.int32) * k.TILE,
+                  np.full(n_tiles, turbo._free[0], np.int32)))
     g = [torch.from_numpy(np.concatenate([p[i] for p in parts])).to(dev)
          for i in range(4)]
     ng = int(g[0].shape[0])
-    hi_k, lo_k = torch.zeros_like(turbo.cols_hi), torch.zeros_like(turbo.cols_lo)
+    hi_k, lo_k = (torch.empty_like(c).fill_(COL_POISON)
+                  for c in (turbo.cols_hi, turbo.cols_lo))
 
     def kern():
         k.build_columns(*g, turbo.lane_docs, turbo.lane_scores, hi_k, lo_k)
 
     ms = cuda_ms(kern, 5)
-    require(torch.equal(hi_k, turbo.cols_hi) and torch.equal(lo_k, turbo.cols_lo),
-            "K1: rebuilt columns differ from the main path's")
-    hi_p, lo_p = torch.zeros_like(hi_k), torch.zeros_like(lo_k)
+    hi_k.fill_(COL_POISON)
+    lo_k.fill_(COL_POISON)
+    kern()
+    hpt = turbo.cols_hi.shape[1]
+    written = torch.zeros((n_tiles, hpt), dtype=torch.int8, device=dev)
+    gn = g[1] > 0
+    written[(g[2] // k.TILE).long(), g[3].long()] = torch.where(
+        gn, 1, 2).to(torch.int8)          # 1: a term's tile, 2: a zero group
+    w = written[:, None, :, None]
+    for got, main in ((hi_k, turbo.cols_hi), (lo_k, turbo.cols_lo)):
+        shape = (n_tiles, k.TILE // k.CHUNK, hpt, k.CHUNK)
+        want = torch.where(w == 1, main.view(shape), torch.where(
+            w == 2, torch.zeros((), dtype=torch.int8, device=dev),
+            torch.full((), COL_POISON, dtype=torch.int8, device=dev)))
+        require(torch.equal(got.view(shape), want),
+                "K1 on poisoned tiles: rebuilt columns differ from the main "
+                "path's, a zero group left its tile, or a tile outside the "
+                "groups was written")
+        del want
+    hi_p, lo_p = (torch.empty_like(c).fill_(COL_POISON) for c in (hi_k, lo_k))
     t = time.time()
     plain_ms = cuda_ms(lambda: k.build_columns_plain(
         *g, turbo.lane_docs, turbo.lane_scores, hi_p, lo_p), 1)
@@ -325,24 +412,23 @@ def check_k1(turbo, launches):
             "replaces": "elasticsearch_tpu/parallel/kernels.py:780",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "shape": {"groups": ng, "lanes": lanes}}
+            "library_ms": None, "poisoned_run": "bitwise",
+            "shape": {"groups": ng, "zero_groups": n_tiles, "lanes": lanes}}
 
 
-def sweep_ab(label, wrapper, plain, entry, args, nsw, parent=None):
+def sweep_ab(label, wrapper, plain, args, nsw, parent=None):
     """One sweep held and timed on the same inputs: the wrapper (`wrapper`
     (*args, nsw=)) by CUDA events and alone (torch.profiler's kernel
     events) and, given the parent commit's source (`parent`, a runner from
     k2_ab.parent_runner), the parent's kernel in turns (parent, kernel,
     kernel, parent); the kernel held bitwise against the plain version,
-    once more through its C entry (`entry`, a cuda_build kernel name) on
-    outputs filled with NaN / -1 first, so no result of an earlier call in
-    reused memory can pass for its own, and the parent's outputs (filled
-    so too) held the same way. Returns the row's timing and error keys."""
+    once more on outputs filled with NaN / -1 first (kernels.poisoned), so
+    no result of an earlier call in reused memory can pass for its own,
+    and the parent's outputs (filled so too) held the same way. Returns
+    the row's timing and error keys."""
     import torch
 
-    from elasticsearch_tpu_torch.parallel import cuda_build
-    from elasticsearch_tpu_torch.tools.k2_ab import run_raw
-    from elasticsearch_tpu_torch.tools.k9_ab import kernel_times
+    from elasticsearch_tpu_torch.parallel import kernels as k
 
     out = {}
 
@@ -357,19 +443,18 @@ def sweep_ab(label, wrapper, plain, entry, args, nsw, parent=None):
             ["parent"] if parent else []):
         turns[name].append(cuda_ms(kern if name == "kernel" else par, 10))
     ms = float(np.median(turns["kernel"]))
-    kernel_ms = kernel_times(kern, names=("sweep",),
-                             per_event=True)["sweep"]
-    parent_ms = parent_kernel_ms = None
+    kernel_ms, events = kernel_alone(kern, ("sweep",))
+    parent_ms = parent_kernel_ms = parent_events = None
     if parent:
         parent_ms = turns["parent"]
-        parent_kernel_ms = kernel_times(par, names=("sweep",),
-                                        per_event=True)["sweep"]
+        parent_kernel_ms, parent_events = kernel_alone(par, ("sweep",))
     plain_ms = cuda_ms(lambda: out.__setitem__("p", plain(*args, nsw=nsw)), 1)
     (km, kr), (pm, pr) = out["k"], out["p"]
     err = max(max_abs_err(km, pm), max_abs_err(kr, pr))
     require(err == 0.0 and torch.equal(km, pm) and torch.equal(kr, pr),
             f"{label} kernel vs plain: max_abs_err {err}")
-    pm2, pr2 = run_raw(cuda_build.kernel(entry), args, nsw, poison=True)
+    with k.poisoned():
+        pm2, pr2 = wrapper(*args, nsw=nsw)
     require(torch.equal(pm2, pm) and torch.equal(pr2, pr),
             f"{label} kernel on poisoned outputs vs plain differ")
     if parent:
@@ -377,8 +462,10 @@ def sweep_ab(label, wrapper, plain, entry, args, nsw, parent=None):
         require(torch.equal(pm3, pm) and torch.equal(pr3, pr),
                 f"{label} parent kernel on poisoned outputs vs plain differ")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "kernel_ms": kernel_ms, "events_ms": turns["kernel"],
-            "parent_ms": parent_ms, "parent_kernel_ms": parent_kernel_ms}
+            "kernel_ms": kernel_ms, "kernel_events": events,
+            "events_ms": turns["kernel"], "parent_ms": parent_ms,
+            "parent_kernel_ms": parent_kernel_ms,
+            "parent_kernel_events": parent_events}
 
 
 def check_k2(turbo, batch, launches, parent=None):
@@ -399,7 +486,7 @@ def check_k2(turbo, batch, launches, parent=None):
     qs = torch.from_numpy(qs_np).to(dev)
     args = (qs, turbo.cols_hi, turbo.cols_lo, wq, turbo.live)
     timing = sweep_ab("K2", k.sweep_rowmax, k.sweep_rowmax_plain,
-                      "sweep_rowmax", args, turbo.nsw, parent)
+                      args, turbo.nsw, parent)
     nbytes, ops, n_union, nnz = sweep_work(wq_np, turbo.Dp, turbo.nsw)
     b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
     # G as the built kernel reports it, held to the wrapper's mirror
@@ -460,16 +547,13 @@ def record_k3_groups(turbo):
         del turbo._sparse_launch
 
 
-def k3_device_ms(fn, reps: int = 5):
-    """Device time per call of fn's K3 kernels (this tree's and the
-    parent's are both named sparse_gather_kernel), from torch.profiler's
-    kernel events: the kernel alone, without the host's time to enqueue
-    it, which CUDA events around a small launch also count. None when the
-    profiler saw no kernel."""
-    from elasticsearch_tpu_torch.tools.k9_ab import kernel_times
-
-    return kernel_times(fn, names=("sparse_gather_kernel",),
-                        reps=reps)["sparse_gather_kernel"]
+def k3_device_ms(fn, reps: int = 5, launches: int = 1):
+    """fn's K3 kernels alone per call (this tree's and the parent's are
+    both named sparse_gather_kernel), `launches` a call: kernel_alone's
+    (ms, info), without the host's time to enqueue them, which CUDA events
+    around a small launch also count."""
+    return kernel_alone(fn, ("sparse_gather_kernel",), reps,
+                        {"sparse_gather_kernel": launches})
 
 
 def host_enqueue_ms(fn, reps: int = 200) -> float:
@@ -499,23 +583,20 @@ def k3_tensors(g, dev):
 
 def k3_parent(path):
     """The parent commit's K3 (one query per launch, a block per 16384-doc
-    tile; its C entry has no qoff), built with nvcc from `path` and bound
-    with ctypes beside this tree's kernel. Returns run(coff, cw, ct0, ct1,
-    pool, n_tiles) -> out, or None when `path` is not a file."""
+    tile; its C entry has no qoff), built with nvcc from `path`. Returns
+    run(coff, cw, ct0, ct1, pool, n_tiles) -> out, or None when `path` is
+    not a file."""
     import ctypes
 
     import torch
 
-    from elasticsearch_tpu_torch.tools.k9_ab import build
+    from elasticsearch_tpu_torch.tools.k9_ab import parent_entry
 
-    if path is None or not os.path.isfile(path):
-        return None
-    from pathlib import Path
-
-    fn = build("k3_parent", Path(path)).es_sparse_gather
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, p, i, p, i, p]
-    fn.restype = ctypes.c_int
+    fn = parent_entry(path, "k3_parent", "es_sparse_gather",
+                      [p, p, p, p, i, p, i, p, i, p])
+    if fn is None:
+        return None
 
     def run(coff, cw, ct0, ct1, pool, n_tiles):
         n = int(coff.shape[0])
@@ -573,7 +654,8 @@ def k3_index_add_ms(coff, cw, pool, qoff, n_tiles):
 
 def k3_hold_group(g, n_tiles, dev, reps=10):
     """One recorded group on the card: the batched launch timed (the
-    serving call, host_checked), held bitwise against the plain version.
+    serving call, host_checked), held bitwise against the plain version,
+    also once more on outputs filled with NaN first (kernels.poisoned).
     Returns (row of numbers, launch args)."""
     import torch
 
@@ -588,15 +670,20 @@ def k3_hold_group(g, n_tiles, dev, reps=10):
                                    qoff=qoff, host_checked=True)
 
     ms = cuda_ms(kern, reps)
-    kernel_ms = k3_device_ms(kern)
+    kernel_ms, events = kernel_alone(kern, ("sparse_gather_kernel",), 5)
     plain_ms = cuda_ms(lambda: out.__setitem__("p", k.sparse_gather_plain(
         coff, cw, ct0, ct1, pool, n_tiles=n_tiles, qoff=qoff)), 1)
     err = max_abs_err(out["k"], out["p"])
     require(err == 0.0 and torch.equal(out["k"], out["p"]),
             f"K3 batched kernel vs plain: max_abs_err {err}")
+    with k.poisoned():
+        kern()
+    require(torch.equal(out["k"], out["p"]),
+            "K3 on poisoned outputs differs from the plain version")
     b_ms, b_by, lanes = k3_bound(coff, pool, g["n_q"])
     return {"queries": g["n_q"], "chunks": g["n_rc"], "lanes": lanes,
-            "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "ms": ms, "kernel_ms": kernel_ms, "kernel_events": events,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
             "kernel_bound_share": b_ms / kernel_ms if kernel_ms else None,
             "max_abs_err": err}, a
@@ -636,11 +723,12 @@ def k3_per_dispatch(groups, n_tiles, dev, parent):
 
     return {"dispatches": len(cur), "sum_ms": float(np.sum(cur)),
             "p50_ms": float(np.median(cur)) if cur else None,
-            "kernel_sum_ms": k3_device_ms(each_new, 2),
+            "kernel_sum_ms": k3_device_ms(each_new, 2, len(dispatches))[0],
             "parent_sum_ms": float(np.sum(old)) if old else None,
             "parent_p50_ms": float(np.median(old)) if old else None,
-            "parent_kernel_sum_ms": (k3_device_ms(each_parent, 2)
-                                     if parent is not None else None)}, big
+            "parent_kernel_sum_ms": (
+                k3_device_ms(each_parent, 2, len(dispatches))[0]
+                if parent is not None else None)}, big
 
 
 def check_k3(groups, batch_groups, n_tiles, launches, parent):
@@ -686,7 +774,7 @@ def check_k3(groups, batch_groups, n_tiles, launches, parent):
         out["o"] = parent(coff, cw, ct0, ct1, pool, n_tiles)
 
     q1_ms = cuda_ms(q1_kern, 20)
-    q1_dev = k3_device_ms(q1_kern, 10)
+    q1_dev, q1_events = k3_device_ms(q1_kern, 10)
     q1_host = host_enqueue_ms(q1_kern)
     q1_plain = cuda_ms(lambda: out.__setitem__("p", k.sparse_gather_plain(
         coff, cw, ct0, ct1, pool, n_tiles=n_tiles)), 3)
@@ -695,7 +783,7 @@ def check_k3(groups, batch_groups, n_tiles, launches, parent):
     q1_parent = q1_parent_dev = None
     if parent is not None:
         q1_parent = cuda_ms(q1_old, 20)
-        q1_parent_dev = k3_device_ms(q1_old, 10)
+        q1_parent_dev = k3_device_ms(q1_old, 10)[0]
         require(torch.equal(out["o"], out["p"]),
                 "the parent K3 differs from the plain version")
     q1_lib = k3_index_add_ms(coff, cw, pool,
@@ -731,7 +819,8 @@ def check_k3(groups, batch_groups, n_tiles, launches, parent):
                           if all(r["kernel_ms"] for r in rows) else None),
             "q1": {"chunks": int(coff.shape[0]), "lanes": q1_lanes,
                    "ms": q1_ms, "kernel_ms": q1_dev,
-                   "host_enqueue_ms": q1_host, "plain_ms": q1_plain,
+                   "kernel_events": q1_events, "host_enqueue_ms": q1_host,
+                   "plain_ms": q1_plain,
                    "bound_ms": q1_b, "bound_by": q1_by,
                    "library_ms": q1_lib, "parent_ms": q1_parent,
                    "parent_kernel_ms": q1_parent_dev}}
@@ -1095,6 +1184,9 @@ def hold_bool(turbo, specs, answers, label):
 
 
 def check_k5(turbo, chunk, launches):
+    """K5 at QC 256 on the bitset route's device chunk, held bitwise
+    against the plain version, also on outputs filled with -1 first
+    (kernels.poisoned)."""
     import torch
 
     from elasticsearch_tpu_torch.parallel import kernels as k
@@ -1111,6 +1203,11 @@ def check_k5(turbo, chunk, launches):
     err = max_abs_err(out["k"], out["p"])
     require(err == 0.0 and torch.equal(out["k"], out["p"]),
             f"K5 kernel vs plain: max_abs_err {err}")
+    with k.poisoned():
+        again = k.intersect_bitset(q_slots, q_neg, turbo.bits, nsw=nsw)
+    require(torch.equal(again, out["p"]),
+            "K5 on outputs filled with -1 differs from the plain version")
+    del again
     # each distinct clause block read once (sentinels need no read), the
     # mask written once
     distinct = set(qs_np.ravel().tolist()) | set(qn_np.ravel().tolist())
@@ -1126,7 +1223,7 @@ def check_k5(turbo, chunk, launches):
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
             "library_note": "no single PyTorch call gathers and ANDs the "
-                            "clause blocks",
+                            "clause blocks", "poisoned_run": "bitwise",
             "shape": {"QC": qc, "nsw": nsw, "active": len(chunk),
                       "distinct_slots": len(distinct)}}, out["k"]
 
@@ -1145,8 +1242,7 @@ def check_k6(turbo, chunk, mask, launches, parent=None):
     qs = torch.from_numpy(qs_np).to(dev)
     args = (qs, turbo.cols_hi, turbo.cols_lo, wq, mask, turbo.live)
     timing = sweep_ab("K6", k.sweep_rowmax_bitset,
-                      k.sweep_rowmax_bitset_plain, "sweep_rowmax_bitset",
-                      args, nsw, parent)
+                      k.sweep_rowmax_bitset_plain, args, nsw, parent)
     nbytes, ops, work = bitset_work(wq_np, mask, nsw)
     b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
     return {"name": "sweep_rowmax_bitset", "route": "cuda",
@@ -1175,7 +1271,7 @@ def check_k7(turbo, chunk, launches, parent=None):
     nreq, qs = (torch.from_numpy(x).to(dev) for x in (nr_np, qs_np))
     args = (qs, nreq, turbo.cols_hi, turbo.cols_lo, wq, wp, turbo.live)
     timing = sweep_ab("K7", k.sweep_rowmax_conj, k.sweep_rowmax_conj_plain,
-                      "sweep_rowmax_conj", args, nsw, parent)
+                      args, nsw, parent)
     nbytes, ops, n_union, nnz = sweep_work(wq_np, turbo.Dp, nsw, wp_np,
                                            nr_np)
     b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
@@ -1755,13 +1851,14 @@ def check_k9(eng, qs, fworks):
     QC = 256 (every window active at nprobe 0): the unmasked launch and the
     masked one with the filtered batch's masks, and the unmasked launch on
     the first 16 queries, each timed, with its score pass and selection
-    pass apart (torch.profiler's kernel events), its scratch bytes and its
-    chunk count; on the S = 1 engine also torch._int_mm of the int8 product
-    alone. Returns {variant: numbers}."""
+    pass apart (torch.profiler's kernel events, with their counts), its
+    scratch bytes and its chunk count, and each held once more on outputs
+    and scratch filled with NaN / -1 (kernels.poisoned); on the S = 1
+    engine also torch._int_mm of the int8 product alone. Returns
+    {variant: numbers}."""
     import torch
 
     from elasticsearch_tpu_torch.parallel import kernels as k
-    from elasticsearch_tpu_torch.tools.k9_ab import kernel_times
 
     dev, qc = eng.device, len(qs)
     qi8, qm = (torch.from_numpy(x).to(dev)
@@ -1794,20 +1891,32 @@ def check_k9(eng, qs, fworks):
         err = max(max_abs_err(ks, ps), max_abs_err(kr, pr))
         require(err == 0.0 and torch.equal(ks, ps) and torch.equal(kr, pr),
                 f"K9 {variant} kernel vs plain: max_abs_err {err}")
+        with k.poisoned():
+            xs, xr = k.knn_int8_window_topc(*args, similarity="cosine")
+        require(torch.equal(xs, ps) and torch.equal(xr, pr),
+                f"K9 {variant} on outputs and scratch filled with NaN / -1 "
+                f"differs from the plain version")
+        del xs, xr
         nbytes = (q8.numel() + meta.numel() * 4 + args[0].numel()
                   + args[1].numel() * 4 + args[4].numel() * 4
                   + ks.numel() * 8 + (0 if fmask is None else fmask.numel()))
         b_ms, b_by = bound(nbytes, 2 * nq * KNN_DIMS * rows, PEAK_INT8)
         cw = k.knn_chunk_windows(eng.nw, nq, eng.S)
-        passes = kernel_times(lambda: k.knn_int8_window_topc(
-            *args, similarity="cosine"))
+        n_chunks = len(k.knn_chunks(eng.nw, cw))
+        passes = {}
+        for name in ("knn_score_pass", "knn_select_pass"):
+            passes[name] = kernel_alone(lambda: k.knn_int8_window_topc(
+                *args, similarity="cosine"), (name,),
+                per_call={name: n_chunks})
         out[variant] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                        "poisoned_run": "bitwise",
                         "bound_ms": b_ms, "bound_by": b_by, "QC": nq,
                         "candidates": int(torch.isfinite(ks).sum()),
-                        "score_pass_ms": passes["knn_score_pass"],
-                        "select_pass_ms": passes["knn_select_pass"],
-                        "chunk_windows": cw,
-                        "chunks": len(k.knn_chunks(eng.nw, cw)),
+                        "score_pass_ms": passes["knn_score_pass"][0],
+                        "select_pass_ms": passes["knn_select_pass"][0],
+                        "pass_events": {n: v[1]["events"][n]
+                                        for n, v in passes.items()},
+                        "chunk_windows": cw, "chunks": n_chunks,
                         "scratch_bytes": eng.S * cw * nq * k.KNN_W * 4}
         del res
     out["shape"] = {"QC": qc, "nw": eng.nw, "dimsP": eng.dimsP,
@@ -1821,13 +1930,53 @@ def check_k9(eng, qs, fworks):
     return out
 
 
-def check_k4(merges, answer, dev):
+def k4_parent(path):
+    """The parent commit's K4 C entry (one warp a query, k sequential argmax
+    steps; the same signature as this tree's), built with nvcc from
+    `path`, or None when `path` is not a file."""
+    import ctypes
+
+    from elasticsearch_tpu_torch.tools.k9_ab import parent_entry
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return parent_entry(path, "k4_parent", "es_merge_topk",
+                        [p, p, p, p, p, i, i, i, p])
+
+
+def k4_raw(fn, s, o, kk):
+    """One call of a K4 C entry `fn` (this tree's or the parent's) with the
+    wrapper's allocations (kernels._out, so filled inside
+    kernels.poisoned) and none of its checks: the A/B's like-for-like
+    call. Returns (scores, parts, ords)."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    q, lanes = int(s.shape[0]), int(s.shape[1])
+    out = (k._out((q, kk), torch.float32, s.device),
+           k._out((q, kk), torch.int32, s.device),
+           k._out((q, kk), torch.int32, s.device))
+    rc = fn(s.data_ptr(), o.data_ptr(), *(t.data_ptr() for t in out), q,
+            lanes, kk, torch.cuda.current_stream().cuda_stream)
+    require(rc == 0, f"K4 launch failed: cudaError {rc}")
+    return out
+
+
+def check_k4(merges, answer, dev, parent=None):
     """K4 against its plain version on the stacked engine's first int8
     merge ([S, Q, k] per-partition top-k laid partition-major as
     merge_partition_topk lays them), and against the answer the engine
-    returned from it."""
+    returned from it; once more on outputs filled with NaN / -1
+    (kernels.poisoned). The wrapper timed by CUDA events, alone
+    (torch.profiler's kernel events, and replayed from a CUDA graph,
+    graph_ms) and for the host's enqueue. Given the parent commit's C
+    entry (`parent`, from k4_parent), it and this tree's entry are called
+    the same way (k4_raw) in turns (parent, kernel, kernel, parent), by
+    events and for the host's enqueue, the parent also alone and from a
+    graph, and the parent held the same way."""
     import torch
 
+    from elasticsearch_tpu_torch.parallel import cuda_build
     from elasticsearch_tpu_torch.parallel import kernels as k
 
     s_all, o_all, kk = merges[0]
@@ -1837,18 +1986,56 @@ def check_k4(merges, answer, dev):
     o = torch.from_numpy(o_all).to(dev).permute(1, 0, 2).reshape(
         Q, S * kk).contiguous()
     res = {}
-    ms = cuda_ms(lambda: res.__setitem__("k", k.merge_topk(s, o, k=kk)), 20)
+
+    def kern():
+        res["k"] = k.merge_topk(s, o, k=kk)
+
+    ms_turns = [cuda_ms(kern, 50), cuda_ms(kern, 50)]
+    ms = float(np.median(ms_turns))
+    turns = {"parent": [], "kernel": []}
+    if parent:
+        own = cuda_build.kernel("merge_topk")
+        runs = {"kernel": lambda: k4_raw(own, s, o, kk),
+                "parent": lambda: k4_raw(parent, s, o, kk)}
+        for name in ("parent", "kernel", "kernel", "parent"):
+            turns[name].append(cuda_ms(runs[name], 50))
+    kernel_ms, events = kernel_alone(kern, ("merge_kernel",), 20)
+    device_ms = graph_ms(kern, 50)
+    host_ms = host_enqueue_ms(kern)
     plain_ms = cuda_ms(lambda: res.__setitem__(
         "p", k.merge_topk_plain(s, o, k=kk)), 3)
     err = max(max_abs_err(a, b) for a, b in zip(res["k"], res["p"]))
     require(err == 0.0 and all(torch.equal(a, b)
                                for a, b in zip(res["k"], res["p"])),
             f"K4 kernel vs plain: max_abs_err {err}")
+    with k.poisoned():
+        again = k.merge_topk(s, o, k=kk)
+    require(all(torch.equal(a, b) for a, b in zip(again, res["p"])),
+            "K4 on outputs filled with NaN / -1 differs from the plain "
+            "version")
     require(all(np.array_equal(a.cpu().numpy(), b)
                 for a, b in zip(res["k"], answer)),
             "K4: the rerun differs from the engine's merged answer")
+    ab = None
+    if parent:
+        par_kernel_ms, par_events = kernel_alone(runs["parent"],
+                                                 ("merge_kernel",), 20)
+        ab = {"entry_ms": turns["kernel"], "entry_host_enqueue_ms":
+              host_enqueue_ms(runs["kernel"]),
+              "parent_ms": turns["parent"],
+              "parent_kernel_ms": par_kernel_ms,
+              "parent_kernel_events": par_events,
+              "parent_device_ms": graph_ms(runs["parent"], 50),
+              "parent_host_enqueue_ms": host_enqueue_ms(runs["parent"])}
+        with k.poisoned():
+            again = k4_raw(parent, s, o, kk)
+        require(all(torch.equal(a, b) for a, b in zip(again, res["p"])),
+                "the parent K4 differs from the plain version")
     b_ms, b_by = bound(s.numel() * 8 + Q * kk * 12, Q * kk * S * kk * 3,
                        PEAK_F32)
+    log(f"K4: events {ms_turns} ms, alone {kernel_ms} ms, graph "
+        f"{device_ms:.4f} ms, host enqueue {host_ms:.4f} ms; the two C "
+        f"entries called alike {ab}")
     return {"name": "merge_topk", "route": "cuda",
             "source": "elasticsearch_tpu_torch/parallel/csrc/merge_topk.cu",
             "replaces": "elasticsearch_tpu/parallel/kernels.py:654",
@@ -1856,16 +2043,21 @@ def check_k4(merges, answer, dev):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "library_note": "no single PyTorch call merges by (score desc, "
                             "partition asc, ord asc)",
+            "events_ms": ms_turns, "kernel_ms": kernel_ms,
+            "kernel_events": events, "device_ms": device_ms,
+            "host_enqueue_ms": host_ms,
+            "entry_ab": ab, "poisoned_run": "bitwise",
             "shape": {"Q": Q, "S": S, "k": kk}}
 
 
-def knn_phase(n: int, device="cuda") -> tuple:
+def knn_phase(n: int, device="cuda", k4_parent_src=None) -> tuple:
     """Config 4 (quantized kNN, cosine, 768-d) on an S = 1 engine, then,
     after freeing it, on a stacked S = 4 engine over the same rows; each
     served as knn_serve says. Holds recall@10 of the S = 1 int8 answers
     against exact f32 scores, the stacked engine's planted answers against
-    the S = 1 engine's, and K9 and K4 against their plain versions. Returns
-    (kernel rows, report)."""
+    the S = 1 engine's, and K9 and K4 against their plain versions (K4
+    beside the parent commit's source `k4_parent_src` when it is a file).
+    Returns (kernel rows, report)."""
     import gc
 
     import torch
@@ -1924,7 +2116,8 @@ def knn_phase(n: int, device="cuda") -> tuple:
             require(rep["recall_at_10"] >= MIN_RECALL,
                     f"knn recall@10 {rep['recall_at_10']} < {MIN_RECALL}")
         else:
-            k4 = check_k4(merges, ans["int8"], eng.device)
+            k4 = check_k4(merges, ans["int8"], eng.device,
+                          k4_parent(k4_parent_src))
             k4["launches"] = rep["launches"]["merge_topk"]
             s4, p4, o4 = ans["int8"]
             s1, _, o1 = ans1["int8"]
@@ -2156,11 +2349,74 @@ def agg_counts() -> dict:
         return {k: agg_device._COUNTS[k] for k in AGG_COUNTERS}
 
 
-def k8_case(mask, blob, ps, n_seg):
-    """K8 against its plain version on one (mask, blob) pair, bitwise, both
-    timed (CUDA events), with its bound and the index_add_ yardstick: the
-    scatter half alone, the mask pre-gathered at every in-range pair,
-    into [sections * Q * n_segments]."""
+K8_QS = (1, 4, 16, 64)      # the engine's rungs that a 10M-doc mask fits
+
+
+def k8_parent(path):
+    """The parent commit's K8 (grid (chunk group, query, section), the mask
+    gathered per query; its C entry has no word scratch and adds into
+    outputs the caller zero-fills), built with nvcc from `path`. Returns
+    run(mask, blob, ps, n_seg) -> [counts per section] with the old
+    wrapper's allocations (one zero-filled output a section), or None when
+    `path` is not a file."""
+    import ctypes
+
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+    from elasticsearch_tpu_torch.tools.k9_ab import parent_entry
+
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = parent_entry(path, "k8_parent", "es_agg_counts",
+                      [p, ll, i, p, ll, i, p, ll, i, p, i, i, p])
+    if fn is None:
+        return None
+
+    def run(mask, blob, ps, n_seg):
+        q = int(mask.shape[0])
+        outs = [torch.zeros((q, n_seg), dtype=torch.int32,
+                            device=blob.device) for _ in ps]
+        p1, out1 = (ps[1], outs[1].data_ptr()) if len(ps) > 1 else (0, 0)
+        rc = fn(mask.data_ptr(), int(mask.shape[1]), q, blob.data_ptr(), 0,
+                ps[0], outs[0].data_ptr(), k._agg_section_len(ps[0]), p1,
+                out1, len(ps), int(n_seg),
+                torch.cuda.current_stream().cuda_stream)
+        require(rc == 0, f"parent K8 launch failed: cudaError {rc}")
+        return outs
+
+    return run
+
+
+def k8_histogram(q: int, n_seg: int) -> dict:
+    """The count kernel's histogram plan as the built agg_counts.cu makes
+    it (es_agg_plan): word groups (one count launch each), W buckets a pass
+    and the passes over the block's pairs of the first group, and the
+    passes over the pairs summed over the groups."""
+    import ctypes
+
+    from elasticsearch_tpu_torch.parallel import cuda_build
+
+    plan = (ctypes.c_int * 4)()
+    rc = cuda_build.kernel("agg_plan")(q, n_seg, plan)
+    require(rc == 0, f"es_agg_plan({q}, {n_seg}) failed: {rc}")
+    return {"groups": plan[0], "width": plan[1], "passes": plan[2],
+            "pair_reads": plan[3]}
+
+
+def k8_case(mask, blob, ps, n_seg, parent=None):
+    """K8 on one (mask, blob) pair: held bitwise against its plain version,
+    once more with its outputs and word scratch filled with -1 first
+    (kernels.poisoned);
+    timed by CUDA events in turns with the parent commit's kernel (parent,
+    kernel, kernel, parent) when given, alone (torch.profiler: every K8
+    kernel of the entry, the pack and each group's count, summed per call,
+    with the events seen against those launched) and for the host's
+    enqueue, and as the device time of the call's work replayed from a
+    CUDA graph (graph_ms: the pack, which zeroes the outputs, and the
+    counts); with its
+    bound and the index_add_ yardstick (the scatter half
+    alone, the mask pre-gathered at every in-range pair, into [sections *
+    Q * n_segments]) where its index tensor stays under 4 GB."""
     import torch
 
     from elasticsearch_tpu_torch.parallel import kernels as k
@@ -2181,43 +2437,99 @@ def k8_case(mask, blob, ps, n_seg):
         def plain():
             return list(k.agg_two_level_counts_plain(
                 mask, blob, pd=ps[0], pm=ps[1], n_segments=n_seg))
+    q, n_docs = int(mask.shape[0]), int(mask.shape[1])
     res = {}
-    ms = cuda_ms(lambda: res.__setitem__("k", kern()), 20)
+    turns = {"parent": [], "kernel": []}
+    for name in (["parent"] if parent else []) + ["kernel", "kernel"] + (
+            ["parent"] if parent else []):
+        if name == "kernel":
+            turns[name].append(cuda_ms(lambda: res.__setitem__("k", kern()),
+                                       20))
+        else:
+            turns[name].append(cuda_ms(lambda: res.__setitem__(
+                "o", parent(mask, blob, ps, n_seg)), 10))
+    ms = float(np.median(turns["kernel"]))
+    hist = k8_histogram(q, n_seg)
+    names = ("count_kernel", "pack_kernel" if q > 1 else "pack_bits_kernel")
+    kernel_ms, events = kernel_alone(kern, names, 5,
+                                     {"count_kernel": hist["groups"]})
+    device_ms = graph_ms(kern)
+    host_ms = host_enqueue_ms(kern, 50)
     plain_ms = cuda_ms(lambda: res.__setitem__("p", plain()), 3)
     err = max(max_abs_err(a, b) for a, b in zip(res["k"], res["p"]))
     require(err == 0.0 and all(torch.equal(a, b)
                                for a, b in zip(res["k"], res["p"])),
             f"K8 kernel vs plain: max_abs_err {err}")
-    q, n_docs = int(mask.shape[0]), int(mask.shape[1])
-    idx, vals = [], []
-    for si, (d, s) in enumerate(k.agg_counted_pairs(blob, ps, n_seg,
-                                                    n_docs)):
-        rows = torch.arange(q, device=blob.device)[:, None]
-        idx.append(((si * q + rows) * n_seg + s[None, :]).reshape(-1))
-        vals.append(mask[:, d].to(torch.int32).reshape(-1))
-    idx, vals = torch.cat(idx), torch.cat(vals)
-    acc = torch.zeros(len(ps) * q * n_seg, dtype=torch.int32,
-                      device=blob.device)
-    lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, vals), 5)
+    with k.poisoned():
+        again = kern()
+    require(all(torch.equal(a, b) for a, b in zip(again, res["p"])),
+            "K8 on outputs and word scratch filled with -1 differs from the "
+            "plain version")
+    del again
+    par = None
+    if parent:
+        require(all(torch.equal(a, b) for a, b in zip(res["o"], res["p"])),
+                "the parent K8 differs from the plain version")
+        par_kernel_ms, par_events = kernel_alone(
+            lambda: parent(mask, blob, ps, n_seg), ("agg_counts_kernel",), 5)
+        par = {"ms": turns["parent"], "kernel_ms": par_kernel_ms,
+               "kernel_events": par_events,
+               "device_ms": graph_ms(lambda: parent(mask, blob, ps, n_seg))}
+    pairs = sum(ps)
+    lib_ms, lib_note = None, None
+    if len(ps) * q * pairs * 8 >= 4e9:
+        lib_note = (f"not timed: its int64 index tensor would hold "
+                    f"{len(ps) * q * pairs * 8 / 1e9:.1f} GB")
+    else:
+        idx, vals = [], []
+        for si, (d, sg) in enumerate(k.agg_counted_pairs(blob, ps, n_seg,
+                                                         n_docs)):
+            rows = torch.arange(q, device=blob.device)[:, None]
+            idx.append(((si * q + rows) * n_seg + sg[None, :]).reshape(-1))
+            vals.append(mask[:, d].to(torch.int32).reshape(-1))
+        idx, vals = torch.cat(idx), torch.cat(vals)
+        acc = torch.zeros(len(ps) * q * n_seg, dtype=torch.int32,
+                          device=blob.device)
+        lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, vals), 5)
+        del idx, vals, acc
     b_ms, b_by = bound(blob.numel() * 4 + q * n_docs + len(ps) * q * n_seg * 4,
-                       q * sum(ps), PEAK_F32)
+                       q * pairs, PEAK_F32)
     counted = sum(int(x.sum()) for x in res["k"])
-    del idx, vals, acc, res
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+    del res
+    torch.cuda.empty_cache()
+    return {"ms": ms, "events_ms": turns["kernel"], "kernel_ms": kernel_ms,
+            "kernel_events": events, "device_ms": device_ms,
+            "host_enqueue_ms": host_ms,
+            "plain_ms": plain_ms, "max_abs_err": err,
+            "poisoned_run": "bitwise", "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "library_note": lib_note, "parent": par,
+            "histogram": hist,
             "shape": {"Q": q, "n_docs": n_docs, "pairs": list(ps),
                       "n_segments": n_seg,
                       "n_tiles": -(-n_seg // k.AGG_SEG_TILE),
                       "counted": counted}}
 
 
-def check_k8(seg, sels, launches, device):
-    """K8 against its plain version on the card at the path's shapes: the
-    terms_metric layout (config 6's tags + stats) at Q = 1 and at Q = 16
-    (the 8 config-6 masks padded to the rung with empty rows), the uniq
-    layout of ts (the 7d date_histogram's hour ranks), and a synthetic
-    layout of 10M doc-ordered pairs over AGG_SYNTH_BUCKETS buckets (four
-    tiles, every chunk spanning them all)."""
+def k8_masks(sels, q: int, exists):
+    """[q, n] bool K8 masks: the config-6 masks first, then further 5%
+    masks (default_rng(32)) where q passes them, as a bulk tier would fill
+    a rung with distinct works."""
+    rows = list(sels[:q])
+    rng = np.random.default_rng(32)
+    while len(rows) < q:
+        rows.append((rng.random(len(exists)) < 0.05) & exists)
+    return np.stack(rows)
+
+
+def check_k8(seg, sels, launches, device, parent=None):
+    """K8 against its plain version on the card at the path's shapes, and
+    beside the parent commit's kernel (`parent`, from k8_parent) on the
+    same inputs: the terms_metric layout (config 6's tags + stats) at the
+    engine's rungs Q = 1, 4, 16 and 64 (256 would need a 2.5 GB mask), the
+    uniq layout of ts (the 7d date_histogram's 2,161 hour ranks, doc
+    order) at Q = 1 and 16, and a synthetic layout of 10M doc-ordered
+    pairs over AGG_SYNTH_BUCKETS buckets (four tiles, every chunk spanning
+    them all) at Q = 1. Each case is k8_case's."""
     import torch
 
     from elasticsearch_tpu_torch.search import agg_device
@@ -2225,24 +2537,30 @@ def check_k8(seg, sels, launches, device):
     tm = seg._device["aggdev:termsm:tag:price"]
     uq = seg._device["aggdev:uniq:ts:3600000"]
     n = seg.n_docs
-    q16 = np.zeros((16, n), bool)
-    q16[:len(sels)] = sels
-    one = torch.from_numpy(sels[0][None].copy()).to(device)
+    qmax = max(K8_QS)
+    t = time.time()
+    rows = k8_masks(sels, qmax, seg.keyword["tag"].exists)
+    log(f"K8 masks: {qmax} x {n} in {time.time() - t:.1f}s")
     cases = {}
-    cases["terms_metric_q1"] = k8_case(
-        one, tm.dev, [tm.meta["pd"], tm.meta["pm"]], tm.meta["n_segments"])
-    cases["terms_metric_q16"] = k8_case(
-        torch.from_numpy(q16).to(device), tm.dev,
-        [tm.meta["pd"], tm.meta["pm"]], tm.meta["n_segments"])
-    cases["uniq_ts_q1"] = k8_case(one, uq.dev, [uq.meta["p"]],
-                                  uq.meta["n_segments"])
+    tm_ps = [tm.meta["pd"], tm.meta["pm"]]
+    for q in K8_QS:
+        m = torch.from_numpy(np.ascontiguousarray(rows[:q])).to(device)
+        cases[f"terms_metric_q{q}"] = k8_case(m, tm.dev, tm_ps,
+                                              tm.meta["n_segments"], parent)
+        if q in (1, 16):
+            cases[f"uniq_ts_q{q}"] = k8_case(m, uq.dev, [uq.meta["p"]],
+                                             uq.meta["n_segments"], parent)
+        del m
+        torch.cuda.empty_cache()
+    del rows
+    one = torch.from_numpy(sels[0][None].copy()).to(device)
     rng = np.random.default_rng(41)
     d, s, ct0, ct1 = agg_device._pack_pairs(
         np.arange(n, dtype=np.int32),
         rng.integers(0, AGG_SYNTH_BUCKETS, size=n).astype(np.int32), n)
     blob = torch.from_numpy(np.concatenate([d, s, ct0, ct1])).to(device)
     cases["synthetic_4_tiles_q1"] = k8_case(one, blob, [len(d)],
-                                            AGG_SYNTH_BUCKETS)
+                                            AGG_SYNTH_BUCKETS, parent)
     del blob, one
     torch.cuda.empty_cache()
     main = cases["terms_metric_q1"]
@@ -2258,19 +2576,26 @@ def check_k8(seg, sels, launches, device):
                            "in-range pair (the scatter half)",
            "shape": main["shape"], "cases": cases}
     for label, c in cases.items():
-        log(f"K8 {label}: kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f}"
-            f" ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}), "
-            f"index_add_ {c['library_ms']:.4f} ms, {c['shape']}")
+        par = c["parent"]
+        log(f"K8 {label}: kernel {c['ms']:.4f} ms (alone {c['kernel_ms']}, "
+            f"graph {c['device_ms']:.4f}, host enqueue "
+            f"{c['host_enqueue_ms']:.4f}), parent {par and par['ms']} (alone "
+            f"{par and par['kernel_ms']}, graph {par and par['device_ms']}), "
+            f"plain "
+            f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+            f"({c['bound_by']}), index_add_ {c['library_ms']}, "
+            f"{c['histogram']}, {c['shape']}")
     return row
 
 
-def agg_phase(n: int, device="cuda") -> tuple:
+def agg_phase(n: int, device="cuda", k8_parent_src=None) -> tuple:
     """Config 6 (analytics) through the port's aggregation entry points
     (parse_aggs -> collect_leaf -> reduce_partials -> finalize_aggs, the
     device route through agg_device and K8) on a synthetic n-doc leaf:
     AGG_REQUESTS timed requests after one warm call, held against the host
     path; the reference suite's shapes held on sparse, dense and empty
-    masks; a coalesced batch of works; K8 against its plain version.
+    masks; a coalesced batch of works; K8 against its plain version (and
+    the parent commit's source `k8_parent_src` when it is a file).
     `device` other than "cuda" installs an engine there (a CPU rehearsal).
     Returns (kernel row, report)."""
     import torch
@@ -2332,6 +2657,12 @@ def agg_phase(n: int, device="cuda") -> tuple:
         require(len(r["weekly"]["buckets"]) >= 13,
                 "config 6: too few weekly buckets")
 
+    # ---- K8 against its plain version (and the parent's kernel) on the
+    # path's layouts, before the holds fork their host workers ----
+    sels = [m & kc.exists for m in cmasks]
+    row = check_k8(seg, sels, launches["agg_counts"], eng.device,
+                   k8_parent(k8_parent_src))
+
     # ---- holds against the host path: config 6 on AGG_HOLD masks, the
     # suite's shapes on their masks (device runs first, then the host runs
     # in parallel; the route is a module global) ----
@@ -2365,7 +2696,6 @@ def agg_phase(n: int, device="cuda") -> tuple:
     # ---- a coalesced batch: the 8 config-6 works on the terms_metric
     # layout in one search_many call (Q = 8, padded to the 16 rung) ----
     lay = seg._device["aggdev:termsm:tag:price"]
-    sels = [m & kc.exists for m in cmasks]
     batch = [agg_device._AggWork(lay, s) for s in sels]
     l0 = kernels.LAUNCHES["agg_counts"]
     eng.search_many([batch], 1)
@@ -2381,7 +2711,6 @@ def agg_phase(n: int, device="cuda") -> tuple:
                 f"coalesced work {i} differs from its Q = 1 result")
     log("coalesced batch: 8 works in one dispatch equal their Q = 1 results")
 
-    row = check_k8(seg, sels, launches["agg_counts"], eng.device)
     report = {
         "docs": n, "cut": n < AGG_DOCS, "data_s": data_s,
         "tag_pairs": int(len(kc.all_ords)),
@@ -2403,7 +2732,8 @@ def agg_phase(n: int, device="cuda") -> tuple:
 
 
 def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
-        agg_docs: int, k3_parent_src=None, k2_parent_src=None) -> dict:
+        agg_docs: int, k3_parent_src=None, k2_parent_src=None,
+        k8_parent_src=None, k4_parent_src=None) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import hbm_ledger
@@ -2432,6 +2762,9 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     k7_parent = parent_runner(k2_parent_src, "conj")
     log(f"parent sweeps (K2, K6, K7) for the A/B: "
         f"{k2_parent_src if k2_parent else 'not given'}")
+    for name, src in (("K8", k8_parent_src), ("K4", k4_parent_src)):
+        log(f"parent {name} for the A/B: "
+            f"{src if src and os.path.isfile(src) else 'not given'}")
 
     if n_docs < FULL_DOCS:
         log(f"CUT: index cut from {FULL_DOCS} to {n_docs} docs")
@@ -2570,13 +2903,13 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
 
     # ---- quantized kNN (config 4) on S = 1 and stacked S = 4 ----
     t = time.time()
-    knn_rows, knn_report = knn_phase(knn_docs)
+    knn_rows, knn_report = knn_phase(knn_docs, k4_parent_src=k4_parent_src)
     knn_report["phase_s"] = time.time() - t
     rows += knn_rows
 
     # ---- analytics (config 6): device aggregations through K8 ----
     t = time.time()
-    agg_row, agg_report = agg_phase(agg_docs)
+    agg_row, agg_report = agg_phase(agg_docs, k8_parent_src=k8_parent_src)
     agg_report["phase_s"] = time.time() - t
     rows.append(agg_row)
     log(f"agg phase took {agg_report['phase_s']:.1f}s")
@@ -2620,6 +2953,14 @@ def main(argv=None) -> int:
                     help="an earlier sweep_rowmax.cu (same C entries) to "
                          "time beside this tree's K2, K6 and K7 on the "
                          "same inputs; skipped when the file is missing")
+    ap.add_argument("--k8-parent", default=K8_PARENT,
+                    help="an earlier agg_counts.cu (its C entry without "
+                         "word scratch) to time beside this tree's K8 on "
+                         "the same inputs; skipped when the file is missing")
+    ap.add_argument("--k4-parent", default=K4_PARENT,
+                    help="an earlier merge_topk.cu (same C entry) to time "
+                         "beside this tree's K4 on the same merge; skipped "
+                         "when the file is missing")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2636,7 +2977,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
         return 2
     out = run(args.docs, args.batches, args.batch, args.knn_docs,
-              args.agg_docs, args.k3_parent, args.k2_parent)
+              args.agg_docs, args.k3_parent, args.k2_parent,
+              args.k8_parent, args.k4_parent)
     print(json.dumps({"serving": out["serving"]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,78 +7,110 @@
 // nested min reductions (lowest partition, then lowest ord among the lanes
 // holding the max), then clearing every lane that holds the chosen triple.
 //
-// Design. One warp per query: the query's S*k lanes are staged in shared
-// memory (non-positive scores as 0, empty), and each of the k steps is one
-// warp-wide argmax by (score desc, partition asc, ord asc) over lanes with a
-// positive score, followed by clearing every lane equal to the winner, as
-// the reference clears them. When no positive lane is left the remaining
-// slots are (0, 0, 0). The partition of a lane is lane / k (lanes are
-// partition-major). Every step permutes exact f32 values; nothing is
-// recomputed, so kernel and plain version agree bitwise.
+// Design: one pass, no sequential step chain. The cascade's output j is the
+// j-th best *distinct* positive triple (score, partition, ord), because each
+// step clears every copy of its winner. So, per query:
+// - lane i (score v_i > 0 ? v_i : 0, so NaN, -0.0 and negatives are empty;
+//   partition i / k) is a leader if v_i > 0 and no lower lane of its own
+//   partition holds the same (score, ord): copies of a triple share a
+//   partition, so a lane compares only within its own k lanes;
+// - a leader's rank is the number of leaders better than it; ranks are
+//   distinct and cover 0 .. leaders - 1;
+// - a leader with rank < k writes its triple to slot rank, and slots from
+//   the leader count up to k get (0, 0, 0). Every output slot is written
+//   exactly once.
+// One warp per query, QPB queries a block (8, fewer where a query's L lanes
+// need more shared memory); O(L * k + L^2 / 32) compares a warp. A query
+// keeps 8 bytes a lane in shared memory: its scores and ords. Scores are
+// stored as v >= +0, so the sign bit is free: once a lane's leader test is
+// done its score is stored negated unless it leads (a leader stays > 0,
+// every other lane <= 0), and the rank pass reads leaders from the sign.
+// Every
+// value is an exact copy of an input, so kernel and plain version agree
+// bitwise.
 //
 // What bounds it on the H100: nothing that matters at the serving shapes
 // (Q x S*k x 8 bytes read, Q x k x 12 written: 80 KB at Q = 256, S = 4,
-// k = 10); it is latency, a handful of microseconds.
+// k = 10); it is latency, a few microseconds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
-struct Cand {
-  float v;
-  int p;
-  int o;
-};
+constexpr int QPB = 8;                // queries (warps) a block
+constexpr int SMEM_DEFAULT = 48 * 1024;
+constexpr int MAX_DEVICES = 64;
 
 // (v desc, p asc, o asc)
-__device__ __forceinline__ bool better(const Cand& a, const Cand& b) {
-  return a.v > b.v || (a.v == b.v && (a.p < b.p || (a.p == b.p && a.o < b.o)));
+__device__ __forceinline__ bool better(float va, int pa, int oa, float vb,
+                                       int pb, int ob) {
+  return va > vb || (va == vb && (pa < pb || (pa == pb && oa < ob)));
 }
 
+// shared per query: v[L] (scores, empty as 0; after the leader test a
+// leader's score, -v for every other lane), o[L] (ords)
 __global__ void merge_kernel(const float* __restrict__ scores,
                              const int32_t* __restrict__ ords,
                              float* __restrict__ out_s,
                              int32_t* __restrict__ out_p,
-                             int32_t* __restrict__ out_o, int L, int k) {
+                             int32_t* __restrict__ out_o, int Q, int L,
+                             int k) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s = reinterpret_cast<float*>(smem);
-  int* o = reinterpret_cast<int*>(s + L);
-  const int q = blockIdx.x;
-  const int lane = threadIdx.x;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = blockIdx.x * (blockDim.x >> 5) + w;
+  if (q >= Q) return;                 // whole warps: no block barrier below
+  float* v = reinterpret_cast<float*>(smem) + (int64_t)w * 2 * L;
+  int* o = reinterpret_cast<int*>(v + L);
+  const float* sq = scores + (int64_t)q * L;
+  const int32_t* oq = ords + (int64_t)q * L;
   for (int i = lane; i < L; i += 32) {
-    const float v = scores[(int64_t)q * L + i];
-    s[i] = v > 0.f ? v : 0.f;
-    o[i] = ords[(int64_t)q * L + i];
+    const float x = sq[i];
+    v[i] = x > 0.f ? x : 0.f;
+    o[i] = oq[i];
   }
   __syncwarp();
-  int j = 0;
-  for (; j < k; ++j) {
-    Cand c = {0.f, 0x7fffffff, 0x7fffffff};
-    for (int i = lane; i < L; i += 32) {
-      const Cand x = {s[i], i / k, o[i]};
-      if (x.v > 0.f && better(x, c)) c = x;
+  // 32 lanes at a time: the test reads |v| of lower lanes, some already
+  // marked; the marks are written after the whole warp has read
+  int leaders = 0;                    // the same in every lane
+  for (int i0 = 0; i0 < L; i0 += 32) {
+    const int i = i0 + lane;
+    float x = 0.f;
+    bool lead = false;
+    if (i < L) {
+      x = v[i];
+      lead = x > 0.f;
+      const int oi = o[i];
+      for (int j = i - i % k; lead && j < i; ++j)
+        lead = !(fabsf(v[j]) == x && o[j] == oi);
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      Cand x;
-      x.v = __shfl_xor_sync(0xffffffffu, c.v, off);
-      x.p = __shfl_xor_sync(0xffffffffu, c.p, off);
-      x.o = __shfl_xor_sync(0xffffffffu, c.o, off);
-      if (better(x, c)) c = x;
-    }
-    if (!(c.v > 0.f)) break;
-    if (lane == 0) {
-      out_s[(int64_t)q * k + j] = c.v;
-      out_p[(int64_t)q * k + j] = c.p;
-      out_o[(int64_t)q * k + j] = c.o;
-    }
-    for (int i = lane; i < L; i += 32) {
-      if (s[i] == c.v && i / k == c.p && o[i] == c.o) s[i] = 0.f;
-    }
+    leaders += __popc(__ballot_sync(0xffffffffu, lead));
+    __syncwarp();
+    if (i < L && !lead) v[i] = -x;
     __syncwarp();
   }
-  for (int r = j + lane; r < k; r += 32) {
+  for (int i = lane; i < L; i += 32) {
+    const float x = v[i];
+    if (!(x > 0.f)) continue;
+    const int pi = i / k, oi = o[i];
+    int rank = 0;
+    for (int j = 0, pj = 0, r = 0; j < L && rank < k; ++j) {
+      rank += better(v[j], pj, o[j], x, pi, oi);
+      if (++r == k) {
+        r = 0;
+        ++pj;
+      }
+    }
+    if (rank < k) {
+      out_s[(int64_t)q * k + rank] = x;
+      out_p[(int64_t)q * k + rank] = pi;
+      out_o[(int64_t)q * k + rank] = oi;
+    }
+  }
+  // the slots past the leaders are empty
+  for (int r = leaders + lane; r < k; r += 32) {
     out_s[(int64_t)q * k + r] = 0.f;
     out_p[(int64_t)q * k + r] = 0;
     out_o[(int64_t)q * k + r] = 0;
@@ -91,13 +123,30 @@ extern "C" int es_merge_topk(const void* scores, const void* ords,
                              void* out_s, void* out_p, void* out_o, int Q,
                              int L, int k, void* stream) {
   if (Q <= 0) return 0;
-  const int smem = L * 8;
-  cudaError_t err = cudaFuncSetAttribute(
-      merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem > 48 * 1024 ? smem : 48 * 1024);
-  if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<Q, 32, smem, (cudaStream_t)stream>>>(
+  if (L < 0 || k <= 0 || L % k) return (int)cudaErrorInvalidValue;
+  const int per_query = 8 * (L > 0 ? L : 1);
+  int qpb = SMEM_DEFAULT / per_query;
+  qpb = qpb > QPB ? QPB : qpb < 1 ? 1 : qpb;
+  const int smem = qpb * per_query;
+  if (smem > SMEM_DEFAULT) {
+    // raised once per device (the attribute applies to the current one),
+    // as far as asked
+    static std::mutex mu;
+    static int set[MAX_DEVICES];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> lock(mu);
+    if (smem > set[dev]) {
+      err = cudaFuncSetAttribute(
+          merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      set[dev] = smem;
+    }
+  }
+  merge_kernel<<<(Q + qpb - 1) / qpb, qpb * 32, smem, (cudaStream_t)stream>>>(
       (const float*)scores, (const int32_t*)ords, (float*)out_s,
-      (int32_t*)out_p, (int32_t*)out_o, L, k);
+      (int32_t*)out_p, (int32_t*)out_o, Q, L, k);
   return (int)cudaGetLastError();
 }

@@ -34,7 +34,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 # kernel -> (source, C entry point, argtypes); one source may hold several;
 # sweep_group / sweep_list_cap launch nothing: they report K2's built G and
-# list capacity
+# list capacity; agg_word_bytes and agg_plan report K8's word scratch
+# size and histogram plan
 _SIGNATURES = {
     "build_columns": ("build_columns", "es_build_columns",
                       [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
@@ -56,7 +57,10 @@ _SIGNATURES = {
     "knn_int8_window_topc": ("knn_window_topc", "es_knn_int8_window_topc",
                              [_P] * 9 + [_I] * 6 + [_P]),
     "agg_counts": ("agg_counts", "es_agg_counts",
-                   [_P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _I, _I, _P]),
+                   [_P, _L, _I, _P, _L, _P, _L, _I, _L, _I, _I, _I, _P,
+                    _P]),
+    "agg_word_bytes": ("agg_counts", "es_agg_word_bytes", [_I, _L]),
+    "agg_plan": ("agg_counts", "es_agg_plan", [_I, _I, _P]),
 }
 
 _LOCK = threading.Lock()
@@ -117,7 +121,7 @@ def _build_missing() -> None:  # caller holds _LOCK
             continue
         fn = getattr(_LIBS[src], sym)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _L if sym == "es_agg_word_bytes" else ctypes.c_int
         _FUNCS[name] = fn
 
 

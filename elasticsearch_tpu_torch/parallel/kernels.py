@@ -37,6 +37,7 @@ programs in the reference, not Pallas kernels, and are torch code here.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Tuple
 
 import numpy as np
@@ -117,6 +118,32 @@ def _check(t, name: str, dtype: torch.dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+_POISON = False   # set by poisoned(): _out fills what it allocates
+
+
+@contextlib.contextmanager
+def poisoned():
+    """Within it, every output and scratch tensor a kernel wrapper
+    allocates (`_out`) is filled first with NaN (floats) or all one bits
+    (integers), so a kernel that leaves an entry unwritten cannot pass a
+    check on memory an earlier, right call left behind. For checks only:
+    it is process-wide and adds a fill to every launch while on."""
+    global _POISON
+    prev, _POISON = _POISON, True
+    try:
+        yield
+    finally:
+        _POISON = prev
+
+
+def _out(shape, dtype: torch.dtype, dev) -> torch.Tensor:
+    """An output or scratch tensor of a kernel launch (see `poisoned`)."""
+    t = torch.empty(shape, dtype=dtype, device=dev)
+    if _POISON:
+        t.fill_(float("nan") if dtype.is_floating_point else -1)
+    return t
+
+
 def _route(device: torch.device) -> bool:
     """True for the CUDA kernel, False for the plain version (CPU)."""
     if device.type == "cuda":
@@ -126,13 +153,24 @@ def _route(device: torch.device) -> bool:
     raise TypeError(f"no kernel for device {device}")
 
 
+def _raw_stream(index: int) -> int:
+    """The current stream of device `index` as a cudaStream_t value."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:       # skips building a torch.cuda.Stream object
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
     from elasticsearch_tpu_torch.parallel.cuda_build import kernel
 
     fn = kernel(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
+    cur = torch.cuda.current_device()
+    if device.index is None or device.index == cur:
+        rc = fn(*args, _raw_stream(cur))
+    else:                 # the C entry launches on the current device
+        with torch.cuda.device(device):
+            rc = fn(*args, _raw_stream(device.index))
     if rc != 0:
         raise KernelLaunchError(f"{name} launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
@@ -362,8 +400,8 @@ def _check_aligned(*tensors) -> None:
 
 
 def _sweep_out(nsw: int, qc: int, dev):
-    return (torch.empty((nsw, qc, CAND_PAD), dtype=torch.float32, device=dev),
-            torch.empty((nsw, qc, CAND_PAD), dtype=torch.int32, device=dev))
+    return (_out((nsw, qc, CAND_PAD), torch.float32, dev),
+            _out((nsw, qc, CAND_PAD), torch.int32, dev))
 
 
 def sweep_rowmax(qscale, cols_hi, cols_lo, wq, live, *, nsw: int):
@@ -541,8 +579,7 @@ def intersect_bitset(q_slots, q_neg, bits, *, nsw: int):
                          f"[0, {n_slots})")
     if not _route(dev):
         return intersect_bitset_plain(q_slots, q_neg, bits, nsw=nsw)
-    out = torch.empty((qc, nsw * SW_WORD_ROWS, 128), dtype=torch.int32,
-                      device=dev)
+    out = _out((qc, nsw * SW_WORD_ROWS, 128), torch.int32, dev)
     _launch("intersect_bitset", dev, q_slots.data_ptr(), q_neg.data_ptr(),
             bits.data_ptr(), out.data_ptr(), qc, int(nsw),
             int(bits.shape[1]), n_slots)
@@ -688,8 +725,7 @@ def sparse_gather(coff, cw, ct0, ct1, pool, *, n_tiles: int, qoff=None,
     if not _route(dev):
         return sparse_gather_plain(coff, cw, ct0, ct1, pool, n_tiles=n_tiles,
                                    qoff=qoff)
-    out = torch.empty((n_rc, SPARSE_GRAN // 128, 128), dtype=torch.float32,
-                      device=dev)
+    out = _out((n_rc, SPARSE_GRAN // 128, 128), torch.float32, dev)
     if n_rc == 0:
         return out
     n_q = 1 if qoff is None else int(qoff.shape[0]) - 1
@@ -759,9 +795,9 @@ def merge_topk(scores, ords, *, k: int):
         return merge_topk_plain(scores, ords, k=k)
     if L * 8 > _MERGE_SMEM_MAX:
         raise ValueError(f"{L} lanes exceed the merge kernel's shared memory")
-    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
-    out_p = torch.empty((Q, k), dtype=torch.int32, device=dev)
-    out_o = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    out_s = _out((Q, k), torch.float32, dev)
+    out_p = _out((Q, k), torch.int32, dev)
+    out_o = _out((Q, k), torch.int32, dev)
     if Q == 0:
         return out_s, out_p, out_o
     _launch("merge_topk", dev, scores.data_ptr(), ords.data_ptr(),
@@ -952,13 +988,10 @@ def knn_int8_window_topc(qi8, qmeta, q8, meta, act, fmask=None, *,
     if not _route(dev):
         return knn_int8_window_topc_plain(qi8, qmeta, q8, meta, act, fmask,
                                           similarity=similarity)
-    out_s = torch.empty(pre + (nw, qc, KNN_CANDW), dtype=torch.float32,
-                        device=dev)
-    out_r = torch.empty(pre + (nw, qc, KNN_CANDW), dtype=torch.int32,
-                        device=dev)
+    out_s = _out(pre + (nw, qc, KNN_CANDW), torch.float32, dev)
+    out_r = _out(pre + (nw, qc, KNN_CANDW), torch.int32, dev)
     cw = knn_chunk_windows(nw, qc, S)
-    scratch = torch.empty((S, cw, qc, KNN_W), dtype=torch.float32,
-                          device=dev)
+    scratch = _out((S, cw, qc, KNN_W), torch.float32, dev)
     _launch("knn_int8_window_topc", dev, qi8.data_ptr(), qmeta.data_ptr(),
             q8.data_ptr(), meta.data_ptr(), act.data_ptr(),
             0 if fmask is None else fmask.data_ptr(), out_s.data_ptr(),
@@ -1046,26 +1079,47 @@ def _check_agg(mask, blob, ps, n_segments: int):
                          f"{n_segments}")
 
 
+AGG_WORD_GROUP = 32   # queries per packed mask word group (agg_counts.cu)
+
+
+def agg_word_bytes(q: int, n_docs: int) -> int:
+    """Bytes of the packed-mask scratch K8 takes for q queries: at q = 1
+    one bit per doc in 32-bit words; else one word per doc, 8 bits for
+    q <= 8, 16 for q <= 16, else 32 bits in ceil(q / 32) groups, docs
+    padded to a multiple of 4. agg_counts.cu's es_agg_word_bytes computes
+    the same (the card tests hold them equal)."""
+    if q <= 1:
+        return -(-n_docs // 32) * 4
+    width = 1 if q <= 8 else 2 if q <= 16 else 4
+    groups = -(-q // AGG_WORD_GROUP) if width == 4 else 1
+    return groups * (-(-n_docs // 4) * 4) * width
+
+
 def _agg_launch(mask, blob, ps, n_segments: int):
-    """One K8 launch over one or two blob sections; a section axis of the
-    grid runs both sections of the two-level form together."""
+    """One K8 C entry call over one or two blob sections: it zeroes the
+    outputs and packs the mask into words, then counts both sections of
+    the two-level form in one persistent grid per group of 32 queries.
+    The outputs ([sections, Q, n_segments]) and the word scratch (after
+    them, 16-byte aligned) are one allocation. Returns the outputs."""
     dev = blob.device
-    q = int(mask.shape[0])
-    outs = [torch.zeros((q, n_segments), dtype=torch.int32, device=dev)
-            for _ in ps]
-    offs = [0, _agg_section_len(ps[0])]
-    if n_segments == 0 or mask.shape[1] == 0:
-        return outs                       # no bucket or no doc can count
-    p1, out1 = (ps[1], outs[1].data_ptr()) if len(ps) > 1 else (0, 0)
-    _launch("agg_counts", dev, mask.data_ptr(), int(mask.shape[1]), q,
-            blob.data_ptr(), offs[0], ps[0], outs[0].data_ptr(), offs[1], p1,
-            out1, len(ps), int(n_segments))
-    return outs
+    q, n_docs = int(mask.shape[0]), int(mask.shape[1])
+    shape = (len(ps), q, n_segments)
+    if n_segments == 0 or n_docs == 0:    # no bucket or no doc can count
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+    n_out = len(ps) * q * n_segments
+    at = -(-n_out // 4) * 4               # i32 offset of the words
+    nbytes = agg_word_bytes(q, n_docs)    # a multiple of 4
+    buf = _out((at + nbytes // 4,), torch.int32, dev)
+    ptr = buf.data_ptr()
+    _launch("agg_counts", dev, mask.data_ptr(), n_docs, q, ptr + 4 * at,
+            nbytes, blob.data_ptr(), 0, ps[0], _agg_section_len(ps[0]),
+            ps[1] if len(ps) > 1 else 0, len(ps), int(n_segments), ptr)
+    return buf.as_strided(shape, (q * n_segments, n_segments, 1))
 
 
 def agg_segment_counts(mask, blob, *, p: int, n_segments: int):
     """Batched bucket counting for one agg layout: Q queries' doc counts
-    over the layout's static (doc, bucket) pairs, in one launch.
+    over the layout's static (doc, bucket) pairs, in one C entry call.
 
     mask [Q, n_docs] bool — one query mask per batched agg work
     blob [2p + 2(p / 1024)] i32 — the layout's device column, sections
@@ -1087,7 +1141,7 @@ def agg_segment_counts(mask, blob, *, p: int, n_segments: int):
 def agg_two_level_counts(mask, blob, *, pd: int, pm: int, n_segments: int):
     """The two-level form for metric-under-bucket sub-aggs: the bucket doc
     counts over the (doc, bucket) pairs and the bucket value counts over
-    the bucket x metric-value cross pairs, in one launch.
+    the bucket x metric-value cross pairs, in one C entry call.
 
     blob sections: [doc(pd) | seg(pd) | dct0 | dct1 | mdoc(pm) | mseg(pm)
     | mct0 | mct1], all i32, pair sections multiples of AGG_PAIR_GRAN.
@@ -1099,5 +1153,5 @@ def agg_two_level_counts(mask, blob, *, pd: int, pm: int, n_segments: int):
     if not _route(blob.device):
         return agg_two_level_counts_plain(mask, blob, pd=pd, pm=pm,
                                           n_segments=n_segments)
-    dc, vc = _agg_launch(mask, blob, (pd, pm), n_segments)
+    dc, vc = _agg_launch(mask, blob, (pd, pm), n_segments).unbind(0)
     return dc, vc

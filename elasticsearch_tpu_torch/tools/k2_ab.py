@@ -35,6 +35,7 @@ last.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import subprocess
@@ -46,7 +47,8 @@ import torch
 
 from elasticsearch_tpu_torch.parallel import cuda_build
 from elasticsearch_tpu_torch.parallel import kernels as k
-from elasticsearch_tpu_torch.tools.k9_ab import build, cuda_ms, kernel_times
+from elasticsearch_tpu_torch.tools.k9_ab import (build, cuda_ms, kernel_alone,
+                                                 parent_entry)
 
 NSW = 123                # 8,060,928 docs: config 1's 8M-doc shard
 HPT = 225
@@ -110,10 +112,13 @@ def ablated_sources(out_dir: Path):
     return paths
 
 
+def _argtypes(kernel: str):
+    return [_P] * (ENTRIES[kernel][1] + 2) + [_I] * 3 + [_P]
+
+
 def entry(lib: ctypes.CDLL, kernel: str = "disj"):
-    name, n_in, _ = ENTRIES[kernel]
-    fn = getattr(lib, name)
-    fn.argtypes = [_P] * (n_in + 2) + [_I] * 3 + [_P]
+    fn = getattr(lib, ENTRIES[kernel][0])
+    fn.argtypes = _argtypes(kernel)
     fn.restype = ctypes.c_int
     return fn
 
@@ -121,17 +126,12 @@ def entry(lib: ctypes.CDLL, kernel: str = "disj"):
 def run_raw(fn, args, nsw: int, poison: bool = False):
     """One call of a built sweep entry (`entry`) on the wrapper's
     positional tensors `args` with the wrapper's allocations; `poison`
-    fills the outputs with NaN and -1 first, so a check never reads an
-    earlier call's results from reused memory."""
+    fills the outputs with NaN and -1 first (kernels.poisoned), so a check
+    never reads an earlier call's results from reused memory."""
     qc = int(args[0].shape[0])
     hi = next(a for a in args if a.dim() == 4)
-    shape = (nsw, qc, k.CAND_PAD)
-    if poison:
-        rm = torch.full(shape, float("nan"), device=hi.device)
-        rr = torch.full(shape, -1, dtype=torch.int32, device=hi.device)
-    else:
-        rm = torch.empty(shape, dtype=torch.float32, device=hi.device)
-        rr = torch.empty(shape, dtype=torch.int32, device=hi.device)
+    with k.poisoned() if poison else contextlib.nullcontext():
+        rm, rr = k._sweep_out(nsw, qc, hi.device)
     rc = fn(*(a.data_ptr() for a in args), rm.data_ptr(), rr.data_ptr(), qc,
             int(hi.shape[1]), nsw, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -143,9 +143,10 @@ def parent_runner(path, kernel: str = "disj"):
     """run(args, nsw, poison=False) -> (rowmax, rows) of an earlier
     sweep_rowmax.cu's entry for `kernel` (run_raw), built from `path`, or
     None when `path` is not a file."""
-    if path is None or not Path(path).is_file():
+    fn = parent_entry(path, "k2_parent", ENTRIES[kernel][0],
+                      _argtypes(kernel))
+    if fn is None:
         return None
-    fn = entry(build("k2_parent", Path(path)), kernel)
     return lambda args, nsw, poison=False: run_raw(fn, args, nsw, poison)
 
 
@@ -380,11 +381,9 @@ def main(argv=None) -> int:
             nbytes, ops, n_union, nnz = sweep_work(
                 np_in[0], NSW * k.SW, NSW, *np_in[1:])
             work = {"union_slots": n_union, "nonzero_weights": nnz}
-        kernel_ms = {"current": kernel_times(cur, names=("sweep",),
-                                               per_event=True)["sweep"]}
+        kernel_ms = {"current": kernel_alone(cur, names=("sweep",))[0]}
         for n in others:
-            kernel_ms[n] = kernel_times(other(n), names=("sweep",),
-                                        per_event=True)["sweep"]
+            kernel_ms[n] = kernel_alone(other(n), names=("sweep",))[0]
         case = {"QC": qc, "nsw": NSW, "Hpt": HPT, **work,
                 "active_queries": int((np_in[0] != 0).any(axis=(0, 2))
                                       .sum()),

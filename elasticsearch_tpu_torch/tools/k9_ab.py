@@ -15,7 +15,7 @@ kernel bitwise, and this tree's kernel must equal the plain torch version;
 any difference fails the run. Times are CUDA-event medians, taken in turns
 (parent, variants, this tree, this tree, variants, parent). Also timed:
 the scratch budgets of `kernels.KNN_SCRATCH_BYTES`, the two passes apart
-(`kernel_times`, from torch.profiler's kernel events; for every variant
+(`kernel_alone`, from torch.profiler's kernel events; for every variant
 too), and `torch._int_mm` of the int8 product alone. Prints one JSON
 object last.
 """
@@ -116,6 +116,18 @@ def build(name: str, src: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
+def parent_entry(path, name: str, symbol: str, argtypes):
+    """The C entry `symbol` of an earlier kernel source `path` (the parent
+    commit's, for an A/B in one process), built as `name` (build) and
+    bound with `argtypes`; None when `path` is not a file."""
+    if path is None or not Path(path).is_file():
+        return None
+    fn = getattr(build(name, Path(path)), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def entry(lib: ctypes.CDLL, new_abi: bool):
     fn = lib.es_knn_int8_window_topc
     fn.argtypes = _NEW_ARGS if new_abi else _OLD_ARGS
@@ -138,16 +150,18 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def kernel_times(fn, names=PASS_NAMES, reps: int = 3,
-                 per_event: bool = False):
-    """Device ms per call of each kernel whose name contains one of
+def kernel_alone(fn, names=PASS_NAMES, reps: int = 3, per_call=None):
+    """Device time alone per call of fn's kernels whose names contain one of
     `names`, from torch.profiler's CUDA kernel events over `reps` calls
-    after a warm-up; None for a name with no event (the profiler saw no
-    device activity). `per_event` gives the mean of the events instead:
-    for a kernel launched once a call it is the same time, and it stays
-    right where the profiler drops some of the calls' events."""
+    after a warm-up: for each name its mean event time times its launches
+    a call (`per_call`, 1 where not given), summed over `names`. Returns
+    (ms or None where a name had no event, info): info["ms"] per name,
+    info["events"] {name: [seen, expected]} and info["short"], true where
+    the profiler saw fewer events than the calls launched (it drops some
+    in long runs); a short count is printed to stderr as SHORT."""
     from torch.profiler import ProfilerActivity, profile
 
+    per_call = per_call or {}
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -157,14 +171,23 @@ def kernel_times(fn, names=PASS_NAMES, reps: int = 3,
     tot = {n: 0.0 for n in names}
     seen = {n: 0 for n in names}
     for ev in prof.events():
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         for n in names:
             if n in ev.name:
                 tot[n] += ev.time_range.elapsed_us() / 1e3
                 seen[n] += 1
-    return {n: (tot[n] / (seen[n] if per_event else reps) if seen[n]
-                else None) for n in names}
+    each = {n: (tot[n] / seen[n] * per_call.get(n, 1) if seen[n] else None)
+            for n in names}
+    events = {n: [seen[n], reps * per_call.get(n, 1)] for n in names}
+    short = any(s < want for s, want in events.values())
+    if short:
+        print(f"SHORT: the profiler saw fewer kernel events than launches "
+              f"{events}; the time alone is per event x launches",
+              file=sys.stderr, flush=True)
+    ms = (None if any(x is None for x in each.values())
+          else float(sum(each.values())))
+    return ms, {"ms": each, "events": events, "short": short}
 
 
 def inputs(n_parts: int, nw: int, qc: int, masked: bool, seed: int):
@@ -294,9 +317,10 @@ def main(argv=None) -> int:
                 "chunks": len(k.knn_chunks(
                     nw, k.knn_chunk_windows(nw, qc, n_parts))),
                 "ms": times}
-        case["passes_ms"] = kernel_times(cur)
+        case["passes_ms"] = kernel_alone(cur)[1]["ms"]
         case["variant_passes_ms"] = {
-            n: kernel_times(other(n)) for n in others if n != "parent"}
+            n: kernel_alone(other(n))[1]["ms"]
+            for n in others if n != "parent"}
         if n_parts == 1 and qc == 256 and not masked:
             budgets = {}
             keep = k.KNN_SCRATCH_BYTES

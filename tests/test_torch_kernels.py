@@ -32,9 +32,11 @@ from elasticsearch_tpu.parallel.knn import KnnEngine as RefKnnEngine
 from elasticsearch_tpu_torch.common.errors import KernelLaunchError
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
-    AGG_CASES, CONJ_EDGE_CASES, SPARSE_BATCH_CASES, agg_inputs, agg_section,
-    bitset_edge_inputs, bitset_inputs, clause_slots, conj_edge_inputs,
-    conj_inputs,
+    AGG_CASES, AGG_WORD_CASES, CONJ_EDGE_CASES, MERGE_EDGE_CASES,
+    SPARSE_BATCH_CASES, agg_inputs, agg_masks, agg_plan, agg_section,
+    agg_word_inputs, emulate_agg_bits, emulate_agg_counts, emulate_agg_pack,
+    emulate_merge_rank, merge_edge_inputs, bitset_edge_inputs, bitset_inputs,
+    clause_slots, conj_edge_inputs, conj_inputs,
     emulate_sparse_gather, knn_inputs, lanes_and_groups, mask_inputs,
     merge_inputs, sparse_batch_inputs, sparse_group, sparse_inputs,
     sweep_inputs, SWEEP_EDGE_CASES, emulate_sweep_group, plan_sweep_batches,
@@ -653,3 +655,171 @@ def test_agg_wrappers_reject_bad_inputs():
         k.agg_segment_counts(m, b.long(), p=ps[0], n_segments=n_seg)
     with pytest.raises(ValueError, match="need"):
         k.agg_two_level_counts(m, b, pd=ps[0], pm=1024, n_segments=n_seg)
+
+
+# ---------------------------------------------------------------------------
+# the K8 and K4 designs (word pack + run-length counts; one-pass rank merge)
+# held to the plain versions and the reference before the card runs them
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", sorted(AGG_WORD_CASES))
+def test_agg_word_counts_bitwise(case):
+    """K8 at the edges of the word design: Q of 5, 9, 17, 33 and 40 (every
+    word width, two query groups, all-False padding rows), runs across
+    chunks and a tile boundary, inconsistent tile ranges and 33,000
+    buckets at Q > 1. The plain version equals the JAX kernel in interpret
+    mode, and the numpy model of agg_counts.cu (pack, persistent grid,
+    runs, carry-save planes) equals both, also with the histogram cut to
+    force sub-tile passes."""
+    mask, blob, ps, n_seg = agg_word_inputs(case)
+    k.reset_launches()
+    got, want = _agg_both(mask, blob, ps, n_seg)
+    assert k.LAUNCHES["agg_counts"] == 0
+    for g, w in zip(got, want):
+        assert g.dtype == np.int32 and g.shape == (mask.shape[0], n_seg)
+        assert np.array_equal(g, w)
+    assert all(g.sum() > 0 for g in got)
+    for kw in (dict(), dict(blocks=2, threads=32, hist_bins=9 * n_seg // 4)):
+        model = emulate_agg_counts(mask, blob, ps, n_seg, **kw)
+        for g, m in zip(got, model):
+            assert np.array_equal(g, m), kw
+    if case == "q40_padded":
+        assert not any(g[23:].any() for g in got)
+
+
+@pytest.mark.parametrize("case", sorted(AGG_CASES))
+def test_agg_counts_model_matches_plain(case):
+    """The numpy model of agg_counts.cu on the existing K8 cases (Q 2-4,
+    pads, buckets past n_segments, three tiles, inconsistent ranges, the
+    two-level blob), and at Q = 1 on each case's first mask row (the byte
+    path), with one block and with several, and with passes forced."""
+    mask, blob, ps, n_seg = agg_inputs(case)
+    plain = [g.numpy() for g in _agg_run_plain(mask, blob, ps, n_seg)]
+    one = [g.numpy() for g in _agg_run_plain(mask[:1], blob, ps, n_seg)]
+    for kw in (dict(blocks=1), dict(blocks=7, threads=64),
+               dict(blocks=3, hist_bins=max(1, n_seg // 3) * 4)):
+        for g, m in zip(plain, emulate_agg_counts(mask, blob, ps, n_seg,
+                                                  **kw)):
+            assert np.array_equal(g, m), kw
+        for g, m in zip(one, emulate_agg_counts(mask[:1], blob, ps, n_seg,
+                                                **kw)):
+            assert np.array_equal(g, m), kw
+
+
+def _agg_run_plain(mask, blob, ps, n_seg):
+    m, b = _t(mask), _t(blob)
+    if len(ps) == 1:
+        return [k.agg_segment_counts(m, b, p=ps[0], n_segments=n_seg)]
+    return list(k.agg_two_level_counts(m, b, pd=ps[0], pm=ps[1],
+                                       n_segments=n_seg))
+
+
+@pytest.mark.parametrize("q,n_docs", [(2, 13), (8, 16), (9, 21), (16, 8),
+                                      (17, 30), (32, 9), (33, 12), (64, 7)])
+def test_agg_word_pack_model(q, n_docs):
+    """The byte arithmetic and permutes of agg_counts.cu's pack_kernel put
+    bit q of word d at mask[32g + q, d], docs padded to a multiple of 4
+    with zero words, in agg_word_bytes bytes; pack_bits_kernel's nibble
+    multiply puts row 0's doc d at bit d % 32 of word d / 32."""
+    rng = np.random.default_rng(q * 100 + n_docs)
+    mask = rng.random((q, n_docs)) < 0.5
+    words = emulate_agg_pack(mask)
+    n_pad = -(-n_docs // 4) * 4
+    width = 1 if q <= 8 else 2 if q <= 16 else 4
+    assert words.shape == (-(-q // 32), n_pad)
+    assert k.agg_word_bytes(q, n_docs) == (words.shape[0] * n_pad * width
+                                           if width == 4 else n_pad * width)
+    for g in range(words.shape[0]):
+        for d in range(n_pad):
+            want = sum(int(mask[32 * g + j, d]) << j
+                       for j in range(min(32, q - 32 * g)) if d < n_docs)
+            assert words[g, d] == want
+            assert words[g, d] < (1 << (8 * width))
+    bits = emulate_agg_bits(mask[0])
+    assert k.agg_word_bytes(1, n_docs) == len(bits) * 4
+    for d in range(len(bits) * 32):
+        want = int(mask[0, d]) if d < n_docs else 0
+        assert (int(bits[d >> 5]) >> (d & 31)) & 1 == want
+
+
+def test_agg_counts_empty_rows_and_q1_model():
+    """All-False mask rows count nothing on every route, and a layout
+    whose only selected pairs sit in one padded row of a 64-row batch."""
+    rng = np.random.default_rng(77)
+    sec = agg_section(rng, 3000, 50, 3000, head=0.4)
+    blob, ps = np.concatenate(sec), [len(sec[0])]
+    mask = agg_masks(rng, 64, 3000, live_rows=1, density=0.5)
+    mask[0] = False
+    mask[37, ::7] = True
+    got, want = _agg_both(mask, blob, ps, 50)
+    assert np.array_equal(got[0], want[0])
+    assert not np.delete(got[0], 37, axis=0).any() and got[0][37].any()
+    model = emulate_agg_counts(mask, blob, ps, 50, blocks=3)
+    assert np.array_equal(got[0], model[0])
+
+
+@pytest.mark.parametrize("case", MERGE_EDGE_CASES)
+def test_merge_rank_edges(case):
+    """K4 at the edges of the one-pass rank merge: duplicate triples within
+    a partition, one score in every partition, NaN / -0.0 / negative lanes,
+    fewer positive lanes than k, L = 21. The plain version equals the JAX
+    kernel in interpret mode, and the numpy model of merge_topk.cu equals
+    them; empty slots are (0, 0, 0) with a +0.0 score. (The host lexsort
+    merge keeps copied triples, so test_merge_topk_bitwise holds it on
+    inputs without copies.)"""
+    s, o, kk = merge_edge_inputs(case)
+    q, L = s.shape
+    want = ref_k.merge_topk(jnp.asarray(s), jnp.asarray(o), k=kk)
+    got = k.merge_topk(_t(s), _t(o), k=kk)
+    model = emulate_merge_rank(s, o, kk)
+    for g, w, m in zip(got, want, model):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+        assert np.array_equal(g.numpy(), m)
+    assert not np.signbit(got[0].numpy()).any()
+
+
+@pytest.mark.parametrize("seed,n_parts,kk,q", [(0, 4, 10, 32), (1, 1, 10, 8),
+                                               (2, 3, 300, 2), (3, 5, 3, 20)])
+def test_merge_rank_model_matches_plain(seed, n_parts, kk, q):
+    """The numpy model of the rank merge on merge_inputs (ties within and
+    across partitions, shared ords, empty lanes), at the path's S 4 x k 10
+    and at the card test's S 3 x k 300."""
+    s, o = merge_inputs(seed, q=q, n_parts=n_parts, kk=kk)
+    got = k.merge_topk_plain(_t(s), _t(o), k=kk)
+    for g, m in zip(got, emulate_merge_rank(s, o, kk)):
+        assert np.array_equal(g.numpy(), m)
+
+
+@pytest.mark.parametrize("q, n_seg, want", [
+    (1, 256, (1, 256, 1, 1)), (16, 256, (1, 256, 1, 1)),
+    (64, 256, (2, 256, 1, 2)), (26, 2161, (1, 2161, 1, 1)),
+    (27, 2161, (1, 2123, 2, 2)), (32, 2161, (1, 1792, 2, 2)),
+    (40, 2161, (2, 1792, 2, 3)), (1, 60_000, (1, 57_344, 2, 2))])
+def test_agg_plan_model(q, n_seg, want):
+    """The histogram plan agg_counts.cu's header states, from the tests'
+    model (agg_plan; the card test holds it to es_agg_plan): (word
+    groups, W, passes of the first group, passes summed over the groups).
+    256 tag buckets take one pass at every Q, 2,161 hour ranks one up to
+    Q = 26, two at Q = 27-32; 60,000 buckets two at Q = 1."""
+    assert agg_plan(q, n_seg) == want
+
+
+def test_poisoned_fills_wrapper_outputs():
+    """kernels.poisoned: inside it, _out (every wrapper's output and
+    scratch allocation) fills floats with NaN and integers with -1, and
+    the switch is restored on exit, also after an error."""
+    assert not k._POISON
+    with k.poisoned():
+        f = k._out((3, 5), torch.float32, torch.device("cpu"))
+        i = k._out((7,), torch.int32, torch.device("cpu"))
+        b = k._out((2, 2), torch.int8, torch.device("cpu"))
+        with k.poisoned():
+            pass
+        assert k._POISON
+    assert torch.isnan(f).all() and (i == -1).all() and (b == -1).all()
+    assert not k._POISON
+    with pytest.raises(RuntimeError):
+        with k.poisoned():
+            raise RuntimeError("inside")
+    assert not k._POISON

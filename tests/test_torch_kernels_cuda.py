@@ -20,10 +20,16 @@ mask, empty 16-bit halves), dead rows and windows, exact score ties,
 empty merge lanes,
 agg pad chunks, buckets past n_segments, unsorted pairs over several tiles,
 tile ranges that disagree with the pairs, padded batches, the two-level
-blob, a hot bucket) plus shapes the main path does not reach (more slots than a block has
-threads, a query tile that is not full, 4096-d rows) and K9's tiling cases
-(query tiles, a short last chunk of windows, rows that all tie, idle
-windows). Every comparison is bitwise.
+blob, a hot bucket; the word design's Q of 5 to 64 over grouped,
+doc-ordered and hot layouts, runs across chunks and tiles), K4's rank-merge
+edges (copied triples, NaN / -0.0 / negative lanes, few positive lanes, L
+not a multiple of 32) plus shapes the main path does not reach (more slots
+than a block has threads, a query tile that is not full, 4096-d rows) and
+K9's tiling cases (query tiles, a short last chunk of windows, rows that all
+tie, idle windows). Every comparison is bitwise. Each kernel is also run
+once on outputs filled with NaN / -1 (kernels.poisoned; K1: column tiles
+filled with a nonzero byte pattern; K8: its outputs and word scratch), so a
+kernel that leaves an entry unwritten cannot pass on reused memory.
 """
 
 import numpy as np
@@ -33,8 +39,10 @@ import torch
 from elasticsearch_tpu_torch.parallel import cuda_build
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
-    AGG_CASES, CONJ_EDGE_CASES, SPARSE_BATCH_CASES, agg_inputs, agg_masks,
-    agg_section, bitset_edge_inputs, bitset_inputs, clause_slots,
+    AGG_CASES, AGG_WORD_CASES, CONJ_EDGE_CASES, MERGE_EDGE_CASES,
+    SPARSE_BATCH_CASES, agg_inputs, agg_masks, agg_plan, agg_section,
+    agg_word_inputs,
+    merge_edge_inputs, bitset_edge_inputs, bitset_inputs, clause_slots,
     conj_edge_inputs, conj_inputs, knn_inputs, lanes_and_groups,
     mask_inputs, merge_inputs, sparse_batch_inputs, sparse_group,
     sparse_inputs, sweep_inputs, SWEEP_EDGE_CASES, sweep_edge_inputs,
@@ -347,3 +355,165 @@ def test_agg_counts_kernel(dev, case):
     for g, w in zip(got, want):
         assert g.dtype == torch.int32 and torch.equal(g, w)
     assert all(int(g.sum()) > 0 for g in got)
+
+
+@pytest.mark.parametrize("case", sorted(AGG_WORD_CASES))
+def test_agg_counts_word_kernel(dev, case):
+    """K8's word design at its edges: Q of 5, 9, 17, 33 and 40, runs across
+    chunks and a tile boundary, inconsistent ranges and 33,000 buckets at
+    Q > 1; once more on outputs and word scratch filled with -1."""
+    mask, blob, ps, n_seg = agg_word_inputs(case)
+    m, b = _c(mask, dev), _c(blob, dev)
+    k.reset_launches()
+    got = _agg_run((k.agg_segment_counts, k.agg_two_level_counts), m, b, ps,
+                   n_seg)
+    assert k.LAUNCHES["agg_counts"] == 1
+    want = _agg_run((k.agg_segment_counts_plain,
+                     k.agg_two_level_counts_plain), m, b, ps, n_seg)
+    with k.poisoned():
+        raw = _agg_run((k.agg_segment_counts, k.agg_two_level_counts), m, b,
+                       ps, n_seg)
+    torch.cuda.synchronize()
+    for g, w, r in zip(got, want, raw):
+        assert torch.equal(g, w) and torch.equal(r, w)
+
+
+AGG_Q_LAYOUTS = {   # n_docs, n_segments, n_pairs, agg_section options
+    "grouped": (200_000, 300, 600_000, dict()),
+    "doc_ordered": (200_000, 2161, 400_000, dict(grouped=False)),
+    "hot": (200_000, 256, 500_000, dict(head=0.4)),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(AGG_Q_LAYOUTS))
+@pytest.mark.parametrize("q", [1, 4, 16, 33, 64])
+def test_agg_counts_kernel_q(dev, q, layout):
+    """K8 at the engine's rungs and past one word group, on a grouped
+    (terms), a doc-ordered (hour ranks: 2,161 buckets, two histogram
+    passes at Q 33 and 64) and a hot-bucket layout, with a quarter of the
+    rows all False as a padded batch; the two-level form at the same time
+    (the layout twice); once more on outputs and scratch filled with
+    -1."""
+    n_docs, n_seg, n_pairs, kw = AGG_Q_LAYOUTS[layout]
+    rng = np.random.default_rng(q * 7 + len(layout))
+    sec = agg_section(rng, n_docs, n_seg, n_pairs, **kw)
+    mask = agg_masks(rng, q, n_docs, live_rows=max(1, q - q // 4),
+                     density=0.05)
+    blob = np.concatenate(list(sec) * 2)
+    ps = [len(sec[0])] * 2
+    m, b = _c(mask, dev), _c(blob, dev)
+    got = _agg_run((k.agg_segment_counts, k.agg_two_level_counts), m, b, ps,
+                   n_seg)
+    one = k.agg_segment_counts(m, b[:blob.size // 2].contiguous(), p=ps[0],
+                               n_segments=n_seg)
+    want = _agg_run((k.agg_segment_counts_plain,
+                     k.agg_two_level_counts_plain), m, b, ps, n_seg)
+    with k.poisoned():
+        raw = _agg_run((k.agg_segment_counts, k.agg_two_level_counts), m, b,
+                       ps, n_seg)
+    torch.cuda.synchronize()
+    for g, w, r in zip(got, want, raw):
+        assert torch.equal(g, w) and torch.equal(r, w)
+    assert torch.equal(one, want[0]) and int(one.sum()) > 0
+
+
+def test_agg_word_bytes_matches_kernel(dev):
+    """kernels.agg_word_bytes, which sizes K8's scratch, is what the built
+    agg_counts.cu asks for."""
+    fn = cuda_build.kernel("agg_word_bytes")
+    for q in (1, 2, 8, 9, 16, 17, 32, 33, 64, 256):
+        for n in (1, 7, 8, 10_000_000):
+            assert fn(q, n) == k.agg_word_bytes(q, n), (q, n)
+
+
+def test_agg_plan_matches_kernel(dev):
+    """The tests' model of K8's histogram plan (agg_plan, from
+    AGG_HIST_BINS), which the emulation runs, is the plan the built
+    agg_counts.cu makes (es_agg_plan): one pass for 256 buckets at every
+    Q, two for 2,161 hour ranks at Q = 32 and for 60,000 buckets at
+    Q = 1."""
+    import ctypes
+
+    fn = cuda_build.kernel("agg_plan")
+    plan = (ctypes.c_int * 4)()
+    for q in (1, 4, 8, 9, 16, 17, 26, 27, 32, 33, 40, 64, 256):
+        for n_seg in (1, 256, 2161, 16_384, 33_000, 60_000):
+            assert fn(q, n_seg, plan) == 0
+            assert tuple(plan) == agg_plan(q, n_seg), (q, n_seg)
+    assert agg_plan(32, 2161)[2] == 2 and agg_plan(1, 60_000)[2] == 2
+    assert all(agg_plan(q, 256)[3] == agg_plan(q, 256)[0]
+               for q in (1, 16, 32, 64))
+
+
+@pytest.mark.parametrize("case", MERGE_EDGE_CASES)
+def test_merge_topk_edges_kernel(dev, case):
+    """K4's rank merge at its edges, by the wrapper and once more on
+    outputs filled with NaN / -1."""
+    s, o, kk = merge_edge_inputs(case)
+    args = [_c(a, dev) for a in (s, o)]
+    got = k.merge_topk(*args, k=kk)
+    with k.poisoned():
+        raw = k.merge_topk(*args, k=kk)
+    want = k.merge_topk_plain(*args, k=kk)
+    torch.cuda.synchronize()
+    for g, r, w in zip(got, raw, want):
+        assert torch.equal(g, w) and torch.equal(r, w)
+
+
+@pytest.mark.parametrize("kernel", ["build_columns", "sparse_gather",
+                                    "merge_topk", "intersect_bitset",
+                                    "knn_int8_window_topc"])
+def test_poisoned_outputs(dev, kernel):
+    """W15: K1, K3, K4, K5 and K9 on outputs filled with NaN / -1
+    (kernels.poisoned; K1: tiles filled with a nonzero byte pattern, so
+    its nrows = 0 groups must write their zeros; K9: its scratch too),
+    bitwise equal to the plain versions."""
+    if kernel == "build_columns":
+        docs, scores, gr, gn, gb, gs = lanes_and_groups(4, 8, 40, False)
+        assert (gn == 0).any()
+        shape = (4 * k.TILE // k.CHUNK, 8 // 4 + 3, 16, 128)
+        hi, lo, hi_p, lo_p = (torch.full(shape, 0x5A, dtype=torch.int8,
+                                         device=dev) for _ in range(4))
+        groups = [_c(a, dev) for a in (gr, gn, gb, gs)]
+        lanes = [_c(a, dev) for a in (docs, scores)]
+        k.build_columns(*groups, *lanes, hi, lo)
+        k.build_columns_plain(*groups, *lanes, hi_p, lo_p)
+        torch.cuda.synchronize()
+        assert torch.equal(hi, hi_p) and torch.equal(lo, lo_p)
+        zero = (gb[gn == 0] // k.CHUNK, gs[gn == 0])
+        for c0, slot in zip(*zero):
+            assert not hi[c0:c0 + k.TILE // k.CHUNK, slot].any()
+        return
+    with k.poisoned():
+        if kernel == "sparse_gather":
+            coff, cw, ct0, ct1, qoff, pool, n_tiles = sparse_group(5, 64)
+            args = [_c(a, dev) for a in (coff, cw, ct0, ct1, pool)]
+            qo = _c(qoff, dev)
+            got = [k.sparse_gather(*args, n_tiles=n_tiles, qoff=qo),
+                   k.sparse_gather(*args, n_tiles=n_tiles)]
+            want = [k.sparse_gather_plain(*args, n_tiles=n_tiles, qoff=qo),
+                    k.sparse_gather_plain(*args, n_tiles=n_tiles)]
+        elif kernel == "merge_topk":
+            s, o = merge_inputs(9, q=256, n_parts=4, kk=10)
+            args = [_c(a, dev) for a in (s, o)]
+            got = k.merge_topk(*args, k=10)
+            want = k.merge_topk_plain(*args, k=10)
+        elif kernel == "intersect_bitset":
+            bits = bitset_inputs(3, 40, 3)
+            q_slots, q_neg = clause_slots(13, 40, 40)
+            args = [_c(a, dev) for a in (q_slots, q_neg, bits)]
+            got = [k.intersect_bitset(*args, nsw=3)]
+            want = [k.intersect_bitset_plain(*args, nsw=3)]
+        else:
+            got, want = [], []
+            for kw in (dict(qc=37, nw=3, dims=128, masked=True, n_parts=4),
+                       dict(qc=129, nw=2, dims=256)):
+                qi8, qmeta, q8, meta, act, fmask = knn_inputs(11, **kw)
+                args = [_c(a, dev) for a in (qi8, qmeta, q8, meta, act)]
+                fm = None if fmask is None else _c(fmask, dev)
+                got += k.knn_int8_window_topc(*args, fm, similarity="cosine")
+                want += k.knn_int8_window_topc_plain(*args, fm,
+                                                     similarity="cosine")
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

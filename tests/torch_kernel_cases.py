@@ -836,3 +836,343 @@ def agg_inputs(name):
         parts += list(sec)
         ps.append(len(sec[0]))
     return agg_masks(rng, q, n_docs, live), np.concatenate(parts), ps, n_seg
+
+
+# ---------------------------------------------------------------------------
+# numpy models of the K8 and K4 designs (csrc/agg_counts.cu, merge_topk.cu)
+# ---------------------------------------------------------------------------
+
+AGG_HIST_BINS = 57344     # agg_counts.cu's HIST_BINS
+AGG_PLANES = 8            # its carry-save planes (a run flushes at 255)
+AGG_PPL = 4               # its pairs a lane takes a step, 32 apart
+
+
+def byte_perm(x, y, s):
+    """CUDA's __byte_perm(x, y, s) on Python ints."""
+    b = [(x >> (8 * i)) & 255 for i in range(4)] + \
+        [(y >> (8 * i)) & 255 for i in range(4)]
+    return sum(b[(s >> (4 * n)) & 7] << (8 * n) for n in range(4))
+
+
+def emulate_agg_bits(row):
+    """agg_counts.cu's pack_bits_kernel (Q = 1): bit j of word w is
+    row[32w + j], each nibble from four bool bytes as
+    ((x & 0x01010101) * 0x01020408) >> 24."""
+    n = len(row)
+    m = np.zeros(-(-n // 32) * 32, np.uint8)
+    m[:n] = row
+    words = np.zeros(len(m) // 32, np.int64)
+    for w in range(len(words)):
+        word = 0
+        for i in range(8):
+            x = int.from_bytes(m[32 * w + 4 * i:32 * w + 4 * i + 4].tobytes(),
+                               "little")
+            word |= ((((x & 0x01010101) * 0x01020408) & 0xFFFFFFFF) >> 24) \
+                << (4 * i)
+        words[w] = word
+    return words
+
+
+def emulate_agg_pack(mask):
+    """agg_counts.cu's pack_kernel, 4 docs at a time: [groups, n_pad] words
+    (Python ints) with bit q of words[g][d] = mask[32g + q, d], built with
+    the kernel's byte arithmetic and permutes."""
+    q, n_docs = mask.shape
+    qw = 8 if q <= 8 else 16 if q <= 16 else 32
+    n_pad = -(-n_docs // 4) * 4
+    groups = -(-q // 32)
+    m = np.zeros((q, n_pad), np.uint8)
+    m[:, :n_docs] = mask
+    words = np.zeros((groups, n_pad), np.int64)
+    for g in range(groups):
+        qg = min(qw, q - 32 * g)
+        for d4 in range(0, n_pad, 4):
+            acc = [0] * (qw // 8)
+            for j in range(qg):
+                x = int.from_bytes(m[32 * g + j, d4:d4 + 4].tobytes(),
+                                   "little")
+                acc[j >> 3] |= (x & 0x01010101) << (j & 7)
+            if qw == 8:
+                out = [(acc[0] >> (8 * i)) & 255 for i in range(4)]
+            elif qw == 16:
+                lo = byte_perm(acc[0], acc[1], 0x5140)
+                hi = byte_perm(acc[0], acc[1], 0x7362)
+                out = [lo & 0xFFFF, lo >> 16, hi & 0xFFFF, hi >> 16]
+            else:
+                t0 = byte_perm(acc[0], acc[1], 0x5140)
+                t1 = byte_perm(acc[0], acc[1], 0x7362)
+                t2 = byte_perm(acc[2], acc[3], 0x5140)
+                t3 = byte_perm(acc[2], acc[3], 0x7362)
+                out = [byte_perm(t0, t2, 0x5410), byte_perm(t0, t2, 0x7632),
+                       byte_perm(t1, t3, 0x5410), byte_perm(t1, t3, 0x7632)]
+            words[g, d4:d4 + 4] = out
+    return words
+
+
+def _emulate_count_part(words, n_docs, doc, seg, ct0, ct1, lo, hi, b0, wlen,
+                        qg, hist, threads):
+    """count_part of agg_counts.cu: each lane takes AGG_PPL pairs a step,
+    32 apart (a warp's 32 * AGG_PPL consecutive pairs), and keeps one
+    run (bucket, count or carry-save planes) in registers."""
+    one = qg == 0                              # the Q = 1 doc-bit path
+    tlo, thi = b0 >> 14, (b0 + wlen - 1) >> 14
+    run_max = 0xFFFFFFFF if one else (1 << AGG_PLANES) - 1
+    for warp in range(threads // 32):
+        for lane in range(32):
+            st = {"b": -1, "n": 0, "seen": 0, "pl": [0] * AGG_PLANES}
+
+            def flush():
+                if st["n"] == 0:
+                    return
+                rel = st["b"] - b0
+                if one:
+                    hist[0, rel] += st["n"]
+                else:
+                    m = st["seen"]
+                    while m:
+                        q = (m & -m).bit_length() - 1
+                        m &= m - 1
+                        hist[q, rel] += sum(((st["pl"][i] >> q) & 1) << i
+                                            for i in range(AGG_PLANES))
+                    st["pl"] = [0] * AGG_PLANES
+                    st["seen"] = 0
+                st["n"] = 0
+
+            base = lo * 1024 + warp * 32 * AGG_PPL + lane
+            while base < hi * 1024:
+                c = base // 1024
+                t0, t1 = int(ct0[c]), int(ct1[c])
+                if max(t0, tlo) <= min(t1, thi):
+                    for j in range(AGG_PPL):
+                        at = base + 32 * j
+                        d, g = int(doc[at]), int(seg[at])
+                        t = g >> 14
+                        ok = (0 <= g - b0 < wlen and t0 <= t <= t1
+                              and 0 <= d < n_docs)
+                        if not ok:
+                            w = 0
+                        elif one:           # doc bits, 32 docs a word
+                            w = (int(words[d >> 5]) >> (d & 31)) & 1
+                        else:
+                            w = int(words[d])
+                        if not w:
+                            continue
+                        if g != st["b"]:
+                            flush()
+                            st["b"] = g
+                        if not one:
+                            carry = w
+                            for i in range(AGG_PLANES):
+                                t_ = st["pl"][i] & carry
+                                st["pl"][i] ^= carry
+                                carry = t_
+                            st["seen"] |= w
+                        st["n"] += 1
+                        if st["n"] == run_max:
+                            flush()
+                base += threads * AGG_PPL
+            flush()
+
+
+def agg_group_plan(q, g, n_segments, hist_bins=AGG_HIST_BINS):
+    """agg_counts.cu's group_plan: (Qg, W, passes) of word group g."""
+    qg = min(32, q - 32 * g)
+    width = min(n_segments, hist_bins // qg)
+    return qg, width, -(-n_segments // width)
+
+
+def agg_plan(q, n_segments, hist_bins=AGG_HIST_BINS):
+    """agg_counts.cu's es_agg_plan: (word groups, W and passes of the first
+    group, passes summed over the groups); 8- and 16-bit words are one
+    group."""
+    groups = -(-q // 32) if q > 16 else 1
+    plans = [agg_group_plan(q, g, n_segments, hist_bins)
+             for g in range(groups)]
+    return groups, plans[0][1], plans[0][2], sum(p[2] for p in plans)
+
+
+def emulate_agg_counts(mask, blob, ps, n_segments, *, blocks=5, threads=64,
+                       hist_bins=AGG_HIST_BINS):
+    """numpy model of the whole C entry (csrc/agg_counts.cu): the mask pack
+    (doc bits at Q = 1, query words above), then per group of 32 queries a
+    persistent grid of `blocks` blocks over the concatenated chunks of the
+    sections, the histogram in ceil(n_segments / W) passes of W =
+    min(n_segments, hist_bins / Qg) buckets, and each block's nonzero bins
+    added to the outputs. Returns one [Q, n_segments] i64 array per
+    section."""
+    q, n_docs = mask.shape
+    secs, off = [], 0
+    for p in ps:
+        nc = p // 1024
+        secs.append((blob[off:off + p], blob[off + p:off + 2 * p],
+                     blob[off + 2 * p:off + 2 * p + nc],
+                     blob[off + 2 * p + nc:off + 2 * p + 2 * nc], nc))
+        off += 2 * p + 2 * nc
+    outs = [np.zeros((q, n_segments), np.int64) for _ in ps]
+    if q == 1:
+        # (words, q0, packed, qg)
+        groups = [(emulate_agg_bits(mask[0]), 0, 0, 1)]
+    else:
+        words = emulate_agg_pack(mask)
+        groups = [(words[g], 32 * g, 1, min(32, q - 32 * g))
+                  for g in range(words.shape[0])]
+    nc_all = sum(s[4] for s in secs)
+    grid = min(nc_all, blocks)
+    for g, (words, q0, packed, qg) in enumerate(groups):
+        _, width, passes = agg_group_plan(q, g, n_segments, hist_bins)
+        for b in range(grid):
+            c_begin, c_end = nc_all * b // grid, nc_all * (b + 1) // grid
+            for pss in range(passes):
+                b0 = pss * width
+                wlen = min(width, n_segments - b0)
+                cbase = 0
+                for si, (d, s, ct0, ct1, nc) in enumerate(secs):
+                    lo = max(c_begin, cbase) - cbase
+                    hi = min(c_end, cbase + nc) - cbase
+                    cbase += nc
+                    if lo >= hi:
+                        continue
+                    hist = np.zeros((qg, wlen), np.int64)
+                    _emulate_count_part(words, n_docs, d, s, ct0, ct1, lo,
+                                        hi, b0, wlen, qg if packed else 0,
+                                        hist, threads)
+                    outs[si][q0:q0 + qg, b0:b0 + wlen] += hist
+    return outs
+
+
+def emulate_merge_rank(scores, ords, k):
+    """numpy model of csrc/merge_topk.cu's one-pass rank merge: leaders
+    (positive lanes with no equal (score, ord) lower in their partition),
+    each leader's rank among the leaders by (score desc, partition asc, ord
+    asc), slot rank for rank < k, (0, 0, 0) past the leaders."""
+    q, L = scores.shape
+    out_s = np.full((q, k), np.nan, np.float32)
+    out_p = np.full((q, k), -1, np.int32)
+    out_o = np.full((q, k), -1, np.int32)
+    for qi in range(q):
+        v = np.where(scores[qi] > 0, scores[qi], np.float32(0))
+        o = ords[qi]
+        lv = np.zeros(L, np.float32)
+        for i in range(L):
+            lead = v[i] > 0
+            for j in range(i - i % k, i):
+                if v[j] == v[i] and o[j] == o[i]:
+                    lead = False
+            lv[i] = v[i] if lead else 0
+        leaders = int((lv > 0).sum())
+        for i in range(L):
+            if not lv[i] > 0:
+                continue
+            pi = i // k
+            rank = sum(1 for j in range(L)
+                       if lv[j] > lv[i] or (lv[j] == lv[i] and (
+                           j // k < pi or (j // k == pi and o[j] < o[i]))))
+            if rank < k:
+                out_s[qi, rank], out_p[qi, rank], out_o[qi, rank] = \
+                    lv[i], pi, o[i]
+        out_s[qi, leaders:], out_p[qi, leaders:], out_o[qi, leaders:] = 0, 0, 0
+    return out_s, out_p, out_o
+
+
+# K4 edges of the rank merge: name -> (seed, q, n_parts, kk, edit)
+MERGE_EDGE_CASES = ("dup_triples", "equal_across_parts", "nan_negzero_neg",
+                    "few_positive", "lanes_not_32")
+
+
+def merge_edge_inputs(case):
+    """K4 inputs at the edges of the one-pass rank merge: duplicate
+    triples within a partition (the cascade clears every copy), one score
+    in every partition (partition, then ord decide), NaN, -0.0, -inf and
+    negative lanes among positive ones, fewer positive lanes than k, and
+    L = 3 x 7 = 21 lanes (not a multiple of 32). Returns (scores, ords,
+    k)."""
+    rng = np.random.default_rng(MERGE_EDGE_CASES.index(case) + 70)
+    if case == "dup_triples":
+        q, S, kk = 9, 3, 10
+        s = rng.choice(np.float32([0.8, 0.5, 0.3]), size=(q, S, kk))
+        o = rng.integers(0, 4, size=(q, S, kk)).astype(np.int32)
+        s[0, 1, :] = 0.5          # one triple copied over a whole partition
+        o[0, 1, :] = 2
+    elif case == "equal_across_parts":
+        q, S, kk = 6, 4, 10
+        s = np.full((q, S, kk), np.float32(0.625))
+        o = rng.integers(0, 12, size=(q, S, kk)).astype(np.int32)
+        s[:, :, 5:] = np.float32(0.25)
+    elif case == "nan_negzero_neg":
+        q, S, kk = 8, 4, 10
+        s = rng.choice(np.float32([0.9, 0.4, 0.4, 0.1]), size=(q, S, kk))
+        o = rng.integers(0, 30, size=(q, S, kk)).astype(np.int32)
+        bad = np.float32([np.nan, -0.0, -np.inf, -0.5, 0.0])
+        at = rng.random((q, S, kk)) < 0.4
+        s[at] = rng.choice(bad, size=int(at.sum()))
+        s[1] = np.nan
+        s[2] = np.float32(-0.0)
+    elif case == "few_positive":
+        q, S, kk = 7, 4, 10
+        s = np.zeros((q, S, kk), np.float32)
+        o = rng.integers(0, 50, size=(q, S, kk)).astype(np.int32)
+        for qi in range(q):
+            at = rng.choice(S * kk, size=qi, replace=False)
+            s.reshape(q, -1)[qi, at] = rng.choice(np.float32([0.7, 0.2]),
+                                                  size=qi)
+    else:                         # lanes_not_32: L = 21
+        q, S, kk = 11, 3, 7
+        s = rng.choice(np.float32([0.9, 0.6, 0.6, 0.3, 0.0]),
+                       size=(q, S, kk))
+        o = rng.integers(0, 9, size=(q, S, kk)).astype(np.int32)
+    return (s.reshape(q, S * kk).astype(np.float32),
+            o.reshape(q, S * kk).astype(np.int32), kk)
+
+
+# K8 edges of the word pack and run-length count:
+# name -> (seed, Q, live rows, n_docs, n_segments, sections)
+AGG_WORD_CASES = {
+    "q5": (10, 5, None, 3000, 300, [dict(n_pairs=3000, head=0.2)]),
+    "q9": (11, 9, None, 3001, 300, [dict(n_pairs=3000, head=0.2)]),
+    "q17": (12, 17, None, 3002, 300, [dict(n_pairs=2500)]),
+    "q33": (13, 33, None, 2003, 120, [dict(n_pairs=2000, head=0.3)]),
+    "q40_padded": (14, 40, 23, 2000, 120,
+                   [dict(n_pairs=1800), dict(n_pairs=1500, grouped=False)]),
+    "runs_cross_chunks": (15, 4, None, 5000, 3,
+                          [dict(n_pairs=5000, head=0.5)]),
+    "run_across_tile": (16, 6, None, 4000, 16390,
+                        [dict(n_pairs=4000, near_tile=True)]),
+    "inconsistent_ranges_q": (17, 9, None, 6000, 40000,
+                              [dict(n_pairs=6000, grouped=False)]),
+    "wide_buckets_q": (18, 12, None, 5000, 33000,
+                       [dict(n_pairs=4000, grouped=False)]),
+}
+
+
+def agg_word_inputs(name):
+    """(mask, blob, section pair counts, n_segments) of one AGG_WORD_CASES
+    case: Q of 5, 9, 17, 33 and 40 (every word width, two query groups,
+    padding rows left all False), bucket runs longer than a chunk (3
+    buckets over 5 chunks), buckets on both sides of the first tile
+    boundary (16383 and 16384 alternate in one run of pairs), tile ranges
+    that disagree with the pairs at Q = 9, and 33,000 buckets (three
+    tiles) at Q = 12."""
+    seed, q, live, n_docs, n_seg, secs = AGG_WORD_CASES[name]
+    rng = np.random.default_rng(seed)
+    parts, ps = [], []
+    for kw in secs:
+        kw = dict(kw)
+        near = kw.pop("near_tile", False)
+        sec = agg_section(rng, n_docs, n_seg, **kw)
+        if near:
+            d, s, ct0, ct1 = (a.copy() for a in sec)
+            n = kw["n_pairs"]
+            s[:n] = np.where(np.arange(n) % 3 == 0, 16384, 16383)
+            s[: n // 4] = 16383          # a long run, then the alternation
+            for c in range(len(ct0)):
+                live_s = s[c * 1024:(c + 1) * 1024]
+                live_s = live_s[live_s >= 0]
+                if len(live_s):
+                    ct0[c], ct1[c] = live_s.min() >> 14, live_s.max() >> 14
+            sec = (d, s, ct0, ct1)
+        if name == "inconsistent_ranges_q":
+            sec = perturb_ranges(sec, -(-n_seg // k.AGG_SEG_TILE))
+        parts += list(sec)
+        ps.append(len(sec[0]))
+    return (agg_masks(rng, q, n_docs, live, density=0.2),
+            np.concatenate(parts), ps, n_seg)
