@@ -7,6 +7,7 @@
     python3 chip_smoke.py --agg-docs N   # cut the agg leaf to N docs
     python3 chip_smoke.py --k2-parent OLD.cu   # time earlier sweeps beside them
     python3 chip_smoke.py --k8-parent OLD.cu --k4-parent OLD.cu   # and K8, K4
+    python3 chip_smoke.py --k5-parent OLD.cu   # and K5's stage
 
 It drives the port's main path (elasticsearch_tpu_torch only; it imports
 nothing of JAX or of elasticsearch_tpu) the way bench.py drives config 1 of
@@ -17,8 +18,8 @@ aggregation path the way bench.py drives config 6:
 1. builds the CUDA kernels (K1 build_columns, K2 sweep_rowmax,
    K3 sparse_gather, K5 intersect_bitset, K6 sweep_rowmax_bitset,
    K7 sweep_rowmax_conj, K4 merge_topk, K9 knn_int8_window_topc,
-   K8 agg_counts) from parallel/csrc with nvcc, one process per source,
-   all at once;
+   K8 agg_counts, and the bitset pack pack_presence_bits) from
+   parallel/csrc with nvcc, one process per source, all at once;
 2. builds one 8,000,000-doc shard with positions on the host: docs of 8-40
    terms over a 500k-term Zipf(1.07) vocabulary, seeded as bench.py does;
 3. selects the engine with `select_bm25_engine(device="cuda")` (cold_df
@@ -59,10 +60,17 @@ aggregation path the way bench.py drives config 6:
    (the exact host route). Every answer is held bitwise against
    search_bool_host and some against a numpy scorer; certificate
    fallbacks that a numpy check of exact scores does not explain are
-   held to MAX_CERT_FALLBACK_SHARE; K5-K7 are held against their plain
-   versions on the bitset route's device chunk and timed, K3 on every
-   group of cold SHOULD sides each route launched, and so are the bitset
-   repack and mask_chunk_counts;
+   held to MAX_CERT_FALLBACK_SHARE; no plain version runs on either
+   route (the bitset pack and K5's chunk counts are kernels there); the
+   bitset pack is held bitwise against its plain version on the shard's
+   whole column cache and timed, with the repack's peak device memory;
+   K5-K7 are held against their plain versions on the bitset route's
+   device chunk and timed, K5 (mask and chunk counts in one launch) also
+   alone, from a CUDA graph and for its host enqueue, and given
+   --k5-parent beside the parent commit's K5 and the torch
+   mask_chunk_counts after it, in turns; K3 on every group of cold SHOULD
+   sides each route launched; each K1 launch of the phrase phase is timed
+   again on its recorded groups beside its bound;
 7. serves the first batch again on a fresh engine at the default slice
    ladder and reports its sparse fallbacks, holding the answers that step
    4 held;
@@ -159,6 +167,10 @@ K2_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k2_parent.cu"
 #   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/merge_topk.cu
 K8_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k8_parent.cu"
 K4_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k4_parent.cu"
+# and K5's (check_k5: its mask-only C entry, timed with the torch
+# mask_chunk_counts after it), written there with
+#   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/intersect_bitset.cu
+K5_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k5_parent.cu"
 # queries of each config-1 batch held against the host-exact tier (the DSL
 # bodies are held in full): the hold is host work, about 0.6 s a query on
 # the chip machine's 8 cores, and the cut keeps the whole run, kNN and agg
@@ -1183,39 +1195,138 @@ def hold_bool(turbo, specs, answers, label):
     return hs, ho
 
 
-def check_k5(turbo, chunk, launches):
-    """K5 at QC 256 on the bitset route's device chunk, held bitwise
-    against the plain version, also on outputs filled with -1 first
-    (kernels.poisoned)."""
+def k5_parent(path):
+    """The parent commit's K5 C entry (a block per (query, superwindow),
+    the mask alone: es_intersect_bitset(q_slots, q_neg, bits, out, qc, nsw,
+    rows, n_slots, stream)), built with nvcc from `path`, or None when
+    `path` is not a file."""
+    import ctypes
+
+    from elasticsearch_tpu_torch.tools.k9_ab import parent_entry
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return parent_entry(path, "k5_parent", "es_intersect_bitset",
+                        [p, p, p, p, i, i, i, i, p])
+
+
+def k5_stage(host, card, bits, nsw, parent=None):
+    """K5's stage, mask and chunk counts, with the wrapper's allocations
+    (kernels._out, so filled inside kernels.poisoned) and none of its
+    checks: this tree's C entry on the slots on the host (`host`, CPU
+    (q_slots, q_neg); one launch for both, QC <= 256), or given `parent`
+    (from k5_parent) the parent's C entry on the slots on the card
+    (`card`) and the torch mask_chunk_counts after it. Returns (mask,
+    counts)."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import cuda_build
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    qc, dev = int(host[0].shape[0]), bits.device
+    mask = k._out((qc, nsw * k.SW_WORD_ROWS, 128), torch.int32, dev)
+    dims = (qc, nsw, int(bits.shape[1]), int(bits.shape[0]),
+            torch.cuda.current_stream().cuda_stream)
+    if parent is None:
+        counts = k._out((qc,), torch.int32, dev)
+        rc = cuda_build.kernel("intersect_bitset")(
+            host[0].data_ptr(), host[1].data_ptr(), bits.data_ptr(),
+            mask.data_ptr(), counts.data_ptr(), *dims)
+    else:
+        rc = parent(card[0].data_ptr(), card[1].data_ptr(), bits.data_ptr(),
+                    mask.data_ptr(), *dims)
+    require(rc == 0, f"K5 launch failed: cudaError {rc}")
+    if parent is not None:
+        counts = k.mask_chunk_counts(mask)
+    return mask, counts
+
+
+def check_k5(turbo, chunk, launches, parent=None):
+    """K5 at QC 256 on the bitset route's device chunk: mask and chunk
+    counts held bitwise against the plain version (intersect_bitset_plain,
+    then mask_chunk_counts), the counts also against mask_chunk_counts of
+    the kernel's own mask, once more on outputs filled with -1 first
+    (kernels.poisoned: the counts too, which the C entry zeroes), with the
+    slots from the host and from the card. Timed through the wrapper as
+    the engine calls it (the slots from the host, in the launch's
+    parameters) by CUDA events, alone (torch.profiler's kernel events),
+    from a CUDA graph (graph_ms) and for the host's enqueue. Given the
+    parent commit's C entry (`parent`, k5_parent), the parent's stage
+    (its K5, then the torch mask_chunk_counts) and this tree's (one
+    launch; the slots from the host, the parent's from the card) are
+    called alike (k5_stage: no checks) in turns (parent, kernel, kernel,
+    parent) and from a graph, the parent also alone, and the parent held
+    the same way."""
     import torch
 
     from elasticsearch_tpu_torch.parallel import kernels as k
 
-    dev, qc, nsw = turbo.device, 256, turbo.nsw
+    dev, qc, nsw, bits = turbo.device, 256, turbo.nsw, turbo.bits
     qs_np, qn_np = turbo._bitset_prefetch(chunk, qc)
-    q_slots = torch.from_numpy(qs_np).to(dev)
-    q_neg = torch.from_numpy(qn_np).to(dev)
+    qs_h, qn_h = torch.from_numpy(qs_np), torch.from_numpy(qn_np)
+    q_slots, q_neg = qs_h.to(dev), qn_h.to(dev)
     out = {}
-    ms = cuda_ms(lambda: out.__setitem__("k", k.intersect_bitset(
-        q_slots, q_neg, turbo.bits, nsw=nsw)), 20)
-    plain_ms = cuda_ms(lambda: out.__setitem__("p", k.intersect_bitset_plain(
-        q_slots, q_neg, turbo.bits, nsw=nsw)), 3)
-    err = max_abs_err(out["k"], out["p"])
-    require(err == 0.0 and torch.equal(out["k"], out["p"]),
+
+    def kern():
+        out["k"] = k.intersect_bitset_counts(qs_h, qn_h, bits, nsw=nsw)
+
+    host, card = (qs_h, qn_h), (q_slots, q_neg)
+    runs = {"kernel": lambda: k5_stage(host, card, bits, nsw),
+            "parent": lambda: k5_stage(host, card, bits, nsw, parent)}
+    events = [cuda_ms(kern, 20), cuda_ms(kern, 20)]
+    ms = float(np.median(events))
+    turns = {"parent": [], "kernel": []}
+    for name in (["parent"] if parent else []) + ["kernel", "kernel"] + (
+            ["parent"] if parent else []):
+        turns[name].append(cuda_ms(runs[name], 20))
+    kernel_ms, kernel_events = kernel_alone(kern, ("intersect",), 20)
+    device_ms = graph_ms(kern, 50)
+    host_ms = host_enqueue_ms(kern)
+    plain_ms = cuda_ms(lambda: out.__setitem__(
+        "p", k.intersect_bitset_counts_plain(q_slots, q_neg, bits,
+                                             nsw=nsw)), 3)
+    (km, kc), (pm, pc) = out["k"], out["p"]
+    err = max(max_abs_err(km, pm), max_abs_err(kc, pc))
+    require(err == 0.0 and torch.equal(km, pm) and torch.equal(kc, pc),
             f"K5 kernel vs plain: max_abs_err {err}")
+    require(torch.equal(kc, k.mask_chunk_counts(km)),
+            "K5 counts differ from mask_chunk_counts of its own mask")
     with k.poisoned():
-        again = k.intersect_bitset(q_slots, q_neg, turbo.bits, nsw=nsw)
-    require(torch.equal(again, out["p"]),
+        again = [*k.intersect_bitset_counts(qs_h, qn_h, bits, nsw=nsw),
+                 *k.intersect_bitset_counts(q_slots, q_neg, bits, nsw=nsw),
+                 k.intersect_bitset(q_slots, q_neg, bits, nsw=nsw),
+                 *runs["kernel"]()]
+    require(all(torch.equal(a, b) for a, b in
+                zip(again, (pm, pc, pm, pc, pm, pm, pc))),
             "K5 on outputs filled with -1 differs from the plain version")
     del again
+    ab = None
+    if parent:
+        par_kernel_ms, par_events = kernel_alone(runs["parent"],
+                                                 ("intersect",), 20)
+        ab = {"stage_ms": turns["kernel"],
+              "stage_device_ms": graph_ms(runs["kernel"], 50),
+              "parent_stage_ms": turns["parent"],
+              "parent_kernel_ms": par_kernel_ms,
+              "parent_kernel_events": par_events,
+              "parent_device_ms": graph_ms(runs["parent"], 50),
+              "parent_counts_device_ms": graph_ms(
+                  lambda: k.mask_chunk_counts(pm), 50)}
+        with k.poisoned():
+            again = runs["parent"]()
+        require(torch.equal(again[0], pm) and torch.equal(again[1], pc),
+                "the parent K5 differs from the plain version")
+        del again
     # each distinct clause block read once (sentinels need no read), the
-    # mask written once
+    # mask and the counts written once
     distinct = set(qs_np.ravel().tolist()) | set(qn_np.ravel().tolist())
     distinct -= {turbo.Hp, turbo.Hp + 1}
     block = k.SW_WORD_ROWS * 128 * 4
     nbytes = (len(distinct) * nsw * block + qc * nsw * block
-              + qs_np.nbytes + qn_np.nbytes)
+              + qs_np.nbytes + qn_np.nbytes + qc * 4)
     b_ms, b_by = bound(nbytes, qc * nsw * block // 4 * 12, PEAK_F32)
+    log(f"K5: events {events} ms, alone {kernel_ms} ms, graph "
+        f"{device_ms:.4f} ms, host enqueue {host_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms; stage against the parent's in turns {ab}")
     return {"name": "intersect_bitset", "route": "cuda",
             "source": "elasticsearch_tpu_torch/parallel/csrc/intersect_bitset.cu",
             "replaces": "elasticsearch_tpu/parallel/kernels.py:432",
@@ -1224,8 +1335,92 @@ def check_k5(turbo, chunk, launches):
             "library_ms": None,
             "library_note": "no single PyTorch call gathers and ANDs the "
                             "clause blocks", "poisoned_run": "bitwise",
+            "counts": "bitwise (plain and mask_chunk_counts of its mask)",
+            "events_ms": events, "kernel_ms": kernel_ms,
+            "kernel_events": kernel_events, "device_ms": device_ms,
+            "host_enqueue_ms": host_ms, "stage_ab": ab,
             "shape": {"QC": qc, "nsw": nsw, "active": len(chunk),
-                      "distinct_slots": len(distinct)}}, out["k"]
+                      "distinct_slots": len(distinct)}}, km
+
+
+def check_pack(turbo, launches):
+    """The bitset pack on the shard's whole column cache: the engine's
+    repack timed on the host clock with its peak device memory over what
+    was allocated before it (the old bits are freed first), then the
+    kernel timed by CUDA events, alone, from a CUDA graph and for the
+    host's enqueue, held bitwise against pack_presence_bits_plain (whose
+    own peak over its output is measured too) and against the engine's
+    bits, once more on output filled with -1 first. Returns (row, the
+    device's peak allocation before this check reset it)."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    hi, lo = turbo.cols_hi, turbo.cols_lo
+    dpc, hp1 = int(hi.shape[0]), int(hi.shape[1])
+    read = 2 * dpc * hp1 * k.CHUNK
+    bits_bytes = (hp1 + 1) * (dpc // 2) * 128 * 4
+    prior_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    turbo._repack_bits()
+    torch.cuda.synchronize()
+    repack_ms = (time.perf_counter() - t) * 1e3
+    repack_extra = torch.cuda.max_memory_allocated() - base
+    out = {}
+
+    def kern():
+        out["k"] = k.pack_presence_bits(hi, lo)
+
+    events = [cuda_ms(kern, 5), cuda_ms(kern, 5)]
+    ms = float(np.median(events))
+    kernel_ms, kernel_events = kernel_alone(kern, ("pack_bits",), 5)
+    device_ms = graph_ms(kern, 10)
+    host_ms = host_enqueue_ms(kern, 20)
+    out.pop("k")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plain_ms = cuda_ms(lambda: out.__setitem__(
+        "p", k.pack_presence_bits_plain(hi, lo)), 1)
+    plain_extra = torch.cuda.max_memory_allocated() - base - bits_bytes
+    kern()
+    err = max_abs_err(out["k"], out["p"])
+    require(err == 0.0 and torch.equal(out["k"], out["p"]),
+            f"bitset pack kernel vs plain: max_abs_err {err}")
+    require(torch.equal(turbo.bits, out["p"]),
+            "the engine's repacked bits differ from the plain pack")
+    del out["k"]
+    with k.poisoned():
+        again = k.pack_presence_bits(hi, lo)
+    require(torch.equal(again, out["p"]),
+            "bitset pack on output filled with -1 differs from the plain "
+            "version")
+    del again, out["p"]
+    b_ms, b_by = bound(read + bits_bytes, read, PEAK_F32)
+    log(f"bitset pack: events {events} ms, alone {kernel_ms} ms, graph "
+        f"{device_ms:.4f} ms, host enqueue {host_ms:.4f} ms, plain "
+        f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms; repack {repack_ms:.3f} ms "
+        f"wall, its peak over the allocated before it {repack_extra} "
+        f"bytes (the plain pack's over its output {plain_extra})")
+    return {"name": "pack_presence_bits", "route": "cuda",
+            "source": "elasticsearch_tpu_torch/parallel/csrc/pack_bits.cu",
+            "replaces": "elasticsearch_tpu/parallel/kernels.py:358 "
+                        "(XLA program)",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call packs 32 presence rows "
+                            "into a word", "poisoned_run": "bitwise",
+            "events_ms": events, "kernel_ms": kernel_ms,
+            "kernel_events": kernel_events, "device_ms": device_ms,
+            "host_enqueue_ms": host_ms, "repack_wall_ms": repack_ms,
+            "repack_peak_extra_bytes": int(repack_extra),
+            "plain_peak_extra_bytes": int(plain_extra),
+            "shape": {"dp_chunks": dpc, "slots": hp1 + 1,
+                      "bits_bytes": bits_bytes}}, prior_peak
 
 
 def check_k6(turbo, chunk, mask, launches, parent=None):
@@ -1319,6 +1514,85 @@ def env_set(name: str, value: str):
             os.environ[name] = saved
 
 
+@contextlib.contextmanager
+def plain_calls():
+    """Yields a dict that counts the calls of every plain version in
+    kernels (`*_plain`, and mask_chunk_counts, the plain K5's counts)
+    while the block runs: on the card a path must call none of them."""
+    from elasticsearch_tpu_torch.parallel import kernels
+
+    names = [n for n in dir(kernels) if n.endswith("_plain")
+             and callable(getattr(kernels, n))] + ["mask_chunk_counts"]
+    calls = {n: 0 for n in names}
+    saved = {n: getattr(kernels, n) for n in names}
+
+    def counting(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            return saved[name](*a, **kw)
+        return call
+
+    for n in names:
+        setattr(kernels, n, counting(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
+
+
+@contextlib.contextmanager
+def record_k1_launches():
+    """Yields a list that collects the arguments of every K1 launch
+    (kernels.build_columns) while the block runs, references kept so each
+    can be launched again on its own groups."""
+    from elasticsearch_tpu_torch.parallel import kernels
+
+    launches = []
+    build = kernels.build_columns
+
+    def spy(*args):
+        launches.append(args[:6])
+        return build(*args)
+
+    kernels.build_columns = spy
+    try:
+        yield launches
+    finally:
+        kernels.build_columns = build
+
+
+def check_k1_phrases(turbo, launches):
+    """Each recorded K1 launch of the phrase phase again on its own groups
+    and lanes, into scratch column tiles: by CUDA events and from a CUDA
+    graph, beside its bound (lanes and groups read once, the groups' tiles
+    written once)."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    hi_s, lo_s = (torch.empty_like(c) for c in (turbo.cols_hi,
+                                                 turbo.cols_lo))
+    rows = []
+    for args in launches:
+        def kern(args=args):
+            k.build_columns(*args, hi_s, lo_s)
+
+        ng = int(args[0].shape[0])
+        lanes = int(args[1].long().sum()) * 128
+        nbytes = lanes * 8 + ng * 16 + ng * k.TILE * 2
+        b_ms, b_by = bound(nbytes, ng * k.TILE * 8, PEAK_F32)
+        ms = cuda_ms(kern, 5)
+        device_ms = graph_ms(kern, 20)
+        rows.append({"groups": ng, "zero_groups": int((args[1] == 0).sum()),
+                     "lanes": lanes, "ms": ms, "device_ms": device_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_share": b_ms / device_ms if device_ms else None})
+    del hi_s, lo_s
+    torch.cuda.empty_cache()
+    return rows
+
+
 def serve_bool_routes(eng, turbo, fp, n_docs, batches):
     """The bool batches on both sweeps: ES_TPU_BITSET=1 (K5 + K6) and
     ES_TPU_BITSET=0 (K7), each with every launch count set to 0 just before
@@ -1333,7 +1607,7 @@ def serve_bool_routes(eng, turbo, fp, n_docs, batches):
         answers, lat = [], []
         with env_set("ES_TPU_BITSET", flag), \
                 record_fallbacks(turbo, flag == "1") as fell, \
-                record_k3_groups(turbo) as k3_groups:
+                record_k3_groups(turbo) as k3_groups, plain_calls() as pc:
             kernels.reset_launches()
             for specs in batches:
                 t = time.time()
@@ -1345,6 +1619,11 @@ def serve_bool_routes(eng, turbo, fp, n_docs, batches):
         n_q = sum(len(b) for b in batches)
         rep = {"batch_latency_s": lat, "queries": n_q,
                "launches": launches, **d}
+        require(not any(pc.values()),
+                f"bool {route}: a plain version ran on the card: {pc}")
+        require(launches["pack_presence_bits"] == d["bitset_packs"],
+                f"bool {route}: {d['bitset_packs']} repacks, "
+                f"{launches['pack_presence_bits']} pack launches")
         log(f"bool route {route}: {rep}")
         require(not fault_log, f"bool {route}: fault records {fault_log}")
         for key in ("degraded", "sparse_fallbacks", "cold_queries",
@@ -1357,7 +1636,8 @@ def serve_bool_routes(eng, turbo, fp, n_docs, batches):
         log(f"bool {route}: {rep['fallbacks_explained']} of "
             f"{d['fallbacks']} certificate fallbacks explained by exact "
             f"scores")
-        need = (("intersect_bitset", "sweep_rowmax_bitset")
+        need = (("pack_presence_bits", "intersect_bitset",
+                 "sweep_rowmax_bitset")
                 if route == "bitset" else ("sweep_rowmax_conj",))
         for name in need + ("sparse_gather",):
             require(launches[name] > 0,
@@ -1370,7 +1650,8 @@ def serve_bool_routes(eng, turbo, fp, n_docs, batches):
 
 
 def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper,
-                k3_parent_run=None, k6_parent=None, k7_parent=None):
+                k3_parent_run=None, k6_parent=None, k7_parent=None,
+                k5_parent_fn=None):
     """Configs 2 and 3 on the main path's engine: the bool batches on both
     sweeps, K5-K7 held against their plain versions on the bitset route's
     dispatch, then slop-0 phrase batches and one slop-2 match_phrase body.
@@ -1414,17 +1695,11 @@ def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper,
         dev_idx, host_idx = turbo._bool_routes(resolved)
         dev_idx, _ = turbo._gallop_routes(resolved, dev_idx, host_idx)
         chunk = [resolved[i] for i in dev_idx[:256]]
-        torch.cuda.synchronize()
-        t = time.time()
-        turbo._repack_bits()
-        torch.cuda.synchronize()
-        repack_s = time.time() - t
-        pack_ms = cuda_ms(lambda: kernels.pack_presence_bits(
-            turbo.cols_hi, turbo.cols_lo), 3)
+        pack, prior_peak = check_pack(turbo, bit_l["pack_presence_bits"])
         torch.cuda.empty_cache()
-        k5, mask = check_k5(turbo, chunk, bit_l["intersect_bitset"])
-        counts_ms = cuda_ms(lambda: kernels.mask_chunk_counts(mask), 20)
-        rows = [k5, check_k6(turbo, chunk, mask,
+        k5, mask = check_k5(turbo, chunk, bit_l["intersect_bitset"],
+                            k5_parent_fn)
+        rows = [pack, k5, check_k6(turbo, chunk, mask,
                              bit_l["sweep_rowmax_bitset"], k6_parent)]
         del mask
         rows.append(check_k7(turbo, chunk, cov_l["sweep_rowmax_conj"],
@@ -1438,8 +1713,6 @@ def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper,
             f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
             f"{r['library_ms']}, launches {r['launches']}")
     log(f"sparse_gather on the bool chunk: {k3_bool}")
-    log(f"repack {repack_s * 1e3:.2f} ms wall, pack_presence_bits "
-        f"{pack_ms:.4f} ms, mask_chunk_counts {counts_ms:.4f} ms")
 
     # ---- slop-0 phrases (config 3), head-term phrases and one slop-2
     # match_phrase body ----
@@ -1453,7 +1726,8 @@ def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper,
     fault_log = []
     p_ans, p_lat = [], []
     step = min(PHRASE_BATCH, turbo.Hp // 2)
-    with record_fallbacks(turbo, True) as fell:
+    with record_fallbacks(turbo, True) as fell, plain_calls() as pc, \
+            record_k1_launches() as k1_launches:
         kernels.reset_launches()
         for batch in ([phrases[i:i + step] for i in range(0, PHRASES, step)]
                       + [HEAD_PHRASES]):
@@ -1472,6 +1746,14 @@ def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper,
             "phrase_batch": step, "launches": p_launch, **pd}
     log(f"phrases: {prep}")
     require(not fault_log, f"phrases: fault records {fault_log}")
+    require(not any(pc.values()),
+            f"phrases: a plain version ran on the card: {pc}")
+    require(len(k1_launches) == p_launch["build_columns"],
+            f"phrases: {len(k1_launches)} K1 launches recorded, "
+            f"{p_launch['build_columns']} counted")
+    require(p_launch["pack_presence_bits"] == pd["bitset_packs"] > 0,
+            f"phrases: {pd['bitset_packs']} repacks, "
+            f"{p_launch['pack_presence_bits']} pack launches")
     for key in ("degraded", "health_device_faults",
                 "health_fallback_queries"):
         require(pd[key] == 0, f"phrases: {key} = {pd[key]}")
@@ -1498,11 +1780,13 @@ def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper,
     require((phs[:PHRASES + len(HEAD_PHRASES), 0] > 0).all(),
             "a drawn or head-term phrase matched nothing")
     log("numpy scorer agrees on 3 phrases")
+    k1_phrase = check_k1_phrases(turbo, k1_launches)
+    del k1_launches
+    log(f"K1 launches of the phrase phase: {k1_phrase}")
 
     report = {"bool": {r: rep for r, (_, rep, _) in routes.items()},
-              "phrase": prep, "repack_s": repack_s,
-              "pack_presence_bits_ms": pack_ms,
-              "mask_chunk_counts_ms": counts_ms,
+              "phrase": prep, "k1_phrase_launches": k1_phrase,
+              "peak_device_bytes_before": prior_peak,
               "bitset_bytes": int(turbo.bits.nbytes),
               "unexplained_fallback_limit": MAX_CERT_FALLBACK_SHARE}
     return rows, report, k3_bool
@@ -2733,7 +3017,7 @@ def agg_phase(n: int, device="cuda", k8_parent_src=None) -> tuple:
 
 def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
         agg_docs: int, k3_parent_src=None, k2_parent_src=None,
-        k8_parent_src=None, k4_parent_src=None) -> dict:
+        k8_parent_src=None, k4_parent_src=None, k5_parent_src=None) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import hbm_ledger
@@ -2762,7 +3046,9 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     k7_parent = parent_runner(k2_parent_src, "conj")
     log(f"parent sweeps (K2, K6, K7) for the A/B: "
         f"{k2_parent_src if k2_parent else 'not given'}")
-    for name, src in (("K8", k8_parent_src), ("K4", k4_parent_src)):
+    k5_parent_fn = k5_parent(k5_parent_src)
+    for name, src in (("K8", k8_parent_src), ("K4", k4_parent_src),
+                      ("K5", k5_parent_src)):
         log(f"parent {name} for the A/B: "
             f"{src if src and os.path.isfile(src) else 'not given'}")
 
@@ -2887,12 +3173,15 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     bool_rows, bool_report, k3_bool = bool_phases(eng, turbo, fp, n_docs,
                                                   tokens, bounds, mapper,
                                                   parent, k6_parent,
-                                                  k7_parent)
+                                                  k7_parent, k5_parent_fn)
     rows[2]["bool_path"] = k3_bool
+    rows[0]["phrase_launches"] = bool_report["k1_phrase_launches"]
     rows += bool_rows
     bool_report["phases_s"] = time.time() - t
 
-    peak = torch.cuda.max_memory_allocated()
+    # check_pack reset the peak to measure the repack's own
+    peak = max(torch.cuda.max_memory_allocated(),
+               bool_report.pop("peak_device_bytes_before"))
     ledger = hbm_ledger.hbm_stats()
     del eng, turbo
     torch.cuda.empty_cache()
@@ -2961,6 +3250,11 @@ def main(argv=None) -> int:
                     help="an earlier merge_topk.cu (same C entry) to time "
                          "beside this tree's K4 on the same merge; skipped "
                          "when the file is missing")
+    ap.add_argument("--k5-parent", default=K5_PARENT,
+                    help="an earlier intersect_bitset.cu (its mask-only C "
+                         "entry) to time with the torch mask_chunk_counts "
+                         "beside this tree's K5 stage; skipped when the "
+                         "file is missing")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2978,7 +3272,7 @@ def main(argv=None) -> int:
         return 2
     out = run(args.docs, args.batches, args.batch, args.knn_docs,
               args.agg_docs, args.k3_parent, args.k2_parent,
-              args.k8_parent, args.k4_parent)
+              args.k8_parent, args.k4_parent, args.k5_parent)
     print(json.dumps({"serving": out["serving"]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("build_columns", "sweep_rowmax", "sparse_gather",
            "intersect_bitset", "merge_topk", "knn_window_topc",
-           "agg_counts")
+           "agg_counts", "pack_bits")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,7 +35,7 @@ _L = ctypes.c_longlong
 # kernel -> (source, C entry point, argtypes); one source may hold several;
 # sweep_group / sweep_list_cap launch nothing: they report K2's built G and
 # list capacity; agg_word_bytes and agg_plan report K8's word scratch
-# size and histogram plan
+# size and histogram plan; intersect_table_q K5's queries a launch
 _SIGNATURES = {
     "build_columns": ("build_columns", "es_build_columns",
                       [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
@@ -51,7 +51,10 @@ _SIGNATURES = {
     "sparse_gather": ("sparse_gather", "es_sparse_gather",
                       [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P]),
     "intersect_bitset": ("intersect_bitset", "es_intersect_bitset",
-                         [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                         [_P] * 5 + [_I] * 4 + [_P]),
+    "intersect_table_q": ("intersect_bitset", "es_intersect_table_q", []),
+    "pack_presence_bits": ("pack_bits", "es_pack_presence_bits",
+                           [_P, _P, _P, _I, _I, _P]),
     "merge_topk": ("merge_topk", "es_merge_topk",
                    [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "knn_int8_window_topc": ("knn_window_topc", "es_knn_int8_window_topc",

@@ -7,7 +7,9 @@ ported paths run:
 * K1 `build_columns` (reference :730) -> csrc/build_columns.cu
 * K2 `sweep_rowmax`  (reference :148) -> csrc/sweep_rowmax.cu
 * K3 `sparse_gather` (reference :876, two pallas_calls) -> csrc/sparse_gather.cu
-* K5 `intersect_bitset` (reference :398) -> csrc/intersect_bitset.cu
+* K5 `intersect_bitset` (reference :398) -> csrc/intersect_bitset.cu, which
+  also computes the reference's XLA program `mask_chunk_counts` (:445) in
+  the same pass (`intersect_bitset_counts`)
 * K6 `sweep_rowmax_bitset` (reference :534) -> csrc/sweep_rowmax.cu
 * K7 `sweep_rowmax_conj` (reference :270) -> csrc/sweep_rowmax.cu
 * K4 `merge_topk` (reference :633) -> csrc/merge_topk.cu
@@ -31,8 +33,10 @@ donated it; the others allocate their outputs with torch.
 
 The reference's packed bitsets are uint32; here they are int32 tensors
 holding the same bit patterns (torch's uint32 lacks shifts and bitwise ops
-on some devices). `pack_presence_bits` and `mask_chunk_counts` are XLA
-programs in the reference, not Pallas kernels, and are torch code here.
+on some devices). `pack_presence_bits` is an XLA program in the reference
+(:358), not a Pallas kernel; no one torch call packs 32 presence rows into a
+word, so it is a kernel here too (csrc/pack_bits.cu), with its torch code as
+the plain version.
 """
 
 from __future__ import annotations
@@ -71,6 +75,10 @@ SPARSE_IMP_MAX = 255  # uint8 impact quantization ceiling (doc << 8 | imp)
 SW_WORD_ROWS = SW_ROWS // 32   # 16 packed word rows per superwindow
 BITSET_CLAUSES = 8    # AND fan-in of the intersect kernel (rarest clauses)
 BITSET_NEGS = 4       # AND-NOT fan-in (largest-df prohibitions)
+# queries whose clause slots one K5 launch carries in its parameters
+# (intersect_bitset.cu's TABLE_Q; the card test holds this mirror to the
+# built es_intersect_table_q)
+INTERSECT_TABLE_Q = 256
 
 # the reference multiplies f32 tiles by these Python constants, which JAX
 # rounds to f32; the same f32 values here, and passed to the CUDA kernel
@@ -97,7 +105,7 @@ LAUNCHES: Dict[str, int] = {"build_columns": 0, "sweep_rowmax": 0,
                             "sparse_gather": 0, "intersect_bitset": 0,
                             "sweep_rowmax_bitset": 0, "sweep_rowmax_conj": 0,
                             "merge_topk": 0, "knn_int8_window_topc": 0,
-                            "agg_counts": 0}
+                            "agg_counts": 0, "pack_presence_bits": 0}
 
 
 def reset_launches() -> None:
@@ -481,27 +489,11 @@ def sweep_rowmax_conj(qscale, nreq, cols_hi, cols_lo, wq, wp, live, *,
 _PACK_SLOTS = 4       # slots packed per step: bounds the int64 temporaries
 
 
-def pack_presence_bits(cols_hi, cols_lo):
-    """Pack the column cache's presence into per-slot doc bitsets (torch
-    code; an XLA program in the reference, kernels.py:358).
-
-    cols_hi/cols_lo [dp_chunks, Hp+1, 16, 128] i8. Presence is exact
-    ((hi | lo) != 0: the build forces lo >= 1 on present cells).
-
-    Returns bits [Hp+2, dp_chunks // 2, 128] i32 (uint32 bit patterns):
-    bit j of word [s, g, l] is slot s's presence at posting row 32g + j,
-    lane l, so a word row holds two sweep chunks. Slot Hp (the scratch
-    slot, always zero) is the AND-NOT identity and the empty mask; the
-    appended slot Hp+1 is all ones, the AND identity. A few slots are
-    packed at a time into the preallocated result, so the temporaries stay
-    a few hundred MB at 8M docs."""
+def pack_presence_bits_plain(cols_hi, cols_lo):
+    """Plain torch pack (the reference's XLA program, kernels.py:358): a few
+    slots at a time into the preallocated result, so the temporaries stay a
+    few hundred MB at 8M docs."""
     dev = cols_hi.device
-    _check(cols_hi, "cols_hi", torch.int8, 4, dev)
-    _check(cols_lo, "cols_lo", torch.int8, 4, dev)
-    if (cols_lo.shape != cols_hi.shape or cols_hi.shape[0] % 2
-            or tuple(cols_hi.shape[2:]) != (16, 128)):
-        raise ValueError("cols must both be [dp_chunks, Hp+1, 16, 128] with "
-                         "an even dp_chunks")
     dpc, hp1 = int(cols_hi.shape[0]), int(cols_hi.shape[1])
     wgr = dpc // 2
     bits = torch.empty((hp1 + 1, wgr, 128), dtype=torch.int32, device=dev)
@@ -519,9 +511,40 @@ def pack_presence_bits(cols_hi, cols_lo):
     return bits
 
 
+def pack_presence_bits(cols_hi, cols_lo):
+    """Pack the column cache's presence into per-slot doc bitsets.
+
+    cols_hi/cols_lo [dp_chunks, Hp+1, 16, 128] i8. Presence is exact
+    ((hi | lo) != 0: the build forces lo >= 1 on present cells).
+
+    Returns bits [Hp+2, dp_chunks // 2, 128] i32 (uint32 bit patterns):
+    bit j of word [s, g, l] is slot s's presence at posting row 32g + j,
+    lane l, so a word row holds two sweep chunks. Slot Hp (the scratch
+    slot, always zero) is the AND-NOT identity and the empty mask; the
+    appended slot Hp+1 is all ones, the AND identity. On the card one
+    launch of csrc/pack_bits.cu writes the whole result."""
+    dev = cols_hi.device
+    _check(cols_hi, "cols_hi", torch.int8, 4, dev)
+    _check(cols_lo, "cols_lo", torch.int8, 4, dev)
+    if (cols_lo.shape != cols_hi.shape or cols_hi.shape[0] % 2
+            or tuple(cols_hi.shape[2:]) != (16, 128)):
+        raise ValueError("cols must both be [dp_chunks, Hp+1, 16, 128] with "
+                         "an even dp_chunks")
+    if not _route(dev):
+        return pack_presence_bits_plain(cols_hi, cols_lo)
+    if cols_hi.data_ptr() % 4 or cols_lo.data_ptr() % 4:
+        raise ValueError("cols must be 4-byte aligned (4-byte loads)")
+    dpc, hp1 = int(cols_hi.shape[0]), int(cols_hi.shape[1])
+    bits = _out((hp1 + 1, dpc // 2, 128), torch.int32, dev)
+    _launch("pack_presence_bits", dev, cols_hi.data_ptr(),
+            cols_lo.data_ptr(), bits.data_ptr(), dpc, hp1)
+    return bits
+
+
 def mask_chunk_counts(mask):
     """Per-query count of 2048-doc chunks with any surviving bit (torch
-    code; an XLA program in the reference, kernels.py:445).
+    code; an XLA program in the reference, kernels.py:445; on the card K5
+    computes it in its own pass, intersect_bitset_counts).
 
     mask [QC, wgr, 128] i32; word row g holds chunks 2g (low 16 bits) and
     2g + 1 (high 16; the shift is arithmetic, hence the mask after it).
@@ -543,25 +566,23 @@ def intersect_bitset_plain(q_slots, q_neg, bits, *, nsw: int):
     return acc
 
 
-def intersect_bitset(q_slots, q_neg, bits, *, nsw: int):
-    """Blockwise clause intersection over the packed bitsets.
+def intersect_bitset_counts_plain(q_slots, q_neg, bits, *, nsw: int):
+    """Plain torch K5 with its counts: the mask, then mask_chunk_counts."""
+    mask = intersect_bitset_plain(q_slots, q_neg, bits, nsw=nsw)
+    return mask, mask_chunk_counts(mask)
 
-    q_slots [QC, BITSET_CLAUSES] i32 — bits slot per required clause (pad
-        with a repeated clause or the all-ones sentinel; an inactive row
-        points every clause at the all-zero sentinel)
-    q_neg [QC, BITSET_NEGS] i32 — slot per must_not clause (pad with the
-        all-zero sentinel)
-    bits [Hp+2, rows, 128] i32 — pack_presence_bits output, rows >=
-        nsw * SW_WORD_ROWS. The kernel relies on what pack_presence_bits
-        guarantees: slot Hp is all zeros and slot Hp+1 all ones.
 
-    Returns mask [QC, nsw * SW_WORD_ROWS, 128] i32. A slot outside
-    [0, Hp+2) raises ValueError on every route (one read-back on the card).
-    """
+def _host_slots(q_slots, q_neg, bits, nsw: int):
+    """K5's input checks; returns the clause slots on the host. They lie
+    on bits' device, or on the CPU when bits is on the card (slots on the
+    card are read back); a slot outside [0, Hp+2) raises ValueError."""
     dev = bits.device
     _check(bits, "bits", torch.int32, 3, dev)
-    _check(q_slots, "q_slots", torch.int32, 2, dev)
-    _check(q_neg, "q_neg", torch.int32, 2, dev)
+    qdev = q_slots.device if isinstance(q_slots, torch.Tensor) else dev
+    if qdev != dev and not (qdev.type == "cpu" and _route(dev)):
+        raise ValueError(f"q_slots is on {qdev}, expected {dev} or the CPU")
+    _check(q_slots, "q_slots", torch.int32, 2, qdev)
+    _check(q_neg, "q_neg", torch.int32, 2, qdev)
     qc = int(q_slots.shape[0])
     n_slots = int(bits.shape[0])
     if qc < 1 or q_slots.shape[1] != BITSET_CLAUSES \
@@ -573,17 +594,69 @@ def intersect_bitset(q_slots, q_neg, bits, *, nsw: int):
             or bits.shape[1] < nsw * SW_WORD_ROWS:
         raise ValueError(f"bits shape {tuple(bits.shape)} does not cover "
                          f"nsw={nsw}")
-    if bool(((q_slots < 0) | (q_slots >= n_slots)).any()
-            | ((q_neg < 0) | (q_neg >= n_slots)).any()):
+    if qdev.type != "cpu":
+        q_slots, q_neg = q_slots.cpu(), q_neg.cpu()
+    a, b = q_slots.numpy(), q_neg.numpy()
+    if (a.min() < 0 or a.max() >= n_slots or b.min() < 0
+            or b.max() >= n_slots):
         raise ValueError(f"a clause slot lies outside the bitsets "
                          f"[0, {n_slots})")
+    return q_slots, q_neg
+
+
+def intersect_bitset_counts(q_slots, q_neg, bits, *, nsw: int):
+    """Blockwise clause intersection over the packed bitsets, with each
+    query's count of 2048-doc chunks that keep a bit.
+
+    q_slots [QC, BITSET_CLAUSES] i32 — bits slot per required clause (pad
+        with a repeated clause or the all-ones sentinel; an inactive row
+        points every clause at the all-zero sentinel)
+    q_neg [QC, BITSET_NEGS] i32 — slot per must_not clause (pad with the
+        all-zero sentinel)
+    bits [Hp+2, rows, 128] i32 — pack_presence_bits output, rows >=
+        nsw * SW_WORD_ROWS. The kernel relies on what pack_presence_bits
+        guarantees: slot Hp is all zeros and slot Hp+1 all ones.
+
+    q_slots and q_neg lie on bits' device, or on the CPU when bits is on
+    the card. On the card the kernel takes them from the host, in its
+    launch's parameters (one launch per INTERSECT_TABLE_Q queries): slots
+    given on the host (the engine's way) are checked there and nothing is
+    copied to the card first; slots given on the card are read back once.
+    A slot outside [0, Hp+2) raises ValueError on every route.
+
+    Returns (mask [QC, nsw * SW_WORD_ROWS, 128] i32, counts [QC] i32),
+    counts equal to mask_chunk_counts(mask); on the card one launch
+    computes both.
+    """
+    return _intersect(q_slots, q_neg, bits, nsw, True)
+
+
+def intersect_bitset(q_slots, q_neg, bits, *, nsw: int):
+    """intersect_bitset_counts without the counts: the mask alone."""
+    return _intersect(q_slots, q_neg, bits, nsw, False)
+
+
+def _intersect(q_slots, q_neg, bits, nsw: int, with_counts: bool):
+    dev = bits.device
+    q_slots, q_neg = _host_slots(q_slots, q_neg, bits, nsw)
     if not _route(dev):
+        if with_counts:
+            return intersect_bitset_counts_plain(q_slots, q_neg, bits,
+                                                 nsw=nsw)
         return intersect_bitset_plain(q_slots, q_neg, bits, nsw=nsw)
-    out = _out((qc, nsw * SW_WORD_ROWS, 128), torch.int32, dev)
-    _launch("intersect_bitset", dev, q_slots.data_ptr(), q_neg.data_ptr(),
-            bits.data_ptr(), out.data_ptr(), qc, int(nsw),
-            int(bits.shape[1]), n_slots)
-    return out
+    qc = int(q_slots.shape[0])
+    mask = _out((qc, nsw * SW_WORD_ROWS, 128), torch.int32, dev)
+    counts = _out((qc,), torch.int32, dev)
+    # the slots ride in the launch's parameters, 256 queries a launch
+    ptrs = (q_slots.data_ptr(), q_neg.data_ptr(), mask.data_ptr(),
+            counts.data_ptr())
+    for q0 in range(0, qc, INTERSECT_TABLE_Q):
+        _launch("intersect_bitset", dev, ptrs[0] + q0 * BITSET_CLAUSES * 4,
+                ptrs[1] + q0 * BITSET_NEGS * 4, bits.data_ptr(),
+                ptrs[2] + q0 * mask.stride(0) * 4, ptrs[3] + q0 * 4,
+                min(INTERSECT_TABLE_Q, qc - q0), int(nsw),
+                int(bits.shape[1]), int(bits.shape[0]))
+    return (mask, counts) if with_counts else mask
 
 
 def sweep_rowmax_bitset_plain(qscale, cols_hi, cols_lo, wq, mask, live, *,

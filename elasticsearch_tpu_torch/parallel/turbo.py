@@ -1557,16 +1557,18 @@ class TurboBM25:
 
     def _sweep_bool_bits(self, chunk: Sequence[_BoolQuery], QC: int):
         """The bitset twin of _sweep_bool: K5 intersects the clauses'
-        packed match sets, K6 sweeps only the surviving docs. Returns
-        (rm, rr, counts), counts being the per-query nonzero-chunk tally."""
+        packed match sets and counts each query's nonzero chunks in the
+        same pass, K6 sweeps only the surviving docs. Returns (rm, rr,
+        counts), counts being the per-query nonzero-chunk tally. The clause
+        slots go to K5 from the host, where it checks them without reading
+        back from the card."""
         wq, _, _, qscale = self._bool_weights(chunk, QC)
         q_slots, q_neg = self._bitset_prefetch(chunk, QC)
         dev = self.device
         with faults.device_dispatch("bitset_intersect", self.part_id):
-            mask = kernels.intersect_bitset(
-                torch.from_numpy(q_slots).to(dev),
-                torch.from_numpy(q_neg).to(dev), self.bits, nsw=self.nsw)
-            counts = kernels.mask_chunk_counts(mask)
+            mask, counts = kernels.intersect_bitset_counts(
+                torch.from_numpy(q_slots), torch.from_numpy(q_neg),
+                self.bits, nsw=self.nsw)
         with faults.device_dispatch("turbo_sweep", self.part_id):
             rm, rr = kernels.sweep_rowmax_bitset(
                 torch.from_numpy(qscale).to(dev), self.cols_hi,

@@ -32,8 +32,11 @@ from elasticsearch_tpu.parallel.knn import KnnEngine as RefKnnEngine
 from elasticsearch_tpu_torch.common.errors import KernelLaunchError
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
-    AGG_CASES, AGG_WORD_CASES, CONJ_EDGE_CASES, MERGE_EDGE_CASES,
-    SPARSE_BATCH_CASES, agg_inputs, agg_masks, agg_plan, agg_section,
+    AGG_CASES, AGG_WORD_CASES, CONJ_EDGE_CASES, COUNT_MASK_CASES,
+    MERGE_EDGE_CASES, PACK_CASES, SPARSE_BATCH_CASES,
+    count_mask_inputs, emulate_intersect_counts, emulate_mask_counts,
+    emulate_pack_bits, overflow_slots, pack_inputs, agg_inputs, agg_masks,
+    agg_plan, agg_section,
     agg_word_inputs, emulate_agg_bits, emulate_agg_counts, emulate_agg_pack,
     emulate_merge_rank, merge_edge_inputs, bitset_edge_inputs, bitset_inputs,
     clause_slots, conj_edge_inputs, conj_inputs,
@@ -369,6 +372,122 @@ def test_intersect_bitset_rejects_slot_outside_bits():
     q_neg[3, 0] = 15
     with pytest.raises(ValueError, match="outside the bitsets"):
         k.intersect_bitset(_t(q_slots), _t(q_neg), _t(bits), nsw=1)
+
+
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_pack_presence_bits_cases_bitwise(case):
+    """The pack on lo-only columns, bytes of -128, an all-zero slot beside
+    a full one, odd nsw and the smallest cache, against the reference."""
+    hi, lo = pack_inputs(case)
+    want = ref_k.pack_presence_bits(jnp.asarray(hi), jnp.asarray(lo))
+    got = k.pack_presence_bits(_t(hi), _t(lo))
+    assert got.shape == (hi.shape[1] + 1, hi.shape[0] // 2, 128)
+    assert np.array_equal(_u32(got.numpy()), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_pack_bits_kernel_emulated(case):
+    """A numpy model of csrc/pack_bits.cu (__vcmpne4 per row, eight rows
+    summed a byte, the 4x4 byte transpose) writes the plain version's
+    bits."""
+    hi, lo = pack_inputs(case)
+    want = k.pack_presence_bits_plain(_t(hi), _t(lo)).numpy()
+    assert np.array_equal(emulate_pack_bits(hi, lo), want)
+
+
+@pytest.mark.parametrize("nsw", [1, 2, 3])
+def test_intersect_bitset_counts_bitwise(nsw):
+    """Mask and counts on the CPU route against the reference's
+    intersect_bitset (interpret mode) and mask_chunk_counts: inactive rows
+    (zero sentinel), rows with no required clause (ones sentinel), 8
+    distinct clauses, repeated slots, a must_not repeating a clause and
+    the ones sentinel as a must_not."""
+    n_slots = 13
+    bits = bitset_inputs(20 + nsw, n_slots, nsw)
+    q_slots, q_neg = clause_slots(30 + nsw, 11, n_slots)
+    want = ref_k.intersect_bitset(jnp.asarray(q_slots), jnp.asarray(q_neg),
+                                  jnp.asarray(_u32(bits)), QC=11, nsw=nsw)
+    want_c = ref_k.mask_chunk_counts(want)
+    mask, counts = k.intersect_bitset_counts(_t(q_slots), _t(q_neg),
+                                             _t(bits), nsw=nsw)
+    assert mask.dtype == torch.int32 and counts.dtype == torch.int32
+    assert np.array_equal(_u32(mask.numpy()), np.asarray(want))
+    assert np.array_equal(counts.numpy(), np.asarray(want_c))
+    c = counts.numpy()
+    assert c[0] == 0 and c.max() > 0
+    assert np.array_equal(mask.numpy(), k.intersect_bitset(
+        _t(q_slots), _t(q_neg), _t(bits), nsw=nsw).numpy())
+
+
+@pytest.mark.parametrize("nsw", [1, 3])
+def test_intersect_bitset_counts_fan_in_overflow(nsw):
+    """Queries with 11 required and 6 prohibited clauses, cut to K5's 8 and
+    4 as the engine cuts them: the same mask and counts as the reference,
+    and a superset of the full clause set's matches."""
+    n_slots = 40
+    bits = bitset_inputs(40 + nsw, n_slots, nsw)
+    q_slots, q_neg, reqs, negs = overflow_slots(50 + nsw, 9, n_slots)
+    want = ref_k.intersect_bitset(jnp.asarray(q_slots), jnp.asarray(q_neg),
+                                  jnp.asarray(_u32(bits)), QC=9, nsw=nsw)
+    mask, counts = k.intersect_bitset_counts(_t(q_slots), _t(q_neg),
+                                             _t(bits), nsw=nsw)
+    assert np.array_equal(_u32(mask.numpy()), np.asarray(want))
+    assert np.array_equal(counts.numpy(),
+                          np.asarray(ref_k.mask_chunk_counts(want)))
+    b = _u32(bits)[:, : nsw * k.SW_WORD_ROWS]
+    got = _u32(mask.numpy())
+    for q in range(9):
+        full = np.bitwise_and.reduce(b[reqs[q]], axis=0)
+        full &= ~np.bitwise_or.reduce(b[negs[q]], axis=0)
+        assert not (full & ~got[q]).any()
+
+
+@pytest.mark.parametrize("qc,nsw,n_slots", [(8, 1, 13), (13, 2, 13),
+                                            (20, 3, 40), (1, 1, 9)])
+def test_intersect_counts_kernel_emulated(qc, nsw, n_slots):
+    """A numpy model of csrc/intersect_bitset.cu (a block per query and
+    superwindow, slot lists with repeats and sentinels skipped, the
+    per-warp flags summed by __syncthreads_count) gives the plain
+    version's mask and counts."""
+    bits = bitset_inputs(60 + qc, n_slots, nsw)
+    q_slots, q_neg = clause_slots(70 + qc, max(qc, 6), n_slots)
+    q_slots, q_neg = q_slots[:qc], q_neg[:qc]
+    mask, counts = emulate_intersect_counts(q_slots, q_neg, bits, nsw)
+    pm, pc = k.intersect_bitset_counts_plain(_t(q_slots), _t(q_neg),
+                                             _t(bits), nsw=nsw)
+    assert np.array_equal(mask, pm.numpy())
+    assert np.array_equal(counts, pc.numpy())
+
+
+@pytest.mark.parametrize("case", COUNT_MASK_CASES)
+def test_chunk_count_scheme_emulated(case):
+    """K5's per-warp flag and popcount scheme (emulate_mask_counts) equals
+    mask_chunk_counts, the port's and the reference's, on random masks,
+    masks with only high-half or only low-half bits, words with only the
+    sign bit set, and an empty mask."""
+    mask = count_mask_inputs(case)
+    got = emulate_mask_counts(mask)
+    assert np.array_equal(got, k.mask_chunk_counts(_t(mask)).numpy())
+    assert np.array_equal(got, np.asarray(
+        ref_k.mask_chunk_counts(jnp.asarray(_u32(mask)))))
+    if case in ("high_only", "sign_bit"):
+        assert got.max() > 0
+
+
+def test_intersect_bitset_counts_rejects_bad_slots():
+    """A slot outside [0, Hp+2) or slots on another device than the CPU
+    route's bits raise before any work."""
+    bits = bitset_inputs(0, 13, 1)
+    q_slots, q_neg = clause_slots(1, 8, 13)
+    q_slots[2, 5] = -1
+    with pytest.raises(ValueError, match="outside the bitsets"):
+        k.intersect_bitset_counts(_t(q_slots), _t(q_neg), _t(bits), nsw=1)
+    q_slots[2, 5] = 0
+    with pytest.raises(TypeError):
+        k.intersect_bitset_counts(_t(q_slots).long(), _t(q_neg), _t(bits),
+                                  nsw=1)
+    with pytest.raises(ValueError, match="does not cover"):
+        k.intersect_bitset_counts(_t(q_slots), _t(q_neg), _t(bits), nsw=2)
 
 
 def test_sweep_rowmax_bitset_bitwise():

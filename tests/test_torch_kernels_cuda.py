@@ -11,8 +11,10 @@ negative and all-zero weights, padding lanes, zero groups, overlapping
 cold slices, the batched K3 cases (shared docs, chunk boundaries at one
 doc, tiles that meet with no shared doc, narrowed tile ranges, docs past
 the grid, empty queries, a duplicated term, a 256-query group), fan-in
-padding and sentinel rows, K2's group edges (QC not a multiple of the
-group, a group weighting every slot, all-zero queries, a dead
+padding, overflow and sentinel rows, the bitset pack's columns (lo
+only, bytes of -128, an all-zero slot, odd nsw), K2's group edges (QC
+not a multiple of the group, a group weighting every slot, all-zero
+queries, a dead
 superwindow, tied rows), K7's on its own (filters, a must_not in the
 top row, nreq 0, the integer path, padding queries, lists past the
 capacity), K6's on K2's with masks (a masked-out superwindow, an all-zero
@@ -40,8 +42,8 @@ from elasticsearch_tpu_torch.parallel import cuda_build
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
     AGG_CASES, AGG_WORD_CASES, CONJ_EDGE_CASES, MERGE_EDGE_CASES,
-    SPARSE_BATCH_CASES, agg_inputs, agg_masks, agg_plan, agg_section,
-    agg_word_inputs,
+    PACK_CASES, SPARSE_BATCH_CASES, agg_inputs, agg_masks, agg_plan,
+    agg_section, agg_word_inputs, overflow_slots, pack_inputs,
     merge_edge_inputs, bitset_edge_inputs, bitset_inputs, clause_slots,
     conj_edge_inputs, conj_inputs, knn_inputs, lanes_and_groups,
     mask_inputs, merge_inputs, sparse_batch_inputs, sparse_group,
@@ -238,8 +240,82 @@ def test_intersect_bitset_kernel(dev, qc, n_slots, nsw):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("qc,n_slots,nsw", [(8, 13, 1), (40, 300, 3),
+                                             (256, 40, 2), (13, 13, 2),
+                                             (300, 40, 1)])
+def test_intersect_bitset_counts_kernel(dev, qc, n_slots, nsw):
+    """K5's mask and counts in one launch: the mask equal to the plain
+    version's, the counts to mask_chunk_counts of the kernel's own mask,
+    with the slots given on the card (read back) and on the host; they
+    ride in the launch's parameters, one launch per 256 queries."""
+    bits = bitset_inputs(nsw + 3, n_slots, nsw)
+    q_slots, q_neg = clause_slots(nsw + 20, qc, n_slots)
+    args = [_c(a, dev) for a in (q_slots, q_neg, bits)]
+    k.reset_launches()
+    mask, counts = k.intersect_bitset_counts(*args, nsw=nsw)
+    hm, hc = k.intersect_bitset_counts(_c(q_slots, "cpu"), _c(q_neg, "cpu"),
+                                       args[2], nsw=nsw)
+    pm, pc = k.intersect_bitset_counts_plain(*args, nsw=nsw)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["intersect_bitset"] == 2 * -(-qc // 256)
+    assert torch.equal(mask, pm) and torch.equal(hm, pm)
+    assert torch.equal(counts, k.mask_chunk_counts(mask))
+    assert torch.equal(counts, pc) and torch.equal(hc, pc)
+    assert counts.dtype == torch.int32 and int(counts.max()) > 0
+
+
+def test_intersect_table_q_matches_kernel(dev):
+    """kernels.INTERSECT_TABLE_Q mirrors the built TABLE_Q (the queries a
+    host-slot launch carries)."""
+    assert cuda_build.kernel("intersect_table_q")() == k.INTERSECT_TABLE_Q
+
+
+def test_intersect_bitset_counts_fan_in_overflow_kernel(dev):
+    """Queries cut from 11 required and 6 prohibited clauses to K5's 8 and
+    4, as the engine cuts them."""
+    bits = bitset_inputs(7, 40, 3)
+    q_slots, q_neg, _, _ = overflow_slots(8, 24, 40)
+    args = [_c(a, dev) for a in (q_slots, q_neg, bits)]
+    mask, counts = k.intersect_bitset_counts(*args, nsw=3)
+    pm, pc = k.intersect_bitset_counts_plain(*args, nsw=3)
+    torch.cuda.synchronize()
+    assert torch.equal(mask, pm) and torch.equal(counts, pc)
+
+
+@pytest.mark.parametrize("on_card", [False, True])
+def test_intersect_bitset_counts_rejects_slot_on_card(dev, on_card):
+    """A slot outside [0, Hp+2) raises ValueError on the card route too,
+    whether the slots come from the host or lie on the card, and nothing
+    launches."""
+    bits = _c(bitset_inputs(0, 13, 1), dev)
+    q_slots, q_neg = clause_slots(1, 8, 13)
+    q_neg[3, 0] = 15
+    where = dev if on_card else "cpu"
+    k.reset_launches()
+    with pytest.raises(ValueError, match="outside the bitsets"):
+        k.intersect_bitset_counts(_c(q_slots, where), _c(q_neg, where), bits,
+                                  nsw=1)
+    assert k.LAUNCHES["intersect_bitset"] == 0
+
+
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_pack_presence_bits_kernel(dev, case):
+    """The pack kernel (csrc/pack_bits.cu) against its plain version on the
+    card and on the CPU: random columns, lo-only columns, bytes of -128,
+    an all-zero slot, odd nsw, the smallest cache; one launch counted."""
+    hi, lo = pack_inputs(case)
+    k.reset_launches()
+    got = k.pack_presence_bits(_c(hi, dev), _c(lo, dev))
+    want = k.pack_presence_bits_plain(_c(hi, dev), _c(lo, dev))
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["pack_presence_bits"] == 1
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), k.pack_presence_bits(_c(hi, "cpu"),
+                                                       _c(lo, "cpu")))
+
+
 def test_pack_presence_bits_on_card(dev):
-    """The pack is torch code: the same bits on the card as on the CPU."""
+    """The pack on the card writes the bits the CPU route writes."""
     _, hi, lo, _, _ = sweep_inputs(2, qc=2, hpt=11, nsw=2)
     got = k.pack_presence_bits(_c(hi, dev), _c(lo, dev)).cpu()
     want = k.pack_presence_bits(_c(hi, "cpu"), _c(lo, "cpu"))
@@ -462,12 +538,14 @@ def test_merge_topk_edges_kernel(dev, case):
 
 @pytest.mark.parametrize("kernel", ["build_columns", "sparse_gather",
                                     "merge_topk", "intersect_bitset",
-                                    "knn_int8_window_topc"])
+                                    "knn_int8_window_topc",
+                                    "pack_presence_bits"])
 def test_poisoned_outputs(dev, kernel):
-    """W15: K1, K3, K4, K5 and K9 on outputs filled with NaN / -1
-    (kernels.poisoned; K1: tiles filled with a nonzero byte pattern, so
-    its nrows = 0 groups must write their zeros; K9: its scratch too),
-    bitwise equal to the plain versions."""
+    """W15: K1, K3, K4, K5, K9 and the bitset pack on outputs filled with
+    NaN / -1 (kernels.poisoned; K1: tiles filled with a nonzero byte
+    pattern, so its nrows = 0 groups must write their zeros; K5: its
+    counts too, which its C entry zeroes; K9: its scratch too), bitwise
+    equal to the plain versions."""
     if kernel == "build_columns":
         docs, scores, gr, gn, gb, gs = lanes_and_groups(4, 8, 40, False)
         assert (gn == 0).any()
@@ -502,8 +580,16 @@ def test_poisoned_outputs(dev, kernel):
             bits = bitset_inputs(3, 40, 3)
             q_slots, q_neg = clause_slots(13, 40, 40)
             args = [_c(a, dev) for a in (q_slots, q_neg, bits)]
-            got = [k.intersect_bitset(*args, nsw=3)]
-            want = [k.intersect_bitset_plain(*args, nsw=3)]
+            got = [k.intersect_bitset(*args, nsw=3),
+                   *k.intersect_bitset_counts(*args, nsw=3)]
+            want = [k.intersect_bitset_plain(*args, nsw=3),
+                    *k.intersect_bitset_counts_plain(*args, nsw=3)]
+        elif kernel == "pack_presence_bits":
+            got, want = [], []
+            for case in ("random", "nsw3"):
+                hi, lo = (_c(a, dev) for a in pack_inputs(case))
+                got.append(k.pack_presence_bits(hi, lo))
+                want.append(k.pack_presence_bits_plain(hi, lo))
         else:
             got, want = [], []
             for kw in (dict(qc=37, nw=3, dims=128, masked=True, n_parts=4),

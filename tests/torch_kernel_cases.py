@@ -1176,3 +1176,196 @@ def agg_word_inputs(name):
         ps.append(len(sec[0]))
     return (agg_masks(rng, q, n_docs, live, density=0.2),
             np.concatenate(parts), ps, n_seg)
+
+
+# ---- the bitset pack (csrc/pack_bits.cu) and K5's counts ----
+
+PACK_CASES = ("random", "lo_only", "minus128", "zero_slot", "nsw3", "dpc2")
+
+
+def pack_inputs(case):
+    """Column layers [dpc, Hp+1, 16, 128] i8 for the pack: random sparse
+    columns, columns where only lo is set, bytes of -128 (the sign bit
+    alone) in either layer, an all-zero slot beside full ones, three
+    superwindows (odd nsw), and the smallest cache (two chunks, one
+    slot)."""
+    seed = PACK_CASES.index(case)
+    rng = np.random.default_rng(70 + seed)
+    nsw, hp1 = {"nsw3": (3, 5), "dpc2": (None, 1)}.get(case, (1, 11))
+    dpc = 2 if case == "dpc2" else nsw * k.N_CHUNKS
+    shape = (dpc, hp1, 16, 128)
+    hi = rng.integers(-127, 128, size=shape).astype(np.int8)
+    lo = rng.integers(-127, 128, size=shape).astype(np.int8)
+    hi[rng.random(shape) < 0.8] = 0
+    lo[rng.random(shape) < 0.8] = 0
+    if case == "lo_only":
+        hi[:] = 0
+    elif case == "minus128":
+        hi[:] = 0
+        lo[:] = 0
+        hi[rng.random(shape) < 0.1] = -128
+        lo[rng.random(shape) < 0.1] = -128
+    elif case == "zero_slot":
+        hi[:, 3] = 0
+        lo[:, 3] = 0
+        hi[:, 5] = -1                       # every cell present
+    hi[:, -1] = 0                           # the scratch slot Hp
+    lo[:, -1] = 0
+    return hi, lo
+
+
+def _byte_perm_np(x, y, s):
+    """__byte_perm(x, y, s) on uint32 arrays, s a Python constant."""
+    b = [(x >> np.uint32(8 * i)) & np.uint32(255) for i in range(4)] + \
+        [(y >> np.uint32(8 * i)) & np.uint32(255) for i in range(4)]
+    out = np.zeros_like(x)
+    for n in range(4):
+        out |= b[(s >> (4 * n)) & 7] << np.uint32(8 * n)
+    return out
+
+
+def emulate_pack_bits(hi, lo):
+    """numpy model of csrc/pack_bits.cu: per (slot, word row, 4 lanes) the
+    32 rows' 4-byte words, __vcmpne4(h | l, 0) & 0x01010101, eight rows'
+    0/1 bytes summed into a word, then the 4x4 byte transpose. Returns
+    bits [Hp+2, dpc // 2, 128] i32."""
+    dpc, hp1 = hi.shape[:2]
+    wgr = dpc // 2
+    h = np.ascontiguousarray(hi).view(np.uint32)    # [dpc, hp1, 16, 32]
+    l_ = np.ascontiguousarray(lo).view(np.uint32)
+    v = (h | l_).reshape(wgr, 2, hp1, 16, 32).transpose(2, 0, 1, 3, 4)
+    v = v.reshape(hp1, wgr, 32, 32)                 # [s, g, row j, t]
+    nz = v.view(np.uint8).reshape(hp1, wgr, 32, 32, 4) != 0
+    m = (nz.astype(np.uint32) << (np.arange(4, dtype=np.uint32) * 8)).sum(
+        axis=-1, dtype=np.uint32)                   # vcmpne4 & 0x01010101
+    a = [np.zeros((hp1, wgr, 32), np.uint32) for _ in range(4)]
+    for kk in range(4):
+        for i in range(8):
+            a[kk] |= m[:, :, 8 * kk + i] << np.uint32(i)
+    t0 = _byte_perm_np(a[0], a[1], 0x5140)
+    t1 = _byte_perm_np(a[2], a[3], 0x5140)
+    t2 = _byte_perm_np(a[0], a[1], 0x7362)
+    t3 = _byte_perm_np(a[2], a[3], 0x7362)
+    words = np.stack([_byte_perm_np(t0, t1, 0x5410),
+                      _byte_perm_np(t0, t1, 0x7632),
+                      _byte_perm_np(t2, t3, 0x5410),
+                      _byte_perm_np(t2, t3, 0x7632)], axis=-1)
+    bits = np.full((hp1 + 1, wgr, 128), 0xFFFFFFFF, np.uint32)
+    bits[:hp1] = words.reshape(hp1, wgr, 128)
+    return bits.view(np.int32)
+
+
+K5_THREADS = 256          # intersect_bitset.cu's THREADS: a block's threads
+
+
+def _k5_lists(slots, negs, n_slots):
+    """intersect_bitset.cu's per-query slot lists: (pos, neg) to read, or
+    None for a block that is zero without a read."""
+    zero_s, ones_s = n_slots - 2, n_slots - 1
+    pos, neg, empty = [], [], False
+    for s in slots:
+        empty |= s == zero_s
+        if s not in (zero_s, ones_s) and s not in pos:
+            pos.append(s)
+    for s in negs:
+        empty |= s == ones_s
+        if s not in (zero_s, ones_s) and s not in neg:
+            neg.append(s)
+    return None if empty else (pos, neg)
+
+
+def emulate_mask_counts(mask):
+    """numpy model of the counts of csrc/intersect_bitset.cu over a mask
+    [QC, nsw * 16, 128] i32: in each (query, superwindow) block, thread t
+    owns the 16-byte words t + 256v (v < 2); warp w ballots (x & 0xFFFF)
+    != 0 and (x >> 16) != 0 over its threads' x (the OR of a thread's four
+    uint32 lanes, shifted as unsigned) for each v, so its flags count the
+    nonzero chunk halves of word rows w + 8v; __syncthreads_count over
+    (lane < flags) sums the warps' flags, and the block adds the total to
+    counts[q]. Returns counts [QC] i32."""
+    qc, wgr, _ = mask.shape
+    nsw = wgr // k.SW_WORD_ROWS
+    vec = mask.view(np.uint32).reshape(qc, nsw, k.SW_WORD_ROWS * 32, 4)
+    x = np.bitwise_or.reduce(vec, axis=-1)        # [q, sw, 16-byte word]
+    vpt = k.SW_WORD_ROWS * 32 // K5_THREADS
+    counts = np.zeros(qc, np.int64)
+    for q in range(qc):
+        for sw in range(nsw):
+            total = 0
+            for w in range(K5_THREADS // 32):
+                flags = 0
+                for v in range(vpt):
+                    t0 = v * K5_THREADS + 32 * w
+                    xs = x[q, sw, t0:t0 + 32]
+                    flags += int(((xs & np.uint32(0xFFFF)) != 0).any())
+                    flags += int(((xs >> np.uint32(16)) != 0).any())
+                total += sum(lane < flags for lane in range(32))
+            counts[q] += total
+    return counts.astype(np.int32)
+
+
+def emulate_intersect_counts(q_slots, q_neg, bits, nsw):
+    """numpy model of csrc/intersect_bitset.cu: a block per (query,
+    superwindow), its mask read only from the query's distinct,
+    non-sentinel slots (a zero sentinel in the AND list or a ones sentinel
+    in the AND-NOT list leaves the block zero unread), the counts as
+    emulate_mask_counts. Returns (mask i32, counts i32)."""
+    qc = q_slots.shape[0]
+    n_slots = bits.shape[0]
+    b = bits.view(np.uint32)
+    mask = np.zeros((qc, nsw * k.SW_WORD_ROWS, 128), np.uint32)
+    for q in range(qc):
+        lists = _k5_lists(q_slots[q], q_neg[q], n_slots)
+        if lists is None:
+            continue
+        for sw in range(nsw):
+            rows = slice(sw * k.SW_WORD_ROWS, (sw + 1) * k.SW_WORD_ROWS)
+            acc = np.full((k.SW_WORD_ROWS, 128), 0xFFFFFFFF, np.uint32)
+            for s in lists[0]:
+                acc &= b[s, rows]
+            for s in lists[1]:
+                acc &= ~b[s, rows]
+            mask[q, rows] = acc
+    mask = mask.view(np.int32)
+    return mask, emulate_mask_counts(mask)
+
+
+COUNT_MASK_CASES = ("random", "high_only", "low_only", "sign_bit", "empty")
+
+
+def count_mask_inputs(case, qc=6, nsw=2):
+    """Masks for the count scheme: mask_inputs' random ones, words with
+    only high-half bits, only low-half bits, only the sign bit (the
+    arithmetic shift's trap), and all zero."""
+    mask = mask_inputs(80 + COUNT_MASK_CASES.index(case), qc, nsw)
+    rng = np.random.default_rng(90 + COUNT_MASK_CASES.index(case))
+    if case == "high_only":
+        mask &= np.int32(-65536)
+    elif case == "low_only":
+        mask &= np.int32(0xFFFF)
+    elif case == "sign_bit":
+        mask[:] = 0
+        mask[rng.random(mask.shape) < 0.01] = np.int32(-2 ** 31)
+    elif case == "empty":
+        mask[:] = 0
+    return mask
+
+
+def overflow_slots(seed, qc, n_slots, n_req=11, n_neg=6):
+    """Queries past K5's fan-in: each has n_req required and n_neg
+    prohibited slots (disjoint, drawn at random), truncated to the first
+    BITSET_CLAUSES / BITSET_NEGS as TurboBM25._bitset_slots keeps the
+    rarest. Returns (q_slots, q_neg, full required lists, full must_not
+    lists)."""
+    rng = np.random.default_rng(seed)
+    q_slots = np.zeros((qc, k.BITSET_CLAUSES), np.int32)
+    q_neg = np.zeros((qc, k.BITSET_NEGS), np.int32)
+    reqs, negs = [], []
+    for q in range(qc):
+        pick = rng.choice(n_slots, size=n_req + n_neg, replace=False)
+        req, neg = pick[:n_req], pick[n_req:]
+        q_slots[q] = req[: k.BITSET_CLAUSES]
+        q_neg[q] = neg[: k.BITSET_NEGS]
+        reqs.append(req)
+        negs.append(neg)
+    return q_slots, q_neg, reqs, negs
