@@ -2,7 +2,7 @@
 """Quickest proof that the PyTorch + CUDA port serves on an NVIDIA H100.
 
     python3 chip_smoke.py            # one card; exits 0 only if every check holds
-    python3 chip_smoke.py --docs N   # cut the index to N docs (the cut is printed)
+    python3 chip_smoke.py --docs N   # cut the index (and the dense phase) to N docs
     python3 chip_smoke.py --knn-docs N   # cut the kNN column to N vectors
     python3 chip_smoke.py --agg-docs N   # cut the agg leaf to N docs
     python3 chip_smoke.py --k2-parent OLD.cu   # time earlier sweeps beside them
@@ -18,7 +18,8 @@ aggregation path the way bench.py drives config 6:
 1. builds the CUDA kernels (K1 build_columns, K2 sweep_rowmax,
    K3 sparse_gather, K5 intersect_bitset, K6 sweep_rowmax_bitset,
    K7 sweep_rowmax_conj, K4 merge_topk, K9 knn_int8_window_topc,
-   K8 agg_counts, and the bitset pack pack_presence_bits) from
+   K8 agg_counts, the bitset pack pack_presence_bits, and the dense
+   executor's block scatter, bm25_block_scatter and block_presence) from
    parallel/csrc with nvcc, one process per source, all at once;
 2. builds one 8,000,000-doc shard with positions on the host: docs of 8-40
    terms over a 500k-term Zipf(1.07) vocabulary, seeded as bench.py does;
@@ -71,10 +72,27 @@ aggregation path the way bench.py drives config 6:
    mask_chunk_counts after it, in turns; K3 on every group of cold SHOULD
    sides each route launched; each K1 launch of the phrase phase is timed
    again on its recorded groups beside its bound;
-7. serves the first batch again on a fresh engine at the default slice
+7. on the same shard as one port Segment on the card (the `body`
+   postings, `views` / `price` / `published` / `tags` columns drawn with
+   numpy seed 46, `_source` built on access, 1% of the docs deleted),
+   drives the dense search path, `search.execute_search` (the query phase
+   over the QueryExecutor, the fetch phase, highlight, aggs), with 25
+   `_search` bodies of shapes the Turbo route declines (bool filters and
+   must_not, minimum_should_match, operator and, prefix / wildcard /
+   terms / range / exists, function_score log1p, constant_score, sort
+   with search_after, from / size, track_total_hits, _source includes,
+   highlight, min_score, terms + avg aggs, profile), each once warm and
+   5 times timed; no plain version may run. Every card response is held
+   against the port's own CPU response on the same segment (equal;
+   scores bit for bit, within DENSE_SCORE_ULPS through log1p), the pure
+   `match` bodies also against brute_topk; both block-scatter kernels are
+   held bitwise against their plain versions (also on poisoned outputs)
+   on a head, a mid and a rare term and timed by events, alone and by
+   CUDA graph, beside their plain versions and `index_put_`;
+8. serves the first batch again on a fresh engine at the default slice
    ladder and reports its sparse fallbacks, holding the answers that step
    4 held;
-8. frees the BM25 index and serves quantized kNN (config 4: 768-d cosine
+9. frees the BM25 index and serves quantized kNN (config 4: 768-d cosine
    rows drawn as bench.py draws them, 128 of its 256 queries with 16
    planted near-duplicate rows each) through `select_knn_engine` ->
    `KnnEngine.search_many`, first on one partition, then, after freeing
@@ -92,7 +110,7 @@ aggregation path the way bench.py drives config 6:
    and on 16 of the queries) and K4 bitwise equal to their plain versions
    on the path's inputs, K9 timed with its score and selection passes
    apart;
-9. serves config 6 (analytics) at bench.py's 10,000,000 docs: a leaf drawn
+10. serves config 6 (analytics) at bench.py's 10,000,000 docs: a leaf drawn
    as bench.py's _synth_agg_leaf (Zipf tags, a 90-day timestamp, prices
    with gaps), AGG_BENCH_SPEC (terms + stats, 7d date_histogram + sum)
    over 8 masks at 5% through parse_aggs -> collect_leaf ->
@@ -107,9 +125,9 @@ aggregation path the way bench.py drives config 6:
    K8 bitwise against its plain version on the path's layouts at Q = 1,
    4, 16 and 64 and on a synthetic four-tile one, timed by events, alone
    and beside the parent commit's kernel given --k8-parent (K4 likewise
-   in step 8, given --k4-parent, with its host enqueue), K9 and K4 also on
+   in step 9, given --k4-parent, with its host enqueue), K9 and K4 also on
    outputs filled with NaN / -1 first;
-10. prints the card's name and power limit and a `kernels` JSON line, and
+11. prints the card's name and power limit and a `kernels` JSON line, and
    last `{"ok": true, "device": {...}}`.
 
 The kNN column is cut from bench.py's 10M vectors to 2,000,000: at 10M a
@@ -125,7 +143,7 @@ The main path runs at a slice-width ladder extended to 65536
 1024,4096,16384, so every cold term (df < cold_df = 65536) gets a device
 slice: with the default ladder a query with a cold term of df 16385-65535
 has its whole cold side scored on the host (a sparse fallback), which the
-main path refuses. Phase 6 measures how often that happens at the default.
+main path refuses. Step 8 measures how often that happens at the default.
 """
 
 from __future__ import annotations
@@ -246,9 +264,10 @@ DSL_BODIES = [
 ]
 
 
-def brute_topk(fp, total_docs, terms, k=K):
+def brute_topk(fp, total_docs, terms, k=K, live=None):
     """Independent numpy scorer: term-at-a-time f32 BM25 over the postings,
-    (score desc, doc asc) — the accumulation order of the reference scorer."""
+    (score desc, doc asc) — the accumulation order of the reference scorer;
+    over the docs `live` marks, where given."""
     import math
 
     n_field = int(np.count_nonzero(fp.doc_len))
@@ -270,6 +289,8 @@ def brute_topk(fp, total_docs, terms, k=K):
         lane = np.where(tf > 0, tf * (1.2 + 1.0) / denom,
                         0.0).astype(np.float32)
         dense[docs] = dense[docs] + np.float32(idf * boost) * lane
+    if live is not None:
+        dense[~live] = 0
     docs = np.nonzero(dense > 0)[0]
     sel = np.lexsort((docs, -dense[docs]))[:k]
     return dense[docs[sel]], docs[sel].astype(np.int32)
@@ -2495,13 +2516,16 @@ AGG_SHAPES = {
 AGG_SYNTH_BUCKETS = 60_000   # the synthetic K8 check: four bucket tiles
 
 
-def agg_leaf(n: int, seed: int = 29, vocab: int = AGG_VOCAB):
+def agg_leaf(n: int, seed: int = 29, vocab: int = AGG_VOCAB,
+             device="cuda"):
     """Config 6's analytics leaf, drawn as bench.py's _synth_agg_leaf draws
     it (seed 29, vocab 256): 1-2 Zipf(1.1) keyword tags per doc (deduped,
     per-doc sorted CSR), a 90-day timestamp column and a price column with
-    20% gaps, as the port's KeywordColumn / NumericColumn. Returns an
-    AggContext."""
+    20% gaps, as the port's KeywordColumn / NumericColumn, on `device` (the
+    agg tier's engine is the leaf's device's). Returns an AggContext."""
     from types import SimpleNamespace
+
+    from elasticsearch_tpu_torch import device as _device
 
     from elasticsearch_tpu_torch.index.segment import (
         KeywordColumn, NumericColumn,
@@ -2538,7 +2562,8 @@ def agg_leaf(n: int, seed: int = 29, vocab: int = AGG_VOCAB):
             [[0], np.cumsum(p_exists.astype(np.int64))]),
         all_values=price[p_exists])
     seg = SimpleNamespace(n_docs=n, keyword={"tag": kc},
-                          numeric={"ts": tcol, "price": pcol}, _device={})
+                          numeric={"ts": tcol, "price": pcol}, _device={},
+                          torch_device=_device.resolve(device))
     leaf = SimpleNamespace(segment=seg, n_docs=n)
     return AggContext(leaf=leaf, mapper=None, executor=None,
                       live=np.ones(n, bool))
@@ -2612,10 +2637,10 @@ def agg_dispatch_timer(acc: list):
 
     real = agg_device._dispatch
 
-    def timed(works):
+    def timed(seg, works):
         t = time.time()
         try:
-            return real(works)
+            return real(seg, works)
         finally:
             acc.append(time.time() - t)
 
@@ -2880,7 +2905,8 @@ def agg_phase(n: int, device="cuda", k8_parent_src=None) -> tuple:
     path; the reference suite's shapes held on sparse, dense and empty
     masks; a coalesced batch of works; K8 against its plain version (and
     the parent commit's source `k8_parent_src` when it is a file).
-    `device` other than "cuda" installs an engine there (a CPU rehearsal).
+    `device` other than "cuda" puts the leaf, and so its agg engine,
+    there (a CPU rehearsal).
     Returns (kernel row, report)."""
     import torch
 
@@ -2890,7 +2916,7 @@ def agg_phase(n: int, device="cuda", k8_parent_src=None) -> tuple:
     if n < AGG_DOCS:
         log(f"CUT: agg leaf cut from {AGG_DOCS} to {n} docs")
     t = time.time()
-    ctx = agg_leaf(n)
+    ctx = agg_leaf(n, device=device)
     seg = ctx.leaf.segment
     arng = np.random.default_rng(31)
     cmasks = [arng.random(n) < 0.05 for _ in range(AGG_REQUESTS)]
@@ -2903,9 +2929,7 @@ def agg_phase(n: int, device="cuda", k8_parent_src=None) -> tuple:
     log(f"agg leaf: {n} docs, {len(kc.all_ords)} (doc, tag) pairs, "
         f"{len(seg.numeric['price'].all_values)} prices in {data_s:.1f}s")
 
-    if device != "cuda":
-        agg_device._ENGINE = agg_device.AggDeviceEngine(device=device)
-    eng = agg_device.default_engine()
+    eng = agg_device.default_engine(seg.torch_device)
     # ---- the main path: one warm request (the layout builds), then the
     # timed ones, every launch count set to 0 just before ----
     c0 = agg_counts()
@@ -3013,6 +3037,461 @@ def agg_phase(n: int, device="cuda", k8_parent_src=None) -> tuple:
         "coalesced": {"works": len(batch), "equal_to_q1": True}}
     del batch, lay
     return row, report
+
+
+# --------------------------------------------------------------------------
+# the dense search path: execute_search over the config-1 shard
+# --------------------------------------------------------------------------
+
+DENSE_MAPPING = {"properties": {
+    "body": {"type": "text"}, "views": {"type": "long"},
+    "price": {"type": "double"}, "published": {"type": "date"},
+    "tags": {"type": "keyword"}}}
+DENSE_TAGS = 64
+DENSE_DELETED = 0.01       # share of the shard's docs deleted (live mask)
+DENSE_REPS = 5             # warm runs of each body, median reported
+PUB_T0 = 1_546_300_800_000            # 2019-01-01T00:00:00Z
+PUB_SPAN = 5 * 365 * 86_400_000       # five years of ms
+# card against CPU on scores through log1p: torch's CUDA and CPU log1p are
+# not correctly rounded and may differ by an ulp each, and the factor
+# multiplies a BM25 score: bound 4 ulp of the CPU's f32 score
+DENSE_SCORE_ULPS = 4
+# the pure `match` bodies, held also against brute_topk (their analyzed
+# terms, boost 1)
+DENSE_MATCH = {
+    "match_two": ["t3", "t1200"],
+    "match_head": ["t0", "t1"],
+    "match_three": ["t17", "t40000", "t9"],
+    "match_one_mid": ["t250"],
+}
+DENSE_BODIES = {
+    "match_two": {"query": {"match": {"body": "t3 t1200"}}},
+    "match_head": {"query": {"match": {"body": "t0 t1"}}},
+    "match_three": {"query": {"match": {"body": "T17 t40000 t9"}}},
+    "match_one_mid": {"query": {"match": {"body": "t250"}}},
+    "bool_must_filter": {"query": {"bool": {
+        "must": [{"match": {"body": "t3 t40"}}],
+        "filter": [{"range": {"views": {"gte": 2}}},
+                   {"term": {"tags": "tag07"}}]}}},
+    "must_not": {"query": {"bool": {
+        "must": [{"match": {"body": "t10 t200"}}],
+        "must_not": [{"term": {"tags": "tag00"}},
+                     {"range": {"price": {"gt": 50}}}]}}},
+    "should_msm": {"query": {"bool": {"should": [
+        {"term": {"body": "t5"}}, {"term": {"body": "t17"}},
+        {"term": {"body": "t300"}}], "minimum_should_match": 2}}},
+    "match_and": {"query": {"match": {"body": {
+        "query": "t2 t9 t50", "operator": "and"}}}},
+    "prefix_tags": {"query": {"prefix": {"tags": "tag1"}}},
+    "wildcard_tags": {"query": {"bool": {
+        "must": [{"match": {"body": "t7"}}],
+        "filter": [{"wildcard": {"tags": "tag*3"}}]}}},
+    "terms_tags": {"query": {"terms": {"tags": ["tag05", "tag33", "tag60"]}}},
+    "range_published": {"query": {"bool": {
+        "must": [{"match": {"body": "t12 t4000"}}],
+        "filter": [{"range": {"published": {
+            "gte": "2021-01-01", "lt": "2022-01-01"}}}]}}},
+    "exists_price": {"query": {"bool": {
+        "must": [{"match": {"body": "t25"}}],
+        "filter": [{"exists": {"field": "price"}}]}}},
+    "function_score_log1p": {"query": {"function_score": {
+        "query": {"match": {"body": "t30 t31"}},
+        "functions": [{"field_value_factor": {
+            "field": "views", "factor": 1.5, "modifier": "log1p"}}],
+        "boost_mode": "multiply"}}},
+    "constant_score": {"query": {"constant_score": {
+        "filter": {"term": {"tags": "tag02"}}, "boost": 1.5}}},
+    "sort_views_search_after": {
+        "query": {"term": {"body": "t900"}},
+        "sort": [{"views": "desc"}, {"_doc": "asc"}],
+        "search_after": [40, 0], "size": 20},
+    "sort_price_filtered": {
+        "query": {"bool": {"filter": [{"term": {"body": "t2000"}},
+                                      {"range": {"views": {"gte": 1}}}]}},
+        "sort": [{"price": "asc"}]},
+    "sort_tags_desc": {"query": {"match": {"body": "t5000"}},
+                       "sort": [{"tags": "desc"}, {"views": "asc"}],
+                       "size": 15},
+    "from_size_100": {"query": {"match": {"body": "t44 t45"}},
+                      "from": 90, "size": 10},
+    "track_total_head": {"query": {"match": {"body": "t0"}},
+                         "track_total_hits": True},
+    "source_includes": {"query": {"match": {"body": "t77 t78"}},
+                        "_source": {"includes": ["views", "tags"]}},
+    "highlight_body": {"query": {"match": {"body": "t101 t102"}},
+                       "highlight": {"fields": {"body": {}}}},
+    "min_score": {"query": {"match": {"body": "t3 t900"}}, "min_score": 8.0},
+    "aggs_terms_avg": {"query": {"match": {"body": "t6 t60"}},
+                       "aggs": {"tags": {"terms": {"field": "tags"}},
+                                "avg_price": {"avg": {"field": "price"}}}},
+    "profile": {"query": {"bool": {
+        "must": [{"match": {"body": "t8 t80"}}],
+        "filter": [{"range": {"price": {"lte": 20}}}]}}, "profile": True},
+}
+
+
+class DenseSources:
+    """Read-only `_source` of every doc of the dense phase's shard, built
+    on access from the token stream and the drawn columns (the fetch phase
+    and highlight read only the returned hits)."""
+
+    def __init__(self, tokens, bounds, cols):
+        self.tokens, self.bounds, self.cols = tokens, bounds, cols
+
+    def __len__(self):
+        return len(self.bounds) - 1
+
+    def __getitem__(self, i):
+        c = self.cols
+        i = int(i)
+        lo, hi = int(self.bounds[i]), int(self.bounds[i + 1])
+        a, b = int(c["tag_start"][i]), int(c["tag_start"][i + 1])
+        src = {"body": " ".join(f"t{t}" for t in self.tokens[lo:hi]),
+               "views": int(c["views"][i]),
+               "published": int(c["published"][i]),
+               "tags": [f"tag{o:02d}" for o in c["tag_ords"][a:b]]}
+        if c["p_exists"][i]:
+            src["price"] = float(c["price"][i])
+        return src
+
+
+def _single_column(v):
+    from elasticsearch_tpu_torch.index.segment import NumericColumn
+
+    n = len(v)
+    return NumericColumn(values=v, max_values=v, exists=np.ones(n, bool),
+                         value_start=np.arange(n + 1, dtype=np.int64),
+                         all_values=v)
+
+
+def dense_segment(fp, tokens, bounds, n: int, device):
+    """The config-1 shard as one port Segment on `device`: the `body`
+    postings with positions, and columns drawn with numpy seed 46 —
+    `views` (long, Zipf-like), `price` (double, 20% missing), `published`
+    (date over five years), `tags` (keyword, 64 values, 1-3 a doc, with its
+    postings) — `_source` built on access, and a live mask with
+    DENSE_DELETED of the docs deleted. Returns (segment, live, columns)."""
+    from elasticsearch_tpu_torch.index.segment import (
+        KeywordColumn, NumericColumn, Segment, build_field_postings,
+    )
+
+    rng = np.random.default_rng(46)
+    views = (np.minimum(rng.zipf(1.6, n), 1_000_000) - 1).astype(np.float64)
+    p_exists = rng.random(n) >= 0.2
+    price = np.round(rng.lognormal(3.0, 1.0, n), 2)
+    published = (PUB_T0 + rng.integers(0, PUB_SPAN, n)).astype(np.float64)
+    n_tags = rng.integers(1, 4, n)
+    probs = 1.0 / np.arange(1, DENSE_TAGS + 1)
+    draws = rng.choice(DENSE_TAGS, size=int(n_tags.sum()),
+                       p=probs / probs.sum())
+    pair = np.unique(np.repeat(np.arange(n, dtype=np.int64), n_tags)
+                     * DENSE_TAGS + draws)      # doc-major, deduped
+    tag_ords = (pair % DENSE_TAGS).astype(np.int32)
+    tag_docs = pair // DENSE_TAGS
+    tag_start = np.concatenate(
+        [[0], np.cumsum(np.bincount(tag_docs, minlength=n))])
+    live = rng.random(n) >= DENSE_DELETED
+    terms = [f"tag{i:02d}" for i in range(DENSE_TAGS)]
+    tags_kc = KeywordColumn(
+        terms=terms, term_to_ord={t: i for i, t in enumerate(terms)},
+        ords=tag_ords[tag_start[:-1]], max_ords=tag_ords[tag_start[1:] - 1],
+        exists=np.ones(n, bool), ord_start=tag_start, all_ords=tag_ords)
+    tags_fp = build_field_postings("tags", np.zeros(n, np.int64), tag_docs,
+                                   tag_ords, terms)
+    pcol = NumericColumn(
+        values=np.where(p_exists, price, 0.0),
+        max_values=np.where(p_exists, price, 0.0), exists=p_exists,
+        value_start=np.concatenate(
+            [[0], np.cumsum(p_exists.astype(np.int64))]),
+        all_values=price[p_exists])
+    cols = {"views": views, "price": price, "p_exists": p_exists,
+            "published": published, "tag_start": tag_start,
+            "tag_ords": tag_ords}
+    seg = Segment(
+        seg_id=0, doc_ids=[f"d{i}" for i in range(n)],
+        sources=DenseSources(tokens, bounds, cols),
+        postings={"body": fp, "tags": tags_fp},
+        numeric={"views": _single_column(views), "price": pcol,
+                 "published": _single_column(published)},
+        keyword={"tags": tags_kc}, vectors={},
+        seq_nos=np.arange(n, dtype=np.int64), device=device)
+    return seg, live, cols
+
+
+def dense_close(got, want, ulps: int) -> float:
+    """|got - want| of two response scores, bitwise (ulps 0) or within
+    `ulps` of want's f32 spacing; raises otherwise."""
+    if want is None or got is None:
+        require(got is None and want is None, f"score {got} vs {want}")
+        return 0.0
+    g, w = np.float32(got), np.float32(want)
+    if ulps == 0:
+        require(g.view(np.int32) == w.view(np.int32),
+                f"score {got!r} is not bitwise {want!r}")
+        return 0.0
+    d = float(abs(np.float64(g) - np.float64(w)))
+    require(d <= ulps * float(np.spacing(np.abs(w))),
+            f"score {got!r} beyond {ulps} ulp of {want!r}")
+    return d
+
+
+def dense_same(card: dict, cpu: dict, ulps: int, label: str) -> None:
+    """The card's response equal to the CPU's: totals, relation, aggs,
+    ids, order, `_source`, sort values, highlights; scores bitwise, or
+    within `ulps` where the body's scores pass through log1p."""
+    import copy
+
+    a, b = copy.deepcopy(card), copy.deepcopy(cpu)
+    for r in (a, b):
+        r.pop("took")
+    ha, hb = a["hits"].pop("hits"), b["hits"].pop("hits")
+    dense_close(a["hits"].pop("max_score"), b["hits"].pop("max_score"), ulps)
+    require(a == b, f"{label}: totals, aggs or envelope differ: {a} vs {b}")
+    require([h["_id"] for h in ha] == [h["_id"] for h in hb],
+            f"{label}: hit ids or order differ")
+    for x, y in zip(ha, hb):
+        dense_close(x.pop("_score"), y.pop("_score"), ulps)
+        require(x == y, f"{label}: hit {x.get('_id')} differs")
+
+
+def dense_vs_brute(resp, fp, n: int, terms, live, label: str) -> int:
+    """A pure `match` body's top-10 against brute_topk's exact numpy
+    ranking over the live docs: the same ids in the same order, except a
+    near-tie whose two brute scores lie within 4 ulp (counted). Returns
+    the near-tie swaps."""
+    bs, bd = brute_topk(fp, n, [(t, 1.0) for t in terms], live=live)
+    ids = [int(h["_id"][1:]) for h in resp["hits"]["hits"]]
+    require(len(ids) == len(bd), f"{label}: {len(ids)} hits, brute "
+            f"{len(bd)}")
+    swaps = 0
+    for i, (got, want) in enumerate(zip(ids, bd)):
+        if got == int(want):
+            continue
+        j = int(np.flatnonzero(bd == got)[0]) if got in bd else -1
+        require(j >= 0 and abs(float(bs[i]) - float(bs[j])) <= 4 * float(
+            np.spacing(bs[i])), f"{label}: hit {i} is d{got}, brute d{want}")
+        swaps += 1
+    return swaps
+
+
+def check_block_scatter(seg, n: int, launches: dict):
+    """Both block-scatter kernels on the `body` postings of the shard, one
+    term's blocks a call as the executor makes them (pad_block_ids, the
+    term's idf, the shard's avgdl): a head term (df in the millions), a
+    mid and a rare one. Each held bitwise against its plain version, also
+    on outputs filled with NaN / ones first, and timed by CUDA events,
+    alone (the scatter kernel's profiler events) and by CUDA graph (the
+    zero fill and the kernel); the plain version's time and, for the
+    scatter half, `index_put_` of the live lanes' scores into an [n_docs]
+    vector. Returns the two kernel rows (the head term's numbers on
+    top)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import bm25_idf, pad_block_ids
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    fp = seg.postings["body"]
+    docs, tfs, doc_len = seg.device("post:body")
+    dev = docs.device
+    avgdl = float(np.float32(max(
+        fp.sum_doc_len / max(int(np.count_nonzero(fp.doc_len)), 1), 1e-9)))
+    df = fp.doc_freq
+    order = np.argsort(-df, kind="stable")
+    picks = {"head": int(order[0]),
+             "mid": int(order[np.argmin(np.abs(df[order] - n // 100))]),
+             "rare": int(order[np.argmin(np.abs(df[order] - 40))])}
+    per = {"bm25_block_scatter": [], "block_presence": []}
+    worst = 0.0
+    for label, o in picks.items():
+        term = fp.terms[o]
+        ids_np = pad_block_ids(fp.term_block_ids(term))
+        idf_np = np.zeros(len(ids_np), np.float32)
+        idf_np[:int(fp.block_count[o])] = bm25_idf(n, int(df[o]))
+        ids = torch.from_numpy(ids_np).to(dev)
+        idf = torch.from_numpy(idf_np).to(dev)
+        out = {}
+
+        def bm25():
+            out["k"] = k.bm25_block_scatter(ids, idf, docs, tfs, doc_len,
+                                            avgdl=avgdl, k1=1.2, b=0.75)
+
+        def presence():
+            out["k"] = k.block_presence(ids, docs, tfs, n_docs=n)
+
+        plains = {
+            "bm25_block_scatter": lambda: k.bm25_block_scatter_plain(
+                ids, idf, docs, tfs, doc_len, avgdl=avgdl, k1=1.2, b=0.75),
+            "block_presence": lambda: k.block_presence_plain(
+                ids, docs, tfs, n_docs=n)}
+        rows_l = int(fp.block_count[o])
+        live_l = int(df[o])
+        for name, fn in (("bm25_block_scatter", bm25),
+                         ("block_presence", presence)):
+            want = plains[name]()
+            fn()
+            bits = (lambda t: t.view(torch.int32)) if name.startswith(
+                "bm25") else (lambda t: t)
+            require(torch.equal(bits(out["k"]), bits(want)),
+                    f"{name} ({label} term {term}) differs from its plain "
+                    f"version")
+            if name.startswith("bm25"):
+                worst = max(worst, max_abs_err(out["k"], want))
+            with k.poisoned():
+                fn()
+            require(torch.equal(bits(out["k"]), bits(want)),
+                    f"{name} ({label}) on a poisoned output differs")
+            events = [cuda_ms(fn, 10), cuda_ms(fn, 10)]
+            alone, alone_info = kernel_alone(fn, ("block_scatter_kernel",),
+                                             5)
+            graph = graph_ms(fn, 20)
+            plain_ms = cuda_ms(plains[name], 3)
+            lib = None
+            if name.startswith("bm25"):
+                nz = torch.nonzero(want).reshape(-1)
+                vals = want[nz]
+                dst = torch.zeros(n, dtype=torch.float32, device=dev)
+                lib = cuda_ms(lambda: dst.index_put_((nz,), vals), 10)
+                out_bytes, lane_bytes, ops = 4 * n, 8 * len(ids_np), 8
+            else:
+                out_bytes, lane_bytes, ops = n, 4 * len(ids_np), 1
+            nbytes = (lane_bytes + 1024 * len(ids_np) + out_bytes
+                      + (4 * live_l if name.startswith("bm25") else 0))
+            b_ms, b_by = bound(nbytes, ops * live_l, PEAK_F32)
+            per[name].append({
+                "term": term, "case": label, "df": live_l,
+                "blocks": rows_l, "padded_blocks": len(ids_np),
+                "ms": float(np.median(events)), "events_ms": events,
+                "kernel_ms": alone, "kernel_events": alone_info,
+                "device_ms": graph, "plain_ms": plain_ms,
+                "index_put_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                "bytes": nbytes})
+            log(f"{name} {label} {term} (df {live_l}, {len(ids_np)} rows): "
+                f"events {events} ms, alone {alone} ms, graph {graph:.4f} "
+                f"ms, plain {plain_ms:.3f} ms, index_put_ {lib}, bound "
+                f"{b_ms:.4f} ms ({b_by})")
+            out.clear()
+    rows = []
+    for name, line in (("bm25_block_scatter", 56), ("block_presence", 83)):
+        head = per[name][0]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "elasticsearch_tpu_torch/parallel/csrc/block_scatter.cu",
+            "replaces": f"elasticsearch_tpu/ops/scoring.py:{line} "
+                        f"(XLA program)",
+            "launches": launches[name],
+            "max_abs_err": worst if name.startswith("bm25") else 0.0,
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["index_put_ms"],
+            "library_note": ("index_put_ of the head term's live lanes "
+                             "(the scatter half)" if name.startswith("bm25")
+                             else "no single PyTorch call gathers the "
+                                  "blocks and marks the docs"),
+            "poisoned_run": "bitwise", "terms": per[name]})
+    return rows
+
+
+def dense_phase(fp, tokens, bounds, n: int, device="cuda") -> tuple:
+    """The dense search path (`search.execute_search`: query phase over the
+    QueryExecutor, fetch phase, highlight, aggs) on the config-1 shard as
+    one port Segment on the card: DENSE_BODIES, shapes the Turbo route
+    declines, each run once warm and DENSE_REPS times timed (host clock,
+    ending in the response dict) with every launch count set to 0 just
+    before; no plain version may run. Each card response is held against
+    the port's own CPU response on the same segment (the segment's arrays
+    shared, its device cache its own), the pure `match` bodies also
+    against brute_topk. Then check_block_scatter. Returns (kernel rows,
+    report)."""
+    import copy
+
+    import torch
+
+    from elasticsearch_tpu_torch.index.engine import (
+        EngineSearcher, SegmentView,
+    )
+    from elasticsearch_tpu_torch.mapper import MapperService
+    from elasticsearch_tpu_torch.parallel import kernels
+    from elasticsearch_tpu_torch.search import execute_search
+
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    seg, live, _ = dense_segment(fp, tokens, bounds, n, device)
+    build_s = time.time() - t0
+    log(f"dense segment: {n} docs, {int((~live).sum())} deleted, "
+        f"{len(seg.postings['tags'].post_doc)} tag postings in "
+        f"{build_s:.1f}s")
+    mapper = MapperService(copy.deepcopy(DENSE_MAPPING))
+    card = EngineSearcher([SegmentView(segment=seg, live=live,
+                                       live_epoch=0)], seg.torch_device)
+
+    responses, lat = {}, {}
+    kernels.reset_launches()
+    t = time.time()
+    with plain_calls() as plain:
+        for name, body in DENSE_BODIES.items():
+            responses[name] = execute_search(card, mapper,
+                                             copy.deepcopy(body), "shard")
+            times = []
+            for _ in range(DENSE_REPS):
+                s = time.perf_counter()
+                r = execute_search(card, mapper, copy.deepcopy(body),
+                                   "shard")
+                times.append(time.perf_counter() - s)
+            dense_same(r, responses[name], 0, f"{name} warm repeat")
+            lat[name] = float(np.median(times))
+    launches = dict(kernels.LAUNCHES)
+    main_s = time.time() - t
+    peak = torch.cuda.max_memory_allocated() - base
+    require(not any(plain.values()),
+            f"plain versions ran on the card: "
+            f"{ {k: v for k, v in plain.items() if v} }")
+    require(launches["bm25_block_scatter"] > 0
+            and launches["block_presence"] > 0,
+            f"a block-scatter kernel never launched: {launches}")
+    for name, r in responses.items():
+        require(r["hits"]["hits"] or name == "min_score",
+                f"{name}: no hits")
+    log(f"dense main path: {len(DENSE_BODIES)} bodies x "
+        f"{1 + DENSE_REPS} in {main_s:.1f}s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; peak "
+        f"{peak} bytes over the allocated before the phase")
+    for name in DENSE_BODIES:
+        log(f"dense {name}: median {lat[name] * 1e3:.2f} ms, total "
+            f"{responses[name]['hits'].get('total')}")
+
+    # ---- hold: the CPU's responses on the same segment ----
+    t = time.time()
+    cpu_seg = copy.copy(seg)               # arrays shared, cache its own
+    cpu_seg.torch_device = torch.device("cpu")
+    cpu = EngineSearcher([SegmentView(segment=cpu_seg, live=live,
+                                      live_epoch=0)], cpu_seg.torch_device)
+    for name, body in DENSE_BODIES.items():
+        ulps = DENSE_SCORE_ULPS if "log1p" in repr(body) else 0
+        dense_same(responses[name],
+                   execute_search(cpu, mapper, copy.deepcopy(body), "shard"),
+                   ulps, name)
+    del cpu, cpu_seg
+    cpu_s = time.time() - t
+    swaps = {name: dense_vs_brute(responses[name], fp, n, terms, live, name)
+             for name, terms in DENSE_MATCH.items()}
+    log(f"dense holds: {len(DENSE_BODIES)} card responses equal to the "
+        f"CPU's ({cpu_s:.1f}s); {len(DENSE_MATCH)} match bodies equal to "
+        f"brute_topk (near-tie swaps {swaps})")
+
+    rows = check_block_scatter(seg, n, launches)
+    del card, seg
+    torch.cuda.empty_cache()
+    report = {"docs": n, "deleted": int((~live).sum()),
+              "segment_build_s": build_s, "main_path_s": main_s,
+              "cpu_hold_s": cpu_s, "latency_median_s": lat,
+              "reps": DENSE_REPS, "launches": {
+                  k: v for k, v in launches.items() if v},
+              "peak_device_bytes_over_base": int(peak),
+              "brute_near_tie_swaps": swaps,
+              "totals": {k: r["hits"].get("total")
+                         for k, r in responses.items()}}
+    return rows, report
 
 
 def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
@@ -3185,6 +3664,13 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     ledger = hbm_ledger.hbm_stats()
     del eng, turbo
     torch.cuda.empty_cache()
+
+    # ---- the dense search path (execute_search) on the same shard ----
+    t = time.time()
+    dense_rows, dense_report = dense_phase(fp, tokens, bounds, n_docs)
+    dense_report["phase_s"] = time.time() - t
+    rows += dense_rows
+    log(f"dense phase took {dense_report['phase_s']:.1f}s")
     del tokens, bounds
     default = default_ladder(fp, n_docs, batches[0], held[0])
     del fp
@@ -3218,6 +3704,7 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
                "bool_and_phrase": bool_report,
                "knn": knn_report,
                "agg": agg_report,
+               "dense": dense_report,
                "hbm_ledger": ledger,
                "kernel_build_s": build_s,
                "peak_device_bytes": peak}

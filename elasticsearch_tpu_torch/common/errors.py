@@ -26,6 +26,18 @@ class ElasticsearchTpuError(Exception):
         return out
 
 
+class DocumentMissingError(ElasticsearchTpuError):
+    status = 404
+    error_type = "document_missing_exception"
+
+
+class VersionConflictError(ElasticsearchTpuError):
+    """Optimistic-concurrency failure (ref: VersionConflictEngineException)."""
+
+    status = 409
+    error_type = "version_conflict_engine_exception"
+
+
 class DeviceFaultError(ElasticsearchTpuError):
     """A device dispatch failed (injected or organic runtime error).
 

@@ -1,5 +1,5 @@
-"""Deterministic, seedable device-fault injection (the port's copy of the
-device half of elasticsearch_tpu/common/faults.py).
+"""Deterministic, seedable fault injection (the port's copy of the device
+and durability halves of elasticsearch_tpu/common/faults.py).
 
 Spec grammar (';'-separated clauses), identical to the reference::
 
@@ -12,6 +12,11 @@ of memory (`torch.OutOfMemoryError`) is always contained. The port's own kernel 
 `KernelLaunchError`) and wrapper checks (`ValueError`, `TypeError`) are
 not RuntimeErrors, so a broken kernel is never served around by the host
 tier.
+
+`durability_fault_point` raises `DurabilityFaultError` (an OSError) at
+the translog and segment-commit sites, and `corruption_fires` tells a
+caller at a corruption site to damage its payload instead of raising, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -175,6 +180,12 @@ def install(spec: str) -> None:
         _ACTIVE = clauses or None
 
 
+def clear() -> None:
+    global _ACTIVE
+    with _LOCK:
+        _ACTIVE = None
+
+
 @contextlib.contextmanager
 def inject(spec: str):
     """Scoped installation: install `spec`, restore the prior state on exit."""
@@ -225,6 +236,46 @@ def fault_point(site: str, part: Optional[int] = None) -> None:
         f"injected device fault at {site}"
         + (f"#{part}" if part is not None else ""),
         site=site, part=part)
+
+
+class DurabilityFaultError(OSError):
+    """Injected durable-storage failure (fsync / commit) at a named site.
+
+    Deliberately an OSError: the write path must treat an injected fsync
+    failure exactly like the organic ENOSPC/EIO it models."""
+
+    def __init__(self, message: str, site: Optional[str] = None,
+                 part: Optional[Any] = None):
+        super().__init__(message)
+        self.site = site
+        self.part = part
+
+
+def durability_fault_point(site: str, part: Optional[Any] = None) -> None:
+    """Named durable-storage site (translog fsync, segment commit): raises
+    `DurabilityFaultError` — indistinguishable from an organic I/O error —
+    or hangs (a stalling disk; the op completes late)."""
+    hit = _fire_mode(site, part)
+    if hit is None:
+        return
+    mode, arg = hit
+    if mode == "hang":
+        time.sleep(arg)
+        return
+    # raise and oom both model a failed durable write at a storage site
+    raise DurabilityFaultError(
+        f"injected durability fault at {site}"
+        + (f"#{part}" if part is not None else ""), site=site, part=part)
+
+
+def corruption_fires(part: Optional[Any] = None,
+                     site: str = "translog_corrupt") -> bool:
+    """True when a corruption clause fires for this call: the caller
+    silently damages the payload (bit rot) instead of raising — the damage
+    surfaces downstream, at whatever checksum verify guards that leg.
+    Defaults to the `translog_corrupt` site; the integrity plane passes
+    `segment_read` / `segment_transfer` / `hbm_region`."""
+    return _fire_mode(site, part) is not None
 
 
 def is_device_error(e: BaseException) -> bool:

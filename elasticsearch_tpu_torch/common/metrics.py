@@ -1,0 +1,511 @@
+"""Log-bucketed latency histograms for the search flight recorder.
+
+Node-wide distributions per search phase (queue wait, coalesce wait, device
+sweep, demux, fetch, ...) plus coalescer batch-size / pad-ratio shapes.
+Design constraints:
+
+- **Fixed bucket boundaries** per kind so histograms merge across nodes by
+  summing bucket counts (no per-node rescaling; see ``merge_summaries``).
+- **Always-on and cheap**: one bisect + three integer bumps under a lock per
+  observation. Span recording (tracing.py) is the gated/off-by-default part;
+  histograms are the standing node-level distributions.
+- Every histogram name must be declared here via ``declare_histogram`` so
+  tpulint TPU005 can verify observation sites against the registry and the
+  whole set surfaces in ``search_latency_stats()``.
+
+The port's copy of elasticsearch_tpu/common/metrics.py, whole (integrity
+and the task manager import it).
+"""
+
+from __future__ import annotations
+
+import re
+import threading
+import time
+from bisect import bisect_left
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from elasticsearch_tpu_torch.common.settings import knob
+
+
+def _log_ms_bounds() -> Tuple[float, ...]:
+    """Geometric grid ~0.02 ms → ~120 s, two buckets per octave (sqrt-2
+    ratio): fine enough that p99 quantization error stays under ~41%."""
+    out: List[float] = []
+    v = 0.02
+    while v <= 130_000.0:
+        out.append(round(v, 4))
+        v *= 2 ** 0.5
+    return tuple(out)
+
+
+_BOUNDS_BY_KIND: Dict[str, Tuple[float, ...]] = {
+    "ms": _log_ms_bounds(),
+    # batch sizes: powers of two up to well past the largest qc bucket
+    "count": tuple(float(1 << i) for i in range(13)),
+    # ratios (pad waste): linear 0..1 in 5% steps
+    "ratio": tuple(i / 20 for i in range(1, 21)),
+}
+
+
+class Histogram:
+    """One fixed-boundary histogram. Thread-safe."""
+
+    __slots__ = ("name", "kind", "bounds", "_lock", "counts", "n", "total", "vmax")
+
+    def __init__(self, name: str, kind: str):
+        self.name = name
+        self.kind = kind
+        self.bounds = _BOUNDS_BY_KIND[kind]
+        self._lock = threading.Lock()
+        # one slot per bound plus overflow
+        self.counts = [0] * (len(self.bounds) + 1)  # guarded by: _lock
+        self.n = 0  # guarded by: _lock
+        self.total = 0.0  # guarded by: _lock
+        self.vmax = 0.0  # guarded by: _lock
+
+    def record(self, value: float) -> None:
+        v = float(value)
+        if v < 0.0:
+            v = 0.0
+        i = bisect_left(self.bounds, v)
+        with self._lock:
+            self.counts[i] += 1
+            self.n += 1
+            self.total += v
+            if v > self.vmax:
+                self.vmax = v
+
+    def _percentile_locked(self, q: float) -> float:
+        """Upper bound of the bucket containing the q-quantile observation."""
+        rank = max(1, int(q * self.n + 0.999999))
+        acc = 0
+        for i, c in enumerate(self.counts):
+            acc += c
+            if acc >= rank:
+                return self.bounds[i] if i < len(self.bounds) else self.vmax
+        return self.vmax
+
+    def stats(self) -> dict:
+        with self._lock:
+            if self.n == 0:
+                return {"count": 0, "buckets": 0, "mean": 0.0, "p50": 0.0,
+                        "p90": 0.0, "p99": 0.0, "max": 0.0}
+            return {
+                "count": self.n,
+                "buckets": sum(1 for c in self.counts if c),
+                "mean": round(self.total / self.n, 4),
+                "p50": self._percentile_locked(0.50),
+                "p90": self._percentile_locked(0.90),
+                "p99": self._percentile_locked(0.99),
+                "max": round(self.vmax, 4),
+            }
+
+    def raw(self) -> dict:
+        """Mergeable form: bucket counts against the kind's fixed bounds."""
+        with self._lock:
+            return {"kind": self.kind, "counts": list(self.counts),
+                    "count": self.n, "total": self.total, "max": self.vmax}
+
+
+def merge_summaries(raws: List[dict]) -> dict:
+    """Merge ``Histogram.raw()`` dumps from several nodes into one summary.
+    Only valid within one kind — the fixed boundaries make this a plain
+    element-wise sum."""
+    if not raws:
+        return {"count": 0, "buckets": 0, "mean": 0.0, "p50": 0.0, "p90": 0.0,
+                "p99": 0.0, "max": 0.0}
+    kind = raws[0]["kind"]
+    merged = Histogram("merged", kind)
+    for r in raws:
+        if r["kind"] != kind:
+            raise ValueError(f"cannot merge histogram kinds {kind} and {r['kind']}")
+        for i, c in enumerate(r["counts"]):
+            merged.counts[i] += c
+        merged.n += r["count"]
+        merged.total += r["total"]
+        merged.vmax = max(merged.vmax, r["max"])
+    return merged.stats()
+
+
+# --- registry ---------------------------------------------------------------
+
+_REG_LOCK = threading.Lock()
+DECLARED: Dict[str, Tuple[str, str]] = {}  # name -> (kind, doc); import-time only
+_LIVE: Dict[str, Histogram] = {}  # guarded by: _REG_LOCK
+
+
+def declare_histogram(name: str, kind: str, doc: str) -> None:
+    if kind not in _BOUNDS_BY_KIND:
+        raise ValueError(f"unknown histogram kind {kind!r}")
+    DECLARED[name] = (kind, doc)
+
+
+class UndeclaredHistogramError(KeyError):
+    pass
+
+
+def _hist(name: str) -> Histogram:
+    h = _LIVE.get(name)
+    if h is not None:
+        return h
+    if name not in DECLARED:
+        raise UndeclaredHistogramError(
+            f"histogram {name!r} is not declared in common/metrics.py")
+    with _REG_LOCK:
+        h = _LIVE.get(name)
+        if h is None:
+            h = Histogram(name, DECLARED[name][0])
+            _LIVE[name] = h
+        return h
+
+
+def observe(name: str, value: float) -> None:
+    """Record one observation. ``name`` must be declared (tpulint TPU005
+    checks literal call sites against the declarations above)."""
+    _hist(name).record(value)
+
+
+def observe_if_declared(name: str, value: float) -> None:
+    """For dynamically composed names (``queue_wait.<pool>``): silently skip
+    names outside the registry so ad-hoc test pools don't blow up."""
+    if name in DECLARED:
+        _hist(name).record(value)
+
+
+def summary(name: str) -> Optional[dict]:
+    """Percentile summary for one declared histogram, or None if undeclared."""
+    if name not in DECLARED:
+        return None
+    return _hist(name).stats()
+
+
+def search_latency_stats() -> dict:
+    """The ``tpu_search_latency`` section of GET /_nodes/stats — the stats()
+    owner of every histogram declared below."""
+    return {name: _hist(name).stats() for name in DECLARED}
+
+
+def raw_dump(name: str) -> dict:
+    """Mergeable bucket dump for cross-node aggregation (tests, future
+    coordinator-side rollups)."""
+    return _hist(name).raw()
+
+
+def reset_for_tests() -> None:
+    _SAMPLER_STOP.set()
+    with _REG_LOCK:
+        _LIVE.clear()
+        _COUNTERS.clear()
+        _GAUGES.clear()
+    with _SAMPLE_LOCK:
+        _SAMPLES.clear()
+
+
+# --- counters & gauges (device telemetry plane) -----------------------
+# Scalar companions to the histograms above, with the same declare-first
+# discipline: counters are monotonic totals (rates come from sampler-ring
+# deltas), gauges are point-in-time levels. Gauges declared OUTSIDE this
+# registry (common/hbm_ledger.py) must surface in the declaring module's
+# stats() function — tpulint TPU005 enforces that, exactly like it ties
+# observe() sites to declare_histogram.
+
+DECLARED_COUNTERS: Dict[str, str] = {}  # name -> doc; import-time only
+DECLARED_GAUGES: Dict[str, str] = {}    # name -> doc; import-time only
+_COUNTERS: Dict[str, float] = {}        # guarded by: _REG_LOCK
+_GAUGES: Dict[str, float] = {}          # guarded by: _REG_LOCK
+
+
+class UndeclaredMetricError(KeyError):
+    pass
+
+
+def declare_counter(name: str, doc: str) -> None:
+    DECLARED_COUNTERS[name] = doc
+
+
+def declare_gauge(name: str, doc: str) -> None:
+    DECLARED_GAUGES[name] = doc
+
+
+def counter_add(name: str, delta: float = 1.0) -> None:
+    if name not in DECLARED_COUNTERS:
+        raise UndeclaredMetricError(f"counter {name!r} is not declared")
+    with _REG_LOCK:
+        _COUNTERS[name] = _COUNTERS.get(name, 0.0) + float(delta)
+
+
+def gauge_set(name: str, value: float) -> None:
+    if name not in DECLARED_GAUGES:
+        raise UndeclaredMetricError(f"gauge {name!r} is not declared")
+    with _REG_LOCK:
+        _GAUGES[name] = float(value)
+
+
+def counter_values() -> Dict[str, float]:
+    """Every declared counter (unbumped ones read 0 so scrapes and rate
+    computations never see a metric appear out of nowhere)."""
+    with _REG_LOCK:
+        return {n: _COUNTERS.get(n, 0.0) for n in DECLARED_COUNTERS}
+
+
+def gauge_values() -> Dict[str, float]:
+    with _REG_LOCK:
+        return {n: _GAUGES.get(n, 0.0) for n in DECLARED_GAUGES}
+
+
+# node-level scheduler occupancy, pushed by threadpool/scheduler.py as
+# dispatch slots are taken/released; the sampler ring below turns them
+# into busy fractions and flush rates without an external scraper
+declare_gauge("sched_inflight",
+              "device batches currently in flight across scheduler lanes")
+declare_gauge("sched_lanes", "live (engine, k) scheduler lanes")
+declare_counter("sched_flushes",
+                "adaptive-scheduler batch flushes (sampler-ring deltas "
+                "give the flush rate)")
+
+# device analytics tier, bumped by search/agg_device.py; the
+# same counts back the tpu_agg section of GET /_nodes/stats
+declare_counter("agg_queries",
+                "agg collects served by the device aggregation engine")
+declare_counter("agg_device_dispatches",
+                "fused agg segment-reduce device dispatches")
+declare_counter("agg_host_fallbacks",
+                "agg collects that fell back to the host aggregators "
+                "(unsupported shape, over budget, or device fault)")
+declare_counter("agg_bytes",
+                "precomputed agg-column bytes uploaded to HBM (cumulative)")
+
+# quantized kNN tier, bumped by parallel/knn.py; the same counts
+# back the tpu_knn section of GET /_nodes/stats
+declare_counter("knn_queries",
+                "kNN queries served by the quantized KnnEngine")
+declare_counter("knn_int8_dispatches",
+                "int8 first-pass device dispatches (Pallas kernel launches)")
+declare_counter("knn_rescore_docs",
+                "candidate rows exact-rescored in f32 (cumulative)")
+declare_counter("knn_host_fallbacks",
+                "(query, partition) results served by the exact host "
+                "fallback after a contained device fault")
+declare_counter("knn_bytes",
+                "quantized kNN shard bytes uploaded to HBM (cumulative)")
+declare_counter("knn_uncertified",
+                "queries whose int8 superset certificate failed and were "
+                "re-served through the exact f32 first pass")
+
+# cross-cluster plane: CCS counters bumped by cluster/remote.py
+# (the `tpu_ccs` section of GET /_nodes/stats), CCR counters by
+# index/ccr.py (the `tpu_ccr` section)
+declare_counter("ccs_remote_searches",
+                "cross-cluster search fan-out legs dispatched to remotes")
+declare_counter("ccs_skipped_clusters",
+                "remote clusters degraded to _clusters.skipped "
+                "(unreachable with skip_unavailable=true)")
+declare_counter("ccs_remote_failures",
+                "remote-cluster RPC attempts that failed (transport "
+                "error or timeout; retries count separately)")
+declare_counter("ccs_remote_retries",
+                "remote-cluster RPC retries granted by the retry budget")
+declare_counter("ccr_ops_shipped",
+                "translog ops applied onto follower indices (cumulative)")
+declare_counter("ccr_fetches",
+                "CCR fetch_ops batches pulled from leader clusters")
+declare_counter("ccr_fetch_retries",
+                "CCR fetches re-issued after a failed or corrupt batch")
+declare_counter("ccr_checksum_mismatches",
+                "CCR op batches whose sha256 failed verification on the "
+                "follower (re-fetched, bounded by ES_TPU_REMOTE_RETRIES)")
+declare_counter("ccr_polls",
+                "follower pull-loop poll rounds executed")
+
+
+# --- Prometheus text exposition ----------------------------------------------
+
+_PROM_SANITIZE = re.compile(r"[^a-zA-Z0-9_]")
+
+
+def _prom_name(name: str) -> str:
+    return "es_tpu_" + _PROM_SANITIZE.sub("_", name)
+
+
+def _prom_num(v: float) -> str:
+    f = float(v)
+    return str(int(f)) if f.is_integer() else repr(f)
+
+
+def scrape_payload() -> dict:
+    """One node's full metric state in mergeable form — what the
+    /_tpu/metrics fan-out RPC returns per node."""
+    return {"counters": counter_values(), "gauges": gauge_values(),
+            "histograms": {name: raw_dump(name) for name in DECLARED}}
+
+
+def render_prometheus(per_node: Dict[str, dict],
+                      failures: Sequence[dict] = ()) -> str:
+    """Prometheus text exposition over per-node ``scrape_payload`` dumps.
+
+    Every declared counter, gauge, and histogram renders for every live
+    node (one ``node`` label per sample; histograms in cumulative-``le``
+    bucket form against the kind's fixed bounds). Dead peers degrade to
+    ``es_tpu_node_up 0`` rows instead of failing the scrape — the
+    partial-answer contract in exposition-format clothing."""
+    out: List[str] = []
+    nodes = sorted(per_node)
+    out.append("# HELP es_tpu_node_up 1 when the node answered the metrics "
+               "fan-out, 0 when it degraded to a node_failures entry")
+    out.append("# TYPE es_tpu_node_up gauge")
+    for n in nodes:
+        out.append(f'es_tpu_node_up{{node="{n}"}} 1')
+    for f in failures:
+        out.append(f'es_tpu_node_up{{node="{f.get("node_id")}"}} 0')
+    for name in sorted(DECLARED_COUNTERS):
+        m = _prom_name(name) + "_total"
+        out.append(f"# HELP {m} {DECLARED_COUNTERS[name]}")
+        out.append(f"# TYPE {m} counter")
+        for n in nodes:
+            v = per_node[n].get("counters", {}).get(name, 0.0)
+            out.append(f'{m}{{node="{n}"}} {_prom_num(v)}')
+    for name in sorted(DECLARED_GAUGES):
+        m = _prom_name(name)
+        out.append(f"# HELP {m} {DECLARED_GAUGES[name]}")
+        out.append(f"# TYPE {m} gauge")
+        for n in nodes:
+            v = per_node[n].get("gauges", {}).get(name, 0.0)
+            out.append(f'{m}{{node="{n}"}} {_prom_num(v)}')
+    for name in sorted(DECLARED):
+        kind, doc = DECLARED[name]
+        m = _prom_name(name)
+        bounds = _BOUNDS_BY_KIND[kind]
+        out.append(f"# HELP {m} {doc}")
+        out.append(f"# TYPE {m} histogram")
+        for n in nodes:
+            raw = per_node[n].get("histograms", {}).get(name)
+            counts = raw["counts"] if raw else [0] * (len(bounds) + 1)
+            acc = 0
+            for b, c in zip(bounds, counts):
+                acc += c
+                out.append(f'{m}_bucket{{node="{n}",le="{b:g}"}} {acc}')
+            total_n = raw["count"] if raw else 0
+            out.append(f'{m}_bucket{{node="{n}",le="+Inf"}} {total_n}')
+            out.append(f'{m}_sum{{node="{n}"}} '
+                       f'{_prom_num(raw["total"] if raw else 0.0)}')
+            out.append(f'{m}_count{{node="{n}"}} {total_n}')
+    return "\n".join(out) + "\n"
+
+
+# --- periodic sampler ring (ES_TPU_METRICS_SAMPLE_S) -------------------------
+# Rates need two points in time. Rather than requiring an external scraper,
+# an optional background thread snapshots every declared counter/gauge (plus
+# any registered provider sections, e.g. the scheduler's per-lane inflight
+# occupancy) into a bounded ring served at GET /_tpu/metrics/history.
+
+_SAMPLE_LOCK = threading.Lock()
+_SAMPLES: List[dict] = []                                # guarded by: _SAMPLE_LOCK
+_SAMPLE_PROVIDERS: Dict[str, Callable[[], dict]] = {}    # guarded by: _SAMPLE_LOCK
+_SAMPLER_THREAD: Optional[threading.Thread] = None       # guarded by: _SAMPLE_LOCK
+_SAMPLER_STOP = threading.Event()
+
+
+def register_sample_provider(name: str, fn: Callable[[], dict]) -> None:
+    """Attach a named section to every sample (idempotent per name)."""
+    with _SAMPLE_LOCK:
+        _SAMPLE_PROVIDERS[name] = fn
+
+
+def sample_now() -> dict:
+    """Take one snapshot and append it to the ring (also the sampler
+    thread's tick body — callable directly so tests and bench dryruns
+    don't need a live thread)."""
+    with _SAMPLE_LOCK:
+        providers = dict(_SAMPLE_PROVIDERS)
+    s: dict = {"ts": time.time(), "counters": counter_values(),
+               "gauges": gauge_values()}
+    for name, fn in sorted(providers.items()):
+        try:
+            s[name] = fn()
+        except Exception:   # noqa: BLE001 — a broken provider must not
+            s[name] = None  # kill the sampler
+    cap = max(1, int(knob("ES_TPU_METRICS_HISTORY")))
+    with _SAMPLE_LOCK:
+        _SAMPLES.append(s)
+        del _SAMPLES[: max(0, len(_SAMPLES) - cap)]
+    return s
+
+
+def metrics_history() -> List[dict]:
+    with _SAMPLE_LOCK:
+        return list(_SAMPLES)
+
+
+def _sampler_loop() -> None:
+    global _SAMPLER_THREAD
+    while True:
+        period = float(knob("ES_TPU_METRICS_SAMPLE_S"))
+        if period <= 0 or _SAMPLER_STOP.wait(period):
+            break
+        sample_now()
+    with _SAMPLE_LOCK:
+        _SAMPLER_THREAD = None
+
+
+def maybe_start_sampler() -> bool:
+    """Start the background sampler when ES_TPU_METRICS_SAMPLE_S > 0.
+    Idempotent; returns whether a sampler is (now) running. The knob is
+    re-read every tick, so setting it to 0 retires the thread."""
+    global _SAMPLER_THREAD
+    if float(knob("ES_TPU_METRICS_SAMPLE_S")) <= 0:
+        return False
+    with _SAMPLE_LOCK:
+        if _SAMPLER_THREAD is not None:
+            return True
+        _SAMPLER_STOP.clear()
+        _SAMPLER_THREAD = threading.Thread(
+            target=_sampler_loop, daemon=True, name="es-tpu-metrics-sampler")
+        _SAMPLER_THREAD.start()
+    return True
+
+
+# --- phase histograms (the flight recorder's standing distributions) --------
+# queue_wait.* names are composed dynamically in threadpool/pool.py via
+# observe_if_declared(f"queue_wait.{pool}"), one per named pool.
+declare_histogram("queue_wait.search", "ms", "queued->started wait, search pool")
+declare_histogram("queue_wait.write", "ms", "queued->started wait, write pool")
+declare_histogram("queue_wait.get", "ms", "queued->started wait, get pool")
+declare_histogram("queue_wait.management", "ms", "queued->started wait, management pool")
+declare_histogram("queue_wait.snapshot", "ms", "queued->started wait, snapshot pool")
+declare_histogram("coalesce_wait", "ms", "wait inside DispatchCoalescer (leader fill window + follower completion wait)")
+declare_histogram("device", "ms", "one device dispatch (coalesced batch or direct search_bool/search_many)")
+declare_histogram("demux", "ms", "per-request hit extraction from a batched device result")
+declare_histogram("fetch", "ms", "fetch phase (doc _source materialization)")
+declare_histogram("query", "ms", "shard query phase end-to-end (data node side)")
+declare_histogram("merge", "ms", "coordinator reduce of shard results")
+declare_histogram("rest_total", "ms", "whole _search request at the REST layer")
+declare_histogram("coalesce_batch_size", "count", "queries per coalesced device batch")
+declare_histogram("coalesce_pad_ratio", "ratio", "fraction of a padded device batch that is qc-quantization waste")
+# continuous-batching scheduler; sched_tier_wait.* names are
+# composed dynamically in threadpool/scheduler.py via
+# observe_if_declared(f"sched_tier_wait.{tier}"), one per SLA tier.
+declare_histogram("sched_bucket_size", "count", "bucket (padded batch shape) chosen per adaptive-scheduler flush")
+declare_histogram("sched_queue_depth", "count", "lane queue depth at each adaptive-scheduler flush")
+# device bitset intersection for bool queries
+declare_histogram("bitset_blocks_skipped", "count", "2048-doc chunks skipped (all-zero intersected match set) per bool query dispatch")
+declare_histogram("bitset_block_occupancy", "ratio", "fraction of 2048-doc chunks with surviving docs after clause intersection, per bool query")
+# eager sparse impact slices for cold terms
+declare_histogram("sparse_slice_width", "count", "padded width (postings) of the ladder rung chosen per eager sparse cold-term slice build")
+# device analytics tier
+declare_histogram("agg_batch_size", "count", "agg collects fused into one device segment-reduce dispatch (pre-padding)")
+
+declare_histogram("knn_candidates_per_query", "count", "first-pass candidates kept per (query, partition) before the exact kNN rescore")
+declare_histogram("knn_nprobe_ratio", "ratio", "fraction of IVF centroids probed per kNN first pass (1.0 = exact/no pruning)")
+declare_histogram("sched_tier_wait.interactive", "ms", "scheduler wait, interactive tier (enqueue -> batch results ready)")
+declare_histogram("sched_tier_wait.bulk", "ms", "scheduler wait, bulk tier (enqueue -> batch results ready)")
+# cluster task plane; task_duration.* names are composed
+# dynamically in tasks/task_manager.py via
+# observe_if_declared(f"task_duration.{action_family(...)}"), one per
+# action family.
+declare_histogram("task_duration.search", "ms", "task lifetime, search-family actions (register -> unregister)")
+declare_histogram("task_duration.scroll", "ms", "task lifetime, scroll-family actions")
+declare_histogram("task_duration.msearch", "ms", "task lifetime, msearch coordinator actions")
+declare_histogram("task_duration.bulk", "ms", "task lifetime, bulk-family actions")
+declare_histogram("task_duration.async_search", "ms", "task lifetime, async-search actions")
+declare_histogram("task_duration.reindex", "ms", "task lifetime, reindex actions")

@@ -120,3 +120,22 @@ declare_knob("ES_TPU_KNN_RESCORE_MULT", "int", 4,
 declare_knob("ES_TPU_FORCE_KNN", "flag", False,
              "'1' forces KnnEngine serving eligibility off-TPU "
              "(interpret-mode differential tests)")
+declare_knob("ES_TPU_TRANSLOG_SYNC_OPS", "int", 128,
+             "Async-durability exposure bound: fsync the translog every N "
+             "appended ops (request durability syncs every op)")
+declare_knob("ES_TPU_TASK_BAN_TTL_S", "float", 300.0,
+             "Lifetime of a cancellation ban entry: racing child "
+             "registrations for a banned parent are cancelled on arrival "
+             "until the ban expires")
+declare_knob("ES_TPU_METRICS_SAMPLE_S", "float", 0.0,
+             "Period of the background metrics sampler in seconds: every "
+             "tick snapshots counters/gauges into the history ring served "
+             "at GET /_tpu/metrics/history (0 = sampler off)")
+declare_knob("ES_TPU_METRICS_HISTORY", "int", 120,
+             "Capacity of the in-memory metrics-sample ring (oldest "
+             "samples drop first)")
+declare_knob("ES_TPU_INTEGRITY_SCRUB_S", "float", 0.0,
+             "HBM scrub period in seconds (0 = off): re-download one "
+             "device-resident region per tick on the management pool, "
+             "re-hash against the host-side fingerprint, re-upload on "
+             "mismatch; skipped while the overload level is not GREEN")

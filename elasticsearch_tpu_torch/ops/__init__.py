@@ -1,19 +1,28 @@
-"""Scoring helpers copied from elasticsearch_tpu/ops/scoring.py:34-45."""
+"""Scoring and kNN ops (the port of elasticsearch_tpu/ops): the block
+scatter, masked top-k and the BM25 helpers in ops/scoring.py, brute-force
+kNN in ops/knn.py."""
 
-from __future__ import annotations
+from elasticsearch_tpu_torch.ops.scoring import (
+    BLOCK,
+    bm25_idf,
+    bm25_scatter_scores,
+    constant_scatter_mask,
+    masked_top_k,
+    next_bucket,
+    pad_block_ids,
+    total_hits,
+)
+from elasticsearch_tpu_torch.ops.knn import knn_scores, knn_top_k
 
-import math
-
-BLOCK = 128
-
-
-def bm25_idf(doc_count: int, doc_freq: int) -> float:
-    """Lucene BM25 idf: ln(1 + (N - df + 0.5) / (df + 0.5))."""
-    return math.log(1.0 + (doc_count - doc_freq + 0.5) / (doc_freq + 0.5))
-
-
-def next_bucket(n: int, minimum: int = 8) -> int:
-    """Round up to the next power of two."""
-    if n <= minimum:
-        return minimum
-    return 1 << (n - 1).bit_length()
+__all__ = [
+    "BLOCK",
+    "bm25_idf",
+    "bm25_scatter_scores",
+    "constant_scatter_mask",
+    "masked_top_k",
+    "next_bucket",
+    "pad_block_ids",
+    "total_hits",
+    "knn_scores",
+    "knn_top_k",
+]

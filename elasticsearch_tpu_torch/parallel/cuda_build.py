@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("build_columns", "sweep_rowmax", "sparse_gather",
            "intersect_bitset", "merge_topk", "knn_window_topc",
-           "agg_counts", "pack_bits")
+           "agg_counts", "pack_bits", "block_scatter")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -64,6 +64,10 @@ _SIGNATURES = {
                     _P]),
     "agg_word_bytes": ("agg_counts", "es_agg_word_bytes", [_I, _L]),
     "agg_plan": ("agg_counts", "es_agg_plan", [_I, _I, _P]),
+    "bm25_block_scatter": ("block_scatter", "es_bm25_block_scatter",
+                           [_P] * 5 + [_I, _L, _I] + [_F] * 5 + [_P, _P]),
+    "block_presence": ("block_scatter", "es_block_presence",
+                       [_P, _P, _P, _I, _L, _I, _P, _P]),
 }
 
 _LOCK = threading.Lock()

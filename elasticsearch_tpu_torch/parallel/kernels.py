@@ -17,6 +17,11 @@ ported paths run:
 * K8 `_agg_counts` (reference :996, behind `agg_segment_counts` :1037 and
   `agg_two_level_counts` :1057) -> csrc/agg_counts.cu
 
+and, beside them, the dense executor's block scatter, the XLA programs
+`bm25_scatter_scores` and `constant_scatter_mask` of
+elasticsearch_tpu/ops/scoring.py (:56, :83) -> csrc/block_scatter.cu
+(`bm25_block_scatter`, `block_presence`).
+
 Each wrapper checks device, dtype, shape and contiguity (raising TypeError
 or ValueError), then: for tensors on the CPU it runs the plain version
 (`*_plain`, the role Pallas interpret mode plays for the reference); for
@@ -105,7 +110,8 @@ LAUNCHES: Dict[str, int] = {"build_columns": 0, "sweep_rowmax": 0,
                             "sparse_gather": 0, "intersect_bitset": 0,
                             "sweep_rowmax_bitset": 0, "sweep_rowmax_conj": 0,
                             "merge_topk": 0, "knn_int8_window_topc": 0,
-                            "agg_counts": 0, "pack_presence_bits": 0}
+                            "agg_counts": 0, "pack_presence_bits": 0,
+                            "bm25_block_scatter": 0, "block_presence": 0}
 
 
 def reset_launches() -> None:
@@ -1228,3 +1234,115 @@ def agg_two_level_counts(mask, blob, *, pd: int, pm: int, n_segments: int):
                                           n_segments=n_segments)
     dc, vc = _agg_launch(mask, blob, (pd, pm), n_segments).unbind(0)
     return dc, vc
+
+
+# --------------------------------------------------------------------------
+# block scatter (the dense executor's BM25 / presence scatter)
+# --------------------------------------------------------------------------
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded to f32, as JAX rounds a weak-typed constant
+    that meets an f32 array (and exactly representable as a double)."""
+    return float(np.float32(x))
+
+
+def bm25_constants(k1: float, b: float):
+    """(k1, b, 1 - b, k1 + 1) as the f32 values the reference's program
+    multiplies by: each formed from the Python floats, then rounded."""
+    return _f32(k1), _f32(b), _f32(1.0 - b), _f32(k1 + 1.0)
+
+
+def _gather_live(block_ids, block_docs, block_tfs):
+    """The selected rows' lanes with tf > 0: (flat lane index into the
+    [B, 128] gather, their docs i64, their tfs)."""
+    rows = block_ids.long()
+    tfs = block_tfs[rows].reshape(-1)
+    live = torch.nonzero(tfs > 0).reshape(-1)
+    docs = block_docs[rows].reshape(-1)[live].long()
+    return live, docs, tfs[live]
+
+
+def bm25_block_scatter_plain(block_ids, idf, block_docs, block_tfs, doc_len,
+                             *, avgdl: float, k1: float, b: float):
+    """Plain torch `bm25_block_scatter`: the reference's arithmetic, with
+    the fused multiply-add XLA on the CPU forms (`_fma`), stored at the
+    live lanes' docs (each doc once, as one term's blocks hold it)."""
+    k1f, bf, omb, k1p1 = bm25_constants(k1, b)
+    live, docs, tf = _gather_live(block_ids, block_docs, block_tfs)
+    dl = doc_len[docs]
+    t = omb + (bf * dl) / torch.full_like(dl, _f32(avgdl))
+    denom = _fma(torch.full_like(t, k1f), t, tf)
+    w = idf[live // 128]
+    out = torch.zeros(doc_len.shape[0], dtype=torch.float32,
+                      device=doc_len.device)
+    out[docs] = ((w * tf) * k1p1) / denom
+    return out
+
+
+def block_presence_plain(block_ids, block_docs, block_tfs, *, n_docs: int):
+    """Plain torch `block_presence`."""
+    _, docs, _ = _gather_live(block_ids, block_docs, block_tfs)
+    out = torch.zeros(n_docs, dtype=torch.bool, device=block_docs.device)
+    out[docs] = True
+    return out
+
+
+def _check_blocks(block_ids, block_docs, block_tfs):
+    dev = block_docs.device
+    _check(block_ids, "block_ids", torch.int32, 1, dev)
+    _check(block_docs, "block_docs", torch.int32, 2, dev)
+    _check(block_tfs, "block_tfs", torch.float32, 2, dev)
+    if block_docs.shape[1] != 128 or block_tfs.shape != block_docs.shape:
+        raise ValueError(f"block_docs {tuple(block_docs.shape)} and "
+                         f"block_tfs {tuple(block_tfs.shape)} must be the "
+                         f"same [T, 128]")
+    return dev
+
+
+def bm25_block_scatter(block_ids, idf, block_docs, block_tfs, doc_len, *,
+                       avgdl: float, k1: float, b: float):
+    """BM25 of the selected postings blocks into a dense [n_docs] f32.
+
+    block_ids [B] i32 — rows of the field's block arrays, in [0, T)
+    idf [B] f32 — per-row idf of the owning term (boost folded in)
+    block_docs [T, 128] i32, block_tfs [T, 128] f32 — the field's blocks
+    doc_len [n_docs] f32 — field lengths
+
+    Score of a lane with tf > 0: idf * tf * (k1 + 1) / (tf + k1 * (1 - b
+    + b * dl / avgdl)); other docs 0. The rows must hold each doc at most
+    once among their tf > 0 lanes (one term's blocks): a doc is stored,
+    not summed.
+    """
+    dev = _check_blocks(block_ids, block_docs, block_tfs)
+    _check(idf, "idf", torch.float32, 1, dev)
+    _check(doc_len, "doc_len", torch.float32, 1, dev)
+    if idf.shape != block_ids.shape:
+        raise ValueError(f"idf {tuple(idf.shape)} must match block_ids "
+                         f"{tuple(block_ids.shape)}")
+    if not _route(dev):
+        return bm25_block_scatter_plain(block_ids, idf, block_docs,
+                                        block_tfs, doc_len, avgdl=avgdl,
+                                        k1=k1, b=b)
+    n_docs = int(doc_len.shape[0])
+    out = _out((n_docs,), torch.float32, dev)
+    _launch("bm25_block_scatter", dev, block_ids.data_ptr(), idf.data_ptr(),
+            block_docs.data_ptr(), block_tfs.data_ptr(), doc_len.data_ptr(),
+            int(block_ids.shape[0]), int(block_docs.shape[0]), n_docs,
+            _f32(avgdl), *bm25_constants(k1, b), out.data_ptr())
+    return out
+
+
+def block_presence(block_ids, block_docs, block_tfs, *, n_docs: int):
+    """[n_docs] bool: docs of a lane with tf > 0 in any selected row (the
+    rows may belong to several terms)."""
+    dev = _check_blocks(block_ids, block_docs, block_tfs)
+    if not _route(dev):
+        return block_presence_plain(block_ids, block_docs, block_tfs,
+                                    n_docs=n_docs)
+    out = _out((n_docs,), torch.bool, dev)
+    _launch("block_presence", dev, block_ids.data_ptr(),
+            block_docs.data_ptr(), block_tfs.data_ptr(),
+            int(block_ids.shape[0]), int(block_docs.shape[0]), int(n_docs),
+            out.data_ptr())
+    return out

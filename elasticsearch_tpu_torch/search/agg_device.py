@@ -48,8 +48,11 @@ Differences from the reference:
     `device.resolve` (the card) and builds the CUDA kernels at
     construction there, so a kernel that fails to build raises outside
     the per-layout containment and never turns into host fallbacks.
-    `default_engine()` builds on the card; tests install a CPU engine
-    (`AggDeviceEngine(device="cpu")`) as `_ENGINE` themselves. Layouts
+    There is one engine per device (`default_engine(device)`), and a
+    collect uses the engine of its leaf's device (`ctx.leaf.segment.
+    torch_device`, which `InternalEngine` resolves), so a search on a CPU
+    engine aggregates on a CPU agg engine and nothing picks the CPU on
+    its own. Layouts
     upload their blob with `torch.from_numpy(host).to(device)`, and pair
     docs are checked against the leaf once, when a layout is built.
   * **Containment.** `_run_works` contains `DeviceFaultError` (and so
@@ -57,8 +60,8 @@ Differences from the reference:
     contains every `Exception`. A refused launch (`KernelLaunchError`) or
     a wrapper's `TypeError` / `ValueError` propagates out of the collect
     and is never served around by the host aggregators.
-  * **No scheduler yet.** `_dispatch` calls
-    `default_engine().search_many([works], 1)` directly: the scheduler's
+  * **No scheduler yet.** `_dispatch` calls the leaf's engine's
+    `search_many([works], 1)` directly: the scheduler's
     bulk tier (`serving_dispatch(tier=TIER_BULK)`), its `check` and
     `fault_log` arguments, and the `extend_qc_sizes` hook through which
     `TurboEngine` primes the agg ladder come with the scheduler (ROADMAP
@@ -116,13 +119,15 @@ def _count(key: str, n: int = 1) -> None:
 
 
 def agg_stats() -> dict:
-    """The `tpu_agg` section of GET /_nodes/stats."""
-    eng = default_engine()
+    """The `tpu_agg` section of GET /_nodes/stats, summed over the engines
+    built so far (it builds none)."""
+    with _ENGINE_LOCK:
+        engines = list(_ENGINES.values())
     with _COUNTS_LOCK:
         out = dict(_COUNTS)
     out["enabled"] = bool(knob("ES_TPU_AGG"))
-    out["hbm_bytes"] = eng.hbm_bytes()
-    out["layouts"] = len(eng.layout_serials())
+    out["hbm_bytes"] = sum(e.hbm_bytes() for e in engines)
+    out["layouts"] = sum(len(e.layout_serials()) for e in engines)
     return out
 
 
@@ -312,22 +317,25 @@ class AggDeviceEngine:
                     w.result = counts[i]
 
 
-_ENGINE: Optional[AggDeviceEngine] = None
 _ENGINE_LOCK = threading.Lock()
+_ENGINES: Dict[torch.device, AggDeviceEngine] = {}   # guarded by: _ENGINE_LOCK
 
 
-def default_engine() -> AggDeviceEngine:
-    global _ENGINE
+def default_engine(device=None) -> AggDeviceEngine:
+    """The engine of `device` (`device.resolve`: the card unless the CPU is
+    named), built at its first use; one per device."""
+    dev = _device.resolve(device)
     with _ENGINE_LOCK:
-        if _ENGINE is None:
-            _ENGINE = AggDeviceEngine()
-        return _ENGINE
+        eng = _ENGINES.get(dev)
+        if eng is None:
+            eng = _ENGINES[dev] = AggDeviceEngine(dev)
+        return eng
 
 
-def _dispatch(works: List[_AggWork]) -> bool:
-    """Run works on the engine (the scheduler's bulk tier in the
-    reference). True = every work carries a device result."""
-    default_engine().search_many([works], 1)
+def _dispatch(seg, works: List[_AggWork]) -> bool:
+    """Run works on the engine of `seg`'s device (the scheduler's bulk
+    tier in the reference). True = every work carries a device result."""
+    default_engine(seg.torch_device).search_many([works], 1)
     ok = True
     for w in works:
         if w.error is not None or w.result is None:
@@ -351,7 +359,7 @@ def _cached_layout(seg, key: str, build) -> Optional[_AggLayout]:
             return None
         if cached is not None:
             return cached
-        eng = default_engine()
+        eng = default_engine(seg.torch_device)
         lay = build(eng.device)
         if lay is None or not eng.adopt_layout(lay):
             seg._device[key] = _REFUSED
@@ -542,7 +550,7 @@ def collect_terms(agg, ctx, kc, mask: np.ndarray):
             _count("agg_host_fallbacks")
             return None
         work = _AggWork(lay, sel)
-        if not _dispatch([work]):
+        if not _dispatch(seg, [work]):
             return None
         _count("agg_queries")
         counts = work.result
@@ -560,7 +568,7 @@ def collect_terms(agg, ctx, kc, mask: np.ndarray):
         _count("agg_host_fallbacks")
         return None
     work = _AggWork(lay, sel)
-    if not _dispatch([work]):
+    if not _dispatch(seg, [work]):
         return None
     _count("agg_queries")
     doc_counts, val_counts = work.result
@@ -619,7 +627,7 @@ def collect_histogram(agg, ctx, col, mask: np.ndarray):
         return None
     sel = mask & col.exists
     work = _AggWork(lay, sel)
-    if not _dispatch([work]):
+    if not _dispatch(seg, [work]):
         return None
     _count("agg_queries")
     counts = work.result.astype(np.int64)

@@ -1,0 +1,61 @@
+"""Shard-level search entry: query phase + fetch phase -> response body.
+
+The analog of the reference SearchService.executeQueryPhase/executeFetchPhase
+pair (ref: search/SearchService.java:370,574) for a single shard; the
+distributed scatter-gather lives in parallel/ and transport/.
+
+Threading contract: this runs on whatever thread calls it — under REST
+traffic that is a worker of the node's bounded SEARCH pool
+(threadpool/pool.py; rest/http_server.py classifies requests to stages),
+never an unbounded accept thread. The serving fast path that fronts this
+executor (search/serving.py) additionally coalesces concurrent
+single-query dispatches into one device batch (threadpool/coalescer.py).
+
+The port's copy of elasticsearch_tpu/search/search_service.py: it runs on
+the device the searcher carries (`EngineSearcher.device`, the engine's).
+"""
+
+from __future__ import annotations
+
+import time
+
+from elasticsearch_tpu_torch.index.engine import EngineSearcher
+from elasticsearch_tpu_torch.mapper.mapper_service import MapperService
+from elasticsearch_tpu_torch.search.fetch_phase import execute_fetch_phase
+from elasticsearch_tpu_torch.search.query_phase import execute_query_phase
+
+
+def execute_search(
+    searcher: EngineSearcher,
+    mapper: MapperService,
+    request: dict,
+    index_name: str = "index",
+) -> dict:
+    start = time.monotonic()
+    qr = execute_query_phase(searcher, mapper, request)
+    from_ = int(request.get("from", 0))
+    window = qr.hits[from_: from_ + int(request.get("size", 10))]
+    hits = execute_fetch_phase(searcher, window, request, index_name,
+                               mapper=mapper)
+    for h, sh in zip(hits, window):
+        if h["_score"] is None and sh.sort_values is None:
+            h["_score"] = sh.score
+    took = int((time.monotonic() - start) * 1000)
+    resp = {
+        "took": took,
+        "timed_out": bool(getattr(qr, "timed_out", False)),
+        "_shards": {"total": 1, "successful": 1, "skipped": 0, "failed": 0},
+        "hits": {
+            "total": {"value": qr.total, "relation": qr.relation},
+            "max_score": qr.max_score,
+            "hits": hits,
+        },
+    }
+    from elasticsearch_tpu_torch.search.response import finalize_hits_envelope
+
+    finalize_hits_envelope(resp, request)
+    if qr.aggregations is not None:
+        from elasticsearch_tpu_torch.search.aggregations import finalize_shard_aggs
+
+        resp["aggregations"] = finalize_shard_aggs(request, [qr.aggregations])
+    return resp

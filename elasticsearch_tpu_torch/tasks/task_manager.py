@@ -1,0 +1,414 @@
+"""Task registry with cooperative cancellation and ban propagation.
+
+Re-designs the reference's task management (ref: tasks/TaskManager.java:71
+register/unregister, tasks/CancellableTask.java, and the cancellation
+checks ContextIndexSearcher.java:66 threads through collectors): every
+long-running request registers a Task; cancellation flips a flag that the
+compute paths CHECK at their loop boundaries — between device dispatches,
+between leaves, inside host selection/expansion loops — so a runaway query
+returns promptly instead of running to completion.
+
+Cross-node semantics follow the reference's TaskCancellationService:
+cancelling a parent records a **ban** on its `{node}:{id}` so child
+registrations that arrive AFTER the cancel (a shard RPC racing the ban)
+are cancelled on arrival instead of leaking. Bans are TTL'd
+(`ES_TPU_TASK_BAN_TTL_S`) and node-left events reap orphaned children by
+banning the dead node's id prefix.
+
+The TPU twist: a dispatched XLA program itself cannot be interrupted, but
+every program here is bounded (fixed shapes, one batch chunk), so the
+check granularity is one dispatch — milliseconds, not the whole query.
+The scheduler/coalescer only honor cancellation at their flush
+boundaries, preserving the bit-identity contract when no cancel fires.
+
+The port's copy of elasticsearch_tpu/tasks/task_manager.py. The port has
+no trace context and no SLA scheduler yet, so `register` leaves a task's
+trace id unset and gives it the reference's default tier, `interactive`,
+where the reference reads both from the calling thread.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
+
+from elasticsearch_tpu_torch.common import metrics
+from elasticsearch_tpu_torch.common.errors import ElasticsearchTpuError
+from elasticsearch_tpu_torch.common.settings import knob
+
+TIER_INTERACTIVE = "interactive"   # threadpool/scheduler.py's default tier
+
+
+class TaskCancelledError(ElasticsearchTpuError):
+    status = 400
+    error_type = "task_cancelled_exception"
+
+
+def action_family(action: str) -> str:
+    """`indices:data/read/search[phase/query]` -> `search` — the histogram
+    / gauge family key for one transport action."""
+    return action.split("[", 1)[0].rsplit("/", 1)[-1]
+
+
+@dataclass
+class Task:
+    id: int
+    node: str
+    action: str
+    description: str
+    start_time_ms: int
+    cancellable: bool = True
+    parent_task_id: Optional[str] = None
+    _cancelled: threading.Event = field(default_factory=threading.Event,
+                                        repr=False)
+    cancel_reason: Optional[str] = None
+    # monotonic start: running_time_in_nanos must never go negative under
+    # wall-clock adjustment (start_time_ms stays wall-clock for display)
+    start_monotonic: float = field(default_factory=time.monotonic)
+    trace_id: Optional[str] = None
+    sla: Optional[str] = None
+    phase: str = ""
+    dispatches: int = 0
+
+    @property
+    def is_cancelled(self) -> bool:
+        return self._cancelled.is_set()
+
+    @property
+    def task_id(self) -> str:
+        return f"{self.node}:{self.id}"
+
+    def cancel(self, reason: str = "by user request") -> None:
+        self.cancel_reason = reason
+        self._cancelled.set()
+
+    def check(self) -> None:
+        """Raise if cancelled — called from compute loop boundaries."""
+        if self._cancelled.is_set():
+            raise TaskCancelledError(
+                f"task [{self.node}:{self.id}] cancelled: {self.cancel_reason}")
+
+    def note_dispatch(self, phase: str = "") -> None:
+        """One engine dispatch crossed a flush boundary on behalf of this
+        task (single-writer per boundary; no lock needed)."""
+        self.dispatches += 1
+        if phase:
+            self.phase = phase
+
+    def to_dict(self, detailed: bool = False) -> dict:
+        out = {
+            "node": self.node,
+            "id": self.id,
+            "type": "transport",
+            "action": self.action,
+            "description": self.description,
+            "start_time_in_millis": self.start_time_ms,
+            "running_time_in_nanos": int(
+                (time.monotonic() - self.start_monotonic) * 1e9),
+            "cancellable": self.cancellable,
+            "cancelled": self.is_cancelled,
+            **({"parent_task_id": self.parent_task_id}
+               if self.parent_task_id else {}),
+        }
+        if self.trace_id:
+            out["headers"] = {"trace_id": self.trace_id}
+        if detailed:
+            out["status"] = {
+                "phase": self.phase,
+                "dispatches": self.dispatches,
+                "sla": self.sla,
+            }
+        return out
+
+
+_tls = threading.local()
+
+
+def current_task() -> Optional[Task]:
+    """The task the current thread is executing on behalf of (mirrors
+    tracing.current(): one thread-local read when the plane is idle)."""
+    return getattr(_tls, "task", None)
+
+
+@contextmanager
+def activate(task: Optional[Task]):
+    """Install ``task`` as the thread's current task. activate(None) is a
+    no-op pass-through so call sites need no branching."""
+    if task is None:
+        yield None
+        return
+    prev = getattr(_tls, "task", None)
+    _tls.task = task
+    try:
+        yield task
+    finally:
+        _tls.task = prev
+
+
+class TaskManager:
+    """Node-level task registry (ref: tasks/TaskManager.java:71) with the
+    TaskCancellationService ban list grafted on."""
+
+    def __init__(self, node_id: str):
+        self.node_id = node_id
+        self._lock = threading.Lock()
+        self._drained = threading.Condition(self._lock)
+        self._tasks: Dict[int, Task] = {}         # guarded by: _lock
+        self._ids = itertools.count(1)
+        # parent-task-id -> (monotonic expiry, reason); exact ids from
+        # cancellations, node-id prefixes from node-left reaping
+        self._bans: Dict[str, Tuple[float, str]] = {}       # guarded by: _lock
+        self._node_bans: Dict[str, Tuple[float, str]] = {}  # guarded by: _lock
+        # lifetime counters (surfaced via stats() -> `tpu_tasks`)
+        self.registered = 0        # guarded by: _lock
+        self.completed = 0         # guarded by: _lock
+        self.cancelled = 0         # guarded by: _lock
+        self.bans_propagated = 0   # guarded by: _lock
+        self.bans_received = 0     # guarded by: _lock
+        self.orphans_reaped = 0    # guarded by: _lock
+
+    # ---- registration ----
+
+    def register(self, action: str, description: str = "",
+                 cancellable: bool = True,
+                 parent_task_id: Optional[str] = None,
+                 trace_id: Optional[str] = None,
+                 sla: Optional[str] = None) -> Task:
+        if sla is None:
+            sla = TIER_INTERACTIVE
+        task = Task(id=next(self._ids), node=self.node_id, action=action,
+                    description=description,
+                    start_time_ms=int(time.time() * 1000),
+                    cancellable=cancellable, parent_task_id=parent_task_id,
+                    trace_id=trace_id, sla=sla)
+        ban: Optional[Tuple[float, str]] = None
+        with self._lock:
+            if parent_task_id:
+                ban = self._ban_for_locked(parent_task_id)
+            self._tasks[task.id] = task
+            self.registered += 1
+        if ban is not None and cancellable:
+            # banned parent: the child is cancelled ON ARRIVAL, so the
+            # handler's first check() raises before any engine dispatch
+            task.cancel(ban[1])
+        return task
+
+    def unregister(self, task: Task) -> None:
+        with self._lock:
+            was_live = self._tasks.pop(task.id, None) is not None
+            if was_live:
+                self.completed += 1
+                if task.is_cancelled:
+                    self.cancelled += 1
+            self._drained.notify_all()
+        if was_live:
+            metrics.observe_if_declared(
+                f"task_duration.{action_family(task.action)}",
+                (time.monotonic() - task.start_monotonic) * 1e3)
+
+    def task(self, action: str, description: str = "", **kw):
+        """Context manager: register on enter (activating the task as the
+        thread's current task), unregister on exit."""
+        manager = self
+
+        class _Ctx:
+            def __enter__(self):
+                self.t = manager.register(action, description, **kw)
+                self._act = activate(self.t)
+                self._act.__enter__()
+                return self.t
+
+            def __exit__(self, *exc):
+                self._act.__exit__(*exc)
+                manager.unregister(self.t)
+                return False
+
+        return _Ctx()
+
+    # ---- lookup ----
+
+    def get(self, task_id: int) -> Optional[Task]:
+        with self._lock:
+            return self._tasks.get(task_id)
+
+    def list(self, actions: Optional[str] = None) -> List[Task]:
+        import fnmatch
+
+        with self._lock:
+            tasks = list(self._tasks.values())
+        if actions:
+            pats = actions.split(",")
+            tasks = [t for t in tasks
+                     if any(fnmatch.fnmatchcase(t.action, p) for p in pats)]
+        return tasks
+
+    # ---- cancellation & bans ----
+
+    def cancel(self, task_id: int, reason: str = "by user request") -> Optional[Task]:
+        """Returns the task after cancelling, None if unknown; raises on a
+        non-cancellable task (ES: 400 for cancel of a non-cancellable)."""
+        t = self.get(task_id)
+        if t is None:
+            return None
+        if not t.cancellable:
+            e = ElasticsearchTpuError(
+                f"task [{t.node}:{t.id}] is not cancellable")
+            e.status = 400
+            raise e
+        t.cancel(reason)
+        return t
+
+    def cancel_matching(self, actions: str, reason: str = "by user request") -> List[Task]:
+        out = []
+        for t in self.list(actions):
+            if t.cancellable:
+                t.cancel(reason)
+                out.append(t)
+        return out
+
+    def _ban_for_locked(self, parent_task_id: str) -> Optional[Tuple[float, str]]:
+        # tpulint: holds=_lock
+        self._prune_bans_locked()
+        ban = self._bans.get(parent_task_id)
+        if ban is None:
+            node = parent_task_id.rsplit(":", 1)[0]
+            ban = self._node_bans.get(node)
+        return ban
+
+    def _prune_bans_locked(self) -> None:
+        # tpulint: holds=_lock
+        now = time.monotonic()
+        for d in (self._bans, self._node_bans):
+            for k in [k for k, (exp, _) in d.items() if exp <= now]:
+                d.pop(k, None)
+
+    def ban(self, parent_task_id: str, reason: str = "parent task cancelled") -> List[Task]:
+        """Record a TTL'd ban for ``parent_task_id`` and cancel every live
+        child already registered under it (ref: TaskCancellationService's
+        setBan + cancel-children). Returns the children cancelled now;
+        children registering later die on arrival via the ban list."""
+        expiry = time.monotonic() + float(knob("ES_TPU_TASK_BAN_TTL_S"))
+        with self._lock:
+            self._prune_bans_locked()
+            self._bans[parent_task_id] = (expiry, reason)
+            self.bans_received += 1
+            children = [t for t in self._tasks.values()
+                        if t.parent_task_id == parent_task_id and t.cancellable]
+        for t in children:
+            t.cancel(reason)
+        return children
+
+    def note_bans_propagated(self, n: int = 1) -> None:
+        """The local node fanned a ban out to ``n`` peers (owner side)."""
+        with self._lock:
+            self.bans_propagated += n
+
+    def reap_orphans(self, dead_node: str,
+                     reason: Optional[str] = None) -> List[Task]:
+        """Node-left: ban the dead node's id prefix and cancel every live
+        child whose parent lived there — an orphan's coordinator can never
+        unblock it, so it must die at the next dispatch boundary."""
+        reason = reason or f"parent node [{dead_node}] left the cluster"
+        expiry = time.monotonic() + float(knob("ES_TPU_TASK_BAN_TTL_S"))
+        with self._lock:
+            self._prune_bans_locked()
+            self._node_bans[dead_node] = (expiry, reason)
+            orphans = [t for t in self._tasks.values()
+                       if t.parent_task_id
+                       and t.parent_task_id.rsplit(":", 1)[0] == dead_node
+                       and t.cancellable]
+            self.orphans_reaped += len(orphans)
+        for t in orphans:
+            t.cancel(reason)
+        return orphans
+
+    def wait_for_drain(self, parent_task_id: str, timeout_s: float) -> bool:
+        """Block until no live task IS ``parent_task_id`` or has it as its
+        parent (wait_for_completion=true). True when drained in time."""
+        deadline = time.monotonic() + max(0.0, timeout_s)
+        with self._drained:
+            while True:
+                live = [t for t in self._tasks.values()
+                        if t.task_id == parent_task_id
+                        or t.parent_task_id == parent_task_id]
+                if not live:
+                    return True
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._drained.wait(remaining)
+
+    # ---- stats ----
+
+    def stats(self) -> dict:
+        with self._lock:
+            current: Dict[str, int] = {}
+            for t in self._tasks.values():
+                fam = action_family(t.action)
+                current[fam] = current.get(fam, 0) + 1
+            return {
+                "registered": self.registered,
+                "completed": self.completed,
+                "cancelled": self.cancelled,
+                "bans_propagated": self.bans_propagated,
+                "bans_received": self.bans_received,
+                "orphans_reaped": self.orphans_reaped,
+                "bans_active": len(self._bans) + len(self._node_bans),
+                "current": dict(sorted(current.items())),
+            }
+
+
+def parse_timeout_ms(value) -> Optional[float]:
+    """'100ms' / '2s' / '1m' / int(ms) -> milliseconds. -1 (ES's "no
+    timeout" sentinel) parses to None."""
+    if value is None:
+        return None
+    if isinstance(value, (int, float)):
+        return float(value) if value >= 0 else None
+    s = str(value).strip().lower()
+    if s == "-1":
+        return None
+    for suffix, mult in (("ms", 1.0), ("s", 1000.0), ("m", 60000.0),
+                         ("h", 3600000.0), ("d", 86400000.0)):
+        if s.endswith(suffix):
+            return float(s[: -len(suffix)]) * mult
+    return float(s)
+
+
+class DispatchDeadlineError(Exception):
+    """Raised from a dispatch-side deadline check (the `check` callable
+    threaded into engine dispatches) when the request `Deadline` expires
+    mid-dispatch; the serving layer converts it to timed_out partials."""
+
+
+class Deadline:
+    """Per-request soft deadline for timeout/terminate_after semantics
+    (ref: search/internal/ContextIndexSearcher timeout runnable +
+    QueryPhase.executeInternal terminateAfter): compute paths poll
+    `expired` at leaf boundaries and return PARTIAL results with
+    timed_out=true, unlike cancellation which raises."""
+
+    def __init__(self, timeout_ms: Optional[float]):
+        self._deadline = (time.monotonic() + timeout_ms / 1000.0
+                          if timeout_ms is not None and timeout_ms >= 0
+                          else None)
+        self.timed_out = False
+
+    @property
+    def expired(self) -> bool:
+        if self._deadline is not None and time.monotonic() > self._deadline:
+            self.timed_out = True
+            return True
+        return False
+
+    def remaining_ms(self) -> Optional[float]:
+        """Milliseconds until expiry (negative when past), None when
+        unbounded — lets a coordinator size per-RPC timeouts from the
+        request budget."""
+        if self._deadline is None:
+            return None
+        return (self._deadline - time.monotonic()) * 1000.0

@@ -96,7 +96,8 @@ def _port_segment(seg):
         postings={f: postings_from_arrays(
             {n: getattr(fp, n) for n in POSTINGS_ARRAYS}, fp.terms,
             fp.sum_doc_len, f) for f, fp in seg.postings.items()},
-        doc_ids=list(seg.doc_ids), sources=list(seg.sources), _device={})
+        doc_ids=list(seg.doc_ids), sources=list(seg.sources), _device={},
+        torch_device=torch.device("cpu"))
 
 
 class Pair:
@@ -152,11 +153,11 @@ class Pair:
 
 @pytest.fixture
 def cpu_engine(monkeypatch):
-    """A CPU engine as the port's default: its K8 wrapper runs the plain
-    version. Nothing picks the CPU on its own."""
-    eng = port_dev.AggDeviceEngine(device="cpu")
-    monkeypatch.setattr(port_dev, "_ENGINE", eng)
-    return eng
+    """A fresh engine registry for the test, and the engine of the CPU,
+    which the port's leaves (on the CPU) select: its K8 wrapper runs the
+    plain version. Nothing picks the CPU on its own."""
+    monkeypatch.setattr(port_dev, "_ENGINES", {})
+    return port_dev.default_engine("cpu")
 
 
 @pytest.fixture(scope="module")
@@ -169,9 +170,8 @@ def pair():
 @pytest.fixture(scope="module")
 def module_engine():
     with pytest.MonkeyPatch.context() as mp:
-        eng = port_dev.AggDeviceEngine(device="cpu")
-        mp.setattr(port_dev, "_ENGINE", eng)
-        yield eng
+        mp.setattr(port_dev, "_ENGINES", {})
+        yield port_dev.default_engine("cpu")
 
 
 @pytest.fixture(autouse=True)

@@ -28,11 +28,15 @@ edges (copied triples, NaN / -0.0 / negative lanes, few positive lanes, L
 not a multiple of 32) plus shapes the main path does not reach (more slots
 than a block has threads, a query tile that is not full, 4096-d rows) and
 K9's tiling cases (query tiles, a short last chunk of windows, rows that all
-tie, idle windows). Every comparison is bitwise. Each kernel is also run
+tie, idle windows), and the block scatter's head, mid and rare terms, a
+boosted idf, several terms' blocks for the presence mask, and row ids
+outside the block arrays. Every comparison is bitwise. Each kernel is also run
 once on outputs filled with NaN / -1 (kernels.poisoned; K1: column tiles
 filled with a nonzero byte pattern; K8: its outputs and word scratch), so a
 kernel that leaves an entry unwritten cannot pass on reused memory.
 """
+
+from contextlib import nullcontext as _nullcontext
 
 import numpy as np
 import pytest
@@ -603,3 +607,72 @@ def test_poisoned_outputs(dev, kernel):
     torch.cuda.synchronize()
     assert len(got) == len(want)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# --------------------------------------------------------------------------
+# block scatter (ops/scoring.py's BM25 / presence scatter)
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def scatter_fp():
+    from torch_kernel_cases import scatter_postings
+
+    return scatter_postings()
+
+
+@pytest.mark.parametrize("poison", [False, True])
+@pytest.mark.parametrize("case", ["head", "mid", "rare", "head_boosted"])
+def test_bm25_block_scatter_kernel(dev, scatter_fp, case, poison):
+    """bitwise against the plain version, also on an output filled with
+    NaN first (its C entry zero-fills it)"""
+    from torch_kernel_cases import scatter_case
+
+    fp, avgdl = scatter_fp
+    ids, idf = scatter_case(fp, case)
+    args = [_c(a, dev) for a in (ids, idf, fp.block_docs, fp.block_tfs,
+                                 fp.doc_len)]
+    k.reset_launches()
+    with k.poisoned() if poison else _nullcontext():
+        got = k.bm25_block_scatter(*args, avgdl=avgdl, k1=1.2, b=0.75)
+    want = k.bm25_block_scatter_plain(*args, avgdl=avgdl, k1=1.2, b=0.75)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["bm25_block_scatter"] == 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("poison", [False, True])
+@pytest.mark.parametrize("n_terms", [1, 12, 40])
+def test_block_presence_kernel(dev, scatter_fp, n_terms, poison):
+    from torch_kernel_cases import presence_ids
+
+    fp, _ = scatter_fp
+    args = [_c(a, dev) for a in (presence_ids(fp, n_terms), fp.block_docs,
+                                 fp.block_tfs)]
+    n = len(fp.doc_len)
+    k.reset_launches()
+    with k.poisoned() if poison else _nullcontext():
+        got = k.block_presence(*args, n_docs=n)
+    want = k.block_presence_plain(*args, n_docs=n)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["block_presence"] == 1
+    assert torch.equal(got, want)
+
+
+def test_block_scatter_skips_rows_outside(dev, scatter_fp):
+    """Row ids outside [0, T) and an empty id list write nothing (the
+    output stays zero-filled); a CPU argument is refused before launch."""
+    fp, avgdl = scatter_fp
+    t = fp.block_docs.shape[0]
+    ids = _c(np.array([0, -3, t, t + 5], np.int32), dev)
+    idf = _c(np.ones(4, np.float32), dev)
+    docs, tfs, dl = (_c(a, dev) for a in (fp.block_docs, fp.block_tfs,
+                                          fp.doc_len))
+    with k.poisoned():
+        out = k.bm25_block_scatter(ids, idf, docs, tfs, dl, avgdl=avgdl,
+                                   k1=1.2, b=0.75)
+        empty = k.block_presence(ids[:0], docs, tfs, n_docs=len(fp.doc_len))
+    torch.cuda.synchronize()
+    assert not out.any() and not empty.any()
+    with pytest.raises(ValueError):
+        k.block_presence(ids.cpu(), docs, tfs, n_docs=10)

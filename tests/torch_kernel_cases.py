@@ -1369,3 +1369,68 @@ def overflow_slots(seed, qc, n_slots, n_req=11, n_neg=6):
         reqs.append(req)
         negs.append(neg)
     return q_slots, q_neg, reqs, negs
+
+
+# --------------------------------------------------------------------------
+# block scatter (ops/scoring.py's bm25_scatter_scores / constant_scatter_mask)
+# --------------------------------------------------------------------------
+
+SCATTER_CASES = ("head", "mid", "rare", "head_boosted")
+
+
+def scatter_postings(seed=0, n_docs=40_000, n_terms=2_000):
+    """A text field's block postings (the port's build_field_postings) over
+    Zipf-like tokens: a head term in most docs, mid and rare ones, 5% of
+    docs empty (doc_len 0), lengths up to 60. Returns (FieldPostings,
+    avgdl)."""
+    from elasticsearch_tpu_torch.index.segment import build_field_postings
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 60, size=n_docs)
+    lens[rng.random(n_docs) < 0.05] = 0
+    p = 1.0 / np.arange(1, n_terms + 1) ** 1.1
+    p /= p.sum()
+    toks = rng.choice(n_terms, size=int(lens.sum()), p=p)
+    docs = np.repeat(np.arange(n_docs), lens)
+    fp = build_field_postings("body", lens, docs, toks,
+                              [f"t{i:05d}" for i in range(n_terms)])
+    return fp, float(fp.sum_doc_len) / max(int((lens > 0).sum()), 1)
+
+
+def scatter_case(fp, case):
+    """(padded block ids i32, per-row idf f32) of one term of `fp` as the
+    executor builds them (pad_block_ids: rows padded with 0 to a power of
+    two, idf 0 there), by case: the head term, a mid term (df near 1%) with
+    a boost of 1.5 folded into its idf, the rarest term, and the head term
+    with a boost of 2.5."""
+    df = fp.doc_freq
+    order = np.argsort(-df, kind="stable")
+    if case in ("head", "head_boosted"):
+        o = int(order[0])
+    elif case == "mid":
+        o = int(order[np.argmin(np.abs(df[order] - len(fp.doc_len) // 100))])
+    else:
+        o = int(order[np.count_nonzero(df) - 1])
+    ids = np.arange(fp.block_start[o], fp.block_start[o] + fp.block_count[o],
+                    dtype=np.int32)
+    b = 8 if len(ids) <= 8 else 1 << (len(ids) - 1).bit_length()
+    padded = np.zeros(b, np.int32)
+    padded[:len(ids)] = ids
+    n = len(fp.doc_len)
+    idf = np.float32(np.log(1.0 + (n - df[o] + 0.5) / (df[o] + 0.5)))
+    w = np.zeros(b, np.float32)
+    boost = {"mid": 1.5, "head_boosted": 2.5}.get(case, 1.0)
+    w[:len(ids)] = idf * np.float32(boost)
+    return padded, w
+
+
+def presence_ids(fp, n_terms=12):
+    """Padded block ids of several terms concatenated (a terms / prefix
+    filter: docs repeat across terms)."""
+    parts = [np.arange(fp.block_start[o], fp.block_start[o] + fp.block_count[o],
+                       dtype=np.int32) for o in range(n_terms)]
+    ids = np.concatenate(parts)
+    b = 1 << (len(ids) - 1).bit_length()
+    out = np.zeros(b, np.int32)
+    out[:len(ids)] = ids
+    return out
