@@ -8,6 +8,7 @@
     python3 chip_smoke.py --k2-parent OLD.cu   # time earlier sweeps beside them
     python3 chip_smoke.py --k8-parent OLD.cu --k4-parent OLD.cu   # and K8, K4
     python3 chip_smoke.py --k5-parent OLD.cu   # and K5's stage
+    python3 chip_smoke.py --scatter-parent OLD.cu   # and the block scatter
 
 It drives the port's main path (elasticsearch_tpu_torch only; it imports
 nothing of JAX or of elasticsearch_tpu) the way bench.py drives config 1 of
@@ -87,8 +88,10 @@ aggregation path the way bench.py drives config 6:
    scores bit for bit, within DENSE_SCORE_ULPS through log1p), the pure
    `match` bodies also against brute_topk; both block-scatter kernels are
    held bitwise against their plain versions (also on poisoned outputs)
-   on a head, a mid and a rare term and timed by events, alone and by
-   CUDA graph, beside their plain versions and `index_put_`;
+   on a head, a mid and a rare term, and presence on a `tags` term and
+   the `tag1` prefix's terms, and timed by events, alone and by CUDA
+   graph, beside their plain versions and `index_put_`, and given
+   --scatter-parent beside the parent commit's kernel in turns;
 8. serves the first batch again on a fresh engine at the default slice
    ladder and reports its sparse fallbacks, holding the answers that step
    4 held;
@@ -189,6 +192,15 @@ K4_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k4_parent.cu"
 # mask_chunk_counts after it), written there with
 #   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/intersect_bitset.cu
 K5_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k5_parent.cu"
+# and the block scatter's (check_block_scatter: the one-thread-a-lane
+# kernel, with the same C entries as this tree's), written there with
+#   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/block_scatter.cu
+SCATTER_PARENT = ("elasticsearch_tpu_torch/parallel/csrc/build/"
+                  "scatter_parent.cu")
+# CUDA-graph replays a block-scatter timing averages over: a mid or rare
+# term's call is about 0.01 ms, and 20 replays left its graph time to the
+# events' resolution and the clock's ramp
+SCATTER_GRAPH_REPS = 200
 # queries of each config-1 batch held against the host-exact tier (the DSL
 # bodies are held in full): the hold is host work, about 0.6 s a query on
 # the chip machine's 8 cores, and the cut keeps the whole run, kNN and agg
@@ -3274,25 +3286,67 @@ def dense_vs_brute(resp, fp, n: int, terms, live, label: str) -> int:
     return swaps
 
 
-def check_block_scatter(seg, n: int, launches: dict):
-    """Both block-scatter kernels on the `body` postings of the shard, one
-    term's blocks a call as the executor makes them (pad_block_ids, the
-    term's idf, the shard's avgdl): a head term (df in the millions), a
-    mid and a rare one. Each held bitwise against its plain version, also
-    on outputs filled with NaN / ones first, and timed by CUDA events,
-    alone (the scatter kernel's profiler events) and by CUDA graph (the
-    zero fill and the kernel); the plain version's time and, for the
-    scatter half, `index_put_` of the live lanes' scores into an [n_docs]
-    vector. Returns the two kernel rows (the head term's numbers on
-    top)."""
+def scatter_parent(path):
+    """The parent commit's block-scatter C entries (one thread a lane; the
+    same signatures as this tree's), built with nvcc from `path`: {"bm25":
+    fn, "presence": fn}, or None when `path` is not a file."""
+    import ctypes
+
+    from elasticsearch_tpu_torch.tools.k9_ab import parent_entry
+
+    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+    bm25 = parent_entry(path, "scatter_parent", "es_bm25_block_scatter",
+                        [p] * 5 + [i, ll, i] + [f] * 5 + [p, p])
+    if bm25 is None:
+        return None
+    return {"bm25": bm25,
+            "presence": parent_entry(path, "scatter_parent",
+                                     "es_block_presence",
+                                     [p, p, p, i, ll, i, p, p])}
+
+
+def scatter_raw(e, bm25: bool, ids, idf, docs, tfs, doc_len, n: int,
+                avgdl: float):
+    """One block-scatter call through the C entries `e` (scatter_parent)
+    with the wrapper's allocation (kernels._out, so filled inside
+    kernels.poisoned) and none of its checks."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    out = k._out((n,), torch.float32 if bm25 else torch.bool, docs.device)
+    nb, t = int(ids.shape[0]), int(docs.shape[0])
+    stream = torch.cuda.current_stream().cuda_stream
+    if bm25:
+        rc = e["bm25"](ids.data_ptr(), idf.data_ptr(), docs.data_ptr(),
+                       tfs.data_ptr(), doc_len.data_ptr(), nb, t, n,
+                       k._f32(avgdl), *k.bm25_constants(1.2, 0.75),
+                       out.data_ptr(), stream)
+    else:
+        rc = e["presence"](ids.data_ptr(), docs.data_ptr(), tfs.data_ptr(),
+                           nb, t, n, out.data_ptr(), stream)
+    require(rc == 0, f"block scatter launch failed: cudaError {rc}")
+    return out
+
+
+def scatter_cases(seg, n: int):
+    """The block-scatter calls check_block_scatter holds and times, each
+    as the executor makes it: one `body` term's rows (pad_block_ids, the
+    term's idf, the shard's avgdl) for a head term (df in the millions), a
+    mid and a rare one, both kernels; then presence alone on the `tags`
+    field: the term nearest n / 32 docs (a term filter) and the terms of
+    the prefix `tag1` (prefix_tags, its rows concatenated). Returns
+    [(label, field, term, (docs, tfs, doc_len), ids, idf, df, rows,
+    avgdl, modes)] on the segment's device."""
     import torch
 
     from elasticsearch_tpu_torch.ops import bm25_idf, pad_block_ids
-    from elasticsearch_tpu_torch.parallel import kernels as k
 
+    out = []
     fp = seg.postings["body"]
-    docs, tfs, doc_len = seg.device("post:body")
-    dev = docs.device
+    arrays = seg.device("post:body")
+    dev = arrays[0].device
     avgdl = float(np.float32(max(
         fp.sum_doc_len / max(int(np.count_nonzero(fp.doc_len)), 1), 1e-9)))
     df = fp.doc_freq
@@ -3300,79 +3354,146 @@ def check_block_scatter(seg, n: int, launches: dict):
     picks = {"head": int(order[0]),
              "mid": int(order[np.argmin(np.abs(df[order] - n // 100))]),
              "rare": int(order[np.argmin(np.abs(df[order] - 40))])}
-    per = {"bm25_block_scatter": [], "block_presence": []}
-    worst = 0.0
     for label, o in picks.items():
-        term = fp.terms[o]
-        ids_np = pad_block_ids(fp.term_block_ids(term))
+        ids_np = pad_block_ids(fp.term_block_ids(fp.terms[o]))
         idf_np = np.zeros(len(ids_np), np.float32)
         idf_np[:int(fp.block_count[o])] = bm25_idf(n, int(df[o]))
-        ids = torch.from_numpy(ids_np).to(dev)
-        idf = torch.from_numpy(idf_np).to(dev)
-        out = {}
+        out.append((label, "body", fp.terms[o], arrays,
+                    torch.from_numpy(ids_np).to(dev),
+                    torch.from_numpy(idf_np).to(dev), int(df[o]),
+                    int(fp.block_count[o]), avgdl,
+                    ("bm25_block_scatter", "block_presence")))
+    tp = seg.postings["tags"]
+    arrays = seg.device("post:tags")
+    tdf = tp.doc_freq
+    term_o = int(np.argmin(np.abs(tdf - n // 32)))
+    for label, ords in (("tag term", [term_o]),
+                        ("tag prefix", [o for o, t in enumerate(tp.terms)
+                                        if t.startswith("tag1")])):
+        ids_np = pad_block_ids(np.concatenate(
+            [np.arange(tp.block_start[o], tp.block_start[o]
+                       + tp.block_count[o], dtype=np.int32) for o in ords]))
+        out.append((label, "tags", ",".join(tp.terms[o] for o in ords),
+                    arrays, torch.from_numpy(ids_np).to(dev), None,
+                    int(tdf[ords].sum()),
+                    int(tp.block_count[ords].sum()), 0.0,
+                    ("block_presence",)))
+    return out
 
-        def bm25():
-            out["k"] = k.bm25_block_scatter(ids, idf, docs, tfs, doc_len,
-                                            avgdl=avgdl, k1=1.2, b=0.75)
 
-        def presence():
-            out["k"] = k.block_presence(ids, docs, tfs, n_docs=n)
+def check_block_scatter(seg, n: int, launches: dict, parent=None):
+    """Both block-scatter kernels on the scatter_cases of the segment.
+    Each call held bitwise against its plain version, also on outputs
+    filled with NaN / ones first, and timed by CUDA events and by CUDA
+    graph (the zero fill and the kernel, SCATTER_GRAPH_REPS replays), and
+    alone (the kernel's profiler events); the plain version's time and,
+    for the scatter half, `index_put_` of the live lanes' scores into an
+    [n_docs] vector. Given `parent` (scatter_parent), the parent's kernel
+    is held and timed the same way on every case, events and graphs in
+    turns with this tree's (parent, kernel, kernel, parent). The bound
+    reads each distinct row in [0, T) once (a pad row repeated is read
+    from L2). Returns the two kernel rows (the head term's numbers on
+    top)."""
+    import torch
 
-        plains = {
-            "bm25_block_scatter": lambda: k.bm25_block_scatter_plain(
-                ids, idf, docs, tfs, doc_len, avgdl=avgdl, k1=1.2, b=0.75),
-            "block_presence": lambda: k.block_presence_plain(
-                ids, docs, tfs, n_docs=n)}
-        rows_l = int(fp.block_count[o])
-        live_l = int(df[o])
-        for name, fn in (("bm25_block_scatter", bm25),
-                         ("block_presence", presence)):
-            want = plains[name]()
-            fn()
-            bits = (lambda t: t.view(torch.int32)) if name.startswith(
-                "bm25") else (lambda t: t)
-            require(torch.equal(bits(out["k"]), bits(want)),
-                    f"{name} ({label} term {term}) differs from its plain "
-                    f"version")
-            if name.startswith("bm25"):
-                worst = max(worst, max_abs_err(out["k"], want))
-            with k.poisoned():
-                fn()
-            require(torch.equal(bits(out["k"]), bits(want)),
-                    f"{name} ({label}) on a poisoned output differs")
-            events = [cuda_ms(fn, 10), cuda_ms(fn, 10)]
-            alone, alone_info = kernel_alone(fn, ("block_scatter_kernel",),
-                                             5)
-            graph = graph_ms(fn, 20)
-            plain_ms = cuda_ms(plains[name], 3)
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    per = {"bm25_block_scatter": [], "block_presence": []}
+    worst = 0.0
+    for (label, field, term, (docs, tfs, doc_len), ids, idf, live_l, rows_l,
+         avgdl, modes) in scatter_cases(seg, n):
+        uniq = torch.unique(ids)
+        rows_read = int(((uniq >= 0) & (uniq < docs.shape[0])).sum())
+        for name in modes:
+            is_bm25 = name.startswith("bm25")
+            if is_bm25:
+                def kern():
+                    return k.bm25_block_scatter(ids, idf, docs, tfs, doc_len,
+                                                avgdl=avgdl, k1=1.2, b=0.75)
+
+                def plain():
+                    return k.bm25_block_scatter_plain(
+                        ids, idf, docs, tfs, doc_len, avgdl=avgdl, k1=1.2,
+                        b=0.75)
+            else:
+                def kern():
+                    return k.block_presence(ids, docs, tfs, n_docs=n)
+
+                def plain():
+                    return k.block_presence_plain(ids, docs, tfs, n_docs=n)
+            runs = {"kernel": kern}
+            if parent:
+                runs["parent"] = lambda m=is_bm25: scatter_raw(
+                    parent, m, ids, idf, docs, tfs, doc_len, n, avgdl)
+            want = plain()
+            bits = (lambda t: t.view(torch.int32)) if is_bm25 else (
+                lambda t: t)
+            for r_name, fn in runs.items():
+                got = fn()
+                require(torch.equal(bits(got), bits(want)),
+                        f"{name} {r_name} ({label} {field}:{term}) differs "
+                        f"from its plain version")
+                if is_bm25 and r_name == "kernel":
+                    worst = max(worst, max_abs_err(got, want))
+                with k.poisoned():
+                    got = fn()
+                require(torch.equal(bits(got), bits(want)),
+                        f"{name} {r_name} ({label}) on a poisoned output "
+                        f"differs")
+            turns = (["parent"] if parent else []) + ["kernel", "kernel"] + (
+                ["parent"] if parent else [])
+            events = {x: [] for x in runs}
+            graphs = {x: [] for x in runs}
+            for x in turns:
+                events[x].append(cuda_ms(runs[x], 10))
+            for x in turns:
+                graphs[x].append(graph_ms(runs[x], SCATTER_GRAPH_REPS))
+            timed = {}
+            for x, fn in runs.items():
+                alone, alone_info = kernel_alone(
+                    fn, ("block_scatter_kernel",) if x == "parent"
+                    else ("block_scatter_rows",), 5)
+                timed[x] = {"ms": float(np.median(events[x])),
+                            "events_ms": events[x], "kernel_ms": alone,
+                            "kernel_events": alone_info,
+                            "device_ms": float(np.median(graphs[x])),
+                            "graphs_ms": graphs[x]}
+            plain_ms = cuda_ms(plain, 3)
             lib = None
-            if name.startswith("bm25"):
+            if is_bm25:
                 nz = torch.nonzero(want).reshape(-1)
                 vals = want[nz]
-                dst = torch.zeros(n, dtype=torch.float32, device=dev)
+                dst = torch.zeros(n, dtype=torch.float32, device=docs.device)
                 lib = cuda_ms(lambda: dst.index_put_((nz,), vals), 10)
-                out_bytes, lane_bytes, ops = 4 * n, 8 * len(ids_np), 8
+                out_bytes, lane_bytes, ops = 4 * n, 8 * len(ids), 8
             else:
-                out_bytes, lane_bytes, ops = n, 4 * len(ids_np), 1
-            nbytes = (lane_bytes + 1024 * len(ids_np) + out_bytes
-                      + (4 * live_l if name.startswith("bm25") else 0))
+                out_bytes, lane_bytes, ops = n, 4 * len(ids), 1
+            nbytes = (lane_bytes + 1024 * rows_read + out_bytes
+                      + (4 * live_l if is_bm25 else 0))
             b_ms, b_by = bound(nbytes, ops * live_l, PEAK_F32)
+            mine = timed.pop("kernel")
             per[name].append({
-                "term": term, "case": label, "df": live_l,
-                "blocks": rows_l, "padded_blocks": len(ids_np),
-                "ms": float(np.median(events)), "events_ms": events,
-                "kernel_ms": alone, "kernel_events": alone_info,
-                "device_ms": graph, "plain_ms": plain_ms,
-                "index_put_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
-                "bytes": nbytes})
-            log(f"{name} {label} {term} (df {live_l}, {len(ids_np)} rows): "
-                f"events {events} ms, alone {alone} ms, graph {graph:.4f} "
-                f"ms, plain {plain_ms:.3f} ms, index_put_ {lib}, bound "
+                "term": term, "field": field, "case": label, "df": live_l,
+                "blocks": rows_l, "padded_blocks": len(ids),
+                "rows_read": rows_read, **mine,
+                "plain_ms": plain_ms, "index_put_ms": lib, "bound_ms": b_ms,
+                "bound_by": b_by, "bytes": nbytes,
+                "graph_share_of_bound": b_ms / mine["device_ms"],
+                "others": timed})
+            log(f"{name} {label} {field}:{term} (df {live_l}, {len(ids)} "
+                f"rows, {rows_read} distinct): events {mine['events_ms']} "
+                f"ms, alone {mine['kernel_ms']} ms, graph "
+                f"{mine['graphs_ms']} ms ({b_ms / mine['device_ms']:.0%} of "
+                f"bound), plain {plain_ms:.3f} ms, index_put_ {lib}, bound "
                 f"{b_ms:.4f} ms ({b_by})")
-            out.clear()
+            for x, v in timed.items():
+                log(f"  {x}: events {v['events_ms']} ms, alone "
+                    f"{v['kernel_ms']} ms, graph {v['graphs_ms']} ms "
+                    f"({b_ms / v['device_ms']:.0%} of bound)")
     rows = []
     for name, line in (("bm25_block_scatter", 56), ("block_presence", 83)):
         head = per[name][0]
+        parent = head["others"].get("parent", {})
         rows.append({
             "name": name, "route": "cuda",
             "source": "elasticsearch_tpu_torch/parallel/csrc/block_scatter.cu",
@@ -3387,11 +3508,16 @@ def check_block_scatter(seg, n: int, launches: dict):
                              "(the scatter half)" if name.startswith("bm25")
                              else "no single PyTorch call gathers the "
                                   "blocks and marks the docs"),
+            "graph_ms": head["device_ms"], "kernel_ms": head["kernel_ms"],
+            "parent_ms": parent.get("ms"),
+            "parent_graph_ms": parent.get("device_ms"),
+            "parent_kernel_ms": parent.get("kernel_ms"),
             "poisoned_run": "bitwise", "terms": per[name]})
     return rows
 
 
-def dense_phase(fp, tokens, bounds, n: int, device="cuda") -> tuple:
+def dense_phase(fp, tokens, bounds, n: int, device="cuda",
+                scatter=None) -> tuple:
     """The dense search path (`search.execute_search`: query phase over the
     QueryExecutor, fetch phase, highlight, aggs) on the config-1 shard as
     one port Segment on the card: DENSE_BODIES, shapes the Turbo route
@@ -3400,8 +3526,9 @@ def dense_phase(fp, tokens, bounds, n: int, device="cuda") -> tuple:
     before; no plain version may run. Each card response is held against
     the port's own CPU response on the same segment (the segment's arrays
     shared, its device cache its own), the pure `match` bodies also
-    against brute_topk. Then check_block_scatter. Returns (kernel rows,
-    report)."""
+    against brute_topk. Then check_block_scatter, with the parent's C
+    entries `scatter` (scatter_parent) beside the kernel where given.
+    Returns (kernel rows, report)."""
     import copy
 
     import torch
@@ -3479,7 +3606,7 @@ def dense_phase(fp, tokens, bounds, n: int, device="cuda") -> tuple:
         f"CPU's ({cpu_s:.1f}s); {len(DENSE_MATCH)} match bodies equal to "
         f"brute_topk (near-tie swaps {swaps})")
 
-    rows = check_block_scatter(seg, n, launches)
+    rows = check_block_scatter(seg, n, launches, scatter)
     del card, seg
     torch.cuda.empty_cache()
     report = {"docs": n, "deleted": int((~live).sum()),
@@ -3496,7 +3623,8 @@ def dense_phase(fp, tokens, bounds, n: int, device="cuda") -> tuple:
 
 def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
         agg_docs: int, k3_parent_src=None, k2_parent_src=None,
-        k8_parent_src=None, k4_parent_src=None, k5_parent_src=None) -> dict:
+        k8_parent_src=None, k4_parent_src=None, k5_parent_src=None,
+        scatter_parent_src=None) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import hbm_ledger
@@ -3526,8 +3654,10 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     log(f"parent sweeps (K2, K6, K7) for the A/B: "
         f"{k2_parent_src if k2_parent else 'not given'}")
     k5_parent_fn = k5_parent(k5_parent_src)
+    scatter = scatter_parent(scatter_parent_src)
     for name, src in (("K8", k8_parent_src), ("K4", k4_parent_src),
-                      ("K5", k5_parent_src)):
+                      ("K5", k5_parent_src),
+                      ("block scatter", scatter_parent_src)):
         log(f"parent {name} for the A/B: "
             f"{src if src and os.path.isfile(src) else 'not given'}")
 
@@ -3667,7 +3797,8 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
 
     # ---- the dense search path (execute_search) on the same shard ----
     t = time.time()
-    dense_rows, dense_report = dense_phase(fp, tokens, bounds, n_docs)
+    dense_rows, dense_report = dense_phase(fp, tokens, bounds, n_docs,
+                                           scatter=scatter)
     dense_report["phase_s"] = time.time() - t
     rows += dense_rows
     log(f"dense phase took {dense_report['phase_s']:.1f}s")
@@ -3742,6 +3873,11 @@ def main(argv=None) -> int:
                          "entry) to time with the torch mask_chunk_counts "
                          "beside this tree's K5 stage; skipped when the "
                          "file is missing")
+    ap.add_argument("--scatter-parent", default=SCATTER_PARENT,
+                    help="an earlier block_scatter.cu (the same C "
+                         "entries) to time beside this tree's block scatter "
+                         "on the same calls; skipped when the file is "
+                         "missing")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3759,7 +3895,8 @@ def main(argv=None) -> int:
         return 2
     out = run(args.docs, args.batches, args.batch, args.knn_docs,
               args.agg_docs, args.k3_parent, args.k2_parent,
-              args.k8_parent, args.k4_parent, args.k5_parent)
+              args.k8_parent, args.k4_parent, args.k5_parent,
+              args.scatter_parent)
     print(json.dumps({"serving": out["serving"]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1312,7 +1312,7 @@ def bm25_block_scatter(block_ids, idf, block_docs, block_tfs, doc_len, *,
     Score of a lane with tf > 0: idf * tf * (k1 + 1) / (tf + k1 * (1 - b
     + b * dl / avgdl)); other docs 0. The rows must hold each doc at most
     once among their tf > 0 lanes (one term's blocks): a doc is stored,
-    not summed.
+    not summed. Any order of rows; rows outside [0, T) write nothing.
     """
     dev = _check_blocks(block_ids, block_docs, block_tfs)
     _check(idf, "idf", torch.float32, 1, dev)
@@ -1335,7 +1335,7 @@ def bm25_block_scatter(block_ids, idf, block_docs, block_tfs, doc_len, *,
 
 def block_presence(block_ids, block_docs, block_tfs, *, n_docs: int):
     """[n_docs] bool: docs of a lane with tf > 0 in any selected row (the
-    rows may belong to several terms)."""
+    rows may belong to several terms, in any order)."""
     dev = _check_blocks(block_ids, block_docs, block_tfs)
     if not _route(dev):
         return block_presence_plain(block_ids, block_docs, block_tfs,

@@ -29,8 +29,12 @@ not a multiple of 32) plus shapes the main path does not reach (more slots
 than a block has threads, a query tile that is not full, 4096-d rows) and
 K9's tiling cases (query tiles, a short last chunk of windows, rows that all
 tie, idle windows), and the block scatter's head, mid and rare terms, a
-boosted idf, several terms' blocks for the presence mask, and row ids
-outside the block arrays. Every comparison is bitwise. Each kernel is also run
+boosted idf, several terms' blocks for the presence mask, row ids
+outside the block arrays, and its edges (rows shuffled, a row count that
+is not a whole number of the kernel's steps, a live row 0, 40,001 and
+200,000 docs, a ladder of row counts up to 8 x the warps the card holds,
+so that every grid plan is taken). Every comparison is bitwise. Each
+kernel is also run
 once on outputs filled with NaN / -1 (kernels.poisoned; K1: column tiles
 filled with a nonzero byte pattern; K8: its outputs and word scratch), so a
 kernel that leaves an entry unwritten cannot pass on reused memory.
@@ -657,6 +661,85 @@ def test_block_presence_kernel(dev, scatter_fp, n_terms, poison):
     torch.cuda.synchronize()
     assert k.LAUNCHES["block_presence"] == 1
     assert torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def scatter_fp_odd():
+    """40,001 docs: n_docs not a multiple of 4 or 16."""
+    from torch_kernel_cases import scatter_postings
+
+    return scatter_postings(seed=3, n_docs=40_001)
+
+
+@pytest.fixture(scope="module")
+def scatter_fp_large():
+    """200,000 docs: a head term of some 1,500 rows."""
+    from torch_kernel_cases import scatter_postings
+
+    return scatter_postings(seed=5, n_docs=200_000, n_terms=4_000)
+
+
+def _scatter_both(dev, fp, ids, idf, avgdl, poison):
+    """Both kernels on one row list, each bitwise against its plain
+    version (on outputs filled with NaN / ones first when `poison`)."""
+    args = [_c(a, dev) for a in (ids, idf, fp.block_docs, fp.block_tfs,
+                                 fp.doc_len)]
+    n = len(fp.doc_len)
+    pargs = (args[0], args[2], args[3])
+    k.reset_launches()
+    with k.poisoned() if poison else _nullcontext():
+        got = k.bm25_block_scatter(*args, avgdl=avgdl, k1=1.2, b=0.75)
+        mask = k.block_presence(*pargs, n_docs=n)
+    want = k.bm25_block_scatter_plain(*args, avgdl=avgdl, k1=1.2, b=0.75)
+    want_mask = k.block_presence_plain(*pargs, n_docs=n)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["bm25_block_scatter"] == 1
+    assert k.LAUNCHES["block_presence"] == 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(mask, want_mask)
+    return want
+
+
+@pytest.mark.parametrize("poison", [False, True])
+@pytest.mark.parametrize("size", ["odd", "large"])
+@pytest.mark.parametrize("case", ["shuffled", "ragged", "row0_live"])
+def test_block_scatter_edges_kernel(dev, scatter_fp_odd, scatter_fp_large,
+                                    case, size, poison):
+    """Rows shuffled, a row count that is not a whole number of the
+    kernel's steps, and a live row 0 (scored, not skipped as padding); on
+    40,001 docs and on 200,000."""
+    from torch_kernel_cases import scatter_edge_case
+
+    fp, avgdl = scatter_fp_odd if size == "odd" else scatter_fp_large
+    fp, ids, idf = scatter_edge_case(fp, case)
+    want = _scatter_both(dev, fp, ids, idf, avgdl, poison)
+    if case == "row0_live":       # row 0's live lanes scored, nonzero
+        live0 = fp.block_docs[0][fp.block_tfs[0] > 0]
+        assert bool((want[_c(live0, dev).long()] > 0).all())
+
+
+# rows of the ladder as fractions of the warps an H100-class card holds at
+# once (SMs x 64): the kernel takes a thread a lane, 2 lanes or 4 as the
+# rows fit the card, and past that walks its grid over several steps
+_LADDER = [(0, 8), (1, 16), (1, 4), (1, 3), (1, 2), (1, 1), (2, 1), (8, 1)]
+
+
+@pytest.mark.parametrize("poison", [False, True])
+@pytest.mark.parametrize("num,den", _LADDER)
+def test_block_scatter_ladder_kernel(dev, num, den, poison):
+    """One term's rows (scatter_ladder) from 8 to 8 x the warps the card
+    holds at once: every lanes-a-thread plan the C entry picks, and a
+    persistent grid that strides over many steps."""
+    from types import SimpleNamespace
+
+    from torch_kernel_cases import scatter_ladder
+
+    resident = torch.cuda.get_device_properties(dev).multi_processor_count * 64
+    n_rows = num * resident // den if num else den
+    docs, tfs, doc_len, ids, idf, avgdl = scatter_ladder(n_rows)
+    fp = SimpleNamespace(block_docs=docs, block_tfs=tfs, doc_len=doc_len)
+    want = _scatter_both(dev, fp, ids, idf, avgdl, poison)
+    assert int((want > 0).sum()) == int((tfs > 0).sum())
 
 
 def test_block_scatter_skips_rows_outside(dev, scatter_fp):

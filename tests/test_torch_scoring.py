@@ -24,7 +24,8 @@ from elasticsearch_tpu.ops import scoring as ref
 from elasticsearch_tpu_torch.ops import scoring as port
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
-    SCATTER_CASES, presence_ids, scatter_case, scatter_postings,
+    SCATTER_CASES, SCATTER_EDGE_CASES, presence_ids, scatter_case,
+    scatter_edge_case, scatter_ladder, scatter_postings,
 )
 
 torch.set_num_threads(1)
@@ -96,6 +97,56 @@ def test_constant_scatter_mask_bitwise(postings, n_terms):
     assert got.dtype == torch.bool
     assert np.array_equal(got.numpy(), want)
     assert torch.equal(plain, got)
+
+
+@pytest.fixture(scope="module")
+def postings_odd():
+    """40,001 docs: n_docs not a multiple of 4 or 16."""
+    return scatter_postings(seed=3, n_docs=40_001)
+
+
+@pytest.fixture(scope="module")
+def postings_large():
+    """200,000 docs: a head term of some 1,500 rows."""
+    return scatter_postings(seed=5, n_docs=200_000, n_terms=4_000)
+
+
+def _both_bitwise(docs, tfs, doc_len, ids, idf, avgdl):
+    """Both wrappers on the CPU against the reference's jit functions on
+    one row list, bitwise."""
+    n = len(doc_len)
+    want = np.asarray(ref.bm25_scatter_scores(
+        docs, tfs, doc_len, ids, idf, np.float32(avgdl), n_docs=n, k1=1.2,
+        b=0.75))
+    got = k.bm25_block_scatter(_t(ids), _t(idf), _t(docs), _t(tfs),
+                               _t(doc_len), avgdl=avgdl, k1=1.2, b=0.75)
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    want_mask = np.asarray(ref.constant_scatter_mask(docs, tfs, ids,
+                                                     n_docs=n))
+    got_mask = k.block_presence(_t(ids), _t(docs), _t(tfs), n_docs=n)
+    assert np.array_equal(got_mask.numpy(), want_mask)
+    assert int(got_mask.sum()) == int((want > 0).sum())
+
+
+@pytest.mark.parametrize("size", ["odd", "large"])
+@pytest.mark.parametrize("case", SCATTER_EDGE_CASES)
+def test_block_scatter_edges_bitwise(postings_odd, postings_large, case,
+                                     size):
+    """The card tests' block-scatter edges (rows shuffled, a ragged row
+    count, a live row 0) through the port's wrappers on the CPU and the
+    reference's jit functions, on 40,001 docs and on 200,000."""
+    fp, avgdl = postings_odd if size == "odd" else postings_large
+    fp, ids, idf = scatter_edge_case(fp, case)
+    _both_bitwise(fp.block_docs, fp.block_tfs, fp.doc_len, ids, idf, avgdl)
+
+
+@pytest.mark.parametrize("n_rows", [1, 37, 300])
+def test_block_scatter_ladder_bitwise(n_rows):
+    """The card tests' row-count ladder (scatter_ladder: rows made
+    directly) at small counts, through the port's wrappers on the CPU and
+    the reference."""
+    docs, tfs, doc_len, ids, idf, avgdl = scatter_ladder(n_rows)
+    _both_bitwise(docs, tfs, doc_len, ids, idf, avgdl)
 
 
 def test_pad_block_ids_same(postings):

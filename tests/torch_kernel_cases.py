@@ -1424,6 +1424,62 @@ def scatter_case(fp, case):
     return padded, w
 
 
+SCATTER_EDGE_CASES = ("shuffled", "ragged", "row0_live")
+
+
+def scatter_edge_case(fp, case, seed=0):
+    """(fp, ids, idf) of a block-scatter edge on the head term of `fp`, as
+    scatter_case makes it: its padded rows shuffled, the pad rows among
+    them (any order is in the contract); its real rows alone, a count
+    that is not a whole number of the kernel's block ids a step; its real
+    rows after the reserved row 0, given live lanes (docs the term does
+    not hold, tf > 0, a tail of pad lanes) and an idf, so row 0 is scored
+    like any row, not skipped as padding. Returns a copy of `fp` where it
+    edits the blocks."""
+    import copy
+
+    ids, idf = scatter_case(fp, "head")
+    n_real = int(np.count_nonzero(idf))
+    if case == "shuffled":
+        perm = np.random.default_rng(seed).permutation(len(ids))
+        return fp, ids[perm], idf[perm]
+    if case == "ragged":
+        n_real -= n_real % 32 == 0        # never a whole number of steps
+        return fp, ids[:n_real], idf[:n_real]
+    fp = copy.copy(fp)
+    docs, tfs = fp.block_docs.copy(), fp.block_tfs.copy()
+    rows = ids[:n_real]
+    free = np.setdiff1d(np.arange(len(fp.doc_len)),
+                        docs[rows][tfs[rows] > 0])
+    docs[0] = free[:128]
+    tfs[0] = np.random.default_rng(seed).integers(1, 4, 128)
+    tfs[0, 100:] = 0
+    fp.block_docs, fp.block_tfs = docs, tfs
+    return (fp, np.concatenate([[0], rows]).astype(np.int32),
+            np.concatenate([[0.7], idf[:n_real]]).astype(np.float32))
+
+
+def scatter_ladder(n_rows, seed=0):
+    """One term's blocks of `n_rows` rows, made directly (no postings
+    build), for a block-scatter launch of any row count: block row 0
+    reserved (zeros), row r >= 1 holds docs (r - 1) * 128 + lane in
+    order, a quarter of the lanes dead (tf 0); n_docs = n_rows * 128 + 3,
+    not a multiple of 4, the last 3 docs in no row. Returns (docs [n_rows + 1, 128] i32, tfs f32, doc_len
+    [n_docs] f32, ids [n_rows] i32 = 1..n_rows, idf [n_rows] f32,
+    avgdl)."""
+    rng = np.random.default_rng(seed)
+    n_docs = n_rows * 128 + 3
+    docs = np.zeros((n_rows + 1, 128), np.int32)
+    docs[1:] = np.arange(n_rows * 128, dtype=np.int32).reshape(n_rows, 128)
+    tfs = np.zeros((n_rows + 1, 128), np.float32)
+    tfs[1:] = rng.integers(0, 4, (n_rows, 128))
+    doc_len = rng.integers(0, 60, n_docs).astype(np.float32)
+    ids = np.arange(1, n_rows + 1, dtype=np.int32)
+    idf = rng.uniform(0.1, 6.0, n_rows).astype(np.float32)
+    avgdl = float(doc_len.sum() / max(np.count_nonzero(doc_len), 1))
+    return docs, tfs, doc_len, ids, idf, avgdl
+
+
 def presence_ids(fp, n_terms=12):
     """Padded block ids of several terms concatenated (a terms / prefix
     filter: docs repeat across terms)."""
