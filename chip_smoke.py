@@ -9,6 +9,7 @@
     python3 chip_smoke.py --k8-parent OLD.cu --k4-parent OLD.cu   # and K8, K4
     python3 chip_smoke.py --k5-parent OLD.cu   # and K5's stage
     python3 chip_smoke.py --scatter-parent OLD.cu   # and the block scatter
+    python3 chip_smoke.py --serving-only --docs N   # step 8 alone, no ok line
 
 It drives the port's main path (elasticsearch_tpu_torch only; it imports
 nothing of JAX or of elasticsearch_tpu) the way bench.py drives config 1 of
@@ -92,10 +93,31 @@ aggregation path the way bench.py drives config 6:
    the `tag1` prefix's terms, and timed by events, alone and by CUDA
    graph, beside their plain versions and `index_put_`, and given
    --scatter-parent beside the parent commit's kernel in turns;
-8. serves the first batch again on a fresh engine at the default slice
+8. serves the product's entry point on the same segment, all live
+   (serving_phase): a one-shard port IndexService on the card, with the
+   main path's knobs, takes IndexService.msearch of both config-1
+   batches as DSL bodies and of the DSL bodies (one _disjunctive_batch
+   each), the first batch again as single IndexService.search calls from
+   32 threads at once (the adaptive scheduler's lanes) and one at a time
+   with ES_TPU_COALESCE_US=0, config 2's 256 bool bodies and config 3's
+   first 64 slop-0 phrases one at a time (_conjunctive -> search_bool),
+   the 25 dense bodies, 16 size-0 aggregation bodies from 16 threads at
+   once (K8 on the bulk tier at Q > 1), and on a second service of two
+   131,072-row segments (config 4's generator, cut from 2M to fit the
+   clock) the 8 kNN bodies through _knn_batch (K9, K4). Its rows equal
+   the main path's bitwise, every fast-path response the dense
+   executor's within tests/test_serving.py's bound, the aggregations the
+   host aggregators', the kNN ids and order the KnnEngine's dense
+   route's within KNN_GAMMA; no fault, timeout, BlockMax decline or
+   plain version, every kernel of the path launched. Then K2, K3, K4,
+   K5, K6 and K9 are held bitwise against their plain versions (also on
+   poisoned outputs) at every launch shape the path gave them, on the
+   first such launch's inputs, K2 and K6 timed by CUDA graph beside their
+   bounds, and K8 is timed at its largest Q;
+9. serves the first batch again on a fresh engine at the default slice
    ladder and reports its sparse fallbacks, holding the answers that step
    4 held;
-9. frees the BM25 index and serves quantized kNN (config 4: 768-d cosine
+10. frees the BM25 index and serves quantized kNN (config 4: 768-d cosine
    rows drawn as bench.py draws them, 128 of its 256 queries with 16
    planted near-duplicate rows each) through `select_knn_engine` ->
    `KnnEngine.search_many`, first on one partition, then, after freeing
@@ -113,14 +135,16 @@ aggregation path the way bench.py drives config 6:
    and on 16 of the queries) and K4 bitwise equal to their plain versions
    on the path's inputs, K9 timed with its score and selection passes
    apart;
-10. serves config 6 (analytics) at bench.py's 10,000,000 docs: a leaf drawn
+11. serves config 6 (analytics) at bench.py's 10,000,000 docs: a leaf drawn
    as bench.py's _synth_agg_leaf (Zipf tags, a 90-day timestamp, prices
    with gaps), AGG_BENCH_SPEC (terms + stats, 7d date_histogram + sum)
    over 8 masks at 5% through parse_aggs -> collect_leaf ->
    reduce_partials -> finalize_aggs on the default AggDeviceEngine (K8),
    one warm request building the layouts first. It requires every
    collect on the device with no host fallback, K8 launched once per
-   dispatch, ledger bytes equal to the engine's; holds two requests and
+   dispatch, ledger bytes equal to the engine's; times the 8 requests
+   again with the bulk tier's wait at 0 (ES_TPU_SCHED_BULK_US=0, its
+   answers equal); holds two requests and
    the reference suite's shapes (terms, terms with four metrics,
    histogram, three date_histograms) on 5%, 2%, 90% and empty masks
    against the port's host path (==); hands the 8 works to one
@@ -128,9 +152,9 @@ aggregation path the way bench.py drives config 6:
    K8 bitwise against its plain version on the path's layouts at Q = 1,
    4, 16 and 64 and on a synthetic four-tile one, timed by events, alone
    and beside the parent commit's kernel given --k8-parent (K4 likewise
-   in step 9, given --k4-parent, with its host enqueue), K9 and K4 also on
+   in step 10, given --k4-parent, with its host enqueue), K9 and K4 also on
    outputs filled with NaN / -1 first;
-11. prints the card's name and power limit and a `kernels` JSON line, and
+12. prints the card's name and power limit and a `kernels` JSON line, and
    last `{"ok": true, "device": {...}}`.
 
 The kNN column is cut from bench.py's 10M vectors to 2,000,000: at 10M a
@@ -146,7 +170,7 @@ The main path runs at a slice-width ladder extended to 65536
 1024,4096,16384, so every cold term (df < cold_df = 65536) gets a device
 slice: with the default ladder a query with a cold term of df 16385-65535
 has its whole cold side scored on the host (a sparse fallback), which the
-main path refuses. Step 8 measures how often that happens at the default.
+main path refuses. Step 9 measures how often that happens at the default.
 """
 
 from __future__ import annotations
@@ -1169,10 +1193,10 @@ def record_fallbacks(turbo, bits: bool):
     fell = []
     finish = turbo._finish_bool
 
-    def spy(r, cand_docs, bound, k, cold):
+    def spy(r, cand_docs, bound, k, cold, slots):
         n = turbo.stats["fallbacks"]
-        scoring, req, neg = turbo._bool_slots(r)
-        out = finish(r, cand_docs, bound, k, cold)
+        scoring, req, neg = slots
+        out = finish(r, cand_docs, bound, k, cold, slots)
         if turbo.stats["fallbacks"] > n:
             spec = _spec_of(r)
             terms = ([t for t, _ in spec["must"] + spec["should"]]
@@ -2913,8 +2937,9 @@ def agg_phase(n: int, device="cuda", k8_parent_src=None) -> tuple:
     """Config 6 (analytics) through the port's aggregation entry points
     (parse_aggs -> collect_leaf -> reduce_partials -> finalize_aggs, the
     device route through agg_device and K8) on a synthetic n-doc leaf:
-    AGG_REQUESTS timed requests after one warm call, held against the host
-    path; the reference suite's shapes held on sparse, dense and empty
+    AGG_REQUESTS timed requests after one warm call, and again with the
+    bulk tier's wait at 0, held against the host path; the reference
+    suite's shapes held on sparse, dense and empty
     masks; a coalesced batch of works; K8 against its plain version (and
     the parent commit's source `k8_parent_src` when it is a file).
     `device` other than "cuda" puts the leaf, and so its agg engine,
@@ -2976,6 +3001,17 @@ def agg_phase(n: int, device="cuda", k8_parent_src=None) -> tuple:
             for b in tags), "config 6: malformed tags buckets")
         require(len(r["weekly"]["buckets"]) >= 13,
                 "config 6: too few weekly buckets")
+
+    # ---- the bulk tier's wait: the same requests once more with its
+    # budget at 0, so a lone collect flushes at once (not counted) ----
+    disp0 = []
+    with env_set("ES_TPU_SCHED_BULK_US", "0"), agg_dispatch_timer(disp0):
+        out0, lat0 = run_aggs(ctx, AGG_SPEC, cmasks)
+    require(out0 == dev_out, "config 6 with no bulk wait differs")
+    log(f"config 6 with ES_TPU_SCHED_BULK_US=0: requests "
+        f"{[round(x, 4) for x in lat0]}s, dispatch "
+        f"{sum(disp0) / len(lat0):.4f}s a request against "
+        f"{sum(disp) / len(lat):.4f}s at the default budget")
 
     # ---- K8 against its plain version (and the parent's kernel) on the
     # path's layouts, before the holds fork their host workers ----
@@ -3042,6 +3078,8 @@ def agg_phase(n: int, device="cuda", k8_parent_src=None) -> tuple:
         "warm_request_s": warm_s, "request_latency_s": lat,
         "qps": len(lat) / sum(lat),
         "dispatch_s_per_request": sum(disp) / len(lat),
+        "bulk_wait_0": {"request_latency_s": lat0,
+                        "dispatch_s_per_request": sum(disp0) / len(lat0)},
         "host_request_latency_s": host_lat,
         "hbm_bytes": eng.hbm_bytes(), "ledger_bytes": eng.ledger_bytes(),
         "counters": d, "launches": launches,
@@ -3528,7 +3566,7 @@ def dense_phase(fp, tokens, bounds, n: int, device="cuda",
     shared, its device cache its own), the pure `match` bodies also
     against brute_topk. Then check_block_scatter, with the parent's C
     entries `scatter` (scatter_parent) beside the kernel where given.
-    Returns (kernel rows, report)."""
+    Returns (kernel rows, report, the segment)."""
     import copy
 
     import torch
@@ -3607,7 +3645,7 @@ def dense_phase(fp, tokens, bounds, n: int, device="cuda",
         f"brute_topk (near-tie swaps {swaps})")
 
     rows = check_block_scatter(seg, n, launches, scatter)
-    del card, seg
+    del card
     torch.cuda.empty_cache()
     report = {"docs": n, "deleted": int((~live).sum()),
               "segment_build_s": build_s, "main_path_s": main_s,
@@ -3618,7 +3656,702 @@ def dense_phase(fp, tokens, bounds, n: int, device="cuda",
               "brute_near_tie_swaps": swaps,
               "totals": {k: r["hits"].get("total")
                          for k, r in responses.items()}}
-    return rows, report
+    return rows, report, seg
+
+
+# --------------------------------------------------------------------------
+# the serving entry point: IndexService.search / msearch
+# --------------------------------------------------------------------------
+
+SERVING_THREADS = 32       # concurrent single searches
+AGG_THREADS = 16           # concurrent aggregation requests
+SERVING_KNN_ROWS = 131_072  # rows of each of the kNN service's two segments
+# the serving layer's own hold, tests/test_serving.py's assert_same_results
+SERVE_RTOL = SERVE_ATOL = 2e-4
+AGG_BODY = DENSE_BODIES["aggs_terms_avg"]["aggs"]
+
+
+def serving_service(segs, mapping, name: str, device):
+    """A one-shard port IndexService on `device` whose engine holds `segs`
+    (segment, live mask) pairs, as InternalEngine.install_segment leaves
+    them after decoding a blob (appended, a local seg id, live epoch 0)
+    without its version map, which nothing on the search path reads: the
+    segments are built from arrays, and the write path runs in the CPU
+    tests."""
+    import copy
+
+    from elasticsearch_tpu_torch.cluster.state import IndexMetadata
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.index.index_service import IndexService
+
+    svc = IndexService(IndexMetadata(index=name, uuid=name,
+                                     settings=Settings({}),
+                                     mappings=copy.deepcopy(mapping)),
+                       device=device)
+    eng = svc.shards[0]
+    with eng._lock:
+        for seg, live in segs:
+            seg.seg_id = eng._next_seg_id
+            eng._segments.append(seg)
+            eng._live.append(np.asarray(live, bool).copy())
+            eng._live_epochs.append(0)
+            eng._next_seg_id += 1
+    return svc
+
+
+def match_body(q) -> dict:
+    """A config-1 query as a DSL body: bool.should of `term`s, `boost` on
+    weighted terms."""
+    should = []
+    for x in q:
+        t, w = (x, 1.0) if isinstance(x, str) else x
+        should.append({"term": {"body": t if w == 1.0
+                                else {"value": t, "boost": w}}})
+    return {"query": {"bool": {"should": should}}}
+
+
+def bool_body(spec) -> dict:
+    """A config-2 bool spec as a DSL body."""
+    def term(t, w=1.0):
+        return {"term": {"body": t if w == 1.0 else {"value": t, "boost": w}}}
+    b = {"must": [term(t, w) for t, w in spec["must"]],
+         "should": [term(t, w) for t, w in spec.get("should", [])]}
+    if spec.get("filter"):
+        b["filter"] = [term(t) for t in spec["filter"]]
+    return {"query": {"bool": b}}
+
+
+def same_results(fast, dense, label: str) -> None:
+    """The fast path's response against the dense executor's: the same ids,
+    totals and `_source`, scores within SERVE_RTOL relative plus SERVE_ATOL."""
+    fh, dh = fast["hits"]["hits"], dense["hits"]["hits"]
+    require([h["_id"] for h in fh] == [h["_id"] for h in dh],
+            f"{label}: ids differ from the dense executor's")
+    for a, b in zip(fh, dh):
+        require(abs(a["_score"] - b["_score"])
+                <= SERVE_RTOL * abs(b["_score"]) + SERVE_ATOL,
+                f"{label}: score {a['_score']} against {b['_score']}")
+        require(a["_source"] == b["_source"], f"{label}: _source differs")
+    require(fast["hits"].get("total") == dense["hits"].get("total"),
+            f"{label}: total {fast['hits'].get('total')} against "
+            f"{dense['hits'].get('total')}")
+
+
+def hold_rows(resps, rows, label: str) -> None:
+    """Served responses against the main phase's engine rows (scores
+    [Q, k], ords [Q, k]) of the same queries: ids and f32 `_score` bitwise,
+    nothing past the rows' last positive score."""
+    s, o = rows
+    for qi, r in enumerate(resps):
+        hits = r["hits"]["hits"]
+        n = int((s[qi] > 0).sum())
+        require(len(hits) == n, f"{label} {qi}: {len(hits)} hits, {n} rows")
+        require([h["_id"] for h in hits] == [f"d{d}" for d in o[qi, :n]],
+                f"{label} {qi}: ids differ from the main phase's rows")
+        require(np.array_equal(np.array([h["_score"] for h in hits],
+                                        np.float32), s[qi, :n]),
+                f"{label} {qi}: scores differ from the main phase's rows")
+
+
+def hold_dense(svc, pairs, label: str, dense=None) -> dict:
+    """Every (body, fast-path response) against svc._search_dense(body)
+    (computed here unless `dense` has it). Returns the dense answers."""
+    dense = {} if dense is None else dense
+    for i, (body, r) in enumerate(pairs):
+        key = json.dumps(body, sort_keys=True)
+        if key not in dense:
+            dense[key] = svc._search_dense(body)
+        same_results(r, dense[key], f"{label} {i}")
+    return dense
+
+
+def _sparse_key(args, kw):
+    qoff = kw.get("qoff")
+    return 1 if qoff is None else int(qoff.shape[0]) - 1
+
+
+def _shape_key(args, kw):
+    return tuple(tuple(a.shape) if hasattr(a, "shape") else a
+                 for a in args)
+
+
+# the serving path's kernel wrappers besides K1, K8, the pack and the block
+# scatter (their path shapes are the main phase's, held there, or K8's,
+# timed by k8_case): (name, module, attribute, launch-shape key,
+# arguments to copy when recorded)
+PATH_KERNELS = (
+    ("sweep_rowmax", "kernels", "sweep_rowmax",
+     lambda a, kw: int(a[3].shape[1]), ()),
+    ("sweep_rowmax_bitset", "kernels", "sweep_rowmax_bitset",
+     lambda a, kw: int(a[3].shape[1]), ()),
+    # K5's clause slots come from host buffers, K3's slice pool is
+    # overwritten by later batches: copied
+    ("intersect_bitset", "kernels", "intersect_bitset_counts",
+     _shape_key, (0, 1)),
+    ("sparse_gather", "kernels", "sparse_gather", _sparse_key, (4,)),
+    ("knn_int8_window_topc", "knn", "knn_int8_window_topc",
+     lambda a, kw: _shape_key(a, kw) + (a[5] is not None,), ()),
+    ("merge_topk", "kernels", "merge_topk", _shape_key, ()),
+)
+
+
+@contextlib.contextmanager
+def record_shapes():
+    """Yields {kernel: {launch shape: [launches, args, kw]}}: the
+    launches that PATH_KERNELS's wrappers make while the block runs (a
+    call that launches nothing is not counted), by launch shape (the
+    sweeps' query width QC, K3's query count, the others' input shapes),
+    with the first launching call's arguments at each shape, the ones
+    that later calls overwrite copied."""
+    import threading
+
+    from elasticsearch_tpu_torch.parallel import kernels
+    from elasticsearch_tpu_torch.parallel import knn as knn_mod
+
+    mods = {"kernels": kernels, "knn": knn_mod}
+    seen = {name: {} for name, *_ in PATH_KERNELS}
+    mine = threading.local()       # launches made by this thread, by name
+    launch = kernels._launch
+
+    def counted(name, *args):
+        launch(name, *args)
+        if not hasattr(mine, "n"):
+            mine.n = {}
+        mine.n[name] = mine.n.get(name, 0) + 1
+
+    def spy(name, fn, key, copy_at):
+        def call(*args, **kw):
+            n0 = getattr(mine, "n", {}).get(name, 0)
+            out = fn(*args, **kw)
+            n = getattr(mine, "n", {}).get(name, 0) - n0
+            if n:
+                rec = seen[name].get(key(args, kw))
+                if rec is None:
+                    kept = tuple(a.clone() if i in copy_at else a
+                                 for i, a in enumerate(args))
+                    rec = seen[name][key(args, kw)] = [0, kept, dict(kw)]
+                rec[0] += n
+            return out
+        return call
+
+    saved = [(kernels, "_launch", launch)]
+    kernels._launch = counted
+    for name, mod, attr, key, copy_at in PATH_KERNELS:
+        fn = getattr(mods[mod], attr)
+        saved.append((mods[mod], attr, fn))
+        setattr(mods[mod], attr, spy(name, fn, key, copy_at))
+    try:
+        yield seen
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
+def record_k8():
+    """Yields a dict: the query count Q of every K8 launch while the block
+    runs ("qs"), and the inputs of the first launch at the largest Q
+    ("args": mask, blob, pair counts, n_segments)."""
+    from elasticsearch_tpu_torch.parallel import kernels
+
+    rec = {"qs": [], "args": None}
+    seg_counts, two_level = (kernels.agg_segment_counts,
+                             kernels.agg_two_level_counts)
+
+    def note(mask, blob, ps, n_seg):
+        q = int(mask.shape[0])
+        rec["qs"].append(q)
+        if rec["args"] is None or q > int(rec["args"][0].shape[0]):
+            rec["args"] = (mask, blob, ps, n_seg)
+
+    def spy1(mask, blob, *, p, n_segments):
+        note(mask, blob, [p], n_segments)
+        return seg_counts(mask, blob, p=p, n_segments=n_segments)
+
+    def spy2(mask, blob, *, pd, pm, n_segments):
+        note(mask, blob, [pd, pm], n_segments)
+        return two_level(mask, blob, pd=pd, pm=pm, n_segments=n_segments)
+
+    kernels.agg_segment_counts, kernels.agg_two_level_counts = spy1, spy2
+    try:
+        yield rec
+    finally:
+        kernels.agg_segment_counts, kernels.agg_two_level_counts = (
+            seg_counts, two_level)
+
+
+def timed_concurrent(fn, items, threads: int):
+    """fn(item) for every item from `threads` threads released together;
+    returns (results, per-item seconds, wall seconds)."""
+    import threading
+
+    barrier = threading.Barrier(threads)
+    out, lat = [None] * len(items), [0.0] * len(items)
+
+    def run(i):
+        s = time.perf_counter()
+        out[i] = fn(items[i])
+        lat[i] = time.perf_counter() - s
+
+    def worker(w):
+        barrier.wait(timeout=60)
+        for i in range(w, len(items), threads):
+            run(i)
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=threads) as ex:
+        list(ex.map(worker, range(threads)))
+    return out, lat, time.perf_counter() - t
+
+
+def latency_summary(lat, wall: float) -> dict:
+    a = np.asarray(lat) * 1e3
+    return {"p50_ms": float(np.percentile(a, 50)),
+            "p95_ms": float(np.percentile(a, 95)),
+            "max_ms": float(a.max()), "wall_s": wall,
+            "qps": len(a) / wall}
+
+
+def hold_kernel(label, wrapper, plain, args, kw) -> dict:
+    """wrapper(*args, **kw) on the card against plain(*args, **kw),
+    bitwise, once more on outputs filled with NaN / -1 first
+    (kernels.poisoned); both timed by CUDA events. The plain version gets
+    the keywords it takes (not the wrapper's host_checked)."""
+    import inspect
+
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    out = {}
+    takes = inspect.signature(plain).parameters
+    pkw = {key: v for key, v in kw.items() if key in takes}
+
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    ms = cuda_ms(lambda: out.__setitem__("k", tup(wrapper(*args, **kw))),
+                 10)
+    plain_ms = cuda_ms(lambda: out.__setitem__("p", tup(plain(*args,
+                                                               **pkw))), 1)
+    err = max(max_abs_err(a, b) for a, b in zip(out["k"], out["p"]))
+    require(err == 0.0 and all(torch.equal(a, b)
+                               for a, b in zip(out["k"], out["p"])),
+            f"{label} kernel vs plain: max_abs_err {err}")
+    with k.poisoned():
+        again = tup(wrapper(*args, **kw))
+    require(all(torch.equal(a, b) for a, b in zip(again, out["p"])),
+            f"{label} on poisoned outputs differs from the plain version")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "poisoned_run": "bitwise"}
+
+
+def check_path_shapes(seen, dp: int) -> dict:
+    """Every kernel of record_shapes at every launch shape the serving
+    path gave it, on the recorded inputs, held bitwise against its plain
+    version, also on poisoned outputs: K2 and K6 through sweep_ab, then
+    timed by CUDA-graph replay beside their bounds; K3 beside its bound;
+    K5, K9 and K4 by hold_kernel. Returns {kernel: {shape: numbers}}."""
+    from elasticsearch_tpu_torch.parallel import kernels as k
+    from elasticsearch_tpu_torch.tools.k2_ab import bitset_work, sweep_work
+
+    plains = {"sweep_rowmax": k.sweep_rowmax_plain,
+              "sweep_rowmax_bitset": k.sweep_rowmax_bitset_plain,
+              "intersect_bitset": k.intersect_bitset_counts_plain,
+              "sparse_gather": k.sparse_gather_plain,
+              "knn_int8_window_topc": k.knn_int8_window_topc_plain,
+              "merge_topk": k.merge_topk_plain}
+    wrappers = {"sweep_rowmax": k.sweep_rowmax,
+                "sweep_rowmax_bitset": k.sweep_rowmax_bitset,
+                "intersect_bitset": k.intersect_bitset_counts,
+                "sparse_gather": k.sparse_gather,
+                "knn_int8_window_topc": k.knn_int8_window_topc,
+                "merge_topk": k.merge_topk}
+    out = {}
+    for name, shapes in seen.items():
+        out[name] = {}
+        for key in sorted(shapes, key=str):
+            n, args, kw = shapes[key]
+            label = f"{name} at serving shape {key}"
+            if name in ("sweep_rowmax", "sweep_rowmax_bitset"):
+                row = sweep_ab(label, wrappers[name], plains[name], args,
+                               kw["nsw"])
+                wq_np = args[3].cpu().numpy()
+                if name == "sweep_rowmax":
+                    nbytes, ops, n_union, nnz = sweep_work(wq_np, dp,
+                                                           kw["nsw"])
+                    row.update(union_slots=n_union, nonzero_weights=nnz)
+                else:
+                    nbytes, ops, work = bitset_work(wq_np, args[4],
+                                                    kw["nsw"])
+                    row.update(work)
+                row["bound_ms"], row["bound_by"] = bound(nbytes, ops,
+                                                         PEAK_INT8)
+                row["graph_ms"] = graph_ms(
+                    lambda: wrappers[name](*args, **kw), 200)
+                row["bound_share"] = row["bound_ms"] / row["graph_ms"]
+                row["poisoned_run"] = "bitwise"
+            else:
+                row = hold_kernel(label, wrappers[name], plains[name], args,
+                                  kw)
+                if name == "sparse_gather":
+                    b_ms, b_by, lanes = k3_bound(args[0], args[4], key)
+                    row.update(bound_ms=b_ms, bound_by=b_by, lanes=lanes,
+                               chunks=int(args[0].shape[0]))
+            row["launches"] = n
+            out[name][str(key)] = row
+            log(f"{label}: {n} launches, "
+                + ", ".join(f"{f} {row[f]:.4f}" for f in
+                            ("ms", "plain_ms", "graph_ms", "bound_ms")
+                            if row.get(f) is not None))
+    return out
+
+
+class KnnSources:
+    """`_source` of the kNN service's rows, built on access (the tag only:
+    the 768 floats of a row are not returned)."""
+
+    def __init__(self, tags):
+        self.tags = tags
+
+    def __len__(self):
+        return len(self.tags)
+
+    def __getitem__(self, i):
+        return {"tag": "red" if self.tags[int(i)] == 1 else "green"}
+
+
+def knn_service(device):
+    """The kNN service: two segments of SERVING_KNN_ROWS rows each, 768-d
+    cosine vectors and the keyword `tag` from knn_data's generator (config
+    4 cut from 2M rows to fit the clock; knn_phase keeps the full 2M)."""
+    from elasticsearch_tpu_torch.index.segment import (
+        KeywordColumn, Segment, VectorColumn, build_field_postings,
+    )
+
+    n = 2 * SERVING_KNN_ROWS
+    vec, norms, qs, tags = knn_data(n)
+    segs = []
+    for off in (0, SERVING_KNN_ROWS):
+        m = SERVING_KNN_ROWS
+        tg = tags[off:off + m].astype(np.int32)
+        fp = build_field_postings("tag", np.ones(m, np.int64),
+                                  np.arange(m, dtype=np.int64), tg,
+                                  ["green", "red"])
+        kc = KeywordColumn(terms=["green", "red"],
+                           term_to_ord={"green": 0, "red": 1}, ords=tg,
+                           max_ords=tg, exists=np.ones(m, bool),
+                           ord_start=np.arange(m + 1, dtype=np.int64),
+                           all_ords=tg)
+        col = VectorColumn(vec[off:off + m], norms[off:off + m],
+                           np.ones(m, bool), KNN_DIMS, "cosine")
+        segs.append((Segment(
+            seg_id=0, doc_ids=[f"k{off + i}" for i in range(m)],
+            sources=KnnSources(tg), postings={"tag": fp}, numeric={},
+            keyword={"tag": kc}, vectors={"vec": col},
+            seq_nos=np.arange(off, off + m, dtype=np.int64),
+            device=device), np.ones(m, bool)))
+    mapping = {"properties": {"tag": {"type": "keyword"},
+                              "vec": {"type": "dense_vector",
+                                      "dims": KNN_DIMS,
+                                      "similarity": "cosine"}}}
+    return serving_service(segs, mapping, "serving_knn", device), qs
+
+
+def serving_phase(seg, fp, tokens, bounds, n: int, batches, dsl, main_rows,
+                  device="cuda") -> tuple:
+    """The product's entry point on the card: a one-shard port IndexService
+    over the dense phase's segment (all live: its rows are then the main
+    phase's), with the main phase's knobs, and six kinds of traffic, every
+    launch count set to 0 just before and read just after, no plain
+    version allowed:
+      1. IndexService.msearch of each config-1 batch of 256 as DSL bodies,
+         and of the 8 DSL_BODIES: one _disjunctive_batch each;
+      2. the first batch's 256 bodies as single IndexService.search calls
+         from SERVING_THREADS threads at once (the scheduler's lanes), then
+         one at a time with ES_TPU_COALESCE_US=0;
+      3. config 2's 256 bool bodies and config 3's first 64 slop-0 phrase
+         bodies through IndexService.search (_conjunctive -> search_bool);
+      4. the 25 DENSE_BODIES through IndexService.search (the dense
+         executor serves those the fast path declines);
+      5. the agg body of DENSE_BODIES in AGG_THREADS variants (distinct
+         match terms, size 0: distinct request-cache keys) from as many
+         threads at once: K8 through the bulk tier;
+      6. on a second service (knn_service), the 8 knn_bodies through
+         try_msearch -> _knn_batch (K9, K4).
+    Holds: the rows of 1 and 2 bitwise equal to the main phase's; every
+    fast-path response equal to svc._search_dense within SERVE_RTOL; 5's
+    responses equal to the same bodies served one at a time with the host
+    aggregators (ES_TPU_AGG=0); 6's ids and order equal to the KnnEngine's
+    dense route (ES_TPU_KNN_INT8=0), scores within KNN_GAMMA; no fault, no
+    timeout, no BlockMax decline; certificate fallbacks as in the main
+    phase, the bool and phrase ones explained (hold_fallbacks); each
+    kernel of the path launched, K8 at Q > 1. Then each kernel of
+    record_shapes at every launch shape the path gave it, held against its
+    plain version (check_path_shapes), and K8 at its largest Q, timed
+    beside its bound. Returns (launches, {kernel: {shape: numbers}}, K8
+    case, report)."""
+    import copy
+
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels
+    from elasticsearch_tpu_torch.search import agg_device, serving
+    from elasticsearch_tpu_torch.search.serving import extract_plan
+    from elasticsearch_tpu_torch.threadpool.scheduler import scheduler_stats
+
+    t_phase = time.time()
+    sseg = copy.copy(seg)            # arrays shared, device cache its own
+    svc = serving_service([(sseg, np.ones(n, bool))], DENSE_MAPPING,
+                          "serving", device)
+    kn_svc, kqs = knn_service(device)
+    f0 = serving.serving_fault_stats()
+    rep = {"docs": n, "threads": SERVING_THREADS,
+           "agg_threads": AGG_THREADS,
+           "knn_rows": 2 * SERVING_KNN_ROWS}
+    with contextlib.ExitStack() as st:
+        # the main phase's knobs: the snapshot builds the engine it measured
+        st.enter_context(env_set("ES_TPU_TURBO_HBM", str(TURBO_HBM)))
+        st.enter_context(env_set("ES_TPU_TURBO_COLD_DF", str(COLD_DF)))
+        st.enter_context(env_set("ES_TPU_SPARSE_WIDTHS", WIDE_LADDER))
+        snap = svc.serving.snapshot()
+        eng = snap.engine("body")       # the first search would build it
+        require(eng is not None and eng.kind == "turbo",
+                "the serving snapshot did not build a Turbo engine")
+        turbo = eng.turbos[0]
+        log(f"serving: services and the snapshot's engine built in "
+            f"{time.time() - t_phase:.1f}s")
+        plain = st.enter_context(plain_calls())
+        # the spies stop where the launch counts are read: the holds
+        # below launch kernels too
+        spies = st.enter_context(contextlib.ExitStack())
+        shapes = spies.enter_context(record_shapes())
+        k8 = spies.enter_context(record_k8())
+        kernels.reset_launches()
+        t_main = time.time()
+
+        # 1. msearch: one _disjunctive_batch a batch
+        groups = [[match_body(q) for q in b] for b in batches]
+        groups.append(copy.deepcopy(DSL_BODIES))
+        served, lat, fb_per = [], [], []
+        for bodies in groups:
+            fb0 = eng.stats["fallbacks"]
+            t = time.perf_counter()
+            served.append(svc.msearch(bodies))
+            lat.append(time.perf_counter() - t)
+            fb_per.append(eng.stats["fallbacks"] - fb0)
+        require(svc.serving.snapshot() is snap, "the snapshot changed")
+        t = time.perf_counter()
+        again = svc.msearch(groups[0])
+        warm_s = time.perf_counter() - t
+        t = time.perf_counter()
+        eng_rows = eng.search_many([[p.disj for p in
+                                     (extract_plan(b, svc.mapper)
+                                      for b in groups[0])]], k=K)[0]
+        engine_s = time.perf_counter() - t
+        rep["msearch"] = {"batch_latency_s": lat, "warm_batch_s": warm_s,
+                          "engine_batch_s": engine_s,
+                          "serving_overhead_s": warm_s - engine_s}
+        log(f"serving msearch: batches {[round(x, 3) for x in lat]}s; "
+            f"batch 0 again {warm_s:.3f}s against the engine's own "
+            f"search_many {engine_s:.3f}s on the same batch")
+
+        # 2. concurrent singles, then the same one at a time
+        fb0 = eng.stats["fallbacks"]
+        s0 = scheduler_stats()
+        singles, s_lat, s_wall = timed_concurrent(svc.search, groups[0],
+                                                  SERVING_THREADS)
+        s1 = scheduler_stats()
+        with env_set("ES_TPU_COALESCE_US", "0"):
+            solo, o_lat, o_wall = timed_concurrent(svc.search, groups[0], 1)
+        fb_singles = eng.stats["fallbacks"] - fb0
+        rep["singles"] = {
+            "concurrent": latency_summary(s_lat, s_wall),
+            "solo": latency_summary(o_lat, o_wall),
+            "scheduler": {
+                "flushes": s1["sched_dispatches"] - s0["sched_dispatches"],
+                "queries": s1["sched_queries"] - s0["sched_queries"],
+                "direct": s1["direct_dispatches"] - s0["direct_dispatches"],
+                "largest_batch": s1["largest_batch"],
+                "bucket_counts": {
+                    b: c - s0["bucket_counts"].get(b, 0)
+                    for b, c in s1["bucket_counts"].items()},
+                "tiers": s1["tiers"], "buckets": s1["buckets"]}}
+        log(f"serving singles: {rep['singles']}")
+
+        # 3. bool and phrase bodies, one at a time
+        bools = [bool_body(sp) for sp in draw_bool(BOOL_BATCH, VOCAB)]
+        phrases = [{"query": {"match_phrase": {"body": " ".join(p)}}}
+                   for p in draw_phrases(PHRASES, fp, tokens,
+                                         bounds)[:PHRASE_BATCH]]
+        st0 = dict(eng.stats)
+        with record_fallbacks(turbo, True) as fell:
+            t = time.perf_counter()
+            bool_resps = [svc.search(b) for b in bools]
+            bool_s = time.perf_counter() - t
+            t = time.perf_counter()
+            phrase_resps = [svc.search(b) for b in phrases]
+            phrase_s = time.perf_counter() - t
+        d_bool = _delta(eng.stats, st0, BOOL_STATS)
+        rep["bool"] = {"queries": len(bools), "s": bool_s,
+                       "phrases": len(phrases), "phrase_s": phrase_s,
+                       **d_bool}
+
+        # 4. the dense phase's bodies through the public entry
+        declined = [name for name, b in DENSE_BODIES.items()
+                    if extract_plan(b, svc.mapper) is None]
+        t = time.perf_counter()
+        dense_resps = {name: svc.search(copy.deepcopy(b))
+                       for name, b in DENSE_BODIES.items()}
+        rep["dense_bodies"] = {"bodies": len(DENSE_BODIES),
+                               "declined": len(declined),
+                               "s": time.perf_counter() - t}
+
+        # 5. concurrent aggregations through the bulk tier
+        agg_bodies = [{"size": 0, "query": {"match": {
+            "body": f"t6 t{60 + i}"}}, "aggs": copy.deepcopy(AGG_BODY)}
+            for i in range(AGG_THREADS)]
+        rc0 = dict(svc.request_cache_stats)
+        a0 = agg_device.agg_stats()
+        agg_resps, a_lat, a_wall = timed_concurrent(svc.search, agg_bodies,
+                                                    AGG_THREADS)
+        a1 = agg_device.agg_stats()
+        rep["aggs"] = {**latency_summary(a_lat, a_wall),
+                       "k8_q": list(k8["qs"]),
+                       "device_dispatches": a1["agg_device_dispatches"]
+                       - a0["agg_device_dispatches"],
+                       "host_fallbacks": a1["agg_host_fallbacks"]
+                       - a0["agg_host_fallbacks"]}
+
+        # 6. kNN bodies on the second service
+        kbodies = [b for b, _ in knn_bodies(kqs)[0]]
+        t = time.perf_counter()
+        knn_resps = kn_svc.serving.try_msearch(kbodies, "query_then_fetch")
+        rep["knn"] = {"bodies": len(kbodies),
+                      "s": time.perf_counter() - t}
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        spies.close()
+        main_s = time.time() - t_main
+        sched1 = scheduler_stats()
+        fault = serving.serving_fault_stats()
+
+        # ---- holds (launches already read) ----
+        t = time.time()
+        require(not any(plain.values()),
+                f"serving: plain versions ran on the card: "
+                f"{ {k: v for k, v in plain.items() if v} }")
+        for key in ("fastpath_device_fault", "fastpath_timed_out",
+                    "blockmax_declined", "fastpath_reject_error"):
+            require(fault[key] == f0[key],
+                    f"serving: {key} moved by {fault[key] - f0[key]}")
+        for key in ("degraded", "sparse_fallbacks", "cold_queries",
+                    "health_device_faults", "health_fallback_queries"):
+            require(eng.stats[key] == 0, f"serving: {key} = {eng.stats[key]}")
+        for bodies, rows, resps, label in zip(
+                groups, main_rows, served, ["batch 0", "batch 1", "dsl"]):
+            hold_rows(resps, (rows[0], rows[2]), f"msearch {label}")
+        hold_rows(again, (main_rows[0][0], main_rows[0][2]),
+                  "msearch batch 0 again")
+        require(np.array_equal(eng_rows[0], main_rows[0][0])
+                and np.array_equal(eng_rows[2], main_rows[0][2]),
+                "the snapshot engine's rows differ from the main phase's")
+        hold_rows(singles, (main_rows[0][0], main_rows[0][2]),
+                  "concurrent singles")
+        hold_rows(solo, (main_rows[0][0], main_rows[0][2]), "solo singles")
+        n_match = sum(len(g) for g in groups)
+        require(sum(fb_per) <= MAX_CERT_FALLBACK_SHARE * n_match,
+                f"serving: {sum(fb_per)} certificate fallbacks in {n_match} "
+                f"match queries")
+        # the same 256 queries twice: the same certificates fail each time
+        require(fb_singles == 2 * fb_per[0],
+                f"serving: {fb_singles} fallbacks in the two single runs, "
+                f"{fb_per[0]} in the batch of the same queries")
+        rep["certificate_fallbacks"] = {"match_per_batch": fb_per,
+                                        "singles": fb_singles,
+                                        "bool_and_phrase":
+                                        d_bool["fallbacks"]}
+        rep["bool"]["fallbacks_explained"] = hold_fallbacks(
+            fp, n, turbo.nsw, fell, d_bool["fallbacks"],
+            len(bools) + len(phrases), "serving bool and phrase")
+        dense = hold_dense(svc, zip(groups[0], served[0]), "msearch 0")
+        hold_dense(svc, zip(groups[1], served[1]), "msearch 1")
+        hold_dense(svc, zip(groups[2], served[2]), "msearch dsl")
+        hold_dense(svc, zip(groups[0], singles), "singles", dense)
+        hold_dense(svc, zip(bools, bool_resps), "bool")
+        hold_dense(svc, zip(phrases, phrase_resps), "phrase")
+        for name, r in dense_resps.items():
+            want = svc._search_dense(copy.deepcopy(DENSE_BODIES[name]))
+            if name in declined:
+                # the same route: equal but for the profile's clock readings
+                dense_same({**r, "profile": None}, {**want, "profile": None},
+                           0, f"declined {name}")
+            else:
+                same_results(r, want, f"served {name}")
+        require(svc.request_cache_stats["hits"] == rc0["hits"],
+                "serving: an agg body was answered from the request cache")
+        with env_set("ES_TPU_AGG", "0"):
+            for i, (b, r) in enumerate(zip(agg_bodies, agg_resps)):
+                want = svc._search_dense(copy.deepcopy(b))
+                require(r["aggregations"] == want["aggregations"]
+                        and r["hits"]["total"] == want["hits"]["total"],
+                        f"serving agg {i}: differs from the host path")
+        require(rep["aggs"]["host_fallbacks"] == 0,
+                "serving: an agg collect fell back to the host")
+        require(max(k8["qs"], default=0) > 1,
+                f"serving: K8 never launched at Q > 1: {k8['qs']}")
+        kbound = knn_score_bound(np.stack([np.asarray(
+            b["knn"][0]["query_vector"] if isinstance(b["knn"], list)
+            else b["knn"]["query_vector"], np.float32) for b in kbodies]))
+        with env_set("ES_TPU_KNN_INT8", "0"):
+            kdense = kn_svc.serving.try_msearch(kbodies, "query_then_fetch")
+        for i, (b, r, w) in enumerate(zip(kbodies, knn_resps, kdense)):
+            require(r is not None and w is not None,
+                    f"serving knn {i}: the fast path declined")
+            require([h["_id"] for h in r["hits"]["hits"]]
+                    == [h["_id"] for h in w["hits"]["hits"]],
+                    f"serving knn {i}: ids differ from the dense route")
+            d = max((abs(a["_score"] - c["_score"]) for a, c in
+                     zip(r["hits"]["hits"], w["hits"]["hits"])), default=0)
+            require(d <= kbound[i], f"serving knn {i}: scores differ by {d} "
+                                    f"> {kbound[i]}")
+            same_results(r, kn_svc._search_dense(copy.deepcopy(b)),
+                         f"serving knn {i}")
+        hold_s = time.time() - t
+
+    need = ("build_columns", "sweep_rowmax", "sparse_gather",
+            "intersect_bitset", "sweep_rowmax_bitset", "pack_presence_bits",
+            "bm25_block_scatter", "block_presence", "agg_counts",
+            "knn_int8_window_topc", "merge_topk")
+    for name in need:
+        require(launches[name] > 0,
+                f"serving: {name} never launched: {launches}")
+    for name, sh in shapes.items():
+        require(sum(v[0] for v in sh.values()) == launches[name],
+                f"serving: {name}'s launches by shape "
+                f"{ {str(key): v[0] for key, v in sh.items()} } do not "
+                f"add up to its count {launches[name]}")
+    by_shape = {name: {str(key): v[0] for key, v in sh.items()}
+                for name, sh in shapes.items()}
+    log(f"serving main path: {main_s:.1f}s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; by shape "
+        f"{by_shape}; K8 Q {k8['qs']}; holds {hold_s:.1f}s")
+
+    # ---- the new path shapes against their bounds ----
+    held = check_path_shapes(shapes, turbo.Dp)
+    mask, blob, ps, n_seg = k8["args"]
+    k8_row = k8_case(mask, blob, ps, n_seg)
+    log(f"K8 at the serving path's largest Q {int(mask.shape[0])}: events "
+        f"{k8_row['ms']:.4f} ms, graph {k8_row['device_ms']:.4f} ms, bound "
+        f"{k8_row['bound_ms']:.4f} ms ({k8_row['bound_by']})")
+    rep.update({"main_path_s": main_s, "hold_s": hold_s,
+                "launches": {k: v for k, v in launches.items() if v},
+                "scheduler_after": sched1,
+                "fault_stats": {k: fault[k] - f0[k] for k in fault},
+                "phase_s": time.time() - t_phase})
+    del shapes, k8, mask, blob, snap, eng, turbo, svc, kn_svc, sseg
+    torch.cuda.empty_cache()
+    return launches, held, k8_row, rep
 
 
 def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
@@ -3797,12 +4530,17 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
 
     # ---- the dense search path (execute_search) on the same shard ----
     t = time.time()
-    dense_rows, dense_report = dense_phase(fp, tokens, bounds, n_docs,
-                                           scatter=scatter)
+    dense_rows, dense_report, dense_seg = dense_phase(
+        fp, tokens, bounds, n_docs, scatter=scatter)
     dense_report["phase_s"] = time.time() - t
     rows += dense_rows
     log(f"dense phase took {dense_report['phase_s']:.1f}s")
-    del tokens, bounds
+
+    # ---- the serving entry point (IndexService) on the same segment ----
+    s_launches, s_shapes, s_k8, serving_report = serving_phase(
+        dense_seg, fp, tokens, bounds, n_docs, batches, dsl, results)
+    log(f"serving phase took {serving_report['phase_s']:.1f}s")
+    del dense_seg, tokens, bounds
     default = default_ladder(fp, n_docs, batches[0], held[0])
     del fp
     torch.cuda.empty_cache()
@@ -3819,6 +4557,12 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     agg_report["phase_s"] = time.time() - t
     rows.append(agg_row)
     log(f"agg phase took {agg_report['phase_s']:.1f}s")
+    for r in rows:
+        r["serving_launches"] = s_launches.get(r["name"], 0)
+        if r["name"] in s_shapes:
+            r["serving_shapes"] = s_shapes[r["name"]]
+        if r["name"] == "agg_counts":
+            r["serving_path"] = s_k8
 
     serving = {"docs": n_docs, "cut": n_docs < FULL_DOCS,
                "index_build_s": index_s,
@@ -3836,10 +4580,46 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
                "knn": knn_report,
                "agg": agg_report,
                "dense": dense_report,
+               "index_service": serving_report,
                "hbm_ledger": ledger,
                "kernel_build_s": build_s,
                "peak_device_bytes": peak}
     return {"kernels": rows, "serving": serving}
+
+
+def serving_only(n_docs: int, n_batches: int, batch: int) -> dict:
+    """The serving phase alone (--serving-only): the kernels built, the
+    index drawn, the main path's engine rows of each batch (its knobs,
+    its columns prebuilt; nothing else of the main phase held or timed),
+    the dense phase's segment, then serving_phase. Returns its launches,
+    path shapes, K8 case and report."""
+    import torch
+
+    from elasticsearch_tpu_torch.mapper import MapperService
+    from elasticsearch_tpu_torch.parallel import cuda_build
+    from elasticsearch_tpu_torch.search.serving import (
+        extract_plan, select_bm25_engine,
+    )
+
+    t = time.time()
+    cuda_build.build_all()
+    log(f"kernels built in {time.time() - t:.1f}s")
+    fp, tokens, bounds = build_index(n_docs, VOCAB)
+    eng = select_bm25_engine([_Seg(n_docs, fp)], "body", device="cuda",
+                             hbm_budget_bytes=TURBO_HBM, cold_df=COLD_DF)
+    eng.prebuild_columns()
+    batches = draw_batches(n_batches, batch, VOCAB)
+    mapper = MapperService({"properties": {"body": {"type": "text"}}})
+    dsl = [extract_plan(b, mapper).disj for b in DSL_BODIES]
+    rows = [eng.search_many([b], k=K)[0] for b in batches + [dsl]]
+    del eng
+    torch.cuda.empty_cache()
+    log("main path rows")
+    seg, _, _ = dense_segment(fp, tokens, bounds, n_docs, "cuda")
+    launches, shapes, k8_row, rep = serving_phase(
+        seg, fp, tokens, bounds, n_docs, batches, dsl, rows)
+    return {"launches": launches, "shapes": shapes, "k8": k8_row,
+            "report": rep}
 
 
 def main(argv=None) -> int:
@@ -3878,6 +4658,10 @@ def main(argv=None) -> int:
                          "entries) to time beside this tree's block scatter "
                          "on the same calls; skipped when the file is "
                          "missing")
+    ap.add_argument("--serving-only", action="store_true",
+                    help="run the serving phase alone on the index "
+                         "(its main-path rows first), print its report and "
+                         "the card's name; no ok line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3893,6 +4677,14 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
         return 2
+    if args.serving_only:
+        out = serving_only(args.docs, args.batches, args.batch)
+        print(json.dumps({"serving_only": out}, default=str), flush=True)
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(), flush=True)
+        return 0
     out = run(args.docs, args.batches, args.batch, args.knn_docs,
               args.agg_docs, args.k3_parent, args.k2_parent,
               args.k8_parent, args.k4_parent, args.k5_parent,

@@ -14,12 +14,15 @@ TPU's Pallas kernels replaced by CUDA C++ kernels for Hopper
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``device.py``); nothing falls back to the CPU on its own.
 
-Ported so far: the BM25 ``match`` serving path at one partition —
-``search.serving.extract_plan`` -> ``select_bm25_engine`` ->
-``TurboEngine.search_many`` -> ``parallel.turbo.TurboBM25.search_many`` —,
-``bool`` and slop-0 phrase serving (``TurboEngine.search_bool``), quantized
-kNN (``select_knn_engine`` -> ``parallel.knn.KnnEngine``), and device
-aggregations (``search.aggregations`` -> ``search.agg_device``).
+Ported so far: the serving entry point —
+``index.index_service.IndexService.search`` / ``msearch`` ->
+``search.serving.ServingContext`` -> the adaptive dispatch scheduler
+(``threadpool.scheduler.serving_dispatch``) -> the engines: Turbo BM25
+(``TurboEngine.search_many`` / ``search_bool`` ->
+``parallel.turbo.TurboBM25``), quantized kNN (``parallel.knn.KnnEngine``)
+and, for every body the fast path declines, the dense executor
+(``search.execute_search``) with device aggregations
+(``search.agg_device``, K8 on the scheduler's bulk tier).
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
 """Exception hierarchy mirroring the reference's ElasticsearchException family
-(the classes of elasticsearch_tpu/common/errors.py this slice raises), plus
+(the classes of elasticsearch_tpu/common/errors.py the port raises), plus
 the device and kernel errors of the CUDA port.
 
 Each error carries an HTTP status so a REST layer can map exceptions to
@@ -24,6 +24,37 @@ class ElasticsearchTpuError(Exception):
         out = {"type": self.error_type, "reason": self.message}
         out.update(self.metadata)
         return out
+
+
+class IndexNotFoundError(ElasticsearchTpuError):
+    status = 404
+    error_type = "index_not_found_exception"
+
+    def __init__(self, index: str):
+        super().__init__(f"no such index [{index}]", index=index)
+        self.index = index
+
+
+class ResourceAlreadyExistsError(ElasticsearchTpuError):
+    status = 400
+    error_type = "resource_already_exists_exception"
+
+
+class CircuitBreakingError(ElasticsearchTpuError):
+    """Memory limit trip (ref: common/breaker/CircuitBreakingException.java)."""
+
+    status = 429
+    error_type = "circuit_breaking_exception"
+
+
+class IndexClosedError(ElasticsearchTpuError):
+    status = 400
+    error_type = "index_closed_exception"
+
+
+class SearchPhaseExecutionError(ElasticsearchTpuError):
+    status = 500
+    error_type = "search_phase_execution_exception"
 
 
 class DocumentMissingError(ElasticsearchTpuError):

@@ -1,5 +1,5 @@
-"""Deterministic, seedable fault injection (the port's copy of the device
-and durability halves of elasticsearch_tpu/common/faults.py).
+"""Deterministic, seedable fault injection (the port's copy of the device,
+durability and overload-pressure parts of elasticsearch_tpu/common/faults.py).
 
 Spec grammar (';'-separated clauses), identical to the reference::
 
@@ -16,7 +16,8 @@ tier.
 `durability_fault_point` raises `DurabilityFaultError` (an OSError) at
 the translog and segment-commit sites, and `corruption_fires` tells a
 caller at a corruption site to damage its payload instead of raising, as
-in the reference.
+in the reference. `injected_overload_level` maps the `overload_pressure`
+site to a pressure level for `common/overload.py`.
 """
 
 from __future__ import annotations
@@ -216,6 +217,20 @@ def _fire_mode(site: str, part: Optional[Any]) -> Optional[tuple]:
                 continue
             return c.mode, c.arg
     return None
+
+
+def injected_overload_level() -> Optional[str]:
+    """Deterministic pressure injection for the overload controller.
+
+    Fires the ``overload_pressure`` site like any other clause (consuming
+    one call against @nth/xcount), but maps the mode to a pressure level
+    instead of raising: ``hang`` -> ``"yellow"``, ``raise``/``oom`` ->
+    ``"red"``. Returns None when no clause fires."""
+    hit = _fire_mode("overload_pressure", None)
+    if hit is None:
+        return None
+    mode, _arg = hit
+    return "yellow" if mode == "hang" else "red"
 
 
 def fault_point(site: str, part: Optional[int] = None) -> None:

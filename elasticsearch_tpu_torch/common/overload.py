@@ -1,0 +1,362 @@
+"""Overload control plane: adaptive admission, retry budgets, brownout ladder.
+
+The telemetry plane gives the pressure *signals* (pool queue depth and `queue_ewma_ms`,
+scheduler lane occupancy via `AdaptiveDispatchScheduler.sample()`,
+`hbm_ledger` headroom, parent breaker usage, indexing-pressure outstanding
+bytes); this module makes the node *act* on them. A per-node
+`OverloadController` folds the signals into a GREEN / YELLOW / RED pressure
+level with hysteresis and feeds three consumers:
+
+1. **Admission control** — the REST front door and the transport shard
+   handlers call `admit(tier)`: bulk-tier requests shed at YELLOW with a 429
+   + ``Retry-After``, interactive requests shed only at RED. Every shed is
+   counted (`shed_interactive` / `shed_bulk` in `stats()`, `overload_shed`
+   in Prometheus); nothing is silently dropped.
+2. **Retry budgets** — `retry_allowed(site)` consults a token bucket
+   (`RetryBudget`) refilled by successful requests
+   (`ES_TPU_RETRY_BUDGET_RATIO` tokens per success, capped at
+   `ES_TPU_RETRY_BUDGET_CAP`). The shard-failover loop, replication / bulk /
+   recovery retries and the coalescer/scheduler poison solo retries each
+   spend one token per retry; when the bucket is empty the original error
+   fails fast instead of amplifying (counter `retry_budget_exhausted`,
+   per-site in `stats()`).
+3. **Pressure propagation** — data nodes piggyback their level on shard RPC
+   responses (`_overload` in the payload, never the body) and the
+   coordinator's `_rank_copies` penalizes overloaded replicas in ARS order.
+
+Brownout changes *which* requests are admitted and *where* they run — never
+their results: admitted queries stay bit-identical to an unloaded run.
+
+Signal folding: backlog / memory-commitment signals (pool queue fraction,
+parent breaker usage, indexing-pressure fraction) carry full weight, because
+they only saturate when the node is genuinely behind. Occupancy-shaped
+signals (scheduler lane busy-fraction, HBM residency, queue-wait EWMA)
+saturate in *healthy* steady state too — double-buffered lanes run at 1.0
+and a full column cache is good utilization — so they are advisory: scaled
+by 0.5 they can lift the score toward YELLOW but can never force RED alone.
+
+Deterministic pressure for tests rides the ``ES_TPU_FAULTS`` grammar via the
+``overload_pressure`` site (`faults.injected_overload_level`): mode
+``hang`` pins YELLOW, ``raise``/``oom`` pin RED. Each `evaluate()` consumes
+one fault-clause call, so ``overload_pressure:raise@3x2`` sheds exactly the
+3rd and 4th admission checks.
+
+The port's copy of elasticsearch_tpu/common/overload.py; its code differs only
+in the imports.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, Optional
+
+from elasticsearch_tpu_torch.common import metrics
+from elasticsearch_tpu_torch.common.faults import injected_overload_level
+from elasticsearch_tpu_torch.common.settings import knob
+
+GREEN = "green"
+YELLOW = "yellow"
+RED = "red"
+
+_RANK = {GREEN: 0, YELLOW: 1, RED: 2}
+
+# must match threadpool/scheduler.py TIER_* (overload stays import-light:
+# metrics/settings/faults only, so the threadpool package can depend on it)
+TIER_INTERACTIVE = "interactive"
+TIER_BULK = "bulk"
+
+# occupancy-shaped signals (lane busy-fraction, HBM residency, queue-wait
+# EWMA) saturate in healthy steady state; cap their vote below the default
+# RED threshold so they can never shed on their own
+_ADVISORY_WEIGHT = 0.5
+
+# queue-wait EWMA normalization: 2s of queue wait == fully saturated signal
+_QUEUE_WAIT_FULL_MS = 2000.0
+
+metrics.declare_gauge("tpu_overload.level",
+                      "folded node pressure level (0=green 1=yellow 2=red)")
+metrics.declare_gauge("tpu_overload.score",
+                      "folded pressure score in [0,1] (pre-hysteresis)")
+metrics.declare_counter("overload_shed",
+                        "requests shed by overload admission control "
+                        "(bulk at YELLOW, interactive at RED)")
+metrics.declare_counter("retry_budget_exhausted",
+                        "retries denied because the node-wide retry token "
+                        "bucket was empty (the original error fails fast)")
+
+
+class RetryBudget:
+    """Node-wide retry token bucket (ref: the reference client's
+    `RetryBudget` / Finagle-style retry budgets).
+
+    Each retry spends one token; each *successful* request refills
+    ``ES_TPU_RETRY_BUDGET_RATIO`` tokens, capped at
+    ``ES_TPU_RETRY_BUDGET_CAP`` (also the initial fill, so cold starts can
+    ride out a transient). Ratio <= 0 disables the budget: `allow` always
+    grants, restoring the legacy unbounded-retry behavior.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        cap = max(1, int(knob("ES_TPU_RETRY_BUDGET_CAP")))
+        self._tokens = float(cap)           # guarded by: _lock
+        self._consumed = 0                  # guarded by: _lock
+        self._refilled = 0.0                # guarded by: _lock
+        self._exhausted: Dict[str, int] = {}  # per-site; guarded by: _lock
+
+    def allow(self, site: str) -> bool:
+        """True when a retry at `site` may proceed (spends one token)."""
+        ratio = float(knob("ES_TPU_RETRY_BUDGET_RATIO"))
+        if ratio <= 0:
+            return True
+        with self._lock:
+            if self._tokens >= 1.0:
+                self._tokens -= 1.0
+                self._consumed += 1
+                return True
+            self._exhausted[site] = self._exhausted.get(site, 0) + 1
+        metrics.counter_add("retry_budget_exhausted", 1)
+        return False
+
+    def note_success(self) -> None:
+        """A request completed successfully: refill `ratio` tokens."""
+        ratio = float(knob("ES_TPU_RETRY_BUDGET_RATIO"))
+        if ratio <= 0:
+            return
+        cap = max(1, int(knob("ES_TPU_RETRY_BUDGET_CAP")))
+        with self._lock:
+            before = self._tokens
+            self._tokens = min(float(cap), self._tokens + ratio)
+            self._refilled += self._tokens - before
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "tokens": round(self._tokens, 3),
+                "consumed": self._consumed,
+                "refilled": round(self._refilled, 3),
+                "exhausted": dict(self._exhausted),
+                "exhausted_total": sum(self._exhausted.values()),
+            }
+
+
+class OverloadController:
+    """Folds node pressure signals into a green/yellow/red level and owns
+    the node's retry budget.
+
+    Level transitions copy the health-circuit idiom (common/health.py):
+    upgrades (toward RED) apply immediately; downgrades only after the raw
+    level has stayed below the current one continuously for
+    ``ES_TPU_OVERLOAD_HYSTERESIS_MS`` — a square-wave load therefore holds
+    the elevated level instead of flapping GREEN<->RED.
+    """
+
+    def __init__(self, name: str = "node", thread_pool=None, scheduler=None,
+                 breakers=None, indexing_pressure=None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.name = name
+        self.thread_pool = thread_pool
+        self.scheduler = scheduler
+        self.breakers = breakers
+        self.indexing_pressure = indexing_pressure
+        self.budget = RetryBudget()
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._level = GREEN                     # guarded by: _lock
+        self._below_since: Optional[float] = None  # guarded by: _lock
+        self._transitions = deque(maxlen=16)    # guarded by: _lock
+        self._shed_interactive = 0              # guarded by: _lock
+        self._shed_bulk = 0                     # guarded by: _lock
+        self._last_signals: Dict[str, float] = {}  # guarded by: _lock
+
+    # ---- signals ---------------------------------------------------------
+
+    def _compute_signals(self) -> Dict[str, float]:
+        """Each signal normalized to [0, 1]; missing wiring reads as 0."""
+        sig = {"pool_queue": 0.0, "queue_wait": 0.0, "scheduler": 0.0,
+               "hbm": 0.0, "breaker": 0.0, "indexing": 0.0}
+        tp = self.thread_pool
+        if tp is not None:
+            try:
+                for st in tp.stats().values():
+                    qcap = st.get("queue_size") or 0
+                    if qcap > 0:
+                        frac = st.get("queue", 0) / qcap
+                        sig["pool_queue"] = max(sig["pool_queue"], frac)
+                    wait = st.get("queue_ewma_ms", 0.0) / _QUEUE_WAIT_FULL_MS
+                    sig["queue_wait"] = max(sig["queue_wait"], wait)
+            except Exception:
+                pass
+        sched = self.scheduler
+        if sched is not None:
+            try:
+                busy = sched.sample().get("lane_busy_fraction", {})
+                if busy:
+                    sig["scheduler"] = max(busy.values())
+            except Exception:
+                pass
+        try:
+            from elasticsearch_tpu_torch.common.hbm_ledger import hbm_stats
+            hbm = hbm_stats()
+            budget = hbm.get("budget_bytes") or 0
+            if budget > 0:
+                sig["hbm"] = 1.0 - hbm.get("headroom_bytes", budget) / budget
+        except Exception:
+            pass
+        br = self.breakers
+        if br is not None:
+            try:
+                parent = br.parent
+                if parent.limit_bytes > 0:
+                    sig["breaker"] = parent.used_bytes / parent.limit_bytes
+            except Exception:
+                pass
+        ip = self.indexing_pressure
+        if ip is not None:
+            try:
+                mem = ip.stats()["memory"]
+                limit = mem["limit_in_bytes"]
+                if limit > 0:
+                    sig["indexing"] = mem["current"]["all_in_bytes"] / limit
+            except Exception:
+                pass
+        return {k: round(max(0.0, min(1.0, v)), 4) for k, v in sig.items()}
+
+    @staticmethod
+    def _fold(sig: Dict[str, float]) -> float:
+        return max(sig["pool_queue"], sig["breaker"], sig["indexing"],
+                   _ADVISORY_WEIGHT * sig["queue_wait"],
+                   _ADVISORY_WEIGHT * sig["scheduler"],
+                   _ADVISORY_WEIGHT * sig["hbm"])
+
+    # ---- level -----------------------------------------------------------
+
+    def evaluate(self) -> str:
+        """Re-read signals + injection, apply hysteresis, return the level.
+        Consumes one `overload_pressure` fault-clause call per invocation."""
+        injected = injected_overload_level()
+        sig = self._compute_signals()
+        score = round(self._fold(sig), 4)
+        yellow = float(knob("ES_TPU_OVERLOAD_YELLOW"))
+        red = float(knob("ES_TPU_OVERLOAD_RED"))
+        if injected == RED or score >= red:
+            raw = RED
+        elif injected == YELLOW or score >= yellow:
+            raw = YELLOW
+        else:
+            raw = GREEN
+        now = self._clock()
+        with self._lock:
+            self._last_signals = dict(sig, score=score,
+                                      injected=injected or "")
+            cur = self._level
+            if _RANK[raw] >= _RANK[cur]:
+                # upgrades (and steady state) apply immediately
+                if raw != cur:
+                    self._move(cur, raw)
+                self._below_since = None
+            else:
+                hyst_ms = max(0, int(knob("ES_TPU_OVERLOAD_HYSTERESIS_MS")))
+                if self._below_since is None:
+                    self._below_since = now
+                if (now - self._below_since) * 1000.0 >= hyst_ms:
+                    self._move(cur, raw)
+                    self._below_since = None
+            level = self._level
+        metrics.gauge_set("tpu_overload.level", _RANK[level])
+        metrics.gauge_set("tpu_overload.score", score)
+        return level
+
+    def _move(self, a: str, b: str) -> None:  # tpulint: holds=_lock
+        self._level = b
+        self._transitions.append(f"{a}->{b}")
+
+    def level(self) -> str:
+        return self.evaluate()
+
+    # ---- consumer 1: admission ------------------------------------------
+
+    def admit(self, tier: Optional[str]) -> Optional[float]:
+        """None when the request is admitted; Retry-After seconds when it
+        must be shed (bulk tier at YELLOW, every tier at RED)."""
+        level = self.evaluate()
+        if level == GREEN:
+            return None
+        tier = tier if tier in (TIER_INTERACTIVE, TIER_BULK) else TIER_BULK
+        if level == YELLOW and tier == TIER_INTERACTIVE:
+            return None
+        with self._lock:
+            if tier == TIER_INTERACTIVE:
+                self._shed_interactive += 1
+            else:
+                self._shed_bulk += 1
+        metrics.counter_add("overload_shed", 1)
+        return self.retry_after_s()
+
+    def retry_after_s(self) -> float:
+        """Backoff hint for shed responses: at least the hysteresis window
+        (pressure cannot clear sooner), stretched by observed queue wait."""
+        hyst_s = max(0, int(knob("ES_TPU_OVERLOAD_HYSTERESIS_MS"))) / 1000.0
+        wait_s = 0.0
+        tp = self.thread_pool
+        if tp is not None:
+            try:
+                wait_s = max((st.get("queue_ewma_ms", 0.0)
+                              for st in tp.stats().values()),
+                             default=0.0) / 1000.0
+            except Exception:
+                pass
+        return float(min(30, max(1, int(hyst_s + wait_s + 0.999))))
+
+    # ---- consumer 2: retry budget ---------------------------------------
+
+    def retry_allowed(self, site: str) -> bool:
+        return self.budget.allow(site)
+
+    def note_success(self) -> None:
+        self.budget.note_success()
+
+    # ---- observability ---------------------------------------------------
+
+    def stats(self) -> dict:
+        """`tpu_overload` node-stats section. Reports the cached level from
+        the last `evaluate()` — it does NOT re-evaluate, so scraping never
+        consumes a deterministic fault-injection fire."""
+        with self._lock:
+            return {
+                "level": self._level,
+                "score": self._last_signals.get("score", 0.0),
+                "signals": dict(self._last_signals),
+                "transitions": list(self._transitions),
+                "shed": {
+                    "interactive": self._shed_interactive,
+                    "bulk": self._shed_bulk,
+                    "total": self._shed_interactive + self._shed_bulk,
+                },
+                "retry_budget": self.budget.stats(),
+            }
+
+
+# ---------------------------------------------------------------------------
+# process-default controller: consumers that predate per-node wiring
+# (coalescer / scheduler poison retries) share one budget per process
+# ---------------------------------------------------------------------------
+
+_DEFAULT_LOCK = threading.Lock()
+_default: Optional[OverloadController] = None  # guarded by: _DEFAULT_LOCK
+
+
+def default_overload() -> OverloadController:
+    global _default
+    with _DEFAULT_LOCK:
+        if _default is None:
+            _default = OverloadController(name="process")
+        return _default
+
+
+def reset_default_for_tests() -> None:
+    global _default
+    with _DEFAULT_LOCK:
+        _default = None

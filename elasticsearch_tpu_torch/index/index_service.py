@@ -1,0 +1,676 @@
+"""IndexService / IndicesService: per-index shard management.
+
+Re-designs the reference pair (ref: index/IndexModule.java:390
+newIndexService, indices/IndicesService.java:538 createIndex,
+index/shard/IndexShard.java): an IndexService owns N shard engines plus the
+shared mapper and analysis registry; IndicesService is the node-level
+registry creating/removing them from cluster-state metadata.
+
+Search across shards is scatter-gather (ref P3): per-shard query phases merge
+at the coordinator. Default stats scope is shard-local like the reference's
+query_then_fetch; search_type=dfs_query_then_fetch combines term stats
+across shards first (ref P5: SearchDfsQueryThenFetchAsyncAction).
+
+The port's copy of elasticsearch_tpu/index/index_service.py. One device for
+the index: `IndexService(meta, device=None)` resolves it once through
+`device.resolve` (the card unless the caller names the CPU; no card
+raises `DeviceUnavailableError`), every shard's `InternalEngine` and the
+serving snapshot carry it, and `IndicesService(device=None)` passes its
+own to every index it creates. `search` and `msearch` try the serving
+fast path (`search.serving.ServingContext`) first, as in the reference.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import uuid
+from typing import Dict, List, Optional
+
+from elasticsearch_tpu_torch import device as _device
+from elasticsearch_tpu_torch.analysis import AnalysisRegistry
+from elasticsearch_tpu_torch.common.errors import (
+    DocumentMissingError,
+    IndexNotFoundError,
+    ResourceAlreadyExistsError,
+)
+from elasticsearch_tpu_torch.common.settings import Settings
+from elasticsearch_tpu_torch.cluster.state import IndexMetadata, ShardRouting
+from elasticsearch_tpu_torch.index.engine import EngineResult, InternalEngine
+from elasticsearch_tpu_torch.mapper import MapperService
+from elasticsearch_tpu_torch.parallel.routing import shard_for_id
+from elasticsearch_tpu_torch.search.executor import QueryExecutor, ShardStats
+from elasticsearch_tpu_torch.search.fetch_phase import execute_fetch_phase
+from elasticsearch_tpu_torch.search.query_phase import execute_query_phase
+
+
+class IndexService:
+    def __init__(self, meta: IndexMetadata, data_path: Optional[str] = None,
+                 breakers=None, device=None):
+        self.device = _device.resolve(device)
+        self.meta = meta
+        self.breakers = breakers
+        self.name = meta.index
+        analyzer_settings = meta.settings.raw("analysis")  # rarely set flat; see below
+        nested = meta.settings.filtered_by_prefix("index.analysis.analyzer.")
+        self.analysis = AnalysisRegistry(_analyzer_config(meta))
+        self.mapper = MapperService(meta.mappings, self.analysis)
+        self.shards: List[InternalEngine] = []
+        durability = meta.settings.raw("index.translog.durability", "request")
+        for shard_id in range(meta.number_of_shards):
+            path = os.path.join(data_path, self.name, str(shard_id)) if data_path else None
+            self.shards.append(
+                InternalEngine(self.mapper, data_path=path,
+                               translog_durability=durability,
+                               device=self.device)
+            )
+        from elasticsearch_tpu_torch.search.serving import ServingContext
+
+        self.serving = ServingContext(self)
+        # shard request cache (ref: indices/IndicesRequestCache.java:57 —
+        # caches size=0/aggs-only responses keyed on reader version + request)
+        self._req_cache: Dict[tuple, dict] = {}  # guarded by: _req_cache_lock
+        self._req_cache_lock = threading.Lock()
+        self.request_cache_stats = {"hits": 0, "misses": 0}  # guarded by: _req_cache_lock
+
+    # ---- document ops ----
+
+    def check_open(self) -> None:
+        """Closed indices reject data ops with index_closed_exception
+        (ref: cluster/block/ClusterBlocks INDEX_CLOSED_BLOCK)."""
+        if getattr(self, "closed", False):
+            from elasticsearch_tpu_torch.common.errors import IndexClosedError
+
+            raise IndexClosedError(f"closed index [{self.name}]")
+
+    def check_write_allowed(self) -> None:
+        """index.blocks.write / read_only reject writes with 403 (ref:
+        ClusterBlocks WRITE + IndexMetadata INDEX_WRITE_BLOCK)."""
+        self.check_open()
+        for key in ("index.blocks.write", "index.blocks.read_only"):
+            self._check_block(key, 8)
+
+    def _check_block(self, key: str, block_id: int) -> None:
+        if str(self.meta.settings.raw(key, "false")).lower() == "true":
+            from elasticsearch_tpu_torch.common.errors import ElasticsearchTpuError
+
+            err = ElasticsearchTpuError(
+                f"index [{self.name}] blocked by: [FORBIDDEN/{block_id}/"
+                f"{key} (api)]")
+            err.status = 403
+            err.error_type = "cluster_block_exception"
+            raise err
+
+    def check_read_allowed(self) -> None:
+        """index.blocks.read rejects get/search/count with 403 (ref:
+        IndexMetadata INDEX_READ_BLOCK, id 7). read_only does NOT block
+        data reads — only writes and metadata writes."""
+        self.check_open()
+        self._check_block("index.blocks.read", 7)
+
+    def check_metadata_allowed(self) -> None:
+        """index.blocks.metadata / read_only reject metadata reads and
+        writes with 403 (ref: IndexMetadata INDEX_METADATA_BLOCK, id 9)."""
+        self._check_block("index.blocks.metadata", 9)
+
+    def shard_for(self, doc_id: str, routing: str | None = None) -> InternalEngine:
+        return self.shards[shard_for_id(doc_id, len(self.shards), routing)]
+
+    def index_doc(self, doc_id: str, source: dict, **kw) -> EngineResult:
+        self.check_write_allowed()
+        return self.shard_for(doc_id, kw.pop("routing", None)).index(doc_id, source, **kw)
+
+    def delete_doc(self, doc_id: str, **kw) -> EngineResult:
+        self.check_write_allowed()
+        return self.shard_for(doc_id, kw.pop("routing", None)).delete(doc_id, **kw)
+
+    def get_doc(self, doc_id: str, routing: str | None = None) -> Optional[dict]:
+        self.check_read_allowed()
+        return self.shard_for(doc_id, routing).get(doc_id)
+
+    def store_size_bytes(self) -> int:
+        """Rough resident size of published segments (rollover max_size)."""
+        total = 0
+        for engine in self.shards:
+            for v in engine.acquire_searcher().views:
+                seg = v.segment
+                for fp in seg.postings.values():
+                    total += (fp.block_docs.nbytes + fp.block_tfs.nbytes
+                              + fp.post_doc.nbytes + fp.pos_data.nbytes)
+                for col in seg.numeric.values():
+                    total += col.values.nbytes
+                for vc in seg.vectors.values():
+                    total += vc.vectors.nbytes
+        return total
+
+    def refresh(self) -> None:
+        for s in self.shards:
+            s.refresh()
+
+    def flush(self) -> None:
+        for s in self.shards:
+            s.flush()
+
+    def force_merge(self, max_num_segments: int = 1) -> None:
+        for s in self.shards:
+            s.force_merge(max_num_segments)
+
+    def doc_count(self) -> int:
+        return sum(s.doc_count() for s in self.shards)
+
+    def close(self) -> None:
+        for s in self.shards:
+            s.close()
+
+    # ---- search (scatter-gather across shards) ----
+
+    _REQ_CACHE_MAX = 64
+
+    def _request_cache_key(self, request: dict, search_type: str):
+        """None when the request is not cacheable. Cacheable = size 0 (the
+        aggregations/count shape the reference caches by default) with no
+        cursor/pit mechanics; the searcher version in the key invalidates
+        on every refresh/delete."""
+        import json as _json
+
+        if int(request.get("size", 10)) != 0 or request.get("search_after")                 is not None or "_after_full" in request                 or request.get("_want_cursor") or request.get("timeout") or request.get("profile"):
+            return None
+        try:
+            body = _json.dumps(request, sort_keys=True)
+        except (TypeError, ValueError):
+            return None
+        version = tuple(sv for s in self.shards for sv in s.searcher_version())
+        return (version, search_type, body)
+
+    def search(self, request: dict, search_type: str = "query_then_fetch",
+               searchers=None, task=None) -> dict:
+        import copy as _copy
+
+        self.check_read_allowed()
+
+        key = self._request_cache_key(request, search_type)             if searchers is None else None
+        if key is not None:
+            with self._req_cache_lock:
+                hit = self._req_cache.get(key)
+                if hit is not None:
+                    self.request_cache_stats["hits"] += 1
+                else:
+                    self.request_cache_stats["misses"] += 1
+            if hit is not None:
+                return _copy.deepcopy(hit)
+        if searchers is None:
+            resp = self.serving.try_search(request, search_type, task=task)
+        else:
+            resp = None
+        if resp is not None and not isinstance(resp, dict):
+            # request-level failure from the fast path (e.g.
+            # allow_partial_search_results=false with a faulted shard):
+            # the error, not a dense retry, is the answer
+            raise resp
+        if resp is None:
+            resp = self._search_dense(request, search_type,
+                                      searchers=searchers, task=task)
+        if key is not None and not resp.get("timed_out"):
+            with self._req_cache_lock:
+                if len(self._req_cache) >= self._REQ_CACHE_MAX:
+                    self._req_cache.pop(next(iter(self._req_cache)))
+                self._req_cache[key] = _copy.deepcopy(resp)
+        self._maybe_slow_log(request, resp)
+        return resp
+
+    def effective_slowlog_thresholds(self) -> dict:
+        """Effective per-phase slowlog thresholds (ms) parsed from this
+        index's settings — {'query': {'warn': ms|None, ...}, 'fetch': ...}.
+        The seam every slowlog consumer reads (REST trace enablement, the
+        shard handlers, and this service's own check), so the parse
+        semantics ('-1' disables, bare numbers are ms) exist exactly once."""
+        from elasticsearch_tpu_torch.common import tracing
+
+        return tracing.slowlog_thresholds(self.meta.settings)
+
+    def _maybe_slow_log(self, request: dict, resp: dict) -> None:
+        """Search slow log (ref: index/SearchSlowLog.java): queries over
+        index.search.slowlog.threshold.query.{warn,info} append a
+        structured record (trace id + phase breakdown when the flight
+        recorder is on) to the bounded ring behind GET /_tpu/slowlog AND
+        log with the request source — the first stop when a query pattern
+        goes bad."""
+        import json as _json
+        import logging
+
+        from elasticsearch_tpu_torch.common import tracing
+
+        took = float(resp.get("took", 0))
+        th = self.effective_slowlog_thresholds().get("query") or {}
+        level = tracing.slowlog_check("query", took, th)
+        if level is None:
+            return
+        tracing.slowlog_record(
+            "query", level, self.name, took,
+            source=request.get("query"), tc=tracing.current())
+        logging.getLogger("index.search.slowlog").log(
+            logging.WARNING if level == "warn" else logging.INFO,
+            "[%s] took[%dms], source[%s]", self.name, int(took),
+            _json.dumps({k: v for k, v in request.items()
+                         if not k.startswith("_")})[:1000])
+
+    def msearch(self, requests: List[dict],
+                search_type: str = "query_then_fetch") -> List[dict]:
+        """Batched search: eligible flat queries ride ONE device dispatch
+        through the blockmax serving path (ref P8/SURVEY §2.10: batch many
+        queries per step); the rest run the dense path individually.
+
+        Per-body error isolation (ref: _msearch contract — one bad body must
+        not fail its neighbors): failures come back as the exception object
+        in that body's slot for the caller to render."""
+        from elasticsearch_tpu_torch.common.errors import ElasticsearchTpuError
+
+        self.check_open()
+        out = self.serving.try_msearch(requests, search_type)
+        results: List = []
+        for i, r in enumerate(out):
+            if r is not None:
+                results.append(r)
+                continue
+            try:
+                # public entry: request cache + slow log apply to msearch too
+                results.append(self.search(requests[i], search_type))
+            except ElasticsearchTpuError as e:
+                results.append(e)
+        return results
+
+    def _search_dense(self, request: dict, search_type: str = "query_then_fetch",
+                      searchers=None, task=None) -> dict:
+        import time as _time
+
+        from elasticsearch_tpu_torch.search.query_phase import QuerySearchResult, _sort_key, parse_sort
+
+        start = _time.monotonic()
+        if searchers is None:
+            searchers = [s.acquire_searcher() for s in self.shards]
+
+        global_stats = None
+        if search_type == "dfs_query_then_fetch":
+            all_views = [v for se in searchers for v in se.views]
+            global_stats = ShardStats(all_views)
+
+        size = int(request.get("size", 10))
+        from_ = int(request.get("from", 0))
+        collapse_field = (request.get("collapse") or {}).get("field")
+        score_sort_injected = False
+        if (request.get("search_after") is not None or collapse_field
+                or request.get("_want_cursor") or "_after_full" in request) \
+                and not request.get("sort"):
+            # cursor/collapse mechanics need an explicit order; default to
+            # score with the canonical (shard, ord) tiebreak
+            request = {**request, "sort": [{"_score": "desc"}]}
+            score_sort_injected = True
+        sort = parse_sort(request.get("sort"))
+
+        shard_results: List[QuerySearchResult] = []
+        per_shard_hits = []
+        for shard_id, searcher in enumerate(searchers):
+            ex = None
+            if global_stats is not None:
+                ex = QueryExecutor(self.mapper, global_stats)
+            shard_req = request if "_after_full" not in request else \
+                {**request, "_shard_id": shard_id}
+            breaker = self.breakers.get_breaker("request") \
+                if self.breakers is not None else None
+            qr = execute_query_phase(searcher, self.mapper, shard_req,
+                                     executor=ex, task=task, breaker=breaker)
+            shard_results.append(qr)
+            for h in qr.hits:
+                per_shard_hits.append((shard_id, h))
+
+        total = sum(r.total for r in shard_results)
+        relation = "gte" if any(r.relation == "gte" for r in shard_results) else "eq"
+        if sort:
+            per_shard_hits.sort(
+                key=lambda t: (_sort_key(t[1], sort), t[0], t[1].global_ord))
+        else:
+            per_shard_hits.sort(key=lambda t: (-t[1].score, t[0], t[1].global_ord))
+        if collapse_field:
+            from elasticsearch_tpu_torch.search.query_phase import _collapse_ranked, collapse_value
+
+            ranked = [((sid, h),
+                       collapse_value(searchers[sid].views[h.leaf_idx].segment,
+                                      h.ord, collapse_field))
+                      for sid, h in per_shard_hits]
+            per_shard_hits = _collapse_ranked(ranked, from_ + size)
+        window = per_shard_hits[from_: from_ + size]
+
+        max_score = None
+        if not sort:
+            ms = [r.max_score for r in shard_results if r.max_score is not None]
+            if ms:
+                max_score = max(ms)
+
+        hits = []
+        cursor = None
+        for shard_id, h in window:
+            fetched = execute_fetch_phase(searchers[shard_id], [h], request,
+                                          self.name, mapper=self.mapper)
+            hit = fetched[0]
+            if hit.get("_score") is None and h.sort_values is None:
+                hit["_score"] = h.score
+            if score_sort_injected:
+                # the sort was internal plumbing: restore plain score hits
+                hit["_score"] = h.score
+                hit.pop("sort", None)
+            if collapse_field:
+                hit.setdefault("fields", {})[collapse_field] = [
+                    collapse_value(searchers[shard_id].views[h.leaf_idx].segment,
+                                   h.ord, collapse_field)]
+            hits.append(hit)
+        if window and request.get("_want_cursor"):
+            sid, last = window[-1]
+            cursor = {"values": [s.s if hasattr(s, "s") else s
+                                 for s in (last.sort_values or [])],
+                      "shard_id": sid, "ord": last.global_ord}
+
+        aggs = _merge_shard_aggs(request, shard_results)
+        took = int((_time.monotonic() - start) * 1000)
+        resp = {
+            "took": took,
+            "timed_out": any(r.timed_out for r in shard_results),
+            "_shards": {"total": len(self.shards), "successful": len(self.shards),
+                        "skipped": 0, "failed": 0},
+            "hits": {
+                "total": {"value": total, "relation": relation},
+                "max_score": max_score,
+                "hits": hits,
+            },
+        }
+        from elasticsearch_tpu_torch.search.response import finalize_hits_envelope
+
+        finalize_hits_envelope(resp, request)
+        if aggs is not None:
+            resp["aggregations"] = aggs
+        if request.get("suggest") is not None:
+            from elasticsearch_tpu_torch.search.suggest import execute_suggest
+
+            resp["suggest"] = execute_suggest(
+                [v for se in searchers for v in se.views], self.mapper,
+                request["suggest"])
+        if any(r.terminated_early for r in shard_results):
+            resp["terminated_early"] = True
+        if request.get("profile"):
+            resp["profile"] = {"shards": [
+                {"id": f"[{self.name}][{sid}]",
+                 "searches": [{"query": r.profile or [],
+                               "rewrite_time": 0, "collector": []}]}
+                for sid, r in enumerate(shard_results)]}
+        if cursor is not None:
+            resp["_cursor"] = cursor
+        return resp
+
+    # ---- scroll (ref: RestSearchScrollAction + SearchService scroll
+    #      continuation over a pinned reader context) ----
+
+    def scroll_start(self, request: dict, keep_alive_s: float, registry,
+                     task=None) -> dict:
+        self.check_read_allowed()
+        searchers = [s.acquire_searcher() for s in self.shards]
+        ctx = registry.create(searchers=searchers, mapper=self.mapper,
+                              index=self.name, keep_alive_s=keep_alive_s)
+        body = {k: v for k, v in request.items() if k != "scroll"}
+        resp = self._search_dense({**body, "_want_cursor": True},
+                                  searchers=searchers, task=task)
+        cursor = resp.pop("_cursor", None)
+        ctx.scroll_state = {"request": body, "cursor": cursor}
+        resp["_scroll_id"] = ctx.context_id
+        return resp
+
+    def scroll_continue(self, ctx, task=None) -> dict:
+        state = ctx.scroll_state or {}
+        body = dict(state.get("request") or {})
+        cursor = state.get("cursor")
+        if cursor is None or not cursor.get("values"):
+            resp = self._search_dense({**body, "size": 0},
+                                      searchers=ctx.extra["searchers"])
+            resp["_scroll_id"] = ctx.context_id
+            resp["hits"]["hits"] = []
+            return resp
+        body["_after_full"] = cursor
+        body["_want_cursor"] = True
+        body.pop("from", None)
+        resp = self._search_dense(body, searchers=ctx.extra["searchers"],
+                                  task=task)
+        new_cursor = resp.pop("_cursor", None)
+        ctx.scroll_state = {"request": state.get("request"),
+                            "cursor": new_cursor or {"values": []}}
+        resp["_scroll_id"] = ctx.context_id
+        return resp
+
+    def stats(self) -> dict:
+        total_segments = sum(s.segment_count() for s in self.shards)
+        with self._req_cache_lock:
+            request_cache = dict(self.request_cache_stats)
+        return {
+            "docs": {"count": self.doc_count(), "deleted": 0},
+            "segments": {"count": total_segments},
+            "store": {"size_in_bytes": sum(
+                sum(seg.ram_bytes() for seg in s._segments) for s in self.shards)},
+            "request_cache": request_cache,
+        }
+
+
+def _merge_shard_aggs(request, shard_results) -> Optional[dict]:
+    """Commutative partial reduce of per-shard aggregation partials, then
+    finalize once at the coordinator (ref P6: QueryPhaseResultConsumer
+    batched reduce + SearchPhaseController final reduce)."""
+    parts = [r.aggregations for r in shard_results if r.aggregations is not None]
+    if not parts:
+        return None
+    from elasticsearch_tpu_torch.search.aggregations import finalize_shard_aggs
+
+    return finalize_shard_aggs(request, parts)
+
+
+def _analyzer_config(meta: IndexMetadata) -> dict:
+    """Extract index.analysis.analyzer.<name>.* settings into registry config."""
+    nested = meta.settings.as_nested_dict()
+    try:
+        return nested["index"]["analysis"]["analyzer"]
+    except (KeyError, TypeError):
+        return {}
+
+
+def parse_keep_alive(value, default_s: float = 300.0) -> float:
+    """'30s' / '1m' / '2h' -> seconds (one duration parser for the repo:
+    tasks/task_manager.parse_timeout_ms; bare numbers are SECONDS here,
+    matching this API's pre-existing contract)."""
+    from elasticsearch_tpu_torch.tasks.task_manager import parse_timeout_ms
+
+    if value is None:
+        return default_s
+    if isinstance(value, (int, float)):
+        return float(value)
+    s = str(value).strip()
+    try:
+        return float(s)          # unitless string -> seconds
+    except ValueError:
+        pass
+    ms = parse_timeout_ms(s)
+    return (ms / 1000.0) if ms is not None else default_s
+
+
+class IndicesService:
+    """Node-level index registry (ref: indices/IndicesService.java:168)."""
+
+    def __init__(self, data_path: Optional[str] = None, breakers=None,
+                 device=None):
+        from elasticsearch_tpu_torch.search.reader_context import ReaderContextRegistry
+
+        self.device = _device.resolve(device)
+        self.data_path = data_path
+        self.breakers = breakers
+        self._indices: Dict[str, IndexService] = {}
+        self._lock = threading.Lock()
+        # PIT/scroll contexts + keepalive reaper (ref: SearchService.Reaper)
+        self.contexts = ReaderContextRegistry()
+        self.templates: Dict[str, dict] = {}
+        self._reaper_stop = threading.Event()
+        self._reaper: Optional[threading.Thread] = None
+
+    def _ensure_reaper(self) -> None:
+        with self._lock:
+            if self._reaper is None or not self._reaper.is_alive():
+                def loop():
+                    while not self._reaper_stop.wait(5.0):
+                        self.contexts.reap()
+
+                self._reaper = threading.Thread(
+                    target=loop, name="context-reaper", daemon=True)
+                self._reaper.start()
+
+    # ---- point-in-time (ref: RestOpenPointInTimeAction,
+    #      SearchService.openReaderContext) ----
+
+    def open_pit(self, index: str, keep_alive_s: float) -> str:
+        svc = self.get(index)
+        searchers = [s.acquire_searcher() for s in svc.shards]
+        ctx = self.contexts.create(searchers=searchers, mapper=svc.mapper,
+                                   index=index, keep_alive_s=keep_alive_s)
+        self._ensure_reaper()
+        return ctx.context_id
+
+    def close_pit(self, pit_id: str) -> bool:
+        return self.contexts.release(pit_id)
+
+    def scroll_start(self, index: str, request: dict, keep_alive_s: float,
+                     task=None) -> dict:
+        self._ensure_reaper()
+        return self.get(index).scroll_start(request, keep_alive_s,
+                                            self.contexts, task=task)
+
+    def scroll_continue(self, scroll_id: str, keep_alive_s: Optional[float] = None,
+                        task=None) -> dict:
+        ctx = self.contexts.get(scroll_id)
+        if keep_alive_s:
+            ctx.keep_alive_s = keep_alive_s
+        return self.get(ctx.index).scroll_continue(ctx, task=task)
+
+    # ---- index templates (ref: cluster/metadata/
+    #      MetadataIndexTemplateService.java — composable v2 templates).
+    #      NOTE: node-local registry; the multi-node control plane
+    #      (cluster_node.create_index) does not replicate templates yet —
+    #      replicating them through cluster-state metadata is the follow-up ----
+
+    def put_template(self, name: str, body: dict) -> None:
+        patterns = body.get("index_patterns")
+        if not patterns:
+            from elasticsearch_tpu_torch.common.errors import IllegalArgumentError
+
+            raise IllegalArgumentError("index template must specify "
+                                       "index_patterns")
+        if isinstance(patterns, str):
+            patterns = [patterns]
+        try:
+            priority = int(body.get("priority", 0))
+        except (TypeError, ValueError):
+            from elasticsearch_tpu_torch.common.errors import IllegalArgumentError
+
+            raise IllegalArgumentError(
+                f"[priority] must be an integer, got "
+                f"[{body.get('priority')}]")
+        with self._lock:
+            self.templates[name] = {
+                "index_patterns": patterns,
+                "priority": priority,
+                "template": body.get("template", {}),
+            }
+
+    def delete_template(self, name: str) -> None:
+        with self._lock:
+            if self.templates.pop(name, None) is None:
+                from elasticsearch_tpu_torch.common.errors import (
+                    ElasticsearchTpuError,
+                )
+
+                e = ElasticsearchTpuError(
+                    f"index template [{name}] missing")
+                e.status = 404
+                raise e
+
+    def _apply_templates(self, name: str, settings: Settings,
+                         mappings: dict, aliases: Dict[str, dict]):
+        """Highest-priority matching template underlays request values
+        (request wins on conflicts, ref: composable template resolution)."""
+        import fnmatch
+
+        with self._lock:   # puts/deletes mutate under the same lock
+            candidates = list(self.templates.values())
+        matches = sorted(
+            (t for t in candidates
+             if any(fnmatch.fnmatchcase(name, p)
+                    for p in t["index_patterns"])),
+            key=lambda t: t["priority"], reverse=True)
+        if not matches:
+            return settings, mappings, aliases
+        tpl = matches[0]["template"]
+        tpl_settings = Settings(tpl.get("settings", {}))
+        merged_settings = {k: tpl_settings.raw(k) for k in tpl_settings}
+        # bare topology keys normalize to their index.-prefixed forms (the
+        # same normalization Node.create_index applies to request bodies)
+        for bare in ("number_of_shards", "number_of_replicas",
+                     "default_pipeline"):
+            if bare in merged_settings and \
+                    f"index.{bare}" not in merged_settings:
+                merged_settings[f"index.{bare}"] = merged_settings.pop(bare)
+        for k in settings:
+            merged_settings[k] = settings.raw(k)
+        tpl_maps = dict(tpl.get("mappings", {}).get("properties", {}))
+        tpl_maps.update((mappings or {}).get("properties", {}))
+        merged_mappings = {"properties": tpl_maps} if tpl_maps else (mappings or {})
+        merged_aliases = dict(tpl.get("aliases", {}))
+        merged_aliases.update(aliases or {})
+        return Settings(merged_settings), merged_mappings, merged_aliases
+
+    def create_index(self, name: str, settings: Settings, mappings: dict,
+                     aliases: Dict[str, dict] | None = None) -> IndexMetadata:
+        settings, mappings, aliases = self._apply_templates(
+            name, settings, mappings, aliases or {})
+        with self._lock:
+            if name in self._indices:
+                raise ResourceAlreadyExistsError(f"index [{name}] already exists", index=name)
+            meta = IndexMetadata(
+                index=name,
+                uuid=uuid.uuid4().hex[:20],
+                settings=settings,
+                mappings=mappings or {},
+                aliases=aliases or {},
+            )
+            self._indices[name] = IndexService(meta, self.data_path,
+                                               breakers=self.breakers,
+                                               device=self.device)
+            return meta
+
+    def delete_index(self, name: str) -> None:
+        with self._lock:
+            svc = self._indices.pop(name, None)
+            if svc is None:
+                raise IndexNotFoundError(name)
+            svc.close()
+            if self.data_path:
+                import shutil
+
+                shutil.rmtree(os.path.join(self.data_path, name), ignore_errors=True)
+
+    def get(self, name: str) -> IndexService:
+        svc = self._indices.get(name)
+        if svc is None:
+            raise IndexNotFoundError(name)
+        return svc
+
+    def has(self, name: str) -> bool:
+        return name in self._indices
+
+    def names(self) -> List[str]:
+        return sorted(self._indices)
+
+    def close(self) -> None:
+        self._reaper_stop.set()
+        for svc in self._indices.values():
+            svc.close()

@@ -47,6 +47,7 @@ the plain version.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -114,9 +115,13 @@ LAUNCHES: Dict[str, int] = {"build_columns": 0, "sweep_rowmax": 0,
                             "bm25_block_scatter": 0, "block_presence": 0}
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _check(t, name: str, dtype: torch.dtype, ndim: int, device) -> None:
@@ -187,7 +192,8 @@ def _launch(name: str, device: torch.device, *args) -> None:
             rc = fn(*args, _raw_stream(device.index))
     if rc != 0:
         raise KernelLaunchError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    with _LAUNCH_LOCK:        # the scheduler launches from several threads
+        LAUNCHES[name] += 1
 
 
 # --------------------------------------------------------------------------

@@ -35,9 +35,7 @@ elasticsearch_tpu/parallel/knn.py).
   and an EngineHealth circuit routes everything to the host while open.
   Regions are charged to the HBM ledger, equal to `hbm_bytes()`.
 
-Not ported (ROADMAP queue 1): the HBM scrub regions (item 10), the
-`metrics.observe` histograms and the `check` cancellation callable
-(item 9).
+Not ported (ROADMAP queue 1): the HBM scrub regions (item 10).
 
 `search_many` returns per batch (scores [Q, k] f32, parts [Q, k] i32,
 ords [Q, k] i32) merged by (score desc, partition asc, ord asc); empty slots
@@ -55,7 +53,7 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch import device as _device
-from elasticsearch_tpu_torch.common import faults, hbm_ledger
+from elasticsearch_tpu_torch.common import faults, hbm_ledger, metrics
 from elasticsearch_tpu_torch.common.errors import DeviceFaultError
 from elasticsearch_tpu_torch.common.faults import FaultRecord
 from elasticsearch_tpu_torch.common.health import EngineHealth
@@ -92,6 +90,7 @@ _ENGINES: "weakref.WeakSet[KnnEngine]" = weakref.WeakSet()
 def _count(key: str, n: int = 1) -> None:
     with _COUNTS_LOCK:
         _COUNTS[key] += n
+    metrics.counter_add(key, n)
 
 
 def knn_node_stats() -> dict:
@@ -559,7 +558,8 @@ class KnnEngine:
                                  similarity=self.similarity, k=k)
             return ts.cpu().numpy(), to.cpu().numpy().astype(np.int32)
 
-    def _run_chunk(self, chunk, QC: int, k: int, local_faults: List):
+    def _run_chunk(self, chunk, QC: int, k: int, local_faults: List,
+                   check=None):
         """One padded query chunk across all partitions. Returns
         (s [S, n, k], o [S, n, k]) per-partition numpy results."""
         n = len(chunk)
@@ -648,7 +648,11 @@ class KnnEngine:
         if first:
             hbm_ledger.note_compile_done("knn", QC, time.monotonic() - t0)
 
+        cand_hist = np.zeros(n, np.int64)
+        frac_hist = np.zeros(n, np.float64)
         for i in range(S):
+            if check is not None:
+                check()
             if i in failed:
                 local_faults.append(
                     FaultRecord.from_error(failed[i], partition=i))
@@ -658,7 +662,9 @@ class KnnEngine:
                 continue
             if self.n_docs[i] == 0:
                 continue
-            cand_r, cand_ok, u_excl, _ = pass1[i]
+            cand_r, cand_ok, u_excl, frac = pass1[i]
+            cand_hist += cand_ok[:n].sum(axis=1)
+            frac_hist += frac[:n]
             ords = self._perm[i][cand_r]
             ords = np.where(cand_ok, ords, 0).astype(np.int32)
             _count("knn_rescore_docs", int(cand_ok[:n].sum()))
@@ -699,6 +705,10 @@ class KnnEngine:
                     hs, ho = self._host_chunk(i, chunk, k)
                     s_out[i][bad] = hs[bad]
                     o_out[i][bad] = ho[bad]
+        for j in range(n):
+            metrics.observe("knn_candidates_per_query", float(cand_hist[j]))
+            metrics.observe("knn_nprobe_ratio",
+                            float(frac_hist[j]) / max(1, S - len(failed)))
         return s_out, o_out
 
     # ---------------- merge ----------------
@@ -734,7 +744,7 @@ class KnnEngine:
     # ---------------- the serving entry ----------------
 
     def search_many(self, batches: Sequence[List[KnnWork]], k: int = 10,
-                    fault_log=None):
+                    check=None, fault_log=None):
         """Per batch: merged (scores [Q, k] f32, parts [Q, k] i32,
         ords [Q, k] i32); empty slots are (0, 0, 0). Chunks ride the
         qc_sizes ladder; contained faults append FaultRecords and feed
@@ -767,7 +777,10 @@ class KnnEngine:
                 take = next((s for s in self.qc_sizes if s >= rem),
                             self.qc_sizes[-1])
                 chunk = flat[off:off + take]
-                cs, co = self._run_chunk(chunk, take, k, local_faults)
+                if check is not None:
+                    check()
+                cs, co = self._run_chunk(chunk, take, k, local_faults,
+                                         check=check)
                 s_all[:, off:off + len(chunk)] = cs
                 o_all[:, off:off + len(chunk)] = co
                 off += len(chunk)

@@ -31,16 +31,26 @@ ES_TPU_BITSET_HOST_DF, take the exact host intersection.
 Final scores therefore come from the host, and top-k (scores, ords) are
 bitwise the reference's. Device state is torch tensors on `self.device`;
 the column cache and the slice pool are updated in place where the
-reference donated its buffers.
+reference donated its buffers. What touches that state holds the
+engine's lock: `ensure_columns`, `ensure_phrases`, `prebuild_columns`,
+the cold side, and the device passes of `search_many` and `search_bool`
+(column warm-up, sweeps, read-backs, and the column split each query's
+certificate is taken against). The scheduler's lanes of different k, or
+a direct dispatch beside a lane, call one engine from several threads,
+and a sweep must not read a column another thread is still building
+(the reference leaves these calls unserialized). The exact host rescore
+and the certificate run after the lock is released, on host data and
+that split only, so one caller's rescore overlaps another's sweep. The
+scheduler's width hook is `extend_qc_sizes`.
 
 Not ported yet (ROADMAP.md): ShardedTurbo (S > 1) and its fused bool
-sweeps, the HBM scrub regions (the bitsets' included), the bitset
-histograms of the metrics registry, the relocation warm handoff and the
-scheduler's width hook.
+sweeps, the HBM scrub regions (the bitsets' included) and the relocation
+warm handoff.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from dataclasses import dataclass
@@ -50,7 +60,7 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch import device as _device
-from elasticsearch_tpu_torch.common import faults, hbm_ledger
+from elasticsearch_tpu_torch.common import faults, hbm_ledger, metrics
 from elasticsearch_tpu_torch.common.errors import DeviceFaultError
 from elasticsearch_tpu_torch.common.settings import knob
 from elasticsearch_tpu_torch.index.positions import phrase_freqs
@@ -299,6 +309,15 @@ def _sparse_widths() -> Tuple[int, ...]:
     return tuple(sorted(ws)) or (1024, 4096, 16384)
 
 
+def _serialized(fn):
+    """Run a TurboBM25 method under the engine's `_serve_lock`."""
+    @functools.wraps(fn)
+    def locked(self, *args, **kwargs):
+        with self._serve_lock:
+            return fn(self, *args, **kwargs)
+    return locked
+
+
 class TurboBM25:
     """Single-partition serving engine over a StackedBM25 (S == 1).
 
@@ -399,6 +418,10 @@ class TurboBM25:
         self._sp_ok = self.Dp <= _SPARSE_DOC_LIMIT
         # the pending K3 group while _sparse_contrib_many runs
         self._sp_group: Optional[_SparseGroup] = None
+        # serializes what reads or updates the cache state
+        self._serve_lock = threading.RLock()
+        # guards the counters bumped outside _serve_lock (_bump)
+        self._stats_lock = threading.Lock()
         self.stats = {"builds": 0, "build_s": 0.0, "fallbacks": 0,
                       "cold_queries": 0, "dispatches": 0, "degraded": 0,
                       "phrase_builds": 0, "bool_host": 0, "bool_device": 0,
@@ -455,6 +478,25 @@ class TurboBM25:
         self._terms[term] = info
         return info
 
+    def _bump(self, key: str, n: int = 1) -> None:
+        """stats[key] += n for the counters the host rescore bumps outside
+        _serve_lock (fallbacks, bool_host)."""
+        with self._stats_lock:
+            self.stats[key] += n
+
+    def extend_qc_sizes(self, sizes) -> None:
+        """Widen the dispatch-width ladder (the adaptive scheduler's bucket
+        hook), with the same ROWS_PER_STEP rounding as the constructor:
+        each width is one more sweep launch shape. Monotonic and
+        idempotent."""
+        merged = set(self.qc_sizes)
+        merged.update(
+            max(ROWS_PER_STEP, -(-int(s) // ROWS_PER_STEP) * ROWS_PER_STEP)
+            for s in sizes)
+        self.qc_sizes = tuple(sorted(merged))
+        hbm_ledger.note_primed("turbo", self.qc_sizes)
+        hbm_ledger.note_primed("turbo_bitset", self.qc_sizes)
+
     # ---------------- column cache ----------------
 
     def _term_groups(self, info: _TermInfo, slot: int):
@@ -507,6 +549,7 @@ class TurboBM25:
             self.lane_scores if lane_scores is None else lane_scores,
             self.cols_hi, self.cols_lo)
 
+    @_serialized
     def ensure_columns(self, terms: Sequence[str],
                        protect_extra: Sequence[str] = ()) -> None:
         # injected faults fire before any slot-pool mutation
@@ -615,6 +658,7 @@ class TurboBM25:
                                  / max(self._avgdl, 1e-9))
         return (info.pf * (_K1 + 1.0) / denom).astype(np.float32)
 
+    @_serialized
     def ensure_phrases(self, phrase_lists: Sequence[Sequence[str]],
                        protect_extra: Sequence[str] = ()) -> None:
         """Colize slop-0 phrases: pack each phrase's (docs, lane score)
@@ -695,6 +739,7 @@ class TurboBM25:
         self.stats["phrase_builds"] += len(need)
         self.stats["build_s"] += time.monotonic() - t0
 
+    @_serialized
     def prebuild_columns(self) -> int:
         """Build every colizable term's column now (capacity-capped, by df
         desc), so no timed query pays a build."""
@@ -851,6 +896,7 @@ class TurboBM25:
                 idx_l.append(np.arange(g0, g0 + n_g, dtype=np.int64))
                 self.stats["sparse_slices"] += 1
                 self.stats["sparse_bytes"] += w * 4
+                metrics.observe("sparse_slice_width", w)
             if idx_l and self._sp_group is not None:
                 self._sp_group.dirty += idx_l
             elif idx_l:
@@ -1106,14 +1152,34 @@ class TurboBM25:
 
     # ---------------- search ----------------
 
-    def search_many(self, batches: Sequence[List], k: int = 10):
+    def search_many(self, batches: Sequence[List], k: int = 10, check=None):
         """Pipeline batches of queries; returns per batch (scores [Q, k]
         f32, ords [Q, k] i32). Queries are term lists or (term, boost)
-        lists."""
+        lists. check: optional cooperative-cancellation callable invoked
+        between dispatches (tasks/task_manager)."""
         flat, spans = _flatten_queries(batches)
         if not flat:
             return [(np.zeros((n, k), np.float32), np.zeros((n, k), np.int32))
                     for _, n in spans]
+        # exact host rescore of every doc in the collected rows, merged
+        # with the cold side, outside the engine's lock
+        out_s = np.zeros((len(flat), k), np.float32)
+        out_d = np.zeros((len(flat), k), np.int32)
+        for off, rows_all, bounds, splits, colds in self._dispatch_many(
+                flat, k, check):
+            for qi, split in enumerate(splits):
+                docs = self._collect_docs(rows_all[qi])
+                s, d = self._finish_query(
+                    split, docs, float(bounds[qi]), k, colds[qi])
+                out_s[off + qi, : len(s)] = s
+                out_d[off + qi, : len(d)] = d
+        return [(out_s[o: o + n], out_d[o: o + n]) for o, n in spans]
+
+    @_serialized
+    def _dispatch_many(self, flat, k: int, check):
+        """The device passes of search_many under the engine's lock: per
+        chunk (offset, picked rows [QC, n_rows] i64, row bounds [QC], each
+        query's _split_terms, its cold side)."""
         self.ensure_columns(
             [t for q in flat for t, _ in q
              if self._term(t) is not None])
@@ -1128,6 +1194,8 @@ class TurboBM25:
             take = next((s for s in self.qc_sizes if s >= rem),
                         self.qc_sizes[-1])
             chunk = flat[off: off + take]
+            if check is not None:
+                check()
             first = hbm_ledger.note_dispatch("turbo", take)
             tc0 = time.monotonic()
             rm, rr = self._sweep(chunk, take)
@@ -1140,24 +1208,19 @@ class TurboBM25:
             off += len(chunk)
         self.stats["dispatches"] += len(pending)
 
-        # pass 2: read the small row sets back; exact host rescore of every
-        # doc in the collected rows, merged with the cold side
-        out_s = np.zeros((len(flat), k), np.float32)
-        out_d = np.zeros((len(flat), k), np.int32)
+        # pass 2: read the small row sets back; the column split and the
+        # cold side of each query while the columns are the ones swept
+        out = []
         for off, n, packed_dev in pending:
+            if check is not None:
+                check()
             with faults.device_errors("turbo_sweep", self.part_id):
                 packed = packed_dev.cpu().numpy()     # [QC, n_rows + 1]
-            rows_all = packed[:, :n_rows].astype(np.int64)
-            bounds = packed[:, n_rows]
             splits = [self._split_terms(flat[off + qi]) for qi in range(n)]
             colds = self._cold_sides([sp[2] for sp in splits])
-            for qi in range(n):
-                docs = self._collect_docs(rows_all[qi])
-                s, d = self._finish_query(
-                    splits[qi], docs, float(bounds[qi]), k, colds[qi])
-                out_s[off + qi, : len(s)] = s
-                out_d[off + qi, : len(d)] = d
-        return [(out_s[o: o + n], out_d[o: o + n]) for o, n in spans]
+            out.append((off, packed[:, :n_rows].astype(np.int64),
+                        packed[:, n_rows], splits, colds))
+        return out
 
     def _collect_docs(self, rw: np.ndarray) -> np.ndarray:
         """Live doc ids in one query's picked rows ([n_rows] i64, -1 =
@@ -1286,7 +1349,7 @@ class TurboBM25:
             kth = float(out_s[k - 1]) if len(out_s) >= k else 0.0
             short = len(out_s) < k and uncollected > 0
             if short or (len(out_s) >= k and kth < limit and uncollected > 0):
-                self.stats["fallbacks"] += 1
+                self._bump("fallbacks")
                 return self._exact_merge(qterms, k)
         return out_s, out_d
 
@@ -1401,7 +1464,7 @@ class TurboBM25:
 
     def _bool_slots(self, r: _BoolQuery):
         """(scoring [(slot, w, smax)], required slots, must_not slots) over
-        columns resident now — what the sweep quantizes, reused by
+        columns resident now — what the sweep quantizes, handed to
         _finish_bool so the certificate's e_q mirrors the dispatch."""
         ws: Dict[int, float] = {}
         smax: Dict[int, float] = {}
@@ -1599,12 +1662,15 @@ class TurboBM25:
 
     def _note_bitset_counts(self, cnt) -> None:
         """Fold one dispatch's nonzero-chunk tallies into the skip
-        counter."""
+        counter and the two histograms."""
         total = self.nsw * N_CHUNKS
         for c in cnt:
             skipped = max(total - int(c), 0)
             self.stats["bitset_blocks_skipped"] += skipped
             _node_bitset_add("bitset_blocks_skipped", skipped)
+            metrics.observe("bitset_blocks_skipped", skipped)
+            metrics.observe("bitset_block_occupancy",
+                            int(c) / max(total, 1))
 
     # ---- exact host side ----
 
@@ -1663,7 +1729,7 @@ class TurboBM25:
         """Exact host bool top-k: sorted-array intersection of the required
         clauses, then the shared exact rescore. Serves host-routed queries
         and the device path's certificate fallback."""
-        self.stats["bool_host"] += 1
+        self._bump("bool_host")
         fp = self.fp
         empty = (np.empty(0, np.float32), np.empty(0, np.int32))
         req: List[np.ndarray] = []
@@ -1717,12 +1783,13 @@ class TurboBM25:
         return [(t, b, i) for t, b, i in r.should if t not in self._slot_of]
 
     def _finish_bool(self, r: _BoolQuery, cand_docs, bound: float, k: int,
-                     cold):
+                     cold, slots):
         """Device-path merge: exact rescore of the collected docs, the cold
         SHOULD terms' side from K3 (`cold`, _cold_sides' triple, None
         without cold SHOULD terms; bound-pruned), and the certificate, as
-        in _finish_query."""
-        scoring, _, _ = self._bool_slots(r)
+        in _finish_query. `slots` is _bool_slots(r) as the sweep
+        quantized it."""
+        scoring = slots[0]
         e_q = _quant_error([w for _, w, _ in scoring])
 
         cand_s = np.empty(0, np.float32)
@@ -1773,11 +1840,12 @@ class TurboBM25:
         kth = float(out_s[k - 1]) if len(out_s) >= k else 0.0
         short = len(out_s) < k and uncollected > 0
         if short or (len(out_s) >= k and kth < limit and uncollected > 0):
-            self.stats["fallbacks"] += 1
+            self._bump("fallbacks")
             return self._bool_host_exact(r, k)
         return out_s, out_d
 
-    def search_bool(self, queries: Sequence[dict], k: int = 10):
+    def search_bool(self, queries: Sequence[dict], k: int = 10,
+                    check=None):
         """(scores [Q, k] f32, ords [Q, k] i32) for bool query specs (see
         _resolve_bool). Matches with non-positive scores are dropped. The
         device and host routes are bitwise equal: both rescore through
@@ -1785,6 +1853,30 @@ class TurboBM25:
         Q = len(queries)
         out_s = np.zeros((Q, k), np.float32)
         out_d = np.zeros((Q, k), np.int32)
+        resolved, swept, host_idx = self._dispatch_bool(queries, k, check)
+        # exact host rescore and certificate, outside the engine's lock
+        for sel, rows_all, bounds, colds, slots in swept:
+            for j, qi in enumerate(sel):
+                docs = self._collect_docs(rows_all[j])
+                s, d = self._finish_bool(resolved[qi], docs,
+                                         float(bounds[j]), k, colds[j],
+                                         slots[j])
+                out_s[qi, : len(s)] = s
+                out_d[qi, : len(d)] = d
+        for qi in host_idx:
+            if check is not None:
+                check()
+            s, d = self._bool_host_exact(resolved[qi], k)
+            out_s[qi, : len(s)] = s
+            out_d[qi, : len(d)] = d
+        return out_s, out_d
+
+    @_serialized
+    def _dispatch_bool(self, queries, k: int, check):
+        """The device passes of search_bool under the engine's lock:
+        (resolved queries, per chunk (query indices, picked rows [QC,
+        n_rows] i64, row bounds [QC], cold sides, each query's _bool_slots
+        as swept), the host-routed query indices)."""
         resolved = [self._resolve_bool(spec) for spec in queries]
         self._ensure_bool(resolved)
         device_idx, host_idx = self._bool_routes(resolved)
@@ -1807,6 +1899,8 @@ class TurboBM25:
                         self.qc_sizes[-1])
             sel = device_idx[off: off + take]
             chunk = [resolved[i] for i in sel]
+            if check is not None:
+                check()
             counts = None
             if use_bits:
                 first = hbm_ledger.note_dispatch("turbo_bitset", take)
@@ -1823,34 +1917,28 @@ class TurboBM25:
             off += len(sel)
         self.stats["dispatches"] += len(pending)
 
+        swept = []
         for sel, packed_dev, counts in pending:
+            if check is not None:
+                check()
             with faults.device_errors("turbo_sweep", self.part_id):
                 packed = packed_dev.cpu().numpy()
             if counts is not None:
                 with faults.device_errors("bitset_intersect", self.part_id):
                     self._note_bitset_counts(counts.cpu().numpy()[: len(sel)])
-            rows_all = packed[:, :n_rows].astype(np.int64)
-            bounds = packed[:, n_rows]
             colds = self._cold_sides(
                 [self._cold_should(resolved[qi]) for qi in sel])
-            for j, qi in enumerate(sel):
-                docs = self._collect_docs(rows_all[j])
-                s, d = self._finish_bool(resolved[qi], docs,
-                                         float(bounds[j]), k, colds[j])
-                out_s[qi, : len(s)] = s
-                out_d[qi, : len(d)] = d
-        for qi in host_idx:
-            s, d = self._bool_host_exact(resolved[qi], k)
-            out_s[qi, : len(s)] = s
-            out_d[qi, : len(d)] = d
-        return out_s, out_d
+            swept.append((sel, packed[:, :n_rows].astype(np.int64),
+                          packed[:, n_rows], colds,
+                          [self._bool_slots(resolved[qi]) for qi in sel]))
+        return resolved, swept, host_idx
 
     def search_phrase(self, phrases: Sequence[Sequence[str]], k: int = 10,
-                      slop: int = 0):
+                      slop: int = 0, check=None):
         """(scores [Q, k], ords [Q, k]) for bare phrase queries: sugar over
         search_bool; slop-0 phrases ride the adjacency columns."""
         specs = [{"phrases": [(list(p), slop, 1.0)]} for p in phrases]
-        return self.search_bool(specs, k=k)
+        return self.search_bool(specs, k=k, check=check)
 
     # ---------------- host tier (no device dispatch) ----------------
 
@@ -1865,7 +1953,8 @@ class TurboBM25:
             return np.empty(0, np.float32), np.empty(0, np.int32)
         return self._exact_merge(qterms, k)
 
-    def search_many_host(self, batches: Sequence[List], k: int = 10):
+    def search_many_host(self, batches: Sequence[List], k: int = 10,
+                         check=None):
         """search_many semantics served entirely on the host — the
         circuit-open fallback tier (no device dispatch, no cache
         mutation)."""
@@ -1873,12 +1962,15 @@ class TurboBM25:
         out_s = np.zeros((len(flat), k), np.float32)
         out_d = np.zeros((len(flat), k), np.int32)
         for qi, terms in enumerate(flat):
+            if check is not None:
+                check()
             s, d = self._exact_query(terms, k)
             out_s[qi, : len(s)] = s
             out_d[qi, : len(d)] = d
         return [(out_s[o: o + n], out_d[o: o + n]) for o, n in spans]
 
-    def search_bool_host(self, queries: Sequence[dict], k: int = 10):
+    def search_bool_host(self, queries: Sequence[dict], k: int = 10,
+                         check=None):
         """search_bool semantics served entirely on the host (the
         _bool_host_exact route every device bool result is bitwise equal
         to)."""
@@ -1886,6 +1978,8 @@ class TurboBM25:
         out_s = np.zeros((Q, k), np.float32)
         out_d = np.zeros((Q, k), np.int32)
         for qi, spec in enumerate(queries):
+            if check is not None:
+                check()
             r = self._resolve_bool(spec)
             if r is None:
                 continue

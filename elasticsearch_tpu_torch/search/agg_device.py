@@ -60,18 +60,17 @@ Differences from the reference:
     contains every `Exception`. A refused launch (`KernelLaunchError`) or
     a wrapper's `TypeError` / `ValueError` propagates out of the collect
     and is never served around by the host aggregators.
-  * **No scheduler yet.** `_dispatch` calls the leaf's engine's
-    `search_many([works], 1)` directly: the scheduler's
-    bulk tier (`serving_dispatch(tier=TIER_BULK)`), its `check` and
-    `fault_log` arguments, and the `extend_qc_sizes` hook through which
-    `TurboEngine` primes the agg ladder come with the scheduler (ROADMAP
-    queue 1, item 9). `search_many` keeps the scheduler contract: a list
-    of work batches in, zero score triples out, results on the works.
+  * **Batched as bulk-tier scheduler work**, as in the reference:
+    `_dispatch` routes a collect's works through
+    `serving_dispatch(engine, works, 1, tier=TIER_BULK)` on the leaf's
+    engine, so concurrent collects that share a layout merge into one
+    K8 launch with Q > 1 (rungs = the scheduler's bucket ladder, primed
+    through `extend_qc_sizes`; `TurboEngine.extend_qc_sizes` primes the
+    engine of its own device). The scheduler's lane thread launches the
+    kernel inside the engine's device scope (`threadpool.coalescer`).
   * **Left out** (ROADMAP): the HBM scrub region per layout
     (`integrity.register_scrub_region`, item 10, with the host copy of the
-    blob its repair re-uploads) and the
-    `metrics.counter_add` / `metrics.observe("agg_batch_size")` calls
-    (item 9). The `_COUNTS` counters stay.
+    blob its repair re-uploads).
 """
 
 from __future__ import annotations
@@ -85,7 +84,7 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch import device as _device
-from elasticsearch_tpu_torch.common import faults, hbm_ledger
+from elasticsearch_tpu_torch.common import faults, hbm_ledger, metrics
 from elasticsearch_tpu_torch.common.errors import DeviceFaultError
 from elasticsearch_tpu_torch.common.settings import knob
 from elasticsearch_tpu_torch.parallel import kernels
@@ -116,6 +115,7 @@ _COUNTS = {"agg_queries": 0, "agg_device_dispatches": 0,
 def _count(key: str, n: int = 1) -> None:
     with _COUNTS_LOCK:
         _COUNTS[key] += n
+    metrics.counter_add(key, n)
 
 
 def agg_stats() -> dict:
@@ -265,7 +265,14 @@ class AggDeviceEngine:
 
     # ---- scheduler engine contract ----
 
-    def search_many(self, batches, k: int = 1):
+    def extend_qc_sizes(self, sizes) -> None:
+        """Scheduler bucket-ladder hook: widen the padded query-batch
+        rungs and mark them primed."""
+        merged = sorted(set(self.qc_sizes) | {int(s) for s in sizes})
+        self.qc_sizes = tuple(merged)
+        hbm_ledger.note_primed("agg_reduce", self.qc_sizes)
+
+    def search_many(self, batches, k: int = 1, check=None, fault_log=None):
         out = []
         for works in batches:
             works = list(works)
@@ -298,6 +305,7 @@ class AggDeviceEngine:
         for i, w in enumerate(group):
             mask[i] = w.mask
         hbm_ledger.note_dispatch("agg_reduce", qpad)
+        metrics.observe("agg_batch_size", q)
         _count("agg_device_dispatches")
         with faults.device_dispatch("agg_reduce", layout.serial):
             dmask = torch.from_numpy(mask).to(self.device)
@@ -333,9 +341,16 @@ def default_engine(device=None) -> AggDeviceEngine:
 
 
 def _dispatch(seg, works: List[_AggWork]) -> bool:
-    """Run works on the engine of `seg`'s device (the scheduler's bulk
-    tier in the reference). True = every work carries a device result."""
-    default_engine(seg.torch_device).search_many([works], 1)
+    """Route works through the serving dispatch facade as bulk-tier
+    scheduler work, on the engine of `seg`'s device. True = every work
+    carries a device result."""
+    from elasticsearch_tpu_torch.threadpool.scheduler import (
+        TIER_BULK,
+        serving_dispatch,
+    )
+
+    serving_dispatch(default_engine(seg.torch_device), works, 1,
+                     tier=TIER_BULK)
     ok = True
     for w in works:
         if w.error is not None or w.result is None:

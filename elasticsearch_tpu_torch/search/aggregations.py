@@ -24,9 +24,8 @@ search/agg_device.py. It is the exact reference every device route is held
 to. `ctx.leaf` needs `n_docs` and a `segment` with `numeric` and `keyword`
 column dicts (index/segment.py), a `_device` dict (the agg layouts' cache),
 and, for the aggs that read them, `postings`, `doc_ids` and `sources`.
-`filter` and `filters` run their query through `ctx.executor.execute`; the
-port has no dense executor yet (ROADMAP queue 1, item 9), so they work only
-when the caller supplies one.
+`filter` and `filters` run their query through `ctx.executor.execute`,
+the dense executor the query phase supplies.
 """
 
 from __future__ import annotations

@@ -21,10 +21,10 @@ check granularity is one dispatch — milliseconds, not the whole query.
 The scheduler/coalescer only honor cancellation at their flush
 boundaries, preserving the bit-identity contract when no cancel fires.
 
-The port's copy of elasticsearch_tpu/tasks/task_manager.py. The port has
-no trace context and no SLA scheduler yet, so `register` leaves a task's
-trace id unset and gives it the reference's default tier, `interactive`,
-where the reference reads both from the calling thread.
+The port's copy of elasticsearch_tpu/tasks/task_manager.py: `register`
+reads the trace id and the SLA tier from the calling thread
+(`common.tracing.current()`, `threadpool.scheduler.current_tier()`), as
+the reference does.
 """
 
 from __future__ import annotations
@@ -39,8 +39,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 from elasticsearch_tpu_torch.common import metrics
 from elasticsearch_tpu_torch.common.errors import ElasticsearchTpuError
 from elasticsearch_tpu_torch.common.settings import knob
-
-TIER_INTERACTIVE = "interactive"   # threadpool/scheduler.py's default tier
 
 
 class TaskCancelledError(ElasticsearchTpuError):
@@ -178,8 +176,16 @@ class TaskManager:
                  parent_task_id: Optional[str] = None,
                  trace_id: Optional[str] = None,
                  sla: Optional[str] = None) -> Task:
+        if trace_id is None:
+            from elasticsearch_tpu_torch.common import tracing
+
+            tc = tracing.current()
+            trace_id = tc.trace_id if tc is not None else None
         if sla is None:
-            sla = TIER_INTERACTIVE
+            # runtime-only import: threadpool imports tasks at module load
+            from elasticsearch_tpu_torch.threadpool import scheduler as _sched
+
+            sla = _sched.current_tier()
         task = Task(id=next(self._ids), node=self.node_id, action=action,
                     description=description,
                     start_time_ms=int(time.time() * 1000),

@@ -1,0 +1,17 @@
+from elasticsearch_tpu_torch.threadpool.coalescer import (
+    DispatchCoalescer, default_coalescer,
+)
+from elasticsearch_tpu_torch.threadpool.pool import (
+    EsRejectedExecutionError, FixedExecutor, ThreadPool, pool_for_request,
+    tier_for_request,
+)
+from elasticsearch_tpu_torch.threadpool.scheduler import (
+    AdaptiveDispatchScheduler, activate_tier, current_tier,
+    default_scheduler, scheduler_stats, serving_dispatch,
+)
+
+__all__ = ["AdaptiveDispatchScheduler", "DispatchCoalescer",
+           "EsRejectedExecutionError", "FixedExecutor", "ThreadPool",
+           "activate_tier", "current_tier", "default_coalescer",
+           "default_scheduler", "pool_for_request", "scheduler_stats",
+           "serving_dispatch", "tier_for_request"]

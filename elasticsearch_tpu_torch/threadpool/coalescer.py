@@ -1,0 +1,377 @@
+"""Dispatch coalescer: micro-batching for concurrent small searches.
+
+Concurrent batch-1 searches would each launch their OWN device dispatch,
+while the engines serve a batch of many queries at a far better cost per
+query. This is the continuous-batching regime from inference serving
+(and the eager batched-scoring regime BM25S, arxiv 2407.03618, shows for
+sparse BM25):
+hold concurrent single/small queries targeting the same engine for a
+short flush window, execute them as ONE padded `search_many` dispatch,
+and de-multiplex the rows back to their waiters.
+
+Bit-identity with solo execution is a hard requirement (the serving
+differential tests enforce it), so merging is conservative:
+
+- batches are keyed by `(engine identity, k)` — queries never share a
+  dispatch across engines (a snapshot refresh mid-window swaps the
+  engine object, so late arrivals key onto the NEW engine and in-flight
+  waiters finish on the snapshot they captured) and never across
+  different top-k depths;
+- both engines score and select top-k per query-row independently
+  (TurboBM25's host rescore is exact per query; BlockMax's pass-B pads
+  with row copies), so a merged row equals its solo row bitwise.
+
+The flush window comes from `ES_TPU_COALESCE_US` (microseconds, default
+2000; 0 disables coalescing entirely — every call dispatches solo).
+
+The port's copy of elasticsearch_tpu/threadpool/coalescer.py. One change:
+every engine call (`DispatchCoalescer._run`, which the coalescer leader,
+the adaptive scheduler's lane thread, direct dispatches and the solo
+retries all go through) runs inside `device_scope(engine)`, so a kernel
+launched from a thread the scheduler started uses the engine's device
+and that device's current stream, not whatever the new thread defaults
+to.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from elasticsearch_tpu_torch.common import metrics, tracing
+from elasticsearch_tpu_torch.common.settings import knob
+from elasticsearch_tpu_torch.tasks import task_manager as _taskmgr
+
+DEFAULT_WINDOW_US = 2000.0
+# a query batch larger than this is already a good device shape — merging
+# it would only add latency to its peers
+SMALL_BATCH_MAX = 8
+# flush early once a held batch reaches this many queries
+MAX_BATCH = 64
+
+
+# monotonic engine serials for batch keying: id(engine) could be REUSED
+# by a new engine allocated after an old one is garbage-collected
+# mid-window (a snapshot refresh drops the old TurboEngine/ShardedTurbo
+# wrapper), silently merging waiters across snapshots; a serial pinned on
+# the object can never collide
+_engine_serials = itertools.count(1)
+
+
+def _engine_key(engine) -> int:
+    s = getattr(engine, "_coalesce_serial", None)
+    if s is None:
+        s = next(_engine_serials)
+        try:
+            engine._coalesce_serial = s
+        except AttributeError:     # __slots__ engines: degrade to id()
+            return id(engine)
+    return s
+
+
+def device_scope(engine):
+    """`torch.cuda.device(d)` for an engine whose `device` is a CUDA
+    device, else a no-op (CPU engines and test stubs)."""
+    dev = getattr(engine, "device", None)
+    if isinstance(dev, torch.device) and dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def _env_window_us() -> float:
+    # per-call registry read: tests toggle the window mid-process
+    return knob("ES_TPU_COALESCE_US")
+
+
+def record_device(engine, n_queries: int, dt_ms: float,
+                  engine_name: Optional[str] = None) -> None:
+    """Flight recorder: one device dispatch. Every dispatch path funnels
+    through its single authoritative call site of this helper (coalescer
+    direct + leader, scheduler, serving's search_bool sites), so latency
+    AND batch-shape/pad-waste land together — including direct and fused
+    ShardedTurbo dispatches that the old leader-only pad accounting
+    missed."""
+    metrics.observe("device", dt_ms)
+    record_pad_waste(engine, n_queries)
+    tc = tracing.current()
+    if tc is not None:
+        tc.add_span("device", dt_ms,
+                    engine=engine_name or getattr(engine, "kind", "?"),
+                    batch=n_queries)
+
+
+def record_pad_waste(engine, n: int) -> None:
+    """Batch-shape histograms: how many query rows the qc quantization pads
+    on top of the real batch (the pad-waste the adaptive scheduler's
+    bucket ladder exists to minimize)."""
+    metrics.observe("coalesce_batch_size", n)
+    sizes = getattr(engine, "qc_sizes", None)
+    if not sizes or n <= 0:
+        return
+    cap = sizes[-1]
+    full, rem = divmod(n, cap)
+    padded = full * cap
+    if rem:
+        padded += next((s for s in sizes if s >= rem), cap)
+    if padded > 0:
+        metrics.observe("coalesce_pad_ratio", (padded - n) / padded)
+
+
+def _accepts_fault_log(engine) -> bool:
+    """Whether engine.search_many takes a fault_log kwarg (TurboEngine
+    does; BlockMax and test stubs may not). Cached on the engine."""
+    cached = getattr(engine, "_accepts_fault_log_", None)
+    if cached is None:
+        import inspect
+
+        try:
+            params = inspect.signature(engine.search_many).parameters
+            cached = "fault_log" in params or any(
+                p.kind == inspect.Parameter.VAR_KEYWORD
+                for p in params.values())
+        except (TypeError, ValueError):
+            cached = False
+        try:
+            engine._accepts_fault_log_ = cached
+        except AttributeError:
+            pass
+    return cached
+
+
+class _PendingBatch:
+    __slots__ = ("engine", "k", "queries", "closed", "fill", "done",
+                 "results", "error", "fault_log", "query_errors")
+
+    def __init__(self, engine, k: int):
+        self.engine = engine
+        self.k = k
+        self.queries: List = []
+        self.closed = False
+        self.fill = threading.Event()    # wakes the leader early when full
+        self.done = threading.Event()    # results ready for the waiters
+        self.results = None
+        self.error: Optional[BaseException] = None
+        self.fault_log: List = []        # shard fault records (recovered)
+        self.query_errors: Dict[int, BaseException] = {}  # slot -> error
+
+
+def retry_batch_solo(batch, original: BaseException) -> None:
+    """Poison-batch containment, shared by the coalescer and the adaptive
+    scheduler: re-run each of a failed merged batch's queries as its own
+    solo dispatch (once). Slots whose retry also fails carry their error
+    to exactly their waiter; if every retry fails the original batch
+    error goes to everyone. `batch` is any object with the _PendingBatch
+    result-surface (engine, k, queries, fault_log, results, error,
+    query_errors)."""
+    import numpy as np
+
+    rows: List = [None] * len(batch.queries)
+    errors: Dict[int, BaseException] = {}
+    for qi, query in enumerate(batch.queries):
+        try:
+            s, p, o = DispatchCoalescer._run(batch.engine, [query], batch.k,
+                                             fault_log=batch.fault_log)
+        except Exception as e:
+            errors[qi] = e
+            continue
+        rows[qi] = (np.asarray(s[0]), np.asarray(p[0]),
+                    np.asarray(o[0]))
+    if all(r is None for r in rows):
+        batch.error = original
+        return
+    template = next(r for r in rows if r is not None)
+    for qi, r in enumerate(rows):
+        if r is None:
+            rows[qi] = tuple(np.zeros_like(x) for x in template)
+    batch.results = tuple(np.stack([r[j] for r in rows])
+                          for j in range(3))
+    batch.query_errors = errors
+
+
+class DispatchCoalescer:
+    """Merges concurrent `search_many` calls on the same engine+k into
+    one device dispatch. The FIRST arrival for a key becomes the batch
+    leader: it waits out the flush window (or until the batch fills),
+    closes the batch, runs the single merged dispatch, and publishes the
+    rows; followers only wait on the result event."""
+
+    def __init__(self, window_us: Optional[float] = None,
+                 max_batch: int = MAX_BATCH,
+                 small_batch_max: int = SMALL_BATCH_MAX):
+        self._window_us = window_us     # None -> read env per dispatch
+        self.max_batch = max_batch
+        self.small_batch_max = small_batch_max
+        self._lock = threading.Lock()
+        self._pending: Dict[Tuple[int, int], _PendingBatch] = {}  # guarded by: _lock
+        # stats
+        self._direct_dispatches = 0      # guarded by: _lock
+        self._coalesced_dispatches = 0   # guarded by: _lock
+        self._coalesced_queries = 0      # guarded by: _lock
+        self._largest_batch = 0          # guarded by: _lock
+        self._batch_retries = 0          # guarded by: _lock
+
+    def window_us(self) -> float:
+        return self._window_us if self._window_us is not None \
+            else _env_window_us()
+
+    @staticmethod
+    def _run(engine, queries: List, k: int, check=None, fault_log=None):
+        kw = {}
+        if check is not None:
+            kw["check"] = check
+        if fault_log is not None and _accepts_fault_log(engine):
+            kw["fault_log"] = fault_log
+        with device_scope(engine):
+            return engine.search_many([list(queries)], k=k, **kw)[0]
+
+    def dispatch(self, engine, queries: List, k: int, check=None,
+                 fault_log=None):
+        """One batch of queries -> (scores [Q,k], partition [Q,k],
+        ord [Q,k]) — the engine `search_many` single-batch contract.
+        Small batches coalesce with concurrent peers; large ones (or a
+        zero window) dispatch directly. `fault_log`, when given, collects
+        the engine's recovered-shard FaultRecords for `_shards`
+        accounting."""
+        window_s = self.window_us() / 1e6
+        if check is not None:
+            # cooperative cancellation happens at the caller's boundary:
+            # a merged dispatch must never fail EVERY waiter because one
+            # task was cancelled
+            check()
+        ct = _taskmgr.current_task()
+        if ct is not None:
+            # registered-task cancellation (direct or ban-propagated)
+            # honors the same boundary-only contract
+            ct.check()
+            ct.note_dispatch()
+        if window_s <= 0 or len(queries) > self.small_batch_max:
+            with self._lock:
+                self._direct_dispatches += 1
+            t_dev = time.monotonic()
+            out = self._run(engine, queries, k, check=check,
+                            fault_log=fault_log)
+            record_device(engine, len(queries),
+                          (time.monotonic() - t_dev) * 1e3)
+            return out
+
+        with self._lock:
+            # key under the lock so one engine gets exactly one serial
+            key = (_engine_key(engine), int(k))
+            batch = self._pending.get(key)
+            leader = batch is None
+            if leader:
+                batch = _PendingBatch(engine, int(k))
+                self._pending[key] = batch
+            base = len(batch.queries)
+            batch.queries.extend(queries)
+            if len(batch.queries) >= self.max_batch:
+                batch.closed = True
+                if self._pending.get(key) is batch:
+                    del self._pending[key]
+                batch.fill.set()
+
+        if leader:
+            t_wait = time.monotonic()
+            batch.fill.wait(window_s)
+            with self._lock:
+                # close the window: late arrivals start a fresh batch
+                batch.closed = True
+                if self._pending.get(key) is batch:
+                    del self._pending[key]
+                n = len(batch.queries)
+                self._coalesced_dispatches += 1
+                self._coalesced_queries += n
+                if n > self._largest_batch:
+                    self._largest_batch = n
+            wait_ms = (time.monotonic() - t_wait) * 1e3
+            metrics.observe("coalesce_wait", wait_ms)
+            tc = tracing.current()
+            if tc is not None:
+                tc.add_span("coalesce_wait", wait_ms, role="leader", batch=n)
+            try:
+                t_dev = time.monotonic()
+                batch.results = self._run(engine, batch.queries, batch.k,
+                                          fault_log=batch.fault_log)
+                record_device(engine, n, (time.monotonic() - t_dev) * 1e3)
+                from elasticsearch_tpu_torch.common.overload import (
+                    default_overload,
+                )
+
+                default_overload().note_success()
+            except Exception as e:
+                # poison-batch containment: a failed FUSED dispatch must
+                # not fail every waiter — retry each query solo once so
+                # only the query (if any) that actually trips the fault
+                # sees the error
+                self._retry_solo(batch, e)
+            except BaseException as e:  # noqa: BLE001 — ferried to waiters
+                batch.error = e
+            finally:
+                batch.done.set()
+        else:
+            t_wait = time.monotonic()
+            batch.done.wait()
+            wait_ms = (time.monotonic() - t_wait) * 1e3
+            metrics.observe("coalesce_wait", wait_ms)
+            tc = tracing.current()
+            if tc is not None:
+                tc.add_span("coalesce_wait", wait_ms, role="follower")
+        if check is not None:
+            check()
+        if ct is not None:
+            # a cancel that landed mid-window kills only THIS waiter;
+            # co-batched peers keep their bit-identical slices
+            ct.check()
+        if batch.error is not None:
+            raise batch.error
+        if fault_log is not None and batch.fault_log:
+            fault_log.extend(batch.fault_log)
+        if batch.query_errors:
+            for qi in range(base, base + len(queries)):
+                if qi in batch.query_errors:
+                    raise batch.query_errors[qi]
+        scores, parts, ords = batch.results
+        sl = slice(base, base + len(queries))
+        return scores[sl], parts[sl], ords[sl]
+
+    def _retry_solo(self, batch: _PendingBatch,
+                    original: BaseException) -> None:
+        from elasticsearch_tpu_torch.common.overload import default_overload
+
+        if not default_overload().retry_allowed("coalesce_solo"):
+            # retry budget exhausted: every waiter gets the ORIGINAL
+            # batch error instead of N solo re-dispatches
+            batch.error = original
+            return
+        with self._lock:
+            self._batch_retries += 1
+        retry_batch_solo(batch, original)
+
+    def stats(self) -> dict:
+        with self._lock:
+            merged = self._coalesced_queries
+            dispatches = self._coalesced_dispatches
+            return {
+                "window_us": self.window_us(),
+                "direct_dispatches": self._direct_dispatches,
+                "coalesced_dispatches": dispatches,
+                "coalesced_queries": merged,
+                "largest_batch": self._largest_batch,
+                "mean_batch": round(merged / dispatches, 3) if dispatches
+                else 0.0,
+                "coalesce_batch_retries": self._batch_retries,
+            }
+
+
+# the process-default coalescer: ServingContext instances all dispatch
+# through it so concurrent searches coalesce across REST entry points
+_default = DispatchCoalescer()
+
+
+def default_coalescer() -> DispatchCoalescer:
+    return _default

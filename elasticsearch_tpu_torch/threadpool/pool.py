@@ -1,0 +1,358 @@
+"""Named bounded executors with admission control.
+
+Re-designs the reference's node-level ThreadPool (ref:
+threadpool/ThreadPool.java:59-75 builders, common/util/concurrent/
+EsThreadPoolExecutor + EsRejectedExecutionException): a node owns ONE
+ThreadPool holding a fixed-size executor per stage (`search`, `write`,
+`get`, `management`, `snapshot`), each with a bounded queue. When a
+pool's workers are all busy and its queue is full, submission fails
+fast with `es_rejected_execution_exception` (HTTP 429) — load sheds at
+the door instead of queueing unboundedly, and saturating one stage
+never starves another (a bulk storm cannot take search down).
+
+Workers spawn lazily (first submissions grow the pool to its size), so
+constructing a ThreadPool is cheap for nodes that never serve a stage.
+Per-pool sizes/queues are overridable via `ES_TPU_POOL_<NAME>_SIZE` /
+`ES_TPU_POOL_<NAME>_QUEUE`.
+
+The port's copy of elasticsearch_tpu/threadpool/pool.py. One change: a
+worker counts a task complete before it wakes the task's waiter, so
+`stats()` read after `get()` returns includes it (the reference wakes the
+waiter first, and its `test_submit_executes_and_counts` flakes under load
+on that race: ROADMAP W5).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, Optional
+
+from elasticsearch_tpu_torch.common import metrics, tracing
+from elasticsearch_tpu_torch.common.errors import ElasticsearchTpuError
+from elasticsearch_tpu_torch.common.settings import knob
+from elasticsearch_tpu_torch.tasks import task_manager as _taskmgr
+from elasticsearch_tpu_torch.threadpool import scheduler as _sched
+
+
+class EsRejectedExecutionError(ElasticsearchTpuError):
+    """Pool saturated: workers busy and queue full (ref:
+    EsRejectedExecutionException -> RestStatus.TOO_MANY_REQUESTS)."""
+
+    status = 429
+    error_type = "es_rejected_execution_exception"
+
+
+# EWMA smoothing for per-task execution time (ref: the reference's
+# ExponentiallyWeightedMovingAverage used for queue auto-scaling)
+_EWMA_ALPHA = 0.2
+
+_tls = threading.local()
+
+
+class _Task:
+    """Submission handle: a tiny future (result or raised error)."""
+
+    __slots__ = ("fn", "args", "kwargs", "result", "error", "_done",
+                 "submitted", "trace", "tier", "taskref")
+
+    def __init__(self, fn, args, kwargs):
+        self.fn = fn
+        self.args = args
+        self.kwargs = kwargs
+        self.result = None
+        self.error: Optional[BaseException] = None
+        self._done = threading.Event()
+        self.submitted = time.monotonic()
+        # the submitter's trace, SLA tier, and registered task ride the
+        # submission across the thread hop and are re-activated in the
+        # worker (flight recorder + scheduler-tier + cancellation
+        # propagation)
+        self.trace = tracing.current()
+        self.tier = _sched.current_tier()
+        self.taskref = _taskmgr.current_task()
+
+    def run(self, wake: bool = True) -> None:
+        """Run fn; with wake=False the caller sets `_done` itself."""
+        try:
+            self.result = self.fn(*self.args, **self.kwargs)
+        except BaseException as e:  # noqa: BLE001 — ferried to the waiter
+            self.error = e
+        finally:
+            if wake:
+                self._done.set()
+
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def get(self, timeout: Optional[float] = None):
+        if not self._done.wait(timeout):
+            raise TimeoutError(f"task [{self.fn}] did not complete")
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+class FixedExecutor:
+    """One named stage: `size` workers over a queue of `queue_size`."""
+
+    def __init__(self, name: str, size: int, queue_size: int):
+        self.name = name
+        self.size = max(1, int(size))
+        self.queue_size = max(0, int(queue_size))
+        self._queue: deque = deque()  # guarded by: _lock
+        self._lock = threading.Lock()
+        self._work = threading.Condition(self._lock)
+        self._threads: list = []      # guarded by: _lock
+        self._idle = 0                # guarded by: _lock
+        self._shutdown = False        # guarded by: _lock
+        # stats (ref: ThreadPoolStats.Stats)
+        self.active = 0               # guarded by: _lock
+        self.largest = 0              # guarded by: _lock
+        self.completed = 0            # guarded by: _lock
+        self.rejected = 0             # guarded by: _lock
+        self.ewma_ms = 0.0            # guarded by: _lock
+        self.queue_ewma_ms = 0.0      # guarded by: _lock
+
+    def submit(self, fn: Callable, *args, **kwargs) -> _Task:
+        task = _Task(fn, args, kwargs)
+        with self._lock:
+            if self._shutdown:
+                self.rejected += 1
+                raise EsRejectedExecutionError(
+                    f"rejected execution of task on [{self.name}]: "
+                    f"executor is shut down", bucket=self.name,
+                    retry_after_s=self._retry_after_s())
+            busy = self._idle == 0
+            if busy and len(self._threads) >= self.size \
+                    and len(self._queue) >= self.queue_size:
+                self.rejected += 1
+                raise EsRejectedExecutionError(
+                    f"rejected execution of task on [{self.name}]: "
+                    f"pool size [{self.size}] active and queue capacity "
+                    f"[{self.queue_size}] full", bucket=self.name,
+                    retry_after_s=self._retry_after_s())
+            if busy and len(self._threads) < self.size:
+                t = threading.Thread(
+                    target=self._worker, daemon=True,
+                    name=f"es-tpu[{self.name}][{len(self._threads)}]")
+                self._threads.append(t)
+                t.start()
+            self._queue.append(task)
+            self._work.notify()
+        return task
+
+    def _retry_after_s(self) -> int:
+        """Backoff hint for 429 rejections: how long the queue has been
+        making tasks wait, rounded up (caller holds _lock)."""
+        return min(30, 1 + int(self.queue_ewma_ms // 1000))
+
+    def _worker(self) -> None:
+        _tls.executor = self
+        while True:
+            with self._lock:
+                while not self._queue and not self._shutdown:
+                    self._idle += 1
+                    self._work.wait()
+                    self._idle -= 1
+                if not self._queue and self._shutdown:
+                    return
+                task = self._queue.popleft()
+                self.active += 1
+                if self.active > self.largest:
+                    self.largest = self.active
+                t0 = time.monotonic()
+                qw_ms = (t0 - task.submitted) * 1e3
+                self.queue_ewma_ms = qw_ms if self.completed == 0 else \
+                    (1 - _EWMA_ALPHA) * self.queue_ewma_ms \
+                    + _EWMA_ALPHA * qw_ms
+            # composed name: ad-hoc test pools fall outside the registry
+            metrics.observe_if_declared(f"queue_wait.{self.name}", qw_ms)
+            if task.trace is not None:
+                task.trace.add_span(f"queue_wait.{self.name}", qw_ms)
+            with tracing.activate(task.trace), \
+                    _sched.activate_tier(task.tier), \
+                    _taskmgr.activate(task.taskref):
+                task.run(wake=False)
+            dt_ms = (time.monotonic() - t0) * 1e3
+            try:
+                with self._lock:
+                    self.active -= 1
+                    self.completed += 1
+                    self.ewma_ms = dt_ms if self.completed == 1 else \
+                        (1 - _EWMA_ALPHA) * self.ewma_ms + _EWMA_ALPHA * dt_ms
+            finally:
+                task._done.set()   # after the counts: stats() sees the task
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "size": self.size,
+                "threads": len(self._threads),
+                "queue": len(self._queue),
+                "queue_size": self.queue_size,
+                "active": self.active,
+                "rejected": self.rejected,
+                "largest": self.largest,
+                "completed": self.completed,
+                "ewma_ms": round(self.ewma_ms, 3),
+                "queue_ewma_ms": round(self.queue_ewma_ms, 3),
+            }
+
+    def shutdown(self) -> None:
+        with self._lock:
+            self._shutdown = True
+            self._work.notify_all()
+
+
+# ---- request -> pool classification (the REST layer's stage routing;
+#      ref: the reference's per-action executor names in ActionModule) ----
+
+_SEARCH_ENDPOINTS = {"_search", "_msearch", "_count", "_async_search",
+                     "_pit", "_knn_search", "_search_shards", "_rank_eval",
+                     "_field_caps", "_explain", "_validate", "_percolate",
+                     "_terms_enum", "_scroll", "_search_scroll", "_render"}
+_WRITE_ENDPOINTS = {"_bulk", "_update", "_delete_by_query",
+                    "_update_by_query", "_reindex", "_create"}
+_GET_ENDPOINTS = {"_source", "_mget", "_termvectors", "_mtermvectors"}
+
+
+def pool_for_request(method: str, path: str) -> str:
+    parts = set(p for p in path.split("?")[0].split("/") if p)
+    if parts & _SEARCH_ENDPOINTS:
+        return "search"
+    if parts & _WRITE_ENDPOINTS:
+        return "write"
+    if "_doc" in parts:
+        return "get" if method in ("GET", "HEAD") else "write"
+    if parts & _GET_ENDPOINTS:
+        return "get"
+    if "_snapshot" in parts:
+        return "snapshot"
+    return "management"
+
+
+# endpoints that are batch/scan-shaped even though they ride the search
+# pool: their queries tolerate a wider scheduler pad, so they default to
+# the bulk SLA tier
+_BULK_SEARCH_ENDPOINTS = {"_msearch", "scroll", "_scroll", "_search_scroll",
+                          "_async_search", "_rank_eval", "_terms_enum"}
+
+
+def tier_for_request(method: str, path: str, params=None) -> str:
+    """SLA-tier classification for the adaptive dispatch scheduler: an
+    explicit `sla` request param wins; otherwise batch/scan endpoints and
+    everything outside the latency-sensitive search/get pools are bulk,
+    and interactive singles stay interactive."""
+    sla = (params or {}).get("sla")
+    if sla in (_sched.TIER_INTERACTIVE, _sched.TIER_BULK):
+        return sla
+    parts = set(p for p in path.split("?")[0].split("/") if p)
+    if parts & _BULK_SEARCH_ENDPOINTS:
+        return _sched.TIER_BULK
+    if pool_for_request(method, path) in ("search", "get"):
+        return _sched.TIER_INTERACTIVE
+    return _sched.TIER_BULK
+
+
+class ThreadPool:
+    """The node-level set of named executors — ONE per node, shared by
+    the HTTP frontend and the transport-action handlers (the same
+    single-budget rule as the shared IndexingPressure: two pools would
+    admit twice the work)."""
+
+    POOL_NAMES = ("search", "write", "get", "management", "snapshot")
+
+    def __init__(self, sizes: Optional[Dict[str, int]] = None,
+                 queue_sizes: Optional[Dict[str, int]] = None):
+        cpus = os.cpu_count() or 1
+        defaults = {
+            # (workers, queue) — the reference's fixed-pool shapes scaled
+            # to this process (search: 3*cpus/2+1 q1000; write: cpus
+            # q10000; get: cpus q1000; management/snapshot small)
+            "search": (max(2, cpus * 3 // 2 + 1), 1000),
+            "write": (max(1, cpus), 10000),
+            "get": (max(1, cpus), 1000),
+            "management": (2, 512),
+            "snapshot": (1, 256),
+        }
+        self.executors: Dict[str, FixedExecutor] = {}
+        for name, (size, queue) in defaults.items():
+            size = (sizes or {}).get(name) or knob(
+                f"ES_TPU_POOL_{name.upper()}_SIZE", default=size)
+            queue = (queue_sizes or {}).get(name) or knob(
+                f"ES_TPU_POOL_{name.upper()}_QUEUE", default=queue)
+            self.executors[name] = FixedExecutor(name, size, queue)
+
+    def executor(self, pool: str) -> FixedExecutor:
+        return self.executors[pool]
+
+    def submit(self, pool: str, fn: Callable, *args, **kwargs) -> _Task:
+        return self.executors[pool].submit(fn, *args, **kwargs)
+
+    def execute(self, pool: str, fn: Callable, *args, **kwargs):
+        """Submit and wait. Re-entrant submissions from a worker of the
+        SAME executor run inline — a stage calling itself must not wait
+        on its own bounded pool (self-deadlock under saturation)."""
+        ex = self.executors[pool]
+        if getattr(_tls, "executor", None) is ex:
+            return fn(*args, **kwargs)
+        return ex.submit(fn, *args, **kwargs).get()
+
+    def stats(self) -> Dict[str, dict]:
+        return {name: ex.stats() for name, ex in self.executors.items()}
+
+    def shutdown(self) -> None:
+        for ex in self.executors.values():
+            ex.shutdown()
+
+
+# ---- hot threads (ref: monitor/jvm/HotThreads.java two-sample diff) ----
+
+def _format_stack(frame, max_frames: int) -> list:
+    import traceback
+
+    return ["     " + ln for ln in traceback.format_stack(frame)[-max_frames:]]
+
+
+def _is_parked_pool_stack(stack: list) -> bool:
+    """An es-tpu pool worker blocked in its queue wait contributes
+    nothing to a hot-threads reading — same filtering the reference
+    applies to idle threadpool threads."""
+    tail = "".join(stack[-3:])
+    return "_worker" in tail and ("self._work.wait()" in tail
+                                  or "waiter.acquire()" in tail)
+
+
+def hot_threads_report(node_label: str,
+                       interval_ms: Optional[float] = None,
+                       max_frames: int = 12) -> str:
+    """One node's hot_threads section: two stack samples `interval_ms`
+    apart; a thread whose stack CHANGED between samples is hot, an
+    es-tpu pool worker parked in its queue wait across both samples is
+    dropped, and everything else prints as idle for context."""
+    import sys
+
+    if interval_ms is None:
+        interval_ms = float(knob("ES_TPU_HOT_THREADS_INTERVAL_MS"))
+    names = {t.ident: t.name for t in threading.enumerate()}
+    first = {tid: _format_stack(f, max_frames)
+             for tid, f in sys._current_frames().items()}
+    time.sleep(max(0.0, float(interval_ms)) / 1000.0)
+    second = {tid: _format_stack(f, max_frames)
+              for tid, f in sys._current_frames().items()}
+    out = [f"::: {node_label}",
+           f"   interval={interval_ms:g}ms, "
+           f"sampled {len(second)} threads:"]
+    for tid, stack in sorted(second.items()):
+        name = names.get(tid, str(tid))
+        pooled = str(name).startswith("es-tpu[")
+        changed = first.get(tid) != stack
+        if pooled and not changed and _is_parked_pool_stack(stack):
+            continue
+        state = "hot" if changed else "idle"
+        out.append(f"\n   {state} thread [{name}] id [{tid}]:")
+        out.extend(ln.rstrip("\n") for ln in stack)
+    return "\n".join(out) + "\n"

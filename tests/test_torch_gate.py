@@ -31,6 +31,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "elasticsearch_tpu" or m.startswith("elasticsearch_tpu."))
 assert not [m for m in bad if sys.modules[m] is not None], bad
+print("\n".join(names))
 print(len(names))
 """
 
@@ -39,8 +40,24 @@ def test_port_imports_without_jax_or_reference():
     r = subprocess.run([sys.executable, "-c", _GATE], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    # package, subpackages and modules: the 33 of slices 1-4 at least
-    assert int(r.stdout.strip().splitlines()[-1]) >= 33
+    # package, subpackages and modules: the 33 of slices 1-4 at least, the
+    # in-process search path, and the serving entry point (index service,
+    # serving context, scheduler, coalescer, pools, cluster state)
+    names = set(r.stdout.strip().splitlines()[:-1])
+    assert {
+        "elasticsearch_tpu_torch.index.index_service",
+        "elasticsearch_tpu_torch.search.serving",
+        "elasticsearch_tpu_torch.search.reader_context",
+        "elasticsearch_tpu_torch.search.suggest",
+        "elasticsearch_tpu_torch.threadpool.scheduler",
+        "elasticsearch_tpu_torch.threadpool.coalescer",
+        "elasticsearch_tpu_torch.threadpool.pool",
+        "elasticsearch_tpu_torch.cluster.state",
+        "elasticsearch_tpu_torch.common.tracing",
+        "elasticsearch_tpu_torch.common.overload",
+        "elasticsearch_tpu_torch.common.breaker",
+    } <= names
+    assert int(r.stdout.strip().splitlines()[-1]) >= 65
 
 
 def test_entry_points_default_to_cuda():
@@ -48,6 +65,11 @@ def test_entry_points_default_to_cuda():
     import torch
 
     from elasticsearch_tpu_torch import device
+    from elasticsearch_tpu_torch.cluster.state import IndexMetadata
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.index.index_service import (
+        IndexService, IndicesService,
+    )
     from elasticsearch_tpu_torch.common.errors import DeviceUnavailableError
     from elasticsearch_tpu_torch.index.segment import VectorColumn
     from elasticsearch_tpu_torch.parallel.knn import KnnEngine, build_knn_engine
@@ -67,7 +89,10 @@ def test_entry_points_default_to_cuda():
     cols = [VectorColumn(np.ones((3, 4), np.float32),
                          np.full(3, 2.0, np.float32), np.ones(3, bool), 4,
                          "cosine")] * 2
-    for make in (lambda: KnnEngine(cols[:1]),
+    meta = IndexMetadata(index="g", uuid="u", settings=Settings({}),
+                         mappings={"properties": {"body": {"type": "text"}}})
+    for make in (lambda: IndexService(meta), IndicesService,
+                 lambda: KnnEngine(cols[:1]),
                  lambda: KnnEngine(cols, stacked=True),
                  lambda: build_knn_engine(cols),
                  agg_device.AggDeviceEngine,

@@ -759,3 +759,182 @@ def test_block_scatter_skips_rows_outside(dev, scatter_fp):
     assert not out.any() and not empty.any()
     with pytest.raises(ValueError):
         k.block_presence(ids.cpu(), docs, tfs, n_docs=10)
+
+
+# ---------------------------------------------------------------------------
+# the serving path: the scheduler's widths and its lane threads
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("qc", [8, 16])
+def test_sweep_rowmax_path_widths_kernel(dev, qc):
+    """K2 at the widths the scheduler's ladder puts on the serving path
+    (buckets 1 and 4 round to 8, 16 stays 16): bitwise against its plain
+    version, also on outputs filled with NaN / -1 first."""
+    qscale, hi, lo, wq, live = sweep_inputs(11 + qc, qc=qc, hpt=225, nsw=2)
+    args = [_c(a, dev) for a in (qscale, hi, lo, wq, live)]
+    pm, pr = k.sweep_rowmax_plain(*args, nsw=2)
+    km, kr = k.sweep_rowmax(*args, nsw=2)
+    with k.poisoned():
+        qm, qr = k.sweep_rowmax(*args, nsw=2)
+    torch.cuda.synchronize()
+    assert torch.equal(km, pm) and torch.equal(kr, pr)
+    assert torch.equal(qm, pm) and torch.equal(qr, pr)
+
+
+WORDS = ["alpha", "beta", "gamma", "delta", "epsilon", "zeta", "eta",
+         "theta", "iota", "kappa", "lam", "mu", "nu", "xi", "omicron", "pi"]
+QUERIES = [["alpha"], ["beta", "gamma"], ["delta"], ["pi", "omicron"],
+           ["mu", "nu", "xi"], ["kappa"], ["theta", "iota"], ["zeta", "eta"]]
+
+
+def _card_service(monkeypatch, dev, n=400, agg=False):
+    from elasticsearch_tpu_torch.cluster.state import IndexMetadata
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.index.index_service import IndexService
+
+    monkeypatch.setenv("ES_TPU_TURBO_COLD_DF", "8")
+    props = {"body": {"type": "text"}, "tag": {"type": "keyword"}}
+    svc = IndexService(IndexMetadata(index="card", uuid="card",
+                                     settings=Settings({}),
+                                     mappings={"properties": props}),
+                       device=dev)
+    rng = np.random.default_rng(99)
+    for i in range(n):
+        words = rng.choice(WORDS, size=int(rng.integers(3, 16)))
+        svc.index_doc(str(i), {"body": " ".join(words),
+                               "tag": f"t{rng.integers(0, 12)}"})
+    svc.refresh()
+    return svc
+
+
+def _spy_threads(monkeypatch, name):
+    """Records (thread name, current CUDA device) at every call of
+    kernels.`name`."""
+    import threading
+
+    seen = []
+    fn = getattr(k, name)
+
+    def spy(*a, **kw):
+        seen.append((threading.current_thread().name,
+                     torch.cuda.current_device()))
+        return fn(*a, **kw)
+
+    monkeypatch.setattr(k, name, spy)
+    return seen
+
+
+def _together(fn, items):
+    import threading
+
+    out = [None] * len(items)
+    errors = [None] * len(items)
+    barrier = threading.Barrier(len(items))
+
+    def run(i):
+        try:
+            barrier.wait(timeout=30)
+            out[i] = fn(items[i])
+        except BaseException as e:  # noqa: BLE001 — asserted by callers
+            errors[i] = e
+
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(len(items))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    return out, errors
+
+
+def test_scheduler_lane_launches_k2_on_engine_device(dev, monkeypatch):
+    """A scheduler lane thread launches K2 on the engine's device; the
+    merged rows equal each query's direct call bitwise."""
+    from elasticsearch_tpu_torch.threadpool.scheduler import (
+        AdaptiveDispatchScheduler,
+    )
+
+    svc = _card_service(monkeypatch, dev)
+    eng = svc.serving.snapshot().engine("body")
+    assert eng.kind == "turbo" and eng.device.type == "cuda"
+    direct = [eng.search_many([[q]], k=10)[0] for q in QUERIES]
+    seen = _spy_threads(monkeypatch, "sweep_rowmax")
+    sched = AdaptiveDispatchScheduler(buckets=(len(QUERIES),),
+                                      interactive_us=400000.0,
+                                      bulk_us=400000.0)
+    rows, errors = _together(lambda q: sched.dispatch(eng, [q], 10),
+                             QUERIES)
+    assert errors == [None] * len(QUERIES)
+    for got, want in zip(rows, direct):
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
+    assert sched.stats()["sched_dispatches"] == 1
+    assert seen and all(name.startswith("es-tpu-sched") for name, _ in seen)
+    assert all(d == eng.device.index for _, d in seen)
+    svc.close()
+
+
+def test_scheduler_lane_launches_k8_on_engine_device(dev, monkeypatch):
+    """Concurrent aggregation collects reach K8 from the bulk tier's lane
+    thread on the agg engine's device, several queries in one launch, with
+    aggregations equal to the same bodies dispatched directly."""
+    import elasticsearch_tpu_torch.search.aggregations as agg_mod
+
+    monkeypatch.setattr(agg_mod, "AGG_DEVICE_MIN_DOCS", 1)
+    monkeypatch.setenv("ES_TPU_SCHED_BULK_US", "300000")
+    monkeypatch.setenv("ES_TPU_SCHED_BUCKETS", "1,4,16,64,256")
+    svc = _card_service(monkeypatch, dev, n=3000)
+    bodies = [{"size": 0, "query": {"term": {"body": w}},
+               "aggs": {"t": {"terms": {"field": "tag"}}}}
+              for w in WORDS[:8]]
+    monkeypatch.setenv("ES_TPU_COALESCE_US", "0")
+    want = [svc._search_dense(b)["aggregations"] for b in bodies]
+    monkeypatch.setenv("ES_TPU_COALESCE_US", "2000")
+    seen = _spy_threads(monkeypatch, "agg_segment_counts")
+    qs = []
+    fn = k.agg_segment_counts
+
+    def count_q(mask, *a, **kw):
+        qs.append(int(mask.shape[0]))
+        return fn(mask, *a, **kw)
+
+    monkeypatch.setattr(k, "agg_segment_counts", count_q)
+    got, errors = _together(lambda b: svc._search_dense(b)["aggregations"],
+                            bodies)
+    assert errors == [None] * len(bodies)
+    assert got == want
+    assert seen and all(name.startswith("es-tpu-sched") for name, _ in seen)
+    assert all(d == dev.index or d == torch.cuda.current_device()
+               for _, d in seen)
+    assert max(qs) > 1
+    svc.close()
+
+
+def test_lane_launch_failure_raises_to_waiters(dev, monkeypatch):
+    """A lane whose K2 launch fails raises KernelLaunchError to every
+    waiter (after the solo retries); no plain version serves the rows."""
+    from elasticsearch_tpu_torch.common.errors import KernelLaunchError
+    from elasticsearch_tpu_torch.threadpool.scheduler import (
+        AdaptiveDispatchScheduler,
+    )
+
+    svc = _card_service(monkeypatch, dev)
+    eng = svc.serving.snapshot().engine("body")
+    eng.search_many([QUERIES[:1]], k=10)      # columns built, kernels loaded
+    real = cuda_build.kernel
+
+    def failing(name):
+        return (lambda *a: 1) if name == "sweep_rowmax" else real(name)
+
+    def no_plain(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(cuda_build, "kernel", failing)
+    monkeypatch.setattr(k, "sweep_rowmax_plain", no_plain)
+    sched = AdaptiveDispatchScheduler(buckets=(4,), interactive_us=400000.0,
+                                      bulk_us=400000.0)
+    rows, errors = _together(lambda q: sched.dispatch(eng, [q], 10),
+                             QUERIES[:4])
+    assert rows == [None] * 4
+    assert all(isinstance(e, KernelLaunchError) for e in errors), errors
+    svc.close()
