@@ -113,7 +113,17 @@ aggregation path the way bench.py drives config 6:
    K5, K6 and K9 are held bitwise against their plain versions (also on
    poisoned outputs) at every launch shape the path gave them, on the
    first such launch's inputs, K2 and K6 timed by CUDA graph beside their
-   bounds, and K8 is timed at its largest Q;
+   bounds, and K8 is timed at its largest Q. Then the REST node
+   (rest_phase): `python -m elasticsearch_tpu_torch`'s Node on the card
+   with both services installed and an HttpServer on a free port takes
+   the same traffic over HTTP from 127.0.0.1 (_msearch of batch 0 and of
+   the DSL bodies, batch 0's singles from 32 threads and one at a time,
+   the bool and phrase bodies as _msearch, the dense bodies, the 16 agg
+   bodies from 16 threads with the request cache emptied, the kNN bodies
+   as _msearch) and the node's own endpoints; every search response
+   equals the serving phase's for the same body but for `took`, scores
+   bitwise; a 429 is retried after its Retry-After and counted, any
+   other status fails; every new launch shape is held as above;
 9. serves the first batch again on a fresh engine at the default slice
    ladder and reports its sparse fallbacks, holding the answers that step
    4 held;
@@ -3943,7 +3953,39 @@ def hold_kernel(label, wrapper, plain, args, kw) -> dict:
     require(all(torch.equal(a, b) for a, b in zip(again, out["p"])),
             f"{label} on poisoned outputs differs from the plain version")
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "poisoned_run": "bitwise"}
+            "poisoned_run": "bitwise",
+            "out_bytes": sum(t.numel() * t.element_size() for t in out["p"])}
+
+
+def path_bound(name, args, kw, out_bytes: int):
+    """(bound ms, by) of K5, K9 or K4 at a serving-path launch, counted as
+    check_k5, check_k9 and check_k4 count them on the main path: each
+    input byte read once (K5: each distinct clause block), each output
+    byte written once."""
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    if name == "intersect_bitset":
+        qs, qn = (np.asarray(a.cpu()) for a in args[:2])
+        nsw, qc = kw["nsw"], int(qs.shape[0])
+        hp = int(args[2].shape[0]) - 2
+        distinct = (set(qs.ravel().tolist()) | set(qn.ravel().tolist())) \
+            - {hp, hp + 1}
+        block = k.SW_WORD_ROWS * 128 * 4
+        nbytes = (len(distinct) * nsw * block + qs.nbytes + qn.nbytes
+                  + out_bytes)
+        return bound(nbytes, qc * nsw * block // 4 * 12, PEAK_F32)
+    if name == "knn_int8_window_topc":
+        qi8, qm, q8, meta, act, fmask = args
+        nbytes = (q8.numel() + meta.numel() * 4 + qi8.numel()
+                  + qm.numel() * 4 + act.numel() * 4 + out_bytes
+                  + (0 if fmask is None else fmask.numel()))
+        rows = q8.numel() // int(q8.shape[-1])
+        return bound(nbytes, 2 * int(qi8.shape[0]) * int(q8.shape[-1])
+                     * rows, PEAK_INT8)
+    scores = args[0]                               # merge_topk
+    q, lanes = (int(x) for x in scores.shape)
+    return bound(scores.numel() * 8 + out_bytes, q * kw["k"] * lanes * 3,
+                 PEAK_F32)
 
 
 def check_path_shapes(seen, dp: int) -> dict:
@@ -3998,6 +4040,12 @@ def check_path_shapes(seen, dp: int) -> dict:
                     b_ms, b_by, lanes = k3_bound(args[0], args[4], key)
                     row.update(bound_ms=b_ms, bound_by=b_by, lanes=lanes,
                                chunks=int(args[0].shape[0]))
+                else:
+                    row["bound_ms"], row["bound_by"] = path_bound(
+                        name, args, kw, row["out_bytes"])
+                    row["graph_ms"] = graph_ms(
+                        lambda: wrappers[name](*args, **kw), 200)
+                    row["bound_share"] = row["bound_ms"] / row["graph_ms"]
             row["launches"] = n
             out[name][str(key)] = row
             log(f"{label}: {n} launches, "
@@ -4056,6 +4104,337 @@ def knn_service(device):
                                       "dims": KNN_DIMS,
                                       "similarity": "cosine"}}}
     return serving_service(segs, mapping, "serving_knn", device), qs
+
+
+# --------------------------------------------------------------------------
+# the REST node: python -m elasticsearch_tpu_torch's Node over HTTP
+# --------------------------------------------------------------------------
+
+REST_TIMEOUT_S = 300       # one HTTP request's socket timeout
+# the sections of the port's GET /_nodes/stats (the reference's, all of
+# them: tests/test_torch_rest.py holds the key sets equal)
+REST_STATS_SECTIONS = (
+    "name", "breakers", "indexing_pressure", "indices", "jvm", "thread_pool",
+    "tpu_agg", "tpu_ccr", "tpu_ccs", "tpu_coalescer", "tpu_compile",
+    "tpu_coordinator", "tpu_durability", "tpu_hbm", "tpu_health",
+    "tpu_integrity", "tpu_knn", "tpu_overload", "tpu_relocation",
+    "tpu_scheduler", "tpu_search_latency", "tpu_settings", "tpu_tasks",
+    "tpu_turbo")
+# kernels the REST traffic must launch: the Turbo sweeps and cold-term
+# gather (match, bool), the dense executor's block scatter, K8 and kNN.
+# K1 and the bitset pack launch only when the traffic builds a column
+# (a phrase body's adjacency column evicted since the serving phase):
+# their launches are reported, not required. K7 (ES_TPU_BITSET=0) is off
+# this path.
+REST_KERNELS = ("sweep_rowmax", "sparse_gather", "intersect_bitset",
+                "sweep_rowmax_bitset", "bm25_block_scatter",
+                "block_presence", "agg_counts", "knn_int8_window_topc",
+                "merge_topk")
+
+
+def install_service(node, svc) -> None:
+    """Put a built IndexService into a port Node: its indices and its
+    cluster state, with every shard a started primary on this node, as
+    Node.create_index leaves a new index."""
+    import uuid
+
+    from elasticsearch_tpu_torch.cluster.state import ShardRouting
+
+    meta = svc.meta
+    with node.indices._lock:
+        node.indices._indices[meta.index] = svc
+    routing = [ShardRouting(index=meta.index, shard_id=i,
+                            node_id=node.node_id, primary=True,
+                            state="STARTED",
+                            allocation_id=uuid.uuid4().hex[:20])
+               for i in range(meta.number_of_shards)]
+    node.update_state(lambda st: st.with_index(meta, routing))
+
+
+class RestClient:
+    """urllib over 127.0.0.1 to one HttpServer. A 429 is retried after its
+    Retry-After header, as a client would, and counted in `shed`; any other
+    status but 200 fails the run."""
+
+    def __init__(self, port: int):
+        import threading
+
+        self.base = f"http://127.0.0.1:{port}"
+        self.shed = []
+        self._lock = threading.Lock()
+
+    def call(self, method, path, body=None, ndjson=None):
+        import urllib.error
+        import urllib.request
+
+        if ndjson is not None:
+            data = ("\n".join(json.dumps(x) for x in ndjson) + "\n").encode()
+            ctype = "application/x-ndjson"
+        else:
+            data = None if body is None else json.dumps(body).encode()
+            ctype = "application/json"
+        while True:
+            req = urllib.request.Request(self.base + path, data=data,
+                                         method=method,
+                                         headers={"Content-Type": ctype})
+            try:
+                with urllib.request.urlopen(req,
+                                            timeout=REST_TIMEOUT_S) as resp:
+                    raw = resp.read()
+                    text = resp.headers.get_content_type() == "text/plain"
+                    return raw.decode() if text else json.loads(raw)
+            except urllib.error.HTTPError as e:
+                payload = e.read()[:2000]
+                if e.code != 429:
+                    raise AssertionError(
+                        f"REST {method} {path}: status {e.code}: "
+                        f"{payload!r}")
+                wait = float(e.headers.get("Retry-After") or 1)
+                with self._lock:
+                    self.shed.append({"path": path, "retry_after_s": wait})
+                time.sleep(wait)
+
+
+def _no_took(r):
+    """A response without its clock readings: `took`, an msearch item's
+    `status`, and `profile`'s timings."""
+    return {k: v for k, v in r.items() if k not in ("took", "status",
+                                                     "profile")}
+
+
+def hold_same(got, want, label: str) -> None:
+    """A REST response against the in-process one for the same body: equal
+    but for `took` (and an msearch item's `status`), scores bit for bit
+    (JSON carries a float's repr, which reads back to the same double)."""
+    require(isinstance(got, dict) and got.get("status", 200) == 200,
+            f"{label}: {str(got)[:300]}")
+    g, w = _no_took(got), _no_took(want)
+    if g != w:
+        gh = [(h["_id"], h.get("_score")) for h in g["hits"]["hits"]]
+        wh = [(h["_id"], h.get("_score")) for h in w["hits"]["hits"]]
+        raise AssertionError(f"{label}: differs from the serving phase: "
+                             f"hits {gh[:5]} against {wh[:5]}, totals "
+                             f"{g['hits'].get('total')} against "
+                             f"{w['hits'].get('total')}")
+
+
+def rest_phase(svc, kn_svc, served: dict, held: dict, dp: int,
+               device="cuda") -> dict:
+    """The REST node on the card: a port Node(device=...) with the serving
+    phase's two services installed (install_service), register_handlers,
+    an HttpServer on a free port with the node's thread pool, driven by
+    urllib over 127.0.0.1 with the launch counts set to 0 just before and
+    read just after, no plain version allowed:
+      1. POST /_msearch of config-1 batch 0 (256 bodies), then of the 8
+         DSL bodies; the in-process IndexService.msearch of batch 0 timed
+         beside it;
+      2. batch 0 as 256 POST /serving/_search from SERVING_THREADS threads
+         at once, then one at a time;
+      3. config 2's 256 bool bodies as one _msearch, and the 64 phrase
+         bodies as another;
+      4. the 25 DENSE_BODIES as _search;
+      5. the AGG_THREADS agg bodies from as many threads, the request
+         cache emptied first (the serving phase cached these bodies);
+      6. the 8 kNN bodies as one _msearch on the kNN index;
+      7. GET /, /_cluster/health, /_nodes, /_nodes/stats, /_cat/indices.
+    Each search response must equal the serving phase's for the same body
+    but for `took`, scores bitwise. A 429 is retried after its Retry-After
+    and counted beside tpu_overload's shed counters; any other status
+    fails. Every launch shape the path gives K2-K6, K9 or K4 that the
+    serving phase did not hold is held here (check_path_shapes). Returns
+    the report, its launches and new shapes included."""
+    import copy
+
+    import torch
+
+    from elasticsearch_tpu_torch.common import hbm_ledger
+    from elasticsearch_tpu_torch.device import device_name
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.parallel import kernels
+    from elasticsearch_tpu_torch.rest import (
+        HttpServer, RestController, register_handlers,
+    )
+
+    t_phase = time.time()
+    node = Node(device=device)
+    server = None
+    rep = {}
+    try:
+        for s in (svc, kn_svc):
+            install_service(node, s)
+        rc = RestController()
+        register_handlers(node, rc)
+        server = HttpServer(rc, port=0, thread_pool=node.thread_pool)
+        server.start()
+        cl = RestClient(server.port)
+        shed0 = dict(node.overload.stats()["shed"])
+        groups, kbodies = served["groups"], served["knn_bodies"]
+        with contextlib.ExitStack() as st:
+            # the serving phase's knobs
+            st.enter_context(env_set("ES_TPU_TURBO_HBM", str(TURBO_HBM)))
+            st.enter_context(env_set("ES_TPU_TURBO_COLD_DF", str(COLD_DF)))
+            st.enter_context(env_set("ES_TPU_SPARSE_WIDTHS", WIDE_LADDER))
+            plain = st.enter_context(plain_calls())
+            spies = st.enter_context(contextlib.ExitStack())
+            shapes = spies.enter_context(record_shapes())
+            kernels.reset_launches()
+            t_main = time.time()
+
+            # 1. msearch of config 1 and the DSL bodies
+            head = {"index": svc.name}
+            t = time.perf_counter()
+            m0 = cl.call("POST", "/_msearch", ndjson=[
+                x for b in groups[0] for x in (head, b)])["responses"]
+            http_s = time.perf_counter() - t
+            m_dsl = cl.call("POST", "/_msearch", ndjson=[
+                x for b in groups[2] for x in (head, b)])["responses"]
+
+            # 2. singles, concurrent then one at a time
+            path = f"/{svc.name}/_search"
+            singles, s_lat, s_wall = timed_concurrent(
+                lambda b: cl.call("POST", path, b), groups[0],
+                SERVING_THREADS)
+            solo, o_lat, o_wall = timed_concurrent(
+                lambda b: cl.call("POST", path, b), groups[0], 1)
+            rep["singles"] = {
+                "http_concurrent": latency_summary(s_lat, s_wall),
+                "http_solo": latency_summary(o_lat, o_wall),
+                "in_process_concurrent": served["singles"]["concurrent"],
+                "in_process_solo": served["singles"]["solo"]}
+
+            # 3. bool and phrase bodies, one _msearch each
+            m_bool = cl.call("POST", "/_msearch", ndjson=[
+                x for b in served["bools"] for x in (head, b)])["responses"]
+            m_phrase = cl.call("POST", "/_msearch", ndjson=[
+                x for b in served["phrases"]
+                for x in (head, b)])["responses"]
+
+            # 4. the dense bodies
+            t = time.perf_counter()
+            dense = {name: cl.call("POST", path, copy.deepcopy(b))
+                     for name, b in DENSE_BODIES.items()}
+            rep["dense_bodies_s"] = time.perf_counter() - t
+
+            # 5. aggregations from AGG_THREADS threads, uncached
+            with svc._req_cache_lock:
+                svc._req_cache.clear()
+            rc0 = dict(svc.request_cache_stats)
+            aggs, a_lat, a_wall = timed_concurrent(
+                lambda b: cl.call("POST", path, b), served["agg_bodies"],
+                AGG_THREADS)
+            rep["aggs"] = latency_summary(a_lat, a_wall)
+
+            # 6. kNN bodies on the kNN index
+            t = time.perf_counter()
+            m_knn = cl.call("POST", "/_msearch", ndjson=[
+                x for b in kbodies for x in ({"index": kn_svc.name}, b)]
+            )["responses"]
+            rep["knn_msearch_s"] = time.perf_counter() - t
+
+            # 7. the node's own endpoints
+            root = cl.call("GET", "/")
+            health = cl.call("GET", "/_cluster/health")
+            info = cl.call("GET", "/_nodes")
+            stats = cl.call("GET", "/_nodes/stats")
+            ledger = hbm_ledger.hbm_stats()
+            cat = cl.call("GET", "/_cat/indices")
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            spies.close()
+            rep["main_path_s"] = time.time() - t_main
+
+            # the same batch in process, outside the counted window: the
+            # launches above are the HTTP traffic's alone
+            t = time.perf_counter()
+            svc.msearch(groups[0])
+            inproc_s = time.perf_counter() - t
+            rep["msearch"] = {"http_batch_s": http_s,
+                              "in_process_batch_s": inproc_s,
+                              "rest_cost_s": http_s - inproc_s}
+            log(f"rest msearch of 256: {http_s:.3f}s over HTTP, "
+                f"{inproc_s:.3f}s in process")
+
+            # ---- holds (launches already read) ----
+            t = time.time()
+            require(not any(plain.values()),
+                    f"rest: plain versions ran on the card: "
+                    f"{ {k: v for k, v in plain.items() if v} }")
+            for i, (g, w) in enumerate(zip(m0, served["served"][0])):
+                hold_same(g, w, f"rest msearch batch 0 {i}")
+            for i, (g, w) in enumerate(zip(m_dsl, served["served"][2])):
+                hold_same(g, w, f"rest msearch dsl {i}")
+            for i, (g, w) in enumerate(zip(singles, served["served"][0])):
+                hold_same(g, w, f"rest concurrent single {i}")
+            for i, (g, w) in enumerate(zip(solo, served["served"][0])):
+                hold_same(g, w, f"rest solo single {i}")
+            for i, (g, w) in enumerate(zip(m_bool, served["bool_resps"])):
+                hold_same(g, w, f"rest bool {i}")
+            for i, (g, w) in enumerate(zip(m_phrase,
+                                           served["phrase_resps"])):
+                hold_same(g, w, f"rest phrase {i}")
+            for name, r in dense.items():
+                hold_same(r, served["dense"][name], f"rest dense {name}")
+            require(svc.request_cache_stats["hits"] == rc0["hits"],
+                    "rest: an agg body was answered from the request cache")
+            for i, (g, w) in enumerate(zip(aggs, served["agg_resps"])):
+                hold_same(g, w, f"rest agg {i}")
+            for i, (g, w) in enumerate(zip(m_knn, served["knn_resps"])):
+                hold_same(g, w, f"rest knn {i}")
+            require(len(m0) == len(groups[0]) and len(m_knn) == len(kbodies)
+                    and len(m_bool) == len(served["bools"]),
+                    "rest: an _msearch lost responses")
+            require(root.get("tagline") == "You Know, for Search",
+                    f"rest: GET / answered {root}")
+            require(health.get("status") in ("green", "yellow"),
+                    f"rest: cluster health {health}")
+            (ninfo,) = info["nodes"].values()
+            card = device_name(node.device)
+            require(ninfo["accelerators"] == [card],
+                    f"rest: /_nodes lists {ninfo['accelerators']}, the card "
+                    f"is {card}")
+            (nstats,) = stats["nodes"].values()
+            missing = [k for k in REST_STATS_SECTIONS if k not in nstats]
+            require(not missing, f"rest: /_nodes/stats lacks {missing}")
+            require(nstats["tpu_hbm"]["occupancy_bytes"]
+                    == ledger["occupancy_bytes"],
+                    f"rest: tpu_hbm occupancy "
+                    f"{nstats['tpu_hbm']['occupancy_bytes']} against the "
+                    f"ledger's {ledger['occupancy_bytes']}")
+            require(svc.name in cat and kn_svc.name in cat,
+                    f"rest: /_cat/indices lists {cat!r}")
+            rep["hold_s"] = time.time() - t
+        shed1 = node.overload.stats()["shed"]
+        rep["shed"] = {"retried_429": len(cl.shed), "requests": cl.shed,
+                       "tpu_overload": {k: shed1[k] - shed0[k]
+                                        for k in shed1},
+                       "level": node.overload.stats()["level"]}
+        rep["launches"] = {k: v for k, v in launches.items() if v}
+        rep["launches_by_shape"] = {
+            name: {str(key): v[0] for key, v in sh.items()}
+            for name, sh in shapes.items()}
+        log(f"rest main path: {rep['main_path_s']:.1f}s; launches "
+            f"{rep['launches']}; 429s retried {len(cl.shed)}; overload "
+            f"shed {rep['shed']['tpu_overload']}; holds "
+            f"{rep['hold_s']:.1f}s")
+        log(f"rest singles: {rep['singles']}")
+        for name in REST_KERNELS:
+            require(launches.get(name, 0) > 0,
+                    f"rest: {name} never launched: {launches}")
+        for name, sh in shapes.items():
+            require(sum(v[0] for v in sh.values()) == launches[name],
+                    f"rest: {name}'s launches by shape do not add up to "
+                    f"its count {launches[name]}")
+        new = {name: {key: v for key, v in sh.items()
+                      if str(key) not in held.get(name, {})}
+               for name, sh in shapes.items()}
+        rep["new_shapes"] = check_path_shapes(new, dp)
+    finally:
+        if server is not None:
+            server.stop()
+        node.close()
+    rep["phase_s"] = time.time() - t_phase
+    log(f"rest phase took {rep['phase_s']:.1f}s")
+    return rep
 
 
 def serving_phase(seg, fp, tokens, bounds, n: int, batches, dsl, main_rows,
@@ -4347,8 +4726,16 @@ def serving_phase(seg, fp, tokens, bounds, n: int, batches, dsl, main_rows,
     rep.update({"main_path_s": main_s, "hold_s": hold_s,
                 "launches": {k: v for k, v in launches.items() if v},
                 "scheduler_after": sched1,
-                "fault_stats": {k: fault[k] - f0[k] for k in fault},
-                "phase_s": time.time() - t_phase})
+                "fault_stats": {k: fault[k] - f0[k] for k in fault}})
+    # ---- the same traffic through the REST node ----
+    rep["rest"] = rest_phase(svc, kn_svc, {
+        "groups": groups, "served": served, "singles": rep["singles"],
+        "bools": bools, "bool_resps": bool_resps, "phrases": phrases,
+        "phrase_resps": phrase_resps, "dense": dense_resps,
+        "agg_bodies": agg_bodies, "agg_resps": agg_resps,
+        "knn_bodies": kbodies, "knn_resps": knn_resps}, held, turbo.Dp,
+        device=device)
+    rep["phase_s"] = time.time() - t_phase
     del shapes, k8, mask, blob, snap, eng, turbo, svc, kn_svc, sseg
     torch.cuda.empty_cache()
     return launches, held, k8_row, rep
@@ -4557,8 +4944,12 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     agg_report["phase_s"] = time.time() - t
     rows.append(agg_row)
     log(f"agg phase took {agg_report['phase_s']:.1f}s")
+    rest = serving_report["rest"]
     for r in rows:
         r["serving_launches"] = s_launches.get(r["name"], 0)
+        r["rest_launches"] = rest["launches"].get(r["name"], 0)
+        if r["name"] in rest["new_shapes"]:
+            r["rest_shapes"] = rest["new_shapes"][r["name"]]
         if r["name"] in s_shapes:
             r["serving_shapes"] = s_shapes[r["name"]]
         if r["name"] == "agg_counts":

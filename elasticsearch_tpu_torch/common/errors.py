@@ -129,3 +129,13 @@ class KernelLaunchError(Exception):
     """A kernel launch was refused (cudaGetLastError != 0). Not a
     RuntimeError for the same reason as KernelBuildError: a refused launch
     is a bug in the port and must not be served around by the host tier."""
+
+
+class ShardNotFoundError(ElasticsearchTpuError):
+    status = 404
+    error_type = "shard_not_found_exception"
+
+
+class JsonParseError(ElasticsearchTpuError):
+    status = 400
+    error_type = "json_parse_exception"

@@ -13,6 +13,9 @@ of memory (`torch.OutOfMemoryError`) is always contained. The port's own kernel 
 not RuntimeErrors, so a broken kernel is never served around by the host
 tier.
 
+`transport_fault_point` raises `NodeUnavailableError` at the transport
+RPC sites (the remote-cluster and CCR planes fire them).
+
 `durability_fault_point` raises `DurabilityFaultError` (an OSError) at
 the translog and segment-commit sites, and `corruption_fires` tells a
 caller at a corruption site to damage its payload instead of raising, as
@@ -252,6 +255,26 @@ def fault_point(site: str, part: Optional[int] = None) -> None:
         + (f"#{part}" if part is not None else ""),
         site=site, part=part)
 
+
+
+def transport_fault_point(site: str, node: str) -> None:
+    """Named transport RPC site (coordinator -> `node`): raises
+    `NodeUnavailableError` — the SAME exception an organic dead/partitioned
+    node produces, so injected and organic transport faults take identical
+    recovery paths through the coordinator — or hangs past the RPC deadline
+    (the reply "arrives" after the coordinator stopped waiting)."""
+    hit = _fire_mode(site, node)
+    if hit is None:
+        return
+    mode, arg = hit
+    if mode == "hang":
+        time.sleep(arg)
+        return
+    # raise and oom both model an unreachable node on a transport site
+    from elasticsearch_tpu_torch.transport.channels import NodeUnavailableError
+
+    raise NodeUnavailableError(
+        f"injected transport fault at {site}#{node}")
 
 class DurabilityFaultError(OSError):
     """Injected durable-storage failure (fsync / commit) at a named site.

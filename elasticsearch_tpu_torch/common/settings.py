@@ -1,7 +1,11 @@
-"""Settings and the ES_TPU_* environment knob registry (the port's copy of
-the parts of elasticsearch_tpu/common/settings.py the port reads: the time
-parser, `Settings` (whose `get` takes a key only) and the knob registry;
-the typed `Setting` and `ClusterSettings` are not ported yet).
+"""Typed, validated, dynamically-updatable settings and the ES_TPU_*
+environment knob registry (the port's copy of
+elasticsearch_tpu/common/settings.py).
+
+A `Setting` is a typed key with a default, parser, validator, scope and a
+`dynamic` flag; `Settings` is an immutable key->raw-value map with typed
+reads; `ClusterSettings` is the registry that validates updates and
+notifies subscribers on dynamic changes.
 
 Only the knobs the port reads are declared, under the reference's names
 and defaults, so an A/B run sets the same environment for both packages.
@@ -12,13 +16,17 @@ from __future__ import annotations
 import os
 import re
 from dataclasses import dataclass
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Generic, Iterable, Mapping, TypeVar
 
 from elasticsearch_tpu_torch.common.errors import IllegalArgumentError
 
+T = TypeVar("T")
+
 _TIME_RE = re.compile(r"^(-?\d+(?:\.\d+)?)(nanos|micros|ms|s|m|h|d)$")
+_BYTES_RE = re.compile(r"^(-?\d+(?:\.\d+)?)(b|kb|mb|gb|tb|pb)?$", re.IGNORECASE)
 
 _TIME_FACTORS = {"nanos": 1e-9, "micros": 1e-6, "ms": 1e-3, "s": 1.0, "m": 60.0, "h": 3600.0, "d": 86400.0}
+_BYTE_FACTORS = {None: 1, "b": 1, "kb": 1 << 10, "mb": 1 << 20, "gb": 1 << 30, "tb": 1 << 40, "pb": 1 << 50}
 
 
 def parse_time_value(value: Any) -> float:
@@ -29,6 +37,97 @@ def parse_time_value(value: Any) -> float:
     if not m:
         raise IllegalArgumentError(f"failed to parse time value [{value}]")
     return float(m.group(1)) * _TIME_FACTORS[m.group(2)]
+
+
+def parse_bytes_value(value: Any) -> int:
+    """'512mb' / '1gb' / number -> bytes."""
+    if isinstance(value, (int, float)):
+        return int(value)
+    m = _BYTES_RE.match(str(value).strip())
+    if not m:
+        raise IllegalArgumentError(f"failed to parse byte size value [{value}]")
+    unit = m.group(2).lower() if m.group(2) else None
+    return int(float(m.group(1)) * _BYTE_FACTORS[unit])
+
+
+def _parse_bool(value: Any) -> bool:
+    if isinstance(value, bool):
+        return value
+    s = str(value).strip().lower()
+    if s == "true":
+        return True
+    if s == "false":
+        return False
+    raise IllegalArgumentError(f"failed to parse boolean value [{value}], expected [true] or [false]")
+
+
+class Setting(Generic[T]):
+    """A typed setting key. Scope is 'node', 'cluster' or 'index'."""
+
+    def __init__(
+        self,
+        key: str,
+        default: T | Callable[["Settings"], T],
+        parser: Callable[[Any], T],
+        *,
+        scope: str = "cluster",
+        dynamic: bool = False,
+        validator: Callable[[T], None] | None = None,
+    ):
+        self.key = key
+        self._default = default
+        self.parser = parser
+        self.scope = scope
+        self.dynamic = dynamic
+        self.validator = validator
+
+    def default(self, settings: "Settings") -> T:
+        if callable(self._default):
+            return self._default(settings)
+        return self._default
+
+    def get(self, settings: "Settings") -> T:
+        raw = settings.raw(self.key)
+        if raw is None:
+            return self.default(settings)
+        value = self.parser(raw)
+        if self.validator is not None:
+            self.validator(value)
+        return value
+
+    # -- constructors mirroring the reference's factory methods --
+
+    @staticmethod
+    def bool_setting(key: str, default: bool, **kw) -> "Setting[bool]":
+        return Setting(key, default, _parse_bool, **kw)
+
+    @staticmethod
+    def int_setting(key: str, default: int, min_value: int | None = None, **kw) -> "Setting[int]":
+        def parse(v):
+            i = int(v)
+            if min_value is not None and i < min_value:
+                raise IllegalArgumentError(f"failed to parse value [{v}] for setting [{key}] must be >= {min_value}")
+            return i
+
+        return Setting(key, default, parse, **kw)
+
+    @staticmethod
+    def float_setting(key: str, default: float, **kw) -> "Setting[float]":
+        return Setting(key, default, float, **kw)
+
+    @staticmethod
+    def str_setting(key: str, default: str, **kw) -> "Setting[str]":
+        return Setting(key, default, str, **kw)
+
+    @staticmethod
+    def time_setting(key: str, default: float | str, **kw) -> "Setting[float]":
+        dflt = parse_time_value(default) if isinstance(default, str) else default
+        return Setting(key, dflt, parse_time_value, **kw)
+
+    @staticmethod
+    def bytes_setting(key: str, default: int | str, **kw) -> "Setting[int]":
+        dflt = parse_bytes_value(default) if isinstance(default, str) else default
+        return Setting(key, dflt, parse_bytes_value, **kw)
 
 
 class Settings(Mapping[str, Any]):
@@ -51,6 +150,11 @@ class Settings(Mapping[str, Any]):
 
     def raw(self, key: str, default: Any = None) -> Any:
         return self._values.get(key, default)
+
+    def get(self, setting: "Setting[T] | str", default: Any = None) -> Any:
+        if isinstance(setting, Setting):
+            return setting.get(self)
+        return self._values.get(setting, default)
 
     def with_updates(self, updates: Mapping[str, Any]) -> "Settings":
         merged = dict(self._values)
@@ -155,6 +259,26 @@ def knob(name: str, default: Any = _UNSET) -> Any:
         return fallback
 
 
+def effective_knobs() -> dict[str, dict]:
+    """{name: {value, default, source}} for the `tpu_settings` section of
+    GET /_nodes/stats — `source` says whether the environment or the
+    declared default is in effect right now."""
+    out: dict[str, dict] = {}
+    for name in sorted(ENV_KNOBS):
+        decl = ENV_KNOBS[name]
+        raw = os.environ.get(name)
+        out[name] = {
+            "value": knob(name),
+            "default": decl.default,
+            "type": decl.type,
+            "source": "env" if raw not in (None, "") else "default",
+        }
+    return out
+
+
+declare_knob("ES_TPU_PLUGINS", "str", "",
+             "Comma-separated plugin modules exposing install(node), "
+             "loaded at node startup")
 declare_knob("ES_TPU_FAULTS", "str", "",
              "Fault-injection spec `site[#part]:mode[@nth][xcount][=arg]"
              "[~prob];…` installed at import (common/faults.py)")
@@ -299,3 +423,62 @@ declare_knob("ES_TPU_RETRY_BUDGET_CAP", "int", 32,
              "Retry-budget bucket capacity (and initial fill): each "
              "failover / replication / bulk / recovery / poison-solo "
              "retry spends one token")
+# the transport and cross-cluster search planes of the REST node
+declare_knob("ES_TPU_RPC_TIMEOUT_MS", "int", 0,
+             "Floor for the per-RPC deadline in ms (0 = request budget "
+             "only)")
+declare_knob("ES_TPU_TCP_TIMEOUT_S", "float", 30.0,
+             "Socket timeout for TcpNodeChannels remote RPCs, seconds")
+declare_knob("ES_TPU_REMOTE_RETRIES", "int", 1,
+             "Extra attempts per remote-cluster RPC after the first "
+             "(rotating across the remote's seed nodes), each spending a "
+             "token from the node's retry budget")
+declare_knob("ES_TPU_REMOTE_BACKOFF_MS", "int", 25,
+             "Delay between remote-cluster RPC attempts, ms")
+
+
+class ClusterSettings:
+    """Registry of known settings + dynamic-update subscription.
+
+    Ref: common/settings/AbstractScopedSettings.java — validates that updates
+    only touch registered dynamic settings and notifies consumers.
+    """
+
+    def __init__(self, initial: Settings, registered: Iterable[Setting] | None = None):
+        self._settings = initial
+        self._registered: dict[str, Setting] = {}
+        self._consumers: list[tuple[Setting, Callable[[Any], None]]] = []
+        for s in registered or ():
+            self.register(s)
+
+    def register(self, setting: Setting) -> None:
+        self._registered[setting.key] = setting
+
+    @property
+    def settings(self) -> Settings:
+        return self._settings
+
+    def get(self, setting: Setting[T]) -> T:
+        return setting.get(self._settings)
+
+    def add_settings_update_consumer(self, setting: Setting[T], consumer: Callable[[T], None]) -> None:
+        self._consumers.append((setting, consumer))
+
+    def apply(self, updates: Mapping[str, Any]) -> Settings:
+        """Validate + apply updates; notify consumers whose value changed."""
+        flat = Settings(updates)
+        for key in flat:
+            reg = self._registered.get(key)
+            if reg is None:
+                raise IllegalArgumentError(f"transient setting [{key}], not recognized")
+            if not reg.dynamic:
+                raise IllegalArgumentError(f"final {reg.scope} setting [{key}], not updateable")
+            if flat.raw(key) is not None:
+                reg.parser(flat.raw(key))  # validate before committing
+        old = self._settings
+        self._settings = old.with_updates(updates)
+        for setting, consumer in self._consumers:
+            new_val = setting.get(self._settings)
+            if setting.get(old) != new_val:
+                consumer(new_val)
+        return self._settings

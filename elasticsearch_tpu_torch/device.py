@@ -38,3 +38,11 @@ def resolve(device=None) -> torch.device:
             f"{torch.cuda.get_device_name(dev)} has compute capability "
             f"{cap}; the kernels are built for sm_90a (Hopper)")
     return dev
+
+
+def device_name(dev: torch.device) -> str:
+    """What `GET /_nodes` lists under ``accelerators``: the card's name, or
+    ``cpu``."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_name(dev)
+    return dev.type

@@ -52,7 +52,11 @@ that fails there (`KernelLaunchError`) is retried solo like any poisoned
 batch and reaches its waiters as the same error; no plain version serves
 it. The lane thread also drops a flushed batch before it waits for the
 next, so an idle lane keeps no query (an agg collect's works hold their
-layouts) alive. "Compiled shape" below means one dispatch width of the
+layouts) alive. A flush always takes its first waiter, widening the
+bucket past the ladder's top rung when that waiter is wider: the
+reference builds an empty batch there, whose in-flight slot no waiter
+releases, and after two such flushes the lane waits forever (an
+autotuned ladder of (1,) and a waiter of two queries). "Compiled shape" below means one dispatch width of the
 engine.
 """
 
@@ -542,6 +546,12 @@ class AdaptiveDispatchScheduler:
             return None, depth
         need = depth if full else sum(len(w.queries) for w in due)
         bucket = next((b for b in ladder if b >= need), ladder[-1])
+        # a waiter wider than the top rung (an autotuned ladder can end
+        # below small_batch_max) flushes at its own width: a batch with no
+        # waiter would hold an in-flight slot that nothing releases
+        head = due[0] if due else lane.queue[0]
+        if len(head.queries) > bucket:
+            bucket = _next_pow2(len(head.queries))
         chosen: List[_Waiter] = []
         n = 0
         for w in due:

@@ -12,8 +12,16 @@ reference's device route (K8 in interpret mode) and the reference's host
 path. The device routes are forced by shrinking AGG_DEVICE_MIN_DOCS, as
 the reference's suite does, and the counters of both packages must move
 alike. The rest of the copied aggregations.py is held on the host path.
+
+The reference's collects dispatch directly (ES_TPU_COALESCE_US=0, as in
+tests/test_torch_index_service.py; its rows are those of its scheduler by
+its own contract): through its lanes they were dozens of one-query
+flushes, which leave the reference scheduler's autotuned ladder at (1,)
+for the rest of the worker process, and a later reference test that
+dispatches two queries through a lane then waits forever (ROADMAP W19).
 """
 
+import contextlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -34,6 +42,7 @@ from elasticsearch_tpu_torch.index.segment import (
 )
 from elasticsearch_tpu_torch.search import agg_device as port_dev
 from test_agg_device import BASE_MS, _make_service
+from test_torch_index_service import _no_batching
 
 torch.set_num_threads(1)
 
@@ -133,7 +142,8 @@ class Pair:
                             1 if device else 1 << 60)
         aggs, pipes = mod.parse_aggs(spec)
         ctx = self.port_ctx if port else self.ref_ctx
-        partial = mod.collect_leaf(aggs, ctx, mask)
+        with contextlib.nullcontext() if port else _no_batching():
+            partial = mod.collect_leaf(aggs, ctx, mask)
         return mod.finalize_aggs(aggs, pipes,
                                  mod.reduce_partials(aggs, [partial]))
 

@@ -891,6 +891,62 @@ def test_autotune_ladder_pins_synthetic_trace(pkg, monkeypatch):
     assert sched.stats()["bucket_source"] == "knob"
 
 
+def test_waiter_wider_than_the_autotuned_ladder_is_served(monkeypatch):
+    """After 64 flushes of one query the autotuned ladder is (1,). A waiter
+    of two queries then finds no rung: the reference builds a batch with no
+    waiter, whose in-flight slot nothing releases, and after two of them
+    its lane waits forever (ROADMAP W19; not run on the reference, it
+    would hang). The port flushes the waiter at its own width."""
+    monkeypatch.delenv("ES_TPU_SCHED_BUCKETS", raising=False)
+    port_metrics.reset_for_tests()
+    try:
+        for _ in range(70):
+            port_metrics.observe("sched_queue_depth", 1)
+        sched = port_scheduler.AdaptiveDispatchScheduler(interactive_us=0.0)
+        assert sched.ladder() == (1,)
+        eng = _stub_engine(PKGS["port"])
+        out = {}
+
+        def run():
+            out["rows"] = [sched.dispatch(eng, QUERIES[:2], 10)
+                           for _ in range(3)]
+
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        t.join(timeout=30)
+        assert not t.is_alive(), "the scheduler lane deadlocked"
+        want = eng.search_many([QUERIES[:2]], k=10)[0]
+        for rows in out["rows"]:
+            _assert_rows_equal(rows, want, "wide waiter")
+        assert eng.calls[:3] == [2, 2, 2]
+    finally:
+        port_metrics.reset_for_tests()
+
+
+def test_waiter_that_fits_a_rung_keeps_the_knob_ladder(pkg, monkeypatch):
+    """A ladder whose rungs are not powers of two: a waiter that fits a
+    rung flushes at that rung, on the reference and on the port alike
+    (only a waiter wider than the top rung widens the bucket, W19)."""
+    monkeypatch.setenv("ES_TPU_SCHED_BUCKETS", "1,3,6,12")
+    sched = pkg.sched.AdaptiveDispatchScheduler(interactive_us=0.0)
+    assert sched.ladder() == (1, 3, 6, 12)
+    eng = _stub_engine(pkg)
+    out = {}
+
+    def run():
+        out["rows"] = [sched.dispatch(eng, QUERIES[:n], 10)
+                       for n in (3, 5, 1)]
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive(), "the scheduler lane deadlocked"
+    for n, rows in zip((3, 5, 1), out["rows"]):
+        _assert_rows_equal(rows, eng.search_many([QUERIES[:n]], k=10)[0],
+                           f"{n} queries")
+    assert sched.stats()["bucket_counts"] == {"1": 1, "3": 1, "6": 1}
+
+
 def test_prime_reprimes_on_ladder_change(pkg):
     class _Eng:
         def __init__(self):
