@@ -10,6 +10,7 @@
     python3 chip_smoke.py --k5-parent OLD.cu   # and K5's stage
     python3 chip_smoke.py --scatter-parent OLD.cu   # and the block scatter
     python3 chip_smoke.py --serving-only --docs N   # step 8 alone, no ok line
+    python3 chip_smoke.py --admin-only --docs N     # step 8's admin phase alone
 
 It drives the port's main path (elasticsearch_tpu_torch only; it imports
 nothing of JAX or of elasticsearch_tpu) the way bench.py drives config 1 of
@@ -123,7 +124,19 @@ aggregation path the way bench.py drives config 6:
    as _msearch) and the node's own endpoints; every search response
    equals the serving phase's for the same body but for `took`, scores
    bitwise; a 429 is retried after its Retry-After and counted, any
-   other status fails; every new launch shape is held as above;
+   other status fails; every new launch shape is held as above. Then the
+   rest of the REST node (admin_phase): a second Node with
+   xpack.security.enabled takes batch 0 as an authenticated _msearch (a
+   user, an API key; 401 without credentials, 403 for a role without the
+   index) and as authenticated singles, _search/template of 32 queries,
+   _async_search of bool and agg bodies with _tasks listing them, a
+   snapshot of the kNN index and of a 1,000,000-doc BM25 index and their
+   restore under new names (the restored indices answer batch 0 and the
+   kNN bodies as the originals do; K1 builds their columns), a
+   10,000-doc index through _bulk, _rollover, _close / _open and _split,
+   and _field_caps, _explain, _termvectors, _rank_eval, the _tpu routes,
+   hot threads and eight _cat tables; every answer held as above, every
+   new launch shape held;
 9. serves the first batch again on a fresh engine at the default slice
    ladder and reports its sparse fallbacks, holding the answers that step
    4 held;
@@ -3201,6 +3214,33 @@ class DenseSources:
     def __len__(self):
         return len(self.bounds) - 1
 
+    def __iter__(self):
+        """Every doc's `_source` in order (a snapshot lists them all): the
+        same dicts as __getitem__, built from a chunk's columns as lists."""
+        c = self.cols
+        voc = [f"t{t}" for t in range(int(self.tokens.max()) + 1)]
+        tag = [f"tag{o:02d}" for o in range(DENSE_TAGS)]
+        step = 65536
+        for c0 in range(0, len(self), step):
+            c1 = min(c0 + step, len(self))
+            bnd = self.bounds[c0:c1 + 1].tolist()
+            toks = self.tokens[bnd[0]:bnd[-1]].tolist()
+            ts = c["tag_start"][c0:c1 + 1].tolist()
+            ords = c["tag_ords"][ts[0]:ts[-1]].tolist()
+            views, pub = c["views"][c0:c1].tolist(), \
+                c["published"][c0:c1].tolist()
+            has, price = c["p_exists"][c0:c1].tolist(), \
+                c["price"][c0:c1].tolist()
+            for j in range(c1 - c0):
+                src = {"body": " ".join(map(voc.__getitem__, toks[
+                           bnd[j] - bnd[0]:bnd[j + 1] - bnd[0]])),
+                       "views": int(views[j]), "published": int(pub[j]),
+                       "tags": [tag[o] for o in ords[ts[j] - ts[0]:
+                                                     ts[j + 1] - ts[0]]]}
+                if has[j]:
+                    src["price"] = price[j]
+                yield src
+
     def __getitem__(self, i):
         c = self.cols
         i = int(i)
@@ -3988,12 +4028,14 @@ def path_bound(name, args, kw, out_bytes: int):
                  PEAK_F32)
 
 
-def check_path_shapes(seen, dp: int) -> dict:
+def check_path_shapes(seen, dp) -> dict:
     """Every kernel of record_shapes at every launch shape the serving
     path gave it, on the recorded inputs, held bitwise against its plain
     version, also on poisoned outputs: K2 and K6 through sweep_ab, then
-    timed by CUDA-graph replay beside their bounds; K3 beside its bound;
-    K5, K9 and K4 by hold_kernel. Returns {kernel: {shape: numbers}}."""
+    timed by CUDA-graph replay beside their bounds (K2's column bytes over
+    `dp` docs, or over its live rows' docs when dp is None); K3 beside its
+    bound; K5, K9 and K4 by hold_kernel. Returns {kernel: {shape:
+    numbers}}."""
     from elasticsearch_tpu_torch.parallel import kernels as k
     from elasticsearch_tpu_torch.tools.k2_ab import bitset_work, sweep_work
 
@@ -4020,8 +4062,9 @@ def check_path_shapes(seen, dp: int) -> dict:
                                kw["nsw"])
                 wq_np = args[3].cpu().numpy()
                 if name == "sweep_rowmax":
-                    nbytes, ops, n_union, nnz = sweep_work(wq_np, dp,
-                                                           kw["nsw"])
+                    nbytes, ops, n_union, nnz = sweep_work(
+                        wq_np, int(args[4].numel()) if dp is None else dp,
+                        kw["nsw"])
                     row.update(union_slots=n_union, nonzero_weights=nnz)
                 else:
                     nbytes, ops, work = bitset_work(wq_np, args[4],
@@ -4153,8 +4196,8 @@ def install_service(node, svc) -> None:
 
 class RestClient:
     """urllib over 127.0.0.1 to one HttpServer. A 429 is retried after its
-    Retry-After header, as a client would, and counted in `shed`; any other
-    status but 200 fails the run."""
+    Retry-After header, as a client would, and counted in `shed`; `call`
+    fails the run on any other status but 2xx, `status` returns it."""
 
     def __init__(self, port: int):
         import threading
@@ -4163,8 +4206,12 @@ class RestClient:
         self.shed = []
         self._lock = threading.Lock()
 
-    def call(self, method, path, body=None, ndjson=None):
+    def status(self, method, path, body=None, ndjson=None, headers=None,
+               params=None):
+        """(status, decoded body) of one request: JSON, or text for a
+        text/plain answer."""
         import urllib.error
+        import urllib.parse
         import urllib.request
 
         if ndjson is not None:
@@ -4173,26 +4220,39 @@ class RestClient:
         else:
             data = None if body is None else json.dumps(body).encode()
             ctype = "application/json"
+        url = self.base + path
+        if params:
+            url += "?" + urllib.parse.urlencode(params)
         while True:
-            req = urllib.request.Request(self.base + path, data=data,
-                                         method=method,
-                                         headers={"Content-Type": ctype})
+            req = urllib.request.Request(
+                url, data=data, method=method,
+                headers={"Content-Type": ctype, **(headers or {})})
             try:
                 with urllib.request.urlopen(req,
                                             timeout=REST_TIMEOUT_S) as resp:
                     raw = resp.read()
                     text = resp.headers.get_content_type() == "text/plain"
-                    return raw.decode() if text else json.loads(raw)
+                    return resp.status, (raw.decode() if text
+                                         else json.loads(raw))
             except urllib.error.HTTPError as e:
-                payload = e.read()[:2000]
                 if e.code != 429:
-                    raise AssertionError(
-                        f"REST {method} {path}: status {e.code}: "
-                        f"{payload!r}")
+                    payload = e.read()
+                    try:
+                        return e.code, json.loads(payload)
+                    except ValueError:
+                        return e.code, payload[:2000]
                 wait = float(e.headers.get("Retry-After") or 1)
                 with self._lock:
                     self.shed.append({"path": path, "retry_after_s": wait})
                 time.sleep(wait)
+
+    def call(self, method, path, body=None, ndjson=None, headers=None,
+             params=None):
+        code, out = self.status(method, path, body, ndjson, headers, params)
+        if not 200 <= code < 300:
+            raise AssertionError(f"REST {method} {path}: status {code}: "
+                                 f"{str(out)[:2000]}")
+        return out
 
 
 def _no_took(r):
@@ -4437,6 +4497,640 @@ def rest_phase(svc, kn_svc, served: dict, held: dict, dp: int,
     return rep
 
 
+# --------------------------------------------------------------------------
+# the REST node, part 2: security, templates, async search, snapshots,
+# lifecycle and the other admin routes
+# --------------------------------------------------------------------------
+
+ADMIN_PASSWORD = "chip-smoke-bootstrap"  # bootstrap.password of `elastic`
+ADMIN_TEMPLATES = 32         # batch-0 queries through _search/template
+ADMIN_ASYNC_BOOLS = 8        # config-2 bool bodies through _async_search
+RANK_EVAL_QUERIES = 16       # batch-0 queries through _rank_eval
+LIFECYCLE_DOCS = 10_000      # docs of the lifecycle index, through _bulk
+# The BM25 index the phase snapshots. segment_payloads + put_segment_blob
+# of a 600,000-doc dense segment took 18.2 s on a CPU host
+# (snapshot_rehearsal; a 995 MB blob), a linear projection of 243 s for
+# the serving index's 8,000,000 docs, over the phase's 90 s allowance: the
+# phase snapshots a 1,000,000-doc segment drawn the same way instead.
+SNAP_DOCS = 1_000_000
+SNAP_ALLOWANCE_S = 90.0
+# top-level keys of the reference's answers (rest/handlers.py)
+ADMIN_KEYS = {
+    "field_caps": {"indices", "fields"},
+    "explain": {"_index", "_id", "matched", "explanation"},
+    "termvectors": {"_index", "_id", "found", "term_vectors"},
+    "rank_eval": {"metric_score", "details", "failures"},
+    "slowlog": {"slowlog"},
+    "trace": {"traces"},
+}
+ADMIN_CATS = ("count", "nodes", "segments", "aliases", "allocation",
+              "templates", "thread_pool", "tasks")
+# kernels the phase's HTTP traffic must launch: the sweeps and the
+# cold-term gather (authenticated _msearch, templates, the restored
+# index), K1 (the restored index builds its columns), K5 and K6 (bool
+# bodies through _async_search), K8 (agg bodies through _async_search),
+# K9 and K4 (kNN on the restored two-segment index)
+ADMIN_KERNELS = ("build_columns", "sweep_rowmax", "sparse_gather",
+                 "merge_topk", "intersect_bitset", "sweep_rowmax_bitset",
+                 "agg_counts", "knn_int8_window_topc")
+
+
+def basic_auth(user: str, password: str) -> dict:
+    import base64
+
+    return {"Authorization": "Basic " + base64.b64encode(
+        f"{user}:{password}".encode()).decode()}
+
+
+def snapshot_rehearsal(n: int) -> dict:
+    """Times segment_payloads + put_segment_blob of an n-doc dense segment
+    (the serving phase's, on the CPU) into a temporary fs repository, and
+    projects the time to FULL_DOCS linearly:
+    `python3 -c "import chip_smoke as cs; print(cs.snapshot_rehearsal(600000))"`
+    (about a minute at 600,000 docs). The admin phase snapshots SNAP_DOCS
+    when the projection exceeds SNAP_ALLOWANCE_S."""
+    import shutil
+    import tempfile
+
+    from elasticsearch_tpu_torch.snapshots.repository import FsRepository
+
+    fp, tokens, bounds = build_index(n, VOCAB)
+    seg, _, _ = dense_segment(fp, tokens, bounds, n, "cpu")
+    svc = serving_service([(seg, np.ones(n, bool))], DENSE_MAPPING,
+                          "serving", "cpu")
+    root = tempfile.mkdtemp()
+    try:
+        repo = FsRepository("rehearsal", root)
+        t = time.perf_counter()
+        payloads, _ = svc.shards[0].segment_payloads()
+        payload_s = time.perf_counter() - t
+        t = time.perf_counter()
+        for blob, _ in payloads:
+            repo.put_segment_blob(blob)
+        put_s = time.perf_counter() - t
+        nbytes = sum(len(b) for b, _ in payloads)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        svc.close()
+    total = payload_s + put_s
+    return {"docs": n, "segment_payloads_s": payload_s,
+            "put_segment_blob_s": put_s, "blob_bytes": nbytes,
+            "projected_full_s": total * FULL_DOCS / n,
+            "fits": total * FULL_DOCS / n <= SNAP_ALLOWANCE_S}
+
+
+def admin_phase(svc, kn_svc, served: dict, held: dict, rest: dict,
+                device="cuda", snap_docs: int = SNAP_DOCS) -> dict:
+    """The rest of the REST node on the card: a second port Node with
+    xpack.security.enabled and a bootstrap password, the serving phase's
+    two services installed, behind an HttpServer on 127.0.0.1, the launch
+    counts set to 0 just before and read just after, no plain version
+    allowed:
+      1. as `elastic`: a role with `read` on the serving, kNN and restored
+         indices, a user with it, an API key;
+      2. batch 0's 256 bodies as one authenticated _msearch, as the user
+         and with the API key; no credentials answer 401, a user whose
+         role lacks the index 403; batch 0 as authenticated singles from
+         SERVING_THREADS threads, then one at a time;
+      3. _search/template and _render/template of the first
+         ADMIN_TEMPLATES queries of batch 0 (a mustache {{q}} in a `match`
+         body), each against the _search of the rendered body;
+      4. _async_search of ADMIN_ASYNC_BOOLS config-2 bool bodies and the
+         serving phase's agg bodies (request cache emptied) with
+         wait_for_completion_timeout=0, _tasks while they run, polled to
+         the end, then deleted;
+      5. an fs repository in a temporary directory, _verify; a snapshot of
+         the kNN index (two 131,072 x 768 segments) and of a SNAP_DOCS
+         BM25 index drawn as the dense segment is (seeds 42 and 46; its
+         answers to batch 0 taken first); a restore with a rename; batch 0
+         and the 8 kNN bodies on the restored indices;
+      6. a LIFECYCLE_DOCS index written through _bulk behind a write
+         alias, _rollover on max_docs, _close / _open, _split to 2
+         shards;
+      7. _field_caps, _explain and _termvectors of batch 0's top hit on
+         the restored BM25 index, _rank_eval of RANK_EVAL_QUERIES batch-0
+         queries rated by their own top 10, _tpu/metrics, _tpu/slowlog,
+         _tpu/trace, _nodes/hot_threads and the _cat tables of ADMIN_CATS.
+    Holds: every search answer equal to the serving phase's for the same
+    body (the restored BM25 index's to the original's) but for `took`,
+    scores bitwise; the restored kNN ids and order equal, scores within
+    knn_score_bound; templates equal to the rendered bodies' answers;
+    _explain's value within DENSE_SCORE_ULPS of the hit's score and equal
+    to the CPU's answer on the same segment; rank_eval precision 1.0;
+    each admin route 200 with the reference's top-level keys; every
+    kernel of ADMIN_KERNELS launched; every launch shape the serving and
+    REST phases did not hold, and every shape of the restored and
+    lifecycle indices (their engines are new), held by check_path_shapes.
+    A 429 is retried and counted; any other unexpected status fails.
+    Returns the report."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.index.engine import (
+        EngineSearcher, SegmentView,
+    )
+    from elasticsearch_tpu_torch.mapper import MapperService
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.parallel import kernels
+    from elasticsearch_tpu_torch.rest import (
+        HttpServer, RestController, register_handlers,
+    )
+    from elasticsearch_tpu_torch.search import execute_search
+
+    t_phase = time.time()
+    rep = {"snapshot_docs": snap_docs}
+    su = basic_auth("elastic", ADMIN_PASSWORD)
+    node = Node(Settings({"xpack.security.enabled": "true",
+                          "bootstrap.password": ADMIN_PASSWORD}),
+                device=device)
+    server = None
+    repo_dir = tempfile.mkdtemp(prefix="es_tpu_snap_")
+    groups = served["groups"]
+    batch0 = groups[0]
+    try:
+        for s in (svc, kn_svc):
+            install_service(node, s)
+        # the snapshot's BM25 index, and its answers to batch 0 before the
+        # snapshot (the restored index is held to them)
+        t = time.time()
+        sfp, stok, sbounds = build_index(snap_docs, VOCAB)
+        sseg, _, _ = dense_segment(sfp, stok, sbounds, snap_docs, device)
+        del sfp, stok, sbounds
+        snap_svc = serving_service([(sseg, np.ones(snap_docs, bool))],
+                                   DENSE_MAPPING, "snap_bm25", device)
+        install_service(node, snap_svc)
+        rep["snap_index_build_s"] = time.time() - t
+        rc = RestController()
+        register_handlers(node, rc)
+        server = HttpServer(rc, port=0, thread_pool=node.thread_pool)
+        server.start()
+        cl = RestClient(server.port)
+        shed0 = dict(node.overload.stats()["shed"])
+        with contextlib.ExitStack() as st:
+            st.enter_context(env_set("ES_TPU_TURBO_HBM", str(TURBO_HBM)))
+            st.enter_context(env_set("ES_TPU_TURBO_COLD_DF", str(COLD_DF)))
+            st.enter_context(env_set("ES_TPU_SPARSE_WIDTHS", WIDE_LADDER))
+            plain = st.enter_context(plain_calls())
+            windows = {}
+            kernels.reset_launches()
+            t_main = time.time()
+
+            # ---- window "serving": the serving phase's indices ----
+            with record_shapes() as windows["serving"]:
+                # 1. security
+                names = [svc.name, kn_svc.name, "restored_*"]
+                cl.call("PUT", "/_security/role/searcher", {"indices": [
+                    {"names": names, "privileges": ["read"]}]}, headers=su)
+                cl.call("PUT", "/_security/role/outsider", {"indices": [
+                    {"names": ["elsewhere-*"], "privileges": ["read"]}]},
+                    headers=su)
+                cl.call("PUT", "/_security/user/searcher", {
+                    "password": "searcher-pw", "roles": ["searcher"]},
+                    headers=su)
+                cl.call("PUT", "/_security/user/outsider", {
+                    "password": "outsider-pw", "roles": ["outsider"]},
+                    headers=su)
+                key = cl.call("POST", "/_security/api_key",
+                              {"name": "chip-smoke"}, headers=su)
+                user = basic_auth("searcher", "searcher-pw")
+                api = {"Authorization": f"ApiKey {key['encoded']}"}
+                who = cl.call("GET", "/_security/_authenticate",
+                              headers=user)
+
+                # 2. authenticated _msearch, refusals, singles
+                head = {"index": svc.name}
+                nd = [x for b in batch0 for x in (head, b)]
+                t = time.perf_counter()
+                m_user = cl.call("POST", "/_msearch", ndjson=nd,
+                                 headers=user)["responses"]
+                user_s = time.perf_counter() - t
+                t = time.perf_counter()
+                m_key = cl.call("POST", "/_msearch", ndjson=nd,
+                                headers=api)["responses"]
+                key_s = time.perf_counter() - t
+                anon = cl.status("POST", "/_msearch", ndjson=nd)
+                outsider = cl.status("POST", "/_msearch", ndjson=nd,
+                                     headers=basic_auth("outsider",
+                                                        "outsider-pw"))
+                path = f"/{svc.name}/_search"
+                singles, s_lat, s_wall = timed_concurrent(
+                    lambda b: cl.call("POST", path, b, headers=user),
+                    batch0, SERVING_THREADS)
+                solo, o_lat, o_wall = timed_concurrent(
+                    lambda b: cl.call("POST", path, b, headers=user),
+                    batch0, 1)
+                rep["auth"] = {
+                    "msearch_user_s": user_s, "msearch_api_key_s": key_s,
+                    "msearch_open_s": rest.get("msearch", {}).get(
+                        "http_batch_s"),
+                    "singles_concurrent": latency_summary(s_lat, s_wall),
+                    "singles_solo": latency_summary(o_lat, o_wall),
+                    "open_singles_concurrent": rest.get("singles", {}).get(
+                        "http_concurrent"),
+                    "open_singles_solo": rest.get("singles", {}).get(
+                        "http_solo")}
+                log(f"admin: authenticated _msearch of 256 {user_s:.3f}s "
+                    f"(API key {key_s:.3f}s, open "
+                    f"{rep['auth']['msearch_open_s']}s); singles "
+                    f"{rep['auth']['singles_concurrent']}, solo "
+                    f"{rep['auth']['singles_solo']}")
+
+                # 3. templates
+                tpl = {"query": {"match": {"body": "{{q}}"}}}
+                tmpl, rendered, plain_search, words = [], [], [], []
+                for q in batch0[:ADMIN_TEMPLATES]:
+                    words.append(" ".join(
+                        t["term"]["body"] if isinstance(t["term"]["body"], str)
+                        else t["term"]["body"]["value"]
+                        for t in q["query"]["bool"]["should"]))
+                    params = {"source": tpl, "params": {"q": words[-1]}}
+                    # (_render/template is a cluster action: `elastic`)
+                    rendered.append(cl.call("POST", "/_render/template",
+                                            params, headers=su))
+                    tmpl.append(cl.call("POST",
+                                        f"/{svc.name}/_search/template",
+                                        params, headers=user))
+                    plain_search.append(cl.call(
+                        "POST", path, {"query": {"match": {
+                            "body": words[-1]}}}, headers=user))
+
+                # 4. async search of bool and agg bodies
+                with svc._req_cache_lock:
+                    svc._req_cache.clear()
+                a_bodies = (served["bools"][:ADMIN_ASYNC_BOOLS]
+                            + served["agg_bodies"])
+                a_want = (served["bool_resps"][:ADMIN_ASYNC_BOOLS]
+                          + served["agg_resps"])
+                t = time.perf_counter()
+                subs = [cl.call("POST", f"/{svc.name}/_async_search", b,
+                                headers=su, params={
+                                    "wait_for_completion_timeout": "0"})
+                        for b in a_bodies]
+                listing = cl.call("GET", "/_tasks", headers=su, params={
+                    "actions": "indices:data/read/async_search",
+                    "detailed": "true"})
+                listed = [t for n in listing["nodes"].values()
+                          for t in n["tasks"].values()]
+                running_after = [
+                    s["id"] for s in subs
+                    if cl.call("GET", f"/_async_search/{s['id']}",
+                               headers=su)["is_running"]]
+                finals = []
+                for s in subs:
+                    while True:
+                        r = cl.call("GET", f"/_async_search/{s['id']}",
+                                    headers=su)
+                        if not r["is_running"]:
+                            break
+                        time.sleep(0.01)
+                    finals.append(r)
+                async_s = time.perf_counter() - t
+                deleted = [cl.call("DELETE", f"/_async_search/{s['id']}",
+                                   headers=su) for s in subs]
+                gone = [cl.status("GET", f"/_async_search/{s['id']}",
+                                  headers=su)[0] for s in subs]
+                rep["async"] = {"searches": len(subs), "s": async_s,
+                                "running_at_submit": sum(
+                                    s["is_running"] for s in subs),
+                                "listed": len(listed),
+                                "running_after_listing":
+                                    len(running_after)}
+
+                # 7 (on the serving indices). rank_eval, field caps
+                rated = []
+                for i, (b, r) in enumerate(zip(batch0[:RANK_EVAL_QUERIES],
+                                               served["served"][0])):
+                    rated.append({"id": f"q{i}", "request": b, "ratings": [
+                        {"_index": h["_index"], "_id": h["_id"], "rating": 1}
+                        for h in r["hits"]["hits"][:K]]})
+                rank = cl.call("POST", f"/{svc.name}/_rank_eval", {
+                    "requests": rated, "metric": {"precision": {"k": K}}},
+                    headers=user)
+                caps = cl.call("GET", f"/{svc.name}/_field_caps",
+                               params={"fields": "*"}, headers=su)
+
+            # ---- 5. snapshot and restore (the new engines: snap_bm25 and
+            # the restored indices) ----
+            with record_shapes() as windows["snapshot"]:
+                t = time.perf_counter()
+                snap_answers = cl.call("POST", "/_msearch", ndjson=[
+                    x for b in batch0 for x in ({"index": "snap_bm25"}, b)],
+                    headers=su)["responses"]
+                rep["snap_original_batch_s"] = time.perf_counter() - t
+                cl.call("PUT", "/_snapshot/chip", {"type": "fs", "settings": {
+                    "location": repo_dir}}, headers=su)
+                verify = cl.call("POST", "/_snapshot/chip/_verify", headers=su)
+                t = time.perf_counter()
+                snap = cl.call("PUT", "/_snapshot/chip/s1", {
+                    "indices": f"snap_bm25,{kn_svc.name}"}, headers=su)
+                rep["snapshot_s"] = time.perf_counter() - t
+                rep["repository_bytes"] = sum(
+                    os.path.getsize(os.path.join(d, f))
+                    for d, _, fs in os.walk(repo_dir) for f in fs)
+                t = time.perf_counter()
+                restored = cl.call("POST", "/_snapshot/chip/s1/_restore", {
+                    "rename_pattern": "^", "rename_replacement": "restored_"},
+                    headers=su)
+                rep["restore_s"] = time.perf_counter() - t
+                log(f"admin: snapshot {rep['snapshot_s']:.1f}s, restore "
+                    f"{rep['restore_s']:.1f}s, repository "
+                    f"{rep['repository_bytes'] / 1e9:.2f} GB")
+                k1 = kernels.LAUNCHES["build_columns"]
+                t = time.perf_counter()
+                r_bm25 = cl.call("POST", "/_msearch", ndjson=[
+                    x for b in batch0
+                    for x in ({"index": "restored_snap_bm25"}, b)],
+                    headers=user)["responses"]
+                rep["restored_first_batch_s"] = time.perf_counter() - t
+                rep["restored_k1_launches"] = \
+                    kernels.LAUNCHES["build_columns"] - k1
+                t = time.perf_counter()
+                r_knn = cl.call("POST", "/_msearch", ndjson=[
+                    x for b in served["knn_bodies"]
+                    for x in ({"index": f"restored_{kn_svc.name}"}, b)],
+                    headers=user)["responses"]
+                rep["restored_knn_s"] = time.perf_counter() - t
+                # 7 (on the restored index). explain, termvectors
+                top = r_bm25[0]["hits"]["hits"][0]
+                explain = cl.call(
+                    "POST", f"/restored_snap_bm25/_explain/{top['_id']}",
+                    batch0[0], headers=user)
+                tv = cl.call(
+                    "POST", f"/restored_snap_bm25/_termvectors/{top['_id']}",
+                    {"fields": ["body"], "term_statistics": True},
+                    headers=su)
+
+            # ---- 6. lifecycle ----
+            with record_shapes() as windows["lifecycle"]:
+                t = time.perf_counter()
+                life = lifecycle_steps(cl, su)
+                rep["lifecycle_s"] = time.perf_counter() - t
+
+            # ---- 7. the node's observability and _cat routes ----
+            metrics_text = cl.call("GET", "/_tpu/metrics", headers=su)
+            slowlog = cl.call("GET", "/_tpu/slowlog", headers=su)
+            trace = cl.call("GET", "/_tpu/trace", headers=su)
+            hot = cl.call("GET", "/_nodes/hot_threads", headers=su)
+            cats = {c: cl.call("GET", f"/_cat/{c}", headers=su)
+                    for c in ADMIN_CATS}
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            rep["main_path_s"] = time.time() - t_main
+
+            # ---- holds (launches already read) ----
+            t = time.time()
+            require(not any(plain.values()),
+                    f"admin: plain versions ran on the card: "
+                    f"{ {k: v for k, v in plain.items() if v} }")
+            require(who.get("username") == "searcher",
+                    f"admin: _authenticate answered {who}")
+            require(anon[0] == 401 and outsider[0] == 403,
+                    f"admin: no credentials {anon[0]}, an outsider "
+                    f"{outsider[0]}, not 401 / 403")
+            for label, ms in (("user", m_user), ("api key", m_key)):
+                require(len(ms) == len(batch0),
+                        f"admin: the {label}'s _msearch lost responses")
+                for i, (g, w) in enumerate(zip(ms, served["served"][0])):
+                    hold_same(g, w, f"admin {label} msearch {i}")
+            for i, (g, w) in enumerate(zip(singles, served["served"][0])):
+                hold_same(g, w, f"admin concurrent single {i}")
+            for i, (g, w) in enumerate(zip(solo, served["served"][0])):
+                hold_same(g, w, f"admin solo single {i}")
+            for i, (r, g, w) in enumerate(zip(rendered, tmpl,
+                                              plain_search)):
+                require(r["template_output"] == {"query": {"match": {
+                    "body": words[i]}}}, f"admin template {i}: rendered {r}")
+                hold_same(g, w, f"admin search template {i}")
+            for i, (s, r, w) in enumerate(zip(subs, finals, a_want)):
+                require(r["is_partial"] is False and r["response"],
+                        f"admin async {i}: {str(r)[:300]}")
+                hold_same(r["response"], w, f"admin async {i}")
+            require(all(s.get("id") for s in subs),
+                    "admin: an _async_search answered without an id")
+            # a search still running after the listing ran during it
+            require(len(listed) >= len(running_after)
+                    and all(x["description"] == f"async[{svc.name}]"
+                            for x in listed),
+                    f"admin: {len(running_after)} async searches ran past "
+                    f"_tasks, which listed {len(listed)}: {listed[:2]}")
+            require(all(d.get("acknowledged") for d in deleted)
+                    and all(code == 404 for code in gone),
+                    f"admin: async deletes {deleted[:2]}, then {gone[:4]}")
+            require(verify.get("verified") is True,
+                    f"admin: _verify answered {verify}")
+            require(snap["snapshot"]["state"] == "SUCCESS",
+                    f"admin: snapshot {snap}")
+            require(sorted(restored["snapshot"]["indices"])
+                    == sorted(["restored_snap_bm25",
+                               f"restored_{kn_svc.name}"]),
+                    f"admin: restore {restored}")
+            require(rep["restored_k1_launches"] > 0,
+                    "admin: the restored index built no column (K1)")
+            for i, (g, w) in enumerate(zip(r_bm25, snap_answers)):
+                g = dict(g, hits=dict(g["hits"], hits=[
+                    dict(h, _index="snap_bm25") for h in g["hits"]["hits"]]))
+                hold_same(g, w, f"admin restored bm25 {i}")
+            kbound = knn_score_bound(np.stack([np.asarray(
+                b["knn"][0]["query_vector"] if isinstance(b["knn"], list)
+                else b["knn"]["query_vector"], np.float32)
+                for b in served["knn_bodies"]]))
+            for i, (g, w) in enumerate(zip(r_knn, served["knn_resps"])):
+                gh, wh = g["hits"]["hits"], w["hits"]["hits"]
+                require([h["_id"] for h in gh] == [h["_id"] for h in wh],
+                        f"admin restored knn {i}: ids differ")
+                d = max((abs(a["_score"] - b["_score"])
+                         for a, b in zip(gh, wh)), default=0.0)
+                require(d <= kbound[i], f"admin restored knn {i}: scores "
+                                        f"differ by {d} > {kbound[i]}")
+            # explain: the restored segment on the CPU, the same query
+            # filtered to the doc
+            rseg = node.indices.get("restored_snap_bm25").shards[0]\
+                ._segments[0]
+            cseg = copy.copy(rseg)
+            cseg.torch_device = torch.device("cpu")
+            cpu = EngineSearcher([SegmentView(
+                segment=cseg, live=np.ones(snap_docs, bool), live_epoch=0)],
+                cseg.torch_device)
+            want = execute_search(cpu, MapperService(copy.deepcopy(
+                DENSE_MAPPING)), {"query": {"bool": {
+                    "must": [batch0[0]["query"]],
+                    "filter": [{"ids": {"values": [top["_id"]]}}]}},
+                    "size": 1}, "restored_snap_bm25")
+            ev = explain["explanation"]["value"]
+            require(explain["matched"] is True
+                    and ev == want["hits"]["hits"][0]["_score"],
+                    f"admin explain: {ev} against the CPU's "
+                    f"{want['hits']['hits'][:1]}")
+            ulps = abs(int(np.float32(ev).view(np.int32))
+                       - int(np.float32(top["_score"]).view(np.int32)))
+            require(ulps <= DENSE_SCORE_ULPS,
+                    f"admin explain: {ev} is {ulps} ulps from the hit's "
+                    f"{top['_score']}")
+            rep["explain_ulps"] = int(ulps)
+            require(tv.get("found") and "body" in tv["term_vectors"],
+                    f"admin termvectors: {str(tv)[:300]}")
+            require(rank["metric_score"] == 1.0,
+                    f"admin rank_eval: precision {rank['metric_score']}")
+            for label, got in (("field_caps", caps), ("explain", explain),
+                               ("termvectors", tv), ("rank_eval", rank),
+                               ("slowlog", slowlog), ("trace", trace)):
+                require(ADMIN_KEYS[label] <= set(got),
+                        f"admin {label}: keys {sorted(got)}")
+            require("body" in caps["fields"],
+                    f"admin field_caps: {sorted(caps['fields'])}")
+            require(isinstance(metrics_text, str) and "es_tpu_" in
+                    metrics_text, "admin: _tpu/metrics is not an exposition")
+            require(isinstance(hot, str) and "thread [" in hot,
+                    f"admin: hot_threads {str(hot)[:200]}")
+            for c, text in cats.items():
+                require(isinstance(text, str), f"admin _cat/{c}: {text}")
+            require(cats["count"].strip() and svc.name in cats["segments"]
+                    and "life" in cats["aliases"],
+                    f"admin _cat: count {cats['count']!r}, aliases "
+                    f"{cats['aliases']!r}")
+            life_hold(life)
+            rep["hold_s"] = time.time() - t
+        shed1 = node.overload.stats()["shed"]
+        rep["shed"] = {"retried_429": len(cl.shed),
+                       "tpu_overload": {k: shed1[k] - shed0[k]
+                                        for k in shed1}}
+        rep["launches"] = {k: v for k, v in launches.items() if v}
+        for name in ADMIN_KERNELS:
+            require(launches.get(name, 0) > 0,
+                    f"admin: {name} never launched: {launches}")
+        for name in windows["serving"]:
+            n = sum(v[0] for w in windows.values()
+                    for v in w[name].values())
+            require(n == launches[name],
+                    f"admin: {name}'s launches by shape ({n}) do not add "
+                    f"up to its count {launches[name]}")
+        rep["launches_by_shape"] = {
+            win: {name: {str(key): v[0] for key, v in sh.items()}
+                  for name, sh in seen.items() if sh}
+            for win, seen in windows.items()}
+        # the serving indices' shapes the serving and REST phases did not
+        # hold; every shape of the new indices' engines (snapshot,
+        # restored, lifecycle)
+        new = {name: {key: v for key, v in sh.items()
+                      if str(key) not in held.get(name, {})}
+               for name, sh in windows["serving"].items()}
+        rep["new_shapes"] = {
+            "serving": check_path_shapes(new, None),
+            "snapshot": check_path_shapes(windows["snapshot"], None),
+            "lifecycle": check_path_shapes(windows["lifecycle"], None)}
+        log(f"admin main path: {rep['main_path_s']:.1f}s; launches "
+            f"{rep['launches']}; 429s retried {len(cl.shed)}; holds "
+            f"{rep['hold_s']:.1f}s")
+    finally:
+        if server is not None:
+            server.stop()
+        node.close()
+        shutil.rmtree(repo_dir, ignore_errors=True)
+    rep["phase_s"] = time.time() - t_phase
+    log(f"admin phase took {rep['phase_s']:.1f}s")
+    return rep
+
+
+def lifecycle_docs(n: int):
+    """n docs of 8-40 Zipf terms, drawn as build_index draws the corpus
+    (seed 42, the same vocabulary)."""
+    _, tokens, bounds = build_index(n, VOCAB)
+    return [" ".join(f"t{t}" for t in tokens[bounds[i]:bounds[i + 1]])
+            for i in range(n)]
+
+
+def lifecycle_steps(cl, su) -> dict:
+    """A LIFECYCLE_DOCS index behind the write alias `life`, written
+    through _bulk: _rollover on max_docs, _close (a search answers 400),
+    _open, _split to 2 shards, and one `match` search (dfs: the two
+    shards score with the index's statistics) before and after the
+    split."""
+    out = {}
+    cl.call("PUT", "/life-000001", {"aliases": {"life": {
+        "is_write_index": True}}, "mappings": {"properties": {
+            "body": {"type": "text"}}}}, headers=su)
+    docs = lifecycle_docs(LIFECYCLE_DOCS)
+    lines = []
+    for i, text in enumerate(docs):
+        lines += [{"index": {"_index": "life", "_id": f"l{i}"}},
+                  {"body": text}]
+    t = time.perf_counter()
+    out["bulk"] = cl.call("POST", "/_bulk", ndjson=lines, headers=su,
+                          params={"refresh": "true"})
+    out["bulk_s"] = time.perf_counter() - t
+    out["count"] = cl.call("GET", "/life-000001/_count", headers=su)
+    out["rollover_unmet"] = cl.call("POST", "/life/_rollover", {
+        "conditions": {"max_docs": LIFECYCLE_DOCS + 1}}, headers=su)
+    out["rollover"] = cl.call("POST", "/life/_rollover", {
+        "conditions": {"max_docs": LIFECYCLE_DOCS}}, headers=su)
+    out["alias"] = cl.call("GET", "/_alias/life", headers=su)
+    # two mid-vocabulary terms: every hit returned, none cut at a tie
+    body = {"query": {"match": {"body": "t5000 t7000"}}, "size": 50}
+    out["before"] = cl.call("POST", "/life-000001/_search", body,
+                            headers=su,
+                            params={"search_type": "dfs_query_then_fetch"})
+    out["close"] = cl.call("POST", "/life-000001/_close", headers=su)
+    out["closed_search"] = cl.status("POST", "/life-000001/_search", body,
+                                     headers=su)[0]
+    out["open"] = cl.call("POST", "/life-000001/_open", headers=su)
+    out["split"] = cl.call("PUT", "/life-000001/_split/life-split", {
+        "settings": {"index.number_of_shards": 2}}, headers=su)
+    out["split_count"] = cl.call("GET", "/life-split/_count", headers=su)
+    out["after"] = cl.call("POST", "/life-split/_search", body, headers=su,
+                           params={"search_type": "dfs_query_then_fetch"})
+    return out
+
+
+def life_hold(life: dict) -> None:
+    require(not life["bulk"]["errors"]
+            and len(life["bulk"]["items"]) == LIFECYCLE_DOCS,
+            "admin lifecycle: _bulk reported errors")
+    require(life["count"]["count"] == LIFECYCLE_DOCS,
+            f"admin lifecycle: count {life['count']}")
+    require(life["rollover_unmet"]["rolled_over"] is False
+            and life["rollover"]["rolled_over"] is True
+            and life["rollover"]["new_index"] == "life-000002",
+            f"admin lifecycle: rollover {life['rollover']}")
+    require(life["alias"]["life-000002"]["aliases"]["life"]
+            .get("is_write_index") is True,
+            f"admin lifecycle: alias {life['alias']}")
+    require(life["closed_search"] == 400,
+            f"admin lifecycle: a closed index answered "
+            f"{life['closed_search']}")
+    require(life["split"].get("acknowledged") is True
+            and life["split_count"]["count"] == LIFECYCLE_DOCS,
+            f"admin lifecycle: split {life['split']}, "
+            f"{life['split_count']}")
+    # equal scores tie-break by shard: the hits are compared as sets
+    before, after = ({h["_id"]: h["_score"] for h in life[k]["hits"]["hits"]}
+                     for k in ("before", "after"))
+    total = life["before"]["hits"]["total"]
+    require(0 < total["value"] == len(before) < 50
+            and life["after"]["hits"]["total"] == total,
+            f"admin lifecycle: totals {total} and "
+            f"{life['after']['hits']['total']}")
+    require(sorted(before) == sorted(after)
+            and all(abs(after[d] - v) <= SERVE_RTOL * abs(v) + SERVE_ATOL
+                    for d, v in before.items()),
+            f"admin lifecycle: the split answers {after}, the source "
+            f"{before}")
+    require(life["after"]["_shards"]["total"] == 2,
+            f"admin lifecycle: {life['after']['_shards']}")
+
+
+def serving_agg_bodies() -> list:
+    """AGG_THREADS size-0 variants of the dense phase's agg body, distinct
+    match terms: distinct request-cache keys."""
+    import copy
+
+    return [{"size": 0, "query": {"match": {"body": f"t6 t{60 + i}"}},
+             "aggs": copy.deepcopy(AGG_BODY)} for i in range(AGG_THREADS)]
+
+
 def serving_phase(seg, fp, tokens, bounds, n: int, batches, dsl, main_rows,
                   device="cuda") -> tuple:
     """The product's entry point on the card: a one-shard port IndexService
@@ -4587,9 +5281,7 @@ def serving_phase(seg, fp, tokens, bounds, n: int, batches, dsl, main_rows,
                                "s": time.perf_counter() - t}
 
         # 5. concurrent aggregations through the bulk tier
-        agg_bodies = [{"size": 0, "query": {"match": {
-            "body": f"t6 t{60 + i}"}}, "aggs": copy.deepcopy(AGG_BODY)}
-            for i in range(AGG_THREADS)]
+        agg_bodies = serving_agg_bodies()
         rc0 = dict(svc.request_cache_stats)
         a0 = agg_device.agg_stats()
         agg_resps, a_lat, a_wall = timed_concurrent(svc.search, agg_bodies,
@@ -4728,15 +5420,21 @@ def serving_phase(seg, fp, tokens, bounds, n: int, batches, dsl, main_rows,
                 "scheduler_after": sched1,
                 "fault_stats": {k: fault[k] - f0[k] for k in fault}})
     # ---- the same traffic through the REST node ----
-    rep["rest"] = rest_phase(svc, kn_svc, {
+    answers = {
         "groups": groups, "served": served, "singles": rep["singles"],
         "bools": bools, "bool_resps": bool_resps, "phrases": phrases,
         "phrase_resps": phrase_resps, "dense": dense_resps,
         "agg_bodies": agg_bodies, "agg_resps": agg_resps,
-        "knn_bodies": kbodies, "knn_resps": knn_resps}, held, turbo.Dp,
-        device=device)
+        "knn_bodies": kbodies, "knn_resps": knn_resps}
+    rep["rest"] = rest_phase(svc, kn_svc, answers, held, turbo.Dp,
+                             device=device)
+    # ---- the rest of the REST node: security, snapshots, lifecycle ----
+    rep["admin"] = admin_phase(svc, kn_svc, answers, {
+        name: {**held.get(name, {}), **rep["rest"]["new_shapes"].get(
+            name, {})} for name in set(held) | set(rep["rest"]["new_shapes"])},
+        rep["rest"], device=device)
     rep["phase_s"] = time.time() - t_phase
-    del shapes, k8, mask, blob, snap, eng, turbo, svc, kn_svc, sseg
+    del shapes, k8, mask, blob, snap, eng, turbo, svc, kn_svc, sseg, answers
     torch.cuda.empty_cache()
     return launches, held, k8_row, rep
 
@@ -4945,9 +5643,13 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     rows.append(agg_row)
     log(f"agg phase took {agg_report['phase_s']:.1f}s")
     rest = serving_report["rest"]
+    admin = serving_report["admin"]
     for r in rows:
         r["serving_launches"] = s_launches.get(r["name"], 0)
         r["rest_launches"] = rest["launches"].get(r["name"], 0)
+        r["admin_launches"] = admin["launches"].get(r["name"], 0)
+        r["admin_shapes"] = {win: sh[r["name"]] for win, sh in
+                             admin["new_shapes"].items() if sh.get(r["name"])}
         if r["name"] in rest["new_shapes"]:
             r["rest_shapes"] = rest["new_shapes"][r["name"]]
         if r["name"] in s_shapes:
@@ -5013,6 +5715,55 @@ def serving_only(n_docs: int, n_batches: int, batch: int) -> dict:
             "report": rep}
 
 
+def admin_only(n_docs: int, n_batches: int, batch: int,
+               device="cuda") -> dict:
+    """The admin phase alone (--admin-only): the kernels built, the index
+    drawn at n_docs, the dense segment (all live) and the kNN service as
+    the serving phase builds them, the answers admin_phase holds served
+    in process under the serving phase's knobs (batch 0's msearch, the
+    first ADMIN_ASYNC_BOOLS bool bodies, the agg bodies, the kNN bodies),
+    then admin_phase with no shape held before it, its BM25 snapshot at
+    min(SNAP_DOCS, n_docs). Returns its report."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import cuda_build
+
+    t = time.time()
+    if device == "cuda":
+        cuda_build.build_all()
+    log(f"kernels built in {time.time() - t:.1f}s")
+    fp, tokens, bounds = build_index(n_docs, VOCAB)
+    seg, _, _ = dense_segment(fp, tokens, bounds, n_docs, device)
+    del fp, tokens, bounds
+    svc = serving_service([(seg, np.ones(n_docs, bool))], DENSE_MAPPING,
+                          "serving", device)
+    kn_svc, kqs = knn_service(device)
+    groups = [[match_body(q) for q in b]
+              for b in draw_batches(n_batches, batch, VOCAB)]
+    bools = [bool_body(sp) for sp in
+             draw_bool(BOOL_BATCH, VOCAB)][:ADMIN_ASYNC_BOOLS]
+    aggs = serving_agg_bodies()
+    kbodies = [b for b, _ in knn_bodies(kqs)[0]]
+    with contextlib.ExitStack() as st:
+        st.enter_context(env_set("ES_TPU_TURBO_HBM", str(TURBO_HBM)))
+        st.enter_context(env_set("ES_TPU_TURBO_COLD_DF", str(COLD_DF)))
+        st.enter_context(env_set("ES_TPU_SPARSE_WIDTHS", WIDE_LADDER))
+        answers = {
+            "groups": groups, "served": [svc.msearch(groups[0])],
+            "bools": bools, "bool_resps": [svc.search(b) for b in bools],
+            "agg_bodies": aggs, "agg_resps": [svc.search(b) for b in aggs],
+            "knn_bodies": kbodies,
+            "knn_resps": kn_svc.serving.try_msearch(kbodies,
+                                                    "query_then_fetch")}
+    log("admin: the in-process answers served")
+    rep = admin_phase(svc, kn_svc, answers, {}, {}, device=device,
+                      snap_docs=min(SNAP_DOCS, n_docs))
+    del svc, kn_svc, seg
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rep
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--docs", type=int, default=FULL_DOCS,
@@ -5053,6 +5804,10 @@ def main(argv=None) -> int:
                     help="run the serving phase alone on the index "
                          "(its main-path rows first), print its report and "
                          "the card's name; no ok line")
+    ap.add_argument("--admin-only", action="store_true",
+                    help="run the admin phase alone on a serving index of "
+                         "--docs docs, print its report and the card's "
+                         "name; no ok line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -5068,9 +5823,14 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
         return 2
-    if args.serving_only:
-        out = serving_only(args.docs, args.batches, args.batch)
-        print(json.dumps({"serving_only": out}, default=str), flush=True)
+    if args.serving_only or args.admin_only:
+        if args.serving_only:
+            out = {"serving_only": serving_only(args.docs, args.batches,
+                                                args.batch)}
+        else:
+            out = {"admin_only": admin_only(args.docs, args.batches,
+                                            args.batch)}
+        print(json.dumps(out, default=str), flush=True)
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

@@ -435,6 +435,24 @@ declare_knob("ES_TPU_REMOTE_RETRIES", "int", 1,
              "token from the node's retry budget")
 declare_knob("ES_TPU_REMOTE_BACKOFF_MS", "int", 25,
              "Delay between remote-cluster RPC attempts, ms")
+# the task plane, shard allocation and cross-cluster replication
+declare_knob("ES_TPU_TASK_FANOUT_TIMEOUT_MS", "int", 2000,
+             "Per-peer budget for _tasks / hot_threads / ban fan-out RPCs "
+             "(a dead peer degrades to node_failures instead of hanging "
+             "the coordinator)")
+declare_knob("ES_TPU_DELAYED_ALLOC_MS", "int", 0,
+             "Delayed allocation window after node-left, ms: replica "
+             "replacements stay UNASSIGNED this long so a bounced node "
+             "can rejoin and recover its own copies (0 = reallocate "
+             "immediately; index.unassigned.node_left.delayed_timeout "
+             "analog)")
+declare_knob("ES_TPU_CCR_POLL_MS", "int", 100,
+             "Follower-index pull-loop poll interval, ms (0 = no "
+             "background thread; tests and bench pump poll_once() "
+             "deterministically)")
+declare_knob("ES_TPU_CCR_BATCH_OPS", "int", 512,
+             "Max translog ops per CCR fetch batch (one sha256-verified "
+             "wire payload)")
 
 
 class ClusterSettings:

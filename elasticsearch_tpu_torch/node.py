@@ -12,10 +12,8 @@ Differences from the reference:
   card, ``"cpu"`` only when asked) and hands it to `IndicesService`, so
   every index the node creates serves on that device. Without a card,
   ``Node()`` raises `DeviceUnavailableError`.
-- The security, task-plane and snapshot services are not built yet (ROADMAP
-  item 9c, part 2). A node whose settings enable
-  ``xpack.security.enabled`` raises NotImplementedError instead of serving
-  open what the reference would guard.
+- ``GET /_nodes`` lists that device under ``accelerators``, where the
+  reference lists its jax devices.
 """
 
 from __future__ import annotations
@@ -36,11 +34,6 @@ class Node:
     def __init__(self, settings: Settings | None = None, data_path: Optional[str] = None,
                  node_name: str = "node-0", device=None):
         self.settings = settings or Settings.EMPTY
-        if str(self.settings.raw("xpack.security.enabled", "false")
-               ).lower() == "true":
-            raise NotImplementedError(
-                "xpack.security.enabled: the port's security service comes "
-                "with the rest of the REST handlers (ROADMAP item 9c, part 2)")
         self.device = _device.resolve(device)
         self.node_id = uuid.uuid4().hex[:20]
         self.node_name = node_name
@@ -73,6 +66,9 @@ class Node:
             node_name, thread_pool=self.thread_pool,
             scheduler=default_scheduler(), breakers=self.breakers,
             indexing_pressure=self.indexing_pressure)
+        from elasticsearch_tpu_torch.security import SecurityService
+
+        self.security = SecurityService(self.settings)
         from elasticsearch_tpu_torch.common.settings import ClusterSettings, Setting
 
         # dynamic cluster settings registry (ref: ClusterSettings + the
@@ -90,9 +86,9 @@ class Node:
 
         # allocation maintenance settings: the drain filter and the
         # concurrent-relocations cap flow into ClusterState.settings, where
-        # AllocationService's deciders read them (ROADMAP item 10a; a
-        # standalone node has nowhere to relocate, but the dynamic seam is
-        # the same one a cluster master consumes)
+        # AllocationService's deciders read them (a standalone node has
+        # nowhere to relocate, but the dynamic seam is the same one a
+        # cluster master consumes)
         s_exclude = Setting(EXCLUDE_NAME_SETTING, "", str, dynamic=True)
         s_reloc = Setting(CONCURRENT_RELOC_SETTING,
                           DEFAULT_CONCURRENT_RELOCATIONS, int, dynamic=True)
@@ -125,6 +121,13 @@ class Node:
         from elasticsearch_tpu_torch.tasks import TaskManager
 
         self.tasks = TaskManager(self.node_id)
+        from elasticsearch_tpu_torch.tasks.task_plane import TaskPlane
+
+        # standalone node: the task plane degrades to the local registry
+        # (no channels / cluster state), same REST response shapes
+        self.task_plane = TaskPlane(
+            self.tasks, self.node_name,
+            hot_label=f"{{{self.node_name}}}{{{self.node_id}}}")
         from elasticsearch_tpu_torch.cluster.telemetry_plane import TelemetryPlane
         from elasticsearch_tpu_torch.common import metrics as _metrics
 
@@ -136,6 +139,11 @@ class Node:
         from elasticsearch_tpu_torch.ingest import IngestService
 
         self.ingest = IngestService()
+        from elasticsearch_tpu_torch.snapshots import SnapshotsService
+
+        self.snapshots = SnapshotsService(
+            self.indices, lambda name, body: self.create_index(name, body),
+            delete_index=self.delete_index)
         from elasticsearch_tpu_torch.common.integrity import IntegrityScrubber
 
         # HBM scrub driver (ES_TPU_INTEGRITY_SCRUB_S; 0 = off): walks the
@@ -145,14 +153,14 @@ class Node:
             thread_pool=self.thread_pool, overload=self.overload)
         self.integrity_scrubber.start()
         from elasticsearch_tpu_torch.cluster.remote import RemoteClusterService
-        from elasticsearch_tpu_torch.index.ccr import CcrService
+        from elasticsearch_tpu_torch.index.ccr import CcrService, StandaloneNodeHost
 
-        # cross-cluster plane: the remote registry the REST layer routes
-        # `remote:index` searches through, and CCR's stats (following
-        # comes with ROADMAP item 9c part 2, index/ccr.py)
+        # cross-cluster plane: remote registry + CCR pull loop; the REST
+        # layer routes `remote:index` searches and /_ccr calls through these
         self.remotes = RemoteClusterService(node_name,
                                             overload=self.overload)
-        self.ccr = CcrService()
+        self.ccr = CcrService(StandaloneNodeHost(self), self.remotes,
+                              self.transport)
         self._register_actions()
 
     # ---- cluster-state updates (single-threaded master semantics,

@@ -1,27 +1,25 @@
-"""REST API handlers: the user-facing surface (the port's copy of the
-search and data-plane part of elasticsearch_tpu/rest/handlers.py).
+"""REST API handlers: the user-facing surface (the port's copy of
+elasticsearch_tpu/rest/handlers.py).
 
 Implements the core of the reference's REST API (ref: the 138 Rest*Action
 handlers under rest/action/ and the 144 specs in
 rest-api-spec/src/main/resources/rest-api-spec/api/): document CRUD, bulk,
 search/msearch/count/scroll/PIT, index admin, cluster/cat/nodes monitoring,
-analyze, mget, update, delete-by-query, update-by-query, aliases. Response
-shapes follow the reference so existing clients can switch over.
-
-The other routes of the reference (security, snapshots, tasks, ingest
-pipelines, templates, rollover and resize, close/open, async search,
-reindex, termvectors, field caps, explain, rank eval, the cross-cluster
-admin routes, the `_tpu` flight recorder and metrics, hot threads and the
-remaining `_cat` tables) come with ROADMAP item 9c, part 2; until then they
-answer as unknown routes do. `GET /_nodes` lists the node's torch device
-(``device.py``) where the reference lists its jax devices.
+analyze, mget, update, delete-by-query, update-by-query, aliases, security,
+snapshots, tasks, ingest pipelines, templates, lifecycle (close/open,
+rollover, shrink/split/clone), async search, the cross-cluster admin routes
+and the `_tpu` flight recorder and metrics. The route table is the
+reference's. Response shapes follow the reference so existing clients can
+switch over. `GET /_nodes` lists the node's torch device (``device.py``)
+where the reference lists its jax devices.
 """
 
 from __future__ import annotations
 
 import json
+import secrets
 import time
-from typing import Dict, List
+from typing import Any, Dict, List
 
 from elasticsearch_tpu_torch import __version__
 from elasticsearch_tpu_torch.common.errors import (
@@ -30,11 +28,13 @@ from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentError,
     IndexNotFoundError,
     ParsingError,
+    VersionConflictError,
 )
 from elasticsearch_tpu_torch.node import Node
 from elasticsearch_tpu_torch.rest.controller import (
     RestController, RestRequest, RestResponse, _error_body,
 )
+from elasticsearch_tpu_torch.search.queries import parse_query
 
 _START_TIME = time.time()
 
@@ -58,6 +58,17 @@ def register_handlers(node: Node, rc: RestController) -> None:
         rc.admission = _overload_admission(node)
 
     r("GET", "/", h.root)
+    # security management
+    r("GET", "/_security/_authenticate", h.security_authenticate)
+    r("PUT", "/_security/user/{username}", h.security_put_user)
+    r("POST", "/_security/user/{username}", h.security_put_user)
+    r("DELETE", "/_security/user/{username}", h.security_delete_user)
+    r("PUT", "/_security/role/{role}", h.security_put_role)
+    r("POST", "/_security/role/{role}", h.security_put_role)
+    r("GET", "/_security/role/{role}", h.security_get_role)
+    r("DELETE", "/_security/role/{role}", h.security_delete_role)
+    r("POST", "/_security/api_key", h.security_create_api_key)
+    r("DELETE", "/_security/api_key", h.security_invalidate_api_key)
     # index admin
     r("PUT", "/{index}", h.create_index)
     r("DELETE", "/{index}", h.delete_index)
@@ -110,6 +121,45 @@ def register_handlers(node: Node, rc: RestController) -> None:
     r("DELETE", "/_search/scroll", h.scroll_clear)
     r("POST", "/{index}/_pit", h.open_pit)
     r("DELETE", "/_pit", h.close_pit)
+    r("POST", "/_reindex", h.reindex)
+    r("GET", "/{index}/_termvectors/{id}", h.termvectors)
+    r("POST", "/{index}/_termvectors/{id}", h.termvectors)
+    r("POST", "/_render/template", h.render_template)
+    r("GET", "/{index}/_search/template", h.search_template)
+    r("POST", "/{index}/_search/template", h.search_template)
+    r("GET", "/{index}/_rank_eval", h.rank_eval)
+    r("POST", "/{index}/_rank_eval", h.rank_eval)
+    r("POST", "/{index}/_async_search", h.async_search_submit)
+    r("GET", "/_async_search/{id}", h.async_search_get)
+    r("DELETE", "/_async_search/{id}", h.async_search_delete)
+    r("GET", "/_field_caps", h.field_caps)
+    r("POST", "/_field_caps", h.field_caps)
+    r("GET", "/{index}/_field_caps", h.field_caps)
+    r("POST", "/{index}/_field_caps", h.field_caps)
+    r("GET", "/{index}/_explain/{id}", h.explain)
+    r("POST", "/{index}/_explain/{id}", h.explain)
+    # ingest pipelines (ref: RestPutPipelineAction, RestSimulatePipelineAction)
+    r("PUT", "/_ingest/pipeline/{id}", h.put_pipeline)
+    r("GET", "/_ingest/pipeline/{id}", h.get_pipeline)
+    r("GET", "/_ingest/pipeline", h.get_pipelines)
+    r("DELETE", "/_ingest/pipeline/{id}", h.delete_pipeline)
+    r("POST", "/_ingest/pipeline/{id}/_simulate", h.simulate_pipeline)
+    r("GET", "/_ingest/pipeline/{id}/_simulate", h.simulate_pipeline)
+    r("POST", "/_ingest/pipeline/_simulate", h.simulate_pipeline)
+    # snapshots (ref: RestPutRepositoryAction, RestCreateSnapshotAction,
+    # RestRestoreSnapshotAction, RestDeleteSnapshotAction)
+    r("PUT", "/_snapshot/{repo}", h.put_repository)
+    r("POST", "/_snapshot/{repo}/_verify", h.verify_repository)
+    r("GET", "/_snapshot/{repo}", h.get_repository)
+    r("PUT", "/_snapshot/{repo}/{snapshot}", h.create_snapshot)
+    r("POST", "/_snapshot/{repo}/{snapshot}", h.create_snapshot)
+    r("GET", "/_snapshot/{repo}/{snapshot}", h.get_snapshot)
+    r("DELETE", "/_snapshot/{repo}/{snapshot}", h.delete_snapshot)
+    r("POST", "/_snapshot/{repo}/{snapshot}/_restore", h.restore_snapshot)
+    r("GET", "/_tasks", h.list_tasks)
+    r("POST", "/_tasks/_cancel", h.cancel_tasks)
+    r("GET", "/_tasks/{task_id}", h.get_task)
+    r("POST", "/_tasks/{task_id}/_cancel", h.cancel_task)
     r("POST", "/_msearch", h.msearch)
     r("GET", "/_msearch", h.msearch)
     r("POST", "/{index}/_msearch", h.msearch)
@@ -121,13 +171,43 @@ def register_handlers(node: Node, rc: RestController) -> None:
     r("GET", "/{index}/_analyze", h.analyze)
     r("POST", "/{index}/_analyze", h.analyze)
     # cluster / monitoring
+    r("PUT", "/_index_template/{name}", h.put_index_template)
+    r("GET", "/_index_template/{name}", h.get_index_template)
+    r("GET", "/_index_template", h.get_index_templates)
+    r("DELETE", "/_index_template/{name}", h.delete_index_template)
     r("GET", "/_cluster/settings", h.get_cluster_settings)
     r("PUT", "/_cluster/settings", h.put_cluster_settings)
     r("GET", "/_cluster/health", h.cluster_health)
     r("GET", "/_cluster/state", h.cluster_state)
     r("GET", "/_cluster/stats", h.cluster_stats)
+    r("POST", "/_cluster/reroute", h.cluster_reroute)
     r("GET", "/_nodes", h.nodes_info)
     r("GET", "/_nodes/stats", h.nodes_stats)
+    r("GET", "/_nodes/hot_threads", h.hot_threads)
+    # cross-cluster plane
+    r("GET", "/_remote/info", h.remote_info)
+    r("PUT", "/{index}/_ccr/follow", h.ccr_follow)
+    r("POST", "/{index}/_ccr/follow", h.ccr_follow)
+    r("POST", "/{index}/_ccr/pause_follow", h.ccr_pause_follow)
+    r("POST", "/{index}/_ccr/resume_follow", h.ccr_resume_follow)
+    r("GET", "/{index}/_ccr/stats", h.ccr_stats)
+    # search flight recorder
+    r("GET", "/_tpu/slowlog", h.tpu_slowlog)
+    r("GET", "/_tpu/trace", h.tpu_traces)
+    # device telemetry plane
+    r("GET", "/_tpu/metrics", h.tpu_metrics)
+    r("GET", "/_tpu/metrics/history", h.tpu_metrics_history)
+    # lifecycle admin
+    r("POST", "/{index}/_close", h.close_index)
+    r("POST", "/{index}/_open", h.open_index)
+    r("POST", "/{alias}/_rollover", h.rollover)
+    r("POST", "/{alias}/_rollover/{new_index}", h.rollover)
+    r("PUT", "/{index}/_shrink/{target}", h.resize_shrink)
+    r("POST", "/{index}/_shrink/{target}", h.resize_shrink)
+    r("PUT", "/{index}/_split/{target}", h.resize_split)
+    r("POST", "/{index}/_split/{target}", h.resize_split)
+    r("PUT", "/{index}/_clone/{target}", h.resize_clone)
+    r("POST", "/{index}/_clone/{target}", h.resize_clone)
     # aliases
     r("POST", "/_aliases", h.update_aliases)
     r("GET", "/_alias", h.get_aliases)
@@ -141,10 +221,51 @@ def register_handlers(node: Node, rc: RestController) -> None:
     r("DELETE", "/{index}/_aliases/{name}", h.delete_alias)
     r("HEAD", "/{index}/_alias/{name}", h.head_alias)
     r("HEAD", "/_alias/{name}", h.head_alias)
+    # legacy (v1) index templates
+    r("PUT", "/_template/{name}", h.put_legacy_template)
+    r("POST", "/_template/{name}", h.put_legacy_template)
+    r("GET", "/_template/{name}", h.get_legacy_template)
+    r("GET", "/_template", h.get_legacy_templates)
+    r("DELETE", "/_template/{name}", h.delete_legacy_template)
+    r("HEAD", "/_template/{name}", h.head_legacy_template)
+    # field-level mapping
+    r("GET", "/{index}/_mapping/field/{fields}", h.get_field_mapping)
+    r("GET", "/_mapping/field/{fields}", h.get_field_mapping)
     # cat
     r("GET", "/_cat/indices", h.cat_indices)
     r("GET", "/_cat/health", h.cat_health)
     r("GET", "/_cat/shards", h.cat_shards)
+    r("GET", "/_cat/count", h.cat_count)
+    r("GET", "/_cat/nodes", h.cat_nodes)
+    r("GET", "/_cat/segments", h.cat_segments)
+    r("GET", "/_cat/segments/{index}", h.cat_segments)
+    r("GET", "/_cat/aliases", h.cat_aliases)
+    r("GET", "/_cat/allocation", h.cat_allocation)
+    r("GET", "/_cat/templates", h.cat_templates)
+    r("GET", "/_cat/thread_pool", h.cat_thread_pool)
+    r("GET", "/_cat/thread_pool/{name}", h.cat_thread_pool)
+    r("GET", "/_cat/tasks", h.cat_tasks)
+
+
+def _render_search_template(source, params: dict):
+    """Mustache subset: {{var}} substitution + {{#toJson}}var{{/toJson}}
+    (the two forms that cover the vast majority of real templates)."""
+    import re as _re
+
+    if isinstance(source, dict):
+        source = json.dumps(source)
+    if not isinstance(source, str):
+        raise IllegalArgumentError("[source] template is required")
+    out = _re.sub(
+        r'"\{\{#toJson\}\}(\w+)\{\{/toJson\}\}"',
+        lambda m: json.dumps(params.get(m.group(1))), source)
+    out = _re.sub(
+        r"\{\{(\w+)\}\}",
+        lambda m: json.dumps(str(params.get(m.group(1), "")))[1:-1], out)
+    try:
+        return json.loads(out)
+    except json.JSONDecodeError as e:
+        raise IllegalArgumentError(f"failed to render template: {e}")
 
 
 def _ok(body, status=200) -> RestResponse:
@@ -175,6 +296,79 @@ class _Handlers:
             "tagline": "You Know, for Search",
         })
 
+    # ---------- security (ref: x-pack security REST actions) ----------
+
+    def _sec(self):
+        sec = getattr(self.node, "security", None)
+        if sec is None:
+            raise IllegalArgumentError("security is not available")
+        return sec
+
+    def security_authenticate(self, req: RestRequest) -> RestResponse:
+        sec = self._sec()
+        if not sec.enabled:
+            authn = None
+        else:
+            authn = sec.authenticate(req.headers)
+        username = authn.username if authn else "_anonymous"
+        roles = [r.name for r in authn.roles] if authn else ["superuser"]
+        return _ok({"username": username, "roles": roles,
+                    "enabled": True,
+                    "authentication_type":
+                        authn.auth_type if authn else "anonymous"})
+
+    def security_put_user(self, req: RestRequest) -> RestResponse:
+        body = req.body or {}
+        self._sec().put_user(req.param("username"), body.get("password"),
+                             body.get("roles", []))
+        return _ok({"created": True})
+
+    def security_delete_user(self, req: RestRequest) -> RestResponse:
+        found = self._sec().delete_user(req.param("username"))
+        return _ok({"found": found}, 200 if found else 404)
+
+    def security_put_role(self, req: RestRequest) -> RestResponse:
+        self._sec().put_role(req.param("role"), req.body or {})
+        return _ok({"role": {"created": True}})
+
+    def security_get_role(self, req: RestRequest) -> RestResponse:
+        sec = self._sec()
+        role = sec.roles.get(req.param("role"))
+        if role is None:
+            return _ok({}, 404)
+        return _ok({role.name: {"cluster": role.cluster,
+                                "indices": role.indices}})
+
+    def security_delete_role(self, req: RestRequest) -> RestResponse:
+        found = self._sec().delete_role(req.param("role"))
+        return _ok({"found": found}, 200 if found else 404)
+
+    def security_create_api_key(self, req: RestRequest) -> RestResponse:
+        body = req.body or {}
+        user = req.param("_authn_user", "elastic")
+        roles = None
+        owned = []
+        if body.get("role_descriptors"):
+            # inline role descriptors register as key-OWNED ad-hoc roles,
+            # removed with the key on invalidation
+            sec = self._sec()
+            roles = []
+            for rname, rbody in body["role_descriptors"].items():
+                full = f"_api_key_{rname}_{secrets.token_hex(4)}"
+                sec.put_role(full, rbody)
+                roles.append(full)
+            owned = list(roles)
+        out = self._sec().create_api_key(user, body.get("name", ""), roles,
+                                         owned_roles=owned)
+        return _ok(out)
+
+    def security_invalidate_api_key(self, req: RestRequest) -> RestResponse:
+        body = req.body or {}
+        ids = body.get("ids") or ([body["id"]] if body.get("id") else [])
+        invalidated = [i for i in ids if self._sec().invalidate_api_key(i)]
+        return _ok({"invalidated_api_keys": invalidated,
+                    "error_count": len(ids) - len(invalidated)})
+
     # ---------- index admin ----------
 
     def create_index(self, req: RestRequest) -> RestResponse:
@@ -186,6 +380,175 @@ class _Handlers:
         for name in self._resolve(req.param("index"), require=True):
             self.node.delete_index(name)
         return _ok({"acknowledged": True})
+
+    # ---- lifecycle admin (ref: action/admin/indices/{close,open,shrink,
+    #      rollover}; MetadataRolloverService.java) ----
+
+    def close_index(self, req: RestRequest) -> RestResponse:
+        from dataclasses import replace
+
+        names = self._resolve(req.param("index"), require=True)
+        for name in names:
+            svc = self.node.indices.get(name)
+            svc.closed = True
+            meta = self.node.cluster_state.indices[name]
+            new_meta = replace(meta, state="close", version=meta.version + 1)
+            routing = self.node.cluster_state.routing[name]
+            self.node.update_state(lambda s, m=new_meta, r=routing:
+                                   s.with_index(m, r))
+        return _ok({"acknowledged": True, "shards_acknowledged": True,
+                    "indices": {n: {"closed": True} for n in names}})
+
+    def open_index(self, req: RestRequest) -> RestResponse:
+        from dataclasses import replace
+
+        for name in self._resolve(req.param("index"), require=True):
+            svc = self.node.indices.get(name)
+            svc.closed = False
+            meta = self.node.cluster_state.indices[name]
+            new_meta = replace(meta, state="open", version=meta.version + 1)
+            routing = self.node.cluster_state.routing[name]
+            self.node.update_state(lambda s, m=new_meta, r=routing:
+                                   s.with_index(m, r))
+        return _ok({"acknowledged": True, "shards_acknowledged": True})
+
+    def rollover(self, req: RestRequest) -> RestResponse:
+        """POST /{alias}/_rollover[/{new_index}] (ref:
+        MetadataRolloverService.rolloverClusterState; shared mechanics in
+        indices/rollover.py): evaluate conditions on the alias's write
+        index; when met, create the next index in the -NNNNNN sequence and
+        swap the alias."""
+        from elasticsearch_tpu_torch.indices.rollover import (
+            evaluate_rollover_conditions, next_rollover_name,
+            rollover_alias_actions,
+        )
+
+        alias = req.param("alias")
+        body = req.body or {}
+        cs = self.node.cluster_state
+        holders = [(n, cs.indices[n].aliases[alias])
+                   for n in sorted(cs.indices) if alias in cs.indices[n].aliases]
+        if not holders:
+            raise IllegalArgumentError(
+                f"rollover target [{alias}] does not point to any index")
+        writers = [h for h in holders if h[1].get("is_write_index")]
+        if len(holders) > 1 and len(writers) != 1:
+            raise IllegalArgumentError(
+                f"rollover target [{alias}] points to multiple indices "
+                "without one write index")
+        old_name, old_spec = writers[0] if writers else holders[0]
+        svc = self.node.indices.get(old_name)
+        meta = cs.indices[old_name]
+
+        conditions = body.get("conditions", {}) or {}
+        metrics = {
+            "max_docs": svc.doc_count(),
+            "max_age": int(time.time() * 1000) - meta.creation_date,
+            "max_size": svc.store_size_bytes(),
+            "max_primary_shard_size": svc.store_size_bytes()
+            // max(len(svc.shards), 1),
+            "max_primary_shard_docs": max(
+                (e.doc_count() for e in svc.shards), default=0),
+        }
+        met = evaluate_rollover_conditions(conditions, metrics)
+        rolled = (not conditions) or any(met.values())
+
+        new_name = (req.param("new_index") or body.get("new_index")
+                    or next_rollover_name(old_name))
+        resp = {"acknowledged": False, "shards_acknowledged": False,
+                "old_index": old_name, "new_index": new_name,
+                "rolled_over": False, "dry_run": bool(body.get("dry_run")),
+                "conditions": {f"[{c}: {conditions[c]}]": v
+                               for c, v in met.items()}}
+        if body.get("dry_run") or not rolled:
+            return _ok(resp)
+
+        create_body = {k: v for k, v in body.items()
+                       if k in ("settings", "mappings", "aliases")}
+        self.node.create_index(new_name, create_body)
+        for action in rollover_alias_actions(alias, old_name, new_name,
+                                             old_spec):
+            op, spec = next(iter(action.items()))
+            target = spec["index"]
+            payload = None if op == "remove" else {
+                k: v for k, v in spec.items() if k not in ("index", "alias")}
+            self._set_alias(target, alias, payload)
+        resp.update({"acknowledged": True, "shards_acknowledged": True,
+                     "rolled_over": True})
+        return _ok(resp)
+
+    def resize_shrink(self, req: RestRequest) -> RestResponse:
+        return self._resize(req, "shrink")
+
+    def resize_split(self, req: RestRequest) -> RestResponse:
+        return self._resize(req, "split")
+
+    def resize_clone(self, req: RestRequest) -> RestResponse:
+        return self._resize(req, "clone")
+
+    def _resize(self, req: RestRequest, mode: str) -> RestResponse:
+        """_shrink/_split/_clone (ref: action/admin/indices/shrink/
+        TransportResizeAction.java): create the target with the adjusted
+        shard count and re-route every live doc. TPU segments are HBM/host
+        arrays, not files — rebuilding the columnar layout IS the resize
+        (there is no hard-link shortcut to preserve), and the murmur3 _id
+        routing re-partitions exactly. Custom ?routing values are not
+        persisted per doc, so resized copies of custom-routed docs route
+        by _id (documented divergence); a doc without a stored _source
+        cannot be replayed and fails the resize up front."""
+        source = req.param("index")
+        target = req.param("target")
+        svc = self.node.indices.get(source)
+        if self.node.indices.has(target):
+            from elasticsearch_tpu_torch.common.errors import (
+                ResourceAlreadyExistsError,
+            )
+
+            raise ResourceAlreadyExistsError(
+                f"index [{target}] already exists")
+        body = req.body or {}
+        src_meta = self.node.cluster_state.indices[source]
+        src_n = src_meta.number_of_shards
+        tgt_settings = dict((body.get("settings") or {}))
+        tgt_n = int(tgt_settings.get(
+            "index.number_of_shards",
+            tgt_settings.get("number_of_shards",
+                             src_n if mode != "shrink" else 1)))
+        if mode == "shrink" and src_n % tgt_n != 0:
+            raise IllegalArgumentError(
+                f"the number of source shards [{src_n}] must be a multiple "
+                f"of [{tgt_n}]")
+        if mode == "split" and tgt_n % src_n != 0:
+            raise IllegalArgumentError(
+                f"the number of target shards [{tgt_n}] must be a multiple "
+                f"of [{src_n}]")
+        if mode == "clone" and tgt_n != src_n:
+            raise IllegalArgumentError(
+                "clone must keep the source's shard count")
+        tgt_settings["index.number_of_shards"] = tgt_n
+        self.node.create_index(target, {
+            "settings": tgt_settings,
+            "mappings": src_meta.mappings,
+            "aliases": body.get("aliases", {}),
+        })
+        tgt_svc = self.node.indices.get(target)
+        for engine in svc.shards:
+            searcher = engine.acquire_searcher()
+            for v in searcher.views:
+                seg = v.segment
+                for ord_ in range(seg.n_docs):
+                    if not bool(v.live[ord_]):
+                        continue
+                    src_doc = seg.sources[ord_]
+                    if src_doc is None:
+                        raise IllegalArgumentError(
+                            f"cannot resize [{source}]: doc "
+                            f"[{seg.doc_ids[ord_]}] has no _source to "
+                            "replay")
+                    tgt_svc.index_doc(seg.doc_ids[ord_], src_doc)
+        tgt_svc.refresh()
+        return _ok({"acknowledged": True, "shards_acknowledged": True,
+                    "index": target})
 
     def get_index(self, req: RestRequest) -> RestResponse:
         out = {}
@@ -806,6 +1169,132 @@ class _Handlers:
         ok = self.node.indices.close_pit(body.get("id", ""))
         return _ok({"succeeded": ok, "num_freed": int(ok)})
 
+    def hot_threads(self, req: RestRequest) -> RestResponse:
+        """ref: RestNodesHotThreadsAction — two-sample stack diff per node,
+        fanned out across the cluster by the task plane; idle pool workers
+        whose stacks didn't move between samples are elided."""
+        return RestResponse(status=200,
+                            body=self.node.task_plane.hot_threads(),
+                            content_type="text/plain")
+
+    # ---------- termvectors / templates(search) ----------
+
+    def termvectors(self, req: RestRequest) -> RestResponse:
+        """ref: RestTermVectorsAction — per-field term/freq/position stats
+        for one document. REALTIME: the stored source is re-analyzed
+        through the mapper (exactly what indexing did), so unrefreshed
+        docs work and cost is O(doc terms), not O(vocabulary); df/ttf
+        term statistics come from the postings for just the doc's terms."""
+        names = self._resolve(req.param("index"), require=True)
+        if len(names) != 1:
+            raise IllegalArgumentError(
+                "_termvectors requires exactly one concrete index")
+        name = names[0]
+        doc_id = req.param("id")
+        svc = self.node.indices.get(name)
+        source = svc.get_doc(doc_id)          # realtime (version map)
+        if source is None:
+            raise DocumentMissingError(f"[{doc_id}]: document missing")
+        body = dict(req.body or {})
+        want = body.get("fields") or req.param("fields")
+        if isinstance(want, str):
+            want = want.split(",")
+        parsed = svc.mapper.parse(doc_id, source["_source"]
+                                  if "_source" in source else source)
+        engine = svc.shard_for(doc_id)
+        searcher = engine.acquire_searcher()
+        tv = {}
+        field_terms = dict(parsed.inverted)
+        for fname, values in parsed.keyword.items():
+            field_terms.setdefault(fname, [(v, [0]) for v in values])
+        for fname, entries in field_terms.items():
+            if want and fname not in want:
+                continue
+            merged: Dict[str, list] = {}
+            for term, positions in entries:
+                merged.setdefault(term, []).extend(positions)
+            terms_out = {}
+            for t, positions in sorted(merged.items()):
+                entry: Dict[str, Any] = {"term_freq": len(positions)}
+                entry["tokens"] = [{"position": int(p)}
+                                   for p in sorted(positions)]
+                if body.get("term_statistics"):
+                    df = ttf = 0
+                    for v in searcher.views:
+                        d, f = v.segment.term_stats(fname, t)
+                        df += d
+                        ttf += f
+                    entry["doc_freq"] = df
+                    entry["ttf"] = ttf
+                terms_out[t] = entry
+            if terms_out:
+                stats = {}
+                for v in searcher.views:
+                    fp = v.segment.postings.get(fname)
+                    if fp is None:
+                        continue
+                    stats["sum_doc_freq"] = stats.get("sum_doc_freq", 0) + \
+                        int(fp.doc_freq.sum())
+                    stats["sum_ttf"] = stats.get("sum_ttf", 0) + \
+                        int(fp.total_term_freq.sum())
+                    stats["doc_count"] = stats.get("doc_count", 0) + \
+                        int((fp.doc_len > 0).sum())
+                tv[fname] = {
+                    "field_statistics": {
+                        "sum_doc_freq": stats.get("sum_doc_freq", 0),
+                        "doc_count": stats.get("doc_count", 0),
+                        "sum_ttf": stats.get("sum_ttf", 0),
+                    },
+                    "terms": terms_out,
+                }
+        return _ok({"_index": name, "_id": doc_id, "found": True,
+                    "term_vectors": tv})
+
+    def render_template(self, req: RestRequest) -> RestResponse:
+        body = dict(req.body or {})
+        rendered = _render_search_template(
+            body.get("source"), body.get("params") or {})
+        return _ok({"template_output": rendered})
+
+    def search_template(self, req: RestRequest) -> RestResponse:
+        """ref: RestSearchTemplateAction (mustache module) — render the
+        source template with params, then execute as a normal search."""
+        body = dict(req.body or {})
+        rendered = _render_search_template(
+            body.get("source"), body.get("params") or {})
+        sub = RestRequest("POST", "", dict(req.params), rendered)
+        return self.search(sub)
+
+    # ---------- index templates / cluster settings ----------
+
+    def put_index_template(self, req: RestRequest) -> RestResponse:
+        self.node.indices.put_template(req.param("name"),
+                                       dict(req.body or {}))
+        return _ok({"acknowledged": True})
+
+    def get_index_template(self, req: RestRequest) -> RestResponse:
+        import fnmatch as _fn
+
+        name = req.param("name")
+        out = [{"name": n, "index_template": t}
+               for n, t in self.node.indices.templates.items()
+               if _fn.fnmatchcase(n, name)]
+        if not out and "*" not in name:
+            e = ElasticsearchTpuError(
+                f"index template matching [{name}] not found")
+            e.status = 404
+            raise e
+        return _ok({"index_templates": out})
+
+    def get_index_templates(self, req: RestRequest) -> RestResponse:
+        return _ok({"index_templates": [
+            {"name": n, "index_template": t}
+            for n, t in self.node.indices.templates.items()]})
+
+    def delete_index_template(self, req: RestRequest) -> RestResponse:
+        self.node.indices.delete_template(req.param("name"))
+        return _ok({"acknowledged": True})
+
     def get_cluster_settings(self, req: RestRequest) -> RestResponse:
         from elasticsearch_tpu_torch.common.settings import Settings as _S
 
@@ -850,6 +1339,374 @@ class _Handlers:
                     "persistent": _S(self.node._persistent_settings).as_nested_dict(),
                     "transient": _S(self.node._transient_settings).as_nested_dict()})
 
+    def cluster_reroute(self, req: RestRequest) -> RestResponse:
+        """POST /_cluster/reroute (ref: RestClusterRerouteAction) —
+        explicit `move` commands through the same allocation step the
+        drain/rebalance deciders use; `dry_run` plans and discards. On a
+        standalone node every move is explained-and-rejected (there is no
+        second node), which is exactly what the reference answers too."""
+        from elasticsearch_tpu_torch.cluster.allocation import AllocationService
+
+        body = dict(req.body or {})
+        commands = list(body.get("commands", []))
+        dry_run = req.param_bool("dry_run") or bool(body.get("dry_run"))
+        alloc = AllocationService()
+
+        def plan(state, explain):
+            st = state
+            # commands address nodes by id OR name (the reference resolves
+            # both in DiscoveryNodes#resolveNode)
+            by_name = {n.name: nid for nid, n in st.nodes.items()}
+            for cmd in commands:
+                move = cmd.get("move")
+                if not move:
+                    if explain is not None:
+                        explain.append({
+                            "command": sorted(cmd)[0] if cmd else "?",
+                            "accepted": False,
+                            "reason": "only the move command is supported"})
+                    continue
+                index = move["index"]
+                sid = int(move["shard"])
+                frm, to = move["from_node"], move["to_node"]
+                frm = frm if frm in st.nodes else by_name.get(frm, frm)
+                to = to if to in st.nodes else by_name.get(to, to)
+                src = next(
+                    (r for r in st.routing.get(index, [])
+                     if r.shard_id == sid and r.node_id == frm
+                     and r.state == "STARTED"), None)
+                if src is None:
+                    if explain is not None:
+                        explain.append({
+                            "command": "move", "index": index, "shard": sid,
+                            "accepted": False,
+                            "reason": f"no STARTED copy of [{index}][{sid}] "
+                                      f"on [{frm}]"})
+                    continue
+                moved = alloc.initiate_relocation(
+                    st, index, sid, src.allocation_id, to)
+                if explain is not None:
+                    explain.append({
+                        "command": "move", "index": index, "shard": sid,
+                        "from_node": frm, "to_node": to,
+                        "accepted": moved is not st,
+                        **({} if moved is not st else
+                           {"reason": "move rejected: target unknown, same "
+                                      "node, or already holds a copy"})})
+                st = moved
+            return st
+
+        explanations: list = []
+        plan(self.node.cluster_state, explanations)
+        if not dry_run:
+            self.node.update_state(lambda st: alloc.reroute(plan(st, None)))
+        return _ok({"acknowledged": True, "dry_run": dry_run,
+                    "explanations": explanations,
+                    "state": {"version": self.node.cluster_state.version}})
+
+    # ---------- rank_eval (ref: modules/rank-eval RankEvalPlugin) ----------
+
+    def rank_eval(self, req: RestRequest) -> RestResponse:
+        body = dict(req.body or {})
+        names = self._resolve(req.param("index"), require=True)
+        metric_spec = body.get("metric", {"precision": {}})
+        if not isinstance(metric_spec, dict) or len(metric_spec) != 1:
+            raise IllegalArgumentError(
+                "[metric] must name exactly one metric")
+        (mname, mparams), = metric_spec.items()
+        mparams = mparams or {}
+        k = int(mparams.get("k", 10))
+        details = {}
+        scores = []
+        for r in body.get("requests", []):
+            rid = r["id"]
+            rated = {(d["_index"], d["_id"]): int(d["rating"])
+                     for d in r.get("ratings", [])}
+            request = dict(r.get("request") or {})
+            request.setdefault("size", k)
+            if len(names) == 1:
+                resp = self.node.indices.get(names[0]).search(request)
+            else:
+                resp = self._multi_index_search(names, request,
+                                                "query_then_fetch")
+            hits = resp["hits"]["hits"][:k]
+            hit_rated = [rated.get((h["_index"], h["_id"]), None)
+                         for h in hits]
+            rel_thresh = int(mparams.get("relevant_rating_threshold", 1))
+            relevant = [x is not None and x >= rel_thresh for x in hit_rated]
+            if mname == "precision":
+                denom = len(hits) if not mparams.get(
+                    "ignore_unlabeled") else sum(
+                    1 for x in hit_rated if x is not None)
+                score = (sum(relevant) / denom) if denom else 0.0
+            elif mname == "recall":
+                total_rel = sum(1 for v in rated.values() if v >= rel_thresh)
+                score = (sum(relevant) / total_rel) if total_rel else 0.0
+            elif mname == "mean_reciprocal_rank":
+                score = 0.0
+                for i, ok in enumerate(relevant):
+                    if ok:
+                        score = 1.0 / (i + 1)
+                        break
+            elif mname == "dcg":
+                import math
+
+                # ref: DiscountedCumulativeGain — exponential gain
+                score = sum((2 ** (x or 0) - 1) / math.log2(i + 2)
+                            for i, x in enumerate(hit_rated))
+            else:
+                raise IllegalArgumentError(f"unknown metric [{mname}]")
+            scores.append(score)
+            details[rid] = {
+                "metric_score": score,
+                "unrated_docs": [{"_index": h["_index"], "_id": h["_id"]}
+                                 for h, x in zip(hits, hit_rated)
+                                 if x is None],
+                "hits": [{"hit": {"_index": h["_index"], "_id": h["_id"],
+                                  "_score": h.get("_score")},
+                          "rating": x} for h, x in zip(hits, hit_rated)],
+            }
+        return _ok({"metric_score": (sum(scores) / len(scores)) if scores
+                    else 0.0, "details": details, "failures": {}})
+
+    # ---------- async search (ref: x-pack async-search) ----------
+
+    _ASYNC_KEEP_S = 300.0
+    _ASYNC_MAX = 100
+
+    def _async_store(self):
+        """Created eagerly in Node.__init__ (lazy creation would race under
+        the threaded HTTP server); completed entries expire after keep-alive
+        and the store is size-capped (the reference expires via keep_alive)."""
+        import time as _time
+
+        store = self.node._async_searches
+        now = _time.monotonic()
+        dead = [k for k, v in list(store.items())
+                if not v["is_running"] and v.get("expires_at", 0) < now]
+        for k in dead:
+            store.pop(k, None)
+        while len(store) > self._ASYNC_MAX:
+            store.pop(next(iter(store)), None)
+        return store
+
+    def async_search_submit(self, req: RestRequest) -> RestResponse:
+        import threading as _t
+        import time as _time
+        import uuid as _uuid
+
+        names = self._resolve(req.param("index"), require=True)
+        body = dict(req.body or {})
+        wait_ms = 0
+        if req.param("wait_for_completion_timeout") is not None:
+            from elasticsearch_tpu_torch.tasks.task_manager import parse_timeout_ms
+
+            wait_ms = parse_timeout_ms(
+                req.param("wait_for_completion_timeout")) or 0
+        sid = _uuid.uuid4().hex
+        task = self.node.tasks.register("indices:data/read/async_search",
+                                        f"async[{','.join(names)}]")
+        entry = {"is_running": True, "is_partial": True, "response": None,
+                 "error": None, "start": int(_time.time() * 1000),
+                 "task": task, "done": _t.Event()}
+        self._async_store()[sid] = entry
+
+        def run():
+            try:
+                if len(names) == 1:
+                    entry["response"] = self.node.indices.get(
+                        names[0]).search(body, task=task)
+                else:
+                    entry["response"] = self._multi_index_search(
+                        names, body, "query_then_fetch", task=task)
+            except ElasticsearchTpuError as e:
+                entry["error"] = e
+            except Exception as e:  # noqa: BLE001 — a failed search must
+                err = ElasticsearchTpuError(str(e))   # never report success
+                err.status = 500
+                entry["error"] = err
+            finally:
+                import time as _tt
+
+                entry["is_running"] = False
+                entry["is_partial"] = entry["response"] is None
+                entry["expires_at"] = _tt.monotonic() + self._ASYNC_KEEP_S
+                self.node.tasks.unregister(task)
+                entry["done"].set()
+
+        _t.Thread(target=run, daemon=True,
+                  name=f"async-search-{sid[:8]}").start()
+        if wait_ms:
+            entry["done"].wait(wait_ms / 1000.0)
+        return self._async_render(sid, entry)
+
+    def _async_render(self, sid, entry) -> RestResponse:
+        if entry["error"] is not None:
+            e = entry["error"]
+            return RestResponse(status=e.status,
+                               body={"error": e.to_dict(), "id": sid})
+        return _ok({
+            "id": sid,
+            "is_running": entry["is_running"],
+            "is_partial": entry["is_running"] or entry["response"] is None,
+            "start_time_in_millis": entry["start"],
+            "response": entry["response"] or {
+                "hits": {"total": {"value": 0, "relation": "gte"},
+                         "hits": []}},
+        })
+
+    def async_search_get(self, req: RestRequest) -> RestResponse:
+        entry = self._async_store().get(req.param("id"))
+        if entry is None:
+            e = ElasticsearchTpuError(
+                f"async search [{req.param('id')}] not found")
+            e.status = 404
+            raise e
+        return self._async_render(req.param("id"), entry)
+
+    def async_search_delete(self, req: RestRequest) -> RestResponse:
+        entry = self._async_store().pop(req.param("id"), None)
+        if entry is None:
+            e = ElasticsearchTpuError("not found")
+            e.status = 404
+            raise e
+        if entry["is_running"]:
+            entry["task"].cancel("async search deleted")
+        return _ok({"acknowledged": True})
+
+    # ---------- reindex / field_caps / explain ----------
+
+    def reindex(self, req: RestRequest) -> RestResponse:
+        """Server-side scan + bulk copy (ref: RestReindexAction /
+        reindex module): source index (+ optional query) into dest,
+        optionally through an ingest pipeline."""
+        body = dict(req.body or {})
+        src_spec = body.get("source") or {}
+        dest_spec = body.get("dest") or {}
+        src_names = self._resolve(src_spec.get("index"), require=True)
+        dest = dest_spec.get("index")
+        if not dest:
+            raise IllegalArgumentError("[dest.index] is required")
+        pipeline = dest_spec.get("pipeline")
+        op_type = dest_spec.get("op_type", "index")
+        query = src_spec.get("query", {"match_all": {}})
+        start = time.monotonic()
+        created = updated = noops = conflicts = 0
+        failures: list = []
+        with self.node.tasks.task("indices:data/write/reindex",
+                                  f"reindex to [{dest}]") as task:
+            if not self.node.indices.has(dest):
+                self.node.create_index(dest, {})
+            dsvc = self.node.indices.get(dest)
+            for name in src_names:
+                svc = self.node.indices.get(name)
+                # scan via the cursor machinery (stable under writes)
+                body_q = {"query": query, "size": 500, "_want_cursor": True}
+                resp = svc._search_dense(dict(body_q), task=task)
+                while True:
+                    hits = resp["hits"]["hits"]
+                    if not hits:
+                        break
+                    for h in hits:
+                        task.check()
+                        source = h.get("_source", {})
+                        doc_id = h["_id"]
+                        routed = self._run_pipeline(dest, doc_id, source,
+                                                    pipeline)
+                        if routed is None:
+                            noops += 1
+                            continue
+                        source, d_index, doc_id = routed
+                        target = dsvc if d_index == dest else None
+                        if target is None:
+                            if not self.node.indices.has(d_index):
+                                self.node.create_index(d_index, {})
+                            target = self.node.indices.get(d_index)
+                        try:
+                            r = target.index_doc(doc_id, source,
+                                                 op_type=op_type)
+                            if r.result == "created":
+                                created += 1
+                            else:
+                                updated += 1
+                        except VersionConflictError:
+                            conflicts += 1
+                        except ElasticsearchTpuError as e:
+                            # non-conflict errors (mapping conflicts etc.)
+                            # must surface in `failures`, not masquerade as
+                            # version_conflicts (ref: reindex module's
+                            # BulkByScrollResponse)
+                            failures.append({
+                                "index": d_index, "id": doc_id,
+                                "cause": {"type": e.error_type,
+                                          "reason": str(e)},
+                                "status": e.status})
+                    cursor = resp.get("_cursor")
+                    if cursor is None:
+                        break
+                    resp = svc._search_dense({**body_q, "_after_full": cursor},
+                                             task=task)
+            dsvc.refresh()
+        return _ok({"took": int((time.monotonic() - start) * 1000),
+                    "timed_out": False, "total": created + updated + noops,
+                    "created": created, "updated": updated, "noops": noops,
+                    "failures": failures, "batches": 1,
+                    "version_conflicts": conflicts})
+
+    def field_caps(self, req: RestRequest) -> RestResponse:
+        """ref: RestFieldCapabilitiesAction — per-field type/searchable/
+        aggregatable union across the target indices."""
+        import fnmatch as _fn
+
+        body = dict(req.body or {})
+        pattern = req.param("fields") or body.get("fields", "*")
+        if isinstance(pattern, str):
+            pattern = pattern.split(",")
+        names = self._resolve(req.param("index", "_all"), require=True)
+        fields: Dict[str, dict] = {}
+        for name in names:
+            mapper = self.node.indices.get(name).mapper
+            for fname in mapper.field_names():
+                ft = mapper.field_type(fname)
+                if not any(_fn.fnmatchcase(fname, p) for p in pattern):
+                    continue
+                type_ = ft.params.get("type", "object")
+                caps = fields.setdefault(fname, {}).setdefault(type_, {
+                    "type": type_,
+                    "metadata_field": False,
+                    "searchable": ft.searchable,
+                    "aggregatable": ft.has_doc_values,
+                })
+        return _ok({"indices": names, "fields": fields})
+
+    def explain(self, req: RestRequest) -> RestResponse:
+        """ref: RestExplainAction — does this doc match, and with what
+        score? Executed by filtering the query to the single document."""
+        name = self._resolve(req.param("index"), require=True)[0]
+        doc_id = req.param("id")
+        svc = self.node.indices.get(name)
+        if svc.get_doc(doc_id) is None:
+            from elasticsearch_tpu_torch.common.errors import DocumentMissingError
+
+            raise DocumentMissingError(f"[{doc_id}]: document missing")
+        body = dict(req.body or {})
+        query = body.get("query", {"match_all": {}})
+        r = svc.search({"query": {"bool": {
+            "must": [query], "filter": [{"ids": {"values": [doc_id]}}]}},
+            "size": 1})
+        hits = r["hits"]["hits"]
+        matched = bool(hits) and hits[0]["_id"] == doc_id
+        score = hits[0]["_score"] if matched else 0.0
+        return _ok({"_index": name, "_id": doc_id, "matched": matched,
+                    "explanation": {
+                        "value": score,
+                        "description": "score, computed as the sum of the "
+                                       "matching clauses' BM25 contributions",
+                        "details": [],
+                    } if matched else {"value": 0.0,
+                                       "description": "no matching term",
+                                       "details": []}})
+
     # ---------- ingest ----------
 
     def _run_pipeline(self, index: str, doc_id: str, source: dict,
@@ -864,6 +1721,118 @@ class _Handlers:
             return source, index, doc_id
         return self.node.ingest.process(pid, source, index=index,
                                         doc_id=doc_id or "")
+
+    def put_pipeline(self, req: RestRequest) -> RestResponse:
+        self.node.ingest.put_pipeline(req.param("id"), dict(req.body or {}))
+        return _ok({"acknowledged": True})
+
+    def get_pipeline(self, req: RestRequest) -> RestResponse:
+        p = self.node.ingest.get_pipeline(req.param("id"))
+        return _ok({p.id: p.body})
+
+    def get_pipelines(self, req: RestRequest) -> RestResponse:
+        return _ok(self.node.ingest.pipelines())
+
+    def delete_pipeline(self, req: RestRequest) -> RestResponse:
+        self.node.ingest.delete_pipeline(req.param("id"))
+        return _ok({"acknowledged": True})
+
+    def simulate_pipeline(self, req: RestRequest) -> RestResponse:
+        body = dict(req.body or {})
+        if req.param("id"):
+            pipeline_body = self.node.ingest.get_pipeline(req.param("id")).body
+        else:
+            pipeline_body = body.get("pipeline", {})
+        docs = self.node.ingest.simulate(pipeline_body, body.get("docs", []))
+        return _ok({"docs": docs})
+
+    # ---------- snapshots ----------
+
+    def put_repository(self, req: RestRequest) -> RestResponse:
+        body = dict(req.body or {})
+        self.node.snapshots.put_repository(
+            req.param("repo"), body.get("type", ""),
+            body.get("settings", {}))
+        return _ok({"acknowledged": True})
+
+    def get_repository(self, req: RestRequest) -> RestResponse:
+        repo = self.node.snapshots.repository(req.param("repo"))
+        return _ok({repo.name: {"type": "fs",
+                                "settings": {"location": repo.location}}})
+
+    def verify_repository(self, req: RestRequest) -> RestResponse:
+        """POST /_snapshot/{repo}/_verify — probe round-trip plus a full
+        re-hash of every referenced segment blob (integrity plane);
+        corrupt blobs come back as per-index lists, not a bare boolean."""
+        return _ok(self.node.snapshots.verify_repository(req.param("repo")))
+
+    def create_snapshot(self, req: RestRequest) -> RestResponse:
+        body = dict(req.body or {})
+        indices = body.get("indices")
+        if isinstance(indices, str):
+            indices = [i for n in indices.split(",")
+                       for i in self._resolve(n, require=True)]
+        meta = self.node.snapshots.create(
+            req.param("repo"), req.param("snapshot"), indices)
+        return _ok({"snapshot": meta})
+
+    def get_snapshot(self, req: RestRequest) -> RestResponse:
+        import fnmatch
+
+        snap = req.param("snapshot")
+        if snap == "_all" or "*" in snap:
+            snaps = self.node.snapshots.list(req.param("repo"))
+            if snap != "_all":
+                snaps = [s for s in snaps
+                         if fnmatch.fnmatchcase(s["snapshot"], snap)]
+            return _ok({"snapshots": snaps})
+        return _ok({"snapshots": [
+            self.node.snapshots.get(req.param("repo"), snap)]})
+
+    def delete_snapshot(self, req: RestRequest) -> RestResponse:
+        self.node.snapshots.delete(req.param("repo"), req.param("snapshot"))
+        return _ok({"acknowledged": True})
+
+    def restore_snapshot(self, req: RestRequest) -> RestResponse:
+        body = dict(req.body or {})
+        indices = body.get("indices")
+        if isinstance(indices, str):
+            indices = indices.split(",")
+        return _ok(self.node.snapshots.restore(
+            req.param("repo"), req.param("snapshot"), indices,
+            body.get("rename_pattern"), body.get("rename_replacement")))
+
+    # ---------- tasks (ref: RestListTasksAction, RestCancelTasksAction) ----------
+
+    def list_tasks(self, req: RestRequest) -> RestResponse:
+        """Cluster-wide listing via the task plane: fans out over every
+        cluster node, degrades to partial results + `node_failures` when
+        a peer is dead (ref: TransportListTasksAction)."""
+        return _ok(self.node.task_plane.list(
+            actions=req.param("actions"),
+            nodes=req.param("nodes"),
+            parent_task_id=req.param("parent_task_id"),
+            detailed=req.param_bool("detailed"),
+            group_by=req.param("group_by", "nodes")))
+
+    def get_task(self, req: RestRequest) -> RestResponse:
+        # routed by the `{node}:{id}` prefix — a remote owner answers over
+        # the transport; an unknown/dead owner 404s (malformed ids 400)
+        return _ok(self.node.task_plane.get(req.param("task_id", "")))
+
+    def cancel_task(self, req: RestRequest) -> RestResponse:
+        from elasticsearch_tpu_torch.tasks.task_manager import parse_timeout_ms
+
+        return _ok(self.node.task_plane.cancel(
+            req.param("task_id", ""),
+            wait_for_completion=req.param_bool("wait_for_completion"),
+            timeout_ms=parse_timeout_ms(req.param("timeout"))))
+
+    def cancel_tasks(self, req: RestRequest) -> RestResponse:
+        actions = req.param("actions", "*")
+        cancelled = self.node.tasks.cancel_matching(actions)
+        return _ok({"nodes": {self.node.tasks.node_id: {
+            "tasks": {f"{t.node}:{t.id}": t.to_dict() for t in cancelled}}}})
 
     def search_all(self, req: RestRequest) -> RestResponse:
         req.params.setdefault("index", "_all")
@@ -1190,6 +2159,34 @@ class _Handlers:
             } for nid, n in cs.nodes.items()},
         })
 
+    # ---- cross-cluster plane ----
+
+    def remote_info(self, req: RestRequest) -> RestResponse:
+        """GET /_remote/info (ref: RestRemoteClusterInfoAction)."""
+        return _ok(self.node.remotes.remote_info())
+
+    def ccr_follow(self, req: RestRequest) -> RestResponse:
+        """PUT /{index}/_ccr/follow (ref: RestPutFollowAction)."""
+        body = dict(req.body or {})
+        remote_cluster = body.get("remote_cluster")
+        leader_index = body.get("leader_index")
+        if not remote_cluster or not leader_index:
+            raise IllegalArgumentError(
+                "_ccr/follow requires [remote_cluster] and [leader_index]")
+        return _ok(self.node.ccr.follow(
+            req.param("index"), remote_cluster, leader_index,
+            settings=body.get("settings")))
+
+    def ccr_pause_follow(self, req: RestRequest) -> RestResponse:
+        return _ok(self.node.ccr.pause_follow(req.param("index")))
+
+    def ccr_resume_follow(self, req: RestRequest) -> RestResponse:
+        return _ok(self.node.ccr.resume_follow(req.param("index")))
+
+    def ccr_stats(self, req: RestRequest) -> RestResponse:
+        """GET /{index}/_ccr/stats (ref: RestFollowStatsAction)."""
+        return _ok(self.node.ccr.follower_stats(req.param("index")))
+
     def _local_node_stats(self) -> dict:
         """This node's full stats sections — the REST body for a
         single-node cluster and the telemetry plane's RPC answer when a
@@ -1246,6 +2243,45 @@ class _Handlers:
             out["_nodes"]["failures"] = failures
             out["node_failures"] = failures
         return _ok(out)
+
+    def tpu_metrics(self, req: RestRequest) -> RestResponse:
+        """GET /_tpu/metrics — every declared counter/gauge/histogram from
+        all live nodes as one Prometheus text exposition (histograms in
+        cumulative-`le` form); dead peers degrade to es_tpu_node_up 0."""
+        text, _failures = self.node.telemetry_plane.prometheus()
+        return RestResponse(body=text,
+                            content_type="text/plain; version=0.0.4")
+
+    def tpu_metrics_history(self, req: RestRequest) -> RestResponse:
+        """GET /_tpu/metrics/history — the sampler ring: periodic
+        counter/gauge snapshots (ES_TPU_METRICS_SAMPLE_S) plus provider
+        sections like the scheduler's per-lane busy fraction, so rates
+        are computable without an external scraper."""
+        from elasticsearch_tpu_torch.common import metrics as _m
+        from elasticsearch_tpu_torch.common.settings import knob
+
+        samples = _m.metrics_history()
+        return _ok({"interval_s": knob("ES_TPU_METRICS_SAMPLE_S"),
+                    "capacity": knob("ES_TPU_METRICS_HISTORY"),
+                    "sampler_running": _m.maybe_start_sampler(),
+                    "samples": samples})
+
+    def tpu_slowlog(self, req: RestRequest) -> RestResponse:
+        """GET /_tpu/slowlog — the bounded in-memory search slowlog ring:
+        structured over-threshold records (phase, level, index, took_ms,
+        query source, trace id + per-phase breakdown when traced), newest
+        last, plus the cumulative per-level counters."""
+        from elasticsearch_tpu_torch.common import tracing
+
+        return _ok({"slowlog": tracing.slowlog_entries(),
+                    **tracing.slowlog_stats()})
+
+    def tpu_traces(self, req: RestRequest) -> RestResponse:
+        """GET /_tpu/trace — the flight-recorder ring: recently completed
+        traced requests with their spans (bounded by ES_TPU_TRACE_RING)."""
+        from elasticsearch_tpu_torch.common import tracing
+
+        return _ok({"traces": tracing.recent_traces()})
 
     # ---------- aliases ----------
 
@@ -1335,6 +2371,88 @@ class _Handlers:
                     return RestResponse(status=200, body={})
         return RestResponse(status=404, body={})
 
+    # ---------- legacy (v1) index templates (ref:
+    #            MetadataIndexTemplateService legacy put/get) ----------
+
+    def _legacy_templates(self) -> dict:
+        if not hasattr(self.node, "_legacy_templates"):
+            self.node._legacy_templates = {}
+        return self.node._legacy_templates
+
+    def put_legacy_template(self, req: RestRequest) -> RestResponse:
+        body = req.body or {}
+        if "index_patterns" not in body and "template" not in body:
+            raise IllegalArgumentError(
+                "index_template [missing index_patterns]")
+        name = req.param("name")
+        stored = dict(body)
+        pats = stored.get("index_patterns")
+        if isinstance(pats, str):
+            stored["index_patterns"] = [pats]
+        self._legacy_templates()[name] = stored
+        # bridge onto the composable registry so creation-time application
+        # uses one mechanism
+        patterns = body.get("index_patterns") or [body.get("template")]
+        if isinstance(patterns, str):
+            patterns = [patterns]
+        self.node.indices.put_template("__legacy__" + name, {
+            "index_patterns": patterns,
+            "template": {k: v for k, v in body.items()
+                         if k in ("settings", "mappings", "aliases")},
+            "priority": int(body.get("order", 0)),
+        })
+        return _ok({"acknowledged": True})
+
+    def get_legacy_template(self, req: RestRequest) -> RestResponse:
+        import fnmatch as _fn
+
+        want = req.param("name")
+        store = self._legacy_templates()
+        pats = [p.strip() for p in want.split(",")] if want else ["*"]
+        out = {n: b for n, b in store.items()
+               if any(_fn.fnmatchcase(n, p) for p in pats)}
+        if want and not any("*" in p for p in pats) and not out:
+            return _ok({"error": f"template [{want}] missing",
+                        "status": 404}, 404)
+        return _ok(out)
+
+    def get_legacy_templates(self, req: RestRequest) -> RestResponse:
+        return _ok(dict(self._legacy_templates()))
+
+    def delete_legacy_template(self, req: RestRequest) -> RestResponse:
+        name = req.param("name")
+        if name not in self._legacy_templates():
+            return _ok({"error": f"index_template [{name}] missing",
+                        "status": 404}, 404)
+        del self._legacy_templates()[name]
+        try:
+            self.node.indices.delete_template("__legacy__" + name)
+        except Exception:  # noqa: BLE001 — bridge entry may be absent
+            pass
+        return _ok({"acknowledged": True})
+
+    def head_legacy_template(self, req: RestRequest) -> RestResponse:
+        ok = req.param("name") in self._legacy_templates()
+        return RestResponse(status=200 if ok else 404, body={})
+
+    def get_field_mapping(self, req: RestRequest) -> RestResponse:
+        """GET /{index}/_mapping/field/{fields} (ref:
+        TransportGetFieldMappingsAction)."""
+        import fnmatch as _fn
+
+        fields = [f.strip() for f in req.param("fields", "").split(",")]
+        out = {}
+        for name in self._resolve(req.param("index", "_all"), require=False):
+            svc = self.node.indices.get(name)
+            props = svc.mapper.mapping().get("properties", {})
+            matched = {}
+            for fname, fdef in props.items():
+                if any(_fn.fnmatchcase(fname, p) for p in fields):
+                    matched[fname] = {"full_name": fname,
+                                      "mapping": {fname.split(".")[-1]: fdef}}
+            out[name] = {"mappings": matched}
+        return _ok(out)
+
     # ---------- cat ----------
 
     def cat_indices(self, req: RestRequest) -> RestResponse:
@@ -1381,6 +2499,83 @@ class _Handlers:
                     node = f"{node} -> {node_name(s.relocating_node_id)}"
                 rows.append(f"{index} {s.shard_id} {kind} {s.state} {docs} 0b "
                             f"{'127.0.0.1' if s.node_id else ''} {node}")
+        return RestResponse(body="\n".join(rows) + ("\n" if rows else ""),
+                            content_type="text/plain")
+
+    def cat_allocation(self, req: RestRequest) -> RestResponse:
+        n_shards = sum(1 for shards in self.node.cluster_state.routing.values()
+                       for r in shards if r.state == "STARTED")
+        return RestResponse(
+            status=200,
+            body=f"{n_shards} {self.node.node_name}\n",
+            content_type="text/plain")
+
+    def cat_count(self, req: RestRequest) -> RestResponse:
+        total = sum(self.node.indices.get(n).doc_count() for n in self.node.indices.names())
+        return RestResponse(body=f"{int(time.time())} {time.strftime('%H:%M:%S')} {total}\n",
+                            content_type="text/plain")
+
+    def cat_segments(self, req: RestRequest) -> RestResponse:
+        lines = []
+        for name in self._resolve(req.param("index", "_all")):
+            svc = self.node.indices.get(name)
+            for sid, engine in enumerate(svc.shards):
+                se = engine.acquire_searcher()
+                for v in se.views:
+                    lines.append(
+                        f"{name} {sid} _{v.segment.seg_id} "
+                        f"{int(v.live.sum())} "
+                        f"{v.segment.n_docs - int(v.live.sum())} "
+                        f"{v.segment.ram_bytes()}")
+        return RestResponse(status=200, body="\n".join(lines) + "\n",
+                            content_type="text/plain")
+
+    def cat_aliases(self, req: RestRequest) -> RestResponse:
+        lines = []
+        for name, meta in self.node.cluster_state.indices.items():
+            for alias in meta.aliases:
+                lines.append(f"{alias} {name} - - - -")
+        return RestResponse(status=200, body="\n".join(lines) + "\n",
+                            content_type="text/plain")
+
+    def cat_templates(self, req: RestRequest) -> RestResponse:
+        lines = [f"{n} [{','.join(t['index_patterns'])}] {t['priority']}"
+                 for n, t in self.node.indices.templates.items()]
+        return RestResponse(status=200, body="\n".join(lines) + "\n",
+                            content_type="text/plain")
+
+    def cat_nodes(self, req: RestRequest) -> RestResponse:
+        rows = [f"127.0.0.1 0 0 - cdfhilmrstw * {self.node.node_name}"]
+        return RestResponse(body="\n".join(rows) + "\n", content_type="text/plain")
+
+    def cat_thread_pool(self, req: RestRequest) -> RestResponse:
+        """GET /_cat/thread_pool[/{name}] — the reference's default
+        columns (node_name name active queue rejected) extended with the
+        flight recorder's queue-wait view: the smoothed queue-wait EWMA
+        and the queue-wait histogram p99 per pool."""
+        import fnmatch as _fn
+
+        from elasticsearch_tpu_torch.common import metrics
+
+        want = req.param("name")
+        pats = [p.strip() for p in want.split(",")] if want else None
+        rows = []
+        for name, st in sorted(self.node.thread_pool.stats().items()):
+            if pats and not any(_fn.fnmatchcase(name, p) for p in pats):
+                continue
+            s = metrics.summary(f"queue_wait.{name}")
+            p99 = s["p99"] if s else 0.0
+            rows.append(f"{self.node.node_name} {name} {st['active']} "
+                        f"{st['queue']} {st['rejected']} "
+                        f"{st['queue_ewma_ms']} {p99}")
+        return RestResponse(body="\n".join(rows) + ("\n" if rows else ""),
+                            content_type="text/plain")
+
+    def cat_tasks(self, req: RestRequest) -> RestResponse:
+        """GET /_cat/tasks — cluster-wide flat task rows via the task
+        plane's fan-out (ref: RestCatTasksAction default columns)."""
+        rows = self.node.task_plane.cat_rows(
+            detailed=req.param_bool("detailed"))
         return RestResponse(body="\n".join(rows) + ("\n" if rows else ""),
                             content_type="text/plain")
 

@@ -43,7 +43,8 @@ def test_port_imports_without_jax_or_reference():
     # package, subpackages and modules: the 33 of slices 1-4 at least, the
     # in-process search path, the serving entry point (index service,
     # serving context, scheduler, coalescer, pools, cluster state), and the
-    # REST node with what it builds (`python -m elasticsearch_tpu_torch`)
+    # REST node with what it builds (`python -m elasticsearch_tpu_torch`):
+    # security, snapshots, the task plane, rollover and shard allocation
     names = set(r.stdout.strip().splitlines()[:-1])
     assert {
         "elasticsearch_tpu_torch.__main__",
@@ -74,8 +75,33 @@ def test_port_imports_without_jax_or_reference():
         "elasticsearch_tpu_torch.common.tracing",
         "elasticsearch_tpu_torch.common.overload",
         "elasticsearch_tpu_torch.common.breaker",
+        "elasticsearch_tpu_torch.security",
+        "elasticsearch_tpu_torch.security.service",
+        "elasticsearch_tpu_torch.snapshots",
+        "elasticsearch_tpu_torch.snapshots.repository",
+        "elasticsearch_tpu_torch.snapshots.service",
+        "elasticsearch_tpu_torch.tasks.task_plane",
+        "elasticsearch_tpu_torch.indices",
+        "elasticsearch_tpu_torch.indices.rollover",
     } <= names
-    assert int(r.stdout.strip().splitlines()[-1]) >= 86
+    assert int(r.stdout.strip().splitlines()[-1]) >= 94
+
+
+def test_rollover_imports_alone():
+    """`indices.rollover` loads without the package's cluster-path
+    modules: the package exports resolve lazily."""
+    code = ("import sys\n"
+            "import elasticsearch_tpu_torch.indices.rollover as r\n"
+            "assert r.next_rollover_name('logs-000001') == 'logs-000002'\n"
+            "loaded = sorted(m for m in sys.modules\n"
+            "                if m.startswith('elasticsearch_tpu_torch.indices'))\n"
+            "assert loaded == ['elasticsearch_tpu_torch.indices',\n"
+            "                  'elasticsearch_tpu_torch.indices.rollover'], loaded\n"
+            "assert not any('shard_service' in m or 'cluster_state_service' in m\n"
+            "               for m in sys.modules)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
 
 
 def test_entry_points_default_to_cuda():
