@@ -11,6 +11,7 @@
     python3 chip_smoke.py --scatter-parent OLD.cu   # and the block scatter
     python3 chip_smoke.py --serving-only --docs N   # step 8 alone, no ok line
     python3 chip_smoke.py --admin-only --docs N     # step 8's admin phase alone
+    python3 chip_smoke.py --blockmax-only --docs N  # step 9 alone
 
 It drives the port's main path (elasticsearch_tpu_torch only; it imports
 nothing of JAX or of elasticsearch_tpu) the way bench.py drives config 1 of
@@ -21,8 +22,9 @@ aggregation path the way bench.py drives config 6:
 1. builds the CUDA kernels (K1 build_columns, K2 sweep_rowmax,
    K3 sparse_gather, K5 intersect_bitset, K6 sweep_rowmax_bitset,
    K7 sweep_rowmax_conj, K4 merge_topk, K9 knn_int8_window_topc,
-   K8 agg_counts, the bitset pack pack_presence_bits, and the dense
-   executor's block scatter, bm25_block_scatter and block_presence) from
+   K8 agg_counts, the bitset pack pack_presence_bits, the dense
+   executor's block scatter, bm25_block_scatter and block_presence, and
+   BlockMax's K10 lane_topk and K11 weighted_block_scatter) from
    parallel/csrc with nvcc, one process per source, all at once;
 2. builds one 8,000,000-doc shard with positions on the host: docs of 8-40
    terms over a 500k-term Zipf(1.07) vocabulary, seeded as bench.py does;
@@ -137,10 +139,27 @@ aggregation path the way bench.py drives config 6:
    and _field_caps, _explain, _termvectors, _rank_eval, the _tpu routes,
    hot threads and eight _cat tables; every answer held as above, every
    new launch shape held;
-9. serves the first batch again on a fresh engine at the default slice
+9. serves the same shard where the reference selects BlockMax
+   (blockmax_phase): a one-shard port IndexService with ES_TPU_TURBO_HBM
+   far below the shard's Turbo columns, so the snapshot's engine is
+   BlockMaxBM25 (routing reason exceeds_hbm_budget); both config-1
+   batches through IndexService.msearch (K10 `lane_topk` in its lane and
+   hybrid modes, K4), config 2's 256 bool specs through search_bool (the
+   host conjunction, the device program, the host overflow; routes
+   counted) and 16 heavy ones as one device group (K10's bool mode), and
+   the overflow path on 8 batch-0 queries with every block kept (K11
+   `weighted_block_scatter`), every answer held to the host-exact rows
+   under tests/test_blockmax.py's rule (scores within 2e-5, ids and order
+   but across near-ties); then the spmd programs at a cut (4 stacked
+   partitions of 250,000 docs, 64 queries): sharded_bm25_topk,
+   Bm25ColumnCache and sharded_knn_topk, held to numpy rankings; every
+   K10, K11 and K4 launch shape of both held bitwise against its plain
+   version, also poisoned, and timed beside its bound and a library
+   yardstick (torch.sort of K10's lanes, index_add_ of K11's);
+10. serves the first batch again on a fresh engine at the default slice
    ladder and reports its sparse fallbacks, holding the answers that step
    4 held;
-10. frees the BM25 index and serves quantized kNN (config 4: 768-d cosine
+11. frees the BM25 index and serves quantized kNN (config 4: 768-d cosine
    rows drawn as bench.py draws them, 128 of its 256 queries with 16
    planted near-duplicate rows each) through `select_knn_engine` ->
    `KnnEngine.search_many`, first on one partition, then, after freeing
@@ -158,7 +177,7 @@ aggregation path the way bench.py drives config 6:
    and on 16 of the queries) and K4 bitwise equal to their plain versions
    on the path's inputs, K9 timed with its score and selection passes
    apart;
-11. serves config 6 (analytics) at bench.py's 10,000,000 docs: a leaf drawn
+12. serves config 6 (analytics) at bench.py's 10,000,000 docs: a leaf drawn
    as bench.py's _synth_agg_leaf (Zipf tags, a 90-day timestamp, prices
    with gaps), AGG_BENCH_SPEC (terms + stats, 7d date_histogram + sum)
    over 8 masks at 5% through parse_aggs -> collect_leaf ->
@@ -175,9 +194,9 @@ aggregation path the way bench.py drives config 6:
    K8 bitwise against its plain version on the path's layouts at Q = 1,
    4, 16 and 64 and on a synthetic four-tile one, timed by events, alone
    and beside the parent commit's kernel given --k8-parent (K4 likewise
-   in step 10, given --k4-parent, with its host enqueue), K9 and K4 also on
+   in step 11, given --k4-parent, with its host enqueue), K9 and K4 also on
    outputs filled with NaN / -1 first;
-12. prints the card's name and power limit and a `kernels` JSON line, and
+13. prints the card's name and power limit and a `kernels` JSON line, and
    last `{"ok": true, "device": {...}}`.
 
 The kNN column is cut from bench.py's 10M vectors to 2,000,000: at 10M a
@@ -193,7 +212,7 @@ The main path runs at a slice-width ladder extended to 65536
 1024,4096,16384, so every cold term (df < cold_df = 65536) gets a device
 slice: with the default ladder a query with a cold term of df 16385-65535
 has its whole cold side scored on the host (a sparse fallback), which the
-main path refuses. Step 9 measures how often that happens at the default.
+main path refuses. Step 10 measures how often that happens at the default.
 """
 
 from __future__ import annotations
@@ -280,13 +299,13 @@ def zipf_probs(vocab: int) -> np.ndarray:
     return p / p.sum()
 
 
-def build_index(n_docs: int, vocab: int):
+def build_index(n_docs: int, vocab: int, seed: int = 42):
     """The corpus and its positional postings, as bench.py builds them;
     also returns the token stream and doc bounds (phrases are drawn from
     real adjacencies)."""
     from elasticsearch_tpu_torch.index.segment import build_field_postings
 
-    rng = np.random.default_rng(42)
+    rng = np.random.default_rng(seed)
     lens = rng.integers(8, 40, size=n_docs).astype(np.int64)
     tokens = rng.choice(vocab, size=int(lens.sum()), p=zipf_probs(vocab))
     bounds = np.concatenate([[0], np.cumsum(lens)])
@@ -1865,6 +1884,7 @@ def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper,
     log(f"K1 launches of the phrase phase: {k1_phrase}")
 
     report = {"bool": {r: rep for r, (_, rep, _) in routes.items()},
+              "answers": (bool_qs, hs[:BOOL_BATCH], ho[:BOOL_BATCH]),
               "phrase": prep, "k1_phrase_launches": k1_phrase,
               "peak_device_bytes_before": prior_peak,
               "bitset_bytes": int(turbo.bits.nbytes),
@@ -3825,6 +3845,13 @@ def _shape_key(args, kw):
                  for a in args)
 
 
+def _lane_key(args, kw):
+    """K10's launch shape: its mode, k and input shapes."""
+    mode = ("bool" if kw.get("qf") is not None else
+            "hybrid" if kw.get("addend") is not None else "lane")
+    return (mode, kw["k"]) + _shape_key(args, kw)
+
+
 # the serving path's kernel wrappers besides K1, K8, the pack and the block
 # scatter (their path shapes are the main phase's, held there, or K8's,
 # timed by k8_case): (name, module, attribute, launch-shape key,
@@ -3842,6 +3869,11 @@ PATH_KERNELS = (
     ("knn_int8_window_topc", "knn", "knn_int8_window_topc",
      lambda a, kw: _shape_key(a, kw) + (a[5] is not None,), ()),
     ("merge_topk", "kernels", "merge_topk", _shape_key, ()),
+    # BlockMax and spmd: K10's inputs are fresh per call; K11 adds into its
+    # accumulator in place, which is copied before the call
+    ("lane_topk", "kernels", "lane_topk", _lane_key, ()),
+    ("weighted_block_scatter", "kernels", "weighted_block_scatter",
+     _shape_key, (0,)),
 )
 
 
@@ -3872,14 +3904,17 @@ def record_shapes():
     def spy(name, fn, key, copy_at):
         def call(*args, **kw):
             n0 = getattr(mine, "n", {}).get(name, 0)
+            k = key(args, kw)
+            kept = None
+            if k not in seen[name]:        # copied before the call
+                kept = tuple(a.clone() if i in copy_at else a
+                             for i, a in enumerate(args))
             out = fn(*args, **kw)
             n = getattr(mine, "n", {}).get(name, 0) - n0
             if n:
-                rec = seen[name].get(key(args, kw))
+                rec = seen[name].get(k)
                 if rec is None:
-                    kept = tuple(a.clone() if i in copy_at else a
-                                 for i, a in enumerate(args))
-                    rec = seen[name][key(args, kw)] = [0, kept, dict(kw)]
+                    rec = seen[name][k] = [0, kept, dict(kw)]
                 rec[0] += n
             return out
         return call
@@ -4022,10 +4057,106 @@ def path_bound(name, args, kw, out_bytes: int):
         rows = q8.numel() // int(q8.shape[-1])
         return bound(nbytes, 2 * int(qi8.shape[0]) * int(q8.shape[-1])
                      * rows, PEAK_INT8)
+    if name == "lane_topk":
+        w = lane_work(args, kw)
+        return bound(w["bytes"] + out_bytes, w["ops"], PEAK_F32)
     scores = args[0]                               # merge_topk
     q, lanes = (int(x) for x in scores.shape)
     return bound(scores.numel() * 8 + out_bytes, q * kw["k"] * lanes * 3,
                  PEAK_F32)
+
+
+def lane_work(args, kw) -> dict:
+    """What one K10 call must move and compute on these inputs: each
+    distinct selected block row's docs and scores once, the row
+    descriptors, and per distinct (row, doc) candidate its live byte (and
+    addend, hp floats); two float operations a real lane. Also the real
+    lanes' (row, doc) keys, which the library yardstick sorts."""
+    import torch
+
+    bd, bs, live, qb, qw, ts = args
+    S, T, _ = (int(x) for x in bd.shape)
+    Q, _, B = (int(x) for x in qb.shape)
+    R = int(ts.shape[2]) - 1
+    D = int(live.shape[1])
+    nb = ts[:, :, R].long()
+    used = torch.arange(B, device=bd.device)[None, None, :] < nb[:, :, None]
+    q_i, s_i, p_i = torch.nonzero(used, as_tuple=True)
+    blk = qb[q_i, s_i, p_i].long()
+    rows_read = int(torch.unique(s_i * T + blk).numel())
+    real = bs[s_i, blk] > 0
+    keys = ((q_i * S + s_i)[:, None] * D
+            + bd[s_i, blk].long())[real]
+    n_real = int(keys.numel())
+    n_docs = int(torch.unique(keys).numel())
+    per_doc = 1 + 4 * sum(kw.get(x) is not None for x in ("addend", "hp"))
+    desc = sum(t.numel() * t.element_size() for t in (qb, qw, ts)) + (
+        0 if kw.get("qf") is None else kw["qf"].numel() * 4)
+    return {"bytes": rows_read * 128 * 8 + desc + n_docs * per_doc,
+            "ops": 2 * n_real, "rows_read": rows_read, "lanes": n_real,
+            "docs": n_docs, "keys": keys}
+
+
+def hold_k11(label, args, kw) -> dict:
+    """K11 at a recorded launch (its accumulator as it was before the
+    call): the kernel twice and the plain version, each on a copy, bitwise
+    (no atomics: run to run too), also under kernels.poisoned; timed by
+    events and by CUDA graph on a scratch copy beside the plain version and
+    index_add_ of the same lanes; its bound: the selected rows read once,
+    the descriptors, each live lane's accumulator read and write."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    acc0, rest = args[0], args[1:]
+
+    def run(fn):
+        a = acc0.clone()
+        fn(a, *rest, **kw)
+        return a
+
+    got, again, want = (run(k.weighted_block_scatter),
+                        run(k.weighted_block_scatter),
+                        run(k.weighted_block_scatter_plain))
+    with k.poisoned():
+        pois = run(k.weighted_block_scatter)
+    err = max_abs_err(got, want)
+    require(err == 0.0 and all(torch.equal(x.view(torch.int32),
+                                           want.view(torch.int32))
+                               for x in (got, again, pois)),
+            f"{label} kernel vs plain: max_abs_err {err}")
+    ids, w, bd, bs = rest[:4]
+    rows = kw.get("rows", rest[4] if len(rest) > 4 else None)
+    S, R, D = (int(x) for x in acc0.shape)
+    T = int(bd.shape[1])
+    idc = ids.long().clamp(0, T - 1)
+    part = torch.arange(S, device=acc0.device)[:, None]
+    docs = bd[part, idc].long()
+    sc = bs[part, idc]
+    r = torch.zeros_like(idc) if rows is None else rows.long()
+    keep = (((ids >= 0) & (ids < T) & (r >= 0) & (r < R))[:, :, None]
+            & (sc > 0) & (docs >= 0) & (docs < D))
+    flat = ((part[:, :, None] * R + r[:, :, None]) * D + docs)[keep]
+    vals = (w[:, :, None] * sc)[keep]
+    scratch = acc0.clone()
+    ms = cuda_ms(lambda: k.weighted_block_scatter(scratch, *rest, **kw), 10)
+    plain_ms = cuda_ms(
+        lambda: k.weighted_block_scatter_plain(scratch, *rest, **kw), 1)
+    gms = graph_ms(lambda: k.weighted_block_scatter(scratch, *rest, **kw),
+                   200)
+    lib = cuda_ms(lambda: scratch.view(-1).index_add_(0, flat, vals), 10)
+    valid = (ids >= 0) & (ids < T)
+    rows_read = int(torch.unique((part * T + idc)[valid]).numel())
+    desc = sum(t.numel() * t.element_size() for t in (ids, w)) + (
+        0 if rows is None else rows.numel() * 4)
+    lanes = int(flat.numel())
+    b_ms, b_by = bound(rows_read * 128 * 8 + desc + lanes * 8, 2 * lanes,
+                       PEAK_F32)
+    return {"ms": ms, "plain_ms": plain_ms, "graph_ms": gms,
+            "library_ms": lib, "max_abs_err": err, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_share": b_ms / gms, "lanes": lanes,
+            "rows_read": rows_read, "poisoned_run": "bitwise",
+            "run_to_run": "bitwise"}
 
 
 def check_path_shapes(seen, dp) -> dict:
@@ -4036,6 +4167,8 @@ def check_path_shapes(seen, dp) -> dict:
     `dp` docs, or over its live rows' docs when dp is None); K3 beside its
     bound; K5, K9 and K4 by hold_kernel. Returns {kernel: {shape:
     numbers}}."""
+    import torch
+
     from elasticsearch_tpu_torch.parallel import kernels as k
     from elasticsearch_tpu_torch.tools.k2_ab import bitset_work, sweep_work
 
@@ -4044,13 +4177,15 @@ def check_path_shapes(seen, dp) -> dict:
               "intersect_bitset": k.intersect_bitset_counts_plain,
               "sparse_gather": k.sparse_gather_plain,
               "knn_int8_window_topc": k.knn_int8_window_topc_plain,
-              "merge_topk": k.merge_topk_plain}
+              "merge_topk": k.merge_topk_plain,
+              "lane_topk": k.lane_topk_plain}
     wrappers = {"sweep_rowmax": k.sweep_rowmax,
                 "sweep_rowmax_bitset": k.sweep_rowmax_bitset,
                 "intersect_bitset": k.intersect_bitset_counts,
                 "sparse_gather": k.sparse_gather,
                 "knn_int8_window_topc": k.knn_int8_window_topc,
-                "merge_topk": k.merge_topk}
+                "merge_topk": k.merge_topk,
+                "lane_topk": k.lane_topk}
     out = {}
     for name, shapes in seen.items():
         out[name] = {}
@@ -4076,6 +4211,8 @@ def check_path_shapes(seen, dp) -> dict:
                     lambda: wrappers[name](*args, **kw), 200)
                 row["bound_share"] = row["bound_ms"] / row["graph_ms"]
                 row["poisoned_run"] = "bitwise"
+            elif name == "weighted_block_scatter":
+                row = hold_k11(label, args, kw)
             else:
                 row = hold_kernel(label, wrappers[name], plains[name], args,
                                   kw)
@@ -4089,6 +4226,13 @@ def check_path_shapes(seen, dp) -> dict:
                     row["graph_ms"] = graph_ms(
                         lambda: wrappers[name](*args, **kw), 200)
                     row["bound_share"] = row["bound_ms"] / row["graph_ms"]
+                if name == "lane_topk":
+                    # the yardstick: torch.sort of the same lanes by
+                    # (row, doc), the TPU program's first step
+                    keys = lane_work(args, kw)["keys"]
+                    row["library_ms"] = cuda_ms(lambda: torch.sort(keys), 10)
+                    row["lanes"] = int(keys.numel())
+                    del keys
             row["launches"] = n
             out[name][str(key)] = row
             log(f"{label}: {n} launches, "
@@ -5157,7 +5301,7 @@ def serving_phase(seg, fp, tokens, bounds, n: int, batches, dsl, main_rows,
     responses equal to the same bodies served one at a time with the host
     aggregators (ES_TPU_AGG=0); 6's ids and order equal to the KnnEngine's
     dense route (ES_TPU_KNN_INT8=0), scores within KNN_GAMMA; no fault, no
-    timeout, no BlockMax decline; certificate fallbacks as in the main
+    timeout; certificate fallbacks as in the main
     phase, the bool and phrase ones explained (hold_fallbacks); each
     kernel of the path launched, K8 at Q > 1. Then each kernel of
     record_shapes at every launch shape the path gave it, held against its
@@ -5313,7 +5457,7 @@ def serving_phase(seg, fp, tokens, bounds, n: int, batches, dsl, main_rows,
                 f"serving: plain versions ran on the card: "
                 f"{ {k: v for k, v in plain.items() if v} }")
         for key in ("fastpath_device_fault", "fastpath_timed_out",
-                    "blockmax_declined", "fastpath_reject_error"):
+                    "fastpath_reject_error"):
             require(fault[key] == f0[key],
                     f"serving: {key} moved by {fault[key] - f0[key]}")
         for key in ("degraded", "sparse_fallbacks", "cold_queries",
@@ -5437,6 +5581,461 @@ def serving_phase(seg, fp, tokens, bounds, n: int, batches, dsl, main_rows,
     del shapes, k8, mask, blob, snap, eng, turbo, svc, kn_svc, sseg, answers
     torch.cuda.empty_cache()
     return launches, held, k8_row, rep
+
+
+# ---------------------------------------------------------------------------
+# BlockMax over the Turbo budget, and the spmd programs (slice 18)
+# ---------------------------------------------------------------------------
+
+BM_TURBO_HBM = 1 << 20     # ES_TPU_TURBO_HBM for the BlockMax service: far
+#                            below the 8M-doc shard's Turbo columns
+BM_RTOL = BM_ATOL = 2e-5   # tests/test_blockmax.py's assert_topk_equal
+BM_OVERFLOW_QUERIES = 8    # batch-0 queries through _exhaustive_topk
+BM_FORCED_BOOL = 16        # heavy config-2 specs through one device group
+BM_BOOL_THREADS = 8        # search_bool calls in flight (the host conjunction
+#                            sorts release the GIL)
+SPMD_PARTS = 4             # the spmd programs' cut: 4 stacked partitions
+SPMD_DOCS = 250_000        # of 250,000 docs each (no Qc cap, spmd.py:559)
+SPMD_QUERIES = 64
+SPMD_CACHE = 256           # Bm25ColumnCache capacity
+
+
+@contextlib.contextmanager
+def turbo_budget(nbytes: int):
+    """The snapshot's Turbo budget at `nbytes` while the block runs:
+    ES_TPU_TURBO_HBM is read once, when search/serving.py is imported (as
+    in the reference), into select_bm25_engine's default budget, so this
+    sets the knob and that default, which a process started with
+    ES_TPU_TURBO_HBM=nbytes would hold."""
+    from elasticsearch_tpu_torch.search import serving
+
+    kw = serving.select_bm25_engine.__kwdefaults__
+    saved = kw["hbm_budget_bytes"]
+    kw["hbm_budget_bytes"] = nbytes
+    try:
+        with env_set("ES_TPU_TURBO_HBM", str(nbytes)):
+            yield
+    finally:
+        kw["hbm_budget_bytes"] = saved
+
+
+def resp_rows(resps, k=K):
+    """(scores [Q, k] f32, parts [Q, k] i32, ords [Q, k] i32) of one-shard
+    search responses whose ids are `d<ord>`; empty slots (0, 0, 0)."""
+    s = np.zeros((len(resps), k), np.float32)
+    o = np.zeros((len(resps), k), np.int32)
+    for qi, r in enumerate(resps):
+        for j, h in enumerate(r["hits"]["hits"][:k]):
+            s[qi, j] = np.float32(h["_score"])
+            o[qi, j] = int(h["_id"][1:])
+    return s, np.zeros_like(o), o
+
+
+def hold_close(got, want, label) -> int:
+    """tests/test_blockmax.py's assert_topk_equal over every row: the same
+    filled slots, scores within BM_RTOL relative plus BM_ATOL, the same
+    (partition, ord) in the same order wherever adjacent scores are
+    separated beyond that, the same set across near-ties. Returns how many
+    rows were held as sets."""
+    (gs, gp, go), (ws, wp, wo) = got, want
+    require(gs.shape == ws.shape and np.isfinite(gs).all(),
+            f"{label}: result shapes or finiteness")
+    sets = 0
+    for qi in range(len(ws)):
+        w = ws[qi].astype(np.float64)
+        v = w > 0
+        require(np.array_equal(gs[qi] > 0, v),
+                f"{label} {qi}: filled slots differ")
+        d = np.abs(gs[qi].astype(np.float64) - w)
+        require((d <= BM_RTOL * np.abs(w) + BM_ATOL).all(),
+                f"{label} {qi}: scores {gs[qi]} against {ws[qi]}")
+        g_ids = list(zip(gp[qi][v], go[qi][v]))
+        w_ids = list(zip(wp[qi][v], wo[qi][v]))
+        x = w[v]
+        if (np.abs(np.diff(x)) > BM_RTOL * np.abs(x[:-1]) + BM_ATOL).all():
+            require(g_ids == w_ids, f"{label} {qi}: ids or order differ")
+        else:
+            sets += 1
+            require(set(g_ids) == set(w_ids),
+                    f"{label} {qi}: ids differ across a near-tie")
+    return sets
+
+
+def _unpack(packed):
+    return (packed[..., 0, :].copy(), packed[..., 1, :].astype(np.int32),
+            packed[..., 2, :].astype(np.int32))
+
+
+def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
+                   device="cuda") -> tuple:
+    """BlockMax on the main path's shard, where the reference selects it:
+    a one-shard port IndexService over the dense phase's segment (all
+    live) with ES_TPU_TURBO_HBM at BM_TURBO_HBM, far below the shard's
+    Turbo columns, so that select_bm25_engine routes the field to
+    BlockMaxBM25 (`exceeds_hbm_budget`). With every launch count set to 0
+    just before and read just after, no plain version allowed:
+      1. IndexService.msearch of both config-1 batches of 256 as DSL
+         bodies (one _disjunctive_batch each; K10 in its lane and hybrid
+         modes, K4);
+      2. config 2's 256 bool specs through BlockMaxBM25.search_bool, in
+         BM_BOOL_THREADS concurrent calls (routes counted: _bool_host, the
+         device program, _bool_exhaustive), and BM_FORCED_BOOL heavy specs
+         as one device group (`_bool_group`; K10's bool mode: the host
+         conjunction takes most specs at this size);
+      3. the overflow path, `_exhaustive_topk`, on BM_OVERFLOW_QUERIES
+         queries of batch 0 with every block kept (K11, one launch a term
+         and chunk).
+    Holds (hold_close, tests/test_blockmax.py's rule): every msearch top-10
+    against the main path's host-exact rows; the bool answers against the
+    bool phase's host-exact answers; the overflow rows against the msearch
+    answers of the same queries and the main path's. Then the spmd
+    programs (spmd_step) in a window of their own, and every K10, K11 and
+    K4 launch shape of both windows held bitwise against its plain version
+    (check_path_shapes). Returns (kernel rows, report)."""
+    import copy
+
+    import torch
+
+    from elasticsearch_tpu_torch.common import hbm_ledger
+    from elasticsearch_tpu_torch.parallel import blockmax as bm
+    from elasticsearch_tpu_torch.parallel import kernels
+    from elasticsearch_tpu_torch.search import serving
+
+    t_phase = time.time()
+    bool_specs, bool_hs, bool_ho = bool_answers
+    rep = {"docs": n, "turbo_hbm": BM_TURBO_HBM}
+    sseg = copy.copy(seg)            # arrays shared, device cache its own
+    svc = serving_service([(sseg, np.ones(n, bool))], DENSE_MAPPING,
+                          "blockmax", device)
+    f0 = serving.serving_fault_stats()
+    with contextlib.ExitStack() as st:
+        st.enter_context(turbo_budget(BM_TURBO_HBM))
+        st.enter_context(env_set("ES_TPU_TURBO_COLD_DF", str(COLD_DF)))
+        t = time.time()
+        eng = svc.serving.snapshot().engine("body")
+        rep["engine_build_s"] = time.time() - t
+        routing = hbm_ledger.last_routing()
+        require(eng.kind == "blockmax"
+                and routing["reason"] == "exceeds_hbm_budget",
+                f"blockmax: the snapshot built {eng.kind} ({routing})")
+        rep["routing"] = routing
+        rep["hot_terms"] = len(eng._hot_slots)
+        rep["device_bytes"] = eng.hbm_bytes()
+        rep["block_rows"] = int(eng.stacked.block_docs.shape[1])
+        rep["qc_dense_cap"] = eng._qc_dense_cap
+        log(f"blockmax: engine built in {rep['engine_build_s']:.1f}s "
+            f"({routing['reason']}; {rep['block_rows']} block rows, "
+            f"{rep['hot_terms']} hot columns, {rep['device_bytes']} device "
+            f"bytes)")
+        routes = {"host": 0, "device": 0, "exhaustive": 0}
+        lock = __import__("threading").Lock()
+
+        def count(name, route, rows):
+            real = getattr(eng, name)
+
+            def call(*a):
+                with lock:
+                    routes[route] += rows(a)
+                return real(*a)
+            st.callback(setattr, eng, name, real)
+            setattr(eng, name, call)
+
+        count("_bool_host", "host", lambda a: 1)
+        count("_bool_exhaustive", "exhaustive", lambda a: 1)
+        count("_bool_group", "device", lambda a: len(a[0]))
+        plain = st.enter_context(plain_calls())
+        spies = st.enter_context(contextlib.ExitStack())
+        shapes = spies.enter_context(record_shapes())
+        kernels.reset_launches()
+        t_main = time.time()
+        # 1. msearch of both config-1 batches
+        groups = [[match_body(q) for q in b] for b in batches]
+        served, lat, timing = [], [], []
+        for g in groups:
+            t = time.perf_counter()
+            served.append(svc.msearch(g))
+            lat.append(time.perf_counter() - t)
+            timing.append(dict(eng.last_timing))
+        # 2. config 2 through search_bool, then a forced device group
+        t = time.perf_counter()
+        step = -(-len(bool_specs) // BM_BOOL_THREADS)
+        with ThreadPoolExecutor(max_workers=BM_BOOL_THREADS) as ex:
+            parts = list(ex.map(
+                lambda i: eng.search_bool(bool_specs[i:i + step], k=K),
+                range(0, len(bool_specs), step)))
+        bool_got = tuple(np.concatenate([p[i] for p in parts])
+                         for i in range(3))
+        bool_s = time.perf_counter() - t
+        heavy_idx, heavy = [], []
+        for i, spec in enumerate(bool_specs):
+            rows, nm, _, tot = eng._bool_spec_rows(spec)
+            if (i % 2 and tot <= bm._MAX_BUCKET
+                    and nm == sum(1 for r in rows if r[2])):
+                heavy_idx.append(i)
+                heavy.append((rows, nm, tot))
+            if len(heavy) == BM_FORCED_BOOL:
+                break
+        bucket = bm._group_shape(max(h[2] for h in heavy))[0]
+        t = time.perf_counter()
+        forced = _unpack(eng._bool_group([h[:2] for h in heavy], bucket, K))
+        forced_s = time.perf_counter() - t
+        # 3. the overflow path on batch-0 queries, every block kept
+        ov_q = batches[0][:BM_OVERFLOW_QUERIES]
+        t = time.perf_counter()
+        ov = _unpack(np.stack([eng._exhaustive_topk(
+            [(x, 1.0) for x in dict.fromkeys(q)], {}, K) for q in ov_q]))
+        ov_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        spies.close()
+        main_s = time.time() - t_main
+        fault = serving.serving_fault_stats()
+        require(not any(plain.values()),
+                f"blockmax: plain versions ran on the card: "
+                f"{ {k: v for k, v in plain.items() if v} }")
+    for key in ("fastpath_device_fault", "fastpath_timed_out",
+                "fastpath_reject_error", "shard_fault_recoveries"):
+        require(fault[key] == f0[key],
+                f"blockmax: {key} moved by {fault[key] - f0[key]}")
+    hs = eng.health.flat_stats()
+    require(hs["health_device_faults"] == 0
+            and hs["health_fallback_queries"] == 0,
+            f"blockmax: health {hs}")
+    for name in ("lane_topk", "weighted_block_scatter", "merge_topk"):
+        require(launches[name] > 0, f"blockmax: {name} never launched")
+    log(f"blockmax main path: {main_s:.1f}s; msearch {lat} s; search_bool "
+        f"{bool_s:.2f}s (routes {routes}); forced device group of "
+        f"{len(heavy)} {forced_s:.3f}s; overflow {ov_s:.3f}s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    # ---- holds ----
+    t = time.time()
+    near = {}
+    got = [resp_rows(r) for r in served]
+    for bi, (g, rows) in enumerate(zip(got, main_rows)):
+        near[f"batch {bi}"] = hold_close(g, rows, f"blockmax batch {bi}")
+    want_bool = (bool_hs, np.zeros_like(bool_ho), bool_ho)
+    near["bool"] = hold_close(bool_got, want_bool, "blockmax search_bool")
+    near["forced"] = hold_close(
+        forced, tuple(a[heavy_idx] for a in want_bool),
+        "blockmax forced device group")
+    ov_want = tuple(a[:BM_OVERFLOW_QUERIES] for a in got[0])
+    near["overflow"] = hold_close(ov, ov_want, "blockmax overflow")
+    hold_close(ov, tuple(a[:BM_OVERFLOW_QUERIES] for a in main_rows[0]),
+               "blockmax overflow vs main")
+    require(routes["host"] + routes["device"] + routes["exhaustive"]
+            <= len(bool_specs) + len(heavy),
+            f"blockmax: bool routes {routes}")
+    rep.update({
+        "msearch_s": lat, "msearch_queries": [len(g) for g in groups],
+        "last_timing": timing, "bool_s": bool_s,
+        "bool_routes": {**routes, "device": routes["device"] - len(heavy)},
+        "forced_device_group": {"specs": len(heavy), "bucket": bucket,
+                                "s": forced_s},
+        "overflow": {"queries": len(ov_q), "s": ov_s},
+        "held_as_sets": near, "hold_s": time.time() - t,
+        "main_path_s": main_s,
+        "launches": {k: v for k, v in launches.items() if v}})
+    log(f"blockmax holds: every answer within {BM_RTOL} of the host-exact "
+        f"rows ({near} rows held as sets) in {rep['hold_s']:.1f}s")
+    del svc, eng, sseg, served, got
+    torch.cuda.empty_cache()
+    # ---- the spmd programs, in a window of their own ----
+    spmd_launches, spmd_shapes, rep["spmd"] = spmd_step(device)
+    # ---- every launch shape of both windows against its plain version ----
+    for name in ("lane_topk", "weighted_block_scatter", "merge_topk"):
+        require(sum(v[0] for v in shapes[name].values()) == launches[name],
+                f"blockmax: {name}'s launches by shape do not add up")
+    t = time.time()
+    held = check_path_shapes(
+        {name: shapes[name] for name in
+         ("lane_topk", "weighted_block_scatter", "merge_topk")}, None)
+    spmd_held = check_path_shapes(
+        {name: spmd_shapes[name] for name in
+         ("lane_topk", "weighted_block_scatter", "merge_topk")}, None)
+    del shapes, spmd_shapes
+    torch.cuda.empty_cache()
+    rep["shape_holds_s"] = time.time() - t
+    rows = []
+    for name, src, replaces, lib in (
+            ("lane_topk", "lane_topk.cu",
+             "elasticsearch_tpu/parallel/blockmax.py:911 (XLA program; "
+             "also :931, :1014, spmd.py:335)",
+             "torch.sort of the same lanes by (row, doc)"),
+            ("weighted_block_scatter", "block_scatter.cu",
+             "elasticsearch_tpu/parallel/blockmax.py:963 (XLA program; "
+             "also spmd.py:650)",
+             "index_add_ of the same lanes")):
+        per = held[name]
+        head = max(per.values(),                     # the most lanes
+                   key=lambda r: r["launches"] * r.get("lanes", 1))
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"elasticsearch_tpu_torch/parallel/csrc/{src}",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in per.values()),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "library_note": lib,
+            "graph_ms": head["graph_ms"], "head_shape": next(
+                k for k, r in per.items() if r is head),
+            "poisoned_run": "bitwise", "shapes": per,
+            "spmd_launches": spmd_launches[name],
+            "spmd_shapes": spmd_held[name]})
+    rep["merge_topk_shapes"] = held["merge_topk"]
+    rep["phase_s"] = time.time() - t_phase
+    log(f"blockmax phase took {rep['phase_s']:.1f}s")
+    return rows, rep
+
+
+def brute_stacked(fps, doc_counts, terms, k=K):
+    """An independent numpy ranking over stacked partitions with the
+    index-global statistics (df summed over partitions, avgdl over every
+    partition's docs): brute_topk's f32 term-at-a-time scoring per
+    partition, then (score desc, partition asc, doc asc). Returns
+    (scores [k], parts [k], ords [k])."""
+    import math
+
+    total = sum(doc_counts)
+    n_field = sum(int(np.count_nonzero(fp.doc_len)) for fp in fps)
+    avgdl = sum(fp.sum_doc_len for fp in fps) / n_field
+    agg = {}
+    for t in terms:
+        t, w = (t, 1.0) if isinstance(t, str) else t
+        agg[t] = agg.get(t, 0.0) + w
+    cand = []
+    for s, fp in enumerate(fps):
+        dense = np.zeros(len(fp.doc_len), np.float32)
+        for t, boost in agg.items():
+            df = sum(int(f.doc_freq[f.term_to_ord[t]]) for f in fps
+                     if t in f.term_to_ord)
+            o = fp.term_to_ord.get(t, -1)
+            if o < 0 or df == 0:
+                continue
+            idf = math.log(1.0 + (total - df + 0.5) / (df + 0.5))
+            lo, hi = int(fp.post_start[o]), int(fp.post_start[o + 1])
+            docs = fp.post_doc[lo:hi]
+            rows = slice(int(fp.block_start[o]),
+                         int(fp.block_start[o]) + int(fp.block_count[o]))
+            tf = fp.block_tfs[rows].ravel()[: hi - lo]
+            dl = fp.doc_len[fp.block_docs[rows].ravel()[: hi - lo]]
+            denom = tf + 1.2 * (1.0 - 0.75 + 0.75 * dl / max(avgdl, 1e-9))
+            lane = np.where(tf > 0, tf * (1.2 + 1.0) / denom,
+                            0.0).astype(np.float32)
+            dense[docs] = dense[docs] + np.float32(idf * boost) * lane
+        d = np.nonzero(dense > 0)[0]
+        sel = np.lexsort((d, -dense[d]))[:k]
+        cand += [(float(dense[x]), s, int(x)) for x in d[sel]]
+    cand.sort(key=lambda c: (-c[0], c[1], c[2]))
+    out = np.zeros((3, k), np.float64)
+    for j, c in enumerate(cand[:k]):
+        out[:, j] = c
+    return out[0].astype(np.float32), out[1].astype(np.int32), \
+        out[2].astype(np.int32)
+
+
+def spmd_step(device="cuda") -> tuple:
+    """The spmd programs, which no serving route reaches, at a stated cut
+    (their query bucketing has no Qc cap, spmd.py:559-578): SPMD_PARTS
+    stacked partitions of SPMD_DOCS docs drawn as build_index draws the
+    shard (seeds 60 + partition), SPMD_QUERIES two-term queries of
+    draw_batches, and as many 768-d rows drawn as knn_data draws config 4
+    with its first SPMD_QUERIES (planted) queries. With the launch counts
+    set to 0 just before and read just after: sharded_bm25_topk (K10 per
+    (partition, query), K4), Bm25ColumnCache (capacity SPMD_CACHE; its
+    columns built by K11, the batch twice: built, then cached) and
+    sharded_knn_topk (bf16 products in f32, K4). Holds: the BM25 answers
+    against brute_stacked under hold_close; the kNN answers against a
+    numpy ranking of the same bf16-rounded rows and queries (f32 BLAS)
+    within knn_score_bound, near-tie swaps counted (knn_agree). Returns
+    (launches, recorded shapes, report)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.knn import sqrt_rn
+    from elasticsearch_tpu_torch.parallel import kernels
+    from elasticsearch_tpu_torch.parallel.spmd import (
+        Bm25ColumnCache, build_stacked_bm25, build_stacked_knn,
+        prepare_query_blocks, sharded_bm25_topk, sharded_knn_topk,
+    )
+
+    t0 = time.time()
+    parts = [_Seg(SPMD_DOCS, build_index(SPMD_DOCS, VOCAB, 60 + s)[0])
+             for s in range(SPMD_PARTS)]
+    stacked = build_stacked_bm25(parts, "body", device=device,
+                                 device_arrays=True)
+    queries = draw_batches(1, SPMD_QUERIES, VOCAB)[0]
+    n_rows = SPMD_PARTS * SPMD_DOCS
+    vec, norms, qs, tags = knn_data(n_rows)
+    qs = qs[:SPMD_QUERIES]
+    ksegs = knn_segments(vec, norms, tags, SPMD_PARTS)
+    kst = build_stacked_knn(ksegs, "vec", device=device)
+    build_s = time.time() - t0
+    rep = {"partitions": SPMD_PARTS, "docs": SPMD_DOCS,
+           "queries": SPMD_QUERIES, "cache_capacity": SPMD_CACHE,
+           "knn_rows": n_rows, "build_s": build_s}
+    with contextlib.ExitStack() as st:
+        plain = st.enter_context(plain_calls())
+        spies = st.enter_context(contextlib.ExitStack())
+        shapes = spies.enter_context(record_shapes())
+        kernels.reset_launches()
+        t = time.perf_counter()
+        bm25 = sharded_bm25_topk(stacked, *prepare_query_blocks(stacked,
+                                                                queries),
+                                 k=K)
+        rep["sharded_bm25_s"] = time.perf_counter() - t
+        cache = Bm25ColumnCache(stacked, capacity=SPMD_CACHE)
+        t = time.perf_counter()
+        col = cache.search(queries, k=K)
+        rep["column_cache_build_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        col2 = cache.search(queries, k=K)
+        rep["column_cache_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        knn = sharded_knn_topk(kst, qs, k=K)
+        rep["sharded_knn_s"] = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        spies.close()
+        require(not any(plain.values()),
+                f"spmd: plain versions ran on the card: "
+                f"{ {k: v for k, v in plain.items() if v} }")
+    for name in ("lane_topk", "weighted_block_scatter", "merge_topk"):
+        require(launches[name] > 0, f"spmd: {name} never launched")
+    t = time.time()
+    fps = [p.postings["body"] for p in parts]
+    want = tuple(np.stack(x) for x in zip(*[
+        brute_stacked(fps, [SPMD_DOCS] * SPMD_PARTS, q) for q in queries]))
+    rep["held_as_sets"] = {
+        "sharded_bm25": hold_close(bm25, want, "spmd sharded_bm25_topk"),
+        "column_cache": hold_close(col, want, "spmd Bm25ColumnCache")}
+    require(all(np.array_equal(a, b) for a, b in zip(col, col2)),
+            "spmd: the cached batch differs from the building one")
+    # the kNN ranking of the same bf16 values, f32 BLAS sums
+    vn = vec / np.maximum(norms, np.float32(1e-20))[:, None]
+    vb = torch.from_numpy(vn).to(torch.bfloat16).float().numpy()
+    qb = torch.from_numpy(qs).to(torch.bfloat16).float().numpy()
+    qn = np.maximum(sqrt_rn(torch.from_numpy(
+        (qs * qs).sum(axis=1, dtype=np.float32))).numpy(), np.float32(1e-20))
+    sc = ((1.0 + (qb @ vb.T) / qn[:, None]) / 2.0).astype(np.float32)
+    del vn, vb
+    step = -(-n_rows // SPMD_PARTS)
+    ks, kp, ko = [], [], []
+    for row in sc:
+        sel = np.argpartition(-row, K)[:K]
+        sel = sel[np.lexsort((sel, -row[sel]))]
+        ks.append(row[sel])
+        kp.append((sel // step).astype(np.int32))
+        ko.append((sel % step).astype(np.int32))
+    rep["knn"] = knn_agree(knn, (np.stack(ks), np.stack(kp), np.stack(ko)),
+                           knn_score_bound(qs), "spmd sharded_knn_topk")
+    rep["hold_s"] = time.time() - t
+    rep["launches"] = {k: v for k, v in launches.items() if v}
+    log(f"spmd: built in {build_s:.1f}s; sharded_bm25 "
+        f"{rep['sharded_bm25_s']:.3f}s, column cache "
+        f"{rep['column_cache_build_s']:.3f}s / {rep['column_cache_s']:.3f}s,"
+        f" sharded_knn {rep['sharded_knn_s']:.3f}s; launches "
+        f"{rep['launches']}; holds {rep['held_as_sets']}, kNN {rep['knn']}")
+    del stacked, cache, kst, vec
+    return launches, shapes, rep
 
 
 def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
@@ -5603,6 +6202,7 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
                                                   k7_parent, k5_parent_fn)
     rows[2]["bool_path"] = k3_bool
     rows[0]["phrase_launches"] = bool_report["k1_phrase_launches"]
+    bool_answers = bool_report.pop("answers")
     rows += bool_rows
     bool_report["phases_s"] = time.time() - t
 
@@ -5625,7 +6225,13 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     s_launches, s_shapes, s_k8, serving_report = serving_phase(
         dense_seg, fp, tokens, bounds, n_docs, batches, dsl, results)
     log(f"serving phase took {serving_report['phase_s']:.1f}s")
-    del dense_seg, tokens, bounds
+
+    # ---- BlockMax over the Turbo budget on the same shard, then spmd ----
+    bm_rows, bm_report = blockmax_phase(dense_seg, fp, n_docs, batches,
+                                        results[:len(batches)],
+                                        bool_answers)
+    rows += bm_rows
+    del dense_seg, tokens, bounds, bool_answers
     default = default_ladder(fp, n_docs, batches[0], held[0])
     del fp
     torch.cuda.empty_cache()
@@ -5674,6 +6280,7 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
                "agg": agg_report,
                "dense": dense_report,
                "index_service": serving_report,
+               "blockmax": bm_report,
                "hbm_ledger": ledger,
                "kernel_build_s": build_s,
                "peak_device_bytes": peak}
@@ -5713,6 +6320,43 @@ def serving_only(n_docs: int, n_batches: int, batch: int) -> dict:
         seg, fp, tokens, bounds, n_docs, batches, dsl, rows)
     return {"launches": launches, "shapes": shapes, "k8": k8_row,
             "report": rep}
+
+
+def blockmax_only(n_docs: int, n_batches: int, batch: int) -> dict:
+    """The BlockMax phase alone (--blockmax-only): the kernels built, the
+    index drawn, the main path's engine rows of each batch and the
+    host-exact answers of config 2 (its columns prebuilt, nothing else of
+    the main phase held or timed), the dense phase's segment, then
+    blockmax_phase. Returns its kernel rows and report."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import cuda_build
+    from elasticsearch_tpu_torch.search.serving import select_bm25_engine
+
+    t = time.time()
+    cuda_build.build_all()
+    log(f"kernels built in {time.time() - t:.1f}s")
+    fp, tokens, bounds = build_index(n_docs, VOCAB)
+    eng = select_bm25_engine([_Seg(n_docs, fp)], "body", device="cuda",
+                             hbm_budget_bytes=TURBO_HBM, cold_df=COLD_DF)
+    eng.prebuild_columns()
+    batches = draw_batches(n_batches, batch, VOCAB)
+    rows = [eng.search_many([b], k=K)[0] for b in batches]
+    turbo = eng.turbos[0]
+    bool_qs = draw_bool(BOOL_BATCH, VOCAB)
+    chunks = [bool_qs[i:i + 8] for i in range(0, len(bool_qs), 8)]
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
+        host = list(ex.map(lambda q: turbo.search_bool_host(q, k=K), chunks))
+    hs = np.concatenate([h[0] for h in host])
+    ho = np.concatenate([h[1] for h in host])
+    ho[hs <= 0] = 0
+    del eng, turbo
+    torch.cuda.empty_cache()
+    log("main path rows and config-2 answers")
+    seg, _, _ = dense_segment(fp, tokens, bounds, n_docs, "cuda")
+    kernel_rows, rep = blockmax_phase(seg, fp, n_docs, batches, rows,
+                                      (bool_qs, hs, ho))
+    return {"kernels": kernel_rows, "report": rep}
 
 
 def admin_only(n_docs: int, n_batches: int, batch: int,
@@ -5804,6 +6448,11 @@ def main(argv=None) -> int:
                     help="run the serving phase alone on the index "
                          "(its main-path rows first), print its report and "
                          "the card's name; no ok line")
+    ap.add_argument("--blockmax-only", action="store_true",
+                    help="run the BlockMax phase alone on an index of "
+                         "--docs docs (the main path's rows first), print "
+                         "its kernel rows and report and the card's name; "
+                         "no ok line")
     ap.add_argument("--admin-only", action="store_true",
                     help="run the admin phase alone on a serving index of "
                          "--docs docs, print its report and the card's "
@@ -5823,10 +6472,13 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
         return 2
-    if args.serving_only or args.admin_only:
+    if args.serving_only or args.admin_only or args.blockmax_only:
         if args.serving_only:
             out = {"serving_only": serving_only(args.docs, args.batches,
                                                 args.batch)}
+        elif args.blockmax_only:
+            out = {"blockmax_only": blockmax_only(args.docs, args.batches,
+                                                  args.batch)}
         else:
             out = {"admin_only": admin_only(args.docs, args.batches,
                                             args.batch)}

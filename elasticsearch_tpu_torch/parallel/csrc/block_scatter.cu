@@ -240,7 +240,69 @@ int launch(const Args& a, void* stream) {
   return (int)e;
 }
 
+// weighted_block_scatter (K11): acc[s, row, doc] += w * score for each lane
+// with score > 0 of the given blocks. Replaces the XLA programs
+// elasticsearch_tpu/parallel/blockmax.py `_scatter_chunk` (:963, the
+// BlockMax overflow path's accumulate step) and
+// elasticsearch_tpu/parallel/spmd.py `_column_insert_program` (:650, impact
+// columns into cache slots). Contract: within one launch no two lanes with
+// score > 0 write the same (s, row, doc) -- the callers give one term's
+// blocks per row (a term holds a doc once) -- so a thread a lane adds
+// without atomics: deterministic, run to run, and equal to the plain
+// version bit for bit (the reference's scatter-add adds a doc's terms in
+// order; so do the callers' launches, one per term run). Bound: bytes, the
+// selected rows read once and each live lane's read-modify-write of acc.
+struct WArgs {
+  const int* ids;      // [S, C] block rows (outside [0, T): nothing)
+  const float* w;      // [S, C]
+  const int* rows;     // [S, C] destination rows of acc, or null (row 0)
+  const int* docs;     // [S, T, 128]
+  const float* scores; // [S, T, 128]
+  float* acc;          // [S, R, D]
+  int C, R, D;
+  long long T;
+};
+
+__global__ void __launch_bounds__(THREADS) weighted_scatter_kernel(
+    const WArgs a) {
+  const int s = blockIdx.y;
+  const long long pos =
+      (long long)blockIdx.x * (THREADS / LANES) + threadIdx.x / LANES;
+  const int lane = threadIdx.x % LANES;
+  if (pos >= a.C) return;
+  const long long pi = (long long)s * a.C + pos;
+  const int id = __ldg(a.ids + pi);
+  if (id < 0 || (long long)id >= a.T) return;
+  const long long off = ((long long)s * a.T + id) * LANES + lane;
+  const float sc = __ldcs(a.scores + off);
+  const int d = __ldcs(a.docs + off);
+  if (!(sc > 0.0f) || d < 0 || d >= a.D) return;
+  const int r = a.rows ? __ldg(a.rows + pi) : 0;
+  if (r < 0 || r >= a.R) return;
+  float* dst = a.acc + ((long long)s * a.R + r) * a.D + d;
+  *dst = __fadd_rn(*dst, __fmul_rn(__ldg(a.w + pi), sc));
+}
+
 }  // namespace
+
+// ids / w / rows [S, C], docs / scores [S, t_rows, 128], acc [S, R, D] f32
+// updated in place.
+extern "C" int es_weighted_block_scatter(const void* ids, const void* w,
+                                         const void* rows, const void* docs,
+                                         const void* scores, void* acc, int S,
+                                         int C, long long t_rows, int R,
+                                         int D, void* stream) {
+  if (S <= 0 || C <= 0 || D <= 0 || R <= 0) return 0;
+  if (S > 65535) return (int)cudaErrorInvalidValue;
+  const WArgs a{(const int*)ids,   (const float*)w,      (const int*)rows,
+                (const int*)docs,  (const float*)scores, (float*)acc,
+                C,                 R,                    D,
+                t_rows};
+  const int64_t per = THREADS / LANES;
+  weighted_scatter_kernel<<<dim3((unsigned)((C + per - 1) / per), S),
+                            THREADS, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
 
 // ids [n_blocks] i32, idf [n_blocks] f32, docs / tfs [t_rows, 128] i32 /
 // f32, doc_len [n_docs] f32 -> out [n_docs] f32. k1, b, omb = 1 - b and

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("build_columns", "sweep_rowmax", "sparse_gather",
            "intersect_bitset", "merge_topk", "knn_window_topc",
-           "agg_counts", "pack_bits", "block_scatter")
+           "agg_counts", "pack_bits", "block_scatter", "lane_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,7 +35,8 @@ _L = ctypes.c_longlong
 # kernel -> (source, C entry point, argtypes); one source may hold several;
 # sweep_group / sweep_list_cap launch nothing: they report K2's built G and
 # list capacity; agg_word_bytes and agg_plan report K8's word scratch
-# size and histogram plan; intersect_table_q K5's queries a launch
+# size and histogram plan; intersect_table_q K5's queries a launch;
+# lane_topk_cap K10's shared-memory buffer for a k
 _SIGNATURES = {
     "build_columns": ("build_columns", "es_build_columns",
                       [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
@@ -68,6 +69,11 @@ _SIGNATURES = {
                            [_P] * 5 + [_I, _L, _I] + [_F] * 5 + [_P, _P]),
     "block_presence": ("block_scatter", "es_block_presence",
                        [_P, _P, _P, _I, _L, _I, _P, _P]),
+    "weighted_block_scatter": ("block_scatter", "es_weighted_block_scatter",
+                               [_P] * 6 + [_I, _I, _L, _I, _I, _P]),
+    "lane_topk": ("lane_topk", "es_lane_topk",
+                  [_P] * 12 + [_I, _I, _L, _I, _I, _I, _I, _I, _P]),
+    "lane_topk_cap": ("lane_topk", "es_lane_topk_cap", [_I]),
 }
 
 _LOCK = threading.Lock()

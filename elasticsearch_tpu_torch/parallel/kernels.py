@@ -20,7 +20,15 @@ ported paths run:
 and, beside them, the dense executor's block scatter, the XLA programs
 `bm25_scatter_scores` and `constant_scatter_mask` of
 elasticsearch_tpu/ops/scoring.py (:56, :83) -> csrc/block_scatter.cu
-(`bm25_block_scatter`, `block_presence`).
+(`bm25_block_scatter`, `block_presence`), and two kernels of BlockMax and
+spmd, whose XLA programs no single torch call replaces:
+
+* K10 `lane_topk`, the lane half of elasticsearch_tpu/parallel/blockmax.py
+  `_lane_candidates` (:911), `_one_query_topk` (:931),
+  `_one_query_topk_bool` (:1014) and of spmd.py `_local_bm25_topk` (:335)
+  -> csrc/lane_topk.cu
+* K11 `weighted_block_scatter`, blockmax.py `_scatter_chunk` (:963) and
+  spmd.py `_column_insert_program` (:650) -> csrc/block_scatter.cu
 
 Each wrapper checks device, dtype, shape and contiguity (raising TypeError
 or ValueError), then: for tensors on the CPU it runs the plain version
@@ -112,7 +120,8 @@ LAUNCHES: Dict[str, int] = {"build_columns": 0, "sweep_rowmax": 0,
                             "sweep_rowmax_bitset": 0, "sweep_rowmax_conj": 0,
                             "merge_topk": 0, "knn_int8_window_topc": 0,
                             "agg_counts": 0, "pack_presence_bits": 0,
-                            "bm25_block_scatter": 0, "block_presence": 0}
+                            "bm25_block_scatter": 0, "block_presence": 0,
+                            "lane_topk": 0, "weighted_block_scatter": 0}
 
 
 _LAUNCH_LOCK = threading.Lock()
@@ -1352,3 +1361,254 @@ def block_presence(block_ids, block_docs, block_tfs, *, n_docs: int):
             int(block_ids.shape[0]), int(block_docs.shape[0]), int(n_docs),
             out.data_ptr())
     return out
+
+
+# --------------------------------------------------------------------------
+# K10 lane top-k and K11 weighted block scatter (BlockMax, spmd)
+# --------------------------------------------------------------------------
+
+LANE_TOPK_THREADS = 1024  # lane_topk.cu's THREADS: the buffer's headroom
+
+
+def lane_topk_cap(k: int) -> int:
+    """K10's shared-memory buffer for a k (lane_topk.cu's
+    es_lane_topk_cap, which the card test holds this mirror to)."""
+    cap = 512
+    while cap < k + LANE_TOPK_THREADS:
+        cap <<= 1
+    return cap
+
+
+_LANE_TOPK_SMEM_MAX = 226 * 1024   # lane_topk.cu's SMEM_MAX
+
+
+def lane_topk_plain(block_docs, block_scores, live, qblocks, qw, tstart, *,
+                    k: int, addend=None, qf=None, hp=None, nm=None):
+    """Plain torch K10: every row's real lanes stably sorted by doc (so a
+    doc's lanes stay in run order), laid out as a zero-padded [docs, runs]
+    matrix and summed column by column from the left, the addend added
+    last; then each row ranked by (score desc, doc asc)."""
+    dev = block_docs.device
+    S, T, _ = block_docs.shape
+    Q, _, B = qblocks.shape
+    R = tstart.shape[2] - 1
+    D = live.shape[1]
+    out_s = torch.full((S, Q, k), float("-inf"), dtype=torch.float32,
+                       device=dev)
+    out_d = torch.zeros((S, Q, k), dtype=torch.int32, device=dev)
+    nb = tstart[:, :, R].long()                                # [Q, S]
+    pos = torch.arange(B, device=dev)
+    used = pos[None, None, :] < nb[:, :, None]                 # [Q, S, B]
+    q_i, s_i, p_i = torch.nonzero(used, as_tuple=True)
+    if q_i.numel() == 0:
+        return out_s, out_d
+    blk = qblocks[q_i, s_i, p_i].long()
+    docs = block_docs[s_i, blk]                                # [N, 128]
+    sc = block_scores[s_i, blk]
+    run = (tstart[q_i, s_i, 1:R + 1] <= p_i[:, None]).sum(dim=1)
+    val = qw[q_i, s_i, p_i][:, None] * sc
+    real = (sc > 0) & (docs >= 0) & (docs < D)
+    lane_row = (q_i * S + s_i)[:, None].expand_as(docs)[real]
+    d = docs[real].long()
+    v = val[real]
+    r = run[:, None].expand_as(docs)[real]
+    key = lane_row * D + d
+    order = torch.sort(key, stable=True).indices
+    key, v, r = key[order], v[order], r[order]
+    gkey, grp = torch.unique_consecutive(key, return_inverse=True)
+    G = gkey.numel()
+    mat = torch.zeros((G, R), dtype=torch.float32, device=dev)
+    mat[grp, r] = v
+    tot = mat[:, 0]
+    for c in range(1, R):
+        tot = tot + mat[:, c]
+    row = gkey // D
+    gd = gkey % D
+    gq, gs = row // S, row % S
+    lv = live[gs, gd]
+    if qf is not None:
+        fl = qf[q_i, s_i, p_i][:, None].expand_as(docs)[real][order]
+        cmat = torch.zeros((G, R), dtype=torch.float32, device=dev)
+        cmat[grp, r] = fl
+        cnt = cmat[:, 0]
+        for c in range(1, R):
+            cnt = cnt + cmat[:, c]
+        value = tot + addend[gs, gq, gd]
+        cov = cnt + hp[gs, gq, gd]
+        ok = lv & ((cov - nm[gq]).abs() < 0.5) & (value > 0)
+    else:
+        ok = (tot > 0) & lv
+        value = tot if addend is None else tot + addend[gs, gq, gd]
+    row, gd, value = row[ok], gd[ok], value[ok]
+    # groups come by (row, doc): stable sorts by score desc, then by row,
+    # give (row asc, score desc, doc asc)
+    o = torch.sort(value, descending=True, stable=True).indices
+    row, gd, value = row[o], gd[o], value[o]
+    o = torch.sort(row, stable=True).indices
+    row, gd, value = row[o], gd[o], value[o]
+    first = torch.zeros(Q * S + 1, dtype=torch.int64, device=dev)
+    first[1:] = torch.cumsum(torch.bincount(row, minlength=Q * S), 0)
+    rank = torch.arange(row.numel(), device=dev) - first[row]
+    keep = rank < k
+    row, rank = row[keep], rank[keep]
+    out_s[row % S, row // S, rank] = value[keep]
+    out_d[row % S, row // S, rank] = gd[keep].to(torch.int32)
+    return out_s, out_d
+
+
+def lane_topk(block_docs, block_scores, live, qblocks, qw, tstart, *,
+              k: int, addend=None, qf=None, hp=None, nm=None):
+    """Exact top-k of each (partition, query) row over the lanes of its
+    selected postings blocks.
+
+    block_docs [S, T, 128] i32, block_scores [S, T, 128] f32 — a
+        partition's blocks; a lane with score > 0 is a posting
+    live [S, D] bool
+    qblocks [Q, S, B] i32, qw [Q, S, B] f32 — each row's block rows and
+        their weights
+    tstart [Q, S, R + 1] i32 — the row's runs: positions [tstart[r],
+        tstart[r + 1]) hold one term's blocks in doc order (a doc at most
+        once a run); positions from tstart[R] on are not read
+    addend [S, Q, D] f32 — added to a doc's lane total (hybrid and bool)
+    qf [Q, S, B] f32, hp [S, Q, D] f32, nm [Q] f32 — bool mode: a doc
+        qualifies when its runs' flags plus hp equal nm
+
+    A doc's total sums w * score over the runs that hold it, in run order.
+    Lane and hybrid mode keep docs with total > 0 (then adds the addend);
+    bool mode keeps docs whose total plus addend is > 0 and whose
+    coverage matches. Returns (scores [S, Q, k] f32, docs [S, Q, k] i32)
+    ranked by (score desc, doc asc), padded with (-inf, 0).
+    """
+    dev = block_docs.device
+    _check(block_docs, "block_docs", torch.int32, 3, dev)
+    _check(block_scores, "block_scores", torch.float32, 3, dev)
+    _check(live, "live", torch.bool, 2, dev)
+    _check(qblocks, "qblocks", torch.int32, 3, dev)
+    _check(qw, "qw", torch.float32, 3, dev)
+    _check(tstart, "tstart", torch.int32, 3, dev)
+    S, T, lanes = block_docs.shape
+    Q, S2, B = qblocks.shape
+    R = int(tstart.shape[2]) - 1
+    D = int(live.shape[1])
+    if (lanes != 128 or block_scores.shape != block_docs.shape
+            or S2 != S or live.shape[0] != S or qw.shape != qblocks.shape
+            or tuple(tstart.shape[:2]) != (Q, S) or R < 1):
+        raise ValueError(
+            f"shapes do not agree: block_docs {tuple(block_docs.shape)}, "
+            f"block_scores {tuple(block_scores.shape)}, live "
+            f"{tuple(live.shape)}, qblocks {tuple(qblocks.shape)}, qw "
+            f"{tuple(qw.shape)}, tstart {tuple(tstart.shape)}")
+    if qf is not None:
+        if addend is None or hp is None or nm is None:
+            raise ValueError("bool mode needs addend, qf, hp and nm")
+        _check(qf, "qf", torch.float32, 3, dev)
+        _check(hp, "hp", torch.float32, 3, dev)
+        _check(nm, "nm", torch.float32, 1, dev)
+        if qf.shape != qblocks.shape or hp.shape != (S, Q, D) \
+                or nm.shape != (Q,):
+            raise ValueError(f"qf {tuple(qf.shape)}, hp {tuple(hp.shape)} "
+                             f"or nm {tuple(nm.shape)} do not fit")
+        mode = 2
+    elif hp is not None or nm is not None:
+        raise ValueError("hp and nm belong to bool mode (give qf)")
+    else:
+        mode = 1 if addend is not None else 0
+    if addend is not None:
+        _check(addend, "addend", torch.float32, 3, dev)
+        if addend.shape != (S, Q, D):
+            raise ValueError(f"addend {tuple(addend.shape)} is not "
+                             f"{(S, Q, D)}")
+    if k < 1:
+        raise ValueError(f"k={k}")
+    if not _route(dev):
+        return lane_topk_plain(block_docs, block_scores, live, qblocks, qw,
+                               tstart, k=k, addend=addend, qf=qf, hp=hp,
+                               nm=nm)
+    if lane_topk_cap(k) * 8 > _LANE_TOPK_SMEM_MAX:
+        raise ValueError(f"k={k} exceeds the lane top-k's shared memory")
+    if S > 65535:
+        raise ValueError(f"{S} partitions exceed the grid")
+    out_s = _out((S, Q, k), torch.float32, dev)
+    out_d = _out((S, Q, k), torch.int32, dev)
+    if Q == 0 or S == 0:
+        return out_s, out_d
+    ptr = (lambda t: 0 if t is None else t.data_ptr())
+    _launch("lane_topk", dev, block_docs.data_ptr(), block_scores.data_ptr(),
+            live.data_ptr(), qblocks.data_ptr(), qw.data_ptr(),
+            tstart.data_ptr(), ptr(addend), ptr(qf), ptr(hp), ptr(nm),
+            out_s.data_ptr(), out_d.data_ptr(), S, Q, int(T), B, R, D, k,
+            mode)
+    return out_s, out_d
+
+
+def weighted_block_scatter_plain(acc, block_ids, weights, block_docs,
+                                 block_scores, rows=None):
+    """Plain torch K11: each lane's w * score added to its doc, in place
+    (every target is written by one lane, so the sum is the kernel's)."""
+    dev = acc.device
+    S, R, D = acc.shape
+    T = block_docs.shape[1]
+    ids = block_ids.long()
+    valid = (ids >= 0) & (ids < T)
+    if rows is None:
+        r = torch.zeros_like(ids)
+    else:
+        r = rows.long()
+        valid &= (r >= 0) & (r < R)
+    idc = ids.clamp(0, max(T - 1, 0))
+    part = torch.arange(S, device=dev)[:, None]
+    docs = block_docs[part, idc].long()                    # [S, C, 128]
+    sc = block_scores[part, idc]
+    keep = valid[:, :, None] & (sc > 0) & (docs >= 0) & (docs < D)
+    v = (weights[:, :, None] * sc)[keep]
+    flat = ((part[:, :, None] * R + r[:, :, None]) * D + docs)[keep]
+    accf = acc.view(-1)
+    accf[flat] = accf[flat] + v
+    return acc
+
+
+def weighted_block_scatter(acc, block_ids, weights, block_docs,
+                           block_scores, rows=None):
+    """acc[s, rows[s, c], doc] += weights[s, c] * score for each lane with
+    score > 0 of block block_ids[s, c], in place; returns acc.
+
+    acc [S, R, D] f32; block_ids, weights, rows [S, C] (i32, f32, i32;
+    rows None: row 0); block_docs [S, T, 128] i32, block_scores
+    [S, T, 128] f32. Rows outside [0, T), destination rows outside
+    [0, R) and docs outside [0, D) add nothing. No two such lanes of one
+    call may hit the same (s, row, doc): give one term's blocks a row (a
+    term holds each doc once) and add terms call by call, in order.
+    """
+    dev = acc.device
+    _check(acc, "acc", torch.float32, 3, dev)
+    _check(block_ids, "block_ids", torch.int32, 2, dev)
+    _check(weights, "weights", torch.float32, 2, dev)
+    _check(block_docs, "block_docs", torch.int32, 3, dev)
+    _check(block_scores, "block_scores", torch.float32, 3, dev)
+    S, R, D = acc.shape
+    if (weights.shape != block_ids.shape or block_ids.shape[0] != S
+            or block_docs.shape[0] != S or block_docs.shape[2] != 128
+            or block_scores.shape != block_docs.shape):
+        raise ValueError(
+            f"shapes do not agree: acc {tuple(acc.shape)}, block_ids "
+            f"{tuple(block_ids.shape)}, weights {tuple(weights.shape)}, "
+            f"block_docs {tuple(block_docs.shape)}, block_scores "
+            f"{tuple(block_scores.shape)}")
+    if rows is not None:
+        _check(rows, "rows", torch.int32, 2, dev)
+        if rows.shape != block_ids.shape:
+            raise ValueError(f"rows {tuple(rows.shape)} must match "
+                             f"block_ids {tuple(block_ids.shape)}")
+    if not _route(dev):
+        return weighted_block_scatter_plain(acc, block_ids, weights,
+                                            block_docs, block_scores, rows)
+    if S > 65535:
+        raise ValueError(f"{S} partitions exceed the grid")
+    C = int(block_ids.shape[1])
+    if C == 0 or S == 0:
+        return acc
+    _launch("weighted_block_scatter", dev, block_ids.data_ptr(),
+            weights.data_ptr(), 0 if rows is None else rows.data_ptr(),
+            block_docs.data_ptr(), block_scores.data_ptr(), acc.data_ptr(),
+            S, C, int(block_docs.shape[1]), R, D)
+    return acc

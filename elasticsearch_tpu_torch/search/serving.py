@@ -35,11 +35,6 @@ Where the port differs from the reference:
 * **The backend gate.** `knn_engine` builds on a `cuda` snapshot, and on
   the CPU only with `ES_TPU_FORCE_KNN` (the reference: on a TPU backend,
   or with the knob).
-* **BlockMax** (ROADMAP item 8) is not ported. Where the reference selects
-  it, `ServingSnapshot.engine` returns None: the disjunctive bodies are
-  declined (counted in `serving_fault_stats()["blockmax_declined"]`) and
-  the dense executor serves them, and conjunctive bodies take the host
-  columnar executor, as in the reference.
 """
 
 from __future__ import annotations
@@ -79,11 +74,10 @@ _ALLOWED_KEYS = {"query", "size", "from", "_source", "stored_fields",
 _MAX_K = 1000
 _KNN_ALLOWED_KEYS = (_ALLOWED_KEYS | {"knn"}) - {"query"}
 
-# serving-path fault/containment counters; `blockmax_declined` counts the
-# disjunctive bodies declined where the reference would select BlockMax
+# serving-path fault/containment counters
 _SERVING_STATS = {"fastpath_reject_error": 0, "fastpath_device_fault": 0,
-                  "fastpath_timed_out": 0, "shard_fault_recoveries": 0,
-                  "blockmax_declined": 0}  # guarded by: _SERVING_LOCK
+                  "fastpath_timed_out": 0,
+                  "shard_fault_recoveries": 0}  # guarded by: _SERVING_LOCK
 _SERVING_LOCK = threading.Lock()
 _LOGGED_REJECT_TYPES: set = set()  # guarded by: _SERVING_LOCK
 
@@ -468,10 +462,6 @@ def _turbo_bool_spec(plan: FlatPlan) -> Optional[dict]:
 # device memory reserved for TurboBM25's int8 column cache when selected
 TURBO_HBM_BUDGET = knob("ES_TPU_TURBO_HBM")
 
-_BLOCKMAX_TODO = ("the BlockMax engine is not ported yet (ROADMAP.md, queue "
-                  "1, item 8: parallel/blockmax.py BlockMaxBM25)")
-
-
 def _env_cold_df() -> Optional[int]:
     return knob("ES_TPU_TURBO_COLD_DF")
 
@@ -779,8 +769,11 @@ def select_bm25_engine(segments, field: str, live_masks=None, *,
                        hbm_budget_bytes: int = TURBO_HBM_BUDGET,
                        cold_df: Optional[int] = None):
     """Build the disjunctive BM25 serving engine for these partitions
-    (objects with `n_docs` and a `postings` dict of FieldPostings). Raises
-    NotImplementedError where the reference would select BlockMax."""
+    (objects with `n_docs` and a `postings` dict of FieldPostings): a
+    TurboEngine where Turbo is eligible, else BlockMaxBM25 over the
+    partitions stacked on `device` (the reference's one selection point,
+    serving.py:866)."""
+    from elasticsearch_tpu_torch.parallel.blockmax import BlockMaxBM25
     from elasticsearch_tpu_torch.parallel.kernels import SW
     from elasticsearch_tpu_torch.parallel.spmd import build_stacked_bm25
     from elasticsearch_tpu_torch.parallel.turbo import COLD_DF, TurboBM25
@@ -790,9 +783,9 @@ def select_bm25_engine(segments, field: str, live_masks=None, *,
         cold_df = _env_cold_df()
     if not turbo_eligible(segments, field, device=dev,
                           hbm_budget_bytes=hbm_budget_bytes, cold_df=cold_df):
-        raise NotImplementedError(
-            f"field [{field}] is not Turbo-eligible "
-            f"({hbm_ledger.last_routing()['reason']}); {_BLOCKMAX_TODO}")
+        return BlockMaxBM25(
+            build_stacked_bm25(segments, field, live_masks, device=dev,
+                               serve_only=True, device_arrays=True), dev)
     # index-global scoring stats: every partition scores with the same
     # total_docs/avgdl/df
     total_docs = sum(max(seg.n_docs, 1) for seg in segments)
@@ -942,18 +935,14 @@ class ServingSnapshot:
 
     def engine(self, field: str):
         """The disjunctive BM25 engine for this snapshot, built once per
-        (snapshot, field): a TurboEngine when Turbo is eligible, else None
-        where the reference selects BlockMax (not ported; the caller
-        declines)."""
+        (snapshot, field): a TurboEngine when Turbo is eligible, BlockMax
+        otherwise."""
         with self._lock:
             if field not in self._bm:
-                try:
-                    self._bm[field] = select_bm25_engine(
-                        [p.segment for p in self.partitions], field,
-                        [p.live for p in self.partitions],
-                        device=self.device)
-                except NotImplementedError:
-                    self._bm[field] = None
+                self._bm[field] = select_bm25_engine(
+                    [p.segment for p in self.partitions], field,
+                    [p.live for p in self.partitions],
+                    device=self.device)
             return self._bm[field]
 
     def knn_engine(self, field: str):
@@ -1217,9 +1206,13 @@ class ServingContext:
             if not self._disj_servable(plan, snap, request):
                 return None
             eng = snap.engine(plan.field)
-            if eng is None:
-                _count_serving("blockmax_declined")
-                return None
+            # engines that do not degrade themselves (BlockMax) get the
+            # circuit enforced here, the dense executor as their fallback
+            health = (getattr(eng, "health", None)
+                      if getattr(eng, "kind", "") != "turbo" else None)
+            if health is not None and not health.allow_device():
+                health.record_fallback(1)
+                return None             # circuit open: dense executor tier
             from elasticsearch_tpu_torch.threadpool.scheduler import (
                 serving_dispatch,
             )
@@ -1232,9 +1225,13 @@ class ServingContext:
             except DispatchDeadlineError:
                 _count_serving("fastpath_timed_out")
                 return timed_out
-            except DeviceFaultError:
+            except DeviceFaultError as e:
+                if health is not None:
+                    health.record_fault(e)
                 _count_serving("fastpath_device_fault")
                 return None             # dense executor serves this one
+            if health is not None:
+                health.record_success()
             total_rel = self._disj_total
         elif plan.is_conjunctive and plan.field is not None:
             # conjunctive / phrase plans serve through the same engine when
@@ -1326,16 +1323,19 @@ class ServingContext:
     def _disjunctive_batch(self, field: str, plans, requests, snap, task=None):
         start = time.monotonic()
         bm = snap.engine(field)
-        if bm is None:
-            # the reference's BlockMax route: declined, the dense executor
-            # serves these bodies
-            _count_serving("blockmax_declined", len(requests))
-            return [None] * len(requests)
         k = max(int(r.get("from", 0)) + int(r.get("size", 10))
                 for r in requests)
         queries = [p.disj for p in plans]
         deadlines = [self._deadline_for(r) for r in requests]
         check = self._combined_check(task, deadlines)
+        # TurboEngine degrades itself (internal circuit + host tier);
+        # engines that can't (BlockMax) get the circuit enforced here,
+        # with the dense executor as their fallback tier
+        health = (getattr(bm, "health", None)
+                  if getattr(bm, "kind", "") != "turbo" else None)
+        if health is not None and not health.allow_device():
+            health.record_fallback(len(queries))
+            return [None] * len(requests)
         flog: List[FaultRecord] = []
         # small batches continuous-batch with concurrent dispatches on the
         # same engine (threadpool/scheduler); large msearch batches go
@@ -1356,9 +1356,13 @@ class ServingContext:
             return [self._timed_out_response(r, snap, start)
                     if d is not None and d.timed_out else None
                     for r, d in zip(requests, deadlines)]
-        except DeviceFaultError:
+        except DeviceFaultError as e:
+            if health is not None:
+                health.record_fault(e)
             _count_serving("fastpath_device_fault")
             return [None] * len(requests)
+        if health is not None:
+            health.record_success()
         if flog:
             _count_serving("shard_fault_recoveries", len(flog))
         t_demux = time.monotonic()

@@ -83,6 +83,8 @@ def test_port_imports_without_jax_or_reference():
         "elasticsearch_tpu_torch.tasks.task_plane",
         "elasticsearch_tpu_torch.indices",
         "elasticsearch_tpu_torch.indices.rollover",
+        "elasticsearch_tpu_torch.parallel.spmd",
+        "elasticsearch_tpu_torch.parallel.blockmax",
     } <= names
     assert int(r.stdout.strip().splitlines()[-1]) >= 94
 
@@ -135,7 +137,19 @@ def test_entry_points_default_to_cuda():
                          "cosine")] * 2
     meta = IndexMetadata(index="g", uuid="u", settings=Settings({}),
                          mappings={"properties": {"body": {"type": "text"}}})
+    from elasticsearch_tpu_torch.parallel.spmd import (
+        build_stacked_bm25, build_stacked_knn,
+    )
+
+    class _Seg:
+        n_docs = 3
+        postings = {}
+        vectors = {"v": cols[0]}
+
     for make in (lambda: IndexService(meta), IndicesService,
+                 lambda: build_stacked_bm25([_Seg()], "body",
+                                            device_arrays=True),
+                 lambda: build_stacked_knn([_Seg()], "v"),
                  lambda: KnnEngine(cols[:1]),
                  lambda: KnnEngine(cols, stacked=True),
                  lambda: build_knn_engine(cols),

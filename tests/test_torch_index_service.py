@@ -8,11 +8,15 @@ tests/test_serving.py run on both:
 * `turbo` mode (ES_TPU_FORCE_TURBO=1, ES_TPU_TURBO_COLD_DF=8): both
   packages serve through Turbo; ids, totals and `_source` are equal and
   scores are bitwise equal.
-* `default` mode: the reference serves disjunctions through BlockMax
-  (ROADMAP item 8, not ported); the port's snapshot declines them, counts
-  each in `serving_fault_stats()["blockmax_declined"]`, and the dense
-  executor serves them. Ids and totals are equal and scores within the
-  reference's own bound (`assert_same_results`: 2e-4 relative plus 2e-4).
+* `default` mode: both packages serve disjunctions through BlockMax
+  (`select_bm25_engine` off the card without ES_TPU_FORCE_TURBO). The
+  port's answers are held to the reference's BlockMax answers under
+  tests/test_blockmax.py's rule (`assert_blockmax_results`: scores within
+  rtol and atol 2e-5, ids and order equal wherever adjacent scores are
+  separated beyond that, the same set across near-ties; the two sum a
+  doc's terms in different orders, ROADMAP W2), totals and `_source`
+  equal, and to the port's dense executor within the reference's own
+  bound (`assert_same_results`: 2e-4 relative plus 2e-4).
 
 Conjunctive bodies Turbo cannot take go to the host columnar executor in
 both packages. kNN bodies go through `_knn_batch` with ES_TPU_FORCE_KNN=1:
@@ -227,8 +231,29 @@ def assert_bitwise(got, want, body):
     assert got["hits"]["max_score"] == want["hits"]["max_score"], body
 
 
-def _declined():
-    return serving.serving_fault_stats()["blockmax_declined"]
+def assert_blockmax_results(got, want, body):
+    """tests/test_blockmax.py's rule on two responses: scores within rtol
+    and atol 2e-5; the same ids in the same order wherever adjacent scores
+    are separated beyond that, the same set across near-ties; totals,
+    max_score and each hit's _source equal."""
+    gh, wh = got["hits"]["hits"], want["hits"]["hits"]
+    assert len(gh) == len(wh), body
+    gs = np.asarray([h["_score"] for h in gh], np.float64)
+    ws = np.asarray([h["_score"] for h in wh], np.float64)
+    np.testing.assert_allclose(gs, ws, rtol=2e-5, atol=2e-5)
+    gaps = np.abs(np.diff(ws)) > 2e-5 * np.abs(ws[:-1]) + 2e-5
+    gid, wid = [h["_id"] for h in gh], [h["_id"] for h in wh]
+    if gaps.all():
+        assert gid == wid, body
+    else:
+        assert set(gid) == set(wid), body
+    src = {h["_id"]: h["_source"] for h in wh}
+    assert all(h["_source"] == src[h["_id"]] for h in gh), body
+    assert got["hits"].get("total") == want["hits"].get("total"), body
+    fm, wm = got["hits"]["max_score"], want["hits"]["max_score"]
+    assert (fm is None) == (wm is None), body
+    if fm is not None:
+        assert abs(fm - wm) <= 2e-5 * abs(wm) + 2e-5, body
 
 
 # ---------------------------------------------------------------------------
@@ -243,19 +268,14 @@ def test_fast_path_matches_dense(mode, body):
     want = ref.serving.try_search(body, "query_then_fetch")
     assert want is not None
     plan = serving.extract_plan(body, port.mapper)
-    d0 = _declined()
     fast = port.serving.try_search(body, "query_then_fetch")
-    if name == "default" and plan.is_disjunctive:
-        # the reference's BlockMax route: declined, the dense path serves
-        assert fast is None
-        assert _declined() == d0 + 1
-        got = port.search(body)
-        assert_same_results(got, port._search_dense(body), body)
-        assert_same_results(got, want, body)
-        return
     assert fast is not None, f"fast path did not engage: {body}"
-    assert _declined() == d0
     assert_same_results(fast, port._search_dense(body), body)
+    if name == "default" and plan.is_disjunctive:
+        # both packages' BlockMax route
+        assert port.serving.snapshot().engine("body").kind == "blockmax"
+        assert_blockmax_results(fast, want, body)
+        return
     assert_bitwise(fast, want, body)
 
 
@@ -295,12 +315,11 @@ def test_random_disjunctions_match(mode):
                 "size": int(rng.integers(1, 30))}
         fast = port.serving.try_search(body, "query_then_fetch")
         want = ref.serving.try_search(body, "query_then_fetch")
-        if name == "default":
-            assert fast is None
-            assert_same_results(port.search(body), want, body)
-            continue
         assert fast is not None
         assert_same_results(fast, port._search_dense(body), body)
+        if name == "default":
+            assert_blockmax_results(fast, want, body)
+            continue
         assert_bitwise(fast, want, body)
 
 
@@ -457,25 +476,109 @@ def test_check_cancels_through_serving(turbo_pair):
             port.serving.try_search(body, "query_then_fetch", task=task)
 
 
-def test_blockmax_declined_counts_and_dense_serves(monkeypatch):
-    """No knobs on the CPU: where the reference selects BlockMax, the
-    port's snapshot has no engine, `_disjunctive_batch` declines every
-    body of the batch and counts it, and msearch answers them densely."""
+def test_blockmax_serves_default_mode(monkeypatch):
+    """No knobs on the CPU: both snapshots select BlockMax, msearch serves
+    every body of the batch through it (one _disjunctive_batch), and the
+    port's answers hold to the reference's BlockMax answers."""
     for key in TURBO_ENV:
         monkeypatch.delenv(key, raising=False)
     ref, port = _pair(index="bm")
     try:
-        assert port.serving.snapshot().engine("body") is None
-        assert ref.serving.snapshot().engine("body").kind == "blockmax"
+        eng = port.serving.snapshot().engine("body")
+        assert eng.kind == "blockmax" == \
+            ref.serving.snapshot().engine("body").kind
+        assert serving.engine_desc(eng) == ("blockmax", 1)
         bodies = [{"query": {"match": {"body": w}}}
                   for w in ("alpha", "beta gamma", "pi")]
-        d0 = _declined()
-        assert port.serving.try_msearch(bodies, "query_then_fetch") \
-            == [None] * 3
-        assert _declined() == d0 + 3
+        served = port.serving.try_msearch(bodies, "query_then_fetch")
+        assert all(r is not None for r in served)
+        want = ref.msearch(bodies)
+        for body, got, w in zip(bodies, port.msearch(bodies), want):
+            assert_blockmax_results(got, w, body)
+            assert_same_results(got, port._search_dense(body), body)
+        assert eng.last_timing["n_queries"] == 3
+    finally:
+        ref.close()
+        port.close()
+
+
+def _trip(health):
+    while health.allow_device():
+        health.record_fault(RuntimeError("tripped by the test"))
+
+
+def test_blockmax_circuit_sends_batch_to_dense(monkeypatch):
+    """A tripped BlockMaxBM25.health: _disjunctive_batch and try_search
+    decline every body before any dispatch and count the fallback, as the
+    reference's circuit does; the dense executor answers them."""
+    for key in TURBO_ENV:
+        monkeypatch.delenv(key, raising=False)
+    ref, port = _pair(index="bmc")
+    try:
+        bodies = [{"query": {"match": {"body": w}}}
+                  for w in ("alpha", "beta gamma", "pi")]
+        engines = [svc.serving.snapshot().engine("body") for svc in (ref, port)]
+        for eng in engines:
+            _trip(eng.health)
+        before = [eng.health.flat_stats() for eng in engines]
+        assert ref.serving.try_msearch(bodies, "query_then_fetch") == \
+            port.serving.try_msearch(bodies, "query_then_fetch") == \
+            [None] * 3
+        assert ref.serving.try_search(bodies[0], "query_then_fetch") is None
+        assert port.serving.try_search(bodies[0], "query_then_fetch") is None
+        after = [eng.health.flat_stats() for eng in engines]
+        deltas = [{k: a[k] - b.get(k, 0) for k in a}
+                  for a, b in zip(after, before)]
+        assert deltas[0] == deltas[1]
+        assert any(v == 4 for k, v in deltas[1].items() if "fallback" in k)
         for body, got, want in zip(bodies, port.msearch(bodies),
                                    ref.msearch(bodies)):
             assert_same_results(got, want, body)
+    finally:
+        ref.close()
+        port.close()
+
+
+def test_blockmax_pass_fault_is_contained(monkeypatch):
+    """blockmax_pass:raise@1 fails the first BlockMax dispatch: dispatched
+    directly (ES_TPU_COALESCE_US=0), the batch is contained
+    (fastpath_device_fault counted, the engine's circuit records the
+    fault) and the dense executor answers, as in the reference; the next
+    batch serves through BlockMax again."""
+    from elasticsearch_tpu.common import faults as ref_faults
+    from elasticsearch_tpu_torch.common import faults
+
+    for key in TURBO_ENV:
+        monkeypatch.delenv(key, raising=False)
+    ref, port = _pair(index="bmf")
+    try:
+        bodies = [{"query": {"match": {"body": w}}}
+                  for w in ("alpha", "beta gamma")]
+        counts = []
+        for svc, flt, mod in ((ref, ref_faults, ref_serving),
+                              (port, faults, serving)):
+            eng = svc.serving.snapshot().engine("body")
+            c0 = mod.serving_fault_stats()["fastpath_device_fault"]
+            h0 = eng.health.flat_stats()
+            with flt.inject("blockmax_pass:raise@1"), _no_batching():
+                first = svc.serving.try_msearch(bodies, "query_then_fetch")
+                second = svc.serving.try_msearch(bodies, "query_then_fetch")
+            assert first == [None, None]
+            assert all(r is not None for r in second)
+            h1 = eng.health.flat_stats()
+            counts.append((
+                mod.serving_fault_stats()["fastpath_device_fault"] - c0,
+                {k: h1[k] - h0.get(k, 0) for k in h1}))
+        assert counts[0] == counts[1] and counts[1][0] == 1
+        # through the port's scheduler the failed batch is retried query by
+        # query (its poison-batch containment), so the fault fired once
+        # costs no body its fast path
+        with faults.inject("blockmax_pass:raise@1"):
+            assert all(r is not None for r in port.serving.try_msearch(
+                bodies, "query_then_fetch"))
+        for body, got, want in zip(bodies, port.msearch(bodies),
+                                   ref.msearch(bodies)):
+            assert_blockmax_results(got, want, body)
     finally:
         ref.close()
         port.close()

@@ -33,7 +33,13 @@ boosted idf, several terms' blocks for the presence mask, row ids
 outside the block arrays, and its edges (rows shuffled, a row count that
 is not a whole number of the kernel's steps, a live row 0, 40,001 and
 200,000 docs, a ladder of row counts up to 8 x the warps the card holds,
-so that every grid plan is taken). Every comparison is bitwise. Each
+so that every grid plan is taken), K10 `lane_topk` at the four (bucket,
+Qc) shapes of BlockMax's dispatch groups in its lane, hybrid and bool
+modes with ties, a k past the block's threads, a term in two runs, empty
+rows and runs and a dead partition, and K11 `weighted_block_scatter` at
+the overflow path's 8192 blocks, into column-cache rows, and with ids and
+rows outside the arrays (run twice: no atomics). Every comparison is
+bitwise. Each
 kernel is also run
 once on outputs filled with NaN / -1 (kernels.poisoned; K1: column tiles
 filled with a nonzero byte pattern; K8: its outputs and word scratch), so a
@@ -616,6 +622,58 @@ def test_poisoned_outputs(dev, kernel):
 # --------------------------------------------------------------------------
 # block scatter (ops/scoring.py's BM25 / presence scatter)
 # --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("poison", [False, True])
+@pytest.mark.parametrize("mode", ["lane", "hybrid", "bool"])
+@pytest.mark.parametrize("name", ["g32", "g512", "g8192", "g32768", "ties",
+                                  "big_k", "edges"])
+def test_lane_topk_kernel(dev, name, mode, poison):
+    """K10 at the four (bucket, Qc) shapes of blockmax._GROUP_SHAPES (up to
+    4.19M lanes a row) and its edges, in each mode, bitwise against the
+    plain version, also on outputs filled with NaN / -1 first."""
+    from torch_kernel_cases import lane_topk_inputs
+
+    bd, bs, live, qb, qw, ts, kk, extra = lane_topk_inputs(name, mode)
+    args = [_c(a, dev) for a in (bd, bs, live, qb, qw, ts)]
+    kw = {key: _c(v, dev) for key, v in extra.items()}
+    k.reset_launches()
+    with k.poisoned() if poison else _nullcontext():
+        got_s, got_d = k.lane_topk(*args, k=kk, **kw)
+    want_s, want_d = k.lane_topk_plain(*args, k=kk, **kw)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["lane_topk"] == 1
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+    assert torch.equal(got_d, want_d)
+    assert (want_s > 0).any()
+
+
+def test_lane_topk_cap_matches_kernel(dev):
+    for kk in (1, 10, 256, 257, 300, 1000, 1792):
+        assert cuda_build.kernel("lane_topk_cap")(kk) == k.lane_topk_cap(kk)
+
+
+@pytest.mark.parametrize("name", ["overflow", "columns", "outside"])
+def test_weighted_block_scatter_kernel(dev, name):
+    """K11 bitwise against the plain version, and run to run (no
+    atomics)."""
+    from torch_kernel_cases import weighted_scatter_inputs
+
+    acc, ids, w, rows, bd, bs = weighted_scatter_inputs(name)
+    args = [_c(a, dev) for a in (ids, w, bd, bs)]
+    r = None if rows is None else _c(rows, dev)
+    outs = []
+    k.reset_launches()
+    for run in (k.weighted_block_scatter, k.weighted_block_scatter,
+                k.weighted_block_scatter_plain):
+        a = _c(acc, dev)
+        run(a, args[0], args[1], args[2], args[3], r)
+        outs.append(a)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["weighted_block_scatter"] == 2
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    assert torch.equal(outs[0].view(torch.int32), outs[2].view(torch.int32))
+    assert not torch.equal(outs[0], _c(acc, dev))
 
 
 @pytest.fixture(scope="module")

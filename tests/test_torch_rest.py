@@ -8,9 +8,11 @@ are held in two modes, as in tests/test_torch_index_service.py:
 
 * `turbo` (ES_TPU_FORCE_TURBO=1, ES_TPU_TURBO_COLD_DF=8): ids, order and
   totals equal, scores bitwise (`assert_bitwise`);
-* `default`: the reference serves disjunctions through BlockMax and the port
-  declines them to the dense executor (ROADMAP W16). Ids and totals equal,
-  scores within `assert_same_results`'s bound.
+* `default`: both nodes serve disjunctions through BlockMax, the port's
+  answers held to the reference's BlockMax answers (and every other body
+  to the reference's dense executor): ids, order and totals equal, scores
+  within `assert_same_results`'s bound (the two BlockMax engines sum a
+  doc's terms in different orders, ROADMAP W2).
 
 Each case also keeps its assertions from tests/test_rest.py, on the port's
 responses. The reference's calls run with ES_TPU_COALESCE_US=0 (its lane

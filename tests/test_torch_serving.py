@@ -118,14 +118,48 @@ def test_select_bm25_engine_bitwise(index, monkeypatch):
     assert port.stats["fallbacks"] == ref.stats["fallbacks"]
 
 
-def test_cpu_needs_force_turbo(index, monkeypatch):
-    """Without ES_TPU_FORCE_TURBO the reference leaves the CPU to BlockMax;
-    the port, which has no BlockMax yet, says so instead of falling back."""
+def test_cpu_selects_blockmax(index, monkeypatch):
+    """Without ES_TPU_FORCE_TURBO the reference leaves the CPU to BlockMax,
+    and so does the port; over the column budget both select BlockMax
+    too, with the same routing reason. Their answers agree under
+    tests/test_blockmax.py's rule (rtol and atol 2e-5, near-ties as sets)."""
+    from elasticsearch_tpu.common import hbm_ledger as ref_ledger
+    from elasticsearch_tpu_torch.common import hbm_ledger
+
     monkeypatch.delenv("ES_TPU_FORCE_TURBO", raising=False)
-    _, port_segs, _ = index
+    ref_segs, port_segs, lives = index
     assert not serving.turbo_eligible(port_segs, "body", device="cpu")
-    with pytest.raises(NotImplementedError, match="BlockMax"):
-        serving.select_bm25_engine(port_segs, "body", device="cpu")
+    from elasticsearch_tpu.parallel import make_mesh
+
+    mesh = make_mesh(len(ref_segs), dp=1)
+    ref = ref_serving.select_bm25_engine(ref_segs, "body", lives, mesh)
+    port = serving.select_bm25_engine(port_segs, "body", lives,
+                                      device="cpu")
+    assert ref.kind == port.kind == "blockmax"
+    assert hbm_ledger.last_routing_reason() == "backend_not_cuda"
+    assert serving.engine_desc(port) == ("blockmax", 1)
+    rng = np.random.default_rng(9)
+    queries = [[WORDS[a], WORDS[b]] for a, b in
+               rng.integers(0, len(WORDS), size=(12, 2))]
+    got = port.search_many([queries], k=10)[0]
+    want = ref.search_many([queries], k=10)[0]
+    for q in range(len(queries)):
+        ws = np.where(np.isfinite(want[0][q]), want[0][q], 0)
+        np.testing.assert_allclose(got[0][q], ws, rtol=2e-5, atol=2e-5)
+        v = ws > 0
+        gaps = np.abs(np.diff(ws[v])) > 2e-5 * ws[v][:-1] + 2e-5
+        g = list(zip(got[1][q][v], got[2][q][v]))
+        w = list(zip(want[1][q][v], want[2][q][v]))
+        assert g == w if gaps.all() else set(g) == set(w)
+    monkeypatch.setenv("ES_TPU_FORCE_TURBO", "1")
+    assert serving.select_bm25_engine(
+        port_segs, "body", lives, device="cpu", hbm_budget_bytes=1024,
+        cold_df=1).kind == "blockmax"
+    assert ref_serving.select_bm25_engine(
+        ref_segs, "body", lives, mesh, hbm_budget_bytes=1024,
+        cold_df=1).kind == "blockmax"
+    assert hbm_ledger.last_routing_reason() == \
+        ref_ledger.last_routing_reason() == "exceeds_hbm_budget"
 
 
 def test_default_device_is_cuda(index, monkeypatch):

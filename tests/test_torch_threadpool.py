@@ -8,8 +8,10 @@ run the same stub engines through both packages (`pkg` is "ref" or
 port's Turbo engine on the CPU (`device="cpu"`, `ES_TPU_FORCE_TURBO=1`,
 the kernels' plain versions): scheduled and coalesced rows are bitwise
 equal to solo rows, and to the reference engine's solo rows on the same
-documents. The reference's `blockmax` variants have no port counterpart
-(BlockMax is ROADMAP item 8); their port cases run the Turbo engine.
+documents; so are the reference's `blockmax` variants (no knobs on the
+CPU: BlockMax), whose port rows are also held to the reference BlockMax
+engine's solo rows under tests/test_blockmax.py's rule (rtol and atol
+2e-5, near-ties as sets: the two sum a doc's terms in different orders).
 `test_http_server_sheds_load_with_429` waits for the REST node (item 9c).
 """
 
@@ -79,11 +81,17 @@ def _fill(svc, rng_seed=99, n=320, refresh_at=140, delete_step=9):
     return svc
 
 
-def _build_index(monkeypatch, uuid: str, ref: bool = False):
+def _build_index(monkeypatch, uuid: str, ref: bool = False,
+                 turbo: bool = True):
     """The reference tests' two-segment index with deletions, on the
-    port's IndexService on the CPU (or the reference's), Turbo forced."""
-    monkeypatch.setenv("ES_TPU_FORCE_TURBO", "1")
-    monkeypatch.setenv("ES_TPU_TURBO_COLD_DF", "8")
+    port's IndexService on the CPU (or the reference's), Turbo forced
+    (or, turbo=False, no knobs: BlockMax)."""
+    if turbo:
+        monkeypatch.setenv("ES_TPU_FORCE_TURBO", "1")
+        monkeypatch.setenv("ES_TPU_TURBO_COLD_DF", "8")
+    else:
+        monkeypatch.delenv("ES_TPU_FORCE_TURBO", raising=False)
+        monkeypatch.delenv("ES_TPU_TURBO_COLD_DF", raising=False)
     if ref:
         from elasticsearch_tpu.cluster.state import IndexMetadata
         from elasticsearch_tpu.common.settings import Settings
@@ -106,6 +114,19 @@ def _assert_rows_equal(got, want, ctx):
     assert np.array_equal(gs, ws), ctx
     assert np.array_equal(gp, wp), ctx
     assert np.array_equal(go, wo), ctx
+
+
+def _assert_rows_close(got, want, ctx):
+    """tests/test_blockmax.py's rule on one (scores, parts, ords) row set;
+    -inf (the reference's empty slot) compares as the port's 0."""
+    ws = np.where(np.isfinite(want[0]), want[0], 0)
+    np.testing.assert_allclose(got[0], ws, rtol=2e-5, atol=2e-5)
+    for q in range(ws.shape[0]):
+        v = ws[q] > 0
+        g = list(zip(got[1][q][v], got[2][q][v]))
+        w = list(zip(want[1][q][v], want[2][q][v]))
+        gaps = np.abs(np.diff(ws[q][v])) > 2e-5 * ws[q][v][:-1] + 2e-5
+        assert (g == w) if gaps.all() else (set(g) == set(w)), ctx
 
 
 def _concurrent(fn, queries):
@@ -280,27 +301,42 @@ def test_pool_for_request_classification(pkg):
 
 @pytest.fixture(scope="module")
 def ref_solo():
-    """The reference engine's solo rows for QUERIES on the same index."""
+    """The reference engines' solo rows for QUERIES on the same index, by
+    engine kind."""
     mp = pytest.MonkeyPatch()
+    out = {}
     try:
-        svc = _build_index(mp, "ref_solo", ref=True)
-        eng = svc.serving.snapshot().engine("body")
-        assert eng.kind == "turbo"
-        out = [eng.search_many([[q]], k=10)[0] for q in QUERIES]
-        svc.close()
+        for kind in ENGINES:
+            svc = _build_index(mp, "ref_solo_" + kind, ref=True,
+                               turbo=kind == "turbo")
+            eng = svc.serving.snapshot().engine("body")
+            assert eng.kind == kind
+            out[kind] = [eng.search_many([[q]], k=10)[0] for q in QUERIES]
+            svc.close()
     finally:
         mp.undo()
     return out
 
 
-def test_coalesced_rows_bit_identical_to_solo(monkeypatch, ref_solo):
-    svc = _build_index(monkeypatch, "u_co1")
+ENGINES = ("turbo", "blockmax")
+
+
+def _hold_ref(got, ref, kind, ctx):
+    if kind == "turbo":
+        _assert_rows_equal(got, ref, ctx)
+    else:
+        _assert_rows_close(got, ref, ctx)
+
+
+@pytest.mark.parametrize("kind", ENGINES)
+def test_coalesced_rows_bit_identical_to_solo(monkeypatch, ref_solo, kind):
+    svc = _build_index(monkeypatch, "u_co1" + kind, turbo=kind == "turbo")
     try:
         eng = svc.serving.snapshot().engine("body")
-        assert eng.kind == "turbo"
+        assert eng.kind == kind
         solo = [eng.search_many([[q]], k=10)[0] for q in QUERIES]
-        for q, got, want in zip(QUERIES, solo, ref_solo):
-            _assert_rows_equal(got, want, f"port solo vs reference {q}")
+        for q, got, want in zip(QUERIES, solo, ref_solo[kind]):
+            _hold_ref(got, want, kind, f"port solo vs reference {q}")
         co = port_coalescer.DispatchCoalescer(window_us=500_000,
                                               max_batch=len(QUERIES))
         results, errors = _concurrent(
@@ -539,21 +575,23 @@ def test_build_batch_flush_rules(pkg):
     assert len(batch.queries) == 16 and len(lane.queue) == 1
 
 
-def test_scheduled_rows_bit_identical_to_solo(monkeypatch, ref_solo):
+@pytest.mark.parametrize("kind", ENGINES)
+def test_scheduled_rows_bit_identical_to_solo(monkeypatch, ref_solo, kind):
     monkeypatch.setenv("ES_TPU_COALESCE_US", "300000")
-    svc = _build_index(monkeypatch, "u_sc1")
+    svc = _build_index(monkeypatch, "u_sc1" + kind, turbo=kind == "turbo")
     try:
         eng = svc.serving.snapshot().engine("body")
-        assert eng.kind == "turbo"
+        assert eng.kind == kind
         solo = [eng.search_many([[q]], k=10)[0] for q in QUERIES]
         sched = port_scheduler.AdaptiveDispatchScheduler(
             buckets=(len(QUERIES),), interactive_us=400000.0,
             bulk_us=400000.0)
         results, errors = _concurrent_sched(sched, eng, QUERIES)
         assert errors == [None] * len(QUERIES)
-        for q, got, want, ref in zip(QUERIES, results, solo, ref_solo):
+        for q, got, want, ref in zip(QUERIES, results, solo,
+                                     ref_solo[kind]):
             _assert_rows_equal(got, want, f"merged {q}")
-            _assert_rows_equal(got, ref, f"merged vs reference {q}")
+            _hold_ref(got, ref, kind, f"merged vs reference {q}")
         st = sched.stats()
         assert st["sched_dispatches"] == 1
         assert st["sched_queries"] == len(QUERIES)

@@ -1490,3 +1490,220 @@ def presence_ids(fp, n_terms=12):
     out = np.zeros(b, np.int32)
     out[:len(ids)] = ids
     return out
+
+
+# ---------------------------------------------------------------------------
+# K10 lane top-k and K11 weighted block scatter (BlockMax, spmd)
+# ---------------------------------------------------------------------------
+
+# name -> (partitions, rows Q, block bucket B, terms a row, docs, term dfs
+# (lo, hi), k): the four (bucket, Qc) shapes of blockmax._GROUP_SHAPES, then
+# edges
+LANE_TOPK_SHAPES = {
+    "g32": (2, 512, 32, 3, 60_000, (200, 1_200), 10),
+    "g512": (2, 64, 512, 3, 400_000, (2_000, 20_000), 10),
+    "g8192": (1, 8, 8192, 3, 4_000_000, (100_000, 300_000), 10),
+    "g32768": (1, 4, 32768, 3, 8_000_000, (1_300_000, 1_400_000), 10),
+    "ties": (2, 16, 64, 3, 20_000, (500, 2_000), 10),
+    "big_k": (2, 8, 64, 4, 20_000, (500, 2_000), 300),
+    "edges": (3, 12, 48, 3, 10_000, (100, 1_500), 10),
+}
+LANE_TOPK_MODES = ("lane", "hybrid", "bool")
+
+
+def _term_blocks(rng, n_docs, df, tie):
+    """One term's postings blocks: sorted docs of rate df / n_docs, lane
+    scores in (0.2, 2.2] (rounded to 0.25 when `tie`), pad lanes doc 0
+    with score 0."""
+    docs = np.nonzero(rng.random(n_docs) < df / n_docs)[0].astype(np.int32)
+    sc = rng.uniform(0.2, 2.2, len(docs)).astype(np.float32)
+    if tie:
+        sc = np.ceil(sc * 4).astype(np.float32) / 4
+    nb = -(-len(docs) // 128)
+    bd = np.zeros((nb, 128), np.int32)
+    bs = np.zeros((nb, 128), np.float32)
+    bd.ravel()[: len(docs)] = docs
+    bs.ravel()[: len(docs)] = sc
+    return bd, bs
+
+
+def lane_topk_inputs(name, mode, seed=0):
+    """Seeded K10 inputs for a case of LANE_TOPK_SHAPES in a mode of
+    LANE_TOPK_MODES, as numpy arrays: (block_docs, block_scores, live,
+    qblocks, qw, tstart, k, extra) where extra holds addend / qf / hp / nm
+    for the mode. Each row takes `terms` of the partition's terms (the
+    same term twice in some rows of "edges"), each term's kept blocks a
+    random subset in doc order, truncated to the bucket; "edges" also has
+    rows with no blocks, rows whose every run is empty, dead docs and an
+    all-dead partition row."""
+    S, Q, B, nt, n_docs, (lo, hi), kk = LANE_TOPK_SHAPES[name]
+    rng = np.random.default_rng(seed)
+    tie = name == "ties"
+    n_terms = 2 * nt + 2
+    parts = []
+    for _ in range(S):
+        rows_d, rows_s, spans = [np.zeros((1, 128), np.int32)], \
+            [np.zeros((1, 128), np.float32)], []
+        start = 1
+        for _ in range(n_terms):
+            bd, bs = _term_blocks(rng, n_docs, int(rng.integers(lo, hi)), tie)
+            rows_d.append(bd)
+            rows_s.append(bs)
+            spans.append((start, len(bd)))
+            start += len(bd)
+        parts.append((np.concatenate(rows_d), np.concatenate(rows_s), spans))
+    T = max(len(p[0]) for p in parts)
+    block_docs = np.zeros((S, T, 128), np.int32)
+    block_scores = np.zeros((S, T, 128), np.float32)
+    for s, (bd, bs, _) in enumerate(parts):
+        block_docs[s, : len(bd)] = bd
+        block_scores[s, : len(bs)] = bs
+    live = rng.random((S, n_docs)) > 0.1
+    qblocks = np.zeros((Q, S, B), np.int32)
+    qw = np.zeros((Q, S, B), np.float32)
+    qf = np.zeros((Q, S, B), np.float32)
+    R = nt + (1 if name == "edges" else 0)
+    tstart = np.zeros((Q, S, R + 1), np.int32)
+    n_req = np.zeros(Q, np.float32)
+    for q in range(Q):
+        terms = list(rng.choice(n_terms, size=nt, replace=False))
+        if name == "edges" and q % 4 == 1:
+            terms.append(terms[0])             # a term in two runs
+        ws = (np.full(len(terms), 1.5, np.float32) if tie else
+              rng.uniform(0.3, 3.0, len(terms)).astype(np.float32))
+        req = rng.random(len(terms)) < 0.6
+        n_req[q] = req.sum()
+        keep_p = 1.0 if name == "g32768" else 0.7
+        for s in range(S):
+            off = 0
+            for r, (t, w, rq) in enumerate(zip(terms, ws, req)):
+                tstart[q, s, r] = off
+                if name == "edges" and (q % 4 == 2 or (q % 4 == 3 and r)):
+                    continue                   # empty runs
+                st, cnt = parts[s][2][t]
+                ids = np.arange(st, st + cnt, dtype=np.int32)
+                ids = ids[rng.random(cnt) < keep_p]
+                ids = ids[: B - off]
+                qblocks[q, s, off: off + len(ids)] = ids
+                qw[q, s, off: off + len(ids)] = w
+                qf[q, s, off: off + len(ids)] = float(rq)
+                off += len(ids)
+            tstart[q, s, len(terms):] = off
+    if name == "edges":
+        live[0, :] = False
+        qblocks[Q - 1, :, :] = 0
+        tstart[Q - 1] = 0
+    extra = {}
+    if mode in ("hybrid", "bool"):
+        add = rng.uniform(0.0, 3.0, (S, Q, n_docs)).astype(np.float32)
+        add[rng.random((S, Q, n_docs)) < 0.7] = 0.0
+        if tie:
+            add = np.ceil(add * 4) / 4
+        extra["addend"] = add.astype(np.float32)
+    if mode == "bool":
+        hp = (rng.random((S, Q, n_docs)) < 0.4).astype(np.float32)
+        extra["qf"] = qf
+        extra["hp"] = hp
+        extra["nm"] = n_req + (rng.random(Q) < 0.5)
+    return (block_docs, block_scores, live, qblocks, qw, tstart, kk, extra)
+
+
+def lane_topk_brute(block_docs, block_scores, live, qblocks, qw, tstart, k,
+                    addend=None, qf=None, hp=None, nm=None):
+    """A dict-per-row numpy statement of K10's contract (no sort-and-sum
+    trick): per (partition, query) row, each doc's weighted lane scores
+    summed in run order from 0, the addend last, the mode's gate, then
+    (score desc, doc asc); padded with (-inf, 0)."""
+    S = block_docs.shape[0]
+    Q = qblocks.shape[0]
+    R = tstart.shape[2] - 1
+    out_s = np.full((S, Q, k), -np.inf, np.float32)
+    out_d = np.zeros((S, Q, k), np.int32)
+    for q in range(Q):
+        for s in range(S):
+            ts = tstart[q, s]
+            docs = {}
+            for r in range(R):
+                for p in range(ts[r], ts[r + 1]):
+                    b = qblocks[q, s, p]
+                    for j in range(128):
+                        sc = block_scores[s, b, j]
+                        if not sc > 0:
+                            continue
+                        d = int(block_docs[s, b, j])
+                        tot, cnt = docs.get(d, (np.float32(0), 0.0))
+                        tot = np.float32(tot + np.float32(qw[q, s, p] * sc))
+                        if qf is not None:
+                            cnt += float(qf[q, s, p])
+                        docs[d] = (tot, cnt)
+            cand = []
+            for d, (tot, cnt) in docs.items():
+                if qf is not None:
+                    v = np.float32(tot + addend[s, q, d])
+                    cov = np.float32(np.float32(cnt) + hp[s, q, d])
+                    if live[s, d] and abs(cov - nm[q]) < 0.5 and v > 0:
+                        cand.append((v, d))
+                elif tot > 0 and live[s, d]:
+                    v = tot if addend is None else \
+                        np.float32(tot + addend[s, q, d])
+                    cand.append((v, d))
+            cand.sort(key=lambda x: (-x[0], x[1]))
+            for j, (v, d) in enumerate(cand[:k]):
+                out_s[s, q, j] = v
+                out_d[s, q, j] = d
+    return out_s, out_d
+
+
+# name -> (partitions, rows R of acc, docs, terms, blocks a launch, with
+# ids / rows outside the arrays)
+WEIGHTED_SCATTER_CASES = {
+    "overflow": (2, 1, 2_000_000, 1, 8192, False),
+    "columns": (3, 9, 50_000, 8, None, False),
+    "outside": (2, 4, 20_000, 3, None, True),
+}
+
+
+def weighted_scatter_inputs(name, seed=0):
+    """Seeded K11 inputs: (acc [S, R, D] f32 with nonzero starting values,
+    block_ids [S, C] i32, weights [S, C] f32, rows [S, C] i32 or None,
+    block_docs [S, T, 128], block_scores). One term a destination row per
+    launch, as the callers give it; pad slots are block 0; "outside" adds
+    ids past T and negative, and rows outside [0, R)."""
+    S, R, n_docs, n_terms, width, outside = WEIGHTED_SCATTER_CASES[name]
+    rng = np.random.default_rng(seed)
+    parts = []
+    for _ in range(S):
+        rows_d, rows_s, spans = [np.zeros((1, 128), np.int32)], \
+            [np.zeros((1, 128), np.float32)], []
+        start = 1
+        for t in range(n_terms):
+            df = (width * 128 - 300 if width else
+                  int(rng.integers(200, n_docs // 4)))
+            bd, bs = _term_blocks(rng, n_docs, df, False)
+            rows_d.append(bd)
+            rows_s.append(bs)
+            spans.append((start, len(bd)))
+            start += len(bd)
+        parts.append((np.concatenate(rows_d), np.concatenate(rows_s), spans))
+    T = max(len(p[0]) for p in parts)
+    block_docs = np.zeros((S, T, 128), np.int32)
+    block_scores = np.zeros((S, T, 128), np.float32)
+    for s, (bd, bs, _) in enumerate(parts):
+        block_docs[s, : len(bd)] = bd
+        block_scores[s, : len(bs)] = bs
+    C = max(sum(cnt for _, cnt in p[2]) for p in parts) + 5
+    ids = np.zeros((S, C), np.int32)
+    w = np.zeros((S, C), np.float32)
+    rows = np.zeros((S, C), np.int32)
+    for s, (_, _, spans) in enumerate(parts):
+        off = 0
+        for t, (st, cnt) in enumerate(spans):
+            ids[s, off: off + cnt] = np.arange(st, st + cnt)
+            w[s, off: off + cnt] = rng.uniform(0.2, 4.0)
+            rows[s, off: off + cnt] = t % R
+            off += cnt
+    if outside:
+        ids[:, -3:] = [T, T + 1000, -5]
+        rows[:, :4] = [R, -1, R + 7, 0]
+    acc = rng.uniform(0.0, 2.0, (S, R, n_docs)).astype(np.float32)
+    return (acc, ids, w, None if R == 1 else rows, block_docs, block_scores)
