@@ -9,6 +9,7 @@
     python3 chip_smoke.py --k8-parent OLD.cu --k4-parent OLD.cu   # and K8, K4
     python3 chip_smoke.py --k5-parent OLD.cu   # and K5's stage
     python3 chip_smoke.py --scatter-parent OLD.cu   # and the block scatter
+    python3 chip_smoke.py --lane-topk-parent OLD.cu   # and K10 lane_topk
     python3 chip_smoke.py --serving-only --docs N   # step 8 alone, no ok line
     python3 chip_smoke.py --admin-only --docs N     # step 8's admin phase alone
     python3 chip_smoke.py --blockmax-only --docs N  # step 9 alone
@@ -144,18 +145,20 @@ aggregation path the way bench.py drives config 6:
    far below the shard's Turbo columns, so the snapshot's engine is
    BlockMaxBM25 (routing reason exceeds_hbm_budget); both config-1
    batches through IndexService.msearch (K10 `lane_topk` in its lane and
-   hybrid modes, K4), config 2's 256 bool specs through search_bool (the
+   hybrid modes, K4), then 4 pasted-text `match` bodies of 100 rare terms
+   (K10 rows of 100 runs), config 2's 256 bool specs through search_bool (the
    host conjunction, the device program, the host overflow; routes
    counted) and 16 heavy ones as one device group (K10's bool mode), and
    the overflow path on 8 batch-0 queries with every block kept (K11
    `weighted_block_scatter`), every answer held to the host-exact rows
-   under tests/test_blockmax.py's rule (scores within 2e-5, ids and order
+   (the long bodies to the numpy scorer) under tests/test_blockmax.py's rule (scores within 2e-5, ids and order
    but across near-ties); then the spmd programs at a cut (4 stacked
    partitions of 250,000 docs, 64 queries): sharded_bm25_topk,
    Bm25ColumnCache and sharded_knn_topk, held to numpy rankings; every
    K10, K11 and K4 launch shape of both held bitwise against its plain
    version, also poisoned, and timed beside its bound and a library
-   yardstick (torch.sort of K10's lanes, index_add_ of K11's);
+   yardstick (torch.sort of K10's lanes, index_add_ of K11's), K10 also
+   beside the parent commit's kernel where --lane-topk-parent names it;
 10. serves the first batch again on a fresh engine at the default slice
    ladder and reports its sparse fallbacks, holding the answers that step
    4 held;
@@ -263,6 +266,15 @@ K5_PARENT = "elasticsearch_tpu_torch/parallel/csrc/build/k5_parent.cu"
 #   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/block_scatter.cu
 SCATTER_PARENT = ("elasticsearch_tpu_torch/parallel/csrc/build/"
                   "scatter_parent.cu")
+# and K10's (check_path_shapes at every BlockMax and spmd launch shape: the
+# one-block-a-row kernel, its C entry without the tile scratch), written
+# there with
+#   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/lane_topk.cu
+LANE_TOPK_PARENT = ("elasticsearch_tpu_torch/parallel/csrc/build/"
+                    "lane_topk_parent.cu")
+# CUDA-graph replays a K10 timing averages over in the A/B (lane_ab): its
+# pass-A launches take about 0.01 ms
+GRAPH_REPS_K10 = 200
 # CUDA-graph replays a block-scatter timing averages over: a mid or rare
 # term's call is about 0.01 ms, and 20 replays left its graph time to the
 # events' resolution and the clock's ramp
@@ -2682,6 +2694,29 @@ def agg_route(device: bool):
 
 
 _HOST_JOBS: list = []     # (ctx, [(spec, mask)]) for the forked workers
+_EXACT_JOBS: list = []    # (engine, [query part]) for the forked workers
+
+
+def _host_exact_job(i: int):
+    eng, parts = _EXACT_JOBS[0]
+    return eng.search_many_host([parts[i]], k=K)[0]
+
+
+def host_exact_runs(eng, parts):
+    """eng.search_many_host of each part (a list of queries) in forked
+    worker processes: the exact posting merge holds the GIL for most of its
+    second a query at 8M docs, so threads overlap little (137 s for the
+    main path's 168 queries on one host). The workers run numpy only,
+    never the card, and exit with the pool."""
+    import multiprocessing
+
+    _EXACT_JOBS[:] = [(eng, parts)]
+    try:
+        with multiprocessing.get_context("fork").Pool(
+                min(len(parts), os.cpu_count() or 1)) as pool:
+            return pool.map(_host_exact_job, range(len(parts)), chunksize=1)
+    finally:
+        _EXACT_JOBS.clear()
 
 
 def _agg_host_job(i: int):
@@ -3624,6 +3659,77 @@ def check_block_scatter(seg, n: int, launches: dict, parent=None):
     return rows
 
 
+def lane_parent(path):
+    """The parent commit's K10 C entry (a block a row; no tile scratch),
+    built with nvcc from `path`, or None when `path` is not a file."""
+    import ctypes
+
+    from elasticsearch_tpu_torch.tools.k9_ab import parent_entry
+
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return parent_entry(path, "lane_topk_parent", "es_lane_topk",
+                        [P] * 12 + [I, I, L, I, I, I, I, I, P])
+
+
+def lane_parent_call(fn, args, kw):
+    """One K10 call through the parent's C entry `fn` (lane_parent), with
+    the wrapper's allocations (kernels._out, so filled inside
+    kernels.poisoned) and none of its checks."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    bd, bs, live, qb, qw, ts = args
+    S, T, _ = (int(x) for x in bd.shape)
+    Q, _, B = (int(x) for x in qb.shape)
+    kk = kw["k"]
+    mode = 2 if kw.get("qf") is not None else (
+        1 if kw.get("addend") is not None else 0)
+    out_s = k._out((S, Q, kk), torch.float32, bd.device)
+    out_d = k._out((S, Q, kk), torch.int32, bd.device)
+    ptr = (lambda t: 0 if t is None else t.data_ptr())
+    rc = fn(bd.data_ptr(), bs.data_ptr(), live.data_ptr(), qb.data_ptr(),
+            qw.data_ptr(), ts.data_ptr(), ptr(kw.get("addend")),
+            ptr(kw.get("qf")), ptr(kw.get("hp")), ptr(kw.get("nm")),
+            out_s.data_ptr(), out_d.data_ptr(), S, Q, T, B,
+            int(ts.shape[2]) - 1, int(live.shape[1]), kk, mode,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"the parent's lane_topk failed: cudaError {rc}")
+    return out_s, out_d
+
+
+def lane_ab(label, parent, args, kw, want) -> dict:
+    """The parent's K10 (lane_parent) beside this tree's at one recorded
+    launch: the parent's output, also poisoned, bitwise equal to `want`
+    (the plain version's), this tree's run twice bitwise equal to it; then
+    both by CUDA-graph replay in turns (this tree, parent, parent, this
+    tree; GRAPH_REPS_K10 replays each)."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    def same(got):
+        return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want))
+
+    require(same(lane_parent_call(parent, args, kw)),
+            f"{label}: the parent's kernel differs from the plain version")
+    with k.poisoned():
+        require(same(lane_parent_call(parent, args, kw)),
+                f"{label}: the parent's kernel on poisoned outputs differs")
+    require(same(k.lane_topk(*args, **kw)) and same(k.lane_topk(*args, **kw)),
+            f"{label}: this tree's kernel differs run to run")
+    new = (lambda: k.lane_topk(*args, **kw))
+    old = (lambda: lane_parent_call(parent, args, kw))
+    turns = [graph_ms(new, GRAPH_REPS_K10), graph_ms(old, GRAPH_REPS_K10),
+             graph_ms(old, GRAPH_REPS_K10), graph_ms(new, GRAPH_REPS_K10)]
+    return {"graph_ms": (turns[0] + turns[3]) / 2,
+            "parent_graph_ms": (turns[1] + turns[2]) / 2,
+            "graph_turns": turns, "parent_bitwise": True,
+            "run_to_run": "bitwise"}
+
+
 def dense_phase(fp, tokens, bounds, n: int, device="cuda",
                 scatter=None) -> tuple:
     """The dense search path (`search.execute_search`: query phase over the
@@ -4159,14 +4265,15 @@ def hold_k11(label, args, kw) -> dict:
             "run_to_run": "bitwise"}
 
 
-def check_path_shapes(seen, dp) -> dict:
+def check_path_shapes(seen, dp, lane_parent=None) -> dict:
     """Every kernel of record_shapes at every launch shape the serving
     path gave it, on the recorded inputs, held bitwise against its plain
     version, also on poisoned outputs: K2 and K6 through sweep_ab, then
     timed by CUDA-graph replay beside their bounds (K2's column bytes over
     `dp` docs, or over its live rows' docs when dp is None); K3 beside its
-    bound; K5, K9 and K4 by hold_kernel. Returns {kernel: {shape:
-    numbers}}."""
+    bound; K5, K9, K4 and K10 by hold_kernel, K10 also beside the parent
+    commit's kernel where `lane_parent` (lane_parent) is given (lane_ab);
+    K11 by hold_k11. Returns {kernel: {shape: numbers}}."""
     import torch
 
     from elasticsearch_tpu_torch.parallel import kernels as k
@@ -4233,11 +4340,21 @@ def check_path_shapes(seen, dp) -> dict:
                     row["library_ms"] = cuda_ms(lambda: torch.sort(keys), 10)
                     row["lanes"] = int(keys.numel())
                     del keys
+                    row["tiles"] = k.lane_topk_plan(
+                        int(args[0].shape[0]), int(args[3].shape[0]),
+                        int(args[3].shape[2]), kw["k"])[1]
+                    if lane_parent is not None:
+                        want = plains[name](*args, **kw)
+                        row.update(lane_ab(label, lane_parent, args, kw,
+                                           want))
+                        row["bound_share"] = row["bound_ms"] / row["graph_ms"]
+                        del want
             row["launches"] = n
             out[name][str(key)] = row
             log(f"{label}: {n} launches, "
                 + ", ".join(f"{f} {row[f]:.4f}" for f in
-                            ("ms", "plain_ms", "graph_ms", "bound_ms")
+                            ("ms", "plain_ms", "graph_ms", "parent_graph_ms",
+                             "library_ms", "bound_ms")
                             if row.get(f) is not None))
     return out
 
@@ -5592,6 +5709,10 @@ BM_TURBO_HBM = 1 << 20     # ES_TPU_TURBO_HBM for the BlockMax service: far
 BM_RTOL = BM_ATOL = 2e-5   # tests/test_blockmax.py's assert_topk_equal
 BM_OVERFLOW_QUERIES = 8    # batch-0 queries through _exhaustive_topk
 BM_FORCED_BOOL = 16        # heavy config-2 specs through one device group
+BM_LONG_QUERIES = 4        # pasted-text `match` bodies, one msearch
+BM_LONG_TERMS = 100        # their distinct terms: K10 rows of 100 runs, more
+                           # than a pass stages (lane_topk.cu's RUN_CHUNK)
+BM_LONG_BLOCKS = 8192      # their postings blocks at most (one K10 bucket)
 BM_BOOL_THREADS = 8        # search_bool calls in flight (the host conjunction
 #                            sorts release the GIL)
 SPMD_PARTS = 4             # the spmd programs' cut: 4 stacked partitions
@@ -5666,8 +5787,39 @@ def _unpack(packed):
             packed[..., 2, :].astype(np.int32))
 
 
+def long_queries(fp, n: int):
+    """BM_LONG_QUERIES pasted-text queries (seed 47): each BM_LONG_TERMS
+    distinct terms drawn Zipf(1.07) from the vocabulary's ranks 1000 on,
+    skipping terms the index lacks, hot terms (df > n / 8) and terms past
+    BM_LONG_BLOCKS postings blocks in all, so that BlockMax scores each
+    term in a K10 run of its own and no query overflows the largest
+    bucket."""
+    rng = np.random.default_rng(47)
+    p = zipf_probs(VOCAB)[1000:]
+    p /= p.sum()
+    out = []
+    for _ in range(16 * BM_LONG_QUERIES):
+        terms, blocks = [], 0
+        for x in rng.choice(np.arange(1000, VOCAB), 4 * BM_LONG_TERMS,
+                            replace=False, p=p):
+            o = fp.term_to_ord.get(f"t{x}", -1)
+            if o < 0 or int(fp.doc_freq[o]) * 8 > n:
+                continue
+            if blocks + int(fp.block_count[o]) <= BM_LONG_BLOCKS:
+                terms.append(f"t{x}")
+                blocks += int(fp.block_count[o])
+            if len(terms) == BM_LONG_TERMS:
+                out.append(terms)
+                break
+        if len(out) == BM_LONG_QUERIES:
+            break
+    require(len(out) == BM_LONG_QUERIES,
+            f"long queries: found {len(out)} of {BM_LONG_QUERIES} on {n} docs")
+    return out
+
+
 def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
-                   device="cuda") -> tuple:
+                   device="cuda", lane_parent_src=None) -> tuple:
     """BlockMax on the main path's shard, where the reference selects it:
     a one-shard port IndexService over the dense phase's segment (all
     live) with ES_TPU_TURBO_HBM at BM_TURBO_HBM, far below the shard's
@@ -5676,7 +5828,8 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
     just before and read just after, no plain version allowed:
       1. IndexService.msearch of both config-1 batches of 256 as DSL
          bodies (one _disjunctive_batch each; K10 in its lane and hybrid
-         modes, K4);
+         modes, K4), then of long_queries' pasted-text `match` bodies
+         (K10 rows of BM_LONG_TERMS runs);
       2. config 2's 256 bool specs through BlockMaxBM25.search_bool, in
          BM_BOOL_THREADS concurrent calls (routes counted: _bool_host, the
          device program, _bool_exhaustive), and BM_FORCED_BOOL heavy specs
@@ -5686,12 +5839,16 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
          queries of batch 0 with every block kept (K11, one launch a term
          and chunk).
     Holds (hold_close, tests/test_blockmax.py's rule): every msearch top-10
-    against the main path's host-exact rows; the bool answers against the
+    against the main path's host-exact rows, the long queries' against
+    brute_topk; the bool answers against the
     bool phase's host-exact answers; the overflow rows against the msearch
     answers of the same queries and the main path's. Then the spmd
     programs (spmd_step) in a window of their own, and every K10, K11 and
     K4 launch shape of both windows held bitwise against its plain version
-    (check_path_shapes). Returns (kernel rows, report)."""
+    (check_path_shapes), K10 also beside the parent commit's kernel
+    where `lane_parent_src` names its source (lane_ab); K10's row sums
+    launches x graph ms over each window's shapes. Returns (kernel rows,
+    report)."""
     import copy
 
     import torch
@@ -5756,6 +5913,12 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
             served.append(svc.msearch(g))
             lat.append(time.perf_counter() - t)
             timing.append(dict(eng.last_timing))
+        long_q = long_queries(fp, n)
+        t = time.perf_counter()
+        long_got = svc.msearch([{"query": {"match": {"body": " ".join(q)}}}
+                                for q in long_q])
+        long_s = time.perf_counter() - t
+        long_timing = dict(eng.last_timing)
         # 2. config 2 through search_bool, then a forced device group
         t = time.perf_counter()
         step = -(-len(bool_specs) // BM_BOOL_THREADS)
@@ -5803,9 +5966,15 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
             f"blockmax: health {hs}")
     for name in ("lane_topk", "weighted_block_scatter", "merge_topk"):
         require(launches[name] > 0, f"blockmax: {name} never launched")
+    long_runs = max(key[7][2] - 1 for key in shapes["lane_topk"])
+    require(long_timing["n_queries"] == BM_LONG_QUERIES
+            and long_runs >= BM_LONG_TERMS,
+            f"blockmax: the long queries did not reach K10 "
+            f"({long_timing}, {long_runs} runs at most)")
     log(f"blockmax main path: {main_s:.1f}s; msearch {lat} s; search_bool "
         f"{bool_s:.2f}s (routes {routes}); forced device group of "
-        f"{len(heavy)} {forced_s:.3f}s; overflow {ov_s:.3f}s; launches "
+        f"{len(heavy)} {forced_s:.3f}s; overflow {ov_s:.3f}s; long queries "
+        f"{long_s:.3f}s ({long_runs} runs); launches "
         f"{ {k: v for k, v in launches.items() if v} }")
     # ---- holds ----
     t = time.time()
@@ -5820,6 +5989,15 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
         "blockmax forced device group")
     ov_want = tuple(a[:BM_OVERFLOW_QUERIES] for a in got[0])
     near["overflow"] = hold_close(ov, ov_want, "blockmax overflow")
+    long_want = [np.zeros((BM_LONG_QUERIES, K), np.float32),
+                 np.zeros((BM_LONG_QUERIES, K), np.int32),
+                 np.zeros((BM_LONG_QUERIES, K), np.int32)]
+    for qi, q in enumerate(long_q):
+        bs_, bo_ = brute_topk(fp, n, [(x, 1.0) for x in q])
+        long_want[0][qi, :len(bs_)] = bs_
+        long_want[2][qi, :len(bo_)] = bo_
+    near["long"] = hold_close(resp_rows(long_got), tuple(long_want),
+                              "blockmax long queries")
     hold_close(ov, tuple(a[:BM_OVERFLOW_QUERIES] for a in main_rows[0]),
                "blockmax overflow vs main")
     require(routes["host"] + routes["device"] + routes["exhaustive"]
@@ -5827,7 +6005,10 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
             f"blockmax: bool routes {routes}")
     rep.update({
         "msearch_s": lat, "msearch_queries": [len(g) for g in groups],
-        "last_timing": timing, "bool_s": bool_s,
+        "last_timing": timing,
+        "long_queries": {"queries": len(long_q), "terms": BM_LONG_TERMS,
+                         "k10_runs": long_runs, "s": long_s,
+                         "last_timing": long_timing}, "bool_s": bool_s,
         "bool_routes": {**routes, "device": routes["device"] - len(heavy)},
         "forced_device_group": {"specs": len(heavy), "bucket": bucket,
                                 "s": forced_s},
@@ -5846,12 +6027,17 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
         require(sum(v[0] for v in shapes[name].values()) == launches[name],
                 f"blockmax: {name}'s launches by shape do not add up")
     t = time.time()
+    lane_par = lane_parent(lane_parent_src) if device == "cuda" else None
+    log(f"parent K10 for the A/B: "
+        f"{lane_parent_src if lane_par else 'not given'}")
     held = check_path_shapes(
         {name: shapes[name] for name in
-         ("lane_topk", "weighted_block_scatter", "merge_topk")}, None)
+         ("lane_topk", "weighted_block_scatter", "merge_topk")}, None,
+        lane_par)
     spmd_held = check_path_shapes(
         {name: spmd_shapes[name] for name in
-         ("lane_topk", "weighted_block_scatter", "merge_topk")}, None)
+         ("lane_topk", "weighted_block_scatter", "merge_topk")}, None,
+        lane_par)
     del shapes, spmd_shapes
     torch.cuda.empty_cache()
     rep["shape_holds_s"] = time.time() - t
@@ -5881,10 +6067,32 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
             "poisoned_run": "bitwise", "shapes": per,
             "spmd_launches": spmd_launches[name],
             "spmd_shapes": spmd_held[name]})
+        if name == "lane_topk":
+            rows[-1].update(lane_sums(per, spmd_held[name]))
+            rows[-1]["parent_graph_ms"] = head.get("parent_graph_ms")
+            log(f"lane_topk launches x graph ms: {rows[-1]['sum_graph_ms']}"
+                f" (parent {rows[-1]['parent_sum_graph_ms']}), spmd "
+                f"{rows[-1]['spmd_sum_graph_ms']} (parent "
+                f"{rows[-1]['spmd_parent_sum_graph_ms']})")
     rep["merge_topk_shapes"] = held["merge_topk"]
     rep["phase_s"] = time.time() - t_phase
     log(f"blockmax phase took {rep['phase_s']:.1f}s")
     return rows, rep
+
+
+def lane_sums(per, spmd) -> dict:
+    """K10's launches x graph ms summed over the BlockMax window's shapes
+    (`per`) and the spmd window's, this tree's and, where timed, the
+    parent's (None when not)."""
+    def total(shapes, field):
+        vals = [r["launches"] * r[field] for r in shapes.values()
+                if r.get(field) is not None]
+        return sum(vals) if len(vals) == len(shapes) else None
+
+    return {"sum_graph_ms": total(per, "graph_ms"),
+            "parent_sum_graph_ms": total(per, "parent_graph_ms"),
+            "spmd_sum_graph_ms": total(spmd, "graph_ms"),
+            "spmd_parent_sum_graph_ms": total(spmd, "parent_graph_ms")}
 
 
 def brute_stacked(fps, doc_counts, terms, k=K):
@@ -6041,7 +6249,7 @@ def spmd_step(device="cuda") -> tuple:
 def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
         agg_docs: int, k3_parent_src=None, k2_parent_src=None,
         k8_parent_src=None, k4_parent_src=None, k5_parent_src=None,
-        scatter_parent_src=None) -> dict:
+        scatter_parent_src=None, lane_parent_src=None) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import hbm_ledger
@@ -6074,7 +6282,8 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     scatter = scatter_parent(scatter_parent_src)
     for name, src in (("K8", k8_parent_src), ("K4", k4_parent_src),
                       ("K5", k5_parent_src),
-                      ("block scatter", scatter_parent_src)):
+                      ("block scatter", scatter_parent_src),
+                      ("K10", lane_parent_src)):
         log(f"parent {name} for the A/B: "
             f"{src if src and os.path.isfile(src) else 'not given'}")
 
@@ -6149,23 +6358,26 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     # full, each batch on its first HOLD_PER_BATCH queries) ----
     t = time.time()
     n_q = 0
+    parts, owner = [], []
+    for bi, (b, (s, p, o)) in enumerate(zip(batches + [dsl], results)):
+        require(s.shape == (len(b), K) and np.isfinite(s).all(),
+                "result shape or finiteness")
+        require(not p.any(), "partition ids on a one-partition engine")
+        m = len(b) if bi == len(batches) else min(len(b), HOLD_PER_BATCH)
+        parts += [b[i:i + 8] for i in range(0, m, 8)]
+        owner += [bi] * len(range(0, m, 8))
+    host = host_exact_runs(turbo, parts)
     held = []
-    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
-        for bi, (b, (s, p, o)) in enumerate(zip(batches + [dsl], results)):
-            require(s.shape == (len(b), K) and np.isfinite(s).all(),
-                    "result shape or finiteness")
-            require(not p.any(), "partition ids on a one-partition engine")
-            m = len(b) if bi == len(batches) else min(len(b), HOLD_PER_BATCH)
-            parts = [b[i:i + 16] for i in range(0, m, 16)]
-            host = list(ex.map(lambda q: turbo.search_many_host([q], k=K)[0],
-                               parts))
-            hs = np.concatenate([h[0] for h in host])
-            ho = np.concatenate([h[1] for h in host])
-            ho[hs <= 0] = 0
-            require(np.array_equal(s[:m], hs) and np.array_equal(o[:m], ho),
-                    "device route differs from the host-exact tier")
-            held.append((hs, ho))
-            n_q += m
+    for bi, (s, _, o) in enumerate(results):
+        mine = [h for h, ob in zip(host, owner) if ob == bi]
+        hs = np.concatenate([h[0] for h in mine])
+        ho = np.concatenate([h[1] for h in mine])
+        ho[hs <= 0] = 0
+        m = len(hs)
+        require(np.array_equal(s[:m], hs) and np.array_equal(o[:m], ho),
+                "device route differs from the host-exact tier")
+        held.append((hs, ho))
+        n_q += m
     log(f"host-exact hold: {n_q} queries bitwise equal in "
         f"{time.time() - t:.1f}s")
     for qi in range(4):
@@ -6229,7 +6441,8 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     # ---- BlockMax over the Turbo budget on the same shard, then spmd ----
     bm_rows, bm_report = blockmax_phase(dense_seg, fp, n_docs, batches,
                                         results[:len(batches)],
-                                        bool_answers)
+                                        bool_answers,
+                                        lane_parent_src=lane_parent_src)
     rows += bm_rows
     del dense_seg, tokens, bounds, bool_answers
     default = default_ladder(fp, n_docs, batches[0], held[0])
@@ -6322,7 +6535,8 @@ def serving_only(n_docs: int, n_batches: int, batch: int) -> dict:
             "report": rep}
 
 
-def blockmax_only(n_docs: int, n_batches: int, batch: int) -> dict:
+def blockmax_only(n_docs: int, n_batches: int, batch: int,
+                  lane_parent_src=None) -> dict:
     """The BlockMax phase alone (--blockmax-only): the kernels built, the
     index drawn, the main path's engine rows of each batch and the
     host-exact answers of config 2 (its columns prebuilt, nothing else of
@@ -6355,7 +6569,8 @@ def blockmax_only(n_docs: int, n_batches: int, batch: int) -> dict:
     log("main path rows and config-2 answers")
     seg, _, _ = dense_segment(fp, tokens, bounds, n_docs, "cuda")
     kernel_rows, rep = blockmax_phase(seg, fp, n_docs, batches, rows,
-                                      (bool_qs, hs, ho))
+                                      (bool_qs, hs, ho),
+                                      lane_parent_src=lane_parent_src)
     return {"kernels": kernel_rows, "report": rep}
 
 
@@ -6444,6 +6659,11 @@ def main(argv=None) -> int:
                          "entries) to time beside this tree's block scatter "
                          "on the same calls; skipped when the file is "
                          "missing")
+    ap.add_argument("--lane-topk-parent", default=LANE_TOPK_PARENT,
+                    help="an earlier lane_topk.cu (its C entry without the "
+                         "tile scratch) to time beside this tree's K10 at "
+                         "every BlockMax and spmd launch shape; skipped "
+                         "when the file is missing")
     ap.add_argument("--serving-only", action="store_true",
                     help="run the serving phase alone on the index "
                          "(its main-path rows first), print its report and "
@@ -6477,8 +6697,8 @@ def main(argv=None) -> int:
             out = {"serving_only": serving_only(args.docs, args.batches,
                                                 args.batch)}
         elif args.blockmax_only:
-            out = {"blockmax_only": blockmax_only(args.docs, args.batches,
-                                                  args.batch)}
+            out = {"blockmax_only": blockmax_only(
+                args.docs, args.batches, args.batch, args.lane_topk_parent)}
         else:
             out = {"admin_only": admin_only(args.docs, args.batches,
                                             args.batch)}
@@ -6491,7 +6711,7 @@ def main(argv=None) -> int:
     out = run(args.docs, args.batches, args.batch, args.knn_docs,
               args.agg_docs, args.k3_parent, args.k2_parent,
               args.k8_parent, args.k4_parent, args.k5_parent,
-              args.scatter_parent)
+              args.scatter_parent, args.lane_topk_parent)
     print(json.dumps({"serving": out["serving"]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -36,7 +36,7 @@ _L = ctypes.c_longlong
 # sweep_group / sweep_list_cap launch nothing: they report K2's built G and
 # list capacity; agg_word_bytes and agg_plan report K8's word scratch
 # size and histogram plan; intersect_table_q K5's queries a launch;
-# lane_topk_cap K10's shared-memory buffer for a k
+# lane_topk_cap K10's big-k buffer for a k
 _SIGNATURES = {
     "build_columns": ("build_columns", "es_build_columns",
                       [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
@@ -72,7 +72,8 @@ _SIGNATURES = {
     "weighted_block_scatter": ("block_scatter", "es_weighted_block_scatter",
                                [_P] * 6 + [_I, _I, _L, _I, _I, _P]),
     "lane_topk": ("lane_topk", "es_lane_topk",
-                  [_P] * 12 + [_I, _I, _L, _I, _I, _I, _I, _I, _P]),
+                  [_P] * 14 + [_I, _I, _L, _I, _I, _I, _I, _I, _I, _I,
+                               _P]),
     "lane_topk_cap": ("lane_topk", "es_lane_topk_cap", [_I]),
 }
 

@@ -1367,19 +1367,51 @@ def block_presence(block_ids, block_docs, block_tfs, *, n_docs: int):
 # K10 lane top-k and K11 weighted block scatter (BlockMax, spmd)
 # --------------------------------------------------------------------------
 
-LANE_TOPK_THREADS = 1024  # lane_topk.cu's THREADS: the buffer's headroom
+# lane_topk.cu's constants, which the card tests hold these mirrors to:
+# THREADS (a block's threads, the big-k buffer's headroom), SMALL_K (k up
+# to it keeps per-warp lists, no buffer) and BUF_MAX (the big-k buffer's
+# bytes)
+LANE_TOPK_THREADS = 512
+LANE_TOPK_SMALL_K = 32
+_LANE_TOPK_BUF_MAX = 128 * 1024
+# K10's tiling, which lane_topk_plan alone decides and the kernel takes as
+# arguments: C starts at 64 blocks of the longest run (a tile's fixed cost,
+# its searches, copies and merge, is what 16 lost to 64 on the large
+# buckets of the BlockMax phase), and the tiles' pairs of a launch stay
+# within 64 MB
+LANE_TOPK_TILE_BLOCKS = 64
+_LANE_TOPK_SCRATCH_MAX = 64 << 20
 
 
 def lane_topk_cap(k: int) -> int:
-    """K10's shared-memory buffer for a k (lane_topk.cu's
-    es_lane_topk_cap, which the card test holds this mirror to)."""
+    """K10's big-k shared-memory buffer for a k (lane_topk.cu's
+    es_lane_topk_cap): a power of two >= k + LANE_TOPK_THREADS."""
     cap = 512
     while cap < k + LANE_TOPK_THREADS:
         cap <<= 1
     return cap
 
 
-_LANE_TOPK_SMEM_MAX = 226 * 1024   # lane_topk.cu's SMEM_MAX
+def lane_topk_plan(S: int, Q: int, B: int, k: int) -> Tuple[int, int]:
+    """K10's tiling for S x Q rows of a B-position bucket and a k, which
+    the wrapper passes to the kernel: (C, tiles). A tile takes C blocks of
+    its row's longest run (rows of more than 64 runs: C / 2 of the row's
+    positions, cut evenly over the docs). C starts at
+    LANE_TOPK_TILE_BLOCKS and doubles while a tile's lanes (C x 128) are
+    under 4k, then while the tiles' [S, Q, tiles, k] pairs exceed
+    _LANE_TOPK_SCRATCH_MAX bytes or the grid 2^31 - 1 blocks. tiles =
+    ceil(B / C), at least 1, bounds every row's tiles; one tile writes the
+    rows itself, more need the scratch and a merge launch."""
+    c = LANE_TOPK_TILE_BLOCKS
+    while c * 128 < 4 * k:
+        c <<= 1
+    while True:
+        tiles = -(-B // c)
+        if tiles <= 1 or (S * Q * tiles * k * 8 <= _LANE_TOPK_SCRATCH_MAX
+                          and S * Q * tiles <= 0x7FFFFFFF):
+            break
+        c <<= 1
+    return c, max(tiles, 1)
 
 
 def lane_topk_plain(block_docs, block_scores, live, qblocks, qw, tstart, *,
@@ -1478,6 +1510,11 @@ def lane_topk(block_docs, block_scores, live, qblocks, qw, tstart, *,
     bool mode keeps docs whose total plus addend is > 0 and whose
     coverage matches. Returns (scores [S, Q, k] f32, docs [S, Q, k] i32)
     ranked by (score desc, doc asc), padded with (-inf, 0).
+
+    On the card: block_docs and block_scores 16-byte aligned, and k's
+    big-k buffer within _LANE_TOPK_BUF_MAX (k <= 15,872); any number of
+    runs. One launch, or two when lane_topk_plan gives a row more than one
+    tile (their ranked pairs in a [S, Q, tiles, k] scratch, merged).
     """
     dev = block_docs.device
     _check(block_docs, "block_docs", torch.int32, 3, dev)
@@ -1524,20 +1561,27 @@ def lane_topk(block_docs, block_scores, live, qblocks, qw, tstart, *,
         return lane_topk_plain(block_docs, block_scores, live, qblocks, qw,
                                tstart, k=k, addend=addend, qf=qf, hp=hp,
                                nm=nm)
-    if lane_topk_cap(k) * 8 > _LANE_TOPK_SMEM_MAX:
+    if k > LANE_TOPK_SMALL_K and lane_topk_cap(k) * 8 > _LANE_TOPK_BUF_MAX:
         raise ValueError(f"k={k} exceeds the lane top-k's shared memory")
-    if S > 65535:
-        raise ValueError(f"{S} partitions exceed the grid")
+    if block_docs.data_ptr() % 16 or block_scores.data_ptr() % 16:
+        raise ValueError("block_docs and block_scores must be 16-byte "
+                         "aligned (their block rows are bulk copies)")
     out_s = _out((S, Q, k), torch.float32, dev)
     out_d = _out((S, Q, k), torch.int32, dev)
     if Q == 0 or S == 0:
         return out_s, out_d
+    C, tiles = lane_topk_plan(S, Q, B, k)
+    if tiles > 1:          # each tile's ranked pairs, merged by a 2nd launch
+        tile_s = _out((S, Q, tiles, k), torch.float32, dev)
+        tile_d = _out((S, Q, tiles, k), torch.int32, dev)
+    else:
+        tile_s = tile_d = None
     ptr = (lambda t: 0 if t is None else t.data_ptr())
     _launch("lane_topk", dev, block_docs.data_ptr(), block_scores.data_ptr(),
             live.data_ptr(), qblocks.data_ptr(), qw.data_ptr(),
             tstart.data_ptr(), ptr(addend), ptr(qf), ptr(hp), ptr(nm),
-            out_s.data_ptr(), out_d.data_ptr(), S, Q, int(T), B, R, D, k,
-            mode)
+            out_s.data_ptr(), out_d.data_ptr(), ptr(tile_s), ptr(tile_d),
+            S, Q, int(T), B, R, D, k, C, tiles, mode)
     return out_s, out_d
 
 

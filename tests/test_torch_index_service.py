@@ -502,6 +502,57 @@ def test_blockmax_serves_default_mode(monkeypatch):
         port.close()
 
 
+LONG_VOCAB = [f"w{i}" for i in range(160)]
+
+
+def _long_docs(n_docs=400, seed=37):
+    """Documents over LONG_VOCAB, each word in about 7% of them: no word
+    is hot (df > docs / 8), so each term of a match is a K10 run."""
+    rng = np.random.default_rng(seed)
+    return [(str(i), {"body": " ".join(rng.choice(LONG_VOCAB,
+                                                  int(rng.integers(3, 20)))),
+                      "tag": str(rng.choice(TAGS)),
+                      "n": int(rng.integers(0, 100))})
+            for i in range(n_docs)]
+
+
+def test_blockmax_long_match_matches_reference(monkeypatch):
+    """A pasted-text `match` of 100 distinct terms beside short bodies in
+    one msearch: BlockMax serves every body (K10 rows of 100 runs, more
+    than the kernel stages in a pass; no body goes to the dense executor)
+    and the port's answers hold to the reference's BlockMax answers."""
+    from elasticsearch_tpu_torch.parallel import kernels
+
+    for key in TURBO_ENV:
+        monkeypatch.delenv(key, raising=False)
+    runs = []
+    lane_topk = kernels.lane_topk
+
+    def spy(*args, **kw):
+        runs.append(int(args[5].shape[2]) - 1)
+        return lane_topk(*args, **kw)
+
+    monkeypatch.setattr(kernels, "lane_topk", spy)
+    ref, port = _pair(index="bml", docs=_long_docs())
+    try:
+        assert port.serving.snapshot().engine("body").kind == "blockmax"
+        bodies = [{"query": {"match": {"body": " ".join(LONG_VOCAB[:100])}}},
+                  {"query": {"match": {"body": " ".join(LONG_VOCAB[40:140])}},
+                   "size": 25},
+                  {"query": {"match": {"body": "w3 w150"}}}]
+        f0 = serving.serving_fault_stats()["fastpath_reject_error"]
+        served = port.serving.try_msearch(bodies, "query_then_fetch")
+        assert all(r is not None for r in served)
+        assert serving.serving_fault_stats()["fastpath_reject_error"] == f0
+        assert max(runs) >= 100
+        for body, got, want in zip(bodies, served, ref.msearch(bodies)):
+            assert_blockmax_results(got, want, body)
+            assert_same_results(got, port._search_dense(body), body)
+    finally:
+        ref.close()
+        port.close()
+
+
 def _trip(health):
     while health.allow_device():
         health.record_fault(RuntimeError("tripped by the test"))

@@ -36,7 +36,12 @@ is not a whole number of the kernel's steps, a live row 0, 40,001 and
 so that every grid plan is taken), K10 `lane_topk` at the four (bucket,
 Qc) shapes of BlockMax's dispatch groups in its lane, hybrid and bool
 modes with ties, a k past the block's threads, a term in two runs, empty
-rows and runs and a dead partition, and K11 `weighted_block_scatter` at
+rows and runs and a dead partition, rows over many tiles with ties across
+them, a dense run that takes a tile several passes, rows of one tile
+beside rows of many, k of 1 and 15,360, rows of 100 and 2,800 runs
+(more than a pass stages: the sorted tiles and the chunks), run twice and
+from a CUDA graph, BlockMax msearch of a 100-term match,
+and K11 `weighted_block_scatter` at
 the overflow path's 8192 blocks, into column-cache rows, and with ids and
 rows outside the arrays (run twice: no atomics). Every comparison is
 bitwise. Each
@@ -624,33 +629,113 @@ def test_poisoned_outputs(dev, kernel):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("poison", [False, True])
-@pytest.mark.parametrize("mode", ["lane", "hybrid", "bool"])
-@pytest.mark.parametrize("name", ["g32", "g512", "g8192", "g32768", "ties",
-                                  "big_k", "edges"])
-def test_lane_topk_kernel(dev, name, mode, poison):
-    """K10 at the four (bucket, Qc) shapes of blockmax._GROUP_SHAPES (up to
-    4.19M lanes a row) and its edges, in each mode, bitwise against the
-    plain version, also on outputs filled with NaN / -1 first."""
+def _lane_case(name, mode, dev):
     from torch_kernel_cases import lane_topk_inputs
 
     bd, bs, live, qb, qw, ts, kk, extra = lane_topk_inputs(name, mode)
     args = [_c(a, dev) for a in (bd, bs, live, qb, qw, ts)]
     kw = {key: _c(v, dev) for key, v in extra.items()}
+    return args, kk, kw
+
+
+def _same_lane_rows(got, want):
+    return (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1]))
+
+
+@pytest.mark.parametrize("poison", [False, True])
+@pytest.mark.parametrize("mode", ["lane", "hybrid", "bool"])
+@pytest.mark.parametrize("name", ["g32", "g512", "g8192", "g32768", "ties",
+                                  "big_k", "edges", "tiles", "k1", "skew",
+                                  "mixed", "k15360", "runs100",
+                                  "runs2800"])
+def test_lane_topk_kernel(dev, name, mode, poison):
+    """K10 at the four (bucket, Qc) shapes of blockmax._GROUP_SHAPES (up to
+    4.19M lanes a row), its edges and the tiled kernel's cases (a row over
+    many tiles with ties across them, a narrow dense run whose blocks
+    outgrow a tile's staging room beside a sparse one, rows of one tile
+    beside rows of many, k of 1, 10, 300 and 15,360, rows of 100 runs
+    (the sorted tiles) and of 2,800 runs at k 15,360 (the runs in chunks,
+    each lane searching the other chunks' runs in global memory)), in each
+    mode,
+    bitwise against the plain version, run twice (the first on outputs
+    and tile scratch filled with NaN / -1 when `poison`)."""
+    args, kk, kw = _lane_case(name, mode, dev)
     k.reset_launches()
     with k.poisoned() if poison else _nullcontext():
-        got_s, got_d = k.lane_topk(*args, k=kk, **kw)
-    want_s, want_d = k.lane_topk_plain(*args, k=kk, **kw)
+        first = k.lane_topk(*args, k=kk, **kw)
+    again = k.lane_topk(*args, k=kk, **kw)
+    want = k.lane_topk_plain(*args, k=kk, **kw)
     torch.cuda.synchronize()
-    assert k.LAUNCHES["lane_topk"] == 1
-    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
-    assert torch.equal(got_d, want_d)
-    assert (want_s > 0).any()
+    assert k.LAUNCHES["lane_topk"] == 2
+    assert _same_lane_rows(first, want)
+    assert _same_lane_rows(again, want)
+    assert (want[0] > 0).any()
+
+
+@pytest.mark.parametrize("name", ["tiles", "edges"])
+def test_lane_topk_graph_replay(dev, name):
+    """One K10 call captured in a CUDA graph (its tile launch and, for
+    "tiles", its merge launch) and replayed on new inputs written into the
+    captured tensors: each replay bitwise the plain version's rows."""
+    args, kk, kw = _lane_case(name, "hybrid", dev)
+    k.lane_topk(*args, k=kk, **kw)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = k.lane_topk(*args, k=kk, **kw)
+    for scale in (1.0, 0.5):
+        args[4].mul_(scale)              # qw: new scores, same launch
+        g.replay()
+        want = k.lane_topk_plain(*args, k=kk, **kw)
+        torch.cuda.synchronize()
+        assert _same_lane_rows(got, want)
+
+
+def test_lane_topk_kernel_refuses_short_plan(dev):
+    """The C entry takes the wrapper's tiling and refuses one whose grid
+    leaves a row's tiles out (tiles x C < B), or more tiles without the
+    scratch; the wrapper's own plan launches."""
+    args, kk, kw = _lane_case("tiles", "lane", dev)
+    bd, bs, live, qb, qw, ts = args
+    S, T, _ = bd.shape
+    Q, _, B = qb.shape
+    R, D = ts.shape[2] - 1, live.shape[1]
+    out_s = torch.empty((S, Q, kk), device=dev)
+    out_d = torch.empty((S, Q, kk), dtype=torch.int32, device=dev)
+    C, tiles = k.lane_topk_plan(S, Q, B, kk)
+    assert tiles > 1
+    scr_s = torch.empty((S, Q, tiles, kk), device=dev)
+    scr_d = torch.empty((S, Q, tiles, kk), dtype=torch.int32, device=dev)
+    head = [bd.data_ptr(), bs.data_ptr(), live.data_ptr(), qb.data_ptr(),
+            qw.data_ptr(), ts.data_ptr(), 0, 0, 0, 0, out_s.data_ptr(),
+            out_d.data_ptr()]
+    scr = [scr_s.data_ptr(), scr_d.data_ptr()]
+    for plan, tile_ptrs in (((C, tiles - 1), scr), ((C // 2, tiles), scr),
+                            ((C, tiles), [0, 0])):
+        with pytest.raises(k.KernelLaunchError):
+            k._launch("lane_topk", dev, *head, *tile_ptrs, S, Q, T, B, R, D,
+                      kk, *plan, 0)
+    k._launch("lane_topk", dev, *head, *scr, S, Q, T, B, R, D, kk, C, tiles,
+              0)
+    want = k.lane_topk_plain(*args, k=kk, **kw)
+    torch.cuda.synchronize()
+    assert _same_lane_rows((out_s, out_d), want)
 
 
 def test_lane_topk_cap_matches_kernel(dev):
-    for kk in (1, 10, 256, 257, 300, 1000, 1792):
+    for kk in (1, 10, 256, 257, 300, 1000, 1792, 15360, 15872):
         assert cuda_build.kernel("lane_topk_cap")(kk) == k.lane_topk_cap(kk)
+
+
+def test_lane_topk_refuses(dev):
+    """k past the big-k buffer is refused with ValueError; the largest k
+    taken before the tiled kernel (15,360) and up to 15,872 are taken."""
+    args, _, kw = _lane_case("edges", "lane", dev)
+    with pytest.raises(ValueError):
+        k.lane_topk(*args, k=15873)
+    k.lane_topk(*args, k=15872)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("name", ["overflow", "columns", "outside"])
@@ -864,6 +949,64 @@ def _card_service(monkeypatch, dev, n=400, agg=False):
                                "tag": f"t{rng.integers(0, 12)}"})
     svc.refresh()
     return svc
+
+
+def test_blockmax_long_match_on_card(dev, monkeypatch):
+    """BlockMax on the card (the snapshot's Turbo budget at 1 byte) serves
+    an msearch of 100-term `match` bodies beside a short one through K10
+    rows of 100 runs, sends no body to the dense executor, and answers as
+    the port on the CPU: the same ids, scores within tests/test_blockmax.py's
+    2e-5 (the hot-term sums may round differently on the card)."""
+    from elasticsearch_tpu_torch.cluster.state import IndexMetadata
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.index.index_service import IndexService
+    from elasticsearch_tpu_torch.search import serving
+
+    monkeypatch.setitem(serving.select_bm25_engine.__kwdefaults__,
+                        "hbm_budget_bytes", 1)
+    vocab = [f"w{i}" for i in range(160)]
+    rng = np.random.default_rng(37)
+    docs = [" ".join(rng.choice(vocab, int(rng.integers(3, 20))))
+            for _ in range(400)]
+    bodies = [{"query": {"match": {"body": " ".join(vocab[:100])}}},
+              {"query": {"match": {"body": " ".join(vocab[40:140])}},
+               "size": 25},
+              {"query": {"match": {"body": "w3 w150"}}}]
+    runs = []
+    lane_topk = k.lane_topk
+
+    def spy(*args, **kw):
+        runs.append(int(args[5].shape[2]) - 1)
+        return lane_topk(*args, **kw)
+
+    monkeypatch.setattr(k, "lane_topk", spy)
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        svc = IndexService(IndexMetadata(
+            index="long", uuid="long", settings=Settings({}),
+            mappings={"properties": {"body": {"type": "text"}}}), device=d)
+        for i, body in enumerate(docs):
+            svc.index_doc(str(i), {"body": body})
+        svc.refresh()
+        assert svc.serving.snapshot().engine("body").kind == "blockmax"
+        f0 = serving.serving_fault_stats()["fastpath_reject_error"]
+        k.reset_launches()
+        got[d.type] = svc.serving.try_msearch(bodies, "query_then_fetch")
+        assert serving.serving_fault_stats()["fastpath_reject_error"] == f0
+        assert all(r is not None for r in got[d.type])
+        assert (k.LAUNCHES["lane_topk"] > 0) == (d.type == "cuda")
+        svc.close()
+    assert max(runs) >= 100
+    for body, a, b in zip(bodies, got["cuda"], got["cpu"]):
+        ah, bh = a["hits"]["hits"], b["hits"]["hits"]
+        sa = np.asarray([h["_score"] for h in ah], np.float64)
+        sb = np.asarray([h["_score"] for h in bh], np.float64)
+        np.testing.assert_allclose(sa, sb, rtol=2e-5, atol=2e-5)
+        ia, ib = [h["_id"] for h in ah], [h["_id"] for h in bh]
+        if (np.abs(np.diff(sb)) > 2e-5 * np.abs(sb[:-1]) + 2e-5).all():
+            assert ia == ib, body
+        else:                                   # near-ties: as sets
+            assert set(ia) == set(ib), body
 
 
 def _spy_threads(monkeypatch, name):

@@ -1498,7 +1498,13 @@ def presence_ids(fp, n_terms=12):
 
 # name -> (partitions, rows Q, block bucket B, terms a row, docs, term dfs
 # (lo, hi), k): the four (bucket, Qc) shapes of blockmax._GROUP_SHAPES, then
-# edges
+# edges, then the tiled kernel's cases: a row over many tiles with tied
+# scores ("tiles", "k1"), a narrow dense run beside a sparse one, so that
+# one tile's blocks outgrow its staging room ("skew"), rows of one tile
+# beside rows of many ("mixed"), the largest k the kernel takes, and rows
+# of 100 runs, more than a pass stages, beside a dense run over many tiles
+# ("runs100", the sorted tiles), and rows of 2,800 runs at the largest k,
+# more than the sorted tiles' shared memory holds ("runs2800", the chunks)
 LANE_TOPK_SHAPES = {
     "g32": (2, 512, 32, 3, 60_000, (200, 1_200), 10),
     "g512": (2, 64, 512, 3, 400_000, (2_000, 20_000), 10),
@@ -1507,15 +1513,32 @@ LANE_TOPK_SHAPES = {
     "ties": (2, 16, 64, 3, 20_000, (500, 2_000), 10),
     "big_k": (2, 8, 64, 4, 20_000, (500, 2_000), 300),
     "edges": (3, 12, 48, 3, 10_000, (100, 1_500), 10),
+    "tiles": (2, 4, 2048, 3, 400_000, (20_000, 60_000), 10),
+    "k1": (2, 4, 2048, 3, 400_000, (20_000, 60_000), 1),
+    "skew": (1, 4, 512, 2, 1_000_000, (25_000, 30_000), 10),
+    "mixed": (2, 8, 512, 3, 100_000, (10_000, 30_000), 10),
+    "k15360": (1, 2, 2048, 2, 400_000, (100_000, 150_000), 15360),
+    "runs100": (1, 4, 2048, 100, 100_000, (500, 3_000), 10),
+    "runs2800": (1, 1, 4096, 2800, 20_000, (5, 40), 15360),
 }
 LANE_TOPK_MODES = ("lane", "hybrid", "bool")
+# "skew"'s dense term: every doc of [SKEW_LO, SKEW_LO + SKEW_SPAN) but a
+# twentieth, about 149 blocks in a doc range where the sparse terms hold 4;
+# "runs100"'s: 95% of the docs of [0, 30,000), about 223 blocks
+SKEW_LO, SKEW_SPAN = 500_000, 20_000
+DENSE_SPANS = {"skew": (SKEW_LO, SKEW_SPAN), "runs100": (0, 30_000)}
 
 
-def _term_blocks(rng, n_docs, df, tie):
-    """One term's postings blocks: sorted docs of rate df / n_docs, lane
-    scores in (0.2, 2.2] (rounded to 0.25 when `tie`), pad lanes doc 0
-    with score 0."""
-    docs = np.nonzero(rng.random(n_docs) < df / n_docs)[0].astype(np.int32)
+def _term_blocks(rng, n_docs, df, tie, span=None):
+    """One term's postings blocks: sorted docs of rate df / n_docs (or,
+    given `span` (lo, n), 95% of the docs of [lo, lo + n)), lane scores in
+    (0.2, 2.2] (rounded to 0.25 when `tie`), pad lanes doc 0 with score
+    0."""
+    if span is None:
+        docs = np.nonzero(rng.random(n_docs) < df / n_docs)[0]
+    else:
+        docs = span[0] + np.nonzero(rng.random(span[1]) < 0.95)[0]
+    docs = docs.astype(np.int32)
     sc = rng.uniform(0.2, 2.2, len(docs)).astype(np.float32)
     if tie:
         sc = np.ceil(sc * 4).astype(np.float32) / 4
@@ -1535,18 +1558,23 @@ def lane_topk_inputs(name, mode, seed=0):
     same term twice in some rows of "edges"), each term's kept blocks a
     random subset in doc order, truncated to the bucket; "edges" also has
     rows with no blocks, rows whose every run is empty, dead docs and an
-    all-dead partition row."""
+    all-dead partition row. In "skew" and "runs100" every row takes term 0,
+    the dense narrow one, in a random run; in "mixed" the even rows keep at
+    most 12 blocks a run (one tile); in rows of many runs two terms are
+    required on average (bool mode)."""
     S, Q, B, nt, n_docs, (lo, hi), kk = LANE_TOPK_SHAPES[name]
     rng = np.random.default_rng(seed)
-    tie = name == "ties"
+    tie = name in ("ties", "tiles", "k1")
     n_terms = 2 * nt + 2
     parts = []
     for _ in range(S):
         rows_d, rows_s, spans = [np.zeros((1, 128), np.int32)], \
             [np.zeros((1, 128), np.float32)], []
         start = 1
-        for _ in range(n_terms):
-            bd, bs = _term_blocks(rng, n_docs, int(rng.integers(lo, hi)), tie)
+        for t in range(n_terms):
+            span = DENSE_SPANS.get(name) if t == 0 else None
+            bd, bs = _term_blocks(rng, n_docs, int(rng.integers(lo, hi)), tie,
+                                  span)
             rows_d.append(bd)
             rows_s.append(bs)
             spans.append((start, len(bd)))
@@ -1567,13 +1595,15 @@ def lane_topk_inputs(name, mode, seed=0):
     n_req = np.zeros(Q, np.float32)
     for q in range(Q):
         terms = list(rng.choice(n_terms, size=nt, replace=False))
+        if name in DENSE_SPANS and 0 not in terms:
+            terms[int(rng.integers(nt))] = 0
         if name == "edges" and q % 4 == 1:
             terms.append(terms[0])             # a term in two runs
         ws = (np.full(len(terms), 1.5, np.float32) if tie else
               rng.uniform(0.3, 3.0, len(terms)).astype(np.float32))
-        req = rng.random(len(terms)) < 0.6
+        req = rng.random(len(terms)) < (2 / nt if nt > 10 else 0.6)
         n_req[q] = req.sum()
-        keep_p = 1.0 if name == "g32768" else 0.7
+        keep_p = 1.0 if name in ("g32768", "skew") else 0.7
         for s in range(S):
             off = 0
             for r, (t, w, rq) in enumerate(zip(terms, ws, req)):
@@ -1583,6 +1613,8 @@ def lane_topk_inputs(name, mode, seed=0):
                 st, cnt = parts[s][2][t]
                 ids = np.arange(st, st + cnt, dtype=np.int32)
                 ids = ids[rng.random(cnt) < keep_p]
+                if name == "mixed" and q % 2 == 0:
+                    ids = ids[:12]
                 ids = ids[: B - off]
                 qblocks[q, s, off: off + len(ids)] = ids
                 qw[q, s, off: off + len(ids)] = w
@@ -1606,6 +1638,275 @@ def lane_topk_inputs(name, mode, seed=0):
         extra["hp"] = hp
         extra["nm"] = n_req + (rng.random(Q) < 0.5)
     return (block_docs, block_scores, live, qblocks, qw, tstart, kk, extra)
+
+
+def emulate_lane_topk(block_docs, block_scores, live, qblocks, qw, tstart, kk,
+                      addend=None, qf=None, hp=None, nm=None, *,
+                      tile_blocks=None, nb=96, chunk=64, sort_lanes=4096,
+                      stats=None):
+    """lane_topk.cu's algorithm in numpy, for the CPU tests: per row, the
+    tiles (C from kernels.lane_topk_plan unless given), each tile's ranked
+    k pairs (pads (-inf, -1)) and their merge; one tile writes the row
+    itself. Rows of up to `chunk` (RUN_CHUNK) runs, or of more than
+    `sort_lanes` (SORT_LANES): tiles cut at every C-th block of the longest
+    run (rows of more than `chunk` runs: even cuts of [0, D), ceil(the
+    row's positions / (C / 2)) tiles); in each tile the runs in chunks of
+    `chunk`, each chunk's passes
+    (its doc range halved until the chunk's blocks in it fit `nb` staged
+    rows), the searches (first doc of a block, then its lanes; pad lanes,
+    doc 0 past lane 0, last) in the staged blocks for runs of the chunk and
+    over the whole run for the others, the first-run rule and the in-order
+    f32 sums. Other rows: the sorted tiles (_sorted_tile). `stats`, a dict,
+    gets the most tiles, passes (of a chunk) and chunks a row took, and the
+    sorted tiles' most passes."""
+    S, T, _ = block_docs.shape
+    Q, _, B = qblocks.shape
+    R = tstart.shape[2] - 1
+    D = live.shape[1]
+    C, tiles = k_plan = k.lane_topk_plan(S, Q, B, kk)
+    if tile_blocks is not None:
+        C, tiles = tile_blocks, max(-(-B // tile_blocks), 1)
+    assert min(R, chunk) <= nb, (R, chunk, nb)
+    bool_mode = qf is not None
+    out_s = np.full((S, Q, kk), -np.inf, np.float32)
+    out_d = np.zeros((S, Q, kk), np.int32)
+    st = stats if stats is not None else {}
+    st.setdefault("tiles", 0)
+    st.setdefault("passes", 0)
+    st.setdefault("chunks", 0)
+    st.setdefault("sorted_passes", 0)
+    st.setdefault("plan", k_plan)
+    f32 = np.float32
+    for s in range(S):
+        bd, bs, lv = block_docs[s], block_scores[s], live[s]
+        for q in range(Q):
+            qb, w = qblocks[q, s], qw[q, s]
+            rs = [0] + [min(max(int(x), 0), B) for x in tstart[q, s, 1:]]
+            lens = [rs[r + 1] - rs[r] for r in range(R)]
+            m = int(np.argmax(lens)) if max(lens) > 0 else 0
+            n_tiles = -(-lens[m] // C) if lens[m] > 0 else 1
+            even = R > chunk          # even cuts of [0, D)
+            if even:
+                n_tiles = min(max(-(-2 * sum(max(x, 0) for x in lens) // C),
+                                  1), tiles)
+            if chunk < R <= sort_lanes:
+                pairs = []
+                for t in range(n_tiles):
+                    best = _sorted_tile(
+                        bd, bs, lv, qb, w, None if qf is None else qf[q, s],
+                        rs, D * t // n_tiles, D * (t + 1) // n_tiles, D,
+                        sort_lanes, st,
+                        lambda d, acc, cnt: _judge(addend, hp, nm, lv, s, q,
+                                                   d, acc, cnt))[:kk]
+                    pairs += best + [(-np.inf, -1)] * (kk - len(best))
+                if tiles > 1:
+                    pairs.sort(key=lambda x: (-x[0], x[1]))
+                for j, (v, d) in enumerate([x for x in pairs
+                                            if x[1] >= 0][:kk]):
+                    out_s[s, q, j] = v
+                    out_d[s, q, j] = d
+                st["tiles"] = max(st["tiles"], n_tiles)
+                continue
+            assert n_tiles <= tiles
+            st["tiles"] = max(st["tiles"], n_tiles)
+
+            def first(p):
+                return int(bd[qb[p], 0])
+
+            def ub(a, e, x):         # first p in [a, e) with first(p) > x
+                while a < e:
+                    mid = (a + e) // 2
+                    if first(mid) <= x:
+                        a = mid + 1
+                    else:
+                        e = mid
+                return a
+
+            whole = [list(range(rs[r], max(rs[r + 1], rs[r])))
+                     for r in range(R)]
+            st["chunks"] = max(st["chunks"], -(-R // chunk))
+            pairs = []
+            for t, c0 in ((t, c0) for t in range(n_tiles)
+                          for c0 in range(0, R, chunk)):
+                if c0 == 0:
+                    cands = []
+                a0 = rs[m] + t * C
+                if even:
+                    lo, hi = D * t // n_tiles, D * (t + 1) // n_tiles
+                else:
+                    lo = 0 if t == 0 else first(a0)
+                    hi = D if t == n_tiles - 1 else first(a0 + C)
+                runs = range(c0, min(R, c0 + chunk))
+                plo, n_pass = lo, 0
+                while plo < hi:
+                    ra = {r: rs[r] if plo <= 0 or rs[r + 1] <= rs[r]
+                          else max(rs[r], ub(rs[r], rs[r + 1], plo) - 1)
+                          for r in runs}
+                    phi = hi
+                    while True:
+                        ends = {r: max(rs[r + 1], rs[r]) if phi >= D or
+                                ra[r] == max(rs[r + 1], rs[r]) else
+                                ub(ra[r], max(rs[r + 1], rs[r]), phi - 1)
+                                for r in runs}
+                        if sum(ends[r] - ra[r] for r in runs) <= nb:
+                            break
+                        assert phi - plo > 1
+                        phi = plo + (phi - plo) // 2
+                    n_pass += 1
+                    staged = {r: list(range(ra[r], ends[r])) for r in runs}
+                    for r in runs:
+                        for p in staged[r]:
+                            for j in range(128):
+                                d, sc = int(bd[qb[p], j]), bs[qb[p], j]
+                                if not (sc > 0 and plo <= d < phi and d < D):
+                                    continue
+                                ok, acc, cnt = True, f32(0), f32(0)
+                                for u in range(R):
+                                    if u == r:
+                                        p2, s2 = p, sc
+                                    else:
+                                        p2 = _find_staged(
+                                            bd, bs, qb,
+                                            staged.get(u, whole[u]), d)
+                                        if p2 is None:
+                                            continue
+                                        p2, s2 = p2
+                                        if u < r:
+                                            ok = False
+                                            break
+                                    acc = f32(acc + f32(w[p2] * s2))
+                                    if bool_mode:
+                                        cnt = f32(cnt + qf[q, s, p2])
+                                if not ok:
+                                    continue
+                                if bool_mode:
+                                    val = f32(acc + addend[s, q, d])
+                                    cov = f32(cnt + hp[s, q, d])
+                                    keep = (lv[d] and abs(f32(cov - nm[q]))
+                                            < 0.5 and val > 0)
+                                else:
+                                    keep = acc > 0 and lv[d]
+                                    val = acc if addend is None else \
+                                        f32(acc + addend[s, q, d])
+                                if keep:
+                                    cands.append((val, d))
+                    plo = phi
+                st["passes"] = max(st["passes"], n_pass)
+                if c0 + chunk < R:
+                    continue           # the tile's next chunk of runs
+                cands.sort(key=lambda x: (-x[0], x[1]))
+                best = cands[:kk]
+                pairs += best + [(-np.inf, -1)] * (kk - len(best))
+            if tiles > 1:
+                pairs = [x for x in pairs if x[1] >= 0]
+                pairs.sort(key=lambda x: (-x[0], x[1]))
+            for j, (v, d) in enumerate([x for x in pairs if x[1] >= 0][:kk]):
+                out_s[s, q, j] = v
+                out_d[s, q, j] = d
+    return out_s, out_d
+
+
+def _judge(addend, hp, nm, lv, s, q, d, acc, cnt):
+    """lane_topk.cu's judge: (whether doc d is a candidate, its value)
+    from its total `acc` and its runs' must flags `cnt`, by the mode's
+    rule."""
+    f32 = np.float32
+    if hp is not None:
+        val = f32(acc + addend[s, q, d])
+        return (bool(lv[d]) and abs(f32(f32(cnt + hp[s, q, d]) - nm[q])) < 0.5
+                and val > 0), val
+    keep = acc > 0 and bool(lv[d])
+    return keep, (f32(acc + addend[s, q, d]) if addend is not None and keep
+                  else acc)
+
+
+def _sorted_tile(bd, bs, lv, qb, w, qf, rs, tlo, thi, D, L, st, judge):
+    """sort_tile_kernel's tile [tlo, thi) of one row, ranked (value,
+    doc) candidates: passes of at most L lanes (phi cut in proportion, to
+    7/8 of L), each run's lanes of the pass a span of its blocks' lanes
+    (lane_lb), gathered, sorted by (doc, run), each doc's first summing its
+    w * score values in run order."""
+    f32 = np.float32
+    R = len(rs) - 1
+    big = np.iinfo(np.int32).max
+
+    def lane_lb(r, x):
+        a = rs[r]
+        lo, hi = a, max(rs[r + 1], a)
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if int(bd[qb[mid], 0]) < x:
+                lo = mid + 1
+            else:
+                hi = mid
+        if lo - 1 < a:
+            return a * 128
+        row = bd[qb[lo - 1]]
+        keys = np.where((np.arange(128) > 0) & (row == 0), big, row)
+        return (lo - 1) * 128 + int(np.searchsorted(keys, x, "left"))
+
+    cands = []
+    lo = [lane_lb(r, tlo) for r in range(R)]
+    plo, n_pass = tlo, 0
+    while plo < thi:
+        phi = thi
+        while True:
+            hi = [lane_lb(r, phi) for r in range(R)]
+            total = sum(max(h - l, 0) for l, h in zip(lo, hi))
+            if total <= L or phi - plo <= 1:
+                break
+            phi = plo + max(1, (phi - plo) * (L - L // 8) // total)
+        n_pass += 1
+        items = []
+        for r in range(R):
+            for at in range(lo[r], hi[r]):
+                p, j = divmod(at, 128)
+                d, sc = int(bd[qb[p], j]), bs[qb[p], j]
+                if sc > 0 and plo <= d < phi and 0 <= d < D:
+                    items.append((d, r, f32(w[p] * sc),
+                                  f32(0) if qf is None else qf[p]))
+        assert len(items) <= L
+        items.sort(key=lambda x: (x[0], x[1]))
+        for i, (d, _, _, _) in enumerate(items):
+            if i and items[i - 1][0] == d:
+                continue
+            acc, cnt = f32(0), f32(0)
+            for d2, _, v, fl in items[i:]:
+                if d2 != d:
+                    break
+                acc = f32(acc + v)
+                cnt = f32(cnt + fl)
+            keep, val = judge(d, acc, cnt)
+            if keep:
+                cands.append((val, d))
+        lo = hi
+        plo = phi
+    st["sorted_passes"] = max(st["sorted_passes"], n_pass)
+    return sorted(cands, key=lambda x: (-x[0], x[1]))
+
+
+def _find_staged(bd, bs, qb, staged, d):
+    """The kernel's find_staged (or find_global) over one run's staged
+    positions (or all of them): the last block whose first doc is <= d,
+    then d's lane (pad lanes last); (position, lane score) when it holds d
+    with a score > 0, else None."""
+    lo, hi = 0, len(staged)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if int(bd[qb[staged[mid]], 0]) <= d:
+            lo = mid + 1
+        else:
+            hi = mid
+    if lo == 0:
+        return None
+    p = staged[lo - 1]
+    row = bd[qb[p]]
+    key = np.where((np.arange(128) > 0) & (row == 0), np.iinfo(np.int32).max,
+                   row)
+    j = int(np.searchsorted(key, d, "left"))
+    if j == 128 or int(row[j]) != d or not bs[qb[p], j] > 0:
+        return None
+    return p, bs[qb[p], j]
 
 
 def lane_topk_brute(block_docs, block_scores, live, qblocks, qw, tstart, k,
