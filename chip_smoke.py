@@ -10,6 +10,7 @@
     python3 chip_smoke.py --k5-parent OLD.cu   # and K5's stage
     python3 chip_smoke.py --scatter-parent OLD.cu   # and the block scatter
     python3 chip_smoke.py --lane-topk-parent OLD.cu   # and K10 lane_topk
+    python3 chip_smoke.py --weighted-scatter-parent OLD.cu   # and K11
     python3 chip_smoke.py --serving-only --docs N   # step 8 alone, no ok line
     python3 chip_smoke.py --admin-only --docs N     # step 8's admin phase alone
     python3 chip_smoke.py --blockmax-only --docs N  # step 9 alone
@@ -146,19 +147,27 @@ aggregation path the way bench.py drives config 6:
    BlockMaxBM25 (routing reason exceeds_hbm_budget); both config-1
    batches through IndexService.msearch (K10 `lane_topk` in its lane and
    hybrid modes, K4), then 4 pasted-text `match` bodies of 100 rare terms
-   (K10 rows of 100 runs), config 2's 256 bool specs through search_bool (the
+   (K10 rows of 100 runs) and 2 `match` bodies of mid terms whose blocks
+   pass the largest bucket (the overflow path's traffic; whether msearch
+   sent them there is counted), config 2's 256 bool specs through search_bool (the
    host conjunction, the device program, the host overflow; routes
    counted) and 16 heavy ones as one device group (K10's bool mode), and
-   the overflow path on 8 batch-0 queries with every block kept (K11
-   `weighted_block_scatter`), every answer held to the host-exact rows
-   (the long bodies to the numpy scorer) under tests/test_blockmax.py's rule (scores within 2e-5, ids and order
-   but across near-ties); then the spmd programs at a cut (4 stacked
+   the overflow path on 8 batch-0 queries, the 4 long bodies and the 2
+   large ones with every block kept (K11 `weighted_block_scatter`, one
+   call a query: a run a non-hot term), every answer held to the
+   host-exact rows (the long and large bodies to the numpy scorer) under
+   tests/test_blockmax.py's rule (scores
+   within 2e-5, ids and order but across near-ties); then the spmd
+   programs at a cut (4 stacked
    partitions of 250,000 docs, 64 queries): sharded_bm25_topk,
    Bm25ColumnCache and sharded_knn_topk, held to numpy rankings; every
    K10, K11 and K4 launch shape of both held bitwise against its plain
    version, also poisoned, and timed beside its bound and a library
    yardstick (torch.sort of K10's lanes, index_add_ of K11's), K10 also
-   beside the parent commit's kernel where --lane-topk-parent names it;
+   beside the parent commit's kernel where --lane-topk-parent names it,
+   and K11 on each overflow query beside the parent commit's launch a run
+   where --weighted-scatter-parent names it (by CUDA graph, and by events
+   with the host copies);
 10. serves the first batch again on a fresh engine at the default slice
    ladder and reports its sparse fallbacks, holding the answers that step
    4 held;
@@ -272,6 +281,14 @@ SCATTER_PARENT = ("elasticsearch_tpu_torch/parallel/csrc/build/"
 #   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/lane_topk.cu
 LANE_TOPK_PARENT = ("elasticsearch_tpu_torch/parallel/csrc/build/"
                     "lane_topk_parent.cu")
+# and K11's (weighted_ab on every overflow query: a wrapper call per run,
+# its C entry without the run offsets), written there with
+#   git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/block_scatter.cu
+WEIGHTED_PARENT = ("elasticsearch_tpu_torch/parallel/csrc/build/"
+                   "weighted_parent.cu")
+# blocks a call of the parent's overflow path took at most (its caller's
+# _OVERFLOW_CHUNK), which the K11 A/B cuts a run into
+PARENT_OVERFLOW_CHUNK = 8192
 # CUDA-graph replays a K10 timing averages over in the A/B (lane_ab): its
 # pass-A launches take about 0.01 ms
 GRAPH_REPS_K10 = 200
@@ -3951,6 +3968,12 @@ def _shape_key(args, kw):
                  for a in args)
 
 
+def _k11_key(args, kw):
+    """K11's launch shape: its input shapes and its number of runs."""
+    runs = kw.get("runs")
+    return _shape_key(args, kw) + (1 if runs is None else len(runs) - 1,)
+
+
 def _lane_key(args, kw):
     """K10's launch shape: its mode, k and input shapes."""
     mode = ("bool" if kw.get("qf") is not None else
@@ -3979,7 +4002,7 @@ PATH_KERNELS = (
     # accumulator in place, which is copied before the call
     ("lane_topk", "kernels", "lane_topk", _lane_key, ()),
     ("weighted_block_scatter", "kernels", "weighted_block_scatter",
-     _shape_key, (0,)),
+     _k11_key, (0,)),
 )
 
 
@@ -4203,13 +4226,17 @@ def lane_work(args, kw) -> dict:
             "docs": n_docs, "keys": keys}
 
 
-def hold_k11(label, args, kw) -> dict:
+def hold_k11(label, args, kw, parent=None) -> dict:
     """K11 at a recorded launch (its accumulator as it was before the
-    call): the kernel twice and the plain version, each on a copy, bitwise
-    (no atomics: run to run too), also under kernels.poisoned; timed by
-    events and by CUDA graph on a scratch copy beside the plain version and
-    index_add_ of the same lanes; its bound: the selected rows read once,
-    the descriptors, each live lane's accumulator read and write."""
+    call, its runs as recorded): the kernel twice and the plain version,
+    each on a copy, bitwise (no atomics: run to run too), also under
+    kernels.poisoned; timed by events, by CUDA graph and alone (the
+    profiler's kernel events) on a scratch copy beside the plain version
+    and index_add_ of the same lanes; where `parent` (weighted_parent) is
+    given, also the parent's launch a run, bitwise, and both by CUDA
+    graph in turns (this tree, parent, parent, this tree); its bound:
+    the selected rows read once, the descriptors, each distinct target's
+    accumulator read and write."""
     import torch
 
     from elasticsearch_tpu_torch.parallel import kernels as k
@@ -4233,6 +4260,7 @@ def hold_k11(label, args, kw) -> dict:
             f"{label} kernel vs plain: max_abs_err {err}")
     ids, w, bd, bs = rest[:4]
     rows = kw.get("rows", rest[4] if len(rest) > 4 else None)
+    runs = kw.get("runs")
     S, R, D = (int(x) for x in acc0.shape)
     T = int(bd.shape[1])
     idc = ids.long().clamp(0, T - 1)
@@ -4245,27 +4273,209 @@ def hold_k11(label, args, kw) -> dict:
     flat = ((part[:, :, None] * R + r[:, :, None]) * D + docs)[keep]
     vals = (w[:, :, None] * sc)[keep]
     scratch = acc0.clone()
+    turns = None
+    if parent is not None:
+        offs = k.weighted_run_offsets(runs, int(ids.shape[1])).tolist()
+        cut = [(ids[:, a:b].contiguous(), w[:, a:b].contiguous(),
+                None if rows is None else rows[:, a:b].contiguous())
+               for a, b in zip(offs[:-1], offs[1:]) if b > a]
+
+        def old():
+            for ci, cw, cr in cut:
+                weighted_parent_call(parent, scratch, ci, cw, bd, bs,
+                                     rows=cr)
+
+        def new():
+            k.weighted_block_scatter(scratch, *rest, **kw)
+
+        scratch.copy_(acc0)
+        old()
+        require(torch.equal(scratch.view(torch.int32),
+                            want.view(torch.int32)),
+                f"{label}: the parent's launches differ from the plain "
+                f"version")
+        turns = [graph_ms(new, 200), graph_ms(old, 200), graph_ms(old, 200),
+                 graph_ms(new, 200)]
     ms = cuda_ms(lambda: k.weighted_block_scatter(scratch, *rest, **kw), 10)
     plain_ms = cuda_ms(
         lambda: k.weighted_block_scatter_plain(scratch, *rest, **kw), 1)
-    gms = graph_ms(lambda: k.weighted_block_scatter(scratch, *rest, **kw),
-                   200)
+    gms = (graph_ms(lambda: k.weighted_block_scatter(scratch, *rest, **kw),
+                    200) if turns is None else (turns[0] + turns[3]) / 2)
+    n_launch = int((np.diff(k.weighted_run_offsets(
+        runs, int(ids.shape[1]))) > 0).sum())       # a launch a run
+    alone, _ = kernel_alone(
+        lambda: k.weighted_block_scatter(scratch, *rest, **kw),
+        ["weighted_rows_kernel"], 5, {"weighted_rows_kernel": n_launch})
     lib = cuda_ms(lambda: scratch.view(-1).index_add_(0, flat, vals), 10)
     valid = (ids >= 0) & (ids < T)
     rows_read = int(torch.unique((part * T + idc)[valid]).numel())
     desc = sum(t.numel() * t.element_size() for t in (ids, w)) + (
-        0 if rows is None else rows.numel() * 4)
+        0 if rows is None else rows.numel() * 4) + (
+        0 if runs is None else len(runs) * 4)
     lanes = int(flat.numel())
-    b_ms, b_by = bound(rows_read * 128 * 8 + desc + lanes * 8, 2 * lanes,
+    targets = int(torch.unique(flat).numel())
+    b_ms, b_by = bound(rows_read * 128 * 8 + desc + targets * 8, 2 * lanes,
                        PEAK_F32)
     return {"ms": ms, "plain_ms": plain_ms, "graph_ms": gms,
-            "library_ms": lib, "max_abs_err": err, "bound_ms": b_ms,
+            "alone_ms": alone, "library_ms": lib, "max_abs_err": err,
+            "bound_ms": b_ms,
             "bound_by": b_by, "bound_share": b_ms / gms, "lanes": lanes,
-            "rows_read": rows_read, "poisoned_run": "bitwise",
-            "run_to_run": "bitwise"}
+            "targets": targets, "rows_read": rows_read,
+            "runs": 1 if runs is None else len(runs) - 1,
+            "parent_graph_ms": None if turns is None
+            else (turns[1] + turns[2]) / 2, "graph_turns": turns,
+            "poisoned_run": "bitwise", "run_to_run": "bitwise"}
 
 
-def check_path_shapes(seen, dp, lane_parent=None) -> dict:
+def weighted_parent(path):
+    """The parent commit's K11 C entry (a launch per run: a thread a lane,
+    no run table), built with nvcc from `path`, or None when `path` is not
+    a file."""
+    import ctypes
+
+    from elasticsearch_tpu_torch.tools.k9_ab import parent_entry
+
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return parent_entry(path, "weighted_parent", "es_weighted_block_scatter",
+                        [P] * 6 + [I, I, L, I, I, P])
+
+
+def weighted_parent_call(fn, acc, ids, w, bd, bs, checked=False,
+                         rows=None) -> None:
+    """One launch of the parent's K11 (weighted_parent) on one run;
+    `checked` first makes the parent wrapper's argument checks (its host
+    cost on the path)."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    if checked:
+        dev = acc.device
+        for t, nm, dt, nd in ((acc, "acc", torch.float32, 3),
+                              (ids, "block_ids", torch.int32, 2),
+                              (w, "weights", torch.float32, 2),
+                              (bd, "block_docs", torch.int32, 3),
+                              (bs, "block_scores", torch.float32, 3)):
+            k._check(t, nm, dt, nd, dev)
+        require(w.shape == ids.shape and bs.shape == bd.shape,
+                "the parent's K11: shapes do not agree")
+    S, R, D = (int(x) for x in acc.shape)
+    rc = fn(ids.data_ptr(), w.data_ptr(),
+            0 if rows is None else rows.data_ptr(), bd.data_ptr(),
+            bs.data_ptr(), acc.data_ptr(), S, int(ids.shape[1]),
+            int(bd.shape[1]), R, D,
+            k._raw_stream(torch.cuda.current_device()))
+    if rc != 0:
+        raise RuntimeError(f"the parent's K11 failed: cudaError {rc}")
+
+
+def weighted_ab(calls, parent=None) -> dict:
+    """K11 per overflow query, on the calls `_exhaustive_topk` made (ids,
+    weights, block arrays, runs): this tree's one call (a launch a run,
+    from the C entry) against the parent's calls for the same query (its
+    caller's: one a run and 8,192-block chunk, each a launch), each held
+    bitwise against the plain version on a zero
+    accumulator; timed in turns (this tree, parent, parent, this tree) by
+    CUDA graph (the launches alone, summed in one graph) and by events
+    around the whole step with the host copies of ids and weights (the
+    parent's caller copied both per run, and checked its arguments per
+    launch as the wrapper does), each one's host enqueue (its checks
+    and launches, inputs on the card) and its kernels alone (the
+    profiler's events, summed over the launches). `parent` is
+    weighted_parent's entry or None (its fields then null). Each call is
+    (ids, weights, block_docs, block_scores, runs as the caller gave them
+    (None: one run), the accumulator's docs D)."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    out = []
+    for ids, w, bd, bs, runs, D in calls:
+        dev = ids.device
+        S, C = (int(x) for x in ids.shape)
+        offs = k.weighted_run_offsets(runs, C)
+        spans = list(zip(offs[:-1].tolist(), offs[1:].tolist()))
+        n_launch = sum(b > a for a, b in spans)      # a launch a run
+        acc0 = torch.zeros((S, 1, D), dtype=torch.float32, device=dev)
+        want = acc0.clone()
+        k.weighted_block_scatter_plain(want, ids, w, bd, bs, runs=runs)
+        qb, qw = ids.cpu().numpy(), w.cpu().numpy()
+        old_spans = [(c, min(c + PARENT_OVERFLOW_CHUNK, b)) for a, b in spans
+                     for c in range(a, b, PARENT_OVERFLOW_CHUNK)]
+        cut = [(ids[:, a:b].contiguous(), w[:, a:b].contiguous())
+               for a, b in old_spans]
+
+        def new_dev(acc):
+            k.weighted_block_scatter(acc, ids, w, bd, bs, runs=runs)
+
+        def new_host(acc):
+            k.weighted_block_scatter(
+                acc, torch.from_numpy(qb).to(dev),
+                torch.from_numpy(qw).to(dev), bd, bs, runs=runs)
+
+        def old_dev(acc, checked=False):
+            for pi, pw in cut:
+                weighted_parent_call(parent, acc, pi, pw, bd, bs, checked)
+
+        def old_host(acc):
+            for a, b in old_spans:
+                weighted_parent_call(
+                    parent, acc,
+                    torch.from_numpy(np.ascontiguousarray(qb[:, a:b])).to(dev),
+                    torch.from_numpy(np.ascontiguousarray(qw[:, a:b])).to(dev),
+                    bd, bs, checked=True)
+
+        fns = [new_dev, new_host] + ([old_dev, old_host] if parent else [])
+        for fn in fns:
+            a = acc0.clone()
+            fn(a)
+            require(torch.equal(a.view(torch.int32), want.view(torch.int32)),
+                    f"K11 A/B: {fn.__name__} differs from the plain version "
+                    f"({len(spans)} runs)")
+        scratch = acc0.clone()
+        row = {"runs": len(spans), "blocks": C, "partitions": S,
+               "calls": 1, "kernel_launches": n_launch,
+               "parent_launches": len(old_spans)}
+        if parent:
+            g = [graph_ms(lambda: new_dev(scratch), SCATTER_GRAPH_REPS),
+                 graph_ms(lambda: old_dev(scratch), SCATTER_GRAPH_REPS),
+                 graph_ms(lambda: old_dev(scratch), SCATTER_GRAPH_REPS),
+                 graph_ms(lambda: new_dev(scratch), SCATTER_GRAPH_REPS)]
+            e = [cuda_ms(lambda: new_host(scratch), 10),
+                 cuda_ms(lambda: old_host(scratch), 10),
+                 cuda_ms(lambda: old_host(scratch), 10),
+                 cuda_ms(lambda: new_host(scratch), 10)]
+            row["enqueue_ms"] = host_enqueue_ms(lambda: new_dev(scratch), 50)
+            row["parent_enqueue_ms"] = host_enqueue_ms(
+                lambda: old_dev(scratch, True), 50)
+            row["alone_ms"] = kernel_alone(
+                lambda: new_dev(scratch), ["weighted_rows_kernel"], 5,
+                {"weighted_rows_kernel": n_launch})[0]
+            row["parent_alone_ms"] = kernel_alone(
+                lambda: old_dev(scratch), ["weighted_scatter_kernel"], 5,
+                {"weighted_scatter_kernel": len(old_spans)})[0]
+            row.update(graph_ms=(g[0] + g[3]) / 2,
+                       parent_graph_ms=(g[1] + g[2]) / 2, graph_turns=g,
+                       events_ms=(e[0] + e[3]) / 2,
+                       parent_events_ms=(e[1] + e[2]) / 2, events_turns=e,
+                       parent_bitwise=True)
+        else:
+            row.update(graph_ms=graph_ms(lambda: new_dev(scratch),
+                                         SCATTER_GRAPH_REPS),
+                       events_ms=cuda_ms(lambda: new_host(scratch), 10),
+                       parent_graph_ms=None, parent_events_ms=None)
+        out.append(row)
+        del scratch, want, cut
+    sums = {f: (sum(r[f] for r in out) if all(r[f] is not None
+                                              for r in out) else None)
+            for f in ("graph_ms", "parent_graph_ms", "events_ms",
+                      "parent_events_ms", "calls", "kernel_launches",
+                      "parent_launches")}
+    return {"queries": out, "sums": sums}
+
+
+def check_path_shapes(seen, dp, lane_parent=None,
+                      weighted_parent=None) -> dict:
     """Every kernel of record_shapes at every launch shape the serving
     path gave it, on the recorded inputs, held bitwise against its plain
     version, also on poisoned outputs: K2 and K6 through sweep_ab, then
@@ -4273,7 +4483,8 @@ def check_path_shapes(seen, dp, lane_parent=None) -> dict:
     `dp` docs, or over its live rows' docs when dp is None); K3 beside its
     bound; K5, K9, K4 and K10 by hold_kernel, K10 also beside the parent
     commit's kernel where `lane_parent` (lane_parent) is given (lane_ab);
-    K11 by hold_k11. Returns {kernel: {shape: numbers}}."""
+    K11 by hold_k11, beside the parent's launches where `weighted_parent`
+    (weighted_parent) is given. Returns {kernel: {shape: numbers}}."""
     import torch
 
     from elasticsearch_tpu_torch.parallel import kernels as k
@@ -4319,7 +4530,7 @@ def check_path_shapes(seen, dp, lane_parent=None) -> dict:
                 row["bound_share"] = row["bound_ms"] / row["graph_ms"]
                 row["poisoned_run"] = "bitwise"
             elif name == "weighted_block_scatter":
-                row = hold_k11(label, args, kw)
+                row = hold_k11(label, args, kw, weighted_parent)
             else:
                 row = hold_kernel(label, wrappers[name], plains[name], args,
                                   kw)
@@ -5713,6 +5924,8 @@ BM_LONG_QUERIES = 4        # pasted-text `match` bodies, one msearch
 BM_LONG_TERMS = 100        # their distinct terms: K10 rows of 100 runs, more
                            # than a pass stages (lane_topk.cu's RUN_CHUNK)
 BM_LONG_BLOCKS = 8192      # their postings blocks at most (one K10 bucket)
+BM_BIG_QUERIES = 2         # `match` bodies of mid terms whose blocks pass
+#                            the largest bucket: the overflow path's traffic
 BM_BOOL_THREADS = 8        # search_bool calls in flight (the host conjunction
 #                            sorts release the GIL)
 SPMD_PARTS = 4             # the spmd programs' cut: 4 stacked partitions
@@ -5818,8 +6031,36 @@ def long_queries(fp, n: int):
     return out
 
 
+def big_queries(fp, n: int, max_bucket: int):
+    """BM_BIG_QUERIES queries (seed 53) of non-hot terms (df at most
+    n / HOT_DF_FRACTION) drawn from the 64 with the most postings blocks,
+    each drawn until its blocks pass `max_bucket`, the largest dispatch
+    bucket: BlockMax sends such a query to its overflow path
+    (_exhaustive_topk) when culling keeps more than that many."""
+    from elasticsearch_tpu_torch.parallel.blockmax import HOT_DF_FRACTION
+
+    mid = sorted(((int(fp.block_count[o]), t)
+                  for t, o in fp.term_to_ord.items()
+                  if int(fp.doc_freq[o]) * HOT_DF_FRACTION <= n),
+                 reverse=True)[:64]
+    rng = np.random.default_rng(53)
+    out = []
+    for _ in range(BM_BIG_QUERIES):
+        terms, blocks = [], 0
+        for i in rng.permutation(len(mid)):
+            terms.append(mid[i][1])
+            blocks += mid[i][0]
+            if blocks > max_bucket:
+                break
+        require(blocks > max_bucket,
+                f"big queries: {blocks} blocks, not past {max_bucket}")
+        out.append(terms)
+    return out
+
+
 def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
-                   device="cuda", lane_parent_src=None) -> tuple:
+                   device="cuda", lane_parent_src=None,
+                   weighted_parent_src=None) -> tuple:
     """BlockMax on the main path's shard, where the reference selects it:
     a one-shard port IndexService over the dense phase's segment (all
     live) with ES_TPU_TURBO_HBM at BM_TURBO_HBM, far below the shard's
@@ -5829,26 +6070,32 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
       1. IndexService.msearch of both config-1 batches of 256 as DSL
          bodies (one _disjunctive_batch each; K10 in its lane and hybrid
          modes, K4), then of long_queries' pasted-text `match` bodies
-         (K10 rows of BM_LONG_TERMS runs);
+         (K10 rows of BM_LONG_TERMS runs), then of big_queries' bodies
+         (K11 launches counted: the overflow path where culling keeps
+         their blocks past the largest bucket);
       2. config 2's 256 bool specs through BlockMaxBM25.search_bool, in
          BM_BOOL_THREADS concurrent calls (routes counted: _bool_host, the
          device program, _bool_exhaustive), and BM_FORCED_BOOL heavy specs
          as one device group (`_bool_group`; K10's bool mode: the host
          conjunction takes most specs at this size);
       3. the overflow path, `_exhaustive_topk`, on BM_OVERFLOW_QUERIES
-         queries of batch 0 with every block kept (K11, one launch a term
-         and chunk).
+         queries of batch 0, the long bodies and the big ones, every block
+         kept (K11, one call a query: a run a non-hot term; each query's
+         calls counted).
     Holds (hold_close, tests/test_blockmax.py's rule): every msearch top-10
     against the main path's host-exact rows, the long queries' against
     brute_topk; the bool answers against the
     bool phase's host-exact answers; the overflow rows against the msearch
-    answers of the same queries and the main path's. Then the spmd
+    answers of the same queries and the main path's, the long and big
+    bodies' against brute_topk and their msearch answers. Then the spmd
     programs (spmd_step) in a window of their own, and every K10, K11 and
     K4 launch shape of both windows held bitwise against its plain version
     (check_path_shapes), K10 also beside the parent commit's kernel
-    where `lane_parent_src` names its source (lane_ab); K10's row sums
-    launches x graph ms over each window's shapes. Returns (kernel rows,
-    report)."""
+    where `lane_parent_src` names its source (lane_ab), K11 beside the
+    parent's launches where `weighted_parent_src` names its source; the
+    rows sum launches x graph ms over each window's shapes. K11's
+    overflow calls are also timed query by query (weighted_ab). Returns
+    (kernel rows, report)."""
     import copy
 
     import torch
@@ -5919,6 +6166,13 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
                                 for q in long_q])
         long_s = time.perf_counter() - t
         long_timing = dict(eng.last_timing)
+        big_q = big_queries(fp, n, bm._MAX_BUCKET)
+        n0 = kernels.LAUNCHES["weighted_block_scatter"]
+        t = time.perf_counter()
+        big_got = svc.msearch([{"query": {"match": {"body": " ".join(q)}}}
+                               for q in big_q])
+        big_s = time.perf_counter() - t
+        big_routed = kernels.LAUNCHES["weighted_block_scatter"] - n0
         # 2. config 2 through search_bool, then a forced device group
         t = time.perf_counter()
         step = -(-len(bool_specs) // BM_BOOL_THREADS)
@@ -5942,12 +6196,37 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
         t = time.perf_counter()
         forced = _unpack(eng._bool_group([h[:2] for h in heavy], bucket, K))
         forced_s = time.perf_counter() - t
-        # 3. the overflow path on batch-0 queries, every block kept
-        ov_q = batches[0][:BM_OVERFLOW_QUERIES]
-        t = time.perf_counter()
-        ov = _unpack(np.stack([eng._exhaustive_topk(
-            [(x, 1.0) for x in dict.fromkeys(q)], {}, K) for q in ov_q]))
-        ov_s = time.perf_counter() - t
+        # 3. the overflow path on batch-0 queries and the long bodies,
+        # every block kept; K11's calls kept for weighted_ab
+        ov_q = batches[0][:BM_OVERFLOW_QUERIES] + long_q + big_q
+        ov_calls, ov_launches = [], []
+        scatter = kernels.weighted_block_scatter
+
+        def keep_call(acc, ids, w, bd, bs, rows=None, runs=None):
+            ov_calls.append((ids, w, bd, bs, runs, int(acc.shape[2])))
+            return scatter(acc, ids, w, bd, bs, rows=rows, runs=runs)
+
+        kernels.weighted_block_scatter = keep_call
+        ov_rows, ov_s = [], []
+        try:
+            for q in ov_q:
+                n0 = kernels.LAUNCHES["weighted_block_scatter"]
+                c0 = len(ov_calls)
+                t = time.perf_counter()
+                ov_rows.append(eng._exhaustive_topk(
+                    [(x, 1.0) for x in dict.fromkeys(q)], {}, K))
+                ov_s.append(time.perf_counter() - t)
+                ov_launches.append(
+                    (kernels.LAUNCHES["weighted_block_scatter"] - n0,
+                     len(ov_calls) - c0))
+        finally:
+            kernels.weighted_block_scatter = scatter
+        ov = _unpack(np.stack(ov_rows[:BM_OVERFLOW_QUERIES]))
+        long_ov = _unpack(np.stack(ov_rows[BM_OVERFLOW_QUERIES:
+                                           BM_OVERFLOW_QUERIES
+                                           + BM_LONG_QUERIES]))
+        big_ov = _unpack(np.stack(ov_rows[BM_OVERFLOW_QUERIES
+                                          + BM_LONG_QUERIES:]))
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         spies.close()
@@ -5966,6 +6245,12 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
             f"blockmax: health {hs}")
     for name in ("lane_topk", "weighted_block_scatter", "merge_topk"):
         require(launches[name] > 0, f"blockmax: {name} never launched")
+    # one K11 launch a query that has a non-hot term (a run each)
+    cold = [int(any((m := eng._terms.get(x)) is not None and m.hot_slot < 0
+                    for x in q)) for q in ov_q]
+    require(ov_launches == [(c, c) for c in cold],
+            f"blockmax overflow: K11 launches per query {ov_launches}, "
+            f"expected one a query with a non-hot term {cold}")
     long_runs = max(key[7][2] - 1 for key in shapes["lane_topk"])
     require(long_timing["n_queries"] == BM_LONG_QUERIES
             and long_runs >= BM_LONG_TERMS,
@@ -5973,8 +6258,9 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
             f"({long_timing}, {long_runs} runs at most)")
     log(f"blockmax main path: {main_s:.1f}s; msearch {lat} s; search_bool "
         f"{bool_s:.2f}s (routes {routes}); forced device group of "
-        f"{len(heavy)} {forced_s:.3f}s; overflow {ov_s:.3f}s; long queries "
-        f"{long_s:.3f}s ({long_runs} runs); launches "
+        f"{len(heavy)} {forced_s:.3f}s; overflow {sum(ov_s):.3f}s; long queries "
+        f"{long_s:.3f}s ({long_runs} runs); big queries {big_s:.3f}s "
+        f"({big_routed} K11 calls); launches "
         f"{ {k: v for k, v in launches.items() if v} }")
     # ---- holds ----
     t = time.time()
@@ -6000,6 +6286,21 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
                               "blockmax long queries")
     hold_close(ov, tuple(a[:BM_OVERFLOW_QUERIES] for a in main_rows[0]),
                "blockmax overflow vs main")
+    near["long_overflow"] = hold_close(long_ov, tuple(long_want),
+                                       "blockmax long overflow")
+    hold_close(long_ov, resp_rows(long_got), "blockmax long overflow vs "
+               "msearch")
+    big_want = [np.zeros((len(big_q), K), np.float32),
+                np.zeros((len(big_q), K), np.int32),
+                np.zeros((len(big_q), K), np.int32)]
+    for qi, q in enumerate(big_q):
+        bs_, bo_ = brute_topk(fp, n, [(x, 1.0) for x in q])
+        big_want[0][qi, :len(bs_)] = bs_
+        big_want[2][qi, :len(bo_)] = bo_
+    near["big"] = hold_close(resp_rows(big_got), tuple(big_want),
+                             "blockmax big queries")
+    near["big_overflow"] = hold_close(big_ov, tuple(big_want),
+                                      "blockmax big overflow")
     require(routes["host"] + routes["device"] + routes["exhaustive"]
             <= len(bool_specs) + len(heavy),
             f"blockmax: bool routes {routes}")
@@ -6012,12 +6313,32 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
         "bool_routes": {**routes, "device": routes["device"] - len(heavy)},
         "forced_device_group": {"specs": len(heavy), "bucket": bucket,
                                 "s": forced_s},
-        "overflow": {"queries": len(ov_q), "s": ov_s},
+        "overflow": {"queries": len(ov_q), "s": ov_s,
+                     "k11_calls": [x[0] for x in ov_launches],
+                     "runs": [1 if c[4] is None else len(c[4]) - 1
+                              for c in ov_calls],
+                     "blocks": [int(c[0].shape[1]) for c in ov_calls]},
+        "big_queries": {"queries": len(big_q),
+                        "terms": [len(q) for q in big_q],
+                        "blocks": [sum(int(fp.block_count[
+                            fp.term_to_ord[x]]) for x in q) for q in big_q],
+                        "msearch_s": big_s,
+                        "k11_calls_in_msearch": big_routed},
         "held_as_sets": near, "hold_s": time.time() - t,
         "main_path_s": main_s,
         "launches": {k: v for k, v in launches.items() if v}})
     log(f"blockmax holds: every answer within {BM_RTOL} of the host-exact "
         f"rows ({near} rows held as sets) in {rep['hold_s']:.1f}s")
+    # ---- K11 query by query, beside the parent's launches ----
+    t = time.time()
+    w_par = weighted_parent(weighted_parent_src) if device == "cuda" else None
+    log(f"parent K11 for the A/B: "
+        f"{weighted_parent_src if w_par else 'not given'}")
+    k11_ab = weighted_ab(ov_calls, w_par)
+    del ov_calls
+    k11_ab["s"] = time.time() - t
+    log(f"K11 per overflow query, summed over {len(k11_ab['queries'])}: "
+        f"{k11_ab['sums']}")
     del svc, eng, sseg, served, got
     torch.cuda.empty_cache()
     # ---- the spmd programs, in a window of their own ----
@@ -6033,11 +6354,11 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
     held = check_path_shapes(
         {name: shapes[name] for name in
          ("lane_topk", "weighted_block_scatter", "merge_topk")}, None,
-        lane_par)
+        lane_par, w_par)
     spmd_held = check_path_shapes(
         {name: spmd_shapes[name] for name in
          ("lane_topk", "weighted_block_scatter", "merge_topk")}, None,
-        lane_par)
+        lane_par, w_par)
     del shapes, spmd_shapes
     torch.cuda.empty_cache()
     rep["shape_holds_s"] = time.time() - t
@@ -6067,23 +6388,33 @@ def blockmax_phase(seg, fp, n: int, batches, main_rows, bool_answers,
             "poisoned_run": "bitwise", "shapes": per,
             "spmd_launches": spmd_launches[name],
             "spmd_shapes": spmd_held[name]})
-        if name == "lane_topk":
-            rows[-1].update(lane_sums(per, spmd_held[name]))
-            rows[-1]["parent_graph_ms"] = head.get("parent_graph_ms")
-            log(f"lane_topk launches x graph ms: {rows[-1]['sum_graph_ms']}"
-                f" (parent {rows[-1]['parent_sum_graph_ms']}), spmd "
-                f"{rows[-1]['spmd_sum_graph_ms']} (parent "
-                f"{rows[-1]['spmd_parent_sum_graph_ms']})")
+        if name == "weighted_block_scatter":
+            rows[-1]["overflow_queries"] = k11_ab
+            # and the multi-run launch of the most lanes beside it
+            multi = max((r for r in per.values() if r["runs"] > 1),
+                        key=lambda r: r["launches"] * r["lanes"])
+            rows[-1]["multi_run_head"] = {
+                "shape": next(k for k, r in per.items() if r is multi),
+                **{f: multi.get(f) for f in (
+                    "runs", "lanes", "ms", "graph_ms", "alone_ms",
+                    "parent_graph_ms", "bound_ms", "bound_share",
+                    "plain_ms", "library_ms")}}
+        rows[-1].update(shape_sums(per, spmd_held[name]))
+        rows[-1]["parent_graph_ms"] = head.get("parent_graph_ms")
+        log(f"{name} launches x graph ms: {rows[-1]['sum_graph_ms']}"
+            f" (parent {rows[-1]['parent_sum_graph_ms']}), spmd "
+            f"{rows[-1]['spmd_sum_graph_ms']} (parent "
+            f"{rows[-1]['spmd_parent_sum_graph_ms']})")
     rep["merge_topk_shapes"] = held["merge_topk"]
     rep["phase_s"] = time.time() - t_phase
     log(f"blockmax phase took {rep['phase_s']:.1f}s")
     return rows, rep
 
 
-def lane_sums(per, spmd) -> dict:
-    """K10's launches x graph ms summed over the BlockMax window's shapes
-    (`per`) and the spmd window's, this tree's and, where timed, the
-    parent's (None when not)."""
+def shape_sums(per, spmd) -> dict:
+    """A kernel's launches x graph ms summed over the BlockMax window's
+    shapes (`per`) and the spmd window's, this tree's and, where timed,
+    the parent's (None when not)."""
     def total(shapes, field):
         vals = [r["launches"] * r[field] for r in shapes.values()
                 if r.get(field) is not None]
@@ -6249,7 +6580,8 @@ def spmd_step(device="cuda") -> tuple:
 def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
         agg_docs: int, k3_parent_src=None, k2_parent_src=None,
         k8_parent_src=None, k4_parent_src=None, k5_parent_src=None,
-        scatter_parent_src=None, lane_parent_src=None) -> dict:
+        scatter_parent_src=None, lane_parent_src=None,
+        weighted_parent_src=None) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import hbm_ledger
@@ -6283,7 +6615,8 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     for name, src in (("K8", k8_parent_src), ("K4", k4_parent_src),
                       ("K5", k5_parent_src),
                       ("block scatter", scatter_parent_src),
-                      ("K10", lane_parent_src)):
+                      ("K10", lane_parent_src),
+                      ("K11", weighted_parent_src)):
         log(f"parent {name} for the A/B: "
             f"{src if src and os.path.isfile(src) else 'not given'}")
 
@@ -6442,7 +6775,9 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     bm_rows, bm_report = blockmax_phase(dense_seg, fp, n_docs, batches,
                                         results[:len(batches)],
                                         bool_answers,
-                                        lane_parent_src=lane_parent_src)
+                                        lane_parent_src=lane_parent_src,
+                                        weighted_parent_src=(
+                                            weighted_parent_src))
     rows += bm_rows
     del dense_seg, tokens, bounds, bool_answers
     default = default_ladder(fp, n_docs, batches[0], held[0])
@@ -6536,7 +6871,7 @@ def serving_only(n_docs: int, n_batches: int, batch: int) -> dict:
 
 
 def blockmax_only(n_docs: int, n_batches: int, batch: int,
-                  lane_parent_src=None) -> dict:
+                  lane_parent_src=None, weighted_parent_src=None) -> dict:
     """The BlockMax phase alone (--blockmax-only): the kernels built, the
     index drawn, the main path's engine rows of each batch and the
     host-exact answers of config 2 (its columns prebuilt, nothing else of
@@ -6570,7 +6905,8 @@ def blockmax_only(n_docs: int, n_batches: int, batch: int,
     seg, _, _ = dense_segment(fp, tokens, bounds, n_docs, "cuda")
     kernel_rows, rep = blockmax_phase(seg, fp, n_docs, batches, rows,
                                       (bool_qs, hs, ho),
-                                      lane_parent_src=lane_parent_src)
+                                      lane_parent_src=lane_parent_src,
+                                      weighted_parent_src=weighted_parent_src)
     return {"kernels": kernel_rows, "report": rep}
 
 
@@ -6664,6 +7000,11 @@ def main(argv=None) -> int:
                          "tile scratch) to time beside this tree's K10 at "
                          "every BlockMax and spmd launch shape; skipped "
                          "when the file is missing")
+    ap.add_argument("--weighted-scatter-parent", default=WEIGHTED_PARENT,
+                    help="an earlier block_scatter.cu (its K11 C entry "
+                         "without the run table, a launch per run) to time "
+                         "beside this tree's K11 on every overflow query; "
+                         "skipped when the file is missing")
     ap.add_argument("--serving-only", action="store_true",
                     help="run the serving phase alone on the index "
                          "(its main-path rows first), print its report and "
@@ -6698,7 +7039,8 @@ def main(argv=None) -> int:
                                                 args.batch)}
         elif args.blockmax_only:
             out = {"blockmax_only": blockmax_only(
-                args.docs, args.batches, args.batch, args.lane_topk_parent)}
+                args.docs, args.batches, args.batch, args.lane_topk_parent,
+                args.weighted_scatter_parent)}
         else:
             out = {"admin_only": admin_only(args.docs, args.batches,
                                             args.batch)}
@@ -6711,7 +7053,8 @@ def main(argv=None) -> int:
     out = run(args.docs, args.batches, args.batch, args.knn_docs,
               args.agg_docs, args.k3_parent, args.k2_parent,
               args.k8_parent, args.k4_parent, args.k5_parent,
-              args.scatter_parent, args.lane_topk_parent)
+              args.scatter_parent, args.lane_topk_parent,
+              args.weighted_scatter_parent)
     print(json.dumps({"serving": out["serving"]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -52,7 +52,6 @@ _HOST_CONJ_DF = 1 << 16  # rarest required term below this -> host conjunction
 # work of thousands of light ones
 _GROUP_SHAPES = [(32, 512), (512, 64), (8192, 8), (32768, 4)]
 _MAX_BUCKET = _GROUP_SHAPES[-1][0]
-_OVERFLOW_CHUNK = 8192   # blocks per scatter launch on the overflow path
 
 
 def _group_shape(n_blocks: int):
@@ -595,12 +594,12 @@ class BlockMaxBM25:
                          selection: Dict[str, List[np.ndarray] | None],
                          k: int) -> np.ndarray:
         """Exact fallback for block-heavy queries: every kept block's lanes
-        scatter-added (K11) into a per-partition dense [D] accumulator,
-        one launch per term and chunk of _OVERFLOW_CHUNK blocks, terms in
-        order (a launch never writes a doc twice, and a doc sums its terms
-        in order, as the reference's scatter adds them), then the hot
-        matmul and one top-k. Returns packed [3, k] (score, partition,
-        ord)."""
+        scatter-added (K11) into a per-partition dense [D] accumulator in
+        one call: the non-hot terms' kept blocks, one run a term in term
+        order (each padded across partitions with block 0), so that a doc
+        sums its terms in order, as the reference's scatter adds its chunk;
+        then the hot matmul and one top-k. Returns packed [3, k] (score,
+        partition, ord)."""
         from elasticsearch_tpu_torch.parallel.kernels import (
             weighted_block_scatter,
         )
@@ -609,7 +608,7 @@ class BlockMaxBM25:
         S = self.S
         st = self.stacked
         W = np.zeros((1, self.n_hot_slots), np.float32)
-        runs: List[Tuple[List[np.ndarray], float]] = []
+        kept: List[Tuple[List[np.ndarray], float]] = []   # a run a term
         for t, boost in terms:
             m = self._terms.get(t)
             if m is None:
@@ -624,21 +623,22 @@ class BlockMaxBM25:
                 sb = m.blocks[s]
                 mask = None if masks is None or not len(sb.ids) else masks[s]
                 per.append(sb.ids if mask is None else sb.ids[mask])
-            runs.append((per, w))
+            if max(len(b) for b in per):
+                kept.append((per, w))
         acc = torch.zeros((S, 1, self.D), dtype=torch.float32,
                           device=self.device)
-        for per, w in runs:
-            n_chunks = max(-(-len(b) // _OVERFLOW_CHUNK) for b in per)
-            for c in range(n_chunks):
-                seg = slice(c * _OVERFLOW_CHUNK, (c + 1) * _OVERFLOW_CHUNK)
-                width = max(len(b[seg]) for b in per)
-                qb = np.zeros((S, width), np.int32)
-                for s, b in enumerate(per):
-                    part = b[seg]
-                    qb[s, : len(part)] = part
-                qw = np.full((S, width), np.float32(w), np.float32)
-                weighted_block_scatter(acc, self._t(qb), self._t(qw),
-                                       st.block_docs, st.block_scores)
+        if kept:
+            offs = np.cumsum([0] + [max(len(b) for b in per)
+                                    for per, _ in kept])
+            qb = np.zeros((S, int(offs[-1])), np.int32)
+            qw = np.empty((S, int(offs[-1])), np.float32)
+            for (per, w), a, b in zip(kept, offs[:-1], offs[1:]):
+                qw[:, a:b] = np.float32(w)
+                for s, ids in enumerate(per):
+                    qb[s, a: a + len(ids)] = ids
+            weighted_block_scatter(acc, self._t(qb), self._t(qw),
+                                   st.block_docs, st.block_scores,
+                                   runs=offs if len(kept) > 1 else None)
         acc = acc[:, 0, :]
         dense = self._dense(W)[:, 0, :]                          # [S, D]
         tot = acc + dense

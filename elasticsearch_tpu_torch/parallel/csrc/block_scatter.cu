@@ -69,6 +69,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 #include <mutex>
 
 namespace {
@@ -241,67 +242,141 @@ int launch(const Args& a, void* stream) {
 }
 
 // weighted_block_scatter (K11): acc[s, row, doc] += w * score for each lane
-// with score > 0 of the given blocks. Replaces the XLA programs
-// elasticsearch_tpu/parallel/blockmax.py `_scatter_chunk` (:963, the
-// BlockMax overflow path's accumulate step) and
-// elasticsearch_tpu/parallel/spmd.py `_column_insert_program` (:650, impact
-// columns into cache slots). Contract: within one launch no two lanes with
-// score > 0 write the same (s, row, doc) -- the callers give one term's
-// blocks per row (a term holds a doc once) -- so a thread a lane adds
-// without atomics: deterministic, run to run, and equal to the plain
-// version bit for bit (the reference's scatter-add adds a doc's terms in
-// order; so do the callers' launches, one per term run). Bound: bytes, the
-// selected rows read once and each live lane's read-modify-write of acc.
+// with score > 0 of the given blocks, taken in runs. Replaces the XLA
+// programs elasticsearch_tpu/parallel/blockmax.py `_scatter_chunk` (:963,
+// the BlockMax overflow path's accumulate step) and
+// elasticsearch_tpu/parallel/spmd.py `_column_insert_program` (:650,
+// impact columns into cache slots).
+//
+// Contract: the positions [0, C) of every partition are cut into runs by
+// ascending offsets shared by the partitions. Within a run no two lanes
+// with score > 0 write the same (s, row, doc) -- a run is one term's blocks
+// into one destination row, and a term holds a doc once. Across runs they
+// may, and a target then sums its runs in run order:
+// acc = ((acc + w0 * s0) + w1 * s1) ..., each product and sum rounded
+// apart (__fmul_rn, __fadd_rn). That is the reference's scatter-add, which
+// adds a chunk's updates in operand order, on the callers' concatenation
+// of a query's terms; no atomics, so the bits are the same run to run.
+//
+// What bounds it on the H100: bytes, each selected row's 1 KB of docs and
+// scores read once and each live target's 4-byte read and write of acc,
+// about 3 MB (0.0018 ms) for a rare term's 2,944 blocks. A rare term's
+// docs lie far apart, so each lane's read and write of acc is a 32-byte
+// sector of its own: about 24 MB of sectors there, and the first kernel
+// (a thread a lane, a CTA per two rows, one launch per run) took 0.0077
+// ms alone. A query of 100 rare terms took 100 launches, each with its
+// host copies.
+//
+// Design: the C entry launches weighted_rows_kernel once per run, in run
+// order on the stream, so a run's stores land before the next run reads
+// acc; the caller pays one call and one copy of ids and weights a query.
+// A launch's grid is persistent, planned here from the card's occupancy:
+// a thread takes a lane, 4 warps a row (every load and store of a warp is
+// 32 neighbouring lanes), and the grid, at most what the card holds,
+// walks the run's rows. Docs and scores are read once, evict-first
+// (leaving L2 to acc); acc is read and written through L2 (__ldcg /
+// __stcg). Timed on the card against two alternatives (PERF.md): a warp a
+// row with 4 lanes a thread and the next rows' loads issued ahead ran as
+// fast on one run, 7% slower on a dozen runs of thousands of blocks and
+// 40% slower on a hundred runs of a few blocks; a grid-wide barrier
+// between runs in one cooperative launch ran no faster than a launch a
+// run on runs of thousands of blocks.
+constexpr int ROW_WARPS = LANES / 32;   // warps a row
+
 struct WArgs {
   const int* ids;      // [S, C] block rows (outside [0, T): nothing)
   const float* w;      // [S, C]
-  const int* rows;     // [S, C] destination rows of acc, or null (row 0)
+  const int* rows;     // [S, C] destination rows (null: row 0)
   const int* docs;     // [S, T, 128]
   const float* scores; // [S, T, 128]
   float* acc;          // [S, R, D]
-  int C, R, D;
+  int S, C, R, D;      // S * C < 2^30 (the C entry's check)
   long long T;
+  int lo, width;       // the launch's run: positions [lo, lo + width)
 };
 
-__global__ void __launch_bounds__(THREADS) weighted_scatter_kernel(
+__global__ void __launch_bounds__(THREADS) weighted_rows_kernel(
     const WArgs a) {
-  const int s = blockIdx.y;
-  const long long pos =
-      (long long)blockIdx.x * (THREADS / LANES) + threadIdx.x / LANES;
-  const int lane = threadIdx.x % LANES;
-  if (pos >= a.C) return;
-  const long long pi = (long long)s * a.C + pos;
-  const int id = __ldg(a.ids + pi);
-  if (id < 0 || (long long)id >= a.T) return;
-  const long long off = ((long long)s * a.T + id) * LANES + lane;
-  const float sc = __ldcs(a.scores + off);
-  const int d = __ldcs(a.docs + off);
-  if (!(sc > 0.0f) || d < 0 || d >= a.D) return;
-  const int r = a.rows ? __ldg(a.rows + pi) : 0;
-  if (r < 0 || r >= a.R) return;
-  float* dst = a.acc + ((long long)s * a.R + r) * a.D + d;
-  *dst = __fadd_rn(*dst, __fmul_rn(__ldg(a.w + pi), sc));
+  const int gw = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int lane = gw % ROW_WARPS * 32 + (threadIdx.x & 31);  // of the row
+  const int n = a.S * a.width;        // the run's rows, partition-major
+  const int stride = gridDim.x * (WARPS / ROW_WARPS);
+  for (int i = gw / ROW_WARPS; i < n; i += stride) {
+    const int s = a.S == 1 ? 0 : i / a.width;
+    const long long pi = (long long)s * a.C + a.lo + (i - s * a.width);
+    const int id = __ldg(a.ids + pi);
+    const float w = __ldg(a.w + pi);
+    const int row = a.rows ? __ldg(a.rows + pi) : 0;
+    if (id < 0 || (long long)id >= a.T || row < 0 || row >= a.R) continue;
+    const long long off = ((long long)s * a.T + id) * LANES + lane;
+    const int d = __ldcs(a.docs + off);
+    const float sc = __ldcs(a.scores + off);
+    if (!(sc > 0.0f) || d < 0 || d >= a.D) continue;
+    float* dst = a.acc + ((long long)s * a.R + row) * a.D + d;
+    __stcg(dst, __fadd_rn(__ldcg(dst), __fmul_rn(w, sc)));
+  }
+}
+
+// CTAs of weighted_rows_kernel each device holds at once, asked on its
+// first call (0: not yet). Read without a lock: every writer stores the
+// same value.
+std::atomic<int> wctas[MAX_DEVICES];
+
+cudaError_t weighted_ctas(int* ctas) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  int c = wctas[dev].load(std::memory_order_relaxed);
+  if (c == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, weighted_rows_kernel, THREADS, 0);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    c = sms * per_sm;
+    wctas[dev].store(c, std::memory_order_relaxed);
+  }
+  *ctas = c;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // ids / w / rows [S, C], docs / scores [S, t_rows, 128], acc [S, R, D] f32
-// updated in place.
+// updated in place; runs: n_runs + 1 ascending host offsets from 0 to C
+// (null: one run [0, C)), a launch each, in order: a grid of 4 warps a
+// row, at most what the card holds; S * C must be below 2^30.
 extern "C" int es_weighted_block_scatter(const void* ids, const void* w,
                                          const void* rows, const void* docs,
-                                         const void* scores, void* acc, int S,
+                                         const void* scores, void* acc,
+                                         const int* runs, int n_runs, int S,
                                          int C, long long t_rows, int R,
                                          int D, void* stream) {
   if (S <= 0 || C <= 0 || D <= 0 || R <= 0) return 0;
-  if (S > 65535) return (int)cudaErrorInvalidValue;
-  const WArgs a{(const int*)ids,   (const float*)w,      (const int*)rows,
-                (const int*)docs,  (const float*)scores, (float*)acc,
-                C,                 R,                    D,
-                t_rows};
-  const int64_t per = THREADS / LANES;
-  weighted_scatter_kernel<<<dim3((unsigned)((C + per - 1) / per), S),
-                            THREADS, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  if ((long long)S * C >= (1LL << 30)) return (int)cudaErrorInvalidValue;
+  int ctas = 0;
+  cudaError_t e = weighted_ctas(&ctas);
+  if (e != cudaSuccess) return (int)e;
+  WArgs a{(const int*)ids,  (const float*)w,      (const int*)rows,
+          (const int*)docs, (const float*)scores, (float*)acc,
+          S,                C,                    R,
+          D,                t_rows,               0,
+          C};
+  const int n = runs ? n_runs : 1;
+  for (int r = 0; r < n; ++r) {
+    if (runs) a.lo = runs[r], a.width = runs[r + 1] - runs[r];
+    const long long want =
+        ((long long)S * a.width * ROW_WARPS + WARPS - 1) / WARPS;
+    if (want <= 0) continue;
+    weighted_rows_kernel<<<(unsigned)std::min<long long>(want, ctas),
+                           THREADS, 0, (cudaStream_t)stream>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 // ids [n_blocks] i32, idf [n_blocks] f32, docs / tfs [t_rows, 128] i32 /

@@ -70,7 +70,7 @@ _SIGNATURES = {
     "block_presence": ("block_scatter", "es_block_presence",
                        [_P, _P, _P, _I, _L, _I, _P, _P]),
     "weighted_block_scatter": ("block_scatter", "es_weighted_block_scatter",
-                               [_P] * 6 + [_I, _I, _L, _I, _I, _P]),
+                               [_P] * 7 + [_I, _I, _I, _L, _I, _I, _P]),
     "lane_topk": ("lane_topk", "es_lane_topk",
                   [_P] * 14 + [_I, _I, _L, _I, _I, _I, _I, _I, _I, _I,
                                _P]),

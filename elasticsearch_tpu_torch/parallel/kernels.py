@@ -1585,10 +1585,41 @@ def lane_topk(block_docs, block_scores, live, qblocks, qw, tstart, *,
     return out_s, out_d
 
 
+def weighted_run_offsets(runs, C: int):
+    """K11's run offsets as a host int32 array, checked: None (one run,
+    [0, C)) or n_runs + 1 ascending integers from 0 to C (a sequence, a
+    numpy array or a CPU tensor; equal neighbours make an empty run)."""
+    if runs is None:
+        return np.array([0, C], np.int32)
+    if isinstance(runs, torch.Tensor):
+        if runs.device.type != "cpu":
+            raise ValueError(f"runs must lie on the host, got {runs.device}")
+        runs = runs.numpy()
+    r = np.asarray(runs)
+    if r.ndim != 1 or r.size < 2 or r.dtype.kind not in "iu":
+        raise TypeError(f"runs must be 1-D integers, at least 2, got "
+                        f"{r.dtype} {r.shape}")
+    if r[0] != 0 or r[-1] != C or (r.size > 2 and (r[1:] < r[:-1]).any()):
+        raise ValueError(f"runs must ascend from 0 to C = {C}, got "
+                         f"{r[:4].tolist()} ... {r[-4:].tolist()}")
+    return np.ascontiguousarray(r, dtype=np.int32)
+
+
 def weighted_block_scatter_plain(acc, block_ids, weights, block_docs,
-                                 block_scores, rows=None):
-    """Plain torch K11: each lane's w * score added to its doc, in place
-    (every target is written by one lane, so the sum is the kernel's)."""
+                                 block_scores, rows=None, runs=None):
+    """Plain torch K11, in place: the runs one after another, in order,
+    each run's lanes added at once (a run writes each target once, so the
+    sum is the kernel's): acc = ((acc + w0 * s0) + w1 * s1) ... for a
+    target that several runs hit, each product and sum rounded apart."""
+    offs = weighted_run_offsets(runs, int(block_ids.shape[1]))
+    for a, b in zip(offs[:-1].tolist(), offs[1:].tolist()):
+        if b > a:
+            _scatter_run(acc, block_ids[:, a:b], weights[:, a:b], block_docs,
+                         block_scores, None if rows is None else rows[:, a:b])
+    return acc
+
+
+def _scatter_run(acc, block_ids, weights, block_docs, block_scores, rows):
     dev = acc.device
     S, R, D = acc.shape
     T = block_docs.shape[1]
@@ -1601,27 +1632,29 @@ def weighted_block_scatter_plain(acc, block_ids, weights, block_docs,
         valid &= (r >= 0) & (r < R)
     idc = ids.clamp(0, max(T - 1, 0))
     part = torch.arange(S, device=dev)[:, None]
-    docs = block_docs[part, idc].long()                    # [S, C, 128]
+    docs = block_docs[part, idc].long()                    # [S, c, 128]
     sc = block_scores[part, idc]
     keep = valid[:, :, None] & (sc > 0) & (docs >= 0) & (docs < D)
     v = (weights[:, :, None] * sc)[keep]
     flat = ((part[:, :, None] * R + r[:, :, None]) * D + docs)[keep]
     accf = acc.view(-1)
     accf[flat] = accf[flat] + v
-    return acc
 
 
 def weighted_block_scatter(acc, block_ids, weights, block_docs,
-                           block_scores, rows=None):
+                           block_scores, rows=None, runs=None):
     """acc[s, rows[s, c], doc] += weights[s, c] * score for each lane with
     score > 0 of block block_ids[s, c], in place; returns acc.
 
     acc [S, R, D] f32; block_ids, weights, rows [S, C] (i32, f32, i32;
     rows None: row 0); block_docs [S, T, 128] i32, block_scores
-    [S, T, 128] f32. Rows outside [0, T), destination rows outside
+    [S, T, 128] f32; runs: n_runs + 1 ascending host offsets from 0 to C
+    that cut every partition's positions into runs (None: one run; see
+    weighted_run_offsets). Rows outside [0, T), destination rows outside
     [0, R) and docs outside [0, D) add nothing. No two such lanes of one
-    call may hit the same (s, row, doc): give one term's blocks a row (a
-    term holds each doc once) and add terms call by call, in order.
+    run may hit the same (s, row, doc): give a run one term's blocks into
+    one row (a term holds each doc once). Lanes of several runs may share
+    one, and add to it in run order: the bits of a call per run, in order.
     """
     dev = acc.device
     _check(acc, "acc", torch.float32, 3, dev)
@@ -1643,16 +1676,21 @@ def weighted_block_scatter(acc, block_ids, weights, block_docs,
         if rows.shape != block_ids.shape:
             raise ValueError(f"rows {tuple(rows.shape)} must match "
                              f"block_ids {tuple(block_ids.shape)}")
+    C = int(block_ids.shape[1])
+    offs = None if runs is None else weighted_run_offsets(runs, C)
     if not _route(dev):
         return weighted_block_scatter_plain(acc, block_ids, weights,
-                                            block_docs, block_scores, rows)
-    if S > 65535:
-        raise ValueError(f"{S} partitions exceed the grid")
-    C = int(block_ids.shape[1])
+                                            block_docs, block_scores, rows,
+                                            offs)
     if C == 0 or S == 0:
         return acc
+    if S * C >= 1 << 30:
+        raise ValueError(f"{S} x {C} block positions exceed the kernel's "
+                         f"index range (2^30)")
     _launch("weighted_block_scatter", dev, block_ids.data_ptr(),
             weights.data_ptr(), 0 if rows is None else rows.data_ptr(),
             block_docs.data_ptr(), block_scores.data_ptr(), acc.data_ptr(),
-            S, C, int(block_docs.shape[1]), R, D)
+            0 if offs is None else offs.ctypes.data,
+            0 if offs is None else len(offs) - 1, S, C,
+            int(block_docs.shape[1]), R, D)
     return acc

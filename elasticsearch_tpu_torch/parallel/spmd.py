@@ -580,7 +580,8 @@ class Bm25ColumnCache:
                                         if df else 0.0)
                 sl = torch.from_numpy(slots).to(dev).long()
                 self.cache[:, sl, :] = 0.0
-                # one term a slot: a launch never writes a (slot, doc) twice
+                # one term a slot: the group is one K11 run (no (slot, doc)
+                # written twice), a launch a group as the reference's
                 rows = np.broadcast_to(slots[None, :, None], blks.shape)
                 weighted_block_scatter(
                     self.cache,

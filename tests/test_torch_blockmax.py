@@ -377,7 +377,7 @@ def test_search_bool_overflow_fallback(monkeypatch):
 
 def test_overflow_path_matches_exhaustive(monkeypatch):
     """Queries whose surviving blocks exceed the largest bucket take the
-    chunked scatter path (K11) and stay exact; forced by shrinking the
+    scatter path (K11) and stay exact; forced by shrinking the
     bucket ladder so ordinary queries overflow."""
     rng = np.random.default_rng(23)
     segments = zipf_corpus(rng, N_DOCS, 2)
@@ -389,7 +389,9 @@ def test_overflow_path_matches_exhaustive(monkeypatch):
     for mod in (ref_bm, bm):
         monkeypatch.setattr(mod, "_GROUP_SHAPES", [(8, 512)])
         monkeypatch.setattr(mod, "_MAX_BUCKET", 8)
-        monkeypatch.setattr(mod, "_OVERFLOW_CHUNK", 16)
+    # the reference's scatter in chunks of 16 blocks; the port's in one
+    # launch, a run a term
+    monkeypatch.setattr(ref_bm, "_OVERFLOW_CHUNK", 16)
     ref = ref_bm.BlockMaxBM25(stacked, mesh)
     port = port_engine(segments)
     got = port.search(queries, k=10)
@@ -402,7 +404,7 @@ def test_overflow_path_matches_exhaustive(monkeypatch):
     for mod in (ref_bm, bm):
         monkeypatch.setattr(mod, "_GROUP_SHAPES", [(1, 512)])
         monkeypatch.setattr(mod, "_MAX_BUCKET", 1)
-        monkeypatch.setattr(mod, "_OVERFLOW_CHUNK", 2)
+    monkeypatch.setattr(ref_bm, "_OVERFLOW_CHUNK", 2)
     got = port.search(queries, k=10)
     want = ref.search(queries, k=10)
     assert_all(want, got, queries)
@@ -571,6 +573,58 @@ def test_weighted_block_scatter_plain_matches_reference_scatter():
         st.block_docs, st.block_scores, jnp.zeros((2, port.D), jnp.float32),
         jnp.asarray(qb), jnp.asarray(qw), mesh=mesh)
     assert np.array_equal(acc[:, 0].numpy(), np.asarray(racc))
+
+
+@pytest.mark.parametrize("chunk", [8192, 16])
+@pytest.mark.parametrize("n_shards", [1, 3])
+def test_exhaustive_runs_match_reference_chunks(n_shards, chunk,
+                                                monkeypatch):
+    """The overflow path's accumulator: the port's one K11 call (plain
+    version), a run a non-hot term in term order, bitwise equal to the
+    reference's `_scatter_chunk` on the chunks its `_exhaustive_topk`
+    builds (the query's terms concatenated per shard, each slot with its
+    term's weight; one chunk of 8192 slots, or chunks of 16); and both
+    engines' top-k, on queries of 2-4 terms and on 100-term bodies, under
+    tests/test_blockmax.py's rule."""
+    rng, mesh, ref, port = _engines(n_shards, seed=59)
+    monkeypatch.setattr(ref_bm, "_OVERFLOW_CHUNK", chunk)
+    queries = draw_queries(rng, 6, n_terms=(2, 3, 4)) + [
+        [f"t{t}" for t in rng.choice(VOCAB, 100, replace=False)]
+        for _ in range(2)]
+    got_acc, want_acc, held = [], [], 0
+    scatter, chunk_fn = kernels.weighted_block_scatter, ref_bm._scatter_chunk
+
+    def spy(acc, *args, **kw):
+        assert kw["runs"] is None or len(kw["runs"]) > 2   # None: one run
+        out = scatter(acc, *args, **kw)
+        got_acc.append(out[:, 0].clone().numpy())
+        return out
+
+    def ref_spy(*args, **kw):
+        out = chunk_fn(*args, **kw)
+        want_acc.append(np.asarray(out))
+        return out
+
+    monkeypatch.setattr(kernels, "weighted_block_scatter", spy)
+    monkeypatch.setattr(ref_bm, "_scatter_chunk", ref_spy)
+    for q in queries:
+        terms = [(t, 1.0) for t in dict.fromkeys(q)]
+        for t, _ in terms:
+            port._term_meta(t)
+            ref._term_meta(t)
+        got_acc.clear()
+        want_acc.clear()
+        got = port._exhaustive_topk(terms, {}, 10)
+        want = ref._exhaustive_topk(terms, {}, 10)
+        assert len(got_acc) <= 1
+        if got_acc:
+            assert np.array_equal(got_acc[0].view(np.int32),
+                                  want_acc[-1].view(np.int32))
+            held += 1
+        else:
+            assert not want_acc or not want_acc[-1].any()
+        assert_all(_unpacked(want[None]), _ported(got[None]), [terms])
+    assert held >= 6, held
 
 
 def test_stacked_device_arrays_match_reference():

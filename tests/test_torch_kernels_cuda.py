@@ -738,27 +738,134 @@ def test_lane_topk_refuses(dev):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("name", ["overflow", "columns", "outside"])
-def test_weighted_block_scatter_kernel(dev, name):
-    """K11 bitwise against the plain version, and run to run (no
-    atomics)."""
+_WEIGHTED_CASES = ["overflow", "columns", "outside", "multi", "runs100",
+                   "mixed", "runs2500", "wide"]
+
+
+def _weighted_case(name, dev):
     from torch_kernel_cases import weighted_scatter_inputs
 
-    acc, ids, w, rows, bd, bs = weighted_scatter_inputs(name)
+    acc, ids, w, rows, bd, bs, runs = weighted_scatter_inputs(name)
     args = [_c(a, dev) for a in (ids, w, bd, bs)]
-    r = None if rows is None else _c(rows, dev)
+    return acc, args, {"rows": None if rows is None else _c(rows, dev),
+                       "runs": runs}
+
+
+@pytest.mark.parametrize("poison", [False, True])
+@pytest.mark.parametrize("name", _WEIGHTED_CASES)
+def test_weighted_block_scatter_kernel(dev, name, poison):
+    """K11 bitwise against the plain version, and run to run (no
+    atomics): one run, and runs that share docs (one row, 100 rare terms,
+    several rows, 2,500 runs, a few runs of a thousand blocks); also under
+    kernels.poisoned."""
+    acc, args, kw = _weighted_case(name, dev)
     outs = []
     k.reset_launches()
-    for run in (k.weighted_block_scatter, k.weighted_block_scatter,
-                k.weighted_block_scatter_plain):
-        a = _c(acc, dev)
-        run(a, args[0], args[1], args[2], args[3], r)
-        outs.append(a)
+    with k.poisoned() if poison else _nullcontext():
+        for run in (k.weighted_block_scatter, k.weighted_block_scatter,
+                    k.weighted_block_scatter_plain):
+            a = _c(acc, dev)
+            run(a, *args, **kw)
+            outs.append(a)
     torch.cuda.synchronize()
     assert k.LAUNCHES["weighted_block_scatter"] == 2
     assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
     assert torch.equal(outs[0].view(torch.int32), outs[2].view(torch.int32))
     assert not torch.equal(outs[0], _c(acc, dev))
+
+
+@pytest.mark.parametrize("name", ["columns", "runs100", "wide"])
+def test_weighted_block_scatter_graph_replay(dev, name):
+    """K11 (a launch a run, all from one call) captured into a CUDA graph
+    and replayed onto fresh copies of the accumulator: each replay bitwise
+    the plain version's."""
+    acc, args, kw = _weighted_case(name, dev)
+    want = _c(acc, dev)
+    k.weighted_block_scatter_plain(want, *args, **kw)
+    a = _c(acc, dev)
+    k.weighted_block_scatter(a, *args, **kw)      # built and warm
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        k.weighted_block_scatter(a, *args, **kw)
+    for _ in range(3):
+        a.copy_(_c(acc, dev))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(a.view(torch.int32), want.view(torch.int32))
+
+
+def test_weighted_block_scatter_refuses_bad_runs(dev):
+    """A descending table, one past C or short of it raises ValueError on
+    the card before anything launches; acc is left as it was."""
+    acc, args, kw = _weighted_case("mixed", dev)
+    runs = kw["runs"]
+    C = int(args[0].shape[1])
+    a = _c(acc, dev)
+    k.reset_launches()
+    for bad in ([0, 5, 3, C], [0, C + 1], [0, C - 1], [1, C],
+                runs[::-1].copy()):
+        with pytest.raises(ValueError):
+            k.weighted_block_scatter(a, *args, rows=kw["rows"], runs=bad)
+    with pytest.raises(ValueError):          # a table on the card
+        k.weighted_block_scatter(a, *args, rows=kw["rows"],
+                                 runs=torch.from_numpy(runs).to(dev))
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["weighted_block_scatter"] == 0
+    assert torch.equal(a, _c(acc, dev))
+
+
+def test_exhaustive_topk_one_launch_per_query(dev):
+    """BlockMax's overflow path launches K11 once per query that has
+    non-hot terms, whatever its number of terms (2 to 100), and answers
+    as the same engine on the CPU: the accumulator bitwise (the plain
+    version on the same runs), the top-k under tests/test_blockmax.py's
+    rule (the hot-term sums may round differently on the card)."""
+    from elasticsearch_tpu_torch.parallel.blockmax import BlockMaxBM25
+    from elasticsearch_tpu_torch.parallel.spmd import build_stacked_bm25
+    from torch_kernel_cases import blockmax_partitions
+
+    parts, vocab = blockmax_partitions()
+    engines = {d: BlockMaxBM25(build_stacked_bm25(
+        parts, "body", device=d, device_arrays=True, serve_only=True), d)
+        for d in ("cuda", "cpu")}
+    rng = np.random.default_rng(71)
+    queries = [list(rng.choice(vocab, n, replace=False))
+               for n in (2, 3, 4, 100, 100)]
+    accs = {"cuda": [], "cpu": []}
+    scatter = k.weighted_block_scatter
+
+    def spy(acc, *args, **kw):
+        out = scatter(acc, *args, **kw)
+        accs[acc.device.type].append(out.cpu())
+        return out
+
+    k.weighted_block_scatter = spy
+    try:
+        for q in queries:
+            terms = [(t, 1.0) for t in q]
+            got = {}
+            for d, eng in engines.items():
+                for t in q:
+                    eng._term_meta(t)
+                k.reset_launches()
+                got[d] = eng._exhaustive_topk(terms, {}, 10)
+                torch.cuda.synchronize()
+                assert k.LAUNCHES["weighted_block_scatter"] == (
+                    1 if d == "cuda" else 0), (d, len(q))
+            sa, sb = got["cuda"][0], got["cpu"][0]
+            np.testing.assert_allclose(sa, sb, rtol=2e-5, atol=2e-5)
+            ia = list(zip(got["cuda"][1], got["cuda"][2]))
+            ib = list(zip(got["cpu"][1], got["cpu"][2]))
+            if (np.abs(np.diff(sb)) > 2e-5 * np.abs(sb[:-1]) + 2e-5).all():
+                assert ia == ib, len(q)
+            else:                           # near-ties (the hot sums)
+                assert set(ia) == set(ib), len(q)
+    finally:
+        k.weighted_block_scatter = scatter
+    assert len(accs["cuda"]) == len(accs["cpu"]) == len(queries)
+    for a, b in zip(accs["cuda"], accs["cpu"]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.fixture(scope="module")

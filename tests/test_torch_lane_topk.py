@@ -14,7 +14,7 @@ import torch
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
     LANE_TOPK_MODES, emulate_lane_topk, lane_topk_brute, lane_topk_inputs,
-    weighted_scatter_inputs,
+    weighted_scatter_inputs, weighted_scatter_numpy,
 )
 
 torch.set_num_threads(1)
@@ -140,31 +140,71 @@ def test_lane_topk_tiling_matches_plain(name, mode, tile_blocks, nb, chunk,
         assert (stats["chunks"] > 1) == (chunk < R)
 
 
-@pytest.mark.parametrize("name", ["columns", "outside"])
+@pytest.mark.parametrize("name", ["columns", "outside", "multi", "runs100",
+                                  "mixed", "runs2500", "wide"])
 def test_weighted_block_scatter_plain_matches_numpy(name):
-    acc, ids, w, rows, bd, bs = weighted_scatter_inputs(name)
-    want = acc.copy()
-    S, R, D = acc.shape
-    T = bd.shape[1]
-    for s in range(S):
-        for c in range(ids.shape[1]):
-            b, r = ids[s, c], 0 if rows is None else rows[s, c]
-            if not (0 <= b < T and 0 <= r < R):
-                continue
-            sc = bs[s, b]
-            d = bd[s, b]
-            m = (sc > 0) & (d >= 0) & (d < D)
-            want[s, r, d[m]] = want[s, r, d[m]] + np.float32(w[s, c]) * sc[m]
+    """The plain version, runs and all, bitwise equal to a numpy loop over
+    the runs in order (weighted_scatter_numpy)."""
+    acc, ids, w, rows, bd, bs, runs = weighted_scatter_inputs(name)
+    want = weighted_scatter_numpy(acc, ids, w, rows, bd, bs, runs)
     got = _t(acc.copy())
     out = k.weighted_block_scatter(got, _t(ids), _t(w), _t(bd), _t(bs),
-                                   rows=_t(rows))
+                                   rows=_t(rows), runs=runs)
     assert out is got
-    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
     assert k.LAUNCHES["weighted_block_scatter"] == 0
 
 
+@pytest.mark.parametrize("name", ["multi", "runs100", "mixed", "wide"])
+def test_weighted_block_scatter_runs_share_docs(name):
+    """The multi-run cases put several runs on one (partition, row, doc):
+    their sums differ from the same lanes added in one vectorised step
+    (where one writer of a target wins), so the run order is what the
+    numpy statement checks."""
+    acc, ids, w, rows, bd, bs, runs = weighted_scatter_inputs(name)
+    one = _t(acc.copy())
+    k.weighted_block_scatter_plain(one, _t(ids), _t(w), _t(bd), _t(bs),
+                                   rows=_t(rows))
+    got = _t(acc.copy())
+    k.weighted_block_scatter_plain(got, _t(ids), _t(w), _t(bd), _t(bs),
+                                   rows=_t(rows), runs=_t(runs))
+    assert not torch.equal(one, got)
+
+
+@pytest.mark.parametrize("name", ["overflow", "columns", "outside"])
+def test_weighted_block_scatter_one_run(name):
+    """runs=None is one run: the same bits as runs [0, C], as a host list
+    or a CPU tensor, and as the one-step scatter of the one-run contract."""
+    acc, ids, w, rows, bd, bs, runs = weighted_scatter_inputs(name)
+    assert runs is None
+    args = [_t(a) for a in (ids, w, bd, bs)]
+    outs = []
+    for r in (None, [0, ids.shape[1]],
+              torch.tensor([0, ids.shape[1]], dtype=torch.int32)):
+        a = _t(acc.copy())
+        k.weighted_block_scatter(a, *args, rows=_t(rows), runs=r)
+        outs.append(a)
+    # the one-step scatter the plain version took before runs
+    S, R, D = acc.shape
+    T = bd.shape[1]
+    ids_t = args[0].long()
+    r_t = torch.zeros_like(ids_t) if rows is None else _t(rows).long()
+    valid = (ids_t >= 0) & (ids_t < T) & (r_t >= 0) & (r_t < R)
+    idc = ids_t.clamp(0, T - 1)
+    part = torch.arange(S)[:, None]
+    docs = args[2][part, idc].long()
+    sc = args[3][part, idc]
+    keep = valid[:, :, None] & (sc > 0) & (docs >= 0) & (docs < D)
+    flat = ((part[:, :, None] * R + r_t[:, :, None]) * D + docs)[keep]
+    want = _t(acc.copy()).view(-1)
+    want[flat] = want[flat] + (args[1][:, :, None] * sc)[keep]
+    for o in outs:
+        assert torch.equal(o.view(-1).view(torch.int32),
+                           want.view(torch.int32))
+
+
 def test_weighted_block_scatter_checks_arguments():
-    acc, ids, w, rows, bd, bs = weighted_scatter_inputs("outside")
+    acc, ids, w, rows, bd, bs, _ = weighted_scatter_inputs("outside")
     a = _t(acc)
     with pytest.raises(TypeError):
         k.weighted_block_scatter(a, _t(ids).long(), _t(w), _t(bd), _t(bs))
@@ -173,3 +213,27 @@ def test_weighted_block_scatter_checks_arguments():
     with pytest.raises(ValueError):
         k.weighted_block_scatter(a, _t(ids), _t(w), _t(bd), _t(bs),
                                  rows=_t(rows[:, :-1]))
+
+
+@pytest.mark.parametrize("bad", [
+    [0, 5, 3, None], [0, 4, None, "past"], [1, None], [0, 3, 3, "short"],
+    "float", "2d"])
+def test_weighted_block_scatter_refuses_bad_runs(bad):
+    """runs must be 1-D integers ascending from 0 to C: a descent, an end
+    past C or short of it, a start past 0, floats and a 2-D table raise
+    before anything is added."""
+    acc, ids, w, rows, bd, bs, runs = weighted_scatter_inputs("mixed")
+    C = ids.shape[1]
+    if bad == "float":
+        r, err = runs.astype(np.float32), TypeError
+    elif bad == "2d":
+        r, err = runs[None, :], TypeError
+    else:
+        r = [C if x is None else C + 1 if x == "past" else
+             C - 1 if x == "short" else x for x in bad]
+        err = ValueError
+    a = _t(acc.copy())
+    for fn in (k.weighted_block_scatter, k.weighted_block_scatter_plain):
+        with pytest.raises(err):
+            fn(a, _t(ids), _t(w), _t(bd), _t(bs), rows=_t(rows), runs=r)
+    assert np.array_equal(a.numpy(), acc)

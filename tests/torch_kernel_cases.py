@@ -1955,22 +1955,39 @@ def lane_topk_brute(block_docs, block_scores, live, qblocks, qw, tstart, k,
     return out_s, out_d
 
 
-# name -> (partitions, rows R of acc, docs, terms, blocks a launch, with
-# ids / rows outside the arrays)
+# name -> (partitions S, rows R of acc, docs, terms, blocks of a one-run
+# term (None: drawn), with ids / rows outside the arrays, pool): one run
+# when pool is None ("overflow": one term of 8,192 blocks, which the grid
+# walks in several steps; "columns": a term a destination row); else a
+# run a term, the terms' docs drawn from the first `pool` docs so that
+# runs into one row share docs ("multi": one row, dense terms; "runs100":
+# 100 rare terms; "mixed": runs into 4 rows, a row's runs sharing docs;
+# "runs2500": 2,500 short runs; "wide": a few runs of about a thousand
+# blocks)
 WEIGHTED_SCATTER_CASES = {
-    "overflow": (2, 1, 2_000_000, 1, 8192, False),
-    "columns": (3, 9, 50_000, 8, None, False),
-    "outside": (2, 4, 20_000, 3, None, True),
+    "overflow": (2, 1, 2_000_000, 1, 8192, False, None),
+    "columns": (3, 9, 50_000, 8, None, False, None),
+    "outside": (2, 4, 20_000, 3, None, True, None),
+    "multi": (2, 1, 30_000, 6, None, False, 30_000),
+    "runs100": (2, 1, 200_000, 100, None, False, 4_000),
+    "mixed": (3, 4, 20_000, 10, None, True, 12_000),
+    "runs2500": (1, 2, 10_000, 2500, None, False, 2_000),
+    "wide": (2, 1, 400_000, 4, None, False, 400_000),
 }
 
 
 def weighted_scatter_inputs(name, seed=0):
     """Seeded K11 inputs: (acc [S, R, D] f32 with nonzero starting values,
     block_ids [S, C] i32, weights [S, C] f32, rows [S, C] i32 or None,
-    block_docs [S, T, 128], block_scores). One term a destination row per
-    launch, as the callers give it; pad slots are block 0; "outside" adds
-    ids past T and negative, and rows outside [0, R)."""
-    S, R, n_docs, n_terms, width, outside = WEIGHTED_SCATTER_CASES[name]
+    block_docs [S, T, 128], block_scores, runs). Without a pool: one run
+    (runs None), one term a destination row, the terms' blocks back to
+    back, 5 pad slots (block 0) at the end. With one: a run a term, in
+    term order, as the overflow path builds them (each term's span as
+    wide as its most blocks in a partition, the rest padded with block 0
+    at its weight), runs = the spans' offsets. "outside" cases add ids
+    past T and negative, and rows outside [0, R)."""
+    S, R, n_docs, n_terms, width, outside, pool = \
+        WEIGHTED_SCATTER_CASES[name]
     rng = np.random.default_rng(seed)
     parts = []
     for _ in range(S):
@@ -1978,9 +1995,17 @@ def weighted_scatter_inputs(name, seed=0):
             [np.zeros((1, 128), np.float32)], []
         start = 1
         for t in range(n_terms):
-            df = (width * 128 - 300 if width else
-                  int(rng.integers(200, n_docs // 4)))
-            bd, bs = _term_blocks(rng, n_docs, df, False)
+            if pool is None:
+                df = (width * 128 - 300 if width else
+                      int(rng.integers(200, n_docs // 4)))
+                bd, bs = _term_blocks(rng, n_docs, df, False)
+            else:
+                df = int(rng.integers(1, max(2, pool // 3)))
+                docs = np.sort(rng.choice(pool, df, replace=False))
+                bd = np.zeros((-(-df // 128), 128), np.int32)
+                bs = np.zeros(bd.shape, np.float32)
+                bd.ravel()[:df] = docs
+                bs.ravel()[:df] = rng.uniform(0.2, 2.2, df)
             rows_d.append(bd)
             rows_s.append(bs)
             spans.append((start, len(bd)))
@@ -1992,19 +2017,84 @@ def weighted_scatter_inputs(name, seed=0):
     for s, (bd, bs, _) in enumerate(parts):
         block_docs[s, : len(bd)] = bd
         block_scores[s, : len(bs)] = bs
-    C = max(sum(cnt for _, cnt in p[2]) for p in parts) + 5
+    tw = rng.uniform(0.2, 4.0, n_terms).astype(np.float32)
+    if pool is None:
+        runs = None
+        C = max(sum(cnt for _, cnt in p[2]) for p in parts) + 5
+        offs = None
+    else:
+        widths = [max(p[2][t][1] for p in parts) for t in range(n_terms)]
+        runs = np.cumsum([0] + widths).astype(np.int32)
+        C = int(runs[-1])
     ids = np.zeros((S, C), np.int32)
     w = np.zeros((S, C), np.float32)
     rows = np.zeros((S, C), np.int32)
     for s, (_, _, spans) in enumerate(parts):
         off = 0
         for t, (st, cnt) in enumerate(spans):
+            if runs is not None:
+                off = int(runs[t])
+                w[s, off: runs[t + 1]] = tw[t]
+                rows[s, off: runs[t + 1]] = t % R
             ids[s, off: off + cnt] = np.arange(st, st + cnt)
-            w[s, off: off + cnt] = rng.uniform(0.2, 4.0)
+            w[s, off: off + cnt] = tw[t]
             rows[s, off: off + cnt] = t % R
             off += cnt
     if outside:
         ids[:, -3:] = [T, T + 1000, -5]
         rows[:, :4] = [R, -1, R + 7, 0]
     acc = rng.uniform(0.0, 2.0, (S, R, n_docs)).astype(np.float32)
-    return (acc, ids, w, None if R == 1 else rows, block_docs, block_scores)
+    return (acc, ids, w, None if R == 1 else rows, block_docs, block_scores,
+            runs)
+
+
+def weighted_scatter_numpy(acc, ids, w, rows, bd, bs, runs):
+    """K11's contract as numpy statements: the runs in order, each slot's
+    live lanes (score > 0, doc in [0, D), id in [0, T), row in [0, R))
+    added to acc one slot after another, acc + w * score rounded to f32
+    at each step. Returns the updated copy."""
+    want = acc.copy()
+    S, R, D = acc.shape
+    T = bd.shape[1]
+    offs = [0, ids.shape[1]] if runs is None else list(runs)
+    for a, b in zip(offs[:-1], offs[1:]):
+        for s in range(S):
+            for c in range(a, b):
+                blk, r = ids[s, c], 0 if rows is None else rows[s, c]
+                if not (0 <= blk < T and 0 <= r < R):
+                    continue
+                sc = bs[s, blk]
+                d = bd[s, blk]
+                m = (sc > 0) & (d >= 0) & (d < D)
+                want[s, r, d[m]] = (want[s, r, d[m]]
+                                    + np.float32(w[s, c]) * sc[m])
+    return want
+
+
+class _Partition:
+    """The partition shape build_stacked_bm25 reads: n_docs and postings."""
+
+    def __init__(self, n_docs, fp):
+        self.n_docs = n_docs
+        self.postings = {"body": fp}
+
+
+def blockmax_partitions(n_parts=2, n_docs=6000, vocab=400, seed=67):
+    """Seeded BlockMax partitions of Zipf(1.07) docs of 4-40 terms over
+    `vocab` terms, as tests/test_torch_blockmax.py draws its corpus: a few
+    hot terms (df over an eighth of the docs) and many rare ones. Returns
+    (partitions, the term names)."""
+    from elasticsearch_tpu_torch.index.segment import build_field_postings
+
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, vocab + 1) ** 1.07
+    p /= p.sum()
+    names = [f"t{i}" for i in range(vocab)]
+    parts = []
+    for _ in range(n_parts):
+        lens = rng.integers(4, 40, n_docs).astype(np.int64)
+        toks = rng.choice(vocab, int(lens.sum()), p=p).astype(np.int64)
+        docs = np.repeat(np.arange(n_docs, dtype=np.int64), lens)
+        parts.append(_Partition(n_docs, build_field_postings(
+            "body", lens, docs, toks, names)))
+    return parts, names
