@@ -167,7 +167,24 @@ aggregation path the way bench.py drives config 6:
    beside the parent commit's kernel where --lane-topk-parent names it,
    and K11 on each overflow query beside the parent commit's launch a run
    where --weighted-scatter-parent names it (by CUDA graph, and by events
-   with the host copies);
+   with the host copies); then the cluster path (cluster_phase): three
+   ClusterNodes of form_local_cluster(device="cuda") sharing the card,
+   the earlier phases' engines freed first; a serving index of one
+   primary shard whose engine holds the same segment, all live, takes
+   batch 0's 256 `match` bodies, 128 of config 2's bool bodies and the
+   64 slop-0 phrase bodies from 16 threads through ClusterNode.search on
+   another node (the transport fan-out, the shard query phase on the data
+   node's ServingContext: K1, K2, K3, K5, K6 launched, counted around the
+   traffic; the fetch; the reduce), every top-10 bitwise the serving
+   phase's for the same body and every new launch shape held against its
+   plain version; then a replicated index of 20,000 docs (CUT from 8M for
+   Python ingest: two primaries, a replica each, through the cluster's
+   _bulk) is held to the dense route (ES_TPU_DISABLE_SHARD_SERVING=1), a
+   primary relocates with the warm handoff (cold-term slices pre-built
+   on the target, no warm failure), a node holding a primary dies (a
+   replica promoted, the lost copies recovered from the new primaries),
+   the answers bitwise equal after each step; the phase's peak device
+   memory printed;
 10. serves the first batch again on a fresh engine at the default slice
    ladder and reports its sparse fallbacks, holding the answers that step
    4 held;
@@ -328,6 +345,43 @@ def zipf_probs(vocab: int) -> np.ndarray:
     return p / p.sum()
 
 
+def zipf_tokens(rng, n: int, vocab: int) -> np.ndarray:
+    """rng.choice(vocab, size=n, p=zipf_probs(vocab)), bit for bit: numpy's
+    Generator.choice draws rng.random(n) and searches the normalised CDF
+    (zipf_tokens_match holds the two equal); the search runs here in
+    threads, a slice each (searchsorted releases the GIL)."""
+    cdf = zipf_probs(vocab).cumsum()
+    cdf /= cdf[-1]
+    u = rng.random(n)
+    out = np.empty(n, np.int64)
+    step = max(1, -(-n // (os.cpu_count() or 1)))
+
+    def part(o):
+        out[o:o + step] = cdf.searchsorted(u[o:o + step], side="right")
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
+        list(ex.map(part, range(0, n, step)))
+    return out
+
+
+def zipf_tokens_match() -> None:
+    """zipf_tokens equals this numpy's Generator.choice on a fresh draw."""
+    a = np.random.default_rng(1).choice(VOCAB, size=100_000,
+                                        p=zipf_probs(VOCAB))
+    require(np.array_equal(zipf_tokens(np.random.default_rng(1), 100_000,
+                                       VOCAB), a),
+            "zipf_tokens differs from Generator.choice")
+
+
+def prefetch(fn, *args, **kw):
+    """fn(*args, **kw) started now in a thread of its own (numpy releases
+    the GIL in its draws); the returned future's result() joins it."""
+    ex = ThreadPoolExecutor(max_workers=1)
+    fut = ex.submit(fn, *args, **kw)
+    ex.shutdown(wait=False)
+    return fut
+
+
 def build_index(n_docs: int, vocab: int, seed: int = 42):
     """The corpus and its positional postings, as bench.py builds them;
     also returns the token stream and doc bounds (phrases are drawn from
@@ -336,7 +390,7 @@ def build_index(n_docs: int, vocab: int, seed: int = 42):
 
     rng = np.random.default_rng(seed)
     lens = rng.integers(8, 40, size=n_docs).astype(np.int64)
-    tokens = rng.choice(vocab, size=int(lens.sum()), p=zipf_probs(vocab))
+    tokens = zipf_tokens(rng, int(lens.sum()), vocab)
     bounds = np.concatenate([[0], np.cumsum(lens)])
     tok_docs = np.repeat(np.arange(n_docs, dtype=np.int64), lens)
     tok_pos = np.arange(len(tokens), dtype=np.int64) - bounds[tok_docs]
@@ -2463,13 +2517,15 @@ def check_k4(merges, answer, dev, parent=None):
             "shape": {"Q": Q, "S": S, "k": kk}}
 
 
-def knn_phase(n: int, device="cuda", k4_parent_src=None) -> tuple:
+def knn_phase(n: int, device="cuda", k4_parent_src=None,
+              data=None) -> tuple:
     """Config 4 (quantized kNN, cosine, 768-d) on an S = 1 engine, then,
     after freeing it, on a stacked S = 4 engine over the same rows; each
     served as knn_serve says. Holds recall@10 of the S = 1 int8 answers
     against exact f32 scores, the stacked engine's planted answers against
     the S = 1 engine's, and K9 and K4 against their plain versions (K4
     beside the parent commit's source `k4_parent_src` when it is a file).
+    `data`: knn_data(n) already started (prefetch), else drawn here.
     Returns (kernel rows, report)."""
     import gc
 
@@ -2482,7 +2538,8 @@ def knn_phase(n: int, device="cuda", k4_parent_src=None) -> tuple:
     if n < KNN_DOCS:
         log(f"CUT: kNN column cut from {KNN_DOCS} to {n} vectors")
     t = time.time()
-    vec, norms, qs, tags = knn_data(n)
+    vec, norms, qs, tags = data.result() if data is not None \
+        else knn_data(n)
     data_s = time.time() - t
     frng = np.random.default_rng(10)
     masks = [frng.random(n, dtype=np.float32)
@@ -3028,7 +3085,8 @@ def check_k8(seg, sels, launches, device, parent=None):
     return row
 
 
-def agg_phase(n: int, device="cuda", k8_parent_src=None) -> tuple:
+def agg_phase(n: int, device="cuda", k8_parent_src=None,
+              leaf=None) -> tuple:
     """Config 6 (analytics) through the port's aggregation entry points
     (parse_aggs -> collect_leaf -> reduce_partials -> finalize_aggs, the
     device route through agg_device and K8) on a synthetic n-doc leaf:
@@ -3038,7 +3096,8 @@ def agg_phase(n: int, device="cuda", k8_parent_src=None) -> tuple:
     masks; a coalesced batch of works; K8 against its plain version (and
     the parent commit's source `k8_parent_src` when it is a file).
     `device` other than "cuda" puts the leaf, and so its agg engine,
-    there (a CPU rehearsal).
+    there (a CPU rehearsal). `leaf`: agg_leaf(n, device=device) already
+    started (prefetch), else drawn here.
     Returns (kernel row, report)."""
     import torch
 
@@ -3048,7 +3107,7 @@ def agg_phase(n: int, device="cuda", k8_parent_src=None) -> tuple:
     if n < AGG_DOCS:
         log(f"CUT: agg leaf cut from {AGG_DOCS} to {n} docs")
     t = time.time()
-    ctx = agg_leaf(n, device=device)
+    ctx = leaf.result() if leaf is not None else agg_leaf(n, device=device)
     seg = ctx.leaf.segment
     arng = np.random.default_rng(31)
     cmasks = [arng.random(n) < 0.05 for _ in range(AGG_REQUESTS)]
@@ -3864,11 +3923,23 @@ SERVE_RTOL = SERVE_ATOL = 2e-4
 AGG_BODY = DENSE_BODIES["aggs_terms_avg"]["aggs"]
 
 
+def install_segments(eng, segs) -> None:
+    """Put (segment, live mask) pairs into an InternalEngine as
+    InternalEngine.install_segment leaves them after decoding a blob
+    (appended, a local seg id, live epoch 0) without its version map,
+    which nothing on the search path reads."""
+    with eng._lock:
+        for seg, live in segs:
+            seg.seg_id = eng._next_seg_id
+            eng._segments.append(seg)
+            eng._live.append(np.asarray(live, bool).copy())
+            eng._live_epochs.append(0)
+            eng._next_seg_id += 1
+
+
 def serving_service(segs, mapping, name: str, device):
     """A one-shard port IndexService on `device` whose engine holds `segs`
-    (segment, live mask) pairs, as InternalEngine.install_segment leaves
-    them after decoding a blob (appended, a local seg id, live epoch 0)
-    without its version map, which nothing on the search path reads: the
+    (segment, live mask) pairs, put there by install_segments: the
     segments are built from arrays, and the write path runs in the CPU
     tests."""
     import copy
@@ -3881,14 +3952,7 @@ def serving_service(segs, mapping, name: str, device):
                                      settings=Settings({}),
                                      mappings=copy.deepcopy(mapping)),
                        device=device)
-    eng = svc.shards[0]
-    with eng._lock:
-        for seg, live in segs:
-            seg.seg_id = eng._next_seg_id
-            eng._segments.append(seg)
-            eng._live.append(np.asarray(live, bool).copy())
-            eng._live_epochs.append(0)
-            eng._next_seg_id += 1
+    install_segments(svc.shards[0], segs)
     return svc
 
 
@@ -5635,7 +5699,7 @@ def serving_phase(seg, fp, tokens, bounds, n: int, batches, dsl, main_rows,
     record_shapes at every launch shape the path gave it, held against its
     plain version (check_path_shapes), and K8 at its largest Q, timed
     beside its bound. Returns (launches, {kernel: {shape: numbers}}, K8
-    case, report)."""
+    case, report, the bodies and answers cluster_phase serves again)."""
     import copy
 
     import torch
@@ -5906,9 +5970,13 @@ def serving_phase(seg, fp, tokens, bounds, n: int, batches, dsl, main_rows,
             name, {})} for name in set(held) | set(rep["rest"]["new_shapes"])},
         rep["rest"], device=device)
     rep["phase_s"] = time.time() - t_phase
+    # what the cluster phase serves again and holds its answers to
+    again = {k: answers[k] for k in ("groups", "served", "bools",
+                                     "bool_resps", "phrases",
+                                     "phrase_resps")}
     del shapes, k8, mask, blob, snap, eng, turbo, svc, kn_svc, sseg, answers
     torch.cuda.empty_cache()
-    return launches, held, k8_row, rep
+    return launches, held, k8_row, rep, again
 
 
 # ---------------------------------------------------------------------------
@@ -6497,13 +6565,19 @@ def spmd_step(device="cuda") -> tuple:
     )
 
     t0 = time.time()
-    parts = [_Seg(SPMD_DOCS, build_index(SPMD_DOCS, VOCAB, 60 + s)[0])
-             for s in range(SPMD_PARTS)]
+    n_rows = SPMD_PARTS * SPMD_DOCS
+    # the kNN rows and each partition's postings, build_index(SPMD_DOCS,
+    # VOCAB, 60 + s), drawn in threads at once (numpy releases the GIL;
+    # each draw is seeded, so the same as one after another)
+    rows = prefetch(knn_data, n_rows)
+    with ThreadPoolExecutor(max_workers=SPMD_PARTS) as ex:
+        parts = [_Seg(SPMD_DOCS, fp) for fp in ex.map(
+            lambda s: build_index(SPMD_DOCS, VOCAB, 60 + s)[0],
+            range(SPMD_PARTS))]
+    vec, norms, qs, tags = rows.result()
     stacked = build_stacked_bm25(parts, "body", device=device,
                                  device_arrays=True)
     queries = draw_batches(1, SPMD_QUERIES, VOCAB)[0]
-    n_rows = SPMD_PARTS * SPMD_DOCS
-    vec, norms, qs, tags = knn_data(n_rows)
     qs = qs[:SPMD_QUERIES]
     ksegs = knn_segments(vec, norms, tags, SPMD_PARTS)
     kst = build_stacked_knn(ksegs, "vec", device=device)
@@ -6575,6 +6649,325 @@ def spmd_step(device="cuda") -> tuple:
         f"{rep['launches']}; holds {rep['held_as_sets']}, kNN {rep['knn']}")
     del stacked, cache, kst, vec
     return launches, shapes, rep
+
+
+# ---------------------------------------------------------------------------
+# the cluster path: ClusterNode, the transport fan-out, replication
+# ---------------------------------------------------------------------------
+
+CLUSTER_NODES = ["n0", "n1", "n2"]   # n0 the master
+CLUSTER_THREADS = 16         # coordinator searches in flight
+CLUSTER_BOOLS = 128          # config-2 bool bodies of the serving phase
+CLUSTER_PHRASES = 64         # its slop-0 phrase bodies (all it served)
+CLUSTER_KERNELS = ("build_columns", "sweep_rowmax", "sparse_gather",
+                   "intersect_bitset", "sweep_rowmax_bitset")
+# the replicated index: two primaries, a replica each, written through the
+# cluster's _bulk; CUT from the shard's 8M docs for Python ingest speed:
+# every doc is analysed, indexed and refreshed into a segment once a copy,
+# about 1.7 ms a doc on a CPU host (5,000 docs: 3.8 s of _bulk, 4.9 s of
+# refresh), so 100,000 would take the phase past its clock alone
+REPL_DOCS = 20_000
+REPL_BULK = 5_000            # docs a _bulk call
+REPL_COLD_DF = 512           # so 10,000-doc shards hold hot columns too
+REPL_MATCH = 64              # batch-0 match bodies on the replicated index
+REPL_BOOLS = 32              # and config-2 bool bodies
+REPL_MAPPING = {"properties": {"body": {"type": "text"},
+                               "n": {"type": "integer"}}}
+
+
+def same_hits(got, want, label: str) -> None:
+    """Two search responses: the same ids, f32 `_score`s bitwise and the
+    same total."""
+    gh, wh = got["hits"]["hits"], want["hits"]["hits"]
+    require([h["_id"] for h in gh] == [h["_id"] for h in wh],
+            f"{label}: ids {[h['_id'] for h in gh]} against "
+            f"{[h['_id'] for h in wh]}")
+    require(np.array_equal(np.array([h["_score"] for h in gh], np.float32),
+                           np.array([h["_score"] for h in wh], np.float32)),
+            f"{label}: scores differ bitwise")
+    require(got["hits"]["total"] == want["hits"]["total"],
+            f"{label}: total {got['hits']['total']} against "
+            f"{want['hits']['total']}")
+
+
+def repl_docs(n: int):
+    """The replicated index's docs: drawn as build_index draws the shard
+    (seed 47), as _bulk index ops."""
+    lens = np.random.default_rng(47).integers(8, 40, size=n)
+    tokens = zipf_tokens(np.random.default_rng(48), int(lens.sum()), VOCAB)
+    bnd = np.concatenate([[0], np.cumsum(lens)]).tolist()
+    toks = tokens.tolist()
+    return [{"op": "index", "id": f"r{i}",
+             "source": {"n": i, "body": " ".join(
+                 f"t{t}" for t in toks[bnd[i]:bnd[i + 1]])}}
+            for i in range(n)]
+
+
+def cluster_phase(seg, n: int, answers: dict, held: dict,
+                  device="cuda") -> tuple:
+    """The cluster path on the card (form_local_cluster(CLUSTER_NODES,
+    device=...)): three in-process ClusterNodes over the local transport,
+    sharing the one card.
+      1. Serving index: one primary shard, no replica, whose engine holds
+         the shard's segment, all live (installed as serving_service
+         installs it, not through _bulk); batch 0's 256 `match` bodies,
+         CLUSTER_BOOLS config-2 bool bodies and the serving phase's
+         CLUSTER_PHRASES slop-0 phrase bodies from CLUSTER_THREADS threads
+         through ClusterNode.search on a node that does not hold the
+         shard: the coordinator's fan-out over the transport, the data
+         node's shard query phase on its ServingContext (Turbo: K1 builds
+         the new engine's columns, K2, K3, and K5 + K6 for the bools and
+         phrases), the fetch phase, the reduce; launch counts set to 0
+         just before and read just after, no plain version allowed. Each
+         top-10 is held bitwise to the serving phase's answer for the same
+         body (the same shard statistics; Turbo's scores come from the
+         host), and every new launch shape against its plain version
+         (check_path_shapes). The index is then deleted.
+      2. Replicated index (REPL_DOCS, cut): two primaries with a replica
+         each, written through ClusterNode.bulk; REPL_MATCH `match` and
+         REPL_BOOLS bool bodies held to the dense route
+         (ES_TPU_DISABLE_SHARD_SERVING=1): ids and totals equal, scores
+         within SERVE_RTOL. Then a primary relocates with the warm handoff
+         on (sparse_prewarms > 0, warm_failures 0, answers bitwise equal
+         to before), a node holding a primary dies (a replica is
+         promoted, answers equal again), and the master reallocates the
+         lost copies (peer recovery of a replica from the new primary,
+         answers equal again).
+    Returns (launches, {kernel: {shape: numbers}}, report)."""
+    import copy
+    import gc
+
+    import torch
+
+    from elasticsearch_tpu_torch.cluster_node import form_local_cluster
+    from elasticsearch_tpu_torch.common import relocation
+    from elasticsearch_tpu_torch.parallel import kernels
+    from elasticsearch_tpu_torch.search import serving
+
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the earlier phases' engines are garbage in reference cycles until a
+    # collection: without one about 15 GiB of them stayed on the card
+    base = torch.cuda.memory_allocated()
+    log(f"cluster: {base / 2**30:.2f} GiB on the card before the phase")
+    relocation.reset_for_tests()
+    nodes, store, channels = form_local_cluster(CLUSTER_NODES, device=device)
+    by_name = {nd.node_name: nd for nd in nodes}
+    master = nodes[0]
+    rep = {"nodes": len(nodes), "threads": CLUSTER_THREADS,
+           "device_bytes_before": base}
+    try:
+        with contextlib.ExitStack() as st:
+            st.enter_context(env_set("ES_TPU_TURBO_HBM", str(TURBO_HBM)))
+            st.enter_context(env_set("ES_TPU_TURBO_COLD_DF", str(COLD_DF)))
+            st.enter_context(env_set("ES_TPU_SPARSE_WIDTHS", WIDE_LADDER))
+            master.create_index("serving", {
+                "settings": {"number_of_shards": 1,
+                             "number_of_replicas": 0},
+                "mappings": copy.deepcopy(DENSE_MAPPING)})
+            holder = store.current().primary_of("serving", 0).node_id
+            inst = by_name[holder].shard_service.get_shard("serving", 0)
+            install_segments(inst.engine, [(copy.copy(seg),
+                                            np.ones(n, bool))])
+            coord = next(nd for nd in nodes if nd.node_name != holder)
+            matches = answers["groups"][0]
+            bodies = (matches + answers["bools"][:CLUSTER_BOOLS]
+                      + answers["phrases"][:CLUSTER_PHRASES])
+            want = (answers["served"][0]
+                    + answers["bool_resps"][:CLUSTER_BOOLS]
+                    + answers["phrase_resps"][:CLUSTER_PHRASES])
+            f0 = serving.serving_fault_stats()
+            plain = st.enter_context(plain_calls())
+            spies = st.enter_context(contextlib.ExitStack())
+            shapes = spies.enter_context(record_shapes())
+            kernels.reset_launches()
+            resps, lat, wall = timed_concurrent(
+                lambda b: coord.search("serving", copy.deepcopy(b)),
+                bodies, CLUSTER_THREADS)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            spies.close()
+            fault = serving.serving_fault_stats()
+            require(not any(plain.values()),
+                    f"cluster: plain versions ran on the card: "
+                    f"{ {k: v for k, v in plain.items() if v} }")
+            for key in ("fastpath_device_fault", "fastpath_timed_out",
+                        "fastpath_reject_error"):
+                require(fault[key] == f0[key],
+                        f"cluster: {key} moved by {fault[key] - f0[key]}")
+            t = time.time()
+            for i, (r, w) in enumerate(zip(resps, want)):
+                require(r["_shards"] == {"total": 1, "successful": 1,
+                                         "skipped": 0, "failed": 0},
+                        f"cluster {i}: _shards {r['_shards']}")
+                same_hits(r, w, f"cluster serving {i}")
+            eng = inst._serving_ctx.snapshot().engine("body")
+            require(eng.kind == "turbo"
+                    and eng.device.type == torch.device(device).type,
+                    f"cluster: the shard's engine is {eng.kind} on "
+                    f"{eng.device}, not Turbo on {device}")
+            for name in CLUSTER_KERNELS:
+                require(launches.get(name, 0) > 0,
+                        f"cluster: {name} never launched: {launches}")
+            for name, sh in shapes.items():
+                require(sum(v[0] for v in sh.values())
+                        == launches.get(name, 0),
+                        f"cluster: {name}'s launches by shape do not add "
+                        f"up to its count {launches.get(name, 0)}")
+            rep["serving_index"] = {
+                "node_of_shard": holder, "coordinator": coord.node_name,
+                "match": len(matches),
+                "bools": len(answers["bools"][:CLUSTER_BOOLS]),
+                "phrases": len(answers["phrases"][:CLUSTER_PHRASES]),
+                **latency_summary(lat, wall),
+                "hold_s": time.time() - t,
+                "launches": {k: v for k, v in launches.items() if v},
+                "launches_by_shape": {
+                    name: {str(key): v[0] for key, v in sh.items()}
+                    for name, sh in shapes.items()}}
+            log(f"cluster serving index: {len(bodies)} searches in "
+                f"{wall:.1f}s (p50 {rep['serving_index']['p50_ms']:.1f} "
+                f"ms), every top-10 bitwise the serving phase's; launches "
+                + ", ".join(f"{k} {launches.get(k, 0)}"
+                            for k in CLUSTER_KERNELS))
+        # the plain versions are allowed again: the holds call them
+        new = {name: {key: v for key, v in sh.items()
+                      if str(key) not in held.get(name, {})}
+               for name, sh in shapes.items()}
+        rep["new_shapes"] = check_path_shapes(new, eng.turbos[0].Dp)
+        rep["peak_device_bytes_serving"] = torch.cuda.max_memory_allocated()
+        del eng, inst, shapes, new, resps, want
+        master.delete_index("serving")
+        torch.cuda.empty_cache()
+
+        # ---- 2. the replicated index ----
+        with env_set("ES_TPU_TURBO_COLD_DF", str(REPL_COLD_DF)):
+            rep["replicated"] = replicated_steps(nodes, store, channels,
+                                                 answers)
+        rep["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        for nd in nodes:
+            nd.close()
+    rep["phase_s"] = time.time() - t_phase
+    log(f"cluster phase took {rep['phase_s']:.1f}s; peak device memory "
+        f"{rep['peak_device_bytes'] / 2**30:.2f} GiB (serving index "
+        f"{rep['peak_device_bytes_serving'] / 2**30:.2f} GiB, "
+        f"{base / 2**30:.2f} GiB held before the phase)")
+    del nodes, by_name, master, store, channels
+    torch.cuda.empty_cache()
+    return launches, rep["new_shapes"], rep
+
+
+def replicated_steps(nodes, store, channels, answers) -> dict:
+    """Step 2 of cluster_phase on the three nodes."""
+    import copy
+
+    from elasticsearch_tpu_torch.common import durability, relocation
+
+    by_name = {nd.node_name: nd for nd in nodes}
+    master = nodes[0]
+    rep = {"docs": REPL_DOCS, "cut_from": FULL_DOCS}
+    t = time.time()
+    docs = repl_docs(REPL_DOCS)
+    rep["draw_s"] = time.time() - t
+    t = time.time()
+    master.create_index("repl", {
+        "settings": {"number_of_shards": 2, "number_of_replicas": 1},
+        "mappings": copy.deepcopy(REPL_MAPPING)})
+    for o in range(0, len(docs), REPL_BULK):
+        r = nodes[1].bulk("repl", docs[o:o + REPL_BULK])
+        require(not r["errors"], f"repl: _bulk at {o} had errors")
+    nodes[1].refresh("repl")
+    rep["bulk_s"] = time.time() - t
+    require(master.health()["status"] == "green", "repl: not green")
+    for sid in range(2):
+        counts = {by_name[c.node_id].shard_service.get_shard(
+            "repl", sid).engine.doc_count()
+            for c in store.current().shard_copies("repl", sid)}
+        require(len(counts) == 1, f"repl: copies of shard {sid} hold "
+                                  f"{counts} docs")
+    bodies = (answers["groups"][0][:REPL_MATCH]
+              + answers["bools"][:REPL_BOOLS])
+    for b in bodies:
+        b["track_total_hits"] = True
+
+    def serve(coord):
+        return [coord.search("repl", copy.deepcopy(b)) for b in bodies]
+
+    t = time.time()
+    before = serve(nodes[2])
+    rep["serve_s"] = time.time() - t
+    with env_set("ES_TPU_DISABLE_SHARD_SERVING", "1"):
+        dense = serve(nodes[2])
+    for i, (r, w) in enumerate(zip(before, dense)):
+        same_results(r, w, f"repl dense route {i}")
+    log(f"cluster replicated index: {REPL_DOCS} docs through _bulk in "
+        f"{rep['bulk_s']:.1f}s; {len(bodies)} bodies held to the dense "
+        f"route")
+
+    # relocate a primary with the warm handoff on: to a node that holds
+    # no copy of its shard, a data node other than the master if it can
+    t = time.time()
+    moves = []
+    for sid in range(2):
+        here = {c.node_id for c in store.current().shard_copies("repl",
+                                                                 sid)}
+        src = store.current().primary_of("repl", sid).node_id
+        moves += [(sid, src, to) for to in sorted(set(by_name) - here)]
+    moves.sort(key=lambda m: m[2] == "n0")
+    sid, src, to = moves[0]
+    # the source copy serves first (a coordinator queries its own copy),
+    # so its engine holds cold-term slices for the handoff to ship
+    for i, (r, w) in enumerate(zip(serve(by_name[src]), before)):
+        same_hits(r, w, f"repl from {src} {i}")
+    master.cluster_reroute([{"move": {"index": "repl", "shard": sid,
+                                      "from_node": src, "to_node": to}}])
+    st = relocation.relocation_stats()
+    require(store.current().primary_of("repl", sid).node_id == to,
+            f"repl: shard {sid}'s primary did not move to {to}")
+    require(st["moves"] == 1 and st["warm_handoffs"] == 1,
+            f"repl: relocation counters {st}")
+    require(st["sparse_prewarms"] > 0 and st["warm_failures"] == 0,
+            f"repl: warm handoff {st}")
+    moved = serve(nodes[2])
+    for i, (r, w) in enumerate(zip(moved, before)):
+        same_hits(r, w, f"repl after the move {i}")
+    rep["relocation"] = {"shard": sid, "from": src, "to": to,
+                         "s": time.time() - t, **st}
+    log(f"cluster relocation of shard {sid} {src} -> {to}: {st}")
+
+    # a data node holding a primary dies: its replica is promoted, then
+    # the master reallocates the lost copies (peer recovery)
+    t = time.time()
+    d0 = durability.durability_stats()
+    prim = {store.current().primary_of("repl", s).node_id for s in range(2)}
+    victim = sorted(prim - {"n0"})[0]
+    terms0 = store.current().indices["repl"].primary_terms
+    channels.kill(victim)
+    store.remove_applier(victim)
+    master.report_node_left(victim)
+    cur = store.current()
+    require(victim not in cur.nodes, f"repl: {victim} still in the state")
+    require(master.health()["status"] == "green",
+            f"repl: not green after {victim} died: {master.health()}")
+    promoted = [s for s in range(2)
+                if cur.indices["repl"].primary_terms[s] > terms0[s]]
+    require(promoted, "repl: no replica was promoted")
+    d1 = durability.durability_stats()
+    recoveries = d1["recoveries_started"] - d0["recoveries_started"]
+    require(recoveries > 0, "repl: no peer recovery after the failover")
+    coord = by_name["n0"]
+    after = serve(coord)
+    for i, (r, w) in enumerate(zip(after, before)):
+        same_hits(r, w, f"repl after the failover {i}")
+    rep["failover"] = {"victim": victim, "promoted_shards": promoted,
+                       "peer_recoveries": recoveries,
+                       "s": time.time() - t}
+    log(f"cluster failover: {victim} down, shards {promoted} promoted, "
+        f"{recoveries} peer recoveries, answers bitwise equal")
+    return rep
 
 
 def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
@@ -6713,6 +7106,10 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
         n_q += m
     log(f"host-exact hold: {n_q} queries bitwise equal in "
         f"{time.time() - t:.1f}s")
+    # the kNN rows and the agg leaf, drawn in threads from here on, after
+    # the main path's forked hold and while the card works
+    knn_draw = prefetch(knn_data, knn_docs)
+    agg_draw = prefetch(agg_leaf, agg_docs)
     for qi in range(4):
         for b, (s, _, o) in ((batches[0], results[0]), (dsl, results[-1])):
             terms = [(x, 1.0) if isinstance(x, str) else x for x in b[qi]]
@@ -6767,7 +7164,7 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     log(f"dense phase took {dense_report['phase_s']:.1f}s")
 
     # ---- the serving entry point (IndexService) on the same segment ----
-    s_launches, s_shapes, s_k8, serving_report = serving_phase(
+    s_launches, s_shapes, s_k8, serving_report, answers = serving_phase(
         dense_seg, fp, tokens, bounds, n_docs, batches, dsl, results)
     log(f"serving phase took {serving_report['phase_s']:.1f}s")
 
@@ -6779,20 +7176,35 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
                                         weighted_parent_src=(
                                             weighted_parent_src))
     rows += bm_rows
-    del dense_seg, tokens, bounds, bool_answers
+
+    # ---- the cluster path: three ClusterNodes on the card ----
+    seen = {name: {**s_shapes.get(name, {}),
+                   **serving_report["rest"]["new_shapes"].get(name, {})}
+            for name in set(s_shapes)
+            | set(serving_report["rest"]["new_shapes"])}
+    for win in serving_report["admin"]["new_shapes"].values():
+        for name, sh in win.items():
+            seen.setdefault(name, {}).update(sh)
+    c_launches, c_shapes, cluster_report = cluster_phase(
+        dense_seg, n_docs, answers, seen)
+    del dense_seg, tokens, bounds, bool_answers, answers
     default = default_ladder(fp, n_docs, batches[0], held[0])
     del fp
     torch.cuda.empty_cache()
 
     # ---- quantized kNN (config 4) on S = 1 and stacked S = 4 ----
     t = time.time()
-    knn_rows, knn_report = knn_phase(knn_docs, k4_parent_src=k4_parent_src)
+    knn_rows, knn_report = knn_phase(knn_docs, k4_parent_src=k4_parent_src,
+                                     data=knn_draw)
+    del knn_draw
     knn_report["phase_s"] = time.time() - t
     rows += knn_rows
 
     # ---- analytics (config 6): device aggregations through K8 ----
     t = time.time()
-    agg_row, agg_report = agg_phase(agg_docs, k8_parent_src=k8_parent_src)
+    agg_row, agg_report = agg_phase(agg_docs, k8_parent_src=k8_parent_src,
+                                    leaf=agg_draw)
+    del agg_draw
     agg_report["phase_s"] = time.time() - t
     rows.append(agg_row)
     log(f"agg phase took {agg_report['phase_s']:.1f}s")
@@ -6802,6 +7214,9 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
         r["serving_launches"] = s_launches.get(r["name"], 0)
         r["rest_launches"] = rest["launches"].get(r["name"], 0)
         r["admin_launches"] = admin["launches"].get(r["name"], 0)
+        r["cluster_launches"] = c_launches.get(r["name"], 0)
+        if c_shapes.get(r["name"]):
+            r["cluster_shapes"] = c_shapes[r["name"]]
         r["admin_shapes"] = {win: sh[r["name"]] for win, sh in
                              admin["new_shapes"].items() if sh.get(r["name"])}
         if r["name"] in rest["new_shapes"]:
@@ -6811,7 +7226,18 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
         if r["name"] == "agg_counts":
             r["serving_path"] = s_k8
 
+    phase_s = {"kernel_build": build_s, "index_build": index_s,
+               "bool_and_phrase": bool_report["phases_s"],
+               "dense": dense_report["phase_s"],
+               "serving": serving_report["phase_s"],
+               "blockmax": bm_report["phase_s"],
+               "cluster": cluster_report["phase_s"],
+               "knn": knn_report["phase_s"], "agg": agg_report["phase_s"],
+               "script": time.time() - T0}
+    log("phase times: " + ", ".join(f"{k} {v:.1f}s"
+                                    for k, v in phase_s.items()))
     serving = {"docs": n_docs, "cut": n_docs < FULL_DOCS,
+               "phase_s": phase_s,
                "index_build_s": index_s,
                "sparse_widths": WIDE_LADDER,
                "queries": n_main, "held_queries": n_q,
@@ -6829,6 +7255,7 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
                "dense": dense_report,
                "index_service": serving_report,
                "blockmax": bm_report,
+               "cluster": cluster_report,
                "hbm_ledger": ledger,
                "kernel_build_s": build_s,
                "peak_device_bytes": peak}
@@ -6864,7 +7291,7 @@ def serving_only(n_docs: int, n_batches: int, batch: int) -> dict:
     torch.cuda.empty_cache()
     log("main path rows")
     seg, _, _ = dense_segment(fp, tokens, bounds, n_docs, "cuda")
-    launches, shapes, k8_row, rep = serving_phase(
+    launches, shapes, k8_row, rep, _ = serving_phase(
         seg, fp, tokens, bounds, n_docs, batches, dsl, rows)
     return {"launches": launches, "shapes": shapes, "k8": k8_row,
             "report": rep}
@@ -7028,6 +7455,7 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     os.environ["ES_TPU_SPARSE_WIDTHS"] = WIDE_LADDER
+    zipf_tokens_match()
     try:
         import elasticsearch_tpu_torch  # noqa: F401
     except ImportError as e:

@@ -453,6 +453,31 @@ declare_knob("ES_TPU_CCR_POLL_MS", "int", 100,
 declare_knob("ES_TPU_CCR_BATCH_OPS", "int", 512,
              "Max translog ops per CCR fetch batch (one sha256-verified "
              "wire payload)")
+# the cluster path: coordinator bulk, peer recovery, relocation and
+# search failover (cluster_node.py, indices/, action/search_action.py)
+declare_knob("ES_TPU_SEARCH_SHARD_RETRIES", "int", 3,
+             "Max replica-failover retries per shard before it counts "
+             "failed")
+declare_knob("ES_TPU_BULK_RETRIES", "int", 20,
+             "Coordinator bulk retry attempts per shard before the items "
+             "fail with unavailable_shards_exception")
+declare_knob("ES_TPU_BULK_RETRY_MS", "int", 100,
+             "Delay between coordinator bulk retries, ms")
+declare_knob("ES_TPU_BULK_TIMEOUT_MS", "int", 0,
+             "Overall coordinator bulk deadline in ms (0 = retries bound "
+             "the wait on their own)")
+declare_knob("ES_TPU_RECOVERY_RETRIES", "int", 3,
+             "Peer-recovery attempts per replica before it is reported "
+             "shard-failed to the master")
+declare_knob("ES_TPU_RECOVERY_BACKOFF_MS", "int", 50,
+             "Base backoff between peer-recovery retries, ms (doubles per "
+             "attempt)")
+declare_knob("ES_TPU_RELOC_WARM", "flag", True,
+             "Warm device handoff on shard relocation: the target builds "
+             "its per-field engines, uploads columns, widens its dispatch "
+             "ladder to the source's hot shapes and pre-slices the "
+             "source's resident cold terms BEFORE reporting shard-started "
+             "(0 = relocate cold)")
 
 
 class ClusterSettings:

@@ -27,17 +27,15 @@ loop here, built from seams that already exist:
     the loop is re-entrant and makes progress whenever the leader is
     reachable.
 
-`CcrService` runs through a host adapter. The port has the standalone
-REST `Node`'s, `StandaloneNodeHost` (one process owns every shard, and an
-op batch is applied to the engines directly). All leader-bound RPCs share
-the `rpc_ccr_fetch` fault site (``#part`` = the remote cluster alias), the
-way every recovery phase shares `rpc_recovery`.
+`CcrService` runs on BOTH node flavors through a host adapter: the
+multi-node `ClusterNode` (ops route to the follower shard's primary via
+`internal:index/ccr/apply_ops` and fan to replicas through the existing
+`_replicate` path) and the standalone REST `Node` (engines applied
+directly). All leader-bound RPCs share the `rpc_ccr_fetch` fault site
+(``#part`` = the remote cluster alias), the way every recovery phase
+shares `rpc_recovery`.
 
-The port's copy of elasticsearch_tpu/index/ccr.py. The reference's other
-host, `ClusterNodeHost` (the multi-node `ClusterNode`: ops route to the
-follower shard's primary over `internal:index/ccr/apply_ops` and fan to
-its replicas), reads `indices.shard_service`, which comes with the
-cluster path (ROADMAP item 10a); it is ported with it."""
+The port's copy of elasticsearch_tpu/index/ccr.py."""
 
 from __future__ import annotations
 
@@ -94,8 +92,8 @@ class _Follower:
 
 
 class CcrHost:
-    """What CcrService needs from its node: the duck type is the
-    contract, this class is documentation."""
+    """What CcrService needs from its node. Two implementations below —
+    the duck type is the contract, this class is documentation."""
 
     node_name: str
 
@@ -107,6 +105,80 @@ class CcrHost:
     def primary_engine(self, index: str, shard_id: int): ...
     def apply_local(self, index: str, shard_id: int, ops: List[dict],
                     fill_to: int) -> dict: ...
+
+
+class ClusterNodeHost:
+    """Adapter over a multi-node ClusterNode: cluster-state lookups,
+    channel forwards to the owning primary, replica fan-out through the
+    shard service's existing `_replicate` path."""
+
+    def __init__(self, node):
+        self.node = node
+        self.node_name = node.node_name
+
+    def index_info(self, index: str) -> dict:
+        meta = self.node.state.indices.get(index)
+        if meta is None:
+            raise IndexNotFoundError(index)
+        return {"number_of_shards": meta.number_of_shards,
+                "mappings": dict(meta.mappings)}
+
+    def ensure_follower_index(self, index: str, n_shards: int,
+                              mappings: dict, settings: dict) -> None:
+        if index in self.node.state.indices:
+            return
+        body_settings = {"index.number_of_shards": n_shards,
+                         "index.number_of_replicas": 0}
+        body_settings.update(settings or {})
+        self.node.create_index(index, {"settings": body_settings,
+                                       "mappings": mappings})
+
+    def primary_owner(self, index: str, shard_id: int) -> Optional[str]:
+        r = self.node.state.primary_of(index, shard_id)
+        if r is None or r.node_id is None or not r.serving:
+            raise ElasticsearchTpuError(
+                f"no started primary for [{index}][{shard_id}]")
+        return r.node_id
+
+    def forward(self, node: str, action: str, payload: dict) -> dict:
+        return self.node.channels.request(node, action, payload,
+                                          source=self.node_name)
+
+    def primary_engine(self, index: str, shard_id: int):
+        inst = self.node.shard_service.get_shard(index, shard_id)
+        if not inst.primary:
+            from elasticsearch_tpu_torch.indices.shard_service import (
+                ShardNotFoundError,
+            )
+
+            raise ShardNotFoundError(
+                f"[{index}][{shard_id}] copy here is not the primary")
+        gcp = inst.tracker.global_checkpoint if inst.tracker is not None \
+            else inst.engine.local_checkpoint
+        return inst.engine, gcp
+
+    def apply_local(self, index: str, shard_id: int, ops: List[dict],
+                    fill_to: int) -> dict:
+        from elasticsearch_tpu_torch.indices.shard_service import (
+            DistributedShardService,
+        )
+
+        svc = self.node.shard_service
+        inst = svc.get_shard(index, shard_id)
+        with inst.lock:
+            # the follower's OWN term: leader terms never cross the
+            # boundary, so a leader-side primary failover cannot fence
+            # the follower's writes (ref: ShardFollowNodeTask applies
+            # under the follower primary's term)
+            DistributedShardService._apply_recovery_ops(
+                inst, ops, inst.primary_term)
+            inst.engine.fill_seqno_gaps(fill_to)
+            if inst.tracker is not None:
+                inst.tracker.update_local_checkpoint(
+                    inst.allocation_id, inst.engine.local_checkpoint)
+            svc._replicate(inst, ops)
+        inst.engine.refresh()
+        return {"local_checkpoint": inst.engine.local_checkpoint}
 
 
 class StandaloneNodeHost:

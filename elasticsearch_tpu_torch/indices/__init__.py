@@ -1,12 +1,11 @@
-"""Node-level index management (the port's copy of
+"""Node-level distributed shard management (the port's copy of
 elasticsearch_tpu/indices/__init__.py).
 
-The package's exports resolve lazily, through the module `__getattr__`
-below, so importing one submodule (``indices.rollover``) loads only that
-submodule. The reference imports `shard_service` and
-`cluster_state_service` here eagerly; the port has neither yet (the
-cluster path, ROADMAP item 10a), and naming one of their exports raises
-the ModuleNotFoundError of its module.
+The package exports the reference's names: `DistributedShardService`,
+`ShardInstance`, `ShardNotFoundError` and `IndicesClusterStateService`.
+They resolve lazily, through the module `__getattr__` below, where the
+reference imports them eagerly, so importing one submodule
+(``indices.rollover``) loads only that submodule.
 """
 
 import importlib

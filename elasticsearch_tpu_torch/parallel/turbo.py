@@ -44,8 +44,7 @@ that split only, so one caller's rescore overlaps another's sweep. The
 scheduler's width hook is `extend_qc_sizes`.
 
 Not ported yet (ROADMAP.md): ShardedTurbo (S > 1) and its fused bool
-sweeps, the HBM scrub regions (the bitsets' included) and the relocation
-warm handoff.
+sweeps, and the HBM scrub regions (the bitsets' included).
 """
 
 from __future__ import annotations
@@ -738,6 +737,34 @@ class TurboBM25:
         self.stats["builds"] += len(need)
         self.stats["phrase_builds"] += len(need)
         self.stats["build_s"] += time.monotonic() - t0
+
+    def sparse_hot_terms(self) -> List[str]:
+        """Terms with a resident sparse slice: the warm-handoff payload a
+        relocation source ships so its target can pre-slice the cold tier
+        (indices/shard_service.py warm_relocation_handoff)."""
+        with self._serve_lock:
+            return sorted(self._sp_of)
+
+    @_serialized
+    def prewarm_sparse(self, terms: Sequence[str]) -> int:
+        """Build slices for the given terms ahead of traffic (relocation
+        warm handoff): the slice pool K3 reads. Best-effort on device
+        faults; kernel errors propagate. Returns how many slices are
+        resident afterwards among the requested cold terms."""
+        if not (self._sp_ok and bool(knob("ES_TPU_SPARSE"))):
+            return 0
+        pairs = []
+        for t in dict.fromkeys(terms):
+            info = self._term(t)
+            if info is not None and info.df and info.df < self.cold_df:
+                pairs.append((t, info))
+        if not pairs:
+            return 0
+        try:
+            self._ensure_sparse(pairs)
+        except DeviceFaultError:
+            pass
+        return sum(1 for t, _ in pairs if t in self._sp_of)
 
     @_serialized
     def prebuild_columns(self) -> int:

@@ -594,6 +594,20 @@ class TurboEngine:
 
             agg_device.default_engine(self.device).extend_qc_sizes(sizes)
 
+    def sparse_hot_terms(self) -> list:
+        """Union of the partitions' resident cold-term slices: the warm
+        relocation handoff's payload (the target rebuilds them through
+        prewarm_sparse before taking traffic)."""
+        out = set()
+        for t in self.turbos:
+            out.update(t.sparse_hot_terms())
+        return sorted(out)
+
+    def prewarm_sparse(self, terms) -> int:
+        """Build cold-term slices for `terms` on every partition ahead of
+        traffic; returns the slices resident afterwards."""
+        return sum(t.prewarm_sparse(terms) for t in self.turbos)
+
     def _host_tier_many(self, batches, k, check):
         """Whole-engine host-exact tier: zero device dispatches, merged
         via _merge3 — bit-identical to the device route."""

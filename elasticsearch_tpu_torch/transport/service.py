@@ -11,6 +11,11 @@ InboundDecoder/OutboundHandler) without its bespoke binary format.
 Action names follow the reference convention, e.g.
 "indices:data/read/search", "indices:data/write/bulk",
 "cluster:monitor/health" (ref: action/ActionModule.java registrations).
+
+The port's copy of elasticsearch_tpu/transport/service.py. A remote
+handler's kernel error of the port (`KernelBuildError`,
+`KernelLaunchError`) crosses the wire under its class name and is raised
+again, with that type, by `send_remote`.
 """
 
 from __future__ import annotations
@@ -23,9 +28,13 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
-from elasticsearch_tpu_torch.common.errors import ElasticsearchTpuError
+from elasticsearch_tpu_torch.common.errors import (
+    ElasticsearchTpuError, KernelBuildError, KernelLaunchError,
+)
 
 _FRAME = struct.Struct("<I")
+_KERNEL_ERRORS = {e.__name__: e for e in (KernelBuildError,
+                                          KernelLaunchError)}
 
 
 @dataclass
@@ -77,6 +86,11 @@ class TransportService:
                             out = {"ok": True, "response": resp}
                         except ElasticsearchTpuError as e:
                             out = {"ok": False, "error": e.to_dict(), "status": e.status}
+                        except (KernelBuildError, KernelLaunchError) as e:
+                            out = {"ok": False, "status": 500,
+                                   "kernel_error": type(e).__name__,
+                                   "error": {"type": type(e).__name__,
+                                             "reason": str(e)}}
                         data = json.dumps(out).encode()
                         self.request.sendall(_FRAME.pack(len(data)) + data)
                 except (ConnectionError, OSError):
@@ -105,6 +119,9 @@ class TransportService:
             (length,) = _FRAME.unpack(header)
             body = _recv_exact(sock, length)
         out = json.loads(body)
+        kernel_error = _KERNEL_ERRORS.get(out.get("kernel_error"))
+        if kernel_error is not None:
+            raise kernel_error(out["error"]["reason"])
         if not out.get("ok"):
             err = ElasticsearchTpuError(out.get("error", {}).get("reason", "remote error"))
             err.status = out.get("status", 500)

@@ -44,7 +44,9 @@ def test_port_imports_without_jax_or_reference():
     # in-process search path, the serving entry point (index service,
     # serving context, scheduler, coalescer, pools, cluster state), and the
     # REST node with what it builds (`python -m elasticsearch_tpu_torch`):
-    # security, snapshots, the task plane, rollover and shard allocation
+    # security, snapshots, the task plane, rollover and shard allocation;
+    # and the cluster path: ClusterNode, coordination, replication, the
+    # shard service and the test harnesses of `testing/`
     names = set(r.stdout.strip().splitlines()[:-1])
     assert {
         "elasticsearch_tpu_torch.__main__",
@@ -85,8 +87,22 @@ def test_port_imports_without_jax_or_reference():
         "elasticsearch_tpu_torch.indices.rollover",
         "elasticsearch_tpu_torch.parallel.spmd",
         "elasticsearch_tpu_torch.parallel.blockmax",
+        "elasticsearch_tpu_torch.cluster_node",
+        "elasticsearch_tpu_torch.cluster.cluster_service",
+        "elasticsearch_tpu_torch.cluster.coordination",
+        "elasticsearch_tpu_torch.cluster.gateway",
+        "elasticsearch_tpu_torch.cluster.store",
+        "elasticsearch_tpu_torch.common.wire",
+        "elasticsearch_tpu_torch.index.replication",
+        "elasticsearch_tpu_torch.indices.cluster_state_service",
+        "elasticsearch_tpu_torch.indices.shard_service",
+        "elasticsearch_tpu_torch.testing",
+        "elasticsearch_tpu_torch.testing.chaos",
+        "elasticsearch_tpu_torch.testing.deterministic",
+        "elasticsearch_tpu_torch.testing.disruptable_transport",
+        "elasticsearch_tpu_torch.testing.linearizability",
     } <= names
-    assert int(r.stdout.strip().splitlines()[-1]) >= 94
+    assert int(r.stdout.strip().splitlines()[-1]) >= 108
 
 
 def test_rollover_imports_alone():
@@ -111,6 +127,9 @@ def test_entry_points_default_to_cuda():
     import torch
 
     from elasticsearch_tpu_torch import device
+    from elasticsearch_tpu_torch.cluster_node import (
+        ClusterNode, LiveClusterNode, form_local_cluster,
+    )
     from elasticsearch_tpu_torch.cluster.state import IndexMetadata
     from elasticsearch_tpu_torch.common.settings import Settings
     from elasticsearch_tpu_torch.index.index_service import (
@@ -154,6 +173,11 @@ def test_entry_points_default_to_cuda():
                  lambda: KnnEngine(cols, stacked=True),
                  lambda: build_knn_engine(cols),
                  agg_device.AggDeviceEngine,
-                 agg_device.default_engine):
+                 agg_device.default_engine,
+                 lambda: form_local_cluster(["n0", "n1"]),
+                 lambda: LiveClusterNode("n0", voting_config=["n0"])):
         with pytest.raises(DeviceUnavailableError):
             make()
+    _, store, channels = form_local_cluster(["n0"], device="cpu")
+    with pytest.raises(DeviceUnavailableError):
+        ClusterNode("n1", channels, store)
