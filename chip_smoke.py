@@ -14,6 +14,7 @@
     python3 chip_smoke.py --serving-only --docs N   # step 8 alone, no ok line
     python3 chip_smoke.py --admin-only --docs N     # step 8's admin phase alone
     python3 chip_smoke.py --blockmax-only --docs N  # step 9 alone
+    python3 chip_smoke.py --fused-only --docs N     # step 6b alone
 
 It drives the port's main path (elasticsearch_tpu_torch only; it imports
 nothing of JAX or of elasticsearch_tpu) the way bench.py drives config 1 of
@@ -25,9 +26,10 @@ aggregation path the way bench.py drives config 6:
    K3 sparse_gather, K5 intersect_bitset, K6 sweep_rowmax_bitset,
    K7 sweep_rowmax_conj, K4 merge_topk, K9 knn_int8_window_topc,
    K8 agg_counts, the bitset pack pack_presence_bits, the dense
-   executor's block scatter, bm25_block_scatter and block_presence, and
-   BlockMax's K10 lane_topk and K11 weighted_block_scatter) from
-   parallel/csrc with nvcc, one process per source, all at once;
+   executor's block scatter, bm25_block_scatter and block_presence,
+   BlockMax's K10 lane_topk and K11 weighted_block_scatter, and the fused
+   S > 1 sweeps F1-F3) from parallel/csrc with nvcc, one process per
+   source, all at once;
 2. builds one 8,000,000-doc shard with positions on the host: docs of 8-40
    terms over a 500k-term Zipf(1.07) vocabulary, seeded as bench.py does;
 3. selects the engine with `select_bm25_engine(device="cuda")` (cold_df
@@ -79,6 +81,19 @@ aggregation path the way bench.py drives config 6:
    mask_chunk_counts after it, in turns; K3 on every group of cold SHOULD
    sides each route launched; each K1 launch of the phrase phase is timed
    again on its recorded groups beside its bound;
+6b. cuts the shard by doc range into four 2,000,000-doc segments (its
+   postings split, no new draw) and serves them through
+   select_bm25_engine(device="cuda"), the fused route of an index of
+   several segments (fused_phase): both config-1 batches and the DSL
+   plans, config 2 on both sweeps and the first 64 slop-0 phrases with the
+   two head-term ones, one F1, F2 or F3 launch per query chunk for all
+   four partitions, no K2 / K5-K7 launch, K4 on every merge; every top-10
+   bitwise the sequential route's on the same partitions, and the
+   single-segment rows' (doc ids mapped), so the host-exact tier's; then
+   F1-F3 held bitwise against their plain versions at every launch shape,
+   also poisoned, timed by events, by CUDA graph and alone beside the S
+   separate K2 / K7 / K5 + K6 launches on the same inputs, torch._int_mm
+   and their byte bounds;
 7. on the same shard as one port Segment on the card (the `body`
    postings, `views` / `price` / `published` / `tags` columns drawn with
    numpy seed 46, `_source` built on access, 1% of the docs deleted),
@@ -702,15 +717,23 @@ def int_mm_ms(turbo, wq) -> float:
     """Yardstick of the sweeps: the four int8 score products as one
     cuBLASLt int8 GEMM over the dense slots, [wh; wl] @ [cols_hi | cols_lo]
     (the port never calls it)."""
+    return int_mm_cols_ms(turbo.cols_hi, turbo.cols_lo, turbo.Dp, wq)
+
+
+def int_mm_cols_ms(cols_hi, cols_lo, dp: int, wq) -> float:
+    """int_mm_ms on one partition's columns (dp docs) and weights."""
     import torch
 
-    qc, hpt, dp = wq.shape[1], turbo.cols_hi.shape[1], turbo.Dp
+    qc, hpt = wq.shape[1], cols_hi.shape[1]
     k8 = -(-hpt // 8) * 8
-    a = torch.zeros((2 * qc, k8), dtype=torch.int8, device=wq.device)
-    a[:, :hpt] = wq.reshape(2 * qc, hpt)
+    # cuBLASLt's int8 product refuses narrow row counts (16, 24): a narrow
+    # chunk's weights are padded with zero rows to 64
+    a = torch.zeros((max(2 * qc, 64), k8), dtype=torch.int8,
+                    device=wq.device)
+    a[:2 * qc, :hpt] = wq.reshape(2 * qc, hpt)
     b = torch.zeros((k8, 2 * dp), dtype=torch.int8, device=wq.device)
-    b[:hpt, :dp] = turbo.cols_hi.permute(1, 0, 2, 3).reshape(hpt, dp)
-    b[:hpt, dp:] = turbo.cols_lo.permute(1, 0, 2, 3).reshape(hpt, dp)
+    b[:hpt, :dp] = cols_hi.permute(1, 0, 2, 3).reshape(hpt, dp)
+    b[:hpt, dp:] = cols_lo.permute(1, 0, 2, 3).reshape(hpt, dp)
     ms = cuda_ms(lambda: torch._int_mm(a, b), 3)
     del a, b
     torch.cuda.empty_cache()
@@ -1966,8 +1989,11 @@ def bool_phases(eng, turbo, fp, n_docs, tokens, bounds, mapper,
     del k1_launches
     log(f"K1 launches of the phrase phase: {k1_phrase}")
 
+    n_ph = PHRASES + len(HEAD_PHRASES)
     report = {"bool": {r: rep for r, (_, rep, _) in routes.items()},
               "answers": (bool_qs, hs[:BOOL_BATCH], ho[:BOOL_BATCH]),
+              "phrase_answers": (phrases + HEAD_PHRASES, phs[:n_ph],
+                                 pho[:n_ph]),
               "phrase": prep, "k1_phrase_launches": k1_phrase,
               "peak_device_bytes_before": prior_peak,
               "bitset_bytes": int(turbo.bits.nbytes),
@@ -4010,15 +4036,28 @@ def hold_rows(resps, rows, label: str) -> None:
                 f"{label} {qi}: scores differ from the main phase's rows")
 
 
+DENSE_HOLD_THREADS = 8     # dense-executor answers computed at once
+
+
 def hold_dense(svc, pairs, label: str, dense=None) -> dict:
     """Every (body, fast-path response) against svc._search_dense(body)
-    (computed here unless `dense` has it). Returns the dense answers."""
+    (computed here unless `dense` has it, DENSE_HOLD_THREADS at once: the
+    dense executor serves concurrent requests, and its device waits
+    release the GIL). Returns the dense answers."""
     dense = {} if dense is None else dense
-    for i, (body, r) in enumerate(pairs):
+    pairs = list(pairs)
+    todo = {}
+    for body, _ in pairs:
         key = json.dumps(body, sort_keys=True)
         if key not in dense:
-            dense[key] = svc._search_dense(body)
-        same_results(r, dense[key], f"{label} {i}")
+            todo.setdefault(key, body)
+    with ThreadPoolExecutor(max_workers=DENSE_HOLD_THREADS) as ex:
+        for key, ans in zip(todo, ex.map(svc._search_dense,
+                                         todo.values())):
+            dense[key] = ans
+    for i, (body, r) in enumerate(pairs):
+        same_results(r, dense[json.dumps(body, sort_keys=True)],
+                     f"{label} {i}")
     return dense
 
 
@@ -4045,6 +4084,11 @@ def _lane_key(args, kw):
     return (mode, kw["k"]) + _shape_key(args, kw)
 
 
+def _fused_key(args, kw):
+    """F1-F3's launch shape: (partitions, QC), from the stacked qscale."""
+    return tuple(int(x) for x in args[0].shape[:2])
+
+
 # the serving path's kernel wrappers besides K1, K8, the pack and the block
 # scatter (their path shapes are the main phase's, held there, or K8's,
 # timed by k8_case): (name, module, attribute, launch-shape key,
@@ -4067,6 +4111,15 @@ PATH_KERNELS = (
     ("lane_topk", "kernels", "lane_topk", _lane_key, ()),
     ("weighted_block_scatter", "kernels", "weighted_block_scatter",
      _k11_key, (0,)),
+    # F1-F3 on an index of several segments: (partitions, QC); F3's two
+    # launches (the stacked K5, then K6) are counted apart, both held as F3
+    ("fused_sweep_rowmax", "kernels", "fused_sweep_rowmax", _fused_key, ()),
+    ("fused_sweep_rowmax_conj", "kernels", "fused_sweep_rowmax_conj",
+     _fused_key, ()),
+    ("fused_sweep_rowmax_bitset", "kernels", "fused_sweep_rowmax_bitset",
+     _fused_key, ()),
+    ("fused_intersect_bitset", "kernels", "fused_sweep_rowmax_bitset",
+     _fused_key, ()),
 )
 
 
@@ -4121,7 +4174,7 @@ def record_shapes():
     try:
         yield seen
     finally:
-        for mod, attr, fn in saved:
+        for mod, attr, fn in reversed(saved):    # F3's two spies nest
             setattr(mod, attr, fn)
 
 
@@ -4595,6 +4648,11 @@ def check_path_shapes(seen, dp, lane_parent=None,
                 row["poisoned_run"] = "bitwise"
             elif name == "weighted_block_scatter":
                 row = hold_k11(label, args, kw, weighted_parent)
+            elif name == "fused_intersect_bitset":
+                row = {"held_by": "fused_sweep_rowmax_bitset (its counts "
+                                  "and rows)"}
+            elif name.startswith("fused_"):
+                row = hold_fused(label, name, args, kw)
             else:
                 row = hold_kernel(label, wrappers[name], plains[name], args,
                                   kw)
@@ -6970,6 +7028,582 @@ def replicated_steps(nodes, store, channels, answers) -> dict:
     return rep
 
 
+# ---------------------------------------------------------------------------
+# the fused S > 1 Turbo route (F1-F3, K4 on every merge)
+# ---------------------------------------------------------------------------
+
+FUSED_PARTS = 4        # the 8M-doc shard as four 2M-doc segments
+FUSED_PHRASES = 64     # config 3's first slop-0 phrases
+
+
+def split_postings(fp, lo: int, hi: int, keep=None, pos_keep=None,
+                   term_of=None):
+    """The FieldPostings of docs [lo, hi) of fp, renumbered from 0: what a
+    segment holding those docs indexes (the same postings, tfs, positions
+    and doc lengths, laid out as build_field_postings lays them; nothing
+    is drawn again). keep, pos_keep, term_of: which of fp's postings and
+    positions lie in the range, and the term of each posting, when the
+    caller has them."""
+    from elasticsearch_tpu_torch.index.segment import BLOCK, FieldPostings
+
+    n_terms = len(fp.terms)
+    n_pos = np.diff(fp.pos_start)
+    if term_of is None:
+        term_of = np.repeat(np.arange(n_terms, dtype=np.int32),
+                            np.diff(fp.post_start))
+    if keep is None:
+        keep = (fp.post_doc >= lo) & (fp.post_doc < hi)
+    if pos_keep is None:
+        pos_keep = np.repeat(keep, n_pos)
+    idx = np.flatnonzero(keep)
+    term_ord = term_of[idx].astype(np.int64)
+    within = idx - fp.post_start[term_ord]
+    tf = fp.block_tfs[fp.block_start[term_ord] + within // BLOCK,
+                      within % BLOCK]
+    doc_ord = (fp.post_doc[idx] - lo).astype(np.int64)
+    pos_data = fp.pos_data[pos_keep]
+    doc_freq = np.bincount(term_ord, minlength=n_terms).astype(np.int32)
+    n_blocks = (doc_freq + BLOCK - 1) // BLOCK
+    block_start = np.zeros(n_terms, np.int32)
+    if n_terms:
+        block_start[0] = 1
+        np.cumsum(n_blocks[:-1], out=block_start[1:])
+        block_start[1:] += 1
+    offsets = np.zeros(n_terms + 1, np.int64)
+    np.cumsum(doc_freq, out=offsets[1:])
+    w = np.arange(len(term_ord), dtype=np.int64) - offsets[term_ord]
+    row = block_start[term_ord] + (w // BLOCK).astype(np.int32)
+    lane = (w % BLOCK).astype(np.int32)
+    total = 1 + int(n_blocks.sum())
+    block_docs = np.zeros((total, BLOCK), np.int32)
+    block_tfs = np.zeros((total, BLOCK), np.float32)
+    block_docs[row, lane] = doc_ord
+    block_tfs[row, lane] = tf
+    block_max_tf = np.zeros(total, np.float32)
+    if len(term_ord):
+        starts = np.nonzero(lane == 0)[0]
+        block_max_tf[row[starts]] = np.maximum.reduceat(tf, starts)
+    total_tf = np.zeros(n_terms, np.int64)
+    nz = doc_freq > 0
+    if nz.any():
+        total_tf[nz] = np.add.reduceat(tf.astype(np.int64),
+                                       offsets[:-1][nz])
+    pos_start = np.zeros(len(term_ord) + 1, np.int64)
+    np.cumsum(n_pos[idx], out=pos_start[1:])
+    doc_len = fp.doc_len[lo:hi].copy()
+    return FieldPostings(
+        field=fp.field, term_to_ord=fp.term_to_ord, terms=fp.terms,
+        doc_freq=doc_freq, total_term_freq=total_tf,
+        block_start=block_start, block_count=n_blocks.astype(np.int32),
+        block_docs=block_docs, block_tfs=block_tfs,
+        block_max_tf=block_max_tf, post_start=offsets,
+        post_doc=doc_ord.astype(np.int32), pos_start=pos_start,
+        pos_data=pos_data, doc_len=doc_len,
+        sum_doc_len=float(doc_len.sum()))
+
+
+def fused_segments(fp, n: int):
+    """The shard cut by doc range into FUSED_PARTS segments: [(_Seg, first
+    doc)]; the postings of each split in threads (numpy's fancy indexing
+    releases the GIL)."""
+    step = -(-n // FUSED_PARTS)
+    term_of = np.repeat(np.arange(len(fp.terms), dtype=np.int32),
+                        np.diff(fp.post_start))
+    part = (fp.post_doc // step).astype(np.int8)     # each posting's cut
+    pos_part = np.repeat(part, np.diff(fp.pos_start))
+    cuts = [(lo, min(n, lo + step)) for lo in range(0, n, step)]
+    with ThreadPoolExecutor(max_workers=len(cuts)) as ex:
+        fps = list(ex.map(
+            lambda i: split_postings(fp, cuts[i][0], cuts[i][1], part == i,
+                                     pos_part == i, term_of),
+            range(len(cuts))))
+    return [(_Seg(hi - lo, f), lo) for (lo, hi), f in zip(cuts, fps)]
+
+
+def _fused_parts(args, name):
+    """(per-partition solo arguments, nsw) of a fused call's arguments,
+    the weights cut to each partition's own slots."""
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    if name == "fused_sweep_rowmax":
+        qs, hi, lo, wq, live = args
+        per = [(qs[i], hi[i], lo[i],
+                k._part_wq(wq, i, int(hi[i].shape[1])), live[i])
+               for i in range(len(hi))]
+    elif name == "fused_sweep_rowmax_conj":
+        qs, nreq, hi, lo, wq, wp, live = args
+        per = [(qs[i], nreq[i], hi[i], lo[i],
+                k._part_wq(wq, i, int(hi[i].shape[1])),
+                wp[i, :, :int(hi[i].shape[1])].contiguous(), live[i])
+               for i in range(len(hi))]
+    else:
+        qs, q_slots, q_neg, bits, hi, lo, wq, live = args
+        per = [(qs[i], q_slots[i], q_neg[i], bits[i], hi[i], lo[i],
+                k._part_wq(wq, i, int(hi[i].shape[1])), live[i])
+               for i in range(len(hi))]
+    return per
+
+
+def fused_sequential(name, per, nsw, n_rows):
+    """The S separate launches the fused one replaces, on the same inputs:
+    each partition's K2 (F1), K7 (F2) or K5 with its counts and K6 (F3),
+    and its row pick."""
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    out = []
+    for i, a in enumerate(per):
+        if name == "fused_sweep_rowmax":
+            rm, rr = k.sweep_rowmax(*a, nsw=nsw[i])
+        elif name == "fused_sweep_rowmax_conj":
+            rm, rr = k.sweep_rowmax_conj(*a, nsw=nsw[i])
+        else:
+            qs, sl, ng, bits, hi, lo, wq, live = a
+            mask, _ = k.intersect_bitset_counts(sl, ng, bits, nsw=nsw[i])
+            rm, rr = k.sweep_rowmax_bitset(qs, hi, lo, wq, mask, live,
+                                           nsw=nsw[i])
+        out.append(k.pick_rows(rm, rr, n_rows=n_rows))
+    return out
+
+
+def fused_work(name, per, nsw):
+    """(bytes, int8 operations, {k5_bytes}) F1-F3 move and compute on these
+    inputs, summed over the partitions as check_k2 / check_k7 / check_k5 +
+    check_k6 count one sweep: each union slot's columns (F3: in chunks a
+    query keeps), live, the weights, the outputs, and F3's distinct clause
+    blocks, mask and counts."""
+    from elasticsearch_tpu_torch.parallel import kernels as k
+    from elasticsearch_tpu_torch.tools.k2_ab import bitset_work, sweep_work
+
+    nbytes = ops = k5_bytes = 0
+    for i, a in enumerate(per):
+        if name == "fused_sweep_rowmax":
+            b, o, _, _ = sweep_work(a[3].cpu().numpy(), int(a[4].numel()),
+                                    nsw[i])
+        elif name == "fused_sweep_rowmax_conj":
+            b, o, _, _ = sweep_work(a[4].cpu().numpy(), int(a[6].numel()),
+                                    nsw[i], a[5].cpu().numpy(),
+                                    a[1].cpu().numpy())
+        else:
+            qs, sl, ng, bits, hi, lo, wq, live = a
+            mask = k.intersect_bitset_plain(sl.to(bits.device),
+                                            ng.to(bits.device), bits,
+                                            nsw=nsw[i])
+            b, o, _ = bitset_work(wq.cpu().numpy(), mask, nsw[i])
+            hp = int(bits.shape[0]) - 2
+            distinct = (set(sl.cpu().numpy().ravel().tolist())
+                        | set(ng.cpu().numpy().ravel().tolist())) - {hp,
+                                                                     hp + 1}
+            block = k.SW_WORD_ROWS * 128 * 4
+            qc = int(sl.shape[0])
+            kb = (len(distinct) * nsw[i] * block + qc * nsw[i] * block
+                  + sl.numel() * 4 + ng.numel() * 4 + qc * 4)
+            k5_bytes += kb
+            b += kb
+            del mask
+        nbytes += b
+        ops += o
+    return nbytes, ops, {"k5_bytes": k5_bytes}
+
+
+FUSED_ROWS = {
+    "fused_sweep_rowmax": ("elasticsearch_tpu/parallel/turbo.py:2099 "
+                           "(_fused_sweep_disj; sweep_rowmax pallas_call "
+                           "kernels.py:190)"),
+    "fused_sweep_rowmax_conj": ("elasticsearch_tpu/parallel/turbo.py:2128 "
+                                "(_fused_sweep_bool; sweep_rowmax_conj "
+                                "pallas_call kernels.py:318)"),
+    "fused_sweep_rowmax_bitset": ("elasticsearch_tpu/parallel/turbo.py:2148 "
+                                  "(_fused_sweep_bitset; "
+                                  "sweep_rowmax_bitset pallas_call "
+                                  "kernels.py:581)"),
+    "fused_intersect_bitset": ("elasticsearch_tpu/parallel/turbo.py:2148 "
+                               "(_fused_sweep_bitset; intersect_bitset "
+                               "pallas_call kernels.py:432)"),
+}
+
+
+def hold_fused(label, name, args, kw) -> dict:
+    """F1, F2 or F3 at one launch shape: bitwise against its plain version,
+    also on poisoned outputs (hold_kernel), timed by events, by CUDA graph
+    and alone (torch.profiler's kernel events), beside the sum of the S
+    separate K2 / K7 / K5 + K6 launches (and row picks) on the same inputs
+    (by events and by graph), torch._int_mm's four products per partition
+    (the yardstick of K2's row) and the byte bound. F3's row carries its
+    stacked K5 stage's time alone (`k5_alone_ms`) and bytes."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    row = hold_kernel(label, getattr(k, name), getattr(k, name + "_plain"),
+                      args, kw)
+    fn = getattr(k, name)
+    if name == "fused_sweep_rowmax_bitset":
+        # by graph: the launches and the pick, the slots on the card first
+        # (the wrapper's upload of host slots is not capturable)
+        gargs = (args[0], args[1].to(args[0].device),
+                 args[2].to(args[0].device)) + tuple(args[3:])
+        hpts = [int(h.shape[1]) for h in args[4]]
+        row["graph_ms"] = graph_ms(lambda: k._fused_bitset_launches(
+            *gargs, kw["nsw"], kw["n_rows"], hpts), 50)
+        row["graph_note"] = "the two launches and the pick, slots on the card"
+    else:
+        row["graph_ms"] = graph_ms(lambda: fn(*args, **kw), 50)
+    names = ("sweep_group_kernel",) + (
+        ("fused_intersect_counts_kernel",)
+        if name == "fused_sweep_rowmax_bitset" else ())
+    row["kernel_ms"], row["kernel_events"] = kernel_alone(
+        lambda: fn(*args, **kw), names, 5)
+    if name == "fused_sweep_rowmax_bitset":
+        row["k5_alone_ms"] = row["kernel_events"]["ms"][
+            "fused_intersect_counts_kernel"]
+    nsw, n_rows = list(kw["nsw"]), kw["n_rows"]
+    per = _fused_parts(args, name)
+    want = getattr(k, name + "_plain")(*args, **kw)
+    seq = fused_sequential(name, per, nsw, n_rows)
+    picked = want[0] if isinstance(want, tuple) else want
+    require(all(torch.equal(a, b) for a, b in zip(seq, picked)),
+            f"{label}: the S separate launches differ from the plain version")
+    del want, seq
+    row["sequential_ms"] = cuda_ms(
+        lambda: fused_sequential(name, per, nsw, n_rows), 10)
+    row["sequential_graph_ms"] = graph_ms(
+        lambda: fused_sequential(name, per, nsw, n_rows), 50)
+    nbytes, ops, extra = fused_work(name, per, nsw)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops, PEAK_INT8)
+    row["bound_share"] = row["bound_ms"] / row["graph_ms"]
+    row.update(extra)
+    lib = 0.0
+    for a in per:
+        i_wq = 6 if name == "fused_sweep_rowmax_bitset" else (
+            4 if name == "fused_sweep_rowmax_conj" else 3)
+        i_hi = 4 if name == "fused_sweep_rowmax_bitset" else (
+            2 if name == "fused_sweep_rowmax_conj" else 1)
+        lib += int_mm_cols_ms(a[i_hi], a[i_hi + 1],
+                              int(a[-1].numel()), a[i_wq])
+    row["library_ms"] = lib
+    row["library_note"] = ("torch._int_mm of the four score products over "
+                           "all slots, summed over the partitions")
+    row["shape"] = {"partitions": len(per), "QC": int(args[0].shape[1]),
+                    "nsw": nsw, "Hpt": [int(a[1 if name ==
+                                              "fused_sweep_rowmax" else
+                                              (2 if name ==
+                                               "fused_sweep_rowmax_conj"
+                                               else 4)].shape[1])
+                                        for a in per]}
+    return row
+
+
+def hold_fused_k5(rec) -> dict:
+    """F3's first launch alone (kernels._fused_intersect, the stacked K5
+    with its counts) on the inputs of a recorded F3 call, slots on the
+    card: its counts and each partition's mask on its own superwindows
+    bitwise against the plain K5 per partition (also poisoned), timed by
+    events and by CUDA graph beside the plain version and the bytes it
+    must move (each distinct clause block, the masks and counts)."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels as k
+
+    _, args, kw = rec
+    nsw = list(kw["nsw"])
+    dev = args[0].device
+    sl, ng, bits = args[1].to(dev), args[2].to(dev), args[3]
+    out = {}
+
+    def kern():
+        out["k"] = k._fused_intersect(sl, ng, bits, nsw)
+
+    def plain():
+        out["p"] = [k.intersect_bitset_counts_plain(sl[i], ng[i], bits[i],
+                                                    nsw=nsw[i])
+                    for i in range(len(bits))]
+
+    ms = cuda_ms(kern, 10)
+    plain_ms = cuda_ms(plain, 1)
+
+    def held(got):
+        mask, counts = got
+        return all(torch.equal(mask[i, :, :nsw[i] * k.SW_WORD_ROWS], pm)
+                   and torch.equal(counts[i], pc)
+                   for i, (pm, pc) in enumerate(out["p"]))
+
+    require(held(out["k"]), "fused K5 stage differs from the plain K5")
+    with k.poisoned():
+        again = k._fused_intersect(sl, ng, bits, nsw)
+    require(held(again), "fused K5 stage on poisoned outputs differs")
+    block = k.SW_WORD_ROWS * 128 * 4
+    qc = int(sl.shape[1])
+    nbytes = 0
+    for i in range(len(bits)):
+        hp = int(bits[i].shape[0]) - 2
+        distinct = (set(sl[i].cpu().numpy().ravel().tolist())
+                    | set(ng[i].cpu().numpy().ravel().tolist())) - {hp,
+                                                                    hp + 1}
+        nbytes += (len(distinct) + qc) * nsw[i] * block + qc * 48 + qc * 4
+    b_ms, b_by = bound(nbytes, 0, PEAK_F32)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "graph_ms": graph_ms(kern, 50), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "library_note": "no single PyTorch call gathers and ANDs the "
+                            "clause blocks", "poisoned_run": "bitwise"}
+
+
+def _global_rows(rows, base):
+    """(scores, 0, global doc ids) of a partitioned engine's rows."""
+    s, p, o = rows
+    g = np.where(s > 0, np.asarray(base)[p] + o, 0).astype(np.int64)
+    return s, np.zeros_like(p), g
+
+
+def serve_fused(eng, traffic, fault_log):
+    """Every (route, queries) of the fused phase's traffic through eng:
+    match batches by search_many, bools by search_bool with ES_TPU_BITSET
+    at 1 (bitset) or 0 (coverage), phrases by search_phrase. Returns
+    {label: rows} and {label: seconds}, launch and merge counters by label."""
+    from elasticsearch_tpu_torch.parallel import kernels
+
+    rows, lat, per = {}, {}, {}
+    for label, route, qs in traffic:
+        l0, m0 = dict(kernels.LAUNCHES), dict(eng.merge_stats)
+        t = time.time()
+        if route == "match":
+            rows[label] = eng.search_many([qs], k=K, fault_log=fault_log)[0]
+        elif route == "phrase":
+            rows[label] = eng.search_phrase(qs, k=K, slop=0,
+                                            fault_log=fault_log)
+        else:
+            with env_set("ES_TPU_BITSET", "1" if route == "bitset" else "0"):
+                rows[label] = eng.search_bool(qs, k=K, fault_log=fault_log)
+        lat[label] = time.time() - t
+        per[label] = (
+            {n: kernels.LAUNCHES[n] - l0[n] for n in kernels.LAUNCHES
+             if kernels.LAUNCHES[n] != l0[n]},
+            {n: eng.merge_stats[n] - m0[n] for n in eng.merge_stats})
+    return rows, lat, per
+
+
+SOLO_SWEEPS = ("sweep_rowmax", "sweep_rowmax_conj", "sweep_rowmax_bitset",
+               "intersect_bitset")
+FUSED_OF = {"match": ("fused_sweep_rowmax",),
+            "coverage": ("fused_sweep_rowmax_conj",),
+            "bitset": ("fused_intersect_bitset", "fused_sweep_rowmax_bitset"),
+            "phrase": ("fused_intersect_bitset", "fused_sweep_rowmax_bitset")}
+
+
+def fused_phase(fp, n: int, batches, dsl, main_rows, held, bool_ans,
+                phrase_ans, device="cuda"):
+    """The fused S > 1 route (ROADMAP item 5) on the shard cut into
+    FUSED_PARTS segments by doc range: select_bm25_engine builds the fused
+    TurboEngine (one F1-F3 launch per query chunk for every partition, K4
+    on every merge); both config-1 batches and the DSL plans, config 2's
+    bool specs on both sweeps (ES_TPU_BITSET=1: F3, =0: F2) and the first
+    FUSED_PHRASES slop-0 phrases with the head-term ones, every launch
+    count set to 0 before and read after. Every top-10 is held bitwise
+    against the sequential route over the same partitions (a second
+    TurboEngine, fusion off; the config-1 traffic then once more on the
+    fused route, warm) and against the single-segment rows of the main
+    path, doc ids mapped, and so against the host-exact tier's answers:
+    the main path's hold of the first HOLD_PER_BATCH of each batch and of
+    the DSL plans (`held`), the bool and phrase answers (`bool_ans`,
+    `phrase_ans`). The segments' and the shard's f32 doc-length sums, from
+    which the index-global avgdl comes, are printed beside. Then every
+    launch shape of the phase (F1-F3, K3, K4) is held against its plain
+    version and timed (hold_fused, check_path_shapes).
+    Returns (kernel rows, report)."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import kernels
+    from elasticsearch_tpu_torch.search.serving import (
+        TurboEngine, engine_desc, select_bm25_engine,
+    )
+
+    t_phase = time.time()
+    bool_qs, b_hs, b_ho = bool_ans
+    # the first FUSED_PHRASES drawn phrases, which mostly gallop to the
+    # host, and the head-term ones, which take the device sweep
+    pick = list(range(FUSED_PHRASES)) + list(
+        range(len(phrase_ans[0]) - len(HEAD_PHRASES), len(phrase_ans[0])))
+    phrases = [phrase_ans[0][i] for i in pick]
+    p_hs, p_ho = phrase_ans[1][pick], phrase_ans[2][pick]
+    t = time.time()
+    cut = fused_segments(fp, n)
+    base = np.asarray([lo for _, lo in cut], np.int64)
+    split_s = time.time() - t
+    os.environ.pop("ES_TPU_TURBO_MESH", None)
+    t = time.time()
+    eng = select_bm25_engine([sg for sg, _ in cut], "body", device=device,
+                             hbm_budget_bytes=TURBO_HBM, cold_df=COLD_DF)
+    require(eng.kind == "turbo" and eng.fused
+            and len(eng.turbos) == FUSED_PARTS
+            and engine_desc(eng) == ("fused_turbo", FUSED_PARTS),
+            f"fused: the engine is {engine_desc(eng)}, not fused_turbo over "
+            f"{FUSED_PARTS} partitions")
+    n_cols = eng.prebuild_columns()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.time() - t
+    log(f"fused: {FUSED_PARTS} segments split in {split_s:.1f}s, engine "
+        f"and {n_cols} columns in {build_s:.1f}s; nsw "
+        f"{[x.nsw for x in eng.turbos]}, Hp {[x.Hp for x in eng.turbos]}")
+    traffic = ([(f"match{i}", "match", b) for i, b in enumerate(batches)]
+               + [("dsl", "match", dsl), ("bitset", "bitset", bool_qs),
+                  ("coverage", "coverage", bool_qs),
+                  ("phrase", "phrase", phrases)])
+    fault_log = []
+    with record_shapes() as seen, plain_calls() as pc:
+        kernels.reset_launches()
+        rows, lat, per = serve_fused(eng, traffic, fault_log)
+        launches = dict(kernels.LAUNCHES)
+    require(not fault_log, f"fused: fault records {fault_log}")
+    require(not any(pc.values()), f"fused: a plain version ran: {pc}")
+    for label, route, qs in traffic:
+        lc, mc = per[label]
+        chunks = mc["fused_dispatches"]
+        require(chunks >= 1 and all(lc.get(x, 0) == chunks
+                                    for x in FUSED_OF[route]),
+                f"fused {label}: {chunks} fused dispatches, launches {lc}")
+        require(mc["partition_dispatches"] == chunks * FUSED_PARTS,
+                f"fused {label}: partition dispatches {mc}")
+        require(not any(lc.get(x, 0) for x in SOLO_SWEEPS),
+                f"fused {label}: a solo sweep launched: {lc}")
+        require(lc.get("merge_topk", 0) == mc["merge_device"] == 1
+                and mc["merge_host"] == 0,
+                f"fused {label}: merges {mc}, K4 launches "
+                f"{lc.get('merge_topk', 0)}")
+    for name, sh in seen.items():
+        require(sum(v[0] for v in sh.values()) == launches[name],
+                f"fused: {name}'s launches by shape do not add up")
+    st = eng.stats
+    for key in ("degraded", "sparse_fallbacks", "cold_queries",
+                "health_device_faults", "health_fallback_queries"):
+        require(st[key] == 0, f"fused: {key} = {st[key]}")
+    log(f"fused route: latencies {lat}; launches "
+        f"{ {x: v for x, v in launches.items() if v} }")
+
+    # the sequential route over the same partitions, bitwise
+    seq = TurboEngine(eng.turbos)
+    require(not seq.fused and engine_desc(seq) == ("turbo", FUSED_PARTS),
+            "fused: the second engine is not the sequential route")
+    kernels.reset_launches()
+    s_rows, s_lat, s_per = serve_fused(seq, traffic, fault_log)
+    s_launch = dict(kernels.LAUNCHES)
+    require(not fault_log, f"sequential: fault records {fault_log}")
+    require(not any(s_launch[x] for x in FUSED_ROWS)
+            and s_launch["merge_topk"] == 0,
+            f"sequential: a fused kernel or K4 launched: {s_launch}")
+    for label, _, _ in traffic:
+        for g, w, what in zip(rows[label], s_rows[label],
+                              ("scores", "parts", "ords")):
+            require(np.array_equal(g, w),
+                    f"fused {label}: {what} differ from the sequential "
+                    f"route")
+    log(f"sequential route: latencies {s_lat}; every top-10 bitwise the "
+        f"fused route's")
+    # the config-1 traffic once more on the fused route, its caches warm
+    # as the sequential route found them (the first pass built the slices
+    # and columns both read)
+    w_rows, w_lat, _ = serve_fused(
+        eng, [x for x in traffic if x[1] == "match"], fault_log)
+    require(not fault_log, f"fused warm: fault records {fault_log}")
+    for label in w_rows:
+        require(all(np.array_equal(g, w) for g, w in
+                    zip(w_rows[label], rows[label])),
+                f"fused {label}: the warm pass differs from the first")
+    log(f"fused route, warm: latencies {w_lat}")
+
+    # the single-segment rows, doc ids mapped to the shard's; and the
+    # host-exact answers: the main path's host-exact tier's on the first
+    # HOLD_PER_BATCH of each batch and the DSL plans (`held`), the bool
+    # and phrase answers (which are the host-exact tier's)
+    one = {f"match{i}": r for i, r in enumerate(main_rows[:len(batches)])}
+    one["dsl"] = main_rows[len(batches)]
+    zero = np.zeros_like(b_ho)
+    one["bitset"] = one["coverage"] = (b_hs, zero, b_ho)
+    one["phrase"] = (p_hs, np.zeros_like(p_ho), p_ho)
+    exact = {f"match{i}": h for i, h in enumerate(held[:len(batches)])}
+    exact["dsl"] = held[len(batches)]
+    exact["bitset"] = exact["coverage"] = (b_hs, b_ho)
+    exact["phrase"] = (p_hs, p_ho)
+    n_held = 0
+    vs_one = {}
+    for label, _, _ in traffic:
+        g = _global_rows(rows[label], base)
+        hs, ho = exact[label]
+        m = len(hs)
+        require(np.array_equal(g[0][:m], hs)
+                and np.array_equal(g[2][:m], np.where(hs > 0, ho, 0)),
+                f"fused {label}: differs from the host-exact tier")
+        n_held += m
+        w = one[label]
+        w = (w[0], np.zeros_like(w[2]), np.where(w[0] > 0, w[2], 0))
+        same = int(sum(np.array_equal(g[0][q], w[0][q])
+                       and np.array_equal(g[2][q], w[2][q])
+                       for q in range(len(w[0]))))
+        d = np.abs(g[0].astype(np.float64) - w[0].astype(np.float64))
+        vs_one[label] = {"queries": len(w[0]), "bitwise": same,
+                         "max_abs_score_diff": float(d.max())}
+    sums = {"segments_f32_sum_doc_len": [float(sg.postings["body"]
+                                               .sum_doc_len)
+                                         for sg, _ in cut],
+            "shard_f32_sum_doc_len": float(fp.sum_doc_len),
+            "exact_sum_doc_len": int(fp.doc_len.astype(np.int64).sum())}
+    log(f"fused: {n_held} answers bitwise the host-exact tier's; against "
+        f"the single-segment rows (ids mapped): {vs_one}; doc-length sums "
+        f"{sums}")
+    require(all(v["bitwise"] == v["queries"] for v in vs_one.values()),
+            f"fused: rows differ from the single-segment rows: {vs_one}, "
+            f"doc-length sums {sums}")
+
+    # every launch shape of the phase against its plain version, timed
+    t = time.time()
+    shapes = check_path_shapes(seen, None)
+    kernel_rows = []
+    for name, replaces in FUSED_ROWS.items():
+        sh = shapes.get(name, {})
+        require(sh, f"fused: {name} has no launch shape")
+        # the shape launched most, the widest among equals
+        head = max(sh, key=lambda x: (sh[x]["launches"],
+                                      int(x.strip("()").split(",")[1])))
+        r = sh[head]
+        row = {"name": name, "route": "cuda",
+               "source": ("elasticsearch_tpu_torch/parallel/csrc/"
+                          + ("intersect_bitset.cu"
+                             if name == "fused_intersect_bitset"
+                             else "sweep_rowmax.cu")),
+               "replaces": replaces, "launches": launches[name],
+               "shape_timed": head, "shapes": sh}
+        if name == "fused_intersect_bitset":
+            recs = {str(x): v for x, v in
+                    seen["fused_sweep_rowmax_bitset"].items()}
+            row.update(hold_fused_k5(recs[head]))
+        else:
+            row.update({x: r[x] for x in
+                        ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms")})
+        kernel_rows.append(row)
+    checks_s = time.time() - t
+    report = {"partitions": FUSED_PARTS, "docs": n, "split_s": split_s,
+              "build_s": build_s, "columns": n_cols,
+              "latency_s": lat, "warm_latency_s": w_lat,
+              "sequential_latency_s": s_lat,
+              "launches": {x: v for x, v in launches.items() if v},
+              "per_call": {label: per[label] for label in per},
+              "sequential_launches": {x: v for x, v in s_launch.items()
+                                      if v},
+              "host_exact_held": n_held,
+              "vs_one_segment": vs_one, "doc_length_sums": sums,
+              "merge_stats": dict(eng.merge_stats),
+              "fallbacks": st["fallbacks"], "checks_s": checks_s,
+              "shapes": {x: {str(key): v for key, v in sh.items()}
+                         for x, sh in shapes.items()}}
+    del eng, seq, cut, rows, s_rows, w_rows, seen
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    report["phase_s"] = time.time() - t_phase
+    log(f"fused phase took {report['phase_s']:.1f}s")
+    return kernel_rows, report
+
+
 def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
         agg_docs: int, k3_parent_src=None, k2_parent_src=None,
         k8_parent_src=None, k4_parent_src=None, k5_parent_src=None,
@@ -7106,10 +7740,6 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
         n_q += m
     log(f"host-exact hold: {n_q} queries bitwise equal in "
         f"{time.time() - t:.1f}s")
-    # the kNN rows and the agg leaf, drawn in threads from here on, after
-    # the main path's forked hold and while the card works
-    knn_draw = prefetch(knn_data, knn_docs)
-    agg_draw = prefetch(agg_leaf, agg_docs)
     for qi in range(4):
         for b, (s, _, o) in ((batches[0], results[0]), (dsl, results[-1])):
             terms = [(x, 1.0) if isinstance(x, str) else x for x in b[qi]]
@@ -7145,6 +7775,7 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     rows[2]["bool_path"] = k3_bool
     rows[0]["phrase_launches"] = bool_report["k1_phrase_launches"]
     bool_answers = bool_report.pop("answers")
+    phrase_answers = bool_report.pop("phrase_answers")
     rows += bool_rows
     bool_report["phases_s"] = time.time() - t
 
@@ -7154,6 +7785,17 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     ledger = hbm_ledger.hbm_stats()
     del eng, turbo
     torch.cuda.empty_cache()
+
+    # ---- the fused S > 1 route on the shard cut into four segments ----
+    fused_rows, fused_report = fused_phase(
+        fp, n_docs, batches, dsl, results, held, bool_answers,
+        phrase_answers)
+    rows += fused_rows
+    del phrase_answers
+    # the kNN rows and the agg leaf, drawn in threads from here on, after
+    # the forked holds and while the card works
+    knn_draw = prefetch(knn_data, knn_docs)
+    agg_draw = prefetch(agg_leaf, agg_docs)
 
     # ---- the dense search path (execute_search) on the same shard ----
     t = time.time()
@@ -7228,6 +7870,7 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
 
     phase_s = {"kernel_build": build_s, "index_build": index_s,
                "bool_and_phrase": bool_report["phases_s"],
+               "fused": fused_report["phase_s"],
                "dense": dense_report["phase_s"],
                "serving": serving_report["phase_s"],
                "blockmax": bm_report["phase_s"],
@@ -7250,6 +7893,7 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
                "k3_launches_per_batch": k3_per,
                "default_ladder": default,
                "bool_and_phrase": bool_report,
+               "fused": fused_report,
                "knn": knn_report,
                "agg": agg_report,
                "dense": dense_report,
@@ -7334,6 +7978,63 @@ def blockmax_only(n_docs: int, n_batches: int, batch: int,
                                       (bool_qs, hs, ho),
                                       lane_parent_src=lane_parent_src,
                                       weighted_parent_src=weighted_parent_src)
+    return {"kernels": kernel_rows, "report": rep}
+
+
+def fused_only(n_docs: int, n_batches: int, batch: int) -> dict:
+    """The fused phase alone (--fused-only): the kernels built, the index
+    drawn, the single-segment rows it is held against (the main path's
+    engine at its knobs, its columns prebuilt: both config-1 batches and
+    the DSL plans; config 2's specs and the phrases of the bool phases on
+    the host-exact tier), then fused_phase. Returns its kernel rows and
+    report."""
+    import torch
+
+    from elasticsearch_tpu_torch.mapper import MapperService
+    from elasticsearch_tpu_torch.parallel import cuda_build
+    from elasticsearch_tpu_torch.search.serving import (
+        extract_plan, select_bm25_engine,
+    )
+
+    t = time.time()
+    cuda_build.build_all()
+    log(f"kernels built in {time.time() - t:.1f}s")
+    fp, tokens, bounds = build_index(n_docs, VOCAB)
+    eng = select_bm25_engine([_Seg(n_docs, fp)], "body", device="cuda",
+                             hbm_budget_bytes=TURBO_HBM, cold_df=COLD_DF)
+    eng.prebuild_columns()
+    batches = draw_batches(n_batches, batch, VOCAB)
+    mapper = MapperService({"properties": {"body": {"type": "text"}}})
+    dsl = [extract_plan(b, mapper).disj for b in DSL_BODIES]
+    rows = [eng.search_many([b], k=K)[0] for b in batches + [dsl]]
+    turbo = eng.turbos[0]
+    parts, owner = [], []
+    for bi, b in enumerate(batches + [dsl]):
+        m = len(b) if bi == len(batches) else min(len(b), HOLD_PER_BATCH)
+        parts += [b[i:i + 8] for i in range(0, m, 8)]
+        owner += [bi] * len(range(0, m, 8))
+    host = host_exact_runs(turbo, parts)
+    held = []
+    for bi in range(len(batches) + 1):
+        mine = [h for h, ob in zip(host, owner) if ob == bi]
+        held.append((np.concatenate([h[0] for h in mine]),
+                     np.concatenate([h[1] for h in mine])))
+    bool_qs = draw_bool(BOOL_BATCH, VOCAB)
+    phrases = draw_phrases(PHRASES, fp, tokens, bounds) + HEAD_PHRASES
+    specs = bool_qs + [{"phrases": [(p, 0, 1.0)]} for p in phrases]
+    chunks = [specs[i:i + 8] for i in range(0, len(specs), 8)]
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
+        host = list(ex.map(lambda q: turbo.search_bool_host(q, k=K), chunks))
+    hs = np.concatenate([h[0] for h in host])
+    ho = np.concatenate([h[1] for h in host])
+    ho[hs <= 0] = 0
+    nb = len(bool_qs)
+    del eng, turbo, tokens, bounds
+    torch.cuda.empty_cache()
+    log("single-segment rows and host answers")
+    kernel_rows, rep = fused_phase(fp, n_docs, batches, dsl, rows, held,
+                                   (bool_qs, hs[:nb], ho[:nb]),
+                                   (phrases, hs[nb:], ho[nb:]))
     return {"kernels": kernel_rows, "report": rep}
 
 
@@ -7441,6 +8142,11 @@ def main(argv=None) -> int:
                          "--docs docs (the main path's rows first), print "
                          "its kernel rows and report and the card's name; "
                          "no ok line")
+    ap.add_argument("--fused-only", action="store_true",
+                    help="run the fused S > 1 phase alone on an index of "
+                         "--docs docs (the single-segment rows first), "
+                         "print its kernel rows and report and the card's "
+                         "name; no ok line")
     ap.add_argument("--admin-only", action="store_true",
                     help="run the admin phase alone on a serving index of "
                          "--docs docs, print its report and the card's "
@@ -7461,8 +8167,12 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
         return 2
-    if args.serving_only or args.admin_only or args.blockmax_only:
-        if args.serving_only:
+    if (args.serving_only or args.admin_only or args.blockmax_only
+            or args.fused_only):
+        if args.fused_only:
+            out = {"fused_only": fused_only(args.docs, args.batches,
+                                            args.batch)}
+        elif args.serving_only:
             out = {"serving_only": serving_only(args.docs, args.batches,
                                                 args.batch)}
         elif args.blockmax_only:

@@ -289,6 +289,10 @@ declare_knob("ES_TPU_TURBO_HBM", "int", 6 << 30,
 declare_knob("ES_TPU_TURBO_COLD_DF", "int", None,
              "Doc-frequency threshold below which terms stay cold; "
              "default: parallel/turbo.py COLD_DF")
+declare_knob("ES_TPU_TURBO_MESH", "int", None,
+             "Fused multi-partition Turbo: the reference's device cap of its "
+             "mesh; on one card 0 (or less) disables fusion and any other "
+             "value keeps it (default: fused for S >= 2)")
 declare_knob("ES_TPU_FORCE_TURBO", "flag", False,
              "'1' makes Turbo eligible on the CPU (differential tests run "
              "the kernels' plain torch versions)")

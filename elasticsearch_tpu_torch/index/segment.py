@@ -22,7 +22,7 @@ Differences from the reference:
     `SegmentBuilder`, `merge_segments` and `segment_io.segment_from_blob`
     take the device the segments they make carry.
   * `build_field_postings` forms the (term, doc) groups and their
-    positions from one argsort of a combined integer key rather than the
+    positions from one sort of a combined integer key rather than the
     reference's lexsort (`_sorted_keys_and_positions`); the arrays are
     the same.
   * `postings_from_arrays`, `numeric_column_from_arrays` and
@@ -242,10 +242,12 @@ def _sorted_keys_and_positions(key: np.ndarray, token_pos: np.ndarray):
     """(uniq, tf, pos_sorted) for (term, doc) keys with positions: the
     unique keys and their counts as np.unique gives them, and the positions
     grouped in key order, ascending inside a group (the reference's
-    lexsort((token_pos, token_docs, token_terms)) order), from one argsort
-    of the combined integer key * span + position, which is several times
-    faster than the lexsort. Raises ValueError where that integer would
-    not fit in 63 bits or a position is negative."""
+    lexsort((token_pos, token_docs, token_terms)) order), from one sort of
+    the combined integer key * span + position: the sorted combined values
+    give both the keys and the positions back, so no argsort and no gather
+    (several times faster than an argsort, tens of times than the
+    lexsort). Raises ValueError where that integer would not fit in 63
+    bits or a position is negative."""
     pos = token_pos.astype(np.int64)
     span = int(pos.max()) + 1 if len(pos) else 1
     if int(pos.min(initial=0)) < 0 \
@@ -253,12 +255,13 @@ def _sorted_keys_and_positions(key: np.ndarray, token_pos: np.ndarray):
         raise ValueError(f"(term, doc) keys up to {int(key.max())} with "
                          f"positions in [{int(pos.min())}, {span - 1}] do "
                          f"not combine into a 63-bit sort key")
-    order = np.argsort(key * span + pos)
-    sk = key[order]
+    comb = key * span + pos
+    comb.sort()
+    sk = comb // span
     starts = np.flatnonzero(np.concatenate([[True], sk[1:] != sk[:-1]])) \
         if len(sk) else np.empty(0, np.int64)
     tf = np.diff(np.append(starts, len(sk)))
-    return sk[starts], tf, np.ascontiguousarray(pos[order]).astype(np.int32)
+    return sk[starts], tf, (comb - sk * span).astype(np.int32)
 
 
 def build_field_postings(

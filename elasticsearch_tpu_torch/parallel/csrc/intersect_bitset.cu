@@ -42,6 +42,19 @@
 // copy to the card and no wait precede the launch; the wrapper launches
 // once per 256 queries.
 //
+// The fused bitset sweep (F3: the reference's _fused_sweep_bitset,
+// elasticsearch_tpu/parallel/turbo.py:2148, which ran intersect_bitset and
+// mask_chunk_counts once per partition under one shard_map) takes the same
+// block with the partition as a third grid axis: grid (qc, nsw_max, S),
+// each partition's bitsets, superwindows, word rows and slot count from a
+// table in the launch's parameters (BitsTable, up to MAX_PARTS), the slots
+// of every partition's queries from device memory (q_slots [S, qc, 8],
+// q_neg [S, qc, 4]: S * 256 queries do not fit the parameters), the mask
+// [S, qc, nsw_max * 16, 128] and counts [S, qc] stacked. A block past its
+// partition's nsw writes nothing and counts nothing: the gated sweep
+// skips those superwindows too (the reference's padding bits are zero,
+// so its mask there is zero and adds no chunk).
+//
 // What bounds it on the H100: bytes — each distinct clause block read once
 // (queries sharing a hot clause read it from L2) and the mask written once;
 // the work is one AND per 4 bytes.
@@ -62,6 +75,19 @@ constexpr int VPT = VEC_PER_BLOCK / THREADS;            // int4 a thread
 static_assert(2 * VPT <= 32, "a warp's flags must fit its lanes");
 constexpr int TABLE_Q = 256;                            // queries a table
 constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int MAX_PARTS = 64;                           // partitions a launch
+
+// one partition's bitsets, as pack_presence_bits made them
+struct BitsPart {
+  const int4* bits;
+  int nsw;
+  int rows;
+  int n_slots;
+};
+
+struct BitsTable {                                      // 1.5 KB
+  BitsPart p[MAX_PARTS];
+};
 
 struct SlotTable {                                      // 12 KB
   int32_t slots[TABLE_Q * CLAUSES];
@@ -76,17 +102,14 @@ __device__ __forceinline__ void and_not_in(int4& a, const int4 b) {
   a.x &= ~b.x; a.y &= ~b.y; a.z &= ~b.z; a.w &= ~b.w;
 }
 
-__global__ void __launch_bounds__(THREADS)
-intersect_counts_kernel(const __grid_constant__ SlotTable tab,
-                        const int4* __restrict__ bits,
-                        int4* __restrict__ out, int32_t* __restrict__ counts,
-                        int nsw, int rows, int n_slots) {
-  const int q = blockIdx.x;
-  const int32_t* qs = tab.slots + q * CLAUSES;
-  const int32_t* qn = tab.neg + q * NEGS;
-  const int64_t off = (int64_t)blockIdx.y * VEC_PER_BLOCK + threadIdx.x;
+// one (query, superwindow) block: qs / qn the query's 8 and 4 slots,
+// dst the query's mask [nsw_out * 16, 128], count its chunk count
+__device__ __forceinline__ void intersect_block(
+    const int32_t* qs, const int32_t* qn, const int4* __restrict__ bits,
+    int4* __restrict__ dst, int32_t* __restrict__ count, int sw, int rows,
+    int n_slots) {
+  const int64_t off = (int64_t)sw * VEC_PER_BLOCK + threadIdx.x;
   const int64_t slot_stride = (int64_t)rows * VEC_PER_ROW;
-  int4* dst = out + (int64_t)q * nsw * VEC_PER_BLOCK;
   const int zero_s = n_slots - 2, ones_s = n_slots - 1;
   int pos[CLAUSES], neg[NEGS];          // -1: not read
   bool empty = false;
@@ -144,7 +167,35 @@ intersect_counts_kernel(const __grid_constant__ SlotTable tab,
   }
   // flags <= 2 * VPT <= 32: lanes below it each count one
   const int total = __syncthreads_count((int)(threadIdx.x & 31) < flags);
-  if (threadIdx.x == 0 && total) atomicAdd(counts + q, total);
+  if (threadIdx.x == 0 && total) atomicAdd(count, total);
+}
+
+__global__ void __launch_bounds__(THREADS)
+intersect_counts_kernel(const __grid_constant__ SlotTable tab,
+                        const int4* __restrict__ bits,
+                        int4* __restrict__ out, int32_t* __restrict__ counts,
+                        int nsw, int rows, int n_slots) {
+  const int q = blockIdx.x;
+  intersect_block(tab.slots + q * CLAUSES, tab.neg + q * NEGS, bits,
+                  out + (int64_t)q * nsw * VEC_PER_BLOCK, counts + q,
+                  blockIdx.y, rows, n_slots);
+}
+
+// F3's first stage: grid (qc, nsw_max, S)
+__global__ void __launch_bounds__(THREADS)
+fused_intersect_counts_kernel(const __grid_constant__ BitsTable parts,
+                              const int32_t* __restrict__ q_slots,
+                              const int32_t* __restrict__ q_neg,
+                              int4* __restrict__ out,
+                              int32_t* __restrict__ counts, int qc) {
+  const int q = blockIdx.x, sw = blockIdx.y, z = blockIdx.z;
+  const int nsw_max = gridDim.y;
+  const BitsPart& pt = parts.p[z];
+  if (sw >= pt.nsw) return;             // uniform over the block
+  const int64_t zq = (int64_t)z * qc + q;
+  intersect_block(q_slots + zq * CLAUSES, q_neg + zq * NEGS, pt.bits,
+                  out + zq * nsw_max * VEC_PER_BLOCK, counts + zq, sw,
+                  pt.rows, pt.n_slots);
 }
 
 }  // namespace
@@ -172,3 +223,36 @@ extern "C" int es_intersect_bitset(const void* q_slots, const void* q_neg,
 
 // The most queries one es_intersect_bitset call takes.
 extern "C" int es_intersect_table_q() { return TABLE_Q; }
+
+// F3's first stage, one launch for up to MAX_PARTS partitions: table
+// [n_parts, 4] int64 on the host, a row (bits, nsw, rows, n_slots) a
+// partition; q_slots [n_parts, qc, 8], q_neg [n_parts, qc, 4] int32 on the
+// card; out [n_parts, qc, nsw_max * 16, 128], counts [n_parts, qc].
+extern "C" int es_fused_intersect_bitset(const void* table, int n_parts,
+                                         const void* q_slots,
+                                         const void* q_neg, void* out,
+                                         void* counts, int qc, int nsw_max,
+                                         void* stream) {
+  if (n_parts < 1 || n_parts > MAX_PARTS) return (int)cudaErrorInvalidValue;
+  BitsTable parts;                      // copied into the launch
+  const int64_t* t = (const int64_t*)table;
+  for (int i = 0; i < n_parts; ++i) {
+    const int64_t* r = t + 4 * i;
+    parts.p[i] = BitsPart{(const int4*)r[0], (int)r[1], (int)r[2], (int)r[3]};
+    if (parts.p[i].nsw < 1 || parts.p[i].nsw > nsw_max
+        || parts.p[i].rows < parts.p[i].nsw * SW_WORD_ROWS
+        || parts.p[i].n_slots < 2) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (qc <= 0 || nsw_max <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t rc = cudaMemsetAsync(
+      counts, 0, (size_t)n_parts * qc * sizeof(int32_t), st);
+  if (rc != cudaSuccess) return (int)rc;
+  fused_intersect_counts_kernel<<<dim3(qc, nsw_max, n_parts), THREADS, 0,
+                                  st>>>(
+      parts, (const int32_t*)q_slots, (const int32_t*)q_neg, (int4*)out,
+      (int32_t*)counts, qc);
+  return (int)cudaGetLastError();
+}

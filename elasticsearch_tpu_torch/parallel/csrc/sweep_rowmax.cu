@@ -50,6 +50,22 @@
 // that: its warps wait in turn on each query's loads, gate, combine and
 // shuffles (PERF.md).
 //
+// The fused S > 1 sweeps (F1-F3: the reference's _fused_sweep_disj,
+// _fused_sweep_bool and _fused_sweep_bitset, elasticsearch_tpu/parallel/
+// turbo.py :2099, :2128, :2148, which ran these Pallas kernels once per
+// partition under one shard_map) are the same kernel with the partition as
+// a third grid axis: grid ((qc + G - 1) / G, nsw_max, S). Each partition
+// keeps its own column cache, live mask and slot count; the launch takes a
+// table of them (PartTable, up to MAX_PARTS partitions, 2 KB in the
+// launch's parameters), so nothing is stacked or copied. The query inputs are
+// stacked on a leading partition axis: qscale [S, qc], wq [S, 2, qc, ws]
+// (ws >= every partition's hpt; slots past a partition's hpt are not
+// read), CONJ's nreq [S, qc] and wp [S, qc, ws], BITSET's mask [S, qc,
+// nsw_max * 16, 128]; the output [S, nsw_max, qc, CAND_PAD]. A block whose
+// superwindow lies past its partition's nsw writes what the reference's
+// dead padding gives (live 0): -inf rows with row 0, reading nothing. The
+// solo entries are the same kernel with a one-entry table.
+//
 // The combine is the reference's, in f32:
 //   val = ((16384 * hh + 128 * (hl + lh)) + ll) * qscale
 // Both products are exact (powers of two times integers below 2^24), so
@@ -80,6 +96,21 @@ constexpr int DPT = 128 / TPR;   // docs a thread
 constexpr int NW = DPT / 4;      // 32-bit words a thread per slot and layer
 constexpr int ROWS_IT = THREADS / TPR;   // rows a block scores at once
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_PARTS = 64;    // partitions one fused launch takes
+
+// one partition's column cache, live mask, superwindows and slots
+struct Part {
+  const int8_t* hi;
+  const int8_t* lo;
+  const float* live;
+  int nsw;
+  int hpt;
+};
+
+// the launch's partitions, in its parameters (32 bytes a partition)
+struct PartTable {
+  Part p[MAX_PARTS];
+};
 
 struct Words {
   unsigned w[NW];
@@ -244,17 +275,15 @@ __device__ __forceinline__ unsigned mask_bits(const int32_t* p, int bit) {
 
 template <int MODE>
 __global__ void __launch_bounds__(THREADS, 2)
-sweep_group_kernel(const float* __restrict__ qscale,
-                   const int32_t* __restrict__ nreq,     // CONJ: [qc]
-                   const int8_t* __restrict__ cols_hi,
-                   const int8_t* __restrict__ cols_lo,
-                   const int8_t* __restrict__ wq,
-                   const int8_t* __restrict__ wp,        // CONJ: [qc, hpt]
-                   // BITSET: [qc, nsw * 16, 128]
+sweep_group_kernel(const __grid_constant__ PartTable parts,
+                   const float* __restrict__ qscale,     // [S, qc]
+                   const int32_t* __restrict__ nreq,     // CONJ: [S, qc]
+                   const int8_t* __restrict__ wq,        // [S, 2, qc, ws]
+                   const int8_t* __restrict__ wp,        // CONJ: [S, qc, ws]
+                   // BITSET: [S, qc, nsw_max * 16, 128]
                    const int32_t* __restrict__ mask,
-                   const float* __restrict__ live,
                    float* __restrict__ out_m, int32_t* __restrict__ out_r,
-                   int qc, int hpt, int cap) {
+                   int qc, int ws, int cap) {
   extern __shared__ int4 group_smem[];
   // [cap] entries: x = slot | wh << 16 | wl << 24, then the float path's
   // weights 16384 wh + 128 wl, 128 wh, wl as f32 bits; CONJ: each entry's
@@ -273,7 +302,33 @@ sweep_group_kernel(const float* __restrict__ qscale,
   const int q0 = blockIdx.x * G;
   const int ng = min(G, qc - q0);
   const int sw = blockIdx.y;
+  const int nsw_max = gridDim.y;
+  const int z = blockIdx.z;                 // the partition
   const int tid = threadIdx.x;
+  // this partition's slice of the stacked inputs and output
+  qscale += (int64_t)z * qc;
+  wq += (int64_t)z * 2 * qc * ws;
+  out_m += (int64_t)z * nsw_max * qc * CAND_PAD;
+  out_r += (int64_t)z * nsw_max * qc * CAND_PAD;
+  if (MODE == CONJ) {
+    nreq += (int64_t)z * qc;
+    wp += (int64_t)z * qc * ws;
+  }
+  if (MODE == BITSET) mask += (int64_t)z * qc * nsw_max * SW_WORD_ROWS * 128;
+  const int8_t* __restrict__ cols_hi = parts.p[z].hi;
+  const int8_t* __restrict__ cols_lo = parts.p[z].lo;
+  const float* __restrict__ live = parts.p[z].live;
+  const int hpt = parts.p[z].hpt;
+  if (sw >= parts.p[z].nsw) {
+    // past the partition's superwindows: dead padding, -inf rows
+    for (int i = tid; i < ng * CAND_PAD; i += THREADS) {
+      const int64_t o = ((int64_t)sw * qc + q0 + i / CAND_PAD) * CAND_PAD
+                        + i % CAND_PAD;
+      out_m[o] = -INFINITY;
+      out_r[o] = 0;
+    }
+    return;
+  }
   const int lane = tid & 31;
   const int warp = tid >> 5;
   // TPR threads a row, 16 docs each; a warp's rows are adjacent, so a
@@ -284,9 +339,9 @@ sweep_group_kernel(const float* __restrict__ qscale,
   // query with no score weight keeps an empty list: every val is 0, never
   // > 0, so it writes its empty result and takes no list room
   for (int j = warp; j < ng; j += WARPS) {
-    const int8_t* wh = wq + (int64_t)(q0 + j) * hpt;
-    const int8_t* wl = wq + (int64_t)(qc + q0 + j) * hpt;
-    const int8_t* wc = MODE == CONJ ? wp + (int64_t)(q0 + j) * hpt : nullptr;
+    const int8_t* wh = wq + (int64_t)(q0 + j) * ws;
+    const int8_t* wl = wq + (int64_t)(qc + q0 + j) * ws;
+    const int8_t* wc = MODE == CONJ ? wp + (int64_t)(q0 + j) * ws : nullptr;
     int n = 0, sa = 0, sb = 0, nc = 0, nb = 0;
     for (int s = lane; s < hpt; s += 32) {
       const int a = wh[s], b = wl[s];
@@ -329,9 +384,9 @@ sweep_group_kernel(const float* __restrict__ qscale,
       int pos = 0;
       for (int i = qb; i < j; ++i) pos += s_cnt[i];
       if (lane == 0) s_off[j] = pos;
-      const int8_t* wh = wq + (int64_t)(q0 + j) * hpt;
-      const int8_t* wl = wq + (int64_t)(qc + q0 + j) * hpt;
-      const int8_t* wc = MODE == CONJ ? wp + (int64_t)(q0 + j) * hpt
+      const int8_t* wh = wq + (int64_t)(q0 + j) * ws;
+      const int8_t* wl = wq + (int64_t)(qc + q0 + j) * ws;
+      const int8_t* wc = MODE == CONJ ? wp + (int64_t)(q0 + j) * ws
                                       : nullptr;
       // CONJ: three passes, one per part of the list
       for (int part = 0; part < (MODE == CONJ ? 3 : 1); ++part) {
@@ -403,7 +458,7 @@ sweep_group_kernel(const float* __restrict__ qscale,
                                lo, s_need[j]);
             ns = s_nsc[j];
           } else {
-            gate &= mask_bits(mask + ((int64_t)(q0 + j) * gridDim.y
+            gate &= mask_bits(mask + ((int64_t)(q0 + j) * nsw_max
                                       * SW_WORD_ROWS + sw * SW_WORD_ROWS
                                       + row / 32) * 128 + sub * DPT,
                               row & 31);
@@ -495,27 +550,66 @@ int list_cap(int hpt) {
 }
 
 template <int MODE>
-int launch_group(const void* qscale, const void* nreq, const void* cols_hi,
-                 const void* cols_lo, const void* wq, const void* wp,
-                 const void* mask, const void* live, void* out_m,
-                 void* out_r, int qc, int hpt, int nsw, void* stream) {
-  if (hpt < 1 || hpt > 0xFFFF) return (int)cudaErrorInvalidValue;
-  const int cap = list_cap(hpt);
+int launch_group(const PartTable& parts, int n_parts, int hpt_max,
+                 const void* qscale, const void* nreq, const void* wq,
+                 const void* wp, const void* mask, void* out_m, void* out_r,
+                 int qc, int ws, int nsw_max, void* stream) {
+  if (hpt_max < 1 || hpt_max > 0xFFFF || ws < hpt_max || n_parts < 1
+      || n_parts > MAX_PARTS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int cap = list_cap(hpt_max);
   const int smem =
       cap * (int)(sizeof(int4) + (MODE == CONJ ? sizeof(int) : 0))
       + G * SW_ROWS * (int)sizeof(unsigned);
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_group_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      sweep_group_kernel<MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  if (qc <= 0 || nsw <= 0) return 0;
-  dim3 grid((qc + G - 1) / G, nsw);
+  if (qc <= 0 || nsw_max <= 0) return 0;
+  dim3 grid((qc + G - 1) / G, nsw_max, n_parts);
   sweep_group_kernel<MODE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)qscale, (const int32_t*)nreq, (const int8_t*)cols_hi,
-      (const int8_t*)cols_lo, (const int8_t*)wq, (const int8_t*)wp,
-      (const int32_t*)mask, (const float*)live, (float*)out_m,
-      (int32_t*)out_r, qc, hpt, cap);
+      parts, (const float*)qscale, (const int32_t*)nreq, (const int8_t*)wq,
+      (const int8_t*)wp, (const int32_t*)mask, (float*)out_m,
+      (int32_t*)out_r, qc, ws, cap);
   return (int)cudaGetLastError();
+}
+
+// the solo sweeps (K2, K6, K7): a one-partition table
+template <int MODE>
+int launch_solo(const void* qscale, const void* nreq, const void* cols_hi,
+                const void* cols_lo, const void* wq, const void* wp,
+                const void* mask, const void* live, void* out_m,
+                void* out_r, int qc, int hpt, int nsw, void* stream) {
+  PartTable parts;                     // copied into the launch
+  parts.p[0] = Part{(const int8_t*)cols_hi, (const int8_t*)cols_lo,
+                    (const float*)live, nsw, hpt};
+  return launch_group<MODE>(parts, 1, hpt, qscale, nreq, wq, wp, mask,
+                            out_m, out_r, qc, hpt, nsw, stream);
+}
+
+// the fused sweeps (F1-F3): `table` [n_parts, 5] int64 on the host, a row
+// (cols_hi, cols_lo, live, nsw, hpt) a partition, n_parts <= MAX_PARTS
+template <int MODE>
+int launch_fused(const int64_t* table, int n_parts, const void* qscale,
+                 const void* nreq, const void* wq, const void* wp,
+                 const void* mask, void* out_m, void* out_r, int qc, int ws,
+                 int nsw_max, void* stream) {
+  if (n_parts < 1 || n_parts > MAX_PARTS) return (int)cudaErrorInvalidValue;
+  PartTable parts;                     // copied into the launch
+  int hpt_max = 0;
+  for (int i = 0; i < n_parts; ++i) {
+    const int64_t* r = table + 5 * i;
+    const int nsw = (int)r[3], hpt = (int)r[4];
+    if (nsw < 1 || nsw > nsw_max || hpt < 1) {
+      return (int)cudaErrorInvalidValue;
+    }
+    parts.p[i] = Part{(const int8_t*)r[0], (const int8_t*)r[1],
+                      (const float*)r[2], nsw, hpt};
+    hpt_max = hpt > hpt_max ? hpt : hpt_max;
+  }
+  return launch_group<MODE>(parts, n_parts, hpt_max, qscale, nreq, wq, wp,
+                            mask, out_m, out_r, qc, ws, nsw_max, stream);
 }
 
 }  // namespace
@@ -524,8 +618,8 @@ extern "C" int es_sweep_rowmax(const void* qscale, const void* cols_hi,
                                const void* cols_lo, const void* wq,
                                const void* live, void* out_m, void* out_r,
                                int qc, int hpt, int nsw, void* stream) {
-  return launch_group<DISJ>(qscale, nullptr, cols_hi, cols_lo, wq, nullptr,
-                            nullptr, live, out_m, out_r, qc, hpt, nsw, stream);
+  return launch_solo<DISJ>(qscale, nullptr, cols_hi, cols_lo, wq, nullptr,
+                           nullptr, live, out_m, out_r, qc, hpt, nsw, stream);
 }
 
 // the group size and list capacity as built, for the wrapper's mirror of
@@ -540,8 +634,8 @@ extern "C" int es_sweep_rowmax_conj(const void* qscale, const void* nreq,
                                     const void* live, void* out_m,
                                     void* out_r, int qc, int hpt, int nsw,
                                     void* stream) {
-  return launch_group<CONJ>(qscale, nreq, cols_hi, cols_lo, wq, wp, nullptr,
-                            live, out_m, out_r, qc, hpt, nsw, stream);
+  return launch_solo<CONJ>(qscale, nreq, cols_hi, cols_lo, wq, wp, nullptr,
+                           live, out_m, out_r, qc, hpt, nsw, stream);
 }
 
 extern "C" int es_sweep_rowmax_bitset(const void* qscale, const void* cols_hi,
@@ -549,6 +643,44 @@ extern "C" int es_sweep_rowmax_bitset(const void* qscale, const void* cols_hi,
                                       const void* mask, const void* live,
                                       void* out_m, void* out_r, int qc,
                                       int hpt, int nsw, void* stream) {
-  return launch_group<BITSET>(qscale, nullptr, cols_hi, cols_lo, wq, nullptr,
-                              mask, live, out_m, out_r, qc, hpt, nsw, stream);
+  return launch_solo<BITSET>(qscale, nullptr, cols_hi, cols_lo, wq, nullptr,
+                             mask, live, out_m, out_r, qc, hpt, nsw, stream);
 }
+
+// F1-F3, one launch for up to MAX_PARTS partitions (see the header): table
+// [n_parts, 5] int64 on the host; the stacked inputs and output start at
+// the launch's first partition
+extern "C" int es_fused_sweep_rowmax(const void* table, int n_parts,
+                                     const void* qscale, const void* wq,
+                                     void* out_m, void* out_r, int qc,
+                                     int ws, int nsw_max, void* stream) {
+  return launch_fused<DISJ>((const int64_t*)table, n_parts, qscale, nullptr,
+                            wq, nullptr, nullptr, out_m, out_r, qc, ws,
+                            nsw_max, stream);
+}
+
+extern "C" int es_fused_sweep_rowmax_conj(const void* table, int n_parts,
+                                          const void* qscale,
+                                          const void* nreq, const void* wq,
+                                          const void* wp, void* out_m,
+                                          void* out_r, int qc, int ws,
+                                          int nsw_max, void* stream) {
+  return launch_fused<CONJ>((const int64_t*)table, n_parts, qscale, nreq,
+                            wq, wp, nullptr, out_m, out_r, qc, ws, nsw_max,
+                            stream);
+}
+
+extern "C" int es_fused_sweep_rowmax_bitset(const void* table, int n_parts,
+                                            const void* qscale,
+                                            const void* wq,
+                                            const void* mask, void* out_m,
+                                            void* out_r, int qc, int ws,
+                                            int nsw_max, void* stream) {
+  return launch_fused<BITSET>((const int64_t*)table, n_parts, qscale,
+                              nullptr, wq, nullptr, mask, out_m, out_r, qc,
+                              ws, nsw_max, stream);
+}
+
+// the partitions one fused launch takes, for the wrapper's mirror
+// (kernels.MAX_FUSED_PARTS)
+extern "C" int es_fused_max_parts() { return MAX_PARTS; }

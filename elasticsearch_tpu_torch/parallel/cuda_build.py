@@ -36,7 +36,8 @@ _L = ctypes.c_longlong
 # sweep_group / sweep_list_cap launch nothing: they report K2's built G and
 # list capacity; agg_word_bytes and agg_plan report K8's word scratch
 # size and histogram plan; intersect_table_q K5's queries a launch;
-# lane_topk_cap K10's big-k buffer for a k
+# lane_topk_cap K10's big-k buffer for a k; fused_max_parts the
+# partitions one fused sweep launch takes
 _SIGNATURES = {
     "build_columns": ("build_columns", "es_build_columns",
                       [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
@@ -49,11 +50,22 @@ _SIGNATURES = {
                           [_P] * 9 + [_I, _I, _I, _P]),
     "sweep_rowmax_bitset": ("sweep_rowmax", "es_sweep_rowmax_bitset",
                             [_P] * 8 + [_I, _I, _I, _P]),
+    "fused_sweep_rowmax": ("sweep_rowmax", "es_fused_sweep_rowmax",
+                           [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "fused_sweep_rowmax_conj": ("sweep_rowmax", "es_fused_sweep_rowmax_conj",
+                                [_P, _I] + [_P] * 6 + [_I, _I, _I, _P]),
+    "fused_sweep_rowmax_bitset": ("sweep_rowmax",
+                                  "es_fused_sweep_rowmax_bitset",
+                                  [_P, _I] + [_P] * 5 + [_I, _I, _I, _P]),
+    "fused_max_parts": ("sweep_rowmax", "es_fused_max_parts", []),
     "sparse_gather": ("sparse_gather", "es_sparse_gather",
                       [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P]),
     "intersect_bitset": ("intersect_bitset", "es_intersect_bitset",
                          [_P] * 5 + [_I] * 4 + [_P]),
     "intersect_table_q": ("intersect_bitset", "es_intersect_table_q", []),
+    "fused_intersect_bitset": ("intersect_bitset",
+                               "es_fused_intersect_bitset",
+                               [_P, _I] + [_P] * 4 + [_I, _I, _P]),
     "pack_presence_bits": ("pack_bits", "es_pack_presence_bits",
                            [_P, _P, _P, _I, _I, _P]),
     "merge_topk": ("merge_topk", "es_merge_topk",

@@ -12,6 +12,12 @@ ported paths run:
   the same pass (`intersect_bitset_counts`)
 * K6 `sweep_rowmax_bitset` (reference :534) -> csrc/sweep_rowmax.cu
 * K7 `sweep_rowmax_conj` (reference :270) -> csrc/sweep_rowmax.cu
+* F1-F3, the fused S > 1 sweeps of elasticsearch_tpu/parallel/turbo.py
+  (`_fused_sweep_disj` :2099, `_fused_sweep_bool` :2128,
+  `_fused_sweep_bitset` :2148, which ran K2, K7 and K5 + K6 once per
+  partition under one shard_map) -> the same two sources, the partition
+  a third grid axis (`fused_sweep_rowmax`, `fused_sweep_rowmax_conj`,
+  `fused_sweep_rowmax_bitset`), each with the row pick (`pick_rows`)
 * K4 `merge_topk` (reference :633) -> csrc/merge_topk.cu
 * K9 `knn_int8_window_topc` (reference :1153) -> csrc/knn_window_topc.cu
 * K8 `_agg_counts` (reference :996, behind `agg_segment_counts` :1037 and
@@ -93,6 +99,10 @@ BITSET_NEGS = 4       # AND-NOT fan-in (largest-df prohibitions)
 # (intersect_bitset.cu's TABLE_Q; the card test holds this mirror to the
 # built es_intersect_table_q)
 INTERSECT_TABLE_Q = 256
+# partitions one fused sweep launch takes (sweep_rowmax.cu's and
+# intersect_bitset.cu's MAX_PARTS; the card test holds this mirror to the
+# built es_fused_max_parts): more take a launch per MAX_FUSED_PARTS
+MAX_FUSED_PARTS = 64
 
 # the reference multiplies f32 tiles by these Python constants, which JAX
 # rounds to f32; the same f32 values here, and passed to the CUDA kernel
@@ -118,6 +128,10 @@ AGG_SEG_TILE = 16384  # bucket ids per K8 tile (a chunk's [ct0, ct1] unit)
 LAUNCHES: Dict[str, int] = {"build_columns": 0, "sweep_rowmax": 0,
                             "sparse_gather": 0, "intersect_bitset": 0,
                             "sweep_rowmax_bitset": 0, "sweep_rowmax_conj": 0,
+                            "fused_sweep_rowmax": 0,
+                            "fused_sweep_rowmax_conj": 0,
+                            "fused_intersect_bitset": 0,
+                            "fused_sweep_rowmax_bitset": 0,
                             "merge_topk": 0, "knn_int8_window_topc": 0,
                             "agg_counts": 0, "pack_presence_bits": 0,
                             "bm25_block_scatter": 0, "block_presence": 0,
@@ -393,24 +407,31 @@ def sweep_rowmax_plain(qscale, cols_hi, cols_lo, wq, live, *, nsw: int):
     return _sweep_plain(qscale, cols_hi, cols_lo, wq, live, nsw)
 
 
+def _check_cols(cols_hi, cols_lo, live, nsw: int, dev) -> int:
+    """Checks of one partition's columns and live mask against its nsw;
+    returns Hpt."""
+    _check(cols_hi, "cols_hi", torch.int8, 4, dev)
+    _check(cols_lo, "cols_lo", torch.int8, 4, dev)
+    _check(live, "live", torch.float32, 2, dev)
+    if cols_lo.shape != cols_hi.shape or tuple(cols_hi.shape[2:]) != (16, 128):
+        raise ValueError("cols must both be [dp_chunks, Hpt, 16, 128]")
+    if nsw < 1 or cols_hi.shape[0] < nsw * N_CHUNKS \
+            or live.shape[1] != 128 or live.shape[0] < nsw * SW_ROWS:
+        raise ValueError(f"nsw={nsw} exceeds the cols/live extent")
+    return int(cols_hi.shape[1])
+
+
 def _check_sweep(qscale, cols_hi, cols_lo, wq, live, nsw: int) -> int:
     """Checks shared by the three sweeps; returns QC."""
     dev = cols_hi.device
-    _check(cols_hi, "cols_hi", torch.int8, 4, dev)
-    _check(cols_lo, "cols_lo", torch.int8, 4, dev)
+    hpt = _check_cols(cols_hi, cols_lo, live, nsw, dev)
     _check(wq, "wq", torch.int8, 3, dev)
     _check(qscale, "qscale", torch.float32, 2, dev)
-    _check(live, "live", torch.float32, 2, dev)
-    qc, hpt = int(wq.shape[1]), int(cols_hi.shape[1])
-    if cols_lo.shape != cols_hi.shape or tuple(cols_hi.shape[2:]) != (16, 128):
-        raise ValueError("cols must both be [dp_chunks, Hpt, 16, 128]")
+    qc = int(wq.shape[1])
     if wq.shape[0] != 2 or wq.shape[2] != hpt or qc < 1:
         raise ValueError(f"wq shape {tuple(wq.shape)} is not [2, QC, {hpt}]")
     if tuple(qscale.shape) != (qc, 1):
         raise ValueError(f"qscale shape {tuple(qscale.shape)} is not [{qc}, 1]")
-    if nsw < 1 or cols_hi.shape[0] < nsw * N_CHUNKS \
-            or live.shape[1] != 128 or live.shape[0] < nsw * SW_ROWS:
-        raise ValueError(f"nsw={nsw} exceeds the cols/live extent")
     return qc
 
 
@@ -712,6 +733,283 @@ def sweep_rowmax_bitset(qscale, cols_hi, cols_lo, wq, mask, live, *,
             mask.data_ptr(), live.data_ptr(), rm.data_ptr(), rr.data_ptr(),
             qc, int(cols_hi.shape[1]), int(nsw))
     return rm, rr
+
+
+# --------------------------------------------------------------------------
+# the row pick, and F1-F3: the fused S > 1 sweeps
+# --------------------------------------------------------------------------
+
+
+def pick_rows(rm: torch.Tensor, rr: torch.Tensor, *, n_rows: int):
+    """Global candidate-row pick on the device (reference turbo.py:83):
+    from a sweep's per-superwindow top-NCAND (rowmax, row) pairs,
+    [..., nsw, QC, CAND_PAD] (any leading partition axes), keep each
+    query's global top n_rows rows.
+
+    Returns [..., QC, n_rows + 1] f32: row ids as exact floats (-1 marks
+    empty slots) and, in the last column, the max approximate score any
+    uncollected row could hold. `lax.top_k` returns the smallest index
+    among equal values; a stable descending sort does the same. Dead
+    superwindows (every rowmax -inf) change nothing, so a partition padded
+    to a longer nsw picks what it picks alone."""
+    lead = tuple(rm.shape[:-3])
+    nsw, qc = rm.shape[-3], rm.shape[-2]
+    m = rm[..., :NCAND].movedim(-3, -2).reshape(*lead, qc, nsw * NCAND)
+    r = rr[..., :NCAND].movedim(-3, -2).reshape(*lead, qc, nsw * NCAND)
+    if m.shape[-1] < n_rows + 1:
+        pad = n_rows + 1 - m.shape[-1]
+        m = torch.cat([m, torch.full((*lead, qc, pad), float("-inf"),
+                                     dtype=m.dtype, device=m.device)], -1)
+        r = torch.cat([r, torch.zeros((*lead, qc, pad), dtype=r.dtype,
+                                      device=r.device)], -1)
+    top_m, idx = torch.sort(m, dim=-1, descending=True, stable=True)
+    top_m, idx = top_m[..., :n_rows + 1], idx[..., :n_rows + 1]
+    valid = top_m[..., :n_rows] > float("-inf")
+    rows = torch.where(valid, torch.gather(r, -1, idx[..., :n_rows]),
+                       torch.full_like(r[..., :n_rows], -1))
+    beyond = top_m[..., n_rows]
+    beyond = torch.where(torch.isfinite(beyond), beyond,
+                         torch.zeros_like(beyond))
+    sw_last = rm[..., NCAND - 1]                      # [..., nsw, QC]
+    sw_bound = torch.where(sw_last > float("-inf"), sw_last,
+                           torch.zeros_like(sw_last)).amax(dim=-2)
+    return torch.cat([rows.float(),
+                      torch.maximum(beyond, sw_bound)[..., None]], dim=-1)
+
+
+def _check_fused(qscale, cols_hi, cols_lo, wq, live, nsw):
+    """Checks shared by F1-F3: the stacked query inputs, and each
+    partition's columns and live mask against its nsw as _check_sweep
+    takes them. Returns (S, QC, [Hpt per partition])."""
+    n = len(cols_hi)
+    if n < 1 or not (len(cols_lo) == len(live) == len(nsw) == n):
+        raise ValueError(f"{len(cols_hi)} cols_hi, {len(cols_lo)} cols_lo, "
+                         f"{len(live)} live and {len(nsw)} nsw: one per "
+                         f"partition")
+    dev = cols_hi[0].device
+    hpts = [_check_cols(cols_hi[i], cols_lo[i], live[i], int(nsw[i]), dev)
+            for i in range(n)]
+    _check(wq, "wq", torch.int8, 4, dev)
+    _check(qscale, "qscale", torch.float32, 3, dev)
+    qc = int(wq.shape[2])
+    if wq.shape[0] != n or wq.shape[1] != 2 or qc < 1 \
+            or wq.shape[3] < max(hpts):
+        raise ValueError(f"wq shape {tuple(wq.shape)} is not [{n}, 2, QC, "
+                         f">= {max(hpts)}]")
+    if tuple(qscale.shape) != (n, qc, 1):
+        raise ValueError(f"qscale shape {tuple(qscale.shape)} is not "
+                         f"[{n}, {qc}, 1]")
+    return n, qc, hpts
+
+
+def _part_wq(wq, i: int, hpt: int):
+    """Partition i's weights over its own slots, [2, QC, hpt]."""
+    return wq[i, :, :, :hpt].contiguous()
+
+
+def _sweep_table(cols_hi, cols_lo, live, nsw, hpts) -> np.ndarray:
+    """The fused sweeps' partition table: a row (cols_hi, cols_lo, live,
+    nsw, hpt) of int64 a partition, as the C entries read it."""
+    _check_aligned(*cols_hi, *cols_lo, *live)
+    return np.asarray([[cols_hi[i].data_ptr(), cols_lo[i].data_ptr(),
+                        live[i].data_ptr(), int(nsw[i]), hpts[i]]
+                       for i in range(len(cols_hi))], np.int64)
+
+
+def _fused_launch(name, table, n, qc, nsw_max, stacked, outs, ints):
+    """One launch of a fused C entry per MAX_FUSED_PARTS partitions: each
+    stacked input (tensor, per-partition element count) and output is
+    offset to the launch's first partition."""
+    for p0 in range(0, n, MAX_FUSED_PARTS):
+        p1 = min(n, p0 + MAX_FUSED_PARTS)
+        ptrs = [t.data_ptr() + p0 * per * t.element_size()
+                for t, per in stacked + outs]
+        _launch(name, outs[0][0].device, table[p0:p1].ctypes.data, p1 - p0,
+                *ptrs, qc, *ints, nsw_max)
+
+
+def _fused_sweep_out(n: int, nsw_max: int, qc: int, dev):
+    rm = _out((n, nsw_max, qc, CAND_PAD), torch.float32, dev)
+    rr = _out((n, nsw_max, qc, CAND_PAD), torch.int32, dev)
+    per = nsw_max * qc * CAND_PAD
+    return rm, rr, [(rm, per), (rr, per)]
+
+
+def fused_sweep_rowmax_plain(qscale, cols_hi, cols_lo, wq, live, *, nsw,
+                             n_rows: int):
+    """Plain F1: each partition's plain K2 and row pick, stacked."""
+    return torch.stack([
+        pick_rows(*sweep_rowmax_plain(
+            qscale[i], cols_hi[i], cols_lo[i],
+            _part_wq(wq, i, int(cols_hi[i].shape[1])), live[i],
+            nsw=int(nsw[i])), n_rows=n_rows)
+        for i in range(len(cols_hi))])
+
+
+def fused_sweep_rowmax(qscale, cols_hi, cols_lo, wq, live, *, nsw,
+                       n_rows: int):
+    """F1: every partition's disjunctive sweep and row pick, one launch
+    for all (reference turbo.py:2099).
+
+    qscale [S, QC, 1] f32; cols_hi, cols_lo, live: sequences of S tensors,
+    each partition's own as sweep_rowmax takes them; wq [S, 2, QC, Hw] i8
+    with Hw >= every partition's Hpt (partition i reads its first Hpt_i
+    slots); nsw: S ints. Returns [S, QC, n_rows + 1] f32, each partition's
+    pick_rows of its sweep_rowmax. On the card the kernel reads the
+    partitions' tensors through a table of their pointers (no stacked
+    copy) and sweeps every superwindow up to the largest nsw, the ones
+    past a partition's own as dead padding."""
+    n, qc, hpts = _check_fused(qscale, cols_hi, cols_lo, wq, live, nsw)
+    dev = wq.device
+    if not _route(dev):
+        return fused_sweep_rowmax_plain(qscale, cols_hi, cols_lo, wq, live,
+                                        nsw=nsw, n_rows=n_rows)
+    table = _sweep_table(cols_hi, cols_lo, live, nsw, hpts)
+    nsw_max = max(int(x) for x in nsw)
+    ws = int(wq.shape[3])
+    rm, rr, outs = _fused_sweep_out(n, nsw_max, qc, dev)
+    _fused_launch("fused_sweep_rowmax", table, n, qc, nsw_max,
+                  [(qscale, qc), (wq, 2 * qc * ws)], outs, [ws])
+    return pick_rows(rm, rr, n_rows=n_rows)
+
+
+def fused_sweep_rowmax_conj_plain(qscale, nreq, cols_hi, cols_lo, wq, wp,
+                                  live, *, nsw, n_rows: int):
+    """Plain F2: each partition's plain K7 and row pick, stacked."""
+    out = []
+    for i in range(len(cols_hi)):
+        hpt = int(cols_hi[i].shape[1])
+        out.append(pick_rows(*sweep_rowmax_conj_plain(
+            qscale[i], nreq[i], cols_hi[i], cols_lo[i],
+            _part_wq(wq, i, hpt), wp[i, :, :hpt].contiguous(), live[i],
+            nsw=int(nsw[i])), n_rows=n_rows))
+    return torch.stack(out)
+
+
+def fused_sweep_rowmax_conj(qscale, nreq, cols_hi, cols_lo, wq, wp, live, *,
+                            nsw, n_rows: int):
+    """F2: F1 with K7's coverage gate (reference turbo.py:2128). Adds nreq
+    [S, QC, 1] i32 and wp [S, QC, Hw] i8 (sweep_rowmax_conj's, stacked);
+    returns [S, QC, n_rows + 1] f32."""
+    n, qc, hpts = _check_fused(qscale, cols_hi, cols_lo, wq, live, nsw)
+    dev = wq.device
+    ws = int(wq.shape[3])
+    _check(nreq, "nreq", torch.int32, 3, dev)
+    _check(wp, "wp", torch.int8, 3, dev)
+    if tuple(nreq.shape) != (n, qc, 1):
+        raise ValueError(f"nreq shape {tuple(nreq.shape)} is not "
+                         f"[{n}, {qc}, 1]")
+    if tuple(wp.shape) != (n, qc, ws):
+        raise ValueError(f"wp shape {tuple(wp.shape)} is not [{n}, {qc}, "
+                         f"{ws}]")
+    if not _route(dev):
+        return fused_sweep_rowmax_conj_plain(qscale, nreq, cols_hi, cols_lo,
+                                             wq, wp, live, nsw=nsw,
+                                             n_rows=n_rows)
+    table = _sweep_table(cols_hi, cols_lo, live, nsw, hpts)
+    nsw_max = max(int(x) for x in nsw)
+    rm, rr, outs = _fused_sweep_out(n, nsw_max, qc, dev)
+    _fused_launch("fused_sweep_rowmax_conj", table, n, qc, nsw_max,
+                  [(qscale, qc), (nreq, qc), (wq, 2 * qc * ws),
+                   (wp, qc * ws)], outs, [ws])
+    return pick_rows(rm, rr, n_rows=n_rows)
+
+
+def fused_sweep_rowmax_bitset_plain(qscale, q_slots, q_neg, bits, cols_hi,
+                                    cols_lo, wq, live, *, nsw, n_rows: int):
+    """Plain F3: each partition's plain K5 with its chunk counts, plain K6
+    and row pick, stacked: (picked, counts)."""
+    picked, counts = [], []
+    for i in range(len(cols_hi)):
+        mask, cnt = intersect_bitset_counts_plain(
+            q_slots[i].to(bits[i].device), q_neg[i].to(bits[i].device),
+            bits[i], nsw=int(nsw[i]))
+        picked.append(pick_rows(*sweep_rowmax_bitset_plain(
+            qscale[i], cols_hi[i], cols_lo[i],
+            _part_wq(wq, i, int(cols_hi[i].shape[1])), mask, live[i],
+            nsw=int(nsw[i])), n_rows=n_rows))
+        counts.append(cnt)
+    return torch.stack(picked), torch.stack(counts)
+
+
+def fused_sweep_rowmax_bitset(qscale, q_slots, q_neg, bits, cols_hi, cols_lo,
+                              wq, live, *, nsw, n_rows: int):
+    """F3: per partition K5's clause intersection (with its chunk counts)
+    feeding K6's mask-gated sweep and the row pick (reference
+    turbo.py:2148): two launches for every partition, the stacked K5 then
+    the stacked K6, on one stream.
+
+    q_slots [S, QC, BITSET_CLAUSES], q_neg [S, QC, BITSET_NEGS] i32 on the
+    CPU or on the card, slots of each partition's own bitsets; bits: S
+    tensors, pack_presence_bits of each partition's columns. Returns
+    (picked [S, QC, n_rows + 1] f32, counts [S, QC] i32). A slot outside
+    its partition's bitsets raises ValueError (checked on the host)."""
+    n, qc, hpts = _check_fused(qscale, cols_hi, cols_lo, wq, live, nsw)
+    dev = wq.device
+    if len(bits) != n:
+        raise ValueError(f"{len(bits)} bits for {n} partitions")
+    qdev = q_slots.device if isinstance(q_slots, torch.Tensor) else dev
+    _check(q_slots, "q_slots", torch.int32, 3, qdev)
+    _check(q_neg, "q_neg", torch.int32, 3, qdev)
+    if tuple(q_slots.shape) != (n, qc, BITSET_CLAUSES) \
+            or tuple(q_neg.shape) != (n, qc, BITSET_NEGS):
+        raise ValueError(f"q_slots {tuple(q_slots.shape)} / q_neg "
+                         f"{tuple(q_neg.shape)} are not [{n}, {qc}, "
+                         f"{BITSET_CLAUSES}] / [{n}, {qc}, {BITSET_NEGS}]")
+    for i in range(n):           # each partition's slots, on the host
+        _host_slots(q_slots[i], q_neg[i], bits[i], int(nsw[i]))
+    if not _route(dev):
+        return fused_sweep_rowmax_bitset_plain(
+            qscale, q_slots, q_neg, bits, cols_hi, cols_lo, wq, live,
+            nsw=nsw, n_rows=n_rows)
+    if any(b.data_ptr() % 16 for b in bits):
+        raise ValueError("bits must be 16-byte aligned (16-byte loads)")
+    if qdev.type == "cpu":
+        q_slots = q_slots.to(dev)
+        q_neg = q_neg.to(dev)
+    return _fused_bitset_launches(qscale, q_slots, q_neg, bits, cols_hi,
+                                  cols_lo, wq, live, nsw, n_rows, hpts)
+
+
+def _fused_bitset_launches(qscale, q_slots, q_neg, bits, cols_hi, cols_lo,
+                           wq, live, nsw, n_rows: int, hpts):
+    """F3's two launches and the row pick on inputs fused_sweep_rowmax_
+    bitset has checked, the clause slots already on the card: no copy
+    and no read-back, so a CUDA graph can capture it."""
+    n, qc = len(cols_hi), int(wq.shape[2])
+    nsw_max = max(int(x) for x in nsw)
+    ws = int(wq.shape[3])
+    mask, counts = _fused_intersect(q_slots, q_neg, bits, nsw)
+    table = _sweep_table(cols_hi, cols_lo, live, nsw, hpts)
+    rm, rr, outs = _fused_sweep_out(n, nsw_max, qc, wq.device)
+    _fused_launch("fused_sweep_rowmax_bitset", table, n, qc, nsw_max,
+                  [(qscale, qc), (wq, 2 * qc * ws),
+                   (mask, qc * nsw_max * SW_WORD_ROWS * 128)], outs, [ws])
+    return pick_rows(rm, rr, n_rows=n_rows), counts
+
+
+def _fused_intersect(q_slots, q_neg, bits, nsw):
+    """F3's first launch: every partition's K5 with its chunk counts,
+    the slots [S, QC, 8] / [S, QC, 4] already checked and on the card.
+    Returns (mask [S, QC, nsw_max * 16, 128], counts [S, QC]); a
+    partition's mask past its own nsw is not written (K6 reads none of
+    it)."""
+    dev = bits[0].device
+    n, qc = int(q_slots.shape[0]), int(q_slots.shape[1])
+    nsw_max = max(int(x) for x in nsw)
+    btab = np.asarray([[bits[i].data_ptr(), int(nsw[i]), int(bits[i].shape[1]),
+                        int(bits[i].shape[0])] for i in range(n)], np.int64)
+    mask = _out((n, qc, nsw_max * SW_WORD_ROWS, 128), torch.int32, dev)
+    counts = _out((n, qc), torch.int32, dev)
+    m_per = qc * nsw_max * SW_WORD_ROWS * 128
+    for p0 in range(0, n, MAX_FUSED_PARTS):
+        p1 = min(n, p0 + MAX_FUSED_PARTS)
+        _launch("fused_intersect_bitset", dev, btab[p0:p1].ctypes.data,
+                p1 - p0, q_slots.data_ptr() + p0 * qc * BITSET_CLAUSES * 4,
+                q_neg.data_ptr() + p0 * qc * BITSET_NEGS * 4,
+                mask.data_ptr() + p0 * m_per * 4,
+                counts.data_ptr() + p0 * qc * 4, qc, nsw_max)
+    return mask, counts
 
 
 # --------------------------------------------------------------------------

@@ -43,12 +43,24 @@ and the certificate run after the lock is released, on host data and
 that split only, so one caller's rescore overlaps another's sweep. The
 scheduler's width hook is `extend_qc_sizes`.
 
-Not ported yet (ROADMAP.md): ShardedTurbo (S > 1) and its fused bool
-sweeps, and the HBM scrub regions (the bitsets' included).
+S > 1 partitions are served by `ShardedTurbo` (the reference's fused
+engine, turbo.py:2174): one launch per query chunk sweeps every
+partition (kernels.fused_sweep_rowmax / _conj / _bitset, F1-F3), reading
+each partition's own column cache, live mask and bitsets through a table
+of pointers, where the reference stacked a copy of them to shard it over
+a mesh; the exact host rescore and certificate stay per partition.
+
+The device regions register with the HBM scrubber (common/integrity.py)
+as the reference's do: `live`, `lane_docs`, `lane_scores` and the slice
+pool against their host copies, the column cache and the bitsets against
+a baseline per cache epoch (both are updated in place here, so their
+epoch is a counter, where the reference's was the array's identity).
+Each callable hands the scrubber a host copy.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 import time
@@ -59,8 +71,11 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch import device as _device
-from elasticsearch_tpu_torch.common import faults, hbm_ledger, metrics
+from elasticsearch_tpu_torch.common import (
+    faults, hbm_ledger, integrity, metrics, tracing,
+)
 from elasticsearch_tpu_torch.common.errors import DeviceFaultError
+from elasticsearch_tpu_torch.common.faults import FaultRecord
 from elasticsearch_tpu_torch.common.settings import knob
 from elasticsearch_tpu_torch.index.positions import phrase_freqs
 from elasticsearch_tpu_torch.index.segment import tf_at
@@ -68,7 +83,7 @@ from elasticsearch_tpu_torch.ops import bm25_idf
 from elasticsearch_tpu_torch.parallel import kernels
 from elasticsearch_tpu_torch.parallel.blockmax import _host_block_scores
 from elasticsearch_tpu_torch.parallel.kernels import (
-    BITSET_CLAUSES, BITSET_NEGS, COLSCALE2, MAX_GROUP_ROWS, N_CHUNKS, NCAND,
+    BITSET_CLAUSES, BITSET_NEGS, COLSCALE2, MAX_GROUP_ROWS, N_CHUNKS,
     ROWS_PER_STEP, SPARSE_GRAN, SPARSE_IMP_MAX, SW, TILE,
 )
 from elasticsearch_tpu_torch.parallel.spmd import StackedBM25
@@ -83,37 +98,9 @@ _MAX_REQ = 126         # coverage counts fit int8 with the must_not weight
 _LANE128 = np.arange(128, dtype=np.int64)
 
 
-def _pick_rows(rm: torch.Tensor, rr: torch.Tensor, *, n_rows: int):
-    """Global candidate-row pick on the device (reference turbo.py:83):
-    from the sweep's per-superwindow top-NCAND (rowmax, row) pairs, keep
-    each query's global top n_rows rows.
-
-    Returns one [QC, n_rows + 1] f32 tensor: row ids as exact floats (-1
-    marks empty slots) and, in the last column, the max approximate score
-    any uncollected row could hold. `lax.top_k` returns the smallest index
-    among equal values; a stable descending sort does the same."""
-    qc = rm.shape[1]
-    m = rm[:, :, :NCAND].permute(1, 0, 2).reshape(qc, -1)
-    r = rr[:, :, :NCAND].permute(1, 0, 2).reshape(qc, -1)
-    if m.shape[1] < n_rows + 1:
-        pad = n_rows + 1 - m.shape[1]
-        m = torch.cat([m, torch.full((qc, pad), float("-inf"),
-                                     dtype=m.dtype, device=m.device)], 1)
-        r = torch.cat([r, torch.zeros((qc, pad), dtype=r.dtype,
-                                      device=r.device)], 1)
-    top_m, idx = torch.sort(m, dim=1, descending=True, stable=True)
-    top_m, idx = top_m[:, :n_rows + 1], idx[:, :n_rows + 1]
-    valid = top_m[:, :n_rows] > float("-inf")
-    rows = torch.where(valid, torch.gather(r, 1, idx[:, :n_rows]),
-                       torch.full_like(r[:, :n_rows], -1))
-    beyond = top_m[:, n_rows]
-    beyond = torch.where(torch.isfinite(beyond), beyond,
-                         torch.zeros_like(beyond))
-    sw_last = rm[:, :, NCAND - 1]                          # [nsw, QC]
-    sw_bound = torch.where(sw_last > float("-inf"), sw_last,
-                           torch.zeros_like(sw_last)).amax(dim=0)
-    return torch.cat([rows.float(),
-                      torch.maximum(beyond, sw_bound)[:, None]], dim=1)
+# the global candidate-row pick (reference turbo.py:83), batched over any
+# leading partition axes
+_pick_rows = kernels.pick_rows
 
 
 def _flatten_queries(batches: Sequence[List]):
@@ -359,11 +346,11 @@ class TurboBM25:
         fp = self.fp
         pad = np.zeros((MAX_GROUP_ROWS, 128), np.int32)
         self._lane_docs_host = np.concatenate([fp.block_docs, pad], axis=0)
-        self.lane_docs = torch.from_numpy(self._lane_docs_host).to(dev)
+        self.lane_docs = self._upload(self._lane_docs_host)
         bs = _host_block_scores(fp, self._avgdl)
         self._lane_scores_host = np.concatenate(
             [bs, pad.astype(np.float32)], axis=0)
-        self.lane_scores = torch.from_numpy(self._lane_scores_host).to(dev)
+        self.lane_scores = self._upload(self._lane_scores_host)
         self._host_scores = bs       # [T, 128] idf-free lane scores
         # per-block doc ranges for group building (pad lanes are 0 so the
         # row max is the true last doc; row 0 is the reserved zero block)
@@ -376,8 +363,8 @@ class TurboBM25:
             lv[: self.D] = 1.0
         else:
             lv[: self.D] = lh[: self.D].astype(np.float32)
-        self.live = torch.from_numpy(lv.reshape(self.dp_rows, 128)).to(dev)
         self._live_host = lv
+        self.live = self._upload(lv.reshape(self.dp_rows, 128))
 
         # column cache: slots + 1 scratch slot (2 bytes per doc per slot)
         slots = max(int(hbm_budget_bytes // (2 * self.Dp)), 32)
@@ -428,8 +415,67 @@ class TurboBM25:
                       "bitset_blocks_skipped": 0, "bitset_bytes": 0,
                       "sparse_queries": 0, "sparse_slices": 0,
                       "sparse_bytes": 0, "sparse_fallbacks": 0}
+        # test hook (the reference's): every bool certificate fails, so the
+        # exact host fallback serves each device query
+        self.force_cert_fail = False
         self._hbm = hbm_ledger.register_engine(self, "turbo")
         self._register_hbm_regions()
+        self._register_scrub_regions()
+
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """A device copy of a host array, never a view of it (on the CPU
+        too): the scrubber holds the device side to the host copy."""
+        return torch.from_numpy(host).to(self.device, copy=True)
+
+    def _register_scrub_regions(self) -> None:
+        """The HBM scrubber's regions (reference turbo.py:438): `live`
+        and the posting lanes against their host copies (repair: upload
+        the copy again), the column cache against a baseline per
+        `cols_epoch` (repair: drop the cache; columns rebuild on demand and
+        every answer stays exact). The slice pool and the bitsets register
+        when they are first made (`_sp_grow`, `_ensure_bits`)."""
+        for name, host in (("live", "_live_host"),
+                           ("lane_docs", "_lane_docs_host"),
+                           ("lane_scores", "_lane_scores_host")):
+            integrity.register_scrub_region(
+                self, name, lambda o, n=name: o._scrub_read(n),
+                expected=lambda o, h=host: getattr(o, h),
+                repair=lambda o, n=name, h=host: o._scrub_upload(n, h))
+        for name in ("cols_hi", "cols_lo"):
+            integrity.register_scrub_region(
+                self, name, lambda o, n=name: o._scrub_read(n),
+                epoch=lambda o: o.cols_epoch,
+                repair=lambda o: o._scrub_reset_columns())
+
+    def _scrub_read(self, name: str) -> np.ndarray:
+        """A host copy of a device region, taken under the engine's lock
+        so it never holds a build half done."""
+        with self._serve_lock:
+            return getattr(self, name).detach().to("cpu", copy=True).numpy()
+
+    def _scrub_upload(self, name: str, host: str) -> None:
+        """Scrub repair of a host-backed region: upload the copy again."""
+        h = getattr(self, host)
+        if name == "live":
+            h = h.reshape(self.dp_rows, 128)
+        with self._serve_lock:
+            setattr(self, name, self._upload(h))
+
+    def _scrub_reset_columns(self) -> None:
+        with self._serve_lock:
+            self._reset_columns()
+
+    def _scrub_pool(self) -> np.ndarray:
+        """The slice pool's device copy, with a snapshot of its host mirror
+        taken in the same hold of the lock (the mirror moves ahead of the
+        device only while a K3 group is pending, under the lock)."""
+        with self._serve_lock:
+            self._sp_scrub_host = self._sp_host.copy()
+            return self._sp_pool.detach().to("cpu", copy=True).numpy()
+
+    def _scrub_repair_pool(self) -> None:
+        with self._serve_lock:
+            self._sp_pool = self._upload(self._sp_host)
 
     def _zero_columns(self):
         shape = (self.dp_rows // 16, self.Hp + 1, 16, 128)
@@ -811,6 +857,11 @@ class TurboBM25:
         self._sp_host = host
         with faults.device_errors("sparse_gather", self.part_id):
             self._sp_pool = torch.tensor(host, device=self.device)
+        if old is None:
+            integrity.register_scrub_region(
+                self, "sparse_pool", lambda o: o._scrub_pool(),
+                expected=lambda o: o._sp_scrub_host,
+                repair=lambda o: o._scrub_repair_pool())
         self._hbm.set_region("sparse_pool", self._sp_pool.nbytes)
 
     def _sp_evict(self, term: str) -> None:
@@ -1591,7 +1642,20 @@ class TurboBM25:
         if self.bits is not None and self._bits_epoch == self.cols_epoch:
             return
         faults.fault_point("bitset_intersect", self.part_id)
+        first = self.bits is None
         self._repack_bits()
+        if first:
+            # a repack makes a new tensor: the pack count is its epoch
+            integrity.register_scrub_region(
+                self, "cols_bits", lambda o: o._scrub_read("bits"),
+                epoch=lambda o: o.stats["bitset_packs"],
+                repair=lambda o: o._scrub_repack_bits())
+
+    def _scrub_repack_bits(self) -> None:
+        """Scrub repair of the bitsets: pack them again from the (separately
+        scrubbed) column cache."""
+        with self._serve_lock:
+            self._repack_bits()
 
     def _bitset_slots(self, r: _BoolQuery):
         """(required slots rarest-first, must_not slots largest-first) for
@@ -1687,10 +1751,12 @@ class TurboBM25:
             _node_bitset_add("bitset_gallop", len(moved))
         return keep, sorted(host_idx + moved)
 
-    def _note_bitset_counts(self, cnt) -> None:
+    def _note_bitset_counts(self, cnt, total: Optional[int] = None) -> None:
         """Fold one dispatch's nonzero-chunk tallies into the skip
-        counter and the two histograms."""
-        total = self.nsw * N_CHUNKS
+        counter and the two histograms, out of `total` chunks a query (this
+        partition's; the fused engine's padded count on its route)."""
+        if total is None:
+            total = self.nsw * N_CHUNKS
         for c in cnt:
             skipped = max(total - int(c), 0)
             self.stats["bitset_blocks_skipped"] += skipped
@@ -1866,7 +1932,8 @@ class TurboBM25:
         limit = uncollected + e_q
         kth = float(out_s[k - 1]) if len(out_s) >= k else 0.0
         short = len(out_s) < k and uncollected > 0
-        if short or (len(out_s) >= k and kth < limit and uncollected > 0):
+        if (short or (len(out_s) >= k and kth < limit and uncollected > 0)
+                or self.force_cert_fail):
             self._bump("fallbacks")
             return self._bool_host_exact(r, k)
         return out_s, out_d
@@ -2014,3 +2081,390 @@ class TurboBM25:
             out_s[qi, : len(s)] = s
             out_d[qi, : len(d)] = d
         return out_s, out_d
+
+
+# --------------------------------------------------------------------------
+# the fused S > 1 engine (the reference's ICI-sharded ShardedTurbo)
+# --------------------------------------------------------------------------
+
+
+class ShardedTurbo:
+    """S > 1 TurboBM25 partitions swept in one launch per query chunk (the
+    reference's ShardedTurbo, turbo.py:2174). The reference padded every
+    partition's column cache to shared (nsw, Hp) maxima and stacked a copy
+    of them on a mesh's 'shard' axis; on one card the fused kernels
+    (kernels.fused_sweep_rowmax, _conj, _bitset) read each partition's own
+    column cache, live mask and bitsets through a table of pointers, so
+    this engine holds nothing on the device and nothing needs re-syncing
+    when a partition's cache changes. Every real (query, partition) output
+    is bitwise a solo dispatch's: the padding superwindows are dead and a
+    partition's weights past its own slots are zero.
+
+    The exact host rescore and the certificate (and any host-exact
+    fallback) run per partition: `search_many` / `search_bool` return
+    per-partition (scores, ords) shaped like `[t.search_*(..) for t in
+    turbos]`, which TurboEngine merges on the device (K4) or on the host
+    (`_merge3`). The device passes hold every partition's lock, taken in
+    partition order; the host rescore runs after they are released."""
+
+    def __init__(self, turbos: Sequence[TurboBM25],
+                 on_dispatch: Optional[Callable[[], None]] = None):
+        if len(turbos) < 2:
+            raise ValueError("fusion needs S > 1 partitions")
+        self.turbos = list(turbos)
+        self.device = self.turbos[0].device
+        if any(t.device != self.device for t in self.turbos):
+            raise ValueError("fused partitions must share one device")
+        self.nsw = max(t.nsw for t in self.turbos)
+        self.Hp = max(t.Hp for t in self.turbos)
+        self.qc_sizes = self.turbos[0].qc_sizes
+        # called once per fused launch (TurboEngine's counters), never for a
+        # faulted one: the circuit tests watch the count while it is open
+        self._on_dispatch = on_dispatch or (lambda: None)
+        # the bitsets of a partition whose pack faulted: its queries ride
+        # the launch as empty rows, which read only the zero sentinel
+        self._empty_bits: Dict[int, torch.Tensor] = {}
+
+    def extend_qc_sizes(self, sizes) -> None:
+        """Bucket-ladder hook, fused flavor: keeps the fused chunker and
+        the partitions (host rescore and fallback paths) on one width set."""
+        for t in self.turbos:
+            t.extend_qc_sizes(sizes)
+        self.qc_sizes = self.turbos[0].qc_sizes
+        hbm_ledger.note_primed("fused_turbo", self.qc_sizes)
+        hbm_ledger.note_primed("fused_turbo_bool", self.qc_sizes)
+        hbm_ledger.note_primed("fused_turbo_bitset", self.qc_sizes)
+
+    def _locked(self) -> contextlib.ExitStack:
+        """Every partition's engine lock, in partition order."""
+        st = contextlib.ExitStack()
+        for t in self.turbos:
+            st.enter_context(t._serve_lock)
+        return st
+
+    def _parts(self):
+        """The fused kernels' per-partition tensors and nsw."""
+        ts = self.turbos
+        return ([t.cols_hi for t in ts], [t.cols_lo for t in ts],
+                [t.live for t in ts], [t.nsw for t in ts])
+
+    def _take(self, rem: int) -> int:
+        return next((s for s in self.qc_sizes if s >= rem),
+                    self.qc_sizes[-1])
+
+    def _trace_chunk(self, QC: int, t0: float) -> None:
+        """A flight-recorder span per fused launch (the launch, not the
+        sweep: the caller's device span includes the read-back)."""
+        tc = tracing.current()
+        if tc is not None:
+            tc.add_span("device.fused_chunk",
+                        (time.monotonic() - t0) * 1e3,
+                        partitions=len(self.turbos), qc=QC)
+
+    def _launched(self, kind: str, QC: int, first: bool, t0: float) -> None:
+        self._on_dispatch()
+        if first:
+            hbm_ledger.note_compile_done(kind, QC, time.monotonic() - t0)
+        self._trace_chunk(QC, t0)
+
+    def _dispatch_disj(self, chunk, QC: int, n_rows: int):
+        S = len(self.turbos)
+        wq = np.zeros((S, 2, QC, self.Hp + 1), np.int8)
+        qs = np.ones((S, QC, 1), np.float32)
+        for i, t in enumerate(self.turbos):
+            w, q = t._sweep_weights(chunk, QC)
+            wq[i, :, :, : w.shape[2]] = w
+            qs[i] = q
+        t0 = time.monotonic()
+        first = hbm_ledger.note_dispatch("fused_turbo", QC)
+        hi, lo, live, nsw = self._parts()
+        dev = self.device
+        with faults.device_dispatch("fused_dispatch"):
+            out = kernels.fused_sweep_rowmax(
+                torch.from_numpy(qs).to(dev), hi, lo,
+                torch.from_numpy(wq).to(dev), live, nsw=nsw, n_rows=n_rows)
+        self._launched("fused_turbo", QC, first, t0)
+        return out
+
+    def _bits_of(self, i: int) -> torch.Tensor:
+        t = self.turbos[i]
+        if t.bits is not None:
+            return t.bits
+        if i not in self._empty_bits:
+            self._empty_bits[i] = torch.zeros(
+                (t.Hp + 2, t.nsw * kernels.SW_WORD_ROWS, 128),
+                dtype=torch.int32, device=self.device)
+        return self._empty_bits[i]
+
+    def _dispatch_bool(self, resolved, dev_sets, sel, QC: int, n_rows: int,
+                       use_bits: bool):
+        """(packed rows, nonzero-chunk counts or None) of one chunk of the
+        union of the partitions' device queries. A query a partition does
+        not send to the device rides the launch with inert inputs: zero
+        weights, and on the bitset route every clause slot at that
+        partition's zero sentinel (an empty mask)."""
+        S = len(self.turbos)
+        wq = np.zeros((S, 2, QC, self.Hp + 1), np.int8)
+        wp = np.zeros((S, QC, self.Hp + 1), np.int8)
+        nreq = np.zeros((S, QC, 1), np.int32)
+        qs = np.ones((S, QC, 1), np.float32)
+        if use_bits:
+            q_slots = np.zeros((S, QC, BITSET_CLAUSES), np.int32)
+            q_neg = np.zeros((S, QC, BITSET_NEGS), np.int32)
+        for i, t in enumerate(self.turbos):
+            chunk = [resolved[i][qi] if qi in dev_sets[i] else None
+                     for qi in sel]
+            w, p, nr, q = t._bool_weights(chunk, QC)
+            hp = w.shape[2]
+            wq[i, :, :, :hp] = w
+            wp[i, :, :hp] = p
+            nreq[i] = nr
+            qs[i] = q
+            if use_bits:
+                q_slots[i], q_neg[i] = t._bitset_prefetch(chunk, QC)
+        t0 = time.monotonic()
+        kind = "fused_turbo_bitset" if use_bits else "fused_turbo_bool"
+        first = hbm_ledger.note_dispatch(kind, QC)
+        hi, lo, live, nsw = self._parts()
+        dev = self.device
+        cnts = None
+        with faults.device_dispatch("fused_dispatch"):
+            if use_bits:
+                out, cnts = kernels.fused_sweep_rowmax_bitset(
+                    torch.from_numpy(qs).to(dev), torch.from_numpy(q_slots),
+                    torch.from_numpy(q_neg),
+                    [self._bits_of(i) for i in range(S)], hi, lo,
+                    torch.from_numpy(wq).to(dev), live, nsw=nsw,
+                    n_rows=n_rows)
+            else:
+                out = kernels.fused_sweep_rowmax_conj(
+                    torch.from_numpy(qs).to(dev),
+                    torch.from_numpy(nreq).to(dev), hi, lo,
+                    torch.from_numpy(wq).to(dev),
+                    torch.from_numpy(wp).to(dev), live, nsw=nsw,
+                    n_rows=n_rows)
+        self._launched(kind, QC, first, t0)
+        return out, cnts
+
+    # ---------------- search ----------------
+
+    def search_many(self, batches: Sequence[List], k: int = 10,
+                    check=None, fault_log=None):
+        """per[si][bi] = (scores [Q, k] f32, ords [Q, k] i32): what
+        `self.turbos[si].search_many(batches)` returns, with every
+        partition's sweep in one launch per chunk.
+
+        Fault containment: a partition whose column build faults, or a
+        chunk whose fused launch or read-back faults, is scored on the
+        host by the exact merge (bitwise the device route); the contained
+        faults go to fault_log as FaultRecords."""
+        flat, spans = _flatten_queries(batches)
+        S = len(self.turbos)
+        if not flat:
+            return [[(np.zeros((n, k), np.float32),
+                      np.zeros((n, k), np.int32)) for _, n in spans]
+                    for _ in range(S)]
+        failed, fused_err, swept = self._dispatch_many(flat, k, check)
+        out_s = np.zeros((S, len(flat), k), np.float32)
+        out_d = np.zeros((S, len(flat), k), np.int32)
+        # the exact host rescore, outside the partitions' locks
+        for off, n, per in swept:
+            for si, t in enumerate(self.turbos):
+                for qi in range(n):
+                    if per[si] is None:
+                        s, d = t._exact_query(flat[off + qi], k)
+                    else:
+                        rows_all, bounds, splits, colds = per[si]
+                        docs = t._collect_docs(rows_all[qi])
+                        s, d = t._finish_query(splits[qi], docs,
+                                               float(bounds[qi]), k,
+                                               colds[qi])
+                    out_s[si, off + qi, : len(s)] = s
+                    out_d[si, off + qi, : len(d)] = d
+        _log_faults(fault_log, failed, fused_err)
+        return [[(out_s[si, o: o + n], out_d[si, o: o + n])
+                 for o, n in spans] for si in range(S)]
+
+    def _dispatch_many(self, flat, k: int, check):
+        """The device passes of search_many under every partition's lock:
+        (failed partitions, the last fused fault, per chunk (offset,
+        count, per partition None (host) or (picked rows, row bounds, each
+        query's _split_terms, its cold side)))."""
+        with self._locked():
+            failed: Dict[int, DeviceFaultError] = {}
+            for i, t in enumerate(self.turbos):
+                try:
+                    t.ensure_columns([tm for q in flat for tm, _ in q
+                                      if t._term(tm) is not None])
+                except DeviceFaultError as e:
+                    failed[i] = e
+            n_rows = max(_GLOBAL_ROWS, k + 5)
+            pending = []
+            fused_err: Optional[DeviceFaultError] = None
+            off = 0
+            while off < len(flat):
+                take = self._take(len(flat) - off)
+                chunk = flat[off: off + take]
+                if check is not None:
+                    check()
+                try:
+                    packed_dev = self._dispatch_disj(chunk, take, n_rows)
+                except DeviceFaultError as e:
+                    packed_dev, fused_err = None, e
+                pending.append((off, len(chunk), packed_dev))
+                off += len(chunk)
+            swept = []
+            for off, n, packed_dev in pending:
+                if check is not None:
+                    check()
+                packed = None
+                if packed_dev is not None:
+                    try:
+                        with faults.device_errors("fused_dispatch"):
+                            packed = packed_dev.cpu().numpy()
+                    except DeviceFaultError as e:   # a fault at read-back
+                        packed, fused_err = None, e
+                per = []
+                for si, t in enumerate(self.turbos):
+                    if si in failed or packed is None:
+                        per.append(None)
+                        continue
+                    splits = [t._split_terms(flat[off + qi])
+                              for qi in range(n)]
+                    per.append((packed[si, :, :n_rows].astype(np.int64),
+                                packed[si, :, n_rows], splits,
+                                t._cold_sides([sp[2] for sp in splits])))
+                swept.append((off, n, per))
+            return failed, fused_err, swept
+
+    def search_bool(self, queries: Sequence[dict], k: int = 10,
+                    check=None, fault_log=None):
+        """per[si] = (scores [Q, k] f32, ords [Q, k] i32), bitwise each
+        partition's solo search_bool. Partitions may route a query
+        differently (device or host): the launch carries the union of the
+        device queries, inert where a partition routes one to the host.
+        Fault containment as in search_many, through _bool_host_exact."""
+        Q = len(queries)
+        S = len(self.turbos)
+        out_s = np.zeros((S, Q, k), np.float32)
+        out_d = np.zeros((S, Q, k), np.int32)
+        resolved, routes, dev_sets, failed, fused_err, swept = \
+            self._dispatch_bool_all(queries, k, check)
+        for sel, per in swept:
+            for si, t in enumerate(self.turbos):
+                for j, qi in enumerate(sel):
+                    if qi not in dev_sets[si]:
+                        continue
+                    if per[si] is None:
+                        s, d = t._bool_host_exact(resolved[si][qi], k)
+                    else:
+                        rows_all, bounds, colds, slots = per[si]
+                        docs = t._collect_docs(rows_all[j])
+                        s, d = t._finish_bool(resolved[si][qi], docs,
+                                              float(bounds[j]), k, colds[j],
+                                              slots[j])
+                    out_s[si, qi, : len(s)] = s
+                    out_d[si, qi, : len(d)] = d
+        for si, t in enumerate(self.turbos):
+            for qi in routes[si][1]:
+                if check is not None:
+                    check()
+                s, d = t._bool_host_exact(resolved[si][qi], k)
+                out_s[si, qi, : len(s)] = s
+                out_d[si, qi, : len(d)] = d
+        _log_faults(fault_log, failed, fused_err)
+        return [(out_s[si], out_d[si]) for si in range(S)]
+
+    def _dispatch_bool_all(self, queries, k: int, check):
+        """The device passes of search_bool under every partition's lock:
+        (resolved per partition, routes per partition, device query sets,
+        failed partitions, the last fused fault, per chunk (query indices,
+        per partition None (host) or (picked rows, row bounds, cold sides,
+        each query's _bool_slots as swept; None where the partition does
+        not send the query to the device)))."""
+        with self._locked():
+            resolved = [[t._resolve_bool(spec) for spec in queries]
+                        for t in self.turbos]
+            use_bits = bool(knob("ES_TPU_BITSET"))
+            failed: Dict[int, DeviceFaultError] = {}
+            routes = []
+            for si, t in enumerate(self.turbos):
+                try:
+                    t._ensure_bool(resolved[si])
+                    if use_bits:
+                        t._ensure_bits()
+                    rt = t._bool_routes(resolved[si])
+                    if use_bits:
+                        rt = t._gallop_routes(resolved[si], *rt)
+                    routes.append(rt)
+                except DeviceFaultError as e:
+                    failed[si] = e
+                    # every resolvable query takes the host for it
+                    routes.append(([], [qi for qi, r in
+                                        enumerate(resolved[si])
+                                        if r is not None]))
+                t.stats["bool_device"] += len(routes[si][0])
+            dev_sets = [set(dev) for dev, _ in routes]
+            union = sorted({qi for ds in dev_sets for qi in ds})
+            n_rows = max(_GLOBAL_ROWS, k + 5)
+            pending = []
+            fused_err: Optional[DeviceFaultError] = None
+            off = 0
+            while off < len(union):
+                take = self._take(len(union) - off)
+                sel = union[off: off + take]
+                if check is not None:
+                    check()
+                try:
+                    packed_dev, cnts_dev = self._dispatch_bool(
+                        resolved, dev_sets, sel, take, n_rows, use_bits)
+                except DeviceFaultError as e:
+                    packed_dev, cnts_dev, fused_err = None, None, e
+                pending.append((sel, packed_dev, cnts_dev))
+                off += len(sel)
+            swept = []
+            for sel, packed_dev, cnts_dev in pending:
+                if check is not None:
+                    check()
+                packed = cc = None
+                if packed_dev is not None:
+                    try:
+                        with faults.device_errors("fused_dispatch"):
+                            packed = packed_dev.cpu().numpy()
+                            if cnts_dev is not None:
+                                cc = cnts_dev.cpu().numpy()
+                    except DeviceFaultError as e:
+                        packed, cc, fused_err = None, None, e
+                per = []
+                for si, t in enumerate(self.turbos):
+                    if cc is not None:
+                        act = [j for j, qi in enumerate(sel)
+                               if qi in dev_sets[si]]
+                        if act:
+                            t._note_bitset_counts(
+                                cc[si, act], total=self.nsw * N_CHUNKS)
+                    if packed is None:
+                        per.append(None)
+                        continue
+                    mine = [resolved[si][qi] if qi in dev_sets[si] else None
+                            for qi in sel]
+                    per.append((
+                        packed[si, :, :n_rows].astype(np.int64),
+                        packed[si, :, n_rows],
+                        t._cold_sides([[] if r is None else t._cold_should(r)
+                                       for r in mine]),
+                        [None if r is None else t._bool_slots(r)
+                         for r in mine]))
+                swept.append((sel, per))
+            return resolved, routes, dev_sets, failed, fused_err, swept
+
+
+def _log_faults(fault_log, failed, fused_err) -> None:
+    """The fused engine's contained faults as FaultRecords: each failed
+    partition's, then the last fused launch's."""
+    if fault_log is None:
+        return
+    for i, e in sorted(failed.items()):
+        fault_log.append(FaultRecord.from_error(e, partition=i))
+    if fused_err is not None:
+        fault_log.append(FaultRecord.from_error(fused_err))

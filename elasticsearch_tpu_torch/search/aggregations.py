@@ -116,6 +116,20 @@ def finalize_shard_aggs(request: dict, shard_partials: List[Dict[str, Any]]) -> 
 # --------------------------------------------------------------------------
 
 
+def _value_docs(col) -> np.ndarray:
+    """The doc of each value of a numeric column (its value_start CSR
+    expanded), made once per column: a terms agg's per-bucket metrics
+    gather each bucket's mask through it instead of expanding the CSR
+    again for every bucket and metric (np.repeat of a bool mask is the
+    slow step)."""
+    vd = getattr(col, "_value_docs", None)
+    if vd is None:
+        counts = col.value_start[1:] - col.value_start[:-1]
+        vd = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
+        col._value_docs = vd
+    return vd
+
+
 def _numeric_all(ctx: AggContext, fname: str, mask: np.ndarray,
                  missing=None) -> np.ndarray:
     """All values (multi-valued flattened) of masked docs."""
@@ -125,8 +139,7 @@ def _numeric_all(ctx: AggContext, fname: str, mask: np.ndarray,
             return np.full(int(mask.sum()), float(missing))
         return np.empty(0, np.float64)
     sel = mask & col.exists
-    counts = (col.value_start[1:] - col.value_start[:-1])
-    take = np.repeat(sel, counts)
+    take = sel[_value_docs(col)]
     vals = col.all_values[take[: len(col.all_values)]] if len(col.all_values) else np.empty(0)
     if missing is not None:
         n_missing = int((mask & ~col.exists).sum())

@@ -30,8 +30,12 @@ Where the port differs from the reference:
 
 * **No mesh.** The snapshot carries the index's device instead
   (`ServingSnapshot(searchers, device)`); `select_bm25_engine` runs with
-  `device=snap.device`, and S > 1 partitions go through the sequential
-  route and `_merge3`.
+  `device=snap.device`. S > 1 partitions take the fused route, as the
+  reference's one-card mesh gives them (`_turbo_fused`): one launch per
+  query chunk for every partition (`parallel.turbo.ShardedTurbo`) and
+  the merge on the device (K4). `ES_TPU_TURBO_MESH` <= 0 gives the
+  sequential route and `_merge3`; on one card its other values mean
+  nothing more.
 * **The backend gate.** `knn_engine` builds on a `cuda` snapshot, and on
   the CPU only with `ES_TPU_FORCE_KNN` (the reference: on a TPU backend,
   or with the knob).
@@ -48,7 +52,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from elasticsearch_tpu_torch import device as _device
-from elasticsearch_tpu_torch.common import hbm_ledger, metrics, tracing
+from elasticsearch_tpu_torch.common import (
+    faults, hbm_ledger, integrity, metrics, tracing,
+)
 from elasticsearch_tpu_torch.common.errors import (
     DeviceFaultError, KernelBuildError, KernelLaunchError,
     SearchPhaseExecutionError,
@@ -467,7 +473,7 @@ def _env_cold_df() -> Optional[int]:
 
 
 # node-wide Turbo partition-merge counters (every TurboEngine adds to these
-# beside its own merge_stats); the fused keys stay 0 in the mesh-less port
+# beside its own merge_stats)
 _TURBO_NODE_STATS = {"merge_device": 0, "merge_host": 0,
                      "partition_dispatches": 0,
                      "fused_dispatches": 0}  # guarded by: _TURBO_NODE_LOCK
@@ -487,14 +493,17 @@ def turbo_node_stats() -> dict:
 
 def engine_desc(eng) -> Tuple[str, int]:
     """(description, partition count) of the tier that would run a
-    dispatch right now: `turbo` / `host_tier` (circuit open) / the engine's
-    kind / `host` (no engine). Profile output and trace spans use it."""
+    dispatch right now: `fused_turbo` / `turbo` / `host_tier` (circuit
+    open) / the engine's kind / `host` (no engine). Profile output and
+    trace spans use it."""
     kind = getattr(eng, "kind", None)
     parts = len(getattr(eng, "turbos", ()) or ()) or 1
     if kind == "turbo":
         health = getattr(eng, "health", None)
         if health is not None and not health.allow_device():
             return "host_tier", parts
+        if getattr(eng, "fused", False) and parts >= 2:
+            return "fused_turbo", parts
         return "turbo", parts
     return (kind or "host"), parts
 
@@ -541,22 +550,52 @@ def fastpath_profile_nodes(request, eng, dur_ms: float,
     return nodes
 
 
+def _turbo_fused(n_partitions: int) -> bool:
+    """Whether S partitions take the fused route: the mesh-less counterpart
+    of the reference's `_turbo_mesh` (serving.py:520), which on a one-card
+    host gives every S >= 2 a mesh unless ES_TPU_TURBO_MESH caps it at 0.
+    S < 2 has nothing to fuse."""
+    if n_partitions < 2:
+        return False
+    cap = knob("ES_TPU_TURBO_MESH")
+    return cap is None or cap > 0
+
+
 class TurboEngine:
     """Per-partition TurboBM25 engines behind the (scores, partition, ord)
-    search_many contract. Mesh-less: partitions run one after another and
-    merge through the host `_merge3` (the reference's S == 1 route); a
-    partition whose device path faults is served by its host tier, and a
-    faulted engine or an open circuit serves the whole batch there.
-    `check` is the cooperative-cancellation callable of the reference,
-    passed down to every partition's device and host tiers."""
+    search_many contract.
+
+    With S > 1 partitions and `fused`, every partition's sweep and row
+    pick run as one launch per query chunk (parallel.turbo.ShardedTurbo)
+    and the partition top-ks merge on the device
+    (parallel.spmd.merge_partition_topk, K4) with the (score desc,
+    partition asc, ord asc) order of the host `_merge3`, bitwise: the merge
+    permutes the exact f32 scores. Without it (S == 1, or
+    ES_TPU_TURBO_MESH=0) the partitions run one after another and merge
+    through `_merge3`, a partition whose device path faults served by its
+    host tier. A faulted engine or an open circuit serves the whole batch
+    from the host tier. `check` is the cooperative-cancellation callable
+    of the reference, passed down to every partition's device and host
+    tiers."""
 
     kind = "turbo"
 
-    def __init__(self, turbos: Sequence):
+    def __init__(self, turbos: Sequence, fused: bool = False):
         self.turbos = list(turbos)
         for i, t in enumerate(self.turbos):
             t.part_id = i          # fault-site attribution per partition
+        self.fused = bool(fused) and len(self.turbos) >= 2
+        self._sharded = None
+        if self.fused:
+            from elasticsearch_tpu_torch.parallel.turbo import ShardedTurbo
+
+            self._sharded = ShardedTurbo(self.turbos,
+                                         on_dispatch=self._count_fused)
         self.health = EngineHealth("turbo")
+        for t in self.turbos:
+            # repeated scrub mismatches in a partition's regions trip the
+            # circuit device faults trip
+            integrity.attach_scrub_health(t, self.health)
         self._stats_lock = threading.Lock()
         self.merge_stats = {"merge_device": 0, "merge_host": 0,
                             "partition_dispatches": 0,
@@ -589,6 +628,8 @@ class TurboEngine:
         request reaches its lane."""
         for t in self.turbos:
             t.extend_qc_sizes(sizes)
+        if self._sharded is not None:
+            self._sharded.extend_qc_sizes(sizes)
         if self.device is not None:
             from elasticsearch_tpu_torch.search import agg_device
 
@@ -631,24 +672,36 @@ class TurboEngine:
         if not self.health.allow_device():
             self.health.record_fallback(nq)
             return self._host_tier_many(batches, k, check)
+        fused = self._sharded
         try:
-            per = []
-            for t in self.turbos:
-                try:
-                    per.append(t.search_many(batches, k=k, check=check))
-                except DeviceFaultError as e:
-                    log.append(FaultRecord.from_error(e, partition=t.part_id))
-                    per.append(t.search_many_host(batches, k=k,
-                                                  check=check))
+            if fused is not None:
+                per = fused.search_many(batches, k=k, check=check,
+                                        fault_log=log)
+            else:
+                per = []
+                for t in self.turbos:
+                    try:
+                        per.append(t.search_many(batches, k=k, check=check))
+                    except DeviceFaultError as e:
+                        log.append(FaultRecord.from_error(
+                            e, partition=t.part_id))
+                        per.append(t.search_many_host(batches, k=k,
+                                                      check=check))
         except DeviceFaultError as e:
             log.append(FaultRecord.from_error(e))
             self.health.record_fault(e)
             self.health.record_fallback(nq)
             return self._host_tier_many(batches, k, check)
-        out = [self._merge_parts([p[bi] for p in per], len(batch), k)
+        out = [self._merge_parts([p[bi] for p in per], len(batch), k,
+                                 fault_log=log)
                for bi, batch in enumerate(batches)]
         self._health_account(log, n0)
         return out
+
+    def _count_fused(self) -> None:
+        """One fused launch: a dispatch of every partition."""
+        self._count("fused_dispatches")
+        self._count("partition_dispatches", len(self.turbos))
 
     def search_bool(self, queries: Sequence[dict], k: int = 10,
                     check=None, fault_log=None):
@@ -664,15 +717,21 @@ class TurboEngine:
             return self._merge3([t.search_bool_host(queries, k=k,
                                                     check=check)
                                  for t in self.turbos], len(queries), k)
+        fused = self._sharded
         try:
-            per = []
-            for t in self.turbos:
-                try:
-                    per.append(t.search_bool(queries, k=k, check=check))
-                except DeviceFaultError as e:
-                    log.append(FaultRecord.from_error(e, partition=t.part_id))
-                    per.append(t.search_bool_host(queries, k=k,
-                                                  check=check))
+            if fused is not None:
+                per = fused.search_bool(queries, k=k, check=check,
+                                        fault_log=log)
+            else:
+                per = []
+                for t in self.turbos:
+                    try:
+                        per.append(t.search_bool(queries, k=k, check=check))
+                    except DeviceFaultError as e:
+                        log.append(FaultRecord.from_error(
+                            e, partition=t.part_id))
+                        per.append(t.search_bool_host(queries, k=k,
+                                                      check=check))
         except DeviceFaultError as e:
             log.append(FaultRecord.from_error(e))
             self.health.record_fault(e)
@@ -680,7 +739,7 @@ class TurboEngine:
             return self._merge3([t.search_bool_host(queries, k=k,
                                                     check=check)
                                  for t in self.turbos], len(queries), k)
-        out = self._merge_parts(per, len(queries), k)
+        out = self._merge_parts(per, len(queries), k, fault_log=log)
         self._health_account(log, n0)
         return out
 
@@ -692,8 +751,28 @@ class TurboEngine:
         specs = [{"phrases": [(list(p), int(slop), 1.0)]} for p in phrases]
         return self.search_bool(specs, k=k, check=check, fault_log=fault_log)
 
-    def _merge_parts(self, per, Q: int, k: int):
-        """_merge3, counted as a host merge when partitions are merged."""
+    def _merge_parts(self, per, Q: int, k: int, fault_log=None):
+        """Per-partition (scores, docs) into the engine-wide (scores,
+        partition, ord) contract: on the device (K4) on the fused route,
+        through the host `_merge3` otherwise. A faulted device merge falls
+        back to `_merge3`, bitwise the same (the merge only permutes exact
+        f32 scores); a kernel error propagates."""
+        if len(per) > 1 and self.fused and Q > 0:
+            try:
+                with faults.device_dispatch("merge_kernel"):
+                    from elasticsearch_tpu_torch.parallel.spmd import (
+                        merge_partition_topk,
+                    )
+
+                    out = merge_partition_topk(
+                        np.stack([s for s, _ in per]),
+                        np.stack([d for _, d in per]), k,
+                        device=self.device)
+                self._count("merge_device")
+                return out
+            except DeviceFaultError as e:
+                if fault_log is not None:
+                    fault_log.append(FaultRecord.from_error(e))
         if len(per) > 1 and Q > 0:
             self._count("merge_host")
         return self._merge3(per, Q, k)
@@ -722,6 +801,7 @@ class TurboEngine:
         return out_s, out_p, out_o
 
     def hbm_bytes(self) -> int:
+        # the fused engine holds nothing of its own on the device
         return sum(t.hbm_bytes() for t in self.turbos)
 
     def prebuild_columns(self) -> int:
@@ -786,7 +866,8 @@ def select_bm25_engine(segments, field: str, live_masks=None, *,
     (objects with `n_docs` and a `postings` dict of FieldPostings): a
     TurboEngine where Turbo is eligible, else BlockMaxBM25 over the
     partitions stacked on `device` (the reference's one selection point,
-    serving.py:866)."""
+    serving.py:866). Several partitions take the fused route unless
+    ES_TPU_TURBO_MESH <= 0 (`_turbo_fused`)."""
     from elasticsearch_tpu_torch.parallel.blockmax import BlockMaxBM25
     from elasticsearch_tpu_torch.parallel.kernels import SW
     from elasticsearch_tpu_torch.parallel.spmd import build_stacked_bm25
@@ -832,7 +913,7 @@ def select_bm25_engine(segments, field: str, live_masks=None, *,
             stacked, hbm_budget_bytes=need_bytes,
             total_docs=total_docs, avgdl=avgdl,
             df_of=lambda t: df_map.get(t, 0), device=dev, **kwargs))
-    return TurboEngine(turbos)
+    return TurboEngine(turbos, fused=_turbo_fused(len(turbos)))
 
 
 # --------------------------------------------------------------------------

@@ -416,7 +416,8 @@ def test_turbo_engine_selected_and_matches_dense(turbo_pair):
         assert_bitwise(fast, ref.serving.try_search(body, "query_then_fetch"),
                        body)
     assert eng.stats["builds"] > 0
-    assert eng.stats["merge_host"] > 0       # two partitions merged
+    # two partitions, fused, merged on the device (K4)
+    assert eng.fused and eng.stats["merge_device"] > 0
 
 
 def test_turbo_msearch_batch(turbo_pair):
@@ -454,8 +455,10 @@ def test_try_query_phase_matches_reference(turbo_pair):
             (want.total, want.relation, want.max_score), body
         if body.get("profile"):
             assert got.profile[-1]["type"] == "DeviceDispatch"
-            assert "engine=turbo partitions=2" in \
+            assert "engine=fused_turbo partitions=2" in \
                 got.profile[-1]["description"]
+            assert got.profile[-1]["description"] == \
+                want.profile[-1]["description"]
     assert port.serving.try_query_phase(
         {"query": {"range": {"n": {"gte": 1}}}}) is None
 

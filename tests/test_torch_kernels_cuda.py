@@ -61,7 +61,8 @@ from elasticsearch_tpu_torch.parallel import cuda_build
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
     AGG_CASES, AGG_WORD_CASES, CONJ_EDGE_CASES, MERGE_EDGE_CASES,
-    PACK_CASES, SPARSE_BATCH_CASES, agg_inputs, agg_masks, agg_plan,
+    FUSED_CASES, PACK_CASES, SPARSE_BATCH_CASES, agg_inputs, agg_masks,
+    agg_plan, fused_inputs,
     agg_section, agg_word_inputs, overflow_slots, pack_inputs,
     merge_edge_inputs, bitset_edge_inputs, bitset_inputs, clause_slots,
     conj_edge_inputs, conj_inputs, knn_inputs, lanes_and_groups,
@@ -120,6 +121,106 @@ def test_sweep_rowmax_kernel(dev, qc, hpt, nsw, case):
     pm, pr = k.sweep_rowmax_plain(*args, nsw=nsw)
     torch.cuda.synchronize()
     assert torch.equal(km, pm) and torch.equal(kr, pr)
+
+
+def _fused_args(case, dev, mode):
+    """A fused wrapper's positional arguments for `mode` on the card (the
+    bitsets packed from each partition's columns by the plain pack)."""
+    f = fused_inputs(case)
+    c = {n: _c(f[n], dev) for n in ("qscale", "wq", "nreq", "wp")}
+    hi = [_c(a, dev) for a in f["hi"]]
+    lo = [_c(a, dev) for a in f["lo"]]
+    live = [_c(a, dev) for a in f["live"]]
+    if mode == "disj":
+        return (c["qscale"], hi, lo, c["wq"], live), f["nsw"]
+    if mode == "conj":
+        return (c["qscale"], c["nreq"], hi, lo, c["wq"], c["wp"], live), \
+            f["nsw"]
+    bits = [k.pack_presence_bits_plain(h, l_) for h, l_ in zip(hi, lo)]
+    return (c["qscale"], _c(f["q_slots"], "cpu"), _c(f["q_neg"], "cpu"),
+            bits, hi, lo, c["wq"], live), f["nsw"]
+
+
+FUSED_WRAPPERS = {
+    "disj": ("fused_sweep_rowmax", ("fused_sweep_rowmax",)),
+    "conj": ("fused_sweep_rowmax_conj", ("fused_sweep_rowmax_conj",)),
+    "bitset": ("fused_sweep_rowmax_bitset",
+               ("fused_intersect_bitset", "fused_sweep_rowmax_bitset")),
+}
+
+
+@pytest.mark.parametrize("mode", list(FUSED_WRAPPERS))
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_sweep_kernel(dev, case, mode):
+    """F1-F3 bitwise their plain versions (each partition's K2, K7 or K5 +
+    K6 and the row pick): partitions of different nsw and Hpt, QC not a
+    multiple of the group, a cache past the list floor, and 70 partitions
+    (two launches of MAX_FUSED_PARTS); once more on poisoned outputs and
+    from a CUDA graph; one launch of each kernel per 64 partitions."""
+    name, kernels_ = FUSED_WRAPPERS[mode]
+    args, nsw = _fused_args(case, dev, mode)
+    fn = getattr(k, name)
+    plain = getattr(k, name + "_plain")
+    n_launch = -(-len(nsw) // k.MAX_FUSED_PARTS)
+    k.reset_launches()
+    got = fn(*args, nsw=nsw, n_rows=33)
+    assert all(k.LAUNCHES[x] == n_launch for x in kernels_), k.LAUNCHES
+    if mode == "bitset":
+        pargs = (args[0], args[1].to(dev), args[2].to(dev)) + args[3:]
+        want = plain(*pargs, nsw=nsw, n_rows=33)
+    else:
+        want = plain(*args, nsw=nsw, n_rows=33)
+    with k.poisoned():
+        again = fn(*args, nsw=nsw, n_rows=33)
+    torch.cuda.synchronize()
+    for g, w, a in zip(got if mode == "bitset" else (got,),
+                       want if mode == "bitset" else (want,),
+                       again if mode == "bitset" else (again,)):
+        assert torch.equal(g, w) and torch.equal(a, w)
+    if case == "three":
+        keep = {}
+
+        def call():
+            if mode == "bitset":      # the launches, slots on the card
+                keep["out"] = k._fused_bitset_launches(
+                    *pargs, nsw, 33, [int(h.shape[1]) for h in args[4]])
+            else:
+                keep["out"] = fn(*args, nsw=nsw, n_rows=33)
+
+        call()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            call()
+        g.replay()
+        torch.cuda.synchronize()
+        out = keep["out"]
+        for o, w in zip(out if mode == "bitset" else (out,),
+                        want if mode == "bitset" else (want,)):
+            assert torch.equal(o, w)
+
+
+def test_fused_max_parts_matches_kernel(dev):
+    """kernels.MAX_FUSED_PARTS mirrors the built MAX_PARTS of both
+    sources' fused entries."""
+    assert cuda_build.kernel("fused_max_parts")() == k.MAX_FUSED_PARTS
+
+
+def test_fused_kernels_refuse_bad_tables(dev):
+    """The fused C entries refuse a table that does not fit the launch: a
+    partition nsw past nsw_max, more than MAX_PARTS partitions."""
+    args, nsw = _fused_args("three", dev, "disj")
+    qscale, hi, lo, wq, live = args
+    table = k._sweep_table(hi, lo, live, nsw,
+                           [int(h.shape[1]) for h in hi])
+    rm = torch.empty((3, 2, 8, k.CAND_PAD), device=dev)
+    rr = torch.empty((3, 2, 8, k.CAND_PAD), dtype=torch.int32, device=dev)
+    fn = cuda_build.kernel("fused_sweep_rowmax")
+    stream = torch.cuda.current_stream().cuda_stream
+    for n_parts, nsw_max in ((3, 1), (k.MAX_FUSED_PARTS + 1, 2)):
+        rc = fn(table.ctypes.data, n_parts, qscale.data_ptr(),
+                wq.data_ptr(), rm.data_ptr(), rr.data_ptr(), 8,
+                int(wq.shape[3]), nsw_max, stream)
+        assert rc != 0, (n_parts, nsw_max)
 
 
 def test_sweep_group_constants_match_kernel(dev):

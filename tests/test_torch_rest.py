@@ -75,11 +75,11 @@ VOLATILE = {
 # /_nodes/stats: every section is a set of live counters; the bodies are
 # compared by their key sets (test_nodes_stats_sections holds those).
 STATS_PATH = "/_nodes/stats"
-# reference knobs the port does not declare: the fused S > 1 mesh (ROADMAP
-# item 5), the startup integrity scan (item 10b), and the health knobs the
-# port fixes at their defaults (W16)
+# reference knobs the port does not declare: the startup integrity scan
+# (ROADMAP item 10b), and the health knobs the port fixes at their
+# defaults (W16)
 UNPORTED_KNOBS = {
-    "ES_TPU_TURBO_MESH", "ES_TPU_CHECK_ON_STARTUP",
+    "ES_TPU_CHECK_ON_STARTUP",
     "ES_TPU_HEALTH_TRIP_N", "ES_TPU_HEALTH_BACKOFF_MS",
 }
 

@@ -223,20 +223,27 @@ def _cancel_after(n):
     return check, calls
 
 
+@pytest.mark.parametrize("mesh", ["0", None], ids=["sequential", "fused"])
 @pytest.mark.parametrize("entry", ["search_many", "search_bool",
                                    "search_many_host", "search_bool_host"])
-def test_check_cancels_as_the_reference(index, monkeypatch, entry):
+def test_check_cancels_as_the_reference(index, monkeypatch, entry, mesh):
     """The check callables of TurboEngine and its host tiers are called at
     the reference's points: the same count before a completed call, and a
-    raising check cancels both at the same call. ES_TPU_TURBO_MESH=0 gives
-    the reference the port's sequential partition route."""
+    raising check cancels both at the same call, on both partition routes:
+    ES_TPU_TURBO_MESH=0 (sequential) and unset (fused: once per chunk at
+    the launch, once per chunk at the read-back, once per host-routed bool
+    query and partition)."""
     monkeypatch.setenv("ES_TPU_FORCE_TURBO", "1")
-    monkeypatch.setenv("ES_TPU_TURBO_MESH", "0")
+    if mesh is None:
+        monkeypatch.delenv("ES_TPU_TURBO_MESH", raising=False)
+    else:
+        monkeypatch.setenv("ES_TPU_TURBO_MESH", mesh)
     ref_segs, port_segs, lives = index
     ref = ref_serving.select_bm25_engine(ref_segs, "body", lives, None,
                                          cold_df=300)
     port = serving.select_bm25_engine(port_segs, "body", lives,
                                       device="cpu", cold_df=300)
+    assert port.fused == (ref.mesh is not None) == (mesh is None)
     qs = [[WORDS[i], WORDS[(i * 3) % len(WORDS)]] for i in range(10)]
     specs = [{"must": [(WORDS[i], 1.0)], "should": [(WORDS[i + 1], 1.0)]}
              for i in range(10)]
@@ -267,23 +274,30 @@ def test_check_cancels_as_the_reference(index, monkeypatch, entry):
         assert p_calls["n"] == r_calls["n"] == stop + 1
 
 
+@pytest.mark.parametrize("mesh", ["0", None], ids=["sequential", "fused"])
 @pytest.mark.parametrize("entry", ["search_many", "search_bool"])
 def test_host_rescore_runs_outside_the_engine_lock(index, monkeypatch,
-                                                   entry):
+                                                   entry, mesh):
     """TurboBM25 holds its lock over the device passes only: while a
     query's exact rescore and certificate run, another thread can take the
-    lock (a second lane's sweep), and the rows stay the reference's.
-    ES_TPU_BITSET_HOST_DF=0 keeps the bool queries on the device route."""
+    lock (a second lane's sweep), and the rows stay the reference's; on
+    the fused route (ES_TPU_TURBO_MESH unset) every partition's lock is
+    free while any partition rescores. ES_TPU_BITSET_HOST_DF=0 keeps the
+    bool queries on the device route."""
     import threading
 
     monkeypatch.setenv("ES_TPU_FORCE_TURBO", "1")
-    monkeypatch.setenv("ES_TPU_TURBO_MESH", "0")
+    if mesh is None:
+        monkeypatch.delenv("ES_TPU_TURBO_MESH", raising=False)
+    else:
+        monkeypatch.setenv("ES_TPU_TURBO_MESH", mesh)
     monkeypatch.setenv("ES_TPU_BITSET_HOST_DF", "0")
     ref_segs, port_segs, lives = index
     ref = ref_serving.select_bm25_engine(ref_segs, "body", lives, None,
                                          cold_df=8)
     port = serving.select_bm25_engine(port_segs, "body", lives,
                                       device="cpu", cold_df=8)
+    assert port.fused == (mesh is None)
     qs = [[WORDS[i], WORDS[(i * 3) % len(WORDS)]] for i in range(10)]
     specs = [{"must": [(WORDS[i], 1.0)], "should": [(WORDS[i + 1], 1.0)]}
              for i in range(10)]
@@ -296,15 +310,16 @@ def test_host_rescore_runs_outside_the_engine_lock(index, monkeypatch,
             got = []
 
             def other():
-                ok = _t._serve_lock.acquire(timeout=5)
-                got.append(ok)
-                if ok:
-                    _t._serve_lock.release()
+                for u in port.turbos:
+                    ok = u._serve_lock.acquire(timeout=5)
+                    got.append(ok)
+                    if ok:
+                        u._serve_lock.release()
 
             th = threading.Thread(target=other)
             th.start()
             th.join()
-            free.append(got == [True])
+            free.append(got == [True] * len(port.turbos))
             return _finish(*a)
 
         monkeypatch.setattr(t, name, spy)

@@ -798,21 +798,24 @@ def test_lane_kernel_launch_error_reaches_every_waiter():
 
 @pytest.mark.faults
 def test_scheduler_contains_injected_device_fault(monkeypatch):
-    """Under a merged scheduler dispatch every partition's turbo_sweep
-    faults, so containment re-scores the work through the host tier: rows
-    stay bitwise equal to solo rows and the FaultRecords reach every
-    waiter's fault_log (the reference also injects fused_dispatch, a site
-    of its fused S > 1 path, which the port does not have)."""
+    """ES_TPU_FAULTS-style device faults under a merged scheduler
+    dispatch: the two-partition engine's fused dispatch faults and any
+    per-partition turbo_sweep fallback faults too, so containment
+    re-scores the work through the host tier: rows stay bitwise equal to
+    solo rows and the FaultRecords reach every waiter's fault_log (the
+    reference's fused case, test_scheduler.py)."""
     monkeypatch.setenv("ES_TPU_COALESCE_US", "300000")
     svc = _build_index(monkeypatch, "u_sc_flt")
     try:
         eng = svc.serving.snapshot().engine("body")
+        assert eng.fused and len(eng.turbos) == 2
         queries = QUERIES[:4]
         solo = [eng.search_many([[q]], k=10)[0] for q in queries]
         sched = port_scheduler.AdaptiveDispatchScheduler(
             buckets=(4,), interactive_us=400000.0, bulk_us=400000.0)
         flogs = [[] for _ in queries]
-        with port_faults.inject("turbo_sweep:raisexinf"):
+        with port_faults.inject(
+                "fused_dispatch:raise@1;turbo_sweep:raisexinf"):
             results, errors = _concurrent_sched(sched, eng, queries,
                                                 fault_logs=flogs)
         assert errors == [None] * len(queries)
@@ -820,7 +823,8 @@ def test_scheduler_contains_injected_device_fault(monkeypatch):
             _assert_rows_equal(got, want, f"fault-contained {q}")
         for flog in flogs:
             assert flog, "fault records must reach every waiter"
-            assert all(f.site == "turbo_sweep" for f in flog)
+            assert all(f.site in ("fused_dispatch", "turbo_sweep")
+                       for f in flog)
         assert sched.stats()["sched_batch_retries"] == 0
     finally:
         svc.close()

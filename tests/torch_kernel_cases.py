@@ -2098,3 +2098,60 @@ def blockmax_partitions(n_parts=2, n_docs=6000, vocab=400, seed=67):
         parts.append(_Partition(n_docs, build_field_postings(
             "body", lens, docs, toks, names)))
     return parts, names
+
+
+# F1-F3, the fused sweeps: partitions of their own (nsw, Hpt), one QC
+FUSED_CASES = {
+    "three": (8, ((2, 33), (1, 9), (2, 17))),
+    "qc24": (24, ((1, 33), (3, 40))),       # QC not a multiple of G
+    "wide": (16, ((1, 700), (2, 33))),      # a cache past the list floor
+    "many": (8, ((1, 9),) * 70),            # past MAX_FUSED_PARTS
+}
+
+
+def fused_inputs(case):
+    """One fused launch's inputs: per partition sweep_inputs' columns and
+    live mask, its weights stacked on a partition axis padded to the widest
+    cache, K7's nreq / wp (a required slot and a must_not among a query's
+    weighted slots), and K5's clause slots (clause_slots, partition-local,
+    over each partition's Hp = Hpt - 1; slot Hp zero, as the engine keeps
+    it). Returns a dict of numpy arrays:
+    qscale [S, QC, 1], wq [S, 2, QC, Hw], nreq [S, QC, 1], wp [S, QC, Hw],
+    q_slots [S, QC, 8], q_neg [S, QC, 4], and lists hi, lo, live, nsw."""
+    qc, parts = FUSED_CASES[case]
+    seed = 60 + list(FUSED_CASES).index(case)
+    rng = np.random.default_rng(seed)
+    S, hw = len(parts), max(h for _, h in parts)
+    out = {"qscale": np.ones((S, qc, 1), np.float32),
+           "wq": np.zeros((S, 2, qc, hw), np.int8),
+           "nreq": np.zeros((S, qc, 1), np.int32),
+           "wp": np.zeros((S, qc, hw), np.int8),
+           "q_slots": np.zeros((S, qc, k.BITSET_CLAUSES), np.int32),
+           "q_neg": np.zeros((S, qc, k.BITSET_NEGS), np.int32),
+           "hi": [], "lo": [], "live": [], "nsw": []}
+    for i, (nsw, hpt) in enumerate(parts):
+        qs, hi, lo, wq, live = sweep_inputs(seed * 100 + i, qc=qc, hpt=hpt,
+                                            nsw=nsw)
+        if case == "wide" and i == 0:
+            wq[:, :4] = rng.integers(-127, 128, size=(2, 4, hpt))
+        # slot Hp is the engine's scratch slot, always zero: the bitsets'
+        # zero sentinel, which K5 takes as empty without reading it
+        hi[:, hpt - 1] = 0
+        lo[:, hpt - 1] = 0
+        wq[:, :, hpt - 1] = 0
+        out["qscale"][i] = qs
+        out["wq"][i, :, :, :hpt] = wq
+        for q in range(qc):
+            slots = np.nonzero(wq[0, q])[0]
+            if len(slots):
+                out["wp"][i, q, slots[0]] = 1
+                out["nreq"][i, q, 0] = 1
+            other = int(rng.integers(0, hpt - 1))
+            if not len(slots) or other != slots[0]:
+                out["wp"][i, q, other] = -2
+        out["q_slots"][i], out["q_neg"][i] = clause_slots(
+            seed * 100 + i, qc, hpt - 1)
+        for name, a in (("hi", hi), ("lo", lo), ("live", live)):
+            out[name].append(a)
+        out["nsw"].append(nsw)
+    return out
