@@ -243,6 +243,23 @@ aggregation path the way bench.py drives config 6:
 13. prints the card's name and power limit and a `kernels` JSON line, and
    last `{"ok": true, "device": {...}}`.
 
+The integrity plane runs on engines the phases already built
+(`integrity_phase`): the main path's TurboBM25 at the end of step 6 (before
+the fused phase frees it), knn_phase's S = 1 engine and agg_phase's
+layouts. Each gets one full HBM scrub cycle (every region downloaded once
+and hashed, each region's bytes and seconds logged; all clean or
+baselined), an injected `hbm_region#<region>` flip and an in-place flip of
+one device tensor through .copy_() (Turbo's column cache, whose repair
+drops the cache so K1 rebuilds), each found and repaired; then the
+engine's held answers again, bitwise (K1-K3, K9, K8 launched after the
+repairs; kNN also within KNN_GAMMA of the dense route), and, where the
+engine has a health circuit (Turbo, kNN), ES_TPU_HEALTH_TRIP_N injected
+mismatches open it and a search after the backoff closes it. The cluster
+phase runs its replicated index with ES_TPU_CHECK_ON_STARTUP on, then
+`startup_scan_step`: four CrashRestartCluster nodes with data paths, a
+recovered copy whose startup scan reads a flipped blob is failed before
+it starts and recovered again.
+
 The kNN column is cut from bench.py's 10M vectors to 2,000,000: at 10M a
 single run would hold three 30 GB host copies of the column, assign 10M
 rows to 1024 k-means centroids on the host and upload a 15 GB dense
@@ -2611,6 +2628,7 @@ def knn_phase(n: int, device="cuda", k4_parent_src=None,
                 f"{rep['recall_at_10']} ({time.time() - t:.1f}s)")
             require(rep["recall_at_10"] >= MIN_RECALL,
                     f"knn recall@10 {rep['recall_at_10']} < {MIN_RECALL}")
+            rep["integrity"] = knn_integrity(eng, qs, ans)
         else:
             k4 = check_k4(merges, ans["int8"], eng.device,
                           k4_parent(k4_parent_src))
@@ -3247,6 +3265,8 @@ def agg_phase(n: int, device="cuda", k8_parent_src=None,
                 f"coalesced work {i} differs from its Q = 1 result")
     log("coalesced batch: 8 works in one dispatch equal their Q = 1 results")
 
+    integ = agg_integrity(ctx, lay, cmasks, dev_out)
+
     report = {
         "docs": n, "cut": n < AGG_DOCS, "data_s": data_s,
         "tag_pairs": int(len(kc.all_ords)),
@@ -3264,7 +3284,8 @@ def agg_phase(n: int, device="cuda", k8_parent_src=None,
         "hbm_bytes": eng.hbm_bytes(), "ledger_bytes": eng.ledger_bytes(),
         "counters": d, "launches": launches,
         "shapes_held": len(shape_dev), "hold_host_s": hold_s,
-        "coalesced": {"works": len(batch), "equal_to_q1": True}}
+        "coalesced": {"works": len(batch), "equal_to_q1": True},
+        "integrity": integ}
     del batch, lay
     return row, report
 
@@ -6798,7 +6819,7 @@ def cluster_phase(seg, n: int, answers: dict, held: dict,
     import torch
 
     from elasticsearch_tpu_torch.cluster_node import form_local_cluster
-    from elasticsearch_tpu_torch.common import relocation
+    from elasticsearch_tpu_torch.common import integrity, relocation
     from elasticsearch_tpu_torch.parallel import kernels
     from elasticsearch_tpu_torch.search import serving
 
@@ -6900,14 +6921,25 @@ def cluster_phase(seg, n: int, answers: dict, held: dict,
         master.delete_index("serving")
         torch.cuda.empty_cache()
 
-        # ---- 2. the replicated index ----
-        with env_set("ES_TPU_TURBO_COLD_DF", str(REPL_COLD_DF)):
+        # ---- 2. the replicated index, with the startup checksum scan on
+        # (these nodes hold no data path: each scan finds no blob) ----
+        c0 = integrity.integrity_stats()
+        with env_set("ES_TPU_TURBO_COLD_DF", str(REPL_COLD_DF)), \
+                env_set("ES_TPU_CHECK_ON_STARTUP", "1"):
             rep["replicated"] = replicated_steps(nodes, store, channels,
                                                  answers)
+        c1 = integrity.integrity_stats()
+        scans = {k: c1[k] - c0[k] for k in ("startup_checks",
+                                             "startup_failures")}
+        require(scans["startup_checks"] >= 2
+                and scans["startup_failures"] == 0,
+                f"repl: startup scans {scans}")
+        rep["replicated"]["startup_scans"] = scans
         rep["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     finally:
         for nd in nodes:
             nd.close()
+    rep["startup_scan"] = startup_scan_step(device)
     rep["phase_s"] = time.time() - t_phase
     log(f"cluster phase took {rep['phase_s']:.1f}s; peak device memory "
         f"{rep['peak_device_bytes'] / 2**30:.2f} GiB (serving index "
@@ -6916,6 +6948,68 @@ def cluster_phase(seg, n: int, answers: dict, held: dict,
     del nodes, by_name, master, store, channels
     torch.cuda.empty_cache()
     return launches, rep["new_shapes"], rep
+
+
+SCAN_DOCS = 2_000   # docs of the startup-scan index (a data path each)
+
+
+def startup_scan_step(device="cuda") -> dict:
+    """Step 3 of cluster_phase: ES_TPU_CHECK_ON_STARTUP with blobs to read.
+    Four CrashRestartCluster nodes on `device` (m0 the master), each with a
+    data path under a temporary directory; an index of one shard and a
+    replica, SCAN_DOCS of the replicated index's docs through _bulk. The
+    replica's node dies; the spare node recovers a copy from the primary,
+    and with the knob on the first blob its scan reads comes back flipped
+    (an injected segment_read clause): the scan fails the copy before it
+    reports started, the master recovers it again, and the second scan
+    is clean. Every doc reads back; the copy is in sync."""
+    import shutil
+    import tempfile
+
+    from elasticsearch_tpu_torch.common import faults, integrity
+    from elasticsearch_tpu_torch.testing.chaos import CrashRestartCluster
+
+    t = time.time()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scan_")
+    try:
+        cluster = CrashRestartCluster(["m0", "d0", "d1", "d2"], tmp,
+                                      roles={"m0": ("master",)},
+                                      device=device)
+        cluster.master().create_index("scan", {
+            "settings": {"number_of_shards": 1, "number_of_replicas": 1},
+            "mappings": REPL_MAPPING})
+        docs = repl_docs(SCAN_DOCS)
+        r = cluster.master().bulk("scan", docs)
+        require(not r["errors"], "scan: _bulk had errors")
+        replica = next(c.node_id for c in cluster.store.current()
+                       .shard_copies("scan", 0)
+                       if not c.primary and c.state == "STARTED")
+        c0 = integrity.integrity_stats()
+        with env_set("ES_TPU_CHECK_ON_STARTUP", "1"), \
+                faults.inject("segment_read:raise@1x1"):
+            cluster.crash(replica)
+        c1 = integrity.integrity_stats()
+        d = {k: c1[k] - c0[k] for k in (
+            "startup_checks", "startup_failures", "shards_failed_corrupt",
+            "segments_verified", "bytes_verified")}
+        require(d["startup_checks"] >= 2 and d["startup_failures"] == 1
+                and d["shards_failed_corrupt"] >= 1
+                and d["segments_verified"] >= 1,
+                f"scan: startup scan counters {d}")
+        inst = cluster.primary_instance("scan", docs[0]["id"])
+        require(len(inst.tracker.in_sync_ids) == 2,
+                f"scan: in-sync copies {inst.tracker.in_sync_ids}")
+        for op in docs[::97]:
+            require(cluster.read_doc("scan", op["id"]) == op["source"],
+                    f"scan: doc {op['id']} reads back wrong")
+        for nd in cluster.nodes:
+            nd.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    d["s"] = time.time() - t
+    log(f"cluster startup scan: a flipped blob failed the recovered copy "
+        f"before it started, the second recovery scanned clean: {d}")
+    return d
 
 
 def replicated_steps(nodes, store, channels, answers) -> dict:
@@ -7604,6 +7698,215 @@ def fused_phase(fp, n: int, batches, dsl, main_rows, held, bool_ans,
     return kernel_rows, report
 
 
+# ---------------------------------------------------------------------------
+# the integrity plane on the card: the HBM scrub of engines already built
+# ---------------------------------------------------------------------------
+
+SCRUB_RESULTS_OK = ("clean", "baselined")
+
+
+def flip_in_place(t) -> None:
+    """One bit of the tensor's middle byte flipped where it lies, through
+    .copy_() of that one byte (rot in device memory, no injection)."""
+    import torch
+
+    b = t.view(-1).view(torch.uint8)
+    mid = b.numel() // 2
+    bad = torch.tensor([int(b[mid].item()) ^ 1], dtype=torch.uint8,
+                       device=t.device)
+    b[mid:mid + 1].copy_(bad)
+
+
+def integrity_phase(label: str, owners, inject, inplace, rerun, need,
+                    health=None, probe=None, trip=None) -> dict:
+    """The HBM scrub on an engine an earlier phase built and still holds:
+      1. one full scrub cycle over every region of `owners` (each region
+         downloaded once and hashed, host-backed ones against their host
+         copy, device-built ones baselined), every result clean or
+         baselined; each region's bytes and seconds (D2H + sha256) logged;
+      2. `inject` = (owner, region): an injected hbm_region flip, found
+         and repaired;
+      3. `inplace` = (owner, region, attr): one bit of the device tensor
+         `owner.attr` flipped through .copy_(), found and repaired;
+      4. `rerun()` serves the engine's held answers again and requires them
+         bitwise; every launch count set to 0 just before and read just
+         after, and each kernel of `need` launched;
+      5. with an EngineHealth (`health`): ES_TPU_HEALTH_TRIP_N injected
+         mismatches in a row of `trip` = (owner, region) (default:
+         `inject`'s) open its circuit, and after the backoff `probe()` (a
+         search, which requires its answers) is the half-open probe that
+         closes it.
+    Returns the phase's report."""
+    from elasticsearch_tpu_torch.common import faults, integrity
+    from elasticsearch_tpu_torch.common.settings import knob
+    from elasticsearch_tpu_torch.parallel import kernels
+
+    t0 = time.time()
+    c0 = integrity.integrity_stats()
+    regions = {}
+    for o in owners:
+        for r in integrity.scrub_owner(o):
+            require(r["result"] in SCRUB_RESULTS_OK,
+                    f"{label} scrub: {r['region']} is {r['result']} on a "
+                    f"clean engine")
+            regions[r["region"]] = {"bytes": r["bytes"],
+                                    "scrub_s": r["seconds"],
+                                    "result": r["result"]}
+            log(f"{label} scrub region {r['region']}: {r['bytes']} bytes, "
+                f"{r['seconds']:.3f}s (D2H + sha256), {r['result']}")
+    cycle_s = time.time() - t0
+    require(regions, f"{label}: no scrub region registered")
+
+    def flipped(owner, name, what):
+        (r,) = integrity.scrub_owner(owner, [name])
+        require(r["result"] == "mismatch" and r.get("repaired"),
+                f"{label} scrub: {what} on {name} gave {r}")
+        # the repaired region scrubs clean (or re-baselines), which also
+        # ends the run of mismatches on the engine's circuit
+        (r,) = integrity.scrub_owner(owner, [name])
+        require(r["result"] in SCRUB_RESULTS_OK,
+                f"{label} scrub: {name} after its repair gave {r}")
+
+    t = time.time()
+    o, name = inject
+    with faults.inject(f"hbm_region#{name}:raise@1x1"):
+        flipped(o, name, "an injected flip")
+    inject_s = time.time() - t
+    t = time.time()
+    o, name, attr = inplace
+    flip_in_place(getattr(o, attr))
+    flipped(o, name, "an in-place flip")
+    inplace_s = time.time() - t
+
+    t = time.time()
+    kernels.reset_launches()
+    rerun()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    for k in need:
+        require(launches.get(k, 0) > 0,
+                f"{label}: {k} did not launch after the repairs: "
+                f"{launches}")
+    rerun_s = time.time() - t
+    rep = {"regions": regions, "full_cycle_s": cycle_s,
+           "injected_flip_s": inject_s, "in_place_flip_s": inplace_s,
+           "rerun_s": rerun_s, "launches": launches}
+    trips = 0
+    if health is not None:
+        trip_n = int(knob("ES_TPU_HEALTH_TRIP_N"))
+        require(health.trip_n == trip_n and health.state == "closed",
+                f"{label}: health {health.stats()}")
+        opens = health.counters["circuit_opens"]
+        o, name = trip or inject
+        for i in range(trip_n):
+            require(health.state == "closed",
+                    f"{label}: circuit open after {i} mismatches")
+            with faults.inject(f"hbm_region#{name}:raise@1x1"):
+                (r,) = integrity.scrub_owner(o, [name])
+            require(r["result"] == "mismatch",
+                    f"{label} scrub: mismatch {i + 1} of {trip_n} gave {r}")
+        trips = trip_n
+        require(health.state == "open"
+                and health.counters["circuit_opens"] == opens + 1,
+                f"{label}: circuit not open after {trip_n} scrub "
+                f"mismatches: {health.stats()}")
+        time.sleep(health.backoff_ms / 1000.0 + 0.05)
+        probes = health.counters["probe_successes"]
+        probe()
+        require(health.state == "closed"
+                and health.counters["probe_successes"] == probes + 1,
+                f"{label}: the probe did not close the circuit: "
+                f"{health.stats()}")
+        rep["health"] = {"trip_n": trip_n,
+                         "backoff_ms": health.base_backoff_ms,
+                         "transitions": list(health._transitions)[-3:]}
+    c1 = integrity.integrity_stats()
+    d = {k: c1[k] - c0[k] for k in ("scrub_ticks", "scrub_clean",
+                                    "scrub_baselined", "scrub_mismatches",
+                                    "scrub_repairs", "scrub_repaired_bytes")}
+    require(d["scrub_mismatches"] == d["scrub_repairs"] == 2 + trips,
+            f"{label} scrub counters {d}")
+    rep["counters"] = d
+    rep["phase_s"] = time.time() - t0
+    log(f"{label} integrity: full cycle {cycle_s:.2f}s over "
+        f"{sum(r['bytes'] for r in regions.values())} bytes in "
+        f"{len(regions)} regions; injected and in-place flips repaired, "
+        f"answers bitwise again (launches {launches}); counters {d}; "
+        f"{rep['phase_s']:.1f}s")
+    return rep
+
+
+def turbo_integrity(eng, batches, dsl, results) -> dict:
+    """integrity_phase on the main path's engine (S = 1): its regions
+    scrubbed, an injected flip of `live` and an in-place flip of the column
+    cache (a baseline region: its repair drops the cache, so K1 rebuilds
+    on the rerun) repaired, the first HOLD_PER_BATCH queries of batch 0
+    and the DSL bodies bitwise the main path's answers again, the circuit
+    tripped and closed by a search of 8 queries."""
+    (turbo,) = eng.turbos
+
+    def answers(b, want, label):
+        gs, _, go = eng.search_many([b], k=K)[0]
+        m = len(b)
+        require(np.array_equal(gs, want[0][:m])
+                and np.array_equal(go, want[2][:m]),
+                f"turbo {label}: answers differ from the main path's")
+
+    def rerun():
+        answers(batches[0][:HOLD_PER_BATCH], results[0], "rerun")
+        answers(dsl, results[-1], "rerun (DSL bodies)")
+
+    return integrity_phase(
+        "turbo", [turbo], (turbo, "live"), (turbo, "cols_hi", "cols_hi"),
+        rerun, ("build_columns", "sweep_rowmax", "sparse_gather"),
+        eng.health, lambda: answers(batches[0][:8], results[0], "probe"))
+
+
+def knn_integrity(eng, qs, ans) -> dict:
+    """integrity_phase on knn_phase's S = 1 engine: an injected flip of
+    knn_shards and an in-place flip of the row meta repaired, the 256
+    queries bitwise the int8 route's warm answers again and within the
+    score bound of the dense route's, the circuit tripped (on the row
+    meta: 32 MB a scrub, not knn_shards' 1.5 GB) and closed by the same
+    search."""
+    from elasticsearch_tpu_torch.parallel import knn as knn_mod
+
+    works = [knn_mod.KnnWork(q) for q in qs]
+    bound = knn_score_bound(qs)
+
+    def rerun():
+        got = eng.search_many([works], k=K)[0]
+        require(all(np.array_equal(a, b)
+                    for a, b in zip(got, ans["int8_warm"])),
+                "knn S=1: answers after the repairs differ")
+        knn_agree(got, ans["dense"], bound, "knn S=1 after the repairs")
+
+    return integrity_phase(
+        "knn S=1", [eng], (eng, "knn_shards"), (eng, "knn_meta", "d_meta"),
+        rerun, ("knn_int8_window_topc",), eng.health, rerun,
+        trip=(eng, "knn_meta"))
+
+
+def agg_integrity(ctx, lay, cmasks, dev_out) -> dict:
+    """integrity_phase on agg_phase's layouts: every layout's region
+    scrubbed, an injected flip of the terms_metric layout `lay` and an
+    in-place flip of another layout repaired, the config-6 requests
+    bitwise `dev_out` again (K8). The agg tier has no health circuit, as
+    in the reference."""
+    from elasticsearch_tpu_torch.search import agg_device
+
+    layouts = [x for x in ctx.leaf.segment._device.values()
+               if isinstance(x, agg_device._AggLayout)]
+    other = next(x for x in layouts if x is not lay)
+
+    def rerun():
+        out, _ = run_aggs(ctx, AGG_SPEC, cmasks)
+        require(out == dev_out, "config 6 after the repairs differs")
+
+    return integrity_phase("agg", layouts, (lay, lay.region_name),
+                           (other, other.region_name, "dev"), rerun,
+                           ("agg_counts",))
+
+
 def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
         agg_docs: int, k3_parent_src=None, k2_parent_src=None,
         k8_parent_src=None, k4_parent_src=None, k5_parent_src=None,
@@ -7783,6 +8086,8 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     peak = max(torch.cuda.max_memory_allocated(),
                bool_report.pop("peak_device_bytes_before"))
     ledger = hbm_ledger.hbm_stats()
+
+    integ = {"turbo": turbo_integrity(eng, batches, dsl, results)}
     del eng, turbo
     torch.cuda.empty_cache()
 
@@ -7852,7 +8157,14 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     log(f"agg phase took {agg_report['phase_s']:.1f}s")
     rest = serving_report["rest"]
     admin = serving_report["admin"]
+    integ["knn"] = knn_report["S=1"]["integrity"]
+    integ["agg"] = agg_report["integrity"]
+    integ_launches = {}
+    for rep_ in integ.values():
+        for name, v in rep_["launches"].items():
+            integ_launches[name] = integ_launches.get(name, 0) + v
     for r in rows:
+        r["integrity_launches"] = integ_launches.get(r["name"], 0)
         r["serving_launches"] = s_launches.get(r["name"], 0)
         r["rest_launches"] = rest["launches"].get(r["name"], 0)
         r["admin_launches"] = admin["launches"].get(r["name"], 0)
@@ -7876,6 +8188,7 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
                "blockmax": bm_report["phase_s"],
                "cluster": cluster_report["phase_s"],
                "knn": knn_report["phase_s"], "agg": agg_report["phase_s"],
+               "integrity": sum(x["phase_s"] for x in integ.values()),
                "script": time.time() - T0}
     log("phase times: " + ", ".join(f"{k} {v:.1f}s"
                                     for k, v in phase_s.items()))
@@ -7900,6 +8213,7 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
                "index_service": serving_report,
                "blockmax": bm_report,
                "cluster": cluster_report,
+               "integrity": integ,
                "hbm_ledger": ledger,
                "kernel_build_s": build_s,
                "peak_device_bytes": peak}

@@ -35,25 +35,28 @@ from typing import Any, List, Optional
 from elasticsearch_tpu_torch.common.errors import DeviceFaultError, HbmOomError
 from elasticsearch_tpu_torch.common.settings import knob
 
-# Every site name the reference knows, so one ES_TPU_FAULTS value parses in
-# both packages; this slice fires turbo_sweep, column_upload, sparse_gather.
+# Every site name the reference knows, in the reference's groups, so one
+# ES_TPU_FAULTS value parses in both packages.
+TRANSPORT_SITES = frozenset({
+    "rpc_query", "rpc_fetch", "rpc_can_match", "rpc_bulk",
+    "rpc_replica_bulk", "rpc_recovery", "rpc_resync", "rpc_relocation",
+    "rpc_remote_search", "rpc_ccr_fetch",
+})
+DURABILITY_SITES = frozenset({
+    "translog_fsync", "translog_corrupt", "segment_commit",
+})
+OVERLOAD_SITES = frozenset({"overload_pressure"})
+# bit-flip sites (common/integrity.py): `corruption_fires()` tells the
+# caller to damage its payload; they never raise at the site
+CORRUPTION_SITES = frozenset({
+    "segment_read", "segment_transfer", "hbm_region",
+})
 KNOWN_SITES = frozenset({
     "turbo_sweep", "fused_dispatch", "merge_kernel", "column_upload",
     "bitset_intersect", "sparse_gather", "blockmax_pass", "agg_reduce",
     "knn_score", "knn_rescore",
-    "rpc_query", "rpc_fetch", "rpc_can_match", "rpc_bulk",
-    "rpc_replica_bulk", "rpc_recovery", "rpc_resync", "rpc_relocation",
-    "rpc_remote_search", "rpc_ccr_fetch",
-    "translog_fsync", "translog_corrupt", "segment_commit",
-    "overload_pressure",
-    "segment_read", "segment_transfer", "hbm_region",
-})
-_NAMED_PART_SITES = frozenset({
-    "rpc_query", "rpc_fetch", "rpc_can_match", "rpc_bulk",
-    "rpc_replica_bulk", "rpc_recovery", "rpc_resync", "rpc_relocation",
-    "rpc_remote_search", "rpc_ccr_fetch",
-    "segment_read", "segment_transfer", "hbm_region",
-})
+}) | TRANSPORT_SITES | DURABILITY_SITES | OVERLOAD_SITES | CORRUPTION_SITES
+_NAMED_PART_SITES = TRANSPORT_SITES | CORRUPTION_SITES
 
 _MODES = frozenset({"raise", "oom", "hang"})
 

@@ -205,11 +205,19 @@ def register_engine(obj: object, kind: str, devices: int = 1) -> LedgerHandle:
 def note_primed(kind: str, sizes) -> None:
     """Record bucket-ladder priming (extend_qc_sizes). Priming does not
     trace by itself — the trace still lands at the first dispatch — so
-    primed shapes are tracked separately from seen shapes."""
+    primed shapes are tracked separately from seen shapes. A shape is a
+    width, or a name where a kernel has one launch shape for any width
+    (K3's ``batched``)."""
     with _LOCK:
         for s in sizes:
-            _PRIMED.add((kind, int(s)))
+            _PRIMED.add((kind, s if isinstance(s, str) else int(s)))
         metrics.gauge_set("tpu_compile.primed_shapes", len(_PRIMED))
+
+
+def _shape_order(key):
+    """(kind, width) pairs in width order, named shapes after them."""
+    kind, shape = key
+    return kind, isinstance(shape, str), shape
 
 
 def note_dispatch(kind: str, shape) -> bool:
@@ -333,7 +341,8 @@ def compile_stats() -> dict:
         misses = _COMPILE_MISSES[0]
         total = hits + misses
         return {
-            "primed_shapes": [f"{k}:{s}" for k, s in sorted(_PRIMED)],
+            "primed_shapes": [f"{k}:{s}" for k, s in
+                              sorted(_PRIMED, key=_shape_order)],
             "seen_shapes": len(_SEEN),
             "hits": hits,
             "misses": misses,

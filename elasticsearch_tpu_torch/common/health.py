@@ -1,5 +1,5 @@
 """Per-engine device-health tracking with a dispatch circuit breaker (the
-port's copy of elasticsearch_tpu/common/health.py, whole but for the knobs).
+port's copy of elasticsearch_tpu/common/health.py, whole).
 
 `EngineHealth` is a small three-state machine (closed / open / half_open):
 
@@ -12,9 +12,9 @@ port's copy of elasticsearch_tpu/common/health.py, whole but for the knobs).
   resets the backoff; another fault re-opens it with exponential backoff
   (doubling, capped at 32× the base).
 
-The reference reads `trip_n` and `backoff_ms` from knobs
-(``ES_TPU_HEALTH_TRIP_N``, ``ES_TPU_HEALTH_BACKOFF_MS``); the port fixes
-them at the reference's defaults, TRIP_N and BACKOFF_MS below.
+Knobs: ``ES_TPU_HEALTH_TRIP_N`` (default 3 consecutive faults) and
+``ES_TPU_HEALTH_BACKOFF_MS`` (default 1000 ms base backoff), read when an
+engine builds its circuit.
 
 Every engine registers itself here so `GET /_nodes/stats` can render a
 node-wide ``tpu_health`` section (`node_health_stats`), including engines
@@ -29,10 +29,9 @@ import time
 import weakref
 from typing import Dict, Optional
 
-CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
+from elasticsearch_tpu_torch.common.settings import knob
 
-TRIP_N = 3            # consecutive device faults that open the circuit
-BACKOFF_MS = 1000     # base backoff before a half-open probe
+CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
 
 _COUNTERS = ("device_faults", "circuit_opens", "circuit_reopens", "probes",
              "probe_successes", "fallback_queries")
@@ -55,9 +54,10 @@ class EngineHealth:
     def __init__(self, name: str, trip_n: Optional[int] = None,
                  backoff_ms: Optional[int] = None):
         self.name = name
-        self.trip_n = trip_n if trip_n is not None else TRIP_N
+        self.trip_n = (trip_n if trip_n is not None
+                       else knob("ES_TPU_HEALTH_TRIP_N"))
         self.base_backoff_ms = (backoff_ms if backoff_ms is not None
-                                else BACKOFF_MS)
+                                else knob("ES_TPU_HEALTH_BACKOFF_MS"))
         self._lock = threading.Lock()
         self.state = CLOSED
         self.consecutive_faults = 0

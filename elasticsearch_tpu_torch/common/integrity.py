@@ -29,9 +29,12 @@ a bit (see `bitflip`) and the plane must DETECT it downstream.
 Counters surface as ``tpu_integrity`` in ``GET /_nodes/stats``
 (`integrity_stats()`) and as Prometheus gauges via common/metrics.py.
 
-The port's copy of elasticsearch_tpu/common/integrity.py, whole. No port
-engine registers a device scrub region yet, and `_host_bytes` reads host
-arrays only.
+The port's copy of elasticsearch_tpu/common/integrity.py, whole. Every
+engine that owns device memory registers its regions: TurboBM25 (with the
+bitsets and the slice pool), BlockMax, the spmd column cache, KnnEngine
+and each device aggregation layout. A region's callables may hand back a
+numpy array or a `torch.Tensor` on any device; `_host_bytes` copies a
+tensor to the host once, and a repair uploads to the owner's device.
 """
 
 from __future__ import annotations
@@ -44,9 +47,11 @@ import threading
 import time
 import uuid
 import weakref
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from elasticsearch_tpu_torch.common import metrics
 from elasticsearch_tpu_torch.common.settings import knob
@@ -279,8 +284,19 @@ def scrub_registry_size() -> int:
         return len(_REGIONS)
 
 
-def _host_bytes(arr) -> bytes:
-    return np.ascontiguousarray(np.asarray(arr)).tobytes()
+def _host_bytes(arr) -> np.ndarray:
+    """The region's bytes on the host, as a flat uint8 array that hashes
+    without another copy: a tensor (a CUDA one too, which refuses
+    `np.asarray`) comes down in one copy; a host array is viewed in
+    place."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().contiguous().view(-1).view(torch.uint8)
+        return t.cpu().numpy()
+    return np.ascontiguousarray(np.asarray(arr)).reshape(-1).view(np.uint8)
+
+
+def _digest(data) -> bytes:
+    return hashlib.sha256(data).digest()
 
 
 def scrub_once() -> Optional[dict]:
@@ -288,8 +304,6 @@ def scrub_once() -> Optional[dict]:
     repair on mismatch. Synchronous — the scrubber thread calls this once
     per tick; tests call it directly. Returns an outcome dict, or None
     when no regions are registered."""
-    from elasticsearch_tpu_torch.common import faults
-
     with _SCRUB_LOCK:
         _prune_locked()
         metrics.gauge_set("tpu_integrity.scrub_regions", len(_REGIONS))
@@ -301,8 +315,30 @@ def scrub_once() -> Optional[dict]:
     owner = region.ref()
     if owner is None:
         return None
+    return _scrub_region(region, owner, health)
+
+
+def scrub_owner(owner, names=None) -> List[dict]:
+    """One full scrub cycle over one engine: each region of `owner` (or
+    each of those named) once, in registration order, outside the
+    round-robin (the cursor does not move). Returns the outcome of each as
+    `scrub_once` does, with the region's `bytes` and the `seconds` its
+    check took (the download and both hashes; a repair not included)."""
+    with _SCRUB_LOCK:
+        _prune_locked()
+        regions = [r for r in _REGIONS if r.ref() is owner
+                   and (names is None or r.name in names)]
+        health = _HEALTH.get(id(owner))
+    return [_scrub_region(r, owner, health, timed=True) for r in regions]
+
+
+def _scrub_region(region: _ScrubRegion, owner, health,
+                  timed: bool = False) -> dict:
+    from elasticsearch_tpu_torch.common import faults
+
     count("scrub_ticks")
     outcome = {"region": f"{region.kind}.{region.name}", "result": "clean"}
+    t0 = time.perf_counter()
     # baseline flavor: read the epoch token BEFORE the download — a
     # legitimate rebuild racing the scrub then re-baselines next pass
     # instead of false-mismatching
@@ -312,11 +348,21 @@ def scrub_once() -> Optional[dict]:
     # bit the fingerprint must catch
     data = _host_bytes(region.get_device(owner))
     if faults.corruption_fires(region.name, site="hbm_region"):
-        data = bitflip(data)
-    digest = hashlib.sha256(data).digest()
+        data = bitflip(data.tobytes())
     if region.expected is not None:
-        want = hashlib.sha256(_host_bytes(region.expected(owner))).digest()
+        # the host copy hashes in a second thread (sha256 releases the
+        # GIL): a host-backed region costs one hash of wall time, not two
+        with ThreadPoolExecutor(1) as pool:
+            want_f = pool.submit(_digest,
+                                 _host_bytes(region.expected(owner)))
+            digest = _digest(data)
+            want = want_f.result()
     else:
+        digest = _digest(data)
+    if timed:
+        outcome["bytes"] = len(data)
+        outcome["seconds"] = time.perf_counter() - t0
+    if region.expected is None:
         if ep != region.baseline_epoch or region.baseline_digest is None:
             # first sight of this epoch: trust the download as baseline
             region.baseline_epoch = ep

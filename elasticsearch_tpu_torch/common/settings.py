@@ -7,8 +7,9 @@ A `Setting` is a typed key with a default, parser, validator, scope and a
 reads; `ClusterSettings` is the registry that validates updates and
 notifies subscribers on dynamic changes.
 
-Only the knobs the port reads are declared, under the reference's names
-and defaults, so an A/B run sets the same environment for both packages.
+Every knob of the reference is declared, under the reference's names,
+types and defaults, so an A/B run sets the same environment for both
+packages.
 """
 
 from __future__ import annotations
@@ -284,6 +285,11 @@ declare_knob("ES_TPU_FAULTS", "str", "",
              "[~prob];…` installed at import (common/faults.py)")
 declare_knob("ES_TPU_FAULTS_SEED", "int", 0,
              "Seed for probabilistic (~prob) fault clauses")
+declare_knob("ES_TPU_HEALTH_TRIP_N", "int", 3,
+             "Consecutive device faults that open an engine's circuit")
+declare_knob("ES_TPU_HEALTH_BACKOFF_MS", "int", 1000,
+             "Base backoff before a half-open probe (doubles per reopen, "
+             "capped at 32x)")
 declare_knob("ES_TPU_TURBO_HBM", "int", 6 << 30,
              "Device-memory budget in bytes for TurboBM25's int8 column cache")
 declare_knob("ES_TPU_TURBO_COLD_DF", "int", None,
@@ -349,6 +355,10 @@ declare_knob("ES_TPU_METRICS_SAMPLE_S", "float", 0.0,
 declare_knob("ES_TPU_METRICS_HISTORY", "int", 120,
              "Capacity of the in-memory metrics-sample ring (oldest "
              "samples drop first)")
+declare_knob("ES_TPU_CHECK_ON_STARTUP", "flag", False,
+             "Re-verify every committed segment checksum before a shard "
+             "copy reports started (ref: index.shard.check_on_startup) — "
+             "corruption found here fails the copy instead of serving it")
 declare_knob("ES_TPU_INTEGRITY_SCRUB_S", "float", 0.0,
              "HBM scrub period in seconds (0 = off): re-download one "
              "device-resident region per tick on the management pool, "

@@ -17,18 +17,13 @@ Reconciliation per applied state:
   * master notifications (shard started/failed) go through the master
     client and come back as new cluster states.
 
-The port's copy of elasticsearch_tpu/indices/cluster_state_service.py.
-Two differences:
-
-- A kernel error of the port (`KernelBuildError`, `KernelLaunchError`)
-  in a deferred action is not swallowed: a relocation target whose warm
-  handoff raised one reports its copy failed (the source keeps the
-  shard), and `apply_cluster_state` raises the error after the other
-  deferred actions have run.
-- The startup checksum scan (`ES_TPU_CHECK_ON_STARTUP`) comes with the
-  integrity plane's device half (ROADMAP item 10b); until then a copy
-  reports started as the reference does with the knob at its default,
-  off.
+The port's copy of elasticsearch_tpu/indices/cluster_state_service.py,
+with the startup checksum scan (`ES_TPU_CHECK_ON_STARTUP`) as in the
+reference. One difference: a kernel error of the port
+(`KernelBuildError`, `KernelLaunchError`) in a deferred action is not
+swallowed. A relocation target whose warm handoff raised one reports its
+copy failed (the source keeps the shard), and `apply_cluster_state`
+raises the error after the other deferred actions have run.
 """
 
 from __future__ import annotations
@@ -42,6 +37,7 @@ from elasticsearch_tpu_torch.common.errors import (
     KernelBuildError, KernelLaunchError,
 )
 from elasticsearch_tpu_torch.common.integrity import SegmentCorruptedError
+from elasticsearch_tpu_torch.common.settings import knob
 from elasticsearch_tpu_torch.indices.shard_service import DistributedShardService
 
 
@@ -156,10 +152,19 @@ class IndicesClusterStateService:
             self._defer_recovery(inst)
 
     def _verify_on_startup(self, inst) -> None:
-        """Where ES_TPU_CHECK_ON_STARTUP's full-store checksum scan runs
-        before a copy reports started (ref: index.shard.check_on_startup).
-        The knob comes with ROADMAP item 10b; until then this is the
-        reference with the knob off: no scan."""
+        """ES_TPU_CHECK_ON_STARTUP: full-store checksum scan BEFORE the
+        copy reports started (ref: index.shard.check_on_startup) — the
+        commit load only re-reads blobs it rebuilds, this re-reads all of
+        them, so bit rot under an already-loaded store is caught here
+        instead of at the next recovery."""
+        if not knob("ES_TPU_CHECK_ON_STARTUP"):
+            return
+        integrity.count("startup_checks")
+        try:
+            inst.engine.verify_store()
+        except SegmentCorruptedError:
+            integrity.count("startup_failures")
+            raise
 
     def _sync_tracker(self, inst, state: ClusterState, meta) -> None:
         """Keep the primary's replication tracker consistent with the
@@ -197,7 +202,6 @@ class IndicesClusterStateService:
             import time
 
             from elasticsearch_tpu_torch.common.durability import count
-            from elasticsearch_tpu_torch.common.settings import knob
 
             # a dying source or an injected transport blip must not cost
             # the copy outright: every recovery step is idempotent, so

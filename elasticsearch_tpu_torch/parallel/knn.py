@@ -34,8 +34,11 @@ elasticsearch_tpu/parallel/knn.py).
   host-exact f64 scorer for the faulted partition (`knn_host_fallbacks`),
   and an EngineHealth circuit routes everything to the host while open.
   Regions are charged to the HBM ledger, equal to `hbm_bytes()`.
-
-Not ported (ROADMAP queue 1): the HBM scrub regions (item 10).
+* **Integrity.** The engine keeps host copies of its int8 shards, row
+  meta and centroids (about 1.5 GB of host memory at 2M x 768 rows) and
+  registers them with the HBM scrubber as `knn_shards`, `knn_meta` and
+  `knn_centroids`; a mismatch uploads the copy again, and repeated ones
+  trip the engine's health circuit.
 
 `search_many` returns per batch (scores [Q, k] f32, parts [Q, k] i32,
 ords [Q, k] i32) merged by (score desc, partition asc, ord asc); empty slots
@@ -53,7 +56,9 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch import device as _device
-from elasticsearch_tpu_torch.common import faults, hbm_ledger, metrics
+from elasticsearch_tpu_torch.common import (
+    faults, hbm_ledger, integrity, metrics,
+)
 from elasticsearch_tpu_torch.common.errors import DeviceFaultError
 from elasticsearch_tpu_torch.common.faults import FaultRecord
 from elasticsearch_tpu_torch.common.health import EngineHealth
@@ -382,27 +387,37 @@ class KnnEngine:
                 metah[i, 1, o0:o1] = row_l1.astype(np.float32)
                 metah[i, 2, o0:o1] = np.linalg.norm(vi, axis=1)
                 metah[i, 3, o0:o1] = okf[o0:o1]
+        # the host copies the scrubber holds the device regions to, in the
+        # device layout (q8 [S, nw, KNN_W, dimsP], meta [S, 4, nw, KNN_W])
+        self._q8_host = q8h.reshape(S, self.nw, KNN_W, self.dimsP)
+        self._meta_host = metah.reshape(S, 4, self.nw, KNN_W)
+        self._cent_host = centh
+        self._cvalid_host = cvalh
+        self._overlap_host = ovh
         # translation only (device_errors, no fault_point): construction
         # runs outside the serving containment ladder
         with faults.device_errors("column_upload"):
-            dev = self.device
-            self.d_q8 = torch.from_numpy(q8h).to(dev).view(
-                S, self.nw, KNN_W, self.dimsP)
-            del q8h
-            self.d_meta = torch.from_numpy(metah).to(dev).view(
-                S, 4, self.nw, KNN_W)
-            self.d_cent = torch.from_numpy(centh).to(dev)
-            self.d_cvalid = torch.from_numpy(cvalh).to(dev)
-            self.d_overlap = torch.from_numpy(ovh).to(dev)
+            self.d_q8 = self._upload(self._q8_host)
+            self.d_meta = self._upload(self._meta_host)
+            self.d_cent = self._upload(centh)
+            self.d_cvalid = self._upload(cvalh)
+            self.d_overlap = self._upload(ovh)
         self._dense: List[Optional[tuple]] = [None] * S
 
         self.health = EngineHealth("knn")
         self._hbm = hbm_ledger.register_engine(self, "knn")
         self._register_hbm_regions()
+        self._register_scrub_regions()
+        integrity.attach_scrub_health(self, self.health)
         _count("knn_bytes", self.hbm_bytes())
         _ENGINES.add(self)
 
-    # ---------------- residency ----------------
+    # ---------------- residency / integrity ----------------
+
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """A device copy of a host array, never a view of it (on the CPU
+        too): the scrubber holds the device side to the host copy."""
+        return torch.from_numpy(host).to(self.device, copy=True)
 
     def _mirror_bytes(self) -> int:
         return sum(sum(a.nbytes for a in d)
@@ -420,6 +435,38 @@ class KnnEngine:
         return (self.d_q8.nbytes + self.d_meta.nbytes + self.d_cent.nbytes
                 + self.d_cvalid.nbytes + self.d_overlap.nbytes
                 + self._mirror_bytes())
+
+    def _register_scrub_regions(self) -> None:
+        """The HBM scrubber's regions (reference knn.py:491), each against
+        its host copy; a repair uploads the copy again."""
+        integrity.register_scrub_region(
+            self, "knn_shards", lambda o: o.d_q8,
+            expected=lambda o: o._q8_host,
+            repair=lambda o: o._repair_shards())
+        integrity.register_scrub_region(
+            self, "knn_meta", lambda o: o.d_meta,
+            expected=lambda o: o._meta_host,
+            repair=lambda o: o._repair_meta())
+        integrity.register_scrub_region(
+            self, "knn_centroids", lambda o: o.d_cent,
+            expected=lambda o: o._cent_host,
+            repair=lambda o: o._repair_centroids())
+
+    def _repair_shards(self) -> None:
+        # translation only (device_errors, no fault_point): repairs must
+        # not be separately injectable rungs
+        with faults.device_errors("column_upload"):
+            self.d_q8 = self._upload(self._q8_host)
+
+    def _repair_meta(self) -> None:
+        with faults.device_errors("column_upload"):
+            self.d_meta = self._upload(self._meta_host)
+
+    def _repair_centroids(self) -> None:
+        with faults.device_errors("column_upload"):
+            self.d_cent = self._upload(self._cent_host)
+            self.d_cvalid = self._upload(self._cvalid_host)
+            self.d_overlap = self._upload(self._overlap_host)
 
     def _ensure_dense(self, i: int) -> None:
         """Lazily upload partition i's bf16 mirror for the dense route (the
@@ -451,9 +498,10 @@ class KnnEngine:
         okf = np.zeros(self.nw * KNN_W, np.float32)
         if n:
             okf[:n] = ok[self._perm[i][:n]].astype(np.float32)
+        okw = okf.reshape(self.nw, KNN_W)
+        self._meta_host[i, 3] = okw
         with faults.device_dispatch("column_upload", part=i):
-            self.d_meta[i, 3] = torch.from_numpy(
-                okf.reshape(self.nw, KNN_W)).to(self.device)
+            self.d_meta[i, 3] = torch.from_numpy(okw).to(self.device)
 
     # ---------------- scheduler hooks ----------------
 

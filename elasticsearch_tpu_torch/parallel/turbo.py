@@ -258,7 +258,9 @@ def node_bitset_stats() -> dict:
 # ---- eager sparse impact tier (ES_TPU_SPARSE) ----
 
 _SPARSE_DOC_LIMIT = 1 << 23          # packed doc-id headroom in an int32
-_SPARSE_MAX_CHUNKS = 256   # the reference's largest dispatch bucket: a
+_SPARSE_RC_BUCKETS = (2, 4, 8, 16, 32, 64, 128, 256)   # the reference's
+#   dispatch chunk-count buckets (primed as hot shapes, extend_qc_sizes)
+_SPARSE_MAX_CHUNKS = _SPARSE_RC_BUCKETS[-1]   # the largest bucket: a
 #   query whose cold side needs more chunks is scored on the host
 
 
@@ -541,6 +543,13 @@ class TurboBM25:
         self.qc_sizes = tuple(sorted(merged))
         hbm_ledger.note_primed("turbo", self.qc_sizes)
         hbm_ledger.note_primed("turbo_bitset", self.qc_sizes)
+        # K3 has one launch shape for any group: priming it keeps a cold
+        # start's first sparse gather from counting as a retrace. The
+        # reference's chunk-count ladder is primed beside it: it is among
+        # the hot shapes a relocation source hands its target, whose
+        # dispatch ladder then equals the reference's
+        hbm_ledger.note_primed("turbo_sparse",
+                               ("batched",) + _SPARSE_RC_BUCKETS)
 
     # ---------------- column cache ----------------
 

@@ -52,8 +52,7 @@ Differences from the reference:
     collect uses the engine of its leaf's device (`ctx.leaf.segment.
     torch_device`, which `InternalEngine` resolves), so a search on a CPU
     engine aggregates on a CPU agg engine and nothing picks the CPU on
-    its own. Layouts
-    upload their blob with `torch.from_numpy(host).to(device)`, and pair
+    its own. Layouts upload a copy of their blob to that device, and pair
     docs are checked against the leaf once, when a layout is built.
   * **Containment.** `_run_works` contains `DeviceFaultError` (and so
     `HbmOomError`) only, as the port's other engines do; the reference
@@ -68,9 +67,10 @@ Differences from the reference:
     through `extend_qc_sizes`; `TurboEngine.extend_qc_sizes` primes the
     engine of its own device). The scheduler's lane thread launches the
     kernel inside the engine's device scope (`threadpool.coalescer`).
-  * **Left out** (ROADMAP): the HBM scrub region per layout
-    (`integrity.register_scrub_region`, item 10, with the host copy of the
-    blob its repair re-uploads).
+
+Each layout keeps its blob on the host (`layout.host`) and registers one
+HBM scrub region under its ledger name, as the reference does; a repair
+uploads the blob again (`_reupload`).
 """
 
 from __future__ import annotations
@@ -84,7 +84,9 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch import device as _device
-from elasticsearch_tpu_torch.common import faults, hbm_ledger, metrics
+from elasticsearch_tpu_torch.common import (
+    faults, hbm_ledger, integrity, metrics,
+)
 from elasticsearch_tpu_torch.common.errors import DeviceFaultError
 from elasticsearch_tpu_torch.common.settings import knob
 from elasticsearch_tpu_torch.parallel import kernels
@@ -166,9 +168,9 @@ def _pack_pairs(doc: np.ndarray, seg: np.ndarray, n_docs: int):
 
 class _AggLayout:
     """One agg shape's precomputed device column for one segment. Owns
-    the ledger region; lifecycle is tied to the segment's device cache
-    (`seg._device`), so dropping the segment drops the region through the
-    weakref finalizer."""
+    the ledger region and the scrub region; lifecycle is tied to the
+    segment's device cache (`seg._device`), so dropping the segment drops
+    the region through the weakref finalizer."""
 
     def __init__(self, kind: str, n_docs: int, sections: List[np.ndarray],
                  meta: dict, device: torch.device):
@@ -176,12 +178,18 @@ class _AggLayout:
         self.n_docs = n_docs
         self.serial = next(_layout_serials)
         self.meta = meta
-        host = np.ascontiguousarray(
+        self.device = device
+        self.host = np.ascontiguousarray(
             np.concatenate([a.astype(np.int32, copy=False).ravel()
                             for a in sections]))
-        self.dev = torch.from_numpy(host).to(device)
-        self.nbytes = int(host.nbytes)
+        self.nbytes = int(self.host.nbytes)
         self.region_name = f"aggcol{self.serial}_{kind}"
+        self._reupload()
+
+    def _reupload(self) -> None:
+        # a copy, never a view of the host blob (on the CPU too): the
+        # scrubber holds the device column to it
+        self.dev = torch.from_numpy(self.host).to(self.device, copy=True)
 
 
 # --------------------------------------------------------------------------
@@ -237,7 +245,7 @@ class AggDeviceEngine:
 
     def layout_serials(self) -> Dict[str, int]:
         """Live layouts, region name -> serial (tests build fault specs
-        from these)."""
+        and scrub targets from these)."""
         return {lay.region_name: s for s, lay in list(self._live.items())}
 
     def _budget(self) -> int:
@@ -245,7 +253,8 @@ class AggDeviceEngine:
                    * float(knob("ES_TPU_TURBO_HBM")))
 
     def adopt_layout(self, layout: _AggLayout) -> bool:
-        """Charge a freshly built layout to the ledger. False = over the
+        """Charge a freshly built layout to the ledger + register its
+        scrub region (host-backed repair). False = over the
         ES_TPU_AGG_HBM_FRAC budget — the caller serves from host."""
         with self._lock:
             if self._bytes + layout.nbytes > self._budget():
@@ -253,6 +262,10 @@ class AggDeviceEngine:
             self._bytes += layout.nbytes
             self._live[layout.serial] = layout
         self._hbm.set_region(layout.region_name, layout.nbytes)
+        integrity.register_scrub_region(
+            layout, layout.region_name, lambda o: o.dev,
+            expected=lambda o: o.host,
+            repair=lambda o: o._reupload())
         weakref.finalize(layout, self._drop_layout, layout.region_name,
                          layout.nbytes)
         _count("agg_bytes", layout.nbytes)

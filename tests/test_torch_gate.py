@@ -105,6 +105,85 @@ def test_port_imports_without_jax_or_reference():
     assert int(r.stdout.strip().splitlines()[-1]) >= 108
 
 
+_GRAFT = r"""
+import importlib, importlib.abc, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "elasticsearch_tpu" or name.startswith("elasticsearch_tpu."):
+            raise ImportError("refused: " + name)
+        return None
+
+sys.modules["jax"] = None
+sys.meta_path.insert(0, Refuse())
+
+import __graft_entry_torch__ as g
+stats = g.self_test(4, device="cpu")
+fn, args = g.entry(device="cpu")
+scores, docs = fn(*args)
+assert tuple(scores.shape) == tuple(docs.shape) == (1, 4, 10)
+assert all(a.device.type == "cpu" for a in args)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "elasticsearch_tpu" or m.startswith("elasticsearch_tpu."))
+assert not [m for m in bad if sys.modules[m] is not None], bad
+print(stats["fused_dispatches"], stats["merge_device"])
+"""
+
+
+def test_graft_entry_runs_without_jax_or_reference():
+    """`__graft_entry_torch__` (the port's counterpart of
+    `__graft_entry__.py`) imports and runs its self-test and its entry
+    function on the CPU where jax and the reference are refused."""
+    r = subprocess.run([sys.executable, "-c", _GRAFT], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    fused, merged = map(int, r.stdout.split())
+    assert fused >= 1 and merged >= 1
+
+
+def test_scripts_import_neither_jax_nor_reference():
+    """chip_smoke.py and __graft_entry_torch__.py import nothing of jax or
+    of the reference, at module level or inside a function."""
+    import ast
+
+    for name in ("chip_smoke.py", "__graft_entry_torch__.py"):
+        tree = ast.parse((ROOT / name).read_text(), name)
+        mods = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                mods.add(node.module)
+        bad = sorted(m for m in mods
+                     if m.split(".")[0] in ("jax", "jaxlib",
+                                            "elasticsearch_tpu"))
+        assert not bad, (name, bad)
+        assert "elasticsearch_tpu_torch" in {m.split(".")[0] for m in mods}
+
+
+def test_graft_entry_step_matches_reference_local_topk():
+    """The entry function's K10 top-k over the tiny corpus against the
+    reference's `_local_bm25_topk` on the same documents: the same doc
+    ids in the same order, scores within the BlockMax bound (W2)."""
+    import numpy as np
+
+    import __graft_entry__ as ref_g
+    import __graft_entry_torch__ as g
+
+    fn, args = g.entry(device="cpu")
+    scores, docs = (t.numpy()[0] for t in fn(*args))
+    ref_fn, ref_args = ref_g.entry()
+    ref_s, ref_d = (np.asarray(a) for a in ref_fn(*ref_args))
+    assert ref_s.shape == scores.shape
+    for q in range(scores.shape[0]):
+        live = ref_s[q] > 0
+        assert np.array_equal(docs[q][live], ref_d[q][live]), q
+        assert np.allclose(scores[q][live], ref_s[q][live], rtol=2e-5,
+                           atol=2e-5), q
+        assert not (scores[q][~live] > 0).any(), q
+
+
 def test_rollover_imports_alone():
     """`indices.rollover` loads without the package's cluster-path
     modules: the package exports resolve lazily."""

@@ -75,13 +75,8 @@ VOLATILE = {
 # /_nodes/stats: every section is a set of live counters; the bodies are
 # compared by their key sets (test_nodes_stats_sections holds those).
 STATS_PATH = "/_nodes/stats"
-# reference knobs the port does not declare: the startup integrity scan
-# (ROADMAP item 10b), and the health knobs the port fixes at their
-# defaults (W16)
-UNPORTED_KNOBS = {
-    "ES_TPU_CHECK_ON_STARTUP",
-    "ES_TPU_HEALTH_TRIP_N", "ES_TPU_HEALTH_BACKOFF_MS",
-}
+# reference knobs the port does not declare: none, the port declares all
+UNPORTED_KNOBS: set = set()
 
 
 # ---------------------------------------------------------------------------
@@ -1200,7 +1195,7 @@ def _stats_pair():
 def test_nodes_stats_sections():
     """Every section of the reference's `/_nodes/stats` is there, with the
     same keys recursively in `tpu_hbm` and `tpu_compile`; `tpu_settings`
-    lists the same knobs but for those of modules not ported yet."""
+    lists the same knobs."""
     g, w = _stats_pair()
     assert set(g) == set(w)
     for section in ("tpu_hbm", "tpu_compile"):

@@ -5,8 +5,8 @@ module objects: once as written (the reference), once with every
 ``elasticsearch_tpu`` import renamed to ``elasticsearch_tpu_torch`` and
 ``device="cpu"`` added to each call of the port's entry points
 (`form_local_cluster`, `ClusterNode`, `LiveClusterNode`,
-`CrashRestartCluster`, `Node`, `InternalEngine`), which otherwise take the
-card. It then adds to ``ns`` one test per reference test, under the same
+`CrashRestartCluster`, `Node`, `InternalEngine`, `segment_from_blob`),
+which otherwise take the card. It then adds to ``ns`` one test per reference test, under the same
 name, with the same arguments and marks (parametrize included). A twin
 test runs the reference's function on the reference, then on the port,
 each with its own `monkeypatch`, its own `tmp_path` directory and its own
@@ -57,7 +57,8 @@ from test_torch_index_service import TURBO_ENV, assert_blockmax_results
 
 TESTS = Path(__file__).resolve().parent
 ENTRY_POINTS = {"form_local_cluster", "ClusterNode", "LiveClusterNode",
-                "CrashRestartCluster", "Node", "InternalEngine"}
+                "CrashRestartCluster", "Node", "InternalEngine",
+                "segment_from_blob"}
 
 
 class _CpuEntryPoints(ast.NodeTransformer):
@@ -287,22 +288,6 @@ class _Run:
                 pass
 
 
-class _PortMonkeyPatch(pytest.MonkeyPatch):
-    """The port fixes ES_TPU_HEALTH_TRIP_N and ES_TPU_HEALTH_BACKOFF_MS at
-    module constants of `common.health` (ROADMAP W16): a test's setenv of
-    one sets the constant for the run instead."""
-
-    HEALTH = {"ES_TPU_HEALTH_TRIP_N": "TRIP_N",
-              "ES_TPU_HEALTH_BACKOFF_MS": "BACKOFF_MS"}
-
-    def setenv(self, name, value, prepend=None):
-        super().setenv(name, value, prepend)
-        if name in self.HEALTH:
-            from elasticsearch_tpu_torch.common import health
-
-            self.setattr(health, self.HEALTH[name], int(value))
-
-
 class StepClock:
     """`time` for `common.health` and the test module: `monotonic` moves
     only by what `sleep` sleeps (each sleep also sleeps for real)."""
@@ -324,9 +309,7 @@ class StepClock:
 def _run_variant(mod, pkg, fn_name, kwargs, tmp, mode, loose, observe,
                  step_clock=False):
     builtins = {"tmp_path": tmp}
-    patch = _PortMonkeyPatch if pkg == "elasticsearch_tpu_torch" \
-        else pytest.MonkeyPatch
-    with patch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp:
         builtins["monkeypatch"] = mp
         if mode == "turbo":
             for k, v in TURBO_ENV.items():
