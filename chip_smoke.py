@@ -4613,7 +4613,7 @@ def weighted_ab(calls, parent=None) -> dict:
 
 
 def check_path_shapes(seen, dp, lane_parent=None,
-                      weighted_parent=None) -> dict:
+                      weighted_parent=None, fused_parent=None) -> dict:
     """Every kernel of record_shapes at every launch shape the serving
     path gave it, on the recorded inputs, held bitwise against its plain
     version, also on poisoned outputs: K2 and K6 through sweep_ab, then
@@ -4673,7 +4673,7 @@ def check_path_shapes(seen, dp, lane_parent=None,
                 row = {"held_by": "fused_sweep_rowmax_bitset (its counts "
                                   "and rows)"}
             elif name.startswith("fused_"):
-                row = hold_fused(label, name, args, kw)
+                row = hold_fused(label, name, args, kw, fused_parent)
             else:
                 row = hold_kernel(label, wrappers[name], plains[name], args,
                                   kw)
@@ -7316,14 +7316,20 @@ FUSED_ROWS = {
 }
 
 
-def hold_fused(label, name, args, kw) -> dict:
+def hold_fused(label, name, args, kw, parent=None) -> dict:
     """F1, F2 or F3 at one launch shape: bitwise against its plain version,
     also on poisoned outputs (hold_kernel), timed by events, by CUDA graph
     and alone (torch.profiler's kernel events), beside the sum of the S
     separate K2 / K7 / K5 + K6 launches (and row picks) on the same inputs
     (by events and by graph), torch._int_mm's four products per partition
     (the yardstick of K2's row) and the byte bound. F3's row carries its
-    stacked K5 stage's time alone (`k5_alone_ms`) and bytes."""
+    stacked K5 stage's time alone (`k5_alone_ms`) and bytes. F1 and F3's
+    sweep launch (fused_sweep_kernel from kernels.FUSED_MIN_QC /
+    FUSED_MIN_QC_BITSET queries, sweep_group_kernel below; the profiler's
+    kernel name follows) is also timed alone by graph beside
+    the parent commit's C entry of the same name on the same inputs, in
+    turns, the parent's output held bitwise to this tree's (`parent`:
+    {name: C entry}, fused_parents)."""
     import torch
 
     from elasticsearch_tpu_torch.parallel import kernels as k
@@ -7342,7 +7348,11 @@ def hold_fused(label, name, args, kw) -> dict:
         row["graph_note"] = "the two launches and the pick, slots on the card"
     else:
         row["graph_ms"] = graph_ms(lambda: fn(*args, **kw), 50)
-    names = ("sweep_group_kernel",) + (
+    # F2, and F1 / F3 below kernels.FUSED_MIN_QC, run sweep_group_kernel
+    cluster = name != "fused_sweep_rowmax_conj" and k.fused_sweep_cluster(
+        int(args[0].shape[1]), name == "fused_sweep_rowmax_bitset")
+    names = (("fused_sweep_kernel",) if cluster
+             else ("sweep_group_kernel",)) + (
         ("fused_intersect_counts_kernel",)
         if name == "fused_sweep_rowmax_bitset" else ())
     row["kernel_ms"], row["kernel_events"] = kernel_alone(
@@ -7377,6 +7387,9 @@ def hold_fused(label, name, args, kw) -> dict:
     row["library_ms"] = lib
     row["library_note"] = ("torch._int_mm of the four score products over "
                            "all slots, summed over the partitions")
+    if name != "fused_sweep_rowmax_conj":
+        row.update(fused_sweep_ab(name, args, kw,
+                                  (parent or {}).get(name)))
     row["shape"] = {"partitions": len(per), "QC": int(args[0].shape[1]),
                     "nsw": nsw, "Hpt": [int(a[1 if name ==
                                               "fused_sweep_rowmax" else
@@ -7384,6 +7397,77 @@ def hold_fused(label, name, args, kw) -> dict:
                                                "fused_sweep_rowmax_conj"
                                                else 4)].shape[1])
                                         for a in per]}
+    return row
+
+
+def fused_parents(src):
+    """{F1 / F3 wrapper name: C entry} of an earlier sweep_rowmax.cu with
+    the same fused entries (the A/B parent), or None when src is not a
+    file."""
+    if not src or not os.path.isfile(src):
+        return None
+    from pathlib import Path
+
+    from elasticsearch_tpu_torch.tools.k2_ab import fused_entry
+    from elasticsearch_tpu_torch.tools.k9_ab import build
+
+    lib = build("k2_parent", Path(src))
+    return {"fused_sweep_rowmax": fused_entry(lib, "fused_disj"),
+            "fused_sweep_rowmax_bitset": fused_entry(lib, "fused_bitset")}
+
+
+def fused_sweep_ab(name, args, kw, parent) -> dict:
+    """F1's or F3's sweep launch alone on a fused call's inputs (F3: on
+    the mask its K5 stage makes of them): this tree's C entry by CUDA
+    graph, in turns with the parent's (`parent`, a C entry) where given,
+    both writing preallocated outputs, the parent's held bitwise to this
+    tree's; and the cluster kernel's work on these inputs (k2_ab's
+    fused_stage_work: staged and direct queries, batches, union slots,
+    stages copied and skipped), run or not at this QC."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import cuda_build
+    from elasticsearch_tpu_torch.parallel import kernels as k
+    from elasticsearch_tpu_torch.tools.k2_ab import (fused_runner,
+                                                     fused_stage_work,
+                                                     launch_graph_ms)
+
+    if name == "fused_sweep_rowmax":
+        qs, hi, lo, wq, live = args
+        mask, kind = None, "fused_disj"
+    else:
+        qs, sl, ng, bits, hi, lo, wq, live = args
+        dev = qs.device
+        mask, _ = k._fused_intersect(sl.to(dev), ng.to(dev), bits,
+                                     list(kw["nsw"]))
+        kind = "fused_bitset"
+    f = {"qscale": qs, "wq": wq, "hi": list(hi), "lo": list(lo),
+         "live": list(live), "nsw": list(kw["nsw"]), "mask": mask}
+    run = fused_runner(f, kind)
+    own = cuda_build.kernel(name)
+    fns = {"current": own} if parent is None else {"parent": parent,
+                                                   "current": own}
+    outs = {x: run(fn) for x, fn in fns.items()}
+    order = list(fns) + list(fns)[::-1]
+    times = {x: [] for x in fns}
+    for x in order:
+        times[x].append(launch_graph_ms(
+            lambda: run(fns[x], outs=outs[x]), 50))
+    torch.cuda.synchronize()
+    row = {"sweep_graph_ms": times["current"],
+           "stage_work": fused_stage_work(
+               qs, wq, [int(h.shape[1]) for h in hi], list(kw["nsw"]), mask,
+               force=True)}
+    if parent is not None:
+        m, r = run(parent, poison=True)
+        cm, cr = run(own, poison=True)
+        require(torch.equal(m, cm) and torch.equal(r, cr),
+                f"{name}: the parent's sweep differs from this tree's")
+        row.update(parent_sweep_graph_ms=times["parent"],
+                   parent_graph_ms=min(times["parent"]),
+                   parent_note="the parent commit's C entry, the sweep "
+                               "launch alone, by graph, in turns")
+    del outs, mask
     return row
 
 
@@ -7485,7 +7569,7 @@ FUSED_OF = {"match": ("fused_sweep_rowmax",),
 
 
 def fused_phase(fp, n: int, batches, dsl, main_rows, held, bool_ans,
-                phrase_ans, device="cuda"):
+                phrase_ans, device="cuda", k2_parent_src=None):
     """The fused S > 1 route (ROADMAP item 5) on the shard cut into
     FUSED_PARTS segments by doc range: select_bm25_engine builds the fused
     TurboEngine (one F1-F3 launch per query chunk for every partition, K4
@@ -7502,7 +7586,9 @@ def fused_phase(fp, n: int, batches, dsl, main_rows, held, bool_ans,
     `phrase_ans`). The segments' and the shard's f32 doc-length sums, from
     which the index-global avgdl comes, are printed beside. Then every
     launch shape of the phase (F1-F3, K3, K4) is held against its plain
-    version and timed (hold_fused, check_path_shapes).
+    version and timed (hold_fused, check_path_shapes), F1 and F3's sweep
+    beside the parent commit's where `k2_parent_src` (a whole earlier
+    sweep_rowmax.cu) is given.
     Returns (kernel rows, report)."""
     import torch
 
@@ -7650,7 +7736,8 @@ def fused_phase(fp, n: int, batches, dsl, main_rows, held, bool_ans,
 
     # every launch shape of the phase against its plain version, timed
     t = time.time()
-    shapes = check_path_shapes(seen, None)
+    shapes = check_path_shapes(seen, None,
+                               fused_parent=fused_parents(k2_parent_src))
     kernel_rows = []
     for name, replaces in FUSED_ROWS.items():
         sh = shapes.get(name, {})
@@ -8094,7 +8181,7 @@ def run(n_docs: int, n_batches: int, batch: int, knn_docs: int,
     # ---- the fused S > 1 route on the shard cut into four segments ----
     fused_rows, fused_report = fused_phase(
         fp, n_docs, batches, dsl, results, held, bool_answers,
-        phrase_answers)
+        phrase_answers, k2_parent_src=k2_parent_src)
     rows += fused_rows
     del phrase_answers
     # the kNN rows and the agg leaf, drawn in threads from here on, after
@@ -8348,7 +8435,8 @@ def fused_only(n_docs: int, n_batches: int, batch: int) -> dict:
     log("single-segment rows and host answers")
     kernel_rows, rep = fused_phase(fp, n_docs, batches, dsl, rows, held,
                                    (bool_qs, hs[:nb], ho[:nb]),
-                                   (phrases, hs[nb:], ho[nb:]))
+                                   (phrases, hs[nb:], ho[nb:]),
+                                   k2_parent_src=K2_PARENT)
     return {"kernels": kernel_rows, "report": rep}
 
 

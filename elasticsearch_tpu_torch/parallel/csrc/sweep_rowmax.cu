@@ -53,18 +53,64 @@
 // The fused S > 1 sweeps (F1-F3: the reference's _fused_sweep_disj,
 // _fused_sweep_bool and _fused_sweep_bitset, elasticsearch_tpu/parallel/
 // turbo.py :2099, :2128, :2148, which ran these Pallas kernels once per
-// partition under one shard_map) are the same kernel with the partition as
-// a third grid axis: grid ((qc + G - 1) / G, nsw_max, S). Each partition
-// keeps its own column cache, live mask and slot count; the launch takes a
-// table of them (PartTable, up to MAX_PARTS partitions, 2 KB in the
-// launch's parameters), so nothing is stacked or copied. The query inputs are
-// stacked on a leading partition axis: qscale [S, qc], wq [S, 2, qc, ws]
-// (ws >= every partition's hpt; slots past a partition's hpt are not
-// read), CONJ's nreq [S, qc] and wp [S, qc, ws], BITSET's mask [S, qc,
-// nsw_max * 16, 128]; the output [S, nsw_max, qc, CAND_PAD]. A block whose
-// superwindow lies past its partition's nsw writes what the reference's
-// dead padding gives (live 0): -inf rows with row 0, reading nothing. The
-// solo entries are the same kernel with a one-entry table.
+// partition under one shard_map) take a table of the partitions (PartTable,
+// up to MAX_PARTS, 2 KB in the launch's parameters: each one's column
+// cache, live mask, superwindows and slots), so nothing is stacked or
+// copied. The query inputs are stacked on a leading partition axis: qscale
+// [S, qc], wq [S, 2, qc, ws] (ws >= every partition's hpt; slots past a
+// partition's hpt are not read), CONJ's nreq [S, qc] and wp [S, qc, ws],
+// BITSET's mask [S, qc, nsw_max * 16, 128]; the output [S, nsw_max, qc,
+// CAND_PAD]. A superwindow past its partition's nsw gets what the
+// reference's dead padding gives (live 0): -inf rows with row 0, reading
+// nothing. F2 is sweep_group_kernel<CONJ> with the partition a third grid
+// axis, grid ((qc + G - 1) / G, nsw_max, S); the solo entries are
+// sweep_group_kernel with a one-entry table.
+//
+// F1 and F3's sweep are fused_sweep_kernel<MODE> (DISJ, BITSET; its gate is
+// the template parameter, so CONJ can follow). The parent ran them on
+// sweep_group_kernel too, at 17-32% of their byte bound (PERF.md): every
+// group of 16 queries re-read its superwindow's columns and live mask, and
+// a query cost about twelve issue slots a doc. Here a cluster of F_CL
+// blocks takes a (partition, superwindow), each block F_RB contiguous
+// rows, and a block takes all of a tile's queries (F_GQ, F3 F_GQ_BITSET):
+//   - set-up, once per partition and tile: each rank counts and lists its
+//     own queries (j = rank mod F_CL), every rank gathers them through
+//     distributed shared memory; the queries with a fast_query list within
+//     a batch are staged, the others (the integer path, long lists) direct;
+//     the staged ones go in batches of consecutive queries whose union of
+//     slots fits half the ring (k chunks, k = 1, 2, 4, ... F_KMAX);
+//   - a stage a (row group of F_R rows, batch): the producer warp copies
+//     each union slot's rows (two pieces of F_R * 128 contiguous bytes)
+//     with 16-byte cp.async into a ring completed on mbarriers, and
+//     prefetches the next 16-row chunk's union columns to L2 whole; F3
+//     skips the row groups no query of the batch keeps (the reference's
+//     chunk skip, from each query's mask words);
+//   - the consumer warps score every query of the batch from the stage on
+//     an exact int32 path (docs_staged: a byte permute, a dp2a and an imad
+//     a (slot, doc), T = the float path's Y + ll, whose fl() is its pre),
+//     the direct queries as sweep_group_kernel does, from device memory;
+//   - each row value goes to the query's owning rank by a store to
+//     distributed shared memory, and after a cluster barrier each rank
+//     picks its queries' top NCAND of the superwindow's 512 rows with
+//     sweep_group_kernel's rounds, in its own shared memory;
+//   - the grid is the clusters the card holds at once, each taking a
+//     contiguous range of the live (partition, superwindow) items.
+// Cluster barriers order every access to another rank's shared memory:
+// a rank's own counts and lists (own, olist) are read by the others only
+// between the barrier after it writes them and the one after the set-up,
+// and its gather buffer (gat) takes the set-up's scratch before that
+// barrier and the other ranks' row values only after it, until the
+// barrier that ends the superwindow's selection.
+// What bounds it: bytes, as for the others. Measured (tools/k2_ab.py,
+// PERF.md), the consumers' issue and the per-stage handshakes bound it
+// instead; the constants (F_CW, F_GQ, F_GQ_BITSET, F_CL) are the A/B's.
+// F1 and F3 run sweep_group_kernel as F2 does below F_MIN_QC and
+// F_MIN_QC_BITSET queries (tools/k2_ab.py's crossovers): a cluster walks
+// its superwindows in turn whatever the QC, so few queries leave its
+// warps idle (F1 loses at QC 32, wins from 64); and F3 copies each batch's
+// union for every row group any query of the batch keeps, so where a
+// tile's union takes two batches and the masks keep scattered rows it
+// moves more bytes than the parent's per-query gated reads (PERF.md).
 //
 // The combine is the reference's, in f32:
 //   val = ((16384 * hh + 128 * (hl + lh)) + ll) * qscale
@@ -73,9 +119,14 @@
 // A doc counts only if live > 0 and val > 0 (and the mode's gate); an
 // empty row is -inf.
 
+#include <atomic>
+
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -86,6 +137,7 @@ constexpr int CAND_PAD = 32;
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int SW_WORD_ROWS = SW_ROWS / 32;   // packed mask word rows
+constexpr int N_CHUNKS_SW = SW_ROWS / CHUNK_ROWS;   // chunks a superwindow
 
 enum Mode { DISJ = 0, CONJ = 1, BITSET = 2 };
 
@@ -261,16 +313,33 @@ __device__ __forceinline__ unsigned cover_bits(const int4* ent,
 // The mask gate (K6) of the thread's DPT docs of a row: bit row % 32 of
 // each of its DPT words in the query's intersected mask (K5's output),
 // four 16-byte loads; a warp's four rows share one word row.
-__device__ __forceinline__ unsigned mask_bits(const int32_t* p, int bit) {
+struct MaskWords {
+  uint4 v[DPT / 4];
+};
+
+__device__ __forceinline__ MaskWords mask_load(const int32_t* p) {
+  MaskWords m;
+#pragma unroll
+  for (int i = 0; i < DPT / 4; ++i) {
+    m.v[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
+  }
+  return m;
+}
+
+__device__ __forceinline__ unsigned mask_gate(const MaskWords& m, int bit) {
   unsigned g = 0;
 #pragma unroll
   for (int i = 0; i < DPT / 4; ++i) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
+    const uint4 v = m.v[i];
     g |= (((v.x >> bit) & 1u) | (((v.y >> bit) & 1u) << 1)
           | (((v.z >> bit) & 1u) << 2) | (((v.w >> bit) & 1u) << 3))
          << (4 * i);
   }
   return g;
+}
+
+__device__ __forceinline__ unsigned mask_bits(const int32_t* p, int bit) {
+  return mask_gate(mask_load(p), bit);
 }
 
 template <int MODE>
@@ -543,6 +612,912 @@ sweep_group_kernel(const __grid_constant__ PartTable parts,
   }
 }
 
+// ---------------------------------------------------------------------------
+// F1 and F3's sweep: fused_sweep_kernel<MODE> (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int F_CL = 8;                      // blocks a cluster
+constexpr int F_RB = SW_ROWS / F_CL;         // rows a block (64)
+constexpr int F_R = 4;                       // rows a stage: a warp's four
+constexpr int F_NG = F_RB / F_R;             // stages of a block's rows (16)
+constexpr int F_KW = F_RB / 32;              // keep words a query (2)
+constexpr int F_GQ = 256;                    // queries a tile: F1
+constexpr int F_GQ_BITSET = 128;             // F3 (measured)
+constexpr int F_CW = 15;                     // consumer warps (measured)
+constexpr int F_WARPS = F_CW + 1;            // and the producer warp
+constexpr int F_THREADS = F_WARPS * 32;
+constexpr int F_MAX_ST = 8;                  // ring stages at most
+constexpr int F_SLOT_BYTES = 2 * F_R * 128;  // one slot's two layers a stage
+constexpr int F_LC = 1024;                   // staged list entries a tile
+constexpr int F_KMAX = 32;                   // batches the planner tries
+constexpr int F_SMEM = 232448;               // a block's shared memory
+constexpr int F_DP2A_K = 0x00010080;         // (128, 1): c = 128 h + l
+constexpr int F_MIN_QC = 64;                 // F1: the cluster kernel from
+constexpr int F_MIN_QC_BITSET = 256;         // F3 (measured)
+constexpr int F_MEMO = 8;                    // plans a device remembers
+constexpr int F_MAX_DEVICES = 16;
+
+// the shared-memory layout of a launch, a function of (qc, hpt_max, F1 or
+// F3) only (kernels.fused_sweep_plan mirrors it): byte offsets of the
+// regions and the capacities they give
+struct FusedPlan {
+  int gq;          // queries a tile: min(qc, F_GQ or F_GQ_BITSET)
+  int oq;          // a rank's queries of a tile: ceil(gq / F_CL)
+  int lc;          // staged list entries (slot | W << 16) a tile holds
+  int dc;          // direct list entries (int4) held at once, >= hpt_max
+  int ring_slots;  // slot-stages (F_SLOT_BYTES each) the ring holds
+  int slot_cap;    // union slots a batch may take: ring_slots / 2, <= 255
+  int smem;        // dynamic shared memory bytes
+  int o_own, o_olist, o_qi, o_keep, o_alive, o_tof, o_uslot, o_map,
+      o_misc, o_bkw, o_list, o_dlist, o_gat, o_ring;
+};
+
+FusedPlan fused_plan(int qc, int hpt_max, bool bitset) {
+  FusedPlan p{};
+  const int tile = bitset ? F_GQ_BITSET : F_GQ;
+  p.gq = qc < tile ? qc : tile;
+  p.oq = (p.gq + F_CL - 1) / F_CL;
+  p.lc = F_LC;
+  p.dc = hpt_max > 256 ? hpt_max : 256;
+  int o = 2 * F_MAX_ST * 8;                  // full and empty barriers
+  auto take = [&o](int bytes) {
+    const int at = o;
+    o += (bytes + 15) & ~15;
+    return at;
+  };
+  p.o_own = take(p.oq * 16);
+  p.o_olist = take(p.lc * 4);
+  p.o_qi = take(p.gq * 16);
+  p.o_keep = take(p.gq * F_KW * 4);
+  p.o_alive = take(F_RB * 16);
+  p.o_tof = take(p.gq * 2);
+  p.o_uslot = take(p.lc * 2);
+  p.o_map = take(hpt_max * 4);
+  p.o_misc = take((16 + F_KMAX + 2 * (p.gq + 1)) * 4);
+  p.o_bkw = take(p.gq * F_KW * 4);
+  p.o_list = take(p.lc * 4);
+  p.o_dlist = take(p.dc * 16);
+  p.o_gat = take(p.oq * SW_ROWS * 4);
+  o = (o + 127) & ~127;
+  p.o_ring = o;
+  p.ring_slots = F_SMEM > o ? (F_SMEM - o) / F_SLOT_BYTES : 0;
+  p.slot_cap = p.ring_slots / 2 < 255 ? p.ring_slots / 2 : 255;
+  p.smem = o + p.ring_slots * F_SLOT_BYTES;
+  return p;
+}
+
+// a rank's own queries of a tile, read by every rank of the cluster
+struct OwnQ {
+  int n;        // nonzero score slots
+  int off;      // own list offset, -1: not staged
+  float qs;
+  int fast;     // fast_query
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// a 16-byte copy into shared memory; no memory clobber, so the caller's
+// loads of addresses are not held behind it (the stage's barrier orders
+// what the consumers read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+
+// an arrival on the barrier once the thread's cp.asyncs so far have landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_u32(bar))
+               : "memory");
+}
+
+// waits for phase `parity` of the barrier; a copy that never lands traps
+// (a launch failure) instead of hanging the card
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    if (spins == (1u << 24)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One staged word (4 docs) of a slot: c = 128 h + l per doc from the
+// masked bytes, two docs a dp2a, then T (+)= W c.
+template <bool FIRST>
+__device__ __forceinline__ void dp2a_word(int* t, unsigned h, unsigned l,
+                                          unsigned m, int wt) {
+  const unsigned hm = h & m, lm = l & m;
+  const int b01 = (int)__byte_perm(hm, lm, 0x5140);   // h0 l0 h1 l1
+  const int b23 = (int)__byte_perm(hm, lm, 0x7362);   // h2 l2 h3 l3
+  const int c[4] = {__dp2a_lo(F_DP2A_K, b01, 0), __dp2a_hi(F_DP2A_K, b01, 0),
+                    __dp2a_lo(F_DP2A_K, b23, 0), __dp2a_hi(F_DP2A_K, b23, 0)};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) t[j] = FIRST ? wt * c[j] : t[j] + wt * c[j];
+}
+
+// The staged fast path over the thread's DPT docs of a row, from a stage
+// in shared memory (`st`: the thread's 16 bytes of the stage's first slot
+// and hi layer): T = sum W (128 h + l) over the query's entries (slot in
+// the stage | W << 16, W = 128 wh + wl), the exact int32 of the float
+// path's Y + ll (fast_query bounds it below 2^31), so fl(T) is its pre.
+// msk drops dead (and gated) docs' bytes: their T is 0. Returns the max T
+// over the docs, 0 if none is > 0.
+__device__ __forceinline__ int docs_staged(const uint32_t* ent, int n,
+                                           const unsigned char* st,
+                                           const Words& msk) {
+  int t[DPT];
+  {
+    const uint32_t e = ent[0];
+    const unsigned char* p = st + (e & 0xFFFF) * F_SLOT_BYTES;
+    const uint4 h = *reinterpret_cast<const uint4*>(p);
+    const uint4 l = *reinterpret_cast<const uint4*>(p + F_R * 128);
+    const int wt = (int)e >> 16;
+    dp2a_word<true>(t, h.x, l.x, msk.w[0], wt);
+    dp2a_word<true>(t + 4, h.y, l.y, msk.w[1], wt);
+    dp2a_word<true>(t + 8, h.z, l.z, msk.w[2], wt);
+    dp2a_word<true>(t + 12, h.w, l.w, msk.w[3], wt);
+  }
+  for (int k = 1; k < n; ++k) {
+    const uint32_t e = ent[k];
+    const unsigned char* p = st + (e & 0xFFFF) * F_SLOT_BYTES;
+    const uint4 h = *reinterpret_cast<const uint4*>(p);
+    const uint4 l = *reinterpret_cast<const uint4*>(p + F_R * 128);
+    const int wt = (int)e >> 16;
+    dp2a_word<false>(t, h.x, l.x, msk.w[0], wt);
+    dp2a_word<false>(t + 4, h.y, l.y, msk.w[1], wt);
+    dp2a_word<false>(t + 8, h.z, l.z, msk.w[2], wt);
+    dp2a_word<false>(t + 12, h.w, l.w, msk.w[3], wt);
+  }
+  // a tree: four levels, not sixteen (constant bounds: t stays in
+  // registers)
+#pragma unroll
+  for (int d = 0; d < 8; ++d) t[d] = max(t[d], t[d + 8]);
+#pragma unroll
+  for (int d = 0; d < 4; ++d) t[d] = max(t[d], t[d + 4]);
+  t[0] = max(max(t[0], t[2]), max(t[1], t[3]));
+  return max(t[0], 0);
+}
+
+// a float-path row max of pre (bits) as a val's bits: fl(pre * qs), kept
+// if > 0 (the selection of sweep_group_kernel, done at the store)
+__device__ __forceinline__ unsigned pre_val(unsigned pre, float qs) {
+  if (pre == 0u) return 0u;
+  const float v = __fmul_rn(__uint_as_float(pre), qs);
+  return v > 0.f ? __float_as_uint(v) : 0u;
+}
+
+// BITSET: whether row group g (rows F_R g ..) of the block has a row the
+// keep words mark; every group for DISJ
+template <int MODE>
+__device__ __forceinline__ bool row_group_kept(const uint32_t* kw, int g) {
+  if (MODE != BITSET) return true;
+  return ((kw[F_R * g / 32] >> (F_R * g % 32)) & ((1u << F_R) - 1u)) != 0u;
+}
+
+// a query's row value into its owning rank's gather buffer (raw query j
+// belongs to rank j mod F_CL, at index j / F_CL): a store to distributed
+// shared memory that nothing waits on
+__device__ __forceinline__ void put_row(const cg::cluster_group& cluster,
+                                        uint32_t* gat, int j, int row,
+                                        unsigned v) {
+  cluster.map_shared_rank(gat, j % F_CL)[(j / F_CL) * SW_ROWS + row] = v;
+}
+
+// the gate's bytes: 0xFF per kept doc of the thread's DPT
+__device__ __forceinline__ Words gate_words(unsigned gate) {
+  Words g;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) g.w[w] = byte_mask(gate >> (4 * w));
+  return g;
+}
+
+template <int MODE>
+__global__ void __cluster_dims__(F_CL, 1, 1) __launch_bounds__(F_THREADS, 1)
+fused_sweep_kernel(const __grid_constant__ PartTable parts,
+                   const float* __restrict__ qscale,     // [S, qc]
+                   const int8_t* __restrict__ wq,        // [S, 2, qc, ws]
+                   // BITSET: [S, qc, nsw_max * 16, 128]
+                   const int32_t* __restrict__ mask,
+                   float* __restrict__ out_m, int32_t* __restrict__ out_r,
+                   int n_parts, int qc, int ws, int nsw_max,
+                   const FusedPlan pl) {
+  static_assert(MODE == DISJ || MODE == BITSET, "F1 and F3's sweep");
+  extern __shared__ __align__(128) unsigned char f_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_cl = gridDim.y;
+  // dead padding, the superwindows past a partition's nsw: -inf rows,
+  // cluster c taking every n_cl-th, rank r writing queries q = r mod F_CL
+  int n_items = 0;                          // the live (partition, sw)
+  for (int zz = 0; zz < n_parts; ++zz) {
+    const int nz = parts.p[zz].nsw;
+    n_items += nz;
+    const int64_t ob = (int64_t)zz * nsw_max * qc * CAND_PAD;
+    for (int sw = nz + (int)(((int64_t)blockIdx.y - nz) % n_cl + n_cl)
+                           % n_cl;
+         sw < nsw_max; sw += n_cl) {
+      const int per = (qc - rank + F_CL - 1) / F_CL;
+      for (int i = tid; i < per * CAND_PAD; i += F_THREADS) {
+        const int64_t o = ob + ((int64_t)sw * qc + rank
+                                + F_CL * (i / CAND_PAD)) * CAND_PAD
+                          + i % CAND_PAD;
+        out_m[o] = -INFINITY;
+        out_r[o] = 0;
+      }
+    }
+  }
+  // the cluster's live items: a contiguous range of the partitions' live
+  // superwindows in order, so it sets a partition's queries up once or
+  // twice
+  const int it0 = (int)((int64_t)blockIdx.y * n_items / n_cl);
+  const int it1 = (int)((int64_t)(blockIdx.y + 1) * n_items / n_cl);
+  if (it0 == it1) return;                   // the whole cluster
+
+  uint64_t* full = reinterpret_cast<uint64_t*>(f_smem);
+  uint64_t* empty = full + F_MAX_ST;
+  OwnQ* own = reinterpret_cast<OwnQ*>(f_smem + pl.o_own);
+  uint32_t* olist = reinterpret_cast<uint32_t*>(f_smem + pl.o_olist);
+  // per query of the tile by its compact index t: x = raw index | fast <<
+  // 16, y = n, z = list offset, w = qs bits
+  int4* qi = reinterpret_cast<int4*>(f_smem + pl.o_qi);
+  // BITSET: [t][F_KW], bit r % 32 of word r / 32: the query keeps row r of
+  // the block in this superwindow
+  uint32_t* keep = reinterpret_cast<uint32_t*>(f_smem + pl.o_keep);
+  uint32_t* alive = reinterpret_cast<uint32_t*>(f_smem + pl.o_alive);
+  short* tof = reinterpret_cast<short*>(f_smem + pl.o_tof);
+  // every batch's union slots, batch b's from ubase[b]
+  unsigned short* uslot =
+      reinterpret_cast<unsigned short*>(f_smem + pl.o_uslot);
+  uint32_t* map = reinterpret_cast<uint32_t*>(f_smem + pl.o_map);
+  int* misc = reinterpret_cast<int*>(f_smem + pl.o_misc);
+  int* cnt_u = misc + 16;                       // [F_KMAX] planner unions
+  int* bat = cnt_u + F_KMAX;                    // [gq + 1] batch starts
+  int* ubase = bat + pl.gq + 1;                 // [gq + 1] union offsets
+  // BITSET: [b][F_KW] the block's rows some query of batch b keeps
+  uint32_t* bkw = reinterpret_cast<uint32_t*>(f_smem + pl.o_bkw);
+  uint32_t* list = reinterpret_cast<uint32_t*>(f_smem + pl.o_list);
+  int4* dlist = reinterpret_cast<int4*>(f_smem + pl.o_dlist);
+  // the superwindow's row maxima of this rank's queries, [i][SW_ROWS] for
+  // raw query rank + F_CL i, written by every rank of the cluster
+  uint32_t* gat = reinterpret_cast<uint32_t*>(f_smem + pl.o_gat);
+  unsigned char* ring = f_smem + pl.o_ring;
+
+  const int row0 = rank * F_RB;             // the block's rows of a sw
+  if (tid == 0) {
+    for (int s = 0; s < F_MAX_ST; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 32;\n" ::"r"(
+                       smem_u32(full + s))
+                   : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                       smem_u32(empty + s)),
+                   "r"(F_CW)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // stage parities: bit s of fpar is the phase of full[s] a consumer waits
+  // for next, epar empty[s]'s for the producer; pend: stages filled and not
+  // yet released
+  uint32_t fpar = 0, epar = 0, pend = 0;
+  const int lsub = lane & 7;                // the thread's 16 docs of a row
+  const float* __restrict__ qs_z = nullptr;
+  const int8_t* __restrict__ wq_z = nullptr;
+  const int32_t* __restrict__ mask_z = nullptr;
+  float* __restrict__ om_z = nullptr;
+  int32_t* __restrict__ or_z = nullptr;
+  const int8_t* __restrict__ cols_hi = nullptr;
+  const int8_t* __restrict__ cols_lo = nullptr;
+  const float* __restrict__ live = nullptr;
+  int hpt = 0;
+  for (int w0 = 0; w0 < qc; w0 += pl.gq) {
+    const int ng = min(pl.gq, qc - w0);
+    const int n_own = rank < ng ? (ng - rank + F_CL - 1) / F_CL : 0;
+    int z = -1, zend = 0;                   // the partition; its items end
+    int n_act = 0, n_st = 0, n_bat = 0, max_nu = 0;
+    for (int item = it0; item < it1; ++item) {
+      if (item >= zend) {
+        // the next partition: its tile's queries set up once
+        int zs = 0;
+        for (z = 0; zs + parts.p[z].nsw <= item; ++z) zs += parts.p[z].nsw;
+        zend = zs + parts.p[z].nsw;
+        qs_z = qscale + (int64_t)z * qc;
+        wq_z = wq + (int64_t)z * 2 * qc * ws;
+        om_z = out_m + (int64_t)z * nsw_max * qc * CAND_PAD;
+        or_z = out_r + (int64_t)z * nsw_max * qc * CAND_PAD;
+        if (MODE == BITSET) {
+          mask_z = mask + (int64_t)z * qc * nsw_max * SW_WORD_ROWS * 128;
+        }
+        cols_hi = parts.p[z].hi;
+        cols_lo = parts.p[z].lo;
+        live = parts.p[z].live;
+        hpt = parts.p[z].hpt;
+        __syncthreads();
+
+        // ---- 1. this rank's queries j = rank + F_CL i: counts and lists
+        for (int i = warp; i < n_own; i += F_WARPS) {
+          const int q = w0 + rank + F_CL * i;
+          const int8_t* wh = wq_z + (int64_t)q * ws;
+          const int8_t* wl = wq_z + (int64_t)(qc + q) * ws;
+          int n = 0, sa = 0, sb = 0;
+          for (int s = lane; s < hpt; s += 32) {
+            const int a = wh[s], b = wl[s];
+            n += (a | b) != 0;
+            sa += abs(a);
+            sb += abs(b);
+          }
+          n = __reduce_add_sync(FULL, n);
+          sa = __reduce_add_sync(FULL, sa);
+          sb = __reduce_add_sync(FULL, sb);
+          if (lane == 0) {
+            const float qs = qs_z[q];
+            own[i] = OwnQ{n, -1, qs, (int)fast_query(sa, sb, qs)};
+          }
+        }
+        __syncthreads();
+        // own list offsets of the queries the staged path may take: fast, with
+        // a list within one batch's union, in order while lc holds them
+        if (warp == 0) {
+          int base = 0;
+          for (int i0 = 0; i0 < n_own; i0 += 32) {
+            const int i = i0 + lane;
+            const OwnQ o = i < n_own ? own[i] : OwnQ{0, -1, 0.f, 0};
+            const int len = o.fast && o.n > 0 && o.n <= pl.slot_cap ? o.n : 0;
+            int x = len;                         // inclusive scan
+    #pragma unroll
+            for (int d = 1; d < 32; d <<= 1) {
+              const int y = __shfl_up_sync(FULL, x, d);
+              if (lane >= d) x += y;
+            }
+            if (len > 0 && base + x <= pl.lc) own[i].off = base + x - len;
+            base += __shfl_sync(FULL, x, 31);
+          }
+        }
+        __syncthreads();
+        for (int i = warp; i < n_own; i += F_WARPS) {
+          const int off = own[i].off;
+          if (off < 0) continue;
+          const int q = w0 + rank + F_CL * i;
+          const int8_t* wh = wq_z + (int64_t)q * ws;
+          const int8_t* wl = wq_z + (int64_t)(qc + q) * ws;
+          int pos = off;
+          for (int s0 = 0; s0 < hpt; s0 += 32) {
+            const int s = s0 + lane;
+            const int a = s < hpt ? wh[s] : 0;
+            const int b = s < hpt ? wl[s] : 0;
+            const bool nz = (a | b) != 0;
+            const unsigned bal = __ballot_sync(FULL, nz);
+            if (nz) {
+              olist[pos + __popc(bal & ((1u << lane) - 1u))] =
+                  (unsigned)s | ((unsigned)(128 * a + b) << 16);
+            }
+            pos += __popc(bal);
+          }
+        }
+        cluster.sync();                          // every rank's own region
+
+        // ---- 2. every query of the tile from its rank. Staged: a list its
+        // rank holds, while the tile's candidates' lists add up to lc; then
+        // direct: the rest with a score weight. Compact indices t: the staged
+        // (in order), then the direct ones (in order)
+        int4* raw = reinterpret_cast<int4*>(gat);  // scratch: [ng] by raw j
+        for (int j = tid; j < ng; j += F_THREADS) {
+          const OwnQ o = cluster.map_shared_rank(own, j % F_CL)[j / F_CL];
+          raw[j] = make_int4(o.n, o.off, __float_as_int(o.qs), o.fast);
+        }
+        __syncthreads();
+        if (warp == 0) {
+          int e = 0, n_st = 0;
+          for (int j0 = 0; j0 < ng; j0 += 32) {
+            const int j = j0 + lane;
+            const int4 r = j < ng ? raw[j] : make_int4(0, -1, 0, 0);
+            const int len = r.y >= 0 ? r.x : 0;
+            int x = len;                         // inclusive scan
+    #pragma unroll
+            for (int d = 1; d < 32; d <<= 1) {
+              const int y = __shfl_up_sync(FULL, x, d);
+              if (lane >= d) x += y;
+            }
+            const bool st = len > 0 && e + x <= pl.lc;
+            const unsigned bal = __ballot_sync(FULL, st);
+            if (st) {
+              const int t = n_st + __popc(bal & ((1u << lane) - 1u));
+              qi[t] = make_int4(j | (r.w << 16), r.x, e + x - len, r.z);
+              tof[j] = (short)t;
+            } else if (j < ng) {
+              tof[j] = -1;
+            }
+            n_st += __popc(bal);
+            e += __shfl_sync(FULL, x, 31);
+          }
+          int n_act = n_st;
+          for (int j0 = 0; j0 < ng; j0 += 32) {
+            const int j = j0 + lane;
+            const int4 r = j < ng ? raw[j] : make_int4(0, -1, 0, 0);
+            const bool dir = j < ng && r.x > 0 && tof[j] < 0;
+            const unsigned bal = __ballot_sync(FULL, dir);
+            if (dir) {
+              const int t = n_act + __popc(bal & ((1u << lane) - 1u));
+              qi[t] = make_int4(j | (r.w << 16), r.x, 0, r.z);
+              tof[j] = (short)t;
+            }
+            n_act += __popc(bal);
+          }
+          if (lane == 0) {
+            misc[0] = n_act;
+            misc[1] = n_st;
+          }
+        }
+        __syncthreads();
+        n_act = misc[0];
+        n_st = misc[1];
+        for (int t = warp; t < n_st; t += F_WARPS) {
+          const int4 info = qi[t];
+          const int j = info.x & 0xFFFF;
+          const uint32_t* ro =
+              cluster.map_shared_rank(olist, j % F_CL) + raw[j].y;
+          for (int i = lane; i < info.y; i += 32) list[info.z + i] = ro[i];
+        }
+        // no rank reads another's own region or its own scratch (raw, in
+        // gat) past here, and no rank stores a row value into another's
+        // gat before here
+        cluster.sync();
+
+        // ---- 3. batches of the staged queries whose union fits the ring
+        // twice: k chunks of consecutive queries, k = 1, 2, 4, ..., F_KMAX,
+        // chunk c = {t : floor(t k / n_st) = c}; past F_KMAX, a query a batch
+        n_bat = 0;
+        for (int kk = 1; n_st > 0; kk *= 2) {
+          if (kk > F_KMAX || kk > n_st) {
+            for (int b = tid; b <= n_st; b += F_THREADS) bat[b] = b;
+            n_bat = n_st;
+            break;
+          }
+          __syncthreads();
+          for (int s = tid; s < hpt; s += F_THREADS) map[s] = 0u;
+          if (tid < kk) cnt_u[tid] = 0;
+          __syncthreads();
+          for (int t = warp; t < n_st; t += F_WARPS) {
+            const int4 info = qi[t];
+            const unsigned bit = 1u << (int)((int64_t)t * kk / n_st);
+            for (int i = lane; i < info.y; i += 32) {
+              atomicOr(map + (list[info.z + i] & 0xFFFF), bit);
+            }
+          }
+          __syncthreads();
+          for (int s = tid; s < hpt; s += F_THREADS) {
+            for (unsigned m = map[s]; m; m &= m - 1u) {
+              atomicAdd(cnt_u + __ffs(m) - 1, 1);
+            }
+          }
+          __syncthreads();
+          bool ok = true;
+          for (int c = 0; c < kk; ++c) ok = ok && cnt_u[c] <= pl.slot_cap;
+          if (ok) {
+            for (int c = tid; c <= kk; c += F_THREADS) {
+              bat[c] = (int)(((int64_t)c * n_st + kk - 1) / kk);
+            }
+            n_bat = kk;
+            break;
+          }
+        }
+        // each batch's union in stage order (batch b's at ubase[b], within
+        // lc: a union is no longer than its lists), its entries rewritten to
+        // (stage index | W << 16)
+        for (int b = 0; b < n_bat; ++b) {
+          __syncthreads();
+          const int t0 = bat[b], t1 = bat[b + 1];
+          for (int s = tid; s < hpt; s += F_THREADS) map[s] = 0u;
+          __syncthreads();
+          for (int t = t0 + warp; t < t1; t += F_WARPS) {
+            const int4 info = qi[t];
+            for (int i = lane; i < info.y; i += 32) {
+              map[list[info.z + i] & 0xFFFF] = 1u;
+            }
+          }
+          __syncthreads();
+          if (warp == 0) {
+            const int u0 = b == 0 ? 0 : ubase[b];
+            int u = 0;
+            for (int s0 = 0; s0 < hpt; s0 += 32) {
+              const int s = s0 + lane;
+              const bool in = s < hpt && map[s] != 0u;
+              const unsigned bal = __ballot_sync(FULL, in);
+              if (in) {
+                const int x = u + __popc(bal & ((1u << lane) - 1u));
+                map[s] = (unsigned)x;
+                uslot[u0 + x] = (unsigned short)s;
+              }
+              u += __popc(bal);
+            }
+            if (lane == 0) {
+              ubase[b] = u0;
+              ubase[b + 1] = u0 + u;
+            }
+          }
+          __syncthreads();
+          for (int t = t0 + warp; t < t1; t += F_WARPS) {
+            const int4 info = qi[t];
+            for (int i = lane; i < info.y; i += 32) {
+              const uint32_t e = list[info.z + i];
+              list[info.z + i] = map[e & 0xFFFF] | (e & 0xFFFF0000u);
+            }
+          }
+        }
+        __syncthreads();
+        max_nu = 0;
+        for (int b = 0; b < n_bat; ++b) {
+          max_nu = max(max_nu, ubase[b + 1] - ubase[b]);
+        }
+      }
+
+      // ---- the cluster's superwindows of the partition, each: its rows'
+      // alive bits (and the queries' kept rows), the batches' stages, the
+      // direct queries, and the selection over the cluster
+      {
+        const int sw = item - (zend - parts.p[z].nsw);
+        for (int p0 = warp; p0 < F_RB * 4; p0 += F_WARPS * 4) {
+          float v[4];
+  #pragma unroll
+          for (int u = 0; u < 4; ++u) {         // loads first, then ballots
+            const int p = p0 + u * F_WARPS;
+            v[u] = p < F_RB * 4
+                       ? live[((int64_t)sw * SW_ROWS + row0 + p / 4) * 128
+                              + 32 * (p % 4) + lane]
+                       : 0.f;
+          }
+  #pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int p = p0 + u * F_WARPS;
+            const unsigned bl = __ballot_sync(FULL, v[u] > 0.f);
+            if (lane == 0 && p < F_RB * 4) alive[p] = bl;
+          }
+        }
+        if (MODE == BITSET) {
+          // which of the block's rows each query keeps: bit r % 32 of word
+          // row r / 32, any doc (the reference's chunk skip)
+          for (int t0 = warp; t0 < n_act; t0 += F_WARPS * 2) {
+            uint4 v[2][F_KW];
+  #pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int t = t0 + u * F_WARPS;
+              const int q = w0 + (t < n_act ? qi[t].x & 0xFFFF : 0);
+              const uint4* m4 = reinterpret_cast<const uint4*>(
+                  mask_z + (((int64_t)q * nsw_max + sw) * SW_WORD_ROWS
+                          + F_KW * rank) * 128);
+  #pragma unroll
+              for (int i = 0; i < F_KW; ++i) {
+                v[u][i] = t < n_act ? __ldg(m4 + i * 32 + lane)
+                                    : make_uint4(0, 0, 0, 0);
+              }
+            }
+  #pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int t = t0 + u * F_WARPS;
+  #pragma unroll
+              for (int i = 0; i < F_KW; ++i) {
+                const unsigned o = __reduce_or_sync(
+                    FULL, v[u][i].x | v[u][i].y | v[u][i].z | v[u][i].w);
+                if (lane == i && t < n_act) keep[t * F_KW + i] = o;
+              }
+            }
+          }
+        }
+        __syncthreads();
+        if (MODE == BITSET) {                  // each batch's kept rows
+          for (int b = warp; b < n_bat; b += F_WARPS) {
+  #pragma unroll
+            for (int i = 0; i < F_KW; ++i) {
+              uint32_t a = 0u;
+              for (int t = bat[b] + lane; t < bat[b + 1]; t += 32) {
+                a |= keep[t * F_KW + i];
+              }
+              a = __reduce_or_sync(FULL, a);
+              if (lane == 0) bkw[b * F_KW + i] = a;
+            }
+          }
+          __syncthreads();
+        }
+
+        // ---- 4. a stage a (row group, batch): the batch's union slots'
+        // rows (cp.async into a ring, completed on mbarriers, by the producer
+        // warp), every query of the batch scored from the stage; each chunk's
+        // union columns prefetched to L2 whole a chunk ahead
+        if (n_bat > 0) {
+          const int nst = min(F_MAX_ST, pl.ring_slots / max_nu);
+          const int sbytes = max_nu * F_SLOT_BYTES;
+          if (warp == F_CW) {
+            // the producer: each union slot's rows two pieces (hi, lo) of
+            // F_R * 128 contiguous bytes, a warp's 16-byte cp.asyncs a piece;
+            // each lane arrives on the stage's barrier when its copies have
+            // landed
+            auto prefetch = [&](int ch) {     // chunk ch of the block's rows
+              const int64_t cb =
+                  (int64_t)(sw * N_CHUNKS_SW + (row0 >> 4) + ch) * hpt * 2048;
+              for (int p = lane; p < 2 * ubase[n_bat]; p += 32) {
+                const int8_t* src = (p & 1 ? cols_lo : cols_hi) + cb
+                                    + (int64_t)uslot[p >> 1] * 2048;
+                asm volatile("cp.async.bulk.prefetch.L2.global [%0], 2048;\n"
+                             ::"l"(src)
+                             : "memory");
+              }
+            };
+            prefetch(0);
+            int c = 0;
+            for (int g = 0; g < F_NG; ++g) {
+              if (g % (CHUNK_ROWS / F_R) == 0
+                  && g / (CHUNK_ROWS / F_R) + 1 < F_RB / CHUNK_ROWS) {
+                prefetch(g / (CHUNK_ROWS / F_R) + 1);
+              }
+              const int r = row0 + g * F_R;
+              const int64_t base =
+                  (int64_t)(sw * N_CHUNKS_SW + r / CHUNK_ROWS) * hpt * 2048
+                  + (r % CHUNK_ROWS) * 128 + lane * 16;
+              for (int b = 0; b < n_bat; ++b) {
+                if (!row_group_kept<MODE>(bkw + b * F_KW, g)) continue;
+                const int s = c++ % nst;
+                if ((pend >> s) & 1u) {
+                  bar_wait(empty + s, (epar >> s) & 1u);
+                  epar ^= 1u << s;
+                }
+                const int nu = ubase[b + 1] - ubase[b];
+                const unsigned short* us = uslot + ubase[b];
+                const uint32_t st = smem_u32(ring) + s * sbytes + lane * 16;
+                const int8_t* hb = cols_hi + base;
+                const int8_t* lb = cols_lo + base;
+  #pragma unroll 4
+                for (int u = 0; u < nu; ++u) {
+                  const uint32_t so = (uint32_t)us[u] * 2048u;
+                  cp_async16(st + u * F_SLOT_BYTES, hb + so);
+                  cp_async16(st + u * F_SLOT_BYTES + F_R * 128, lb + so);
+                }
+                cp_async_arrive(full + s);
+                pend |= 1u << s;
+              }
+            }
+            for (int s = 0; s < nst; ++s) {     // drain: every stage released
+              if ((pend >> s) & 1u) {
+                bar_wait(empty + s, (epar >> s) & 1u);
+                epar ^= 1u << s;
+              }
+            }
+            pend = 0;
+          } else {
+            // the consumers: on a stage of batch b, warp w scores queries
+            // bat[b] + w + F_CW i on its four rows, 16 docs a thread
+            int c = 0;
+            for (int g = 0; g < F_NG; ++g) {
+              const int rl = g * F_R + (lane >> 3);
+              const int row = row0 + rl;
+              const unsigned a16 =
+                  (alive[rl * 4 + (lsub >> 1)] >> ((lsub & 1) * 16)) & 0xFFFFu;
+              const Words msk = gate_words(a16);
+              // BITSET: the queries that keep a row of the group (the
+              // others' rows stay 0), each one's mask words loaded while the
+              // one before it is scored
+              const int32_t* mrow =
+                  MODE == BITSET ? mask_z + ((int64_t)sw * SW_WORD_ROWS
+                                             + row / 32) * 128 + lsub * DPT
+                                 : nullptr;
+              const int64_t mstride = (int64_t)nsw_max * SW_WORD_ROWS * 128;
+              for (int b = 0; b < n_bat; ++b) {
+                const int t1 = bat[b + 1];
+                if (!row_group_kept<MODE>(bkw + b * F_KW, g)) {
+                  // no stage: every query of the batch keeps none of the rows
+                  for (int t = bat[b] + warp; lsub == 0 && t < t1;
+                       t += F_CW) {
+                    put_row(cluster, gat, qi[t].x & 0xFFFF, row, 0u);
+                  }
+                  continue;
+                }
+                const int s = c++ % nst;
+                bar_wait(full + s, (fpar >> s) & 1u);
+                fpar ^= 1u << s;
+                const unsigned char* st =
+                    ring + (int64_t)s * sbytes + lane * 16;
+                auto kept_from = [&](int t) {
+                  while (MODE == BITSET && t < t1
+                         && !row_group_kept<MODE>(keep + t * F_KW, g)) {
+                    t += F_CW;
+                  }
+                  return t;
+                };
+                // the warp's queries of the batch: those that keep a row of
+                // the group scored (F3: each one's mask words loaded while the
+                // one before it is scored), the others' rows 0
+                int tk = kept_from(bat[b] + warp);
+                MaskWords mw;
+                if (MODE == BITSET && tk < t1) {
+                  mw = mask_load(mrow + (w0 + (qi[tk].x & 0xFFFF)) * mstride);
+                }
+                for (int t = bat[b] + warp; t < t1; t += F_CW) {
+                  const int4 info = qi[t];
+                  if (t != tk) {
+                    if (lsub == 0) {
+                      put_row(cluster, gat, info.x & 0xFFFF, row, 0u);
+                    }
+                    continue;
+                  }
+                  tk = kept_from(t + F_CW);
+                  int m;
+                  if (MODE == BITSET) {
+                    const unsigned gate = a16 & mask_gate(mw, row & 31);
+                    if (tk < t1) {
+                      mw = mask_load(mrow + (w0 + (qi[tk].x & 0xFFFF))
+                                                * mstride);
+                    }
+                    m = __any_sync(FULL, gate != 0u)
+                            ? docs_staged(list + info.z, info.y, st,
+                                          gate_words(gate))
+                            : 0;
+                  } else {
+                    m = docs_staged(list + info.z, info.y, st, msk);
+                  }
+  #pragma unroll
+                  for (int o = TPR / 2; o > 0; o >>= 1) {
+                    m = max(m, __shfl_xor_sync(FULL, m, o));
+                  }
+                  if (lsub == 0) {
+                    put_row(cluster, gat, info.x & 0xFFFF, row,
+                            m > 0 ? pre_val(__float_as_uint(__int2float_rn(m)),
+                                            __int_as_float(info.w))
+                                  : 0u);
+                  }
+                }
+                __syncwarp();
+                if (lane == 0) bar_arrive(empty + s);
+              }
+            }
+          }
+        }
+
+        // ---- 5. the direct queries (the integer path, or a list past a
+        // batch): their lists as sweep_group_kernel keeps them, in batches
+        // that fit dc, each warp (the producer's too) taking a row group,
+        // read from device memory
+        for (int d0 = n_st; d0 < n_act;) {
+          __syncthreads();
+          int d1 = d0, used = 0;
+          while (d1 < n_act && used + qi[d1].y <= pl.dc) used += qi[d1++].y;
+          for (int t = d0 + warp; t < d1; t += F_WARPS) {
+            int pos = 0;
+            for (int i = d0; i < t; ++i) pos += qi[i].y;
+            const int q = w0 + (qi[t].x & 0xFFFF);
+            if (lane == 0) qi[t].z = pos;
+            const int8_t* wh = wq_z + (int64_t)q * ws;
+            const int8_t* wl = wq_z + (int64_t)(qc + q) * ws;
+            for (int s0 = 0; s0 < hpt; s0 += 32) {
+              const int s = s0 + lane;
+              const int a = s < hpt ? wh[s] : 0;
+              const int b = s < hpt ? wl[s] : 0;
+              const bool nz = (a | b) != 0;
+              const unsigned bal = __ballot_sync(FULL, nz);
+              if (nz) {
+                dlist[pos + __popc(bal & ((1u << lane) - 1u))] = make_int4(
+                    (int)((unsigned)s | ((unsigned)(a & 0xFF) << 16)
+                          | ((unsigned)b << 24)),
+                    __float_as_int((float)(16384 * a + 128 * b)),
+                    __float_as_int((float)(128 * a)),
+                    __float_as_int((float)b));
+              }
+              pos += __popc(bal);
+            }
+          }
+          __syncthreads();
+          for (int g = warp; g < F_NG; g += F_WARPS) {
+            const int rl = g * F_R + (lane >> 3);
+            const int row = row0 + rl;
+            const unsigned a16 =
+                (alive[rl * 4 + (lsub >> 1)] >> ((lsub & 1) * 16)) & 0xFFFFu;
+            const int64_t rbase =
+                ((int64_t)(sw * N_CHUNKS_SW + row / CHUNK_ROWS) * hpt) * 2048
+                + (row % CHUNK_ROWS) * 128 + lsub * DPT;
+            const int8_t* hi = cols_hi + rbase;
+            const int8_t* lo = cols_lo + rbase;
+            for (int t = d0; t < d1; ++t) {
+              const int4 info = qi[t];
+              const bool fast = (info.x >> 16) != 0;
+              const float qs = __int_as_float(info.w);
+              unsigned gate = a16;
+              if (MODE == BITSET) {
+                const int q = w0 + (info.x & 0xFFFF);
+                gate &= mask_bits(mask_z + (((int64_t)q * nsw_max + sw)
+                                          * SW_WORD_ROWS + row / 32) * 128
+                                      + lsub * DPT,
+                                  row & 31);
+              }
+              unsigned v = 0u;
+              if (MODE == DISJ || gate != 0u) {
+                v = fast ? docs_fast(dlist + info.z, info.y, hi, lo,
+                                     gate_words(gate))
+                         : docs_int(dlist + info.z, info.y, hi, lo, gate, qs);
+              }
+  #pragma unroll
+              for (int o = TPR / 2; o > 0; o >>= 1) {
+                v = max(v, __shfl_xor_sync(FULL, v, o));
+              }
+              if (lsub == 0) {
+                put_row(cluster, gat, info.x & 0xFFFF, row,
+                        fast ? pre_val(v, qs) : v);
+              }
+            }
+          }
+          d0 = d1;
+        }
+        cluster.sync();                        // every rank's row maxima
+
+        // ---- 6. the top NCAND rows of each query of the tile over the
+        // superwindow's 512 in the rank's gather buffer, rank r writing
+        // queries j = r mod F_CL: a warp a query, lane l holding rows l + 32 k,
+        // sweep_group_kernel's rounds
+        for (int i = warp; i < n_own; i += F_WARPS) {
+          const int j = rank + F_CL * i;
+          const int t = tof[j];
+          float om = -INFINITY;
+          int orow = 0;
+          if (t >= 0) {
+            uint32_t* rv = gat + i * SW_ROWS;
+            unsigned best = 0u;
+            int bt = 0;
+            for (int k = 0; k < SW_ROWS / 32; ++k) {
+              const unsigned x = rv[lane + 32 * k];
+              if (x > best) {
+                best = x;
+                bt = k;
+              }
+            }
+            for (int p = 0; p < NCAND; ++p) {
+              const unsigned m = __reduce_max_sync(FULL, best);
+              if (m == 0u) break;
+              const unsigned cc =
+                  best == m ? (unsigned)(SW_ROWS - (lane + 32 * bt)) : 0u;
+              const int r = SW_ROWS - (int)__reduce_max_sync(FULL, cc);
+              if (lane == p) {
+                om = __uint_as_float(m);
+                orow = r + sw * SW_ROWS;
+              }
+              if ((r & 31) == lane) {
+                rv[r] = 0u;
+                best = 0u;
+                bt = 0;
+                for (int k = 0; k < SW_ROWS / 32; ++k) {
+                  const unsigned x = rv[lane + 32 * k];
+                  if (x > best) {
+                    best = x;
+                    bt = k;
+                  }
+                }
+              }
+            }
+          }
+          const int64_t o = ((int64_t)sw * qc + w0 + j) * CAND_PAD + lane;
+          om_z[o] = om;
+          or_z[o] = orow;
+        }
+        cluster.sync();     // no rank reads another's maxima after
+      }
+    }
+  }
+}
+
 // list entries a block holds at once: a whole group's slots where they
 // fit in LIST_MIN, else at least one query's
 int list_cap(int hpt) {
@@ -588,28 +1563,119 @@ int launch_solo(const void* qscale, const void* nreq, const void* cols_hi,
                             out_m, out_r, qc, hpt, nsw, stream);
 }
 
-// the fused sweeps (F1-F3): `table` [n_parts, 5] int64 on the host, a row
-// (cols_hi, cols_lo, live, nsw, hpt) a partition, n_parts <= MAX_PARTS
+// the fused sweeps' table: [n_parts, 5] int64 on the host, a row (cols_hi,
+// cols_lo, live, nsw, hpt) a partition, n_parts <= MAX_PARTS; false when it
+// does not fit the launch
+bool read_table(const int64_t* table, int n_parts, int nsw_max,
+                PartTable* parts, int* hpt_max) {
+  if (n_parts < 1 || n_parts > MAX_PARTS) return false;
+  *hpt_max = 0;
+  for (int i = 0; i < n_parts; ++i) {
+    const int64_t* r = table + 5 * i;
+    const int nsw = (int)r[3], hpt = (int)r[4];
+    if (nsw < 1 || nsw > nsw_max || hpt < 1) return false;
+    parts->p[i] = Part{(const int8_t*)r[0], (const int8_t*)r[1],
+                       (const float*)r[2], nsw, hpt};
+    *hpt_max = hpt > *hpt_max ? hpt : *hpt_max;
+  }
+  return true;
+}
+
+// F2: sweep_group_kernel with the partition a third grid axis
 template <int MODE>
 int launch_fused(const int64_t* table, int n_parts, const void* qscale,
                  const void* nreq, const void* wq, const void* wp,
                  const void* mask, void* out_m, void* out_r, int qc, int ws,
                  int nsw_max, void* stream) {
-  if (n_parts < 1 || n_parts > MAX_PARTS) return (int)cudaErrorInvalidValue;
   PartTable parts;                     // copied into the launch
-  int hpt_max = 0;
-  for (int i = 0; i < n_parts; ++i) {
-    const int64_t* r = table + 5 * i;
-    const int nsw = (int)r[3], hpt = (int)r[4];
-    if (nsw < 1 || nsw > nsw_max || hpt < 1) {
-      return (int)cudaErrorInvalidValue;
-    }
-    parts.p[i] = Part{(const int8_t*)r[0], (const int8_t*)r[1],
-                      (const float*)r[2], nsw, hpt};
-    hpt_max = hpt > hpt_max ? hpt : hpt_max;
+  int hpt_max;
+  if (!read_table(table, n_parts, nsw_max, &parts, &hpt_max)) {
+    return (int)cudaErrorInvalidValue;
   }
   return launch_group<MODE>(parts, n_parts, hpt_max, qscale, nreq, wq, wp,
                             mask, out_m, out_r, qc, ws, nsw_max, stream);
+}
+
+// Per device and mode: whether the kernel's shared-memory attribute is
+// set (to F_SMEM, the most any plan takes), and up to F_MEMO (smem, the
+// clusters the device holds at once) pairs, smem << 16 | clusters, asked
+// on a plan's first launch. Read without a lock: every writer of an
+// entry stores the same value.
+std::atomic<int> f_attr[2][F_MAX_DEVICES];
+std::atomic<long long> f_memo[2][F_MAX_DEVICES][F_MEMO];
+
+// the clusters of fused_sweep_kernel<MODE> the card holds at once
+template <int MODE>
+cudaError_t fused_clusters(const FusedPlan& pl, int* n_cl) {
+  const int m = MODE == BITSET;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= F_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (f_attr[m][dev].load(std::memory_order_relaxed) == 0) {
+    err = cudaFuncSetAttribute(fused_sweep_kernel<MODE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               F_SMEM);
+    if (err != cudaSuccess) return err;
+    f_attr[m][dev].store(1, std::memory_order_relaxed);
+  }
+  std::atomic<long long>* memo = f_memo[m][dev];
+  for (int i = 0; i < F_MEMO; ++i) {
+    const long long e = memo[i].load(std::memory_order_relaxed);
+    if (e == 0) break;
+    if ((e >> 16) == pl.smem) {
+      *n_cl = (int)(e & 0xFFFF);
+      return cudaSuccess;
+    }
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(F_CL, 1, 1);
+  cfg.blockDim = dim3(F_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = pl.smem;
+  err = cudaOccupancyMaxActiveClusters(n_cl, fused_sweep_kernel<MODE>, &cfg);
+  if (err != cudaSuccess || *n_cl < 1 || *n_cl > 0xFFFF) return err;
+  const long long e = ((long long)pl.smem << 16) | *n_cl;
+  for (int i = 0; i < F_MEMO; ++i) {      // the first free entry, if any
+    long long z = 0;
+    if (memo[i].compare_exchange_strong(z, e) || z == e) break;
+  }
+  return cudaSuccess;
+}
+
+// F1 and F3's sweep: fused_sweep_kernel, a cluster of F_CL blocks per
+// (superwindow, partition); below F_MIN_QC (F_MIN_QC_BITSET) queries
+// sweep_group_kernel, as F2
+template <int MODE>
+int launch_fused_cluster(const int64_t* table, int n_parts,
+                         const void* qscale, const void* wq,
+                         const void* mask, void* out_m, void* out_r, int qc,
+                         int ws, int nsw_max, void* stream) {
+  if (qc < (MODE == BITSET ? F_MIN_QC_BITSET : F_MIN_QC)) {
+    return launch_fused<MODE>(table, n_parts, qscale, nullptr, wq, nullptr,
+                              mask, out_m, out_r, qc, ws, nsw_max, stream);
+  }
+  PartTable parts;                     // copied into the launch
+  int hpt_max;
+  if (!read_table(table, n_parts, nsw_max, &parts, &hpt_max)
+      || hpt_max > 0xFFFF || ws < hpt_max) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const FusedPlan pl = fused_plan(qc, hpt_max, MODE == BITSET);
+  if (pl.slot_cap < 1) return (int)cudaErrorInvalidValue;
+  // persistent clusters: as many as the card holds at once, each taking a
+  // contiguous range of the partitions' live superwindows
+  int n_cl = 0;
+  const cudaError_t err = fused_clusters<MODE>(pl, &n_cl);
+  if (err != cudaSuccess) return (int)err;
+  int n_items = 0;
+  for (int i = 0; i < n_parts; ++i) n_items += parts.p[i].nsw;
+  const int gy = n_cl < 1 ? 1 : (n_cl > n_items ? n_items : n_cl);
+  dim3 grid(F_CL, gy, 1);
+  fused_sweep_kernel<MODE><<<grid, F_THREADS, pl.smem,
+                             (cudaStream_t)stream>>>(
+      parts, (const float*)qscale, (const int8_t*)wq, (const int32_t*)mask,
+      (float*)out_m, (int32_t*)out_r, n_parts, qc, ws, nsw_max, pl);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -654,9 +1720,9 @@ extern "C" int es_fused_sweep_rowmax(const void* table, int n_parts,
                                      const void* qscale, const void* wq,
                                      void* out_m, void* out_r, int qc,
                                      int ws, int nsw_max, void* stream) {
-  return launch_fused<DISJ>((const int64_t*)table, n_parts, qscale, nullptr,
-                            wq, nullptr, nullptr, out_m, out_r, qc, ws,
-                            nsw_max, stream);
+  return launch_fused_cluster<DISJ>((const int64_t*)table, n_parts, qscale,
+                                    wq, nullptr, out_m, out_r, qc, ws,
+                                    nsw_max, stream);
 }
 
 extern "C" int es_fused_sweep_rowmax_conj(const void* table, int n_parts,
@@ -676,11 +1742,35 @@ extern "C" int es_fused_sweep_rowmax_bitset(const void* table, int n_parts,
                                             const void* mask, void* out_m,
                                             void* out_r, int qc, int ws,
                                             int nsw_max, void* stream) {
-  return launch_fused<BITSET>((const int64_t*)table, n_parts, qscale,
-                              nullptr, wq, nullptr, mask, out_m, out_r, qc,
-                              ws, nsw_max, stream);
+  return launch_fused_cluster<BITSET>((const int64_t*)table, n_parts,
+                                      qscale, wq, mask, out_m, out_r, qc, ws,
+                                      nsw_max, stream);
 }
 
 // the partitions one fused launch takes, for the wrapper's mirror
 // (kernels.MAX_FUSED_PARTS)
 extern "C" int es_fused_max_parts() { return MAX_PARTS; }
+
+// the clusters of F1's (bitset 0) or F3's sweep kernel (1) the card holds
+// at once for (qc, hpt_max), or -1 on an error
+extern "C" int es_fused_sweep_clusters(int qc, int hpt_max, int bitset) {
+  const FusedPlan p = fused_plan(qc, hpt_max, bitset != 0);
+  int n = 0;
+  const cudaError_t err = bitset ? fused_clusters<BITSET>(p, &n)
+                                 : fused_clusters<DISJ>(p, &n);
+  return err == cudaSuccess ? n : -1;
+}
+
+// F1's (bitset 0) or F3's (1) plan as built, for kernels.fused_sweep_plan
+// and the CPU emulation: out = (gq, oq, lc, dc, ring_slots, slot_cap, smem,
+// cluster, rows a stage, 1 if the launch runs fused_sweep_kernel and 0 if
+// sweep_group_kernel)
+extern "C" int es_fused_sweep_plan(int qc, int hpt_max, int bitset,
+                                   int* out) {
+  const FusedPlan p = fused_plan(qc, hpt_max, bitset != 0);
+  const int v[10] = {p.gq, p.oq, p.lc, p.dc, p.ring_slots, p.slot_cap,
+                     p.smem, F_CL, F_R,
+                     qc >= (bitset ? F_MIN_QC_BITSET : F_MIN_QC)};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  return 0;
+}

@@ -37,7 +37,9 @@ _L = ctypes.c_longlong
 # list capacity; agg_word_bytes and agg_plan report K8's word scratch
 # size and histogram plan; intersect_table_q K5's queries a launch;
 # lane_topk_cap K10's big-k buffer for a k; fused_max_parts the
-# partitions one fused sweep launch takes
+# partitions one fused sweep launch takes; fused_sweep_plan F1 and F3's
+# shared-memory plan for (QC, Hpt, F3), fused_sweep_clusters the clusters of
+# it the card holds at once
 _SIGNATURES = {
     "build_columns": ("build_columns", "es_build_columns",
                       [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
@@ -58,6 +60,10 @@ _SIGNATURES = {
                                   "es_fused_sweep_rowmax_bitset",
                                   [_P, _I] + [_P] * 5 + [_I, _I, _I, _P]),
     "fused_max_parts": ("sweep_rowmax", "es_fused_max_parts", []),
+    "fused_sweep_plan": ("sweep_rowmax", "es_fused_sweep_plan",
+                         [_I, _I, _I, _P]),
+    "fused_sweep_clusters": ("sweep_rowmax", "es_fused_sweep_clusters",
+                             [_I, _I, _I]),
     "sparse_gather": ("sparse_gather", "es_sparse_gather",
                       [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P]),
     "intersect_bitset": ("intersect_bitset", "es_intersect_bitset",

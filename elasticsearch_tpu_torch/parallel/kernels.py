@@ -62,7 +62,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +103,82 @@ INTERSECT_TABLE_Q = 256
 # intersect_bitset.cu's MAX_PARTS; the card test holds this mirror to the
 # built es_fused_max_parts): more take a launch per MAX_FUSED_PARTS
 MAX_FUSED_PARTS = 64
+# F1 and F3's sweep (sweep_rowmax.cu's fused_sweep_kernel): a cluster of
+# FUSED_CLUSTER blocks a (partition, superwindow), each block
+# SW_ROWS / FUSED_CLUSTER rows, FUSED_STAGE_ROWS rows a stage, tiles of
+# FUSED_TILE_Q queries (F3: FUSED_TILE_Q_BITSET), staged lists of
+# FUSED_LIST entries a tile, the batch planner trying up to FUSED_KMAX
+# chunks; fused_sweep_plan mirrors its shared-memory plan (the card test
+# holds both to es_fused_sweep_plan). Below FUSED_MIN_QC queries (F3:
+# FUSED_MIN_QC_BITSET) F1 and F3 run sweep_group_kernel, as F2 does.
+FUSED_CLUSTER = 8
+FUSED_STAGE_ROWS = 4
+FUSED_TILE_Q = 256             # F1's tile; F3's FUSED_TILE_Q_BITSET
+FUSED_TILE_Q_BITSET = 128
+FUSED_LIST = 1024
+FUSED_KMAX = 32
+FUSED_MAX_STAGES = 8
+FUSED_MIN_QC = 64
+FUSED_MIN_QC_BITSET = 256
+_FUSED_SMEM = 232448           # a block's shared memory on sm_90
+_FUSED_SLOT_BYTES = 2 * FUSED_STAGE_ROWS * 128
+
+
+def fused_sweep_plan(qc: int, hpt_max: int,
+                     bitset: bool = False) -> Dict[str, int]:
+    """F1's (F3's with `bitset`) shared-memory plan for a launch of QC
+    queries over partitions of at most hpt_max slots, as sweep_rowmax.cu's
+    fused_plan lays it out: the tile's queries `gq`, a rank's `oq`, the
+    staged list entries `lc`, the direct list entries `dc`, the ring's
+    slot-stages `ring_slots`, the union slots a batch may take `slot_cap`,
+    `smem` bytes, and `cluster`: whether the launch runs the cluster kernel
+    (else sweep_group_kernel)."""
+    gq = min(qc, FUSED_TILE_Q_BITSET if bitset else FUSED_TILE_Q)
+    oq = -(-gq // FUSED_CLUSTER)
+    dc = max(hpt_max, 256)
+    rb = SW_ROWS // FUSED_CLUSTER
+    lc = FUSED_LIST
+    kw = rb // 32
+    sizes = (oq * 16, lc * 4, gq * 16, gq * kw * 4, rb * 16, gq * 2,
+             lc * 2, hpt_max * 4, (16 + FUSED_KMAX + 2 * (gq + 1)) * 4,
+             gq * kw * 4, lc * 4, dc * 16, oq * SW_ROWS * 4)
+    o = 2 * FUSED_MAX_STAGES * 8
+    for b in sizes:
+        o += (b + 15) & ~15
+    o = (o + 127) & ~127
+    ring = max(0, (_FUSED_SMEM - o) // _FUSED_SLOT_BYTES)
+    return {"gq": gq, "oq": oq, "lc": lc, "dc": dc,
+            "ring_slots": ring, "slot_cap": min(ring // 2, 255),
+            "smem": o + ring * _FUSED_SLOT_BYTES,
+            "cluster": fused_sweep_cluster(qc, bitset)}
+
+
+def fused_sweep_cluster(qc: int, bitset: bool = False) -> bool:
+    """Whether F1's (F3's with `bitset`) launch of QC queries runs the
+    cluster kernel, fused_sweep_kernel (else sweep_group_kernel)."""
+    return qc >= (FUSED_MIN_QC_BITSET if bitset else FUSED_MIN_QC)
+
+
+def fused_batches(lists, slot_cap: int) -> List[List[int]]:
+    """F1 and F3's cluster kernel's batches of a tile's staged queries, as
+    its planner makes them (lists: their slot arrays in compact order): k
+    chunks of consecutive queries, chunk c = {t : t k // n = c}, for k =
+    1, 2, 4, ..., FUSED_KMAX, the first k whose every chunk's union fits
+    slot_cap; past that (or k > n), a query a batch. Returns [[t, ...],
+    ...]."""
+    n = len(lists)
+    kk = 1
+    while n:
+        if kk > FUSED_KMAX or kk > n:
+            return [[t] for t in range(n)]
+        chunks = [[t for t in range(n) if t * kk // n == c]
+                  for c in range(kk)]
+        if all(len(set().union(*(set(np.asarray(lists[t]).tolist())
+                                  for t in ch))) <= slot_cap
+               for ch in chunks):
+            return chunks
+        kk *= 2
+    return []
 
 # the reference multiplies f32 tiles by these Python constants, which JAX
 # rounds to f32; the same f32 values here, and passed to the CUDA kernel

@@ -14,10 +14,25 @@ card in seconds (no index build), 123 superwindows of 65536 docs and Hpt
   and QC 8 for the DSL batch;
 - `--kernel bitset` (K6, `es_sweep_rowmax_bitset`): the same queries and
   columns, each gated by its mask as K5 makes it from the columns'
-  presence bits (about 45% of the (query, chunk) pairs live at QC 256).
+  presence bits (about 45% of the (query, chunk) pairs live at QC 256);
+- `--kernel fused_disj` (F1, `es_fused_sweep_rowmax`) and `--kernel
+  fused_bitset` (F3's sweep, `es_fused_sweep_rowmax_bitset`, on masks
+  made as for K6): the fused phase's shape, the shard as four partitions
+  of 31 superwindows and Hpt 97, each with its own slots (its 96 most
+  frequent terms) and columns, at QC 256, 16 and 8 (`--qc` other QCs).
+  Their `--ablate` adds `FUSED_ABLATIONS` (`--variants` some of them):
+  variants of the parent's source (its sweep_group_kernel without the
+  column loads) and of this tree's, each running fused_sweep_kernel at
+  every QC (`cluster`: as built; its cluster size, tile, ring depth, and
+  timed-only variants without the copies or without the scoring; `trace`
+  its phase stamps). Each case also prints the cluster kernel's work on
+  its inputs (`fused_stage_work`: staged and direct queries, batches,
+  union slots, stages copied and skipped, bytes copied).
 
     python -m elasticsearch_tpu_torch.tools.k2_ab --parent OLD.cu \\
-        [--kernel disj|conj|bitset] [--ablate] [--reps 20] [--out FILE]
+        [--kernel disj|conj|bitset|fused_disj|fused_bitset] [--ablate] \\
+        [--variants cluster,trace] [--qc 256,128,16] [--reps 20] \\
+        [--out FILE]
 
 `--parent` is a source with the same C entry (for example
 `git show HEAD~1:elasticsearch_tpu_torch/parallel/csrc/sweep_rowmax.cu`);
@@ -84,6 +99,101 @@ ABLATIONS = {
     "x-nomask": [("            gate &= mask_bits(mask",
                   "            gate |= 0u * mask_bits(mask")],
 }
+# The trace variant's stamps: the first cluster's rank 0 writes
+# %globaltimer at its phase boundaries into f_trace (stamp 0 at the start,
+# 1 after the own lists, 2 after the set-up; a superwindow n from 8 + 6 n:
+# its alive bits, +2 the producer's last stage, +1 the staged queries, +3
+# the row maxima gathered, +4 its selection), read by es_fused_trace
+_TRACE_DEFS = """constexpr int F_TRACE_N = 64;
+__device__ unsigned long long f_trace[F_TRACE_N];
+
+__device__ __forceinline__ void trace_at(int i) {
+  if (i >= F_TRACE_N || (blockIdx.x | blockIdx.y | blockIdx.z)) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  f_trace[i] = t;
+}
+
+"""
+_TRACE_ENTRY = """extern "C" int es_fused_trace(void* out) {
+  return cudaMemcpyFromSymbol(out, f_trace, sizeof(f_trace)) == cudaSuccess
+             ? F_TRACE_N : -1;
+}
+
+"""
+
+
+def _after(anchor, text):
+    return (anchor, anchor + text)
+
+
+def _before(anchor, text):
+    return (anchor, text + anchor)
+
+
+TRACE = [
+    _before("__device__ __forceinline__ void put_row(", _TRACE_DEFS),
+    _after("  uint32_t fpar = 0, epar = 0, pend = 0;\n",
+           "  int n_sw = 0;\n  if (tid == 0) trace_at(0);\n"),
+    _after("        cluster.sync();                          // every rank's "
+           "own region\n", "        if (tid == 0) trace_at(1);\n"),
+    _before("      // ---- the cluster's superwindows of the partition",
+            "      if (tid == 0) trace_at(2);\n"),
+    _before("        // ---- 4. a stage a (row group, batch)",
+            "        if (tid == 0) trace_at(8 + 6 * n_sw);\n"),
+    _after("            pend = 0;\n",
+           "            if (lane == 0) trace_at(8 + 6 * n_sw + 2);\n"),
+    _before("        // ---- 5. the direct queries",
+            "        if (tid == 0) trace_at(8 + 6 * n_sw + 1);\n"),
+    _after("        cluster.sync();                        // every rank's "
+           "row maxima\n", "        if (tid == 0) trace_at(8 + 6 * n_sw + 3);\n"),
+    _after("        cluster.sync();     // no rank reads another's maxima "
+           "after\n", "        if (tid == 0) trace_at(8 + 6 * n_sw + 4);\n"
+           "        ++n_sw;\n"),
+    _before('extern "C" int es_fused_max_parts()', _TRACE_ENTRY),
+]
+# this tree's F1 and F3 from QC 1 on: the cluster kernel at every QC (below
+# kernels.FUSED_MIN_QC the build runs sweep_group_kernel)
+ALL_QC = [(f"constexpr int F_MIN_QC = {k.FUSED_MIN_QC};",
+           "constexpr int F_MIN_QC = 1;"),
+          (f"constexpr int F_MIN_QC_BITSET = {k.FUSED_MIN_QC_BITSET};",
+           "constexpr int F_MIN_QC_BITSET = 1;")]
+# F1 and F3's variants: (source: "parent" or "tree", edits); every tree
+# variant runs the cluster kernel at every QC. p-x-noload is the parent's
+# sweep_group_kernel without its column loads (timed only); cluster this
+# tree's kernel as it is; CL4 a cluster of 4 blocks (128 rows each), GQ the
+# other tile size (F1 128 queries, F3 256), ST2 a ring of at most 2 stages,
+# CW31 31 consumer warps (a budget of 64 registers a thread against 128)
+# (outputs checked); x-nocopy stages nothing (the consumers score whatever
+# the ring holds), x-noscore scores nothing, x-nomask gates F3's docs by
+# live alone (timed only); trace stamps the phases of the first cluster's
+# rank 0 (TRACE, es_fused_trace, printed)
+FUSED_ABLATIONS = {
+    "p-x-noload": ("parent", ABLATIONS["x-noload"]),
+    "cluster": ("tree", ALL_QC),
+    "CL4": ("tree", ALL_QC + [("constexpr int F_CL = 8;",
+                               "constexpr int F_CL = 4;")]),
+    "GQ": ("tree", ALL_QC + [("constexpr int F_GQ = 256;",
+                              "constexpr int F_GQ = 128;"),
+                             ("constexpr int F_GQ_BITSET = 128;",
+                              "constexpr int F_GQ_BITSET = 256;")]),
+    "ST2": ("tree", ALL_QC + [("constexpr int F_MAX_ST = 8;",
+                               "constexpr int F_MAX_ST = 2;")]),
+    "x-nocopy": ("tree", ALL_QC + [("for (int u = 0; u < nu; ++u) {",
+                                    "for (int u = 0; u < 0; ++u) {")]),
+    "x-noscore": ("tree", ALL_QC + [
+        ("  return max(t[0], 0);", "  return n + 0 * t[0];")]),
+    "x-nomask": ("tree", ALL_QC + [
+        ("const unsigned gate = a16 & mask_gate(mw, row & 31);",
+         "const unsigned gate = a16;")]),
+    "CW31": ("tree", ALL_QC + [("constexpr int F_CW = 15;",
+                                "constexpr int F_CW = 31;")]),
+    "trace": ("tree", ALL_QC + TRACE),
+}
+FUSED_PARTS = 4
+FUSED_NSW = 31           # a 2M-doc partition of the 8M-doc shard
+FUSED_HPT = 97
+
 # each kernel's C entry, its count of input pointers and its name in
 # cuda_build; the pointers come in the order of the wrapper's positional
 # arguments, then (out_m, out_r, qc, hpt, nsw, stream)
@@ -95,14 +205,16 @@ WRAPPERS = {"disj": (k.sweep_rowmax, k.sweep_rowmax_plain),
             "bitset": (k.sweep_rowmax_bitset, k.sweep_rowmax_bitset_plain)}
 
 
-def ablated_sources(out_dir: Path):
-    """Write each ABLATIONS variant of this tree's sweep_rowmax.cu into
-    out_dir; returns {name: path}."""
-    src = (cuda_build.CSRC / "sweep_rowmax.cu").read_text()
+def ablated_sources(out_dir: Path, variants=None, parent=None):
+    """Write each variant (default ABLATIONS, all of this tree's
+    sweep_rowmax.cu; FUSED_ABLATIONS name their source, `parent` the
+    parent's file) into out_dir; returns {name: path}."""
+    tree = (cuda_build.CSRC / "sweep_rowmax.cu").read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
     paths = {}
-    for name, edits in ABLATIONS.items():
-        text = src
+    for name, spec in (variants or ABLATIONS).items():
+        base, edits = spec if isinstance(spec, tuple) else ("tree", spec)
+        text = Path(parent).read_text() if base == "parent" else tree
         for old, new in edits:
             if old not in text:
                 raise ValueError(f"ablation {name}: text not in the source")
@@ -199,14 +311,14 @@ def bitset_work(wq_np: np.ndarray, mask, nsw: int):
                          "nonzero_weights": int(nz.sum())}
 
 
-def _columns(ranks, p, slot_of, g):
+def _columns(ranks, p, slot_of, g, nsw=NSW, hpt=HPT):
     """hi / lo columns on the card for the terms of rank `ranks`: a column
     of rank r holds a doc with the chance a 24-term doc holds the term
     (90% at rank 1, under 1% at rank 224), hi 1..127 and lo -64..64 where
     it does."""
     dev = torch.device("cuda")
-    dpc = NSW * k.N_CHUNKS
-    hi = torch.zeros((dpc, HPT, 16, 128), dtype=torch.int8, device=dev)
+    dpc = nsw * k.N_CHUNKS
+    hi = torch.zeros((dpc, hpt, 16, 128), dtype=torch.int8, device=dev)
     lo = torch.zeros_like(hi)
     for r in np.unique(ranks):
         d = 1.0 - (1.0 - p[r]) ** 24
@@ -221,9 +333,9 @@ def _columns(ranks, p, slot_of, g):
     return hi, lo
 
 
-def _live(g):
+def _live(g, nsw=NSW):
     """2% of docs dead."""
-    return (torch.rand((NSW * k.SW_ROWS, 128), device=torch.device("cuda"),
+    return (torch.rand((nsw * k.SW_ROWS, 128), device=torch.device("cuda"),
                        generator=g) > 0.02).float()
 
 
@@ -319,12 +431,383 @@ def bitset_inputs(qc: int, seed: int = 0):
     return (qscale, hi, lo, wq_t, mask, live), (wq, mask)
 
 
+def fused_inputs(qc: int, kernel: str = "fused_disj", seed: int = 0):
+    """F1's (fused_disj) or F3's sweep's (fused_bitset) inputs on the card
+    at the fused phase's shape: FUSED_PARTS partitions of FUSED_NSW
+    superwindows and Hpt FUSED_HPT, each holding its FUSED_HPT - 1 most
+    frequent terms in slots of its own order, with columns and live as
+    `_columns` / `_live` make them. fused_disj: inputs()'s two-term
+    queries; fused_bitset: conj_inputs()'s (the heavy conjunctions, then
+    padding), each gated by its mask as bitset_inputs() makes it. Made at
+    QC 256 and cut to the first `qc` queries. Returns a dict: qscale [S,
+    QC, 1], wq [S, 2, QC, Hpt], lists hi, lo, live, nsw, mask [S, QC, nsw *
+    16, 128] (fused_bitset), and the weights (and masks) as sweep_work /
+    bitset_work count them, per partition ("work")."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, VOCAB + 1) ** 1.07
+    p /= p.sum()
+    hp, n = FUSED_HPT - 1, 256
+    if kernel == "fused_disj":
+        terms = rng.choice(VOCAB, size=(n, 2), p=p)
+    else:
+        heads = rng.integers(0, min(100, hp), size=(n // 2, 4))
+    out = {"qscale": [], "wq": [], "hi": [], "lo": [], "live": [],
+           "nsw": [FUSED_NSW] * FUSED_PARTS, "mask": [], "work": []}
+    for _ in range(FUSED_PARTS):
+        slot_of = rng.permutation(hp)
+        wq = np.zeros((2, n, FUSED_HPT), np.int8)
+        qs = rng.uniform(1e-5, 1e-3, size=(n, 1)).astype(np.float32)
+        if kernel == "fused_disj":
+            for q, r in zip(*np.nonzero(terms < hp)):
+                s = slot_of[terms[q, r]]
+                wq[0, q, s] = rng.integers(1, 128)
+                wq[1, q, s] = rng.integers(-127, 128)
+            ranks = terms[terms < hp]
+        else:
+            req_of, neg_of = [], []
+            for q in range(n // 2):
+                req = {int(slot_of[r]) for r in heads[q, :2]}
+                for s in req:
+                    wq[0, q, s] = rng.integers(1, 128)
+                    wq[1, q, s] = rng.integers(-127, 128)
+                if q % 4 == 1:
+                    req.add(int(slot_of[heads[q, 2]]))    # a filter
+                mn = int(slot_of[heads[q, 3]])
+                req_of.append(sorted(req))
+                neg_of.append([mn] if q % 8 == 3 and mn not in req else [])
+            qs[n // 2:] = 1.0
+            ranks = heads.ravel()
+        hi, lo = _columns(ranks, p, slot_of, g, FUSED_NSW, FUSED_HPT)
+        live = _live(g, FUSED_NSW)
+        wq = np.ascontiguousarray(wq[:, :qc])
+        out["qscale"].append(qs[:qc])
+        out["wq"].append(wq)
+        out["hi"].append(hi)
+        out["lo"].append(lo)
+        out["live"].append(live)
+        if kernel == "fused_bitset":
+            bits = k.pack_presence_bits(hi, lo)[:, : FUSED_NSW
+                                                * k.SW_WORD_ROWS]
+            mask = torch.zeros((qc, FUSED_NSW * k.SW_WORD_ROWS, 128),
+                               dtype=torch.int32, device=dev)
+            for q in range(min(qc, n // 2)):
+                m = torch.full_like(mask[0], -1)
+                for s in req_of[q]:
+                    m &= bits[s]
+                for s in neg_of[q]:
+                    m &= ~bits[s]
+                mask[q] = m
+            del bits
+            out["mask"].append(mask)
+    out["qscale"] = torch.from_numpy(np.stack(out["qscale"])).to(dev)
+    out["wq_np"] = out["wq"]
+    out["wq"] = torch.from_numpy(np.stack(out["wq"])).to(dev)
+    if out["mask"]:
+        out["mask"] = torch.stack(out["mask"])
+    return out
+
+
+_FUSED_ENTRIES = {"fused_disj": ("es_fused_sweep_rowmax", "fused_sweep_rowmax",
+                                 [_P, _I] + [_P] * 4 + [_I, _I, _I, _P]),
+                  "fused_bitset": ("es_fused_sweep_rowmax_bitset",
+                                   "fused_sweep_rowmax_bitset",
+                                   [_P, _I] + [_P] * 5 + [_I, _I, _I, _P])}
+
+
+def fused_entry(lib: ctypes.CDLL, kernel: str):
+    fn = getattr(lib, _FUSED_ENTRIES[kernel][0])
+    fn.argtypes = _FUSED_ENTRIES[kernel][2]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_runner(f, kernel: str):
+    """run(fn, poison=False, outs=None) -> (rowmax, rows) [S, nsw, QC,
+    CAND_PAD]: one launch of a fused C entry (`fused_entry`, this tree's or
+    an earlier one's, the same arguments) on `f` (fused_inputs), into
+    `outs` or new outputs (poison: filled with NaN and -1 first)."""
+    n, qc = len(f["hi"]), int(f["wq"].shape[2])
+    nsw_max = max(f["nsw"])
+    ws = int(f["wq"].shape[3])
+    table = k._sweep_table(f["hi"], f["lo"], f["live"], f["nsw"],
+                           [int(h.shape[1]) for h in f["hi"]])
+    ins = [f["qscale"].data_ptr(), f["wq"].data_ptr()]
+    if kernel == "fused_bitset":
+        ins.append(f["mask"].data_ptr())
+
+    def run(fn, poison=False, outs=None):
+        if outs is None:
+            with k.poisoned() if poison else contextlib.nullcontext():
+                rm, rr, _ = k._fused_sweep_out(n, nsw_max, qc,
+                                               f["wq"].device)
+        else:
+            rm, rr = outs
+        rc = fn(table.ctypes.data, n, *ins, rm.data_ptr(), rr.data_ptr(),
+                qc, ws, nsw_max, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fused launch failed: cudaError {rc}")
+        return rm, rr
+    return run
+
+
+def fused_plain(f, kernel: str):
+    """Each partition's plain K2 / K6 rows, stacked as the fused output."""
+    ms, rs = [], []
+    for i in range(len(f["hi"])):
+        a = (f["qscale"][i], f["hi"][i], f["lo"][i], f["wq"][i])
+        if kernel == "fused_disj":
+            m, r = k.sweep_rowmax_plain(*a, f["live"][i], nsw=f["nsw"][i])
+        else:
+            m, r = k.sweep_rowmax_bitset_plain(*a, f["mask"][i], f["live"][i],
+                                               nsw=f["nsw"][i])
+        ms.append(m)
+        rs.append(r)
+    return torch.stack(ms), torch.stack(rs)
+
+
+def _kept_groups(mask, nsw: int):
+    """[QC, nsw, 512 / FUSED_STAGE_ROWS] bool on the card: a query's K5
+    mask (its [QC, nsw_max * 16, 128] words) keeps some row of the row
+    group in the superwindow (bit r % 32 of some word of word row r / 32),
+    as fused_sweep_kernel's keep words and chunk skip read it."""
+    m = mask[:, :nsw * k.SW_WORD_ROWS]
+    while m.shape[-1] > 1:                     # OR of the row's 128 words
+        h = m.shape[-1] // 2
+        m = m[..., :h] | m[..., h:]
+    bits = torch.arange(32, device=m.device, dtype=torch.int32)
+    rows = ((m >> bits) & 1).bool()             # [QC, nsw * 16, 32]
+    rows = rows.reshape(m.shape[0], nsw, k.SW_ROWS)
+    return rows.reshape(m.shape[0], nsw, -1, k.FUSED_STAGE_ROWS).any(-1)
+
+
+def fused_stage_work(qscale, wq, hpts, nsw, mask=None,
+                     force: bool = False) -> dict:
+    """What fused_sweep_kernel does with a launch's inputs (F3 with `mask`,
+    its K5 stage's output), from its plan (kernels.fused_sweep_plan,
+    fused_batches) and the same selection: per tile the staged queries (a
+    fast_query list within slot_cap, the rank's and the tile's lists
+    within lc) and the direct ones, the batches and their union slots; per
+    (partition, superwindow) the stages copied (row group, batch; F3 only
+    where a query of the batch keeps a row of the group) and skipped, and
+    the bytes they copy (union slots x 1 KB a stage). `qscale` [S, QC, 1],
+    `wq` [S, 2, QC, ws] (card or host), `hpts` and `nsw` per partition.
+    Returns totals over the launch, {"cluster": False} where the launch
+    runs sweep_group_kernel (`force`: what the cluster kernel would do).
+    """
+    S, qc = int(wq.shape[0]), int(wq.shape[2])
+    plan = k.fused_sweep_plan(qc, max(hpts), mask is not None)
+    if not plan["cluster"] and not force:
+        return {"cluster": False}
+    wq_np = wq.cpu().numpy() if torch.is_tensor(wq) else np.asarray(wq)
+    qs_np = (qscale.cpu().numpy() if torch.is_tensor(qscale)
+             else np.asarray(qscale)).reshape(S, qc)
+    cl, n_g = k.FUSED_CLUSTER, k.SW_ROWS // k.FUSED_STAGE_ROWS
+    tot = {"cluster": plan["cluster"], "tiles": 0, "staged": 0, "direct": 0,
+           "batches": 0, "union_slots": [], "items": 0, "stages": 0,
+           "skipped_stages": 0, "copy_bytes": 0}
+    for z in range(S):
+        hpt = hpts[z]
+        wh = wq_np[z, 0, :, :hpt].astype(np.int64)
+        wl = wq_np[z, 1, :, :hpt].astype(np.int64)
+        kept = None if mask is None else _kept_groups(mask[z], nsw[z])
+        tot["items"] += nsw[z]
+        for w0 in range(0, qc, plan["gq"]):
+            ng = min(plan["gq"], qc - w0)
+            lists, fast = [], []
+            for q in range(w0, w0 + ng):
+                lists.append(np.nonzero((wh[q] != 0) | (wl[q] != 0))[0])
+                fast.append(16512 * np.abs(wh[q]).sum()
+                            + 128 * np.abs(wl[q]).sum() < 2 ** 24
+                            and qs_np[z, q] > 0)
+            own_ok = {}
+            for rank in range(cl):
+                e = 0
+                for j in range(rank, ng, cl):
+                    n = len(lists[j])
+                    ln = n if fast[j] and 0 < n <= plan["slot_cap"] else 0
+                    e += ln
+                    own_ok[j] = ln > 0 and e <= plan["lc"]
+            staged, e = [], 0
+            for j in range(ng):
+                ln = len(lists[j]) if own_ok[j] else 0
+                e += ln
+                if ln and e <= plan["lc"]:
+                    staged.append(j)
+            tot["tiles"] += 1
+            tot["staged"] += len(staged)
+            tot["direct"] += sum(1 for j in range(ng)
+                                 if len(lists[j]) and j not in staged)
+            batches = k.fused_batches([lists[j] for j in staged],
+                                      plan["slot_cap"])
+            tot["batches"] += len(batches)
+            for b in batches:
+                nu = len(set().union(*(set(lists[staged[t]].tolist())
+                                       for t in b)))
+                tot["union_slots"].append(nu)
+                if kept is None:
+                    n_st = nsw[z] * n_g
+                else:
+                    rows = torch.tensor([w0 + staged[t] for t in b],
+                                        device=kept.device)
+                    n_st = int(kept[rows].any(0).sum())
+                tot["stages"] += n_st
+                tot["skipped_stages"] += nsw[z] * n_g - n_st
+                tot["copy_bytes"] += n_st * nu * 2 * k.FUSED_STAGE_ROWS * 128
+    u = tot.pop("union_slots")
+    tot["union_slots_mean"] = float(np.mean(u)) if u else 0.0
+    tot["union_slots_max"] = int(max(u)) if u else 0
+    tot["stages_per_item"] = tot["stages"] / max(tot["items"], 1)
+    tot["skipped_per_item"] = tot["skipped_stages"] / max(tot["items"], 1)
+    return tot
+
+
+def launch_graph_ms(fn, reps: int = 50) -> float:
+    """Device time of one call of fn from a CUDA graph of it replayed `reps`
+    times between two events (no host between launches)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    gr = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(gr):
+        fn()
+    gr.replay()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        gr.replay()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def fused_main(args) -> int:
+    """The A/B of F1 or F3's sweep (see the module's note)."""
+    kern = args.kernel
+    cuda_build.build_all()
+    for line in cuda_build.BUILD_LOG.get("sweep_rowmax", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"ptxas sweep_rowmax: {line.strip()}", flush=True)
+    others = {"parent": fused_entry(build("k2_parent", args.parent), kern)}
+    if args.ablate or args.variants:
+        chosen = (args.variants.split(",") if args.variants
+                  else list(FUSED_ABLATIONS))
+        for name, path in ablated_sources(
+                cuda_build.BUILD_DIR / "ablate",
+                {n: FUSED_ABLATIONS[n] for n in chosen},
+                args.parent).items():
+            others[name] = fused_entry(build(f"k2_{name}", path), kern)
+    own = cuda_build.kernel(_FUSED_ENTRIES[kern][1])
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    report = {"card": smi, "kernel": kern, "reps": args.reps, "cases": []}
+    old_kernel = {n for n in others
+                  if n == "parent" or FUSED_ABLATIONS.get(n, ("",))[0]
+                  == "parent"}
+    for qc in args.qc:
+        f = fused_inputs(qc, kern)
+        run = fused_runner(f, kern)
+        fns = {"current": own, **others}
+        outs = {n: run(fns[n]) for n in fns}
+
+        def call(n):
+            return lambda: run(fns[n], outs=outs[n])
+
+        order = list(others) + ["current", "current"] + list(others)[::-1]
+        times = {n: [] for n in order}
+        graph = {n: [] for n in order}
+        for n in order:
+            times[n].append(cuda_ms(call(n), args.reps))
+            graph[n].append(launch_graph_ms(call(n)))
+        # the checks: every output written over NaN / -1
+        pm, pr = fused_plain(f, kern)
+        for n in fns:
+            if n.startswith("x-") or n.startswith("p-x-"):
+                continue
+            m, r = run(fns[n], poison=True)
+            if not (torch.equal(m, pm) and torch.equal(r, pr)):
+                raise AssertionError(f"{n} differs from the plain {kern} "
+                                     f"sweep at QC {qc}")
+        nbytes = ops = 0
+        work = {}
+        for i in range(len(f["hi"])):
+            if kern == "fused_disj":
+                b, o, nu, nnz = sweep_work(f["wq_np"][i],
+                                           int(f["live"][i].numel()),
+                                           f["nsw"][i])
+                work.setdefault("union_slots", []).append(nu)
+                work.setdefault("nonzero_weights", []).append(nnz)
+            else:
+                b, o, w = bitset_work(f["wq_np"][i], f["mask"][i],
+                                      f["nsw"][i])
+                for key, v in w.items():
+                    work.setdefault(key, []).append(v)
+            nbytes += b
+            ops += o
+        if "trace" in others:           # the stamps of one launch, in us
+            lib = build("k2_trace", cuda_build.BUILD_DIR / "ablate"
+                        / "k2_trace.cu")
+            run(fns["trace"], outs=outs["trace"])
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * 64)()
+            if lib.es_fused_trace(ctypes.byref(buf)) > 0:
+                t0 = buf[0]
+                print("trace", qc, [round((x - t0) / 1e3, 1) if x else None
+                                    for x in buf], flush=True)
+        plan = k.fused_sweep_plan(qc, FUSED_HPT, kern == "fused_bitset")
+        kernel_ms = {}
+        for n in fns:
+            names = (("sweep_group_kernel",) if n in old_kernel
+                     or (n == "current" and not plan["cluster"])
+                     else ("fused_sweep_kernel",))
+            kernel_ms[n] = kernel_alone(call(n), names=names)[0]
+        # the cluster kernel's work on these inputs (this tree's launch
+        # below FUSED_MIN_QC runs sweep_group_kernel; its variants do not)
+        stage_work = fused_stage_work(
+            f["qscale"], f["wq"], [FUSED_HPT] * len(f["hi"]), f["nsw"],
+            f["mask"] if kern == "fused_bitset" else None, force=True)
+        case = {"QC": qc, "partitions": len(f["hi"]), "nsw": f["nsw"],
+                "Hpt": FUSED_HPT, **work, "stage_work": stage_work,
+                "plan": plan,
+                "clusters_at_once": cuda_build.kernel("fused_sweep_clusters")(
+                    qc, FUSED_HPT, int(kern == "fused_bitset")),
+                "sms": torch.cuda.get_device_properties(0)
+                .multi_processor_count,
+                "bytes": nbytes, "int8_ops": ops, "ms": times,
+                "graph_ms": graph, "kernel_ms": kernel_ms}
+        print(json.dumps(case), flush=True)
+        report["cases"].append(case)
+        del f, run, outs, pm, pr
+        torch.cuda.empty_cache()
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(report, indent=1))
+    print(json.dumps(report), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
-    ap.add_argument("--kernel", choices=sorted(ENTRIES), default="disj")
+    ap.add_argument("--kernel", choices=sorted(ENTRIES) + sorted(
+        _FUSED_ENTRIES), default="disj")
     ap.add_argument("--ablate", action="store_true",
                     help="add the ABLATIONS variants of this tree's source")
+    ap.add_argument("--variants",
+                    help="F1 / F3: only these FUSED_ABLATIONS (comma list)")
+    ap.add_argument("--qc", type=lambda x: [int(v) for v in x.split(",")],
+                    default=[256, 16, 8],
+                    help="F1 / F3: the QCs timed (comma list)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
@@ -332,6 +815,8 @@ def main(argv=None) -> int:
         print("k2_ab: CUDA is not available", file=sys.stderr)
         return 2
     kern = args.kernel
+    if kern in _FUSED_ENTRIES:
+        return fused_main(args)
     cuda_build.build_all()
     for line in cuda_build.BUILD_LOG.get("sweep_rowmax", "").splitlines():
         if "registers" in line or "spill" in line:

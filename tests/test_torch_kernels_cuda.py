@@ -123,10 +123,11 @@ def test_sweep_rowmax_kernel(dev, qc, hpt, nsw, case):
     assert torch.equal(km, pm) and torch.equal(kr, pr)
 
 
-def _fused_args(case, dev, mode):
+def _fused_args(case, dev, mode, pad_qc=None):
     """A fused wrapper's positional arguments for `mode` on the card (the
-    bitsets packed from each partition's columns by the plain pack)."""
-    f = fused_inputs(case)
+    bitsets packed from each partition's columns by the plain pack), QC
+    padded with inert queries to `pad_qc` where given."""
+    f = fused_inputs(case, pad_qc)
     c = {n: _c(f[n], dev) for n in ("qscale", "wq", "nreq", "wp")}
     hi = [_c(a, dev) for a in f["hi"]]
     lo = [_c(a, dev) for a in f["lo"]]
@@ -155,8 +156,12 @@ def test_fused_sweep_kernel(dev, case, mode):
     """F1-F3 bitwise their plain versions (each partition's K2, K7 or K5 +
     K6 and the row pick): partitions of different nsw and Hpt, QC not a
     multiple of the group, a cache past the list floor, and 70 partitions
-    (two launches of MAX_FUSED_PARTS); once more on poisoned outputs and
-    from a CUDA graph; one launch of each kernel per 64 partitions."""
+    (two launches of MAX_FUSED_PARTS); QC 1 and 8 with dead padding, a
+    union past one batch, staged lists past the tile's, row groups no query
+    keeps and integer-path queries (at these QCs F1 and F3 run
+    sweep_group_kernel; test_fused_cluster_kernel_edges pads them to the
+    cluster kernel); once more on poisoned outputs and from a CUDA graph;
+    one launch of each kernel per 64 partitions."""
     name, kernels_ = FUSED_WRAPPERS[mode]
     args, nsw = _fused_args(case, dev, mode)
     fn = getattr(k, name)
@@ -199,10 +204,60 @@ def test_fused_sweep_kernel(dev, case, mode):
             assert torch.equal(o, w)
 
 
+@pytest.mark.parametrize("mode", ["disj", "bitset"])
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_cluster_kernel_edges(dev, case, mode):
+    """F1 and F3 on every FUSED_CASES entry padded with inert queries to
+    the QC from which they run the cluster kernel (fused_sweep_kernel):
+    bitwise their plain versions, also on poisoned outputs, one launch of
+    each kernel per 64 partitions."""
+    name, kernels_ = FUSED_WRAPPERS[mode]
+    bitset = mode == "bitset"
+    pad = k.FUSED_MIN_QC_BITSET if bitset else k.FUSED_MIN_QC
+    args, nsw = _fused_args(case, dev, mode, pad_qc=pad)
+    hpt = max(int(h.shape[1]) for h in args[4 if bitset else 1])
+    assert k.fused_sweep_plan(pad, hpt, bitset)["cluster"]
+    fn = getattr(k, name)
+    plain = getattr(k, name + "_plain")
+    k.reset_launches()
+    got = fn(*args, nsw=nsw, n_rows=33)
+    n_launch = -(-len(nsw) // k.MAX_FUSED_PARTS)
+    assert all(k.LAUNCHES[x] == n_launch for x in kernels_), k.LAUNCHES
+    pargs = ((args[0], args[1].to(dev), args[2].to(dev)) + args[3:]
+             if bitset else args)
+    want = plain(*pargs, nsw=nsw, n_rows=33)
+    with k.poisoned():
+        again = fn(*args, nsw=nsw, n_rows=33)
+    torch.cuda.synchronize()
+    for g, w, a in zip(got if bitset else (got,), want if bitset else (want,),
+                       again if bitset else (again,)):
+        assert torch.equal(g, w) and torch.equal(a, w)
+
+
 def test_fused_max_parts_matches_kernel(dev):
     """kernels.MAX_FUSED_PARTS mirrors the built MAX_PARTS of both
     sources' fused entries."""
     assert cuda_build.kernel("fused_max_parts")() == k.MAX_FUSED_PARTS
+
+
+def test_fused_sweep_plan_matches_kernel(dev):
+    """kernels.fused_sweep_plan and the FUSED_* constants, which the CPU
+    emulation of F1 and F3's cluster kernel reads, are the built
+    sweep_rowmax.cu's (es_fused_sweep_plan), the QC from which a launch
+    runs the cluster kernel included."""
+    import ctypes
+
+    fn = cuda_build.kernel("fused_sweep_plan")
+    for qc in (1, 8, 24, 127, 128, 129, 256, 257, 1024):
+        for hpt in (9, 97, 225, 700, 4096):
+            for bitset in (0, 1):
+                out = (ctypes.c_int * 10)()
+                assert fn(qc, hpt, bitset, out) == 0
+                p = k.fused_sweep_plan(qc, hpt, bool(bitset))
+                assert list(out) == [p[x] for x in (
+                    "gq", "oq", "lc", "dc", "ring_slots", "slot_cap",
+                    "smem")] + [k.FUSED_CLUSTER, k.FUSED_STAGE_ROWS,
+                                int(p["cluster"])], (qc, hpt, bitset)
 
 
 def test_fused_kernels_refuse_bad_tables(dev):

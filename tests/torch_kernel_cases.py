@@ -2100,25 +2100,56 @@ def blockmax_partitions(n_parts=2, n_docs=6000, vocab=400, seed=67):
     return parts, names
 
 
-# F1-F3, the fused sweeps: partitions of their own (nsw, Hpt), one QC
+# F1-F3, the fused sweeps: partitions of their own (nsw, Hpt), one QC.
+# The last six are the edges of F1 and F3's cluster kernel: QC 1 and 8
+# (with dead padding), a tile's union past one batch (the planner splits
+# it), staged lists past the tile's FUSED_LIST (the rest direct), row
+# groups no query keeps (zero columns: empty bitsets, every mask word 0),
+# and integer-path queries (a negative qscale, weights past fast_query)
 FUSED_CASES = {
     "three": (8, ((2, 33), (1, 9), (2, 17))),
     "qc24": (24, ((1, 33), (3, 40))),       # QC not a multiple of G
     "wide": (16, ((1, 700), (2, 33))),      # a cache past the list floor
     "many": (8, ((1, 9),) * 70),            # past MAX_FUSED_PARTS
+    "qc1": (1, ((2, 33), (1, 17))),
+    "qc8": (8, ((3, 40), (1, 9), (2, 97))),
+    "union": (64, ((1, 300), (1, 41))),
+    "lists": (24, ((1, 200),)),
+    "skip": (12, ((2, 33), (1, 17))),
+    "intpath": (12, ((2, 33),)),
 }
 
 
-def fused_inputs(case):
+def fused_inputs(case, pad_qc=None):
     """One fused launch's inputs: per partition sweep_inputs' columns and
     live mask, its weights stacked on a partition axis padded to the widest
     cache, K7's nreq / wp (a required slot and a must_not among a query's
     weighted slots), and K5's clause slots (clause_slots, partition-local,
     over each partition's Hp = Hpt - 1; slot Hp zero, as the engine keeps
-    it). Returns a dict of numpy arrays:
+    it). `pad_qc` appends inert queries up to that QC (no weight, qscale
+    1, the zero sentinel as every clause), as the engine pads a batch.
+    Returns a dict of numpy arrays:
     qscale [S, QC, 1], wq [S, 2, QC, Hw], nreq [S, QC, 1], wp [S, QC, Hw],
     q_slots [S, QC, 8], q_neg [S, QC, 4], and lists hi, lo, live, nsw."""
     qc, parts = FUSED_CASES[case]
+    if pad_qc is not None and pad_qc > qc:
+        out = fused_inputs(case)
+        n = pad_qc - qc
+        S = len(parts)
+        for name, fill in (("qscale", 1), ("wq", 0), ("nreq", 0), ("wp", 0)):
+            a = out[name]
+            ax = 2 if name == "wq" else 1
+            shape = list(a.shape)
+            shape[ax] = n
+            out[name] = np.concatenate([a, np.full(shape, fill, a.dtype)],
+                                       axis=ax)
+        for name in ("q_slots", "q_neg"):
+            a = out[name]
+            zero = np.array([h - 1 for _, h in parts], np.int32)
+            extra = np.broadcast_to(zero[:, None, None],
+                                    (S, n, a.shape[2]))
+            out[name] = np.concatenate([a, extra], axis=1)
+        return out
     seed = 60 + list(FUSED_CASES).index(case)
     rng = np.random.default_rng(seed)
     S, hw = len(parts), max(h for _, h in parts)
@@ -2134,6 +2165,27 @@ def fused_inputs(case):
                                             nsw=nsw)
         if case == "wide" and i == 0:
             wq[:, :4] = rng.integers(-127, 128, size=(2, 4, hpt))
+        elif case in ("union", "lists") and i == 0:
+            # fast queries of many slots: small hi weights
+            n_sl = 6 if case == "union" else 60
+            wq[:] = 0
+            for q in range(qc - 1):
+                sl = rng.choice(hpt - 1, size=n_sl, replace=False)
+                wq[0, q, sl] = rng.integers(1, 9, size=n_sl)
+                wq[1, q, sl] = rng.integers(-127, 128, size=n_sl)
+        elif case == "qc1":
+            # sweep_inputs leaves the last query without weights
+            sl = rng.choice(hpt - 1, size=2, replace=False)
+            wq[0, 0, sl] = rng.integers(1, 128, size=2)
+            wq[1, 0, sl] = rng.integers(-127, 128, size=2)
+        elif case == "skip":
+            hi[5:20] = 0              # chunks 5-19: no term, no bit
+            lo[5:20] = 0
+        elif case == "intpath":
+            qs[1] = -qs[1]
+            sl = rng.choice(hpt - 1, size=20, replace=False)
+            wq[0, 2, sl] = 127
+            wq[1, 2, sl] = rng.integers(-127, 128, size=20)
         # slot Hp is the engine's scratch slot, always zero: the bitsets'
         # zero sentinel, which K5 takes as empty without reading it
         hi[:, hpt - 1] = 0
@@ -2149,9 +2201,166 @@ def fused_inputs(case):
             other = int(rng.integers(0, hpt - 1))
             if not len(slots) or other != slots[0]:
                 out["wp"][i, q, other] = -2
-        out["q_slots"][i], out["q_neg"][i] = clause_slots(
-            seed * 100 + i, qc, hpt - 1)
+        q_slots, q_neg = clause_slots(seed * 100 + i, max(qc, 6), hpt - 1)
+        if case == "qc1":
+            q_slots[0] = 0             # not the inactive row
+        elif case == "skip":
+            q_slots[1] = 1             # no query keeps every row
+        out["q_slots"][i], out["q_neg"][i] = q_slots[:qc], q_neg[:qc]
         for name, a in (("hi", hi), ("lo", lo), ("live", live)):
             out[name].append(a)
         out["nsw"].append(nsw)
     return out
+
+
+def fused_plan_of(case, bitset=False):
+    """kernels.fused_sweep_plan for a FUSED_CASES entry."""
+    qc, parts = FUSED_CASES[case]
+    return k.fused_sweep_plan(qc, max(h for _, h in parts), bitset)
+
+
+def _staged_row_bits(slots, wh, wl, h_sw, l_sw, gate, qs):
+    """One staged query's 512 row values in one superwindow as the cluster
+    kernel forms them: T = sum W (128 h + l), W = 128 wh + wl, exact in
+    int64 (int32 on the card: fast_query bounds it below 2^31), over the
+    docs `gate` keeps (a dropped doc's T is 0); the row's max T, m, as
+    fl(fl(m) * qs) where m > 0 and that is > 0. Returns bits (0: none)."""
+    f = np.float32
+    w = 128 * wh[slots] + wl[slots]                              # [n]
+    c = 128 * h_sw[slots].astype(np.int64) + l_sw[slots]       # [n, 512, 128]
+    t = np.tensordot(w, c, 1) * gate                             # [512, 128]
+    m = np.maximum(t.max(axis=1), 0)
+    assert np.abs(t).max() < 2 ** 31
+    val = (m.astype(f) * f(qs)).astype(f)
+    return np.where((m > 0) & (val > 0), val.view(np.uint32), np.uint32(0))
+
+
+# the cluster kernel's batch planner, mirrored in kernels
+fused_batches = k.fused_batches
+
+
+def emulate_fused_sweep(qscale, wq, hi, lo, live, nsw, mask=None,
+                        stats=None):
+    """numpy emulation of sweep_rowmax.cu's fused_sweep_kernel (F1, or F3's
+    sweep with `mask`, each partition's K5 output [QC, nsw_max * 16, 128]
+    stacked), cluster by cluster: tiles of the plan's gq queries; each
+    rank's own queries (j = rank mod FUSED_CLUSTER) with their counts,
+    their lists while the rank's lc holds them, the staged ones (fast, a
+    list within slot_cap, the tile's candidates' lists within lc) in order
+    then the direct ones; the staged ones in fused_batches, each batch's
+    union staged a row group at a time (F3: only the row groups a query of
+    the batch keeps), scored by _staged_row_bits; the direct ones by
+    _row_bits (sweep_group_kernel's paths); each rank's 64 rows, and the
+    selection over the 512 with lane l holding rows l + 32 k of rank k / 2.
+    `stats` (a dict) counts batches, direct queries and skipped stages.
+    Returns (rowmax, rows) [S, nsw_max, QC, CAND_PAD]."""
+    S, qc = wq.shape[0], wq.shape[2]
+    hpts = [h.shape[1] for h in hi]
+    plan = k.fused_sweep_plan(qc, max(hpts), mask is not None)
+    cl, rb, r = k.FUSED_CLUSTER, k.SW_ROWS // k.FUSED_CLUSTER, \
+        k.FUSED_STAGE_ROWS
+    nsw_max = max(nsw)
+    rm = np.full((S, nsw_max, qc, k.CAND_PAD), -np.inf, np.float32)
+    rr = np.zeros((S, nsw_max, qc, k.CAND_PAD), np.int32)
+    st = stats if stats is not None else {}
+    for key in ("batches", "direct", "staged", "stages", "skipped_stages"):
+        st.setdefault(key, 0)
+    lanes = np.arange(32)
+    for z in range(S):
+        hpt = hpts[z]
+        wh = wq[z, 0, :, :hpt].astype(np.int64)
+        wl = wq[z, 1, :, :hpt].astype(np.int64)
+        for sw in range(nsw[z]):
+            alive = live[z][sw * k.SW_ROWS:(sw + 1) * k.SW_ROWS] > 0
+            cs = slice(sw * k.N_CHUNKS, (sw + 1) * k.N_CHUNKS)
+            h_sw = hi[z][cs].transpose(1, 0, 2, 3).reshape(hpt, k.SW_ROWS, 128)
+            l_sw = lo[z][cs].transpose(1, 0, 2, 3).reshape(hpt, k.SW_ROWS, 128)
+            for w0 in range(0, qc, plan["gq"]):
+                ng = min(plan["gq"], qc - w0)
+                info = []
+                for j in range(ng):
+                    q = w0 + j
+                    slots = np.nonzero((wh[q] != 0) | (wl[q] != 0))[0]
+                    qs = float(qscale[z, q, 0])
+                    fast = (16512 * np.abs(wh[q]).sum()
+                            + 128 * np.abs(wl[q]).sum() < 2 ** 24
+                            and qs > 0)
+                    info.append((q, slots, qs, fast))
+                # each rank's own offsets: candidates in its order while
+                # their lists add up to lc
+                own_ok = {}
+                for rank in range(cl):
+                    e = 0
+                    for j in range(rank, ng, cl):
+                        n = len(info[j][1])
+                        ln = n if info[j][3] and 0 < n <= plan["slot_cap"] \
+                            else 0
+                        e += ln
+                        own_ok[j] = ln > 0 and e <= plan["lc"]
+                staged, e = [], 0
+                for j in range(ng):
+                    ln = len(info[j][1]) if own_ok[j] else 0
+                    e += ln
+                    if ln and e <= plan["lc"]:
+                        staged.append(j)
+                direct = [j for j in range(ng)
+                          if len(info[j][1]) and j not in staged]
+                order = staged + direct
+                st["staged"] += len(staged)
+                st["direct"] += len(direct)
+                vals = np.zeros((len(order), k.SW_ROWS), np.uint32)
+                keep = np.ones((len(order), k.SW_ROWS), bool)
+                gates = {}
+                for t, j in enumerate(order):
+                    q = info[j][0]
+                    g = alive
+                    if mask is not None:
+                        words = mask[z, q, sw * k.SW_WORD_ROWS:
+                                     (sw + 1) * k.SW_WORD_ROWS].view(np.uint32)
+                        bit = (np.arange(k.SW_ROWS) % 32).astype(np.uint32)
+                        kept = ((words[np.arange(k.SW_ROWS) // 32]
+                                 >> bit[:, None]) & 1) != 0
+                        keep[t] = kept.any(axis=1)
+                        g = alive & kept
+                    gates[t] = g
+                batches = fused_batches([info[j][1] for j in staged],
+                                        plan["slot_cap"])
+                st["batches"] += len(batches)
+                for b in batches:
+                    for rank in range(cl):
+                        for g0 in range(rank * rb, (rank + 1) * rb, r):
+                            rows = slice(g0, g0 + r)
+                            if not keep[b][:, rows].any():
+                                st["skipped_stages"] += 1
+                                continue
+                            st["stages"] += 1
+                    for t in b:
+                        q, slots, qs, _ = info[order[t]]
+                        v = _staged_row_bits(slots, wh[q], wl[q], h_sw, l_sw,
+                                             gates[t], qs)
+                        vals[t] = np.where(keep[t], v, 0)
+                for t in range(len(staged), len(order)):
+                    q, slots, qs, _ = info[order[t]]
+                    vals[t] = _row_bits(q, slots, wh, wl, h_sw, l_sw,
+                                        gates[t], qs)
+                tof = {j: t for t, j in enumerate(order)}
+                for j in range(ng):
+                    q = w0 + j
+                    if j not in tof:
+                        continue                # -inf rows, row 0
+                    # lane l: rows l + 32 k, rank k // 2's local row
+                    # l + 32 (k & 1)
+                    v = vals[tof[j]].reshape(k.SW_ROWS // 32, 32).copy()
+                    for p in range(k.NCAND):
+                        bt = v.argmax(axis=0)
+                        best = v[bt, lanes]
+                        m = best.max()
+                        if m == 0:
+                            break
+                        c = np.where(best == m,
+                                     k.SW_ROWS - (lanes + 32 * bt), 0)
+                        row = k.SW_ROWS - int(c.max())
+                        rm[z, sw, q, p] = np.uint32(m).view(np.float32)
+                        rr[z, sw, q, p] = row + sw * k.SW_ROWS
+                        v[row >> 5, row & 31] = 0
+    return rm, rr
