@@ -7299,6 +7299,9 @@ def fused_work(name, per, nsw):
     return nbytes, ops, {"k5_bytes": k5_bytes}
 
 
+FUSED_MODE_OF = {"fused_sweep_rowmax": "disj",
+                 "fused_sweep_rowmax_conj": "conj",
+                 "fused_sweep_rowmax_bitset": "bitset"}
 FUSED_ROWS = {
     "fused_sweep_rowmax": ("elasticsearch_tpu/parallel/turbo.py:2099 "
                            "(_fused_sweep_disj; sweep_rowmax pallas_call "
@@ -7323,12 +7326,12 @@ def hold_fused(label, name, args, kw, parent=None) -> dict:
     separate K2 / K7 / K5 + K6 launches (and row picks) on the same inputs
     (by events and by graph), torch._int_mm's four products per partition
     (the yardstick of K2's row) and the byte bound. F3's row carries its
-    stacked K5 stage's time alone (`k5_alone_ms`) and bytes. F1 and F3's
+    stacked K5 stage's time alone (`k5_alone_ms`) and bytes. F1-F3's
     sweep launch (fused_sweep_kernel from kernels.FUSED_MIN_QC /
-    FUSED_MIN_QC_BITSET queries, sweep_group_kernel below; the profiler's
-    kernel name follows) is also timed alone by graph beside
-    the parent commit's C entry of the same name on the same inputs, in
-    turns, the parent's output held bitwise to this tree's (`parent`:
+    FUSED_MIN_QC_BITSET / FUSED_MIN_QC_CONJ queries, sweep_group_kernel
+    below; the profiler's kernel name follows) is also timed alone by graph
+    beside the parent commit's C entry of the same name on the same inputs,
+    in turns, the parent's output held bitwise to this tree's (`parent`:
     {name: C entry}, fused_parents)."""
     import torch
 
@@ -7348,9 +7351,9 @@ def hold_fused(label, name, args, kw, parent=None) -> dict:
         row["graph_note"] = "the two launches and the pick, slots on the card"
     else:
         row["graph_ms"] = graph_ms(lambda: fn(*args, **kw), 50)
-    # F2, and F1 / F3 below kernels.FUSED_MIN_QC, run sweep_group_kernel
-    cluster = name != "fused_sweep_rowmax_conj" and k.fused_sweep_cluster(
-        int(args[0].shape[1]), name == "fused_sweep_rowmax_bitset")
+    # below their kernels.FUSED_MIN_QC* F1-F3 run sweep_group_kernel
+    cluster = k.fused_sweep_cluster(int(args[0].shape[1]),
+                                    FUSED_MODE_OF[name])
     names = (("fused_sweep_kernel",) if cluster
              else ("sweep_group_kernel",)) + (
         ("fused_intersect_counts_kernel",)
@@ -7387,9 +7390,7 @@ def hold_fused(label, name, args, kw, parent=None) -> dict:
     row["library_ms"] = lib
     row["library_note"] = ("torch._int_mm of the four score products over "
                            "all slots, summed over the partitions")
-    if name != "fused_sweep_rowmax_conj":
-        row.update(fused_sweep_ab(name, args, kw,
-                                  (parent or {}).get(name)))
+    row.update(fused_sweep_ab(name, args, kw, (parent or {}).get(name)))
     row["shape"] = {"partitions": len(per), "QC": int(args[0].shape[1]),
                     "nsw": nsw, "Hpt": [int(a[1 if name ==
                                               "fused_sweep_rowmax" else
@@ -7401,7 +7402,7 @@ def hold_fused(label, name, args, kw, parent=None) -> dict:
 
 
 def fused_parents(src):
-    """{F1 / F3 wrapper name: C entry} of an earlier sweep_rowmax.cu with
+    """{F1-F3 wrapper name: C entry} of an earlier sweep_rowmax.cu with
     the same fused entries (the A/B parent), or None when src is not a
     file."""
     if not src or not os.path.isfile(src):
@@ -7413,17 +7414,19 @@ def fused_parents(src):
 
     lib = build("k2_parent", Path(src))
     return {"fused_sweep_rowmax": fused_entry(lib, "fused_disj"),
+            "fused_sweep_rowmax_conj": fused_entry(lib, "fused_conj"),
             "fused_sweep_rowmax_bitset": fused_entry(lib, "fused_bitset")}
 
 
 def fused_sweep_ab(name, args, kw, parent) -> dict:
-    """F1's or F3's sweep launch alone on a fused call's inputs (F3: on
-    the mask its K5 stage makes of them): this tree's C entry by CUDA
+    """F1's, F2's or F3's sweep launch alone on a fused call's inputs (F3:
+    on the mask its K5 stage makes of them): this tree's C entry by CUDA
     graph, in turns with the parent's (`parent`, a C entry) where given,
     both writing preallocated outputs, the parent's held bitwise to this
     tree's; and the cluster kernel's work on these inputs (k2_ab's
     fused_stage_work: staged and direct queries, batches, union slots,
-    stages copied and skipped), run or not at this QC."""
+    stages copied and skipped; F2's dead stages), run or not at this
+    QC."""
     import torch
 
     from elasticsearch_tpu_torch.parallel import cuda_build
@@ -7432,9 +7435,13 @@ def fused_sweep_ab(name, args, kw, parent) -> dict:
                                                      fused_stage_work,
                                                      launch_graph_ms)
 
+    nreq = wp = mask = None
     if name == "fused_sweep_rowmax":
         qs, hi, lo, wq, live = args
-        mask, kind = None, "fused_disj"
+        kind = "fused_disj"
+    elif name == "fused_sweep_rowmax_conj":
+        qs, nreq, hi, lo, wq, wp, live = args
+        kind = "fused_conj"
     else:
         qs, sl, ng, bits, hi, lo, wq, live = args
         dev = qs.device
@@ -7442,7 +7449,8 @@ def fused_sweep_ab(name, args, kw, parent) -> dict:
                                      list(kw["nsw"]))
         kind = "fused_bitset"
     f = {"qscale": qs, "wq": wq, "hi": list(hi), "lo": list(lo),
-         "live": list(live), "nsw": list(kw["nsw"]), "mask": mask}
+         "live": list(live), "nsw": list(kw["nsw"]), "mask": mask,
+         "nreq": nreq, "wp": wp}
     run = fused_runner(f, kind)
     own = cuda_build.kernel(name)
     fns = {"current": own} if parent is None else {"parent": parent,
@@ -7457,7 +7465,9 @@ def fused_sweep_ab(name, args, kw, parent) -> dict:
     row = {"sweep_graph_ms": times["current"],
            "stage_work": fused_stage_work(
                qs, wq, [int(h.shape[1]) for h in hi], list(kw["nsw"]), mask,
-               force=True)}
+               force=True,
+               conj=(None if nreq is None
+                     else (nreq, wp, list(hi), list(lo), list(live))))}
     if parent is not None:
         m, r = run(parent, poison=True)
         cm, cr = run(own, poison=True)
@@ -7586,7 +7596,7 @@ def fused_phase(fp, n: int, batches, dsl, main_rows, held, bool_ans,
     `phrase_ans`). The segments' and the shard's f32 doc-length sums, from
     which the index-global avgdl comes, are printed beside. Then every
     launch shape of the phase (F1-F3, K3, K4) is held against its plain
-    version and timed (hold_fused, check_path_shapes), F1 and F3's sweep
+    version and timed (hold_fused, check_path_shapes), F1-F3's sweep
     beside the parent commit's where `k2_parent_src` (a whole earlier
     sweep_rowmax.cu) is given.
     Returns (kernel rows, report)."""
@@ -8382,13 +8392,14 @@ def blockmax_only(n_docs: int, n_batches: int, batch: int,
     return {"kernels": kernel_rows, "report": rep}
 
 
-def fused_only(n_docs: int, n_batches: int, batch: int) -> dict:
+def fused_only(n_docs: int, n_batches: int, batch: int,
+               k2_parent=K2_PARENT) -> dict:
     """The fused phase alone (--fused-only): the kernels built, the index
     drawn, the single-segment rows it is held against (the main path's
     engine at its knobs, its columns prebuilt: both config-1 batches and
     the DSL plans; config 2's specs and the phrases of the bool phases on
-    the host-exact tier), then fused_phase. Returns its kernel rows and
-    report."""
+    the host-exact tier), then fused_phase, the sweeps beside `k2_parent`'s
+    (--k2-parent). Returns its kernel rows and report."""
     import torch
 
     from elasticsearch_tpu_torch.mapper import MapperService
@@ -8436,7 +8447,7 @@ def fused_only(n_docs: int, n_batches: int, batch: int) -> dict:
     kernel_rows, rep = fused_phase(fp, n_docs, batches, dsl, rows, held,
                                    (bool_qs, hs[:nb], ho[:nb]),
                                    (phrases, hs[nb:], ho[nb:]),
-                                   k2_parent_src=K2_PARENT)
+                                   k2_parent_src=k2_parent)
     return {"kernels": kernel_rows, "report": rep}
 
 
@@ -8573,7 +8584,7 @@ def main(argv=None) -> int:
             or args.fused_only):
         if args.fused_only:
             out = {"fused_only": fused_only(args.docs, args.batches,
-                                            args.batch)}
+                                            args.batch, args.k2_parent)}
         elif args.serving_only:
             out = {"serving_only": serving_only(args.docs, args.batches,
                                                 args.batch)}

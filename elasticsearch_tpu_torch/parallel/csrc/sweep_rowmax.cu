@@ -62,23 +62,27 @@
 // BITSET's mask [S, qc, nsw_max * 16, 128]; the output [S, nsw_max, qc,
 // CAND_PAD]. A superwindow past its partition's nsw gets what the
 // reference's dead padding gives (live 0): -inf rows with row 0, reading
-// nothing. F2 is sweep_group_kernel<CONJ> with the partition a third grid
-// axis, grid ((qc + G - 1) / G, nsw_max, S); the solo entries are
-// sweep_group_kernel with a one-entry table.
+// nothing. Below a QC threshold a fused launch is sweep_group_kernel with
+// the partition a third grid axis, grid ((qc + G - 1) / G, nsw_max, S);
+// the solo entries are sweep_group_kernel with a one-entry table.
 //
-// F1 and F3's sweep are fused_sweep_kernel<MODE> (DISJ, BITSET; its gate is
-// the template parameter, so CONJ can follow). The parent ran them on
-// sweep_group_kernel too, at 17-32% of their byte bound (PERF.md): every
-// group of 16 queries re-read its superwindow's columns and live mask, and
-// a query cost about twelve issue slots a doc. Here a cluster of F_CL
-// blocks takes a (partition, superwindow), each block F_RB contiguous
-// rows, and a block takes all of a tile's queries (F_GQ, F3 F_GQ_BITSET):
+// From the threshold F1-F3's sweeps are fused_sweep_kernel<MODE>, the gate
+// its template parameter. The parents ran them on sweep_group_kernel at
+// 17-32% of their byte bound (PERF.md): every group of 16 queries re-read
+// its superwindow's columns and live mask, a query cost about twelve issue
+// slots a doc, and a CONJ query waited on its coverage loads from device
+// memory before its score loads. Here a cluster of F_CL blocks takes a
+// (partition, superwindow), each block F_RB contiguous rows, and a block
+// takes all of a tile's queries (F_GQ, F_GQ_BITSET, F_GQ_CONJ):
 //   - set-up, once per partition and tile: each rank counts and lists its
-//     own queries (j = rank mod F_CL), every rank gathers them through
+//     own queries (j = rank mod F_CL; CONJ in sweep_group_kernel's three
+//     parts, each entry's wp beside it, a query's score count, coverage
+//     start and nreq beside its counts), every rank gathers them through
 //     distributed shared memory; the queries with a fast_query list within
 //     a batch are staged, the others (the integer path, long lists) direct;
 //     the staged ones go in batches of consecutive queries whose union of
-//     slots fits half the ring (k chunks, k = 1, 2, 4, ... F_KMAX);
+//     slots (CONJ: score and coverage slots) fits half the ring (k chunks,
+//     k = 1, 2, 4, ... F_KMAX);
 //   - a stage a (row group of F_R rows, batch): the producer warp copies
 //     each union slot's rows (two pieces of F_R * 128 contiguous bytes)
 //     with 16-byte cp.async into a ring completed on mbarriers, and
@@ -87,8 +91,12 @@
 //     chunk skip, from each query's mask words);
 //   - the consumer warps score every query of the batch from the stage on
 //     an exact int32 path (docs_staged: a byte permute, a dp2a and an imad
-//     a (slot, doc), T = the float path's Y + ll, whose fl() is its pre),
-//     the direct queries as sweep_group_kernel does, from device memory;
+//     a (slot, doc), T = the float path's Y + ll, whose fl() is its pre);
+//     CONJ reads each entry of its list from the stage once, scoring its
+//     score entries so and summing its coverage entries' presence exactly,
+//     two 16-bit fields a word, then keeps the max T over the docs that
+//     pass the gate (docs_conj_staged); the direct queries as
+//     sweep_group_kernel scores them, from device memory;
 //   - each row value goes to the query's owning rank by a store to
 //     distributed shared memory, and after a cluster barrier each rank
 //     picks its queries' top NCAND of the superwindow's 512 rows with
@@ -96,21 +104,31 @@
 //   - the grid is the clusters the card holds at once, each taking a
 //     contiguous range of the live (partition, superwindow) items.
 // Cluster barriers order every access to another rank's shared memory:
-// a rank's own counts and lists (own, olist) are read by the others only
-// between the barrier after it writes them and the one after the set-up,
-// and its gather buffer (gat) takes the set-up's scratch before that
-// barrier and the other ranks' row values only after it, until the
-// barrier that ends the superwindow's selection.
-// What bounds it: bytes, as for the others. Measured (tools/k2_ab.py,
+// a rank's own counts and lists (own, ownc, olist, owp) are read by the
+// others only between the barrier after it writes them and the one after
+// the set-up, and its gather buffer (gat) takes the set-up's scratch
+// before that barrier and the other ranks' row values only after it,
+// until the barrier that ends the superwindow's selection.
+// What bounds it: bytes, as for the others (F2: the union of score and
+// coverage slots once, live, the weights). Measured (tools/k2_ab.py,
 // PERF.md), the consumers' issue and the per-stage handshakes bound it
-// instead; the constants (F_CW, F_GQ, F_GQ_BITSET, F_CL) are the A/B's.
-// F1 and F3 run sweep_group_kernel as F2 does below F_MIN_QC and
-// F_MIN_QC_BITSET queries (tools/k2_ab.py's crossovers): a cluster walks
-// its superwindows in turn whatever the QC, so few queries leave its
-// warps idle (F1 loses at QC 32, wins from 64); and F3 copies each batch's
-// union for every row group any query of the batch keeps, so where a
-// tile's union takes two batches and the masks keep scattered rows it
-// moves more bytes than the parent's per-query gated reads (PERF.md).
+// instead; the constants (F_CW, F_GQ, F_GQ_BITSET, F_GQ_CONJ, F_CL) are
+// the A/B's. F2 stages its coverage slots with its score slots in one
+// ring: a design that staged a row group's coverage slots first and its
+// score slots only where a query of the batch keeps a doc would copy no
+// byte less on the engine's traffic (every score slot there is also a
+// coverage slot; PERF.md), so it was not built. Its consumers take a
+// query's gate and scores in one pass: forming the gate first and scoring
+// under it (a warp whose rows keep no doc scoring nothing) read the
+// shared entries twice and was slower on the engine's traffic.
+// Each mode runs sweep_group_kernel below fused_min_qc (F_MIN_QC,
+// F_MIN_QC_BITSET, F_MIN_QC_CONJ; tools/k2_ab.py's crossovers): a
+// cluster walks its superwindows in turn whatever the QC, so few queries
+// leave its warps idle (F1 loses at QC 32, wins from 64); and F2 and F3
+// copy each batch's union for every row group (F3: any query of the batch
+// keeps), so where a tile's union takes two batches (k2_ab's synthetic
+// bools) they move more bytes than the parent's per-query reads and lose
+// at every QC; both win on the engine's traffic at QC 256 (PERF.md).
 //
 // The combine is the reference's, in f32:
 //   val = ((16384 * hh + 128 * (hl + lh)) + ll) * qscale
@@ -342,6 +360,18 @@ __device__ __forceinline__ unsigned mask_bits(const int32_t* p, int bit) {
   return mask_gate(mask_load(p), bit);
 }
 
+// whether a slot with score weight (sc) and coverage weight c is in part
+// `part` of a query's list: its nonzero score slots for DISJ and BITSET;
+// for CONJ the score-only slots (part 0), those with score and coverage
+// weight (1), then the coverage-only ones (2)
+template <int MODE>
+__device__ __forceinline__ bool in_part(int part, bool sc, int c) {
+  return MODE != CONJ ? sc
+         : part == 0  ? sc && c == 0
+         : part == 1  ? sc && c != 0
+                      : !sc && c != 0;
+}
+
 template <int MODE>
 __global__ void __launch_bounds__(THREADS, 2)
 sweep_group_kernel(const __grid_constant__ PartTable parts,
@@ -464,11 +494,7 @@ sweep_group_kernel(const __grid_constant__ PartTable parts,
           const int a = s < hpt ? wh[s] : 0;
           const int b = s < hpt ? wl[s] : 0;
           const int c = MODE == CONJ && s < hpt ? wc[s] : 0;
-          const bool sc = (a | b) != 0;
-          const bool nz = MODE != CONJ ? sc
-                          : part == 0  ? sc && c == 0
-                          : part == 1  ? sc && c != 0
-                                       : !sc && c != 0;
+          const bool nz = in_part<MODE>(part, (a | b) != 0, c);
           const unsigned bal = __ballot_sync(FULL, nz);
           if (nz) {
             const int e = pos + __popc(bal & ((1u << lane) - 1u));
@@ -613,7 +639,7 @@ sweep_group_kernel(const __grid_constant__ PartTable parts,
 }
 
 // ---------------------------------------------------------------------------
-// F1 and F3's sweep: fused_sweep_kernel<MODE> (see the header)
+// F1-F3's sweep: fused_sweep_kernel<MODE> (see the header)
 // ---------------------------------------------------------------------------
 
 constexpr int F_CL = 8;                      // blocks a cluster
@@ -623,6 +649,7 @@ constexpr int F_NG = F_RB / F_R;             // stages of a block's rows (16)
 constexpr int F_KW = F_RB / 32;              // keep words a query (2)
 constexpr int F_GQ = 256;                    // queries a tile: F1
 constexpr int F_GQ_BITSET = 128;             // F3 (measured)
+constexpr int F_GQ_CONJ = 128;               // F2 (measured)
 constexpr int F_CW = 15;                     // consumer warps (measured)
 constexpr int F_WARPS = F_CW + 1;            // and the producer warp
 constexpr int F_THREADS = F_WARPS * 32;
@@ -634,14 +661,25 @@ constexpr int F_SMEM = 232448;               // a block's shared memory
 constexpr int F_DP2A_K = 0x00010080;         // (128, 1): c = 128 h + l
 constexpr int F_MIN_QC = 64;                 // F1: the cluster kernel from
 constexpr int F_MIN_QC_BITSET = 256;         // F3 (measured)
+constexpr int F_MIN_QC_CONJ = 256;           // F2 (measured)
 constexpr int F_MEMO = 8;                    // plans a device remembers
 constexpr int F_MAX_DEVICES = 16;
 
-// the shared-memory layout of a launch, a function of (qc, hpt_max, F1 or
-// F3) only (kernels.fused_sweep_plan mirrors it): byte offsets of the
-// regions and the capacities they give
+// a mode's tile and the QC from which its launch runs fused_sweep_kernel
+constexpr int fused_tile(int mode) {
+  return mode == BITSET ? F_GQ_BITSET : mode == CONJ ? F_GQ_CONJ : F_GQ;
+}
+
+constexpr int fused_min_qc(int mode) {
+  return mode == BITSET ? F_MIN_QC_BITSET
+                        : mode == CONJ ? F_MIN_QC_CONJ : F_MIN_QC;
+}
+
+// the shared-memory layout of a launch, a function of (qc, hpt_max, mode)
+// only (kernels.fused_sweep_plan mirrors it): byte offsets of the regions
+// and the capacities they give
 struct FusedPlan {
-  int gq;          // queries a tile: min(qc, F_GQ or F_GQ_BITSET)
+  int gq;          // queries a tile: min(qc, fused_tile(mode))
   int oq;          // a rank's queries of a tile: ceil(gq / F_CL)
   int lc;          // staged list entries (slot | W << 16) a tile holds
   int dc;          // direct list entries (int4) held at once, >= hpt_max
@@ -649,12 +687,13 @@ struct FusedPlan {
   int slot_cap;    // union slots a batch may take: ring_slots / 2, <= 255
   int smem;        // dynamic shared memory bytes
   int o_own, o_olist, o_qi, o_keep, o_alive, o_tof, o_uslot, o_map,
-      o_misc, o_bkw, o_list, o_dlist, o_gat, o_ring;
+      o_misc, o_bkw, o_list, o_dlist, o_ownc, o_qx, o_owp, o_lwp, o_dwp,
+      o_gat, o_ring;
 };
 
-FusedPlan fused_plan(int qc, int hpt_max, bool bitset) {
+FusedPlan fused_plan(int qc, int hpt_max, int mode) {
   FusedPlan p{};
-  const int tile = bitset ? F_GQ_BITSET : F_GQ;
+  const int tile = fused_tile(mode);
   p.gq = qc < tile ? qc : tile;
   p.oq = (p.gq + F_CL - 1) / F_CL;
   p.lc = F_LC;
@@ -677,6 +716,14 @@ FusedPlan fused_plan(int qc, int hpt_max, bool bitset) {
   p.o_bkw = take(p.gq * F_KW * 4);
   p.o_list = take(p.lc * 4);
   p.o_dlist = take(p.dc * 16);
+  // CONJ: each query's (score entries, coverage start, nreq), a rank's own
+  // and the tile's, and each list entry's coverage weight wp
+  const bool conj = mode == CONJ;
+  p.o_ownc = take(conj ? p.oq * 16 : 0);
+  p.o_qx = take(conj ? p.gq * 16 : 0);
+  p.o_owp = take(conj ? p.lc : 0);
+  p.o_lwp = take(conj ? p.lc : 0);
+  p.o_dwp = take(conj ? p.dc * 4 : 0);
   p.o_gat = take(p.oq * SW_ROWS * 4);
   o = (o + 127) & ~127;
   p.o_ring = o;
@@ -688,7 +735,7 @@ FusedPlan fused_plan(int qc, int hpt_max, bool bitset) {
 
 // a rank's own queries of a tile, read by every rank of the cluster
 struct OwnQ {
-  int n;        // nonzero score slots
+  int n;        // list entries: nonzero score slots (CONJ: and coverage)
   int off;      // own list offset, -1: not staged
   float qs;
   int fast;     // fast_query
@@ -792,6 +839,92 @@ __device__ __forceinline__ int docs_staged(const uint32_t* ent, int n,
   return max(t[0], 0);
 }
 
+// One staged entry's presence (cover_bits' test: bit 7 of ((x & 0x7F) +
+// 0x7F) | x, x = hi | lo) times its coverage weight c, added to the
+// thread's DPT docs' cov: a word's four docs as two 16-bit fields of two
+// int32s (docs 0 and 2 in ev, 1 and 3 in od), two imads a word.
+__device__ __forceinline__ void cover_entry(int* ev, int* od, const uint4& h,
+                                            const uint4& l, int c) {
+  const unsigned x[NW] = {h.x | l.x, h.y | l.y, h.z | l.z, h.w | l.w};
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const unsigned b7 = ((x[w] & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x[w];
+    ev[w] += c * (int)((b7 >> 7) & 0x00010001u);
+    od[w] += c * (int)((b7 >> 15) & 0x00010001u);
+  }
+}
+
+// One staged entry's score, T += W (128 h + l) (docs_staged's, the bytes
+// unmasked)
+__device__ __forceinline__ void score_entry(int* t, const uint4& h,
+                                            const uint4& l, int wt) {
+  dp2a_word<false>(t, h.x, l.x, FULL, wt);
+  dp2a_word<false>(t + 4, h.y, l.y, FULL, wt);
+  dp2a_word<false>(t + 8, h.z, l.z, FULL, wt);
+  dp2a_word<false>(t + 12, h.w, l.w, FULL, wt);
+}
+
+// CONJ's staged path over the thread's DPT docs of a row, one pass over a
+// query's list, each entry read from the stage once: [0, c0) scored,
+// [c0, ns) scored and summed for coverage, [ns, n) summed for coverage
+// (cover_entry), a loop a part. cov is exact: a staged list holds at most
+// 255 entries of |wp| <= 128, so each 16-bit field's |cov| <= 32640 <
+// 2^15 and no int32 partial sum overflows. Returns the max T over the
+// docs alive and with cov == need, 0 if none is > 0 (what docs_staged
+// returns with the other docs' bytes masked).
+__device__ __forceinline__ int docs_conj_staged(const uint32_t* ent,
+                                                const int8_t* wps, int ns,
+                                                int c0, int n,
+                                                const unsigned char* st,
+                                                unsigned alive, int need) {
+  int t[DPT], ev[NW], od[NW];
+#pragma unroll
+  for (int d = 0; d < DPT; ++d) t[d] = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    ev[w] = 0;
+    od[w] = 0;
+  }
+  auto stage = [&](uint32_t e, uint4& h, uint4& l) {
+    const unsigned char* p = st + (e & 0xFFFF) * F_SLOT_BYTES;
+    h = *reinterpret_cast<const uint4*>(p);
+    l = *reinterpret_cast<const uint4*>(p + F_R * 128);
+  };
+  int k = 0;
+  for (; k < c0; ++k) {
+    const uint32_t e = ent[k];
+    uint4 h, l;
+    stage(e, h, l);
+    score_entry(t, h, l, (int)e >> 16);
+  }
+  for (; k < ns; ++k) {
+    const uint32_t e = ent[k];
+    uint4 h, l;
+    stage(e, h, l);
+    score_entry(t, h, l, (int)e >> 16);
+    cover_entry(ev, od, h, l, wps[k]);
+  }
+  for (; k < n; ++k) {
+    uint4 h, l;
+    stage(ent[k], h, l);
+    cover_entry(ev, od, h, l, wps[k]);
+  }
+  int m = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int e0 = (short)ev[w], e2 = (ev[w] - e0) >> 16;
+    const int o1 = (short)od[w], o3 = (od[w] - o1) >> 16;
+    const int cv[4] = {e0, o1, e2, o3};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (cv[j] == need && ((alive >> (4 * w + j)) & 1u)) {
+        m = max(m, t[4 * w + j]);
+      }
+    }
+  }
+  return m;
+}
+
 // a float-path row max of pre (bits) as a val's bits: fl(pre * qs), kept
 // if > 0 (the selection of sweep_group_kernel, done at the store)
 __device__ __forceinline__ unsigned pre_val(unsigned pre, float qs) {
@@ -829,13 +962,14 @@ template <int MODE>
 __global__ void __cluster_dims__(F_CL, 1, 1) __launch_bounds__(F_THREADS, 1)
 fused_sweep_kernel(const __grid_constant__ PartTable parts,
                    const float* __restrict__ qscale,     // [S, qc]
+                   const int32_t* __restrict__ nreq,     // CONJ: [S, qc]
                    const int8_t* __restrict__ wq,        // [S, 2, qc, ws]
+                   const int8_t* __restrict__ wp,        // CONJ: [S, qc, ws]
                    // BITSET: [S, qc, nsw_max * 16, 128]
                    const int32_t* __restrict__ mask,
                    float* __restrict__ out_m, int32_t* __restrict__ out_r,
                    int n_parts, int qc, int ws, int nsw_max,
                    const FusedPlan pl) {
-  static_assert(MODE == DISJ || MODE == BITSET, "F1 and F3's sweep");
   extern __shared__ __align__(128) unsigned char f_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -894,6 +1028,16 @@ fused_sweep_kernel(const __grid_constant__ PartTable parts,
   uint32_t* bkw = reinterpret_cast<uint32_t*>(f_smem + pl.o_bkw);
   uint32_t* list = reinterpret_cast<uint32_t*>(f_smem + pl.o_list);
   int4* dlist = reinterpret_cast<int4*>(f_smem + pl.o_dlist);
+  // CONJ: a query's list is its score-only entries, then those with score
+  // and coverage weight, then the coverage-only ones (sweep_group_kernel's
+  // order): scores read [0, x), coverage [y, n), need z; ownc by own index,
+  // qx by compact index; each entry's wp beside it, in owp (olist), lwp
+  // (list) and dwp (dlist)
+  int4* ownc = reinterpret_cast<int4*>(f_smem + pl.o_ownc);
+  int4* qx = reinterpret_cast<int4*>(f_smem + pl.o_qx);
+  int8_t* owp = reinterpret_cast<int8_t*>(f_smem + pl.o_owp);
+  int8_t* lwp = reinterpret_cast<int8_t*>(f_smem + pl.o_lwp);
+  int* dwp = reinterpret_cast<int*>(f_smem + pl.o_dwp);
   // the superwindow's row maxima of this rank's queries, [i][SW_ROWS] for
   // raw query rank + F_CL i, written by every rank of the cluster
   uint32_t* gat = reinterpret_cast<uint32_t*>(f_smem + pl.o_gat);
@@ -922,6 +1066,8 @@ fused_sweep_kernel(const __grid_constant__ PartTable parts,
   const float* __restrict__ qs_z = nullptr;
   const int8_t* __restrict__ wq_z = nullptr;
   const int32_t* __restrict__ mask_z = nullptr;
+  const int32_t* __restrict__ nreq_z = nullptr;
+  const int8_t* __restrict__ wp_z = nullptr;
   float* __restrict__ om_z = nullptr;
   int32_t* __restrict__ or_z = nullptr;
   const int8_t* __restrict__ cols_hi = nullptr;
@@ -946,30 +1092,48 @@ fused_sweep_kernel(const __grid_constant__ PartTable parts,
         if (MODE == BITSET) {
           mask_z = mask + (int64_t)z * qc * nsw_max * SW_WORD_ROWS * 128;
         }
+        if (MODE == CONJ) {
+          nreq_z = nreq + (int64_t)z * qc;
+          wp_z = wp + (int64_t)z * qc * ws;
+        }
         cols_hi = parts.p[z].hi;
         cols_lo = parts.p[z].lo;
         live = parts.p[z].live;
         hpt = parts.p[z].hpt;
         __syncthreads();
 
-        // ---- 1. this rank's queries j = rank + F_CL i: counts and lists
+        // ---- 1. this rank's queries j = rank + F_CL i: counts and lists.
+        // A CONJ query with no score weight keeps an empty list (its rows
+        // are -inf, as K7's)
         for (int i = warp; i < n_own; i += F_WARPS) {
           const int q = w0 + rank + F_CL * i;
           const int8_t* wh = wq_z + (int64_t)q * ws;
           const int8_t* wl = wq_z + (int64_t)(qc + q) * ws;
-          int n = 0, sa = 0, sb = 0;
+          const int8_t* wc = MODE == CONJ ? wp_z + (int64_t)q * ws : nullptr;
+          int n = 0, sa = 0, sb = 0, nc = 0, nb = 0;
           for (int s = lane; s < hpt; s += 32) {
             const int a = wh[s], b = wl[s];
             n += (a | b) != 0;
             sa += abs(a);
             sb += abs(b);
+            if (MODE == CONJ) {
+              const int c = wc[s];
+              nc += c != 0;
+              nb += c != 0 && (a | b) != 0;
+            }
           }
           n = __reduce_add_sync(FULL, n);
           sa = __reduce_add_sync(FULL, sa);
           sb = __reduce_add_sync(FULL, sb);
+          if (MODE == CONJ) {
+            nc = __reduce_add_sync(FULL, nc);
+            nb = __reduce_add_sync(FULL, nb);
+          }
           if (lane == 0) {
             const float qs = qs_z[q];
-            own[i] = OwnQ{n, -1, qs, (int)fast_query(sa, sb, qs)};
+            own[i] = OwnQ{MODE == CONJ && n != 0 ? n + nc - nb : n, -1, qs,
+                          (int)fast_query(sa, sb, qs)};
+            if (MODE == CONJ) ownc[i] = make_int4(n, n - nb, nreq_z[q], 0);
           }
         }
         __syncthreads();
@@ -998,18 +1162,24 @@ fused_sweep_kernel(const __grid_constant__ PartTable parts,
           const int q = w0 + rank + F_CL * i;
           const int8_t* wh = wq_z + (int64_t)q * ws;
           const int8_t* wl = wq_z + (int64_t)(qc + q) * ws;
+          const int8_t* wc = MODE == CONJ ? wp_z + (int64_t)q * ws : nullptr;
           int pos = off;
-          for (int s0 = 0; s0 < hpt; s0 += 32) {
-            const int s = s0 + lane;
-            const int a = s < hpt ? wh[s] : 0;
-            const int b = s < hpt ? wl[s] : 0;
-            const bool nz = (a | b) != 0;
-            const unsigned bal = __ballot_sync(FULL, nz);
-            if (nz) {
-              olist[pos + __popc(bal & ((1u << lane) - 1u))] =
-                  (unsigned)s | ((unsigned)(128 * a + b) << 16);
+          // CONJ: three passes, one per part of the list
+          for (int part = 0; part < (MODE == CONJ ? 3 : 1); ++part) {
+            for (int s0 = 0; s0 < hpt; s0 += 32) {
+              const int s = s0 + lane;
+              const int a = s < hpt ? wh[s] : 0;
+              const int b = s < hpt ? wl[s] : 0;
+              const int c = MODE == CONJ && s < hpt ? wc[s] : 0;
+              const bool nz = in_part<MODE>(part, (a | b) != 0, c);
+              const unsigned bal = __ballot_sync(FULL, nz);
+              if (nz) {
+                const int e = pos + __popc(bal & ((1u << lane) - 1u));
+                olist[e] = (unsigned)s | ((unsigned)(128 * a + b) << 16);
+                if (MODE == CONJ) owp[e] = (int8_t)c;
+              }
+              pos += __popc(bal);
             }
-            pos += __popc(bal);
           }
         }
         cluster.sync();                          // every rank's own region
@@ -1019,9 +1189,13 @@ fused_sweep_kernel(const __grid_constant__ PartTable parts,
         // direct: the rest with a score weight. Compact indices t: the staged
         // (in order), then the direct ones (in order)
         int4* raw = reinterpret_cast<int4*>(gat);  // scratch: [ng] by raw j
+        int4* rawc = raw + pl.gq;                  // CONJ: ownc, by raw j
         for (int j = tid; j < ng; j += F_THREADS) {
           const OwnQ o = cluster.map_shared_rank(own, j % F_CL)[j / F_CL];
           raw[j] = make_int4(o.n, o.off, __float_as_int(o.qs), o.fast);
+          if (MODE == CONJ) {
+            rawc[j] = cluster.map_shared_rank(ownc, j % F_CL)[j / F_CL];
+          }
         }
         __syncthreads();
         if (warp == 0) {
@@ -1041,6 +1215,7 @@ fused_sweep_kernel(const __grid_constant__ PartTable parts,
             if (st) {
               const int t = n_st + __popc(bal & ((1u << lane) - 1u));
               qi[t] = make_int4(j | (r.w << 16), r.x, e + x - len, r.z);
+              if (MODE == CONJ) qx[t] = rawc[j];
               tof[j] = (short)t;
             } else if (j < ng) {
               tof[j] = -1;
@@ -1057,6 +1232,7 @@ fused_sweep_kernel(const __grid_constant__ PartTable parts,
             if (dir) {
               const int t = n_act + __popc(bal & ((1u << lane) - 1u));
               qi[t] = make_int4(j | (r.w << 16), r.x, 0, r.z);
+              if (MODE == CONJ) qx[t] = rawc[j];
               tof[j] = (short)t;
             }
             n_act += __popc(bal);
@@ -1075,6 +1251,11 @@ fused_sweep_kernel(const __grid_constant__ PartTable parts,
           const uint32_t* ro =
               cluster.map_shared_rank(olist, j % F_CL) + raw[j].y;
           for (int i = lane; i < info.y; i += 32) list[info.z + i] = ro[i];
+          if (MODE == CONJ) {
+            const int8_t* rw =
+                cluster.map_shared_rank(owp, j % F_CL) + raw[j].y;
+            for (int i = lane; i < info.y; i += 32) lwp[info.z + i] = rw[i];
+          }
         }
         // no rank reads another's own region or its own scratch (raw, in
         // gat) past here, and no rank stores a row value into another's
@@ -1368,6 +1549,10 @@ fused_sweep_kernel(const __grid_constant__ PartTable parts,
                             ? docs_staged(list + info.z, info.y, st,
                                           gate_words(gate))
                             : 0;
+                  } else if (MODE == CONJ) {
+                    const int4 cx = qx[t];
+                    m = docs_conj_staged(list + info.z, lwp + info.z, cx.x,
+                                         cx.y, info.y, st, a16, cx.z);
                   } else {
                     m = docs_staged(list + info.z, info.y, st, msk);
                   }
@@ -1404,21 +1589,28 @@ fused_sweep_kernel(const __grid_constant__ PartTable parts,
             if (lane == 0) qi[t].z = pos;
             const int8_t* wh = wq_z + (int64_t)q * ws;
             const int8_t* wl = wq_z + (int64_t)(qc + q) * ws;
-            for (int s0 = 0; s0 < hpt; s0 += 32) {
-              const int s = s0 + lane;
-              const int a = s < hpt ? wh[s] : 0;
-              const int b = s < hpt ? wl[s] : 0;
-              const bool nz = (a | b) != 0;
-              const unsigned bal = __ballot_sync(FULL, nz);
-              if (nz) {
-                dlist[pos + __popc(bal & ((1u << lane) - 1u))] = make_int4(
-                    (int)((unsigned)s | ((unsigned)(a & 0xFF) << 16)
-                          | ((unsigned)b << 24)),
-                    __float_as_int((float)(16384 * a + 128 * b)),
-                    __float_as_int((float)(128 * a)),
-                    __float_as_int((float)b));
+            const int8_t* wc = MODE == CONJ ? wp_z + (int64_t)q * ws
+                                            : nullptr;
+            for (int part = 0; part < (MODE == CONJ ? 3 : 1); ++part) {
+              for (int s0 = 0; s0 < hpt; s0 += 32) {
+                const int s = s0 + lane;
+                const int a = s < hpt ? wh[s] : 0;
+                const int b = s < hpt ? wl[s] : 0;
+                const int c = MODE == CONJ && s < hpt ? wc[s] : 0;
+                const bool nz = in_part<MODE>(part, (a | b) != 0, c);
+                const unsigned bal = __ballot_sync(FULL, nz);
+                if (nz) {
+                  const int e = pos + __popc(bal & ((1u << lane) - 1u));
+                  dlist[e] = make_int4(
+                      (int)((unsigned)s | ((unsigned)(a & 0xFF) << 16)
+                            | ((unsigned)b << 24)),
+                      __float_as_int((float)(16384 * a + 128 * b)),
+                      __float_as_int((float)(128 * a)),
+                      __float_as_int((float)b));
+                  if (MODE == CONJ) dwp[e] = c;
+                }
+                pos += __popc(bal);
               }
-              pos += __popc(bal);
             }
           }
           __syncthreads();
@@ -1437,6 +1629,7 @@ fused_sweep_kernel(const __grid_constant__ PartTable parts,
               const bool fast = (info.x >> 16) != 0;
               const float qs = __int_as_float(info.w);
               unsigned gate = a16;
+              int ns = info.y;
               if (MODE == BITSET) {
                 const int q = w0 + (info.x & 0xFFFF);
                 gate &= mask_bits(mask_z + (((int64_t)q * nsw_max + sw)
@@ -1444,11 +1637,18 @@ fused_sweep_kernel(const __grid_constant__ PartTable parts,
                                       + lsub * DPT,
                                   row & 31);
               }
+              if (MODE == CONJ) {
+                const int4 cx = qx[t];
+                gate &= cover_bits(dlist + info.z + cx.y,
+                                   dwp + info.z + cx.y, info.y - cx.y, hi,
+                                   lo, cx.z);
+                ns = cx.x;
+              }
               unsigned v = 0u;
               if (MODE == DISJ || gate != 0u) {
-                v = fast ? docs_fast(dlist + info.z, info.y, hi, lo,
+                v = fast ? docs_fast(dlist + info.z, ns, hi, lo,
                                      gate_words(gate))
-                         : docs_int(dlist + info.z, info.y, hi, lo, gate, qs);
+                         : docs_int(dlist + info.z, ns, hi, lo, gate, qs);
               }
   #pragma unroll
               for (int o = TPR / 2; o > 0; o >>= 1) {
@@ -1581,7 +1781,8 @@ bool read_table(const int64_t* table, int n_parts, int nsw_max,
   return true;
 }
 
-// F2: sweep_group_kernel with the partition a third grid axis
+// F1-F3 below fused_min_qc: sweep_group_kernel with the partition a third
+// grid axis
 template <int MODE>
 int launch_fused(const int64_t* table, int n_parts, const void* qscale,
                  const void* nreq, const void* wq, const void* wp,
@@ -1601,25 +1802,24 @@ int launch_fused(const int64_t* table, int n_parts, const void* qscale,
 // clusters the device holds at once) pairs, smem << 16 | clusters, asked
 // on a plan's first launch. Read without a lock: every writer of an
 // entry stores the same value.
-std::atomic<int> f_attr[2][F_MAX_DEVICES];
-std::atomic<long long> f_memo[2][F_MAX_DEVICES][F_MEMO];
+std::atomic<int> f_attr[3][F_MAX_DEVICES];
+std::atomic<long long> f_memo[3][F_MAX_DEVICES][F_MEMO];
 
 // the clusters of fused_sweep_kernel<MODE> the card holds at once
 template <int MODE>
 cudaError_t fused_clusters(const FusedPlan& pl, int* n_cl) {
-  const int m = MODE == BITSET;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= F_MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (f_attr[m][dev].load(std::memory_order_relaxed) == 0) {
+  if (f_attr[MODE][dev].load(std::memory_order_relaxed) == 0) {
     err = cudaFuncSetAttribute(fused_sweep_kernel<MODE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                F_SMEM);
     if (err != cudaSuccess) return err;
-    f_attr[m][dev].store(1, std::memory_order_relaxed);
+    f_attr[MODE][dev].store(1, std::memory_order_relaxed);
   }
-  std::atomic<long long>* memo = f_memo[m][dev];
+  std::atomic<long long>* memo = f_memo[MODE][dev];
   for (int i = 0; i < F_MEMO; ++i) {
     const long long e = memo[i].load(std::memory_order_relaxed);
     if (e == 0) break;
@@ -1642,17 +1842,18 @@ cudaError_t fused_clusters(const FusedPlan& pl, int* n_cl) {
   return cudaSuccess;
 }
 
-// F1 and F3's sweep: fused_sweep_kernel, a cluster of F_CL blocks per
-// (superwindow, partition); below F_MIN_QC (F_MIN_QC_BITSET) queries
-// sweep_group_kernel, as F2
+// F1-F3's sweep: fused_sweep_kernel, a cluster of F_CL blocks per
+// (superwindow, partition), from fused_min_qc(MODE) queries;
+// sweep_group_kernel with the partition a third grid axis below
 template <int MODE>
 int launch_fused_cluster(const int64_t* table, int n_parts,
-                         const void* qscale, const void* wq,
-                         const void* mask, void* out_m, void* out_r, int qc,
-                         int ws, int nsw_max, void* stream) {
-  if (qc < (MODE == BITSET ? F_MIN_QC_BITSET : F_MIN_QC)) {
-    return launch_fused<MODE>(table, n_parts, qscale, nullptr, wq, nullptr,
-                              mask, out_m, out_r, qc, ws, nsw_max, stream);
+                         const void* qscale, const void* nreq,
+                         const void* wq, const void* wp, const void* mask,
+                         void* out_m, void* out_r, int qc, int ws,
+                         int nsw_max, void* stream) {
+  if (qc < fused_min_qc(MODE)) {
+    return launch_fused<MODE>(table, n_parts, qscale, nreq, wq, wp, mask,
+                              out_m, out_r, qc, ws, nsw_max, stream);
   }
   PartTable parts;                     // copied into the launch
   int hpt_max;
@@ -1660,7 +1861,7 @@ int launch_fused_cluster(const int64_t* table, int n_parts,
       || hpt_max > 0xFFFF || ws < hpt_max) {
     return (int)cudaErrorInvalidValue;
   }
-  const FusedPlan pl = fused_plan(qc, hpt_max, MODE == BITSET);
+  const FusedPlan pl = fused_plan(qc, hpt_max, MODE);
   if (pl.slot_cap < 1) return (int)cudaErrorInvalidValue;
   // persistent clusters: as many as the card holds at once, each taking a
   // contiguous range of the partitions' live superwindows
@@ -1673,9 +1874,16 @@ int launch_fused_cluster(const int64_t* table, int n_parts,
   dim3 grid(F_CL, gy, 1);
   fused_sweep_kernel<MODE><<<grid, F_THREADS, pl.smem,
                              (cudaStream_t)stream>>>(
-      parts, (const float*)qscale, (const int8_t*)wq, (const int32_t*)mask,
-      (float*)out_m, (int32_t*)out_r, n_parts, qc, ws, nsw_max, pl);
+      parts, (const float*)qscale, (const int32_t*)nreq, (const int8_t*)wq,
+      (const int8_t*)wp, (const int32_t*)mask, (float*)out_m,
+      (int32_t*)out_r, n_parts, qc, ws, nsw_max, pl);
   return (int)cudaGetLastError();
+}
+
+// the mode of the plan entries: 0 F1 (DISJ), 1 F3 (BITSET), 2 F2 (CONJ);
+// -1 for any other value
+int plan_mode(int mode) {
+  return mode == 0 ? DISJ : mode == 1 ? BITSET : mode == 2 ? CONJ : -1;
 }
 
 }  // namespace
@@ -1721,8 +1929,8 @@ extern "C" int es_fused_sweep_rowmax(const void* table, int n_parts,
                                      void* out_m, void* out_r, int qc,
                                      int ws, int nsw_max, void* stream) {
   return launch_fused_cluster<DISJ>((const int64_t*)table, n_parts, qscale,
-                                    wq, nullptr, out_m, out_r, qc, ws,
-                                    nsw_max, stream);
+                                    nullptr, wq, nullptr, nullptr, out_m,
+                                    out_r, qc, ws, nsw_max, stream);
 }
 
 extern "C" int es_fused_sweep_rowmax_conj(const void* table, int n_parts,
@@ -1731,9 +1939,9 @@ extern "C" int es_fused_sweep_rowmax_conj(const void* table, int n_parts,
                                           const void* wp, void* out_m,
                                           void* out_r, int qc, int ws,
                                           int nsw_max, void* stream) {
-  return launch_fused<CONJ>((const int64_t*)table, n_parts, qscale, nreq,
-                            wq, wp, nullptr, out_m, out_r, qc, ws, nsw_max,
-                            stream);
+  return launch_fused_cluster<CONJ>((const int64_t*)table, n_parts, qscale,
+                                    nreq, wq, wp, nullptr, out_m, out_r, qc,
+                                    ws, nsw_max, stream);
 }
 
 extern "C" int es_fused_sweep_rowmax_bitset(const void* table, int n_parts,
@@ -1743,34 +1951,38 @@ extern "C" int es_fused_sweep_rowmax_bitset(const void* table, int n_parts,
                                             void* out_r, int qc, int ws,
                                             int nsw_max, void* stream) {
   return launch_fused_cluster<BITSET>((const int64_t*)table, n_parts,
-                                      qscale, wq, mask, out_m, out_r, qc, ws,
-                                      nsw_max, stream);
+                                      qscale, nullptr, wq, nullptr, mask,
+                                      out_m, out_r, qc, ws, nsw_max, stream);
 }
 
 // the partitions one fused launch takes, for the wrapper's mirror
 // (kernels.MAX_FUSED_PARTS)
 extern "C" int es_fused_max_parts() { return MAX_PARTS; }
 
-// the clusters of F1's (bitset 0) or F3's sweep kernel (1) the card holds
-// at once for (qc, hpt_max), or -1 on an error
-extern "C" int es_fused_sweep_clusters(int qc, int hpt_max, int bitset) {
-  const FusedPlan p = fused_plan(qc, hpt_max, bitset != 0);
+// the clusters of the sweep kernel of F1 (mode 0), F3 (1) or F2 (2) the
+// card holds at once for (qc, hpt_max), or -1 on an error
+extern "C" int es_fused_sweep_clusters(int qc, int hpt_max, int mode) {
+  const int m = plan_mode(mode);
+  if (m < 0) return -1;
+  const FusedPlan p = fused_plan(qc, hpt_max, m);
   int n = 0;
-  const cudaError_t err = bitset ? fused_clusters<BITSET>(p, &n)
-                                 : fused_clusters<DISJ>(p, &n);
+  const cudaError_t err = m == BITSET ? fused_clusters<BITSET>(p, &n)
+                          : m == CONJ ? fused_clusters<CONJ>(p, &n)
+                                      : fused_clusters<DISJ>(p, &n);
   return err == cudaSuccess ? n : -1;
 }
 
-// F1's (bitset 0) or F3's (1) plan as built, for kernels.fused_sweep_plan
-// and the CPU emulation: out = (gq, oq, lc, dc, ring_slots, slot_cap, smem,
-// cluster, rows a stage, 1 if the launch runs fused_sweep_kernel and 0 if
-// sweep_group_kernel)
-extern "C" int es_fused_sweep_plan(int qc, int hpt_max, int bitset,
+// the plan of F1 (mode 0), F3 (1) or F2 (2) as built, for
+// kernels.fused_sweep_plan and the CPU emulation: out = (gq, oq, lc, dc,
+// ring_slots, slot_cap, smem, cluster, rows a stage, 1 if the launch runs
+// fused_sweep_kernel and 0 if sweep_group_kernel); -1 for another mode
+extern "C" int es_fused_sweep_plan(int qc, int hpt_max, int mode,
                                    int* out) {
-  const FusedPlan p = fused_plan(qc, hpt_max, bitset != 0);
+  const int m = plan_mode(mode);
+  if (m < 0) return -1;
+  const FusedPlan p = fused_plan(qc, hpt_max, m);
   const int v[10] = {p.gq, p.oq, p.lc, p.dc, p.ring_slots, p.slot_cap,
-                     p.smem, F_CL, F_R,
-                     qc >= (bitset ? F_MIN_QC_BITSET : F_MIN_QC)};
+                     p.smem, F_CL, F_R, qc >= fused_min_qc(m)};
   for (int i = 0; i < 10; ++i) out[i] = v[i];
   return 0;
 }

@@ -15,9 +15,10 @@ ported paths run:
 * F1-F3, the fused S > 1 sweeps of elasticsearch_tpu/parallel/turbo.py
   (`_fused_sweep_disj` :2099, `_fused_sweep_bool` :2128,
   `_fused_sweep_bitset` :2148, which ran K2, K7 and K5 + K6 once per
-  partition under one shard_map) -> the same two sources, the partition
-  a third grid axis (`fused_sweep_rowmax`, `fused_sweep_rowmax_conj`,
-  `fused_sweep_rowmax_bitset`), each with the row pick (`pick_rows`)
+  partition under one shard_map) -> the same two sources, one launch for
+  every partition (`fused_sweep_rowmax`, `fused_sweep_rowmax_conj`,
+  `fused_sweep_rowmax_bitset`; the sweeps a cluster kernel from a QC
+  threshold, `fused_sweep_plan`), each with the row pick (`pick_rows`)
 * K4 `merge_topk` (reference :633) -> csrc/merge_topk.cu
 * K9 `knn_int8_window_topc` (reference :1153) -> csrc/knn_window_topc.cu
 * K8 `_agg_counts` (reference :996, behind `agg_segment_counts` :1037 and
@@ -103,45 +104,57 @@ INTERSECT_TABLE_Q = 256
 # intersect_bitset.cu's MAX_PARTS; the card test holds this mirror to the
 # built es_fused_max_parts): more take a launch per MAX_FUSED_PARTS
 MAX_FUSED_PARTS = 64
-# F1 and F3's sweep (sweep_rowmax.cu's fused_sweep_kernel): a cluster of
+# F1-F3's sweep (sweep_rowmax.cu's fused_sweep_kernel): a cluster of
 # FUSED_CLUSTER blocks a (partition, superwindow), each block
 # SW_ROWS / FUSED_CLUSTER rows, FUSED_STAGE_ROWS rows a stage, tiles of
-# FUSED_TILE_Q queries (F3: FUSED_TILE_Q_BITSET), staged lists of
-# FUSED_LIST entries a tile, the batch planner trying up to FUSED_KMAX
-# chunks; fused_sweep_plan mirrors its shared-memory plan (the card test
-# holds both to es_fused_sweep_plan). Below FUSED_MIN_QC queries (F3:
-# FUSED_MIN_QC_BITSET) F1 and F3 run sweep_group_kernel, as F2 does.
+# FUSED_TILE_Q queries (F3: FUSED_TILE_Q_BITSET, F2: FUSED_TILE_Q_CONJ),
+# staged lists of FUSED_LIST entries a tile, the batch planner trying up to
+# FUSED_KMAX chunks; fused_sweep_plan mirrors its shared-memory plan (the
+# card test holds both to es_fused_sweep_plan). Below FUSED_MIN_QC queries
+# (F3: FUSED_MIN_QC_BITSET, F2: FUSED_MIN_QC_CONJ) a launch runs
+# sweep_group_kernel. FUSED_MODES: the plan's modes, in the C entries'
+# order (0 F1, 1 F3, 2 F2).
+FUSED_MODES = ("disj", "bitset", "conj")
 FUSED_CLUSTER = 8
 FUSED_STAGE_ROWS = 4
-FUSED_TILE_Q = 256             # F1's tile; F3's FUSED_TILE_Q_BITSET
+FUSED_TILE_Q = 256             # F1's tile
 FUSED_TILE_Q_BITSET = 128
+FUSED_TILE_Q_CONJ = 128
 FUSED_LIST = 1024
 FUSED_KMAX = 32
 FUSED_MAX_STAGES = 8
 FUSED_MIN_QC = 64
 FUSED_MIN_QC_BITSET = 256
+FUSED_MIN_QC_CONJ = 256
 _FUSED_SMEM = 232448           # a block's shared memory on sm_90
 _FUSED_SLOT_BYTES = 2 * FUSED_STAGE_ROWS * 128
 
 
 def fused_sweep_plan(qc: int, hpt_max: int,
-                     bitset: bool = False) -> Dict[str, int]:
-    """F1's (F3's with `bitset`) shared-memory plan for a launch of QC
-    queries over partitions of at most hpt_max slots, as sweep_rowmax.cu's
-    fused_plan lays it out: the tile's queries `gq`, a rank's `oq`, the
-    staged list entries `lc`, the direct list entries `dc`, the ring's
-    slot-stages `ring_slots`, the union slots a batch may take `slot_cap`,
-    `smem` bytes, and `cluster`: whether the launch runs the cluster kernel
-    (else sweep_group_kernel)."""
-    gq = min(qc, FUSED_TILE_Q_BITSET if bitset else FUSED_TILE_Q)
+                     mode: str = "disj") -> Dict[str, int]:
+    """The shared-memory plan of F1's (mode "disj"), F3's ("bitset") or
+    F2's ("conj") sweep for a launch of QC queries over partitions of at
+    most hpt_max slots, as sweep_rowmax.cu's fused_plan lays it out: the
+    tile's queries `gq`, a rank's `oq`, the staged list entries `lc`, the
+    direct list entries `dc`, the ring's slot-stages `ring_slots`, the
+    union slots a batch may take `slot_cap`, `smem` bytes, and `cluster`:
+    whether the launch runs the cluster kernel (else
+    sweep_group_kernel)."""
+    tile = {"disj": FUSED_TILE_Q, "bitset": FUSED_TILE_Q_BITSET,
+            "conj": FUSED_TILE_Q_CONJ}[mode]
+    gq = min(qc, tile)
     oq = -(-gq // FUSED_CLUSTER)
     dc = max(hpt_max, 256)
     rb = SW_ROWS // FUSED_CLUSTER
     lc = FUSED_LIST
     kw = rb // 32
+    # CONJ: each query's (score entries, coverage start, nreq), own and
+    # compact, and each list entry's wp (olist's, list's, dlist's)
+    cj = mode == "conj"
     sizes = (oq * 16, lc * 4, gq * 16, gq * kw * 4, rb * 16, gq * 2,
              lc * 2, hpt_max * 4, (16 + FUSED_KMAX + 2 * (gq + 1)) * 4,
-             gq * kw * 4, lc * 4, dc * 16, oq * SW_ROWS * 4)
+             gq * kw * 4, lc * 4, dc * 16, cj * oq * 16, cj * gq * 16,
+             cj * lc, cj * lc, cj * dc * 4, oq * SW_ROWS * 4)
     o = 2 * FUSED_MAX_STAGES * 8
     for b in sizes:
         o += (b + 15) & ~15
@@ -150,17 +163,19 @@ def fused_sweep_plan(qc: int, hpt_max: int,
     return {"gq": gq, "oq": oq, "lc": lc, "dc": dc,
             "ring_slots": ring, "slot_cap": min(ring // 2, 255),
             "smem": o + ring * _FUSED_SLOT_BYTES,
-            "cluster": fused_sweep_cluster(qc, bitset)}
+            "cluster": fused_sweep_cluster(qc, mode)}
 
 
-def fused_sweep_cluster(qc: int, bitset: bool = False) -> bool:
-    """Whether F1's (F3's with `bitset`) launch of QC queries runs the
-    cluster kernel, fused_sweep_kernel (else sweep_group_kernel)."""
-    return qc >= (FUSED_MIN_QC_BITSET if bitset else FUSED_MIN_QC)
+def fused_sweep_cluster(qc: int, mode: str = "disj") -> bool:
+    """Whether F1's (mode "disj"), F3's ("bitset") or F2's ("conj") launch
+    of QC queries runs the cluster kernel, fused_sweep_kernel (else
+    sweep_group_kernel)."""
+    return qc >= {"disj": FUSED_MIN_QC, "bitset": FUSED_MIN_QC_BITSET,
+                  "conj": FUSED_MIN_QC_CONJ}[mode]
 
 
 def fused_batches(lists, slot_cap: int) -> List[List[int]]:
-    """F1 and F3's cluster kernel's batches of a tile's staged queries, as
+    """F1-F3's cluster kernel's batches of a tile's staged queries, as
     its planner makes them (lists: their slot arrays in compact order): k
     chunks of consecutive queries, chunk c = {t : t k // n = c}, for k =
     1, 2, 4, ..., FUSED_KMAX, the first k whose every chunk's union fits
@@ -966,7 +981,9 @@ def fused_sweep_rowmax_conj(qscale, nreq, cols_hi, cols_lo, wq, wp, live, *,
                             nsw, n_rows: int):
     """F2: F1 with K7's coverage gate (reference turbo.py:2128). Adds nreq
     [S, QC, 1] i32 and wp [S, QC, Hw] i8 (sweep_rowmax_conj's, stacked);
-    returns [S, QC, n_rows + 1] f32."""
+    returns [S, QC, n_rows + 1] f32. From FUSED_MIN_QC_CONJ queries the
+    card stages each batch's score and coverage slots together
+    (fused_sweep_kernel<CONJ>)."""
     n, qc, hpts = _check_fused(qscale, cols_hi, cols_lo, wq, live, nsw)
     dev = wq.device
     ws = int(wq.shape[3])

@@ -15,22 +15,26 @@ card in seconds (no index build), 123 superwindows of 65536 docs and Hpt
 - `--kernel bitset` (K6, `es_sweep_rowmax_bitset`): the same queries and
   columns, each gated by its mask as K5 makes it from the columns'
   presence bits (about 45% of the (query, chunk) pairs live at QC 256);
-- `--kernel fused_disj` (F1, `es_fused_sweep_rowmax`) and `--kernel
-  fused_bitset` (F3's sweep, `es_fused_sweep_rowmax_bitset`, on masks
-  made as for K6): the fused phase's shape, the shard as four partitions
-  of 31 superwindows and Hpt 97, each with its own slots (its 96 most
-  frequent terms) and columns, at QC 256, 16 and 8 (`--qc` other QCs).
-  Their `--ablate` adds `FUSED_ABLATIONS` (`--variants` some of them):
-  variants of the parent's source (its sweep_group_kernel without the
-  column loads) and of this tree's, each running fused_sweep_kernel at
+- `--kernel fused_disj` (F1, `es_fused_sweep_rowmax`), `--kernel
+  fused_conj` (F2, `es_fused_sweep_rowmax_conj`, conj_inputs' queries
+  weighted as for K7) and `--kernel fused_bitset` (F3's sweep,
+  `es_fused_sweep_rowmax_bitset`, on masks made as for K6): the fused
+  phase's shape, the shard as four partitions of 31 superwindows and Hpt
+  97, each with its own slots (its 96 most frequent terms) and columns, at
+  QC 256, 16 and 8 (`--qc` other QCs). Their `--ablate` adds
+  `FUSED_ABLATIONS` (`--variants` some of them): variants of the parent's
+  source (its sweep_group_kernel without the column loads, or without the
+  coverage gate) and of this tree's, each running fused_sweep_kernel at
   every QC (`cluster`: as built; its cluster size, tile, ring depth, and
-  timed-only variants without the copies or without the scoring; `trace`
-  its phase stamps). Each case also prints the cluster kernel's work on
-  its inputs (`fused_stage_work`: staged and direct queries, batches,
-  union slots, stages copied and skipped, bytes copied).
+  timed-only variants without the copies, the scoring or the gates;
+  `trace` its phase stamps). Each case also prints the cluster kernel's
+  work on its inputs (`fused_stage_work`: staged and direct queries,
+  batches, union slots, stages copied and skipped, bytes copied; F2: the
+  stages in which no query of the batch keeps a doc).
 
     python -m elasticsearch_tpu_torch.tools.k2_ab --parent OLD.cu \\
-        [--kernel disj|conj|bitset|fused_disj|fused_bitset] [--ablate] \\
+        [--kernel disj|conj|bitset|fused_disj|fused_conj|fused_bitset] \\
+        [--ablate] \\
         [--variants cluster,trace] [--qc 256,128,16] [--reps 20] \\
         [--out FILE]
 
@@ -157,26 +161,110 @@ TRACE = [
 ALL_QC = [(f"constexpr int F_MIN_QC = {k.FUSED_MIN_QC};",
            "constexpr int F_MIN_QC = 1;"),
           (f"constexpr int F_MIN_QC_BITSET = {k.FUSED_MIN_QC_BITSET};",
-           "constexpr int F_MIN_QC_BITSET = 1;")]
-# F1 and F3's variants: (source: "parent" or "tree", edits); every tree
+           "constexpr int F_MIN_QC_BITSET = 1;"),
+          (f"constexpr int F_MIN_QC_CONJ = {k.FUSED_MIN_QC_CONJ};",
+           "constexpr int F_MIN_QC_CONJ = 1;")]
+# F2's consumers in two passes over a staged query's list: the gate from
+# its coverage entries (cover_staged), then its score entries under the
+# gate's byte mask, none where the warp's four rows keep no doc
+_COVER_STAGED = """// The coverage gate (CONJ) over the thread's DPT docs of a row from a
+// stage: bit d set where cov = sum wp * present equals need, present =
+// (hi | lo) != 0 from the staged bytes (cover_bits' test: bit 7 of
+// ((x & 0x7F) + 0x7F) | x). A word's four docs sum as two 16-bit fields
+// of two int32s (docs 0 and 2, docs 1 and 3), two imads a word and entry;
+// exact: a staged list holds at most 255 entries of |wp| <= 128, so each
+// field's |cov| <= 32640 < 2^15 and no int32 partial sum overflows.
+__device__ __forceinline__ unsigned cover_staged(const uint32_t* ent,
+                                                 const int8_t* wps, int n,
+                                                 const unsigned char* st,
+                                                 int need) {
+  int ev[NW], od[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    ev[w] = 0;
+    od[w] = 0;
+  }
+  for (int k = 0; k < n; ++k) {
+    const unsigned char* p = st + (ent[k] & 0xFFFF) * F_SLOT_BYTES;
+    const uint4 h = *reinterpret_cast<const uint4*>(p);
+    const uint4 l = *reinterpret_cast<const uint4*>(p + F_R * 128);
+    const int c = wps[k];
+    const unsigned x[NW] = {h.x | l.x, h.y | l.y, h.z | l.z, h.w | l.w};
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const unsigned b7 = ((x[w] & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x[w];
+      ev[w] += c * (int)((b7 >> 7) & 0x00010001u);
+      od[w] += c * (int)((b7 >> 15) & 0x00010001u);
+    }
+  }
+  unsigned g = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int c0 = (short)ev[w], c2 = (ev[w] - c0) >> 16;
+    const int c1 = (short)od[w], c3 = (od[w] - c1) >> 16;
+    g |= ((unsigned)(c0 == need) | ((unsigned)(c1 == need) << 1)
+          | ((unsigned)(c2 == need) << 2) | ((unsigned)(c3 == need) << 3))
+         << (4 * w);
+  }
+  return g;
+}
+
+"""
+TWO_PASS = [
+    _before("// a float-path row max of pre (bits) as a val's bits",
+            _COVER_STAGED),
+    ("""                    m = docs_conj_staged(list + info.z, lwp + info.z, cx.x,
+                                         cx.y, info.y, st, a16, cx.z);""",
+     """                    const unsigned gate =
+                        a16 & cover_staged(list + info.z + cx.y,
+                                           lwp + info.z + cx.y,
+                                           info.y - cx.y, st, cx.z);
+                    m = __any_sync(FULL, gate != 0u)
+                            ? docs_staged(list + info.z, cx.x, st,
+                                          gate_words(gate))
+                            : 0;"""),
+]
+# F2's one-pass consumers as one loop over a staged query's list, whose
+# body tests which parts the entry is in
+_LOOP_TREE = """  int k = 0;
+  for (; k < c0; ++k) {"""
+ONE_LOOP = [
+    (_LOOP_TREE, """  for (int k = 0; k < n; ++k) {
+    const uint32_t e = ent[k];
+    uint4 h, l;
+    stage(e, h, l);
+    if (k < ns) score_entry(t, h, l, (int)e >> 16);
+    if (k >= c0) cover_entry(ev, od, h, l, wps[k]);
+  }
+  for (int k = 0; k < 0; ++k) {"""),
+    ("  for (; k < ns; ++k) {", "  for (int k = 0; k < 0; ++k) {"),
+    ("  for (; k < n; ++k) {", "  for (int k = 0; k < 0; ++k) {"),
+]
+# F1-F3's variants: (source: "parent" or "tree", edits); every tree
 # variant runs the cluster kernel at every QC. p-x-noload is the parent's
-# sweep_group_kernel without its column loads (timed only); cluster this
+# sweep_group_kernel without its column loads, p-x-nocover without F2's
+# coverage gate (every live doc passes; both timed only); cluster this
 # tree's kernel as it is; CL4 a cluster of 4 blocks (128 rows each), GQ the
-# other tile size (F1 128 queries, F3 256), ST2 a ring of at most 2 stages,
-# CW31 31 consumer warps (a budget of 64 registers a thread against 128)
-# (outputs checked); x-nocopy stages nothing (the consumers score whatever
-# the ring holds), x-noscore scores nothing, x-nomask gates F3's docs by
-# live alone (timed only); trace stamps the phases of the first cluster's
-# rank 0 (TRACE, es_fused_trace, printed)
+# other tile size (F1 128 queries, F3 and F2 256), ST2 a ring of at most 2
+# stages, CW31 31 consumer warps (a budget of 64 registers a thread against
+# 128) (outputs checked); x-nocopy stages nothing (the consumers score
+# whatever the ring holds), x-noscore scores nothing, x-nomask gates F3's
+# docs by live alone, x-nocover F2's (timed only); TWO scores F2's staged
+# queries in two passes (TWO_PASS), ONELOOP in one loop (ONE_LOOP); trace
+# stamps the phases of the first cluster's rank 0 (TRACE, es_fused_trace,
+# printed)
 FUSED_ABLATIONS = {
     "p-x-noload": ("parent", ABLATIONS["x-noload"]),
+    "p-x-nocover": ("parent", ABLATIONS["x-nocov"]),
     "cluster": ("tree", ALL_QC),
     "CL4": ("tree", ALL_QC + [("constexpr int F_CL = 8;",
                                "constexpr int F_CL = 4;")]),
     "GQ": ("tree", ALL_QC + [("constexpr int F_GQ = 256;",
                               "constexpr int F_GQ = 128;"),
                              ("constexpr int F_GQ_BITSET = 128;",
-                              "constexpr int F_GQ_BITSET = 256;")]),
+                              "constexpr int F_GQ_BITSET = 256;"),
+                             ("constexpr int F_GQ_CONJ = 128;",
+                              "constexpr int F_GQ_CONJ = 256;")]),
     "ST2": ("tree", ALL_QC + [("constexpr int F_MAX_ST = 8;",
                                "constexpr int F_MAX_ST = 2;")]),
     "x-nocopy": ("tree", ALL_QC + [("for (int u = 0; u < nu; ++u) {",
@@ -186,6 +274,12 @@ FUSED_ABLATIONS = {
     "x-nomask": ("tree", ALL_QC + [
         ("const unsigned gate = a16 & mask_gate(mw, row & 31);",
          "const unsigned gate = a16;")]),
+    "x-nocover": ("tree", ALL_QC + [
+        ("    ev[w] += c * (int)((b7 >> 7) & 0x00010001u);\n"
+         "    od[w] += c * (int)((b7 >> 15) & 0x00010001u);",
+         "    ev[w] += 0 * c * (int)b7;")]),
+    "TWO": ("tree", ALL_QC + TWO_PASS),
+    "ONELOOP": ("tree", ALL_QC + ONE_LOOP),
     "CW31": ("tree", ALL_QC + [("constexpr int F_CW = 15;",
                                 "constexpr int F_CW = 31;")]),
     "trace": ("tree", ALL_QC + TRACE),
@@ -432,17 +526,19 @@ def bitset_inputs(qc: int, seed: int = 0):
 
 
 def fused_inputs(qc: int, kernel: str = "fused_disj", seed: int = 0):
-    """F1's (fused_disj) or F3's sweep's (fused_bitset) inputs on the card
-    at the fused phase's shape: FUSED_PARTS partitions of FUSED_NSW
-    superwindows and Hpt FUSED_HPT, each holding its FUSED_HPT - 1 most
-    frequent terms in slots of its own order, with columns and live as
-    `_columns` / `_live` make them. fused_disj: inputs()'s two-term
-    queries; fused_bitset: conj_inputs()'s (the heavy conjunctions, then
-    padding), each gated by its mask as bitset_inputs() makes it. Made at
-    QC 256 and cut to the first `qc` queries. Returns a dict: qscale [S,
-    QC, 1], wq [S, 2, QC, Hpt], lists hi, lo, live, nsw, mask [S, QC, nsw *
-    16, 128] (fused_bitset), and the weights (and masks) as sweep_work /
-    bitset_work count them, per partition ("work")."""
+    """F1's (fused_disj), F2's (fused_conj) or F3's sweep's (fused_bitset)
+    inputs on the card at the fused phase's shape: FUSED_PARTS partitions
+    of FUSED_NSW superwindows and Hpt FUSED_HPT, each holding its
+    FUSED_HPT - 1 most frequent terms in slots of its own order, with
+    columns and live as `_columns` / `_live` make them. fused_disj:
+    inputs()'s two-term queries; fused_conj and fused_bitset:
+    conj_inputs()'s (the heavy conjunctions, then padding), weighted for
+    coverage as conj_inputs() weights them (fused_conj) or gated by a mask
+    as bitset_inputs() makes it (fused_bitset). Made at QC 256 and cut to
+    the first `qc` queries. Returns a dict: qscale [S, QC, 1], wq [S, 2,
+    QC, Hpt], lists hi, lo, live, nsw, nreq [S, QC, 1] and wp [S, QC, Hpt]
+    (fused_conj), mask [S, QC, nsw * 16, 128] (fused_bitset), and the
+    weights as numpy per partition (wq_np, wp_np, nreq_np)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(seed)
@@ -454,7 +550,8 @@ def fused_inputs(qc: int, kernel: str = "fused_disj", seed: int = 0):
     else:
         heads = rng.integers(0, min(100, hp), size=(n // 2, 4))
     out = {"qscale": [], "wq": [], "hi": [], "lo": [], "live": [],
-           "nsw": [FUSED_NSW] * FUSED_PARTS, "mask": [], "work": []}
+           "nsw": [FUSED_NSW] * FUSED_PARTS, "mask": [], "wp": [],
+           "nreq": []}
     for _ in range(FUSED_PARTS):
         slot_of = rng.permutation(hp)
         wq = np.zeros((2, n, FUSED_HPT), np.int8)
@@ -482,6 +579,15 @@ def fused_inputs(qc: int, kernel: str = "fused_disj", seed: int = 0):
         hi, lo = _columns(ranks, p, slot_of, g, FUSED_NSW, FUSED_HPT)
         live = _live(g, FUSED_NSW)
         wq = np.ascontiguousarray(wq[:, :qc])
+        if kernel == "fused_conj":
+            wp = np.zeros((qc, FUSED_HPT), np.int8)
+            nreq = np.zeros((qc, 1), np.int32)
+            for q in range(min(qc, n // 2)):
+                wp[q, req_of[q]] = 1
+                wp[q, neg_of[q]] = -(len(req_of[q]) + 1)
+                nreq[q, 0] = len(req_of[q])
+            out["wp"].append(wp)
+            out["nreq"].append(nreq)
         out["qscale"].append(qs[:qc])
         out["wq"].append(wq)
         out["hi"].append(hi)
@@ -504,6 +610,10 @@ def fused_inputs(qc: int, kernel: str = "fused_disj", seed: int = 0):
     out["qscale"] = torch.from_numpy(np.stack(out["qscale"])).to(dev)
     out["wq_np"] = out["wq"]
     out["wq"] = torch.from_numpy(np.stack(out["wq"])).to(dev)
+    out["wp_np"], out["nreq_np"] = out["wp"], out["nreq"]
+    if out["wp"]:
+        out["wp"] = torch.from_numpy(np.stack(out["wp"])).to(dev)
+        out["nreq"] = torch.from_numpy(np.stack(out["nreq"])).to(dev)
     if out["mask"]:
         out["mask"] = torch.stack(out["mask"])
     return out
@@ -511,6 +621,9 @@ def fused_inputs(qc: int, kernel: str = "fused_disj", seed: int = 0):
 
 _FUSED_ENTRIES = {"fused_disj": ("es_fused_sweep_rowmax", "fused_sweep_rowmax",
                                  [_P, _I] + [_P] * 4 + [_I, _I, _I, _P]),
+                  "fused_conj": ("es_fused_sweep_rowmax_conj",
+                                 "fused_sweep_rowmax_conj",
+                                 [_P, _I] + [_P] * 6 + [_I, _I, _I, _P]),
                   "fused_bitset": ("es_fused_sweep_rowmax_bitset",
                                    "fused_sweep_rowmax_bitset",
                                    [_P, _I] + [_P] * 5 + [_I, _I, _I, _P])}
@@ -534,6 +647,9 @@ def fused_runner(f, kernel: str):
     table = k._sweep_table(f["hi"], f["lo"], f["live"], f["nsw"],
                            [int(h.shape[1]) for h in f["hi"]])
     ins = [f["qscale"].data_ptr(), f["wq"].data_ptr()]
+    if kernel == "fused_conj":
+        ins = [f["qscale"].data_ptr(), f["nreq"].data_ptr(),
+               f["wq"].data_ptr(), f["wp"].data_ptr()]
     if kernel == "fused_bitset":
         ins.append(f["mask"].data_ptr())
 
@@ -553,12 +669,17 @@ def fused_runner(f, kernel: str):
 
 
 def fused_plain(f, kernel: str):
-    """Each partition's plain K2 / K6 rows, stacked as the fused output."""
+    """Each partition's plain K2 / K7 / K6 rows, stacked as the fused
+    output."""
     ms, rs = [], []
     for i in range(len(f["hi"])):
         a = (f["qscale"][i], f["hi"][i], f["lo"][i], f["wq"][i])
         if kernel == "fused_disj":
             m, r = k.sweep_rowmax_plain(*a, f["live"][i], nsw=f["nsw"][i])
+        elif kernel == "fused_conj":
+            m, r = k.sweep_rowmax_conj_plain(
+                f["qscale"][i], f["nreq"][i], f["hi"][i], f["lo"][i],
+                f["wq"][i], f["wp"][i], f["live"][i], nsw=f["nsw"][i])
         else:
             m, r = k.sweep_rowmax_bitset_plain(*a, f["mask"][i], f["live"][i],
                                                nsw=f["nsw"][i])
@@ -582,42 +703,79 @@ def _kept_groups(mask, nsw: int):
     return rows.reshape(m.shape[0], nsw, -1, k.FUSED_STAGE_ROWS).any(-1)
 
 
+def _gate_groups(hi, lo, live, wp, nreq, nsw: int):
+    """[QC, nsw, 512 / FUSED_STAGE_ROWS] bool on the inputs' device: some
+    live doc of the row group passes the query's coverage gate in the
+    superwindow (cov = sum wp * ((hi | lo) != 0) == nreq, K7's), a
+    superwindow at a time. wp [QC, ws], nreq [QC, 1]."""
+    hpt = int(hi.shape[1])
+    w = wp[:, :hpt].float()
+    out = []
+    for sw in range(nsw):
+        c = slice(sw * k.N_CHUNKS, (sw + 1) * k.N_CHUNKS)
+        pres = ((hi[c] != 0) | (lo[c] != 0)).permute(1, 0, 2, 3)
+        cov = w @ pres.reshape(hpt, -1).float()           # exact integers
+        ok = (cov == nreq.float()) & (live[sw * k.SW_ROWS:(sw + 1)
+                                           * k.SW_ROWS].reshape(1, -1) > 0)
+        out.append(ok.reshape(ok.shape[0], -1, k.FUSED_STAGE_ROWS * 128)
+                   .any(-1))
+    return torch.stack(out, 1)
+
+
 def fused_stage_work(qscale, wq, hpts, nsw, mask=None,
-                     force: bool = False) -> dict:
+                     force: bool = False, conj=None) -> dict:
     """What fused_sweep_kernel does with a launch's inputs (F3 with `mask`,
-    its K5 stage's output), from its plan (kernels.fused_sweep_plan,
+    its K5 stage's output; F2 with `conj` = (nreq [S, QC, 1], wp [S, QC,
+    ws], hi, lo, live)), from its plan (kernels.fused_sweep_plan,
     fused_batches) and the same selection: per tile the staged queries (a
     fast_query list within slot_cap, the rank's and the tile's lists
-    within lc) and the direct ones, the batches and their union slots; per
-    (partition, superwindow) the stages copied (row group, batch; F3 only
-    where a query of the batch keeps a row of the group) and skipped, and
-    the bytes they copy (union slots x 1 KB a stage). `qscale` [S, QC, 1],
-    `wq` [S, 2, QC, ws] (card or host), `hpts` and `nsw` per partition.
-    Returns totals over the launch, {"cluster": False} where the launch
-    runs sweep_group_kernel (`force`: what the cluster kernel would do).
-    """
+    within lc; F2's lists hold its score and coverage slots, none for a
+    query with no score weight) and the direct ones, the batches and their
+    union slots; per (partition, superwindow) the stages copied (row group,
+    batch; F3 only where a query of the batch keeps a row of the group) and
+    skipped, and the bytes they copy (union slots x 1 KB a stage). F2 also
+    counts `dead_stages`, the stages in which no query of the batch keeps a
+    doc through its coverage gate, and `dead_score_bytes`, what a design
+    that staged those stages' coverage slots alone would not copy. `qscale`
+    [S, QC, 1], `wq` [S, 2, QC, ws] (card or host), `hpts` and `nsw` per
+    partition. Returns totals over the launch, {"cluster": False} where the
+    launch runs sweep_group_kernel (`force`: what the cluster kernel would
+    do)."""
     S, qc = int(wq.shape[0]), int(wq.shape[2])
-    plan = k.fused_sweep_plan(qc, max(hpts), mask is not None)
+    mode = "bitset" if mask is not None else "conj" if conj else "disj"
+    plan = k.fused_sweep_plan(qc, max(hpts), mode)
     if not plan["cluster"] and not force:
         return {"cluster": False}
-    wq_np = wq.cpu().numpy() if torch.is_tensor(wq) else np.asarray(wq)
-    qs_np = (qscale.cpu().numpy() if torch.is_tensor(qscale)
-             else np.asarray(qscale)).reshape(S, qc)
+
+    def host(a):
+        return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+    wq_np = host(wq)
+    qs_np = host(qscale).reshape(S, qc)
+    wp_np = None if not conj else host(conj[1])
     cl, n_g = k.FUSED_CLUSTER, k.SW_ROWS // k.FUSED_STAGE_ROWS
     tot = {"cluster": plan["cluster"], "tiles": 0, "staged": 0, "direct": 0,
            "batches": 0, "union_slots": [], "items": 0, "stages": 0,
            "skipped_stages": 0, "copy_bytes": 0}
+    if conj:
+        tot.update(dead_stages=0, dead_score_bytes=0)
     for z in range(S):
         hpt = hpts[z]
         wh = wq_np[z, 0, :, :hpt].astype(np.int64)
         wl = wq_np[z, 1, :, :hpt].astype(np.int64)
         kept = None if mask is None else _kept_groups(mask[z], nsw[z])
+        alive = None if not conj else _gate_groups(
+            conj[2][z], conj[3][z], conj[4][z], conj[1][z], conj[0][z],
+            nsw[z])
         tot["items"] += nsw[z]
         for w0 in range(0, qc, plan["gq"]):
             ng = min(plan["gq"], qc - w0)
             lists, fast = [], []
             for q in range(w0, w0 + ng):
-                lists.append(np.nonzero((wh[q] != 0) | (wl[q] != 0))[0])
+                sc = (wh[q] != 0) | (wl[q] != 0)
+                if conj and sc.any():
+                    sc = sc | (wp_np[z, q, :hpt] != 0)
+                lists.append(np.nonzero(sc)[0])
                 fast.append(16512 * np.abs(wh[q]).sum()
                             + 128 * np.abs(wl[q]).sum() < 2 ** 24
                             and qs_np[z, q] > 0)
@@ -643,18 +801,28 @@ def fused_stage_work(qscale, wq, hpts, nsw, mask=None,
                                       plan["slot_cap"])
             tot["batches"] += len(batches)
             for b in batches:
-                nu = len(set().union(*(set(lists[staged[t]].tolist())
-                                       for t in b)))
+                union = set().union(*(set(lists[staged[t]].tolist())
+                                      for t in b))
+                nu = len(union)
                 tot["union_slots"].append(nu)
+                rows = torch.tensor([w0 + staged[t] for t in b])
                 if kept is None:
                     n_st = nsw[z] * n_g
                 else:
-                    rows = torch.tensor([w0 + staged[t] for t in b],
-                                        device=kept.device)
-                    n_st = int(kept[rows].any(0).sum())
+                    n_st = int(kept[rows.to(kept.device)].any(0).sum())
                 tot["stages"] += n_st
                 tot["skipped_stages"] += nsw[z] * n_g - n_st
                 tot["copy_bytes"] += n_st * nu * 2 * k.FUSED_STAGE_ROWS * 128
+                if conj:
+                    dead = n_st - int(alive[rows.to(alive.device)].any(0)
+                                      .sum())
+                    cover = set().union(*(
+                        set(np.nonzero(wp_np[z, w0 + staged[t], :hpt])[0]
+                            .tolist()) for t in b))
+                    tot["dead_stages"] += dead
+                    tot["dead_score_bytes"] += (
+                        dead * len(union - cover) * 2
+                        * k.FUSED_STAGE_ROWS * 128)
     u = tot.pop("union_slots")
     tot["union_slots_mean"] = float(np.mean(u)) if u else 0.0
     tot["union_slots_max"] = int(max(u)) if u else 0
@@ -689,9 +857,14 @@ def launch_graph_ms(fn, reps: int = 50) -> float:
     return s.elapsed_time(e) / reps
 
 
+FUSED_MODE = {"fused_disj": "disj", "fused_conj": "conj",
+              "fused_bitset": "bitset"}
+
+
 def fused_main(args) -> int:
-    """The A/B of F1 or F3's sweep (see the module's note)."""
+    """The A/B of F1, F2 or F3's sweep (see the module's note)."""
     kern = args.kernel
+    mode = FUSED_MODE[kern]
     cuda_build.build_all()
     for line in cuda_build.BUILD_LOG.get("sweep_rowmax", "").splitlines():
         if "registers" in line or "spill" in line:
@@ -741,10 +914,11 @@ def fused_main(args) -> int:
         nbytes = ops = 0
         work = {}
         for i in range(len(f["hi"])):
-            if kern == "fused_disj":
-                b, o, nu, nnz = sweep_work(f["wq_np"][i],
-                                           int(f["live"][i].numel()),
-                                           f["nsw"][i])
+            if kern != "fused_bitset":
+                b, o, nu, nnz = sweep_work(
+                    f["wq_np"][i], int(f["live"][i].numel()), f["nsw"][i],
+                    *((f["wp_np"][i], f["nreq_np"][i])
+                      if kern == "fused_conj" else ()))
                 work.setdefault("union_slots", []).append(nu)
                 work.setdefault("nonzero_weights", []).append(nnz)
             else:
@@ -764,23 +938,29 @@ def fused_main(args) -> int:
                 t0 = buf[0]
                 print("trace", qc, [round((x - t0) / 1e3, 1) if x else None
                                     for x in buf], flush=True)
-        plan = k.fused_sweep_plan(qc, FUSED_HPT, kern == "fused_bitset")
+        plan = k.fused_sweep_plan(qc, FUSED_HPT, mode)
         kernel_ms = {}
         for n in fns:
-            names = (("sweep_group_kernel",) if n in old_kernel
-                     or (n == "current" and not plan["cluster"])
-                     else ("fused_sweep_kernel",))
-            kernel_ms[n] = kernel_alone(call(n), names=names)[0]
+            # the parent's launch runs either kernel (its own thresholds)
+            names = [("sweep_group_kernel",), ("fused_sweep_kernel",)]
+            if not (n in old_kernel
+                    or (n == "current" and not plan["cluster"])):
+                names.reverse()
+            kernel_ms[n] = kernel_alone(call(n), names=names[0])[0]
+            if kernel_ms[n] is None and n in old_kernel:
+                kernel_ms[n] = kernel_alone(call(n), names=names[1])[0]
         # the cluster kernel's work on these inputs (this tree's launch
         # below FUSED_MIN_QC runs sweep_group_kernel; its variants do not)
         stage_work = fused_stage_work(
             f["qscale"], f["wq"], [FUSED_HPT] * len(f["hi"]), f["nsw"],
-            f["mask"] if kern == "fused_bitset" else None, force=True)
+            f["mask"] if kern == "fused_bitset" else None, force=True,
+            conj=((f["nreq"], f["wp"], f["hi"], f["lo"], f["live"])
+                  if kern == "fused_conj" else None))
         case = {"QC": qc, "partitions": len(f["hi"]), "nsw": f["nsw"],
                 "Hpt": FUSED_HPT, **work, "stage_work": stage_work,
                 "plan": plan,
                 "clusters_at_once": cuda_build.kernel("fused_sweep_clusters")(
-                    qc, FUSED_HPT, int(kern == "fused_bitset")),
+                    qc, FUSED_HPT, k.FUSED_MODES.index(mode)),
                 "sms": torch.cuda.get_device_properties(0)
                 .multi_processor_count,
                 "bytes": nbytes, "int8_ops": ops, "ms": times,

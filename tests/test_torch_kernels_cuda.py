@@ -61,8 +61,8 @@ from elasticsearch_tpu_torch.parallel import cuda_build
 from elasticsearch_tpu_torch.parallel import kernels as k
 from torch_kernel_cases import (
     AGG_CASES, AGG_WORD_CASES, CONJ_EDGE_CASES, MERGE_EDGE_CASES,
-    FUSED_CASES, PACK_CASES, SPARSE_BATCH_CASES, agg_inputs, agg_masks,
-    agg_plan, fused_inputs,
+    FUSED_CASES, FUSED_CONJ_CASES, PACK_CASES, SPARSE_BATCH_CASES,
+    agg_inputs, agg_masks, agg_plan, fused_conj_inputs, fused_inputs,
     agg_section, agg_word_inputs, overflow_slots, pack_inputs,
     merge_edge_inputs, bitset_edge_inputs, bitset_inputs, clause_slots,
     conj_edge_inputs, conj_inputs, knn_inputs, lanes_and_groups,
@@ -204,19 +204,24 @@ def test_fused_sweep_kernel(dev, case, mode):
             assert torch.equal(o, w)
 
 
-@pytest.mark.parametrize("mode", ["disj", "bitset"])
+FUSED_PAD = {"disj": k.FUSED_MIN_QC, "bitset": k.FUSED_MIN_QC_BITSET,
+             "conj": k.FUSED_MIN_QC_CONJ}
+FUSED_HI = {"disj": 1, "conj": 2, "bitset": 4}   # cols_hi's argument
+
+
+@pytest.mark.parametrize("mode", ["disj", "bitset", "conj"])
 @pytest.mark.parametrize("case", list(FUSED_CASES))
 def test_fused_cluster_kernel_edges(dev, case, mode):
-    """F1 and F3 on every FUSED_CASES entry padded with inert queries to
-    the QC from which they run the cluster kernel (fused_sweep_kernel):
+    """F1-F3 on every FUSED_CASES entry padded with inert queries to the
+    QC from which they run the cluster kernel (fused_sweep_kernel):
     bitwise their plain versions, also on poisoned outputs, one launch of
     each kernel per 64 partitions."""
     name, kernels_ = FUSED_WRAPPERS[mode]
     bitset = mode == "bitset"
-    pad = k.FUSED_MIN_QC_BITSET if bitset else k.FUSED_MIN_QC
+    pad = FUSED_PAD[mode]
     args, nsw = _fused_args(case, dev, mode, pad_qc=pad)
-    hpt = max(int(h.shape[1]) for h in args[4 if bitset else 1])
-    assert k.fused_sweep_plan(pad, hpt, bitset)["cluster"]
+    hpt = max(int(h.shape[1]) for h in args[FUSED_HI[mode]])
+    assert k.fused_sweep_plan(pad, hpt, mode)["cluster"]
     fn = getattr(k, name)
     plain = getattr(k, name + "_plain")
     k.reset_launches()
@@ -234,6 +239,34 @@ def test_fused_cluster_kernel_edges(dev, case, mode):
         assert torch.equal(g, w) and torch.equal(a, w)
 
 
+@pytest.mark.parametrize("pad", [False, True])
+@pytest.mark.parametrize("case", FUSED_CONJ_CASES)
+def test_fused_conj_kernel_edges(dev, case, pad):
+    """F2 on its edges (FUSED_CONJ_CASES: coverage-only filters and
+    queries with no score weight, a must_not in a query's top row, nreq 0,
+    the integer path, 128 padding queries of 256, a tile whose score and
+    coverage slots pass one batch) at their own QC and padded with inert
+    queries to FUSED_MIN_QC_CONJ where below it, so on both sides of the
+    threshold: bitwise its plain version, also on poisoned outputs, one
+    launch."""
+    qc = fused_conj_inputs(case)["wq"].shape[2]
+    f = fused_conj_inputs(case, max(qc, k.FUSED_MIN_QC_CONJ) if pad
+                          else None)
+    c = {n: _c(f[n], dev) for n in ("qscale", "wq", "nreq", "wp")}
+    args = (c["qscale"], c["nreq"], [_c(a, dev) for a in f["hi"]],
+            [_c(a, dev) for a in f["lo"]], c["wq"], c["wp"],
+            [_c(a, dev) for a in f["live"]])
+    kw = {"nsw": f["nsw"], "n_rows": 33}
+    k.reset_launches()
+    got = k.fused_sweep_rowmax_conj(*args, **kw)
+    assert k.LAUNCHES["fused_sweep_rowmax_conj"] == 1, k.LAUNCHES
+    want = k.fused_sweep_rowmax_conj_plain(*args, **kw)
+    with k.poisoned():
+        again = k.fused_sweep_rowmax_conj(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
 def test_fused_max_parts_matches_kernel(dev):
     """kernels.MAX_FUSED_PARTS mirrors the built MAX_PARTS of both
     sources' fused entries."""
@@ -242,40 +275,52 @@ def test_fused_max_parts_matches_kernel(dev):
 
 def test_fused_sweep_plan_matches_kernel(dev):
     """kernels.fused_sweep_plan and the FUSED_* constants, which the CPU
-    emulation of F1 and F3's cluster kernel reads, are the built
-    sweep_rowmax.cu's (es_fused_sweep_plan), the QC from which a launch
-    runs the cluster kernel included."""
+    emulation of F1-F3's cluster kernel reads, are the built
+    sweep_rowmax.cu's (es_fused_sweep_plan) for each of the three modes,
+    the QC from which a launch runs the cluster kernel included; another
+    mode is refused."""
     import ctypes
 
     fn = cuda_build.kernel("fused_sweep_plan")
-    for qc in (1, 8, 24, 127, 128, 129, 256, 257, 1024):
+    for qc in (1, 8, 24, 63, 64, 127, 128, 129, 256, 257, 1024):
         for hpt in (9, 97, 225, 700, 4096):
-            for bitset in (0, 1):
+            for m, mode in enumerate(k.FUSED_MODES):
                 out = (ctypes.c_int * 10)()
-                assert fn(qc, hpt, bitset, out) == 0
-                p = k.fused_sweep_plan(qc, hpt, bool(bitset))
+                assert fn(qc, hpt, m, out) == 0
+                p = k.fused_sweep_plan(qc, hpt, mode)
                 assert list(out) == [p[x] for x in (
                     "gq", "oq", "lc", "dc", "ring_slots", "slot_cap",
                     "smem")] + [k.FUSED_CLUSTER, k.FUSED_STAGE_ROWS,
-                                int(p["cluster"])], (qc, hpt, bitset)
+                                int(p["cluster"])], (qc, hpt, mode)
+    assert fn(64, 97, 3, (ctypes.c_int * 10)()) != 0
+    for m, mode in enumerate(k.FUSED_MODES):
+        assert cuda_build.kernel("fused_sweep_clusters")(256, 97, m) >= 1
 
 
 def test_fused_kernels_refuse_bad_tables(dev):
     """The fused C entries refuse a table that does not fit the launch: a
-    partition nsw past nsw_max, more than MAX_PARTS partitions."""
-    args, nsw = _fused_args("three", dev, "disj")
-    qscale, hi, lo, wq, live = args
-    table = k._sweep_table(hi, lo, live, nsw,
-                           [int(h.shape[1]) for h in hi])
-    rm = torch.empty((3, 2, 8, k.CAND_PAD), device=dev)
-    rr = torch.empty((3, 2, 8, k.CAND_PAD), dtype=torch.int32, device=dev)
-    fn = cuda_build.kernel("fused_sweep_rowmax")
+    partition nsw past nsw_max, more than MAX_PARTS partitions; F1 at QC 8
+    (sweep_group_kernel) and F2 at FUSED_MIN_QC_CONJ (its cluster
+    kernel)."""
     stream = torch.cuda.current_stream().cuda_stream
-    for n_parts, nsw_max in ((3, 1), (k.MAX_FUSED_PARTS + 1, 2)):
-        rc = fn(table.ctypes.data, n_parts, qscale.data_ptr(),
-                wq.data_ptr(), rm.data_ptr(), rr.data_ptr(), 8,
-                int(wq.shape[3]), nsw_max, stream)
-        assert rc != 0, (n_parts, nsw_max)
+    for mode, qc in (("disj", 8), ("conj", k.FUSED_MIN_QC_CONJ)):
+        args, nsw = _fused_args("three", dev, mode, pad_qc=qc)
+        i = FUSED_HI[mode]
+        qscale, hi, lo, wq, live = (args[0], args[i], args[i + 1],
+                                    args[i + 2], args[-1])
+        table = k._sweep_table(hi, lo, live, nsw,
+                               [int(h.shape[1]) for h in hi])
+        rm = torch.empty((3, 2, qc, k.CAND_PAD), device=dev)
+        rr = torch.empty((3, 2, qc, k.CAND_PAD), dtype=torch.int32,
+                         device=dev)
+        ins = ([qscale, wq] if mode == "disj"
+               else [qscale, args[1], wq, args[5]])
+        fn = cuda_build.kernel(FUSED_WRAPPERS[mode][0])
+        for n_parts, nsw_max in ((3, 1), (k.MAX_FUSED_PARTS + 1, 2)):
+            rc = fn(table.ctypes.data, n_parts,
+                    *(t.data_ptr() for t in ins), rm.data_ptr(),
+                    rr.data_ptr(), qc, int(wq.shape[3]), nsw_max, stream)
+            assert rc != 0, (mode, n_parts, nsw_max)
 
 
 def test_sweep_group_constants_match_kernel(dev):

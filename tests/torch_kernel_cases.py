@@ -2213,10 +2213,87 @@ def fused_inputs(case, pad_qc=None):
     return out
 
 
-def fused_plan_of(case, bitset=False):
+def fused_plan_of(case, mode="disj"):
     """kernels.fused_sweep_plan for a FUSED_CASES entry."""
     qc, parts = FUSED_CASES[case]
-    return k.fused_sweep_plan(qc, max(h for _, h in parts), bitset)
+    return k.fused_sweep_plan(qc, max(h for _, h in parts), mode)
+
+
+# F2's edges for the fused sweeps: conj_edge_inputs' cases (coverage-only
+# filters and queries with no score weight, a must_not in every doc of a
+# query's top row, nreq 0, the integer path and a qscale <= 0, QC 256 of
+# which 128 are padding), each a partition beside a conj_inputs partition
+# of another (nsw, Hpt); and cover_union, a tile whose score slots fit one
+# batch but whose score and coverage slots do not
+FUSED_CONJ_CASES = ("filters", "must_not_top", "nreq0", "int_path",
+                    "padding", "cover_union")
+
+
+def _cover_union_partition(seed, qc=64, hpt=250, n_score=40):
+    """One partition of cover_union: qc - 1 fast conjunctions, each two
+    score slots among the first n_score (+1 coverage each) and three
+    coverage-only filters among the rest (dense columns), nreq 5; the last
+    query inert."""
+    qscale, nreq, hi, lo, wq, wp, live = conj_inputs(seed, qc, hpt, 1)
+    rng = np.random.default_rng(seed + 7)
+    wq[:] = 0
+    wp[:] = 0
+    nreq[:] = 0
+    for q in range(qc - 1):
+        sc = rng.choice(n_score, size=2, replace=False)
+        wq[0, q, sc] = rng.integers(1, 9, size=2)
+        wq[1, q, sc] = rng.integers(-127, 128, size=2)
+        filt = n_score + rng.choice(hpt - n_score - 1, size=3, replace=False)
+        wp[q, sc] = 1
+        wp[q, filt] = 1
+        nreq[q, 0] = 5
+    dense = rng.random(hi[:, n_score:].shape) < 0.8
+    hi[:, n_score:] = np.where(dense, 1, 0)
+    return qscale, nreq, hi, lo, wq, wp, live, 1
+
+
+def fused_conj_inputs(case, pad_qc=None):
+    """One F2 launch's inputs for a FUSED_CONJ_CASES entry, as
+    fused_inputs returns them (qscale, wq, nreq, wp stacked on a partition
+    axis padded to the widest cache; lists hi, lo, live, nsw); `pad_qc`
+    appends inert queries up to that QC."""
+    i = FUSED_CONJ_CASES.index(case)
+    if case == "cover_union":
+        parts = [_cover_union_partition(90), _cover_union_partition(91,
+                                                                   hpt=120)]
+    else:
+        first = conj_edge_inputs(case)
+        qc = first[4].shape[1]
+        second = conj_inputs(80 + i, qc, (17, 40, 9, 33, 25)[i],
+                             (1, 2, 1, 1, 2)[i]) + ((1, 2, 1, 1, 2)[i],)
+        if case == "padding":         # the engine pads every partition
+            second[4][:, 128:] = 0
+            second[5][128:] = 0
+            second[1][128:] = 0
+            second[0][128:] = 1.0
+        parts = [first, second]
+    qc = parts[0][4].shape[1]
+    hw = max(p[2].shape[1] for p in parts)
+    S = len(parts)
+    out = {"qscale": np.stack([p[0] for p in parts]),
+           "nreq": np.stack([p[1] for p in parts]),
+           "wq": np.zeros((S, 2, qc, hw), np.int8),
+           "wp": np.zeros((S, qc, hw), np.int8),
+           "hi": [p[2] for p in parts], "lo": [p[3] for p in parts],
+           "live": [p[6] for p in parts], "nsw": [p[7] for p in parts]}
+    for z, p in enumerate(parts):
+        out["wq"][z, :, :, :p[4].shape[2]] = p[4]
+        out["wp"][z, :, :p[5].shape[1]] = p[5]
+    if pad_qc is not None and pad_qc > qc:
+        n = pad_qc - qc
+        for name, fill, ax in (("qscale", 1, 1), ("nreq", 0, 1),
+                               ("wq", 0, 2), ("wp", 0, 1)):
+            a = out[name]
+            shape = list(a.shape)
+            shape[ax] = n
+            out[name] = np.concatenate(
+                [a, np.full(shape, fill, a.dtype)], axis=ax)
+    return out
 
 
 def _staged_row_bits(slots, wh, wl, h_sw, l_sw, gate, qs):
@@ -2240,36 +2317,47 @@ fused_batches = k.fused_batches
 
 
 def emulate_fused_sweep(qscale, wq, hi, lo, live, nsw, mask=None,
-                        stats=None):
-    """numpy emulation of sweep_rowmax.cu's fused_sweep_kernel (F1, or F3's
+                        stats=None, nreq=None, wp=None):
+    """numpy emulation of sweep_rowmax.cu's fused_sweep_kernel (F1; F3's
     sweep with `mask`, each partition's K5 output [QC, nsw_max * 16, 128]
-    stacked), cluster by cluster: tiles of the plan's gq queries; each
-    rank's own queries (j = rank mod FUSED_CLUSTER) with their counts,
-    their lists while the rank's lc holds them, the staged ones (fast, a
-    list within slot_cap, the tile's candidates' lists within lc) in order
-    then the direct ones; the staged ones in fused_batches, each batch's
-    union staged a row group at a time (F3: only the row groups a query of
-    the batch keeps), scored by _staged_row_bits; the direct ones by
-    _row_bits (sweep_group_kernel's paths); each rank's 64 rows, and the
-    selection over the 512 with lane l holding rows l + 32 k of rank k / 2.
-    `stats` (a dict) counts batches, direct queries and skipped stages.
-    Returns (rowmax, rows) [S, nsw_max, QC, CAND_PAD]."""
+    stacked; F2 with `nreq` [S, QC, 1] and `wp` [S, QC, ws]), cluster by
+    cluster: tiles of the plan's gq queries; each rank's own queries (j =
+    rank mod FUSED_CLUSTER) with their counts, their lists (sweep_list:
+    F2's score-only, score and coverage, then coverage-only slots, empty
+    for a query with no score weight) while the rank's lc holds them, the
+    staged ones (fast, a list within slot_cap, the tile's candidates' lists
+    within lc) in order then the direct ones; the staged ones in
+    fused_batches over their whole lists (F2: the union of score and
+    coverage slots), each batch's union staged a row group at a time (F3:
+    only the row groups a query of the batch keeps); each query's gate
+    (live; F3 its mask's bits; F2 cov = sum wp * ((hi | lo) != 0) over the
+    list's coverage part == nreq, from the staged bytes), then its score
+    part scored by _staged_row_bits, the direct ones by _row_bits
+    (sweep_group_kernel's paths); each rank's 64 rows, and the selection
+    over the 512 with lane l holding rows l + 32 k of rank k / 2. `stats`
+    (a dict) counts batches, staged and direct queries, stages copied and
+    skipped, and F2's dead stages (no query of the batch keeps a doc of
+    the row group). Returns (rowmax, rows) [S, nsw_max, QC, CAND_PAD]."""
     S, qc = wq.shape[0], wq.shape[2]
     hpts = [h.shape[1] for h in hi]
-    plan = k.fused_sweep_plan(qc, max(hpts), mask is not None)
+    mode = "bitset" if mask is not None else "conj" if wp is not None \
+        else "disj"
+    plan = k.fused_sweep_plan(qc, max(hpts), mode)
     cl, rb, r = k.FUSED_CLUSTER, k.SW_ROWS // k.FUSED_CLUSTER, \
         k.FUSED_STAGE_ROWS
     nsw_max = max(nsw)
     rm = np.full((S, nsw_max, qc, k.CAND_PAD), -np.inf, np.float32)
     rr = np.zeros((S, nsw_max, qc, k.CAND_PAD), np.int32)
     st = stats if stats is not None else {}
-    for key in ("batches", "direct", "staged", "stages", "skipped_stages"):
+    for key in ("batches", "direct", "staged", "stages", "skipped_stages",
+                "dead_stages"):
         st.setdefault(key, 0)
     lanes = np.arange(32)
     for z in range(S):
         hpt = hpts[z]
         wh = wq[z, 0, :, :hpt].astype(np.int64)
         wl = wq[z, 1, :, :hpt].astype(np.int64)
+        wc = None if wp is None else wp[z, :, :hpt].astype(np.int64)
         for sw in range(nsw[z]):
             alive = live[z][sw * k.SW_ROWS:(sw + 1) * k.SW_ROWS] > 0
             cs = slice(sw * k.N_CHUNKS, (sw + 1) * k.N_CHUNKS)
@@ -2280,12 +2368,12 @@ def emulate_fused_sweep(qscale, wq, hi, lo, live, nsw, mask=None,
                 info = []
                 for j in range(ng):
                     q = w0 + j
-                    slots = np.nonzero((wh[q] != 0) | (wl[q] != 0))[0]
+                    slots, n_score, c0 = sweep_list(q, wh, wl, wc)
                     qs = float(qscale[z, q, 0])
                     fast = (16512 * np.abs(wh[q]).sum()
                             + 128 * np.abs(wl[q]).sum() < 2 ** 24
                             and qs > 0)
-                    info.append((q, slots, qs, fast))
+                    info.append((q, slots, qs, fast, n_score, c0))
                 # each rank's own offsets: candidates in its order while
                 # their lists add up to lc
                 own_ok = {}
@@ -2312,7 +2400,7 @@ def emulate_fused_sweep(qscale, wq, hi, lo, live, nsw, mask=None,
                 keep = np.ones((len(order), k.SW_ROWS), bool)
                 gates = {}
                 for t, j in enumerate(order):
-                    q = info[j][0]
+                    q, slots, _, _, _, c0 = info[j]
                     g = alive
                     if mask is not None:
                         words = mask[z, q, sw * k.SW_WORD_ROWS:
@@ -2322,11 +2410,18 @@ def emulate_fused_sweep(qscale, wq, hi, lo, live, nsw, mask=None,
                                  >> bit[:, None]) & 1) != 0
                         keep[t] = kept.any(axis=1)
                         g = alive & kept
+                    if wc is not None:
+                        cov_s = slots[c0:]
+                        present = (h_sw[cov_s] != 0) | (l_sw[cov_s] != 0)
+                        cov = np.tensordot(wc[q][cov_s],
+                                           present.astype(np.int64), 1)
+                        g = alive & (cov == int(nreq[z, q, 0]))
                     gates[t] = g
                 batches = fused_batches([info[j][1] for j in staged],
                                         plan["slot_cap"])
                 st["batches"] += len(batches)
                 for b in batches:
+                    doc_kept = np.stack([gates[t].any(axis=1) for t in b])
                     for rank in range(cl):
                         for g0 in range(rank * rb, (rank + 1) * rb, r):
                             rows = slice(g0, g0 + r)
@@ -2334,15 +2429,17 @@ def emulate_fused_sweep(qscale, wq, hi, lo, live, nsw, mask=None,
                                 st["skipped_stages"] += 1
                                 continue
                             st["stages"] += 1
+                            st["dead_stages"] += int(
+                                not doc_kept[:, rows].any())
                     for t in b:
-                        q, slots, qs, _ = info[order[t]]
-                        v = _staged_row_bits(slots, wh[q], wl[q], h_sw, l_sw,
-                                             gates[t], qs)
+                        q, slots, qs, _, n_score, _ = info[order[t]]
+                        v = _staged_row_bits(slots[:n_score], wh[q], wl[q],
+                                             h_sw, l_sw, gates[t], qs)
                         vals[t] = np.where(keep[t], v, 0)
                 for t in range(len(staged), len(order)):
-                    q, slots, qs, _ = info[order[t]]
-                    vals[t] = _row_bits(q, slots, wh, wl, h_sw, l_sw,
-                                        gates[t], qs)
+                    q, slots, qs, _, n_score, _ = info[order[t]]
+                    vals[t] = _row_bits(q, slots[:n_score], wh, wl, h_sw,
+                                        l_sw, gates[t], qs)
                 tof = {j: t for t, j in enumerate(order)}
                 for j in range(ng):
                     q = w0 + j
